@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of ``tpu_distalg``.
+
+A second package beside the JAX one: the same workloads, written in
+PyTorch, with every Pallas kernel of the JAX package rewritten by hand
+for Hopper (CUDA C++ under ``csrc/``). It imports ``torch`` and never
+``jax`` or anything of ``tpu_distalg``.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(:func:`tpu_distalg_torch.utils.device.resolve_device`); asking for
+``cuda`` without a card raises.
+
+Ported so far: ALS training (``models/als.py``), its artifact
+(``utils/checkpoint.py``) and micro-batched top-k serving
+(``serve/``) through the fused matmul+top-k kernel (``ops/topk.py``,
+``csrc/topk.cu``).
+"""

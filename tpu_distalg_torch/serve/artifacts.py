@@ -1,0 +1,152 @@
+"""Checkpoint → servable model (port of ``tpu_distalg/serve/artifacts.py``).
+
+Only the ALS adapter is ported: payload = one user id, reply =
+``(scores (k_top,) f32, item_ids (k_top,) int32)``. A batch runs
+``U[ids]`` on the device, then the fused matmul+top-k kernel
+(``ops/topk.py``) against the whole item-factor matrix, then ONE
+device→host copy. Every batch is padded to ``max_batch`` rows, so
+batched and unbatched requests run the same code and a reply does not
+depend on what else was in its batch.
+
+Not ported yet: the LR-family and k-means adapters (their tags raise a
+``ValueError``), model-axis sharding of V with the sparse candidate
+merge, and the JAX package's corrupt-read re-read fallback.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpu_distalg_torch.ops import topk
+from tpu_distalg_torch.telemetry import events as tevents
+from tpu_distalg_torch.utils import checkpoint
+from tpu_distalg_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class ServedModel:
+    """One servable model: ``make_predict(max_batch)`` builds (once per
+    batch size) the predictor ``predict(payloads) -> [reply, ...]``."""
+
+    name: str
+    kind: str
+    make_predict: object
+    source: str = "memory"
+    meta: dict = dataclasses.field(default_factory=dict)
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def predictor(self, max_batch: int):
+        fn = self._cache.get(max_batch)
+        if fn is None:
+            fn = self._cache[max_batch] = self.make_predict(max_batch)
+        return fn
+
+    def predict_batch(self, payloads, max_batch: int):
+        return self.predictor(max_batch)(payloads)
+
+    def predict_one(self, payload, max_batch: int):
+        """One request through the same padded predictor a full batch
+        uses."""
+        return self.predict_batch([payload], max_batch)[0]
+
+
+def _stack_pad(payloads, shape: tuple, dtype, max_batch: int,
+               what: str) -> np.ndarray:
+    """Stack payloads into a (max_batch, *shape) array; zero rows pad
+    the tail (inert: replies are sliced back to the request count)."""
+    if len(payloads) > max_batch:
+        raise ValueError(
+            f"{what}: batch of {len(payloads)} exceeds max_batch="
+            f"{max_batch}")
+    out = np.zeros((max_batch,) + shape, dtype)
+    for r, p in enumerate(payloads):
+        arr = np.asarray(p, dtype)
+        if arr.shape != shape:
+            raise ValueError(
+                f"{what}: payload {r} has shape {arr.shape}, "
+                f"want {shape}")
+        out[r] = arr
+    return out
+
+
+def _true_rows(M) -> int:
+    """Count of leading rows up to the last non-zero one — the true
+    item count of a factor matrix whose tail was zero-padded. On a
+    device tensor only the resulting scalar crosses to the host."""
+    M = torch.as_tensor(M)
+    nz = torch.any(M != 0, dim=1)
+    pos = torch.arange(1, M.shape[0] + 1, device=M.device)
+    return int(torch.max(torch.where(nz, pos, 0))) if M.shape[0] else 0
+
+
+def als_model(U, V, *, device: str | torch.device | None = None,
+              k_top: int = 10, n_items: int | None = None,
+              block_items: int | None = None, name: str = "als",
+              source: str = "memory") -> ServedModel:
+    """Top-k recommendation from ALS factors ``U`` (users, r) and
+    ``V`` (items, r), numpy arrays or tensors. ``n_items`` overrides
+    the true catalogue size; by default a zero-padded tail of V is
+    detected and masked."""
+    dev = resolve_device(device)
+    U_dev = torch.as_tensor(U, dtype=torch.float32, device=dev).contiguous()
+    V_dev = torch.as_tensor(V, dtype=torch.float32, device=dev).contiguous()
+    if U_dev.dim() != 2 or V_dev.dim() != 2 or \
+            U_dev.shape[1] != V_dev.shape[1]:
+        raise ValueError(f"U {tuple(U_dev.shape)} vs V "
+                         f"{tuple(V_dev.shape)}: factor ranks differ")
+    n_true = int(n_items) if n_items is not None else _true_rows(V_dev)
+    if not 0 < n_true <= V_dev.shape[0]:
+        raise ValueError(
+            f"n_items={n_true} invalid for V with {V_dev.shape[0]} rows")
+    if k_top < 1:
+        raise ValueError(f"k_top must be >= 1, got {k_top}")
+    n_users = int(U_dev.shape[0])
+
+    def make_predict(max_batch: int):
+        def predict(payloads):
+            ids = _stack_pad(payloads, (), np.int64, max_batch,
+                             f"als:{name}")
+            if ids.min() < 0 or ids.max() >= n_users:
+                raise ValueError(f"als:{name}: user id out of range "
+                                 f"[0, {n_users})")
+            q = U_dev[torch.as_tensor(ids, device=dev)]
+            vals, idx = topk.fused_matmul_topk(
+                q, V_dev, 0, n_true, k=k_top, block_items=block_items)
+            # one device→host copy per batch: the int32 ids ride
+            # bit-cast beside the float32 scores
+            host = torch.cat((vals, idx.view(torch.float32)), 1).cpu()
+            host = host.numpy()
+            v = host[:, :k_top]
+            i = np.ascontiguousarray(host[:, k_top:]).view(np.int32)
+            return [(v[r].copy(), i[r].copy())
+                    for r in range(len(payloads))]
+
+        return predict
+
+    return ServedModel(
+        name=name, kind="als", make_predict=make_predict, source=source,
+        meta={"n_items": n_true, "n_users": n_users,
+              "rank": int(U_dev.shape[1]), "k_top": k_top,
+              "device": str(dev)})
+
+
+def load_artifact(path: str, *, device: str | torch.device | None = None,
+                  name: str | None = None, k_top: int = 10,
+                  block_items: int | None = None) -> ServedModel:
+    """Open one of the port's checkpoint directories as a
+    :class:`ServedModel`, dispatching on the checkpoint's tag."""
+    payload, step = checkpoint.restore(path)
+    tag = payload["tag"]
+    root = tag.split(":", 1)[0]
+    tevents.emit("serve_artifact_loaded", path=path, tag=tag, step=step)
+    if root == "als":
+        U, V = payload["state"][:2]
+        return als_model(U, V, device=device, k_top=k_top,
+                         block_items=block_items, name=name or "als",
+                         source=path)
+    raise ValueError(
+        f"checkpoint under {path} holds workload {root!r}: only 'als' is "
+        f"served (the lr-family and kmeans_* adapters are not ported yet)")

@@ -1,0 +1,135 @@
+"""The port's artifacts: ``step_<N>.npz`` with a CRC32 footer.
+
+A file is an ``np.savez`` body (no pickle: the tag is a unicode array,
+the state leaves are numeric arrays ``state_0``, ``state_1``, …)
+followed by the JAX package's footer, ``\\x00TDACRC1`` and the
+little-endian CRC32 of the body. Writes go to a temporary file that is
+fsynced, atomically renamed into place, and the directory fsynced
+after, so a crash leaves the old file or the new one, never half of
+one. :func:`restore` checks the footer before it parses anything; a
+missing or wrong footer raises :class:`CorruptCheckpointError`.
+
+The JAX package writes ``step_<N>.msgpack`` (flax serialisation),
+which the port does not read: :func:`restore` raises a message naming
+that format. The two packages exchange factors through numpy instead
+(``tpu_distalg_torch/convert.py``).
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import re
+import struct
+import zipfile
+import zlib
+
+import numpy as np
+
+_STEP_RE = re.compile(r"^step_(\d+)\.npz$")
+_MSGPACK_RE = re.compile(r"^step_(\d+)\.msgpack$")
+_CRC_MAGIC = b"\x00TDACRC1"
+_CRC_FOOTER_LEN = len(_CRC_MAGIC) + 4
+
+
+class CorruptCheckpointError(ValueError):
+    """A checkpoint file exists but fails its CRC or will not parse."""
+
+    def __init__(self, path: str, msg: str):
+        super().__init__(msg)
+        self.path = path
+
+
+def _fsync_dir(directory: str) -> None:
+    """fsync the directory so the rename itself is durable. Some
+    filesystems refuse directory fds; the rename already happened."""
+    try:
+        fd = os.open(directory, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def save(ckpt_dir: str, tag: str, state, step: int) -> str:
+    """Write ``{"tag": tag, "state": [leaves]}`` as
+    ``ckpt_dir/step_<step>.npz``; returns the path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    arrays = {"tag": np.asarray(tag)}
+    for j, leaf in enumerate(state):
+        arrays[f"state_{j}"] = np.ascontiguousarray(np.asarray(leaf))
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    body = buf.getvalue()
+    footer = _CRC_MAGIC + struct.pack("<I", zlib.crc32(body) & 0xFFFFFFFF)
+    path = os.path.join(ckpt_dir, f"step_{step}.npz")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(body)
+        f.write(footer)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    _fsync_dir(ckpt_dir)
+    return path
+
+
+def _steps(ckpt_dir: str, pattern: re.Pattern) -> list[int]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for name in os.listdir(ckpt_dir)
+                  if (m := pattern.match(name)))
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    steps = _steps(ckpt_dir, _STEP_RE)
+    return steps[-1] if steps else None
+
+
+def _body(path: str, raw: bytes) -> bytes:
+    if len(raw) < _CRC_FOOTER_LEN or \
+            raw[-_CRC_FOOTER_LEN:-4] != _CRC_MAGIC:
+        raise CorruptCheckpointError(
+            path, f"corrupt checkpoint {path}: no CRC footer — the file "
+                  f"was torn or was not written by this package")
+    body = raw[:-_CRC_FOOTER_LEN]
+    (want,) = struct.unpack("<I", raw[-4:])
+    got = zlib.crc32(body) & 0xFFFFFFFF
+    if got != want:
+        raise CorruptCheckpointError(
+            path, f"corrupt checkpoint {path}: CRC32 mismatch (stored "
+                  f"{want:#010x}, computed {got:#010x})")
+    return body
+
+
+def restore(ckpt_dir: str, step: int | None = None) -> tuple[dict, int]:
+    """Load ``({"tag": str, "state": [np.ndarray, ...]}, step)``;
+    ``step=None`` loads the newest checkpoint."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            if _steps(ckpt_dir, _MSGPACK_RE):
+                raise ValueError(
+                    f"{ckpt_dir} holds only step_<N>.msgpack files, the "
+                    f"JAX package's flax msgpack checkpoint format, which "
+                    f"this package does not read — carry the factors "
+                    f"across as numpy arrays (tpu_distalg_torch.convert)")
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    path = os.path.join(ckpt_dir, f"step_{step}.npz")
+    with open(path, "rb") as f:
+        raw = f.read()
+    body = _body(path, raw)
+    try:
+        with np.load(io.BytesIO(body), allow_pickle=False) as z:
+            tag = str(z["tag"])
+            n = sum(1 for name in z.files if name.startswith("state_"))
+            state = [z[f"state_{j}"] for j in range(n)]
+    except (ValueError, KeyError, OSError, zipfile.BadZipFile) as e:
+        raise CorruptCheckpointError(
+            path, f"corrupt checkpoint {path} ({type(e).__name__}: {e})"
+        ) from e
+    return {"tag": tag, "state": state}, step
