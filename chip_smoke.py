@@ -2,26 +2,33 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Phases, each printing its own lines; any failure raises and the script
-exits non-zero without printing a result:
+Phases, each printing its own lines and its time; any failure raises
+and the script exits non-zero without printing a result:
 
   1. device: the card's name, and its power limit from nvidia-smi;
-  2. build: nvcc builds every kernel of the main path from ``csrc/``;
+  2. build: nvcc builds every kernel library of the ported paths from
+     ``csrc/``, all at once;
   3. kernels: each kernel against its plain PyTorch version on the card —
-     exact integer cases bitwise, random cases by the tie-tolerance rule
-     — and its time beside the plain version's, a library call's and
-     the card's bound;
-  4. ALS: the card against the CPU at a small size, then the main path's
-     training at full width (4096 users × 16384 items, rank 64);
+     exact integer cases bitwise, random cases within a stated
+     tolerance — and its time at the main path's shape beside the plain
+     version's, a library call's and the card's bound;
+  4. ALS: the card against the CPU at a small size, then the serving
+     path's training at full width (4096 users × 16384 items, rank 64);
   5. serve: the trained artifact loaded into the micro-batching server
-     and 2048 requests answered through the kernel, each checked against
-     the plain version;
-  6. the kernels line, then the last line
+     and 2048 requests answered through the top-k kernel, each checked
+     against the plain version;
+  6. SSGD: logistic regression at bench.py's geometry (1,048,576 rows ×
+     125 features + bias, 8192-row blocks, 1500 steps) through
+     ``ssgd.prepare_fused``/``make_train_fn``: ``fused_train`` (kernel
+     B2), ``fused_gather`` (B1) and ``bernoulli`` with ``use_pallas``
+     (B6), then the breast-cancer reference task on the fused samplers;
+  7. the kernels line, then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
-The launch counters are set to 0 just before the main path (phases 4's
-full-width fit and 5) and read just after it, so the kernels line shows
-that the path went through every kernel.
+Every path is driven with all launch counters set to 0 just before it
+and read just after it (the serving path: phase 4's full-width fit and
+phase 5; each SSGD path on its own), so the kernels line shows that each
+path went through its kernel.
 """
 
 from __future__ import annotations
@@ -239,6 +246,387 @@ def check_served(dev, workdir: str, run: dict) -> None:
           f"{stats['p99_ms']!r} ms, {stats['shed']} shed")
 
 
+#: SSGD at bench.py's geometry (bench.py:90-102): rows × features (a
+#: bias column is appended), rows per sampled block, steps per run,
+#: steps per B2 launch
+SSGD_ROWS, SSGD_FEATURES, SSGD_GBR, SSGD_STEPS, SSGD_MEGA = (
+    1 << 20, 125, 8192, 1500, 125)
+#: the JAX package's convergence band on the reference task
+#: (tests_tpu/test_tpu_numerics.py; the reference reaches 0.929825) and
+#: bench.py's convergence schedule (bench.py:2068-2089)
+SSGD_BAND, REF_STEPS, REF_MEGA = 0.92, 1500, 125
+
+
+def _ssgd_cases(dev):
+    """Small SSGD cases: (label, kind, X2, meta, gbr, w, ids (T, n_s)).
+    "exact": entries in {-2..2} and w = 0, so σ(z) = 0.5 and every sum
+    is exact; "integer": w a multiple of 1/64, so every z is exact;
+    "random": normal entries."""
+    import torch
+
+    from tpu_distalg_torch.ops import ssgd_kernels as tk
+
+    rng = np.random.default_rng(SEED + 11)
+    out = []
+    for kind in ("exact", "integer", "random"):
+        for dt, n, d, pack, gbr in (("bfloat16", 20000, 125, 16, 2048),
+                                    ("float32", 398, 31, 4, 32),
+                                    ("bfloat16", 5000, 600, 16, 1024)):
+            X = (rng.normal(size=(n, d)) if kind == "random"
+                 else rng.integers(-2, 3, size=(n, d))).astype(np.float32)
+            y = rng.integers(0, 2, n).astype(np.float32)
+            X2, meta = tk.pack_augmented(X, y, np.ones(n, np.float32),
+                                         dtype=dt, pack=pack,
+                                         block_rows=gbr, device=dev)
+            w = np.zeros(meta["d_total"], np.float32)
+            if kind == "integer":
+                w[:d] = rng.integers(-8, 9, size=d) / 64.0
+            elif kind == "random":
+                w[:d] = rng.normal(size=d) * 0.1
+            n_blocks = meta["n_padded"] // gbr
+            ids = np.stack([rng.integers(0, n_blocks, 3)
+                            for _ in range(9)]).astype(np.int32)
+            out.append((f"{kind} {dt} n={n} d={d} pack={pack} gbr={gbr}",
+                        kind, X2, meta, gbr, torch.as_tensor(w, device=dev),
+                        torch.as_tensor(ids, device=dev)))
+    return out
+
+
+#: relative tolerances (of the largest entry): "integer" cases within
+#: 64 float32 ulps (σ(z) may differ in its last bit and the backward
+#: sum adds in another order); "random" float32 sums within 1e-5;
+#: "steps_bf16": weights after several B2 steps on bf16 X, within 1e-3
+#: (a residual rounded to bf16 can land one bf16 ulp, 2⁻⁸ relative,
+#: apart after float32 sums in two orders, and later steps carry that)
+TOL = {"integer": 64 * 2.0**-23, "random": 1e-5, "steps_bf16": 1e-3}
+
+
+def _steps_kind(X2) -> str:
+    import torch
+
+    return "steps_bf16" if X2.dtype == torch.bfloat16 else "random"
+
+
+def _assert_close(what, got, want, kind):
+    """Counts and exact cases bitwise, the others within ``TOL``."""
+    import torch
+
+    if kind == "exact":
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: not bitwise equal")
+        return 0.0
+    rel = TOL[kind]
+    err = float((got - want).abs().max())
+    tol = rel * float(want.abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{what}: max |err| {err} > {tol}")
+    return err
+
+
+def check_ssgd_kernels_small(dev) -> None:
+    """Phase 3b: B6, B1 and B2 against their plain versions on small
+    cases (odd widths, repeated block ids, the EASGD pull, skip_update),
+    and a fixed input replaying bitwise."""
+    import torch
+
+    from tpu_distalg_torch.ops import ssgd_kernels as tk
+
+    for label, kind, X2, meta, gbr, w, ids in _ssgd_cases(dev):
+        kw = dict(pack=meta["pack"], d_total=meta["d_total"],
+                  y_col=meta["y_col"], v_col=meta["v_col"],
+                  gather_block_rows=gbr)
+        yc, D = meta["y_col"], meta["d_total"]
+        rows = X2.reshape(-1, D)
+        mask = (torch.arange(rows.shape[0], device=dev) % 3 == 0).float()
+        g6, c6 = tk.fused_grad_sum(rows, rows[:, yc].float().contiguous(),
+                                   mask, w)
+        r6, rc6 = tk.grad_sum_reference(rows, rows[:, yc].float(), mask, w)
+        if float(c6) != float(rc6):
+            raise AssertionError(f"B6 {label}: count {c6} != {rc6}")
+        e6 = _assert_close(f"B6 {label}", g6, r6, kind)
+        g1, c1 = tk.fused_grad_sum_gathered(X2, w, ids[0], **kw)
+        r1, rc1 = tk.grad_sum_gathered_reference(X2, w, ids[0], **kw)
+        if float(c1) != float(rc1):
+            raise AssertionError(f"B1 {label}: count {c1} != {rc1}")
+        e1 = _assert_close(f"B1 {label}", g1[:yc], r1[:yc], kind)
+        again = tk.fused_grad_sum_gathered(X2, w, ids[0], **kw)
+        if not (torch.equal(again[0], g1) and torch.equal(again[1], c1)):
+            raise AssertionError(f"B1 {label}: replay differs")
+        errs = []
+        for alpha, skip in ((0.0, False), (0.3, False), (0.0, True)):
+            ctr = w.flip(0) * (torch.arange(D, device=dev) < yc)
+            wk = tk.fused_train_gathered(X2, w, ids, eta=0.1, alpha=alpha,
+                                         center=ctr, skip_update=skip, **kw)
+            wr = tk.train_gathered_reference(X2, w, ids, eta=0.1,
+                                             alpha=alpha, center=ctr,
+                                             skip_update=skip, **kw)
+            # after the first update no case is exact any more
+            errs.append(_assert_close(f"B2 {label} alpha={alpha} skip="
+                                      f"{skip}", wk, wr, _steps_kind(X2)))
+            if not torch.equal(wk, tk.fused_train_gathered(
+                    X2, w, ids, eta=0.1, alpha=alpha, center=ctr,
+                    skip_update=skip, **kw)):
+                raise AssertionError(f"B2 {label}: replay differs")
+        print(f"[kernels] ssgd {label}: B6 count {float(c6)!r} equal, max "
+              f"|err| {e6!r}; B1 count {float(c1)!r} equal, max |err| "
+              f"{e1!r}, replay bitwise; B2 (9 steps; alpha 0, 0.3, "
+              f"skip_update) max |err| {errs!r}, replay bitwise")
+
+
+def _ssgd_bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids1,
+                        ids_seg, w_aug) -> dict:
+    """Phase 3c: each SSGD kernel at the main path's shape against its
+    plain version, timed beside the plain version, a library call and
+    the bound."""
+    import torch
+
+    from tpu_distalg_torch.ops import ssgd_kernels as tk
+
+    recs = {}
+    n, d = X_f32.shape
+    g, c = tk.fused_grad_sum(X_f32, y_f32, mask, w_plain)
+    gr, cr = tk.grad_sum_reference(X_f32, y_f32, mask, w_plain)
+    if float(c) != float(cr):
+        raise AssertionError(f"B6 main shape: count {c} != {cr}")
+    err = _assert_close("B6 main shape", g, gr, "random")
+
+    def lib6():
+        return (torch.mv(X_f32.T, (torch.sigmoid(torch.mv(X_f32, w_plain))
+                                   - y_f32) * mask), mask.sum())
+
+    bound = _ssgd_bound_ms(4 * (n * d + 2 * n + d + d + 1),
+                           4 * n * d + 6 * n)
+    recs["B6"] = dict(
+        max_abs_err=err,
+        ms=_time_ms(lambda: tk.fused_grad_sum(X_f32, y_f32, mask,
+                                                   w_plain), 50),
+        plain_ms=_time_ms(lambda: tk.grad_sum_reference(
+            X_f32, y_f32, mask, w_plain), 20),
+        library_ms=_time_ms(lib6, 20),
+        bound_ms=bound[0], bound_by=bound[1])
+
+    D, yc, vc = meta["d_total"], meta["y_col"], meta["v_col"]
+    kw = dict(pack=meta["pack"], d_total=D, y_col=yc, v_col=vc,
+              gather_block_rows=SSGD_GBR)
+    g, c = tk.fused_grad_sum_gathered(X2, w_aug, ids1, **kw)
+    gr, cr = tk.grad_sum_gathered_reference(X2, w_aug, ids1, **kw)
+    if float(c) != float(cr):
+        raise AssertionError(f"B1 main shape: count {c} != {cr}")
+    err = _assert_close("B1 main shape", g[:yc], gr[:yc], "random")
+    blocks = X2.reshape(-1, SSGD_GBR, D)
+    wq = w_aug.to(X2.dtype)
+
+    def lib1(ids, w16):
+        x = torch.index_select(blocks, 0, ids).reshape(-1, D)
+        r = (torch.sigmoid(torch.mv(x, w16).float()) - x[:, yc].float()) \
+            * x[:, vc].float()
+        return torch.mv(x.T, r.to(x.dtype)).float(), x[:, vc].float().sum()
+
+    n_s = ids1.shape[0]
+    rows = n_s * SSGD_GBR
+    step_bytes = rows * D * X2.element_size()
+    bound = _ssgd_bound_ms(step_bytes + 4 * (n_s + D + D + 1), 4 * rows * D)
+    recs["B1"] = dict(
+        max_abs_err=err,
+        ms=_time_ms(lambda: tk.fused_grad_sum_gathered(
+            X2, w_aug, ids1, **kw), 200),
+        plain_ms=_time_ms(lambda: tk.grad_sum_gathered_reference(
+            X2, w_aug, ids1, **kw), 50),
+        library_ms=_time_ms(lambda: lib1(ids1.long(), wq), 50),
+        bound_ms=bound[0], bound_by=bound[1])
+
+    T = ids_seg.shape[0]
+    eta = 0.1
+    wk = tk.fused_train_gathered(X2, w_aug, ids_seg, eta=eta, **kw)
+    wr = tk.train_gathered_reference(X2, w_aug, ids_seg, eta=eta, **kw)
+    err = _assert_close(f"B2 main shape ({T} steps)", wk, wr,
+                        _steps_kind(X2))
+    keep = torch.arange(D, device=dev) < yc
+    ids_long = ids_seg.long()
+
+    def lib2():
+        w = w_aug
+        for t in range(T):
+            gt, ct = lib1(ids_long[t], torch.where(keep, w, 0.0).to(X2.dtype))
+            w = w - (eta / torch.clamp_min(ct, 1.0)) * torch.where(keep, gt,
+                                                                   0.0)
+        return w
+
+    bound = _ssgd_bound_ms(T * step_bytes + 4 * (T * n_s + 3 * D),
+                           T * (4 * rows * D + 3 * D))
+    skip_ms = _time_ms(lambda: tk.fused_train_gathered(
+        X2, w_aug, ids_seg, eta=eta, skip_update=True, **kw), 10)
+    recs["B2"] = dict(
+        max_abs_err=err,
+        ms=_time_ms(lambda: tk.fused_train_gathered(
+            X2, w_aug, ids_seg, eta=eta, **kw), 10),
+        plain_ms=_time_ms(lambda: tk.train_gathered_reference(
+            X2, w_aug, ids_seg, eta=eta, **kw), 3, warm=1),
+        library_ms=_time_ms(lib2, 3, warm=1),
+        bound_ms=bound[0], bound_by=bound[1])
+    for name, shape in (("B6", f"X ({n}, {d}) float32"),
+                        ("B1", f"{n_s} blocks of {SSGD_GBR} rows, D={D} "
+                               f"{X2.dtype}"),
+                        ("B2", f"{T} steps × {n_s} blocks of {SSGD_GBR} "
+                               f"rows, D={D} {X2.dtype}")):
+        r = recs[name]
+        print(f"[kernels] ssgd {name} main shape ({shape}): max |err| "
+              f"{r['max_abs_err']!r} vs plain; kernel {r['ms']!r} ms, plain "
+              f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
+              f"{r['bound_ms']!r} ms ({r['bound_by']})")
+    print(f"[kernels] ssgd B2 skip_update (gradient passes only, no grid "
+          f"sync, no partial sum, no update): {skip_ms!r} ms per {T} "
+          f"steps; the update chain costs {(recs['B2']['ms'] - skip_ms) / T * 1e3!r} "
+          f"µs per step")
+    recs["B2_skip_ms"] = skip_ms
+    return recs
+
+
+def _reset_launches():
+    from tpu_distalg_torch.ops import ssgd_kernels, topk
+
+    topk.fused_matmul_topk.launches = 0
+    for k in ssgd_kernels.KERNELS:
+        k.launches = 0
+
+
+def _launches() -> dict:
+    from tpu_distalg_torch.ops import ssgd_kernels, topk
+
+    return {"topk": topk.fused_matmul_topk.launches,
+            **{k.__name__: k.launches for k in ssgd_kernels.KERNELS}}
+
+
+def run_ssgd(dev) -> dict:
+    """Phase 6: the SSGD paths at full width, then the reference task.
+    Returns the kernel records and each path's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.ops import sampling
+    from tpu_distalg_torch.parallel import get_mesh, parallelize
+    from tpu_distalg_torch.utils import datasets, prng
+
+    t0 = time.perf_counter()
+    mesh = get_mesh(data=1, device=dev)
+    X, y = datasets.synthetic_two_class(SSGD_ROWS, SSGD_FEATURES, seed=0)
+    X = datasets.add_bias_column(X)
+    d = X.shape[1]
+    cfg = ssgd.SSGDConfig(
+        n_iterations=SSGD_STEPS, eval_test=False, x_dtype="bfloat16",
+        sampler="fused_train", gather_block_rows=SSGD_GBR, shuffle_seed=0,
+        init_seed=7, mega_steps=SSGD_MEGA)
+    fn_train, X2, w0, meta = ssgd.prepare_fused(X, y, mesh, cfg)
+    cfg_gather = dataclasses.replace(cfg, sampler="fused_gather")
+    fn_gather = ssgd.make_train_fn_fused(mesh, cfg_gather, meta)
+    n_blocks, n_s = ssgd.fused_gather_geometry(cfg, meta, 1)
+    cfg_bern = ssgd.SSGDConfig(n_iterations=SSGD_STEPS, eval_test=False,
+                               use_pallas=True)
+    Xs = parallelize(X, mesh)
+    ys = parallelize(y, mesh)
+    fn_bern = ssgd.make_train_fn(mesh, cfg_bern, Xs.n_padded)
+    w0_plain = w0[:d].contiguous()
+    te = (torch.zeros((1, meta["d_total"]), device=dev),
+          torch.zeros((1,), device=dev))
+    te_plain = (torch.zeros((1, d), device=dev), te[1])
+    torch.cuda.synchronize()
+    D = meta["d_total"]
+    print(f"[ssgd] data: {SSGD_ROWS} rows x {d} columns; X2 {tuple(X2.shape)}"
+          f" {X2.dtype} ({X2.numel() * X2.element_size()} bytes, D={D}, "
+          f"{n_blocks} blocks of {SSGD_GBR} rows, {n_s} sampled per step); "
+          f"X {tuple(Xs.data.shape)} float32 for bernoulli; set-up "
+          f"{time.perf_counter() - t0!r} s")
+
+    key = prng.root_key(cfg.seed, dev)
+    ids_all = sampling.sample_block_ids(
+        prng.fold_in(key, torch.arange(SSGD_MEGA, device=dev)), 1,
+        n_blocks, n_s).reshape(SSGD_MEGA, n_s).contiguous()
+    mask0 = sampling.bernoulli_mask(prng.root_key(cfg_bern.seed, dev), 0,
+                                    Xs.n_padded, 0.1, Xs.mask)
+    recs = ssgd_kernel_records(dev, Xs.data, ys.data, mask0, w0_plain, X2,
+                               meta, ids_all[0], ids_all, w0)
+
+    step_bytes = {"fused_train": n_s * SSGD_GBR * D * X2.element_size(),
+                  "fused_gather": n_s * SSGD_GBR * D * X2.element_size(),
+                  "bernoulli": Xs.data.numel() * 4}
+    paths = (("fused_train", lambda: fn_train(X2, None, None, *te, w0)),
+             ("fused_gather", lambda: fn_gather(X2, None, None, *te, w0)),
+             ("bernoulli", lambda: fn_bern(Xs.data, ys.data, Xs.mask,
+                                           *te_plain, w0_plain)))
+    results, launches = {}, {}
+    for name, run in paths:
+        run()                      # warm: allocator, cuBLAS, first launch
+        torch.cuda.synchronize()
+        _reset_launches()
+        t1 = time.perf_counter()
+        w, _ = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches[name] = _launches()
+        if not bool(torch.isfinite(w).all()):
+            raise AssertionError(f"{name}: non-finite weights")
+        results[name] = w
+        rate = SSGD_STEPS / secs
+        share = step_bytes[name] * rate / HBM_BYTES_PER_S
+        print(f"[ssgd] {name}: {SSGD_STEPS} steps in {secs!r} s = {rate!r} "
+              f"steps/s; {step_bytes[name]} bytes/step, {share!r} of "
+              f"3.35 TB/s; launches {launches[name]}")
+    want = {"fused_train": ("fused_train_gathered",
+                            SSGD_STEPS // SSGD_MEGA),
+            "fused_gather": ("fused_grad_sum_gathered", SSGD_STEPS),
+            "bernoulli": ("fused_grad_sum", SSGD_STEPS)}
+    for name, (kernel, count) in want.items():
+        if launches[name][kernel] != count:
+            raise AssertionError(
+                f"{name}: {kernel} launched {launches[name][kernel]} "
+                f"time(s), want {count}: the path did not go through it")
+    w_t, w_g = results["fused_train"], results["fused_gather"]
+    diff = float((w_t - w_g).abs().max())
+    if not torch.allclose(w_t, w_g, rtol=2e-2, atol=2e-2):
+        raise AssertionError(f"fused_train != fused_gather: max |dw| {diff}")
+    print(f"[ssgd] fused_train vs fused_gather after {SSGD_STEPS} steps "
+          f"(bf16): max |dw| {diff!r} (held to rtol/atol 2e-2, as "
+          f"tests/test_mega_kernel.py holds the JAX package)")
+
+    data = datasets.breast_cancer_split()
+    fused = dict(fused_pack=4, gather_block_rows=32, shuffle_seed=0)
+    for cfg_ref in (
+            ssgd.SSGDConfig(n_iterations=REF_STEPS, sampler="fused_gather",
+                            **fused),
+            ssgd.SSGDConfig(n_iterations=REF_STEPS, sampler="fused_train",
+                            mega_steps=REF_MEGA, eval_every=REF_MEGA,
+                            **fused)):
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="fused_gather:")
+            card = ssgd.train(*data, mesh, cfg_ref).final_acc
+            cpu = ssgd.train(*data, get_mesh(data=1, device="cpu"),
+                             cfg_ref).final_acc
+        if not (card >= SSGD_BAND and cpu >= SSGD_BAND):
+            raise AssertionError(f"{cfg_ref.sampler}: final acc card {card} "
+                                 f"/ CPU {cpu} below {SSGD_BAND}")
+        print(f"[ssgd] breast cancer, {cfg_ref.sampler} (bench.py's "
+              f"convergence settings): final acc card {card!r}, CPU "
+              f"{cpu!r}; band >= {SSGD_BAND} (reference 0.929825)")
+    return {"recs": recs, "launches": launches}
+
+
+def _phase(name: str, t0: float) -> float:
+    now = time.perf_counter()
+    print(f"[time] {name}: {now - t0!r} s")
+    return now
+
+
 def main() -> int:
     import torch
 
@@ -246,30 +634,36 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "script needs an NVIDIA card", file=sys.stderr)
         return 1
-    from tpu_distalg_torch.ops import _native, topk
+    from tpu_distalg_torch.ops import _native
     from tpu_distalg_torch.utils.device import resolve_device
 
+    t_start = t0 = time.perf_counter()
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} card(s)")
     print(_nvidia_smi())
+    t0 = _phase("device", t0)
 
-    t0 = time.perf_counter()
-    builds = [_native.build(name) for name in ("topk",)]  # all at once
+    builds = [_native.build(name) for name in _native.LIBRARIES]  # at once
     for b in builds:
         _native.finish(b)
-    _native.load("topk")
-    print(f"[build] nvcc built csrc/topk.cu in "
+    for name in _native.LIBRARIES:
+        _native.load(name)
+    print(f"[build] nvcc built "
+          f"{', '.join(f'csrc/{n}.cu' for n in _native.LIBRARIES)} in "
           f"{time.perf_counter() - t0!r} s")
+    t0 = _phase("build", t0)
 
     rec = check_topk_kernel(dev)
+    check_ssgd_kernels_small(dev)
+    t0 = _phase("kernels", t0)
     check_als_small(dev)
 
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as workdir:
-        topk.fused_matmul_topk.launches = 0
+        _reset_launches()
         run = run_main_path(dev, workdir)
-        launches = topk.fused_matmul_topk.launches
+        launches = _launches()["topk"]
         if launches < 1 or launches < run["stats"]["batches"]:
             raise AssertionError(
                 f"fused_matmul_topk launched {launches} time(s) for "
@@ -278,12 +672,28 @@ def main() -> int:
         check_served(dev, workdir, run)
     print(f"[serve] fused_matmul_topk launches on the main path: "
           f"{launches}")
+    t0 = _phase("als + serve", t0)
 
-    print(json.dumps({"kernels": [{
+    sg = run_ssgd(dev)
+    t0 = _phase("ssgd", t0)
+
+    ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
+    pallas = "tpu_distalg/ops/pallas_kernels.py"
+    kernels = [{
         "name": "topk.fused_matmul_topk", "route": "cuda",
         "source": "tpu_distalg_torch/csrc/topk.cu",
         "replaces": "tpu_distalg/ops/pallas_topk.py:109",
-        "launches": launches, **rec}]}))
+        "launches": launches, **rec}]
+    for key, name, line, path in (
+            ("B6", "fused_grad_sum", 92, "bernoulli"),
+            ("B1", "fused_grad_sum_gathered", 277, "fused_gather"),
+            ("B2", "fused_train_gathered", 442, "fused_train")):
+        kernels.append({
+            "name": f"ssgd_kernels.{name}", "route": "cuda",
+            "source": ssgd_src, "replaces": f"{pallas}:{line}",
+            "launches": sg["launches"][path][name], **sg["recs"][key]})
+    print(f"[time] total: {time.perf_counter() - t_start!r} s")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

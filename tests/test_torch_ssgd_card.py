@@ -1,0 +1,185 @@
+"""The SSGD CUDA kernels (``tpu_distalg_torch/csrc/ssgd.cu``) against
+their plain PyTorch versions, on the card. Imports neither jax nor
+``tpu_distalg``, so it also runs on a machine with only the port:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_ssgd_card.py
+
+Without a card the tests skip (a CUDA kernel has no CPU mode); the
+plain versions are held to the JAX package in
+``tests/test_torch_ssgd_kernels.py``.
+
+Three kinds of case. "exact": entries in {-2..2} and w = 0, so every
+z is 0, σ(0) = 0.5 exactly, every residual is 0 or ±0.5 and every sum
+is exact in float32 whatever its order: gradients and counts must be
+equal bit for bit. "integer": the same entries and w a multiple of
+1/64, so every z is exact; σ(z) is not (and may differ in its last bit
+between the kernel's expf and torch's), and the backward sum adds those
+floats in another order: counts must be equal and gradients agree
+within 64 float32 ulps of their largest entry (a sequential float32 sum
+of 14336 such rows is 34 ulps from the float64 sum). "random": normal
+entries, held to 1e-5 of the largest entry. B2's weights after several
+steps on bfloat16 X are held to 1e-3 of the largest entry: a residual
+rounded to bf16 can land one bf16 ulp (2⁻⁸ relative) apart after
+float32 sums in two orders, and later steps carry that. A fixed seed
+must replay bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_distalg_torch.ops import ssgd_kernels as tk
+
+ULP64 = 64 * 2.0**-23
+CASES = ["exact", "integer", "random"]
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: the CUDA kernels have no CPU mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
+                    "interpret mode (chip_smoke.py runs them on the card)")
+    return torch.device("cuda")
+
+
+def _values(rng, shape, case):
+    if case == "random":
+        return rng.normal(size=shape).astype(np.float32)
+    return rng.integers(-2, 3, size=shape).astype(np.float32)
+
+
+def _weights(rng, d, case):
+    if case == "exact":
+        return np.zeros(d, np.float32)
+    if case == "integer":
+        return (rng.integers(-8, 9, size=d) / 64.0).astype(np.float32)
+    return (rng.normal(size=d) * 0.1).astype(np.float32)
+
+
+def _check(got, want, case):
+    if case == "exact":
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, ULP64 if case == "integer" else 1e-5)
+
+
+def _close(got, want, rel):
+    tol = rel * float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= tol, f"max |err| {err} > {tol}"
+
+
+def _packed(dev, n, d, dtype, pack, gbr, case, seed):
+    rng = np.random.default_rng(seed)
+    X = _values(rng, (n, d), case)
+    y = rng.integers(0, 2, n).astype(np.float32)
+    X2, meta = tk.pack_augmented(X, y, np.ones(n, np.float32), dtype=dtype,
+                                 pack=pack, block_rows=gbr, device=dev)
+    w = torch.zeros(meta["d_total"], device=dev)
+    w[:d] = torch.as_tensor(_weights(rng, d, case), device=dev)
+    kw = dict(pack=pack, d_total=meta["d_total"], y_col=meta["y_col"],
+              v_col=meta["v_col"], gather_block_rows=gbr)
+    return rng, X2, meta, w, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(777, 61), (33, 1), (5000, 126),
+                                 (3001, 1000)])
+def test_fused_grad_sum_b6_on_card(n, d, dtype, case, cuda_device):
+    rng = np.random.default_rng(n + d)
+    X = torch.as_tensor(_values(rng, (n, d), case),
+                        device=cuda_device).to(dtype)
+    y = torch.as_tensor(rng.integers(0, 2, n).astype(np.float32),
+                        device=cuda_device)
+    m = torch.as_tensor((rng.random(n) < 0.3).astype(np.float32),
+                        device=cuda_device)
+    w = torch.as_tensor(_weights(rng, d, case), device=cuda_device)
+    before = tk.fused_grad_sum.launches
+    g, c = tk.fused_grad_sum(X, y, m, w)
+    torch.cuda.synchronize()
+    assert tk.fused_grad_sum.launches == before + 1
+    gr, cr = tk.grad_sum_reference(X, y, m, w)
+    assert float(c) == float(cr)
+    _check(g, gr, case)
+    g2, c2 = tk.fused_grad_sum(X, y, m, w)
+    assert torch.equal(g, g2) and torch.equal(c, c2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,pack,gbr,n_s", [
+    (400, 30, 16, 128, 4), (398, 31, 4, 32, 1), (5000, 300, 16, 1024, 3),
+    (20000, 125, 16, 2048, 7)])
+def test_fused_grad_sum_gathered_b1_on_card(n, d, pack, gbr, n_s, dtype,
+                                            case, cuda_device):
+    rng, X2, meta, w, kw = _packed(cuda_device, n, d, dtype, pack, gbr,
+                                   case, seed=n_s)
+    n_blocks = meta["n_padded"] // gbr
+    ids = torch.as_tensor(rng.integers(0, n_blocks, n_s).astype(np.int32),
+                          device=cuda_device)  # repeats allowed
+    before = tk.fused_grad_sum_gathered.launches
+    g, c = tk.fused_grad_sum_gathered(X2, w, ids, **kw)
+    torch.cuda.synchronize()
+    assert tk.fused_grad_sum_gathered.launches == before + 1
+    gr, cr = tk.grad_sum_gathered_reference(X2, w, ids, **kw)
+    yc = meta["y_col"]
+    assert float(c) == float(cr)
+    _check(g[:yc], gr[:yc], case)
+    g2, c2 = tk.fused_grad_sum_gathered(X2, w, ids, **kw)
+    assert torch.equal(g, g2) and torch.equal(c, c2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha,skip", [(0.0, False), (0.3, False),
+                                        (0.0, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,pack,gbr,n_s,T", [
+    (400, 30, 16, 128, 2, 7), (398, 31, 4, 32, 1, 125),
+    (5000, 400, 16, 1024, 3, 9), (20000, 125, 16, 2048, 5, 40)])
+def test_fused_train_gathered_b2_on_card(n, d, pack, gbr, n_s, T, dtype,
+                                         alpha, skip, cuda_device):
+    rng, X2, meta, w, kw = _packed(cuda_device, n, d, dtype, pack, gbr,
+                                   "random", seed=T)
+    n_blocks = meta["n_padded"] // gbr
+    ctr = torch.zeros_like(w)
+    ctr[:d] = torch.as_tensor(_weights(rng, d, "random"),
+                             device=cuda_device)
+    ids = torch.as_tensor(np.stack([
+        rng.permutation(n_blocks)[:n_s] for _ in range(T)]).astype(np.int32),
+        device=cuda_device)
+    before = tk.fused_train_gathered.launches
+    wk = tk.fused_train_gathered(X2, w, ids, eta=0.1, alpha=alpha,
+                                 center=ctr, skip_update=skip, **kw)
+    torch.cuda.synchronize()
+    assert tk.fused_train_gathered.launches == before + 1
+    wr = tk.train_gathered_reference(X2, w, ids, eta=0.1, alpha=alpha,
+                                     center=ctr, skip_update=skip, **kw)
+    if skip:
+        assert torch.equal(wk, w)
+    _close(wk, wr, 1e-5 if dtype == torch.float32 else 1e-3)
+    wk2 = tk.fused_train_gathered(X2, w, ids, eta=0.1, alpha=alpha,
+                                  center=ctr, skip_update=skip, **kw)
+    assert torch.equal(wk, wk2)
+
+
+@pytest.mark.gpu
+def test_cuda_tensors_never_take_the_plain_version(cuda_device):
+    """A shape the kernel does not take raises on the card (the plain
+    version would have computed it)."""
+    X2 = torch.zeros((4, 16 * 8), dtype=torch.float32, device=cuda_device)
+    w = torch.zeros(8, device=cuda_device)
+    ids = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    kw = dict(pack=16, d_total=8, y_col=6, v_col=7, gather_block_rows=16)
+    tk.fused_grad_sum_gathered(X2, w, ids, **kw)   # 32-byte rows: fine
+    X2b = torch.zeros((4, 128 * 3), dtype=torch.float32, device=cuda_device)
+    wb = torch.zeros(3, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        tk.fused_grad_sum_gathered(
+            X2b, wb, ids, pack=128, d_total=3, y_col=1, v_col=2,
+            gather_block_rows=128)

@@ -12,5 +12,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 Ported so far: ALS training (``models/als.py``), its artifact
 (``utils/checkpoint.py``) and micro-batched top-k serving
 (``serve/``) through the fused matmul+top-k kernel (``ops/topk.py``,
-``csrc/topk.cu``).
+``csrc/topk.cu``); SSGD logistic regression (``models/ssgd.py``) on
+the port's threefry (``utils/prng.py``), the emulated data axis
+(``parallel/``) and three gradient kernels (``ops/ssgd_kernels.py``,
+``csrc/ssgd.cu``).
 """

@@ -1,13 +1,16 @@
-"""Command line of the port: train ALS, then serve its artifact.
+"""Command line of the port: SSGD, ALS, and serving ALS artifacts.
 
+    python -m tpu_distalg_torch.cli [--device {cuda,cpu}] ssgd \\
+        --sampler fused_train --gather-block-rows 32 --fused-pack 4 \\
+        --shuffle-seed 0 --n-iterations 1500      # breast-cancer task
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] als \\
         --m 4096 --n 16384 --k 64 --lam 0.0 --n-iterations 5 \\
         --checkpoint-dir D                     # prints artifact_path: D
     python -m tpu_distalg_torch.cli serve --artifact D --max-batch 32 \\
         --requests 2048 --concurrency 8
 
-The lines printed match the JAX package's ``tda als`` and ``tda serve``.
-Runs on ``cuda`` unless ``--device cpu`` is given.
+The lines printed match the JAX package's ``tda ssgd``, ``tda als`` and
+``tda serve``. Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -20,6 +23,34 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m tpu_distalg_torch.cli")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    o = sub.add_parser("ssgd", help="synchronous minibatch SGD")
+    o.add_argument("--n-slices", type=int, default=0,
+                   help="emulated data shards; 0 = 1")
+    o.add_argument("--n-iterations", type=int, default=1500)
+    o.add_argument("--eta", type=float, default=0.1)
+    o.add_argument("--mini-batch-fraction", type=float, default=0.1)
+    o.add_argument("--sampler", default="bernoulli",
+                   choices=["bernoulli", "fixed", "fused", "fused_gather",
+                            "fused_train"])
+    o.add_argument("--x-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    o.add_argument("--gather-block-rows", type=int, default=1024)
+    o.add_argument("--fused-pack", type=int, default=16)
+    o.add_argument("--shuffle-seed", type=int, default=None)
+    o.add_argument("--mega-steps", type=int, default=None,
+                   help="steps per kernel launch (sampler=fused_train); "
+                        "default: the largest divisor of every segment "
+                        "length <= 125")
+    o.add_argument("--lam", type=float, default=0.0)
+    o.add_argument("--reg-type", default="l2",
+                   choices=["none", "l2", "l1", "elastic_net"])
+    o.add_argument("--plot", type=str, default=None,
+                   help="save an accuracy plot PNG here")
+    o.add_argument("--quiet", action="store_true")
+    o.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="segmented checkpoint/resume directory")
+    o.add_argument("--checkpoint-every", type=int, default=500)
 
     a = sub.add_parser("als", help="ALS matrix factorisation")
     a.add_argument("--m", type=int, default=100)
@@ -43,9 +74,79 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def _mega_steps(args, default: int) -> int:
+    """The JAX CLI's ``--mega-steps`` auto-pick: the largest divisor of
+    every segment the run will execute, a resume included, that is at
+    most the default launch size."""
+    import math
+
+    from tpu_distalg_torch.models import ssgd
+
+    mega = args.mega_steps
+    if mega is not None and mega < 1:
+        raise SystemExit(f"--mega-steps must be >= 1 (got {mega})")
+    if mega is not None:
+        return mega
+    if args.n_iterations < 1:
+        return default
+    segs = ssgd.fused_train_segment_lengths(
+        args.checkpoint_dir,
+        args.checkpoint_every if args.checkpoint_dir else args.n_iterations,
+        args.n_iterations)
+    g = math.gcd(*segs) if segs else args.n_iterations
+    cap = min(default, g)
+    mega = max(d for d in range(1, cap + 1) if g % d == 0)
+    if mega < min(default, args.n_iterations) // 2:
+        print(f"[ssgd] note: auto-picked mega_steps={mega} is far below "
+              f"the default launch size — iteration/checkpoint counts "
+              f"with a larger common divisor run faster")
+    return mega
+
+
+def _run_ssgd(args) -> None:
+    import time
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets, metrics
+
+    data = datasets.breast_cancer_split()
+    mesh = get_mesh(data=args.n_slices or None, device=args.device)
+    kw = dict(
+        n_iterations=args.n_iterations, eta=args.eta,
+        mini_batch_fraction=args.mini_batch_fraction, lam=args.lam,
+        reg_type=args.reg_type, sampler=args.sampler,
+        x_dtype=args.x_dtype, gather_block_rows=args.gather_block_rows,
+        fused_pack=args.fused_pack, shuffle_seed=args.shuffle_seed)
+    if args.sampler != "fused_train" and args.mega_steps is not None:
+        raise SystemExit(f"--mega-steps applies to sampler=fused_train "
+                         f"only (got {args.sampler})")
+    if args.sampler == "fused_train":
+        mega = _mega_steps(args, ssgd.SSGDConfig().mega_steps)
+        kw["mega_steps"] = mega
+        # the kernel evaluates at launch boundaries only
+        kw["eval_every"] = max(1, min(mega, args.n_iterations))
+    t0 = time.perf_counter()
+    res = ssgd.train(*data, mesh, ssgd.SSGDConfig(**kw),
+                     checkpoint_dir=args.checkpoint_dir,
+                     checkpoint_every=args.checkpoint_every)
+    w = res.w.cpu()
+    t = time.perf_counter() - t0
+    if not args.quiet:
+        print(f"Final w: {list(map(float, w))}")
+    print(f"Final acc: {res.final_acc:.6f}")
+    print(f"[ssgd] {args.n_iterations} iterations in {t:.3f}s "
+          f"({args.n_iterations / t:.1f} steps/s)")
+    if args.plot:
+        metrics.draw_acc_plot(res.accs.cpu().numpy(), args.plot)
+        print(f"saved plot: {args.plot}")
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.cmd == "als":
+    if args.cmd == "ssgd":
+        _run_ssgd(args)
+    elif args.cmd == "als":
         from tpu_distalg_torch.models import als
 
         cfg = als.ALSConfig(lam=args.lam, m=args.m, n=args.n, k=args.k,

@@ -1,4 +1,5 @@
-"""Carry trained parameters from the JAX package into the port.
+"""Carry trained parameters (ALS factors, SSGD weights) from the JAX
+package into the port.
 
 The two packages share no file format the port reads (the JAX package
 checkpoints as flax msgpack), so parameters cross as numpy arrays:
@@ -26,3 +27,34 @@ def als_params_from_jax(U_np, V_np, *,
                          f"and (items, r)")
     return (torch.from_numpy(U).to(dev).contiguous(),
             torch.from_numpy(V).to(dev).contiguous())
+
+
+def ssgd_params_from_jax(w_np, meta: dict | None = None, *,
+                         device: str | torch.device | None = None):
+    """SSGD weights from the JAX package as a float32 tensor on
+    ``device``: the plain (d,) vector when ``meta`` is None, else the
+    augmented (d_total,) layout of ``meta`` (from ``pack_augmented``),
+    the plain weights followed by zeros at and past ``y_col``. A JAX
+    bfloat16 array crosses as its ``np.uint16`` bits (numpy has no
+    bfloat16): ``np.asarray(w).view(np.uint16)`` on that side."""
+    dev = resolve_device(device)
+    w = np.asarray(w_np)
+    if w.ndim != 1:
+        raise ValueError(f"w {w.shape}: want a vector")
+    if w.dtype == np.uint16:
+        t = torch.from_numpy(w.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(w, np.float32))
+    t = t.to(torch.float32)
+    if meta is not None:
+        d_t, y_col = int(meta["d_total"]), int(meta["y_col"])
+        if t.shape[0] == d_t:
+            if bool((t[y_col:] != 0).any()):
+                raise ValueError(f"augmented w is non-zero at or past "
+                                 f"y_col={y_col}")
+        elif t.shape[0] == y_col:
+            t = torch.cat([t, torch.zeros(d_t - y_col)])
+        else:
+            raise ValueError(f"w {tuple(t.shape)}: want ({y_col},) or "
+                             f"({d_t},) for meta {meta}")
+    return t.to(dev).contiguous()

@@ -29,6 +29,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C signatures of every entry point, by library
 _SIGNATURES = {
     "topk": {
@@ -36,7 +37,18 @@ _SIGNATURES = {
                       _P, _I, _P], _I),
         "tda_error_string": ([_I], ctypes.c_char_p),
     },
+    "ssgd": {
+        "tda_ssgd_grad": ([_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
+                          _I),
+        "tda_ssgd_grad_gathered": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+                                    _I, _P, _P, _I, _P], _I),
+        "tda_ssgd_train": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                            _F, _F, _I, _I, _P, _P, _I, _P], _I),
+        "tda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
+#: the kernel libraries, built together by chip_smoke.py
+LIBRARIES = tuple(_SIGNATURES)
 
 
 def find_nvcc() -> str:

@@ -1,0 +1,384 @@
+"""SSGD kernels: the packed layout and the three gradient kernels.
+
+Port of ``tpu_distalg/ops/pallas_kernels.py``:
+
+  * :func:`packed_dims` and :func:`pack_augmented` (``:149-203``): the
+    augmented row layout ``[features… | y | valid | zero-pad]`` of width
+    ``d_total``, rows padded to a block multiple, optionally shuffled
+    once, returned as X2 of shape (n_padded/pack, pack·d_total);
+  * B6 :func:`fused_grad_sum` (``:92``): masked (Σ gradient, count) over
+    unpacked X, y and mask in one pass;
+  * B1 :func:`fused_grad_sum_gathered` (``:277``): the same sum over only
+    the sampled ``gather_block_rows``-row blocks, with y and validity read
+    from the columns ``y_col`` and ``v_col``;
+  * B2 :func:`fused_train_gathered` (``:442``): T block-sampled SGD steps
+    in one launch, with a float32 master and an optional EASGD pull.
+
+The packed X2 is, byte for byte, the row-major (n_padded, d_total)
+augmented matrix, and the CUDA kernels (``csrc/ssgd.cu``) read it as
+such; the TPU kernels' block-diagonal selector and (P, P·D)
+accumulator existed only to dodge TPU lane padding and are not ported.
+So B2 takes and returns the (d_total,) weights, not the (P·D, 1) tile.
+
+Beside each wrapper is its plain PyTorch version (``*_reference``),
+with the same contract and the same rounding points: z sums x·w with w
+cast to X's dtype, B1/B2 round the residual to X's dtype before the
+backward product (B6 keeps it float32), sums are float32. A wrapper
+takes its plain version only for tensors on the CPU; for CUDA tensors
+it launches its kernel (counted in ``<wrapper>.launches``) or raises.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from tpu_distalg_torch.ops import _native
+from tpu_distalg_torch.utils.device import resolve_device
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: B1/B2 hold a row's columns in registers: at most 128 16-byte vectors
+MAX_ROW_BYTES = 128 * 16
+#: B6 keeps 9 float32 rows of width d in shared memory
+MAX_GRAD_D = 4096
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    try:
+        return _DTYPES[str(dtype)]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {dtype!r}: use float32 or "
+                         f"bfloat16") from None
+
+
+def packed_dims(d: int, pack: int):
+    """``(d_total, y_col, v_col)``: features + y + valid + zero-pad,
+    rounded so that ``pack·d_total`` is a multiple of 128, as the JAX
+    package lays it out."""
+    y_col, v_col = d, d + 1
+    lane_q = 128 // int(np.gcd(pack, 128))
+    d_t = d + 2 + ((-(d + 2)) % lane_q)
+    return int(d_t), y_col, v_col
+
+
+def pack_augmented(X, y, valid, *, dtype=torch.bfloat16, pack: int = 16,
+                   block_rows: int = 8192, shuffle_seed: int | None = None,
+                   device: str | torch.device | None = None):
+    """Pack (X, y, valid) once, outside the training loop.
+
+    Row i of the augmented matrix is ``[X[i] | y[i] | valid[i] | 0…]``;
+    rows are padded to a multiple of ``max(block_rows, pack)`` (padding
+    rows carry valid = 0 and are inert) and ``shuffle_seed`` permutes
+    the rows first with ``np.random.default_rng(shuffle_seed)``.
+    Returns ``(X2, meta)``: X2 of shape (n_padded/pack, pack·d_total) in
+    ``dtype`` on ``device`` (rounded to nearest even from float32, as
+    JAX casts), meta the dict of pack, d_total, y_col, v_col,
+    n_padded."""
+    dev = resolve_device(device)
+    X = np.asarray(X, np.float32)
+    if shuffle_seed is not None:
+        perm = np.random.default_rng(shuffle_seed).permutation(X.shape[0])
+        X, y = X[perm], np.asarray(y)[perm]
+        valid = np.asarray(valid)[perm]
+    n, d = X.shape
+    d_t, y_col, v_col = packed_dims(d, pack)
+    n_t = n + ((-n) % max(block_rows, pack))
+    out = np.zeros((n_t, d_t), np.float32)
+    out[:n, :d] = X
+    out[:n, y_col] = np.asarray(y, np.float32)
+    out[:n, v_col] = np.asarray(valid, np.float32)[:n]
+    X2 = torch.from_numpy(out.reshape(n_t // pack, pack * d_t)).to(dev)
+    meta = dict(pack=pack, d_total=d_t, y_col=y_col, v_col=v_col,
+                n_padded=n_t)
+    return X2.to(as_dtype(dtype)), meta
+
+
+# ---------------------------------------------------------------- plain
+
+
+def grad_sum_reference(X, y, mask, w):
+    """Plain B6: ``(Xᵀ·((σ(X·w_X) − y)·mask), Σmask)`` with ``w_X`` =
+    w cast to X's dtype, the residual and sums in float32."""
+    Xf = X.to(torch.float32)
+    wq = w.to(X.dtype).to(torch.float32)
+    resid = (torch.sigmoid(Xf @ wq) - y) * mask
+    return Xf.T @ resid, mask.sum()
+
+
+def _gathered_rows(X2, block_idx, d_total, gather_block_rows):
+    rows = X2.reshape(-1, d_total)
+    blocks = rows.reshape(-1, gather_block_rows, d_total)
+    return blocks[block_idx.long()].reshape(-1, d_total)
+
+
+def _grad_rows(x, wq, y_col, v_col, dtype):
+    """(g, count) of float32 rows ``x`` from X's type ``dtype``."""
+    z = x @ wq
+    resid = ((torch.sigmoid(z) - x[:, y_col]) * x[:, v_col]).to(dtype)
+    return x.T @ resid.to(torch.float32), x[:, v_col].sum()
+
+
+def grad_sum_gathered_reference(X2, w_aug, block_idx, *, pack: int,
+                                d_total: int, y_col: int, v_col: int,
+                                gather_block_rows: int = 1024):
+    """Plain B1 over rows ``[b·gbr, (b+1)·gbr)`` of each sampled block
+    b: the (d_total,) float32 gradient (entries at and past ``y_col``
+    are not part of the contract) and the count Σ x[v_col]."""
+    del pack
+    x = _gathered_rows(X2, block_idx, d_total,
+                       gather_block_rows).to(torch.float32)
+    wq = w_aug.to(X2.dtype).to(torch.float32)
+    return _grad_rows(x, wq, y_col, v_col, X2.dtype)
+
+
+def train_gathered_reference(X2, w0, block_idx, *, pack: int, d_total: int,
+                             y_col: int, v_col: int, gather_block_rows: int,
+                             eta: float, alpha: float = 0.0, center=None,
+                             skip_update: bool = False):
+    """Plain B2: ``block_idx.shape[0]`` steps of B1's gradient at the
+    float32 master (cast to X's dtype, zero at columns >= y_col), each
+    followed by ``w ← w − (η/max(cnt, 1))·g·[j < y_col]`` and, if
+    α ≠ 0, ``w ← w − α·(w_before − center)``. Returns the (d_total,)
+    float32 master."""
+    del pack
+    keep = torch.arange(d_total, device=X2.device) < y_col
+    w = w0.to(torch.float32).clone()
+    eta_t = torch.tensor(eta, dtype=torch.float32, device=X2.device)
+    alpha_t = torch.tensor(alpha, dtype=torch.float32, device=X2.device)
+    if center is None:
+        center = torch.zeros_like(w)
+    for ids in block_idx:
+        x = _gathered_rows(X2, ids, d_total,
+                           gather_block_rows).to(torch.float32)
+        wq = torch.where(keep, w, 0.0).to(X2.dtype).to(torch.float32)
+        g, cnt = _grad_rows(x, wq, y_col, v_col, X2.dtype)
+        if skip_update:
+            continue
+        nb = torch.clamp_min(cnt, 1.0)
+        w_new = w - (eta_t / nb) * torch.where(keep, g, 0.0)
+        if alpha:
+            w_new = w_new - alpha_t * (w - center)
+        w = w_new
+    return w
+
+
+# -------------------------------------------------------------- kernels
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_tensor(name, t, dtypes, ndim):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got "
+                        f"{type(t).__name__}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))},"
+                         f" got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+
+
+def _cuda_ready(*tensors):
+    """The CUDA device of the operands (all on one card), or raise."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"operands on {dev} and {t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _check_packed(X2, pack, d_total, gather_block_rows, what):
+    """The JAX package's shape contract of X2 (its TPU tiling rule, a
+    multiple of 8 packed rows per block, is not part of it)."""
+    n2, pd = X2.shape
+    bp = gather_block_rows // pack if pack > 0 else 0
+    if (pd != pack * d_total or (pack * d_total) % 128
+            or gather_block_rows % pack or bp == 0 or n2 % bp):
+        raise ValueError(
+            f"{what}: X2 {tuple(X2.shape)} incompatible with pack={pack}, "
+            f"d_total={d_total}, gather_block_rows={gather_block_rows}")
+
+
+def _check_row_kernel(X2, d_total, y_col, v_col, what):
+    """What the CUDA kernels of B1/B2 need beyond the contract."""
+    row_bytes = d_total * X2.element_size()
+    if row_bytes % 16 or row_bytes > MAX_ROW_BYTES:
+        raise ValueError(
+            f"{what}: a row of d_total={d_total} {X2.dtype} is {row_bytes} "
+            f"bytes; the CUDA kernel reads rows as 16-byte vectors, at "
+            f"most {MAX_ROW_BYTES} bytes")
+    if X2.data_ptr() % 16:
+        raise ValueError(f"{what}: X2 must be 16-byte aligned")
+    if not (0 <= y_col < d_total and 0 <= v_col < d_total):
+        raise ValueError(f"{what}: y_col={y_col}, v_col={v_col} outside "
+                         f"d_total={d_total}")
+
+
+def fused_grad_sum(X, y, mask, w, *, block_rows: int = 2048):
+    """B6: masked ``(Σ gradient (d,) f32, count f32)`` in one pass over X.
+
+    X (n, d) float32 or bfloat16; y, mask (n,) and w (d,) float32, all
+    contiguous on one device. ``block_rows`` is the JAX kernel's row
+    tile; the CUDA kernel sizes its own blocks, so it only has to be
+    positive. A CPU tensor goes to :func:`grad_sum_reference`; a CUDA
+    tensor launches the kernel (``fused_grad_sum.launches``) or raises."""
+    _check_tensor("X", X, (torch.float32, torch.bfloat16), 2)
+    for name, t in (("y", y), ("mask", mask), ("w", w)):
+        _check_tensor(name, t, (torch.float32,), 1)
+    n, d = X.shape
+    if y.shape[0] != n or mask.shape[0] != n or w.shape[0] != d:
+        raise ValueError(f"X {tuple(X.shape)}, y {tuple(y.shape)}, mask "
+                         f"{tuple(mask.shape)}, w {tuple(w.shape)} disagree")
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be positive, got {block_rows}")
+    if X.device.type == "cpu":
+        return grad_sum_reference(X, y, mask, w)
+    dev = _cuda_ready(X, y, mask, w)
+    if n < 1 or d < 1 or d > MAX_GRAD_D:
+        raise ValueError(f"X {tuple(X.shape)}: the CUDA kernel takes "
+                         f"1 <= d <= {MAX_GRAD_D} and n >= 1")
+    X, y, mask, w = (t.contiguous() for t in (X, y, mask, w))
+    lib = _native.load("ssgd")
+    max_blocks = 4 * _sm_count(dev.index)
+    partial = torch.empty((max_blocks, d + 1), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((d + 1,), dtype=torch.float32, device=dev)
+    rc = lib.tda_ssgd_grad(
+        X.data_ptr(), _DTYPE_CODE[X.dtype], y.data_ptr(), mask.data_ptr(),
+        w.data_ptr(), n, d, max_blocks, partial.data_ptr(), out.data_ptr(),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _native.check(lib, rc, "fused_grad_sum")
+    fused_grad_sum.launches += 1
+    return out[:d], out[d]
+
+
+fused_grad_sum.launches = 0
+
+
+def fused_grad_sum_gathered(X2, w_aug, block_idx, *, pack: int,
+                            d_total: int, y_col: int, v_col: int,
+                            gather_block_rows: int = 1024):
+    """B1: ``(Σ gradient (d_total,) f32, count f32)`` over only the
+    sampled blocks ``block_idx`` (n_s,) of X2, in one pass.
+
+    X2 (n/pack, pack·d_total) float32 or bfloat16, w_aug (d_total,)
+    float32; y and validity come from columns ``y_col`` and ``v_col``.
+    Block ids must lie in ``[0, n_blocks)``; repeats count each time.
+    Entries of the gradient at and past ``y_col`` are not part of the
+    contract. A CPU tensor goes to :func:`grad_sum_gathered_reference`;
+    a CUDA tensor launches the kernel (``.launches``) or raises."""
+    _check_tensor("X2", X2, (torch.float32, torch.bfloat16), 2)
+    _check_tensor("w_aug", w_aug, (torch.float32,), 1)
+    _check_tensor("block_idx", block_idx, (torch.int32, torch.int64), 1)
+    _check_packed(X2, pack, d_total, gather_block_rows,
+                  "fused_grad_sum_gathered")
+    if w_aug.shape[0] != d_total:
+        raise ValueError(f"w_aug {tuple(w_aug.shape)} != ({d_total},)")
+    if X2.device.type == "cpu":
+        return grad_sum_gathered_reference(
+            X2, w_aug, block_idx, pack=pack, d_total=d_total, y_col=y_col,
+            v_col=v_col, gather_block_rows=gather_block_rows)
+    dev = _cuda_ready(X2, w_aug, block_idx)
+    _check_row_kernel(X2, d_total, y_col, v_col, "fused_grad_sum_gathered")
+    n_s = block_idx.shape[0]
+    if n_s < 1:
+        raise ValueError("block_idx is empty")
+    X2 = X2.contiguous()
+    ids = block_idx.to(torch.int32).contiguous()
+    w_aug = w_aug.contiguous()
+    n_blocks = X2.shape[0] * pack // gather_block_rows
+    lib = _native.load("ssgd")
+    max_blocks = 4 * _sm_count(dev.index)
+    partial = torch.empty((max_blocks, d_total + 1), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((d_total + 1,), dtype=torch.float32, device=dev)
+    rc = lib.tda_ssgd_grad_gathered(
+        X2.data_ptr(), _DTYPE_CODE[X2.dtype], ids.data_ptr(), n_s, n_blocks,
+        gather_block_rows, d_total, y_col, v_col, w_aug.data_ptr(),
+        max_blocks, partial.data_ptr(), out.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _native.check(lib, rc, "fused_grad_sum_gathered")
+    fused_grad_sum_gathered.launches += 1
+    return out[:d_total], out[d_total]
+
+
+fused_grad_sum_gathered.launches = 0
+
+
+def fused_train_gathered(X2, w0, block_idx, *, pack: int, d_total: int,
+                         y_col: int, v_col: int, gather_block_rows: int,
+                         eta: float, alpha: float = 0.0, center=None,
+                         skip_update: bool = False):
+    """B2: ``T = block_idx.shape[0]`` block-sampled SGD steps in one
+    launch; returns the final (d_total,) float32 weights.
+
+    ``w0`` (d_total,) float32 is the augmented start; ``block_idx``
+    (T, n_s) holds each step's block ids. Each step is B1's gradient
+    at the float32 master (cast to X's dtype, zero at columns >= y_col)
+    and ``w ← w − (η/max(cnt, 1))·g`` with g zero at columns >= y_col;
+    ``alpha``/``center`` add the EASGD pull ``w ← w − α·(w_before −
+    center)``. ``skip_update`` keeps each step's gradient pass and drops
+    the update (the weights stay ``w0``): it prices the update chain.
+    A CPU tensor goes to :func:`train_gathered_reference`; a CUDA
+    tensor launches the kernel (``.launches``) or raises."""
+    _check_tensor("X2", X2, (torch.float32, torch.bfloat16), 2)
+    _check_tensor("w0", w0, (torch.float32,), 1)
+    _check_tensor("block_idx", block_idx, (torch.int32, torch.int64), 2)
+    _check_packed(X2, pack, d_total, gather_block_rows,
+                  "fused_train_gathered")
+    if w0.shape[0] != d_total:
+        raise ValueError(f"w0 {tuple(w0.shape)} != ({d_total},)")
+    if center is not None:
+        _check_tensor("center", center, (torch.float32,), 1)
+        if center.shape[0] != d_total:
+            raise ValueError(f"center {tuple(center.shape)} != "
+                             f"({d_total},)")
+    if X2.device.type == "cpu":
+        return train_gathered_reference(
+            X2, w0, block_idx, pack=pack, d_total=d_total, y_col=y_col,
+            v_col=v_col, gather_block_rows=gather_block_rows, eta=eta,
+            alpha=alpha, center=center, skip_update=skip_update)
+    if center is None:
+        center = torch.zeros_like(w0)
+    dev = _cuda_ready(X2, w0, block_idx, center)
+    _check_row_kernel(X2, d_total, y_col, v_col, "fused_train_gathered")
+    T, n_s = block_idx.shape
+    if T < 1 or n_s < 1:
+        raise ValueError(f"block_idx {tuple(block_idx.shape)} is empty")
+    X2 = X2.contiguous()
+    ids = block_idx.to(torch.int32).contiguous()
+    w0, center = w0.contiguous(), center.contiguous()
+    n_blocks = X2.shape[0] * pack // gather_block_rows
+    lib = _native.load("ssgd")
+    max_blocks = 4 * _sm_count(dev.index)
+    # the blocks' partials, then the step's sum
+    partial = torch.empty((max_blocks + 1, d_total + 1),
+                          dtype=torch.float32, device=dev)
+    w_out = torch.empty((d_total,), dtype=torch.float32, device=dev)
+    rc = lib.tda_ssgd_train(
+        X2.data_ptr(), _DTYPE_CODE[X2.dtype], ids.data_ptr(), T, n_s,
+        n_blocks, gather_block_rows, d_total, y_col, v_col, w0.data_ptr(),
+        center.data_ptr(), float(eta), float(alpha), int(skip_update),
+        max_blocks, partial.data_ptr(), w_out.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _native.check(lib, rc, "fused_train_gathered")
+    fused_train_gathered.launches += 1
+    return w_out
+
+
+fused_train_gathered.launches = 0
+
+#: the kernels of this module, for resetting and reading launch counts
+KERNELS = (fused_grad_sum, fused_grad_sum_gathered, fused_train_gathered)

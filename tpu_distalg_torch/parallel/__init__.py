@@ -1,0 +1,9 @@
+"""The emulated data axis: mesh, row sharding, allreduce."""
+
+from tpu_distalg_torch.parallel.collectives import tree_allreduce_sum
+from tpu_distalg_torch.parallel.mesh import Mesh, get_mesh
+from tpu_distalg_torch.parallel.sharding import (
+    ShardedMatrix,
+    pad_rows,
+    parallelize,
+)

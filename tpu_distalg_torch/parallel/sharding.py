@@ -1,0 +1,57 @@
+"""Row-sharded arrays of the emulated data axis.
+
+Port of ``tpu_distalg/parallel/sharding.py``: :func:`parallelize` pads
+the rows to a multiple of the shard count and places them on the
+mesh's device; a validity mask stands in for the true length, exactly
+as in the JAX package, so shard ``s`` is rows
+``[s·n_local, (s+1)·n_local)`` of the padded array.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpu_distalg_torch.parallel.mesh import Mesh
+
+
+def pad_rows(x, multiple: int):
+    """Pad axis 0 up to a multiple; return ``(padded, valid_mask)``,
+    the mask float32 with 1 for real rows and 0 for padding."""
+    x = np.asarray(x)
+    n = x.shape[0]
+    n_pad = (-n) % multiple
+    mask = np.ones((n + n_pad,), dtype=np.float32)
+    if n_pad:
+        x = np.pad(x, [(0, n_pad)] + [(0, 0)] * (x.ndim - 1))
+        mask[n:] = 0.0
+    return x, mask
+
+
+@dataclasses.dataclass
+class ShardedMatrix:
+    """``data`` (n_padded, ...) on the mesh's device, split into
+    ``n_shards`` leading slices; ``mask`` is 1 for real rows."""
+
+    data: torch.Tensor
+    mask: torch.Tensor
+    n_valid: int
+    n_shards: int
+
+    @property
+    def n_padded(self) -> int:
+        return self.mask.shape[0]
+
+
+def parallelize(rows, mesh: Mesh, *, dtype=torch.float32) -> ShardedMatrix:
+    """Rows padded to a multiple of ``mesh.n_data`` and placed on the
+    mesh's device in ``dtype``, with their validity mask."""
+    padded, mask = pad_rows(rows, mesh.n_data)
+    data = torch.from_numpy(np.ascontiguousarray(padded)).to(
+        mesh.device).to(dtype)
+    return ShardedMatrix(data=data,
+                         mask=torch.from_numpy(mask).to(mesh.device),
+                         n_valid=int(np.asarray(rows).shape[0]),
+                         n_shards=mesh.n_data)

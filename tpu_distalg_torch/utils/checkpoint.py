@@ -9,6 +9,9 @@ after, so a crash leaves the old file or the new one, never half of
 one. :func:`restore` checks the footer before it parses anything; a
 missing or wrong footer raises :class:`CorruptCheckpointError`.
 
+:func:`run_segmented` trains in checkpointed segments that resume bit
+for bit (SSGD), keeping the newest three files.
+
 The JAX package writes ``step_<N>.msgpack`` (flax serialisation),
 which the port does not read: :func:`restore` raises a message naming
 that format. The two packages exchange factors through numpy instead
@@ -55,13 +58,18 @@ def _fsync_dir(directory: str) -> None:
         os.close(fd)
 
 
-def save(ckpt_dir: str, tag: str, state, step: int) -> str:
-    """Write ``{"tag": tag, "state": [leaves]}`` as
-    ``ckpt_dir/step_<step>.npz``; returns the path."""
+def save(ckpt_dir: str, tag: str, state, step: int, *,
+         accs=None) -> str:
+    """Write ``{"tag": tag, "state": [leaves]}`` (and the accuracy
+    history ``accs`` when given) as ``ckpt_dir/step_<step>.npz``;
+    returns the path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     arrays = {"tag": np.asarray(tag)}
     for j, leaf in enumerate(state):
-        arrays[f"state_{j}"] = np.ascontiguousarray(np.asarray(leaf))
+        # asarray, not ascontiguousarray: that would make a 0-d leaf 1-d
+        arrays[f"state_{j}"] = np.asarray(leaf, order="C")
+    if accs is not None:
+        arrays["accs"] = np.asarray(accs, order="C")
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     body = buf.getvalue()
@@ -107,8 +115,9 @@ def _body(path: str, raw: bytes) -> bytes:
 
 
 def restore(ckpt_dir: str, step: int | None = None) -> tuple[dict, int]:
-    """Load ``({"tag": str, "state": [np.ndarray, ...]}, step)``;
-    ``step=None`` loads the newest checkpoint."""
+    """Load ``({"tag": str, "state": [np.ndarray, ...]}, step)``, with
+    ``"accs"`` when the file holds one; ``step=None`` loads the newest
+    checkpoint."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -128,8 +137,86 @@ def restore(ckpt_dir: str, step: int | None = None) -> tuple[dict, int]:
             tag = str(z["tag"])
             n = sum(1 for name in z.files if name.startswith("state_"))
             state = [z[f"state_{j}"] for j in range(n)]
+            extra = {"accs": z["accs"]} if "accs" in z.files else {}
     except (ValueError, KeyError, OSError, zipfile.BadZipFile) as e:
         raise CorruptCheckpointError(
             path, f"corrupt checkpoint {path} ({type(e).__name__}: {e})"
         ) from e
-    return {"tag": tag, "state": state}, step
+    return {"tag": tag, "state": state, **extra}, step
+
+
+def prune(ckpt_dir: str, keep: int = 3) -> None:
+    """Delete all but the newest ``keep`` checkpoints."""
+    for step in _steps(ckpt_dir, _STEP_RE)[:-keep]:
+        try:
+            os.remove(os.path.join(ckpt_dir, f"step_{step}.npz"))
+        except FileNotFoundError:
+            pass
+
+
+def run_segmented(checkpoint_dir: str, checkpoint_every: int,
+                  n_iterations: int, make_seg_fn, run_seg, state0, *,
+                  tag: str = ""):
+    """Segmented, resumable training: the port of the JAX package's
+    ``checkpoint.run_segmented``.
+
+    Runs ``n_iterations`` steps as segments of ``checkpoint_every``;
+    after each segment the state and the accuracy history so far are
+    saved and the state is checked to be finite. A checkpoint in the
+    directory resumes from its absolute step; the segment functions key
+    their sampling on the absolute step (``t0``), so a segmented run
+    equals a straight one bit for bit. ``make_seg_fn(seg_len)`` builds a
+    segment (cached per length); ``run_seg(fn, state, t0)`` runs one
+    and returns ``(state, accs)``; ``state0`` is a tuple of tensors.
+    ``tag`` names the workload and, with the state's shapes and dtypes,
+    must match on resume. Returns ``(state, accs, start_step)``.
+    (Corrupt-file quarantine and preemption wait for the faults slice.)
+    """
+    import torch
+
+    from tpu_distalg_torch.utils import metrics
+
+    if checkpoint_every < 1:
+        raise ValueError(
+            f"checkpoint_every must be >= 1, got {checkpoint_every}")
+    state = tuple(state0)
+    devices = [torch.as_tensor(x).device for x in state]
+    want = [(tuple(np.asarray(torch.as_tensor(x).cpu()).shape),
+             str(np.asarray(torch.as_tensor(x).cpu()).dtype))
+            for x in state]
+    start, accs_parts = 0, []
+    if latest_step(checkpoint_dir) is not None:
+        payload, start = restore(checkpoint_dir)
+        if start > n_iterations:
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir} is at step {start}, past "
+                f"n_iterations={n_iterations}; use a fresh directory or "
+                f"raise n_iterations")
+        sig = [(tuple(v.shape), str(v.dtype)) for v in payload["state"]]
+        if payload["tag"] != tag or sig != want or "accs" not in payload:
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir} is incompatible: it holds "
+                f"workload {payload['tag']!r} with state {sig}, but this "
+                f"run is {tag!r} with state {want}; use a fresh directory")
+        state = tuple(torch.from_numpy(np.array(v)).to(dev)
+                      for v, dev in zip(payload["state"], devices))
+        accs_parts = [np.asarray(payload["accs"])]
+    seg_fns = {}
+    t = start
+    while t < n_iterations:
+        seg = min(checkpoint_every, n_iterations - t)
+        if seg not in seg_fns:
+            seg_fns[seg] = make_seg_fn(seg)
+        state, accs = run_seg(seg_fns[seg], state, t)
+        state = tuple(state)
+        metrics.guard_finite(list(state),
+                             f"training state after step {t + seg}")
+        t += seg
+        accs_parts.append(np.asarray(torch.as_tensor(accs).cpu()))
+        save(checkpoint_dir, tag, [torch.as_tensor(x).cpu().numpy()
+                                   for x in state], t,
+             accs=np.concatenate(accs_parts))
+        prune(checkpoint_dir)
+    accs = (np.concatenate(accs_parts) if accs_parts
+            else np.zeros((0,), np.float32))
+    return state, accs, start
