@@ -22,13 +22,22 @@ and the script exits non-zero without printing a result:
      ``ssgd.prepare_fused``/``make_train_fn``: ``fused_train`` (kernel
      B2), ``fused_gather`` (B1) and ``bernoulli`` with ``use_pallas``
      (B6), then the breast-cancer reference task on the fused samplers;
-  7. the kernels line, then the last line
+  7. PageRank at bench.py's geometry (1,000,000 vertices, Erdős–Rényi of
+     average degree 8: 7,999,981 edges): kernels B7 and B8 against their
+     plain versions on small cases (exact ones bitwise, a 100k-edge hub
+     row, empty rows) and at the main shape, timed beside the plain
+     version, the library call and the bound; ``models.pagerank.run``
+     in standard mode for 50 iterations (B7), its ranks against the CPU
+     port's after 10, bitwise replay; the ``pallas`` (B8) and ``xla``
+     (library) sweeps; reference mode on the toy graph against the
+     recorded golden;
+  8. the kernels line, then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
 and read just after it (the serving path: phase 4's full-width fit and
-phase 5; each SSGD path on its own), so the kernels line shows that each
-path went through its kernel.
+phase 5; each SSGD path and each PageRank sweep on its own), so the
+kernels line shows that each path went through its kernel.
 """
 
 from __future__ import annotations
@@ -373,7 +382,7 @@ def check_ssgd_kernels_small(dev) -> None:
               f"skip_update) max |err| {errs!r}, replay bitwise")
 
 
-def _ssgd_bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
+def _bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -401,7 +410,7 @@ def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids1,
         return (torch.mv(X_f32.T, (torch.sigmoid(torch.mv(X_f32, w_plain))
                                    - y_f32) * mask), mask.sum())
 
-    bound = _ssgd_bound_ms(4 * (n * d + 2 * n + d + d + 1),
+    bound = _bound_ms(4 * (n * d + 2 * n + d + d + 1),
                            4 * n * d + 6 * n)
     recs["B6"] = dict(
         max_abs_err=err,
@@ -432,7 +441,7 @@ def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids1,
     n_s = ids1.shape[0]
     rows = n_s * SSGD_GBR
     step_bytes = rows * D * X2.element_size()
-    bound = _ssgd_bound_ms(step_bytes + 4 * (n_s + D + D + 1), 4 * rows * D)
+    bound = _bound_ms(step_bytes + 4 * (n_s + D + D + 1), 4 * rows * D)
     recs["B1"] = dict(
         max_abs_err=err,
         ms=_time_ms(lambda: tk.fused_grad_sum_gathered(
@@ -459,7 +468,7 @@ def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids1,
                                                                    0.0)
         return w
 
-    bound = _ssgd_bound_ms(T * step_bytes + 4 * (T * n_s + 3 * D),
+    bound = _bound_ms(T * step_bytes + 4 * (T * n_s + 3 * D),
                            T * (4 * rows * D + 3 * D))
     skip_ms = _time_ms(lambda: tk.fused_train_gathered(
         X2, w_aug, ids_seg, eta=eta, skip_update=True, **kw), 10)
@@ -489,19 +498,25 @@ def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids1,
     return recs
 
 
+def _kernel_wrappers():
+    from tpu_distalg_torch.ops import pagerank_kernels, ssgd_kernels
+
+    return ssgd_kernels.KERNELS + pagerank_kernels.KERNELS
+
+
 def _reset_launches():
-    from tpu_distalg_torch.ops import ssgd_kernels, topk
+    from tpu_distalg_torch.ops import topk
 
     topk.fused_matmul_topk.launches = 0
-    for k in ssgd_kernels.KERNELS:
+    for k in _kernel_wrappers():
         k.launches = 0
 
 
 def _launches() -> dict:
-    from tpu_distalg_torch.ops import ssgd_kernels, topk
+    from tpu_distalg_torch.ops import topk
 
     return {"topk": topk.fused_matmul_topk.launches,
-            **{k.__name__: k.launches for k in ssgd_kernels.KERNELS}}
+            **{k.__name__: k.launches for k in _kernel_wrappers()}}
 
 
 def run_ssgd(dev) -> dict:
@@ -621,6 +636,262 @@ def run_ssgd(dev) -> dict:
     return {"recs": recs, "launches": launches}
 
 
+#: PageRank at bench.py's geometry (bench.py:104-106, :2662): vertices,
+#: average degree, iterations per call (PR_ITERS_PER_CALL), and the
+#: iterations after which the card is held against the CPU
+PR_VERTICES, PR_AVG_DEGREE, PR_ITERS, PR_CHECK_ITERS = (
+    1_000_000, 8.0, 50, 10)
+#: timed runs of each sweep (the best is its iterations/s, as bench.py
+#: takes the best of its repeats)
+PR_REPEATS = 5
+#: the reference's recorded toy ranks (tests/test_workloads.py:113-121)
+PR_GOLDEN = [0.38891305880091237, 0.214416470596171, 0.3966704706029163]
+#: B7/B8 random cases, per element against the plain version: rtol 1e-5
+#: and atol 1e-8 (rows of up to ~40 edges drift a few 2⁻²⁴ in either
+#: order), as tests/test_pallas_pagerank.py holds the JAX sweeps; the
+#: 100k-edge hub row rtol 1e-4 (the plain version's atomics add in no
+#: fixed order, and a float32 sum of 100k positive terms drifts about
+#: 1e-5 of its value: 7.2e-6 for the CPU's sequential sum)
+PR_RTOL, PR_HUB_RTOL, PR_ATOL = 1e-5, 1e-4, 1e-8
+
+
+def _pr_rows(dev, rng, v, hub_degree, avg):
+    """CSR rows: row 17 with ``hub_degree`` in-edges, every fifth row
+    empty, the others Poisson(avg) edges; src uniform."""
+    import torch
+
+    deg = rng.poisson(avg, size=v)
+    deg[::5] = 0
+    if hub_degree:
+        deg[17] = hub_degree
+    rp = np.zeros(v + 1, np.int64)
+    np.cumsum(deg, out=rp[1:])
+    src = rng.integers(0, v, size=int(rp[-1])).astype(np.int32)
+    return (torch.as_tensor(rp.astype(np.int32), device=dev),
+            torch.as_tensor(src, device=dev))
+
+
+def _pr_close(what, got, want, rtol) -> float:
+    import torch
+
+    if not torch.allclose(got, want, rtol=rtol, atol=PR_ATOL):
+        raise AssertionError(f"{what}: not within rtol {rtol}, atol "
+                             f"{PR_ATOL} of the plain version")
+    return float((got - want).abs().max())
+
+
+def check_pagerank_kernels_small(dev) -> None:
+    """Phase 7a: B7 and B8 against their plain versions. Exact cases
+    (x a multiple of 2⁻¹⁰ below 2⁻⁶, w_e = 1, integer c: every partial
+    sum exact) bitwise, random cases within ``PR_RTOL``, a fixed input
+    replaying bitwise; a hub row, empty rows, V not a multiple of any
+    block size, every lane width (4 to 32 lanes a row)."""
+    import torch
+
+    from tpu_distalg_torch.ops import pagerank_kernels as pk
+
+    for label, v, hub, avg in (
+            ("hub row of 100000 in-edges, V=4099", 4099, 100_000, 8.0),
+            ("V=1000003, average degree 6.4", 1_000_003, 0, 8.0),
+            ("V=37, average degree 2", 37, 0, 2.5),
+            ("V=20000, average degree 12", 20_000, 0, 15.0),
+            ("V=5000, average degree 24", 5000, 0, 30.0)):
+        rng = np.random.default_rng(v)
+        rp, src = _pr_rows(dev, rng, v, hub, avg)
+        E = src.shape[0]
+        errs = []
+        for kind in ("exact", "random"):
+            if kind == "exact":
+                x = torch.as_tensor((rng.integers(0, 16, size=v) / 1024.0
+                                     ).astype(np.float32), device=dev)
+                w = torch.ones(E, device=dev)
+                c = torch.as_tensor(rng.integers(-8, 9, size=E).astype(
+                    np.float32), device=dev)
+            else:
+                x, w, c = (torch.as_tensor(rng.random(n).astype(np.float32),
+                                           device=dev) for n in (v, E, E))
+            y7 = pk.spmv_table(rp, src, w, x)
+            y8 = pk.scatter_table(rp, c)
+            torch.cuda.synchronize()
+            r7 = pk.spmv_table_reference(rp, src, w, x)
+            r8 = pk.scatter_table_reference(rp, c)
+            if kind == "exact":
+                if not (torch.equal(y7, r7) and torch.equal(y8, r8)):
+                    raise AssertionError(f"B7/B8 {label}: exact case not "
+                                         f"bitwise equal")
+                if float(y7[::5][1:].abs().max()) != 0.0:
+                    raise AssertionError(f"B7 {label}: an empty row is "
+                                         f"not 0")
+            else:
+                rtol = PR_HUB_RTOL if hub else PR_RTOL
+                errs = [_pr_close(f"B7 {label}", y7, r7, rtol),
+                        _pr_close(f"B8 {label}", y8, r8, rtol)]
+            if not (torch.equal(y7, pk.spmv_table(rp, src, w, x))
+                    and torch.equal(y8, pk.scatter_table(rp, c))):
+                raise AssertionError(f"B7/B8 {label}: replay differs")
+        print(f"[kernels] pagerank {label} ({E} edges, "
+              f"{pk.lanes_per_row(E, v)} lanes a row): exact case bitwise, "
+              f"random max |err| B7 {errs[0]!r} B8 {errs[1]!r}, replay "
+              f"bitwise")
+
+
+def pagerank_kernel_records(dev, de) -> dict:
+    """Phase 7b: B7 and B8 at the main path's shape (the graph's CSR
+    rows, x positive like ranks) against their plain versions, timed
+    beside the plain version, the library call and the bound."""
+    import warnings
+
+    import torch
+
+    from tpu_distalg_torch.ops import pagerank_kernels as pk
+
+    rp, src, w = de.shards[0]
+    V, E = de.n_vertices, de.n_edges
+    x = torch.as_tensor(np.random.default_rng(SEED + 17).random(V).astype(
+        np.float32), device=dev)
+    c = torch.index_select(x, 0, src) * w     # the pallas path's input
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*[Ss]parse")
+        A = torch.sparse_csr_tensor(rp, src, w, (V, V),
+                                    check_invariants=False)
+    offsets = rp.long()
+    recs = {}
+    for key, run, plain, lib, nbytes, flops in (
+            ("B7", lambda: pk.spmv_table(rp, src, w, x),
+             lambda: pk.spmv_table_reference(rp, src, w, x),
+             lambda: A @ x, 4 * (2 * E + (V + 1) + 2 * V), 2 * E),
+            ("B8", lambda: pk.scatter_table(rp, c),
+             lambda: pk.scatter_table_reference(rp, c),
+             lambda: torch.segment_reduce(c, "sum", offsets=offsets,
+                                          unsafe=True),
+             4 * (E + (V + 1) + V), E)):
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = _pr_close(f"{key} main shape", got, want, PR_RTOL)
+        bound = _bound_ms(nbytes, flops)
+        recs[key] = dict(max_abs_err=err, ms=_time_ms(run, 200),
+                         plain_ms=_time_ms(plain, 50),
+                         library_ms=_time_ms(lib, 50), bound_ms=bound[0],
+                         bound_by=bound[1])
+        lib_err = float((lib() - want).abs().max())
+        r = recs[key]
+        print(f"[kernels] pagerank {key} main shape (V={V}, E={E}): max "
+              f"|err| {err!r} vs plain; kernel {r['ms']!r} ms, plain "
+              f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms (max "
+              f"|err| {lib_err!r}), bound {r['bound_ms']!r} ms "
+              f"({r['bound_by']}, {nbytes} bytes)")
+    return recs
+
+
+def run_pagerank(dev) -> dict:
+    """Phase 7: the kernels, then the PageRank paths at bench.py's
+    geometry. Returns the kernel records and each path's launches."""
+    import torch
+
+    from tpu_distalg_torch.models import pagerank
+    from tpu_distalg_torch.ops import graph as gops
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets
+
+    check_pagerank_kernels_small(dev)
+    mesh = get_mesh(data=1, device=dev)
+    t0 = time.perf_counter()
+    edges = datasets.erdos_renyi_edges(PR_VERTICES, PR_AVG_DEGREE, seed=0)
+    print(f"[pagerank] graph: {len(edges)} edges drawn in "
+          f"{time.perf_counter() - t0!r} s")
+    cfg = pagerank.PageRankConfig(n_iterations=PR_ITERS, mode="standard")
+    torch.cuda.synchronize()
+    _reset_launches()
+    t1 = time.perf_counter()
+    res = pagerank.run(edges, mesh, cfg, PR_VERTICES)
+    total = float(res.ranks.sum())
+    main_s = time.perf_counter() - t1
+    launches = {"auto": _launches()}
+    if (launches["auto"]["spmv_table"], launches["auto"]["scatter_table"]
+            ) != (PR_ITERS, 0):
+        raise AssertionError(f"pagerank.run (auto): launches "
+                             f"{launches['auto']}, want spmv_table "
+                             f"{PR_ITERS} and scatter_table 0")
+    if not (res.ranks.shape == (PR_VERTICES,)
+            and bool(torch.isfinite(res.ranks).all())
+            and abs(total - 1.0) <= 1e-4):
+        raise AssertionError(
+            f"pagerank.run: ranks {tuple(res.ranks.shape)}, finite "
+            f"{bool(torch.isfinite(res.ranks).all())}, sum {total!r} (want "
+            f"within 1e-4 of 1)")
+    print(f"[pagerank] models.pagerank.run, standard, scatter=auto: "
+          f"{PR_ITERS} iterations in {main_s!r} s with the host prep "
+          f"(dedupe, dst sort, CSR upload); Σranks {total!r}; launches "
+          f"{launches['auto']}")
+
+    t1 = time.perf_counter()
+    el = gops.prepare_edges(edges, PR_VERTICES)
+    de = pagerank.prepare_device_edges(el, mesh)
+    torch.cuda.synchronize()
+    print(f"[pagerank] prep: {time.perf_counter() - t1!r} s for "
+          f"{el.n_edges} edges, {el.n_vertices} vertices")
+    recs = pagerank_kernel_records(dev, de)
+
+    rates = {}
+    for scatter in ("auto", "pallas", "xla"):
+        fn = pagerank.make_run_fn(mesh, pagerank.PageRankConfig(
+            n_iterations=PR_ITERS, mode="standard", scatter=scatter),
+            PR_VERTICES)
+        first, _ = fn(de)                        # warm
+        want = {"auto": (PR_ITERS, 0), "pallas": (0, PR_ITERS),
+                "xla": (0, 0)}[scatter]
+        secs = []
+        for _ in range(PR_REPEATS):
+            torch.cuda.synchronize()
+            _reset_launches()
+            t1 = time.perf_counter()
+            ranks, _ = fn(de)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            got = _launches()
+            if (got["spmv_table"], got["scatter_table"]) != want:
+                raise AssertionError(
+                    f"scatter={scatter}: launches {got}, want "
+                    f"(spmv_table, scatter_table) = {want}")
+            if scatter != "xla" and not torch.equal(first, ranks):
+                raise AssertionError(f"scatter={scatter}: two runs on the "
+                                     f"card differ")
+        if scatter == "pallas":
+            launches["pallas"] = got
+        rates[scatter] = PR_ITERS / min(secs)
+        print(f"[pagerank] scatter={scatter}: {PR_ITERS} iterations in "
+              f"{min(secs)!r} s (best of {PR_REPEATS}; slowest "
+              f"{max(secs)!r} s) = {rates[scatter]!r} iter/s, "
+              f"{1e9 / (rates[scatter] * el.n_edges)!r} ns/edge; Σranks "
+              f"{float(ranks.sum())!r}; launches per run {got}"
+              + ("" if scatter == "xla" else "; replay bitwise"))
+
+    cfg10 = pagerank.PageRankConfig(n_iterations=PR_CHECK_ITERS,
+                                    mode="standard")
+    card = pagerank.make_run_fn(mesh, cfg10, PR_VERTICES)(de)[0].cpu()
+    mesh_cpu = get_mesh(data=1, device="cpu")
+    cpu = pagerank.make_run_fn(mesh_cpu, cfg10, PR_VERTICES)(
+        pagerank.prepare_device_edges(el, mesh_cpu))[0]
+    if not torch.allclose(card, cpu, rtol=PR_RTOL, atol=PR_ATOL):
+        raise AssertionError("pagerank: card ranks after 10 iterations not "
+                             "within rtol 1e-5, atol 1e-8 of the CPU port's")
+    print(f"[pagerank] after {PR_CHECK_ITERS} iterations the card's ranks "
+          f"are within rtol {PR_RTOL}, atol {PR_ATOL} of the CPU port's "
+          f"(plain versions): max |d| {float((card - cpu).abs().max())!r}")
+
+    _reset_launches()
+    toy = pagerank.run(datasets.toy_graph_edges(), mesh)
+    n7 = _launches()["spmv_table"]
+    got = toy.ranks.cpu().numpy()
+    if n7 != 2 * 10 or not np.allclose(got, PR_GOLDEN, rtol=0, atol=1e-5):
+        raise AssertionError(f"reference mode toy graph: ranks {got}, B7 "
+                             f"launches {n7} (want {PR_GOLDEN} to 1e-5, "
+                             f"20 launches)")
+    print(f"[pagerank] reference mode, toy graph: {got.tolist()} within "
+          f"1e-5 of the golden; B7 launches {n7} (2 per iteration)")
+    return {"recs": recs, "launches": launches, "rates": rates}
+
+
 def _phase(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[time] {name}: {now - t0!r} s")
@@ -677,6 +948,9 @@ def main() -> int:
     sg = run_ssgd(dev)
     t0 = _phase("ssgd", t0)
 
+    pr = run_pagerank(dev)
+    t0 = _phase("pagerank", t0)
+
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"
     kernels = [{
@@ -692,6 +966,13 @@ def main() -> int:
             "name": f"ssgd_kernels.{name}", "route": "cuda",
             "source": ssgd_src, "replaces": f"{pallas}:{line}",
             "launches": sg["launches"][path][name], **sg["recs"][key]})
+    for key, name, line, path in (("B7", "spmv_table", 457, "auto"),
+                                  ("B8", "scatter_table", 498, "pallas")):
+        kernels.append({
+            "name": f"pagerank_kernels.{name}", "route": "cuda",
+            "source": "tpu_distalg_torch/csrc/pagerank.cu",
+            "replaces": f"tpu_distalg/ops/pallas_pagerank.py:{line}",
+            "launches": pr["launches"][path][name], **pr["recs"][key]})
     print(f"[time] total: {time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,5 +15,7 @@ Ported so far: ALS training (``models/als.py``), its artifact
 ``csrc/topk.cu``); SSGD logistic regression (``models/ssgd.py``) on
 the port's threefry (``utils/prng.py``), the emulated data axis
 (``parallel/``) and three gradient kernels (``ops/ssgd_kernels.py``,
-``csrc/ssgd.cu``).
+``csrc/ssgd.cu``); resident PageRank (``models/pagerank.py``) over a
+dst-sorted CSR (``ops/graph.py``) with two sweep kernels
+(``ops/pagerank_kernels.py``, ``csrc/pagerank.cu``).
 """

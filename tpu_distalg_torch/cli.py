@@ -1,4 +1,5 @@
-"""Command line of the port: SSGD, ALS, and serving ALS artifacts.
+"""Command line of the port: SSGD, ALS, serving ALS artifacts, and
+PageRank.
 
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] ssgd \\
         --sampler fused_train --gather-block-rows 32 --fused-pack 4 \\
@@ -8,9 +9,12 @@
         --checkpoint-dir D                     # prints artifact_path: D
     python -m tpu_distalg_torch.cli serve --artifact D --max-batch 32 \\
         --requests 2048 --concurrency 8
+    python -m tpu_distalg_torch.cli [--device {cuda,cpu}] pagerank \\
+        [--n-vertices 1000000 --mode standard --n-iterations 50]
 
-The lines printed match the JAX package's ``tda ssgd``, ``tda als`` and
-``tda serve``. Runs on ``cuda`` unless ``--device cpu`` is given.
+The lines printed match the JAX package's ``tda ssgd``, ``tda als``,
+``tda serve`` and ``tda pagerank``. Runs on ``cuda`` unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
@@ -71,6 +75,38 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--k-top", type=int, default=10)
     s.add_argument("--requests", type=int, default=256)
     s.add_argument("--concurrency", type=int, default=4)
+
+    g = sub.add_parser("pagerank", help="PageRank power iteration")
+    g.add_argument("--n-slices", type=int, default=0,
+                   help="emulated data shards; 0 = 1")
+    g.add_argument("--n-iterations", type=int, default=10)
+    g.add_argument("--q", type=float, default=0.15)
+    g.add_argument("--mode", default=None,
+                   choices=["reference", "standard"],
+                   help="default: reference (the resident backend's)")
+    g.add_argument("--scatter", default="auto",
+                   choices=["auto", "pallas", "xla", "spmv"],
+                   help="standard-mode sweep: auto/spmv = kernel B7 (CSR "
+                        "SpMV), pallas = torch gather + kernel B8 "
+                        "(segmented sum), xla = the library's sparse CSR "
+                        "product (the A/B line)")
+    g.add_argument("--n-vertices", type=int, default=0,
+                   help="0 = the reference's 4-edge toy graph; else an "
+                        "Erdős–Rényi graph of this many vertices")
+    g.add_argument("--edge-file", type=str, default=None,
+                   help="load the graph from a '#'-commented whitespace "
+                        "edge-list file (overrides --n-vertices)")
+    g.add_argument("--data-backend", default="resident",
+                   choices=["resident", "virtual", "streamed"],
+                   help="where the edge set lives: resident = device "
+                        "memory (the one ported backend; streamed and "
+                        "virtual wait for ROADMAP A10)")
+    g.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="segmented checkpoint/resume directory")
+    g.add_argument("--checkpoint-every", type=int, default=5)
+    g.add_argument("--max-restarts", type=int, default=0,
+                   help="restarts after a failed segment: waits for the "
+                        "faults slice (ROADMAP A12); only 0 is accepted")
     return p
 
 
@@ -142,10 +178,65 @@ def _run_ssgd(args) -> None:
         print(f"saved plot: {args.plot}")
 
 
+def _run_pagerank(args) -> None:
+    import time
+
+    import numpy as np
+    import torch
+
+    from tpu_distalg_torch.models import pagerank as m
+    from tpu_distalg_torch.ops import graph as gops
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets
+
+    if args.max_restarts != 0:
+        raise SystemExit("--max-restarts waits for the faults slice "
+                         "(ROADMAP A12); only 0 is accepted")
+    if args.edge_file is not None:
+        edges = gops.parse_edges_text(args.edge_file)
+    elif args.n_vertices == 0:
+        edges = datasets.toy_graph_edges()
+    else:
+        edges = datasets.erdos_renyi_edges(args.n_vertices)
+    # the edge content is authoritative for --edge-file; the synthetic
+    # graph keeps its isolated tail vertices
+    n_v = int(np.asarray(edges).max()) + 1 if len(edges) else 1
+    if args.edge_file is None and args.n_vertices:
+        n_v = max(n_v, args.n_vertices)
+    try:
+        m.choose_data_backend(args.data_backend)
+    except NotImplementedError as e:
+        raise SystemExit(f"[pagerank] {e}") from None
+    mesh = get_mesh(data=args.n_slices or None, device=args.device)
+    cfg = m.PageRankConfig(n_iterations=args.n_iterations, q=args.q,
+                           mode=args.mode or "reference",
+                           scatter=args.scatter)
+    t0 = time.perf_counter()
+    el = gops.prepare_edges(edges, n_v)
+    de = m.prepare_device_edges(el, mesh)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    t1 = time.perf_counter()
+    print(f"[pagerank] prep: {t1 - t0:.3f}s ({el.n_edges} edges, "
+          f"{el.n_vertices} vertices: dedupe, dst sort, CSR upload)")
+    res = m.run_prepared(de, mesh, cfg, checkpoint_dir=args.checkpoint_dir,
+                         checkpoint_every=args.checkpoint_every)
+    ranks = res.ranks.cpu().numpy()
+    mask = res.has_rank.cpu().numpy() > 0
+    dt = time.perf_counter() - t1
+    for v in np.argsort(-ranks)[:10]:
+        if mask[v]:
+            print(f"{v} has rank: {ranks[v]}.")
+    print(f"[pagerank] {args.n_iterations} iterations in {dt:.3f}s "
+          f"({args.n_iterations / dt:.2f} iter/s)")
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.cmd == "ssgd":
         _run_ssgd(args)
+    elif args.cmd == "pagerank":
+        _run_pagerank(args)
     elif args.cmd == "als":
         from tpu_distalg_torch.models import als
 

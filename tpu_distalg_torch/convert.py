@@ -1,5 +1,5 @@
-"""Carry trained parameters (ALS factors, SSGD weights) from the JAX
-package into the port.
+"""Carry trained parameters (ALS factors, SSGD weights) and PageRank's
+rank state from the JAX package into the port.
 
 The two packages share no file format the port reads (the JAX package
 checkpoints as flax msgpack), so parameters cross as numpy arrays:
@@ -58,3 +58,21 @@ def ssgd_params_from_jax(w_np, meta: dict | None = None, *,
             raise ValueError(f"w {tuple(t.shape)}: want ({y_col},) or "
                              f"({d_t},) for meta {meta}")
     return t.to(dev).contiguous()
+
+
+def pagerank_state_from_jax(ranks_np, has_rank_np, *,
+                            device: str | torch.device | None = None):
+    """A JAX PageRank run's carry — ``ranks`` (V,) and ``has_rank`` (V,),
+    float32 or bool, 1 where a vertex holds a rank — as the float32
+    ``(ranks0, has_rank0)`` the port's ``models.pagerank.run`` resumes
+    from. PageRank has no weights: its state is the carry."""
+    dev = resolve_device(device)
+    ranks = np.array(ranks_np, np.float32)
+    has = np.array(has_rank_np, np.float32)
+    if ranks.ndim != 1 or ranks.shape != has.shape:
+        raise ValueError(f"ranks {ranks.shape} vs has_rank {has.shape}: "
+                         f"want two (V,) vectors")
+    if not np.isin(has, (0.0, 1.0)).all():
+        raise ValueError("has_rank must hold only 0 and 1")
+    return (torch.from_numpy(ranks).to(dev).contiguous(),
+            torch.from_numpy(has).to(dev).contiguous())

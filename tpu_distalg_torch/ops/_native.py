@@ -46,6 +46,11 @@ _SIGNATURES = {
                             _F, _F, _I, _I, _P, _P, _I, _P], _I),
         "tda_error_string": ([_I], ctypes.c_char_p),
     },
+    "pagerank": {
+        "tda_pagerank_spmv": ([_P, _P, _P, _P, _I, _I, _P, _I, _P], _I),
+        "tda_pagerank_segment_sum": ([_P, _P, _I, _I, _P, _I, _P], _I),
+        "tda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 #: the kernel libraries, built together by chip_smoke.py
 LIBRARIES = tuple(_SIGNATURES)
@@ -125,3 +130,30 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.tda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def check_tensor(name, t, dtypes, ndim) -> None:
+    """Raise unless ``t`` is a tensor of one of ``dtypes`` with ``ndim``
+    dimensions."""
+    import torch
+
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got "
+                        f"{type(t).__name__}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))},"
+                         f" got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+
+
+def cuda_device(*tensors):
+    """The CUDA device of the operands (all on one card), or raise."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"operands on {dev} and {t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -176,29 +176,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check_tensor(name, t, dtypes, ndim):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got "
-                        f"{type(t).__name__}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))},"
-                         f" got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape "
-                         f"{tuple(t.shape)}")
-
-
-def _cuda_ready(*tensors):
-    """The CUDA device of the operands (all on one card), or raise."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"operands on {dev} and {t.device}")
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 def _check_packed(X2, pack, d_total, gather_block_rows, what):
     """The JAX package's shape contract of X2 (its TPU tiling rule, a
     multiple of 8 packed rows per block, is not part of it)."""
@@ -234,9 +211,9 @@ def fused_grad_sum(X, y, mask, w, *, block_rows: int = 2048):
     tile; the CUDA kernel sizes its own blocks, so it only has to be
     positive. A CPU tensor goes to :func:`grad_sum_reference`; a CUDA
     tensor launches the kernel (``fused_grad_sum.launches``) or raises."""
-    _check_tensor("X", X, (torch.float32, torch.bfloat16), 2)
+    _native.check_tensor("X", X, (torch.float32, torch.bfloat16), 2)
     for name, t in (("y", y), ("mask", mask), ("w", w)):
-        _check_tensor(name, t, (torch.float32,), 1)
+        _native.check_tensor(name, t, (torch.float32,), 1)
     n, d = X.shape
     if y.shape[0] != n or mask.shape[0] != n or w.shape[0] != d:
         raise ValueError(f"X {tuple(X.shape)}, y {tuple(y.shape)}, mask "
@@ -245,7 +222,7 @@ def fused_grad_sum(X, y, mask, w, *, block_rows: int = 2048):
         raise ValueError(f"block_rows must be positive, got {block_rows}")
     if X.device.type == "cpu":
         return grad_sum_reference(X, y, mask, w)
-    dev = _cuda_ready(X, y, mask, w)
+    dev = _native.cuda_device(X, y, mask, w)
     if n < 1 or d < 1 or d > MAX_GRAD_D:
         raise ValueError(f"X {tuple(X.shape)}: the CUDA kernel takes "
                          f"1 <= d <= {MAX_GRAD_D} and n >= 1")
@@ -279,9 +256,10 @@ def fused_grad_sum_gathered(X2, w_aug, block_idx, *, pack: int,
     Entries of the gradient at and past ``y_col`` are not part of the
     contract. A CPU tensor goes to :func:`grad_sum_gathered_reference`;
     a CUDA tensor launches the kernel (``.launches``) or raises."""
-    _check_tensor("X2", X2, (torch.float32, torch.bfloat16), 2)
-    _check_tensor("w_aug", w_aug, (torch.float32,), 1)
-    _check_tensor("block_idx", block_idx, (torch.int32, torch.int64), 1)
+    _native.check_tensor("X2", X2, (torch.float32, torch.bfloat16), 2)
+    _native.check_tensor("w_aug", w_aug, (torch.float32,), 1)
+    _native.check_tensor("block_idx", block_idx,
+                         (torch.int32, torch.int64), 1)
     _check_packed(X2, pack, d_total, gather_block_rows,
                   "fused_grad_sum_gathered")
     if w_aug.shape[0] != d_total:
@@ -290,7 +268,7 @@ def fused_grad_sum_gathered(X2, w_aug, block_idx, *, pack: int,
         return grad_sum_gathered_reference(
             X2, w_aug, block_idx, pack=pack, d_total=d_total, y_col=y_col,
             v_col=v_col, gather_block_rows=gather_block_rows)
-    dev = _cuda_ready(X2, w_aug, block_idx)
+    dev = _native.cuda_device(X2, w_aug, block_idx)
     _check_row_kernel(X2, d_total, y_col, v_col, "fused_grad_sum_gathered")
     n_s = block_idx.shape[0]
     if n_s < 1:
@@ -333,15 +311,16 @@ def fused_train_gathered(X2, w0, block_idx, *, pack: int, d_total: int,
     the update (the weights stay ``w0``): it prices the update chain.
     A CPU tensor goes to :func:`train_gathered_reference`; a CUDA
     tensor launches the kernel (``.launches``) or raises."""
-    _check_tensor("X2", X2, (torch.float32, torch.bfloat16), 2)
-    _check_tensor("w0", w0, (torch.float32,), 1)
-    _check_tensor("block_idx", block_idx, (torch.int32, torch.int64), 2)
+    _native.check_tensor("X2", X2, (torch.float32, torch.bfloat16), 2)
+    _native.check_tensor("w0", w0, (torch.float32,), 1)
+    _native.check_tensor("block_idx", block_idx,
+                         (torch.int32, torch.int64), 2)
     _check_packed(X2, pack, d_total, gather_block_rows,
                   "fused_train_gathered")
     if w0.shape[0] != d_total:
         raise ValueError(f"w0 {tuple(w0.shape)} != ({d_total},)")
     if center is not None:
-        _check_tensor("center", center, (torch.float32,), 1)
+        _native.check_tensor("center", center, (torch.float32,), 1)
         if center.shape[0] != d_total:
             raise ValueError(f"center {tuple(center.shape)} != "
                              f"({d_total},)")
@@ -352,7 +331,7 @@ def fused_train_gathered(X2, w0, block_idx, *, pack: int, d_total: int,
             alpha=alpha, center=center, skip_update=skip_update)
     if center is None:
         center = torch.zeros_like(w0)
-    dev = _cuda_ready(X2, w0, block_idx, center)
+    dev = _native.cuda_device(X2, w0, block_idx, center)
     _check_row_kernel(X2, d_total, y_col, v_col, "fused_train_gathered")
     T, n_s = block_idx.shape
     if T < 1 or n_s < 1:

@@ -16,47 +16,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import time
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from tpu_distalg_torch.models import ssgd
 from tpu_distalg_torch.parallel import get_mesh, parallelize
+from tpu_distalg_torch.tools.profiling import window
 from tpu_distalg_torch.utils import datasets
-
-
-def _device_us(prof) -> dict[str, float]:
-    out = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        out[e.key] = out.get(e.key, 0.0) + float(us)
-    return out
-
-
-def _window(run, steps: int) -> dict:
-    run()                                   # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    dev = {k: v / steps for k, v in _device_us(prof).items()}
-    total = sum(dev.values())
-    top = dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8])
-    return {"wall_us_per_step": wall_us,
-            "device_us_per_step": total,
-            "device_idle_share": 1.0 - total / wall_us,
-            "device_us_per_step_by_op": top}
 
 
 def main() -> int:
@@ -91,7 +57,7 @@ def main() -> int:
                       "torch": torch.__version__}))
     for name, run in runs.items():
         print(json.dumps({"path": name, "steps": windows[name],
-                          **_window(run, windows[name])}))
+                          **window(run, windows[name])}))
     return 0
 
 

@@ -1,8 +1,11 @@
-"""Datasets of the SSGD slice: the reference task and synthetic data.
+"""Datasets of the ported slices: the SSGD reference task, synthetic
+classification data, and PageRank's graphs.
 
-Port of the parts of ``tpu_distalg/utils/datasets.py`` that SSGD uses.
-The reference trains on breast-cancer with a fixed 70/30 split and a
-ones column appended (the model has D+1 weights). The machine with the
+Port of the parts of ``tpu_distalg/utils/datasets.py`` that SSGD and
+PageRank use; the generators draw from the same numpy streams, so both
+packages make the same arrays from a seed. The SSGD reference trains
+on breast-cancer with a fixed 70/30 split and a ones column appended
+(the model has D+1 weights). The machine with the
 card has no scikit-learn, so the data ships with the package
 (``data/breast_cancer.csv``, copied from scikit-learn, BSD-3; see
 ``data/breast_cancer.NOTICE``) and the split is reproduced with numpy
@@ -63,3 +66,22 @@ def synthetic_two_class(n_rows: int, n_features: int = 30, seed: int = 0,
     logits = X @ w_true * separation / np.sqrt(n_features)
     y = (logits + rng.logistic(size=n_rows) > 0).astype(np.float32)
     return X, y
+
+
+def erdos_renyi_edges(
+    n_vertices: int, avg_degree: float = 8.0, seed: int = 0
+) -> np.ndarray:
+    """Uniform-random directed edge list (src, dst), shape (E, 2), no
+    self-loops — the 1M-node PageRank benchmark graph (BASELINE.json)."""
+    rng = np.random.default_rng(seed)
+    n_edges = int(n_vertices * avg_degree)
+    src = rng.integers(0, n_vertices, size=n_edges, dtype=np.int64)
+    dst = rng.integers(0, n_vertices - 1, size=n_edges, dtype=np.int64)
+    dst = np.where(dst >= src, dst + 1, dst)  # avoid self-loops
+    return np.stack([src, dst], axis=1)
+
+
+def toy_graph_edges() -> np.ndarray:
+    """The reference's 4-edge toy graph (``pagerank.py:35-38``,
+    ``transitive_closure.py:18``), 0-indexed."""
+    return np.array([[0, 1], [0, 2], [1, 2], [2, 0]], dtype=np.int64)
