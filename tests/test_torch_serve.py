@@ -157,10 +157,92 @@ def test_two_models_under_many_clients_lose_no_reply():
     assert sum(m["batches"] for m in s["models"].values()) == s["batches"]
 
 
-@pytest.mark.parametrize("tag", ["lr", "kmeans_minibatch"])
+def test_kmeans_and_lr_adapters_equal_the_jax_adapters():
+    """Centres and weights carried through convert.py and served by
+    both packages: k-means replies (int32 cluster ids) equal on
+    separated points, LR probabilities within 1e-6 (two sigmoids);
+    within the port, batched replies equal unbatched ones bitwise."""
+    rng = np.random.default_rng(4)
+    centers = (10.0 * rng.permutation(5)[:, None]
+               + rng.normal(size=(5, 6))).astype(np.float32)
+    pts = (centers[rng.integers(0, 5, 40)]
+           + 0.5 * rng.normal(size=(40, 6))).astype(np.float32)
+    c = convert.kmeans_params_from_jax(centers, device="cpu")
+    mine = serve.kmeans_model(c, device="cpu")
+    ref = jserve.kmeans_model(centers)
+    assert mine.meta["k"] == 5 and mine.meta["dim"] == 6
+    got = mine.predict_batch(list(pts[:16]), 16)
+    want = ref.predict_batch(list(pts[:16]), 16)
+    assert all(g.dtype == np.int32 for g in got)
+    np.testing.assert_array_equal(np.stack(got), np.stack(want))
+    for p, b in zip(pts[:5], mine.predict_batch(list(pts[:5]), 8)):
+        assert np.array_equal(b, mine.predict_one(p, 8))
+    with pytest.raises(ValueError, match="shape"):
+        mine.predict_one(pts[0][:3], 8)
+
+    w_np = rng.normal(size=6).astype(np.float32)
+    w = convert.ssgd_params_from_jax(w_np, device="cpu")
+    mine = serve.lr_model(w, device="cpu")
+    ref = jserve.lr_model(w_np)
+    assert mine.meta["d"] == 6 and mine.kind == "lr"
+    got = np.stack(mine.predict_batch(list(pts[:16]), 16))
+    want = np.stack(ref.predict_batch(list(pts[:16]), 16))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    for p, b in zip(pts[:5], mine.predict_batch(list(pts[:5]), 8)):
+        assert np.array_equal(b, mine.predict_one(p, 8))
+
+
+def test_server_serves_kmeans_and_ssgd_artifacts(tmp_path):
+    """Training checkpoints of both workloads open by their tags
+    (``kmeans_fixed``, ``ssgd:bernoulli``) and serve under load; every
+    reply equals the model's own unbatched answer."""
+    from tpu_distalg_torch.models import kmeans, ssgd
+    from tpu_distalg_torch.ops import kmeans as kops
+    from tpu_distalg_torch.ops import logistic
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets
+
+    mesh = get_mesh(data=1, device="cpu")
+    pts = datasets.gaussian_mixture(2000, k=3, dim=4, seed=2)
+    km_dir, lr_dir = str(tmp_path / "km"), str(tmp_path / "lr")
+    km = kmeans.fit(pts, mesh, kmeans.KMeansConfig(k=3, n_iterations=4),
+                    checkpoint_dir=km_dir, checkpoint_every=2)
+    data = datasets.breast_cancer_split()
+    lr = ssgd.train(*data, mesh, ssgd.SSGDConfig(n_iterations=20),
+                    checkpoint_dir=lr_dir, checkpoint_every=10)
+    srv = serve.Server(serve.ServeConfig(max_batch=8, max_delay_ms=2.0),
+                       device="cpu")
+    try:
+        m_km = srv.add_artifact(km_dir)
+        m_lr = srv.add_artifact(lr_dir)
+        assert (m_km.kind, m_km.name, m_km.meta["k"]) == ("kmeans",
+                                                          "kmeans", 3)
+        assert (m_lr.kind, m_lr.name, m_lr.meta["d"]) == ("lr", "ssgd", 31)
+        replies, info = serve.run_closed_loop(srv, "kmeans", list(pts[:64]),
+                                              concurrency=4)
+        assert info["ok"] == 64 and info["failed"] == 0
+        want = kops.assign_clusters(torch.as_tensor(pts[:64]), km.centers)
+        np.testing.assert_array_equal(np.stack(replies), want.numpy())
+        rows = list(data[2][:48])
+        replies, info = serve.run_closed_loop(srv, "ssgd", rows,
+                                              concurrency=4)
+        assert info["ok"] == 48 and info["failed"] == 0
+        for r, reply in zip(rows, replies):
+            assert np.array_equal(reply, m_lr.predict_one(r, 8))
+        want = logistic.predict_proba(torch.as_tensor(data[2][:48]), lr.w)
+        np.testing.assert_allclose(np.stack(replies), want.numpy(), rtol=0,
+                                   atol=1e-6)
+    finally:
+        srv.close()
+
+
+@pytest.mark.parametrize("tag", ["pagerank_standard", "closure"])
 def test_load_artifact_rejects_unported_adapters(tmp_path, tag):
+    """Workloads without a serving adapter (the JAX package has none
+    for them either) are refused by name."""
     checkpoint.save(str(tmp_path), tag, [np.ones(3, np.float32)], step=1)
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="no serving adapter"):
         serve.load_artifact(str(tmp_path), device="cpu")
 
 

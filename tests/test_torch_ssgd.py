@@ -168,7 +168,7 @@ def test_fused_train_validation(data):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(sampler="fixed"), "A3"), (dict(sampler="fused"), "B5"),
+    (dict(sampler="fixed"), "A3"),
     (dict(sampler="virtual"), "A10"), (dict(comm="int8"), "A9"),
     (dict(sync="ssp:4"), "A9"), (dict(feature_sharded=True), "B3/B4")])
 def test_configs_not_ported_raise(data, change, item):

@@ -21,7 +21,10 @@ entries, held to 1e-5 of the largest entry. B2's weights after several
 steps on bfloat16 X are held to 1e-3 of the largest entry: a residual
 rounded to bf16 can land one bf16 ulp (2⁻⁸ relative) apart after
 float32 sums in two orders, and later steps carry that. A fixed seed
-must replay bit for bit.
+must replay bit for bit. B5 draws its Bernoulli mask in the kernel: its
+count must equal the plain version's (which makes the same mask from
+``utils/prng.py``), and a case with unit-vector rows reads the kept set
+off the gradient row by row.
 """
 
 from __future__ import annotations
@@ -169,6 +172,70 @@ def test_fused_train_gathered_b2_on_card(n, d, pack, gbr, n_s, T, dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,pack,block,frac", [
+    (400, 30, 16, 128, 0.1), (398, 31, 4, 32, 0.5), (5000, 300, 16, 1024, 0.1),
+    (20000, 125, 16, 2048, 0.03), (777, 61, 16, 16, 1.0)])
+def test_fused_grad_sum_packed_b5_on_card(n, d, pack, block, frac, dtype,
+                                          case, cuda_device):
+    """B5 against its plain version under the same (t, shard): the
+    count (so the number of kept rows) equal, the gradient as B1's
+    cases hold it, a replay bitwise, another t another draw."""
+    rng, X2, meta, w, kw = _packed(cuda_device, n, d, dtype, pack, block,
+                                   case, seed=n)
+    kw = dict(pack=pack, d_total=meta["d_total"], y_col=meta["y_col"],
+              v_col=meta["v_col"], fraction=frac, block_rows=block)
+    t, shard = 42 + n, 3
+    before = tk.fused_grad_sum_packed.launches
+    g, c = tk.fused_grad_sum_packed(X2, w, t, shard, **kw)
+    torch.cuda.synchronize()
+    assert tk.fused_grad_sum_packed.launches == before + 1
+    gr, cr = tk.grad_sum_packed_reference(X2, w, t, shard, **kw)
+    yc = meta["y_col"]
+    assert float(c) == float(cr)
+    if (case, dtype) == ("random", torch.bfloat16):
+        # a residual on a bf16 rounding boundary rounds the other way
+        # when z is summed in another order; among thousands of kept rows
+        # a few do, each moving an entry by up to 2⁻⁹·|resid|·|x|
+        _close(g[:yc], gr[:yc], 1e-4)
+    else:
+        _check(g[:yc], gr[:yc], case)
+    g2, c2 = tk.fused_grad_sum_packed(X2, w, t, shard, **kw)
+    assert torch.equal(g, g2) and torch.equal(c, c2)
+    if frac < 1.0 and n > 1000:
+        _, c3 = tk.fused_grad_sum_packed(X2, w, t + 1, shard, **kw)
+        _, c4 = tk.fused_grad_sum_packed(X2, w, t, shard + 1, **kw)
+        assert float(c3) != float(c) or float(c4) != float(c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,pack", [(126, 16), (300, 16)])
+def test_b5_kept_set_equals_the_plain_mask(d, pack, dtype, cuda_device):
+    """Row i is the unit vector e_i, y = 0 and w = 0, so the residual
+    is 0.5·m_i and g[i] = 0.5·m_i: the gradient spells out the kept set,
+    which must be the plain mask's, with no pad row kept."""
+    n_real = d - 7
+    X = np.eye(d, dtype=np.float32)[:n_real]
+    X2, meta = tk.pack_augmented(X, np.zeros(n_real, np.float32),
+                                 np.ones(n_real, np.float32), dtype=dtype,
+                                 pack=pack, block_rows=512,
+                                 device=cuda_device)
+    w = torch.zeros(meta["d_total"], device=cuda_device)
+    for t, shard, frac in ((0, 0, 0.5), (99, 2, 0.1), (2**32 + 5, 7, 0.9)):
+        g, c = tk.fused_grad_sum_packed(
+            X2, w, t, shard, pack=pack, d_total=meta["d_total"],
+            y_col=meta["y_col"], v_col=meta["v_col"], fraction=frac,
+            block_rows=512)
+        keep = tk.packed_keep_mask(t, shard, meta["n_padded"], frac,
+                                   cuda_device)[:n_real].to(torch.float32)
+        assert torch.equal(g[:n_real], 0.5 * keep)
+        assert float(g[n_real:d].abs().max()) == 0.0
+        assert float(c) == float(keep.sum())
+
+
+@pytest.mark.gpu
 def test_cuda_tensors_never_take_the_plain_version(cuda_device):
     """A shape the kernel does not take raises on the card (the plain
     version would have computed it)."""
@@ -183,3 +250,7 @@ def test_cuda_tensors_never_take_the_plain_version(cuda_device):
         tk.fused_grad_sum_gathered(
             X2b, wb, ids, pack=128, d_total=3, y_col=1, v_col=2,
             gather_block_rows=128)
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        tk.fused_grad_sum_packed(
+            X2b, wb, 0, 0, pack=128, d_total=3, y_col=1, v_col=2,
+            fraction=0.1, block_rows=128)

@@ -14,8 +14,11 @@ Ported so far: ALS training (``models/als.py``), its artifact
 (``serve/``) through the fused matmul+top-k kernel (``ops/topk.py``,
 ``csrc/topk.cu``); SSGD logistic regression (``models/ssgd.py``) on
 the port's threefry (``utils/prng.py``), the emulated data axis
-(``parallel/``) and three gradient kernels (``ops/ssgd_kernels.py``,
+(``parallel/``) and four gradient kernels (``ops/ssgd_kernels.py``,
 ``csrc/ssgd.cu``); resident PageRank (``models/pagerank.py``) over a
 dst-sorted CSR (``ops/graph.py``) with two sweep kernels
-(``ops/pagerank_kernels.py``, ``csrc/pagerank.cu``).
+(``ops/pagerank_kernels.py``, ``csrc/pagerank.cu``); k-means
+(``models/kmeans.py``) through torch ops (``ops/kmeans.py``) or the
+one-pass cluster-statistics kernel (``ops/kmeans_kernels.py``,
+``csrc/kmeans.cu``), its artifacts and SSGD's served beside ALS's.
 """

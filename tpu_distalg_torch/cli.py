@@ -1,5 +1,5 @@
-"""Command line of the port: SSGD, ALS, serving ALS artifacts, and
-PageRank.
+"""Command line of the port: SSGD, ALS, k-means, PageRank, and serving
+ALS, k-means and LR artifacts.
 
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] ssgd \\
         --sampler fused_train --gather-block-rows 32 --fused-pack 4 \\
@@ -11,10 +11,12 @@ PageRank.
         --requests 2048 --concurrency 8
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] pagerank \\
         [--n-vertices 1000000 --mode standard --n-iterations 50]
+    python -m tpu_distalg_torch.cli [--device {cuda,cpu}] kmeans \\
+        [--scale-points 10000000 --dim 16 --k 8 --n-iterations 50]
 
 The lines printed match the JAX package's ``tda ssgd``, ``tda als``,
-``tda serve`` and ``tda pagerank``. Runs on ``cuda`` unless ``--device
-cpu`` is given.
+``tda serve``, ``tda pagerank`` and ``tda kmeans``. Runs on ``cuda``
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ def _parser() -> argparse.ArgumentParser:
     a.add_argument("--checkpoint-dir", default=None,
                    help="save the trained factors here as an artifact")
 
-    s = sub.add_parser("serve", help="serve ALS artifacts under load")
+    s = sub.add_parser("serve", help="serve ALS, k-means and LR artifacts "
+                                     "under load")
     s.add_argument("--artifact", action="append", required=True,
                    help="checkpoint directory (repeatable)")
     s.add_argument("--max-batch", type=int, default=16)
@@ -75,6 +78,37 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--k-top", type=int, default=10)
     s.add_argument("--requests", type=int, default=256)
     s.add_argument("--concurrency", type=int, default=4)
+
+    c = sub.add_parser("kmeans", help="k-means (Lloyd's algorithm)")
+    c.add_argument("--n-slices", type=int, default=0,
+                   help="emulated data shards; 0 = 1")
+    c.add_argument("--k", type=int, default=2)
+    c.add_argument("--n-iterations", type=int, default=5)
+    c.add_argument("--converge-dist", type=float, default=None)
+    c.add_argument("--n-points", type=int, default=0,
+                   help="0 = the reference's toy 6x2 matrix; else a "
+                        "Gaussian mixture of this many points (made on "
+                        "the host, like the reference)")
+    c.add_argument("--scale-points", type=int, default=0,
+                   help="scale path: synthesize this many mixture points "
+                        "ON the device (host memory O(k); overrides "
+                        "--n-points)")
+    c.add_argument("--dim", type=int, default=16,
+                   help="point dimension for --scale-points")
+    c.add_argument("--data-backend", default="resident",
+                   choices=["resident", "virtual", "streamed"],
+                   help="where the points live: resident = device memory "
+                        "(the one ported backend; streamed and virtual "
+                        "wait for ROADMAP A10)")
+    c.add_argument("--minibatch-steps", type=int, default=0,
+                   help="minibatch k-means over a ShardedDataset: waits "
+                        "for ROADMAP A10; only 0 is accepted")
+    c.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="segmented checkpoint/resume directory")
+    c.add_argument("--checkpoint-every", type=int, default=100)
+    c.add_argument("--max-restarts", type=int, default=0,
+                   help="restarts after a failed segment: waits for the "
+                        "faults slice (ROADMAP A12); only 0 is accepted")
 
     g = sub.add_parser("pagerank", help="PageRank power iteration")
     g.add_argument("--n-slices", type=int, default=0,
@@ -178,6 +212,50 @@ def _run_ssgd(args) -> None:
         print(f"saved plot: {args.plot}")
 
 
+def _run_kmeans(args) -> None:
+    from tpu_distalg_torch.models import kmeans as m
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets
+
+    if args.max_restarts != 0:
+        raise SystemExit("--max-restarts waits for the faults slice "
+                         "(ROADMAP A12); only 0 is accepted")
+    if args.data_backend != "resident" or args.minibatch_steps:
+        raise SystemExit(
+            "[kmeans] --data-backend other than resident and "
+            "--minibatch-steps run minibatch k-means over a ShardedDataset "
+            "(the data subsystem), which is not ported yet (ROADMAP A10)")
+    mesh = get_mesh(data=args.n_slices or None, device=args.device)
+    ckpt = dict(checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every)
+    if args.scale_points:
+        make_rows, _ = datasets.gaussian_mixture_rows(k=args.k, dim=args.dim,
+                                                      seed=0)
+        res = m.fit_scaled(
+            mesh, args.scale_points, make_rows,
+            m.KMeansConfig(k=args.k, n_iterations=args.n_iterations,
+                           converge_dist=args.converge_dist,
+                           init="farthest"), **ckpt)
+    else:
+        pts = (datasets.toy_kmeans_matrix() if args.n_points == 0
+               else datasets.gaussian_mixture(args.n_points, k=args.k))
+        res = m.fit(pts, mesh, m.KMeansConfig(
+            k=args.k, n_iterations=args.n_iterations,
+            converge_dist=args.converge_dist), **ckpt)
+    print(f"Final centers: {res.centers.cpu().tolist()}")
+    print(f"iterations run: {res.n_iterations_run}")
+
+
+def _serve_payloads(model, rng, n: int) -> list:
+    """A demo load for a served model, as the JAX CLI draws it."""
+    import numpy as np
+
+    if model.kind == "als":
+        return list(rng.integers(0, max(1, model.meta["n_users"]), size=n))
+    width = model.meta["dim" if model.kind == "kmeans" else "d"]
+    return list(rng.normal(size=(n, width)).astype(np.float32))
+
+
 def _run_pagerank(args) -> None:
     import time
 
@@ -237,6 +315,8 @@ def main(argv=None) -> int:
         _run_ssgd(args)
     elif args.cmd == "pagerank":
         _run_pagerank(args)
+    elif args.cmd == "kmeans":
+        _run_kmeans(args)
     elif args.cmd == "als":
         from tpu_distalg_torch.models import als
 
@@ -268,9 +348,7 @@ def main(argv=None) -> int:
                       f"{path} (meta: {model.meta})")
             rng = np.random.default_rng(0)
             for name, model in server.models.items():
-                n_users = max(1, model.meta["n_users"])
-                payloads = list(rng.integers(0, n_users,
-                                             size=args.requests))
+                payloads = _serve_payloads(model, rng, args.requests)
                 _, info = serve.run_closed_loop(
                     server, name, payloads,
                     concurrency=args.concurrency, retries=2)

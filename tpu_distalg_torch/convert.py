@@ -1,5 +1,5 @@
-"""Carry trained parameters (ALS factors, SSGD weights) and PageRank's
-rank state from the JAX package into the port.
+"""Carry trained parameters (ALS factors, SSGD weights, k-means centres)
+and PageRank's rank state from the JAX package into the port.
 
 The two packages share no file format the port reads (the JAX package
 checkpoints as flax msgpack), so parameters cross as numpy arrays:
@@ -58,6 +58,18 @@ def ssgd_params_from_jax(w_np, meta: dict | None = None, *,
             raise ValueError(f"w {tuple(t.shape)}: want ({y_col},) or "
                              f"({d_t},) for meta {meta}")
     return t.to(dev).contiguous()
+
+
+def kmeans_params_from_jax(centers_np, *,
+                           device: str | torch.device | None = None):
+    """K-means centres (k, dim) from the JAX package as a contiguous
+    float32 tensor on ``device``: what ``models.kmeans`` takes as
+    ``centers0`` and ``serve.kmeans_model`` serves."""
+    dev = resolve_device(device)
+    c = np.array(centers_np, np.float32)  # a copy: JAX's are read-only
+    if c.ndim != 2:
+        raise ValueError(f"centers {c.shape}: want (k, dim)")
+    return torch.from_numpy(c).to(dev).contiguous()
 
 
 def pagerank_state_from_jax(ranks_np, has_rank_np, *,

@@ -1,17 +1,25 @@
 // SSGD logistic-regression kernels for Hopper (sm_90a): the masked
-// gradient sum over all rows (B6), over sampled row blocks (B1), and T
-// block-sampled SGD steps in one launch (B2).
+// gradient sum over all rows (B6), over sampled row blocks (B1), over all
+// rows with a Bernoulli mask drawn in the kernel (B5), and T block-sampled
+// SGD steps in one launch (B2).
 //
 // Replaces, in tpu_distalg/ops/pallas_kernels.py:
 //   B6 fused_grad_sum           (body _grad_kernel)
 //   B1 fused_grad_sum_gathered  (body _grad_kernel_gathered)
 //   B2 fused_train_gathered     (body _train_kernel_gathered)
+//   B5 fused_grad_sum_packed    (body _grad_kernel_packed)
 // with their contracts (see tpu_distalg_torch/ops/ssgd_kernels.py):
 //   * z = Σ_j x_j · w_j in float32, with w cast to X's element type first
 //     (B2 also zeroes w at columns >= y_col, as its selector does);
 //   * B6: resid = (σ(z) − y)·mask in float32;
 //     B1/B2: resid = (σ(z) − x[y_col])·x[v_col], rounded to X's type;
-//   * g = Σ_rows resid·x and count = Σ mask (or Σ x[v_col]) in float32;
+//     B5: as B1 over every row, with x[v_col] replaced by
+//     m = x[v_col]·[bits(row) < thresh], bits = the two threefry2x32 words
+//     of the counter (0, row) under the key (key0, key1), xored: what
+//     utils/prng.py's bits() gives element `row` under that key. The TPU
+//     kernel draws from its on-core generator, whose bits exist nowhere
+//     else; this mask depends on the key and the row alone, not on the grid;
+//   * g = Σ_rows resid·x and count = Σ mask (or Σ x[v_col], Σ m) in float32;
 //   * B2 step: nb = max(count, 1); w_new = w − (η/nb)·g with g zeroed at
 //     columns >= y_col; if α ≠ 0, w_new −= α·(w − center) with the w from
 //     before the step; the next step's w cast to X's type comes from the
@@ -26,7 +34,10 @@
 // What bounds them on the card: memory. Each sampled row is read once
 // (D·2 bytes in bf16) for 4·D operations, far below the card's
 // operations-per-byte balance. At the bench geometry (13 of 128 blocks of
-// 8192 rows, D = 128, bf16) a step moves 27.3 MB: 8.1 µs at 3.35 TB/s.
+// 8192 rows, D = 128, bf16) a step moves 27.3 MB: 8.1 µs at 3.35 TB/s. B5
+// reads every row whatever the mask keeps: 268 MB there, 80 µs; it runs
+// B1's row body and folds, and every lane of a row hashes the row's
+// counter itself (about 110 integer operations beside the row's loads).
 //
 // Design.
 //   * G lanes own one row, each a 16-byte vector (8 bf16 or 4 float) at a
@@ -118,6 +129,32 @@ __device__ __forceinline__ float sigmoid(float z) {
   return 1.0f / (1.0f + expf(-z));
 }
 
+// B5's row sampler: a row is kept iff its bits fall below thresh.
+struct RowSampler {
+  uint32_t key0, key1, thresh;
+};
+
+// threefry2x32 (20 rounds) of the counter (c0, c1) under (k0, k1): the two
+// output words xored, as utils/prng.py's bits() combines them.
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint32_t c0, uint32_t c1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  constexpr int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t x0 = c0 + ks[0];
+  uint32_t x1 = c1 + ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = __funnelshift_l(x1, x1, rot[i & 1][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+  return x0 ^ x1;
+}
+
 // Rows one thread block works on: a U-unrolled pass covers
 // kWarps · (32 / G) · U sampled rows.
 template <int U>
@@ -127,14 +164,16 @@ __host__ __device__ inline int pass_rows(int G) {
 
 // Accumulate the sampled rows [r0, r1) into this lane's partial gradient.
 // Sampled row i is row i % gbr of block ids[i / gbr]; a block id outside
-// [0, n_blocks) contributes nothing. Every lane of the warp runs the same
-// number of passes (the shuffles need the whole warp).
-template <typename T, int VPL, int U>
+// [0, n_blocks) contributes nothing. With SAMPLED (B5) sampled row i is row
+// i itself, ids is not read, and the row's validity is zeroed unless `rs`
+// keeps it. Every lane of the warp runs the same number of passes (the
+// shuffles need the whole warp).
+template <typename T, int VPL, int U, bool SAMPLED = false>
 __device__ __forceinline__ void grad_rows(
     const T* __restrict__ X, const int* __restrict__ ids, int n_blocks,
     int gbr, int D, int L, int G, int y_col, int v_col,
     const float (&wq)[VPL][Vec<T>::N], int r0, int r1,
-    float (&acc)[VPL][Vec<T>::N], float& cnt) {
+    float (&acc)[VPL][Vec<T>::N], float& cnt, RowSampler rs = {}) {
   constexpr int N = Vec<T>::N;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -149,8 +188,8 @@ __device__ __forceinline__ void grad_rows(
     for (int u = 0; u < U; ++u) {
       const int i = base + (u * kWarps + warp) * R + grp;
       bool ok = i < r1;
-      long long prow = 0;
-      if (ok) {
+      long long prow = i;
+      if (ok && !SAMPLED) {
         const int s = i / gbr;
         const int b = ids[s];
         ok = b >= 0 && b < n_blocks;
@@ -166,6 +205,9 @@ __device__ __forceinline__ void grad_rows(
       }
       yv[u] = ok ? Vec<T>::scalar(row + y_col) : 0.0f;
       vv[u] = ok ? Vec<T>::scalar(row + v_col) : 0.0f;
+      if (SAMPLED && threefry_bits(rs.key0, rs.key1, 0u,
+                                   static_cast<uint32_t>(i)) >= rs.thresh)
+        vv[u] = 0.0f;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -242,13 +284,15 @@ __device__ __forceinline__ void block_partial(float (&acc)[VPL][Vec<T>::N],
   }
 }
 
-// B1, stage 1: each block's partial over its share of the sampled rows.
-template <typename T, int VPL, int U>
+// B1 and, with SAMPLED, B5, stage 1: each block's partial over its share of
+// the sampled rows.
+template <typename T, int VPL, int U, bool SAMPLED>
 __global__ void __launch_bounds__(kThreads)
     grad_gathered_kernel(const T* __restrict__ X, const int* __restrict__ ids,
                          int n_blocks, int gbr, int D, int L, int G,
                          int y_col, int v_col, const float* __restrict__ w,
-                         int chunk, int rows_total, float* partial) {
+                         RowSampler rs, int chunk, int rows_total,
+                         float* partial) {
   extern __shared__ float smem[];
   float* red = smem;
   float* red_cnt = smem + kWarps * D;
@@ -258,8 +302,8 @@ __global__ void __launch_bounds__(kThreads)
   float cnt = 0.0f;
   const int r0 = blockIdx.x * chunk;
   const int r1 = min(r0 + chunk, rows_total);
-  grad_rows<T, VPL, U>(X, ids, n_blocks, gbr, D, L, G, y_col, v_col, wq, r0,
-                       r1, acc, cnt);
+  grad_rows<T, VPL, U, SAMPLED>(X, ids, n_blocks, gbr, D, L, G, y_col, v_col,
+                                wq, r0, r1, acc, cnt, rs);
   block_partial<T, VPL>(acc, cnt, D, L, G, red, red_cnt,
                         partial + static_cast<size_t>(blockIdx.x) * (D + 1));
 }
@@ -391,38 +435,44 @@ int chunk_rows(int rows_total, int max_blocks, int pass) {
   return (chunk + pass - 1) / pass * pass;
 }
 
-template <typename T, int VPL, int U>
+template <typename T, int VPL, int U, bool SAMPLED>
 cudaError_t grad_gathered_v(const void* X, const int* ids, int n_s,
                             int n_blocks, int gbr, int D, const Geometry& g,
                             int y_col, int v_col, const float* w,
-                            int max_blocks, float* partial, float* out,
-                            cudaStream_t s) {
+                            RowSampler rs, int max_blocks, float* partial,
+                            float* out, cudaStream_t s) {
   const int rows_total = n_s * gbr;
   const int chunk = chunk_rows(rows_total, max_blocks, pass_rows<U>(g.G));
   const int nblk = (rows_total + chunk - 1) / chunk;
   const size_t smem = sizeof(float) * (kWarps * D + kWarps);
-  grad_gathered_kernel<T, VPL, U><<<nblk, kThreads, smem, s>>>(
+  grad_gathered_kernel<T, VPL, U, SAMPLED><<<nblk, kThreads, smem, s>>>(
       static_cast<const T*>(X), ids, n_blocks, gbr, D, g.L, g.G, y_col, v_col,
-      w, chunk, rows_total, partial);
+      w, rs, chunk, rows_total, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   reduce_partials<<<D + 1, kReduceThreads, 0, s>>>(partial, nblk, D + 1, out);
   return cudaGetLastError();
 }
 
-template <typename T>
+// B1 (ids of n_s blocks of gbr rows) or, with SAMPLED, B5 (ids unused, one
+// "block" of all gbr = n rows, sampled by rs).
+template <typename T, bool SAMPLED>
 cudaError_t launch_grad_gathered(const void* X, const int* ids, int n_s,
                                  int n_blocks, int gbr, int D, int y_col,
-                                 int v_col, const float* w, int max_blocks,
-                                 float* partial, float* out, cudaStream_t s) {
+                                 int v_col, const float* w, RowSampler rs,
+                                 int max_blocks, float* partial, float* out,
+                                 cudaStream_t s) {
   Geometry g;
   if (!geometry<T>(D, &g)) return cudaErrorInvalidValue;
-  return g.vpl == 1 ? grad_gathered_v<T, 1, kU1>(X, ids, n_s, n_blocks, gbr,
-                                                 D, g, y_col, v_col, w,
-                                                 max_blocks, partial, out, s)
-                    : grad_gathered_v<T, 4, kU4>(X, ids, n_s, n_blocks, gbr,
-                                                 D, g, y_col, v_col, w,
-                                                 max_blocks, partial, out, s);
+  return g.vpl == 1
+             ? grad_gathered_v<T, 1, kU1, SAMPLED>(X, ids, n_s, n_blocks, gbr,
+                                                   D, g, y_col, v_col, w, rs,
+                                                   max_blocks, partial, out,
+                                                   s)
+             : grad_gathered_v<T, 4, kU4, SAMPLED>(X, ids, n_s, n_blocks, gbr,
+                                                   D, g, y_col, v_col, w, rs,
+                                                   max_blocks, partial, out,
+                                                   s);
 }
 
 template <typename T, int VPL, int U>
@@ -596,12 +646,31 @@ int tda_ssgd_grad_gathered(const void* X, int dtype, const void* ids, int n_s,
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  auto launch = dtype == 0 ? launch_grad_gathered<float>
-                           : launch_grad_gathered<__nv_bfloat16>;
+  auto launch = dtype == 0 ? launch_grad_gathered<float, false>
+                           : launch_grad_gathered<__nv_bfloat16, false>;
   return launch(X, static_cast<const int*>(ids), n_s, n_blocks, gbr, D, y_col,
-                v_col, static_cast<const float*>(w), max_blocks,
+                v_col, static_cast<const float*>(w), RowSampler{}, max_blocks,
                 static_cast<float*>(partial), static_cast<float*>(out),
                 static_cast<cudaStream_t>(stream));
+}
+
+// B5: X (n, D) row-major, w (D,) float32; row i is kept iff the threefry
+// bits of counter (0, i) under (key0, key1) are below thresh.
+int tda_ssgd_grad_packed(const void* X, int dtype, int n, int D, int y_col,
+                         int v_col, const void* w, uint32_t key0,
+                         uint32_t key1, uint32_t thresh, int max_blocks,
+                         void* partial, void* out, int device, void* stream) {
+  if (n < 1 || n >= (1 << 30) || max_blocks < 1 || y_col < 0 || y_col >= D ||
+      v_col < 0 || v_col >= D || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  auto launch = dtype == 0 ? launch_grad_gathered<float, true>
+                           : launch_grad_gathered<__nv_bfloat16, true>;
+  return launch(X, nullptr, 1, 1, n, D, y_col, v_col,
+                static_cast<const float*>(w), RowSampler{key0, key1, thresh},
+                max_blocks, static_cast<float*>(partial),
+                static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }
 
 // B2: idx (T, n_s) int32; w0, center and w_out (D,) float32; `partial`

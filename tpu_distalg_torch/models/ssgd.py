@@ -18,13 +18,16 @@ a segmented run replays a straight one bit for bit. Samplers:
     (``fused_grad_sum_gathered``) reads only the sampled blocks. For
     ``n_shards > 1`` shard s draws ids local to its slice: global block
     = s·n_blocks + id;
+  * ``fused``: the packed rows again, but kernel B5
+    (``fused_grad_sum_packed``) passes over ALL of a shard's rows and
+    draws the Bernoulli mask itself from (step + seed, shard, row);
   * ``fused_train``: ``fused_gather``'s sampling and update, with every
     ``mega_steps`` steps in one launch of kernel B2
     (``fused_train_gathered``); one shard, ``lam = 0``, evaluation at
     launch boundaries only.
 
 Not ported yet, raising NotImplementedError with their ROADMAP item:
-the ``fixed``, ``fused`` (B5) and ``virtual`` samplers, ``comm`` other
+the ``fixed`` and ``virtual`` samplers, ``comm`` other
 than ``dense`` and ``sync`` other than ``bsp`` (A9), and
 ``feature_sharded`` (B3/B4).
 """
@@ -85,8 +88,6 @@ _SAMPLERS = ("bernoulli", "fixed", "fused", "fused_gather", "fused_train",
 _NOT_PORTED = {
     "fixed": "the 'fixed' row-gather sampler is not ported yet "
              "(ROADMAP A3)",
-    "fused": "sampler='fused' needs kernel B5 (fused_grad_sum_packed), "
-             "not ported yet (ROADMAP B5)",
     "virtual": "sampler='virtual' (rows regenerated on the device) is "
                "not ported yet (ROADMAP A10)",
 }
@@ -227,21 +228,24 @@ def _kernel_args(config: SSGDConfig, meta: dict) -> dict:
 
 
 def make_train_fn_fused(mesh: Mesh, config: SSGDConfig, meta: dict):
-    """The packed-layout trainers (``fused_gather``, ``fused_train``):
-    call as ``fn(X2, None, None, X_test, y_test, w0, t0=0, acc0=0.0)``
+    """The packed-layout trainers (``fused``, ``fused_gather``,
+    ``fused_train``): call as ``fn(X2, None, None, X_test, y_test, w0, t0=0, acc0=0.0)``
     → ``(w, accs)`` with the augmented (d_total,) weights; the y/v/pad
     columns of the gradient are zeroed every step."""
     _check_ported(config)
     n_shards = mesh.n_data
     if config.sampler == "fused_train":
         return _make_train_fn_mega(mesh, config, meta, n_shards)
+    col_keep = (torch.arange(meta["d_total"], device=mesh.device)
+                < meta["y_col"]).to(torch.float32)
+    if config.sampler == "fused":
+        return _build_scan(config, _fused_sample_and_grad(
+            config, meta, n_shards, col_keep))
     if config.sampler != "fused_gather":
         raise ValueError(f"sampler={config.sampler!r} is not a packed-"
                          f"layout sampler")
     n_blocks, n_sampled = fused_gather_geometry(config, meta, n_shards)
     key = prng.root_key(config.seed, mesh.device)
-    col_keep = (torch.arange(meta["d_total"], device=mesh.device)
-                < meta["y_col"]).to(torch.float32)
     kargs = _kernel_args(config, meta)
     offsets = (torch.arange(n_shards, dtype=torch.int32, device=mesh.device)
                * n_blocks)[:, None]
@@ -264,6 +268,30 @@ def make_train_fn_fused(mesh: Mesh, config: SSGDConfig, meta: dict):
         return tree_allreduce_sum(per)
 
     return _build_scan(config, sample_and_grad, prep_xs=prep_xs)
+
+
+def _fused_sample_and_grad(config: SSGDConfig, meta: dict, n_shards: int,
+                           col_keep):
+    """``fused``: each shard's rows go whole through kernel B5, keyed on
+    the absolute step plus the seed and on the shard, so a segmented
+    run draws what a straight one draws."""
+    n2_local = (meta["n_padded"] // meta["pack"]) // n_shards
+    kargs = dict(pack=meta["pack"], d_total=meta["d_total"],
+                 y_col=meta["y_col"], v_col=meta["v_col"],
+                 fraction=config.mini_batch_fraction,
+                 block_rows=config.fused_block_rows)
+
+    def sample_and_grad(X2, y, valid, w, t):
+        del y, valid  # labels and validity ride inside X2
+        per = []
+        for s in range(n_shards):
+            g, cnt = ssgd_kernels.fused_grad_sum_packed(
+                X2[s * n2_local:(s + 1) * n2_local], w, t + config.seed, s,
+                **kargs)
+            per.append((g * col_keep, cnt))
+        return tree_allreduce_sum(per)
+
+    return sample_and_grad
 
 
 def _make_train_fn_mega(mesh: Mesh, config: SSGDConfig, meta: dict,
@@ -371,7 +399,7 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
     in segments of ``checkpoint_every`` steps that are saved after each
     and resumed from the newest (bitwise equal to a straight run)."""
     _check_ported(config)
-    if config.sampler in ("fused_gather", "fused_train"):
+    if config.sampler in ("fused", "fused_gather", "fused_train"):
         return _train_fused(X_train, y_train, X_test, y_test, mesh, config,
                             checkpoint_dir=checkpoint_dir,
                             checkpoint_every=checkpoint_every)

@@ -30,6 +30,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 #: C signatures of every entry point, by library
 _SIGNATURES = {
     "topk": {
@@ -42,6 +43,8 @@ _SIGNATURES = {
                           _I),
         "tda_ssgd_grad_gathered": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
                                     _I, _P, _P, _I, _P], _I),
+        "tda_ssgd_grad_packed": ([_P, _I, _I, _I, _I, _I, _P, _U, _U, _U, _I,
+                                  _P, _P, _I, _P], _I),
         "tda_ssgd_train": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                             _F, _F, _I, _I, _P, _P, _I, _P], _I),
         "tda_error_string": ([_I], ctypes.c_char_p),
@@ -49,6 +52,11 @@ _SIGNATURES = {
     "pagerank": {
         "tda_pagerank_spmv": ([_P, _P, _P, _P, _I, _I, _P, _I, _P], _I),
         "tda_pagerank_segment_sum": ([_P, _P, _I, _I, _P, _I, _P], _I),
+        "tda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "kmeans": {
+        "tda_kmeans_stats": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P, _P, _P, _I, _P], _I),
         "tda_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -1,4 +1,4 @@
-"""SSGD kernels: the packed layout and the three gradient kernels.
+"""SSGD kernels: the packed layout and the four gradient kernels.
 
 Port of ``tpu_distalg/ops/pallas_kernels.py``:
 
@@ -12,7 +12,10 @@ Port of ``tpu_distalg/ops/pallas_kernels.py``:
     the sampled ``gather_block_rows``-row blocks, with y and validity read
     from the columns ``y_col`` and ``v_col``;
   * B2 :func:`fused_train_gathered` (``:442``): T block-sampled SGD steps
-    in one launch, with a float32 master and an optional EASGD pull.
+    in one launch, with a float32 master and an optional EASGD pull;
+  * B5 :func:`fused_grad_sum_packed` (``:737``): the same sum in one pass
+    over ALL rows, each kept by a Bernoulli(fraction) draw made inside the
+    kernel from (t, shard, row) (``build_selector`` is not ported).
 
 The packed X2 is, byte for byte, the row-major (n_padded, d_total)
 augmented matrix, and the CUDA kernels (``csrc/ssgd.cu``) read it as
@@ -23,7 +26,7 @@ So B2 takes and returns the (d_total,) weights, not the (P·D, 1) tile.
 Beside each wrapper is its plain PyTorch version (``*_reference``),
 with the same contract and the same rounding points: z sums x·w with w
 cast to X's dtype, B1/B2 round the residual to X's dtype before the
-backward product (B6 keeps it float32), sums are float32. A wrapper
+backward product (B6 keeps it float32), B5 as B1, sums are float32. A wrapper
 takes its plain version only for tensors on the CPU; for CUDA tensors
 it launches its kernel (counted in ``<wrapper>.launches``) or raises.
 """
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from tpu_distalg_torch.ops import _native
+from tpu_distalg_torch.utils import prng
 from tpu_distalg_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -135,6 +139,40 @@ def grad_sum_gathered_reference(X2, w_aug, block_idx, *, pack: int,
                        gather_block_rows).to(torch.float32)
     wq = w_aug.to(X2.dtype).to(torch.float32)
     return _grad_rows(x, wq, y_col, v_col, X2.dtype)
+
+
+def packed_threshold(fraction: float) -> int:
+    """B5 keeps a row iff its 32 random bits are below this:
+    ``min(int(fraction·2³²), 2³² − 1)``, as the JAX package."""
+    return min(int(fraction * 2.0**32), 2**32 - 1)
+
+
+def packed_keep_mask(t: int, shard: int, n_rows: int, fraction: float,
+                     device: str | torch.device = "cpu") -> torch.Tensor:
+    """B5's Bernoulli(fraction) draw over the ``n_rows`` rows of a
+    shard, (n_rows,) bool: row i is kept iff element i of
+    ``prng.bits`` under the key ``(uint32(t), uint32(shard))`` is below
+    :func:`packed_threshold`. It depends on t, the shard and the row's
+    index in the shard alone."""
+    key = torch.tensor([int(t) & prng.MASK32, int(shard) & prng.MASK32],
+                       dtype=torch.int64, device=device)
+    return prng.bits(key, (n_rows,)) < packed_threshold(fraction)
+
+
+def grad_sum_packed_reference(X2, w_aug, t: int, shard: int, *, pack: int,
+                              d_total: int, y_col: int, v_col: int,
+                              fraction: float, block_rows: int = 8192):
+    """Plain B5 over every row of X2 with ``m = x[v_col]·keep``
+    (:func:`packed_keep_mask`): the (d_total,) float32 gradient
+    (entries at and past ``y_col`` are not part of the contract) and
+    the count Σ m."""
+    del pack, block_rows
+    x = X2.reshape(-1, d_total).to(torch.float32)
+    keep = packed_keep_mask(t, shard, x.shape[0], fraction, X2.device)
+    wq = w_aug.to(X2.dtype).to(torch.float32)
+    m = x[:, v_col] * keep
+    resid = ((torch.sigmoid(x @ wq) - x[:, y_col]) * m).to(X2.dtype)
+    return x.T @ resid.to(torch.float32), m.sum()
 
 
 def train_gathered_reference(X2, w0, block_idx, *, pack: int, d_total: int,
@@ -295,6 +333,65 @@ def fused_grad_sum_gathered(X2, w_aug, block_idx, *, pack: int,
 fused_grad_sum_gathered.launches = 0
 
 
+def fused_grad_sum_packed(X2, w_aug, t: int, shard: int, *, pack: int,
+                          d_total: int, y_col: int, v_col: int,
+                          fraction: float, block_rows: int = 8192):
+    """B5: ``(Σ gradient (d_total,) f32, count f32)`` in one pass over
+    ALL rows of X2, the minibatch drawn inside the kernel.
+
+    X2 (n/pack, pack·d_total) float32 or bfloat16 holds one shard's
+    rows, w_aug (d_total,) float32. Row i of the shard is kept iff
+    ``bits < min(int(fraction·2³²), 2³² − 1)`` where ``bits`` is
+    threefry2x32 under the key ``(uint32(t), uint32(shard))`` of the
+    counter ``(0, i)``, its two words xored: element i of
+    ``utils.prng.bits`` under that key (:func:`packed_keep_mask`). The
+    trainer passes ``t = step + seed``. So the mask depends on t, the
+    shard and the row alone, never on ``block_rows`` or the launch
+    grid. (The TPU kernel draws from its on-core generator, whose bits
+    cannot be had elsewhere; only the distribution is shared.) The
+    residual ``(σ(z) − y)·m`` with ``m = x[v_col]·keep`` is rounded to
+    X2's dtype, the count is Σ m; entries of the gradient at and past
+    ``y_col`` are not part of the contract. ``block_rows`` is the JAX
+    kernel's row tile: X2's rows must be a multiple of it. A CPU tensor
+    goes to :func:`grad_sum_packed_reference`; a CUDA tensor launches
+    the kernel (``.launches``) or raises."""
+    _native.check_tensor("X2", X2, (torch.float32, torch.bfloat16), 2)
+    _native.check_tensor("w_aug", w_aug, (torch.float32,), 1)
+    _check_packed(X2, pack, d_total, block_rows, "fused_grad_sum_packed")
+    if w_aug.shape[0] != d_total:
+        raise ValueError(f"w_aug {tuple(w_aug.shape)} != ({d_total},)")
+    if not 0.0 <= fraction <= 1.0:
+        raise ValueError(f"fraction must lie in [0, 1], got {fraction}")
+    if X2.device.type == "cpu":
+        return grad_sum_packed_reference(
+            X2, w_aug, t, shard, pack=pack, d_total=d_total, y_col=y_col,
+            v_col=v_col, fraction=fraction, block_rows=block_rows)
+    dev = _native.cuda_device(X2, w_aug)
+    _check_row_kernel(X2, d_total, y_col, v_col, "fused_grad_sum_packed")
+    n = X2.shape[0] * pack
+    if not 1 <= n < 2**30:
+        raise ValueError(f"fused_grad_sum_packed: {n} rows; the CUDA kernel "
+                         f"takes 1 <= n < 2**30")
+    X2, w_aug = X2.contiguous(), w_aug.contiguous()
+    lib = _native.load("ssgd")
+    max_blocks = 4 * _sm_count(dev.index)
+    partial = torch.empty((max_blocks, d_total + 1), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((d_total + 1,), dtype=torch.float32, device=dev)
+    rc = lib.tda_ssgd_grad_packed(
+        X2.data_ptr(), _DTYPE_CODE[X2.dtype], n, d_total, y_col, v_col,
+        w_aug.data_ptr(), int(t) & prng.MASK32, int(shard) & prng.MASK32,
+        packed_threshold(fraction), max_blocks, partial.data_ptr(),
+        out.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _native.check(lib, rc, "fused_grad_sum_packed")
+    fused_grad_sum_packed.launches += 1
+    return out[:d_total], out[d_total]
+
+
+fused_grad_sum_packed.launches = 0
+
+
 def fused_train_gathered(X2, w0, block_idx, *, pack: int, d_total: int,
                          y_col: int, v_col: int, gather_block_rows: int,
                          eta: float, alpha: float = 0.0, center=None,
@@ -360,4 +457,5 @@ def fused_train_gathered(X2, w0, block_idx, *, pack: int, d_total: int,
 fused_train_gathered.launches = 0
 
 #: the kernels of this module, for resetting and reading launch counts
-KERNELS = (fused_grad_sum, fused_grad_sum_gathered, fused_train_gathered)
+KERNELS = (fused_grad_sum, fused_grad_sum_gathered, fused_train_gathered,
+           fused_grad_sum_packed)

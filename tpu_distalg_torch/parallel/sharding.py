@@ -5,6 +5,8 @@ the rows to a multiple of the shard count and places them on the
 mesh's device; a validity mask stands in for the true length, exactly
 as in the JAX package, so shard ``s`` is rows
 ``[s·n_local, (s+1)·n_local)`` of the padded array.
+:func:`build_sharded` makes such an array on the device from a per-row
+generator, without a host copy.
 """
 
 from __future__ import annotations
@@ -55,3 +57,30 @@ def parallelize(rows, mesh: Mesh, *, dtype=torch.float32) -> ShardedMatrix:
                          mask=torch.from_numpy(mask).to(mesh.device),
                          n_valid=int(np.asarray(rows).shape[0]),
                          n_shards=mesh.n_data)
+
+
+def build_sharded(mesh: Mesh, n_rows: int, make_rows, *,
+                  row_multiple: int = 1) -> ShardedMatrix:
+    """A row-sharded dataset made ON the mesh's device: the sibling of
+    :func:`parallelize` that never holds the rows on the host.
+
+    ``make_rows(row_ids)`` takes a shard's global row ids, an int64
+    tensor (n_local,) on the device, and returns its (n_local, ...)
+    rows or a tuple of such blocks; the content should depend on the
+    ids alone, so that the data does not depend on the shard count.
+    Rows are padded to a multiple of ``row_multiple × n_shards``; padded
+    rows are generated like any other and carry mask 0."""
+    n_shards = mesh.n_data
+    mult = n_shards * row_multiple
+    n_padded = -(-n_rows // mult) * mult
+    n_local = n_padded // n_shards
+    ids = torch.arange(n_padded, dtype=torch.int64, device=mesh.device)
+    parts = [make_rows(ids[s * n_local:(s + 1) * n_local])
+             for s in range(n_shards)]
+    if isinstance(parts[0], (tuple, list)):
+        data = tuple(p[0] if n_shards == 1 else torch.cat(p)
+                     for p in zip(*parts))
+    else:
+        data = parts[0] if n_shards == 1 else torch.cat(parts)
+    return ShardedMatrix(data=data, mask=(ids < n_rows).to(torch.float32),
+                         n_valid=n_rows, n_shards=n_shards)

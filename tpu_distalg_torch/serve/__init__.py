@@ -1,12 +1,14 @@
 """Online serving (port of ``tpu_distalg/serve/``): bounded queue →
 deadline-or-size dispatch → pad to ``max_batch`` → one batched predict
-through the fused top-k kernel → one device→host copy → scatter
+(ALS: through the fused top-k kernel) → one device→host copy → scatter
 replies."""
 
 from tpu_distalg_torch.serve.artifacts import (
     ServedModel,
     als_model,
+    kmeans_model,
     load_artifact,
+    lr_model,
 )
 from tpu_distalg_torch.serve.batcher import (
     MicroBatcher,
@@ -25,6 +27,8 @@ __all__ = [
     "ServedModel",
     "Server",
     "als_model",
+    "kmeans_model",
     "load_artifact",
+    "lr_model",
     "run_closed_loop",
 ]

@@ -1,15 +1,15 @@
 """Checkpoint → servable model (port of ``tpu_distalg/serve/artifacts.py``).
 
-Only the ALS adapter is ported: payload = one user id, reply =
-``(scores (k_top,) f32, item_ids (k_top,) int32)``. A batch runs
-``U[ids]`` on the device, then the fused matmul+top-k kernel
-(``ops/topk.py``) against the whole item-factor matrix, then ONE
-device→host copy. Every batch is padded to ``max_batch`` rows, so
-batched and unbatched requests run the same code and a reply does not
-depend on what else was in its batch.
+Three adapters. ALS: payload = one user id, reply = ``(scores (k_top,)
+f32, item_ids (k_top,) int32)``; a batch runs ``U[ids]`` on the device,
+then the fused matmul+top-k kernel (``ops/topk.py``) against the whole
+item-factor matrix, then ONE device→host copy. LR: payload = one (d,)
+feature row, reply = P(y=1). K-means: payload = one (dim,) point, reply
+= the nearest centre's index (int32). Every batch is padded to
+``max_batch`` rows, so batched and unbatched requests run the same code
+and a reply does not depend on what else was in its batch.
 
-Not ported yet: the LR-family and k-means adapters (their tags raise a
-``ValueError``), model-axis sharding of V with the sparse candidate
+Not ported yet: model-axis sharding of V with the sparse candidate
 merge, and the JAX package's corrupt-read re-read fallback.
 """
 
@@ -20,7 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_distalg_torch.ops import topk
+from tpu_distalg_torch.ops import kmeans as kops
+from tpu_distalg_torch.ops import logistic, topk
 from tpu_distalg_torch.telemetry import events as tevents
 from tpu_distalg_torch.utils import checkpoint
 from tpu_distalg_torch.utils.device import resolve_device
@@ -70,6 +71,59 @@ def _stack_pad(payloads, shape: tuple, dtype, max_batch: int,
                 f"want {shape}")
         out[r] = arr
     return out
+
+
+#: tag roots of the checkpoints whose first leaf is an LR weight vector
+_LR_TAG_ROOTS = ("lr", "ssgd", "ma", "bmuf", "easgd", "local_sgd")
+
+
+def _row_model(kind: str, name: str, source: str, dev, shape: tuple,
+               score, meta: dict) -> ServedModel:
+    """A model whose payload is one float32 row of ``shape`` and whose
+    reply is ``score(X)[r]``, X the padded (max_batch, *shape) batch on
+    the device; one device→host copy per batch."""
+    def make_predict(max_batch: int):
+        def predict(payloads):
+            X = _stack_pad(payloads, shape, np.float32, max_batch,
+                           f"{kind}:{name}")
+            out = score(torch.as_tensor(X, device=dev)).cpu().numpy()
+            return [out[r] for r in range(len(payloads))]
+
+        return predict
+
+    return ServedModel(name=name, kind=kind, make_predict=make_predict,
+                       source=source, meta={**meta, "device": str(dev)})
+
+
+def lr_model(w, name: str = "lr", *,
+             device: str | torch.device | None = None,
+             source: str = "memory") -> ServedModel:
+    """Logistic scorer from a trained weight vector: reply = P(y=1)
+    for one (d,) feature row."""
+    dev = resolve_device(device)
+    w_dev = torch.as_tensor(np.asarray(w), dtype=torch.float32, device=dev)
+    if w_dev.dim() != 1:
+        raise ValueError(f"w {tuple(w_dev.shape)}: want a vector")
+    d = int(w_dev.shape[0])
+    return _row_model("lr", name, source, dev, (d,),
+                      lambda X: logistic.predict_proba(X, w_dev), {"d": d})
+
+
+def kmeans_model(centers, name: str = "kmeans", *,
+                 device: str | torch.device | None = None,
+                 source: str = "memory") -> ServedModel:
+    """Cluster assignment from trained centres: reply = the nearest
+    centre's index (int32) for one (dim,) point."""
+    dev = resolve_device(device)
+    c_dev = torch.as_tensor(np.asarray(centers), dtype=torch.float32,
+                            device=dev)
+    if c_dev.dim() != 2:
+        raise ValueError(f"centers {tuple(c_dev.shape)}: want (k, dim)")
+    k, dim = int(c_dev.shape[0]), int(c_dev.shape[1])
+    return _row_model(
+        "kmeans", name, source, dev, (dim,),
+        lambda X: kops.assign_clusters(X, c_dev).to(torch.int32),
+        {"k": k, "dim": dim})
 
 
 def _true_rows(M) -> int:
@@ -142,11 +196,18 @@ def load_artifact(path: str, *, device: str | torch.device | None = None,
     tag = payload["tag"]
     root = tag.split(":", 1)[0]
     tevents.emit("serve_artifact_loaded", path=path, tag=tag, step=step)
+    if root in _LR_TAG_ROOTS:
+        return lr_model(payload["state"][0], name=name or root,
+                        device=device, source=path)
+    if root.startswith("kmeans"):
+        return kmeans_model(payload["state"][0], name=name or "kmeans",
+                            device=device, source=path)
     if root == "als":
         U, V = payload["state"][:2]
         return als_model(U, V, device=device, k_top=k_top,
                          block_items=block_items, name=name or "als",
                          source=path)
     raise ValueError(
-        f"checkpoint under {path} holds workload {root!r}: only 'als' is "
-        f"served (the lr-family and kmeans_* adapters are not ported yet)")
+        f"checkpoint under {path} holds workload {root!r} — no serving "
+        f"adapter for it (servable: {', '.join(_LR_TAG_ROOTS)}, kmeans_*, "
+        f"als)")

@@ -54,7 +54,8 @@ class Server:
             raise ValueError(f"model {model.name!r} already served")
         cfg = self.config
         if warm:
-            model.predict_batch([np.int64(0)], cfg.max_batch)
+            model.predict_batch([self._dummy_payload(model)],
+                                cfg.max_batch)
         self._models[model.name] = model
         self._batchers[model.name] = MicroBatcher(
             model.name,
@@ -77,6 +78,14 @@ class Server:
             path, device=self.device, name=name, k_top=cfg.k_top,
             block_items=cfg.block_items)
         return self.add_model(model, warm=warm)
+
+    @staticmethod
+    def _dummy_payload(model: serve_artifacts.ServedModel):
+        if model.kind == "lr":
+            return np.zeros((model.meta["d"],), np.float32)
+        if model.kind == "kmeans":
+            return np.zeros((model.meta["dim"],), np.float32)
+        return np.int64(0)  # als: user id
 
     @property
     def models(self):

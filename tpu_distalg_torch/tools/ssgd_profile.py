@@ -4,8 +4,8 @@ fraction 0.1; f32 X for ``bernoulli``).
 
     python -m tpu_distalg_torch.tools.ssgd_profile
 
-For ``fused_train`` (kernel B2), ``fused_gather`` (B1) and ``bernoulli``
-with ``use_pallas`` (B6) it runs a window of steps under
+For ``fused_train`` (kernel B2), ``fused_gather`` (B1), ``bernoulli``
+with ``use_pallas`` (B6) and ``fused`` (B5) it runs a window of steps under
 ``torch.profiler`` (CUPTI) and prints, per step, the host's wall time
 (the window ends in ``torch.cuda.synchronize()``), the device time of
 each kernel or copy, their sum, and the device's idle share
@@ -32,13 +32,17 @@ def main() -> int:
     cfg = ssgd.SSGDConfig(
         eval_test=False, x_dtype="bfloat16", sampler="fused_train",
         gather_block_rows=8192, shuffle_seed=0, init_seed=7)
-    windows = {"fused_train": 250, "fused_gather": 125, "bernoulli": 25}
+    windows = {"fused_train": 250, "fused_gather": 125, "bernoulli": 25,
+               "fused": 125}
     fn_t, X2, w0, meta = ssgd.prepare_fused(
         X, y, mesh, dataclasses.replace(cfg,
                                         n_iterations=windows["fused_train"]))
     fn_g = ssgd.make_train_fn_fused(mesh, dataclasses.replace(
         cfg, sampler="fused_gather", n_iterations=windows["fused_gather"]),
         meta)
+    fn_f = ssgd.make_train_fn_fused(mesh, dataclasses.replace(
+        cfg, sampler="fused", fused_block_rows=cfg.gather_block_rows,
+        n_iterations=windows["fused"]), meta)
     Xs, ys = parallelize(X, mesh), parallelize(y, mesh)
     fn_b = ssgd.make_train_fn(mesh, ssgd.SSGDConfig(
         n_iterations=windows["bernoulli"], eval_test=False,
@@ -52,6 +56,7 @@ def main() -> int:
         "fused_gather": lambda: fn_g(X2, None, None, *te, w0),
         "bernoulli": lambda: fn_b(Xs.data, ys.data, Xs.mask, *te_plain,
                                   w0p),
+        "fused": lambda: fn_f(X2, None, None, *te, w0),
     }
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "torch": torch.__version__}))

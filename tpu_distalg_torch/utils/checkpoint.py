@@ -156,7 +156,7 @@ def prune(ckpt_dir: str, keep: int = 3) -> None:
 
 def run_segmented(checkpoint_dir: str, checkpoint_every: int,
                   n_iterations: int, make_seg_fn, run_seg, state0, *,
-                  tag: str = ""):
+                  tag: str = "", stop_when=None):
     """Segmented, resumable training: the port of the JAX package's
     ``checkpoint.run_segmented``.
 
@@ -169,7 +169,11 @@ def run_segmented(checkpoint_dir: str, checkpoint_every: int,
     segment (cached per length); ``run_seg(fn, state, t0)`` runs one
     and returns ``(state, accs)``; ``state0`` is a tuple of tensors.
     ``tag`` names the workload and, with the state's shapes and dtypes,
-    must match on resume. Returns ``(state, accs, start_step)``.
+    must match on resume. ``stop_when(state)``, when given, is asked
+    before every segment, a resumed run's first included: a fixpoint
+    workload (k-means in converge mode) stops once it holds instead of
+    running segments that change nothing. Returns ``(state, accs,
+    start_step)``.
     (Corrupt-file quarantine and preemption wait for the faults slice.)
     """
     import torch
@@ -204,6 +208,8 @@ def run_segmented(checkpoint_dir: str, checkpoint_every: int,
     seg_fns = {}
     t = start
     while t < n_iterations:
+        if stop_when is not None and stop_when(state):
+            break
         seg = min(checkpoint_every, n_iterations - t)
         if seg not in seg_fns:
             seg_fns[seg] = make_seg_fn(seg)

@@ -1,9 +1,13 @@
 """Datasets of the ported slices: the SSGD reference task, synthetic
-classification data, and PageRank's graphs.
+classification data, PageRank's graphs, and k-means' points.
 
-Port of the parts of ``tpu_distalg/utils/datasets.py`` that SSGD and
-PageRank use; the generators draw from the same numpy streams, so both
-packages make the same arrays from a seed. The SSGD reference trains
+Port of the parts of ``tpu_distalg/utils/datasets.py`` that SSGD,
+PageRank and k-means use; the numpy generators draw from the same
+streams, so both packages make the same arrays from a seed.
+:func:`gaussian_mixture_rows` is the exception: it keeps the JAX
+generator's contract (a row's content depends on the seed and the row's
+global id alone) on the port's own threefry counters, not its bits.
+The SSGD reference trains
 on breast-cancer with a fixed 70/30 split and a ones column appended
 (the model has D+1 weights). The machine with the
 card has no scikit-learn, so the data ships with the package
@@ -20,6 +24,9 @@ import math
 import os
 
 import numpy as np
+import torch
+
+from tpu_distalg_torch.utils import prng
 
 BREAST_CANCER_CSV = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
@@ -85,3 +92,81 @@ def toy_graph_edges() -> np.ndarray:
     """The reference's 4-edge toy graph (``pagerank.py:35-38``,
     ``transitive_closure.py:18``), 0-indexed."""
     return np.array([[0, 1], [0, 2], [1, 2], [2, 0]], dtype=np.int64)
+
+
+def toy_kmeans_matrix() -> np.ndarray:
+    """The reference's hard-coded 6x2 k-means input (``k-means.py:49-50``)."""
+    return np.array(
+        [[1, 2], [1, 4], [1, 0], [10, 2], [10, 4], [10, 0]], dtype=np.float32
+    )
+
+
+def gaussian_mixture(
+    n_rows: int, k: int = 4, dim: int = 2, seed: int = 0, spread: float = 8.0
+) -> np.ndarray:
+    """Gaussian-mixture points for k-means (numpy only: the same array
+    as the JAX package's)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(k, dim)) * spread
+    assign = rng.integers(0, k, size=n_rows)
+    return (centers[assign] + rng.normal(size=(n_rows, dim))).astype(np.float32)
+
+
+#: rows :func:`gaussian_mixture_rows` draws at a time (bounds its int64
+#: temporaries to about 0.5 GB at dim 16)
+_ROWS_PER_DRAW = 1 << 20
+
+
+def _counter_normal(key: torch.Tensor, rows: torch.Tensor,
+                    n_cols: int) -> torch.Tensor:
+    """(len(rows), n_cols) standard normals: entry (i, j) is the
+    Box-Muller transform of the two threefry2x32 words of the counter
+    ``(rows[i], j)`` under ``key``, each word's top 23 bits a uniform."""
+    cols = torch.arange(n_cols, dtype=torch.int64, device=rows.device)
+    w1, w2 = prng.threefry2x32(key[0], key[1], rows[:, None] & prng.MASK32,
+                               cols[None, :])
+
+    def unit(words):                             # [0, 1)
+        return ((words >> 9) | 0x3F800000).to(torch.int32).view(
+            torch.float32) - 1.0
+
+    radius = torch.sqrt(-2.0 * torch.log(1.0 - unit(w1)))   # 1 − u in (0, 1]
+    return radius * torch.cos((2.0 * np.pi) * unit(w2))
+
+
+def gaussian_mixture_rows(k: int = 4, dim: int = 2, seed: int = 0,
+                          spread: float = 8.0):
+    """Per-row Gaussian-mixture generator for ``parallel.build_sharded``:
+    the sibling of :func:`gaussian_mixture` that needs no host memory.
+    Returns ``(make_rows, true_centers)``: ``make_rows(row_ids)`` gives
+    the (n, dim) float32 points of an int64 tensor of global row ids
+    (below 2³²), on the ids' device; ``true_centers(device="cpu")`` the
+    (k, dim) mixture means, N(0, spread²), for recovery checks. A row is
+    its component's mean (the component drawn uniformly from the row's
+    counter) plus N(0, 1) noise, and depends on the seed and the row id
+    alone, not on how the rows are sharded or batched. The values are
+    the port's own: the JAX package draws the same distribution from
+    other bits."""
+    root = prng.root_key(seed)
+    k_c, k_rows = prng.fold_in(root, 0), prng.fold_in(root, 1)
+
+    def true_centers(device: str | torch.device = "cpu") -> torch.Tensor:
+        ids = torch.arange(k, dtype=torch.int64, device=device)
+        return _counter_normal(k_c.to(device), ids, dim) * spread
+
+    def make_rows(row_ids: torch.Tensor) -> torch.Tensor:
+        dev = row_ids.device
+        centers, key = true_centers(dev), k_rows.to(dev)
+        out = torch.empty((row_ids.shape[0], dim), dtype=torch.float32,
+                          device=dev)
+        for lo in range(0, row_ids.shape[0], _ROWS_PER_DRAW):
+            ids = row_ids[lo:lo + _ROWS_PER_DRAW].to(torch.int64)
+            # the component: counter (row, dim), one past the noise's
+            word, _ = prng.threefry2x32(key[0], key[1], ids & prng.MASK32,
+                                        torch.full_like(ids, dim))
+            assign = (word * k) >> 32            # uniform in [0, k)
+            out[lo:lo + _ROWS_PER_DRAW] = (
+                centers[assign] + _counter_normal(key, ids, dim))
+        return out
+
+    return make_rows, true_centers
