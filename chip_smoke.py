@@ -42,14 +42,21 @@ and the script exits non-zero without printing a result:
      and through ``make_fit_fn`` (torch ops, the A/B line), every
      mixture mean recovered, bitwise replay, the card against the CPU
      port; then ``fit`` → artifact → ``Server`` → replies;
-  9. the kernels line, then the last line
+  9. SSGD's tensor-parallel split (``feature_sharded``, kernels B3 and
+     B4): ``fused_gather`` on phase 6's data on a 1×1 and an emulated 1×2
+     mesh, against phase 6's one-pass run (B1), with bitwise replay and a
+     segmented run; at bench.py's mesh2d width (65,536 rows × 8192
+     features, every block sampled) on an emulated 2×2 mesh against a
+     2×1 one; breast cancer through the CLI's ``--mesh-shape 2x4`` on the
+     card and on the CPU; B3 and B4 timed at both shapes;
+ 10. the kernels line, then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
 and read just after it (the serving path: phase 4's full-width fit and
-phase 5; each SSGD path, each PageRank sweep and each k-means fit on its
-own), so the kernels line shows that each path went through its
-kernel.
+phase 5; each SSGD path, each PageRank sweep, each k-means fit and each
+tp mesh on its own), so the kernels line shows that each path went
+through its kernel.
 """
 
 from __future__ import annotations
@@ -454,6 +461,74 @@ def check_b5_kept_set(dev) -> None:
                   f"pad row kept")
 
 
+#: B3/B4 small cases: (dtype, rows, features, pack, gbr, block ids). D
+#: (d_total) is 32, 72, 128, 128, 4104, 4104, 8200, 8200; every case's
+#: ids take the last block, whose tail rows are padding (v = 0); the
+#: ids repeat a block or hold one block (n_s = 1)
+TP_SMALL = (("float32", 398, 30, 4, 32, (0, 12, 12, 3)),
+            ("bfloat16", 3000, 70, 16, 512, (5,)),
+            ("bfloat16", 20000, 126, 16, 2048, (9, 0, 9)),
+            ("float32", 1500, 126, 4, 256, (5, 2)),
+            ("bfloat16", 1000, 4102, 16, 256, (3, 1, 3)),
+            ("float32", 700, 4102, 16, 128, (5,)),
+            ("bfloat16", 600, 8198, 16, 128, (4, 4, 0)),
+            ("float32", 600, 8198, 16, 128, (4, 2)))
+
+
+def check_tp_kernels_small(dev) -> None:
+    """Phase 3: B3 and B4 against their plain versions. "exact": entries
+    of X in {-3..3}, integer w and residuals, so every sum is exact and
+    the outputs must be equal bit for bit; "random": normal X, w and
+    residuals, within ``TOL["random"]`` of the largest entry. A second
+    launch must equal the first bit for bit."""
+    import torch
+
+    from tpu_distalg_torch.ops import ssgd_kernels as tk
+
+    rng = np.random.default_rng(SEED + 13)
+    for dt, n, d, pack, gbr, blocks in TP_SMALL:
+        for kind in ("exact", "random"):
+            X = (_int_inputs(rng, n, d) if kind == "exact"
+                 else rng.normal(size=(n, d)).astype(np.float32))
+            y = rng.integers(0, 2, n).astype(np.float32)
+            X2, meta = tk.pack_augmented(X, y, np.ones(n, np.float32),
+                                         dtype=dt, pack=pack, block_rows=gbr,
+                                         device=dev)
+            D = meta["d_total"]
+            w = np.zeros(D, np.float32)
+            w[:d] = (rng.integers(-3, 4, size=d) if kind == "exact"
+                     else rng.normal(size=d) * 0.1)
+            w = torch.as_tensor(w, device=dev)
+            ids = torch.as_tensor(np.asarray(blocks, np.int32), device=dev)
+            if max(blocks) != meta["n_padded"] // gbr - 1:
+                raise AssertionError(f"B3/B4 case {n}x{d}: no padding block")
+            kw = dict(pack=pack, d_total=D, y_col=meta["y_col"],
+                      v_col=meta["v_col"], gather_block_rows=gbr)
+            zyv = tk.fused_forward_gathered(X2, w, ids, **kw)
+            zr = tk.forward_gathered_reference(X2, w, ids, **kw)
+            e3 = _assert_close(f"B3 {kind} {dt} D={D}", zyv, zr, kind)
+            shape = (zr.shape[0], pack)
+            r = torch.as_tensor(
+                (rng.integers(-3, 4, size=shape) if kind == "exact"
+                 else rng.normal(size=shape)).astype(np.float32), device=dev)
+            bkw = dict(pack=pack, d_total=D, gather_block_rows=gbr)
+            g = tk.fused_backward_gathered(X2, r, ids, **bkw)
+            gr = tk.backward_gathered_reference(X2, r, ids, **bkw)
+            e4 = _assert_close(f"B4 {kind} {dt} D={D}", g, gr, kind)
+            if not (torch.equal(zyv, tk.fused_forward_gathered(X2, w, ids,
+                                                               **kw))
+                    and torch.equal(g, tk.fused_backward_gathered(
+                        X2, r, ids, **bkw))):
+                raise AssertionError(f"B3/B4 {kind} {dt} D={D}: replay "
+                                     f"differs")
+            n_pad = int((zr[:, 2 * pack:] == 0).sum())
+            print(f"[kernels] ssgd tp {kind} {dt} n={n} D={D} pack={pack} "
+                  f"gbr={gbr} ids={list(blocks)} ({n_pad} padding slots): "
+                  f"B3 max |err| {e3!r}, B4 max |err| {e4!r}"
+                  + (" (bitwise)" if kind == "exact" else "")
+                  + ", replay bitwise")
+
+
 def _bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = flops / F32_FLOPS
@@ -792,7 +867,343 @@ def run_ssgd(dev) -> dict:
               + ("reported, the band is held over the tail above"
                  if cfg_ref.sampler == "fused"
                  else f"band >= {SSGD_BAND} (reference 0.929825)"))
-    return {"recs": recs, "launches": launches}
+    return {"recs": recs, "launches": launches, "X": X, "y": y}
+
+
+#: the tp split's wide geometry: bench.py's mesh2d width (bench.py:998),
+#: rows scaled from its 512 a device to 65,536, every block sampled
+#: (bench.py:1039-1041); steps a run and runs (the best is kept), as
+#: bench.py's run_mesh2d_bench times them
+TP_WIDE_ROWS, TP_WIDE_D, TP_WIDE_GBR, TP_WIDE_STEPS, TP_WIDE_REPEATS = (
+    65536, 8192, 1024, 30, 3)
+#: the 2×4 breast-cancer run's accuracy is read over its last steps, as
+#: phase 6 reads `fused`'s (see _check_tp_cli)
+TP_TAIL, TP_TAIL_MEANS = 200, 0.03
+
+
+def tp_kernel_records(dev, X2m, wm, ids, meta, gbr) -> dict:
+    """B3 and B4 on one model slice at a path's shape: against their
+    plain versions, timed beside them, the library yardstick (the
+    sampled blocks by ``index_select``, then ``torch.mv`` in bf16) and
+    the bound."""
+    import torch
+
+    from tpu_distalg_torch.ops import ssgd_kernels as tk
+
+    P, D = meta["pack"], meta["d_total"]
+    kw = dict(pack=P, d_total=D, y_col=meta["y_col"], v_col=meta["v_col"],
+              gather_block_rows=gbr)
+    bkw = dict(pack=P, d_total=D, gather_block_rows=gbr)
+    zyv = tk.fused_forward_gathered(X2m, wm, ids, **kw)
+    e3 = _assert_close("B3 path shape", zyv,
+                       tk.forward_gathered_reference(X2m, wm, ids, **kw),
+                       "random")
+    z, yv, v = zyv[:, :P], zyv[:, P:2 * P], zyv[:, 2 * P:]
+    resid = ((torch.sigmoid(z) - yv) * v).contiguous()
+    g = tk.fused_backward_gathered(X2m, resid, ids, **bkw)
+    e4 = _assert_close("B4 path shape", g[:meta["y_col"]],
+                       tk.backward_gathered_reference(
+                           X2m, resid, ids, **bkw)[:meta["y_col"]],
+                       "random")
+    blocks = X2m.reshape(-1, gbr, D)
+    ids_l = ids.long()
+    w16 = wm.to(X2m.dtype)
+    r16 = resid.reshape(-1).to(X2m.dtype)
+
+    def lib3():
+        return torch.mv(torch.index_select(blocks, 0, ids_l).reshape(-1, D),
+                        w16)
+
+    def lib4():
+        x = torch.index_select(blocks, 0, ids_l).reshape(-1, D)
+        return torch.mv(x.T, r16)
+
+    rows = ids.shape[0] * gbr
+    x_bytes = rows * D * X2m.element_size()
+    b3 = _bound_ms(x_bytes + 4 * (ids.shape[0] + D + 3 * rows), 2 * rows * D)
+    b4 = _bound_ms(x_bytes + 4 * (ids.shape[0] + rows + D), 2 * rows * D)
+    n_k = 200 if x_bytes < 1e8 else 20
+    n_p = 20 if x_bytes < 1e8 else 5
+    return {
+        "B3": dict(max_abs_err=e3, ms=_time_ms(
+            lambda: tk.fused_forward_gathered(X2m, wm, ids, **kw), n_k),
+            plain_ms=_time_ms(lambda: tk.forward_gathered_reference(
+                X2m, wm, ids, **kw), n_p, warm=2),
+            library_ms=_time_ms(lib3, n_p, warm=2),
+            bound_ms=b3[0], bound_by=b3[1], bytes=x_bytes),
+        "B4": dict(max_abs_err=e4, ms=_time_ms(
+            lambda: tk.fused_backward_gathered(X2m, resid, ids, **bkw), n_k),
+            plain_ms=_time_ms(lambda: tk.backward_gathered_reference(
+                X2m, resid, ids, **bkw), n_p, warm=2),
+            library_ms=_time_ms(lib4, n_p, warm=2),
+            bound_ms=b4[0], bound_by=b4[1], bytes=x_bytes)}
+
+
+def _tp_run(name, run, steps, n_data, n_model):
+    """One driven tp run with the counters set to 0 just before it: its
+    weights, seconds and launches; B3 and B4 must each launch once per
+    step, data shard and model slice, and B1 never."""
+    import torch
+
+    _reset_launches()
+    t1 = time.perf_counter()
+    w, _ = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    launches = _launches()
+    want = steps * n_data * n_model
+    got = (launches["fused_forward_gathered"],
+           launches["fused_backward_gathered"])
+    if got != (want, want) or launches["fused_grad_sum_gathered"]:
+        raise AssertionError(f"{name}: B3, B4 launched {got} time(s), want "
+                             f"{want} each, and B1 "
+                             f"{launches['fused_grad_sum_gathered']}: the "
+                             f"path did not go through the split")
+    if not bool(torch.isfinite(w).all()):
+        raise AssertionError(f"{name}: non-finite weights")
+    return w, secs, launches
+
+
+def _check_tp_cli(dev) -> None:
+    """Breast cancer through the CLI's ``--mesh-shape 2x4`` on the card
+    and on the CPU. Evaluated every step on the unnormalised features
+    with one 32-row block a data shard, the accuracy swings to the last
+    step (the JAX package ends this run at 0.906 on the CPU, the port at
+    0.854), and the card and the CPU add in other orders, so they stand
+    at different points of the swing: the last step is reported. Held:
+    the CLI prints the library run's final accuracy; each run reaches
+    the band within its last ``TP_TAIL`` steps; the card's and the CPU's
+    means over them are within ``TP_TAIL_MEANS`` (the JAX package's and
+    the port's CPU runs: 0.853 and 0.866)."""
+    import contextlib
+    import io
+    import warnings
+
+    from tpu_distalg_torch import cli
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets
+
+    args = ["ssgd", "--sampler", "fused_gather", "--mesh-shape", "2x4",
+            "--fused-pack", "4", "--gather-block-rows", "32",
+            "--shuffle-seed", "0", "--quiet"]
+    cfg = ssgd.SSGDConfig(n_iterations=REF_STEPS, sampler="fused_gather",
+                          fused_pack=4, gather_block_rows=32, shuffle_seed=0,
+                          feature_sharded=True)
+    data = datasets.breast_cancer_split()
+    tails = {}
+    for where in ("cuda", "cpu"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="fused_gather:")
+            if cli.main(["--device", where, *args]) != 0:
+                raise AssertionError(f"cli ssgd --mesh-shape 2x4 on {where} "
+                                     f"failed")
+            res = ssgd.train(*data, get_mesh(2, 4, device=dev if where ==
+                                             "cuda" else "cpu"), cfg)
+        line = next(x for x in out.getvalue().splitlines()
+                    if x.startswith("Final acc: "))
+        if line != f"Final acc: {res.final_acc:.6f}":
+            raise AssertionError(f"{where}: the CLI printed {line!r}, the "
+                                 f"library run ends at {res.final_acc}")
+        tails[where] = (res.final_acc, res.accs.cpu().numpy()[-TP_TAIL:])
+    (f_card, t_card), (f_cpu, t_cpu) = tails["cuda"], tails["cpu"]
+    if not (t_card.max() >= SSGD_BAND and t_cpu.max() >= SSGD_BAND
+            and abs(float(t_card.mean()) - float(t_cpu.mean()))
+            <= TP_TAIL_MEANS):
+        raise AssertionError(
+            f"--mesh-shape 2x4: last {TP_TAIL} steps: card best "
+            f"{t_card.max()}, mean {t_card.mean()}; CPU best {t_cpu.max()}, "
+            f"mean {t_cpu.mean()} (want both best >= {SSGD_BAND}, means "
+            f"within {TP_TAIL_MEANS})")
+    print(f"[tp] breast cancer, cli ssgd --sampler fused_gather --mesh-shape "
+          f"2x4 --fused-pack 4 --gather-block-rows 32 --shuffle-seed 0: "
+          f"final acc card {f_card!r}, CPU {f_cpu!r} (reported); last "
+          f"{TP_TAIL} steps: card best {float(t_card.max())!r}, mean "
+          f"{float(t_card.mean())!r}; CPU best {float(t_cpu.max())!r}, mean "
+          f"{float(t_cpu.mean())!r}")
+
+
+def run_ssgd_tp(dev, sg: dict) -> dict:
+    """Phase 9: the tensor-parallel split. Returns the kernel records
+    (main and wide shapes) and the main path's launches."""
+    import dataclasses
+
+    import torch
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import get_mesh
+
+    X, y = sg["X"], sg["y"]
+    cfg = ssgd.SSGDConfig(
+        n_iterations=SSGD_STEPS, eval_test=False, x_dtype="bfloat16",
+        sampler="fused_gather", gather_block_rows=SSGD_GBR, shuffle_seed=0,
+        init_seed=7, feature_sharded=True)
+    out = {"launches": {}}
+    w_one = None
+    for n_data, n_model in ((1, 1), (1, 2)):
+        name = f"{n_data}x{n_model}"
+        t0 = time.perf_counter()
+        mesh = get_mesh(n_data, n_model, device=dev)
+        fn, X2, w0, meta = ssgd.prepare_fused_tp(X, y, mesh, cfg)
+        D = meta["d_total"]
+        te = (torch.zeros((1, n_model * D), device=dev),
+              torch.zeros((1,), device=dev))
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        n_blocks, n_s = ssgd.fused_gather_geometry(cfg, meta, n_data)
+
+        def run():
+            return fn(X2, None, None, *te, w0)
+
+        w_warm, _ = run()
+        if name == "1x1":
+            # at 1×1 the slice is prepare_fused's X2 itself: the one-pass
+            # trainer (B1) on it, timed in turns with the split
+            fn_one = ssgd.make_train_fn_fused(mesh, dataclasses.replace(
+                cfg, feature_sharded=False), meta)
+
+            def run_one():
+                t1 = time.perf_counter()
+                w1, _ = fn_one(X2[0], None, None, *te, w0)
+                torch.cuda.synchronize()
+                return w1, time.perf_counter() - t1
+
+            run_one()
+            w_one, sec_a = run_one()
+        w, sec1, launches = _tp_run(name, run, SSGD_STEPS, n_data, n_model)
+        w2, sec2, _ = _tp_run(name, run, SSGD_STEPS, n_data, n_model)
+        out["launches"][name] = launches
+        if not (torch.equal(w, w_warm) and torch.equal(w, w2)):
+            raise AssertionError(f"tp {name}: runs on the card differ")
+        rates = [SSGD_STEPS / sec1, SSGD_STEPS / sec2]
+        if name == "1x1":
+            _, sec_b = run_one()
+            rates_one = [SSGD_STEPS / sec_a, SSGD_STEPS / sec_b]
+        w_plain = ssgd.tp_extract_weights(w, meta)
+        w_ref = w_one[:meta["d_orig"]]
+        diff = float((w_plain - w_ref).abs().max())
+        if not torch.allclose(w_plain, w_ref, rtol=2e-2, atol=2e-2):
+            raise AssertionError(f"tp {name} != one-pass fused_gather: max "
+                                 f"|dw| {diff}")
+        rate = max(rates)
+        step_bytes = 2 * n_s * SSGD_GBR * D * X2.element_size() * n_model
+        print(f"[tp] {name}: X2 {tuple(X2.shape)} {X2.dtype} "
+              f"({X2.numel() * X2.element_size()} bytes, d_local "
+              f"{meta['d_local']}, D={D}; set-up {setup!r} s); "
+              f"{SSGD_STEPS} steps: {rates!r} steps/s, one-pass "
+              f"fused_gather (B1) on the 1x1 slice {rates_one!r} (runs in "
+              f"turns B1, split, split, B1 at 1x1), best split / best B1 "
+              f"{rate / max(rates_one)!r}; {step_bytes} bytes/step "
+              f"(B3 + B4), {step_bytes * rate / HBM_BYTES_PER_S!r} of 3.35 "
+              f"TB/s; vs one-pass max |dw| {diff!r} (rtol/atol 2e-2); three "
+              f"runs equal bit for bit; launches B3 "
+              f"{launches['fused_forward_gathered']}, B4 "
+              f"{launches['fused_backward_gathered']}, B1 "
+              f"{launches['fused_grad_sum_gathered']}")
+        if name == "1x1":
+            out["main"] = tp_kernel_records(
+                dev, X2[0], w0.view(n_model, D)[0],
+                _first_step_ids(cfg, meta, n_data, dev), meta, SSGD_GBR)
+            del fn_one
+        else:
+            with tempfile.TemporaryDirectory(prefix="chip-smoke-") as ck:
+                w_seg, _ = ssgd.train_prepared_tp(
+                    mesh, cfg, X2, w0, meta, *te, checkpoint_dir=ck,
+                    checkpoint_every=500)
+            if not torch.equal(w_seg, w):
+                raise AssertionError(f"tp {name}: a run segmented at 500 "
+                                     f"steps differs from a straight one")
+            print(f"[tp] {name}: a run checkpointed in segments of 500 steps "
+                  f"equals the straight run bit for bit")
+        del fn, X2, w0
+        torch.cuda.empty_cache()
+    out["main_launches"] = out["launches"]["1x1"]
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    Xw = rng.standard_normal((TP_WIDE_ROWS, TP_WIDE_D)).astype(np.float32)
+    yw = (Xw[:, 0] > 0).astype(np.float32)
+    cfg_w = dataclasses.replace(
+        cfg, n_iterations=TP_WIDE_STEPS, mini_batch_fraction=1.0,
+        gather_block_rows=TP_WIDE_GBR, shuffle_seed=None)
+    print(f"[tp] wide data: {TP_WIDE_ROWS} x {TP_WIDE_D} N(0, 1) float32 "
+          f"from default_rng(0) in {time.perf_counter() - t0!r} s")
+    weights = {}
+    for n_data, n_model in ((2, 2), (2, 1)):
+        name = f"{n_data}x{n_model}"
+        t0 = time.perf_counter()
+        mesh = get_mesh(n_data, n_model, device=dev)
+        fn, X2, w0, meta = ssgd.prepare_fused_tp(Xw, yw, mesh, cfg_w)
+        te = (torch.zeros((1, n_model * meta["d_total"]), device=dev),
+              torch.zeros((1,), device=dev))
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        n_blocks, n_s = ssgd.fused_gather_geometry(cfg_w, meta, n_data)
+
+        def run():
+            return fn(X2, None, None, *te, w0)
+
+        run()
+        secs = []
+        for _ in range(TP_WIDE_REPEATS):
+            w, sec, launches = _tp_run(name, run, TP_WIDE_STEPS, n_data,
+                                       n_model)
+            secs.append(sec)
+        weights[name] = ssgd.tp_extract_weights(w, meta)
+        D = meta["d_total"]
+        rate = TP_WIDE_STEPS / min(secs)
+        step_bytes = 2 * n_data * n_model * n_s * TP_WIDE_GBR * D * 2
+        print(f"[tp] wide {name}: X2 {tuple(X2.shape)} bf16 "
+              f"({X2.numel() * X2.element_size()} bytes, d_local "
+              f"{meta['d_local']}, D={D}, {n_blocks} blocks of {TP_WIDE_GBR} "
+              f"rows a data shard, {n_s} sampled; set-up {setup!r} s); "
+              f"{TP_WIDE_STEPS} steps, best of {TP_WIDE_REPEATS}: {rate!r} "
+              f"steps/s ({[TP_WIDE_STEPS / x for x in secs]!r}); "
+              f"{step_bytes} bytes/step (B3 + B4), "
+              f"{step_bytes * rate / HBM_BYTES_PER_S!r} of 3.35 TB/s; launches "
+              f"B3 {launches['fused_forward_gathered']}, B4 "
+              f"{launches['fused_backward_gathered']} a run")
+        if name == "2x2":
+            out["wide_rate"] = rate
+            ids0 = _first_step_ids(cfg_w, meta, n_data, dev)
+            out["wide"] = tp_kernel_records(dev, X2[0],
+                                            w0.view(n_model, D)[0], ids0,
+                                            meta, TP_WIDE_GBR)
+        del fn, X2, w0
+        torch.cuda.empty_cache()
+    diff = float((weights["2x2"] - weights["2x1"]).abs().max())
+    if not torch.allclose(weights["2x2"], weights["2x1"], rtol=2e-3,
+                          atol=2e-3):
+        raise AssertionError(f"wide 2x2 != 2x1: max |dw| {diff}")
+    print(f"[tp] wide 2x2 vs 2x1 after {TP_WIDE_STEPS} steps: max |dw| "
+          f"{diff!r} (rtol/atol 2e-3)")
+    del Xw, yw
+    _check_tp_cli(dev)
+    for shape, recs in (("main", out["main"]), ("wide", out["wide"])):
+        for k in ("B3", "B4"):
+            r = recs[k]
+            print(f"[kernels] ssgd {k} {shape} shape ({r['bytes']} bytes of "
+                  f"X2): max |err| {r['max_abs_err']!r} vs plain; kernel "
+                  f"{r['ms']!r} ms, plain {r['plain_ms']!r} ms, library "
+                  f"{r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
+                  f"({r['bound_by']})")
+    return out
+
+
+def _first_step_ids(cfg, meta, n_data, dev):
+    """Data shard 0's block ids at step 0, as the trainer draws them."""
+    import torch
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.ops import sampling
+    from tpu_distalg_torch.utils import prng
+
+    n_blocks, n_s = ssgd.fused_gather_geometry(cfg, meta, n_data)
+    key = prng.root_key(cfg.seed, dev)
+    return sampling.sample_block_ids(
+        prng.fold_in(key, torch.zeros(1, dtype=torch.int64, device=dev)),
+        n_data, n_blocks, n_s)[0, 0].contiguous()
 
 
 #: PageRank at bench.py's geometry (bench.py:104-106, :2662): vertices,
@@ -1357,6 +1768,7 @@ def main() -> int:
 
     rec = check_topk_kernel(dev)
     check_ssgd_kernels_small(dev)
+    check_tp_kernels_small(dev)
     t0 = _phase("kernels", t0)
     check_als_small(dev)
 
@@ -1384,6 +1796,10 @@ def main() -> int:
         km = run_kmeans(dev, workdir)
     t0 = _phase("kmeans", t0)
 
+    tp = run_ssgd_tp(dev, sg)
+    del sg["X"], sg["y"]
+    t0 = _phase("ssgd tp", t0)
+
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"
     kernels = [{
@@ -1400,6 +1816,16 @@ def main() -> int:
             "name": f"ssgd_kernels.{name}", "route": "cuda",
             "source": ssgd_src, "replaces": f"{pallas}:{line}",
             "launches": sg["launches"][path][name], **sg["recs"][key]})
+    for key, name, line in (("B3", "fused_forward_gathered", 590),
+                            ("B4", "fused_backward_gathered", 668)):
+        main, wide = tp["main"][key], tp["wide"][key]
+        kernels.append({
+            "name": f"ssgd_kernels.{name}", "route": "cuda",
+            "source": ssgd_src, "replaces": f"{pallas}:{line}",
+            "launches": tp["main_launches"][name],
+            **{k: v for k, v in main.items() if k != "bytes"},
+            **{f"wide_{k}": v for k, v in wide.items()
+               if k in ("ms", "plain_ms", "library_ms", "bound_ms")}})
     for key, name, line, path in (("B7", "spmv_table", 457, "auto"),
                                   ("B8", "scatter_table", 498, "pallas")):
         kernels.append({

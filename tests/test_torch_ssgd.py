@@ -170,7 +170,7 @@ def test_fused_train_validation(data):
 @pytest.mark.parametrize("change,item", [
     (dict(sampler="fixed"), "A3"),
     (dict(sampler="virtual"), "A10"), (dict(comm="int8"), "A9"),
-    (dict(sync="ssp:4"), "A9"), (dict(feature_sharded=True), "B3/B4")])
+    (dict(sync="ssp:4"), "A9")])
 def test_configs_not_ported_raise(data, change, item):
     with pytest.raises(NotImplementedError, match=item):
         _port(data, 1, ssgd.SSGDConfig(n_iterations=5, **change))

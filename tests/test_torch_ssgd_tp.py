@@ -1,0 +1,226 @@
+"""The port's dp×tp SSGD (``feature_sharded`` on a mesh with a model
+axis: ``models/ssgd.py``, ``parallel/``, the CLI's ``--mesh-shape``)
+against the JAX package on the CPU.
+
+Both packages draw the same masks and blocks and start from the same
+weights, so their runs are compared step by step. They add in other
+orders (XLA's dots and psums against torch's), and on the unnormalised
+breast-cancer features a row whose z cancels to near 0 turns a last-bit
+difference of z into a visible one of its residual. On the ``fused_gather``
+2×4 mesh in float32 that happens at step 34: after 32 steps the port is
+3.0e-7 of max|w| from JAX, after 33 steps 1.7e-5, after 34 steps 4.3e-3,
+and the accuracy after step 34 (index 33) is 0.45614034 (JAX) against
+0.47368422 (the port). The port's
+and JAX's pure-dp runs on 2 data shards part at the same step, so the
+split is not its cause (ROADMAP C). So that run is held at 30 steps; in
+bfloat16 the residual's rounding absorbs such differences and the run is
+held at 100 steps, as are 1×2 and ``bernoulli`` (which averages over about
+40 rows a step and never parts from JAX within 100 steps: measured
+2.0e-7). Weights are held to 1e-4 of max|w|, accuracy histories must be
+equal. Within the port, tp equals dp within rtol/atol 2e-3 (JAX's
+tp-vs-dp bound), and a segmented run equals a straight one bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_distalg.models import ssgd as jssgd
+from tpu_distalg_torch import cli
+from tpu_distalg_torch.models import ssgd
+from tpu_distalg_torch.parallel import get_mesh, model_sum, shard_features
+from tpu_distalg_torch.utils import datasets
+
+FUSED = dict(sampler="fused_gather", fused_pack=4, gather_block_rows=32,
+             shuffle_seed=0)
+
+
+@pytest.fixture(scope="module")
+def data():
+    return datasets.breast_cancer_split()
+
+
+def _port(data, shape, config, **kw):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # coarse-fraction geometry warn
+        return ssgd.train(*data, get_mesh(*shape, device="cpu"), config, **kw)
+
+
+def _jax(data, shape, config):
+    import jax
+
+    from tpu_distalg.parallel import get_mesh as jget_mesh
+
+    mesh = jget_mesh(data=shape[0], model=shape[1],
+                     devices=jax.devices()[:shape[0] * shape[1]])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return jssgd.train(*data, mesh,
+                           jssgd.SSGDConfig(**dataclasses.asdict(config)))
+
+
+@pytest.mark.parametrize("shape,steps,x_dtype,extra", [
+    ((2, 4), 30, "float32", FUSED),
+    ((2, 4), 100, "bfloat16", FUSED),
+    ((1, 2), 100, "float32", FUSED),
+    ((2, 4), 100, "float32", {}),
+    ((2, 4), 100, "bfloat16", {}),
+    ((1, 4), 60, "float32", dict(lam=0.01, eval_every=7)),
+], ids=["fused-2x4-f32", "fused-2x4-bf16", "fused-1x2-f32",
+        "bernoulli-2x4-f32", "bernoulli-2x4-bf16", "bernoulli-1x4-l2"])
+def test_tp_train_matches_jax(data, shape, steps, x_dtype, extra):
+    config = ssgd.SSGDConfig(n_iterations=steps, x_dtype=x_dtype,
+                             feature_sharded=True, **extra)
+    want = _jax(data, shape, config)
+    got = _port(data, shape, config)
+    w_j = np.asarray(want.w)
+    assert tuple(got.w.shape) == w_j.shape == (31,)
+    np.testing.assert_allclose(got.w.numpy(), w_j, rtol=0,
+                               atol=1e-4 * float(np.abs(w_j).max()))
+    np.testing.assert_array_equal(got.accs.numpy(), np.asarray(want.accs))
+
+
+@pytest.mark.parametrize("steps,x_dtype,extra", [
+    (60, "float32", FUSED), (100, "bfloat16", FUSED),
+    (100, "float32", {}), (100, "bfloat16", {}),
+], ids=["fused-f32", "fused-bf16", "bernoulli-f32", "bernoulli-bf16"])
+def test_tp_matches_dp_within_the_port(data, steps, x_dtype, extra):
+    """2×4 against 2×1: the same draws, the same math, the features
+    split (``tests/test_optimizers.py`` holds JAX to rtol/atol 2e-3)."""
+    cfg = ssgd.SSGDConfig(n_iterations=steps, x_dtype=x_dtype, **extra)
+    tp = _port(data, (2, 4), dataclasses.replace(cfg, feature_sharded=True))
+    dp = _port(data, (2, 1), cfg)
+    np.testing.assert_allclose(tp.w.numpy(), dp.w.numpy(), rtol=2e-3,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("extra", [FUSED, {}], ids=["fused_gather",
+                                                    "bernoulli"])
+def test_tp_segmented_run_equals_straight_run(data, tmp_path, extra):
+    cfg = ssgd.SSGDConfig(n_iterations=60, feature_sharded=True,
+                          eval_every=7, **extra)
+    straight = _port(data, (2, 4), cfg)
+    seg = _port(data, (2, 4), cfg, checkpoint_dir=str(tmp_path),
+                checkpoint_every=25)
+    assert torch.equal(seg.w, straight.w)
+    assert torch.equal(seg.accs, straight.accs)
+    again = _port(data, (2, 4), cfg, checkpoint_dir=str(tmp_path),
+                  checkpoint_every=25)
+    assert torch.equal(again.w, straight.w)
+
+
+def test_tp_checkpoints_carry_their_own_tag(data, tmp_path):
+    """A tp run's checkpoint (tag ``ssgd:fused_gather:tp``) does not
+    resume a pure-dp run."""
+    cfg = ssgd.SSGDConfig(n_iterations=20, feature_sharded=True, **FUSED)
+    _port(data, (2, 4), cfg, checkpoint_dir=str(tmp_path),
+          checkpoint_every=10)
+    with pytest.raises(ValueError, match="incompatible"):
+        _port(data, (2, 1), dataclasses.replace(cfg, feature_sharded=False),
+              checkpoint_dir=str(tmp_path), checkpoint_every=10)
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(sampler="fixed"), "feature_sharded"),
+    (dict(sampler="fused"), "fused"),
+    (dict(sampler="fused_train", mega_steps=5, eval_test=False), "fused"),
+    (dict(use_pallas=True), "use_pallas=True"),
+    (dict(comm="int8"), "comm != 'dense' does not compose"),
+    (dict(sync="ssp:4"), "stale-synchronous"),
+], ids=["fixed", "fused", "fused_train", "use_pallas", "comm", "ssp"])
+def test_tp_refusals_are_jaxs(data, change, match):
+    """JAX's ValueErrors (``tests/test_optimizers.py:274-283``), raised
+    before the port refuses what it has not ported."""
+    cfg = ssgd.SSGDConfig(n_iterations=5, feature_sharded=True, **change)
+    with pytest.raises(ValueError, match=match):
+        _port(data, (2, 4), cfg)
+    with pytest.raises(ValueError, match=match):
+        _jax(data, (2, 4), cfg)
+
+
+def test_tp_trainers_refuse_a_mismatched_layout(data):
+    cfg = ssgd.SSGDConfig(n_iterations=5, feature_sharded=True, **FUSED)
+    mesh = get_mesh(2, 4, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, _, _, meta = ssgd.prepare_fused_tp(data[0], data[1], mesh, cfg)
+        with pytest.raises(ValueError, match="model slices"):
+            ssgd.make_train_fn_fused_tp(get_mesh(2, 2, device="cpu"), cfg,
+                                        meta)
+        with pytest.raises(ValueError, match="make_train_fn_fused_tp"):
+            ssgd.make_train_fn_fused(mesh, cfg, meta)
+
+
+def test_get_mesh_model_axis():
+    mesh = get_mesh(2, 4, device="cpu")
+    assert (mesh.n_data, mesh.n_model) == (2, 4)
+    assert get_mesh(device="cpu").n_model == 1
+    with pytest.raises(ValueError, match="model must be >= 1"):
+        get_mesh(2, 0, device="cpu")
+    with pytest.raises(ValueError, match="data must be >= 1"):
+        get_mesh(0, 2, device="cpu")
+
+
+def test_feature_slices_and_model_sum():
+    """Shard (s, m) is row slice s of model slice m; the model-axis sum
+    adds in model order."""
+    X = torch.arange(24, dtype=torch.float32).reshape(3, 8)
+    sl = shard_features(X, 4)
+    assert sl.shape == (4, 3, 2) and sl.is_contiguous()
+    assert torch.equal(sl[2], X[:, 4:6])
+    with pytest.raises(ValueError, match="pad them first"):
+        shard_features(X, 3)
+    parts = [torch.tensor([1e8]), torch.tensor([1.0]), torch.tensor([-1e8])]
+    assert float(model_sum(parts)) == float((parts[0] + parts[1])
+                                            + parts[2]) == 0.0
+
+
+@pytest.mark.parametrize("text,shape", [("2x4", (2, 4)), ("8X1", (8, 1)),
+                                        (" 1x2 ", (1, 2))])
+def test_parse_mesh_shape(text, shape):
+    assert cli.parse_mesh_shape(text) == shape
+
+
+@pytest.mark.parametrize("text", ["2y2", "0x2", "2x0", "x2", "2x2x2"])
+def test_parse_mesh_shape_refuses(text):
+    with pytest.raises(ValueError, match="DATAxMODEL"):
+        cli.parse_mesh_shape(text)
+
+
+@pytest.mark.parametrize("args,match", [
+    (["--mesh-shape", "2x2", "--n-slices", "2"], "both set"),
+    (["--mesh-shape", "2x2", "--sampler", "fused"],
+     "composes with sampler=bernoulli or fused_gather"),
+    (["--mesh-shape", "1x2", "--sampler", "fused_train"],
+     "composes with sampler=bernoulli or fused_gather"),
+    (["--mesh-shape", "2by2"], "DATAxMODEL"),
+], ids=["with-n-slices", "fused", "fused_train", "bad-text"])
+def test_cli_mesh_shape_exits_like_jax(args, match):
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["--device", "cpu", "ssgd", "--n-iterations", "5", *args])
+
+
+def _final_acc(capsys, *args) -> float:
+    assert cli.main(["--device", "cpu", "ssgd", "--quiet", *args]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    return float(next(x for x in lines
+                      if x.startswith("Final acc: "))[len("Final acc: "):])
+
+
+def test_cli_mesh_shape_runs_feature_sharded(data, capsys):
+    """``--mesh-shape 2x2`` is the library's feature_sharded run on a
+    2×2 mesh; ``--mesh-shape 4x1`` is ``--n-slices 4``."""
+    acc = _final_acc(capsys, "--mesh-shape", "2x2", "--n-iterations", "200",
+                     "--sampler", "fused_gather", "--fused-pack", "4",
+                     "--gather-block-rows", "32", "--shuffle-seed", "0")
+    lib = _port(data, (2, 2), ssgd.SSGDConfig(
+        n_iterations=200, feature_sharded=True, **FUSED))
+    assert acc == round(lib.final_acc, 6)
+    assert _final_acc(capsys, "--mesh-shape", "4x1", "--n-iterations",
+                      "100") == _final_acc(capsys, "--n-slices", "4",
+                                           "--n-iterations", "100")

@@ -4,6 +4,9 @@ ALS, k-means and LR artifacts.
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] ssgd \\
         --sampler fused_train --gather-block-rows 32 --fused-pack 4 \\
         --shuffle-seed 0 --n-iterations 1500      # breast-cancer task
+    python -m tpu_distalg_torch.cli ssgd --sampler fused_gather \\
+        --mesh-shape 2x4 --fused-pack 4 --gather-block-rows 32 \\
+        --shuffle-seed 0        # features over 4 model slices (B3, B4)
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] als \\
         --m 4096 --n 16384 --k 64 --lam 0.0 --n-iterations 5 \\
         --checkpoint-dir D                     # prints artifact_path: D
@@ -22,7 +25,19 @@ unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import re
 import sys
+
+
+def parse_mesh_shape(text: str) -> tuple[int, int]:
+    """``'DxM'`` → ``(data, model)``: ``'8x1'`` is pure data parallel,
+    ``'2x4'`` puts 4 model slices (the features) inside each data
+    shard."""
+    m = re.fullmatch(r"(\d+)[xX](\d+)", text.strip())
+    if not m or int(m.group(1)) < 1 or int(m.group(2)) < 1:
+        raise ValueError(
+            f"--mesh-shape wants DATAxMODEL (e.g. 4x2), got {text!r}")
+    return int(m.group(1)), int(m.group(2))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -33,6 +48,10 @@ def _parser() -> argparse.ArgumentParser:
     o = sub.add_parser("ssgd", help="synchronous minibatch SGD")
     o.add_argument("--n-slices", type=int, default=0,
                    help="emulated data shards; 0 = 1")
+    o.add_argument("--mesh-shape", type=str, default=None, metavar="DxM",
+                   help="emulated mesh data x model (e.g. 2x2); model > 1 "
+                        "splits the features over the model slices "
+                        "(feature_sharded) — replaces --n-slices")
     o.add_argument("--n-iterations", type=int, default=1500)
     o.add_argument("--eta", type=float, default=0.1)
     o.add_argument("--mini-batch-fraction", type=float, default=0.1)
@@ -181,13 +200,29 @@ def _run_ssgd(args) -> None:
     from tpu_distalg_torch.utils import datasets, metrics
 
     data = datasets.breast_cancer_split()
-    mesh = get_mesh(data=args.n_slices or None, device=args.device)
+    n_data, n_model = args.n_slices or 1, 1
+    if args.mesh_shape:
+        if args.n_slices > 0:
+            raise SystemExit(
+                "--mesh-shape and --n-slices both set: --mesh-shape "
+                "IS the full (data x model) geometry; drop --n-slices")
+        try:
+            n_data, n_model = parse_mesh_shape(args.mesh_shape)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+    if n_model > 1 and args.sampler not in ("bernoulli", "fused_gather"):
+        raise SystemExit(
+            f"--mesh-shape with model={n_model} shards the feature dim, "
+            f"which composes with sampler=bernoulli or fused_gather (got "
+            f"{args.sampler!r})")
+    mesh = get_mesh(data=n_data, model=n_model, device=args.device)
     kw = dict(
         n_iterations=args.n_iterations, eta=args.eta,
         mini_batch_fraction=args.mini_batch_fraction, lam=args.lam,
         reg_type=args.reg_type, sampler=args.sampler,
         x_dtype=args.x_dtype, gather_block_rows=args.gather_block_rows,
-        fused_pack=args.fused_pack, shuffle_seed=args.shuffle_seed)
+        fused_pack=args.fused_pack, shuffle_seed=args.shuffle_seed,
+        feature_sharded=n_model > 1)
     if args.sampler != "fused_train" and args.mega_steps is not None:
         raise SystemExit(f"--mega-steps applies to sampler=fused_train "
                          f"only (got {args.sampler})")

@@ -1,5 +1,6 @@
-"""Carry trained parameters (ALS factors, SSGD weights, k-means centres)
-and PageRank's rank state from the JAX package into the port.
+"""Carry trained parameters (ALS factors, SSGD weights, dp×tp SSGD
+state, k-means centres) and PageRank's rank state from the JAX package
+into the port.
 
 The two packages share no file format the port reads (the JAX package
 checkpoints as flax msgpack), so parameters cross as numpy arrays:
@@ -58,6 +59,51 @@ def ssgd_params_from_jax(w_np, meta: dict | None = None, *,
             raise ValueError(f"w {tuple(t.shape)}: want ({y_col},) or "
                              f"({d_t},) for meta {meta}")
     return t.to(dev).contiguous()
+
+
+def _bf16_or_f32(a: np.ndarray) -> torch.Tensor:
+    """A float32 array, or bfloat16 crossed as its 16-bit pattern
+    (``np.uint16``, or ml_dtypes' bfloat16, which numpy sees as 2-byte
+    values), as a torch tensor of that type."""
+    if a.dtype.itemsize == 2:
+        bits = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def ssgd_tp_params_from_jax(w_np, X2_np, meta: dict, *,
+                            device: str | torch.device | None = None):
+    """The JAX package's dp×tp ``fused_gather`` state (``prepare_fused_tp``)
+    in the port's layout: ``(w, X2)``. w, the (n_model·D,) concatenation
+    of the slices' augmented weights, stays as it is (float32); X2, JAX's
+    (n2, n_model·P·D) column concatenation of the slices' packs, becomes
+    the (n_model, n2, P·D) tensor of contiguous slices. A bfloat16 X2
+    crosses as its bits (``np.asarray(X2).view(np.uint16)``)."""
+    dev = resolve_device(device)
+    n_model, d_t, pack = meta["n_model"], meta["d_total"], meta["pack"]
+    w = np.array(w_np, np.float32)
+    X2 = np.asarray(X2_np)
+    if w.shape != (n_model * d_t,):
+        raise ValueError(f"w {w.shape}: want ({n_model * d_t},) for meta "
+                         f"{meta}")
+    if X2.ndim != 2 or X2.shape[1] != n_model * pack * d_t:
+        raise ValueError(f"X2 {X2.shape}: want (n2, {n_model * pack * d_t})")
+    slices = X2.reshape(X2.shape[0], n_model, pack * d_t).transpose(1, 0, 2)
+    return (torch.from_numpy(w).to(dev),
+            _bf16_or_f32(slices).to(dev).contiguous())
+
+
+def ssgd_tp_params_to_jax(w, X2, meta: dict):
+    """The inverse of :func:`ssgd_tp_params_from_jax`: numpy ``(w, X2)``
+    in the JAX package's layout, X2 (n2, n_model·P·D) as float32 or, for
+    bfloat16, as its ``np.uint16`` bits."""
+    n_model, n2, width = X2.shape
+    if n_model != meta["n_model"] or width != meta["pack"] * meta["d_total"]:
+        raise ValueError(f"X2 {tuple(X2.shape)} does not match meta {meta}")
+    cat = X2.detach().transpose(0, 1).reshape(n2, n_model * width).cpu()
+    x = (cat.view(torch.int16).numpy().view(np.uint16)
+         if cat.dtype == torch.bfloat16 else cat.numpy())
+    return w.detach().cpu().numpy().astype(np.float32), x
 
 
 def kmeans_params_from_jax(centers_np, *,

@@ -1,13 +1,16 @@
 // SSGD logistic-regression kernels for Hopper (sm_90a): the masked
 // gradient sum over all rows (B6), over sampled row blocks (B1), over all
-// rows with a Bernoulli mask drawn in the kernel (B5), and T block-sampled
-// SGD steps in one launch (B2).
+// rows with a Bernoulli mask drawn in the kernel (B5), T block-sampled
+// SGD steps in one launch (B2), and B1's two halves for the
+// tensor-parallel split (B3 forward, B4 backward).
 //
 // Replaces, in tpu_distalg/ops/pallas_kernels.py:
 //   B6 fused_grad_sum           (body _grad_kernel)
 //   B1 fused_grad_sum_gathered  (body _grad_kernel_gathered)
 //   B2 fused_train_gathered     (body _train_kernel_gathered)
 //   B5 fused_grad_sum_packed    (body _grad_kernel_packed)
+//   B3 fused_forward_gathered   (body _fwd_kernel_gathered)
+//   B4 fused_backward_gathered  (body _bwd_kernel_gathered)
 // with their contracts (see tpu_distalg_torch/ops/ssgd_kernels.py):
 //   * z = Σ_j x_j · w_j in float32, with w cast to X's element type first
 //     (B2 also zeroes w at columns >= y_col, as its selector does);
@@ -20,6 +23,9 @@
 //     kernel draws from its on-core generator, whose bits exist nowhere
 //     else; this mask depends on the key and the row alone, not on the grid;
 //   * g = Σ_rows resid·x and count = Σ mask (or Σ x[v_col], Σ m) in float32;
+//   * B3: zyv[i / P][i % P] = z, [P + i % P] = x[y_col], [2P + i % P] =
+//     x[v_col] for sampled row i (row i % gbr of block ids[i / gbr]);
+//     B4: g = Σ_i resid_i·x_i with resid_i = resid[i] rounded to X's type;
 //   * B2 step: nb = max(count, 1); w_new = w − (η/nb)·g with g zeroed at
 //     columns >= y_col; if α ≠ 0, w_new −= α·(w − center) with the w from
 //     before the step; the next step's w cast to X's type comes from the
@@ -65,6 +71,20 @@
 //   * B6 takes any row width d: one warp per row with scalar loads, each
 //     lane owning the columns j ≡ lane (mod 32) of its warp's accumulator
 //     in shared memory; the row is read twice, the second time from L1.
+//   * B3 and B4 take rows of any width (the tp split exists for rows too
+//     wide for one card's data-parallel layout): G = the least power of
+//     two >= L (at most 32) lanes own a row, a lane one 16-byte vector.
+//     B3 on rows of at most 32 vectors keeps its vector of w in
+//     registers and holds 4 rows in flight; on longer rows a warp reads
+//     a row in turns of 32 vectors against w cast to X's type in shared
+//     memory. Each row's z is one lane group's fixed-order butterfly, so
+//     B3's results do not depend on the grid. B4 gives each block one
+//     column tile (G vectors) of one chunk of rows; a lane adds its rows
+//     in row order, the block folds its lane groups and warps in a fixed
+//     order and writes its partial, and a second launch adds the chunks'
+//     partials in chunk order. Chunks come from the shapes alone
+//     (ops/ssgd_kernels.py::tp_kernel_plan), so B4 replays bit for bit.
+//     Both are bound by the bytes of the sampled rows, each read once.
 // TMA, wgmma and a faster cross-block reduction are later work.
 
 #include <cooperative_groups.h>
@@ -606,6 +626,242 @@ cudaError_t launch_grad(const void* X, const float* y, const float* mask,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ B3 and B4
+
+constexpr int kTpU = 4;  // rows a lane group holds in flight (B3, B4)
+
+// Lanes that own a row of L vectors (tp_kernel_plan's G).
+__host__ __device__ inline int tp_lanes(int L) {
+  int G = 1;
+  while (G < L && G < 32) G <<= 1;
+  return G;
+}
+
+// Sampled row i (< 2^31, so 32-bit division) of the blocks `ids`: its
+// row in X, or -1 when its block id lies outside [0, n_blocks).
+__device__ __forceinline__ long long sampled_row(const int* ids, int n_blocks,
+                                                 int gbr, int i) {
+  const int s = i / gbr;
+  const int b = ids[s];
+  if (b < 0 || b >= n_blocks) return -1;
+  return static_cast<long long>(b) * gbr + (i - s * gbr);
+}
+
+__device__ __forceinline__ void write_zyv(float* zyv, int P, int i, float z,
+                                          float y, float v) {
+  const int r = i / P;
+  float* o = zyv + static_cast<long long>(r) * 3 * P + (i - r * P);
+  o[0] = z;
+  o[P] = y;
+  o[2 * P] = v;
+}
+
+// B3 on rows of at most 32 vectors: G lanes a row, one vector a lane,
+// kTpU rows in flight; a grid-stride loop over the sampled rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    forward_narrow_kernel(const T* __restrict__ X, const int* __restrict__ ids,
+                          int n_blocks, int gbr, int L, int G, int y_col,
+                          int v_col, int P, const float* __restrict__ w,
+                          int rows_total, float* __restrict__ zyv) {
+  constexpr int N = Vec<T>::N;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int R = 32 / G;
+  const int li = lane % G;
+  const int D = L * N;
+  float wq[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    wq[e] = li < L ? Vec<T>::quant(w[li * N + e]) : 0.0f;
+  // rows_total < 2^31 and the grid is at most TP_MAX_FWD_BLOCKS blocks,
+  // so base + kTpU · groups stays below 2^31 + 2^21
+  const long long groups = static_cast<long long>(gridDim.x) * kWarps * R;
+  const long long gid =
+      (static_cast<long long>(blockIdx.x) * kWarps + warp) * R + lane / G;
+  for (long long base = 0; base < rows_total; base += groups * kTpU) {
+    uint4 raw[kTpU];
+    float yv[kTpU], vv[kTpU];
+#pragma unroll
+    for (int u = 0; u < kTpU; ++u) {
+      const long long i = base + u * groups + gid;
+      const long long r =
+          i < rows_total ? sampled_row(ids, n_blocks, gbr, static_cast<int>(i))
+                         : -1;
+      const T* row = X + (r < 0 ? 0 : r) * D;
+      raw[u] = r >= 0 && li < L
+                   ? __ldg(reinterpret_cast<const uint4*>(row + li * N))
+                   : make_uint4(0u, 0u, 0u, 0u);
+      yv[u] = r >= 0 && li == 0 ? Vec<T>::scalar(row + y_col) : 0.0f;
+      vv[u] = r >= 0 && li == 0 ? Vec<T>::scalar(row + v_col) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kTpU; ++u) {
+      float x[N];
+      Vec<T>::unpack(raw[u], x);
+      float z = 0.0f;
+#pragma unroll
+      for (int e = 0; e < N; ++e) z = fmaf(x[e], wq[e], z);
+      for (int o = G >> 1; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
+      const long long i = base + u * groups + gid;
+      if (li == 0 && i < rows_total)
+        write_zyv(zyv, P, static_cast<int>(i), z, yv[u], vv[u]);
+    }
+  }
+}
+
+// B3 on rows of more than 32 vectors: a warp a row, in turns of 32
+// vectors, against w cast to X's type in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    forward_wide_kernel(const T* __restrict__ X, const int* __restrict__ ids,
+                        int n_blocks, int gbr, int L, int y_col, int v_col,
+                        int P, const float* __restrict__ w,
+                        int rows_total, float* __restrict__ zyv) {
+  constexpr int N = Vec<T>::N;
+  extern __shared__ float ws[];  // D: w cast to X's type
+  const int D = L * N;
+  for (int j = threadIdx.x; j < D; j += kThreads) ws[j] = Vec<T>::quant(w[j]);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int nw = gridDim.x * kWarps;
+  for (int i = blockIdx.x * kWarps + (threadIdx.x >> 5); i < rows_total;
+       i += nw) {
+    const long long r = sampled_row(ids, n_blocks, gbr, i);
+    float z = 0.0f;
+    if (r >= 0) {
+      const uint4* row = reinterpret_cast<const uint4*>(X + r * D);
+#pragma unroll 4
+      for (int vi = lane; vi < L; vi += 32) {
+        float x[N];
+        Vec<T>::unpack(__ldg(row + vi), x);
+        const float* wv = ws + vi * N;
+#pragma unroll
+        for (int e = 0; e < N; ++e) z = fmaf(x[e], wv[e], z);
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
+    if (lane == 0) {
+      const T* row = X + (r < 0 ? 0 : r) * D;
+      write_zyv(zyv, P, i, z, r >= 0 ? Vec<T>::scalar(row + y_col) : 0.0f,
+                r >= 0 ? Vec<T>::scalar(row + v_col) : 0.0f);
+    }
+  }
+}
+
+// B4, stage 1: block (chunk, tile) adds resid·x over the chunk's rows for
+// the tile's G vectors of columns, and writes partial[chunk][tile cols].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    backward_kernel(const T* __restrict__ X, const int* __restrict__ ids,
+                    int n_blocks, int gbr, int L, int G,
+                    const float* __restrict__ resid, int chunk,
+                    int rows_total, float* __restrict__ partial) {
+  constexpr int N = Vec<T>::N;
+  __shared__ float red[kWarps * 32 * N];  // each warp's tile of G·N sums
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int R = 32 / G;
+  const int grp = lane / G;
+  const int li = lane % G;
+  const int D = L * N;
+  const int vi = blockIdx.y * G + li;
+  const bool col_ok = vi < L;
+  // chunk · n_chunks < rows_total + chunk <= 2^31 + a pass (the wrapper)
+  const long long r0 = static_cast<long long>(blockIdx.x) * chunk;
+  const long long r1 = r0 + chunk < rows_total ? r0 + chunk : rows_total;
+  float acc[N] = {};
+  for (long long base = r0; base < r1; base += kWarps * R * kTpU) {
+    uint4 raw[kTpU];
+    float rv[kTpU];
+#pragma unroll
+    for (int u = 0; u < kTpU; ++u) {
+      const long long i = base + (u * kWarps + warp) * R + grp;
+      const long long r =
+          i < r1 ? sampled_row(ids, n_blocks, gbr, static_cast<int>(i)) : -1;
+      raw[u] = r >= 0 && col_ok
+                   ? __ldg(reinterpret_cast<const uint4*>(X + r * D + vi * N))
+                   : make_uint4(0u, 0u, 0u, 0u);
+      rv[u] = r >= 0 ? Vec<T>::quant(__ldg(resid + i)) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kTpU; ++u) {
+      float x[N];
+      Vec<T>::unpack(raw[u], x);
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[e] = fmaf(rv[u], x[e], acc[e]);
+    }
+  }
+  // lane groups by butterfly, then warps 0..kWarps-1
+  for (int o = G; o < 32; o <<= 1)
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[e] += __shfl_xor_sync(kFull, acc[e], o);
+  if (lane < G)
+#pragma unroll
+    for (int e = 0; e < N; ++e) red[(warp * G + lane) * N + e] = acc[e];
+  __syncthreads();
+  float* out = partial + static_cast<size_t>(blockIdx.x) * D;
+  for (int k = threadIdx.x; k < G * N; k += kThreads) {
+    const int j = blockIdx.y * G * N + k;
+    if (j < D) {
+      float s = 0.0f;
+      for (int w8 = 0; w8 < kWarps; ++w8) s += red[w8 * G * N + k];
+      out[j] = s;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_forward(const void* X, const int* ids, int n_s,
+                           int n_blocks, int gbr, int D, int y_col, int v_col,
+                           int P, const float* w, int n_grid, float* zyv,
+                           cudaStream_t s) {
+  constexpr int N = Vec<T>::N;
+  if (D % N) return cudaErrorInvalidValue;
+  const int L = D / N;
+  const int rows = n_s * gbr;  // < 2^31 (checked by the entry point)
+  const T* Xp = static_cast<const T*>(X);
+  if (L <= 32) {
+    forward_narrow_kernel<T><<<n_grid, kThreads, 0, s>>>(
+        Xp, ids, n_blocks, gbr, L, tp_lanes(L), y_col, v_col, P, w, rows,
+        zyv);
+    return cudaGetLastError();
+  }
+  const size_t smem = sizeof(float) * D;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        forward_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  forward_wide_kernel<T><<<n_grid, kThreads, smem, s>>>(
+      Xp, ids, n_blocks, gbr, L, y_col, v_col, P, w, rows, zyv);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_backward(const void* X, const int* ids, int n_s,
+                            int n_blocks, int gbr, int D, const float* resid,
+                            int chunk, int n_chunks, float* partial,
+                            float* out, cudaStream_t s) {
+  constexpr int N = Vec<T>::N;
+  if (D % N) return cudaErrorInvalidValue;
+  const int L = D / N;
+  const int G = tp_lanes(L);
+  const int rows = n_s * gbr;  // < 2^31 (checked by the entry point)
+  if (static_cast<long long>(chunk) * n_chunks < rows ||
+      static_cast<long long>(chunk) * (n_chunks - 1) >= rows)
+    return cudaErrorInvalidValue;
+  const dim3 grid(n_chunks, (L + G - 1) / G);
+  backward_kernel<T><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(X), ids, n_blocks, gbr, L, G, resid, chunk, rows,
+      partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_partials<<<D, kReduceThreads, 0, s>>>(partial, n_chunks, D, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -692,6 +948,50 @@ int tda_ssgd_train(const void* X, int dtype, const void* idx, int T_steps,
                 static_cast<const float*>(center), eta, alpha, skip_update,
                 max_blocks, device, static_cast<float*>(partial),
                 static_cast<float*>(w_out), static_cast<cudaStream_t>(stream));
+}
+
+// B3: X (n_blocks · gbr, D) row-major, ids (n_s,) int32, w (D,) float32,
+// zyv (n_s · gbr / P, 3P) float32; n_grid blocks.
+int tda_ssgd_forward_gathered(const void* X, int dtype, const void* ids,
+                              int n_s, int n_blocks, int gbr, int D,
+                              int y_col, int v_col, int P, const void* w,
+                              int n_grid, void* zyv, int device,
+                              void* stream) {
+  if (n_s < 1 || n_blocks < 1 || gbr < 1 || P < 1 || gbr % P ||
+      n_grid < 1 || D < 1 || D > 32768 ||
+      static_cast<long long>(n_s) * gbr >= (1LL << 31) || y_col < 0 ||
+      y_col >= D || v_col < 0 || v_col >= D || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  auto launch = dtype == 0 ? launch_forward<float>
+                           : launch_forward<__nv_bfloat16>;
+  return launch(X, static_cast<const int*>(ids), n_s, n_blocks, gbr, D, y_col,
+                v_col, P, static_cast<const float*>(w), n_grid,
+                static_cast<float*>(zyv), static_cast<cudaStream_t>(stream));
+}
+
+// B4: X and ids as B3, resid (n_s · gbr,) float32 in sampled order;
+// `partial` holds n_chunks · D floats, `out` D. The rows split into
+// n_chunks chunks of `chunk` rows (the last may be shorter).
+int tda_ssgd_backward_gathered(const void* X, int dtype, const void* ids,
+                               int n_s, int n_blocks, int gbr, int D,
+                               const void* resid, int chunk, int n_chunks,
+                               void* partial, void* out, int device,
+                               void* stream) {
+  if (n_s < 1 || n_blocks < 1 || gbr < 1 || chunk < 1 || n_chunks < 1 ||
+      n_chunks > 65535 * 32 || D < 1 || D > 32768 ||
+      static_cast<long long>(n_s) * gbr >= (1LL << 31) ||
+      (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  auto launch = dtype == 0 ? launch_backward<float>
+                           : launch_backward<__nv_bfloat16>;
+  return launch(X, static_cast<const int*>(ids), n_s, n_blocks, gbr, D,
+                static_cast<const float*>(resid), chunk, n_chunks,
+                static_cast<float*>(partial), static_cast<float*>(out),
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -26,10 +26,29 @@ a segmented run replays a straight one bit for bit. Samplers:
     (``fused_train_gathered``); one shard, ``lam = 0``, evaluation at
     launch boundaries only.
 
+With ``feature_sharded`` (the JAX package's tensor-parallel split, on
+a mesh with ``n_model > 1``) the features are split into ``n_model``
+contiguous slices (:func:`tpu_distalg_torch.parallel.shard_features`)
+and each slice owns its part of w and of the gradient; z is the sum of
+the slices' partial products in model order
+(:func:`tpu_distalg_torch.parallel.model_sum`):
+
+  * ``bernoulli``: z = Σ_m X_m·w_m in plain torch, then each slice's
+    gradient Xᵀ_m·resid, summed over the data shards in shard order;
+  * ``fused_gather``: each model slice is packed on its own with the y/v
+    columns replicated and the same row shuffle
+    (:func:`prepare_fused_tp`), into one (n_model, n2, P·D) tensor; each
+    step, per data shard and slice, kernel B3 (``fused_forward_gathered``)
+    gives the partial z and y/v, the partials are summed in model order,
+    ``resid = (σ(z) − y)·v``, and kernel B4 (``fused_backward_gathered``)
+    gives the slice's gradient. The sampled blocks are read twice. w is
+    the JAX package's flat (n_model·D,) concatenation of the slices.
+
 Not ported yet, raising NotImplementedError with their ROADMAP item:
 the ``fixed`` and ``virtual`` samplers, ``comm`` other
-than ``dense`` and ``sync`` other than ``bsp`` (A9), and
-``feature_sharded`` (B3/B4).
+than ``dense`` and ``sync`` other than ``bsp`` (A9). The JAX package's
+refusals of ``feature_sharded`` with other samplers, ``use_pallas``,
+a ``comm`` schedule or SSP raise its ValueErrors.
 """
 
 from __future__ import annotations
@@ -40,7 +59,14 @@ import numpy as np
 import torch
 
 from tpu_distalg_torch.ops import logistic, sampling, ssgd_kernels
-from tpu_distalg_torch.parallel import Mesh, parallelize, tree_allreduce_sum
+from tpu_distalg_torch.parallel import (
+    Mesh,
+    model_sum,
+    pad_features,
+    parallelize,
+    shard_features,
+    tree_allreduce_sum,
+)
 from tpu_distalg_torch.utils import metrics, prng
 
 
@@ -93,6 +119,41 @@ _NOT_PORTED = {
 }
 
 
+def _check_feature_sharded(config: SSGDConfig) -> None:
+    """The JAX package's refusals of ``feature_sharded``, in its words
+    (``ssgd.py:277-285``, ``:331-337``, ``:357-365``, ``:1474-1480``),
+    before anything the port does not cover is refused."""
+    if not config.feature_sharded:
+        return
+    if config.comm != "dense":
+        raise ValueError(
+            "comm != 'dense' does not compose with feature_sharded "
+            "(the tp split's model-axis matvec psum is activation "
+            "traffic, not a gradient sync); run the comm schedules on "
+            "a pure-dp mesh")
+    if config.sync.split(":")[0] == "ssp":
+        raise ValueError(
+            f"sync={config.sync!r} (stale-synchronous) composes with "
+            f"the 'bernoulli', 'fused' and 'fused_gather' samplers on "
+            f"a pure-dp mesh — got sampler={config.sampler!r} "
+            f"use_pallas={config.use_pallas} "
+            f"feature_sharded={config.feature_sharded}; 'fused_train' "
+            f"(no per-window collective exists inside the megakernel), "
+            f"'fixed' and the tp split stay BSP")
+    if config.sampler in ("fused", "fused_train"):
+        raise ValueError(
+            "feature_sharded composes with sampler='fused_gather' or "
+            f"'bernoulli', not '{config.sampler}'")
+    if config.sampler != "fused_gather" and (
+            config.sampler != "bernoulli" or config.use_pallas):
+        raise ValueError(
+            "feature_sharded composes with the 'bernoulli' sampler "
+            "(plain torch) or sampler='fused_gather' (the "
+            "two-pass kernel path, via ssgd.train / "
+            "make_train_fn_fused_tp) — not with "
+            f"sampler={config.sampler!r} use_pallas={config.use_pallas}")
+
+
 def _check_ported(config: SSGDConfig) -> None:
     """Raise NotImplementedError for what this slice does not cover."""
     if config.sampler not in _SAMPLERS:
@@ -107,10 +168,6 @@ def _check_ported(config: SSGDConfig) -> None:
         raise NotImplementedError(
             f"sync={config.sync!r}: stale-synchronous training is not "
             f"ported yet (ROADMAP A9); use sync='bsp'")
-    if config.feature_sharded:
-        raise NotImplementedError(
-            "feature_sharded: the model axis and kernels B3/B4 are not "
-            "ported yet (ROADMAP A9, B3/B4)")
 
 
 def _build_scan(config: SSGDConfig, sample_and_grad, prep_xs=None):
@@ -154,15 +211,21 @@ def _build_scan(config: SSGDConfig, sample_and_grad, prep_xs=None):
 def make_train_fn(mesh: Mesh, config: SSGDConfig, n_padded: int):
     """The ``bernoulli`` trainer: call as ``fn(X, y, valid, X_test,
     y_test, w0, t0=0, acc0=0.0)`` → ``(w, accs)`` with X, y, valid the
-    padded arrays of :func:`parallelize`."""
+    padded arrays of :func:`parallelize`. With ``feature_sharded``, X is
+    the (n_model, n_padded, d_local) tensor of
+    :func:`~tpu_distalg_torch.parallel.shard_features` and w the
+    (n_model·d_local,) weights."""
     if config.sampler in ("fused", "fused_gather"):
         raise ValueError(
             f"sampler={config.sampler!r} packs labels into X — build via "
             "make_train_fn_fused(mesh, config, meta) with meta from "
             "ssgd_kernels.pack_augmented, or use ssgd.train()")
+    _check_feature_sharded(config)
     _check_ported(config)
     if config.sampler != "bernoulli":
         raise ValueError(f"unknown sampler {config.sampler!r}")
+    if config.feature_sharded:
+        return _make_train_fn_tp(mesh, config, n_padded)
     n_shards = mesh.n_data
     n_local = n_padded // n_shards
     key = prng.root_key(config.seed, mesh.device)
@@ -181,6 +244,33 @@ def make_train_fn(mesh: Mesh, config: SSGDConfig, n_padded: int):
                        y[s * n_local:(s + 1) * n_local],
                        mask[s * n_local:(s + 1) * n_local], w)
             for s in range(n_shards))
+
+    return _build_scan(config, sample_and_grad)
+
+
+def _make_train_fn_tp(mesh: Mesh, config: SSGDConfig, n_padded: int):
+    """dp×tp ``bernoulli``: rows over the data shards, features over the
+    model slices. Per data shard, z = Σ_m X_m·w_m in model order, then
+    each slice's gradient X_mᵀ·resid; the shards' gradients and counts
+    are added in shard order (``ssgd.py:902-936``)."""
+    n_data, n_model = mesh.n_data, mesh.n_model
+    n_local = n_padded // n_data
+    key = prng.root_key(config.seed, mesh.device)
+
+    def sample_and_grad(X, y, valid, w, t):
+        mask = sampling.bernoulli_mask(key, t, n_padded,
+                                       config.mini_batch_fraction, valid)
+        w_m = w.view(n_model, -1)
+        per = []
+        for s in range(n_data):
+            rows = slice(s * n_local, (s + 1) * n_local)
+            Xs = [X[m, rows].to(torch.promote_types(X.dtype, w.dtype))
+                  for m in range(n_model)]
+            z = model_sum(Xs[m] @ w_m[m] for m in range(n_model))
+            resid = (torch.sigmoid(z) - y[rows]) * mask[rows]
+            per.append(tuple(x.T @ resid for x in Xs) + (mask[rows].sum(),))
+        *g, cnt = tree_allreduce_sum(per)
+        return torch.cat(g), cnt
 
     return _build_scan(config, sample_and_grad)
 
@@ -232,6 +322,10 @@ def make_train_fn_fused(mesh: Mesh, config: SSGDConfig, meta: dict):
     ``fused_train``): call as ``fn(X2, None, None, X_test, y_test, w0, t0=0, acc0=0.0)``
     → ``(w, accs)`` with the augmented (d_total,) weights; the y/v/pad
     columns of the gradient are zeroed every step."""
+    if config.feature_sharded:
+        raise ValueError("feature_sharded: build the two-pass trainer with "
+                         "make_train_fn_fused_tp(mesh, config, meta), meta "
+                         "from prepare_fused_tp, or use ssgd.train()")
     _check_ported(config)
     n_shards = mesh.n_data
     if config.sampler == "fused_train":
@@ -244,19 +338,8 @@ def make_train_fn_fused(mesh: Mesh, config: SSGDConfig, meta: dict):
     if config.sampler != "fused_gather":
         raise ValueError(f"sampler={config.sampler!r} is not a packed-"
                          f"layout sampler")
-    n_blocks, n_sampled = fused_gather_geometry(config, meta, n_shards)
-    key = prng.root_key(config.seed, mesh.device)
+    prep_xs = _block_draws(mesh, config, meta)
     kargs = _kernel_args(config, meta)
-    offsets = (torch.arange(n_shards, dtype=torch.int32, device=mesh.device)
-               * n_blocks)[:, None]
-
-    def prep_xs(ts):
-        # every (step, shard) draw in one batched call, keyed on the
-        # absolute step; ids made global: shard s owns blocks
-        # [s·n_blocks, (s+1)·n_blocks)
-        ids = sampling.sample_block_ids(prng.fold_in(key, ts), n_shards,
-                                        n_blocks, n_sampled)
-        return (ids + offsets).contiguous()           # (T, S, ns)
 
     def sample_and_grad(X2, y, valid, w, ids):
         del y, valid  # labels and validity ride inside X2
@@ -268,6 +351,24 @@ def make_train_fn_fused(mesh: Mesh, config: SSGDConfig, meta: dict):
         return tree_allreduce_sum(per)
 
     return _build_scan(config, sample_and_grad, prep_xs=prep_xs)
+
+
+def _block_draws(mesh: Mesh, config: SSGDConfig, meta: dict):
+    """``fused_gather``'s ``prep_xs``: every (step, data shard) block draw
+    in one batched call, keyed on the absolute step, the ids made global
+    (shard s owns blocks ``[s·n_blocks, (s+1)·n_blocks)``) → (T, S, ns)."""
+    n_shards = mesh.n_data
+    n_blocks, n_sampled = fused_gather_geometry(config, meta, n_shards)
+    key = prng.root_key(config.seed, mesh.device)
+    offsets = (torch.arange(n_shards, dtype=torch.int32, device=mesh.device)
+               * n_blocks)[:, None]
+
+    def prep_xs(ts):
+        ids = sampling.sample_block_ids(prng.fold_in(key, ts), n_shards,
+                                        n_blocks, n_sampled)
+        return (ids + offsets).contiguous()
+
+    return prep_xs
 
 
 def _fused_sample_and_grad(config: SSGDConfig, meta: dict, n_shards: int,
@@ -292,6 +393,55 @@ def _fused_sample_and_grad(config: SSGDConfig, meta: dict, n_shards: int,
         return tree_allreduce_sum(per)
 
     return sample_and_grad
+
+
+def make_train_fn_fused_tp(mesh: Mesh, config: SSGDConfig, meta: dict):
+    """The dp×tp ``fused_gather`` trainer, the two-pass split: call as
+    ``fn(X2, None, None, X_test, y_test, w0, t0=0, acc0=0.0)`` →
+    ``(w, accs)`` with X2 the (n_model, n2, P·D) slices and w the
+    (n_model·D,) weights of :func:`prepare_fused_tp`.
+
+    The one-pass kernel B1 cannot split the features: the residual needs
+    the whole ``z = Σ_m X_m·w_m``. So every step, per data shard s and
+    model slice m, kernel B3 gives the slice's partial z and y/v over the
+    sampled blocks; the partials are added in model order; ``resid =
+    (σ(z) − y)·v``; kernel B4 gives the slice's gradient, its y/v/pad
+    entries zeroed. The shards' gradients and counts are added in shard
+    order. The block ids of every step are drawn before the loop, as
+    ``fused_gather`` draws them, so both read the same blocks; the
+    sampled blocks are read twice a step (``ssgd.py:1278-1351``)."""
+    _check_ported(config)
+    n_data, n_model = mesh.n_data, meta["n_model"]
+    if mesh.n_model != n_model:
+        raise ValueError(f"meta packs {n_model} model slices, the mesh has "
+                         f"{mesh.n_model}")
+    d_t, P = meta["d_total"], meta["pack"]
+    col_keep = (torch.arange(d_t, device=mesh.device)
+                < meta["y_col"]).to(torch.float32)
+    prep_xs = _block_draws(mesh, config, meta)
+    kargs = _kernel_args(config, meta)
+    bargs = dict(pack=P, d_total=d_t,
+                 gather_block_rows=config.gather_block_rows)
+
+    def sample_and_grad(X2, y, valid, w, ids):
+        del y, valid  # labels and validity ride inside every slice
+        w_m = w.view(n_model, d_t)
+        per = []
+        for s in range(n_data):
+            zyv = [ssgd_kernels.fused_forward_gathered(X2[m], w_m[m], ids[s],
+                                                       **kargs)
+                   for m in range(n_model)]
+            z = model_sum(zv[:, :P] for zv in zyv)
+            y_s, v_s = zyv[0][:, P:2 * P], zyv[0][:, 2 * P:]
+            resid = ((torch.sigmoid(z) - y_s) * v_s).contiguous()
+            per.append(tuple(
+                ssgd_kernels.fused_backward_gathered(X2[m], resid, ids[s],
+                                                     **bargs) * col_keep
+                for m in range(n_model)) + (v_s.sum(dim=1).sum(),))
+        *g, cnt = tree_allreduce_sum(per)
+        return torch.cat(g), cnt
+
+    return _build_scan(config, sample_and_grad, prep_xs=prep_xs)
 
 
 def _make_train_fn_mega(mesh: Mesh, config: SSGDConfig, meta: dict,
@@ -397,21 +547,34 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
           checkpoint_every: int = 500) -> TrainResult:
     """End-to-end training on the mesh's device; with ``checkpoint_dir``,
     in segments of ``checkpoint_every`` steps that are saved after each
-    and resumed from the newest (bitwise equal to a straight run)."""
+    and resumed from the newest (bitwise equal to a straight run). With
+    ``feature_sharded`` the features are split over ``mesh.n_model``
+    slices (padded with zero columns to a multiple of it); the result's
+    w is in the original layout."""
+    _check_feature_sharded(config)
     _check_ported(config)
     if config.sampler in ("fused", "fused_gather", "fused_train"):
-        return _train_fused(X_train, y_train, X_test, y_test, mesh, config,
-                            checkpoint_dir=checkpoint_dir,
-                            checkpoint_every=checkpoint_every)
+        train_fn = _train_fused_tp if config.feature_sharded else _train_fused
+        return train_fn(X_train, y_train, X_test, y_test, mesh, config,
+                        checkpoint_dir=checkpoint_dir,
+                        checkpoint_every=checkpoint_every)
     d_orig = X_train.shape[1]
+    if config.feature_sharded:
+        # zero feature columns are inert: zero gradient, w stays at w0
+        X_train, _ = pad_features(np.asarray(X_train, np.float32),
+                                  mesh.n_model)
+        X_test, _ = pad_features(np.asarray(X_test, np.float32),
+                                 mesh.n_model)
     Xs = parallelize(X_train, mesh,
                      dtype=ssgd_kernels.as_dtype(config.x_dtype))
     ys = parallelize(np.asarray(y_train, np.float32), mesh)
     w0 = logistic.init_weights(prng.root_key(config.init_seed, mesh.device),
-                               d_orig)
+                               X_train.shape[1])
     X_te = torch.as_tensor(np.asarray(X_test, np.float32)).to(mesh.device)
     y_te = torch.as_tensor(np.asarray(y_test, np.float32)).to(mesh.device)
-    data = (Xs.data, ys.data, Xs.mask, X_te, y_te)
+    X_data = (shard_features(Xs.data, mesh.n_model) if config.feature_sharded
+              else Xs.data)
+    data = (X_data, ys.data, Xs.mask, X_te, y_te)
     if checkpoint_dir is None:
         fn = make_train_fn(mesh, config, Xs.n_padded)
         w, accs = fn(*data, w0)
@@ -505,3 +668,108 @@ def _train_fused(X_train, y_train, X_test, y_test, mesh: Mesh,
                                 device=mesh.device)),
         tag=f"ssgd:{config.sampler}")
     return TrainResult(w=w[:d_orig], accs=torch.from_numpy(accs))
+
+
+def prepare_fused_tp(X_train, y_train, mesh: Mesh, config: SSGDConfig):
+    """The dp×tp set-up of ``fused_gather`` (``ssgd.py:1210-1258``): the
+    features, padded with zero columns to a multiple of ``mesh.n_model``,
+    split into slices of ``d_local``; each slice is packed on its own by
+    :func:`~tpu_distalg_torch.ops.ssgd_kernels.pack_augmented` with the
+    y/v columns replicated, the same ``shuffle_seed`` and block rows
+    ``gather_block_rows × n_data``, so slot (i, p) holds the same row in
+    every slice. Each slice goes to the device in X's dtype before the
+    next is packed. Returns ``(fn, X2, w0, meta)``: X2 (n_model, n2, P·D),
+    w0 the (n_model·D,) concatenation of the slices' augmented weights
+    (the initial weights over the padded width, placed per slice, zero
+    at every y/v/pad column), meta :func:`pack_augmented`'s with
+    ``n_model``, ``d_local`` and ``d_orig``."""
+    n_data, n_model = mesh.n_data, mesh.n_model
+    n, d_orig = X_train.shape
+    X_np, d_l = pad_features(np.asarray(X_train, np.float32), n_model)
+    y_np, valid = np.asarray(y_train), np.ones(n, np.float32)
+    X2 = meta = None
+    for m in range(n_model):
+        X2_m, meta = ssgd_kernels.pack_augmented(
+            X_np[:, m * d_l:(m + 1) * d_l], y_np, valid,
+            dtype=config.x_dtype, pack=config.fused_pack,
+            block_rows=config.gather_block_rows * n_data,
+            shuffle_seed=config.shuffle_seed, device=mesh.device)
+        if X2 is None:
+            X2 = torch.empty((n_model, *X2_m.shape), dtype=X2_m.dtype,
+                             device=mesh.device)
+        X2[m] = X2_m
+        del X2_m
+    d_t = meta["d_total"]
+    meta = dict(meta, n_model=n_model, d_local=d_l, d_orig=d_orig)
+    w_init = torch.zeros((n_model * d_l,), dtype=torch.float32,
+                         device=mesh.device)
+    w_init[:d_orig] = logistic.init_weights(
+        prng.root_key(config.init_seed, mesh.device), d_orig)
+    w0 = torch.zeros((n_model, d_t), dtype=torch.float32, device=mesh.device)
+    w0[:, :d_l] = w_init.view(n_model, d_l)
+    fn = make_train_fn_fused_tp(mesh, config, meta)
+    return fn, X2, w0.reshape(-1), meta
+
+
+def tp_augment_test_matrix(X_test, meta: dict, *,
+                           device: str | torch.device | None = None):
+    """Test features in the slices' concatenated augmented layout
+    (n, n_model·D), zero at every y/v/pad column (whose weights are held
+    at zero, so the padded product equals the original)."""
+    from tpu_distalg_torch.utils.device import resolve_device
+
+    d_t, d_l, n_model = meta["d_total"], meta["d_local"], meta["n_model"]
+    X_np = np.asarray(X_test, np.float32)
+    out = np.zeros((X_np.shape[0], n_model * d_t), np.float32)
+    for m in range(n_model):
+        width = min(d_l, max(0, X_np.shape[1] - m * d_l))
+        out[:, m * d_t:m * d_t + width] = X_np[:, m * d_l:m * d_l + width]
+    return torch.from_numpy(out).to(resolve_device(device))
+
+
+def tp_extract_weights(w, meta: dict) -> torch.Tensor:
+    """The original-layout (d_orig,) weights from the slices'
+    concatenated augmented vector (inverse of :func:`prepare_fused_tp`'s
+    placement)."""
+    d_t, d_l = meta["d_total"], meta["d_local"]
+    return w.view(meta["n_model"], d_t)[:, :d_l].reshape(-1)[
+        :meta["d_orig"]].contiguous()
+
+
+def train_prepared_tp(mesh: Mesh, config: SSGDConfig, X2, w0, meta: dict,
+                      X_te, y_te, *, checkpoint_dir: str | None = None,
+                      checkpoint_every: int = 500):
+    """Run the dp×tp ``fused_gather`` trainer on :func:`prepare_fused_tp`'s
+    X2 and w0 → ``(w, accs)`` in the augmented layout; with
+    ``checkpoint_dir``, in segments saved under the tag
+    ``ssgd:fused_gather:tp`` (bitwise equal to a straight run)."""
+    if checkpoint_dir is None:
+        w, accs = make_train_fn_fused_tp(mesh, config, meta)(
+            X2, None, None, X_te, y_te, w0)
+        metrics.guard_finite(w, "SSGD (fused tp) weights")
+        return w, accs
+
+    from tpu_distalg_torch.utils import checkpoint as ckpt
+
+    (w, _), accs, _ = ckpt.run_segmented(
+        checkpoint_dir, checkpoint_every, config.n_iterations,
+        make_seg_fn=lambda seg: make_train_fn_fused_tp(
+            mesh, dataclasses.replace(config, n_iterations=seg), meta),
+        run_seg=_acc_carrying_run_seg(X2, None, None, X_te, y_te),
+        state0=(w0, torch.zeros((), dtype=torch.float32,
+                                device=mesh.device)),
+        tag=f"ssgd:{config.sampler}:tp")
+    return w, torch.from_numpy(accs)
+
+
+def _train_fused_tp(X_train, y_train, X_test, y_test, mesh: Mesh,
+                    config: SSGDConfig, *, checkpoint_dir: str | None = None,
+                    checkpoint_every: int = 500) -> TrainResult:
+    """dp×tp ``fused_gather`` training (``ssgd.py:1716-1749``)."""
+    _, X2, w0, meta = prepare_fused_tp(X_train, y_train, mesh, config)
+    X_te = tp_augment_test_matrix(X_test, meta, device=mesh.device)
+    y_te = torch.as_tensor(np.asarray(y_test, np.float32)).to(mesh.device)
+    w, accs = train_prepared_tp(mesh, config, X2, w0, meta, X_te, y_te,
+                                checkpoint_dir=checkpoint_dir,
+                                checkpoint_every=checkpoint_every)
+    return TrainResult(w=tp_extract_weights(w, meta), accs=accs)

@@ -47,6 +47,10 @@ _SIGNATURES = {
                                   _P, _P, _I, _P], _I),
         "tda_ssgd_train": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                             _F, _F, _I, _I, _P, _P, _I, _P], _I),
+        "tda_ssgd_forward_gathered": ([_P, _I, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _P, _I, _P, _I, _P], _I),
+        "tda_ssgd_backward_gathered": ([_P, _I, _P, _I, _I, _I, _I, _P, _I,
+                                        _I, _P, _P, _I, _P], _I),
         "tda_error_string": ([_I], ctypes.c_char_p),
     },
     "pagerank": {

@@ -1,4 +1,4 @@
-"""SSGD kernels: the packed layout and the four gradient kernels.
+"""SSGD kernels: the packed layout and the six gradient kernels.
 
 Port of ``tpu_distalg/ops/pallas_kernels.py``:
 
@@ -15,7 +15,13 @@ Port of ``tpu_distalg/ops/pallas_kernels.py``:
     in one launch, with a float32 master and an optional EASGD pull;
   * B5 :func:`fused_grad_sum_packed` (``:737``): the same sum in one pass
     over ALL rows, each kept by a Bernoulli(fraction) draw made inside the
-    kernel from (t, shard, row) (``build_selector`` is not ported).
+    kernel from (t, shard, row) (``build_selector`` is not ported);
+  * B3 :func:`fused_forward_gathered` (``:590``) and B4
+    :func:`fused_backward_gathered` (``:668``): B1's two halves, for the
+    tensor-parallel split, where each model slice holds only some of the
+    features and z must be summed over the slices between them. B3
+    gives ``zyv = [z | y | v]`` per sampled packed slot, B4 the slice's
+    gradient ``Σ bf16(resid)·x`` over the sampled rows.
 
 The packed X2 is, byte for byte, the row-major (n_padded, d_total)
 augmented matrix, and the CUDA kernels (``csrc/ssgd.cu``) read it as
@@ -26,7 +32,8 @@ So B2 takes and returns the (d_total,) weights, not the (P·D, 1) tile.
 Beside each wrapper is its plain PyTorch version (``*_reference``),
 with the same contract and the same rounding points: z sums x·w with w
 cast to X's dtype, B1/B2 round the residual to X's dtype before the
-backward product (B6 keeps it float32), B5 as B1, sums are float32. A wrapper
+backward product (B6 keeps it float32), B5 as B1, B3 as B1's z, B4
+rounds the residual it is given as B1 does, sums are float32. A wrapper
 takes its plain version only for tensors on the CPU; for CUDA tensors
 it launches its kernel (counted in ``<wrapper>.launches``) or raises.
 """
@@ -48,6 +55,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROW_BYTES = 128 * 16
 #: B6 keeps 9 float32 rows of width d in shared memory
 MAX_GRAD_D = 4096
+#: B3 and B4 stride over a row in 16-byte vectors, so rows may be wide;
+#: B3 stages w (D float32) in shared memory
+MAX_TP_D = 32768
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -139,6 +149,36 @@ def grad_sum_gathered_reference(X2, w_aug, block_idx, *, pack: int,
                        gather_block_rows).to(torch.float32)
     wq = w_aug.to(X2.dtype).to(torch.float32)
     return _grad_rows(x, wq, y_col, v_col, X2.dtype)
+
+
+def forward_gathered_reference(X2, w_aug, block_idx, *, pack: int,
+                               d_total: int, y_col: int, v_col: int,
+                               gather_block_rows: int = 1024):
+    """Plain B3: ``zyv`` (n_s·bp, 3P) float32, bp = gbr/P. Sampled row
+    ``i = k·gbr + r·P + c`` (row r·P + c of block ``block_idx[k]``) is
+    packed row ``k·bp + r``, slot c: column c holds ``z = Σ_j x_j·w_j``
+    over all ``d_total`` columns with w cast to X2's dtype, column
+    ``P + c`` its ``x[y_col]`` and column ``2P + c`` its ``x[v_col]``."""
+    x = _gathered_rows(X2, block_idx, d_total,
+                       gather_block_rows).to(torch.float32)
+    wq = w_aug.to(X2.dtype).to(torch.float32)
+    zyv = torch.stack([x @ wq, x[:, y_col], x[:, v_col]])   # (3, rows)
+    rows = x.shape[0]
+    return zyv.reshape(3, rows // pack, pack).transpose(0, 1).reshape(
+        rows // pack, 3 * pack)
+
+
+def backward_gathered_reference(X2, resid, block_idx, *, pack: int,
+                                d_total: int, gather_block_rows: int = 1024):
+    """Plain B4: the (d_total,) float32 ``g = Σ_i bf16(resid_i)·x_i``
+    over the sampled rows, ``resid`` (n_s·bp, P) in B3's sampled order
+    (element ``(i // P, i % P)`` belongs to sampled row i), rounded to
+    X2's dtype before the product."""
+    del pack
+    x = _gathered_rows(X2, block_idx, d_total,
+                       gather_block_rows).to(torch.float32)
+    r = resid.reshape(-1).to(X2.dtype).to(torch.float32)
+    return x.T @ r
 
 
 def packed_threshold(fraction: float) -> int:
@@ -456,6 +496,174 @@ def fused_train_gathered(X2, w0, block_idx, *, pack: int, d_total: int,
 
 fused_train_gathered.launches = 0
 
+#: B3/B4 launch geometry: 8 warps a block, 4 rows in flight a lane group,
+#: and B4's row chunks sized for about 528 blocks (4 per SM of an H100 SXM,
+#: a constant so that the order of B4's sums depends on the shapes alone)
+TP_WARPS, TP_ROWS_IN_FLIGHT, TP_TARGET_BLOCKS = 8, 4, 528
+#: B3's grid-stride launch: at most this many blocks (its rows are
+#: independent, so the grid size never changes a result)
+TP_MAX_FWD_BLOCKS = 1056
+
+
+@functools.cache
+def tp_kernel_plan(n_rows: int, d_total: int, dtype) -> dict:
+    """B3/B4's launch plan, from the shapes alone (``csrc/ssgd.cu``
+    derives the same lanes and tiles from D and the element size).
+
+    A row is L = d_total·size/16 vectors of 16 bytes; G = the least power
+    of two >= L, at most 32, lanes own a row (a lane one vector; longer
+    rows: B3 a warp in turns of 32 vectors, B4 ``tiles`` column tiles of
+    32 vectors); a warp holds 32/G rows. B4 splits the ``n_rows``
+    sampled rows into ``n_chunks`` chunks of ``chunk`` rows (a multiple
+    of one block pass), one block per (chunk, tile); each block adds its
+    rows in row order, and the chunks' partials are added in chunk order
+    by a second launch."""
+    size = as_dtype(dtype).itemsize
+    if (d_total * size) % 16:
+        raise ValueError(f"a row of {d_total} × {size} bytes is not a whole "
+                         f"number of 16-byte vectors")
+    L = d_total * size // 16
+    G = 1
+    while G < L and G < 32:
+        G *= 2
+    tiles = -(-L // G)
+    pass_rows = TP_WARPS * (32 // G) * TP_ROWS_IN_FLIGHT
+    want = max(1, TP_TARGET_BLOCKS // tiles)
+    chunk = -(-max(n_rows, 1) // want)
+    chunk = -(-chunk // pass_rows) * pass_rows
+    n_chunks = -(-max(n_rows, 1) // chunk)
+    fwd_blocks = min(TP_MAX_FWD_BLOCKS,
+                     -(-max(n_rows, 1) // (TP_WARPS * (32 // G)
+                                            * TP_ROWS_IN_FLIGHT)))
+    return dict(vectors=L, lanes=G, tiles=tiles, chunk=chunk,
+                n_chunks=n_chunks, fwd_blocks=fwd_blocks)
+
+
+def _check_tp_kernel(X2, d_total, what):
+    """What the CUDA kernels of B3/B4 need beyond the contract."""
+    row_bytes = d_total * X2.element_size()
+    if row_bytes % 16 or d_total > MAX_TP_D:
+        raise ValueError(
+            f"{what}: a row of d_total={d_total} {X2.dtype} is {row_bytes} "
+            f"bytes; the CUDA kernel reads rows as 16-byte vectors, at "
+            f"most {MAX_TP_D} columns")
+    if X2.data_ptr() % 16:
+        raise ValueError(f"{what}: X2 must be 16-byte aligned")
+
+
+def fused_forward_gathered(X2, w_aug, block_idx, *, pack: int,
+                           d_total: int, y_col: int, v_col: int,
+                           gather_block_rows: int = 1024):
+    """B3: ``zyv`` (n_s·bp, 3P) float32 = [z | y | v] per packed slot of
+    the sampled blocks ``block_idx`` (n_s,), bp = gather_block_rows/P.
+
+    X2 (n/pack, pack·d_total) float32 or bfloat16 holds one model
+    slice's features with the y/v columns replicated into it; w_aug
+    (d_total,) float32 is that slice's weights. z sums x·w over all
+    d_total columns in float32 with w cast to X2's dtype (the y/v/pad
+    entries of w are held at zero by the trainer, so they add nothing);
+    the layout is :func:`forward_gathered_reference`'s. Block ids must
+    lie in ``[0, n_blocks)``; repeats appear each time. A CPU tensor goes
+    to :func:`forward_gathered_reference`; a CUDA tensor launches the
+    kernel (``.launches``) or raises."""
+    _native.check_tensor("X2", X2, (torch.float32, torch.bfloat16), 2)
+    _native.check_tensor("w_aug", w_aug, (torch.float32,), 1)
+    _native.check_tensor("block_idx", block_idx,
+                         (torch.int32, torch.int64), 1)
+    _check_packed(X2, pack, d_total, gather_block_rows,
+                  "fused_forward_gathered")
+    if w_aug.shape[0] != d_total:
+        raise ValueError(f"w_aug {tuple(w_aug.shape)} != ({d_total},)")
+    if not (0 <= y_col < d_total and 0 <= v_col < d_total):
+        raise ValueError(f"y_col={y_col}, v_col={v_col} outside "
+                         f"d_total={d_total}")
+    if X2.device.type == "cpu":
+        return forward_gathered_reference(
+            X2, w_aug, block_idx, pack=pack, d_total=d_total, y_col=y_col,
+            v_col=v_col, gather_block_rows=gather_block_rows)
+    dev = _native.cuda_device(X2, w_aug, block_idx)
+    _check_tp_kernel(X2, d_total, "fused_forward_gathered")
+    n_s = block_idx.shape[0]
+    rows = n_s * gather_block_rows
+    if not 1 <= rows < 2**31:
+        raise ValueError(f"fused_forward_gathered: {n_s} blocks of "
+                         f"{gather_block_rows} rows; the CUDA kernel takes "
+                         f"1 to 2**31 - 1 sampled rows")
+    X2 = X2.contiguous()
+    ids = block_idx.to(torch.int32).contiguous()
+    w_aug = w_aug.contiguous()
+    plan = tp_kernel_plan(rows, d_total, X2.dtype)
+    zyv = torch.empty((rows // pack, 3 * pack), dtype=torch.float32,
+                      device=dev)
+    lib = _native.load("ssgd")
+    rc = lib.tda_ssgd_forward_gathered(
+        X2.data_ptr(), _DTYPE_CODE[X2.dtype], ids.data_ptr(), n_s,
+        X2.shape[0] * pack // gather_block_rows, gather_block_rows, d_total,
+        y_col, v_col, pack, w_aug.data_ptr(), plan["fwd_blocks"],
+        zyv.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _native.check(lib, rc, "fused_forward_gathered")
+    fused_forward_gathered.launches += 1
+    return zyv
+
+
+fused_forward_gathered.launches = 0
+
+
+def fused_backward_gathered(X2, resid, block_idx, *, pack: int,
+                            d_total: int, gather_block_rows: int = 1024):
+    """B4: this model slice's (d_total,) float32 gradient
+    ``g = Σ_i bf16(resid_i)·x_i`` over the sampled blocks ``block_idx``.
+
+    X2 as in :func:`fused_forward_gathered`; ``resid`` (n_s·bp, P)
+    float32 in B3's sampled order, rounded to X2's dtype before the
+    product; sums in float32, in an order fixed by the shapes
+    (:func:`tp_kernel_plan`), so a run replays bit for bit. A CPU tensor
+    goes to :func:`backward_gathered_reference`; a CUDA tensor launches
+    the kernel (``.launches``) or raises."""
+    _native.check_tensor("X2", X2, (torch.float32, torch.bfloat16), 2)
+    _native.check_tensor("resid", resid, (torch.float32,), 2)
+    _native.check_tensor("block_idx", block_idx,
+                         (torch.int32, torch.int64), 1)
+    _check_packed(X2, pack, d_total, gather_block_rows,
+                  "fused_backward_gathered")
+    n_s = block_idx.shape[0]
+    bp = gather_block_rows // pack
+    if tuple(resid.shape) != (n_s * bp, pack):
+        raise ValueError(f"resid {tuple(resid.shape)} != ({n_s * bp}, "
+                         f"{pack}) sampled layout")
+    if X2.device.type == "cpu":
+        return backward_gathered_reference(
+            X2, resid, block_idx, pack=pack, d_total=d_total,
+            gather_block_rows=gather_block_rows)
+    dev = _native.cuda_device(X2, resid, block_idx)
+    _check_tp_kernel(X2, d_total, "fused_backward_gathered")
+    rows = n_s * gather_block_rows
+    if not 1 <= rows < 2**31:
+        raise ValueError(f"fused_backward_gathered: {n_s} blocks of "
+                         f"{gather_block_rows} rows; the CUDA kernel takes "
+                         f"1 to 2**31 - 1 sampled rows")
+    X2 = X2.contiguous()
+    ids = block_idx.to(torch.int32).contiguous()
+    resid = resid.contiguous()
+    plan = tp_kernel_plan(rows, d_total, X2.dtype)
+    partial = torch.empty((plan["n_chunks"], d_total), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((d_total,), dtype=torch.float32, device=dev)
+    lib = _native.load("ssgd")
+    rc = lib.tda_ssgd_backward_gathered(
+        X2.data_ptr(), _DTYPE_CODE[X2.dtype], ids.data_ptr(), n_s,
+        X2.shape[0] * pack // gather_block_rows, gather_block_rows, d_total,
+        resid.data_ptr(), plan["chunk"], plan["n_chunks"],
+        partial.data_ptr(), out.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _native.check(lib, rc, "fused_backward_gathered")
+    fused_backward_gathered.launches += 1
+    return out
+
+
+fused_backward_gathered.launches = 0
+
 #: the kernels of this module, for resetting and reading launch counts
 KERNELS = (fused_grad_sum, fused_grad_sum_gathered, fused_train_gathered,
-           fused_grad_sum_packed)
+           fused_grad_sum_packed, fused_forward_gathered,
+           fused_backward_gathered)

@@ -1,9 +1,12 @@
-"""Allreduce over the emulated data axis.
+"""Sums over the emulated mesh axes.
 
 Port of ``tpu_distalg/parallel/collectives.py::tree_allreduce_sum``:
 each shard's tuple of tensors is summed leaf by leaf in shard order
 (0, 1, 2, …), which fixes the float rounding, so a run replays bitwise.
-With one shard it returns the shard's own tensors.
+With one shard it returns the shard's own tensors. :func:`model_sum`
+is the model axis's psum (``comms.psum(z, MODEL_AXIS)`` in the JAX
+package's tensor-parallel SSGD): the slices' partial tensors added in
+model order.
 """
 
 from __future__ import annotations
@@ -21,3 +24,10 @@ def tree_allreduce_sum(per_shard):
             raise ValueError("shards hold different numbers of leaves")
         acc = [a + b for a, b in zip(acc, leaves)]
     return tuple(acc)
+
+
+def model_sum(per_slice):
+    """``per_slice``: one tensor per model slice → their sum, added in
+    model order 0, 1, …"""
+    (total,) = tree_allreduce_sum((t,) for t in per_slice)
+    return total

@@ -1,4 +1,4 @@
-"""Row-sharded arrays of the emulated data axis.
+"""Row- and feature-sharded arrays of the emulated mesh.
 
 Port of ``tpu_distalg/parallel/sharding.py``: :func:`parallelize` pads
 the rows to a multiple of the shard count and places them on the
@@ -6,7 +6,14 @@ mesh's device; a validity mask stands in for the true length, exactly
 as in the JAX package, so shard ``s`` is rows
 ``[s·n_local, (s+1)·n_local)`` of the padded array.
 :func:`build_sharded` makes such an array on the device from a per-row
-generator, without a host copy.
+generator, without a host copy. For the model axis,
+:func:`pad_features` pads the feature dimension to a multiple of the
+slice count (zero columns are inert: their weights and gradients stay
+0) and :func:`shard_features` splits the columns into that many
+contiguous slices: the placement the JAX rule tables ``ssgd_tp`` and
+``ssgd_feature_sharded`` give X, P(data, model), and w, P(model)
+(``parallel/partition.py``). The rule-table engine itself is not
+ported: one card has no placement to choose.
 """
 
 from __future__ import annotations
@@ -57,6 +64,27 @@ def parallelize(rows, mesh: Mesh, *, dtype=torch.float32) -> ShardedMatrix:
                          mask=torch.from_numpy(mask).to(mesh.device),
                          n_valid=int(np.asarray(rows).shape[0]),
                          n_shards=mesh.n_data)
+
+
+def pad_features(X, n_model: int):
+    """``(X padded with zero columns to a multiple of n_model, d_local)``
+    as numpy, ``d_local`` the width of one model slice."""
+    X = np.asarray(X)
+    d_pad = (-X.shape[1]) % n_model
+    if d_pad:
+        X = np.pad(X, ((0, 0), (0, d_pad)))
+    return X, X.shape[1] // n_model
+
+
+def shard_features(X: torch.Tensor, n_model: int) -> torch.Tensor:
+    """The columns of a (n, n_model·d_local) tensor as ``n_model``
+    contiguous slices, one (n_model, n, d_local) tensor: slice m is
+    columns ``[m·d_local, (m+1)·d_local)``."""
+    n, d = X.shape
+    if d % n_model:
+        raise ValueError(f"{d} columns do not split into {n_model} slices; "
+                         f"pad them first (pad_features)")
+    return X.reshape(n, n_model, d // n_model).transpose(0, 1).contiguous()
 
 
 def build_sharded(mesh: Mesh, n_rows: int, make_rows, *,

@@ -23,11 +23,13 @@ def device_us(prof) -> dict[str, float]:
     return out
 
 
-def window(run, steps: int) -> dict:
+def window(run, steps: int, share_of: tuple[str, ...] = ()) -> dict:
     """Time ``run()`` (``steps`` steps or iterations): once to warm,
     once on the host's clock ending in a synchronize (the wall time),
     once under the profiler (the device time by op). Per step: wall µs,
-    device µs, the top 8 ops, and the idle share 1 − device / wall."""
+    device µs, the top 8 ops, and the idle share 1 − device / wall;
+    with ``share_of``, also the share of the device time spent in the
+    ops whose names contain one of those strings."""
     run()                                   # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -41,7 +43,12 @@ def window(run, steps: int) -> dict:
     dev = {k: v / steps for k, v in device_us(prof).items()}
     total = sum(dev.values())
     top = dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8])
-    return {"wall_us_per_step": wall_us,
-            "device_us_per_step": total,
-            "device_idle_share": 1.0 - total / wall_us,
-            "device_us_per_step_by_op": top}
+    out = {"wall_us_per_step": wall_us,
+           "device_us_per_step": total,
+           "device_idle_share": 1.0 - total / wall_us,
+           "device_us_per_step_by_op": top}
+    if share_of:
+        out["share_of_device_time"] = sum(
+            us for k, us in dev.items() if any(m in k for m in share_of)
+        ) / total
+    return out

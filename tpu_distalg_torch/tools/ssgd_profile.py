@@ -5,11 +5,15 @@ fraction 0.1; f32 X for ``bernoulli``).
     python -m tpu_distalg_torch.tools.ssgd_profile
 
 For ``fused_train`` (kernel B2), ``fused_gather`` (B1), ``bernoulli``
-with ``use_pallas`` (B6) and ``fused`` (B5) it runs a window of steps under
+with ``use_pallas`` (B6), ``fused`` (B5) and the tensor-parallel split
+of ``fused_gather`` (B3 and B4) on emulated 1×1 and 1×2 meshes, and at
+bench.py's mesh2d width (65,536 rows × 8192 features, every 1024-row
+block sampled) on a 2×2 mesh, it runs a window of steps under
 ``torch.profiler`` (CUPTI) and prints, per step, the host's wall time
 (the window ends in ``torch.cuda.synchronize()``), the device time of
-each kernel or copy, their sum, and the device's idle share
-(1 − device time / wall time). One JSON object per line.
+each kernel or copy, their sum, the device's idle share (1 − device
+time / wall time) and, for the split, B3's and B4's share of the device
+time (B4's fold launch included). One JSON object per line.
 """
 
 from __future__ import annotations
@@ -17,12 +21,33 @@ from __future__ import annotations
 import dataclasses
 import json
 
+import numpy as np
 import torch
 
 from tpu_distalg_torch.models import ssgd
 from tpu_distalg_torch.parallel import get_mesh, parallelize
 from tpu_distalg_torch.tools.profiling import window
 from tpu_distalg_torch.utils import datasets
+
+#: the kernel names of B3 and B4 (and B4's fold, which the split shares
+#: with no other kernel)
+TP_KERNELS = ("forward_narrow_kernel", "forward_wide_kernel",
+              "backward_kernel", "reduce_partials")
+
+
+def _tp_runs(X, y, cfg, shapes, steps):
+    """A run of ``steps`` steps of the split per (data, model) shape."""
+    runs = {}
+    for n_data, n_model in shapes:
+        mesh = get_mesh(data=n_data, model=n_model, device="cuda")
+        c = dataclasses.replace(cfg, sampler="fused_gather", n_iterations=steps,
+                                feature_sharded=True)
+        fn, X2, w0, meta = ssgd.prepare_fused_tp(X, y, mesh, c)
+        te = (torch.zeros((1, n_model * meta["d_total"]), device="cuda"),
+              torch.zeros((1,), device="cuda"))
+        runs[(n_data, n_model)] = (
+            lambda fn=fn, X2=X2, te=te, w0=w0: fn(X2, None, None, *te, w0))
+    return runs
 
 
 def main() -> int:
@@ -63,6 +88,26 @@ def main() -> int:
     for name, run in runs.items():
         print(json.dumps({"path": name, "steps": windows[name],
                           **window(run, windows[name])}))
+    del runs, fn_t, fn_g, fn_f, fn_b, X2, Xs, ys
+    tp_steps = 125
+    for (n_data, n_model), run in _tp_runs(
+            X, y, dataclasses.replace(cfg, gather_block_rows=8192),
+            ((1, 1), (1, 2)), tp_steps).items():
+        print(json.dumps({"path": f"fused_gather tp {n_data}x{n_model}",
+                          "steps": tp_steps,
+                          **window(run, tp_steps, TP_KERNELS)}))
+    rng = np.random.default_rng(0)
+    Xw = rng.standard_normal((65536, 8192)).astype(np.float32)
+    yw = (Xw[:, 0] > 0).astype(np.float32)
+    wide_steps = 30
+    for (n_data, n_model), run in _tp_runs(
+            Xw, yw, dataclasses.replace(cfg, mini_batch_fraction=1.0,
+                                        gather_block_rows=1024,
+                                        shuffle_seed=None),
+            ((2, 2),), wide_steps).items():
+        print(json.dumps({"path": f"fused_gather tp wide {n_data}x{n_model}",
+                          "steps": wide_steps,
+                          **window(run, wide_steps, TP_KERNELS)}))
     return 0
 
 
