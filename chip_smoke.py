@@ -49,14 +49,26 @@ and the script exits non-zero without printing a result:
      features, every block sampled) on an emulated 2×2 mesh against a
      2×1 one; breast cancer through the CLI's ``--mesh-shape 2x4`` on the
      card and on the CPU; B3 and B4 timed at both shapes;
- 10. the kernels line, then the last line
+ 10. attention at bench.py's geometry (8 heads, head dim 128, bf16,
+     causal; ``parallel/ring.py``, kernels B11 and B12): both kernels
+     against their plain versions on small cases (causal and not, GQA,
+     dead, full and crossing tiles, carry-in, a 136-row tail, head dim
+     256, the 384/256 halving, float32 and bf16; exact ones bitwise,
+     replays bitwise); at 32k tokens one hop the flash forward beside
+     the torch-op path at kv_chunk 2048 (within the bf16 band) and the
+     forward + backward through the ``autograd.Function``; an emulated
+     4-shard ring, contiguous and zigzag, forward and gradients against
+     the one hop; 128k tokens one hop, forward and forward + backward;
+     B11 and B12 at the 32k shape timed beside their plain versions,
+     SDPA and the bound;
+ 11. the kernels line, then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
 and read just after it (the serving path: phase 4's full-width fit and
-phase 5; each SSGD path, each PageRank sweep, each k-means fit and each
-tp mesh on its own), so the kernels line shows that each path went
-through its kernel.
+phase 5; each SSGD path, each PageRank sweep, each k-means fit, each
+tp mesh and each attention run on its own), so the kernels line shows
+that each path went through its kernel.
 """
 
 from __future__ import annotations
@@ -680,13 +692,14 @@ def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids1,
 
 def _kernel_wrappers():
     from tpu_distalg_torch.ops import (
+        attention_kernels,
         kmeans_kernels,
         pagerank_kernels,
         ssgd_kernels,
     )
 
     return (ssgd_kernels.KERNELS + pagerank_kernels.KERNELS
-            + kmeans_kernels.KERNELS)
+            + kmeans_kernels.KERNELS + attention_kernels.KERNELS)
 
 
 def _reset_launches():
@@ -1732,6 +1745,599 @@ def run_kmeans(dev, workdir: str) -> dict:
     return {"rec": rec, "launches": launches, "rates": rates}
 
 
+# ------------------------------------------------------------ phase 10
+
+#: bench.py's attention geometry (bench.py:3087-3240): heads, head dim,
+#: tokens at one hop, the long context, and the emulated ring's shards
+ATT_H, ATT_D, ATT_S, ATT_S_LONG, ATT_SHARDS = 8, 128, 32768, 131072, 4
+#: H100 SXM data-sheet dense bf16 tensor-core peak, FLOP/s
+BF16_FLOPS = 989.4e12
+#: (name, H, H_kv, S_q, S_kv, d, causal, q_off, k_off, bq, bkv): GQA on
+#: the diagonal (crossing tiles), every tile full, dead then crossing,
+#: no mask with H = H_kv, a 136-row tail, head dim 256
+ATT_SMALL = (("diagonal", 8, 2, 256, 256, 128, True, 0, 0, 128, 128),
+             ("full", 8, 2, 128, 256, 128, True, 512, 0, 128, 256),
+             ("dead_crossing", 4, 2, 384, 256, 128, True, 0, 256, 128, 128),
+             ("noncausal", 4, 4, 256, 384, 128, False, 0, 0, 256, 128),
+             ("tail", 8, 2, 136, 256, 128, True, 120, 0, 136, 128),
+             ("d256", 2, 1, 256, 256, 256, True, 64, 0, 128, 128))
+#: the bf16 band (tests_tpu/test_tpu_numerics.py:161), and float32 sums
+#: in another order, each of the largest |plain| entry
+TOL.update({"attn_float32": 1e-5, "attn_bfloat16": 2e-2})
+
+
+def _att_t(x, dev, dtype):
+    import torch
+
+    return torch.as_tensor(np.asarray(x, np.float32)).to(dev, dtype)
+
+
+def _att_m(m):
+    """m with the sentinel mapped to −inf: a row that has seen no key
+    keeps −inf or takes −1e30 depending on the tiling."""
+    import torch
+
+    return torch.where(m <= -5e29, float("-inf"), m)
+
+
+def _att_fwd_case(dev, case, dtype, kind):
+    """B11 on one small case: the kernel, the plain version, a second
+    block folded onto each one's state (carry-in), and a replay."""
+    import torch
+
+    from tpu_distalg_torch.ops import attention_kernels as ak
+
+    _, h, h_kv, s_q, s_kv, d, causal, q_off, k_off, bq, bkv = case
+    rng = np.random.default_rng(s_q + s_kv + d)
+    f32 = torch.float32
+    if kind == "exact":        # q = 0: P is 1 or 0, every sum an integer
+        q = np.zeros((h, s_q, d))
+        v = rng.integers(-3, 4, (h_kv, s_kv, d))
+        k = rng.integers(-3, 4, (h_kv, s_kv, d))
+        st = (rng.integers(-8, 9, (h, s_q, d)), np.zeros((h, s_q, 1)),
+              rng.integers(1, 5, (h, s_q, 1)))
+    else:
+        q, k, v = (rng.normal(size=s) for s in
+                   ((h, s_q, d), (h_kv, s_kv, d), (h_kv, s_kv, d)))
+        st = (np.zeros((h, s_q, d)), np.full((h, s_q, 1), -np.inf),
+              np.zeros((h, s_q, 1)))
+    q, k, v = (_att_t(x, dev, dtype) for x in (q, k, v))
+    st = tuple(_att_t(x, dev, f32) for x in st)
+    kw = dict(scale=0.5 if kind == "exact" else d ** -0.5, causal=causal,
+              bq=bq, bkv=bkv)
+    tol = "exact" if kind == "exact" else f"attn_{str(dtype)[6:]}"
+    errs = []
+    got = ak.flash_attention_block(q, k, v, *st, q_off, k_off, **kw)
+    want = ak.flash_attention_block_reference(q, k, v, *st, q_off, k_off,
+                                              **kw)
+    for step in ("", " carried"):
+        if step:
+            got = ak.flash_attention_block(q, k, v, *got, q_off, k_off + 64,
+                                           **kw)
+            want = ak.flash_attention_block_reference(
+                q, k, v, *want, q_off, k_off + 64, **kw)
+        gm, wm = _att_m(got[1]), _att_m(want[1])
+        if not torch.equal(torch.isneginf(gm), torch.isneginf(wm)):
+            raise AssertionError(f"B11 {case[0]} {dtype} {kind}{step}: "
+                                 f"rows with no key differ")
+        fin = ~torch.isneginf(wm)
+        for name, a, b in (("o", got[0], want[0]), ("m", gm[fin], wm[fin]),
+                           ("l", got[2], want[2])):
+            errs.append(_assert_close(
+                f"B11 {case[0]} {dtype} {kind} {name}{step}", a, b, tol))
+    again = ak.flash_attention_block(q, k, v, *st, q_off, k_off, **kw)
+    first = ak.flash_attention_block(q, k, v, *st, q_off, k_off, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"B11 {case[0]} {dtype} {kind}: replay differs")
+    return max(errs)
+
+
+def _att_bwd_case(dev, case, dtype, kind, bq=None, bkv=None, do_dtype=None):
+    """B12 on one small case against its plain version, and a replay.
+    "exact_q0"/"exact_k0": lse = 0 and q or k zero, integers elsewhere,
+    scale 0.5, so every product and sum is exact; "random": N(0, 1)
+    inputs with the lse and delta of their causal prefix."""
+    import torch
+
+    from tpu_distalg_torch.ops import attention_kernels as ak
+
+    name, h, h_kv, s_q, s_kv, d, causal, q_off, k_off, fbq, fbkv = case
+    rng = np.random.default_rng(s_q + 7 * s_kv + d)
+    f32 = torch.float32
+    if kind.startswith("exact"):
+        q = rng.integers(-2, 3, (h, s_q, d))
+        k = rng.integers(-2, 3, (h_kv, s_kv, d))
+        if kind == "exact_q0":
+            q = np.zeros_like(q)
+        else:
+            k = np.zeros_like(k)
+        q, k, v = (_att_t(x, dev, dtype) for x in
+                   (q, k, rng.integers(-2, 3, (h_kv, s_kv, d))))
+        do = _att_t(rng.integers(-2, 3, (h, s_q, d)), dev, f32)
+        lse = torch.zeros((h, s_q, 1), device=dev)
+        delta = _att_t(rng.integers(-20, 21, (h, s_q, 1)), dev, f32)
+        scale = 0.5
+    else:
+        scale = d ** -0.5
+        q, k, v = (_att_t(rng.normal(size=s), dev, dtype) for s in
+                   ((h, s_q, d), (h_kv, s_kv, d), (h_kv, s_kv, d)))
+        st = (torch.zeros((h, s_q, d), device=dev),
+              torch.full((h, s_q, 1), float("-inf"), device=dev),
+              torch.zeros((h, s_q, 1), device=dev))
+        kw = dict(scale=scale, causal=causal, bq=fbq, bkv=fbkv)
+        st = ak.flash_attention_block_reference(q, k, v, *st, q_off, k_off,
+                                                **kw)
+        if causal:             # keys before every query: no row is empty
+            st = ak.flash_attention_block_reference(
+                q, k, v, *st, q_off, min(q_off, k_off) - s_kv, **kw)
+        do = _att_t(rng.normal(size=(h, s_q, d)), dev, f32)
+        lse = st[1] + torch.log(st[2])
+        delta = (do * st[0] / st[2]).sum(-1, keepdim=True)
+    if do_dtype is not None:
+        do = do.to(do_dtype)
+    kw = dict(scale=scale, causal=causal, bq=bq or fbq, bkv=bkv or fbkv)
+    got = ak.flash_attention_backward_block(q, k, v, do, lse, delta, q_off,
+                                            k_off, **kw)
+    want = ak.flash_attention_backward_block_reference(
+        q, k, v, do, lse, delta, q_off, k_off, **kw)
+    tol = "exact" if kind.startswith("exact") else f"attn_{str(dtype)[6:]}"
+    errs = [_assert_close(f"B12 {name} {dtype} {kind} {n}", a, b, tol)
+            for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+    again = ak.flash_attention_backward_block(q, k, v, do, lse, delta,
+                                              q_off, k_off, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"B12 {name} {dtype} {kind}: replay differs")
+    return max(errs)
+
+
+def check_attention_small(dev) -> None:
+    """Phase 10a: B11 and B12 against their plain versions on small
+    cases — causal and not, GQA and H = H_kv, dead, full and crossing
+    tiles, carry-in state, a 136-row tail, head dim 256, the S 384 /
+    256-block halving, float32 and bf16 (with a float32 and a bf16 dO);
+    exact cases bitwise, random ones within ``TOL``, every one replayed
+    bit for bit."""
+    import torch
+
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = {"B11": 0.0, "B12": 0.0}
+        for case in ATT_SMALL:
+            for kind in ("exact", "random"):
+                worst["B11"] = max(worst["B11"],
+                                   _att_fwd_case(dev, case, dtype, kind))
+            for kind in ("exact_q0", "exact_k0", "random"):
+                worst["B12"] = max(worst["B12"],
+                                   _att_bwd_case(dev, case, dtype, kind))
+        halving = ("halving", 1, 1, 384, 384, 128, True, 0, 0, 128, 128)
+        worst["B12"] = max(worst["B12"], _att_bwd_case(
+            dev, halving, dtype, "random", bq=256, bkv=256))
+        if dtype == torch.bfloat16:
+            worst["B12"] = max(worst["B12"], _att_bwd_case(
+                dev, ATT_SMALL[0], dtype, "random", do_dtype=dtype))
+        print(f"[kernels] attention {dtype}: B11 and B12 on "
+              f"{len(ATT_SMALL)} cases ({', '.join(c[0] for c in ATT_SMALL)}"
+              f") + carry-in + the 384/256 halving: exact cases bitwise, "
+              f"random max |err| B11 {worst['B11']!r}, B12 "
+              f"{worst['B12']!r} (bound {TOL['attn_' + str(dtype)[6:]]} of "
+              f"the largest entry), replays bitwise")
+
+
+def _att_qkv(dev, s: int, seed: int):
+    """bench.py's operands: (S, 8, 128) bf16 N(0, 1), here from a seeded
+    generator on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn((s, ATT_H, ATT_D), generator=g, device=dev,
+                             dtype=torch.bfloat16) for _ in range(3))
+
+
+def _att_flops(s: int) -> float:
+    """bench.py's causal forward count: S²/2 keys × d × H × 2 matmuls ×
+    2."""
+    return s * s / 2 * ATT_D * ATT_H * 4
+
+
+def _att_rate(what, s, ms, flops):
+    print(f"[attention] {what}: {ms!r} ms a call, {s / ms * 1e3!r} "
+          f"tokens/s, {flops / ms / 1e9!r} TFLOP/s")
+
+
+def _band(what, got, want) -> float:
+    """The bf16 band: |got − want| <= 2e-2 + 2e-2·|want| entrywise."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    err = (got - want).abs()
+    if not bool((err <= 2e-2 + 2e-2 * want.abs()).all()):
+        raise AssertionError(f"{what}: max |err| {float(err.max())!r} "
+                             f"outside the bf16 band")
+    return float(err.max())
+
+
+#: The checks at the main shapes hold a tensor by its relative error
+#: ||got − want|| / ||want|| (Frobenius) over each tile of ATT_TILE rows
+#: along the sequence (every head and column of those rows), so the
+#: limit follows the entries' own size: large in early rows (few keys)
+#: and early keys, small over most of the sequence. The whole tensor's
+#: error is never above its worst tile's. ATT_REL is 2.5 bf16 ulps
+#: (2⁻⁷ each) of relative error.
+ATT_TILE, ATT_REL = 64, 2e-2
+
+
+def _att_rel(got, want, seq_dim) -> tuple[float, float]:
+    """(whole tensor, worst tile) relative error of ``got`` against
+    ``want``; a tile where ``want`` is 0 counts 0 if ``got`` is 0 there,
+    else inf."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    diff = got - want
+
+    def tiles(x):
+        x = x.movedim(seq_dim, 0)
+        return x.reshape(-1, ATT_TILE, *x.shape[1:]).flatten(1).norm(dim=1)
+
+    dn, wn = tiles(diff), tiles(want)
+    rel = torch.where(wn > 0, dn / wn, torch.where(dn > 0, float("inf"),
+                                                   0.0))
+    rel = torch.where(torch.isnan(rel), float("inf"), rel)
+    return float(diff.norm() / want.norm()), float(rel.max())
+
+
+def _att_close(what, got, want, seq_dim) -> float:
+    """``got`` within ATT_REL of ``want`` on every tile; finite. Returns
+    the worst tile's relative error."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    whole, worst = _att_rel(got, want, seq_dim)
+    if not worst <= ATT_REL:
+        raise AssertionError(f"{what}: relative error {worst!r} on its "
+                             f"worst {ATT_TILE}-row tile (whole tensor "
+                             f"{whole!r}) > {ATT_REL}")
+    return worst
+
+
+def _att_control(what, wrong, want, seq_dim) -> float:
+    """A deliberately wrong result must fail the limit of ``_att_close``:
+    the check's own control. Returns the worst tile's relative error."""
+    whole, worst = _att_rel(wrong, want, seq_dim)
+    if worst <= ATT_REL:
+        raise AssertionError(f"control {what}: relative error {worst!r} "
+                             f"(whole tensor {whole!r}) passes the limit "
+                             f"{ATT_REL}; the check cannot see this fault")
+    print(f"[attention] control {what}: worst-tile relative error "
+          f"{worst!r}, whole tensor {whole!r} (limit {ATT_REL}): caught")
+    return worst
+
+
+def _att_counts() -> dict:
+    got = _launches()
+    return {"B11": got["flash_attention_block"],
+            "B12": got["flash_attention_backward_block"]}
+
+
+def _att_expect(what, want: dict) -> None:
+    got = _launches()
+    for name, n in want.items():
+        if got[name] != n:
+            raise AssertionError(
+                f"{what}: {name} launched {got[name]} time(s), expected {n}")
+
+
+def _fwd_bwd(mesh, q, k, v, **kw):
+    """Σ out² through ``ring_attention`` and its three cotangents (all
+    consumed, as bench.py:3173-3177 asks)."""
+    import torch
+
+    from tpu_distalg_torch.parallel import ring_attention
+
+    qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = ring_attention(qq, kk, vv, mesh, causal=True, use_flash=True,
+                         **kw)
+    grads = torch.autograd.grad((out * out).sum(), (qq, kk, vv))
+    return out.detach(), grads
+
+
+def _att_plain_grads(q, k, v):
+    """The gradients of Σ out² at one hop, causal, from the plain
+    versions of B11 and B12 alone: (S, H, d) float32 each."""
+    import torch
+
+    from tpu_distalg_torch.ops import attention_kernels as ak
+
+    qh, kh, vh = (x.permute(1, 0, 2).contiguous() for x in (q, k, v))
+    h, s, d = qh.shape
+    kw = dict(scale=d ** -0.5, causal=True)
+    o, m, l = ak.flash_attention_block_reference(
+        qh, kh, vh, torch.zeros((h, s, d), device=q.device),
+        torch.full((h, s, 1), float("-inf"), device=q.device),
+        torch.zeros((h, s, 1), device=q.device), 0, 0, **kw)
+    out = o / l
+    do = 2 * out
+    grads = ak.flash_attention_backward_block_reference(
+        qh, kh, vh, do, m + torch.log(l), (do * out).sum(-1, keepdim=True),
+        0, 0, **kw)
+    return tuple(g.permute(1, 0, 2) for g in grads)
+
+
+def attention_kernel_records(dev, q, k, v) -> dict:
+    """Phase 10c: B11 and B12 at the 32k one-hop shape against their
+    plain versions, timed beside the plain version, SDPA (forward, and
+    its autograd backward) and the bound."""
+    import torch
+
+    from tpu_distalg_torch.ops import attention_kernels as ak
+
+    s, scale = q.shape[0], ATT_D ** -0.5
+    qh, kh, vh = (x.permute(1, 0, 2).contiguous() for x in (q, k, v))
+    st = (torch.zeros((ATT_H, s, ATT_D), device=dev),
+          torch.full((ATT_H, s, 1), float("-inf"), device=dev),
+          torch.zeros((ATT_H, s, 1), device=dev))
+    kw = dict(scale=scale, causal=True)
+    o, m, l = ak.flash_attention_block(qh, kh, vh, *st, 0, 0, **kw)
+    ro, rm, rl = ak.flash_attention_block_reference(qh, kh, vh, *st, 0, 0,
+                                                    **kw)
+    out, ref = o / l, ro / rl
+    rel = {n: _att_close(f"B11 32k {n}", a, b, 1) for n, a, b in
+           (("o", o, ro), ("m", m, rm), ("l", l, rl), ("out", out, ref))}
+    err_o = float((o - ro).abs().max())
+    err = float((out - ref).abs().max())
+    # controls: the forward stopped at half the keys; the first 128 keys
+    # (the least K/V block JAX's checks take) dropped, so rows 0-127 see
+    # no key
+    half, cut = s // 2, 128
+    ctl = {}
+    for c, (kc, vc, k0) in (("half the keys", (kh[:, :half], vh[:, :half],
+                                               0)),
+                            ("first 128 keys dropped",
+                             (kh[:, cut:], vh[:, cut:], cut))):
+        wo, _, wl = ak.flash_attention_block(qh, kc, vc, *st, 0, k0,
+                                             bkv=cut, **kw)
+        ctl[c] = [_att_control(f"B11 32k {n}, {c}", a, b, 1)
+                  for n, a, b in (("o", wo, ro), ("l", wl, rl))]
+        del wo, wl
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(qh[None], kh[None], vh[None], is_causal=True)[0]
+    lib_err = float((lib_out.float() - ref).abs().max())
+    flops = _att_flops(s)
+    nbytes = 3 * qh.numel() * 2 + 2 * 4 * (o.numel() + m.numel() + l.numel())
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    b11 = dict(
+        max_abs_err=err,
+        ms=_time_ms(lambda: ak.flash_attention_block(qh, kh, vh, *st, 0, 0,
+                                                     **kw), 10, warm=2),
+        plain_ms=_time_ms(lambda: ak.flash_attention_block_reference(
+            qh, kh, vh, *st, 0, 0, **kw), 2, warm=1),
+        library_ms=_time_ms(lambda: sdpa(qh[None], kh[None], vh[None],
+                                         is_causal=True), 10, warm=2),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    print(f"[kernels] attention B11 at 32k (q, k, v {tuple(qh.shape)} "
+          f"bf16, causal, one hop): worst {ATT_TILE}-row tile relative "
+          f"error vs plain {rel!r} (limit {ATT_REL}; controls {ctl!r}), "
+          f"o max |err| {err_o!r}, normalised out max |err| {err!r} "
+          f"(SDPA vs plain {lib_err!r}); "
+          f"kernel {b11['ms']!r} ms ({flops / b11['ms'] / 1e9!r} TFLOP/s), "
+          f"plain {b11['plain_ms']!r} ms, SDPA {b11['library_ms']!r} ms, "
+          f"bound {b11['bound_ms']!r} ms ({b11['bound_by']}: {flops!r} "
+          f"FLOP, {nbytes} bytes)")
+
+    lse = m + torch.log(l)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    do = torch.randn(qh.shape, generator=g, device=dev)
+    delta = (do * out).sum(-1, keepdim=True)
+    got = ak.flash_attention_backward_block(qh, kh, vh, do, lse, delta, 0, 0,
+                                            **kw)
+    want = ak.flash_attention_backward_block_reference(
+        qh, kh, vh, do, lse, delta, 0, 0, **kw)
+    names = ("dq", "dk", "dv")
+    rel = {n: _att_close(f"B12 32k {n}", a, b, 1)
+           for n, a, b in zip(names, got, want)}
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    # controls: dK/dV from the first 64-row query tile only; dQ from the
+    # first 128 keys only (the least K/V block JAX's checks take)
+    tile, cut = ATT_TILE, 128
+    _, wk, wv = ak.flash_attention_backward_block(
+        qh[:, :tile], kh, vh, do[:, :tile], lse[:, :tile], delta[:, :tile],
+        0, 0, **kw)
+    ctl = {"dk, first query tile": _att_control(
+        "B12 32k dk, first query tile only", wk, want[1], 1),
+        "dv, first query tile": _att_control(
+        "B12 32k dv, first query tile only", wv, want[2], 1)}
+    del wk, wv
+    wq = ak.flash_attention_backward_block(
+        qh, kh[:, :cut], vh[:, :cut], do, lse, delta, 0, 0, **kw)[0]
+    ctl["dq, first 128 keys"] = _att_control(
+        "B12 32k dq, first 128 keys only", wq, want[0], 1)
+    del wq
+    lq, lk, lv = (x[None].detach().requires_grad_(True) for x in (qh, kh, vh))
+    lout = sdpa(lq, lk, lv, is_causal=True)
+    ldo = do[None].to(torch.bfloat16)
+
+    def lib_bwd():
+        return torch.autograd.grad(lout, (lq, lk, lv), ldo,
+                                   retain_graph=True)
+
+    lib_err = max(float((a[0].float() - b).abs().max())
+                  for a, b in zip(lib_bwd(), want))
+    nbytes = (3 * qh.numel() * 2 + 4 * (do.numel() + 2 * lse.numel())
+              + 4 * 3 * qh.numel())
+    t_ops, t_bytes = 2.5 * flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    b12 = dict(
+        max_abs_err=max(errs),
+        ms=_time_ms(lambda: ak.flash_attention_backward_block(
+            qh, kh, vh, do, lse, delta, 0, 0, **kw), 5, warm=1),
+        plain_ms=_time_ms(lambda: ak.flash_attention_backward_block_reference(
+            qh, kh, vh, do, lse, delta, 0, 0, **kw), 1, warm=1),
+        library_ms=_time_ms(lib_bwd, 5, warm=1),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    print(f"[kernels] attention B12 at 32k (dO float32; both passes): "
+          f"worst {ATT_TILE}-row tile relative error vs plain {rel!r} "
+          f"(limit {ATT_REL}; controls {ctl!r}); dq, "
+          f"dk, dv max |err| {errs!r} (largest "
+          f"{[float(w.abs().max()) for w in want]!r}; SDPA's backward vs "
+          f"plain {lib_err!r}); kernel {b12['ms']!r} ms "
+          f"({2.5 * flops / b12['ms'] / 1e9!r} TFLOP/s of the function's "
+          f"5 tile matmuls; the two passes run 7), plain "
+          f"{b12['plain_ms']!r} ms, SDPA backward {b12['library_ms']!r} ms, "
+          f"bound {b12['bound_ms']!r} ms ({b12['bound_by']}: "
+          f"{2.5 * flops!r} FLOP, {nbytes} bytes)")
+    return {"B11": b11, "B12": b12}
+
+
+def run_attention(dev) -> dict:
+    """Phase 10: the small cases, then ring attention at bench.py's
+    geometry through the port's entry points: one hop at 32k (flash
+    forward; the torch-op path at kv_chunk 2048 beside it; forward +
+    backward through the autograd.Function), an emulated 4-shard ring at
+    32k (contiguous and zigzag, forward and gradients, against the one
+    hop), one hop at 128k (forward, forward + backward), then the
+    kernel records. Returns the records and each path's launches."""
+    import torch
+
+    from tpu_distalg_torch.parallel import (
+        get_mesh,
+        ring_attention,
+        zigzag_inverse,
+        zigzag_order,
+    )
+
+    check_attention_small(dev)
+    mesh1 = get_mesh(data=1, device=dev)
+    mesh4 = get_mesh(data=ATT_SHARDS, device=dev)
+    s = ATT_S
+    q, k, v = _att_qkv(dev, s, SEED)
+    flops = _att_flops(s)
+    launches = {}
+    b11, b12 = "flash_attention_block", "flash_attention_backward_block"
+
+    _reset_launches()
+    with torch.no_grad():
+        out1 = ring_attention(q, k, v, mesh1, causal=True, use_flash=True)
+    torch.cuda.synchronize()
+    launches["32k forward"] = _att_counts()
+    _att_expect("32k one-hop forward", {b11: 1, b12: 0})
+    with torch.no_grad():
+        ms = _time_ms(lambda: ring_attention(q, k, v, mesh1, causal=True,
+                                             use_flash=True), 5, warm=1)
+        _att_rate("32k one hop, flash forward", s, ms, flops)
+        ref = ring_attention(q, k, v, mesh1, causal=True, kv_chunk=2048)
+        what = "32k flash vs torch-op path (kv_chunk 2048)"
+        err = _band(what, out1, ref)
+        rel = _att_close(what, out1, ref, 0)
+        med = float(ref.abs().median())
+        ms_x = _time_ms(lambda: ring_attention(
+            q, k, v, mesh1, causal=True, kv_chunk=2048), 2, warm=1)
+    del ref
+    print(f"[attention] 32k torch-op path at kv_chunk 2048: {ms_x!r} ms a "
+          f"call ({flops / ms_x / 1e9!r} TFLOP/s); flash within the bf16 "
+          f"band of it (max |err| {err!r}; median |out| {med!r}) and "
+          f"within {ATT_REL} on every {ATT_TILE}-row tile (worst {rel!r})")
+
+    _reset_launches()
+    out_fb, grads1 = _fwd_bwd(mesh1, q, k, v)
+    torch.cuda.synchronize()
+    launches["32k forward + backward"] = _att_counts()
+    _att_expect("32k one-hop forward + backward", {b11: 1, b12: 1})
+    if not torch.equal(out_fb, out1):
+        raise AssertionError("32k: the autograd.Function's forward differs "
+                             "from the plain forward call")
+    rel = {nm: _att_close(f"32k one-hop {nm} vs plain", g_, w, 0)
+           for nm, g_, w in zip(("dq", "dk", "dv"), grads1,
+                                _att_plain_grads(q, k, v))}
+    print(f"[attention] 32k one-hop gradients of sum(out²) against the "
+          f"plain B11 and B12 on the same inputs: worst {ATT_TILE}-row "
+          f"tile relative error {rel!r} (limit {ATT_REL})")
+    ms = _time_ms(lambda: _fwd_bwd(mesh1, q, k, v), 3, warm=1)
+    _att_rate("32k one hop, flash forward + backward", s, ms, 3.5 * flops)
+
+    # the emulated ring: offsets != 0, dK/dV travelling with their blocks
+    n = ATT_SHARDS
+    live = n * (n + 1) // 2
+    _reset_launches()
+    out4, grads4 = _fwd_bwd(mesh4, q, k, v)
+    torch.cuda.synchronize()
+    launches["32k 4-shard ring"] = _att_counts()
+    _att_expect(f"32k {n}-shard ring forward + backward",
+                {b11: live, b12: live})
+    errs = [_att_close(f"32k {n}-shard ring {nm} vs one hop", a, b, 0)
+            for nm, a, b in zip(("out", "dq", "dk", "dv"),
+                                (out4, *grads4), (out1, *grads1))]
+    ms = _time_ms(lambda: _fwd_bwd(mesh4, q, k, v), 2, warm=1)
+    print(f"[attention] 32k emulated {n}-shard contiguous ring: {live} live "
+          f"steps (B11 {live}, B12 {live} launches), out and gradients "
+          f"within {ATT_REL} of the one hop on every {ATT_TILE}-row tile "
+          f"(worst relative error {errs!r})")
+    _att_rate(f"32k {n}-shard contiguous ring, flash forward + backward",
+              s, ms, 3.5 * flops)
+    del out4, grads4
+
+    perm = torch.as_tensor(zigzag_order(n, s), device=dev)
+    inv = torch.as_tensor(zigzag_inverse(n, s), device=dev)
+    zig = n * (2 * n + 1)     # per shard: my + 1, n and n − my pairs
+    _reset_launches()
+    outz, gradsz = _fwd_bwd(mesh4, q[perm], k[perm], v[perm],
+                            layout="zigzag")
+    torch.cuda.synchronize()
+    launches["32k 4-shard zigzag"] = _att_counts()
+    _att_expect(f"32k {n}-shard zigzag forward + backward",
+                {b11: zig, b12: zig})
+    errs = [_att_close(f"32k {n}-shard zigzag {nm} vs one hop", a[inv], b,
+                       0)
+            for nm, a, b in zip(("out", "dq", "dk", "dv"),
+                                (outz, *gradsz), (out1, *grads1))]
+    ms = _time_ms(lambda: _fwd_bwd(mesh4, q[perm], k[perm], v[perm],
+                                   layout="zigzag"), 2, warm=1)
+    print(f"[attention] 32k emulated {n}-shard zigzag ring: {zig} chunk-pair "
+          f"launches of B11 and of B12, out and gradients within "
+          f"{ATT_REL} of the one hop on every {ATT_TILE}-row tile after "
+          f"undoing the layout (worst relative error {errs!r})")
+    _att_rate(f"32k {n}-shard zigzag ring, flash forward + backward", s, ms,
+              3.5 * flops)
+    del outz, gradsz, out1, grads1, out_fb
+
+    recs = attention_kernel_records(dev, q, k, v)
+    del q, k, v
+
+    s_long = ATT_S_LONG
+    ql, kl, vl = _att_qkv(dev, s_long, SEED + 1)
+    _reset_launches()
+    with torch.no_grad():
+        out = ring_attention(ql, kl, vl, mesh1, causal=True, use_flash=True)
+        torch.cuda.synchronize()
+        launches["128k forward"] = _att_counts()
+        _att_expect("128k forward", {b11: 1, b12: 0})
+        ms = _time_ms(lambda: ring_attention(ql, kl, vl, mesh1, causal=True,
+                                             use_flash=True), 2, warm=0)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("128k forward: non-finite values")
+    _att_rate("128k one hop, flash forward", s_long, ms,
+              _att_flops(s_long))
+    del out
+    _reset_launches()
+    out, grads = _fwd_bwd(mesh1, ql, kl, vl)
+    torch.cuda.synchronize()
+    launches["128k forward + backward"] = _att_counts()
+    _att_expect("128k forward + backward", {b11: 1, b12: 1})
+    if not all(bool(torch.isfinite(x).all()) for x in (out, *grads)):
+        raise AssertionError("128k forward + backward: non-finite values")
+    del out, grads
+    ms = _time_ms(lambda: _fwd_bwd(mesh1, ql, kl, vl), 1, warm=0)
+    _att_rate("128k one hop, flash forward + backward", s_long, ms,
+              3.5 * _att_flops(s_long))
+    print(f"[attention] launches by path (B11, B12): {launches}")
+    return {"recs": recs, "launches": launches}
+
+
 def _phase(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[time] {name}: {now - t0!r} s")
@@ -1800,6 +2406,9 @@ def main() -> int:
     del sg["X"], sg["y"]
     t0 = _phase("ssgd tp", t0)
 
+    att = run_attention(dev)
+    t0 = _phase("attention", t0)
+
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"
     kernels = [{
@@ -1839,6 +2448,14 @@ def main() -> int:
         "replaces": "tpu_distalg/ops/pallas_kmeans.py:176",
         "launches": km["launches"]["fused"]["fused_cluster_stats"],
         **km["rec"]})
+    for key, name, line in (("B11", "flash_attention_block", 166),
+                            ("B12", "flash_attention_backward_block", 374)):
+        kernels.append({
+            "name": f"attention_kernels.{name}", "route": "cuda",
+            "source": "tpu_distalg_torch/csrc/attention.cu",
+            "replaces": f"tpu_distalg/ops/pallas_attention.py:{line}",
+            "launches": att["launches"]["32k 4-shard ring"][key],
+            **att["recs"][key]})
     print(f"[time] total: {time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ into the port.
 The two packages share no file format the port reads (the JAX package
 checkpoints as flax msgpack), so parameters cross as numpy arrays:
 ``np.asarray`` of the JAX arrays on that side, these functions on this
-side.
+side. Attention (``parallel/ring.py``) has no parameters and needs
+nothing here: its tests hand both packages the same numpy q, k, v.
 """
 
 from __future__ import annotations

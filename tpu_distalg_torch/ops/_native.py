@@ -63,6 +63,12 @@ _SIGNATURES = {
                               _P, _P, _P, _I, _P], _I),
         "tda_error_string": ([_I], ctypes.c_char_p),
     },
+    "attention": {
+        "tda_flash_fwd": ([_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _P], _I),
+        "tda_flash_bwd": ([_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _I, _P],
+                          _I),
+        "tda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 #: the kernel libraries, built together by chip_smoke.py
 LIBRARIES = tuple(_SIGNATURES)

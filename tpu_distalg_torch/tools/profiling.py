@@ -23,13 +23,15 @@ def device_us(prof) -> dict[str, float]:
     return out
 
 
-def window(run, steps: int, share_of: tuple[str, ...] = ()) -> dict:
+def window(run, steps: int,
+           groups: dict[str, tuple[str, ...]] | None = None) -> dict:
     """Time ``run()`` (``steps`` steps or iterations): once to warm,
     once on the host's clock ending in a synchronize (the wall time),
     once under the profiler (the device time by op). Per step: wall µs,
     device µs, the top 8 ops, and the idle share 1 − device / wall;
-    with ``share_of``, also the share of the device time spent in the
-    ops whose names contain one of those strings."""
+    with ``groups``, also the share of the device time spent in the ops
+    whose names contain one of each group's strings, and for "other"
+    the rest."""
     run()                                   # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -47,8 +49,12 @@ def window(run, steps: int, share_of: tuple[str, ...] = ()) -> dict:
            "device_us_per_step": total,
            "device_idle_share": 1.0 - total / wall_us,
            "device_us_per_step_by_op": top}
-    if share_of:
-        out["share_of_device_time"] = sum(
-            us for k, us in dev.items() if any(m in k for m in share_of)
-        ) / total
+    def share(marks):
+        return sum(us for k, us in dev.items()
+                   if any(m in k for m in marks)) / total
+
+    if groups:
+        by = {name: share(marks) for name, marks in groups.items()}
+        by["other"] = 1.0 - sum(by.values())
+        out["share_of_device_time_by_group"] = by
     return out

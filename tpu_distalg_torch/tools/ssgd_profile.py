@@ -33,6 +33,7 @@ from tpu_distalg_torch.utils import datasets
 #: with no other kernel)
 TP_KERNELS = ("forward_narrow_kernel", "forward_wide_kernel",
               "backward_kernel", "reduce_partials")
+TP_GROUPS = {"B3 + B4": TP_KERNELS}
 
 
 def _tp_runs(X, y, cfg, shapes, steps):
@@ -95,7 +96,7 @@ def main() -> int:
             ((1, 1), (1, 2)), tp_steps).items():
         print(json.dumps({"path": f"fused_gather tp {n_data}x{n_model}",
                           "steps": tp_steps,
-                          **window(run, tp_steps, TP_KERNELS)}))
+                          **window(run, tp_steps, TP_GROUPS)}))
     rng = np.random.default_rng(0)
     Xw = rng.standard_normal((65536, 8192)).astype(np.float32)
     yw = (Xw[:, 0] > 0).astype(np.float32)
@@ -107,7 +108,7 @@ def main() -> int:
             ((2, 2),), wide_steps).items():
         print(json.dumps({"path": f"fused_gather tp wide {n_data}x{n_model}",
                           "steps": wide_steps,
-                          **window(run, wide_steps, TP_KERNELS)}))
+                          **window(run, wide_steps, TP_GROUPS)}))
     return 0
 
 
