@@ -74,6 +74,7 @@ that each path went through its kernel.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -156,6 +157,13 @@ def check_topk_kernel(dev) -> dict:
          _int_inputs(rng, 305, 33), 0, 305, 7, None),
         ("k=128, B=40 (two query tiles)", _int_inputs(rng, 40, 70),
          _int_inputs(rng, 3000, 70), 5, 2900, 128, None),
+        # k over 128: the lists live in device memory (ROADMAP C3)
+        ("k=129, B=40", _int_inputs(rng, 40, 70),
+         _int_inputs(rng, 3000, 70), 5, 2900, 129, None),
+        ("k=256, 256 items a block", _int_inputs(rng, 9, 40),
+         _int_inputs(rng, 1200, 40), 0, 1200, 256, 256),
+        ("k=1000 past n_valid 850", _int_inputs(rng, 6, 36),
+         _int_inputs(rng, 900, 36), 7, 850, 1000, None),
     ]
     for label, Q, V, off, nv, k, block_items in exact:
         Qd = torch.as_tensor(Q, device=dev)
@@ -198,6 +206,31 @@ def check_topk_kernel(dev) -> dict:
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": library_ms}
         del Qd, Vd
+    # the main path's shape at k over 128 (the lists in device memory)
+    Qd = torch.as_tensor(rng.normal(size=(B, d)).astype(np.float32),
+                         device=dev)
+    Vd = torch.as_tensor(rng.normal(size=(ITEMS, d)).astype(np.float32),
+                         device=dev)
+    for kl in (256, 1000):
+        gv, gi = topk.fused_matmul_topk(Qd, Vd, 0, ITEMS, k=kl)
+        torch.cuda.synchronize()
+        rv, ri = topk.matmul_topk_reference(Qd, Vd, 0, ITEMS, k=kl + 1)
+        topk.assert_topk_close(gv, gi, rv, ri, rtol=1e-5)
+        ms = _time_ms(lambda: topk.fused_matmul_topk(Qd, Vd, 0, ITEMS, k=kl),
+                      20, warm=2)
+        plain_ms = _time_ms(
+            lambda: topk.matmul_topk_reference(Qd, Vd, 0, ITEMS, k=kl), 20,
+            warm=2)
+        library_ms = _time_ms(lambda: torch.topk(Qd @ Vd.T, kl, dim=1), 20,
+                              warm=2)
+        bound_ms, bound_by = _topk_bound_ms(B, ITEMS, d, kl)
+        print(f"[kernels] topk random B={B} d={d} N={ITEMS} k={kl}: within "
+              f"the tie-tolerance rule; kernel {ms!r} ms, plain "
+              f"{plain_ms!r} ms, torch.matmul+torch.topk {library_ms!r} ms, "
+              f"bound {bound_ms!r} ms ({bound_by})")
+        rec.update({f"k{kl}_ms": ms, f"k{kl}_plain_ms": plain_ms,
+                    f"k{kl}_library_ms": library_ms,
+                    f"k{kl}_bound_ms": bound_ms})
     return rec
 
 
@@ -311,7 +344,16 @@ def _ssgd_cases(dev):
     for kind in ("exact", "integer", "random"):
         for dt, n, d, pack, gbr in (("bfloat16", 20000, 125, 16, 2048),
                                     ("float32", 398, 31, 4, 32),
-                                    ("bfloat16", 5000, 600, 16, 1024)):
+                                    ("bfloat16", 5000, 600, 16, 1024),
+                                    # rows over 2048 bytes (B1, B2, B5's
+                                    # wide body) and B6 past d 4096 (its
+                                    # two passes): d_total 1152 and 8192
+                                    # bf16, 640 and 4224 float32, 4224 bf16
+                                    ("bfloat16", 3000, 1150, 16, 256),
+                                    ("bfloat16", 1500, 8190, 16, 256),
+                                    ("float32", 1000, 638, 4, 64),
+                                    ("float32", 1200, 4222, 16, 256),
+                                    ("bfloat16", 1200, 4222, 16, 256)):
             X = (rng.normal(size=(n, d)) if kind == "random"
                  else rng.integers(-2, 3, size=(n, d))).astype(np.float32)
             y = rng.integers(0, 2, n).astype(np.float32)
@@ -1185,6 +1227,14 @@ def run_ssgd_tp(dev, sg: dict) -> dict:
                                             meta, TP_WIDE_GBR)
         del fn, X2, w0
         torch.cuda.empty_cache()
+    out.update(_wide_pure_dp(dev, Xw, yw, cfg_w))
+    print(f"[tp] wide: bench.py's ssgd_2d_mesh_step_speedup arms on one card: "
+          f"2x2 split {out['wide_rate']!r} steps/s / 4x1 pure dp "
+          f"{out['wide_dp_rate']!r} steps/s = "
+          f"{out['wide_rate'] / out['wide_dp_rate']!r}: with the four shards "
+          f"on one card there is no wire for the model axis to divide, so "
+          f"this ratio prices the split on one card, not what an "
+          f"interconnect would save")
     diff = float((weights["2x2"] - weights["2x1"]).abs().max())
     if not torch.allclose(weights["2x2"], weights["2x1"], rtol=2e-3,
                           atol=2e-3):
@@ -1202,6 +1252,135 @@ def run_ssgd_tp(dev, sg: dict) -> dict:
                   f"{r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
                   f"({r['bound_by']})")
     return out
+
+
+def _wide_pure_dp(dev, Xw, yw, cfg_w) -> dict:
+    """bench.py's pure-dp arm of ``ssgd_2d_mesh_step_speedup``
+    (bench.py:1051-1062) at the wide geometry: the same rows on a 4x1
+    mesh through the one-pass fused_gather trainer (B1 on 16 KB rows),
+    its steps/s; then B1, B2 and B6 on these wide rows against their
+    plain versions, timed beside them, a library call and the bound."""
+    import dataclasses
+
+    import torch
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.ops import ssgd_kernels as tk
+    from tpu_distalg_torch.parallel import get_mesh
+
+    n_data = 4
+    mesh = get_mesh(n_data, 1, device=dev)
+    cfg = dataclasses.replace(cfg_w, feature_sharded=False)
+    t0 = time.perf_counter()
+    fn, X2, w0, meta = ssgd.prepare_fused(Xw, yw, mesh, cfg)
+    D, yc, vc = meta["d_total"], meta["y_col"], meta["v_col"]
+    te = (torch.zeros((1, D), device=dev), torch.zeros((1,), device=dev))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    n_blocks, n_s = ssgd.fused_gather_geometry(cfg, meta, n_data)
+    fn(X2, None, None, *te, w0)
+    secs = []
+    for _ in range(TP_WIDE_REPEATS):
+        _reset_launches()
+        t1 = time.perf_counter()
+        fn(X2, None, None, *te, w0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        launches = _launches()
+        if launches["fused_grad_sum_gathered"] != TP_WIDE_STEPS * n_data:
+            raise AssertionError(f"wide 4x1: B1 launched "
+                                 f"{launches['fused_grad_sum_gathered']} "
+                                 f"times in {TP_WIDE_STEPS} steps")
+    rate = TP_WIDE_STEPS / min(secs)
+    print(f"[tp] wide 4x1 pure dp (fused_gather, B1): X2 {tuple(X2.shape)} "
+          f"{X2.dtype}, D={D} ({D * X2.element_size()}-byte rows), "
+          f"{n_blocks} blocks of {TP_WIDE_GBR} rows a data shard, {n_s} "
+          f"sampled; set-up {setup!r} s; {TP_WIDE_STEPS} steps, best of "
+          f"{TP_WIDE_REPEATS}: {rate!r} steps/s "
+          f"({[TP_WIDE_STEPS / x for x in secs]!r}); B1 "
+          f"{launches['fused_grad_sum_gathered']} launches a run")
+
+    recs = {}
+    kw = dict(pack=meta["pack"], d_total=D, y_col=yc, v_col=vc,
+              gather_block_rows=TP_WIDE_GBR)
+    n_all = X2.shape[0] * meta["pack"] // TP_WIDE_GBR
+    ids = torch.arange(n_all, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    w = torch.randn((D,), generator=g, device=dev) * 0.01
+    w[yc:] = 0
+    blocks = X2.reshape(-1, TP_WIDE_GBR, D)
+    wq = w.to(X2.dtype)
+
+    def lib1(ids_l, w16):
+        x = torch.index_select(blocks, 0, ids_l).reshape(-1, D)
+        r = (torch.sigmoid(torch.mv(x, w16).float()) - x[:, yc].float()) \
+            * x[:, vc].float()
+        return torch.mv(x.T, r.to(x.dtype)).float(), x[:, vc].float().sum()
+
+    rows = n_all * TP_WIDE_GBR
+    x_bytes = rows * D * X2.element_size()
+    g1, c1 = tk.fused_grad_sum_gathered(X2, w, ids, **kw)
+    r1, rc1 = tk.grad_sum_gathered_reference(X2, w, ids, **kw)
+    if float(c1) != float(rc1):
+        raise AssertionError(f"B1 wide: count {c1} != {rc1}")
+    b = _bound_ms(x_bytes + 4 * (n_all + 2 * D + 1), 4 * rows * D)
+    recs["B1"] = dict(
+        max_abs_err=_assert_close("B1 wide", g1[:yc], r1[:yc], "random"),
+        ms=_time_ms(lambda: tk.fused_grad_sum_gathered(X2, w, ids, **kw), 10,
+                    warm=2),
+        plain_ms=_time_ms(lambda: tk.grad_sum_gathered_reference(
+            X2, w, ids, **kw), 3, warm=1),
+        library_ms=_time_ms(lambda: lib1(ids.long(), wq), 3, warm=1),
+        bound_ms=b[0], bound_by=b[1])
+    T = 3
+    ids_seg = ids[None].repeat(T, 1).contiguous()
+    wk = tk.fused_train_gathered(X2, w, ids_seg, eta=0.1, **kw)
+    wr = tk.train_gathered_reference(X2, w, ids_seg, eta=0.1, **kw)
+    b = _bound_ms(T * x_bytes + 4 * (T * n_all + 3 * D),
+                  T * (4 * rows * D + 3 * D))
+    recs["B2"] = dict(
+        max_abs_err=_assert_close(f"B2 wide ({T} steps)", wk, wr,
+                                  _steps_kind(X2)),
+        ms=_time_ms(lambda: tk.fused_train_gathered(X2, w, ids_seg, eta=0.1,
+                                                    **kw), 5, warm=1),
+        plain_ms=_time_ms(lambda: tk.train_gathered_reference(
+            X2, w, ids_seg, eta=0.1, **kw), 2, warm=1),
+        library_ms=None, bound_ms=b[0], bound_by=b[1])
+    del fn, X2, w0, blocks
+    torch.cuda.empty_cache()
+    Xf = torch.as_tensor(Xw, device=dev)
+    n, d = Xf.shape
+    yf = torch.as_tensor(yw, device=dev)
+    mask = (torch.arange(n, device=dev) % 3 != 0).float()
+    wf = w[:d].contiguous()
+    g6, c6 = tk.fused_grad_sum(Xf, yf, mask, wf)
+    r6, rc6 = tk.grad_sum_reference(Xf, yf, mask, wf)
+    if float(c6) != float(rc6):
+        raise AssertionError(f"B6 wide: count {c6} != {rc6}")
+
+    def lib6():
+        return (torch.mv(Xf.T, (torch.sigmoid(torch.mv(Xf, wf)) - yf) * mask),
+                mask.sum())
+
+    b = _bound_ms(4 * (n * d + 2 * n + 2 * d + 1), 4 * n * d + 6 * n)
+    recs["B6"] = dict(
+        max_abs_err=_assert_close("B6 wide", g6, r6, "random"),
+        ms=_time_ms(lambda: tk.fused_grad_sum(Xf, yf, mask, wf), 10, warm=2),
+        plain_ms=_time_ms(lambda: tk.grad_sum_reference(Xf, yf, mask, wf), 3,
+                          warm=1),
+        library_ms=_time_ms(lib6, 3, warm=1), bound_ms=b[0], bound_by=b[1])
+    del Xf
+    torch.cuda.empty_cache()
+    for name, shape in (("B1", f"{n_all} blocks of {TP_WIDE_GBR} rows, "
+                               f"D={D} bf16"),
+                        ("B2", f"{T} steps × {n_all} blocks, D={D} bf16"),
+                        ("B6", f"X ({n}, {d}) float32")):
+        r = recs[name]
+        print(f"[kernels] ssgd {name} wide shape ({shape}): max |err| "
+              f"{r['max_abs_err']!r} vs plain; kernel {r['ms']!r} ms, plain "
+              f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
+              f"{r['bound_ms']!r} ms ({r['bound_by']})")
+    return {"wide_dp_rate": rate, "wide_dp": recs}
 
 
 def _first_step_ids(cfg, meta, n_data, dev):
@@ -1754,13 +1933,16 @@ ATT_H, ATT_D, ATT_S, ATT_S_LONG, ATT_SHARDS = 8, 128, 32768, 131072, 4
 BF16_FLOPS = 989.4e12
 #: (name, H, H_kv, S_q, S_kv, d, causal, q_off, k_off, bq, bkv): GQA on
 #: the diagonal (crossing tiles), every tile full, dead then crossing,
-#: no mask with H = H_kv, a 136-row tail, head dim 256
+#: no mask with H = H_kv, a 136-row tail, head dims 256, 384 and 512 (GQA,
+#: causal and crossing; past 256 the output columns split over blocks)
 ATT_SMALL = (("diagonal", 8, 2, 256, 256, 128, True, 0, 0, 128, 128),
              ("full", 8, 2, 128, 256, 128, True, 512, 0, 128, 256),
              ("dead_crossing", 4, 2, 384, 256, 128, True, 0, 256, 128, 128),
              ("noncausal", 4, 4, 256, 384, 128, False, 0, 0, 256, 128),
              ("tail", 8, 2, 136, 256, 128, True, 120, 0, 136, 128),
-             ("d256", 2, 1, 256, 256, 256, True, 64, 0, 128, 128))
+             ("d256", 2, 1, 256, 256, 256, True, 64, 0, 128, 128),
+             ("d384", 4, 2, 256, 256, 384, True, 0, 0, 128, 128),
+             ("d512", 4, 2, 136, 384, 512, True, 200, 0, 136, 128))
 #: the bf16 band (tests_tpu/test_tpu_numerics.py:161), and float32 sums
 #: in another order, each of the largest |plain| entry
 TOL.update({"attn_float32": 1e-5, "attn_bfloat16": 2e-2})
@@ -1888,6 +2070,66 @@ def _att_bwd_case(dev, case, dtype, kind, bq=None, bkv=None, do_dtype=None):
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"B12 {name} {dtype} {kind}: replay differs")
     return max(errs)
+
+
+#: the attention library's kernels as cuobjdump names them (mangled, in
+#: an anonymous namespace): the bf16 Hopper kernels at d = 128 (<true>:
+#: the block's own operand resident) and past it, and the float32 ones
+ATT_KERNELS = (("B11 bf16 d=128", "10fwd_hopperILb1E"),
+               ("B11 bf16 d>128", "10fwd_hopperILb0E"),
+               ("B12 dQ bf16 d=128", "9dq_hopperILb1E"),
+               ("B12 dQ bf16 d>128", "9dq_hopperILb0E"),
+               ("B12 dK/dV bf16 d=128", "10dkv_hopperILb1E"),
+               ("B12 dK/dV bf16 d>128", "10dkv_hopperILb0E"),
+               ("B11 float32", "7fwd_f32"), ("B12 dQ float32", "6dq_f32"),
+               ("B12 dK/dV float32", "7dkv_f32"))
+
+
+def attention_sass() -> dict:
+    """Phase 10's build check: per kernel of the attention library, the
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions in its SASS and
+    its registers and spill bytes (``cuobjdump -sass`` and
+    ``-res-usage``, from the CUDA toolkit). Raises unless every bf16
+    kernel issues HGMMA and UTMALDG."""
+    from tpu_distalg_torch.ops import _native
+
+    tool = os.path.join(os.path.dirname(_native.find_nvcc()), "cuobjdump")
+    lib = _native._lib_path("attention")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, lib], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+
+    def which(line):
+        return next((name for name, key in ATT_KERNELS if key in line), None)
+
+    out = {name: {"HGMMA": 0, "UTMALDG": 0} for name, _ in ATT_KERNELS}
+    name = None
+    for line in dump("-sass").splitlines():
+        if "Function :" in line:
+            name = which(line)
+        elif name is not None:
+            out[name]["HGMMA"] += "HGMMA" in line
+            out[name]["UTMALDG"] += "UTMALDG" in line
+    name = None
+    for line in dump("-res-usage").splitlines():
+        if line.strip().startswith("Function "):
+            name = which(line)
+        elif name is not None and "REG:" in line:
+            fields = dict(f.split(":", 1) for f in line.split()
+                          if ":" in f and not f.startswith("CONSTANT"))
+            out[name].update(registers=int(fields["REG"]),
+                             stack_bytes=int(fields["STACK"]),
+                             local_bytes=int(fields["LOCAL"]))
+            name = None
+    print(f"[attention] SASS of csrc/attention.cu per kernel (HGMMA = wgmma, "
+          f"UTMALDG = TMA tile loads; registers a thread, stack and local "
+          f"bytes = spills): {json.dumps(out)}")
+    for name, c in out.items():
+        if "bf16" in name and not (c["HGMMA"] and c["UTMALDG"]):
+            raise AssertionError(f"{name}: no HGMMA or no UTMALDG in its SASS "
+                                 f"({c}): not on the Hopper path")
+    return out
 
 
 def check_attention_small(dev) -> None:
@@ -2211,6 +2453,7 @@ def run_attention(dev) -> dict:
         zigzag_order,
     )
 
+    sass = attention_sass()
     check_attention_small(dev)
     mesh1 = get_mesh(data=1, device=dev)
     mesh4 = get_mesh(data=ATT_SHARDS, device=dev)
@@ -2335,7 +2578,7 @@ def run_attention(dev) -> dict:
     _att_rate("128k one hop, flash forward + backward", s_long, ms,
               3.5 * _att_flops(s_long))
     print(f"[attention] launches by path (B11, B12): {launches}")
-    return {"recs": recs, "launches": launches}
+    return {"recs": recs, "launches": launches, "sass": sass}
 
 
 def _phase(name: str, t0: float) -> float:
@@ -2421,10 +2664,13 @@ def main() -> int:
             ("B1", "fused_grad_sum_gathered", 277, "fused_gather"),
             ("B2", "fused_train_gathered", 442, "fused_train"),
             ("B5", "fused_grad_sum_packed", 737, "fused")):
+        wide = tp["wide_dp"].get(key, {})
         kernels.append({
             "name": f"ssgd_kernels.{name}", "route": "cuda",
             "source": ssgd_src, "replaces": f"{pallas}:{line}",
-            "launches": sg["launches"][path][name], **sg["recs"][key]})
+            "launches": sg["launches"][path][name], **sg["recs"][key],
+            **{f"wide_{k}": v for k, v in wide.items()
+               if k in ("ms", "plain_ms", "library_ms", "bound_ms")}})
     for key, name, line in (("B3", "fused_forward_gathered", 590),
                             ("B4", "fused_backward_gathered", 668)):
         main, wide = tp["main"][key], tp["wide"][key]
@@ -2455,7 +2701,9 @@ def main() -> int:
             "source": "tpu_distalg_torch/csrc/attention.cu",
             "replaces": f"tpu_distalg/ops/pallas_attention.py:{line}",
             "launches": att["launches"]["32k 4-shard ring"][key],
-            **att["recs"][key]})
+            **att["recs"][key],
+            "sass": {k: v for k, v in att["sass"].items()
+                     if k.startswith(key)}})
     print(f"[time] total: {time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,8 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 #: (name, H, H_kv, S_q, S_kv, d, causal, q_off, k_off, bq, bkv): the
 #: diagonal crossing tiles, every tile full (queries past the block),
 #: dead then crossing tiles (keys past the first queries), no mask, equal
-#: heads, a 136-row tail, head dim 256
+#: heads, a 136-row tail, head dims 256, 384 and 512 (the last two split
+#: their output columns over blocks)
 CASES = [
     ("diagonal", 8, 2, 256, 256, 128, True, 0, 0, 128, 128),
     ("full", 8, 2, 128, 256, 128, True, 512, 0, 128, 256),
@@ -47,6 +48,8 @@ CASES = [
     ("noncausal", 4, 4, 256, 384, 128, False, 0, 0, 256, 128),
     ("tail", 8, 2, 136, 256, 128, True, 120, 0, 136, 128),
     ("d256", 2, 1, 256, 256, 256, True, 64, 0, 128, 128),
+    ("d384", 4, 2, 256, 256, 384, True, 0, 0, 128, 128),
+    ("d512_tail", 2, 2, 136, 384, 512, True, 200, 0, 136, 128),
 ]
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -238,10 +241,20 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     state = (z(h, s, d, dt=torch.float32), z(h, s, 1, dt=torch.float32),
              z(h, s, 1, dt=torch.float32))
     kw = dict(scale=1.0, causal=True)
-    with pytest.raises(ValueError, match="C4"):
-        ak.flash_attention_block(z(h, s, 384), z(h, s, 384), z(h, s, 384),
-                                 z(h, s, 384, dt=torch.float32),
-                                 *state[1:], 0, 0, **kw)
+    # a head dim past 256, once refused, runs and matches the plain version
+    rng = np.random.default_rng(384)
+    q3, k3, v3 = (torch.as_tensor(rng.normal(size=(h, s, 384)),
+                                  dtype=torch.float32).to(dev, torch.bfloat16)
+                  for _ in range(3))
+    st3 = (z(h, s, 384, dt=torch.float32),
+           torch.full((h, s, 1), float("-inf"), device=dev),
+           z(h, s, 1, dt=torch.float32))
+    kw3 = dict(scale=384 ** -0.5, causal=True)
+    got = ak.flash_attention_block(q3, k3, v3, *st3, 0, 0, **kw3)
+    want = ak.flash_attention_block_reference(q3, k3, v3, *st3, 0, 0, **kw3)
+    _close("o d384", got[0], want[0], torch.bfloat16, False)
+    _m_close(got[1], want[1], torch.bfloat16, False)
+    _close("l d384", got[2], want[2], torch.bfloat16, False)
     with pytest.raises(ValueError, match="one type"):
         ak.flash_attention_block(z(h, s, d), z(h, s, d, dt=torch.float32),
                                  z(h, s, d), *state, 0, 0, **kw)

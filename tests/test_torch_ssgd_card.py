@@ -92,7 +92,7 @@ def _packed(dev, n, d, dtype, pack, gbr, case, seed):
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d", [(777, 61), (33, 1), (5000, 126),
-                                 (3001, 1000)])
+                                 (3001, 1000), (1200, 4224), (600, 8192)])
 def test_fused_grad_sum_b6_on_card(n, d, dtype, case, cuda_device):
     rng = np.random.default_rng(n + d)
     X = torch.as_tensor(_values(rng, (n, d), case),
@@ -118,7 +118,8 @@ def test_fused_grad_sum_b6_on_card(n, d, dtype, case, cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,pack,gbr,n_s", [
     (400, 30, 16, 128, 4), (398, 31, 4, 32, 1), (5000, 300, 16, 1024, 3),
-    (20000, 125, 16, 2048, 7)])
+    (20000, 125, 16, 2048, 7), (3000, 1150, 16, 256, 4),
+    (1500, 8190, 16, 256, 3), (1000, 638, 4, 64, 3)])
 def test_fused_grad_sum_gathered_b1_on_card(n, d, pack, gbr, n_s, dtype,
                                             case, cuda_device):
     rng, X2, meta, w, kw = _packed(cuda_device, n, d, dtype, pack, gbr,
@@ -144,7 +145,8 @@ def test_fused_grad_sum_gathered_b1_on_card(n, d, pack, gbr, n_s, dtype,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,pack,gbr,n_s,T", [
     (400, 30, 16, 128, 2, 7), (398, 31, 4, 32, 1, 125),
-    (5000, 400, 16, 1024, 3, 9), (20000, 125, 16, 2048, 5, 40)])
+    (5000, 400, 16, 1024, 3, 9), (20000, 125, 16, 2048, 5, 40),
+    (3000, 1150, 16, 256, 3, 9), (1000, 638, 4, 64, 2, 5)])
 def test_fused_train_gathered_b2_on_card(n, d, pack, gbr, n_s, T, dtype,
                                          alpha, skip, cuda_device):
     rng, X2, meta, w, kw = _packed(cuda_device, n, d, dtype, pack, gbr,

@@ -153,6 +153,52 @@ def test_fused_train_gathered_b2_matches_jax(dtype, alpha, skip):
     _close(wt, np.asarray(wj)[:D, 0])
 
 
+@pytest.mark.parametrize("kernel", ["B1", "B2"])
+def test_wide_rows_b1_b2_match_jax(kernel):
+    """Rows over 2048 bytes, which the CUDA kernels take through their
+    wide body: bf16 d_total 1152."""
+    X2j, X2t, meta, w, kw = _packed(256, 1150, "bfloat16", 4, 64, seed=12)
+    assert meta["d_total"] == 1152
+    yc, P, D = meta["y_col"], meta["pack"], meta["d_total"]
+    if kernel == "B1":
+        ids = np.asarray([0, 3, 3], np.int32)
+        gj, cj = pk.fused_grad_sum_gathered(X2j, jnp.asarray(w),
+                                            jnp.asarray(ids), interpret=True,
+                                            **kw)
+        gt, ct = tk.fused_grad_sum_gathered(X2t, torch.as_tensor(w),
+                                            torch.as_tensor(ids), **kw)
+        assert float(ct) == float(cj)
+        _close(gt[:yc], np.asarray(gj)[:yc])
+        return
+    idx = np.asarray([[0, 1], [2, 3], [1, 1]], np.int32)
+    wj = pk.fused_train_gathered(X2j, jnp.tile(jnp.asarray(w), P)[:, None],
+                                 jnp.asarray(idx), eta=0.1, interpret=True,
+                                 **kw)
+    wt = tk.fused_train_gathered(X2t, torch.as_tensor(w),
+                                 torch.as_tensor(idx), eta=0.1, **kw)
+    _close(wt, np.asarray(wj)[:D, 0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_grad_sum_b6_wide_matches_jax(dtype):
+    """B6 past d 4096, which the CUDA kernel takes in two passes."""
+    rng = np.random.default_rng(4224)
+    n, d = 300, 4224
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = rng.integers(0, 2, n).astype(np.float32)
+    w = (rng.normal(size=d) * 0.02).astype(np.float32)
+    mask = (rng.random(n) < 0.5).astype(np.float32)
+    tdt, jdt = DTYPES[dtype]
+    gj, cj = pk.fused_grad_sum(jnp.asarray(X, jdt), jnp.asarray(y),
+                               jnp.asarray(mask), jnp.asarray(w),
+                               block_rows=128, interpret=True)
+    gt, ct = tk.fused_grad_sum(torch.as_tensor(X).to(tdt),
+                               torch.as_tensor(y), torch.as_tensor(mask),
+                               torch.as_tensor(w))
+    assert float(ct) == float(cj)
+    _close(gt, gj)
+
+
 def test_fused_train_equals_fused_grad_sum_steps():
     """Within the port: B2's T steps are T steps of B1 followed by the
     update, bit for bit on the CPU (one plain implementation)."""

@@ -77,6 +77,21 @@ def test_reference_matches_jax_on_random_inputs(b, d, n, k, off, nv):
         topk.assert_topk_close(pv, pi, *ref, rtol=1e-5)
 
 
+@pytest.mark.parametrize("k,n,nv", [(200, 640, 600), (300, 280, 260)])
+def test_reference_matches_jax_at_k_over_128(k, n, nv):
+    """k above the kernel's shared-memory lists (128): k 200, and k 300
+    beyond the 260 valid rows, whose tail is (−inf, 2³¹−1)."""
+    rng = np.random.default_rng(k)
+    Q = rng.normal(size=(6, 24)).astype(np.float32)
+    V = rng.normal(size=(n, 24)).astype(np.float32)
+    pv, pi = _port(Q, V, 50, nv, k)
+    topk.assert_topk_close(pv, pi, *_jax_pallas(Q, V, 50, nv, k + 1),
+                           rtol=1e-5)
+    if k > nv:
+        assert np.all(pv[:, nv:] == -np.inf)
+        assert np.all(pi[:, nv:] == 2**31 - 1)
+
+
 def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     Q, V, off, nv, k = exact_case("odd_geometry")
     rng = np.random.default_rng(9)
@@ -91,7 +106,8 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
 
 
 @pytest.mark.parametrize("bad", [
-    "float64", "non_contiguous", "k_zero", "k_over_cap", "dims_differ",
+    "float64", "non_contiguous", "k_zero", "offset_underflows",
+    "dims_differ",
     "block_items_not_tile_multiple", "offset_overflows",
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
@@ -107,8 +123,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
             np.float32)).T
     elif bad == "k_zero":
         kw["k"] = 0
-    elif bad == "k_over_cap":
-        kw["k"] = topk.MAX_K + 1
+    elif bad == "offset_underflows":
+        off = -2**31 - 1
     elif bad == "dims_differ":
         V = V[:, :15].contiguous()
     elif bad == "block_items_not_tile_multiple":

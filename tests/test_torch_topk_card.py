@@ -19,7 +19,10 @@ import torch
 from tpu_distalg_torch.ops import topk
 
 EXACT = ["crafted_ties", "offset_and_poisoned_tail", "fewer_valid_than_k",
-         "odd_geometry", "k128_two_query_tiles", "ties_across_blocks"]
+         "odd_geometry", "k128_two_query_tiles", "ties_across_blocks",
+         "k129", "k256"]
+#: held on the card only: JAX's interpret mode takes minutes at k 1000
+CARD_ONLY = ["k1000_past_valid"]
 
 
 def _ints(rng, *shape):
@@ -28,7 +31,7 @@ def _ints(rng, *shape):
 
 def exact_case(name):
     """(Q, V, index_offset, n_valid, k) with every score exact."""
-    rng = np.random.default_rng(EXACT.index(name))
+    rng = np.random.default_rng((EXACT + CARD_ONLY).index(name))
     if name == "crafted_ties":
         return (_ints(rng, 8, 48), np.concatenate([_ints(rng, 15, 48)] * 3),
                 0, 45, 9)
@@ -44,6 +47,13 @@ def exact_case(name):
         return _ints(rng, 8, 48), _ints(rng, 4, 48), 0, 4, 7
     if name == "odd_geometry":
         return _ints(rng, 5, 33), _ints(rng, 305, 33), 0, 305, 7
+    # k over 128: the kernel keeps its lists in device memory
+    if name == "k129":
+        return _ints(rng, 40, 70), _ints(rng, 600, 70), 5, 550, 129
+    if name == "k256":
+        return _ints(rng, 9, 40), _ints(rng, 1200, 40), 0, 1200, 256
+    if name == "k1000_past_valid":
+        return _ints(rng, 4, 36), _ints(rng, 260, 36), 7, 250, 1000
     return _ints(rng, 40, 70), _ints(rng, 600, 70), 5, 550, 128
 
 
@@ -57,7 +67,7 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", EXACT)
+@pytest.mark.parametrize("name", EXACT + CARD_ONLY)
 @pytest.mark.parametrize("block_items", [None, 256])
 def test_kernel_equals_plain_version_on_card(name, block_items,
                                              cuda_device):

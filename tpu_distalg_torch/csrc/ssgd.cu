@@ -68,9 +68,20 @@
 //     with one sync, measured slower: the partials are read once per
 //     block.) skip_update drops the syncs, the sums and the update (the
 //     gradient pass stays): the difference prices the update chain.
-//   * B6 takes any row width d: one warp per row with scalar loads, each
+//   * Rows of more than 128 vectors (2048 bytes) do not fit a lane group's
+//     registers. There B1, B5 and B2 take a wide body (wide_rows): a pass
+//     gives each warp one row, which it reads in turns of 32 vectors
+//     against w to find the residual; then every thread adds the pass's
+//     rows, in row order, to the columns it owns of the block's partial,
+//     summed in place in device memory (L2). B2 keeps one cooperative
+//     launch and two grid syncs a step, each block's float32 master in
+//     device memory beside the partials. Any width is taken.
+//   * B6 up to d = 4096: one warp per row with scalar loads, each
 //     lane owning the columns j ≡ lane (mod 32) of its warp's accumulator
 //     in shared memory; the row is read twice, the second time from L1.
+//     Wider: a pass that writes each row's residual (float32), then a pass
+//     over (row chunk, column tile) blocks, each adding its chunk's rows
+//     in row order, and reduce_partials over the chunks in a fixed order.
 //   * B3 and B4 take rows of any width (the tp split exists for rows too
 //     wide for one card's data-parallel layout): G = the least power of
 //     two >= L (at most 32) lanes own a row, a lane one 16-byte vector.
@@ -107,6 +118,12 @@ constexpr int kB6Rows = 4;  // rows per warp per pass in B6
 // occupancy through registers); kU4 is not tuned
 constexpr int kU1 = 2;
 constexpr int kU4 = 2;
+// rows of more than this many 16-byte vectors (2048 bytes) take the wide
+// body (wide_rows): their columns no longer fit a lane group's registers
+constexpr int kMaxNarrowVectors = 32 * 4;
+// B6 keeps 9 float32 rows of width d in shared memory up to this d; wider
+// rows take two passes (resid_kernel, grad_cols_kernel)
+constexpr int kMaxGradD = 4096;
 
 template <typename T>
 struct Vec;
@@ -418,6 +435,167 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = threadIdx.x; j < D; j += kThreads) w_out[j] = w_s[j];
 }
 
+// ---------------------------------------------- B1, B5, B2 on wide rows
+
+// z of the row at `row` (L vectors), read by one warp in turns of 32
+// vectors against w cast to X's type (zero at columns >= limit); every
+// lane ends with the same bits.
+template <typename T>
+__device__ __forceinline__ float wide_z(const T* row, const float* w, int L,
+                                        int limit) {
+  constexpr int N = Vec<T>::N;
+  const int lane = threadIdx.x & 31;
+  float z = 0.0f;
+  for (int vi = lane; vi < L; vi += 32) {
+    float x[N];
+    Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(row) + vi), x);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const int j = vi * N + e;
+      z = fmaf(x[e], j < limit ? Vec<T>::quant(w[j]) : 0.0f, z);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
+  return z;
+}
+
+// The block's partial over the sampled rows [r0, r1) of rows too wide for
+// registers: `part` (D + 1 floats in device memory, the gradient, then the
+// count) is written whole. A pass takes one row a warp: each warp finds its
+// row's residual, then every thread adds the pass's rows, in row order, to
+// the columns it owns (vectors tid, tid + kThreads, …) of `part`, so every
+// column is summed in row order: no atomics, no dependence on the timing.
+// Row selection and the residual are grad_rows'.
+template <typename T, bool SAMPLED>
+__device__ void wide_rows(const T* __restrict__ X, const int* __restrict__ ids,
+                          int n_blocks, int gbr, int D, int L, int y_col,
+                          int v_col, const float* w, int limit, int r0,
+                          int r1, float* part, RowSampler rs) {
+  constexpr int N = Vec<T>::N;
+  __shared__ float r_s[kWarps], v_s[kWarps];
+  __shared__ long long row_s[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int j = threadIdx.x; j < D; j += kThreads) part[j] = 0.0f;
+  float cnt = 0.0f;
+  for (int base = r0; base < r1; base += kWarps) {
+    const int i = base + warp;  // the same on every lane of the warp
+    bool ok = i < r1;
+    long long prow = i;
+    if (ok && !SAMPLED) {
+      const int s = i / gbr;
+      const int b = ids[s];
+      ok = b >= 0 && b < n_blocks;
+      prow = static_cast<long long>(b) * gbr + (i - s * gbr);
+    }
+    float r = 0.0f, v = 0.0f;
+    if (ok) {
+      const T* row = X + prow * D;
+      const float z = wide_z<T>(row, w, L, limit);
+      v = Vec<T>::scalar(row + v_col);
+      if (SAMPLED && threefry_bits(rs.key0, rs.key1, 0u,
+                                   static_cast<uint32_t>(i)) >= rs.thresh)
+        v = 0.0f;
+      r = Vec<T>::quant((sigmoid(z) - Vec<T>::scalar(row + y_col)) * v);
+    }
+    if (lane == 0) {
+      r_s[warp] = r;
+      v_s[warp] = v;
+      row_s[warp] = ok ? prow : -1;
+    }
+    __syncthreads();
+    for (int vi = threadIdx.x; vi < L; vi += kThreads) {
+      float a[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) a[e] = part[vi * N + e];
+      for (int u = 0; u < kWarps; ++u) {
+        if (row_s[u] < 0) continue;
+        float x[N];
+        Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(
+                           X + row_s[u] * D) + vi), x);
+#pragma unroll
+        for (int e = 0; e < N; ++e) a[e] = fmaf(r_s[u], x[e], a[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < N; ++e) part[vi * N + e] = a[e];
+    }
+    if (threadIdx.x == 0)
+      for (int u = 0; u < kWarps; ++u) cnt += v_s[u];
+    __syncthreads();  // the pass's rows are read before the next overwrites
+  }
+  if (threadIdx.x == 0) part[D] = cnt;
+}
+
+// B1 and, with SAMPLED, B5 on wide rows, stage 1.
+template <typename T, bool SAMPLED>
+__global__ void __launch_bounds__(kThreads)
+    grad_wide_kernel(const T* __restrict__ X, const int* __restrict__ ids,
+                     int n_blocks, int gbr, int D, int L, int y_col,
+                     int v_col, const float* __restrict__ w, RowSampler rs,
+                     int chunk, int rows_total, float* partial) {
+  const int r0 = blockIdx.x * chunk;
+  const int r1 = min(r0 + chunk, rows_total);
+  wide_rows<T, SAMPLED>(X, ids, n_blocks, gbr, D, L, y_col, v_col, w, D, r0,
+                        r1, partial + static_cast<size_t>(blockIdx.x) * (D + 1),
+                        rs);
+}
+
+// B2 on wide rows: train_gathered_kernel's steps and syncs, with each
+// block's float32 master in device memory (wcopy, D floats a block) and
+// its partial summed in place (wide_rows).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    train_wide_kernel(const T* __restrict__ X, const int* __restrict__ idx,
+                      int T_steps, int n_s, int n_blocks, int gbr, int D,
+                      int L, int y_col, int v_col,
+                      const float* __restrict__ w0,
+                      const float* __restrict__ center, float eta,
+                      float alpha, int skip_update, int chunk, float* partial,
+                      float* wcopy, float* w_out) {
+  cg::grid_group grid = cg::this_grid();
+  const int W = D + 1;
+  const int nb = gridDim.x;
+  const int lane = threadIdx.x & 31;
+  float* gsum = partial + static_cast<size_t>(nb) * W;  // W: the step's sum
+  float* part = partial + static_cast<size_t>(blockIdx.x) * W;
+  float* wb = wcopy + static_cast<size_t>(blockIdx.x) * D;
+  for (int j = threadIdx.x; j < D; j += kThreads) wb[j] = w0[j];
+  __syncthreads();
+  const int rows_total = n_s * gbr;
+  const int r0 = blockIdx.x * chunk;
+  const int r1 = min(r0 + chunk, rows_total);
+  for (int t = 0; t < T_steps; ++t) {
+    wide_rows<T, false>(X, idx + static_cast<size_t>(t) * n_s, n_blocks, gbr,
+                        D, L, y_col, v_col, wb, y_col, r0, r1, part, {});
+    if (skip_update) {
+      __syncthreads();
+      continue;
+    }
+    grid.sync();
+    for (int j = blockIdx.x * kWarps + (threadIdx.x >> 5); j < W;
+         j += nb * kWarps) {
+      float s = 0.0f;
+      for (int b = lane; b < nb; b += 32)
+        s += __ldcg(partial + static_cast<size_t>(b) * W + j);
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+      if (lane == 0) gsum[j] = s;
+    }
+    grid.sync();
+    const float coef = __fdiv_rn(eta, fmaxf(__ldcg(gsum + D), 1.0f));
+    for (int j = threadIdx.x; j < D; j += kThreads) {
+      const float w_old = wb[j];
+      const float g = j < y_col ? __ldcg(gsum + j) : 0.0f;
+      float w_new = __fsub_rn(w_old, __fmul_rn(coef, g));
+      if (alpha != 0.0f)
+        w_new = __fsub_rn(w_new, __fmul_rn(alpha, __fsub_rn(w_old, center[j])));
+      wb[j] = w_new;
+    }
+    __syncthreads();
+  }
+  if (blockIdx.x == 0)
+    for (int j = threadIdx.x; j < D; j += kThreads) w_out[j] = wb[j];
+}
+
 // The geometry shared by B1 and B2: 16-byte vectors per row L, lanes per
 // row G (a power of two), vectors per lane VPL.
 struct Geometry {
@@ -482,6 +660,20 @@ cudaError_t launch_grad_gathered(const void* X, const int* ids, int n_s,
                                  int v_col, const float* w, RowSampler rs,
                                  int max_blocks, float* partial, float* out,
                                  cudaStream_t s) {
+  constexpr int N = Vec<T>::N;
+  if (D >= N && D % N == 0 && D / N > kMaxNarrowVectors) {
+    const int rows_total = n_s * gbr;
+    const int chunk = chunk_rows(rows_total, max_blocks, kWarps);
+    const int nblk = (rows_total + chunk - 1) / chunk;
+    grad_wide_kernel<T, SAMPLED><<<nblk, kThreads, 0, s>>>(
+        static_cast<const T*>(X), ids, n_blocks, gbr, D, D / N, y_col, v_col,
+        w, rs, chunk, rows_total, partial);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    reduce_partials<<<D + 1, kReduceThreads, 0, s>>>(partial, nblk, D + 1,
+                                                     out);
+    return cudaGetLastError();
+  }
   Geometry g;
   if (!geometry<T>(D, &g)) return cudaErrorInvalidValue;
   return g.vpl == 1
@@ -527,12 +719,47 @@ cudaError_t train_v(const void* X, const int* idx, int T_steps, int n_s,
 }
 
 template <typename T>
+cudaError_t train_wide(const void* X, const int* idx, int T_steps, int n_s,
+                       int n_blocks, int gbr, int D, int y_col, int v_col,
+                       const float* w0, const float* center, float eta,
+                       float alpha, int skip_update, int max_blocks,
+                       int device, float* partial, float* wcopy,
+                       float* w_out, cudaStream_t s) {
+  auto kernel = train_wide_kernel<T>;
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  const int resident = per_sm * sm_count(device);
+  if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int rows_total = n_s * gbr;
+  const int cap = max_blocks < resident ? max_blocks : resident;
+  int chunk = chunk_rows(rows_total, cap, kWarps);
+  const int nblk = (rows_total + chunk - 1) / chunk;
+  const T* Xp = static_cast<const T*>(X);
+  int L = D / Vec<T>::N;
+  void* args[] = {&Xp,    &idx,    &T_steps,     &n_s,   &n_blocks,
+                  &gbr,   &D,      &L,           &y_col, &v_col,
+                  &w0,    &center, &eta,         &alpha, &skip_update,
+                  &chunk, &partial, &wcopy,      &w_out};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                    dim3(nblk), dim3(kThreads), args, 0, s);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_train(const void* X, const int* idx, int T_steps, int n_s,
                          int n_blocks, int gbr, int D, int y_col, int v_col,
                          const float* w0, const float* center, float eta,
                          float alpha, int skip_update, int max_blocks,
-                         int device, float* partial, float* w_out,
-                         cudaStream_t s) {
+                         int device, float* partial, float* wcopy,
+                         float* w_out, cudaStream_t s) {
+  constexpr int N = Vec<T>::N;
+  if (D >= N && D % N == 0 && D / N > kMaxNarrowVectors)
+    return train_wide<T>(X, idx, T_steps, n_s, n_blocks, gbr, D, y_col, v_col,
+                         w0, center, eta, alpha, skip_update, max_blocks,
+                         device, partial, wcopy, w_out, s);
   Geometry g;
   if (!geometry<T>(D, &g)) return cudaErrorInvalidValue;
   return g.vpl == 1
@@ -604,10 +831,81 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// B6 on rows wider than kMaxGradD, pass 1: resid[i] = (σ(z_i) − y_i)·mask_i
+// in float32, one warp a row (z as grad_kernel sums it: each lane its
+// columns j ≡ lane (mod 32) in order, then a butterfly), grid-stride.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    resid_kernel(const T* __restrict__ X, const float* __restrict__ y,
+                 const float* __restrict__ mask, const float* __restrict__ w,
+                 int n, int d, float* __restrict__ resid) {
+  const int lane = threadIdx.x & 31;
+  for (long long i = static_cast<long long>(blockIdx.x) * kWarps +
+                     (threadIdx.x >> 5);
+       i < n; i += static_cast<long long>(gridDim.x) * kWarps) {
+    float z = 0.0f;
+    for (int j = lane; j < d; j += 32)
+      z = fmaf(Vec<T>::scalar(X + i * d + j), Vec<T>::quant(__ldg(w + j)), z);
+    for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
+    if (lane == 0) resid[i] = (sigmoid(z) - y[i]) * mask[i];
+  }
+}
+
+// Pass 2: block (chunk, tile) sums resid·x over the chunk's rows, in row
+// order, for the tile's kThreads columns (column d is the count Σ mask),
+// and writes partial[chunk][tile's columns]; reduce_partials adds the
+// chunks in a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    grad_cols_kernel(const T* __restrict__ X, const float* __restrict__ mask,
+                     const float* __restrict__ resid, int n, int d, int chunk,
+                     float* __restrict__ partial) {
+  const int j = blockIdx.y * kThreads + threadIdx.x;
+  if (j > d) return;
+  const long long r0 = static_cast<long long>(blockIdx.x) * chunk;
+  const long long r1 = r0 + chunk < n ? r0 + chunk : n;
+  float a = 0.0f;
+  if (j < d) {
+#pragma unroll 4
+    for (long long i = r0; i < r1; ++i)
+      a = fmaf(__ldg(resid + i), Vec<T>::scalar(X + i * d + j), a);
+  } else {
+    for (long long i = r0; i < r1; ++i) a += __ldg(mask + i);
+  }
+  partial[static_cast<size_t>(blockIdx.x) * (d + 1) + j] = a;
+}
+
+template <typename T>
+cudaError_t launch_grad_wide(const void* X, const float* y, const float* mask,
+                             const float* w, int n, int d, int max_blocks,
+                             float* partial, float* resid, float* out,
+                             cudaStream_t s) {
+  const int tiles = (d + 1 + kThreads - 1) / kThreads;
+  const int want = max(1, max_blocks / tiles);
+  const int chunk = (n + want - 1) / want;
+  const int n_chunks = (n + chunk - 1) / chunk;
+  const int n_grid = min(max_blocks, (n + kWarps - 1) / kWarps);
+  resid_kernel<T><<<n_grid, kThreads, 0, s>>>(static_cast<const T*>(X), y,
+                                              mask, w, n, d, resid);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  grad_cols_kernel<T><<<dim3(n_chunks, tiles), kThreads, 0, s>>>(
+      static_cast<const T*>(X), mask, resid, n, d, chunk, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_partials<<<d + 1, kReduceThreads, 0, s>>>(partial, n_chunks, d + 1,
+                                                   out);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_grad(const void* X, const float* y, const float* mask,
                         const float* w, int n, int d, int max_blocks,
-                        float* partial, float* out, cudaStream_t s) {
+                        float* partial, float* resid, float* out,
+                        cudaStream_t s) {
+  if (d > kMaxGradD)
+    return launch_grad_wide<T>(X, y, mask, w, n, d, max_blocks, partial,
+                               resid, out, s);
   const int chunk = chunk_rows(n, max_blocks, kWarps * kB6Rows);
   const int nblk = (n + chunk - 1) / chunk;
   const size_t smem = sizeof(float) * ((kWarps + 1) * d + kWarps);
@@ -876,10 +1174,11 @@ const char* tda_error_string(int err) {
 // max_blocks; `partial` holds max_blocks · (width + 1) floats and `out`
 // width + 1 (the gradient, then the count). Returns a cudaError_t.
 
-// B6: X (n, d), y and mask (n,), w (d,) float32.
+// B6: X (n, d), y and mask (n,), w (d,) float32; `resid` holds n floats
+// (used when d > 4096).
 int tda_ssgd_grad(const void* X, int dtype, const void* y, const void* mask,
                   const void* w, int n, int d, int max_blocks, void* partial,
-                  void* out, int device, void* stream) {
+                  void* resid, void* out, int device, void* stream) {
   if (n < 1 || d < 1 || max_blocks < 1 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -888,7 +1187,8 @@ int tda_ssgd_grad(const void* X, int dtype, const void* y, const void* mask,
   return launch(X, static_cast<const float*>(y),
                 static_cast<const float*>(mask), static_cast<const float*>(w),
                 n, d, max_blocks, static_cast<float*>(partial),
-                static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+                static_cast<float*>(resid), static_cast<float*>(out),
+                static_cast<cudaStream_t>(stream));
 }
 
 // B1: X (n_blocks · gbr, D) row-major, ids (n_s,) int32, w (D,) float32.
@@ -930,7 +1230,8 @@ int tda_ssgd_grad_packed(const void* X, int dtype, int n, int D, int y_col,
 }
 
 // B2: idx (T, n_s) int32; w0, center and w_out (D,) float32; `partial`
-// holds (max_blocks + 1) · (D + 1) floats.
+// holds (max_blocks + 1) · (D + 1) floats, then max_blocks · D more for the
+// blocks' masters on rows over 2048 bytes.
 int tda_ssgd_train(const void* X, int dtype, const void* idx, int T_steps,
                    int n_s, int n_blocks, int gbr, int D, int y_col, int v_col,
                    const void* w0, const void* center, float eta, float alpha,
@@ -947,6 +1248,8 @@ int tda_ssgd_train(const void* X, int dtype, const void* idx, int T_steps,
                 D, y_col, v_col, static_cast<const float*>(w0),
                 static_cast<const float*>(center), eta, alpha, skip_update,
                 max_blocks, device, static_cast<float*>(partial),
+                static_cast<float*>(partial) +
+                    static_cast<size_t>(max_blocks + 1) * (D + 1),
                 static_cast<float*>(w_out), static_cast<cudaStream_t>(stream));
 }
 

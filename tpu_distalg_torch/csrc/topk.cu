@@ -32,6 +32,10 @@
 //   2. topk_merge: one warp per query folds its n_tiles·k candidates into
 //      the final list with the same ballot-and-insert step.
 // Both compare (value, index) pairs, so the tie rule holds across tiles.
+// k above kMaxK (128) does not fit the per-lane slots of list_insert or
+// shared memory: there each list lives in device memory (the block's
+// candidate slots in stage 1, the output row in stage 2) and an insert
+// moves the list's tail one 32-slot group at a time (list_insert_long).
 // The kernel allocates nothing: the caller passes the candidate scratch and
 // the outputs. Tensor-core scores, cp.async/TMA double buffering of V and
 // a one-pass merge are later work.
@@ -97,7 +101,43 @@ __device__ void list_insert(float* lv, int* li, int k, float cv, int ci,
   __syncwarp();
 }
 
-// Offer one candidate per lane to the warp's list.
+// list_insert for k > kMaxK: the list is any length (it lives in device
+// memory), so the entries after `pos` move up one 32-slot group at a time,
+// from the last group down, each group read before it is written.
+__device__ void list_insert_long(float* lv, int* li, int k, float cv, int ci,
+                                 int lane) {
+  int pos = 0;
+  for (int s0 = 0; s0 < k; s0 += kWarp) {
+    const int s = s0 + lane;
+    const bool b = s < k && beats(lv[s], li[s], cv, ci);
+    pos += __popc(__ballot_sync(kFull, b));
+  }
+  for (int s0 = (k - 1) / kWarp * kWarp; s0 >= 0 && s0 + kWarp > pos;
+       s0 -= kWarp) {
+    const int s = s0 + lane;
+    const bool mv = s > pos && s < k;
+    float tv = 0.f;
+    int ti = 0;
+    if (mv) {
+      tv = lv[s - 1];
+      ti = li[s - 1];
+    }
+    __syncwarp();
+    if (mv) {
+      lv[s] = tv;
+      li[s] = ti;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    lv[pos] = cv;
+    li[pos] = ci;
+  }
+  __syncwarp();
+}
+
+// Offer one candidate per lane to the warp's list (LONG: k > kMaxK).
+template <bool LONG>
 __device__ void list_offer(float* lv, int* li, int k, float cv, int ci,
                            int lane) {
   unsigned m = __ballot_sync(kFull, beats(cv, ci, lv[k - 1], li[k - 1]));
@@ -108,10 +148,18 @@ __device__ void list_offer(float* lv, int* li, int k, float cv, int ci,
     const int i = __shfl_sync(kFull, ci, src);
     // the list may have grown since the ballot: check again (same answer
     // on every lane, so the warp stays converged)
-    if (beats(v, i, lv[k - 1], li[k - 1])) list_insert(lv, li, k, v, i, lane);
+    if (beats(v, i, lv[k - 1], li[k - 1])) {
+      if constexpr (LONG)
+        list_insert_long(lv, li, k, v, i, lane);
+      else
+        list_insert(lv, li, k, v, i, lane);
+    }
   }
 }
 
+// LONG (k > kMaxK): each query's list is its candidate slots in cand_v /
+// cand_i themselves, in device memory, instead of shared memory.
+template <bool LONG>
 __global__ void __launch_bounds__(kThreads)
 topk_tiles(const float* __restrict__ Q, const float* __restrict__ V, int B,
            int N, int d, int k, int index_offset, int n_limit,
@@ -132,10 +180,21 @@ topk_tiles(const float* __restrict__ Q, const float* __restrict__ V, int B,
   const int n_tiles = gridDim.x;
   const int my_item = tid % kTile;
   const int q_first = tid / kTile;   // this thread's queries: q_first + 2j
+  // the list of the block's query r
+  auto list_v = [&](int r) {
+    return LONG ? cand_v + (static_cast<size_t>(q0 + r) * n_tiles + tile) * k
+                : Lv + r * k;
+  };
+  auto list_i = [&](int r) {
+    return LONG ? cand_i + (static_cast<size_t>(q0 + r) * n_tiles + tile) * k
+                : Li + r * k;
+  };
 
   for (int e = tid; e < kQ * k; e += kThreads) {
-    Lv[e] = neg_inf();
-    Li[e] = kSentinel;
+    const int r = e / k;
+    if (LONG && q0 + r >= B) continue;
+    list_v(r)[e % k] = neg_inf();
+    list_i(r)[e % k] = kSentinel;
   }
 
   for (int sub = 0; sub < subs_per_block; ++sub) {
@@ -173,12 +232,13 @@ topk_tiles(const float* __restrict__ Q, const float* __restrict__ V, int B,
     for (int r = warp; r < kQ && q0 + r < B; r += kWarps) {
       for (int c0 = 0; c0 < kTile; c0 += kWarp) {
         const int p = base + c0 + lane;
-        list_offer(Lv + r * k, Li + r * k, k, S[r * kTile + c0 + lane],
-                   p < n_limit ? p + index_offset : kSentinel, lane);
+        list_offer<LONG>(list_v(r), list_i(r), k, S[r * kTile + c0 + lane],
+                         p < n_limit ? p + index_offset : kSentinel, lane);
       }
     }
     // S is rewritten only after the next sub-tile's first __syncthreads
   }
+  if (LONG) return;  // the lists are the candidates
   __syncthreads();
   for (int e = tid; e < kQ * k; e += kThreads) {
     const int r = e / k, j = e % k;
@@ -191,6 +251,8 @@ topk_tiles(const float* __restrict__ Q, const float* __restrict__ V, int B,
   }
 }
 
+// LONG (k > kMaxK): each query's list is its output row in device memory.
+template <bool LONG>
 __global__ void __launch_bounds__(kThreads)
 topk_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
            int B, int n_cand, int k, float* __restrict__ out_v,
@@ -200,9 +262,12 @@ topk_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
   const int warp = threadIdx.x / kWarp;
   const int q = blockIdx.x * kWarps + warp;
   if (q >= B) return;  // whole warp; no block-wide barrier follows
-  float* lv = reinterpret_cast<float*>(smem) + warp * k;
-  int* li = reinterpret_cast<int*>(reinterpret_cast<float*>(smem) + kWarps * k) +
-            warp * k;
+  float* lv = LONG ? out_v + static_cast<size_t>(q) * k
+                   : reinterpret_cast<float*>(smem) + warp * k;
+  int* li = LONG ? out_i + static_cast<size_t>(q) * k
+                 : reinterpret_cast<int*>(reinterpret_cast<float*>(smem) +
+                                          kWarps * k) +
+                       warp * k;
   for (int j = lane; j < k; j += kWarp) {
     lv[j] = neg_inf();
     li[j] = kSentinel;
@@ -212,8 +277,8 @@ topk_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
   const int* ci = cand_i + (size_t)q * n_cand;
   for (int c0 = 0; c0 < n_cand; c0 += kWarp) {
     const int s = c0 + lane;
-    list_offer(lv, li, k, s < n_cand ? cv[s] : neg_inf(),
-               s < n_cand ? ci[s] : kSentinel, lane);
+    list_offer<LONG>(lv, li, k, s < n_cand ? cv[s] : neg_inf(),
+                     s < n_cand ? ci[s] : kSentinel, lane);
   }
   for (int j = lane; j < k; j += kWarp) {
     const float v = lv[j];
@@ -238,8 +303,9 @@ int tda_topk(const void* Q, const void* V, int B, int N, int d, int k,
              int index_offset, int n_valid, int subs_per_block, int n_tiles,
              void* cand_v, void* cand_i, void* out_v, void* out_i,
              int device, void* stream) {
-  if (B < 1 || N < 1 || d < 1 || k < 1 || k > kMaxK || subs_per_block < 1)
+  if (B < 1 || N < 1 || d < 1 || k < 1 || subs_per_block < 1)
     return cudaErrorInvalidValue;
+  const bool long_k = k > kMaxK;
   const int n_sub = (N + kTile - 1) / kTile;
   if (n_tiles != (n_sub + subs_per_block - 1) / subs_per_block)
     return cudaErrorInvalidValue;
@@ -250,23 +316,26 @@ int tda_topk(const void* Q, const void* V, int B, int N, int d, int k,
 
   const size_t smem1 =
       sizeof(float) * (kQ * kDk + kTile * (kDk + 1) + kQ * kTile) +
-      (sizeof(float) + sizeof(int)) * kQ * k;
+      (long_k ? 0 : (sizeof(float) + sizeof(int)) * kQ * k);
+  auto tiles = long_k ? topk_tiles<true> : topk_tiles<false>;
   if (smem1 > 48 * 1024) {
-    err = cudaFuncSetAttribute(topk_tiles,
+    err = cudaFuncSetAttribute(tiles,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem1));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid1(n_tiles, (B + kQ - 1) / kQ);
-  topk_tiles<<<grid1, kThreads, smem1, s>>>(
+  tiles<<<grid1, kThreads, smem1, s>>>(
       static_cast<const float*>(Q), static_cast<const float*>(V), B, N, d, k,
       index_offset, n_limit, subs_per_block, static_cast<float*>(cand_v),
       static_cast<int*>(cand_i));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem2 = (sizeof(float) + sizeof(int)) * kWarps * k;
-  topk_merge<<<(B + kWarps - 1) / kWarps, kThreads, smem2, s>>>(
+  const size_t smem2 =
+      long_k ? 0 : (sizeof(float) + sizeof(int)) * kWarps * k;
+  auto merge = long_k ? topk_merge<true> : topk_merge<false>;
+  merge<<<(B + kWarps - 1) / kWarps, kThreads, smem2, s>>>(
       static_cast<const float*>(cand_v), static_cast<const int*>(cand_i), B,
       n_tiles * k, k, static_cast<float*>(out_v), static_cast<int*>(out_i));
   return cudaGetLastError();

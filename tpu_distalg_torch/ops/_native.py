@@ -39,8 +39,8 @@ _SIGNATURES = {
         "tda_error_string": ([_I], ctypes.c_char_p),
     },
     "ssgd": {
-        "tda_ssgd_grad": ([_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
-                          _I),
+        "tda_ssgd_grad": ([_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
+                           _P], _I),
         "tda_ssgd_grad_gathered": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
                                     _I, _P, _P, _I, _P], _I),
         "tda_ssgd_grad_packed": ([_P, _I, _I, _I, _I, _I, _P, _U, _U, _U, _I,
@@ -65,8 +65,7 @@ _SIGNATURES = {
     },
     "attention": {
         "tda_flash_fwd": ([_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _P], _I),
-        "tda_flash_bwd": ([_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _I, _P],
-                          _I),
+        "tda_flash_bwd": ([_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _P], _I),
         "tda_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -34,9 +34,10 @@ the CPU; for CUDA tensors it launches the kernels (counted in
 Deliberate differences of the CUDA kernels (ROADMAP C): for bf16 q, k, v
 the backward's float32 operands (dO, and P in Pᵀ·dO) are rounded to
 bf16 for the tensor cores, as the TPU's MXU rounds them at default
-precision; and the head dim is 128 or 256 (C4). A row that has seen no
-unmasked key leaves m at −inf or at the sentinel, depending on the
-tiling; o and l are the same either way.
+precision (the wrapper rounds a float32 dO once, before the launch). A
+row that has seen no unmasked key leaves m at −inf or at the sentinel,
+depending on the tiling; o and l are the same either way. The kernels
+take every head dim JAX's contract takes (a multiple of 128).
 """
 
 from __future__ import annotations
@@ -50,8 +51,6 @@ _NEG = -1e30
 #: the backward's default tile edge, and the ring VJPs' cap on their
 #: flash blocks (JAX's measured-best TPU tile, kept for the contract)
 BWD_BLOCK_MAX = 2048
-#: head dims the CUDA kernels take (ROADMAP C4)
-KERNEL_HEAD_DIMS = (128, 256)
 
 
 # ----------------------------------------------------------------- checks
@@ -268,23 +267,19 @@ _TYPES = (torch.bfloat16, torch.float32)
 
 def _kernel_checks(what, q, k, v):
     """What the CUDA kernels take beyond JAX's contract: q, k, v of one
-    type, bf16 or float32, and a head dim of 128 or 256."""
+    type, bf16 or float32."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _native.check_tensor(name, t, _TYPES, 3)
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"{what}: the CUDA kernel takes q, k, v of one "
                          f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    d = q.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"{what}: the CUDA kernel takes head dims "
-            f"{KERNEL_HEAD_DIMS}, got {d} (ROADMAP C4)")
 
 
 def _aligned(what, *tensors) -> None:
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: the CUDA kernel reads q, k, v and do "
-                         f"with 16-byte loads; they must be 16-byte aligned")
+                         f"by TMA or 16-byte loads; they must be 16-byte "
+                         f"aligned")
 
 
 def flash_attention_block(q, k, v, o, m, l, q_off, k_off, *,
@@ -341,7 +336,9 @@ def flash_attention_backward_block(q, k, v, do, lse, delta, q_off, k_off,
     ring shards outside). A CPU tensor goes to
     :func:`flash_attention_backward_block_reference`; a CUDA tensor
     launches the two passes (dQ, then dK/dV; one count in
-    ``flash_attention_backward_block.launches``) or raises."""
+    ``flash_attention_backward_block.launches``) or raises. For bf16
+    q, k, v a float32 ``do`` is rounded to bf16 once before the launch
+    (the kernel's tiles arrive by TMA, which copies without converting)."""
     _bwd_blocks(q, k, v, do, bq, bkv)
     h, s_q, d = q.shape
     _check_state("flash_attention_backward_block", (h, s_q, 1), lse=lse,
@@ -360,7 +357,10 @@ def flash_attention_backward_block(q, k, v, do, lse, delta, q_off, k_off,
                          f"{do.dtype}")
     for name, t in (("lse", lse), ("delta", delta)):
         _native.check_tensor(name, t, (torch.float32,), 3)
-    q, k, v, do, lse, delta = (t.contiguous() for t in tensors)
+    if q.dtype == torch.bfloat16:
+        do = do.to(torch.bfloat16)
+    q, k, v, do, lse, delta = (t.contiguous()
+                               for t in (q, k, v, do, lse, delta))
     _aligned(what, q, k, v, do)
     dq = torch.empty((h, s_q, d), dtype=torch.float32, device=dev)
     dk = torch.empty(k.shape, dtype=torch.float32, device=dev)
@@ -371,8 +371,8 @@ def flash_attention_backward_block(q, k, v, do, lse, delta, q_off, k_off,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), h, k.shape[0], s_q, k.shape[1], d, int(q_off),
         int(k_off), float(scale), int(bool(causal)),
-        int(q.dtype == torch.bfloat16), int(do.dtype == torch.bfloat16),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        int(q.dtype == torch.bfloat16), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _native.check(lib, rc, what)
     flash_attention_backward_block.launches += 1
     return dq, dk, dv

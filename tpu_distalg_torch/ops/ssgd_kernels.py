@@ -51,10 +51,6 @@ from tpu_distalg_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: B1/B2 hold a row's columns in registers: at most 128 16-byte vectors
-MAX_ROW_BYTES = 128 * 16
-#: B6 keeps 9 float32 rows of width d in shared memory
-MAX_GRAD_D = 4096
 #: B3 and B4 stride over a row in 16-byte vectors, so rows may be wide;
 #: B3 stages w (D float32) in shared memory
 MAX_TP_D = 32768
@@ -269,11 +265,10 @@ def _check_packed(X2, pack, d_total, gather_block_rows, what):
 def _check_row_kernel(X2, d_total, y_col, v_col, what):
     """What the CUDA kernels of B1/B2 need beyond the contract."""
     row_bytes = d_total * X2.element_size()
-    if row_bytes % 16 or row_bytes > MAX_ROW_BYTES:
+    if row_bytes % 16:
         raise ValueError(
             f"{what}: a row of d_total={d_total} {X2.dtype} is {row_bytes} "
-            f"bytes; the CUDA kernel reads rows as 16-byte vectors, at "
-            f"most {MAX_ROW_BYTES} bytes")
+            f"bytes; the CUDA kernel reads rows as 16-byte vectors")
     if X2.data_ptr() % 16:
         raise ValueError(f"{what}: X2 must be 16-byte aligned")
     if not (0 <= y_col < d_total and 0 <= v_col < d_total):
@@ -301,19 +296,21 @@ def fused_grad_sum(X, y, mask, w, *, block_rows: int = 2048):
     if X.device.type == "cpu":
         return grad_sum_reference(X, y, mask, w)
     dev = _native.cuda_device(X, y, mask, w)
-    if n < 1 or d < 1 or d > MAX_GRAD_D:
+    if n < 1 or d < 1 or n >= 2**31:
         raise ValueError(f"X {tuple(X.shape)}: the CUDA kernel takes "
-                         f"1 <= d <= {MAX_GRAD_D} and n >= 1")
+                         f"d >= 1 and 1 <= n < 2**31")
     X, y, mask, w = (t.contiguous() for t in (X, y, mask, w))
     lib = _native.load("ssgd")
     max_blocks = 4 * _sm_count(dev.index)
     partial = torch.empty((max_blocks, d + 1), dtype=torch.float32,
                           device=dev)
+    # the rows' residuals, for the two-pass body of rows over 4096 columns
+    resid = torch.empty((n,), dtype=torch.float32, device=dev)
     out = torch.empty((d + 1,), dtype=torch.float32, device=dev)
     rc = lib.tda_ssgd_grad(
         X.data_ptr(), _DTYPE_CODE[X.dtype], y.data_ptr(), mask.data_ptr(),
-        w.data_ptr(), n, d, max_blocks, partial.data_ptr(), out.data_ptr(),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        w.data_ptr(), n, d, max_blocks, partial.data_ptr(), resid.data_ptr(),
+        out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _native.check(lib, rc, "fused_grad_sum")
     fused_grad_sum.launches += 1
     return out[:d], out[d]
@@ -479,9 +476,11 @@ def fused_train_gathered(X2, w0, block_idx, *, pack: int, d_total: int,
     n_blocks = X2.shape[0] * pack // gather_block_rows
     lib = _native.load("ssgd")
     max_blocks = 4 * _sm_count(dev.index)
-    # the blocks' partials, then the step's sum
-    partial = torch.empty((max_blocks + 1, d_total + 1),
-                          dtype=torch.float32, device=dev)
+    # the blocks' partials, the step's sum, then (rows over 2048 bytes)
+    # each block's float32 master
+    partial = torch.empty(
+        ((max_blocks + 1) * (d_total + 1) + max_blocks * d_total,),
+        dtype=torch.float32, device=dev)
     w_out = torch.empty((d_total,), dtype=torch.float32, device=dev)
     rc = lib.tda_ssgd_train(
         X2.data_ptr(), _DTYPE_CODE[X2.dtype], ids.data_ptr(), T, n_s,

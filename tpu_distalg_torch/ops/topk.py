@@ -25,8 +25,6 @@ import torch
 from tpu_distalg_torch.ops import _native
 
 IDX_SENTINEL = 2**31 - 1
-#: the largest k the CUDA kernel supports (its per-warp sorted list)
-MAX_K = 128
 #: items per kernel sub-tile; ``block_items`` is a multiple of it
 TILE_ITEMS = 128
 #: query rows per kernel block
@@ -152,9 +150,8 @@ def _validate(Q, V, index_offset, k, block_items):
     if not -2**31 <= int(index_offset) <= IDX_SENTINEL - V.shape[0]:
         raise ValueError(f"index_offset {index_offset} overflows int32 "
                          f"item ids")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be in [1, {MAX_K}], got {k} (the "
-                         f"kernel's limit)")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
     if block_items is not None and (
             block_items < TILE_ITEMS or block_items % TILE_ITEMS):
         raise ValueError(f"block_items must be a positive multiple of "

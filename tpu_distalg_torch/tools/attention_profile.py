@@ -15,8 +15,10 @@ copies, their sum, the device's idle share (1 − device time / wall
 time), and the share of the device time in B11, B12's two passes and
 everything else (the layout copies, lse, delta, o / l: the prep ops).
 Tokens/s and TFLOP/s count the causal forward as S²/2·d·H·4 FLOP and
-the forward + backward as 3.5 times that (bench.py's counts). One JSON
-object per line.
+the forward + backward as 3.5 times that (bench.py's counts). Last, the
+one op B12's wrapper adds for bf16 q: the float32 dO rounded to bf16
+before the launch (TMA copies without converting), timed alone with
+CUDA events at this shape. One JSON object per line.
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ from tpu_distalg_torch.parallel import get_mesh, ring_attention
 from tpu_distalg_torch.tools.profiling import window
 
 S, H, D, SEED = 32768, 8, 128, 0
-GROUPS = {"B11 flash_attention_block": ("fwd_kernel",),
-          "B12 dQ pass": ("dq_kernel",),
-          "B12 dK/dV pass": ("dkv_kernel",)}
+GROUPS = {"B11 flash_attention_block": ("fwd_hopper", "fwd_f32"),
+          "B12 dQ pass": ("dq_hopper", "dq_f32"),
+          "B12 dK/dV pass": ("dkv_hopper", "dkv_f32")}
 
 
 def qkv(s: int, dev, seed: int = SEED):
@@ -92,6 +94,19 @@ def main() -> int:
                           "tokens_per_s": S / wall_s,
                           "tflops_per_s": work / wall_s / 1e12,
                           "window_s": time.perf_counter() - t0}))
+    do = torch.randn((H, S, D), device=dev)
+    for _ in range(3):
+        do.to(torch.bfloat16)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        do.to(torch.bfloat16)
+    end.record()
+    torch.cuda.synchronize()
+    print(json.dumps({"op": "B12 wrapper: dO float32 -> bf16",
+                      "ms": start.elapsed_time(end) / 20,
+                      "bytes": do.numel() * 6}))
     return 0
 
 
