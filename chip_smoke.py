@@ -23,7 +23,9 @@ and the script exits non-zero without printing a result:
      B2), ``fused_gather`` (B1), ``bernoulli`` with ``use_pallas`` (B6)
      and ``fused`` (B5, which passes over all rows and draws its mask
      in the kernel), then the breast-cancer reference task on the fused
-     samplers;
+     samplers; B1, its library line and B2 are timed over the trainer's
+     own draws in turn (cold rows; B1's device and wall time apart), and
+     B1's and B2's SASS must hold bulk copies (UBLKCP, ``cuobjdump``);
   7. PageRank at bench.py's geometry (1,000,000 vertices, Erdős–Rényi of
      average degree 8: 7,999,981 edges): kernels B7 and B8 against their
      plain versions on small cases (exact ones bitwise, a 100k-edge hub
@@ -590,14 +592,71 @@ def _bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
                                        else "operations")
 
 
-def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids1,
-                        ids_seg, w_aug) -> dict:
+def ssgd_sass() -> dict:
+    """Phase 6's build check: for B1's and B2's ring kernels at the main
+    shape (bf16, 2 vectors a lane, 8 lanes a row), the UBLKCP (bulk copy)
+    instructions in their SASS and their registers and spill bytes
+    (``cuobjdump -sass`` and ``-res-usage``). Raises unless both issue
+    bulk copies."""
+    from tpu_distalg_torch.ops import _native
+
+    tool = os.path.join(os.path.dirname(_native.find_nvcc()), "cuobjdump")
+    lib = _native._lib_path("ssgd")
+    keys = {"B1": "grad_ring_kernelI13__nv_bfloat16Li2ELi8E",
+            "B2": "train_ring_kernelI13__nv_bfloat16Li2ELi8E"}
+
+    def dump(flag):
+        return subprocess.run([tool, flag, lib], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+
+    def which(line):
+        return next((k for k, key in keys.items() if key in line), None)
+
+    out = {k: {"UBLKCP": 0} for k in keys}
+    name = None
+    for line in dump("-sass").splitlines():
+        if "Function :" in line:
+            name = which(line)
+        elif name is not None:
+            out[name]["UBLKCP"] += "UBLKCP" in line
+    name = None
+    for line in dump("-res-usage").splitlines():
+        if line.strip().startswith("Function "):
+            name = which(line)
+        elif name is not None and "REG:" in line:
+            fields = dict(f.split(":", 1) for f in line.split()
+                          if ":" in f and not f.startswith("CONSTANT"))
+            out[name].update(registers=int(fields["REG"]),
+                             stack_bytes=int(fields["STACK"]),
+                             local_bytes=int(fields["LOCAL"]))
+            name = None
+    print(f"[kernels] ssgd SASS of B1's and B2's ring kernels at the main "
+          f"shape (UBLKCP = bulk copies; registers a thread, stack and "
+          f"local bytes = spills): {json.dumps(out)}")
+    for k, c in out.items():
+        if not c["UBLKCP"]:
+            raise AssertionError(f"{k}: no UBLKCP in its SASS ({c}): not "
+                                 f"on the bulk-copy ring")
+    return out
+
+
+def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids_all,
+                        w_aug) -> dict:
     """Phase 3c: each SSGD kernel at the main path's shape against its
     plain version, timed beside the plain version, a library call and
-    the bound."""
+    the bound. B1, its library line and B2 are timed over the trainer's
+    draws in turn (``ids_all``, one row a step), so their rows come cold
+    from device memory as a training step finds them."""
     import torch
 
     from tpu_distalg_torch.ops import ssgd_kernels as tk
+    from tpu_distalg_torch.tools.ssgd_gathered_timing import (
+        B1_DRAWS,
+        LIB_DRAWS,
+        rotating_ms,
+    )
+
+    ids1, ids_seg = ids_all[0], ids_all[:SSGD_MEGA]
 
     recs = {}
     n, d = X_f32.shape
@@ -643,13 +702,16 @@ def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids1,
     rows = n_s * SSGD_GBR
     step_bytes = rows * D * X2.element_size()
     bound = _bound_ms(step_bytes + 4 * (n_s + D + D + 1), 4 * rows * D)
+    b1 = rotating_ms(lambda d: tk.fused_grad_sum_gathered(X2, w_aug, d, **kw),
+                     list(ids_all[:B1_DRAWS]))
+    b1_lib = rotating_ms(lambda d: lib1(d, wq),
+                         list(ids_all[:LIB_DRAWS].long()))
     recs["B1"] = dict(
-        max_abs_err=err,
-        ms=_time_ms(lambda: tk.fused_grad_sum_gathered(
-            X2, w_aug, ids1, **kw), 200),
+        max_abs_err=err, ms=b1["device_ms"], wall_ms=b1["wall_ms"],
+        gapless=b1["gapless"] and b1_lib["gapless"],
         plain_ms=_time_ms(lambda: tk.grad_sum_gathered_reference(
             X2, w_aug, ids1, **kw), 50),
-        library_ms=_time_ms(lambda: lib1(ids1.long(), wq), 50),
+        library_ms=b1_lib["device_ms"], library_wall_ms=b1_lib["wall_ms"],
         bound_ms=bound[0], bound_by=bound[1])
 
     T = ids_seg.shape[0]
@@ -671,12 +733,13 @@ def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids1,
 
     bound = _bound_ms(T * step_bytes + 4 * (T * n_s + 3 * D),
                            T * (4 * rows * D + 3 * D))
-    skip_ms = _time_ms(lambda: tk.fused_train_gathered(
-        X2, w_aug, ids_seg, eta=eta, skip_update=True, **kw), 10)
+    segs = list(ids_all.reshape(SSGD_STEPS // T, T, n_s))
+    skip_ms = rotating_ms(lambda d: tk.fused_train_gathered(
+        X2, w_aug, d, eta=eta, skip_update=True, **kw), segs)["device_ms"]
     recs["B2"] = dict(
         max_abs_err=err,
-        ms=_time_ms(lambda: tk.fused_train_gathered(
-            X2, w_aug, ids_seg, eta=eta, **kw), 10),
+        ms=rotating_ms(lambda d: tk.fused_train_gathered(
+            X2, w_aug, d, eta=eta, **kw), segs)["device_ms"],
         plain_ms=_time_ms(lambda: tk.train_gathered_reference(
             X2, w_aug, ids_seg, eta=eta, **kw), 3, warm=1),
         library_ms=_time_ms(lib2, 3, warm=1),
@@ -711,6 +774,13 @@ def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids1,
             X2, w_aug, t5, 0, **kw5), 10, warm=2),
         library_ms=_time_ms(lib5, 20),
         bound_ms=bound[0], bound_by=bound[1])
+    r = recs["B1"]
+    print(f"[kernels] ssgd B1 over the trainer's first {B1_DRAWS} draws in "
+          f"turn (cold rows): device {r['ms']!r} ms a call (calls queued "
+          f"behind a sleeping kernel: no host gaps), wall {r['wall_ms']!r} "
+          f"ms a call back to back; library line over {LIB_DRAWS} draws: "
+          f"device {r['library_ms']!r} ms, wall {r['library_wall_ms']!r} "
+          f"ms; every call queued before the sleep ended: {r['gapless']}")
     for name, shape in (("B6", f"X ({n}, {d}) float32"),
                         ("B5", f"all {rows_all.shape[0]} rows, D={D} "
                                f"{X2.dtype}, fraction {frac}; kept "
@@ -725,10 +795,14 @@ def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids1,
               f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
               f"{r['bound_ms']!r} ms ({r['bound_by']})")
     print(f"[kernels] ssgd B2 skip_update (gradient passes only, no grid "
-          f"sync, no partial sum, no update): {skip_ms!r} ms per {T} "
-          f"steps; the update chain costs {(recs['B2']['ms'] - skip_ms) / T * 1e3!r} "
+          f"barrier, no fold, no update), over the 12 segments of the "
+          f"trainer's draws in turn: {skip_ms!r} ms per {T} steps; the "
+          f"update chain costs {(recs['B2']['ms'] - skip_ms) / T * 1e3!r} "
           f"µs per step")
-    recs["B2_skip_ms"] = skip_ms
+    recs["B2"]["skip_update_ms"] = skip_ms
+    sass = ssgd_sass()
+    for key in ("B1", "B2"):
+        recs[key]["sass"] = sass[key]
     return recs
 
 
@@ -799,6 +873,7 @@ def run_ssgd(dev) -> dict:
     from tpu_distalg_torch.models import ssgd
     from tpu_distalg_torch.ops import sampling
     from tpu_distalg_torch.parallel import get_mesh, parallelize
+    from tpu_distalg_torch.tools.ssgd_gathered_timing import trainer_draws
     from tpu_distalg_torch.utils import datasets, prng
 
     t0 = time.perf_counter()
@@ -835,14 +910,10 @@ def run_ssgd(dev) -> dict:
           f"X {tuple(Xs.data.shape)} float32 for bernoulli; set-up "
           f"{time.perf_counter() - t0!r} s")
 
-    key = prng.root_key(cfg.seed, dev)
-    ids_all = sampling.sample_block_ids(
-        prng.fold_in(key, torch.arange(SSGD_MEGA, device=dev)), 1,
-        n_blocks, n_s).reshape(SSGD_MEGA, n_s).contiguous()
     mask0 = sampling.bernoulli_mask(prng.root_key(cfg_bern.seed, dev), 0,
                                     Xs.n_padded, 0.1, Xs.mask)
     recs = ssgd_kernel_records(dev, Xs.data, ys.data, mask0, w0_plain, X2,
-                               meta, ids_all[0], ids_all, w0)
+                               meta, trainer_draws(cfg, meta, dev), w0)
 
     step_bytes = {"fused_train": n_s * SSGD_GBR * D * X2.element_size(),
                   "fused_gather": n_s * SSGD_GBR * D * X2.element_size(),
@@ -1338,6 +1409,17 @@ def _wide_pure_dp(dev, Xw, yw, cfg_w) -> dict:
     wr = tk.train_gathered_reference(X2, w, ids_seg, eta=0.1, **kw)
     b = _bound_ms(T * x_bytes + 4 * (T * n_all + 3 * D),
                   T * (4 * rows * D + 3 * D))
+    keep = torch.arange(D, device=dev) < yc
+    ids_long = ids.long()
+
+    def lib2():  # T steps of B1's library line and the update, as phase 6
+        wt = w
+        for _ in range(T):
+            gt, ct = lib1(ids_long, torch.where(keep, wt, 0.0).to(X2.dtype))
+            wt = wt - (0.1 / torch.clamp_min(ct, 1.0)) * torch.where(
+                keep, gt, 0.0)
+        return wt
+
     recs["B2"] = dict(
         max_abs_err=_assert_close(f"B2 wide ({T} steps)", wk, wr,
                                   _steps_kind(X2)),
@@ -1345,7 +1427,7 @@ def _wide_pure_dp(dev, Xw, yw, cfg_w) -> dict:
                                                     **kw), 5, warm=1),
         plain_ms=_time_ms(lambda: tk.train_gathered_reference(
             X2, w, ids_seg, eta=0.1, **kw), 2, warm=1),
-        library_ms=None, bound_ms=b[0], bound_by=b[1])
+        library_ms=_time_ms(lib2, 2, warm=1), bound_ms=b[0], bound_by=b[1])
     del fn, X2, w0, blocks
     torch.cuda.empty_cache()
     Xf = torch.as_tensor(Xw, device=dev)

@@ -256,3 +256,113 @@ def test_cuda_tensors_never_take_the_plain_version(cuda_device):
         tk.fused_grad_sum_packed(
             X2b, wb, 0, 0, pack=128, d_total=3, y_col=1, v_col=2,
             fraction=0.1, block_rows=128)
+
+
+#: B1/B2 cases at the edges of their ring (n, d, pack, gbr, n_s, T): a
+#: block's rows cross many sampled blocks (gbr 16) and T = 1; rows a block
+#: (the plan's chunk) a multiple of neither the stage nor gbr; 16-byte
+#: bf16 rows; float32 rows of 1632 bytes (four vectors a lane); bench.py's
+#: block size at a few blocks
+RING_EDGES = [(5000, 30, 16, 16, 40, 1), (3001, 125, 16, 48, 60, 3),
+              (4000, 6, 16, 32, 50, 4), (3000, 400, 16, 64, 9, 5),
+              (20000, 125, 16, 2048, 5, 2)]
+
+
+def _ring_ids(rng, n_blocks, n_s, T):
+    """(T, n_s) block ids; each step draws one block twice."""
+    ids = rng.integers(0, n_blocks, (T, n_s))
+    ids[:, -1] = ids[:, 0]
+    return ids.astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,pack,gbr,n_s,T", RING_EDGES)
+def test_b1_b2_ring_edges_on_card(n, d, pack, gbr, n_s, T, dtype,
+                                  cuda_device):
+    """B1 and B2 at the ring's edges against their plain versions, as
+    the cases above hold them; B1 also with block ids outside
+    [0, n_blocks), which count nothing."""
+    rng, X2, meta, w, kw = _packed(cuda_device, n, d, dtype, pack, gbr,
+                                   "random", seed=n_s)
+    n_blocks, yc = meta["n_padded"] // gbr, meta["y_col"]
+    ids = torch.as_tensor(_ring_ids(rng, n_blocks, n_s, T),
+                          device=cuda_device)
+    g, c = tk.fused_grad_sum_gathered(X2, w, ids[0], **kw)
+    gr, cr = tk.grad_sum_gathered_reference(X2, w, ids[0], **kw)
+    assert float(c) == float(cr)
+    _close(g[:yc], gr[:yc], 1e-5)
+    bad = torch.cat([ids[0], torch.tensor([-1, n_blocks, 2**30],
+                                          dtype=torch.int32,
+                                          device=cuda_device)])
+    gb, cb = tk.fused_grad_sum_gathered(X2, w, bad, **kw)
+    assert float(cb) == float(cr)
+    _close(gb[:yc], gr[:yc], 1e-5)
+    wk = tk.fused_train_gathered(X2, w, ids, eta=0.1, **kw)
+    wr = tk.train_gathered_reference(X2, w, ids, eta=0.1, **kw)
+    _close(wk, wr, 1e-5 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,pack,gbr,n_s,T", RING_EDGES)
+def test_b2_equals_t_calls_of_b1_on_card(n, d, pack, gbr, n_s, T, dtype,
+                                         alpha, cuda_device):
+    """B2's weights after T steps equal, bit for bit, T calls of B1 at
+    the same w (zeroed at columns >= y_col, as B2 casts it), each
+    followed by B2's update in B2's own order: the two kernels share the
+    row body, the row split and the fold."""
+    rng, X2, meta, w, kw = _packed(cuda_device, n, d, dtype, pack, gbr,
+                                   "random", seed=T)
+    n_blocks, D, yc = meta["n_padded"] // gbr, meta["d_total"], meta["y_col"]
+    ids = torch.as_tensor(_ring_ids(rng, n_blocks, n_s, T),
+                          device=cuda_device)
+    ctr = torch.zeros_like(w)
+    ctr[:d] = torch.as_tensor(_weights(rng, d, "random"), device=cuda_device)
+    wk = tk.fused_train_gathered(X2, w, ids, eta=0.1, alpha=alpha,
+                                 center=ctr, **kw)
+    keep = torch.arange(D, device=cuda_device) < yc
+    eta_t = torch.tensor(0.1, dtype=torch.float32, device=cuda_device)
+    alpha_t = torch.tensor(alpha, dtype=torch.float32, device=cuda_device)
+    wt = w.clone()
+    for t in range(T):
+        g, c = tk.fused_grad_sum_gathered(X2, torch.where(keep, wt, 0.0),
+                                          ids[t], **kw)
+        w_new = wt - (eta_t / torch.clamp_min(c, 1.0)) * torch.where(
+            keep, g, 0.0)
+        if alpha:
+            w_new = w_new - alpha_t * (wt - ctr)
+        wt = w_new
+    assert torch.equal(wk, wt)
+
+
+@pytest.mark.gpu
+def test_b1_ticket_resets_and_two_streams_on_card(cuda_device):
+    """B1 folds in the launch's last block and resets its ticket: back
+    to back calls give equal bits, and calls on two streams (each with
+    its own workspace) are right on both."""
+    rng, X2, meta, w, kw = _packed(cuda_device, 20000, 125, torch.bfloat16,
+                                   16, 2048, "random", seed=3)
+    n_blocks, yc = meta["n_padded"] // 2048, meta["y_col"]
+    ids = [torch.as_tensor(rng.integers(0, n_blocks, 7).astype(np.int32),
+                           device=cuda_device) for _ in range(2)]
+    want = [tk.fused_grad_sum_gathered(X2, w, i, **kw) for i in ids]
+    for (g, c), i in zip(want, ids):
+        gr, cr = tk.grad_sum_gathered_reference(X2, w, i, **kw)
+        assert float(c) == float(cr)
+        _close(g[:yc], gr[:yc], 1e-5)
+    for _ in range(3):
+        again = [tk.fused_grad_sum_gathered(X2, w, i, **kw) for i in ids]
+        for (g, c), (g2, c2) in zip(want, again):
+            assert torch.equal(g, g2) and torch.equal(c, c2)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(10):
+        for s, i in zip(streams, ids):
+            with torch.cuda.stream(s):
+                got.append(tk.fused_grad_sum_gathered(X2, w, i, **kw))
+    torch.cuda.synchronize()
+    for k, (g, c) in enumerate(got):
+        assert torch.equal(g, want[k % 2][0]) and torch.equal(c, want[k % 2][1])

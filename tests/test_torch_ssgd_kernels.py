@@ -233,3 +233,74 @@ def test_wrappers_validate_like_jax():
                           torch.zeros(3))
     with pytest.raises(ValueError, match="unsupported dtype"):
         tk.as_dtype("float16")
+
+
+#: B1/B2 at the edges of the CUDA kernels' ring (n, d, pack, gbr, n_s, T):
+#: 21 sampled blocks of 32 rows at T = 1; 16-row blocks, so a CUDA block's
+#: rows and its stages cross many sampled blocks. Each step draws one
+#: block twice.
+RING_EDGES = [(700, 30, 4, 32, 21, 1), (1000, 61, 2, 16, 50, 3)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,pack,gbr,n_s,T", RING_EDGES)
+def test_b1_b2_ring_edges_match_jax(n, d, pack, gbr, n_s, T, dtype):
+    X2j, X2t, meta, w, kw = _packed(n, d, dtype, pack, gbr, seed=n_s)
+    P, D, yc = meta["pack"], meta["d_total"], meta["y_col"]
+    rng = np.random.default_rng(T)
+    idx = rng.integers(0, meta["n_padded"] // gbr, (T, n_s))
+    idx[:, -1] = idx[:, 0]
+    idx = idx.astype(np.int32)
+    gj, cj = pk.fused_grad_sum_gathered(X2j, jnp.asarray(w),
+                                        jnp.asarray(idx[0]), interpret=True,
+                                        **kw)
+    gt, ct = tk.fused_grad_sum_gathered(X2t, torch.as_tensor(w),
+                                        torch.as_tensor(idx[0]), **kw)
+    assert float(ct) == float(cj)
+    _close(gt[:yc], np.asarray(gj)[:yc])
+    wj = pk.fused_train_gathered(X2j, jnp.tile(jnp.asarray(w), P)[:, None],
+                                 jnp.asarray(idx), eta=0.1, interpret=True,
+                                 **kw)
+    wt = tk.fused_train_gathered(X2t, torch.as_tensor(w),
+                                 torch.as_tensor(idx), eta=0.1, **kw)
+    _close(wt, np.asarray(wj)[:D, 0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_rows,d_total,n_sm", [
+    (106496, 128, 132), (106496, 128, 114), (672, 32, 132), (800, 64, 132),
+    (31, 8, 132), (5000, 1024, 132), (8192 * 64, 408, 132), (20000, 24, 7),
+    (65536, 8200, 132)])
+def test_gathered_plan_covers_every_row_once(n_rows, d_total, dtype, n_sm):
+    """B1/B2's plan: every sampled row falls in exactly one (block,
+    stage); stages are whole 16-byte vectors and the ring fits the 227
+    KB of shared memory; at most one block per SM; the same shapes and
+    SM count give the same plan (nothing else enters it)."""
+    size = tk.as_dtype(dtype).itemsize
+    if (d_total * size) % 16:
+        with pytest.raises(ValueError, match="16-byte"):
+            tk.gathered_plan(n_rows, d_total, dtype, n_sm)
+        return
+    plan = tk.gathered_plan(n_rows, d_total, dtype, n_sm)
+    assert plan == tk.gathered_plan.__wrapped__(n_rows, d_total,
+                                                tk.as_dtype(dtype), n_sm)
+    if d_total * size > tk.MAX_RING_ROW_BYTES:
+        assert plan["wide"] and plan["blocks"] == 4 * n_sm
+        return
+    assert not plan["wide"] and 1 <= plan["blocks"] <= n_sm
+    sr, row_bytes = plan["stage_rows"], d_total * size
+    assert plan["stage_bytes"] == sr * row_bytes and plan["stage_bytes"] % 16 == 0
+    assert sr % plan["pass_rows"] == 0 and sr <= tk.RING_MAX_STAGE_ROWS
+    assert 2 <= plan["stages"] <= tk.RING_MAX_STAGES
+    assert plan["smem"] <= tk.SMEM_MAX
+    assert plan["lanes"] * plan["vpl"] >= plan["vectors"]
+    seen = np.zeros(n_rows, np.int64)
+    for b in range(plan["blocks"]):
+        r0 = b * plan["chunk"]
+        r1 = min(r0 + plan["chunk"], n_rows)
+        assert r0 < r1
+        for i0 in range(r0, r1, sr):
+            seen[i0:min(i0 + sr, r1)] += 1
+    assert (seen == 1).all()
+    floats = tk.WORK_COUNTERS + 2 * plan["blocks"] * ((d_total + 4) // 4 * 4)
+    assert plan["workspace"] == floats

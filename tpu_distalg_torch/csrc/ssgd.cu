@@ -42,40 +42,62 @@
 // operations-per-byte balance. At the bench geometry (13 of 128 blocks of
 // 8192 rows, D = 128, bf16) a step moves 27.3 MB: 8.1 µs at 3.35 TB/s. B5
 // reads every row whatever the mask keeps: 268 MB there, 80 µs; it runs
-// B1's row body and folds, and every lane of a row hashes the row's
+// B1's row body from device memory and folds, and every lane of a row hashes the row's
 // counter itself (about 110 integer operations beside the row's loads).
 //
 // Design.
-//   * G lanes own one row, each a 16-byte vector (8 bf16 or 4 float) at a
-//     time; rows are spread over the block's warps and U rows per lane
-//     group are loaded before any is used, to keep loads in flight.
-//     z is reduced within the lane group by a butterfly (every lane ends
-//     with the same bits), and each lane keeps its columns' partial
-//     gradient in registers.
-//   * Determinism, no float atomics: a fixed split of the rows over the
-//     blocks; each block reduces its warps in order and writes a partial
-//     (D + 1 floats: the gradient and the count). B1 and B6 then sum the
-//     partials in a second launch, in block order, with a fixed tree.
-//   * B2 is one persistent cooperative launch for T steps, its grid no
-//     larger than the co-resident block count. Every step: each block
-//     writes its partial; grid-wide sync; one warp per column sums the
-//     partials in block order and writes the step's (g, count); grid-wide
-//     sync; every block reads that sum and applies the same update to its
-//     own copy of the float32 master in shared memory, so all copies stay
-//     equal bit for bit. The two syncs order every write of the partials
-//     and of the sum against every read of the step before, so one buffer
-//     of each serves all steps. (Every block summing all partials itself,
-//     with one sync, measured slower: the partials are read once per
-//     block.) skip_update drops the syncs, the sums and the update (the
-//     gradient pass stays): the difference prices the update chain.
+//   * B1 and B2 on rows of at most 2048 bytes run on a ring of shared-
+//     memory stages fed by bulk copies. A block is 16 consumer warps and a
+//     producer warp, at most one block per SM. One lane of the producer
+//     cuts the block's sampled rows into stages of stage_rows rows (~16 KB)
+//     and copies each into the next free slot with cp.async.bulk,
+//     completing on the slot's mbarrier: a sampled block is contiguous in
+//     X, so a stage is one copy, or one per sampled block it touches. A
+//     block id outside [0, n_blocks) is not copied; the slot's mask marks
+//     its rows absent. The consumers read x, y and v from the slot and
+//     release it on its second mbarrier. The producer waits for free slots
+//     only, so in B2 the next step's rows are in flight (up to 12 slots,
+//     about 25 MB card-wide, nearly a step) while the update runs.
+//   * Row body (B1, B2, and B5 from device memory): G lanes own one row,
+//     each VPL 16-byte vectors (8 bf16 or 4 float each); z is reduced
+//     within the lane group by a butterfly (every lane ends with the same
+//     bits), and each lane keeps its columns' partial gradient in
+//     registers (accumulate_rows). B1 and B2 give a lane 2 vectors (4 on
+//     rows of more than 64), so that a row's scalar work (butterfly, σ,
+//     rounding) is shared by 32 / G rows a warp instruction; G is a
+//     template parameter, so the lane arithmetic folds away. Measured on
+//     an H100, the consumers' arithmetic, not the copies, bounds a step.
+//   * The plan (ops/ssgd_kernels.py::gathered_plan) depends on the shapes
+//     and the SM count alone: blocks of `chunk` sampled rows, stages and
+//     slots. B1 and B2 share it and the row body, so B2's step t equals
+//     B1 called at B2's w_t bit for bit.
+//   * Determinism, no float atomics: each block reduces its warps in order
+//     and writes a partial (D + 1 floats: the gradient and the count);
+//     fold_partials sums the blocks' partials in an order fixed by their
+//     number and width.
+//   * B1 is one launch: each block writes its partial, fences and takes a
+//     ticket (an integer atomicAdd); the block with the last ticket folds
+//     the partials, writes (g, count) and resets the ticket.
+//   * B2 is one persistent cooperative launch for T steps with one
+//     grid-wide barrier a step: an arrival counter that only the consumer
+//     warps wait on (the last block to leave resets it). The partials are
+//     double-buffered by step parity, so a fast block writes step t + 1's
+//     while a slow one still reads step t's; after the barrier every block
+//     folds all partials itself in the same order (so every copy of w gets
+//     the same bits) and applies the update to its float32 master in
+//     shared memory. skip_update drops the barrier, the fold and the update
+//     (the gradient pass stays): the difference prices the update chain.
+//   * B5 keeps the row body with rows read from device memory (U rows a
+//     lane group in flight), block partials and reduce_partials.
 //   * Rows of more than 128 vectors (2048 bytes) do not fit a lane group's
 //     registers. There B1, B5 and B2 take a wide body (wide_rows): a pass
 //     gives each warp one row, which it reads in turns of 32 vectors
 //     against w to find the residual; then every thread adds the pass's
 //     rows, in row order, to the columns it owns of the block's partial,
-//     summed in place in device memory (L2). B2 keeps one cooperative
-//     launch and two grid syncs a step, each block's float32 master in
-//     device memory beside the partials. Any width is taken.
+//     summed in place in device memory (L2). B1 and B5 add the partials
+//     with reduce_partials; B2 keeps one cooperative launch and two grid
+//     syncs a step, each block's float32 master in device memory beside
+//     the partials. Any width is taken.
 //   * B6 up to d = 4096: one warp per row with scalar loads, each
 //     lane owning the columns j ≡ lane (mod 32) of its warp's accumulator
 //     in shared memory; the row is read twice, the second time from L1.
@@ -96,7 +118,6 @@
 //     partials in chunk order. Chunks come from the shapes alone
 //     (ops/ssgd_kernels.py::tp_kernel_plan), so B4 replays bit for bit.
 //     Both are bound by the bytes of the sampled rows, each read once.
-// TMA, wgmma and a faster cross-block reduction are later work.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -112,10 +133,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kReduceThreads = 128;
 constexpr int kB6Rows = 4;  // rows per warp per pass in B6
-// rows each lane group loads before using any (U), for rows of at most
-// 32 vectors (kU1) and of up to 128 (kU4): kU1 = 2 was the fastest of 2,
-// 4, 8 and 16 for B2 at D = 128 bf16 on an H100 (a larger U costs
-// occupancy through registers); kU4 is not tuned
+// rows each lane group of B5 loads before using any (U), for rows of at
+// most 32 vectors (kU1) and of up to 128 (kU4): kU1 = 2 was the fastest of
+// 2, 4, 8 and 16 for B2's first design, which shared this body, at D =
+// 128 bf16 on an H100 (a larger U costs occupancy through registers); kU4
+// is not tuned
 constexpr int kU1 = 2;
 constexpr int kU4 = 2;
 // rows of more than this many 16-byte vectors (2048 bytes) take the wide
@@ -138,6 +160,7 @@ struct Vec<float> {
     o[3] = __uint_as_float(v.w);
   }
   __device__ static float scalar(const float* p) { return __ldg(p); }
+  __device__ static float value(float x) { return x; }
   __device__ static float quant(float x) { return x; }
 };
 
@@ -156,6 +179,9 @@ struct Vec<__nv_bfloat16> {
   }
   __device__ static float scalar(const __nv_bfloat16* p) {
     return __bfloat162float(p[0]);
+  }
+  __device__ static float value(__nv_bfloat16 x) {
+    return __bfloat162float(x);
   }
   __device__ static float quant(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
@@ -193,24 +219,53 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
 }
 
 // Rows one thread block works on: a U-unrolled pass covers
-// kWarps · (32 / G) · U sampled rows.
+// kWarps · (32 / G) · U rows.
 template <int U>
 __host__ __device__ inline int pass_rows(int G) {
   return kWarps * (32 / G) * U;
 }
 
-// Accumulate the sampled rows [r0, r1) into this lane's partial gradient.
-// Sampled row i is row i % gbr of block ids[i / gbr]; a block id outside
-// [0, n_blocks) contributes nothing. With SAMPLED (B5) sampled row i is row
-// i itself, ids is not read, and the row's validity is zeroed unless `rs`
+// The row body of B1, B2 and B5: U rows of this lane group, loaded as
+// 16-byte vectors (raw, zero for an absent row or a vector past L) with
+// their y and validity v, go into this lane's partial gradient. z sums
+// x·wq over the lane's vectors in order, then the lane group's butterfly
+// (every lane ends with the same bits); resid = (σ(z) − y)·v rounded to
+// X's type; acc += resid·x, cnt += v.
+template <typename T, int VPL, int U>
+__device__ __forceinline__ void accumulate_rows(
+    const uint4 (&raw)[U][VPL], const float (&yv)[U], const float (&vv)[U],
+    const float (&wq)[VPL][Vec<T>::N], int G, float (&acc)[VPL][Vec<T>::N],
+    float& cnt) {
+  constexpr int N = Vec<T>::N;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float x[VPL][N];
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) Vec<T>::unpack(raw[u][k], x[k]);
+    float z = 0.0f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+#pragma unroll
+      for (int e = 0; e < N; ++e) z = fmaf(x[k][e], wq[k][e], z);
+    for (int o = G >> 1; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
+    const float r = Vec<T>::quant((sigmoid(z) - yv[u]) * vv[u]);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[k][e] = fmaf(r, x[k][e], acc[k][e]);
+    cnt += vv[u];
+  }
+}
+
+// B5: accumulate the rows [r0, r1) of X (each read from device memory)
+// into this lane's partial gradient, row i's validity zeroed unless `rs`
 // keeps it. Every lane of the warp runs the same number of passes (the
 // shuffles need the whole warp).
-template <typename T, int VPL, int U, bool SAMPLED = false>
-__device__ __forceinline__ void grad_rows(
-    const T* __restrict__ X, const int* __restrict__ ids, int n_blocks,
-    int gbr, int D, int L, int G, int y_col, int v_col,
+template <typename T, int VPL, int U>
+__device__ __forceinline__ void sampled_rows(
+    const T* __restrict__ X, int D, int L, int G, int y_col, int v_col,
     const float (&wq)[VPL][Vec<T>::N], int r0, int r1,
-    float (&acc)[VPL][Vec<T>::N], float& cnt, RowSampler rs = {}) {
+    float (&acc)[VPL][Vec<T>::N], float& cnt, RowSampler rs) {
   constexpr int N = Vec<T>::N;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -224,15 +279,8 @@ __device__ __forceinline__ void grad_rows(
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = base + (u * kWarps + warp) * R + grp;
-      bool ok = i < r1;
-      long long prow = i;
-      if (ok && !SAMPLED) {
-        const int s = i / gbr;
-        const int b = ids[s];
-        ok = b >= 0 && b < n_blocks;
-        prow = static_cast<long long>(b) * gbr + (i - s * gbr);
-      }
-      const T* row = X + prow * D;
+      const bool ok = i < r1;
+      const T* row = X + static_cast<long long>(i) * D;
 #pragma unroll
       for (int k = 0; k < VPL; ++k) {
         const int vi = li + G * k;
@@ -242,28 +290,11 @@ __device__ __forceinline__ void grad_rows(
       }
       yv[u] = ok ? Vec<T>::scalar(row + y_col) : 0.0f;
       vv[u] = ok ? Vec<T>::scalar(row + v_col) : 0.0f;
-      if (SAMPLED && threefry_bits(rs.key0, rs.key1, 0u,
-                                   static_cast<uint32_t>(i)) >= rs.thresh)
+      if (threefry_bits(rs.key0, rs.key1, 0u, static_cast<uint32_t>(i)) >=
+          rs.thresh)
         vv[u] = 0.0f;
     }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float x[VPL][N];
-#pragma unroll
-      for (int k = 0; k < VPL; ++k) Vec<T>::unpack(raw[u][k], x[k]);
-      float z = 0.0f;
-#pragma unroll
-      for (int k = 0; k < VPL; ++k)
-#pragma unroll
-        for (int e = 0; e < N; ++e) z = fmaf(x[k][e], wq[k][e], z);
-      for (int o = G >> 1; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
-      const float r = Vec<T>::quant((sigmoid(z) - yv[u]) * vv[u]);
-#pragma unroll
-      for (int k = 0; k < VPL; ++k)
-#pragma unroll
-        for (int e = 0; e < N; ++e) acc[k][e] = fmaf(r, x[k][e], acc[k][e]);
-      cnt += vv[u];
-    }
+    accumulate_rows<T, VPL, U>(raw, yv, vv, wq, G, acc, cnt);
   }
 }
 
@@ -285,9 +316,17 @@ __device__ __forceinline__ void load_wq(const float* w, int L, int G,
   }
 }
 
+// A barrier of the threads 0..THREADS-1: the whole block in B5's kernel,
+// the consumer warps in B1's and B2's (their producer warp never waits on
+// it).
+template <int THREADS = kThreads>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+}
+
 // Fold the lanes' partial sums into the block's (D + 1) partial, in a
-// fixed order: lane groups by butterfly, then warps 0..kWarps-1.
-template <typename T, int VPL>
+// fixed order: lane groups by butterfly, then warps 0..WARPS-1.
+template <typename T, int VPL, int WARPS = kWarps>
 __device__ __forceinline__ void block_partial(float (&acc)[VPL][Vec<T>::N],
                                               float cnt, int D, int L, int G,
                                               float* red, float* red_cnt,
@@ -313,23 +352,21 @@ __device__ __forceinline__ void block_partial(float (&acc)[VPL][Vec<T>::N],
     }
   }
   if (lane == 0) red_cnt[warp] = cnt;
-  __syncthreads();
-  for (int j = threadIdx.x; j <= D; j += kThreads) {
+  consumer_sync<WARPS * 32>();
+  for (int j = threadIdx.x; j <= D; j += WARPS * 32) {
     float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += j < D ? red[w * D + j] : red_cnt[w];
+    for (int w = 0; w < WARPS; ++w) s += j < D ? red[w * D + j] : red_cnt[w];
     out[j] = s;
   }
 }
 
-// B1 and, with SAMPLED, B5, stage 1: each block's partial over its share of
-// the sampled rows.
-template <typename T, int VPL, int U, bool SAMPLED>
+// B5, stage 1: each block's partial over its share of the rows.
+template <typename T, int VPL, int U>
 __global__ void __launch_bounds__(kThreads)
-    grad_gathered_kernel(const T* __restrict__ X, const int* __restrict__ ids,
-                         int n_blocks, int gbr, int D, int L, int G,
-                         int y_col, int v_col, const float* __restrict__ w,
-                         RowSampler rs, int chunk, int rows_total,
-                         float* partial) {
+    grad_packed_kernel(const T* __restrict__ X, int D, int L, int G,
+                       int y_col, int v_col, const float* __restrict__ w,
+                       RowSampler rs, int chunk, int rows_total,
+                       float* partial) {
   extern __shared__ float smem[];
   float* red = smem;
   float* red_cnt = smem + kWarps * D;
@@ -339,14 +376,14 @@ __global__ void __launch_bounds__(kThreads)
   float cnt = 0.0f;
   const int r0 = blockIdx.x * chunk;
   const int r1 = min(r0 + chunk, rows_total);
-  grad_rows<T, VPL, U, SAMPLED>(X, ids, n_blocks, gbr, D, L, G, y_col, v_col,
-                                wq, r0, r1, acc, cnt, rs);
+  sampled_rows<T, VPL, U>(X, D, L, G, y_col, v_col, wq, r0, r1, acc, cnt, rs);
   block_partial<T, VPL>(acc, cnt, D, L, G, red, red_cnt,
                         partial + static_cast<size_t>(blockIdx.x) * (D + 1));
 }
 
-// Stage 2 of B1 and B6: out[j] = Σ_b partial[b][j] in a fixed order
-// (contiguous runs per thread, then a fixed tree). One block per column.
+// Stage 2 of B6, B4 and the wide B1 and B5: out[j] = Σ_b partial[b][j] in
+// a fixed order (contiguous runs per thread, then a fixed tree). One block
+// per column.
 __global__ void __launch_bounds__(kReduceThreads)
     reduce_partials(const float* __restrict__ partial, int nblk, int width,
                     float* out) {
@@ -367,72 +404,414 @@ __global__ void __launch_bounds__(kReduceThreads)
   if (threadIdx.x == 0) out[j] = sm[0];
 }
 
-// B2: T steps in one cooperative launch (see the header).
-template <typename T, int VPL, int U>
-__global__ void __launch_bounds__(kThreads)
-    train_gathered_kernel(const T* __restrict__ X, const int* __restrict__ idx,
-                          int T_steps, int n_s, int n_blocks, int gbr, int D,
-                          int L, int G, int y_col, int v_col,
-                          const float* __restrict__ w0,
-                          const float* __restrict__ center, float eta,
-                          float alpha, int skip_update, int chunk,
-                          float* partial, float* w_out) {
-  extern __shared__ float smem[];
-  float* w_s = smem;                 // D: the float32 master
-  float* g_s = w_s + D;              // D + 1: the step's gradient and count
-  float* red = g_s + D + 1;          // kWarps · D
-  float* red_cnt = red + kWarps * D; // kWarps
-  cg::grid_group grid = cg::this_grid();
-  const int W = D + 1;
-  const int nb = gridDim.x;
-  const int lane = threadIdx.x & 31;
-  float* gsum = partial + static_cast<size_t>(nb) * W;  // W: the step's sum
-  for (int j = threadIdx.x; j < D; j += kThreads) w_s[j] = w0[j];
-  __syncthreads();
-  float wq[VPL][Vec<T>::N];
-  load_wq<T, VPL>(w_s, L, G, y_col, wq);
-  const int rows_total = n_s * gbr;
-  const int r0 = blockIdx.x * chunk;
-  const int r1 = min(r0 + chunk, rows_total);
+// ------------------------------------------- B1 and B2: the bulk-copy ring
+
+// Hopper's asynchronous copies and barriers (the same helpers as
+// attention.cu's; each library builds alone).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16) from device memory into shared memory with
+// one bulk copy, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// counter += 1 at gpu scope, ordered after the block's earlier writes
+// (the consumer barrier before it gathers them into this thread's view)
+__device__ __forceinline__ void arrive_release(unsigned* p) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(p))
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(reinterpret_cast<uint64_t>(p))
+               : "memory");
+  return v;
+}
+
+constexpr int kRingWarps = 16;    // consumer warps, then a producer warp
+constexpr int kRingConsumers = kRingWarps * 32;
+constexpr int kRingThreads = kRingConsumers + 32;
+constexpr int kRingU = 1;         // rows a lane group takes a pass
+// 16-byte vectors a lane holds of a row: 2 for rows of at most
+// kRingVPL2Vectors vectors, else 4 (the registers of 16 warps allow no
+// more)
+constexpr int kRingVPL2Vectors = 64;
+constexpr int kMaxStageRows = 1024;
+constexpr int kMaskWords = kMaxStageRows / 32;
+constexpr int kMaxStages = 12;
+constexpr int kFoldBatch = 16;    // partials a folding thread has in flight
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use
+
+// B1's and B2's launch: the plan (ops/ssgd_kernels.py::gathered_plan)
+// and the shapes. Block k takes the sampled rows [k·chunk, (k+1)·chunk),
+// in stages of stage_rows rows over `stages` ring slots.
+struct RingArgs {
+  const unsigned char* X;
+  const int* idx;  // (T, n_s) block ids
+  int n_s, n_blocks, gbr, D, L, y_col, v_col;
+  int rows_total, chunk, stage_rows, stages, row_bytes;
+};
+
+// Byte offsets in the dynamic shared memory: the ring (stages ·
+// stage_bytes), the slots' full and empty barriers, the slots' row masks,
+// then w (D floats), red (kRingWarps·D + kRingWarps), scratch
+// (max(4·kRingConsumers, Wp)) and a flag. ops/ssgd_kernels.py::_ring_smem
+// computes the same total.
+struct RingLayout {
+  int full, empty, mask, w, red, scratch, flag, bytes;
+};
+
+__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
+
+// The partials' row width: D + 1 floats rounded up to a float4.
+__host__ __device__ inline int partial_width(int D) { return (D + 4) / 4 * 4; }
+
+__host__ __device__ inline RingLayout ring_layout(int D, int stage_bytes,
+                                                  int stages) {
+  const int Wp = partial_width(D);
+  RingLayout l;
+  int o = stages * stage_bytes;
+  l.full = o;
+  o += 8 * stages;
+  l.empty = o;
+  o += 8 * stages;
+  l.mask = o;
+  o += 4 * kMaskWords * stages;
+  l.w = o;
+  o = round16(o + 4 * D);
+  l.red = o;
+  o = round16(o + 4 * (kRingWarps * D + kRingWarps));
+  l.scratch = o;
+  o += 4 * (4 * kRingConsumers > Wp ? 4 * kRingConsumers : Wp);
+  l.flag = o;
+  l.bytes = o + 16;
+  return l;
+}
+
+// Set bits [lo, hi) of the mask m.
+__device__ __forceinline__ void set_bits(uint32_t* m, int lo, int hi) {
+  for (int q = lo >> 5; q <= (hi - 1) >> 5; ++q) {
+    const int a = max(lo, q * 32) - q * 32;
+    const int b = min(hi, q * 32 + 32) - q * 32;
+    m[q] |= (b - a == 32 ? ~0u : ((1u << (b - a)) - 1u)) << a;
+  }
+}
+
+// Lane 0 of the producer warp: for each step, the block's sampled rows
+// [r0, r1) in stages of stage_rows rows, each into the next ring slot
+// once the consumers have released it. Sampled row i is row i % gbr of
+// block ids[i / gbr], so a run of rows of one sampled block is contiguous
+// in X: one bulk copy. A block id outside [0, n_blocks) is not copied,
+// and the slot's mask marks its rows absent. The producer waits for
+// nothing but free slots: it runs up to `stages` slots ahead, across
+// B2's step boundaries.
+__device__ void ring_produce(const RingArgs& a, int T_steps, int r0, int r1,
+                            unsigned char* ring, uint64_t* full,
+                            uint64_t* empty, uint32_t* mask) {
+  const int stage_bytes = a.stage_rows * a.row_bytes;
+  int slot = 0, round = 0;  // round r fills each slot for the (r+1)-th time
   for (int t = 0; t < T_steps; ++t) {
-    float acc[VPL][Vec<T>::N] = {};
+    const int* ids = a.idx + static_cast<size_t>(t) * a.n_s;
+    for (int i0 = r0; i0 < r1; i0 += a.stage_rows) {
+      if (round > 0) mbar_wait(empty + slot, (round - 1) & 1);
+      const int i1 = min(i0 + a.stage_rows, r1);
+      uint32_t* m = mask + slot * kMaskWords;
+      for (int q = 0; q < (i1 - i0 + 31) / 32; ++q) m[q] = 0u;
+      uint32_t bytes = 0;
+      for (int i = i0; i < i1;) {
+        const int s = i / a.gbr;
+        const int e = min((s + 1) * a.gbr, i1);
+        const int b = __ldg(ids + s);
+        if (b >= 0 && b < a.n_blocks) {
+          bytes += (e - i) * a.row_bytes;
+          set_bits(m, i - i0, e - i0);
+        }
+        i = e;
+      }
+      mbar_expect_tx(full + slot, bytes);  // releases the mask's writes
+      unsigned char* dst = ring + static_cast<size_t>(slot) * stage_bytes;
+      for (int i = i0; i < i1;) {
+        const int s = i / a.gbr;
+        const int e = min((s + 1) * a.gbr, i1);
+        const int b = __ldg(ids + s);
+        if (b >= 0 && b < a.n_blocks)
+          bulk_copy(dst + (i - i0) * a.row_bytes,
+                    a.X + (static_cast<long long>(b) * a.gbr + (i - s * a.gbr)) *
+                              a.row_bytes,
+                    (e - i) * a.row_bytes, full + slot);
+        i = e;
+      }
+      if (++slot == a.stages) {
+        slot = 0;
+        ++round;
+      }
+    }
+  }
+}
+
+// The consumer warps' share of one ring slot of n rows: B1's and B2's
+// row body over rows read from shared memory (an absent row counts
+// nothing).
+template <typename T, int VPL, int G>
+__device__ __forceinline__ void consume_stage(
+    const unsigned char* st, const uint32_t* m, int n, int row_bytes, int L,
+    int y_col, int v_col, const float (&wq)[VPL][Vec<T>::N],
+    float (&acc)[VPL][Vec<T>::N], float& cnt) {
+  constexpr int R = 32 / G;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane / G;
+  const int li = lane % G;
+  for (int base = 0; base < n; base += kRingWarps * R * kRingU) {
+    uint4 raw[kRingU][VPL];
+    float yv[kRingU], vv[kRingU];
+#pragma unroll
+    for (int u = 0; u < kRingU; ++u) {
+      const int r = base + (u * kRingWarps + warp) * R + grp;
+      const bool ok = r < n && ((m[r >> 5] >> (r & 31)) & 1u);
+      const unsigned char* row = st + r * row_bytes;
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        const int vi = li + G * k;
+        raw[u][k] = ok && vi < L ? *reinterpret_cast<const uint4*>(row + vi * 16)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+      }
+      const T* x = reinterpret_cast<const T*>(row);
+      yv[u] = ok ? Vec<T>::value(x[y_col]) : 0.0f;
+      vv[u] = ok ? Vec<T>::value(x[v_col]) : 0.0f;
+    }
+    accumulate_rows<T, VPL, kRingU>(raw, yv, vv, wq, G, acc, cnt);
+  }
+}
+
+// The fold of the nb block partials part[b·Wp + j], in an order fixed by
+// nb and Wp alone, in two halves. fold_slices: consumer thread (h, q)
+// adds float4 q of blocks h, h + S, h + 2S, … in that order into
+// scratch (S slices, as many as kRingConsumers / (Wp / 4) allows, at
+// most nb); returns S. fold_column: column j's S slice sums in slice
+// order. Every consumer thread of the block calls fold_slices.
+__device__ int fold_slices(const float* part, int nb, int Wp, float* scratch) {
+  const int Q = Wp / 4;
+  const int S = max(1, min(nb, kRingConsumers / Q));
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int it = threadIdx.x; it < Q * S; it += kRingConsumers) {
+    const int q = it % Q;
+    const int h = it / Q;
+    const float4* p = reinterpret_cast<const float4*>(part) + q;
+    float4 s = zero;
+    for (int b0 = h; b0 < nb; b0 += kFoldBatch * S) {
+      float4 v[kFoldBatch];
+#pragma unroll
+      for (int u = 0; u < kFoldBatch; ++u) {
+        const int b = b0 + u * S;
+        v[u] = b < nb ? __ldcg(p + static_cast<size_t>(b) * Q) : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < kFoldBatch; ++u) {
+        s.x += v[u].x;
+        s.y += v[u].y;
+        s.z += v[u].z;
+        s.w += v[u].w;
+      }
+    }
+    reinterpret_cast<float4*>(scratch)[it] = s;
+  }
+  consumer_sync<kRingConsumers>();
+  return S;
+}
+
+__device__ __forceinline__ float fold_column(const float* scratch, int S,
+                                             int Wp, int j) {
+  float s = scratch[j];
+  for (int h = 1; h < S; ++h) s += scratch[h * Wp + j];
+  return s;
+}
+
+// B1 (TRAIN false: one step at w, the fold in the last block to finish,
+// (g, count) into out) and B2 (TRAIN: T steps, w_out). counters[0] is
+// B1's ticket; counters[1] and [2] are B2's arrivals and departures.
+// Each launch leaves them at zero.
+template <typename T, int VPL, int G, bool TRAIN>
+__device__ __forceinline__ void ring_body(const RingArgs& a, int T_steps,
+                                          const float* w0,
+                                          const float* center, float eta,
+                                          float alpha, int skip_update,
+                                          unsigned* counters, float* partial,
+                                          float* out) {
+  constexpr int N = Vec<T>::N;
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  const int D = a.D;
+  const int W = D + 1;
+  const int Wp = partial_width(D);
+  const int stage_bytes = a.stage_rows * a.row_bytes;
+  const RingLayout lay = ring_layout(D, stage_bytes, a.stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_smem + lay.full);
+  uint64_t* empty = reinterpret_cast<uint64_t*>(ring_smem + lay.empty);
+  uint32_t* mask = reinterpret_cast<uint32_t*>(ring_smem + lay.mask);
+  float* w_s = reinterpret_cast<float*>(ring_smem + lay.w);
+  float* red = reinterpret_cast<float*>(ring_smem + lay.red);
+  float* red_cnt = red + kRingWarps * D;
+  float* scratch = reinterpret_cast<float*>(ring_smem + lay.scratch);
+  int* flag = reinterpret_cast<int*>(ring_smem + lay.flag);
+  const int nb = gridDim.x;
+  const int r0 = blockIdx.x * a.chunk;
+  const int r1 = min(r0 + a.chunk, a.rows_total);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kRingWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kRingConsumers) {
+    if (threadIdx.x == kRingConsumers)
+      ring_produce(a, T_steps, r0, r1, ring_smem, full, empty, mask);
+    return;
+  }
+  for (int j = threadIdx.x; j < D; j += kRingConsumers) w_s[j] = w0[j];
+  consumer_sync<kRingConsumers>();
+  float wq[VPL][N];
+  load_wq<T, VPL>(w_s, a.L, G, TRAIN ? a.y_col : D, wq);
+  int slot = 0, phase = 0;
+  for (int t = 0; t < T_steps; ++t) {
+    float acc[VPL][N] = {};
     float cnt = 0.0f;
-    grad_rows<T, VPL, U>(X, idx + static_cast<size_t>(t) * n_s, n_blocks,
-                         gbr, D, L, G, y_col, v_col, wq, r0, r1, acc, cnt);
-    block_partial<T, VPL>(acc, cnt, D, L, G, red, red_cnt,
-                          partial + static_cast<size_t>(blockIdx.x) * W);
-    if (skip_update) {
-      __syncthreads();
-      continue;
+    for (int i0 = r0; i0 < r1; i0 += a.stage_rows) {
+      mbar_wait(full + slot, phase);
+      consume_stage<T, VPL, G>(
+          ring_smem + static_cast<size_t>(slot) * stage_bytes,
+          mask + slot * kMaskWords, min(a.stage_rows, r1 - i0), a.row_bytes,
+          a.L, a.y_col, a.v_col, wq, acc, cnt);
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(empty + slot);
+      if (++slot == a.stages) {
+        slot = 0;
+        phase ^= 1;
+      }
     }
-    grid.sync();
-    // one warp per column: lane l sums blocks l, l+32, … in order, then a
-    // butterfly; the block owning column j writes g[j] once
-    for (int j = blockIdx.x * kWarps + (threadIdx.x >> 5); j < W;
-         j += nb * kWarps) {
-      float s = 0.0f;
-      for (int b = lane; b < nb; b += 32)
-        s += __ldcg(partial + static_cast<size_t>(b) * W + j);
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-      if (lane == 0) gsum[j] = s;
+    // B2's partials alternate between two buffers by step parity: a block
+    // writes step t + 1's only after every block has arrived at step t + 1's
+    // barrier, so after every block has folded step t's
+    float* buf = partial + static_cast<size_t>(t & 1) * nb * Wp;
+    block_partial<T, VPL, kRingWarps>(
+        acc, cnt, D, a.L, G, red, red_cnt,
+        buf + static_cast<size_t>(blockIdx.x) * Wp);
+    consumer_sync<kRingConsumers>();
+    if (!TRAIN) {
+      if (threadIdx.x == 0) {
+        __threadfence();
+        *flag = atomicAdd(counters, 1u) == static_cast<unsigned>(nb - 1);
+      }
+      consumer_sync<kRingConsumers>();
+      if (*flag) {
+        __threadfence();
+        const int S = fold_slices(partial, nb, Wp, scratch);
+        for (int j = threadIdx.x; j < W; j += kRingConsumers)
+          out[j] = fold_column(scratch, S, Wp, j);
+        if (threadIdx.x == 0) counters[0] = 0u;
+      }
+      return;
     }
-    grid.sync();
-    for (int j = threadIdx.x; j < W; j += kThreads) g_s[j] = __ldcg(gsum + j);
-    __syncthreads();
-    const float coef = __fdiv_rn(eta, fmaxf(g_s[D], 1.0f));
-    for (int j = threadIdx.x; j < D; j += kThreads) {
+    if (skip_update) continue;
+    if (threadIdx.x == 0) {  // the grid-wide barrier of step t
+      arrive_release(counters + 1);
+      const unsigned want = static_cast<unsigned>(t + 1) * nb;
+      while (ld_relaxed(counters + 1) < want) {
+      }
+      __threadfence();
+    }
+    consumer_sync<kRingConsumers>();
+    // every thread sums the count itself (the same bits as column D's)
+    const int S = fold_slices(buf, nb, Wp, scratch);
+    const float coef =
+        __fdiv_rn(eta, fmaxf(fold_column(scratch, S, Wp, D), 1.0f));
+    for (int j = threadIdx.x; j < D; j += kRingConsumers) {
       const float w_old = w_s[j];
-      const float g = j < y_col ? g_s[j] : 0.0f;
+      const float g = j < a.y_col ? fold_column(scratch, S, Wp, j) : 0.0f;
       float w_new = __fsub_rn(w_old, __fmul_rn(coef, g));
       if (alpha != 0.0f)
         w_new = __fsub_rn(w_new, __fmul_rn(alpha, __fsub_rn(w_old, center[j])));
       w_s[j] = w_new;
     }
-    __syncthreads();
-    load_wq<T, VPL>(w_s, L, G, y_col, wq);
+    consumer_sync<kRingConsumers>();
+    load_wq<T, VPL>(w_s, a.L, G, a.y_col, wq);
+  }
+  if (!TRAIN) return;
+  if (!skip_update && threadIdx.x == 0 &&
+      atomicAdd(counters + 2, 1u) == static_cast<unsigned>(nb - 1)) {
+    // every block has passed its last barrier: none reads the arrivals
+    counters[1] = 0u;
+    counters[2] = 0u;
   }
   if (blockIdx.x == 0)
-    for (int j = threadIdx.x; j < D; j += kThreads) w_out[j] = w_s[j];
+    for (int j = threadIdx.x; j < D; j += kRingConsumers) out[j] = w_s[j];
+}
+
+template <typename T, int VPL, int G>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    grad_ring_kernel(RingArgs a, const float* __restrict__ w,
+                     unsigned* counters, float* partial, float* out) {
+  ring_body<T, VPL, G, false>(a, 1, w, nullptr, 0.0f, 0.0f, 0, counters, partial,
+                           out);
+}
+
+template <typename T, int VPL, int G>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    train_ring_kernel(RingArgs a, int T_steps, const float* __restrict__ w0,
+                      const float* __restrict__ center, float eta,
+                      float alpha, int skip_update, unsigned* counters,
+                      float* partial, float* w_out) {
+  ring_body<T, VPL, G, true>(a, T_steps, w0, center, eta, alpha, skip_update,
+                          counters, partial, w_out);
 }
 
 // ---------------------------------------------- B1, B5, B2 on wide rows
@@ -465,7 +844,7 @@ __device__ __forceinline__ float wide_z(const T* row, const float* w, int L,
 // row's residual, then every thread adds the pass's rows, in row order, to
 // the columns it owns (vectors tid, tid + kThreads, …) of `part`, so every
 // column is summed in row order: no atomics, no dependence on the timing.
-// Row selection and the residual are grad_rows'.
+// Row selection and the residual are those of the narrow bodies.
 template <typename T, bool SAMPLED>
 __device__ void wide_rows(const T* __restrict__ X, const int* __restrict__ ids,
                           int n_blocks, int gbr, int D, int L, int y_col,
@@ -540,9 +919,11 @@ __global__ void __launch_bounds__(kThreads)
                         rs);
 }
 
-// B2 on wide rows: train_gathered_kernel's steps and syncs, with each
-// block's float32 master in device memory (wcopy, D floats a block) and
-// its partial summed in place (wide_rows).
+// B2 on wide rows: T steps in one cooperative launch, two grid syncs a
+// step (every block writes its partial; one warp per column sums the
+// partials in block order into the step's sum; every block applies the
+// update to its own float32 master in device memory, wcopy, D floats a
+// block), its partial summed in place (wide_rows).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     train_wide_kernel(const T* __restrict__ X, const int* __restrict__ idx,
@@ -596,7 +977,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = threadIdx.x; j < D; j += kThreads) w_out[j] = wb[j];
 }
 
-// The geometry shared by B1 and B2: 16-byte vectors per row L, lanes per
+// The geometry of B5's row body: 16-byte vectors per row L, lanes per
 // row G (a power of two), vectors per lane VPL.
 struct Geometry {
   int L, G, vpl;
@@ -633,89 +1014,166 @@ int chunk_rows(int rows_total, int max_blocks, int pass) {
   return (chunk + pass - 1) / pass * pass;
 }
 
-template <typename T, int VPL, int U, bool SAMPLED>
-cudaError_t grad_gathered_v(const void* X, const int* ids, int n_s,
-                            int n_blocks, int gbr, int D, const Geometry& g,
-                            int y_col, int v_col, const float* w,
-                            RowSampler rs, int max_blocks, float* partial,
-                            float* out, cudaStream_t s) {
+// B1 (ids of n_s blocks of gbr rows) or, with SAMPLED, B5 (ids unused,
+// one "block" of all gbr = n rows, sampled by rs) on rows over 2048
+// bytes: wide_rows' partials, then reduce_partials.
+template <typename T, bool SAMPLED>
+cudaError_t launch_grad_wide_rows(const void* X, const int* ids, int n_s,
+                                  int n_blocks, int gbr, int D, int y_col,
+                                  int v_col, const float* w, RowSampler rs,
+                                  int max_blocks, float* partial, float* out,
+                                  cudaStream_t s) {
   const int rows_total = n_s * gbr;
-  const int chunk = chunk_rows(rows_total, max_blocks, pass_rows<U>(g.G));
+  const int chunk = chunk_rows(rows_total, max_blocks, kWarps);
   const int nblk = (rows_total + chunk - 1) / chunk;
-  const size_t smem = sizeof(float) * (kWarps * D + kWarps);
-  grad_gathered_kernel<T, VPL, U, SAMPLED><<<nblk, kThreads, smem, s>>>(
-      static_cast<const T*>(X), ids, n_blocks, gbr, D, g.L, g.G, y_col, v_col,
-      w, rs, chunk, rows_total, partial);
+  grad_wide_kernel<T, SAMPLED><<<nblk, kThreads, 0, s>>>(
+      static_cast<const T*>(X), ids, n_blocks, gbr, D, D / Vec<T>::N, y_col,
+      v_col, w, rs, chunk, rows_total, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   reduce_partials<<<D + 1, kReduceThreads, 0, s>>>(partial, nblk, D + 1, out);
   return cudaGetLastError();
 }
 
-// B1 (ids of n_s blocks of gbr rows) or, with SAMPLED, B5 (ids unused, one
-// "block" of all gbr = n rows, sampled by rs).
-template <typename T, bool SAMPLED>
-cudaError_t launch_grad_gathered(const void* X, const int* ids, int n_s,
-                                 int n_blocks, int gbr, int D, int y_col,
-                                 int v_col, const float* w, RowSampler rs,
-                                 int max_blocks, float* partial, float* out,
-                                 cudaStream_t s) {
+template <typename T>
+bool wide_row(int D) {
   constexpr int N = Vec<T>::N;
-  if (D >= N && D % N == 0 && D / N > kMaxNarrowVectors) {
-    const int rows_total = n_s * gbr;
-    const int chunk = chunk_rows(rows_total, max_blocks, kWarps);
-    const int nblk = (rows_total + chunk - 1) / chunk;
-    grad_wide_kernel<T, SAMPLED><<<nblk, kThreads, 0, s>>>(
-        static_cast<const T*>(X), ids, n_blocks, gbr, D, D / N, y_col, v_col,
-        w, rs, chunk, rows_total, partial);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    reduce_partials<<<D + 1, kReduceThreads, 0, s>>>(partial, nblk, D + 1,
-                                                     out);
-    return cudaGetLastError();
-  }
-  Geometry g;
-  if (!geometry<T>(D, &g)) return cudaErrorInvalidValue;
-  return g.vpl == 1
-             ? grad_gathered_v<T, 1, kU1, SAMPLED>(X, ids, n_s, n_blocks, gbr,
-                                                   D, g, y_col, v_col, w, rs,
-                                                   max_blocks, partial, out,
-                                                   s)
-             : grad_gathered_v<T, 4, kU4, SAMPLED>(X, ids, n_s, n_blocks, gbr,
-                                                   D, g, y_col, v_col, w, rs,
-                                                   max_blocks, partial, out,
-                                                   s);
+  return D >= N && D % N == 0 && D / N > kMaxNarrowVectors;
 }
 
 template <typename T, int VPL, int U>
-cudaError_t train_v(const void* X, const int* idx, int T_steps, int n_s,
-                    int n_blocks, int gbr, int D, const Geometry& g,
-                    int y_col, int v_col, const float* w0,
-                    const float* center, float eta, float alpha,
-                    int skip_update, int max_blocks, int device,
-                    float* partial, float* w_out, cudaStream_t s) {
-  auto kernel = train_gathered_kernel<T, VPL, U>;
-  const size_t smem = sizeof(float) * (2 * D + 1 + kWarps * D + kWarps);
-  int per_sm = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kThreads, smem);
+cudaError_t packed_v(const void* X, int n, int D, const Geometry& g,
+                     int y_col, int v_col, const float* w, RowSampler rs,
+                     int max_blocks, float* partial, float* out,
+                     cudaStream_t s) {
+  const int chunk = chunk_rows(n, max_blocks, pass_rows<U>(g.G));
+  const int nblk = (n + chunk - 1) / chunk;
+  const size_t smem = sizeof(float) * (kWarps * D + kWarps);
+  grad_packed_kernel<T, VPL, U><<<nblk, kThreads, smem, s>>>(
+      static_cast<const T*>(X), D, g.L, g.G, y_col, v_col, w, rs, chunk, n,
+      partial);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int resident = per_sm * sm_count(device);
-  if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int rows_total = n_s * gbr;
-  const int cap = max_blocks < resident ? max_blocks : resident;
-  int chunk = chunk_rows(rows_total, cap, pass_rows<U>(g.G));
-  const int nblk = (rows_total + chunk - 1) / chunk;
-  const T* Xp = static_cast<const T*>(X);
-  int L = g.L, G = g.G;
-  void* args[] = {&Xp,    &idx,    &T_steps,     &n_s,   &n_blocks,
-                  &gbr,   &D,      &L,           &G,     &y_col,
-                  &v_col, &w0,     &center,      &eta,   &alpha,
-                  &skip_update, &chunk, &partial, &w_out};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(nblk), dim3(kThreads), args, smem, s);
+  reduce_partials<<<D + 1, kReduceThreads, 0, s>>>(partial, nblk, D + 1, out);
+  return cudaGetLastError();
+}
+
+// B5 over all n rows of X.
+template <typename T>
+cudaError_t launch_packed(const void* X, int n, int D, int y_col, int v_col,
+                          const float* w, RowSampler rs, int max_blocks,
+                          float* partial, float* out, cudaStream_t s) {
+  if (wide_row<T>(D))
+    return launch_grad_wide_rows<T, true>(X, nullptr, 1, 1, n, D, y_col,
+                                          v_col, w, rs, max_blocks, partial,
+                                          out, s);
+  Geometry g;
+  if (!geometry<T>(D, &g)) return cudaErrorInvalidValue;
+  return g.vpl == 1 ? packed_v<T, 1, kU1>(X, n, D, g, y_col, v_col, w, rs,
+                                          max_blocks, partial, out, s)
+                    : packed_v<T, 4, kU4>(X, n, D, g, y_col, v_col, w, rs,
+                                          max_blocks, partial, out, s);
+}
+
+// Allow B1's (TRAIN false) or B2's ring kernel the shared memory it may
+// ask for, once per device.
+template <typename T, int VPL, int G, bool TRAIN>
+cudaError_t allow_ring_smem(int device) {
+  static bool done[64] = {};
+  if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
+  const cudaError_t err =
+      TRAIN ? cudaFuncSetAttribute(train_ring_kernel<T, VPL, G>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSmemMax)
+            : cudaFuncSetAttribute(grad_ring_kernel<T, VPL, G>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSmemMax);
+  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
+  return err;
+}
+
+template <typename T, int VPL, int G>
+cudaError_t ring_v(bool train, RingArgs a, int blocks, size_t smem,
+                   int T_steps, const float* w0, const float* center,
+                   float eta, float alpha, int skip_update, int device,
+                   unsigned* counters, float* partial, float* out,
+                   cudaStream_t s) {
+  if (!train) {
+    cudaError_t err = allow_ring_smem<T, VPL, G, false>(device);
+    if (err != cudaSuccess) return err;
+    grad_ring_kernel<T, VPL, G><<<blocks, kRingThreads, smem, s>>>(
+        a, w0, counters, partial, out);
+    return cudaGetLastError();
+  }
+  cudaError_t err = allow_ring_smem<T, VPL, G, true>(device);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&a,     &T_steps,     &w0,       &center,  &eta,
+                  &alpha, &skip_update, &counters, &partial, &out};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(train_ring_kernel<T, VPL, G>), dim3(blocks),
+      dim3(kRingThreads), args, smem, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// B1 (train false: out = (g, count)) or B2 (train: T steps, out = w) on
+// rows of at most 2048 bytes, on the plan's blocks, chunk, stage_rows and
+// stages, which must cover the rows_total sampled rows and fit the
+// shared memory. `work` holds 32 floats (the counters), then the
+// partials: 2 · blocks · partial_width(D) floats.
+template <typename T>
+cudaError_t launch_ring(bool train, const void* X, const int* idx,
+                        int T_steps, int n_s, int n_blocks, int gbr, int D,
+                        int y_col, int v_col, const float* w0,
+                        const float* center, float eta, float alpha,
+                        int skip_update, int blocks, int chunk,
+                        int stage_rows, int stages, int device, float* work,
+                        float* out, cudaStream_t s) {
+  constexpr int N = Vec<T>::N;
+  if (D < 1 || D % N || D / N > kMaxNarrowVectors)
+    return cudaErrorInvalidValue;
+  // VPL vectors a lane: the least power of two G of lanes that holds the
+  // row's L vectors (a row's scalar work, z's butterfly, σ and the
+  // rounding, is then shared by 32 / G rows a warp instruction)
+  const int L = D / N;
+  const int vpl = L <= kRingVPL2Vectors ? 2 : 4;
+  int G = 1;
+  while (G * vpl < L) G <<= 1;
+  RingArgs a{static_cast<const unsigned char*>(X),
+             idx,
+             n_s,
+             n_blocks,
+             gbr,
+             D,
+             L,
+             y_col,
+             v_col,
+             n_s * gbr,
+             chunk,
+             stage_rows,
+             stages,
+             D * static_cast<int>(sizeof(T))};
+  if (blocks < 1 || chunk < 1 || stage_rows < 1 ||
+      stage_rows > kMaxStageRows || stages < 2 || stages > kMaxStages ||
+      static_cast<long long>(blocks) * chunk < a.rows_total ||
+      static_cast<long long>(blocks - 1) * chunk >= a.rows_total)
+    return cudaErrorInvalidValue;
+  const size_t smem = ring_layout(D, stage_rows * a.row_bytes, stages).bytes;
+  if (smem > static_cast<size_t>(kSmemMax)) return cudaErrorInvalidValue;
+  unsigned* counters = reinterpret_cast<unsigned*>(work);
+  float* partial = work + 32;
+  auto launch = ring_v<T, 4, 32>;  // rows of 65 to 128 vectors
+  if (vpl == 2)
+    switch (G) {
+      case 1: launch = ring_v<T, 2, 1>; break;
+      case 2: launch = ring_v<T, 2, 2>; break;
+      case 4: launch = ring_v<T, 2, 4>; break;
+      case 8: launch = ring_v<T, 2, 8>; break;
+      case 16: launch = ring_v<T, 2, 16>; break;
+      default: launch = ring_v<T, 2, 32>; break;
+    }
+  return launch(train, a, blocks, smem, T_steps, w0, center, eta, alpha,
+                skip_update, device, counters, partial, out, s);
 }
 
 template <typename T>
@@ -748,29 +1206,45 @@ cudaError_t train_wide(const void* X, const int* idx, int T_steps, int n_s,
   return cudaGetLastError();
 }
 
+// B1: the ring in one launch, or wide rows' two launches (at most
+// `blocks` blocks; `work` + 32 holds their partials).
+template <typename T>
+cudaError_t launch_grad_gathered(const void* X, const int* ids, int n_s,
+                                 int n_blocks, int gbr, int D, int y_col,
+                                 int v_col, const float* w, int blocks,
+                                 int chunk, int stage_rows, int stages,
+                                 int device, float* work, float* out,
+                                 cudaStream_t s) {
+  if (wide_row<T>(D))
+    return launch_grad_wide_rows<T, false>(X, ids, n_s, n_blocks, gbr, D,
+                                           y_col, v_col, w, RowSampler{},
+                                           blocks, work + 32, out, s);
+  return launch_ring<T>(false, X, ids, 1, n_s, n_blocks, gbr, D, y_col, v_col,
+                        w, nullptr, 0.0f, 0.0f, 0, blocks, chunk, stage_rows,
+                        stages, device, work, out, s);
+}
+
+// B2: the ring in one cooperative launch, or wide rows' cooperative
+// launch (at most `blocks` blocks; `work` + 32 holds their partials, the
+// step's sum and their masters).
 template <typename T>
 cudaError_t launch_train(const void* X, const int* idx, int T_steps, int n_s,
                          int n_blocks, int gbr, int D, int y_col, int v_col,
                          const float* w0, const float* center, float eta,
-                         float alpha, int skip_update, int max_blocks,
-                         int device, float* partial, float* wcopy,
+                         float alpha, int skip_update, int blocks, int chunk,
+                         int stage_rows, int stages, int device, float* work,
                          float* w_out, cudaStream_t s) {
-  constexpr int N = Vec<T>::N;
-  if (D >= N && D % N == 0 && D / N > kMaxNarrowVectors)
+  if (wide_row<T>(D)) {
+    float* partial = work + 32;
     return train_wide<T>(X, idx, T_steps, n_s, n_blocks, gbr, D, y_col, v_col,
-                         w0, center, eta, alpha, skip_update, max_blocks,
-                         device, partial, wcopy, w_out, s);
-  Geometry g;
-  if (!geometry<T>(D, &g)) return cudaErrorInvalidValue;
-  return g.vpl == 1
-             ? train_v<T, 1, kU1>(X, idx, T_steps, n_s, n_blocks, gbr, D, g,
-                                  y_col, v_col, w0, center, eta, alpha,
-                                  skip_update, max_blocks, device, partial,
-                                  w_out, s)
-             : train_v<T, 4, kU4>(X, idx, T_steps, n_s, n_blocks, gbr, D, g,
-                                  y_col, v_col, w0, center, eta, alpha,
-                                  skip_update, max_blocks, device, partial,
-                                  w_out, s);
+                         w0, center, eta, alpha, skip_update, blocks, device,
+                         partial,
+                         partial + static_cast<size_t>(blocks + 1) * (D + 1),
+                         w_out, s);
+  }
+  return launch_ring<T>(true, X, idx, T_steps, n_s, n_blocks, gbr, D, y_col,
+                        v_col, w0, center, eta, alpha, skip_update, blocks,
+                        chunk, stage_rows, stages, device, work, w_out, s);
 }
 
 // B6, stage 1: one warp per row, kB6Rows rows per warp per pass.
@@ -1192,22 +1666,27 @@ int tda_ssgd_grad(const void* X, int dtype, const void* y, const void* mask,
 }
 
 // B1: X (n_blocks · gbr, D) row-major, ids (n_s,) int32, w (D,) float32.
+// blocks, chunk, stage_rows and stages are ops/ssgd_kernels.py's
+// gathered_plan (rows over 2048 bytes: at most `blocks` blocks). `work`
+// holds the plan's workspace, zero at its first use (each launch leaves
+// its counters at zero); `out` D + 1 floats.
 int tda_ssgd_grad_gathered(const void* X, int dtype, const void* ids, int n_s,
                            int n_blocks, int gbr, int D, int y_col, int v_col,
-                           const void* w, int max_blocks, void* partial,
-                           void* out, int device, void* stream) {
-  if (n_s < 1 || n_blocks < 1 || gbr < 1 || max_blocks < 1 ||
+                           const void* w, int blocks, int chunk,
+                           int stage_rows, int stages, void* work, void* out,
+                           int device, void* stream) {
+  if (n_s < 1 || n_blocks < 1 || gbr < 1 || blocks < 1 ||
       static_cast<long long>(n_s) * gbr >= (1LL << 30) || y_col < 0 ||
       y_col >= D || v_col < 0 || v_col >= D || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  auto launch = dtype == 0 ? launch_grad_gathered<float, false>
-                           : launch_grad_gathered<__nv_bfloat16, false>;
+  auto launch = dtype == 0 ? launch_grad_gathered<float>
+                           : launch_grad_gathered<__nv_bfloat16>;
   return launch(X, static_cast<const int*>(ids), n_s, n_blocks, gbr, D, y_col,
-                v_col, static_cast<const float*>(w), RowSampler{}, max_blocks,
-                static_cast<float*>(partial), static_cast<float*>(out),
-                static_cast<cudaStream_t>(stream));
+                v_col, static_cast<const float*>(w), blocks, chunk,
+                stage_rows, stages, device, static_cast<float*>(work),
+                static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }
 
 // B5: X (n, D) row-major, w (D,) float32; row i is kept iff the threefry
@@ -1221,24 +1700,24 @@ int tda_ssgd_grad_packed(const void* X, int dtype, int n, int D, int y_col,
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  auto launch = dtype == 0 ? launch_grad_gathered<float, true>
-                           : launch_grad_gathered<__nv_bfloat16, true>;
-  return launch(X, nullptr, 1, 1, n, D, y_col, v_col,
-                static_cast<const float*>(w), RowSampler{key0, key1, thresh},
-                max_blocks, static_cast<float*>(partial),
-                static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+  auto launch = dtype == 0 ? launch_packed<float> : launch_packed<__nv_bfloat16>;
+  return launch(X, n, D, y_col, v_col, static_cast<const float*>(w),
+                RowSampler{key0, key1, thresh}, max_blocks,
+                static_cast<float*>(partial), static_cast<float*>(out),
+                static_cast<cudaStream_t>(stream));
 }
 
-// B2: idx (T, n_s) int32; w0, center and w_out (D,) float32; `partial`
-// holds (max_blocks + 1) · (D + 1) floats, then max_blocks · D more for the
-// blocks' masters on rows over 2048 bytes.
+// B2: idx (T, n_s) int32; w0, center and w_out (D,) float32; the plan and
+// `work` as B1's (on the same stream B1 and B2 may share one workspace).
 int tda_ssgd_train(const void* X, int dtype, const void* idx, int T_steps,
                    int n_s, int n_blocks, int gbr, int D, int y_col, int v_col,
                    const void* w0, const void* center, float eta, float alpha,
-                   int skip_update, int max_blocks, void* partial, void* w_out,
-                   int device, void* stream) {
-  if (T_steps < 1 || n_s < 1 || n_blocks < 1 || gbr < 1 || max_blocks < 1 ||
-      static_cast<long long>(n_s) * gbr >= (1LL << 30) || y_col < 0 ||
+                   int skip_update, int blocks, int chunk, int stage_rows,
+                   int stages, void* work, void* w_out, int device,
+                   void* stream) {
+  if (T_steps < 1 || n_s < 1 || n_blocks < 1 || gbr < 1 || blocks < 1 ||
+      static_cast<long long>(n_s) * gbr >= (1LL << 30) ||
+      static_cast<long long>(T_steps) * blocks >= (1LL << 32) || y_col < 0 ||
       y_col >= D || v_col < 0 || v_col >= D || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -1247,10 +1726,9 @@ int tda_ssgd_train(const void* X, int dtype, const void* idx, int T_steps,
   return launch(X, static_cast<const int*>(idx), T_steps, n_s, n_blocks, gbr,
                 D, y_col, v_col, static_cast<const float*>(w0),
                 static_cast<const float*>(center), eta, alpha, skip_update,
-                max_blocks, device, static_cast<float*>(partial),
-                static_cast<float*>(partial) +
-                    static_cast<size_t>(max_blocks + 1) * (D + 1),
-                static_cast<float*>(w_out), static_cast<cudaStream_t>(stream));
+                blocks, chunk, stage_rows, stages, device,
+                static_cast<float*>(work), static_cast<float*>(w_out),
+                static_cast<cudaStream_t>(stream));
 }
 
 // B3: X (n_blocks · gbr, D) row-major, ids (n_s,) int32, w (D,) float32,

@@ -42,11 +42,11 @@ _SIGNATURES = {
         "tda_ssgd_grad": ([_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
                            _P], _I),
         "tda_ssgd_grad_gathered": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
-                                    _I, _P, _P, _I, _P], _I),
+                                    _I, _I, _I, _I, _P, _P, _I, _P], _I),
         "tda_ssgd_grad_packed": ([_P, _I, _I, _I, _I, _I, _P, _U, _U, _U, _I,
                                   _P, _P, _I, _P], _I),
         "tda_ssgd_train": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                            _F, _F, _I, _I, _P, _P, _I, _P], _I),
+                            _F, _F, _I, _I, _I, _I, _I, _P, _P, _I, _P], _I),
         "tda_ssgd_forward_gathered": ([_P, _I, _P, _I, _I, _I, _I, _I, _I,
                                        _I, _P, _I, _P, _I, _P], _I),
         "tda_ssgd_backward_gathered": ([_P, _I, _P, _I, _I, _I, _I, _P, _I,

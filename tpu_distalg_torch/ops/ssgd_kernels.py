@@ -250,6 +250,108 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+#: B1/B2's ring (``csrc/ssgd.cu``): consumer warps, rows a lane group takes
+#: a pass, rows of at most RING_VPL2_VECTORS vectors take 2 vectors a lane
+#: (else 4), a stage's target bytes, the most slots and rows a stage, and
+#: the dynamic shared memory a block may use on an H100
+RING_WARPS, RING_U, RING_VPL2_VECTORS, RING_STAGE_BYTES = 16, 1, 64, 16384
+RING_MAX_STAGES, RING_MAX_STAGE_ROWS, SMEM_MAX = 12, 1024, 232448
+#: rows of more than this many bytes take B1/B2's wide body
+MAX_RING_ROW_BYTES = 2048
+#: floats at the head of a B1/B2 workspace: the launch counters
+WORK_COUNTERS = 32
+
+
+def _ring_smem(d_total: int, stage_bytes: int, stages: int) -> int:
+    """Bytes of a ring block's dynamic shared memory, as
+    ``csrc/ssgd.cu::ring_layout`` lays it out."""
+    wp = (d_total + 4) // 4 * 4
+
+    def r16(x):
+        return (x + 15) & ~15
+
+    o = stages * (stage_bytes + 16 + 4 * RING_MAX_STAGE_ROWS // 32)
+    o = r16(o + 4 * d_total)
+    o = r16(o + 4 * (RING_WARPS * d_total + RING_WARPS))
+    return o + 4 * max(4 * 32 * RING_WARPS, wp) + 16
+
+
+@functools.cache
+def gathered_plan(n_rows: int, d_total: int, dtype, n_sm: int) -> dict:
+    """B1/B2's launch plan for ``n_rows`` sampled rows of ``d_total``
+    columns, from the shapes and the SM count alone (so B1 and B2 add
+    in the same order, and a run replays bit for bit).
+
+    A row is L = d_total·size/16 vectors of 16 bytes; a lane holds
+    ``vpl`` of them (2, or 4 past 64) and G = the least power of two
+    with G·vpl >= L lanes own a row. Block k of
+    ``blocks`` (at most one per SM) takes the sampled rows [k·chunk,
+    (k+1)·chunk); its producer copies them in stages of ``stage_rows``
+    rows (a multiple of a consumer pass, about 16 KB) into ``stages``
+    ring slots, as many as the shared memory holds, at most 12.
+    ``workspace`` is the floats the launch needs beside its output: the
+    counters, then the partials of two steps. Rows over 2048 bytes take
+    the wide body (``wide``): at most ``blocks`` = 4 per SM, and room
+    for their partials, the step's sum and the blocks' masters."""
+    size = as_dtype(dtype).itemsize
+    row_bytes = d_total * size
+    if row_bytes % 16:
+        raise ValueError(f"a row of {d_total} × {size} bytes is not a whole "
+                         f"number of 16-byte vectors")
+    if row_bytes > MAX_RING_ROW_BYTES:
+        blocks = 4 * n_sm
+        return dict(wide=True, blocks=blocks, chunk=0, stage_rows=0,
+                    stages=0, workspace=WORK_COUNTERS + (blocks + 1)
+                    * (d_total + 1) + blocks * d_total)
+    L = row_bytes // 16
+    vpl = 2 if L <= RING_VPL2_VECTORS else 4
+    G = 1
+    while G * vpl < L:
+        G *= 2
+    pass_rows = RING_WARPS * (32 // G) * RING_U
+    stage_rows = pass_rows * max(1, RING_STAGE_BYTES // (row_bytes
+                                                         * pass_rows))
+    stage_bytes = stage_rows * row_bytes
+    fixed = _ring_smem(d_total, 0, 0)
+    stages = min(RING_MAX_STAGES, (SMEM_MAX - fixed) // (
+        _ring_smem(d_total, stage_bytes, 1) - fixed))
+    chunk = max(-(-max(n_rows, 1) // n_sm), RING_WARPS * (32 // G))
+    blocks = -(-max(n_rows, 1) // chunk)
+    return dict(wide=False, vectors=L, lanes=G, vpl=vpl, pass_rows=pass_rows,
+                stage_rows=stage_rows, stage_bytes=stage_bytes,
+                stages=stages, chunk=chunk, blocks=blocks,
+                smem=_ring_smem(d_total, stage_bytes, stages),
+                workspace=WORK_COUNTERS + 2 * blocks * ((d_total + 4)
+                                                       // 4 * 4))
+
+
+#: B1/B2's workspaces, by (device index, stream): counters that every
+#: launch leaves at zero, then partials; grown when a plan needs more
+_WORKSPACES: dict = {}
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(dev) -> int:
+    """The current stream of ``dev``, as the C entry points take it."""
+    if _raw_stream is not None:
+        return _raw_stream(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _workspace(dev, stream: int, floats: int) -> torch.Tensor:
+    ws = _WORKSPACES.get((dev.index, stream))
+    if ws is None or ws.numel() < floats:
+        ws = torch.zeros((floats,), dtype=torch.float32, device=dev)
+        _WORKSPACES[(dev.index, stream)] = ws
+    return ws
+
+
+@functools.cache
+def _entry(name: str):
+    """A C entry point of the ssgd library (built at first use)."""
+    return getattr(_native.load("ssgd"), name)
+
+
 def _check_packed(X2, pack, d_total, gather_block_rows, what):
     """The JAX package's shape contract of X2 (its TPU tiling rule, a
     multiple of 8 packed rows per block, is not part of it)."""
@@ -348,21 +450,22 @@ def fused_grad_sum_gathered(X2, w_aug, block_idx, *, pack: int,
     n_s = block_idx.shape[0]
     if n_s < 1:
         raise ValueError("block_idx is empty")
-    X2 = X2.contiguous()
-    ids = block_idx.to(torch.int32).contiguous()
-    w_aug = w_aug.contiguous()
-    n_blocks = X2.shape[0] * pack // gather_block_rows
-    lib = _native.load("ssgd")
-    max_blocks = 4 * _sm_count(dev.index)
-    partial = torch.empty((max_blocks, d_total + 1), dtype=torch.float32,
-                          device=dev)
+    if block_idx.dtype != torch.int32:
+        block_idx = block_idx.to(torch.int32)
+    X2, ids, w_aug = X2.contiguous(), block_idx.contiguous(), w_aug.contiguous()
+    plan = gathered_plan(n_s * gather_block_rows, d_total, X2.dtype,
+                         _sm_count(dev.index))
+    stream = _stream(dev)
+    work = _workspace(dev, stream, plan["workspace"])
     out = torch.empty((d_total + 1,), dtype=torch.float32, device=dev)
-    rc = lib.tda_ssgd_grad_gathered(
-        X2.data_ptr(), _DTYPE_CODE[X2.dtype], ids.data_ptr(), n_s, n_blocks,
-        gather_block_rows, d_total, y_col, v_col, w_aug.data_ptr(),
-        max_blocks, partial.data_ptr(), out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _native.check(lib, rc, "fused_grad_sum_gathered")
+    rc = _entry("tda_ssgd_grad_gathered")(
+        X2.data_ptr(), _DTYPE_CODE[X2.dtype], ids.data_ptr(), n_s,
+        X2.shape[0] * pack // gather_block_rows, gather_block_rows, d_total,
+        y_col, v_col, w_aug.data_ptr(), plan["blocks"], plan["chunk"],
+        plan["stage_rows"], plan["stages"], work.data_ptr(), out.data_ptr(),
+        dev.index, stream)
+    if rc:
+        _native.check(_native.load("ssgd"), rc, "fused_grad_sum_gathered")
     fused_grad_sum_gathered.launches += 1
     return out[:d_total], out[d_total]
 
@@ -473,22 +576,20 @@ def fused_train_gathered(X2, w0, block_idx, *, pack: int, d_total: int,
     X2 = X2.contiguous()
     ids = block_idx.to(torch.int32).contiguous()
     w0, center = w0.contiguous(), center.contiguous()
-    n_blocks = X2.shape[0] * pack // gather_block_rows
-    lib = _native.load("ssgd")
-    max_blocks = 4 * _sm_count(dev.index)
-    # the blocks' partials, the step's sum, then (rows over 2048 bytes)
-    # each block's float32 master
-    partial = torch.empty(
-        ((max_blocks + 1) * (d_total + 1) + max_blocks * d_total,),
-        dtype=torch.float32, device=dev)
+    plan = gathered_plan(n_s * gather_block_rows, d_total, X2.dtype,
+                         _sm_count(dev.index))
+    stream = _stream(dev)
+    work = _workspace(dev, stream, plan["workspace"])
     w_out = torch.empty((d_total,), dtype=torch.float32, device=dev)
-    rc = lib.tda_ssgd_train(
+    rc = _entry("tda_ssgd_train")(
         X2.data_ptr(), _DTYPE_CODE[X2.dtype], ids.data_ptr(), T, n_s,
-        n_blocks, gather_block_rows, d_total, y_col, v_col, w0.data_ptr(),
-        center.data_ptr(), float(eta), float(alpha), int(skip_update),
-        max_blocks, partial.data_ptr(), w_out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _native.check(lib, rc, "fused_train_gathered")
+        X2.shape[0] * pack // gather_block_rows, gather_block_rows, d_total,
+        y_col, v_col, w0.data_ptr(), center.data_ptr(), float(eta),
+        float(alpha), int(skip_update), plan["blocks"], plan["chunk"],
+        plan["stage_rows"], plan["stages"], work.data_ptr(), w_out.data_ptr(),
+        dev.index, stream)
+    if rc:
+        _native.check(_native.load("ssgd"), rc, "fused_train_gathered")
     fused_train_gathered.launches += 1
     return w_out
 
