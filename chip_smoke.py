@@ -145,6 +145,9 @@ def check_topk_kernel(dev) -> dict:
     tied = _int_inputs(rng, 15, 48)
     poisoned = _int_inputs(rng, 200, 48)
     poisoned[150:] = 100.0
+    tie_v = _int_inputs(rng, 2000, 48)
+    tie_v[rng.choice(2000, 600, replace=False)] = 3.0
+    tie_q = rng.integers(0, 4, size=(8, 48)).astype(np.float32)
     exact = [  # (label, Q, V, index_offset, n_valid, k, block_items)
         ("crafted ties", _int_inputs(rng, 8, 48),
          np.concatenate([tied] * 3), 0, 45, 9, None),
@@ -166,6 +169,20 @@ def check_topk_kernel(dev) -> dict:
          _int_inputs(rng, 1200, 40), 0, 1200, 256, 256),
         ("k=1000 past n_valid 850", _int_inputs(rng, 6, 36),
          _int_inputs(rng, 900, 36), 7, 850, 1000, None),
+        # more scores tied with the k-th best than a queue holds (32
+        # entries at k 10, 256 at k 100): 600 copies of the best row
+        ("600 ties with the k-th best, k=10", tie_q, tie_v, 0, 2000, 10,
+         None),
+        ("600 ties with the k-th best, k=100", tie_q, tie_v, 0, 2000, 100,
+         256),
+        ("k = n_valid = 77", _int_inputs(rng, 8, 40),
+         _int_inputs(rng, 300, 40), 11, 77, 77, None),
+        ("k=100 above N=90", _int_inputs(rng, 6, 40),
+         _int_inputs(rng, 90, 40), 0, 90, 100, None),
+        ("B=1", _int_inputs(rng, 1, 64), _int_inputs(rng, 3000, 64), 0,
+         3000, 10, None),
+        ("B=33", _int_inputs(rng, 33, 64), _int_inputs(rng, 3000, 64), 2,
+         2990, 10, 256),
     ]
     for label, Q, V, off, nv, k, block_items in exact:
         Qd = torch.as_tensor(Q, device=dev)
@@ -181,7 +198,7 @@ def check_topk_kernel(dev) -> dict:
               f"equal")
 
     B, d, k = MAX_BATCH, RANK, K_TOP
-    rec = None
+    rec = {}
     for N in (ITEMS, 1 << 20):
         Qd = torch.as_tensor(rng.normal(size=(B, d)).astype(np.float32),
                              device=dev)
@@ -193,22 +210,23 @@ def check_topk_kernel(dev) -> dict:
         torch.cuda.synchronize()
         topk.assert_topk_close(gv, gi, rv, ri, rtol=1e-5)
         err = float((gv - rv[:, :k]).abs().max())
-        ms = _time_ms(lambda: topk.fused_matmul_topk(Qd, Vd, 0, N, k=k))
-        plain_ms = _time_ms(
-            lambda: topk.matmul_topk_reference(Qd, Vd, 0, N, k=k))
-        library_ms = _time_ms(lambda: torch.topk(Qd @ Vd.T, k, dim=1))
+        t = _topk_times(topk, Qd, Vd, N, k, 50)
         bound_ms, bound_by = _topk_bound_ms(B, N, d, k)
         print(f"[kernels] topk random B={B} d={d} N={N} k={k}: within the "
               f"tie-tolerance rule (rtol 1e-5), max |err| {err!r}; "
-              f"kernel {ms!r} ms, plain {plain_ms!r} ms, torch.matmul+"
-              f"torch.topk {library_ms!r} ms, bound {bound_ms!r} ms "
-              f"({bound_by}); V warm in L2 where it fits (50 MB)")
-        if N == ITEMS:  # the main path's shape
-            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": library_ms}
+              f"kernel device {t['ms']!r} ms a call (CUPTI), wall "
+              f"{t['wall_ms']!r} ms a call back to back, "
+              f"{t['launches_per_call']} launch(es) a call; plain "
+              f"{t['plain_ms']!r} ms; torch.matmul+torch.topk device "
+              f"{t['library_ms']!r} ms, wall {t['library_wall_ms']!r} ms; "
+              f"bound {bound_ms!r} ms ({bound_by}); V warm in L2 where it "
+              f"fits (50 MB), as while serving")
+        key = "" if N == ITEMS else "n1m_"   # the main path's shape first
+        rec.update({f"{key}{n}": v for n, v in t.items()})
+        rec.update({f"{key}bound_ms": bound_ms, f"{key}bound_by": bound_by,
+                    f"{key}max_abs_err": err})
         del Qd, Vd
-    # the main path's shape at k over 128 (the lists in device memory)
+    # the main path's shape at k over 128
     Qd = torch.as_tensor(rng.normal(size=(B, d)).astype(np.float32),
                          device=dev)
     Vd = torch.as_tensor(rng.normal(size=(ITEMS, d)).astype(np.float32),
@@ -218,22 +236,111 @@ def check_topk_kernel(dev) -> dict:
         torch.cuda.synchronize()
         rv, ri = topk.matmul_topk_reference(Qd, Vd, 0, ITEMS, k=kl + 1)
         topk.assert_topk_close(gv, gi, rv, ri, rtol=1e-5)
-        ms = _time_ms(lambda: topk.fused_matmul_topk(Qd, Vd, 0, ITEMS, k=kl),
-                      20, warm=2)
-        plain_ms = _time_ms(
-            lambda: topk.matmul_topk_reference(Qd, Vd, 0, ITEMS, k=kl), 20,
-            warm=2)
-        library_ms = _time_ms(lambda: torch.topk(Qd @ Vd.T, kl, dim=1), 20,
-                              warm=2)
+        t = _topk_times(topk, Qd, Vd, ITEMS, kl, 20)
         bound_ms, bound_by = _topk_bound_ms(B, ITEMS, d, kl)
         print(f"[kernels] topk random B={B} d={d} N={ITEMS} k={kl}: within "
-              f"the tie-tolerance rule; kernel {ms!r} ms, plain "
-              f"{plain_ms!r} ms, torch.matmul+torch.topk {library_ms!r} ms, "
+              f"the tie-tolerance rule; kernel device {t['ms']!r} ms, wall "
+              f"{t['wall_ms']!r} ms, {t['launches_per_call']} launch(es) a call; "
+              f"plain {t['plain_ms']!r} ms; torch.matmul+torch.topk device "
+              f"{t['library_ms']!r} ms, wall {t['library_wall_ms']!r} ms; "
               f"bound {bound_ms!r} ms ({bound_by})")
-        rec.update({f"k{kl}_ms": ms, f"k{kl}_plain_ms": plain_ms,
-                    f"k{kl}_library_ms": library_ms,
-                    f"k{kl}_bound_ms": bound_ms})
+        rec.update({f"k{kl}_{n}": v for n, v in t.items()})
+        rec[f"k{kl}_bound_ms"] = bound_ms
+    rec["sass"] = topk_sass()
     return rec
+
+
+def _topk_times(topk, Qd, Vd, N: int, k: int, calls: int) -> dict:
+    """B9 and its library line on the same inputs: device ms a call
+    (CUPTI, ``tools/topk_profile``'s method: the kernel's own time, no
+    host gaps), wall ms a call back to back (host clock, ending in a
+    synchronize), the kernel's launches a call, and the plain version's
+    time. Raises unless B9 is one launch a call: the wrapper's counter
+    over the calls, and one kernel in the profile (CUPTI may drop an
+    event, so its count is not held)."""
+    import torch
+
+    from tpu_distalg_torch.tools.topk_profile import _profile
+
+    before = topk.fused_matmul_topk.launches
+    wall, act = _profile(lambda: topk.fused_matmul_topk(Qd, Vd, 0, N, k=k),
+                         calls)
+    # _profile makes 5 warm-up calls, then the timed and the traced calls
+    launches = (topk.fused_matmul_topk.launches - before) / (5 + 2 * calls)
+    kernels = [name for name in act if "topk" in name]
+    if launches != 1 or len(kernels) != 1:
+        raise AssertionError(f"B9 at N={N} k={k}: {launches} launches a "
+                             f"call and kernels {kernels}, not one")
+    lib_wall, lib_act = _profile(lambda: torch.topk(Qd @ Vd.T, k, dim=1),
+                                 calls)
+    return {"ms": sum(t for name, (t, _) in act.items() if "topk" in name)
+            / calls / 1e3,
+            "wall_ms": wall, "launches_per_call": launches,
+            "plain_ms": _time_ms(
+                lambda: topk.matmul_topk_reference(Qd, Vd, 0, N, k=k),
+                20 if k > K_TOP else 200, warm=2),
+            "library_ms": sum(t for t, _ in lib_act.values()) / calls / 1e3,
+            "library_wall_ms": lib_wall}
+
+
+def _sass_counts(lib_name: str, keys: dict, ops: tuple) -> dict:
+    """For the kernels of ``build/kernels/lib<lib_name>`` whose mangled
+    names hold ``keys``' values: the count of each SASS opcode of ``ops``
+    (``cuobjdump -sass``) and their registers a thread and stack and
+    local bytes (spills; ``cuobjdump -res-usage``)."""
+    from tpu_distalg_torch.ops import _native
+
+    tool = os.path.join(os.path.dirname(_native.find_nvcc()), "cuobjdump")
+    lib = _native._lib_path(lib_name)
+
+    def dump(flag):
+        return subprocess.run([tool, flag, lib], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+
+    def which(line):
+        return next((k for k, key in keys.items() if key in line), None)
+
+    out = {k: {op: 0 for op in ops} for k in keys}
+    name = None
+    for line in dump("-sass").splitlines():
+        if "Function :" in line:
+            name = which(line)
+        elif name is not None:
+            for op in ops:
+                out[name][op] += op in line
+    name = None
+    for line in dump("-res-usage").splitlines():
+        if line.strip().startswith("Function "):
+            name = which(line)
+        elif name is not None and "REG:" in line:
+            fields = dict(f.split(":", 1) for f in line.split()
+                          if ":" in f and not f.startswith("CONSTANT"))
+            out[name].update(registers=int(fields["REG"]),
+                             stack_bytes=int(fields["STACK"]),
+                             local_bytes=int(fields["LOCAL"]))
+            name = None
+    return out
+
+
+def topk_sass() -> dict:
+    """Phase 3's build check of B9: for each of its kernels (shape A and
+    shape B, 64- and 256-entry queues, 16- and 4-byte copies, lists in
+    shared or, past k 1092, in device memory), the
+    LDGSTS (cp.async) and UBLKCP (bulk copy) instructions in its SASS,
+    its registers and spill bytes. Raises unless the main path's kernel
+    (shape B, 64-entry queues, 16-byte copies) issues cp.async."""
+    keys = {f"{shape}_q{q}_{'v16' if v else 'v4'}{'' if sl else '_glist'}":
+            f"topk_kernelILi4ELi{ti}ELi{qg}ELi{q // 32}ELb{int(v)}ELb{int(sl)}E"
+            for shape, ti, qg in (("A", 4, 8), ("B", 2, 2))
+            for q in (64, 256) for v in (True, False) for sl in (True, False)
+            if not (shape == "A" and q == 256) and (sl or q == 256)}
+    out = _sass_counts("topk", keys, ("LDGSTS", "UBLKCP"))
+    print(f"[kernels] topk SASS (LDGSTS = cp.async, UBLKCP = bulk copies; "
+          f"registers a thread, stack and local bytes = spills): "
+          f"{json.dumps(out)}")
+    if not out["B_q64_v16"]["LDGSTS"]:
+        raise AssertionError(f"B9's main kernel has no LDGSTS: {out}")
+    return out
 
 
 def check_als_small(dev) -> None:
@@ -593,45 +700,18 @@ def _bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
 
 
 def ssgd_sass() -> dict:
-    """Phase 6's build check: for B1's and B2's ring kernels at the main
-    shape (bf16, 2 vectors a lane, 8 lanes a row), the UBLKCP (bulk copy)
-    instructions in their SASS and their registers and spill bytes
-    (``cuobjdump -sass`` and ``-res-usage``). Raises unless both issue
-    bulk copies."""
-    from tpu_distalg_torch.ops import _native
-
-    tool = os.path.join(os.path.dirname(_native.find_nvcc()), "cuobjdump")
-    lib = _native._lib_path("ssgd")
+    """Phase 6's and 9's build check: for B1's, B2's and B3's ring
+    kernels at the main shape (bf16; B1 and B2 2 vectors a lane, 8 lanes
+    a row; B3 4 vectors a lane, 4 lanes a row),
+    the UBLKCP (bulk copy) and LDGSTS (cp.async) instructions in their
+    SASS and their registers and spill bytes (``cuobjdump -sass`` and
+    ``-res-usage``). Raises unless all three issue bulk copies."""
     keys = {"B1": "grad_ring_kernelI13__nv_bfloat16Li2ELi8E",
-            "B2": "train_ring_kernelI13__nv_bfloat16Li2ELi8E"}
-
-    def dump(flag):
-        return subprocess.run([tool, flag, lib], capture_output=True,
-                              text=True, timeout=120, check=True).stdout
-
-    def which(line):
-        return next((k for k, key in keys.items() if key in line), None)
-
-    out = {k: {"UBLKCP": 0} for k in keys}
-    name = None
-    for line in dump("-sass").splitlines():
-        if "Function :" in line:
-            name = which(line)
-        elif name is not None:
-            out[name]["UBLKCP"] += "UBLKCP" in line
-    name = None
-    for line in dump("-res-usage").splitlines():
-        if line.strip().startswith("Function "):
-            name = which(line)
-        elif name is not None and "REG:" in line:
-            fields = dict(f.split(":", 1) for f in line.split()
-                          if ":" in f and not f.startswith("CONSTANT"))
-            out[name].update(registers=int(fields["REG"]),
-                             stack_bytes=int(fields["STACK"]),
-                             local_bytes=int(fields["LOCAL"]))
-            name = None
-    print(f"[kernels] ssgd SASS of B1's and B2's ring kernels at the main "
-          f"shape (UBLKCP = bulk copies; registers a thread, stack and "
+            "B2": "train_ring_kernelI13__nv_bfloat16Li2ELi8E",
+            "B3": "forward_ring_kernelI13__nv_bfloat16Li4ELi4E"}
+    out = _sass_counts("ssgd", keys, ("UBLKCP", "LDGSTS"))
+    print(f"[kernels] ssgd SASS of B1's, B2's and B3's ring kernels at the "
+          f"main shape (UBLKCP = bulk copies; registers a thread, stack and "
           f"local bytes = spills): {json.dumps(out)}")
     for k, c in out.items():
         if not c["UBLKCP"]:
@@ -803,6 +883,7 @@ def ssgd_kernel_records(dev, X_f32, y_f32, mask, w_plain, X2, meta, ids_all,
     sass = ssgd_sass()
     for key in ("B1", "B2"):
         recs[key]["sass"] = sass[key]
+    recs["B3_sass"] = sass["B3"]   # phase 9's kernel, built in this library
     return recs
 
 
@@ -1007,14 +1088,23 @@ TP_WIDE_ROWS, TP_WIDE_D, TP_WIDE_GBR, TP_WIDE_STEPS, TP_WIDE_REPEATS = (
 TP_TAIL, TP_TAIL_MEANS = 200, 0.03
 
 
-def tp_kernel_records(dev, X2m, wm, ids, meta, gbr) -> dict:
+def tp_kernel_records(dev, X2m, wm, ids, meta, gbr, draws=None) -> dict:
     """B3 and B4 on one model slice at a path's shape: against their
     plain versions, timed beside them, the library yardstick (the
     sampled blocks by ``index_select``, then ``torch.mv`` in bf16) and
-    the bound."""
+    the bound. With ``draws`` (the trainer's block ids, one row a step)
+    B3 and its library line are timed over them in turn, so the rows
+    come cold from device memory as a step finds them: device time with
+    the calls queued behind a sleeping kernel, wall time apart; without,
+    on ``ids`` each call."""
     import torch
 
     from tpu_distalg_torch.ops import ssgd_kernels as tk
+    from tpu_distalg_torch.tools.ssgd_gathered_timing import (
+        B1_DRAWS,
+        LIB_DRAWS,
+        rotating_ms,
+    )
 
     P, D = meta["pack"], meta["d_total"]
     kw = dict(pack=P, d_total=D, y_col=meta["y_col"], v_col=meta["v_col"],
@@ -1050,12 +1140,33 @@ def tp_kernel_records(dev, X2m, wm, ids, meta, gbr) -> dict:
     b4 = _bound_ms(x_bytes + 4 * (ids.shape[0] + rows + D), 2 * rows * D)
     n_k = 200 if x_bytes < 1e8 else 20
     n_p = 20 if x_bytes < 1e8 else 5
-    return {
-        "B3": dict(max_abs_err=e3, ms=_time_ms(
+    if draws is None:
+        t3 = dict(ms=_time_ms(
             lambda: tk.fused_forward_gathered(X2m, wm, ids, **kw), n_k),
+            library_ms=_time_ms(lib3, n_p, warm=2))
+    else:
+        mine = rotating_ms(
+            lambda d: tk.fused_forward_gathered(X2m, wm, d, **kw),
+            list(draws[:B1_DRAWS]))
+        lib = rotating_ms(
+            lambda d: torch.mv(torch.index_select(blocks, 0, d)
+                               .reshape(-1, D), w16),
+            list(draws[:LIB_DRAWS].long()))
+        t3 = dict(ms=mine["device_ms"], wall_ms=mine["wall_ms"],
+                  library_ms=lib["device_ms"],
+                  library_wall_ms=lib["wall_ms"],
+                  gapless=mine["gapless"] and lib["gapless"])
+        print(f"[kernels] ssgd B3 over the trainer's first {B1_DRAWS} draws "
+              f"in turn (cold rows): device {t3['ms']!r} ms a call (calls "
+              f"queued behind a sleeping kernel), wall {t3['wall_ms']!r} ms "
+              f"a call back to back; library line over {LIB_DRAWS} draws: "
+              f"device {t3['library_ms']!r} ms, wall "
+              f"{t3['library_wall_ms']!r} ms; every call queued before the "
+              f"sleep ended: {t3['gapless']}")
+    return {
+        "B3": dict(max_abs_err=e3, **t3,
             plain_ms=_time_ms(lambda: tk.forward_gathered_reference(
                 X2m, wm, ids, **kw), n_p, warm=2),
-            library_ms=_time_ms(lib3, n_p, warm=2),
             bound_ms=b3[0], bound_by=b3[1], bytes=x_bytes),
         "B4": dict(max_abs_err=e4, ms=_time_ms(
             lambda: tk.fused_backward_gathered(X2m, resid, ids, **bkw), n_k),
@@ -1159,6 +1270,7 @@ def run_ssgd_tp(dev, sg: dict) -> dict:
 
     from tpu_distalg_torch.models import ssgd
     from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.tools.ssgd_gathered_timing import trainer_draws
 
     X, y = sg["X"], sg["y"]
     cfg = ssgd.SSGDConfig(
@@ -1230,7 +1342,8 @@ def run_ssgd_tp(dev, sg: dict) -> dict:
         if name == "1x1":
             out["main"] = tp_kernel_records(
                 dev, X2[0], w0.view(n_model, D)[0],
-                _first_step_ids(cfg, meta, n_data, dev), meta, SSGD_GBR)
+                _first_step_ids(cfg, meta, n_data, dev), meta, SSGD_GBR,
+                draws=trainer_draws(cfg, meta, dev))
             del fn_one
         else:
             with tempfile.TemporaryDirectory(prefix="chip-smoke-") as ck:
@@ -2761,6 +2874,7 @@ def main() -> int:
             "source": ssgd_src, "replaces": f"{pallas}:{line}",
             "launches": tp["main_launches"][name],
             **{k: v for k, v in main.items() if k != "bytes"},
+            **({"sass": sg["recs"]["B3_sass"]} if key == "B3" else {}),
             **{f"wide_{k}": v for k, v in wide.items()
                if k in ("ms", "plain_ms", "library_ms", "bound_ms")}})
     for key, name, line, path in (("B7", "spmv_table", 457, "auto"),

@@ -99,6 +99,69 @@ def test_b3_b4_on_card(case, kind, cuda_device):
     assert torch.equal(g, tk.fused_backward_gathered(X2, r, ids, **bkw))
 
 
+#: B3 on the ring's edges: (rows, features, pack, gather_block_rows,
+#: sampled blocks), in either dtype. On an H100 (132 SMs) a block's chunk
+#: of rows crosses sampled-block boundaries in each, and in most is not a
+#: multiple of a stage; D 512 is the ring's widest float32 row (2048
+#: bytes). Their packed blocks are multiples of 8 rows, so
+#: ``tests/test_torch_ssgd_tp_kernels.py`` holds the same shapes against
+#: the JAX package. B3_CARD_EDGES adds pack 1, whose last stage's run of
+#: zyv is not a multiple of 4 floats.
+B3_EDGES = [(1300, 30, 4, 32, 40), (20000, 126, 16, 128, 150),
+            (13000, 70, 16, 128, 100), (3300, 510, 4, 32, 100)]
+B3_CARD_EDGES = B3_EDGES + [(3000, 126, 1, 30, 77)]
+
+
+def b3_edge_case(case, dtype, kind, device):
+    """(X2, w, ids, kw, n_blocks) for a B3_EDGES case: ids drawn with one
+    block repeated, then -1 and n_blocks (outside [0, n_blocks))."""
+    n, d, pack, gbr, n_s = case
+    rng = np.random.default_rng(n_s + d)
+    X = (rng.integers(-3, 4, size=(n, d)) if kind == "exact"
+         else rng.normal(size=(n, d))).astype(np.float32)
+    y = rng.integers(0, 2, n).astype(np.float32)
+    X2, meta = tk.pack_augmented(X, y, np.ones(n, np.float32), dtype=dtype,
+                                 pack=pack, block_rows=gbr, device=device)
+    D = meta["d_total"]
+    n_blocks = meta["n_padded"] // gbr
+    w = np.zeros(D, np.float32)
+    w[:d] = (rng.integers(-3, 4, size=d) if kind == "exact"
+             else rng.normal(size=d) * 0.1)
+    ids = rng.integers(0, n_blocks, n_s)
+    ids[-1] = ids[0]
+    ids = np.concatenate([ids, [-1, n_blocks]]).astype(np.int32)
+    kw = dict(pack=pack, d_total=D, y_col=meta["y_col"], v_col=meta["v_col"],
+              gather_block_rows=gbr)
+    return (X2, torch.as_tensor(w, device=device),
+            torch.as_tensor(ids, device=device), kw, n_blocks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["exact", "random"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", B3_CARD_EDGES,
+                         ids=[f"D{c[1] + 2}-p{c[2]}-gbr{c[3]}"
+                              for c in B3_CARD_EDGES])
+def test_b3_ring_edges_on_card(case, dtype, kind, cuda_device):
+    """B3 against its plain version where the ring's chunks cross
+    sampled blocks and stages are part-full; a repeated block appears
+    each time, and the rows of a block id outside [0, n_blocks) are
+    zeros. A second launch equals the first bit for bit."""
+    X2, w, ids, kw, n_blocks = b3_edge_case(case, dtype, kind, cuda_device)
+    pack, gbr = kw["pack"], kw["gather_block_rows"]
+    plan = tk.forward_plan(ids.shape[0] * gbr, kw["d_total"], X2.dtype, pack,
+                           torch.cuda.get_device_properties(
+                               cuda_device).multi_processor_count)
+    assert plan["ring"]
+    zyv = tk.fused_forward_gathered(X2, w, ids, **kw)
+    ok = (ids >= 0) & (ids < n_blocks)
+    want = tk.forward_gathered_reference(X2, w, torch.where(ok, ids, 0),
+                                         **kw)
+    want = want.reshape(ids.shape[0], -1) * ok.view(-1, 1).float()
+    _close(zyv, want.reshape(-1, 3 * pack), kind)
+    assert torch.equal(zyv, tk.fused_forward_gathered(X2, w, ids, **kw))
+
+
 @pytest.mark.gpu
 def test_b3_b4_wrappers_raise_on_the_card(cuda_device):
     """Mixed devices, rows that are not whole 16-byte vectors, rows past

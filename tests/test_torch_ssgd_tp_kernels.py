@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ssgd_tp_card import B3_EDGES, b3_edge_case
 from tpu_distalg.models import ssgd as jssgd
 from tpu_distalg.ops import pallas_kernels as pk
 from tpu_distalg_torch import convert
@@ -128,6 +129,94 @@ def test_b3_then_b4_is_b1(dtype):
     np.testing.assert_allclose(g[:yc].numpy(), g1[:yc].numpy(), rtol=0,
                                atol=1e-6 * float(g1[:yc].abs().max()))
     assert float(v.sum()) == float(c1)
+
+
+#: the SM count of an H100 SXM, for the plans the card will run
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("kind", ["exact", "random"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", B3_EDGES,
+                         ids=[f"D{c[1] + 2}-p{c[2]}-gbr{c[3]}"
+                              for c in B3_EDGES])
+def test_b3_ring_edges_match_jax(case, dtype, kind):
+    """The card tests' B3 edge shapes (a block's chunk of rows crosses
+    sampled-block boundaries on an H100) through the plain version
+    against JAX's kernel, a repeated block included; JAX's kernel takes
+    only ids in [0, n_blocks), so the out-of-range ids are left out."""
+    X2t, w, ids, kw, _ = b3_edge_case(case, dtype, kind, "cpu")
+    ids = ids[:-2]
+    plan = tk.forward_plan(ids.shape[0] * kw["gather_block_rows"],
+                           kw["d_total"], X2t.dtype, kw["pack"], H100_SMS)
+    assert plan["ring"] and plan["chunk"] % kw["gather_block_rows"]
+    X2j = jnp.asarray(X2t.float().numpy()).astype(DTYPES[dtype][1])
+    want = pk.fused_forward_gathered(X2j, jnp.asarray(w.numpy()),
+                                     jnp.asarray(ids.numpy()),
+                                     interpret=True, **kw)
+    got = tk.fused_forward_gathered(X2t, w, ids, **kw)
+    _hold(got.numpy(), want, kind)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_b3_edges_leave_stages_part_full(dtype):
+    """In most edge shapes a block's chunk is not a multiple of a stage,
+    so its last stage is part-full."""
+    part = 0
+    for case in B3_EDGES:
+        X2, _, ids, kw, _ = b3_edge_case(case, dtype, "exact", "cpu")
+        plan = tk.forward_plan((ids.shape[0] - 2) * kw["gather_block_rows"],
+                               kw["d_total"], X2.dtype, kw["pack"], H100_SMS)
+        part += plan["chunk"] % plan["stage_rows"] != 0
+    assert part >= len(B3_EDGES) - 1
+
+
+@pytest.mark.parametrize("n_rows,d_total,dtype,pack,n_sm", [
+    (106_496, 128, "bfloat16", 16, 132),    # main geometry at 1×1
+    (106_496, 72, "bfloat16", 16, 132),     # 1×2: 9 vectors a row
+    (106_496, 128, "bfloat16", 16, 114),    # another card
+    (64, 32, "float32", 4, 132),            # breast cancer at pack 4
+    (1280, 32, "float32", 4, 132),          # chunk shorter than a stage
+    (3200, 512, "float32", 4, 132),         # 2048-byte rows: the widest
+    (2310, 128, "bfloat16", 1, 132),        # pack 1
+    (7 * 48, 128, "bfloat16", 48, 8),       # pack 48: stages of lcm(64, 48)
+])
+def test_forward_plan_covers_every_row_once(n_rows, d_total, dtype, pack,
+                                            n_sm):
+    """B3's ring plan: every sampled row falls in exactly one block, a
+    block's chunk and a stage are multiples of pack (one block writes
+    each packed zyv row) and of 4 (16-byte stores), a stage is a
+    multiple of a consumer pass and at most 1024 rows, at most one block
+    an SM, the shared memory fits 227 KB, and nothing in the plan comes
+    from anything but the shapes and the SM count."""
+    plan = tk.forward_plan(n_rows, d_total, dtype, pack, n_sm)
+    assert plan["ring"]
+    chunk, stage, blocks = plan["chunk"], plan["stage_rows"], plan["blocks"]
+    assert (blocks - 1) * chunk < n_rows <= blocks * chunk <= n_rows + chunk
+    assert blocks <= n_sm
+    assert chunk % pack == 0 and chunk % 4 == 0
+    assert stage % pack == 0 and stage % 4 == 0 and stage <= 1024
+    assert stage % (tk.RING_WARPS * (32 // plan["lanes"])) == 0
+    assert plan["lanes"] * plan["vpl"] >= plan["vectors"]
+    assert 2 <= plan["stages"] <= tk.RING_MAX_STAGES
+    assert plan["smem"] <= tk.SMEM_MAX
+    assert plan == tk.forward_plan.__wrapped__(n_rows, d_total, dtype, pack,
+                                               n_sm)
+
+
+@pytest.mark.parametrize("n_rows,d_total,dtype,pack", [
+    (32_768, 4104, "bfloat16", 16),   # wide 2×2: 8208-byte rows
+    (4096, 1024, "float32", 4),       # 4096-byte rows
+    (2000, 128, "bfloat16", 1000),    # no stage of at most 1024 rows
+])
+def test_forward_plan_takes_the_wide_body_past_the_ring(n_rows, d_total,
+                                                        dtype, pack):
+    """Rows over 2048 bytes, or a pack no stage holds, keep the wide body
+    on tp_kernel_plan's grid."""
+    plan = tk.forward_plan(n_rows, d_total, dtype, pack, 132)
+    assert not plan["ring"] and plan["stage_rows"] == 0
+    assert plan["blocks"] == tk.tp_kernel_plan(n_rows, d_total,
+                                               dtype)["fwd_blocks"]
 
 
 def test_b3_b4_wrappers_validate_like_jax():

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_topk_card import EXACT, exact_case
+from test_torch_topk_card import EXACT, PLAN_CASES, exact_case
 from tpu_distalg.ops import pallas_topk as pt
 from tpu_distalg_torch.ops import topk
 
@@ -79,8 +79,8 @@ def test_reference_matches_jax_on_random_inputs(b, d, n, k, off, nv):
 
 @pytest.mark.parametrize("k,n,nv", [(200, 640, 600), (300, 280, 260)])
 def test_reference_matches_jax_at_k_over_128(k, n, nv):
-    """k above the kernel's shared-memory lists (128): k 200, and k 300
-    beyond the 260 valid rows, whose tail is (−inf, 2³¹−1)."""
+    """k past 128, where the kernel's queues hold 256 entries: k 200, and
+    k 300 beyond the 260 valid rows, whose tail is (−inf, 2³¹−1)."""
     rng = np.random.default_rng(k)
     Q = rng.normal(size=(6, 24)).astype(np.float32)
     V = rng.normal(size=(n, 24)).astype(np.float32)
@@ -158,3 +158,64 @@ def test_tie_tolerance_rule_holds_separated_ranks_only():
     off[1, 1] += 1e-2
     with pytest.raises(AssertionError, match="value"):
         topk.assert_topk_close(off, i, rv, ri)
+
+
+#: the SM count of an H100 SXM, for the plans the card will run
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("B,N,k,block_items,n_sm", PLAN_CASES)
+def test_topk_plan_covers_every_item_once(B, N, k, block_items, n_sm):
+    """Every item falls in exactly one block's range and every query in
+    one query tile; ranges are multiples of 128 (``block_items`` when
+    given, else at least 4·k and a sub-tile); nothing in the plan comes
+    from anything but the shapes and the SM count. (The kernel lays out
+    its shared memory and workspace itself: ``test_torch_topk_card.py``
+    holds those to 227 KB.)"""
+    plan = topk.topk_plan(B, N, k, block_items, n_sm)
+    r, nr, qt, nq = (plan["range_items"], plan["n_ranges"],
+                     plan["queries"], plan["q_tiles"])
+    assert r % topk.TILE_ITEMS == 0
+    assert (nr - 1) * r < N <= nr * r
+    assert (nq - 1) * qt < B <= nq * qt
+    assert plan["blocks"] == nq * nr
+    if block_items is not None:
+        assert r == block_items
+    else:
+        assert r >= min(4 * k, N) and r >= min(plan["sub_items"], N)
+    assert qt == topk.TILE_QUERIES[plan["shape"]]
+    assert plan["sub_items"] == topk.SUB_TILE_ITEMS[plan["shape"]]
+    assert plan["shape"] == 1 or k <= topk.SHAPE_A_MAX_K
+    assert plan == topk.topk_plan.__wrapped__(B, N, k, block_items, n_sm)
+
+
+def test_topk_plan_shapes_follow_the_work():
+    """Shape A (32 queries a block) where the card has work for every SM
+    at four sub-tiles a block; shape B (8 queries) at the serving shape,
+    where 128 blocks of one A sub-tile would leave a long merge."""
+    assert topk.topk_plan(32, 1 << 20, 10, None, H100_SMS)["shape"] == 0
+    serving = topk.topk_plan(32, 16384, 10, None, H100_SMS)
+    assert serving["shape"] == 1 and serving["blocks"] <= H100_SMS
+    assert topk.topk_plan(32, 1 << 20, 65, None, H100_SMS)["shape"] == 1
+
+
+def test_workspace_cache_grows_and_keeps_tags_apart():
+    """The kernels' shared workspace cache: one tensor a (tag, device,
+    stream), zeros when new, kept while it is large enough, replaced by
+    a larger one of zeros when a launch needs more."""
+    from tpu_distalg_torch.ops import _native
+
+    dev = torch.device("cpu")
+    keys = [(tag, None, s) for tag in ("t state", "t lists") for s in (7, 8)]
+    try:
+        a = _native.workspace("t state", dev, 7, 10, torch.int32)
+        assert a.numel() == 10 and not a.any()
+        a[3] = 5
+        assert _native.workspace("t state", dev, 7, 4, torch.int32) is a
+        assert _native.workspace("t lists", dev, 7, 4, torch.int32) is not a
+        assert _native.workspace("t state", dev, 8, 4, torch.int32) is not a
+        c = _native.workspace("t state", dev, 7, 11, torch.int32)
+        assert c.numel() == 11 and not c.any()
+    finally:
+        for key in keys:
+            _native._WORKSPACES.pop(key, None)

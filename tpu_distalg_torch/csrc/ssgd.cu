@@ -104,14 +104,21 @@
 //     Wider: a pass that writes each row's residual (float32), then a pass
 //     over (row chunk, column tile) blocks, each adding its chunk's rows
 //     in row order, and reduce_partials over the chunks in a fixed order.
-//   * B3 and B4 take rows of any width (the tp split exists for rows too
-//     wide for one card's data-parallel layout): G = the least power of
-//     two >= L (at most 32) lanes own a row, a lane one 16-byte vector.
-//     B3 on rows of at most 32 vectors keeps its vector of w in
-//     registers and holds 4 rows in flight; on longer rows a warp reads
-//     a row in turns of 32 vectors against w cast to X's type in shared
-//     memory. Each row's z is one lane group's fixed-order butterfly, so
-//     B3's results do not depend on the grid. B4 gives each block one
+//   * B3 on rows of at most 2048 bytes runs on B1's ring: the same
+//     producer (ring_produce), slots and barriers (ring_layout, with room
+//     for two stages of packed zyv rows), and its own consumer body: a
+//     lane group sums a row's z from the slot against w cast to X's type
+//     (VPL vectors a lane, then the group's butterfly, so z depends on the
+//     row's shape alone), lane 0 puts (z, y, v) into the stage's packed
+//     zyv rows in shared memory, and the consumers store the stage's rows
+//     in 16-byte stores. Its plan (ops/ssgd_kernels.py::forward_plan, from
+//     the shapes and the SM count) makes a block's chunk and a stage
+//     multiples of P and of 4, so one block writes each packed zyv row and
+//     each stage's rows are one aligned run of zyv. No fold, no ticket.
+//     Wider rows (or a P that no stage fits) take forward_wide_kernel: a
+//     warp a row, in turns of 32 vectors against w in shared memory.
+//   * B4 takes rows of any width: G = the least power of two >= L (at most
+//     32) lanes own a row, a lane one 16-byte vector, and each block one
 //     column tile (G vectors) of one chunk of rows; a lane adds its rows
 //     in row order, the block folds its lane groups and warps in a fixed
 //     order and writes its partial, and a second launch adds the chunks'
@@ -503,10 +510,11 @@ struct RingArgs {
 // Byte offsets in the dynamic shared memory: the ring (stages ·
 // stage_bytes), the slots' full and empty barriers, the slots' row masks,
 // then w (D floats), red (kRingWarps·D + kRingWarps), scratch
-// (max(4·kRingConsumers, Wp)) and a flag. ops/ssgd_kernels.py::_ring_smem
-// computes the same total.
+// (max(4·kRingConsumers, Wp)), a flag and B3's out_floats of packed zyv
+// rows (none for B1 and B2). ops/ssgd_kernels.py::_ring_smem computes the
+// same total.
 struct RingLayout {
-  int full, empty, mask, w, red, scratch, flag, bytes;
+  int full, empty, mask, w, red, scratch, flag, out, bytes;
 };
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
@@ -515,7 +523,8 @@ __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 __host__ __device__ inline int partial_width(int D) { return (D + 4) / 4 * 4; }
 
 __host__ __device__ inline RingLayout ring_layout(int D, int stage_bytes,
-                                                  int stages) {
+                                                  int stages,
+                                                  int out_floats = 0) {
   const int Wp = partial_width(D);
   RingLayout l;
   int o = stages * stage_bytes;
@@ -532,7 +541,8 @@ __host__ __device__ inline RingLayout ring_layout(int D, int stage_bytes,
   l.scratch = o;
   o += 4 * (4 * kRingConsumers > Wp ? 4 * kRingConsumers : Wp);
   l.flag = o;
-  l.bytes = o + 16;
+  l.out = o + 16;
+  l.bytes = l.out + 4 * out_floats;
   return l;
 }
 
@@ -1400,9 +1410,9 @@ cudaError_t launch_grad(const void* X, const float* y, const float* mask,
 
 // ------------------------------------------------------------ B3 and B4
 
-constexpr int kTpU = 4;  // rows a lane group holds in flight (B3, B4)
+constexpr int kTpU = 4;  // rows a lane group holds in flight (B4)
 
-// Lanes that own a row of L vectors (tp_kernel_plan's G).
+// Lanes that own a row of L vectors in B4 (tp_kernel_plan's G).
 __host__ __device__ inline int tp_lanes(int L) {
   int G = 1;
   while (G < L && G < 32) G <<= 1;
@@ -1428,56 +1438,110 @@ __device__ __forceinline__ void write_zyv(float* zyv, int P, int i, float z,
   o[2 * P] = v;
 }
 
-// B3 on rows of at most 32 vectors: G lanes a row, one vector a lane,
-// kTpU rows in flight; a grid-stride loop over the sampled rows.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    forward_narrow_kernel(const T* __restrict__ X, const int* __restrict__ ids,
-                          int n_blocks, int gbr, int L, int G, int y_col,
-                          int v_col, int P, const float* __restrict__ w,
-                          int rows_total, float* __restrict__ zyv) {
+// B3 on rows of at most 2048 bytes, on B1's ring: the producer lane
+// (ring_produce) copies the block's sampled rows [k·chunk, (k+1)·chunk)
+// into the ring slots; a consumer lane group of G lanes takes a row of the
+// slot, VPL (kFwdVPL) 16-byte vectors a lane, and sums z = Σ x·w (w cast to X's
+// type) in vector order, then the group's fixed-order butterfly, so z
+// depends on the row's shape alone. Lane 0 of the group writes the row's
+// (z, y, v), y and v read from the slot, into the slot's packed zyv rows
+// in shared memory (two buffers, by stage parity); the consumers then
+// store the stage's 3·n floats, a contiguous run of zyv since a stage
+// starts at a multiple of P and of 4, in 16-byte stores. An absent row
+// (its block id outside [0, n_blocks)) gives zeros. Rows are independent:
+// no partials, no fold, no ticket.
+template <typename T, int VPL, int G>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    forward_ring_kernel(RingArgs a, const float* __restrict__ w, int P,
+                        float* __restrict__ zyv) {
   constexpr int N = Vec<T>::N;
+  constexpr int R = 32 / G;
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  const int D = a.D;
+  const int stage_bytes = a.stage_rows * a.row_bytes;
+  const RingLayout lay =
+      ring_layout(D, stage_bytes, a.stages, 6 * a.stage_rows);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_smem + lay.full);
+  uint64_t* empty = reinterpret_cast<uint64_t*>(ring_smem + lay.empty);
+  uint32_t* mask = reinterpret_cast<uint32_t*>(ring_smem + lay.mask);
+  float* w_s = reinterpret_cast<float*>(ring_smem + lay.w);
+  float* outs = reinterpret_cast<float*>(ring_smem + lay.out);
+  const int r0 = blockIdx.x * a.chunk;
+  const int r1 = min(r0 + a.chunk, a.rows_total);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kRingWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kRingConsumers) {
+    if (threadIdx.x == kRingConsumers)
+      ring_produce(a, 1, r0, r1, ring_smem, full, empty, mask);
+    return;
+  }
+  for (int j = threadIdx.x; j < D; j += kRingConsumers) w_s[j] = w[j];
+  consumer_sync<kRingConsumers>();
+  float wq[VPL][N];
+  load_wq<T, VPL>(w_s, a.L, G, D, wq);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int R = 32 / G;
+  const int grp = lane / G;
   const int li = lane % G;
-  const int D = L * N;
-  float wq[N];
-#pragma unroll
-  for (int e = 0; e < N; ++e)
-    wq[e] = li < L ? Vec<T>::quant(w[li * N + e]) : 0.0f;
-  // rows_total < 2^31 and the grid is at most TP_MAX_FWD_BLOCKS blocks,
-  // so base + kTpU · groups stays below 2^31 + 2^21
-  const long long groups = static_cast<long long>(gridDim.x) * kWarps * R;
-  const long long gid =
-      (static_cast<long long>(blockIdx.x) * kWarps + warp) * R + lane / G;
-  for (long long base = 0; base < rows_total; base += groups * kTpU) {
-    uint4 raw[kTpU];
-    float yv[kTpU], vv[kTpU];
-#pragma unroll
-    for (int u = 0; u < kTpU; ++u) {
-      const long long i = base + u * groups + gid;
-      const long long r =
-          i < rows_total ? sampled_row(ids, n_blocks, gbr, static_cast<int>(i))
-                         : -1;
-      const T* row = X + (r < 0 ? 0 : r) * D;
-      raw[u] = r >= 0 && li < L
-                   ? __ldg(reinterpret_cast<const uint4*>(row + li * N))
-                   : make_uint4(0u, 0u, 0u, 0u);
-      yv[u] = r >= 0 && li == 0 ? Vec<T>::scalar(row + y_col) : 0.0f;
-      vv[u] = r >= 0 && li == 0 ? Vec<T>::scalar(row + v_col) : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < kTpU; ++u) {
-      float x[N];
-      Vec<T>::unpack(raw[u], x);
+  const uint32_t p_inv = 0xffffffffu / static_cast<uint32_t>(P) + 1u;  // P > 1
+  int slot = 0, phase = 0, buf = 0;
+  for (int i0 = r0; i0 < r1; i0 += a.stage_rows) {
+    const int n = min(a.stage_rows, r1 - i0);
+    float* ob = outs + buf * 3 * a.stage_rows;
+    mbar_wait(full + slot, phase);
+    const unsigned char* st =
+        ring_smem + static_cast<size_t>(slot) * stage_bytes;
+    const uint32_t* m = mask + slot * kMaskWords;
+    for (int base = 0; base < n; base += kRingWarps * R) {
+      const int r = base + warp * R + grp;
+      const bool ok = r < n && ((m[r >> 5] >> (r & 31)) & 1u);
+      const unsigned char* row = st + r * a.row_bytes;
       float z = 0.0f;
 #pragma unroll
-      for (int e = 0; e < N; ++e) z = fmaf(x[e], wq[e], z);
+      for (int kk = 0; kk < VPL; ++kk) {
+        const int vi = li + G * kk;
+        float x[N];
+        Vec<T>::unpack(ok && vi < a.L
+                           ? *reinterpret_cast<const uint4*>(row + vi * 16)
+                           : make_uint4(0u, 0u, 0u, 0u),
+                       x);
+#pragma unroll
+        for (int e = 0; e < N; ++e) z = fmaf(x[e], wq[kk][e], z);
+      }
+#pragma unroll
       for (int o = G >> 1; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
-      const long long i = base + u * groups + gid;
-      if (li == 0 && i < rows_total)
-        write_zyv(zyv, P, static_cast<int>(i), z, yv[u], vv[u]);
+      if (li == 0 && r < n) {
+        const T* x = reinterpret_cast<const T*>(row);
+        // r / P exactly (r and P at most 1024): a multiply, not a division
+        const int pr = P == 1 ? r
+                              : static_cast<int>(__umulhi(
+                                    static_cast<uint32_t>(r), p_inv));
+        float* o = ob + pr * 3 * P + (r - pr * P);
+        o[0] = z;
+        o[P] = ok ? Vec<T>::value(x[a.y_col]) : 0.0f;
+        o[2 * P] = ok ? Vec<T>::value(x[a.v_col]) : 0.0f;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + slot);
+    consumer_sync<kRingConsumers>();
+    // the stage's packed rows are zyv[3·i0, 3·(i0 + n)): 16-byte aligned
+    float* dst = zyv + 3LL * i0;
+    const int nf = 3 * n;
+    for (int e = threadIdx.x; e < nf / 4; e += kRingConsumers)
+      reinterpret_cast<float4*>(dst)[e] = reinterpret_cast<const float4*>(ob)[e];
+    for (int e = nf / 4 * 4 + threadIdx.x; e < nf; e += kRingConsumers)
+      dst[e] = ob[e];
+    buf ^= 1;
+    if (++slot == a.stages) {
+      slot = 0;
+      phase ^= 1;
     }
   }
 }
@@ -1583,32 +1647,97 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// B3's row geometry on the ring: kFwdVPL vectors a lane and the least
+// power of two G of lanes that holds the row's L vectors; a warp then
+// takes 32 / G rows a pass, so a row's fixed work (the butterfly, the
+// packed-row index, the stores) is shared by more rows than B1's VPL 2
+// allows (ops/ssgd_kernels.py::forward_plan agrees).
+constexpr int kFwdVPL = 4;
+
+inline int forward_lanes(int L) {
+  int G = 1;
+  while (G * kFwdVPL < L) G <<= 1;
+  return G;
+}
+
+template <typename T, int VPL, int G>
+cudaError_t forward_ring_v(const RingArgs& a, const float* w, int P,
+                           int blocks, size_t smem, int device, float* zyv,
+                           cudaStream_t s) {
+  static bool done[64] = {};
+  if (!(device >= 0 && device < 64 && done[device])) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        forward_ring_kernel<T, VPL, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < 64) done[device] = true;
+  }
+  forward_ring_kernel<T, VPL, G><<<blocks, kRingThreads, smem, s>>>(a, w, P,
+                                                                    zyv);
+  return cudaGetLastError();
+}
+
+// B3: on rows of at most 2048 bytes the ring (blocks of `chunk` rows,
+// stages of stage_rows rows over `stages` slots: ops/ssgd_kernels.py::
+// forward_plan, whose chunk and stage_rows are multiples of P and of 4);
+// wider rows, or stage_rows 0, the wide body on `blocks` blocks.
 template <typename T>
 cudaError_t launch_forward(const void* X, const int* ids, int n_s,
                            int n_blocks, int gbr, int D, int y_col, int v_col,
-                           int P, const float* w, int n_grid, float* zyv,
+                           int P, const float* w, int blocks, int chunk,
+                           int stage_rows, int stages, int device, float* zyv,
                            cudaStream_t s) {
   constexpr int N = Vec<T>::N;
   if (D % N) return cudaErrorInvalidValue;
   const int L = D / N;
   const int rows = n_s * gbr;  // < 2^31 (checked by the entry point)
-  const T* Xp = static_cast<const T*>(X);
-  if (L <= 32) {
-    forward_narrow_kernel<T><<<n_grid, kThreads, 0, s>>>(
-        Xp, ids, n_blocks, gbr, L, tp_lanes(L), y_col, v_col, P, w, rows,
-        zyv);
+  if (L > kMaxNarrowVectors || stage_rows == 0) {
+    const size_t smem = sizeof(float) * D;
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          forward_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    forward_wide_kernel<T><<<blocks, kThreads, smem, s>>>(
+        static_cast<const T*>(X), ids, n_blocks, gbr, L, y_col, v_col, P, w,
+        rows, zyv);
     return cudaGetLastError();
   }
-  const size_t smem = sizeof(float) * D;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        forward_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  RingArgs a{static_cast<const unsigned char*>(X),
+             ids,
+             n_s,
+             n_blocks,
+             gbr,
+             D,
+             L,
+             y_col,
+             v_col,
+             rows,
+             chunk,
+             stage_rows,
+             stages,
+             D * static_cast<int>(sizeof(T))};
+  if (rows >= (1 << 30) || chunk < 1 || chunk % P || chunk % 4 ||
+      stage_rows % P ||
+      stage_rows % 4 || stage_rows > kMaxStageRows || stages < 2 ||
+      stages > kMaxStages ||
+      static_cast<long long>(blocks) * chunk < rows ||
+      static_cast<long long>(blocks - 1) * chunk >= rows)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      ring_layout(D, stage_rows * a.row_bytes, stages, 6 * stage_rows).bytes;
+  if (smem > static_cast<size_t>(kSmemMax)) return cudaErrorInvalidValue;
+  auto launch = forward_ring_v<T, kFwdVPL, 32>;
+  switch (forward_lanes(L)) {
+    case 1: launch = forward_ring_v<T, kFwdVPL, 1>; break;
+    case 2: launch = forward_ring_v<T, kFwdVPL, 2>; break;
+    case 4: launch = forward_ring_v<T, kFwdVPL, 4>; break;
+    case 8: launch = forward_ring_v<T, kFwdVPL, 8>; break;
+    case 16: launch = forward_ring_v<T, kFwdVPL, 16>; break;
+    default: break;
   }
-  forward_wide_kernel<T><<<n_grid, kThreads, smem, s>>>(
-      Xp, ids, n_blocks, gbr, L, y_col, v_col, P, w, rows, zyv);
-  return cudaGetLastError();
+  return launch(a, w, P, blocks, smem, device, zyv, s);
 }
 
 template <typename T>
@@ -1732,14 +1861,17 @@ int tda_ssgd_train(const void* X, int dtype, const void* idx, int T_steps,
 }
 
 // B3: X (n_blocks · gbr, D) row-major, ids (n_s,) int32, w (D,) float32,
-// zyv (n_s · gbr / P, 3P) float32; n_grid blocks.
+// zyv (n_s · gbr / P, 3P) float32 (16-byte aligned); blocks, chunk,
+// stage_rows and stages are ops/ssgd_kernels.py's forward_plan (rows over
+// 2048 bytes, or stage_rows 0: `blocks` blocks of the wide body).
 int tda_ssgd_forward_gathered(const void* X, int dtype, const void* ids,
                               int n_s, int n_blocks, int gbr, int D,
                               int y_col, int v_col, int P, const void* w,
-                              int n_grid, void* zyv, int device,
+                              int blocks, int chunk, int stage_rows,
+                              int stages, void* zyv, int device,
                               void* stream) {
   if (n_s < 1 || n_blocks < 1 || gbr < 1 || P < 1 || gbr % P ||
-      n_grid < 1 || D < 1 || D > 32768 ||
+      blocks < 1 || D < 1 || D > 32768 ||
       static_cast<long long>(n_s) * gbr >= (1LL << 31) || y_col < 0 ||
       y_col >= D || v_col < 0 || v_col >= D || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
@@ -1748,8 +1880,9 @@ int tda_ssgd_forward_gathered(const void* X, int dtype, const void* ids,
   auto launch = dtype == 0 ? launch_forward<float>
                            : launch_forward<__nv_bfloat16>;
   return launch(X, static_cast<const int*>(ids), n_s, n_blocks, gbr, D, y_col,
-                v_col, P, static_cast<const float*>(w), n_grid,
-                static_cast<float*>(zyv), static_cast<cudaStream_t>(stream));
+                v_col, P, static_cast<const float*>(w), blocks, chunk,
+                stage_rows, stages, device, static_cast<float*>(zyv),
+                static_cast<cudaStream_t>(stream));
 }
 
 // B4: X and ids as B3, resid (n_s · gbr,) float32 in sampled order;

@@ -12,6 +12,7 @@ builds it. A failed build raises with nvcc's stderr.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,11 +32,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
+_L = ctypes.c_longlong
 #: C signatures of every entry point, by library
 _SIGNATURES = {
     "topk": {
-        "tda_topk": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                      _P, _I, _P], _I),
+        "tda_topk": ([_P, _P] + [_I] * 8 + [_P, _L, _P, _L, _P, _P, _I, _P],
+                     _I),
+        "tda_topk_layout": ([_I] * 5 + [_P], _I),
         "tda_error_string": ([_I], ctypes.c_char_p),
     },
     "ssgd": {
@@ -47,8 +50,8 @@ _SIGNATURES = {
                                   _P, _P, _I, _P], _I),
         "tda_ssgd_train": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                             _F, _F, _I, _I, _I, _I, _I, _P, _P, _I, _P], _I),
-        "tda_ssgd_forward_gathered": ([_P, _I, _P, _I, _I, _I, _I, _I, _I,
-                                       _I, _P, _I, _P, _I, _P], _I),
+        "tda_ssgd_forward_gathered": ([_P, _I, _P] + [_I] * 7
+                                      + [_P, _I, _I, _I, _I, _P, _I, _P], _I),
         "tda_ssgd_backward_gathered": ([_P, _I, _P, _I, _I, _I, _I, _P, _I,
                                         _I, _P, _P, _I, _P], _I),
         "tda_error_string": ([_I], ctypes.c_char_p),
@@ -174,3 +177,44 @@ def cuda_device(*tensors):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of card ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def stream(dev) -> int:
+    """The current stream of ``dev`` in the calling thread, as the C entry
+    points take it."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+#: the kernels' workspaces by (tag, device index, stream), grown when a
+#: launch needs more; a new one is zeros
+_WORKSPACES: dict = {}
+_WORK_LOCK = threading.Lock()
+
+
+def workspace(tag: str, dev, stream_: int, n: int, dtype):
+    """A cached workspace of at least ``n`` elements of ``dtype`` for
+    launches on ``stream_`` (launches on one stream run in order, so they
+    may share it). Served models launch from their own dispatch threads:
+    the cache is locked."""
+    import torch
+
+    key = (tag, dev.index, stream_)
+    with _WORK_LOCK:
+        ws = _WORKSPACES.get(key)
+        if ws is None or ws.numel() < n:
+            ws = torch.zeros((max(n, 1),), dtype=dtype, device=dev)
+            _WORKSPACES[key] = ws
+        return ws

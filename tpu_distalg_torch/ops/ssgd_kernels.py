@@ -245,11 +245,6 @@ def train_gathered_reference(X2, w0, block_idx, *, pack: int, d_total: int,
 # -------------------------------------------------------------- kernels
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 #: B1/B2's ring (``csrc/ssgd.cu``): consumer warps, rows a lane group takes
 #: a pass, rows of at most RING_VPL2_VECTORS vectors take 2 vectors a lane
 #: (else 4), a stage's target bytes, the most slots and rows a stage, and
@@ -262,9 +257,11 @@ MAX_RING_ROW_BYTES = 2048
 WORK_COUNTERS = 32
 
 
-def _ring_smem(d_total: int, stage_bytes: int, stages: int) -> int:
+def _ring_smem(d_total: int, stage_bytes: int, stages: int,
+               out_floats: int = 0) -> int:
     """Bytes of a ring block's dynamic shared memory, as
-    ``csrc/ssgd.cu::ring_layout`` lays it out."""
+    ``csrc/ssgd.cu::ring_layout`` lays it out (``out_floats``: B3's
+    staged zyv rows)."""
     wp = (d_total + 4) // 4 * 4
 
     def r16(x):
@@ -273,7 +270,7 @@ def _ring_smem(d_total: int, stage_bytes: int, stages: int) -> int:
     o = stages * (stage_bytes + 16 + 4 * RING_MAX_STAGE_ROWS // 32)
     o = r16(o + 4 * d_total)
     o = r16(o + 4 * (RING_WARPS * d_total + RING_WARPS))
-    return o + 4 * max(4 * 32 * RING_WARPS, wp) + 16
+    return o + 4 * max(4 * 32 * RING_WARPS, wp) + 16 + 4 * out_floats
 
 
 @functools.cache
@@ -325,25 +322,10 @@ def gathered_plan(n_rows: int, d_total: int, dtype, n_sm: int) -> dict:
                                                        // 4 * 4))
 
 
-#: B1/B2's workspaces, by (device index, stream): counters that every
-#: launch leaves at zero, then partials; grown when a plan needs more
-_WORKSPACES: dict = {}
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _stream(dev) -> int:
-    """The current stream of ``dev``, as the C entry points take it."""
-    if _raw_stream is not None:
-        return _raw_stream(dev.index)
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _workspace(dev, stream: int, floats: int) -> torch.Tensor:
-    ws = _WORKSPACES.get((dev.index, stream))
-    if ws is None or ws.numel() < floats:
-        ws = torch.zeros((floats,), dtype=torch.float32, device=dev)
-        _WORKSPACES[(dev.index, stream)] = ws
-    return ws
+    """B1/B2's workspace on ``stream``: counters that every launch leaves
+    at zero, then partials."""
+    return _native.workspace("ssgd", dev, stream, floats, torch.float32)
 
 
 @functools.cache
@@ -403,7 +385,7 @@ def fused_grad_sum(X, y, mask, w, *, block_rows: int = 2048):
                          f"d >= 1 and 1 <= n < 2**31")
     X, y, mask, w = (t.contiguous() for t in (X, y, mask, w))
     lib = _native.load("ssgd")
-    max_blocks = 4 * _sm_count(dev.index)
+    max_blocks = 4 * _native.sm_count(dev.index)
     partial = torch.empty((max_blocks, d + 1), dtype=torch.float32,
                           device=dev)
     # the rows' residuals, for the two-pass body of rows over 4096 columns
@@ -412,7 +394,7 @@ def fused_grad_sum(X, y, mask, w, *, block_rows: int = 2048):
     rc = lib.tda_ssgd_grad(
         X.data_ptr(), _DTYPE_CODE[X.dtype], y.data_ptr(), mask.data_ptr(),
         w.data_ptr(), n, d, max_blocks, partial.data_ptr(), resid.data_ptr(),
-        out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), dev.index, _native.stream(dev))
     _native.check(lib, rc, "fused_grad_sum")
     fused_grad_sum.launches += 1
     return out[:d], out[d]
@@ -454,8 +436,8 @@ def fused_grad_sum_gathered(X2, w_aug, block_idx, *, pack: int,
         block_idx = block_idx.to(torch.int32)
     X2, ids, w_aug = X2.contiguous(), block_idx.contiguous(), w_aug.contiguous()
     plan = gathered_plan(n_s * gather_block_rows, d_total, X2.dtype,
-                         _sm_count(dev.index))
-    stream = _stream(dev)
+                         _native.sm_count(dev.index))
+    stream = _native.stream(dev)
     work = _workspace(dev, stream, plan["workspace"])
     out = torch.empty((d_total + 1,), dtype=torch.float32, device=dev)
     rc = _entry("tda_ssgd_grad_gathered")(
@@ -514,7 +496,7 @@ def fused_grad_sum_packed(X2, w_aug, t: int, shard: int, *, pack: int,
                          f"takes 1 <= n < 2**30")
     X2, w_aug = X2.contiguous(), w_aug.contiguous()
     lib = _native.load("ssgd")
-    max_blocks = 4 * _sm_count(dev.index)
+    max_blocks = 4 * _native.sm_count(dev.index)
     partial = torch.empty((max_blocks, d_total + 1), dtype=torch.float32,
                           device=dev)
     out = torch.empty((d_total + 1,), dtype=torch.float32, device=dev)
@@ -523,7 +505,7 @@ def fused_grad_sum_packed(X2, w_aug, t: int, shard: int, *, pack: int,
         w_aug.data_ptr(), int(t) & prng.MASK32, int(shard) & prng.MASK32,
         packed_threshold(fraction), max_blocks, partial.data_ptr(),
         out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _native.stream(dev))
     _native.check(lib, rc, "fused_grad_sum_packed")
     fused_grad_sum_packed.launches += 1
     return out[:d_total], out[d_total]
@@ -577,8 +559,8 @@ def fused_train_gathered(X2, w0, block_idx, *, pack: int, d_total: int,
     ids = block_idx.to(torch.int32).contiguous()
     w0, center = w0.contiguous(), center.contiguous()
     plan = gathered_plan(n_s * gather_block_rows, d_total, X2.dtype,
-                         _sm_count(dev.index))
-    stream = _stream(dev)
+                         _native.sm_count(dev.index))
+    stream = _native.stream(dev)
     work = _workspace(dev, stream, plan["workspace"])
     w_out = torch.empty((d_total,), dtype=torch.float32, device=dev)
     rc = _entry("tda_ssgd_train")(
@@ -596,24 +578,30 @@ def fused_train_gathered(X2, w0, block_idx, *, pack: int, d_total: int,
 
 fused_train_gathered.launches = 0
 
-#: B3/B4 launch geometry: 8 warps a block, 4 rows in flight a lane group,
-#: and B4's row chunks sized for about 528 blocks (4 per SM of an H100 SXM,
-#: a constant so that the order of B4's sums depends on the shapes alone)
+#: B4's launch geometry: 8 warps a block, 4 rows in flight a lane group,
+#: and row chunks sized for about 528 blocks (4 per SM of an H100 SXM, a
+#: constant so that the order of B4's sums depends on the shapes alone)
 TP_WARPS, TP_ROWS_IN_FLIGHT, TP_TARGET_BLOCKS = 8, 4, 528
-#: B3's grid-stride launch: at most this many blocks (its rows are
-#: independent, so the grid size never changes a result)
+#: 16-byte vectors a lane holds of a row in B3's ring body
+#: (``csrc/ssgd.cu::kFwdVPL``)
+FWD_VPL = 4
+#: B3's wide body (rows over 2048 bytes), a grid-stride launch: at most
+#: this many blocks (its rows are independent, so the grid size never
+#: changes a result)
 TP_MAX_FWD_BLOCKS = 1056
 
 
 @functools.cache
 def tp_kernel_plan(n_rows: int, d_total: int, dtype) -> dict:
-    """B3/B4's launch plan, from the shapes alone (``csrc/ssgd.cu``
-    derives the same lanes and tiles from D and the element size).
+    """B4's launch plan, and the grid of B3's wide body, from the shapes
+    alone (``csrc/ssgd.cu`` derives the same lanes and tiles from D and
+    the element size).
 
     A row is L = d_total·size/16 vectors of 16 bytes; G = the least power
     of two >= L, at most 32, lanes own a row (a lane one vector; longer
-    rows: B3 a warp in turns of 32 vectors, B4 ``tiles`` column tiles of
-    32 vectors); a warp holds 32/G rows. B4 splits the ``n_rows``
+    rows: B4 ``tiles`` column tiles of 32 vectors); a warp holds 32/G
+    rows. B3's wide body (:func:`forward_plan`) takes ``fwd_blocks``
+    blocks. B4 splits the ``n_rows``
     sampled rows into ``n_chunks`` chunks of ``chunk`` rows (a multiple
     of one block pass), one block per (chunk, tile); each block adds its
     rows in row order, and the chunks' partials are added in chunk order
@@ -637,6 +625,55 @@ def tp_kernel_plan(n_rows: int, d_total: int, dtype) -> dict:
                                             * TP_ROWS_IN_FLIGHT)))
     return dict(vectors=L, lanes=G, tiles=tiles, chunk=chunk,
                 n_chunks=n_chunks, fwd_blocks=fwd_blocks)
+
+
+@functools.cache
+def forward_plan(n_rows: int, d_total: int, dtype, pack: int,
+                 n_sm: int) -> dict:
+    """B3's launch plan for ``n_rows`` sampled rows, from the shapes and
+    the SM count alone (its rows are independent, so the plan never
+    changes a result).
+
+    Rows of at most 2048 bytes go through B1's ring (``ring``): a lane
+    holds ``vpl`` = FWD_VPL vectors of a row and G lanes, the least power
+    of two with G·vpl >= L, own it; a stage is ``stage_rows`` rows, a
+    multiple of
+    a consumer pass and of ``pack`` (about 16 KB), over ``stages`` slots;
+    block k takes the rows [k·chunk, (k+1)·chunk), ``chunk`` a multiple
+    of ``pack`` and of 4, at most one block an SM. So one block writes
+    each packed zyv row, and each stage's rows are one 16-byte aligned
+    run of zyv. Wider rows, or a pack no stage of at most 1024 rows
+    holds (or 2**30 rows and more), take the wide body on
+    :func:`tp_kernel_plan`'s ``fwd_blocks`` (``ring`` False,
+    ``stage_rows`` 0)."""
+    size = as_dtype(dtype).itemsize
+    row_bytes = d_total * size
+    if row_bytes % 16:
+        raise ValueError(f"a row of {d_total} × {size} bytes is not a whole "
+                         f"number of 16-byte vectors")
+    L = row_bytes // 16
+    vpl, G = FWD_VPL, 1
+    while G * vpl < L:
+        G *= 2
+    unit = int(np.lcm(RING_WARPS * (32 // G), pack))
+    if (row_bytes <= MAX_RING_ROW_BYTES and unit <= RING_MAX_STAGE_ROWS
+            and n_rows < 2**30):
+        stage_rows = unit * max(1, RING_STAGE_BYTES // (row_bytes * unit))
+        out = 6 * stage_rows
+        fixed = _ring_smem(d_total, 0, 0, out)
+        stages = min(RING_MAX_STAGES, (SMEM_MAX - fixed) // (
+            _ring_smem(d_total, stage_rows * row_bytes, 1, out) - fixed))
+        if stages >= 2:
+            step = int(np.lcm(pack, 4))
+            chunk = -(-max(n_rows, 1) // n_sm)
+            chunk = -(-chunk // step) * step
+            return dict(ring=True, vectors=L, lanes=G, vpl=vpl,
+                        stage_rows=stage_rows, stages=stages, chunk=chunk,
+                        blocks=-(-max(n_rows, 1) // chunk),
+                        smem=_ring_smem(d_total, stage_rows * row_bytes,
+                                        stages, out))
+    return dict(ring=False, stage_rows=0, stages=0, chunk=0,
+                blocks=tp_kernel_plan(n_rows, d_total, dtype)["fwd_blocks"])
 
 
 def _check_tp_kernel(X2, d_total, what):
@@ -692,16 +729,18 @@ def fused_forward_gathered(X2, w_aug, block_idx, *, pack: int,
     X2 = X2.contiguous()
     ids = block_idx.to(torch.int32).contiguous()
     w_aug = w_aug.contiguous()
-    plan = tp_kernel_plan(rows, d_total, X2.dtype)
+    plan = forward_plan(rows, d_total, X2.dtype, pack,
+                        _native.sm_count(dev.index))
     zyv = torch.empty((rows // pack, 3 * pack), dtype=torch.float32,
                       device=dev)
-    lib = _native.load("ssgd")
-    rc = lib.tda_ssgd_forward_gathered(
+    rc = _entry("tda_ssgd_forward_gathered")(
         X2.data_ptr(), _DTYPE_CODE[X2.dtype], ids.data_ptr(), n_s,
         X2.shape[0] * pack // gather_block_rows, gather_block_rows, d_total,
-        y_col, v_col, pack, w_aug.data_ptr(), plan["fwd_blocks"],
-        zyv.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _native.check(lib, rc, "fused_forward_gathered")
+        y_col, v_col, pack, w_aug.data_ptr(), plan["blocks"], plan["chunk"],
+        plan["stage_rows"], plan["stages"], zyv.data_ptr(), dev.index,
+        _native.stream(dev))
+    if rc:
+        _native.check(_native.load("ssgd"), rc, "fused_forward_gathered")
     fused_forward_gathered.launches += 1
     return zyv
 
@@ -755,7 +794,7 @@ def fused_backward_gathered(X2, resid, block_idx, *, pack: int,
         X2.shape[0] * pack // gather_block_rows, gather_block_rows, d_total,
         resid.data_ptr(), plan["chunk"], plan["n_chunks"],
         partial.data_ptr(), out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _native.stream(dev))
     _native.check(lib, rc, "fused_backward_gathered")
     fused_backward_gathered.launches += 1
     return out

@@ -16,6 +16,7 @@ CUDA tensor it launches the kernel or raises; nothing falls back.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import threading
 
@@ -25,12 +26,18 @@ import torch
 from tpu_distalg_torch.ops import _native
 
 IDX_SENTINEL = 2**31 - 1
-#: items per kernel sub-tile; ``block_items`` is a multiple of it
+#: the unit of ``block_items``: the items one CUDA block scans are a
+#: multiple of it
 TILE_ITEMS = 128
-#: query rows per kernel block
-TILE_QUERIES = 32
-#: serialises the launch counter's read-modify-write: every served
-#: model launches from its own dispatch thread
+#: the kernel's two block shapes (``csrc/topk.cu::shape_of``), by shape:
+#: query rows a block and items a sub-tile; shape 0 ("A") at k <=
+#: SHAPE_A_MAX_K when the card has work enough for it, else shape 1 ("B").
+#: The kernel's shared memory and workspace layout are its own
+#: (``tda_topk_layout``).
+TILE_QUERIES, SUB_TILE_ITEMS = (32, 8), (128, 256)
+SHAPE_A_MAX_K = 64
+#: serialises the launch counter's read-modify-write: every served model
+#: launches from its own dispatch thread
 _LAUNCHES_LOCK = threading.Lock()
 
 
@@ -109,20 +116,54 @@ def assert_topk_close(got_v, got_i, ref_v, ref_i, *, rtol: float = 1e-5):
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def topk_plan(B: int, N: int, k: int, block_items: int | None,
+              n_sm: int) -> dict:
+    """The kernel's launch plan, from the shapes and the SM count alone.
 
-
-def _subs_per_block(B: int, N: int, block_items: int | None,
-                    device: torch.device) -> int:
-    """Item sub-tiles per CUDA block. ``block_items=None`` sizes the
-    blocks so that the grid holds about two blocks per SM."""
+    Shape A (32 queries a block, 128-item sub-tiles) when k <= 64 and the
+    card has work for every SM at four sub-tiles a block; else shape B (8
+    queries, 256-item sub-tiles). A block scans ``range_items`` items
+    (``block_items``, or sized for two A blocks or one B block an SM, at
+    least a sub-tile and at least 4·k, rounded up to 128, so that a
+    block's list is not mostly candidates); blocks are (query tile, item
+    range) pairs. The kernel lays out its own shared memory and
+    workspace for the plan (``csrc/topk.cu::layout_of``)."""
+    q_a = -(-B // TILE_QUERIES[0])
+    shape = 0 if k <= SHAPE_A_MAX_K and q_a * -(-N // (
+        4 * SUB_TILE_ITEMS[0])) >= n_sm else 1
+    qt, sub = TILE_QUERIES[shape], SUB_TILE_ITEMS[shape]
+    q_tiles = -(-B // qt)
     if block_items is not None:
-        return block_items // TILE_ITEMS
-    n_sub = -(-N // TILE_ITEMS)
-    q_tiles = -(-B // TILE_QUERIES)
-    want = max(1, -(-2 * _sm_count(device.index) // q_tiles))
-    return max(1, -(-n_sub // want))
+        range_items = block_items
+    else:
+        want = max(1, -(-(2 if shape == 0 else 1) * n_sm // q_tiles))
+        range_items = -(-N // want)
+        range_items = max(range_items, 4 * k, sub)
+        range_items = -(-range_items // TILE_ITEMS) * TILE_ITEMS
+    n_ranges = -(-N // range_items)
+    return dict(shape=shape, queries=qt, sub_items=sub,
+                range_items=range_items, n_ranges=n_ranges,
+                q_tiles=q_tiles, blocks=q_tiles * n_ranges)
+
+
+@functools.cache
+def _lib():
+    """The kernel's library (built at first use; argtypes set)."""
+    return _native.load("topk")
+
+
+@functools.cache
+def topk_layout(B: int, N: int, k: int, shape: int,
+                range_items: int) -> tuple[int, int, int]:
+    """``(state words, list words, shared-memory bytes)`` of a plan, as
+    the kernel lays it out (``csrc/topk.cu::tda_topk_layout``); raises
+    for a plan the kernel does not take. Needs the built library."""
+    words = (ctypes.c_longlong * 3)()
+    if _lib().tda_topk_layout(B, N, k, shape, range_items, words):
+        raise ValueError(
+            f"fused_matmul_topk: B={B}, N={N}, k={k} in item ranges of "
+            f"{range_items} exceeds the kernel's int32 counts")
+    return words[0], words[1], words[2]
 
 
 def _validate(Q, V, index_offset, k, block_items):
@@ -177,27 +218,29 @@ def fused_matmul_topk(Q: torch.Tensor, V: torch.Tensor, index_offset: int,
         return matmul_topk_reference(Q, V, index_offset, n_valid, k=k)
     if Q.device.type != "cuda":
         raise ValueError(f"unsupported device {Q.device}")
-    lib = _native.load("topk")
     B, d = Q.shape
     N = V.shape[0]
     dev = Q.device
-    subs = _subs_per_block(B, N, block_items, dev)
-    n_sub = -(-N // TILE_ITEMS)
-    n_tiles = -(-n_sub // subs)
-    cand_v = torch.empty((B, n_tiles, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((B, n_tiles, k), dtype=torch.int32, device=dev)
+    plan = topk_plan(B, N, k, block_items, _native.sm_count(dev.index))
+    state_words, list_words, _ = topk_layout(B, N, k, plan["shape"],
+                                             plan["range_items"])
+    # the stream is the device's current one in the calling thread (the
+    # batcher launches from its own dispatch thread); the state region
+    # (tickets, bounds) is zero between launches, the lists are scratch
+    stream = _native.stream(dev)
+    state = _native.workspace("topk state", dev, stream, state_words,
+                              torch.int32)
+    lists = _native.workspace("topk lists", dev, stream, list_words,
+                              torch.int32)
     out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    # a tensor's CUDA device always carries its index; the stream is
-    # that device's current one in the calling thread (the batcher
-    # launches from its own dispatch thread)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.tda_topk(
+    rc = _lib().tda_topk(
         Q.data_ptr(), V.data_ptr(), B, N, d, k, int(index_offset),
-        max(-1, min(int(n_valid), N)), subs, n_tiles, cand_v.data_ptr(),
-        cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), dev.index,
-        stream)
-    _native.check(lib, rc, "fused_matmul_topk")
+        max(-1, min(int(n_valid), N)), plan["shape"], plan["range_items"],
+        state.data_ptr(), state.numel(), lists.data_ptr(), lists.numel(),
+        out_v.data_ptr(), out_i.data_ptr(), dev.index, stream)
+    if rc:
+        _native.check(_lib(), rc, "fused_matmul_topk")
     with _LAUNCHES_LOCK:
         fused_matmul_topk.launches += 1
     return out_v, out_i

@@ -31,7 +31,7 @@ from tpu_distalg_torch.utils import datasets
 
 #: the kernel names of B3 and B4 (and B4's fold, which the split shares
 #: with no other kernel)
-TP_KERNELS = ("forward_narrow_kernel", "forward_wide_kernel",
+TP_KERNELS = ("forward_ring_kernel", "forward_wide_kernel",
               "backward_kernel", "reduce_partials")
 TP_GROUPS = {"B3 + B4": TP_KERNELS}
 

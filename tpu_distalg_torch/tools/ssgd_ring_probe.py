@@ -21,9 +21,10 @@ touched), built there and run in its own process:
     it has staged w). Cycles are turned into µs with the SM clock
     measured over the same launch (``%globaltimer``).
 
-For base and no_copy it prints B1's device time a call and B2's per 125
-steps with and without ``skip_update``, as ``ssgd_gathered_timing`` times
-them; for trace the medians and 10th/90th percentiles over blocks and
+For base and no_copy it prints B1's and B3's (``fused_forward_gathered``
+on the same rows, which shares the ring's producer) device time a call
+and B2's per 125 steps with and without ``skip_update``, as
+``ssgd_gathered_timing`` times them; for trace the medians and 10th/90th percentiles over blocks and
 steps. One JSON line per variant, each beside the card's name and power
 limit.
 """
@@ -153,7 +154,12 @@ def _times(dev, X2, w0, ids, kw) -> dict:
                                                           **kw), segs)
     skip = tm.rotating_ms(lambda d: tk.fused_train_gathered(
         X2, w0, d, eta=0.1, skip_update=True, **kw), segs)
-    return {"B1_device_ms": b1["device_ms"],
+    b3kw = dict(pack=kw["pack"], d_total=kw["d_total"], y_col=kw["y_col"],
+                v_col=kw["v_col"], gather_block_rows=kw["gather_block_rows"])
+    b3 = tm.rotating_ms(lambda d: tk.fused_forward_gathered(X2, w0, d,
+                                                            **b3kw),
+                        list(ids[:tm.B1_DRAWS]))
+    return {"B1_device_ms": b1["device_ms"], "B3_device_ms": b3["device_ms"],
             "B2_ms_per_125_steps": b2["device_ms"],
             "B2_skip_update_ms": skip["device_ms"],
             "B2_chain_us_per_step": (b2["device_ms"] - skip["device_ms"])
@@ -167,16 +173,17 @@ def _spread(x) -> list:
 def _trace(dev, X2, w0, ids, kw) -> dict:
     import torch
 
+    from tpu_distalg_torch.ops import _native
     from tpu_distalg_torch.ops import ssgd_kernels as tk
     from tpu_distalg_torch.tools import ssgd_gathered_timing as tm
 
     T, n_s = tm.MEGA, ids.shape[1]
     plan = tk.gathered_plan(n_s * tm.GBR, kw["d_total"], X2.dtype,
-                            tk._sm_count(dev.index))
+                            _native.sm_count(dev.index))
     nb, wp = plan["blocks"], (kw["d_total"] + 4) // 4 * 4
     off = tk.WORK_COUNTERS + 2 * nb * wp
     work = torch.zeros(off + 2 * 8 * nb * T, device=dev)
-    tk._WORKSPACES[(dev.index, tk._stream(dev))] = work
+    _native._WORKSPACES[("ssgd", dev.index, _native.stream(dev))] = work
     out = {}
     for seg in range(3):
         tk.fused_train_gathered(X2, w0, ids[seg * T:(seg + 1) * T], eta=0.1,
