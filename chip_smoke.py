@@ -29,8 +29,11 @@ and the script exits non-zero without printing a result:
   7. PageRank at bench.py's geometry (1,000,000 vertices, Erdős–Rényi of
      average degree 8: 7,999,981 edges): kernels B7 and B8 against their
      plain versions on small cases (exact ones bitwise, a 100k-edge hub
-     row, empty rows) and at the main shape, timed beside the plain
-     version, the library call and the bound; ``models.pagerank.run``
+     row, empty rows, misaligned shard slices, E = 0, rows across and
+     longer than a tile) and at the main shape and on a skewed graph
+     (zipf in-degrees), timed beside the plain version, the library
+     call, the bound and the gather ceiling; their SASS must hold
+     128-bit global loads; ``models.pagerank.run``
      in standard mode for 50 iterations (B7), its ranks against the CPU
      port's after 10, bitwise replay; the ``pallas`` (B8) and ``xla``
      (library) sweeps; reference mode on the toy graph against the
@@ -77,6 +80,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -257,14 +261,18 @@ def _topk_times(topk, Qd, Vd, N: int, k: int, calls: int) -> dict:
     synchronize), the kernel's launches a call, and the plain version's
     time. Raises unless B9 is one launch a call: the wrapper's counter
     over the calls, and one kernel in the profile (CUPTI may drop an
-    event, so its count is not held)."""
+    event, so its count is not held). A trace with no device activity
+    at all (CUPTI recorded nothing) is taken again, up to three times."""
     import torch
 
     from tpu_distalg_torch.tools.topk_profile import _profile
 
-    before = topk.fused_matmul_topk.launches
-    wall, act = _profile(lambda: topk.fused_matmul_topk(Qd, Vd, 0, N, k=k),
-                         calls)
+    for _ in range(3):
+        before = topk.fused_matmul_topk.launches
+        wall, act = _profile(
+            lambda: topk.fused_matmul_topk(Qd, Vd, 0, N, k=k), calls)
+        if act:
+            break
     # _profile makes 5 warm-up calls, then the timed and the traced calls
     launches = (topk.fused_matmul_topk.launches - before) / (5 + 2 * calls)
     kernels = [name for name in act if "topk" in name]
@@ -285,8 +293,8 @@ def _topk_times(topk, Qd, Vd, N: int, k: int, calls: int) -> dict:
 
 def _sass_counts(lib_name: str, keys: dict, ops: tuple) -> dict:
     """For the kernels of ``build/kernels/lib<lib_name>`` whose mangled
-    names hold ``keys``' values: the count of each SASS opcode of ``ops``
-    (``cuobjdump -sass``) and their registers a thread and stack and
+    names hold ``keys``' values: the count of the SASS lines that match
+    each regular expression of ``ops`` (``cuobjdump -sass``) and their registers a thread and stack and
     local bytes (spills; ``cuobjdump -res-usage``)."""
     from tpu_distalg_torch.ops import _native
 
@@ -307,7 +315,7 @@ def _sass_counts(lib_name: str, keys: dict, ops: tuple) -> dict:
             name = which(line)
         elif name is not None:
             for op in ops:
-                out[name][op] += op in line
+                out[name][op] += re.search(op, line) is not None
     name = None
     for line in dump("-res-usage").splitlines():
         if line.strip().startswith("Function "):
@@ -1637,16 +1645,76 @@ def _pr_close(what, got, want, rtol) -> float:
     return float((got - want).abs().max())
 
 
-def check_pagerank_kernels_small(dev) -> None:
-    """Phase 7a: B7 and B8 against their plain versions. Exact cases
+def _pr_check(dev, label, rp, src, rng, rtol) -> list:
+    """B7 and B8 on one CSR against their plain versions: the exact case
     (x a multiple of 2⁻¹⁰ below 2⁻⁶, w_e = 1, integer c: every partial
-    sum exact) bitwise, random cases within ``PR_RTOL``, a fixed input
-    replaying bitwise; a hub row, empty rows, V not a multiple of any
-    block size, every lane width (4 to 32 lanes a row)."""
+    sum exact) bitwise with empty rows 0, the random case within
+    ``rtol``, each replaying bitwise. Returns the random case's max
+    |err| of B7 and B8."""
     import torch
 
     from tpu_distalg_torch.ops import pagerank_kernels as pk
 
+    V, E = rp.shape[0] - 1, src.shape[0]
+    empty = (rp[1:] == rp[:-1])
+    errs = []
+    for kind in ("exact", "random"):
+        if kind == "exact":
+            x = torch.as_tensor((rng.integers(0, 16, size=V) / 1024.0
+                                 ).astype(np.float32), device=dev)
+            w = torch.ones(E, device=dev)
+            c = torch.as_tensor(rng.integers(-8, 9, size=E).astype(
+                np.float32), device=dev)
+        else:
+            x, w, c = (torch.as_tensor(rng.random(n).astype(np.float32),
+                                       device=dev) for n in (V, E, E))
+        y7 = pk.spmv_table(rp, src, w, x)
+        y8 = pk.scatter_table(rp, c)
+        torch.cuda.synchronize()
+        r7 = pk.spmv_table_reference(rp, src, w, x)
+        r8 = pk.scatter_table_reference(rp, c)
+        if kind == "exact":
+            if not (torch.equal(y7, r7) and torch.equal(y8, r8)):
+                raise AssertionError(f"B7/B8 {label}: exact case not "
+                                     f"bitwise equal")
+            if bool(empty.any()) and float(y7[empty].abs().max()) != 0.0:
+                raise AssertionError(f"B7 {label}: an empty row is not 0")
+        else:
+            errs = [_pr_close(f"B7 {label}", y7, r7, rtol),
+                    _pr_close(f"B8 {label}", y8, r8, rtol)]
+        if not (torch.equal(y7, pk.spmv_table(rp, src, w, x))
+                and torch.equal(y8, pk.scatter_table(rp, c))):
+            raise AssertionError(f"B7/B8 {label}: replay differs")
+    return errs
+
+
+def _pr_degrees(dev, rng, deg):
+    """CSR rows of in-degrees ``deg``, src uniform."""
+    import torch
+
+    rp = np.zeros(len(deg) + 1, np.int64)
+    np.cumsum(deg, out=rp[1:])
+    src = rng.integers(0, len(deg), size=int(rp[-1])).astype(np.int32)
+    return (torch.as_tensor(rp.astype(np.int32), device=dev),
+            torch.as_tensor(src, device=dev))
+
+
+def check_pagerank_kernels_small(dev) -> None:
+    """Phase 7a: B7 and B8 against their plain versions (``_pr_check``)
+    on a hub row, empty rows, V not a multiple of any tile, every tile
+    size (256 to 2048 path items); the slices of a 3-shard split (E and
+    the slices' length not multiples of 4, so src and w start misaligned),
+    w_e misaligned against src (scalar loads), shards without edges, rows
+    across tile boundaries and rows longer than a tile."""
+    import torch
+
+    from tpu_distalg_torch.models import pagerank
+    from tpu_distalg_torch.ops import graph as gops
+    from tpu_distalg_torch.ops import pagerank_kernels as pk
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets
+
+    cases = []
     for label, v, hub, avg in (
             ("hub row of 100000 in-edges, V=4099", 4099, 100_000, 8.0),
             ("V=1000003, average degree 6.4", 1_000_003, 0, 8.0),
@@ -1654,89 +1722,172 @@ def check_pagerank_kernels_small(dev) -> None:
             ("V=20000, average degree 12", 20_000, 0, 15.0),
             ("V=5000, average degree 24", 5000, 0, 30.0)):
         rng = np.random.default_rng(v)
-        rp, src = _pr_rows(dev, rng, v, hub, avg)
-        E = src.shape[0]
-        errs = []
-        for kind in ("exact", "random"):
-            if kind == "exact":
-                x = torch.as_tensor((rng.integers(0, 16, size=v) / 1024.0
-                                     ).astype(np.float32), device=dev)
-                w = torch.ones(E, device=dev)
-                c = torch.as_tensor(rng.integers(-8, 9, size=E).astype(
-                    np.float32), device=dev)
-            else:
-                x, w, c = (torch.as_tensor(rng.random(n).astype(np.float32),
-                                           device=dev) for n in (v, E, E))
-            y7 = pk.spmv_table(rp, src, w, x)
-            y8 = pk.scatter_table(rp, c)
-            torch.cuda.synchronize()
-            r7 = pk.spmv_table_reference(rp, src, w, x)
-            r8 = pk.scatter_table_reference(rp, c)
-            if kind == "exact":
-                if not (torch.equal(y7, r7) and torch.equal(y8, r8)):
-                    raise AssertionError(f"B7/B8 {label}: exact case not "
-                                         f"bitwise equal")
-                if float(y7[::5][1:].abs().max()) != 0.0:
-                    raise AssertionError(f"B7 {label}: an empty row is "
-                                         f"not 0")
-            else:
-                rtol = PR_HUB_RTOL if hub else PR_RTOL
-                errs = [_pr_close(f"B7 {label}", y7, r7, rtol),
-                        _pr_close(f"B8 {label}", y8, r8, rtol)]
-            if not (torch.equal(y7, pk.spmv_table(rp, src, w, x))
-                    and torch.equal(y8, pk.scatter_table(rp, c))):
-                raise AssertionError(f"B7/B8 {label}: replay differs")
-        print(f"[kernels] pagerank {label} ({E} edges, "
-              f"{pk.lanes_per_row(E, v)} lanes a row): exact case bitwise, "
-              f"random max |err| B7 {errs[0]!r} B8 {errs[1]!r}, replay "
-              f"bitwise")
+        cases.append((label, *_pr_rows(dev, rng, v, hub, avg), rng,
+                      PR_HUB_RTOL if hub else PR_RTOL))
+    for label, v, low, high, long_row in (
+            ("rows across tile boundaries, one of 5000", 3000, 0, 700, 5000),
+            ("rows longer than a tile", 40, 1500, 2600, 9000),
+            ("rows around 16 edges (one thread or a warp)", 997, 0, 40, 0)):
+        rng = np.random.default_rng(v + 1)
+        deg = rng.integers(low, high + 1, size=v)
+        deg[::7] = 0
+        if long_row:
+            deg[v // 2] = long_row
+        cases.append((label, *_pr_degrees(dev, rng, deg), rng, PR_RTOL))
+    for v in (1, 5000):
+        cases.append((f"E=0, V={v}",
+                      torch.zeros(v + 1, dtype=torch.int32, device=dev),
+                      torch.zeros(0, dtype=torch.int32, device=dev),
+                      np.random.default_rng(v), PR_RTOL))
+    edges = datasets.erdos_renyi_edges(4000, 7.5, seed=3)
+    for drop in range(16):   # E and the shards' slice length not 4k
+        el = gops.prepare_edges(edges[:len(edges) - drop], 4000)
+        if el.n_edges % 4 and -(-el.n_edges // 3) % 4:
+            break
+    de = pagerank.prepare_device_edges(el, get_mesh(data=3, device=dev))
+    rng = np.random.default_rng(3)
+    for s, (rp, src, w) in enumerate(de.shards):
+        cases.append((f"shard {s} of 3 (src at byte {src.data_ptr() % 16} "
+                      f"of 16)", rp, src, rng, PR_RTOL))
+    for label, rp, src, rng, rtol in cases:
+        errs = _pr_check(dev, label, rp, src, rng, rtol)
+        plan = pk.tile_plan(rp, src.shape[0])
+        print(f"[kernels] pagerank {label} ({src.shape[0]} edges, "
+              f"{plan.n_tiles} tiles of {plan.items} items): exact case "
+              f"bitwise, random max |err| B7 {errs[0]!r} B8 {errs[1]!r}, "
+              f"replay bitwise")
+    rp, src, w = de.shards[1]
+    for k in (1, 2, 3):   # w_e at another offset from 16 bytes than src
+        w2 = torch.cat([torch.zeros(k, device=dev), w])[k:]
+        if (w2.data_ptr() - src.data_ptr()) % 16:
+            break
+    x = torch.as_tensor(rng.random(4000).astype(np.float32), device=dev)
+    err = _pr_close("B7 w_e misaligned against src",
+                    pk.spmv_table(rp, src, w2, x),
+                    pk.spmv_table_reference(rp, src, w2, x), PR_RTOL)
+    print(f"[kernels] pagerank B7 with w_e misaligned against src (scalar "
+          f"loads): max |err| {err!r}")
 
 
-def pagerank_kernel_records(dev, de) -> dict:
-    """Phase 7b: B7 and B8 at the main path's shape (the graph's CSR
-    rows, x positive like ranks) against their plain versions, timed
-    beside the plain version, the library call and the bound."""
+#: the PageRank library's kernels as cuobjdump names them: the merge-path
+#: tile kernel csr_tiles<kGather, kVec, kCeiling> of B7 and B8, with
+#: 16-byte (main) and scalar loads, and the gather ceiling's probe
+PR_KERNELS = {"B7": "csr_tilesILb1ELb1ELb0E", "B7 scalar": "csr_tilesILb1ELb0ELb0E",
+              "B8": "csr_tilesILb0ELb1ELb0E", "B8 scalar": "csr_tilesILb0ELb0ELb0E",
+              "gather ceiling": "csr_tilesILb1ELb1ELb1E"}
+#: a 128-bit global load in SASS (LDG.E.128, LDG.E.128.CONSTANT, …)
+LDG128 = r"LDG\.E[.A-Z0-9]*\.128"
+
+
+def pagerank_sass() -> dict:
+    """Phase 7's build check: for each B7/B8 kernel, its 128-bit global
+    loads (``LDG128``) in SASS and its registers and spill bytes
+    (``cuobjdump -sass`` and ``-res-usage``). Raises unless B7's and B8's
+    main kernels hold 128-bit loads."""
+    out = _sass_counts("pagerank", PR_KERNELS, (LDG128,))
+    out = {k: {("LDG.128" if op == LDG128 else op): n for op, n in c.items()}
+           for k, c in out.items()}
+    print(f"[kernels] pagerank SASS (LDG.128 = 128-bit global loads; "
+          f"registers a thread, stack and local bytes = spills): "
+          f"{json.dumps(out)}")
+    for k in ("B7", "B8"):
+        if not out[k]["LDG.128"]:
+            raise AssertionError(f"{k}'s main kernel has no 128-bit global "
+                                 f"load in its SASS: {out[k]}")
+    return out
+
+
+def _pr_kernel_rec(dev, key, run, plain, lib, nbytes, flops) -> dict:
+    """One kernel against its plain version, timed beside the plain
+    version, the library call and the bound."""
+    import torch
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = _pr_close(f"{key}", got, want, PR_RTOL if "skewed" not in key
+                    else PR_HUB_RTOL)
+    bound = _bound_ms(nbytes, flops)
+    rec = dict(max_abs_err=err, ms=_time_ms(run, 200),
+               plain_ms=_time_ms(plain, 50), library_ms=_time_ms(lib, 50),
+               bound_ms=bound[0], bound_by=bound[1])
+    lib_err = float((lib() - want).abs().max())
+    print(f"[kernels] pagerank {key}: max |err| {err!r} vs plain; kernel "
+          f"{rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, library "
+          f"{rec['library_ms']!r} ms (max |err| {lib_err!r}), bound "
+          f"{rec['bound_ms']!r} ms ({rec['bound_by']}, {nbytes} bytes)")
+    return rec
+
+
+def _pr_pair(dev, where, rp, src, w, x, plan) -> dict:
+    """B7 and B8 records on one CSR: x positive like ranks, B8's input
+    the pallas path's ``x[src]·w``; the library calls a CSR sparse
+    product and ``segment_reduce``."""
     import warnings
 
     import torch
 
     from tpu_distalg_torch.ops import pagerank_kernels as pk
 
-    rp, src, w = de.shards[0]
-    V, E = de.n_vertices, de.n_edges
-    x = torch.as_tensor(np.random.default_rng(SEED + 17).random(V).astype(
-        np.float32), device=dev)
-    c = torch.index_select(x, 0, src) * w     # the pallas path's input
+    V, E = rp.shape[0] - 1, src.shape[0]
+    c = torch.index_select(x, 0, src) * w
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*[Ss]parse")
         A = torch.sparse_csr_tensor(rp, src, w, (V, V),
                                     check_invariants=False)
     offsets = rp.long()
-    recs = {}
-    for key, run, plain, lib, nbytes, flops in (
-            ("B7", lambda: pk.spmv_table(rp, src, w, x),
-             lambda: pk.spmv_table_reference(rp, src, w, x),
-             lambda: A @ x, 4 * (2 * E + (V + 1) + 2 * V), 2 * E),
-            ("B8", lambda: pk.scatter_table(rp, c),
-             lambda: pk.scatter_table_reference(rp, c),
-             lambda: torch.segment_reduce(c, "sum", offsets=offsets,
-                                          unsafe=True),
-             4 * (E + (V + 1) + V), E)):
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        err = _pr_close(f"{key} main shape", got, want, PR_RTOL)
-        bound = _bound_ms(nbytes, flops)
-        recs[key] = dict(max_abs_err=err, ms=_time_ms(run, 200),
-                         plain_ms=_time_ms(plain, 50),
-                         library_ms=_time_ms(lib, 50), bound_ms=bound[0],
-                         bound_by=bound[1])
-        lib_err = float((lib() - want).abs().max())
-        r = recs[key]
-        print(f"[kernels] pagerank {key} main shape (V={V}, E={E}): max "
-              f"|err| {err!r} vs plain; kernel {r['ms']!r} ms, plain "
-              f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms (max "
-              f"|err| {lib_err!r}), bound {r['bound_ms']!r} ms "
-              f"({r['bound_by']}, {nbytes} bytes)")
+    return {
+        "B7": _pr_kernel_rec(
+            dev, f"B7 {where} (V={V}, E={E})",
+            lambda: pk.spmv_table(rp, src, w, x, plan),
+            lambda: pk.spmv_table_reference(rp, src, w, x),
+            lambda: A @ x, 4 * (2 * E + (V + 1) + 2 * V), 2 * E),
+        "B8": _pr_kernel_rec(
+            dev, f"B8 {where} (V={V}, E={E})",
+            lambda: pk.scatter_table(rp, c, plan),
+            lambda: pk.scatter_table_reference(rp, c),
+            lambda: torch.segment_reduce(c, "sum", offsets=offsets,
+                                         unsafe=True),
+            4 * (E + (V + 1) + V), E)}
+
+
+def pagerank_kernel_records(dev, de) -> dict:
+    """Phase 7b: B7 and B8 at the main path's shape (the graph's CSR
+    rows and prepared plan) against their plain versions, timed beside
+    the plain version, the library call and the bound; the gather
+    ceiling (``gather_ceiling``: B7's loads, gathers and products without
+    the rows) beside B7; both kernels on the skewed graph
+    (``tools/pagerank_profile.skewed_rows``: V 1M, zipf(2.0) in-degrees
+    capped at 100,000; its rows of more than 10,000 edges drift as the
+    hub row does, so it is held within ``PR_HUB_RTOL``)."""
+    import torch
+
+    from tpu_distalg_torch.ops import pagerank_kernels as pk
+    from tpu_distalg_torch.tools.pagerank_profile import skewed_rows
+
+    (rp, src, w), plan = de.shards[0], de.plans[0]
+    V = de.n_vertices
+    x = torch.as_tensor(np.random.default_rng(SEED + 17).random(V).astype(
+        np.float32), device=dev)
+    recs = _pr_pair(dev, "main shape", rp, src, w, x, plan)
+    ceiling = pk.gather_ceiling(rp, src, w, x, plan)
+    total = float(pk.spmv_table(rp, src, w, x, plan).double().sum())
+    if abs(float(ceiling.double().sum()) - total) > 1e-5 * abs(total):
+        raise AssertionError("the gather ceiling's tiles do not add up to "
+                             "B7's sweep")
+    recs["B7"]["gather_ceiling_ms"] = _time_ms(
+        lambda: pk.gather_ceiling(rp, src, w, x, plan), 200)
+    srp, ssrc = (torch.as_tensor(a, device=dev) for a in skewed_rows())
+    sw = torch.as_tensor(np.random.default_rng(SEED + 18).random(
+        ssrc.shape[0]).astype(np.float32), device=dev)
+    skewed = _pr_pair(dev, "skewed graph", srp, ssrc, sw, x,
+                      pk.tile_plan(srp, ssrc.shape[0]))
+    for key in ("B7", "B8"):
+        recs[key].update({f"skewed_{k}": v for k, v in skewed[key].items()
+                          if k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "max_abs_err")})
+    print(f"[kernels] pagerank B7 gather ceiling at the main shape: "
+          f"{recs['B7']['gather_ceiling_ms']!r} ms (B7 {recs['B7']['ms']!r}, "
+          f"byte bound {recs['B7']['bound_ms']!r})")
     return recs
 
 
@@ -1751,6 +1902,7 @@ def run_pagerank(dev) -> dict:
     from tpu_distalg_torch.utils import datasets
 
     check_pagerank_kernels_small(dev)
+    sass = pagerank_sass()
     mesh = get_mesh(data=1, device=dev)
     t0 = time.perf_counter()
     edges = datasets.erdos_renyi_edges(PR_VERTICES, PR_AVG_DEGREE, seed=0)
@@ -1846,6 +1998,10 @@ def run_pagerank(dev) -> dict:
                              f"20 launches)")
     print(f"[pagerank] reference mode, toy graph: {got.tolist()} within "
           f"1e-5 of the golden; B7 launches {n7} (2 per iteration)")
+    for key in ("B7", "B8"):
+        recs[key]["sass"] = {k: v for k, v in sass.items()
+                             if k.startswith(key) or (key == "B7"
+                                                      and "ceiling" in k)}
     return {"recs": recs, "launches": launches, "rates": rates}
 
 

@@ -264,6 +264,196 @@ def test_wrappers_validate_and_cpu_takes_the_plain_version():
         pk.scatter_table(rp, torch.ones(3, dtype=torch.float64))
     with pytest.raises(ValueError, match="1-D"):
         pk.spmv_table(rp, src, w, x[None])
-    assert [pk.lanes_per_row(e, 1000) for e in (0, 4000, 8000, 9000,
-                                                 40_000)] == [4, 4, 8, 16, 32]
+    assert [pk.tile_items(v, e) for v, e in (
+        (1, 0), (1000, 8000), (100_000, 800_000), (500_000, 1_500_000),
+        (1_000_000, 7_999_981))] == [256, 256, 512, 1024, 2048]
     assert pk.KERNELS == (pk.spmv_table, pk.scatter_table)
+
+
+def _plan_case(name):
+    """(row_ptr int64 numpy, E) of a tile-plan case: V 1, V 37, the
+    hub graph, an empty shard (E = 0), or shard s of a 3- or 8-shard
+    split (``split3-1``)."""
+    rng = np.random.default_rng(11)
+    if name == "v1":
+        return np.array([0, 5], np.int64), 5
+    if name == "v37":
+        rp, _, _ = _hub_graph(rng, 37, 3, 0)
+        return rp, int(rp[-1])
+    if name == "hub":
+        rp, _, _ = _hub_graph(rng, 4099, 17, 100_000)
+        return rp, int(rp[-1])
+    if name == "empty_shard":
+        return np.zeros(301, np.int64), 0
+    n, s = (int(p) for p in name[len("split"):].split("-"))
+    plan = pk.plan_csr(gops.prepare_edges(_random_edges(2000, 30_011, 3),
+                                          2000), n)
+    rp = plan.shard_row_ptr(s).astype(np.int64)
+    return rp, int(rp[-1])
+
+
+PLAN_CASES = (["v1", "v37", "hub", "empty_shard"]
+              + [f"split3-{s}" for s in range(3)]
+              + [f"split8-{s}" for s in range(8)])
+
+
+def _tile_bounds(plan):
+    """Per tile: its rows [i0, i1) and edges [j0, j1)."""
+    rb = plan.rows_before.numpy().astype(np.int64)
+    d = np.minimum(np.arange(plan.n_tiles + 1) * plan.items,
+                   plan.n_rows + plan.n_edges)
+    return rb, d - rb
+
+
+@pytest.mark.parametrize("name", PLAN_CASES)
+def test_tile_plan_covers_every_row_and_edge_once(name):
+    """Every row ends in exactly one tile and every edge lies in exactly
+    one: the tiles' row and edge ranges are consecutive and cover
+    [0, V) and [0, E). A tile holds at most ``items`` rows and edges
+    together, so its edges stay within the budget; only a row longer
+    than a tile spans several (its edges before its end)."""
+    rp, E = _plan_case(name)
+    V = len(rp) - 1
+    plan = pk.tile_plan(torch.from_numpy(rp.astype(np.int32)), E)
+    assert (plan.n_rows, plan.n_edges) == (V, E)
+    assert plan.items == pk.tile_items(V, E)
+    assert plan.rows_before.dtype == torch.int32
+    assert plan.n_tiles == max(1, -(-(V + E) // plan.items))
+    rb, eb = _tile_bounds(plan)
+    assert rb[0] == 0 and rb[-1] == V and eb[0] == 0 and eb[-1] == E
+    assert (np.diff(rb) >= 0).all() and (np.diff(eb) >= 0).all()
+    assert (np.diff(rb) + np.diff(eb) <= plan.items).all()
+    assert (np.diff(rb)[:-1] + np.diff(eb)[:-1] == plan.items).all()
+    for t in range(plan.n_tiles):
+        rows = np.arange(rb[t], rb[t + 1])
+        # a row ends in tile t: its edges lie at or before the tile's end
+        # and its end comes after the tile's start
+        assert (rp[rows + 1] <= eb[t + 1]).all()
+        assert (rp[rows + 1] + rows >= t * plan.items).all()
+        if rb[t + 1] < V:   # the open row has not ended before the tile's end
+            assert rp[rb[t + 1] + 1] + rb[t + 1] >= (t + 1) * plan.items
+    # a row longer than a tile is the one thing past the budget: it spans
+    # tiles
+    long = np.flatnonzero(np.diff(rp) > plan.items)
+    assert ((rp[long + 1] + long) // plan.items
+            > (rp[long] + long) // plan.items).all()
+
+
+def _tile_sums(plan, rp, vals):
+    """The kernels' order of adds, in numpy float32: each tile's part of
+    a row in edge order (a warp's strided lanes folded by the butterfly
+    past ``kShort`` = 16 edges); a row that crosses one tile boundary
+    with at most 64 edges before it read whole by the tile that holds its
+    end (a warp's fold over all its edges); any other crossing row added
+    up from its parts in tile order by the last tile to take its ticket (one part a tile, a warp's
+    fold again)."""
+    f = np.float32
+
+    def fold(xs, warp):
+        xs = [f(v) for v in xs]
+        if len(xs) <= 16 and not warp:
+            acc = f(0)
+            for v in xs:
+                acc = f(acc + v)
+            return acc
+        lanes = [f(0)] * 32
+        for i, v in enumerate(xs):
+            lanes[i % 32] = f(lanes[i % 32] + v)
+        for off in (16, 8, 4, 2, 1):
+            lanes = [f(lanes[i] + lanes[i ^ off]) for i in range(32)]
+        return lanes[0]
+
+    V, items = plan.n_rows, plan.items
+    rb, eb = _tile_bounds(plan)
+    y = np.full(V, np.nan, np.float32)
+    parts = {}
+    tickets = np.zeros(plan.n_tiles, np.int64)
+
+    def tiles_of(r):
+        return (rp[r] + r) // items, (rp[r + 1] + r) // items
+
+    def whole(r):   # over one boundary, at most kWhole = 64 edges before
+        ta, tb = tiles_of(r)
+        return tb - ta == 1 and tb * items - r - rp[r] <= 64
+
+    for t in range(plan.n_tiles):
+        i0, i1, j0, j1 = rb[t], rb[t + 1], eb[t], eb[t + 1]
+        for k in range(i1 - i0 + 1):
+            r = i0 + k
+            b = max(rp[r], j0)
+            e = rp[r + 1] if r < i1 else j1
+            if r == i1:
+                if r < V and rp[r] < j1:
+                    parts[(t, 1)] = fold(vals[b:e], False)
+            elif k == 0 and rp[r] < j0:
+                if whole(r):
+                    y[r] = fold(vals[rp[r]:rp[r + 1]], True)
+                else:
+                    parts[(t, 0)] = fold(vals[b:e], False)
+            else:
+                y[r] = fold(vals[b:e], False)
+        for slot, cross, r in ((0, i1 > i0 and rp[i0] < j0, i0),
+                               (1, i1 < V and rp[i1] < j1, i1)):
+            if not cross:
+                continue
+            ta, tb = tiles_of(r)
+            if whole(r):
+                continue
+            tickets[tb] += 1
+            if tickets[tb] == tb - ta + 1:
+                y[r] = fold([parts[(u, 0 if u == tb else 1)]
+                             for u in range(ta, tb + 1)], True)
+                tickets[tb] = 0
+    assert not tickets.any() and not np.isnan(y).any()
+    return y
+
+
+@pytest.mark.parametrize("name", PLAN_CASES)
+def test_tile_sums_in_the_kernels_order_equal_the_plain_sums(name):
+    """The plan's rows, whole or in parts and tickets, added in the
+    kernels' order (in numpy), give every row once: integer values equal the plain sums bit
+    for bit, random ones within rtol 1e-5 (the hub row 1e-4, as the card
+    tests hold it)."""
+    rp, E = _plan_case(name)
+    V = len(rp) - 1
+    plan = pk.tile_plan(torch.from_numpy(rp.astype(np.int32)), E)
+    rng = np.random.default_rng(5)
+    rpt = torch.from_numpy(rp.astype(np.int32))
+    for kind in ("exact", "random"):
+        c = (rng.integers(-8, 9, size=E) if kind == "exact"
+             else rng.random(E)).astype(np.float32)
+        got = _tile_sums(plan, rp, c)
+        want = pk.scatter_table(rpt, torch.from_numpy(c)).numpy()
+        if kind == "exact":
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, atol=1e-8,
+                                       rtol=1e-4 if name == "hub" else 1e-5)
+
+
+def test_tile_plan_is_pure_and_made_once_per_graph(monkeypatch):
+    """The plan is a function of ``row_ptr`` and E alone, and
+    ``prepare_device_edges`` makes one per shard; the iterations reuse
+    it and make none."""
+    from tpu_distalg_torch.models import pagerank
+    from tpu_distalg_torch.parallel import get_mesh
+
+    rp, E = _plan_case("hub")
+    rpt = torch.from_numpy(rp.astype(np.int32))
+    a, b = pk.tile_plan(rpt, E), pk.tile_plan(rpt.clone(), E)
+    assert (a.n_rows, a.n_edges, a.items) == (b.n_rows, b.n_edges, b.items)
+    assert torch.equal(a.rows_before, b.rows_before)
+    mesh = get_mesh(data=3, device="cpu")
+    el = gops.prepare_edges(_random_edges(500, 4001, 9), 500)
+    de = pagerank.prepare_device_edges(el, mesh)
+    assert len(de.plans) == 3
+    for (rps, src, _), plan in zip(de.shards, de.plans):
+        want = pk.tile_plan(rps, src.shape[0])
+        assert torch.equal(plan.rows_before, want.rows_before)
+    made = []
+    monkeypatch.setattr(pk, "tile_plan", lambda *a: made.append(a))
+    for mode, scatter in (("standard", "auto"), ("standard", "pallas"),
+                          ("reference", "auto")):
+        pagerank.make_run_fn(mesh, pagerank.PageRankConfig(
+            n_iterations=3, mode=mode, scatter=scatter), 500)(de)
+    assert made == []

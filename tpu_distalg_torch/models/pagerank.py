@@ -68,9 +68,11 @@ class PageRankResult:
 class DeviceEdges:
     """The CSR rows of each emulated shard on the mesh's device:
     ``shards[s] = (row_ptr (V+1,) int32, src int32, w_e float32)`` over
-    shard s's slice of the dst-sorted edges."""
+    shard s's slice of the dst-sorted edges, and ``plans[s]`` the
+    kernels' tile plan of its rows (``pagerank_kernels.tile_plan``)."""
 
     shards: list
+    plans: list
     has_out: torch.Tensor   # (V,) float32
     n_vertices: int
     n_edges: int
@@ -92,9 +94,10 @@ def choose_data_backend(requested: str) -> str:
 
 
 def prepare_device_edges(el: gops.EdgeList, mesh: Mesh) -> DeviceEdges:
-    """One-time prep: the dst-sorted CSR plan, each shard's rows, and
-    the per-vertex out-link mask, uploaded to ``mesh.device`` (int32
-    and float32, converted once after the range checks)."""
+    """One-time prep: the dst-sorted CSR plan, each shard's rows and
+    their tile plan for the kernels, and the per-vertex out-link mask, on
+    ``mesh.device`` (int32 and float32, converted once after the range
+    checks)."""
     plan = pk.plan_csr(el, mesh.n_data)
     dev = mesh.device
     src = torch.from_numpy(plan.src).to(dev)
@@ -105,6 +108,8 @@ def prepare_device_edges(el: gops.EdgeList, mesh: Mesh) -> DeviceEdges:
                        src[lo:hi], w_e[lo:hi]))
     has_out = (el.out_degree > 0).astype(np.float32)
     return DeviceEdges(shards=shards,
+                       plans=[pk.tile_plan(rp, src.shape[0])
+                              for rp, src, _ in shards],
                        has_out=torch.from_numpy(has_out).to(dev),
                        n_vertices=el.n_vertices, n_edges=el.n_edges,
                        n_ref=float(has_out.sum()))
@@ -137,12 +142,13 @@ def _library_sweep(de: DeviceEdges):
 def _sweep(de: DeviceEdges, scatter: str):
     """``sweep(ranks)`` → each shard's (V,) contributions."""
     if scatter in ("auto", "spmv"):
-        return lambda x: [pk.spmv_table(rp, src, w, x)
-                          for rp, src, w in de.shards]
+        return lambda x: [pk.spmv_table(rp, src, w, x, plan)
+                          for (rp, src, w), plan in zip(de.shards, de.plans)]
     if scatter == "pallas":
         def gather_then_b8(x):
-            return [pk.scatter_table(rp, torch.index_select(x, 0, src) * w)
-                    for rp, src, w in de.shards]
+            return [pk.scatter_table(rp, torch.index_select(x, 0, src) * w,
+                                     plan)
+                    for (rp, src, w), plan in zip(de.shards, de.plans)]
 
         return gather_then_b8
     return _library_sweep(de)
@@ -167,9 +173,10 @@ def make_run_fn(mesh: Mesh, config: PageRankConfig, n_vertices: int):
             for _ in range(n_it):
                 x = ranks * has_rank
                 c, received = tree_allreduce_sum(
-                    (pk.spmv_table(rp, src, w, x),
-                     pk.spmv_table(rp, src, one, has_rank))
-                    for (rp, src, w), one in zip(de.shards, ones))
+                    (pk.spmv_table(rp, src, w, x, plan),
+                     pk.spmv_table(rp, src, one, has_rank, plan))
+                    for (rp, src, w), one, plan in zip(de.shards, ones,
+                                                       de.plans))
                 has_rank = (received > 0).to(torch.float32)
                 ranks = torch.where(received > 0,
                                     q / de.n_ref + (1 - q) * c, 0.0)  # :57

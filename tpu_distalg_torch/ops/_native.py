@@ -57,8 +57,12 @@ _SIGNATURES = {
         "tda_error_string": ([_I], ctypes.c_char_p),
     },
     "pagerank": {
-        "tda_pagerank_spmv": ([_P, _P, _P, _P, _I, _I, _P, _I, _P], _I),
-        "tda_pagerank_segment_sum": ([_P, _P, _I, _I, _P, _I, _P], _I),
+        "tda_pagerank_spmv": ([_P] * 4 + [_I, _I, _P, _I, _I] + [_P] * 3
+                              + [_I, _P], _I),
+        "tda_pagerank_segment_sum": ([_P, _P, _I, _I, _P, _I, _I] + [_P] * 3
+                                     + [_I, _P], _I),
+        "tda_pagerank_gather_ceiling": ([_P] * 4 + [_I, _I, _P, _I, _I, _P,
+                                                    _I, _P], _I),
         "tda_error_string": ([_I], ctypes.c_char_p),
     },
     "kmeans": {

@@ -9,7 +9,9 @@ Port of ``tpu_distalg/ops/pallas_pagerank.py``:
     ``y[v] = Σ_{e in row v} c[e]``.
 
 Row v is the edges ``[row_ptr[v], row_ptr[v+1])`` of the dst-sorted
-edge list (:func:`plan_csr`). The TPU planners ``plan_scatter`` and
+edge list (:func:`plan_csr`). On the card both kernels take a
+:class:`TilePlan` (:func:`tile_plan`: tiles of equal work on the merge
+path of row ends and edges), made once per prepared graph. The TPU planners ``plan_scatter`` and
 ``plan_spmv`` are not ported: their chunks and windows exist only to fit
 VMEM and the (8, 128) tiling, and they give up on graphs too sparse or
 too skewed for their caps. The CSR plan has no caps, so it exists for
@@ -110,15 +112,60 @@ def scatter_table_reference(row_ptr, c):
 
 # -------------------------------------------------------------- kernels
 
+#: path items (row ends plus edges) a tile takes at most and at least, and
+#: the tiles a graph should give before its tiles shrink (about 8 a
+#: block's SM on a 132-SM card); csrc/pagerank.cu's kMaxItems
+MAX_TILE_ITEMS, MIN_TILE_ITEMS, TARGET_TILES = 2048, 256, 1024
 
-def lanes_per_row(n_edges: int, n_rows: int) -> int:
-    """Lanes the kernels give each row: the power of two in [4, 32]
-    nearest above the average degree."""
-    avg = n_edges / max(n_rows, 1)
-    g = 4
-    while g < 32 and g < avg:
-        g *= 2
-    return g
+
+def tile_items(n_rows: int, n_edges: int) -> int:
+    """Path items a tile of the kernels takes, from the shapes alone:
+    ``MAX_TILE_ITEMS``, halved down to ``MIN_TILE_ITEMS`` while the graph
+    would give fewer than ``TARGET_TILES`` tiles."""
+    items = MAX_TILE_ITEMS
+    while items > MIN_TILE_ITEMS and n_rows + n_edges < items * TARGET_TILES:
+        items //= 2
+    return items
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The kernels' tiles over one CSR matrix. The merge path is the
+    ``n_rows`` row ends and ``n_edges`` edges in order (a row's end after
+    its edges); tile t is its items ``[t·items, (t+1)·items)``. The rows
+    whose ends fall in tile t are ``[rows_before[t], rows_before[t+1])``
+    and its edges ``[t·items − rows_before[t], …)``, so every tile holds at
+    most ``items`` rows and edges together, however long a row is (a row
+    that crosses tiles is summed in parts). ``rows_before`` (n_tiles + 1,)
+    int32 lies on the kernels' device."""
+
+    n_rows: int
+    n_edges: int
+    items: int
+    rows_before: torch.Tensor
+
+    @property
+    def n_tiles(self) -> int:
+        return self.rows_before.shape[0] - 1
+
+
+def tile_plan(row_ptr, n_edges: int) -> TilePlan:
+    """The :class:`TilePlan` of CSR offsets ``row_ptr`` (V+1,) over
+    ``n_edges`` edges, made on ``row_ptr``'s device: a pure function of
+    them, made once per prepared graph (:mod:`..models.pagerank`), or by a
+    wrapper called without one."""
+    V = row_ptr.shape[0] - 1
+    items = tile_items(V, n_edges)
+    n_items = V + n_edges
+    n_tiles = max(1, -(-n_items // items))
+    dev = row_ptr.device
+    diag = (torch.arange(n_tiles + 1, device=dev, dtype=torch.int64)
+            * items).clamp_(max=n_items)
+    # the path position of row r's end: its edges and the r row ends before
+    ends = row_ptr[1:].long() + torch.arange(V, device=dev)
+    rows_before = torch.searchsorted(ends, diag, side="left")
+    return TilePlan(n_rows=V, n_edges=n_edges, items=items,
+                    rows_before=rows_before.to(torch.int32))
 
 
 def _check_sizes(row_ptr, n_edges, what):
@@ -128,22 +175,52 @@ def _check_sizes(row_ptr, n_edges, what):
         raise ValueError(f"{what}: {n_edges} edges exceed {MAX_EDGES}")
 
 
-def _check_kernel_rows(V, what):
+def _kernel_plan(plan, row_ptr, n_edges, dev, what) -> TilePlan:
+    """The plan a launch runs on: the caller's, checked against the
+    shapes, or one made on the card."""
+    V = row_ptr.shape[0] - 1
     if V < 1:
         raise ValueError(f"{what}: the CUDA kernel needs V >= 1 rows")
+    if plan is None:
+        return tile_plan(row_ptr, n_edges)
+    if (plan.n_rows, plan.n_edges) != (V, n_edges) or \
+            plan.rows_before.device != dev or \
+            plan.rows_before.dtype != torch.int32:
+        raise ValueError(
+            f"{what}: the plan is for {plan.n_rows} rows and "
+            f"{plan.n_edges} edges on {plan.rows_before.device}, the call "
+            f"has {V} rows and {n_edges} edges on {dev}")
+    return plan
 
 
-def spmv_table(row_ptr, src, w_e, x):
-    """B7: ``y[v] = Σ_{e in row v} x[src[e]]·w_e[e]``, (V,) float32.
+def _launch(entry, what, dev, plan, streams, ceiling=False):
+    """Launch ``entry`` of the library over ``plan`` on the current
+    stream, ``streams`` its leading tensor operands; returns its float32
+    output, (V,) or for the ceiling (n_tiles,). The tickets (zero, and
+    left zero by every launch) and the parts each have a workspace of
+    their own per (device, stream), so no plan reads another's
+    leftovers."""
+    lib = _native.load("pagerank")
+    stream = _native.stream(dev)
+    streams = [t.contiguous() for t in streams]   # held until the launch
+    scratch = ()
+    if not ceiling:
+        scratch = tuple(_native.workspace(tag, dev, stream, n, dtype)
+                        .data_ptr() for tag, n, dtype in (
+                            ("pagerank tickets", plan.n_tiles, torch.int32),
+                            ("pagerank parts", 2 * plan.n_tiles,
+                             torch.float32)))
+    y = torch.empty((plan.n_tiles if ceiling else plan.n_rows,),
+                    dtype=torch.float32, device=dev)
+    rc = getattr(lib, entry)(
+        *(t.data_ptr() for t in streams), plan.n_rows,
+        plan.n_edges, plan.rows_before.data_ptr(), plan.n_tiles, plan.items,
+        *scratch, y.data_ptr(), dev.index, stream)
+    _native.check(lib, rc, what)
+    return y
 
-    ``row_ptr`` (V+1,) int32 with ``row_ptr[0] = 0`` and
-    ``row_ptr[V] = E``; ``src`` (E,) int32 ids in ``[0, len(x))``;
-    ``w_e`` (E,) and ``x`` float32. The values are not checked on the
-    card (that would cost a sync per call): ``row_ptr`` must be
-    non-decreasing and ``src`` in range, as :func:`plan_csr` makes them.
-    A CPU tensor goes to
-    :func:`spmv_table_reference`; a CUDA tensor launches the kernel
-    (``spmv_table.launches``) or raises."""
+
+def _check_spmv(row_ptr, src, w_e, x):
     _native.check_tensor("row_ptr", row_ptr, (torch.int32,), 1)
     _native.check_tensor("src", src, (torch.int32,), 1)
     _native.check_tensor("w_e", w_e, (torch.float32,), 1)
@@ -152,19 +229,27 @@ def spmv_table(row_ptr, src, w_e, x):
     if w_e.shape[0] != src.shape[0]:
         raise ValueError(f"src {tuple(src.shape)} and w_e "
                          f"{tuple(w_e.shape)} disagree")
+
+
+def spmv_table(row_ptr, src, w_e, x, plan: TilePlan | None = None):
+    """B7: ``y[v] = Σ_{e in row v} x[src[e]]·w_e[e]``, (V,) float32.
+
+    ``row_ptr`` (V+1,) int32 with ``row_ptr[0] = 0`` and
+    ``row_ptr[V] = E``; ``src`` (E,) int32 ids in ``[0, len(x))``;
+    ``w_e`` (E,) and ``x`` float32. The values are not checked on the
+    card (that would cost a sync per call): ``row_ptr`` must be
+    non-decreasing and ``src`` in range, as :func:`plan_csr` makes them.
+    ``plan``: the :func:`tile_plan` of ``row_ptr``, made once per graph;
+    without one the call makes it on the card. A CPU tensor goes to
+    :func:`spmv_table_reference`; a CUDA tensor launches the kernel
+    (``spmv_table.launches``) or raises."""
+    _check_spmv(row_ptr, src, w_e, x)
     if all(t.device.type == "cpu" for t in (row_ptr, src, w_e, x)):
         return spmv_table_reference(row_ptr, src, w_e, x)
     dev = _native.cuda_device(row_ptr, src, w_e, x)
-    V, E = row_ptr.shape[0] - 1, src.shape[0]
-    _check_kernel_rows(V, "spmv_table")
-    row_ptr, src, w_e, x = (t.contiguous() for t in (row_ptr, src, w_e, x))
-    lib = _native.load("pagerank")
-    y = torch.empty((V,), dtype=torch.float32, device=dev)
-    rc = lib.tda_pagerank_spmv(
-        row_ptr.data_ptr(), src.data_ptr(), w_e.data_ptr(), x.data_ptr(), V,
-        lanes_per_row(E, V), y.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _native.check(lib, rc, "spmv_table")
+    plan = _kernel_plan(plan, row_ptr, src.shape[0], dev, "spmv_table")
+    y = _launch("tda_pagerank_spmv", "spmv_table", dev, plan,
+                (row_ptr, src, w_e, x))
     spmv_table.launches += 1
     return y
 
@@ -172,32 +257,39 @@ def spmv_table(row_ptr, src, w_e, x):
 spmv_table.launches = 0
 
 
-def scatter_table(row_ptr, c):
+def scatter_table(row_ptr, c, plan: TilePlan | None = None):
     """B8: ``y[v] = Σ_{e in row v} c[e]``, (V,) float32, for
     contributions ``c`` (E,) float32 already in dst order; ``row_ptr``
-    as for :func:`spmv_table`, with ``row_ptr[V] = E``. A CPU tensor
-    goes to :func:`scatter_table_reference`; a CUDA tensor launches the
-    kernel (``scatter_table.launches``) or raises."""
+    and ``plan`` as for :func:`spmv_table`, with ``row_ptr[V] = E``. A
+    CPU tensor goes to :func:`scatter_table_reference`; a CUDA tensor
+    launches the kernel (``scatter_table.launches``) or raises."""
     _native.check_tensor("row_ptr", row_ptr, (torch.int32,), 1)
     _native.check_tensor("c", c, (torch.float32,), 1)
     _check_sizes(row_ptr, c.shape[0], "scatter_table")
     if row_ptr.device.type == "cpu" and c.device.type == "cpu":
         return scatter_table_reference(row_ptr, c)
     dev = _native.cuda_device(row_ptr, c)
-    V, E = row_ptr.shape[0] - 1, c.shape[0]
-    _check_kernel_rows(V, "scatter_table")
-    row_ptr, c = row_ptr.contiguous(), c.contiguous()
-    lib = _native.load("pagerank")
-    y = torch.empty((V,), dtype=torch.float32, device=dev)
-    rc = lib.tda_pagerank_segment_sum(
-        row_ptr.data_ptr(), c.data_ptr(), V, lanes_per_row(E, V),
-        y.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _native.check(lib, rc, "scatter_table")
+    plan = _kernel_plan(plan, row_ptr, c.shape[0], dev, "scatter_table")
+    y = _launch("tda_pagerank_segment_sum", "scatter_table", dev, plan,
+                (row_ptr, c))
     scatter_table.launches += 1
     return y
 
 
 scatter_table.launches = 0
+
+
+def gather_ceiling(row_ptr, src, w_e, x, plan: TilePlan | None = None):
+    """A measurement on no path: B7's loads, gathers and products over
+    ``plan``'s tiles without the row structure, one sum a tile
+    (n_tiles,). Its time is the floor the gathers set for B7 (the "gather
+    ceiling", PERF.md §6). CUDA tensors only; not counted in ``KERNELS``."""
+    _check_spmv(row_ptr, src, w_e, x)
+    dev = _native.cuda_device(row_ptr, src, w_e, x)
+    plan = _kernel_plan(plan, row_ptr, src.shape[0], dev, "gather_ceiling")
+    return _launch("tda_pagerank_gather_ceiling", "gather_ceiling", dev,
+                   plan, (row_ptr, src, w_e, x), ceiling=True)
+
 
 #: the kernels of this module, for resetting and reading launch counts
 KERNELS = (spmv_table, scatter_table)
