@@ -66,14 +66,24 @@ and the script exits non-zero without printing a result:
      the one hop; 128k tokens one hop, forward and forward + backward;
      B11 and B12 at the 32k shape timed beside their plain versions,
      SDPA and the bound;
- 11. the kernels line, then the last line
+ 11. the local-update family (``models/local_sgd.py``): MA, BMUF and
+     EASGD on phase 6's packed rows at bench.py's MA geometry (300
+     rounds × 5 local steps, bench.py:2234-2295) on 1 and 4 emulated
+     replicas, ``fused_train`` (B2, R launches a round) and
+     ``fused_gather`` (B1, R·L); MA timed (wall, device, idle share,
+     device time by op); each launch count checked; the card against
+     the CPU port after 5 rounds on 4 replicas; ``fused_train`` against
+     ``fused_gather``; the breast-cancer task as bench.py runs it, held
+     by the tail of each run;
+ 12. the kernels line (B1's and B2's entries with their launches on the
+     local-update runs), then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
 and read just after it (the serving path: phase 4's full-width fit and
 phase 5; each SSGD path, each PageRank sweep, each k-means fit, each
-tp mesh and each attention run on its own), so the kernels line shows
-that each path went through its kernel.
+tp mesh, each attention run and each local-update run on its own), so
+the kernels line shows that each path went through its kernel.
 """
 
 from __future__ import annotations
@@ -1082,7 +1092,8 @@ def run_ssgd(dev) -> dict:
               + ("reported, the band is held over the tail above"
                  if cfg_ref.sampler == "fused"
                  else f"band >= {SSGD_BAND} (reference 0.929825)"))
-    return {"recs": recs, "launches": launches, "X": X, "y": y}
+    return {"recs": recs, "launches": launches, "X": X, "y": y, "X2": X2,
+            "meta": meta}
 
 
 #: the tp split's wide geometry: bench.py's mesh2d width (bench.py:998),
@@ -2932,6 +2943,210 @@ def run_attention(dev) -> dict:
     return {"recs": recs, "launches": launches, "sass": sass}
 
 
+# ------------------------------------------------------------ phase 11
+
+#: the local-update family at bench.py's MA geometry (bench.py:2248-2266):
+#: phase 6's packed rows, rounds of local steps each, the rounds of the
+#: card-against-CPU check, and the replica counts (bench.py's one chip,
+#: the reference's n_slices = 4)
+LOCAL_ROUNDS, LOCAL_L, LOCAL_CHECK_ROUNDS, LOCAL_REPLICAS = 300, 5, 5, (1, 4)
+#: card against the CPU port after LOCAL_CHECK_ROUNDS rounds: bf16 rows,
+#: held as B2 is over many steps (1e-3 of the largest entry); fused_train
+#: against fused_gather after the full run, as phase 6 holds them
+LOCAL_TOL, LOCAL_PATHS_TOL = 1e-3, 2e-2
+#: the breast-cancer runs' bands (MA: the reference's golden 0.853801;
+#: BMUF and EASGD: 0.929825), read over the last sixth of the rounds;
+#: the card's mean there within LOCAL_MEAN_TOL of the CPU port's
+LOCAL_BANDS = {"ma": 0.85, "bmuf": 0.92, "easgd": 0.92}
+LOCAL_MEAN_TOL = 0.04
+
+
+def _local_configs():
+    from tpu_distalg_torch.models import bmuf, easgd, ma
+
+    return {"ma": ma.MAConfig(), "bmuf": bmuf.BMUFConfig(),
+            "easgd": easgd.EASGDConfig()}
+
+
+def _local_timed(run, n_replicas: int, replica_bytes: int) -> dict:
+    """One warm run, one on the host's clock ending in a synchronize
+    (with every launch counter set to 0 just before it and read just
+    after), one under the profiler (the device time). Rates count
+    LOCAL_ROUNDS × LOCAL_L local steps a run (bench.py's metric step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_distalg_torch.tools.profiling import device_us
+
+    run()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t1 = time.perf_counter()
+    w, ws, _, _ = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _launches()
+    if not (bool(torch.isfinite(w).all()) and bool(torch.isfinite(ws).all())):
+        raise AssertionError("non-finite local-SGD models")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_op = device_us(prof)
+    device = sum(by_op.values()) / 1e6
+    steps = LOCAL_ROUNDS * LOCAL_L
+    rate = steps / wall
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:4]
+    return {"wall_s": wall, "local_steps_per_s": rate,
+            "device_us_per_round_by_op": {
+                k[:48]: v / LOCAL_ROUNDS for k, v in top},
+            "replica_local_steps_per_s": n_replicas * rate,
+            "device_s": device, "device_idle_share": 1.0 - device / wall,
+            "bytes_per_local_step": n_replicas * replica_bytes,
+            "hbm_share": n_replicas * replica_bytes * rate / HBM_BYTES_PER_S,
+            "launches": launches, "w": w, "ws": ws}
+
+
+def _local_tail(accs) -> tuple:
+    tail = np.asarray(accs)[-(len(accs) // 6):]
+    return float(tail.max()), float(tail.mean())
+
+
+def run_local_sgd(dev, sg: dict) -> dict:
+    """Phase 11: MA, BMUF and EASGD (``models/local_sgd.py``) on
+    ``fused_train`` (B2: R launches a round) and ``fused_gather`` (B1: R·L
+    launches a round) over phase 6's packed rows, on 1 and 4 emulated
+    replicas; the card against the CPU port after 5 rounds on 4
+    replicas; the breast-cancer task as bench.py runs it. Returns the
+    launch counts of each timed run."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from tpu_distalg_torch.models import local_sgd
+    from tpu_distalg_torch.models.ssgd import fused_gather_geometry
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets
+
+    X2, meta = sg["X2"], sg["meta"]
+    D, d = meta["d_total"], meta["y_col"]
+    X2_cpu = None
+    out = {}
+    for R in LOCAL_REPLICAS:
+        mesh = get_mesh(data=R, device=dev)
+        te = (torch.zeros((1, D), device=dev), torch.zeros((1,), device=dev))
+        for name, preset in _local_configs().items():
+            finals = {}
+            for sampler in ("fused_train", "fused_gather"):
+                cfg = dataclasses.replace(
+                    preset, n_iterations=LOCAL_ROUNDS,
+                    n_local_iterations=LOCAL_L, eval_test=False,
+                    sampler=sampler, x_dtype="bfloat16", fused_pack=16,
+                    gather_block_rows=SSGD_GBR, shuffle_seed=0)
+                fn = local_sgd.make_train_fn_fused(mesh, cfg, meta)
+                state = local_sgd.init_state(cfg, d, D, R, dev)
+                n_s = fused_gather_geometry(cfg, meta, R)[1]
+                replica_bytes = n_s * SSGD_GBR * D * X2.element_size()
+                key = f"{name} {sampler} R={R}"
+                if name == "ma":
+                    rec = _local_timed(lambda: fn(X2, *te, *state), R,
+                                       replica_bytes)
+                    print(f"[local] {key}: {LOCAL_ROUNDS} rounds x {LOCAL_L} "
+                          f"local steps in {rec['wall_s']!r} s = "
+                          f"{rec['local_steps_per_s']!r} local steps/s "
+                          f"({rec['replica_local_steps_per_s']!r} replica "
+                          f"local steps/s); device {rec['device_s']!r} s, "
+                          f"idle share {rec['device_idle_share']!r}; "
+                          f"{rec['bytes_per_local_step']} bytes a local "
+                          f"step, {rec['hbm_share']!r} of 3.35 TB/s; "
+                          f"device µs a round by op (top 4) "
+                          f"{rec['device_us_per_round_by_op']}; "
+                          f"launches "
+                          f"{ {k: v for k, v in rec['launches'].items() if v} }")
+                else:
+                    _reset_launches()
+                    w, ws, _, _ = fn(X2, *te, *state)
+                    torch.cuda.synchronize()
+                    rec = {"launches": _launches(), "w": w, "ws": ws}
+                    if not bool(torch.isfinite(ws).all()):
+                        raise AssertionError(f"{key}: non-finite models")
+                want = {"fused_train": ("fused_train_gathered",
+                                        R * LOCAL_ROUNDS),
+                        "fused_gather": ("fused_grad_sum_gathered",
+                                         R * LOCAL_ROUNDS * LOCAL_L)}
+                for path, (kernel, count) in want.items():
+                    got = rec["launches"][kernel]
+                    if got != (count if path == sampler else 0):
+                        raise AssertionError(
+                            f"{key}: {kernel} launched {got} time(s), want "
+                            f"{count if path == sampler else 0}")
+                finals[sampler] = (rec.pop("w"), rec.pop("ws"))
+                out[key] = rec
+                if R == 4:   # the card against the CPU port, 5 rounds
+                    if X2_cpu is None:
+                        X2_cpu = X2.cpu()
+                    c5 = dataclasses.replace(cfg, n_iterations=LOCAL_CHECK_ROUNDS)
+                    fn_card = local_sgd.make_train_fn_fused(mesh, c5, meta)
+                    fn_cpu = local_sgd.make_train_fn_fused(
+                        get_mesh(data=R, device="cpu"), c5, meta)
+                    w_c, ws_c, _, _ = fn_card(X2, *te, *state)
+                    w_h, ws_h, _, _ = fn_cpu(
+                        X2_cpu, *(t.cpu() for t in te),
+                        *(t.cpu() for t in state))
+                    for label, got, want in (("w", w_c, w_h),
+                                             ("ws", ws_c, ws_h)):
+                        err = float((got.cpu() - want).abs().max())
+                        if err > LOCAL_TOL * float(want.abs().max()):
+                            raise AssertionError(
+                                f"{key}: {label} card vs CPU after "
+                                f"{LOCAL_CHECK_ROUNDS} rounds: max |err| "
+                                f"{err}")
+                    print(f"[local] {key}: card vs CPU port after "
+                          f"{LOCAL_CHECK_ROUNDS} rounds: max |dw| "
+                          f"{float((w_c.cpu() - w_h).abs().max())!r}, max "
+                          f"|dws| {float((ws_c.cpu() - ws_h).abs().max())!r}"
+                          f" (held to {LOCAL_TOL} of the largest entry)")
+            (wt, wst), (wg, wsg) = finals["fused_train"], finals["fused_gather"]
+            diff = max(float((wt - wg).abs().max()),
+                       float((wst - wsg).abs().max()))
+            if not (torch.allclose(wt, wg, rtol=LOCAL_PATHS_TOL,
+                                   atol=LOCAL_PATHS_TOL)
+                    and torch.allclose(wst, wsg, rtol=LOCAL_PATHS_TOL,
+                                       atol=LOCAL_PATHS_TOL)):
+                raise AssertionError(f"{name} R={R}: fused_train != "
+                                     f"fused_gather: max |dw| {diff}")
+            print(f"[local] {name} R={R}: fused_train vs fused_gather after "
+                  f"{LOCAL_ROUNDS} rounds (bf16): max |dw| {diff!r}, max |w| "
+                  f"{float(wg.abs().max())!r} (held to rtol/atol "
+                  f"{LOCAL_PATHS_TOL}, as phase 6)")
+    del X2_cpu
+
+    data = datasets.breast_cancer_split()
+    for name, preset in _local_configs().items():
+        cfg = dataclasses.replace(preset, sampler="fused_train",
+                                  gather_block_rows=64, fused_pack=4,
+                                  shuffle_seed=0)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="fused_gather:")
+            card = local_sgd.train(*data, get_mesh(data=1, device=dev), cfg)
+            cpu = local_sgd.train(*data, get_mesh(data=1, device="cpu"), cfg)
+        (cb, cm), (hb, hm) = (_local_tail(card.accs.cpu()),
+                              _local_tail(cpu.accs))
+        band = LOCAL_BANDS[name]
+        if not (cb >= band and hb >= band and abs(cm - hm) <= LOCAL_MEAN_TOL):
+            raise AssertionError(
+                f"{name} breast cancer: tail best card {cb} / CPU {hb} (want "
+                f">= {band}), tail mean card {cm} / CPU {hm} (want within "
+                f"{LOCAL_MEAN_TOL})")
+        print(f"[local] breast cancer, {name} fused_train (bench.py's "
+              f"settings, 1 replica, {cfg.n_iterations} rounds): final acc "
+              f"card {card.final_acc!r}, CPU {cpu.final_acc!r}; last "
+              f"{cfg.n_iterations // 6} rounds best {cb!r} / {hb!r}, mean "
+              f"{cm!r} / {hm!r} (band >= {band})")
+    return out
+
+
 def _phase(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[time] {name}: {now - t0!r} s")
@@ -3003,6 +3218,10 @@ def main() -> int:
     att = run_attention(dev)
     t0 = _phase("attention", t0)
 
+    local = run_local_sgd(dev, sg)
+    del sg["X2"]
+    t0 = _phase("local sgd", t0)
+
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"
     kernels = [{
@@ -3016,12 +3235,16 @@ def main() -> int:
             ("B2", "fused_train_gathered", 442, "fused_train"),
             ("B5", "fused_grad_sum_packed", 737, "fused")):
         wide = tp["wide_dp"].get(key, {})
+        local_launches = {k: v["launches"][name] for k, v in local.items()
+                          if v["launches"][name]}
         kernels.append({
             "name": f"ssgd_kernels.{name}", "route": "cuda",
             "source": ssgd_src, "replaces": f"{pallas}:{line}",
             "launches": sg["launches"][path][name], **sg["recs"][key],
             **{f"wide_{k}": v for k, v in wide.items()
-               if k in ("ms", "plain_ms", "library_ms", "bound_ms")}})
+               if k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            **({"local_sgd_launches": local_launches}
+               if local_launches else {})})
     for key, name, line in (("B3", "fused_forward_gathered", 590),
                             ("B4", "fused_backward_gathered", 668)):
         main, wide = tp["main"][key], tp["wide"][key]

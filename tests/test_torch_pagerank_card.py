@@ -346,3 +346,34 @@ def test_plan_is_checked_and_the_ceiling_runs(cuda_device):
     torch.testing.assert_close(sums.double().sum(),
                                pk.spmv_table(rp, src, w, x).double().sum(),
                                rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.gpu
+def test_a_plan_of_another_row_ptr_of_the_same_shape_is_refused(cuda_device):
+    """B7, B8 and the gather ceiling refuse the plan of another graph
+    with the same V and E, and the plan of an equal-valued clone, before
+    they launch; the graph's own plan gives the plan-less result."""
+    rng, rp, src, E = _graph(cuda_device, 5000, 0, 30.0, seed=4)
+    deg = np.diff(rp.cpu().numpy().astype(np.int64))
+    other = np.zeros(5001, np.int64)
+    np.cumsum(rng.permutation(deg), out=other[1:])
+    rp2 = torch.as_tensor(other.astype(np.int32), device=cuda_device)
+    assert rp2.shape == rp.shape and int(rp2[-1]) == E
+    assert not torch.equal(rp2, rp)
+    x = torch.as_tensor(rng.random(5000).astype(np.float32),
+                        device=cuda_device)
+    w = torch.as_tensor(rng.random(E).astype(np.float32), device=cuda_device)
+    before = (pk.spmv_table.launches, pk.scatter_table.launches)
+    for plan in (pk.tile_plan(rp, E), pk.tile_plan(rp2.clone(), E)):
+        with pytest.raises(ValueError, match="another row_ptr"):
+            pk.spmv_table(rp2, src, w, x, plan)
+        with pytest.raises(ValueError, match="another row_ptr"):
+            pk.scatter_table(rp2, w, plan)
+        with pytest.raises(ValueError, match="another row_ptr"):
+            pk.gather_ceiling(rp2, src, w, x, plan)
+    assert (pk.spmv_table.launches, pk.scatter_table.launches) == before
+    plan2 = pk.tile_plan(rp2, E)
+    assert torch.equal(pk.spmv_table(rp2, src, w, x, plan2),
+                       pk.spmv_table(rp2, src, w, x))
+    assert torch.equal(pk.scatter_table(rp2, w, plan2),
+                       pk.scatter_table(rp2, w))

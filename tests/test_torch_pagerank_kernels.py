@@ -457,3 +457,49 @@ def test_tile_plan_is_pure_and_made_once_per_graph(monkeypatch):
         pagerank.make_run_fn(mesh, pagerank.PageRankConfig(
             n_iterations=3, mode=mode, scatter=scatter), 500)(de)
     assert made == []
+
+
+def _same_shape_graphs(v, e, seed):
+    """Two CSR graphs with the same V and E but other rows."""
+    out = []
+    for k in range(2):
+        rng = np.random.default_rng(seed + k)
+        deg = rng.multinomial(e, np.full(v, 1.0 / v))
+        rp = np.zeros(v + 1, np.int64)
+        np.cumsum(deg, out=rp[1:])
+        out.append(torch.from_numpy(rp.astype(np.int32)))
+    assert not torch.equal(*out)
+    return out
+
+
+def test_a_plan_of_another_row_ptr_is_refused_on_the_cpu():
+    """B7, B8 and the gather ceiling refuse, before they choose their
+    path, a plan made from another row_ptr of the same V and E; also a
+    plan made from an equal-valued clone (the plan is tied to the tensor
+    it was made from) and a plan whose row_ptr was written in place
+    since. The plan of the tensor itself passes and changes nothing."""
+    V, E = 300, 4000
+    rp_a, rp_b = _same_shape_graphs(V, E, 21)
+    rng = np.random.default_rng(3)
+    src = torch.from_numpy(rng.integers(0, V, E).astype(np.int32))
+    w = torch.from_numpy(rng.random(E).astype(np.float32))
+    x = torch.from_numpy(rng.random(V).astype(np.float32))
+    plan_a = pk.tile_plan(rp_a, E)
+    clone = rp_b.clone()
+    for plan in (plan_a, pk.tile_plan(clone, E)):
+        with pytest.raises(ValueError, match="another row_ptr"):
+            pk.spmv_table(rp_b, src, w, x, plan)
+        with pytest.raises(ValueError, match="another row_ptr"):
+            pk.scatter_table(rp_b, w, plan)
+        with pytest.raises(ValueError, match="another row_ptr"):
+            pk.gather_ceiling(rp_b, src, w, x, plan)
+    plan_b = pk.tile_plan(rp_b, E)
+    assert torch.equal(pk.spmv_table(rp_b, src, w, x, plan_b),
+                       pk.spmv_table(rp_b, src, w, x))
+    assert torch.equal(pk.scatter_table(rp_b, w, plan_b),
+                       pk.scatter_table(rp_b, w))
+    with pytest.raises(ValueError, match="plan is for"):
+        pk.scatter_table(rp_b[:-1], w[:int(rp_b[-2])], plan_b)
+    rp_b[1:] = rp_a[1:]             # the same tensor, other rows
+    with pytest.raises(ValueError, match="written in place"):
+        pk.scatter_table(rp_b, w, plan_b)

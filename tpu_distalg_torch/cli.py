@@ -1,6 +1,10 @@
-"""Command line of the port: SSGD, ALS, k-means, PageRank, and serving
-ALS, k-means and LR artifacts.
+"""Command line of the port: full-batch LR, SSGD, the local-update family
+(MA, BMUF, EASGD), ALS, k-means, PageRank, and serving ALS, k-means and
+LR artifacts.
 
+    python -m tpu_distalg_torch.cli [--device {cuda,cpu}] lr
+    python -m tpu_distalg_torch.cli ma --n-slices 4 --sampler fused_train \\
+        --fused-pack 4 --gather-block-rows 32 --shuffle-seed 0  # B2
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] ssgd \\
         --sampler fused_train --gather-block-rows 32 --fused-pack 4 \\
         --shuffle-seed 0 --n-iterations 1500      # breast-cancer task
@@ -17,14 +21,16 @@ ALS, k-means and LR artifacts.
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] kmeans \\
         [--scale-points 10000000 --dim 16 --k 8 --n-iterations 50]
 
-The lines printed match the JAX package's ``tda ssgd``, ``tda als``,
-``tda serve``, ``tda pagerank`` and ``tda kmeans``. Runs on ``cuda``
-unless ``--device cpu`` is given.
+The lines printed match the JAX package's ``tda lr``, ``tda ssgd``,
+``tda ma``, ``tda bmuf``, ``tda easgd``, ``tda als``, ``tda serve``,
+``tda pagerank`` and ``tda kmeans``. Runs on ``cuda`` unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import re
 import sys
 
@@ -44,6 +50,30 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m tpu_distalg_torch.cli")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    lr = sub.add_parser("lr", help="full-batch logistic regression")
+    _add_optimizer(lr, 1500)
+    for name in ("ma", "bmuf", "easgd"):
+        o = sub.add_parser(name, help={
+            "ma": "model averaging (local SGD)",
+            "bmuf": "blockwise model update filtering",
+            "easgd": "elastic averaging SGD"}[name])
+        _add_optimizer(o, 1500 if name == "easgd" else 300)
+        o.add_argument("--mini-batch-fraction", type=float, default=0.1)
+        o.add_argument("--sampler", default="bernoulli",
+                       choices=["bernoulli", "fused_gather", "fused_train"])
+        o.add_argument("--x-dtype", default="float32",
+                       choices=["float32", "bfloat16"])
+        o.add_argument("--gather-block-rows", type=int, default=1024)
+        o.add_argument("--fused-pack", type=int, default=16)
+        o.add_argument("--shuffle-seed", type=int, default=None)
+        o.add_argument("--mega-steps", type=int, default=None,
+                       help="ssgd only: refused here, as the JAX CLI does")
+        o.add_argument("--sync", default="bsp", metavar="MODE",
+                       help="bsp (ssp waits for ROADMAP A9)")
+        o.add_argument("--n-local-iterations", type=int,
+                       default=1 if name == "easgd" else 5)
+        o.add_argument("--resample-per-local-step", action="store_true")
 
     o = sub.add_parser("ssgd", help="synchronous minibatch SGD")
     o.add_argument("--n-slices", type=int, default=0,
@@ -163,6 +193,86 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def _add_optimizer(p, n_iterations: int) -> None:
+    """The flags the JAX CLI gives ``lr``, ``ma``, ``bmuf`` and
+    ``easgd`` (``tpu_distalg/cli.py:256-288``), defaults included."""
+    p.add_argument("--n-slices", type=int, default=0,
+                   help="emulated data shards (replicas); 0 = 1")
+    p.add_argument("--n-iterations", type=int, default=n_iterations)
+    p.add_argument("--eta", type=float, default=0.1)
+    p.add_argument("--comm", default="dense", metavar="SCHED",
+                   help="dense (the other schedules wait for ROADMAP A9)")
+    p.add_argument("--plot", type=str, default=None,
+                   help="save an accuracy plot PNG here")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="segmented checkpoint/resume directory")
+    p.add_argument("--checkpoint-every", type=int, default=500)
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help="restarts after a failed segment: waits for the "
+                        "faults slice (ROADMAP A12); only 0 is accepted")
+
+
+def _report(name: str, res, args, seconds: float) -> None:
+    """The JAX CLI's closing lines of an optimizer run."""
+    from tpu_distalg_torch.utils import metrics
+
+    if not args.quiet:
+        print(f"Final w: {list(map(float, res.w.cpu()))}")
+    print(f"Final acc: {res.final_acc:.6f}")
+    print(f"[{name}] {args.n_iterations} iterations in {seconds:.3f}s "
+          f"({args.n_iterations / seconds:.1f} steps/s)")
+    if args.plot:
+        metrics.draw_acc_plot(res.accs.cpu().numpy(), args.plot)
+        print(f"saved plot: {args.plot}")
+
+
+def _run_optimizer(args) -> None:
+    """``lr``, ``ma``, ``bmuf`` and ``easgd`` on the breast-cancer task."""
+    import importlib
+    import time
+
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets
+
+    if args.max_restarts != 0:
+        raise SystemExit("--max-restarts waits for the faults slice "
+                         "(ROADMAP A12); only 0 is accepted")
+    if args.cmd != "lr" and args.mega_steps is not None:
+        raise SystemExit(
+            f"{args.cmd}: --mega-steps applies to ssgd only — "
+            "local-update megakernels launch n-local-iterations "
+            "steps per round")
+    data = datasets.breast_cancer_split()
+    mesh = get_mesh(data=args.n_slices or None, device=args.device)
+    if args.cmd == "lr":
+        from tpu_distalg_torch.models import logistic_regression as m
+
+        cfg = m.LRConfig(n_iterations=args.n_iterations, eta=args.eta,
+                         comm=args.comm)
+    else:
+        m = importlib.import_module(f"tpu_distalg_torch.models.{args.cmd}")
+        cfg = getattr(m, {"ma": "MAConfig", "bmuf": "BMUFConfig",
+                          "easgd": "EASGDConfig"}[args.cmd])(
+            n_iterations=args.n_iterations, eta=args.eta,
+            mini_batch_fraction=args.mini_batch_fraction,
+            n_local_iterations=args.n_local_iterations,
+            resample_per_local_step=args.resample_per_local_step,
+            sampler=args.sampler, x_dtype=args.x_dtype,
+            gather_block_rows=args.gather_block_rows,
+            fused_pack=args.fused_pack, shuffle_seed=args.shuffle_seed,
+            comm=args.comm, sync=args.sync)
+    t0 = time.perf_counter()
+    try:
+        res = m.train(*data, mesh, cfg, checkpoint_dir=args.checkpoint_dir,
+                      checkpoint_every=args.checkpoint_every)
+    except NotImplementedError as e:
+        raise SystemExit(f"[{args.cmd}] {e}") from None
+    w = res.w.cpu()   # waits for the card
+    _report(args.cmd, dataclasses.replace(res, w=w), args,
+            time.perf_counter() - t0)
+
+
 def _mega_steps(args, default: int) -> int:
     """The JAX CLI's ``--mega-steps`` auto-pick: the largest divisor of
     every segment the run will execute, a resume included, that is at
@@ -197,7 +307,7 @@ def _run_ssgd(args) -> None:
 
     from tpu_distalg_torch.models import ssgd
     from tpu_distalg_torch.parallel import get_mesh
-    from tpu_distalg_torch.utils import datasets, metrics
+    from tpu_distalg_torch.utils import datasets
 
     data = datasets.breast_cancer_split()
     n_data, n_model = args.n_slices or 1, 1
@@ -235,16 +345,9 @@ def _run_ssgd(args) -> None:
     res = ssgd.train(*data, mesh, ssgd.SSGDConfig(**kw),
                      checkpoint_dir=args.checkpoint_dir,
                      checkpoint_every=args.checkpoint_every)
-    w = res.w.cpu()
-    t = time.perf_counter() - t0
-    if not args.quiet:
-        print(f"Final w: {list(map(float, w))}")
-    print(f"Final acc: {res.final_acc:.6f}")
-    print(f"[ssgd] {args.n_iterations} iterations in {t:.3f}s "
-          f"({args.n_iterations / t:.1f} steps/s)")
-    if args.plot:
-        metrics.draw_acc_plot(res.accs.cpu().numpy(), args.plot)
-        print(f"saved plot: {args.plot}")
+    w = res.w.cpu()   # waits for the card
+    _report("ssgd", dataclasses.replace(res, w=w), args,
+            time.perf_counter() - t0)
 
 
 def _run_kmeans(args) -> None:
@@ -348,6 +451,8 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.cmd == "ssgd":
         _run_ssgd(args)
+    elif args.cmd in ("lr", "ma", "bmuf", "easgd"):
+        _run_optimizer(args)
     elif args.cmd == "pagerank":
         _run_pagerank(args)
     elif args.cmd == "kmeans":

@@ -11,7 +11,8 @@ Port of ``tpu_distalg/ops/pallas_pagerank.py``:
 Row v is the edges ``[row_ptr[v], row_ptr[v+1])`` of the dst-sorted
 edge list (:func:`plan_csr`). On the card both kernels take a
 :class:`TilePlan` (:func:`tile_plan`: tiles of equal work on the merge
-path of row ends and edges), made once per prepared graph. The TPU planners ``plan_scatter`` and
+path of row ends and edges), made once per prepared graph and tied to
+the ``row_ptr`` tensor it was made from. The TPU planners ``plan_scatter`` and
 ``plan_spmv`` are not ported: their chunks and windows exist only to fit
 VMEM and the (8, 128) tiling, and they give up on graphs too sparse or
 too skewed for their caps. The CSR plan has no caps, so it exists for
@@ -137,12 +138,19 @@ class TilePlan:
     and its edges ``[t·items − rows_before[t], …)``, so every tile holds at
     most ``items`` rows and edges together, however long a row is (a row
     that crosses tiles is summed in parts). ``rows_before`` (n_tiles + 1,)
-    int32 lies on the kernels' device."""
+    int32 lies on the kernels' device.
+
+    A plan is tied to the ``row_ptr`` tensor it was made from: it holds
+    that tensor (so its memory is never handed to another graph while the
+    plan lives) and the tensor's version counter at the time, and the
+    wrappers refuse it for any other ``row_ptr`` (:func:`check_plan`)."""
 
     n_rows: int
     n_edges: int
     items: int
     rows_before: torch.Tensor
+    row_ptr: torch.Tensor = dataclasses.field(repr=False, compare=False)
+    row_ptr_version: int = dataclasses.field(repr=False, compare=False)
 
     @property
     def n_tiles(self) -> int:
@@ -165,7 +173,8 @@ def tile_plan(row_ptr, n_edges: int) -> TilePlan:
     ends = row_ptr[1:].long() + torch.arange(V, device=dev)
     rows_before = torch.searchsorted(ends, diag, side="left")
     return TilePlan(n_rows=V, n_edges=n_edges, items=items,
-                    rows_before=rows_before.to(torch.int32))
+                    rows_before=rows_before.to(torch.int32),
+                    row_ptr=row_ptr, row_ptr_version=row_ptr._version)
 
 
 def _check_sizes(row_ptr, n_edges, what):
@@ -175,22 +184,45 @@ def _check_sizes(row_ptr, n_edges, what):
         raise ValueError(f"{what}: {n_edges} edges exceed {MAX_EDGES}")
 
 
-def _kernel_plan(plan, row_ptr, n_edges, dev, what) -> TilePlan:
-    """The plan a launch runs on: the caller's, checked against the
-    shapes, or one made on the card."""
+def check_plan(plan: TilePlan, row_ptr, n_edges: int, what: str) -> None:
+    """Raise ValueError unless ``plan`` was made by :func:`tile_plan` from
+    this very ``row_ptr`` tensor (the same memory, shape and strides),
+    unchanged since, over ``n_edges`` edges. A plan of another tensor is
+    refused even when that tensor holds equal values (a clone): proving
+    the values equal would cost a pass over both and, on the card, a
+    sync a call, so make the plan from the tensor the calls pass. The
+    JAX kernels take their plan's arrays as operands and cannot be given
+    another graph's; this is the port's counterpart of that."""
     V = row_ptr.shape[0] - 1
-    if V < 1:
-        raise ValueError(f"{what}: the CUDA kernel needs V >= 1 rows")
-    if plan is None:
-        return tile_plan(row_ptr, n_edges)
     if (plan.n_rows, plan.n_edges) != (V, n_edges) or \
-            plan.rows_before.device != dev or \
+            plan.rows_before.device != row_ptr.device or \
             plan.rows_before.dtype != torch.int32:
         raise ValueError(
             f"{what}: the plan is for {plan.n_rows} rows and "
             f"{plan.n_edges} edges on {plan.rows_before.device}, the call "
-            f"has {V} rows and {n_edges} edges on {dev}")
-    return plan
+            f"has {V} rows and {n_edges} edges on {row_ptr.device}")
+    src = plan.row_ptr
+    if (src.data_ptr(), src.shape, src.stride()) != \
+            (row_ptr.data_ptr(), row_ptr.shape, row_ptr.stride()):
+        raise ValueError(
+            f"{what}: the plan was made from another row_ptr tensor of the "
+            f"same {V} rows and {n_edges} edges; a plan is tied to the "
+            f"tensor it was made from (equal values in another tensor are "
+            f"not checked): make it with tile_plan(row_ptr, n_edges) from "
+            f"the row_ptr this call passes")
+    if row_ptr._version != plan.row_ptr_version:
+        raise ValueError(
+            f"{what}: row_ptr was written in place after its plan was "
+            f"made; make the plan again")
+
+
+def _kernel_plan(plan, row_ptr, n_edges, what) -> TilePlan:
+    """The plan a launch runs on: the caller's (checked by
+    :func:`check_plan` before the wrapper chose its path), or one made
+    on the card."""
+    if row_ptr.shape[0] - 1 < 1:
+        raise ValueError(f"{what}: the CUDA kernel needs V >= 1 rows")
+    return tile_plan(row_ptr, n_edges) if plan is None else plan
 
 
 def _launch(entry, what, dev, plan, streams, ceiling=False):
@@ -220,15 +252,17 @@ def _launch(entry, what, dev, plan, streams, ceiling=False):
     return y
 
 
-def _check_spmv(row_ptr, src, w_e, x):
+def _check_spmv(row_ptr, src, w_e, x, plan, what):
     _native.check_tensor("row_ptr", row_ptr, (torch.int32,), 1)
     _native.check_tensor("src", src, (torch.int32,), 1)
     _native.check_tensor("w_e", w_e, (torch.float32,), 1)
     _native.check_tensor("x", x, (torch.float32,), 1)
-    _check_sizes(row_ptr, src.shape[0], "spmv_table")
+    _check_sizes(row_ptr, src.shape[0], what)
     if w_e.shape[0] != src.shape[0]:
         raise ValueError(f"src {tuple(src.shape)} and w_e "
                          f"{tuple(w_e.shape)} disagree")
+    if plan is not None:
+        check_plan(plan, row_ptr, src.shape[0], what)
 
 
 def spmv_table(row_ptr, src, w_e, x, plan: TilePlan | None = None):
@@ -239,15 +273,17 @@ def spmv_table(row_ptr, src, w_e, x, plan: TilePlan | None = None):
     ``w_e`` (E,) and ``x`` float32. The values are not checked on the
     card (that would cost a sync per call): ``row_ptr`` must be
     non-decreasing and ``src`` in range, as :func:`plan_csr` makes them.
-    ``plan``: the :func:`tile_plan` of ``row_ptr``, made once per graph;
-    without one the call makes it on the card. A CPU tensor goes to
+    ``plan``: the :func:`tile_plan` of this ``row_ptr`` tensor, made once
+    per graph; without one the call makes it on the card. A plan made
+    from another tensor raises ValueError (:func:`check_plan`), on the
+    CPU as on the card. A CPU tensor goes to
     :func:`spmv_table_reference`; a CUDA tensor launches the kernel
     (``spmv_table.launches``) or raises."""
-    _check_spmv(row_ptr, src, w_e, x)
+    _check_spmv(row_ptr, src, w_e, x, plan, "spmv_table")
     if all(t.device.type == "cpu" for t in (row_ptr, src, w_e, x)):
         return spmv_table_reference(row_ptr, src, w_e, x)
     dev = _native.cuda_device(row_ptr, src, w_e, x)
-    plan = _kernel_plan(plan, row_ptr, src.shape[0], dev, "spmv_table")
+    plan = _kernel_plan(plan, row_ptr, src.shape[0], "spmv_table")
     y = _launch("tda_pagerank_spmv", "spmv_table", dev, plan,
                 (row_ptr, src, w_e, x))
     spmv_table.launches += 1
@@ -266,10 +302,12 @@ def scatter_table(row_ptr, c, plan: TilePlan | None = None):
     _native.check_tensor("row_ptr", row_ptr, (torch.int32,), 1)
     _native.check_tensor("c", c, (torch.float32,), 1)
     _check_sizes(row_ptr, c.shape[0], "scatter_table")
+    if plan is not None:
+        check_plan(plan, row_ptr, c.shape[0], "scatter_table")
     if row_ptr.device.type == "cpu" and c.device.type == "cpu":
         return scatter_table_reference(row_ptr, c)
     dev = _native.cuda_device(row_ptr, c)
-    plan = _kernel_plan(plan, row_ptr, c.shape[0], dev, "scatter_table")
+    plan = _kernel_plan(plan, row_ptr, c.shape[0], "scatter_table")
     y = _launch("tda_pagerank_segment_sum", "scatter_table", dev, plan,
                 (row_ptr, c))
     scatter_table.launches += 1
@@ -284,9 +322,9 @@ def gather_ceiling(row_ptr, src, w_e, x, plan: TilePlan | None = None):
     ``plan``'s tiles without the row structure, one sum a tile
     (n_tiles,). Its time is the floor the gathers set for B7 (the "gather
     ceiling", PERF.md §6). CUDA tensors only; not counted in ``KERNELS``."""
-    _check_spmv(row_ptr, src, w_e, x)
+    _check_spmv(row_ptr, src, w_e, x, plan, "gather_ceiling")
     dev = _native.cuda_device(row_ptr, src, w_e, x)
-    plan = _kernel_plan(plan, row_ptr, src.shape[0], dev, "gather_ceiling")
+    plan = _kernel_plan(plan, row_ptr, src.shape[0], "gather_ceiling")
     return _launch("tda_pagerank_gather_ceiling", "gather_ceiling", dev,
                    plan, (row_ptr, src, w_e, x), ceiling=True)
 
