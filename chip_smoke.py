@@ -75,15 +75,30 @@ and the script exits non-zero without printing a result:
      the CPU port after 5 rounds on 4 replicas; ``fused_train`` against
      ``fused_gather``; the breast-cancer task as bench.py runs it, held
      by the tail of each run;
- 12. the kernels line (B1's and B2's entries with their launches on the
-     local-update runs), then the last line
+ 12. the rest of the reference's workloads and SSGD's scale path:
+     Monte Carlo at 2³⁰ darts on one shard (π within 5σ, the first
+     chunks' hits equal to the CPU port's); the transitive closure at
+     bench.py's geometry (the V = 120 DAG dense and auto-sized sparse
+     against each other and the CPU port; the V = 6200 DAG through
+     ``run_sparse_auto`` pinned to the host DP's count, >= 10⁷ paths,
+     with paths/s and the device's idle share; the dense fixpoint on an
+     Erdős–Rényi graph of 4096 vertices against the sparse one, its
+     product in bf16 against float32); the ``fixed`` sampler on phase
+     6's float32 rows and on breast cancer over 8 emulated shards; the
+     100M-row path as bench.py's ``_bench_ssgd_scale`` runs it (rows
+     made on the card, 500 ``fused_gather`` steps through B1 on an X2
+     past 2³¹ elements, held-out accuracy, host RSS, B1 at that shape);
+ 13. the kernels line (B1's and B2's entries with their launches on the
+     local-update runs, B1's on the scale path), then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
 and read just after it (the serving path: phase 4's full-width fit and
 phase 5; each SSGD path, each PageRank sweep, each k-means fit, each
-tp mesh, each attention run and each local-update run on its own), so
-the kernels line shows that each path went through its kernel.
+tp mesh, each attention run, each local-update run, and each of phase
+12's paths on its own), so the kernels line shows that each path went
+through its kernel, and that phase 12's kernel-free paths (Monte
+Carlo, the closure, ``fixed``) launched none.
 """
 
 from __future__ import annotations
@@ -3147,6 +3162,485 @@ def run_local_sgd(dev, sg: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 12
+
+#: Monte Carlo: darts on one shard in chunks (bench.py's chunk), the
+#: chunks compared bitwise with the CPU port, and the 5σ band on π
+#: (σ = 4·√(p(1−p)/n), p = π/4: 5.0e-5 at 2³⁰ darts)
+MC_DARTS, MC_CHUNK, MC_CHECK_CHUNKS, MC_BAND = 1 << 30, 1 << 20, 8, 2.5e-4
+#: the closure at bench.py's geometry (bench.py:1102-1213): the parity
+#: DAG, the scale DAG (count pinned to the host DP) and the Erdős–Rényi
+#: graph of the dense path. bench.py's V = 6200 closes to 8,722,362
+#: paths, under its own 10⁷ floor (its check would raise "grow
+#: CLOSURE_V"), so the scale DAG also runs at CLOSURE_FLOOR_V, the
+#: least multiple of 100 whose closure clears it (10,316,480 paths)
+CLOSURE_PARITY, CLOSURE_SCALE, CLOSURE_MIN_PATHS, CLOSURE_ER = (
+    (120, 5, 1), (6200, 8, 0), 10_000_000, 4096)
+CLOSURE_FLOOR_V = 6800
+#: the `fixed` sampler on phase 6's float32 rows; the breast-cancer run
+#: on 8 emulated shards, read over its last steps (its float32 histories
+#: part from the JAX package's at step 401 on the CPU, and both end at
+#: 0.918 there)
+FIXED_SHARDS, FIXED_TAIL, FIXED_TAIL_MEANS = 8, 200, 0.03
+#: the 100M-row scale path as bench.py's _bench_ssgd_scale runs it
+#: (bench.py:2166-2232), its expected geometry, and the held-out floor
+#: (the task's Bayes rate is about 0.78)
+SCALE_ROWS, SCALE_FEATURES, SCALE_GBR, SCALE_STEPS, SCALE_REPEATS = (
+    100_000_000, 30, 131072, 500, 3)
+SCALE_N_PADDED, SCALE_BLOCKS, SCALE_SAMPLED = 100_007_936, 763, 76
+SCALE_X2_BYTES, SCALE_HELDOUT, SCALE_ACC_FLOOR = 8_000_634_880, 4096, 0.70
+#: synthetic rows, card against the CPU port: float32 X within 1e-6
+#: (absolute and relative) plus 4 ulp of the uniform carried through
+#: erfinv's slope (√(π/2)·exp(v²/2): a one-ulp difference of x² near
+#: |u| = 1 moves v by up to ~3e-4); y exact on rows whose margin is
+#: above 1e-4, the others exempt and counted
+ROW_TOL, ROW_UNIFORM_ULPS, ROW_MARGIN = 1e-6, 4, 1e-4
+
+
+def _peak_rss_gb() -> float:
+    """The host's peak resident set so far (``ru_maxrss``, the kernel's
+    high-water mark VmHWM, in KB on Linux), GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def _row_tol(v):
+    """ROW_TOL's bound for float32 normals ``v`` (numpy)."""
+    slope = np.sqrt(np.pi / 2) * np.exp(np.minimum(v.astype(np.float64) ** 2
+                                                   / 2, 80.0))
+    return ROW_TOL * (1 + np.abs(v)) + ROW_UNIFORM_ULPS * 2.0**-24 * slope
+
+
+def _check_rows(what, X_card, y_card, X_cpu, y_cpu, margin) -> int:
+    """Card rows against the CPU port's: X within _row_tol, y exact
+    apart from rows of |margin| <= ROW_MARGIN; returns the exempt
+    count."""
+    Xc, Xh = X_card.cpu().numpy(), X_cpu.numpy()
+    bad = np.abs(Xc - Xh) > _row_tol(Xh)
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} entries of X off "
+                             f"by more than the tolerance (max |err| "
+                             f"{float(np.abs(Xc - Xh).max())})")
+    exempt = np.abs(margin.numpy()) <= ROW_MARGIN
+    diff = y_card.cpu().numpy() != y_cpu.numpy()
+    if (diff & ~exempt).any():
+        raise AssertionError(f"{what}: {int((diff & ~exempt).sum())} labels "
+                             f"differ outside the exempt rows")
+    return int(exempt.sum())
+
+
+def _run_mc(dev) -> dict:
+    import math
+
+    import torch
+
+    from tpu_distalg_torch.models import monte_carlo
+    from tpu_distalg_torch.ops import sampling
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import prng
+
+    cfg = monte_carlo.MonteCarloConfig(n=MC_DARTS, chunk=MC_CHUNK)
+    mesh = get_mesh(data=1, device=dev)
+    monte_carlo.estimate_pi(get_mesh(data=1, device=dev),
+                            monte_carlo.MonteCarloConfig(n=MC_CHUNK))  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pi, n_used = monte_carlo.estimate_pi(mesh, cfg)
+    secs = time.perf_counter() - t0
+    if n_used != MC_DARTS or not abs(pi - math.pi) <= MC_BAND:
+        raise AssertionError(f"mc: pi {pi!r} from {n_used} darts (want "
+                             f"within {MC_BAND} of pi from {MC_DARTS})")
+    n = MC_CHECK_CHUNKS * MC_CHUNK
+    card = sampling.mc_circle_hits_chunked(
+        prng.fold_in(prng.root_key(cfg.seed, dev), 0), n, MC_CHUNK)
+    cpu = sampling.mc_circle_hits_chunked(
+        prng.fold_in(prng.root_key(cfg.seed), 0), n, MC_CHUNK)
+    if not torch.equal(card.cpu(), cpu):
+        raise AssertionError(f"mc: the first {MC_CHECK_CHUNKS} chunks' hits "
+                             f"differ, card {card.tolist()} CPU "
+                             f"{cpu.tolist()}")
+    print(f"[mc] {n_used} darts on one shard in chunks of {MC_CHUNK}: pi "
+          f"{pi!r} (|err| {abs(pi - math.pi)!r} <= {MC_BAND}, 5 sigma) in "
+          f"{secs!r} s = {n_used / secs!r} darts/s; the first "
+          f"{MC_CHECK_CHUNKS} chunks' hits equal the CPU port's bit for bit")
+    return {"pi": pi, "seconds": secs, "darts_per_s": n_used / secs}
+
+
+def _closure_pairs(res) -> set:
+    return set(map(tuple, np.asarray(res.paths).tolist()))
+
+
+def _dense_pairs(res, V) -> set:
+    return set(zip(*np.nonzero(res.paths.cpu().numpy()[:V, :V])))
+
+
+def _run_closure(dev) -> dict:
+    import torch
+
+    from tpu_distalg_torch.models import transitive_closure as tc
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets
+
+    mesh, cpu = get_mesh(data=1, device=dev), get_mesh(data=1, device="cpu")
+    V, deg, seed = CLOSURE_PARITY
+    pe = datasets.closure_dag_edges(V, deg, seed=seed)
+    dense = tc.run(pe, mesh, n_vertices=V)
+    sparse = tc.run_sparse_auto(pe, mesh, n_vertices=V)
+    sparse_cpu = tc.run_sparse_auto(pe, cpu, n_vertices=V)
+    dense_cpu = tc.run(pe, cpu, n_vertices=V)
+    if not (_dense_pairs(dense, V) == _closure_pairs(sparse)
+            and np.array_equal(sparse.paths, sparse_cpu.paths)
+            and torch.equal(dense.paths.cpu(), dense_cpu.paths)
+            and dense.n_rounds == dense_cpu.n_rounds
+            and sparse.n_rounds == sparse_cpu.n_rounds):
+        raise AssertionError(f"closure parity graph (V={V}): dense "
+                             f"{dense.n_paths}, sparse {sparse.n_paths}, CPU "
+                             f"{sparse_cpu.n_paths} paths differ")
+    print(f"[closure] parity DAG V={V}: dense and run_sparse_auto give the "
+          f"same {sparse.n_paths} pairs ({dense.n_rounds} / "
+          f"{sparse.n_rounds} rounds), both equal to the CPU port's")
+
+    _, deg, seed = CLOSURE_SCALE
+    scale = {}
+    for V in (CLOSURE_SCALE[0], CLOSURE_FLOOR_V):
+        scale[V] = _closure_scale(dev, mesh, V, deg, seed)
+    if scale[CLOSURE_FLOOR_V]["n_paths"] < CLOSURE_MIN_PATHS:
+        raise AssertionError(f"closure task too small at V="
+                             f"{CLOSURE_FLOOR_V}: "
+                             f"{scale[CLOSURE_FLOOR_V]['n_paths']} paths")
+
+    er = datasets.erdos_renyi_edges(CLOSURE_ER, 2.0)
+    tc.run(er, mesh)                                   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = tc.run(er, mesh)
+    dense_s = time.perf_counter() - t0
+    er_sparse = tc.run_sparse_auto(er, mesh)
+    if dense.n_paths != er_sparse.n_paths:
+        raise AssertionError(f"closure ER V={CLOSURE_ER}: dense "
+                             f"{dense.n_paths} != sparse {er_sparse.n_paths}")
+    # a V x V 0/1 product (the closure's own matrix) in bf16, the port's
+    # choice on the card, against float32: the same mask, and their times
+    ops = {dt: dense.paths.to(dt) for dt in (torch.bfloat16, torch.float32)}
+    masks = {dt: (o @ o) > 0 for dt, o in ops.items()}
+    if not torch.equal(masks[torch.bfloat16], masks[torch.float32]):
+        raise AssertionError("closure: bf16 and float32 products differ")
+    prod_ms = {str(dt).split(".")[1]: _time_ms(lambda o=o: (o @ o) > 0, 20)
+               for dt, o in ops.items()}
+    print(f"[closure] dense run on Erdos-Renyi V={CLOSURE_ER}, average "
+          f"degree 2: {dense.n_paths} paths (= run_sparse_auto's) in "
+          f"{dense.n_rounds} rounds, {dense_s!r} s = "
+          f"{dense_s / dense.n_rounds!r} s a round; the round's product "
+          f"(V x V, 0/1) in ms: {prod_ms}, the same mask")
+    return scale
+
+
+def _closure_scale(dev, mesh, V: int, deg: int, seed: int) -> dict:
+    """The forward random DAG of V vertices through ``run_sparse_auto``
+    from 1.1× the host DP's count, as bench.py runs it: the count equal
+    to the DP's, paths/s, rounds and regrows, and one run under the
+    profiler."""
+    import torch
+
+    from tpu_distalg_torch.models import transitive_closure as tc
+    from tpu_distalg_torch.telemetry import events as tevents
+    from tpu_distalg_torch.tools.profiling import window
+    from tpu_distalg_torch.utils import datasets
+
+    edges = datasets.closure_dag_edges(V, deg, seed=seed)
+    t0 = time.perf_counter()
+    want = datasets.closure_host_count(V, edges)
+    host_s = time.perf_counter() - t0
+
+    def scale():
+        return tc.run_sparse_auto(edges, mesh, n_vertices=V,
+                                  start_capacity=int(want * 1.1))
+
+    scale()                                            # warm
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tel-") as tel:
+        sink = tevents.configure(tel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = scale()
+        secs = time.perf_counter() - t0
+        regrows = sink.counters().get("closure.capacity_regrows", 0)
+        tevents.configure(False)
+    if res.n_paths != want:
+        raise AssertionError(f"closure V={V}: {res.n_paths} paths != host "
+                             f"DP {want}")
+    prof = window(scale, 1)
+    print(f"[closure] scale DAG V={V}, degree {deg}, {len(edges)} edges: "
+          f"run_sparse_auto(start_capacity={int(want * 1.1)}) found "
+          f"{res.n_paths} paths (= the host DP's, {host_s!r} s on the host) "
+          f"in {res.n_rounds} rounds, {regrows} regrow(s), {secs!r} s = "
+          f"{res.n_paths / secs!r} paths/s; a run on the host's clock and "
+          f"under the profiler (µs): {json.dumps(prof)}")
+    return {"n_paths": res.n_paths, "paths_per_s": res.n_paths / secs,
+            "rounds": res.n_rounds, "regrows": regrows, **prof}
+
+
+def _run_fixed(dev, X, y) -> dict:
+    import torch
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.ops import sampling
+    from tpu_distalg_torch.parallel import get_mesh, parallelize
+    from tpu_distalg_torch.utils import datasets, prng
+
+    mesh = get_mesh(data=1, device=dev)
+    cfg = ssgd.SSGDConfig(n_iterations=SSGD_STEPS, eval_test=False,
+                          sampler="fixed")
+    Xs, ys = parallelize(X, mesh), parallelize(y, mesh)
+    fn = ssgd.make_train_fn(mesh, cfg, Xs.n_padded)
+    n_local = Xs.n_padded
+    b_local = max(1, round(cfg.mini_batch_fraction * n_local))
+    for t in range(3):
+        card = sampling.fixed_row_ids(prng.root_key(cfg.seed, dev), t, 1,
+                                      n_local, b_local)
+        cpu = sampling.fixed_row_ids(prng.root_key(cfg.seed), t, 1, n_local,
+                                     b_local)
+        if not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"fixed: step {t}'s row ids differ from the "
+                                 f"CPU port's")
+    d = X.shape[1]
+    w0 = ssgd.logistic.init_weights(prng.root_key(cfg.init_seed, dev), d)
+    te = (torch.zeros((1, d), device=dev), torch.zeros((1,), device=dev))
+
+    def run():
+        return fn(Xs.data, ys.data, Xs.mask, *te, w0)
+
+    run()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    w, _ = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in _launches().items() if v}
+    if launches or not bool(torch.isfinite(w).all()):
+        raise AssertionError(f"fixed: launches {launches} (want none), "
+                             f"finite {bool(torch.isfinite(w).all())}")
+    rate = SSGD_STEPS / secs
+    step_bytes = b_local * d * 4
+    print(f"[ssgd] fixed on phase 6's float32 rows ({n_local} x {d}, "
+          f"{b_local} rows a step): {SSGD_STEPS} steps in {secs!r} s = "
+          f"{rate!r} steps/s; {step_bytes} bytes/step of gathered rows, "
+          f"{step_bytes * rate / HBM_BYTES_PER_S!r} of 3.35 TB/s; steps 0-2's "
+          f"row ids equal the CPU port's; no kernel launched (the JAX "
+          f"package's fixed sampler runs none)")
+
+    data = datasets.breast_cancer_split()
+    cfg = ssgd.SSGDConfig(sampler="fixed")
+    card = ssgd.train(*data, get_mesh(data=FIXED_SHARDS, device=dev), cfg)
+    cpu = ssgd.train(*data, get_mesh(data=FIXED_SHARDS, device="cpu"), cfg)
+    tc_, th = card.accs.cpu().numpy()[-FIXED_TAIL:], \
+        cpu.accs.numpy()[-FIXED_TAIL:]
+    if not (tc_.max() >= SSGD_BAND and th.max() >= SSGD_BAND
+            and abs(float(tc_.mean()) - float(th.mean())) <= FIXED_TAIL_MEANS):
+        raise AssertionError(
+            f"fixed breast cancer on {FIXED_SHARDS} shards: last "
+            f"{FIXED_TAIL} steps best card {tc_.max()} / CPU {th.max()} "
+            f"(want >= {SSGD_BAND}), mean {tc_.mean()} / {th.mean()} (want "
+            f"within {FIXED_TAIL_MEANS})")
+    print(f"[ssgd] breast cancer, fixed on {FIXED_SHARDS} emulated shards, "
+          f"{cfg.n_iterations} steps: final acc card {card.final_acc!r}, CPU "
+          f"{cpu.final_acc!r} (the JAX package 0.918129 on the CPU); last "
+          f"{FIXED_TAIL} steps best {float(tc_.max())!r} / "
+          f"{float(th.max())!r}, mean {float(tc_.mean())!r} / "
+          f"{float(th.mean())!r}")
+    return {"steps_per_s": rate, "final_acc": card.final_acc}
+
+
+def _scale_b1_record(dev, X2, w, meta, ids_all) -> dict:
+    """B1 at the scale shape against its plain version, timed over the
+    trainer's draws in turn beside the library line and the bound."""
+    import torch
+
+    from tpu_distalg_torch.ops import ssgd_kernels as tk
+    from tpu_distalg_torch.tools.ssgd_gathered_timing import rotating_ms
+
+    D, yc, vc = meta["d_total"], meta["y_col"], meta["v_col"]
+    kw = dict(pack=meta["pack"], d_total=D, y_col=yc, v_col=vc,
+              gather_block_rows=SCALE_GBR)
+    ids1 = ids_all[0]
+    g, c = tk.fused_grad_sum_gathered(X2, w, ids1, **kw)
+    gr, cr = tk.grad_sum_gathered_reference(X2, w, ids1, **kw)
+    if float(c) != float(cr):
+        raise AssertionError(f"B1 scale shape: count {c} != {cr}")
+    err = _assert_close("B1 scale shape", g[:yc], gr[:yc], "random")
+    g2, _ = tk.fused_grad_sum_gathered(X2, w, ids1, **kw)
+    if not torch.equal(g, g2):
+        raise AssertionError("B1 scale shape: two calls differ")
+    blocks = X2.reshape(-1, SCALE_GBR, D)
+    wq = w.to(X2.dtype)
+
+    def lib1(ids):
+        x = torch.index_select(blocks, 0, ids).reshape(-1, D)
+        r = (torch.sigmoid(torch.mv(x, wq).float()) - x[:, yc].float()) \
+            * x[:, vc].float()
+        return torch.mv(x.T, r.to(x.dtype)).float(), x[:, vc].float().sum()
+
+    n_s = ids1.shape[0]
+    rows = n_s * SCALE_GBR
+    step_bytes = rows * D * X2.element_size()
+    bound = _bound_ms(step_bytes + 4 * (n_s + D + D + 1), 4 * rows * D)
+    b1 = rotating_ms(lambda d: tk.fused_grad_sum_gathered(X2, w, d, **kw),
+                     list(ids_all[:50]))
+    lib = rotating_ms(lib1, list(ids_all[:20].long()))
+    return {"scale_max_abs_err": err, "scale_ms": b1["device_ms"],
+            "scale_wall_ms": b1["wall_ms"],
+            "scale_plain_ms": _time_ms(lambda: tk.grad_sum_gathered_reference(
+                X2, w, ids1, **kw), 5, 1),
+            "scale_library_ms": lib["device_ms"],
+            "scale_bound_ms": bound[0], "scale_bound_by": bound[1],
+            "scale_bytes_per_call": step_bytes}
+
+
+def _run_scale(dev) -> dict:
+    import torch
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.ops import sampling
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.tools.profiling import window
+    from tpu_distalg_torch.utils import datasets, metrics, prng
+
+    mesh = get_mesh(data=1, device=dev)
+    cfg = ssgd.SSGDConfig(
+        n_iterations=SCALE_STEPS, eval_test=False, x_dtype="bfloat16",
+        sampler="fused_gather", gather_block_rows=SCALE_GBR, init_seed=7)
+    torch.cuda.synchronize()
+    rss0 = _peak_rss_gb()
+    t0 = time.perf_counter()
+    fn, X2, w0, meta = ssgd.prepare_fused_synthetic(
+        SCALE_ROWS, SCALE_FEATURES, mesh, cfg)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    rss_gb = _peak_rss_gb() - rss0
+    n_blocks, n_s = ssgd.fused_gather_geometry(cfg, meta, 1)
+    x2_bytes = X2.numel() * X2.element_size()
+    if (meta["n_padded"], n_blocks, n_s, x2_bytes) != (
+            SCALE_N_PADDED, SCALE_BLOCKS, SCALE_SAMPLED, SCALE_X2_BYTES):
+        raise AssertionError(f"scale geometry: n_padded {meta['n_padded']}, "
+                             f"{n_blocks} blocks, {n_s} sampled, {x2_bytes} "
+                             f"bytes")
+    if not rss_gb < 1.0:
+        raise AssertionError(f"scale: host peak RSS grew {rss_gb} GB")
+    D = meta["d_total"]
+    step_bytes = n_s * SCALE_GBR * D * X2.element_size()
+    print(f"[scale] {SCALE_ROWS} rows x {SCALE_FEATURES} features made on the "
+          f"card in {gen_s!r} s (host peak RSS, ru_maxrss, +{rss_gb!r} GB): X2 "
+          f"{tuple(X2.shape)} {X2.dtype} = {x2_bytes} bytes, {X2.numel()} "
+          f"elements; {n_blocks} blocks of {SCALE_GBR} rows, {n_s} sampled a "
+          f"step = {step_bytes} bytes/step (bound "
+          f"{step_bytes / HBM_BYTES_PER_S * 1e3!r} ms at 3.35 TB/s)")
+
+    # the card's rows against the CPU port's generator
+    make_rows = datasets.synthetic_two_class_rows(SCALE_FEATURES, 0)
+    rows = X2.view(-1, D)
+    exempt = 0
+    for lo in (0, SCALE_ROWS - 4096):
+        ids = torch.arange(lo, lo + 4096, dtype=torch.int64)
+        Xh, yh = make_rows(ids)
+        Xc, yc = make_rows(ids.to(dev))
+        w_true = prng.normal(prng.fold_in(prng.root_key(0), 0),
+                             (SCALE_FEATURES,))
+        noise = prng.logistic(prng.fold_in(prng.fold_in(
+            prng.fold_in(prng.root_key(0), 1), ids), 7), ())
+        margin = Xh @ w_true * float(2.0 / np.sqrt(np.float32(30))) + noise
+        exempt += _check_rows(f"scale rows from {lo}", Xc, yc, Xh, yh, margin)
+        packed = rows[lo:lo + 4096].float()
+        if not (torch.equal(packed[:, :SCALE_FEATURES],
+                            Xc.to(X2.dtype).float())
+                and torch.equal(packed[:, meta["y_col"]], yc)
+                and bool((packed[:, SCALE_FEATURES] == 1).all())
+                and bool((packed[:, meta["v_col"]] == 1).all())
+                and bool((packed[:, meta["v_col"] + 1:] == 0).all())):
+            raise AssertionError(f"scale: packed rows from {lo} are not the "
+                                 f"generator's")
+    pad = rows[SCALE_ROWS:].float()
+    if not bool((pad[:, meta["v_col"]] == 0).all()):
+        raise AssertionError("scale: a padding row is valid")
+    print(f"[scale] rows 0-4095 and the last 4096 valid rows: the card's X "
+          f"within the stated tolerance of the CPU port's, y equal ({exempt} "
+          f"rows of |margin| <= {ROW_MARGIN} exempt); packed bias, y, valid "
+          f"and padding columns exact; padding rows invalid")
+
+    te = (torch.zeros((1, D), device=dev), torch.zeros((1,), device=dev))
+
+    def run():
+        return fn(X2, None, None, *te, w0)
+
+    run()
+    torch.cuda.synchronize()
+    _reset_launches()
+    w, _ = run()
+    torch.cuda.synchronize()
+    launches = _launches()
+    if launches["fused_grad_sum_gathered"] != SCALE_STEPS:
+        raise AssertionError(f"scale: B1 launched "
+                             f"{launches['fused_grad_sum_gathered']} times, "
+                             f"want {SCALE_STEPS}")
+    rates = []
+    for _ in range(SCALE_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w2, _ = run()
+        torch.cuda.synchronize()
+        rates.append(SCALE_STEPS / (time.perf_counter() - t0))
+        if not torch.equal(w2, w):
+            raise AssertionError("scale: two runs on the card differ")
+    best = max(rates)
+    prof = window(run, SCALE_STEPS)
+    d = SCALE_FEATURES + 1
+    ids = torch.arange(SCALE_ROWS, SCALE_ROWS + SCALE_HELDOUT,
+                       dtype=torch.int64, device=dev)
+    X_ho, y_ho = make_rows(ids)
+    X_ho = torch.cat([X_ho, torch.ones((SCALE_HELDOUT, 1), device=dev)], 1)
+    acc = float(metrics.binary_accuracy(X_ho @ w[:d], y_ho))
+    if not acc >= SCALE_ACC_FLOOR:
+        raise AssertionError(f"scale: held-out accuracy {acc} < "
+                             f"{SCALE_ACC_FLOOR}")
+    share = step_bytes * best / HBM_BYTES_PER_S
+    print(f"[scale] fused_gather, {SCALE_STEPS} steps: best of "
+          f"{SCALE_REPEATS} {best!r} steps/s (all {rates}), {share!r} of "
+          f"3.35 TB/s; B1 launched {launches['fused_grad_sum_gathered']} "
+          f"times; a run on the host's clock and under the profiler (µs a "
+          f"step): {json.dumps(prof)}; held-out accuracy on {SCALE_HELDOUT} "
+          f"fresh rows {acc!r} (>= {SCALE_ACC_FLOOR}); two runs bit for bit")
+    key = prng.root_key(cfg.seed, dev)
+    ids_all = sampling.sample_block_ids(
+        prng.fold_in(key, torch.arange(SCALE_STEPS, device=dev)), 1,
+        n_blocks, n_s).reshape(SCALE_STEPS, n_s).contiguous()
+    rec = _scale_b1_record(dev, X2, w0, meta, ids_all)
+    print(f"[scale] B1 at the scale shape (rows of {D} bf16, blocks of "
+          f"{SCALE_GBR} rows, X2 past 2**31 elements): {json.dumps(rec)}")
+    return {"rec": rec, "launches": launches["fused_grad_sum_gathered"],
+            "steps_per_s": best, "rates": rates, "hbm_share": share,
+            "heldout_acc": acc, "generation_s": gen_s, "rss_gb": rss_gb,
+            **prof}
+
+
+def run_rest(dev, sg: dict) -> dict:
+    """Phase 12: the rest of the reference's workloads (Monte Carlo, the
+    transitive closure) and SSGD's last data paths (``fixed`` on phase
+    6's rows, the 100M-row synthesis through B1). Each driven with the
+    launch counters set to 0 just before it and read just after."""
+    out = {}
+    for name, run in (("mc", lambda: _run_mc(dev)),
+                      ("closure", lambda: _run_closure(dev)),
+                      ("fixed", lambda: _run_fixed(dev, sg["X"], sg["y"]))):
+        _reset_launches()
+        out[name] = run()
+        launches = {k: v for k, v in _launches().items() if v}
+        if launches:
+            raise AssertionError(f"{name}: launched {launches}; the JAX "
+                                 f"package runs this path in no kernel")
+    out["scale"] = _run_scale(dev)
+    return out
+
+
 def _phase(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[time] {name}: {now - t0!r} s")
@@ -3212,7 +3706,6 @@ def main() -> int:
     t0 = _phase("kmeans", t0)
 
     tp = run_ssgd_tp(dev, sg)
-    del sg["X"], sg["y"]
     t0 = _phase("ssgd tp", t0)
 
     att = run_attention(dev)
@@ -3221,6 +3714,10 @@ def main() -> int:
     local = run_local_sgd(dev, sg)
     del sg["X2"]
     t0 = _phase("local sgd", t0)
+
+    rest = run_rest(dev, sg)
+    del sg["X"], sg["y"]
+    t0 = _phase("mc + closure + fixed + scale", t0)
 
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"
@@ -3244,7 +3741,9 @@ def main() -> int:
             **{f"wide_{k}": v for k, v in wide.items()
                if k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **({"local_sgd_launches": local_launches}
-               if local_launches else {})})
+               if local_launches else {}),
+            **({"scale_launches": rest["scale"]["launches"],
+                **rest["scale"]["rec"]} if key == "B1" else {})})
     for key, name, line in (("B3", "fused_forward_gathered", 590),
                             ("B4", "fused_backward_gathered", 668)):
         main, wide = tp["main"][key], tp["wide"][key]

@@ -168,7 +168,7 @@ def test_fused_train_validation(data):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(sampler="fixed"), "A3"),
+    (dict(comm="bucketed"), "A9"),
     (dict(sampler="virtual"), "A10"), (dict(comm="int8"), "A9"),
     (dict(sync="ssp:4"), "A9")])
 def test_configs_not_ported_raise(data, change, item):

@@ -1,6 +1,6 @@
 """Command line of the port: full-batch LR, SSGD, the local-update family
-(MA, BMUF, EASGD), ALS, k-means, PageRank, and serving ALS, k-means and
-LR artifacts.
+(MA, BMUF, EASGD), ALS, k-means, PageRank, the transitive closure,
+Monte-Carlo π, and serving ALS, k-means and LR artifacts.
 
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] lr
     python -m tpu_distalg_torch.cli ma --n-slices 4 --sampler fused_train \\
@@ -20,10 +20,12 @@ LR artifacts.
         [--n-vertices 1000000 --mode standard --n-iterations 50]
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] kmeans \\
         [--scale-points 10000000 --dim 16 --k 8 --n-iterations 50]
+    python -m tpu_distalg_torch.cli closure [--n-vertices 4096 [--sparse]]
+    python -m tpu_distalg_torch.cli mc [--n-slices 4 --n 400000]
 
 The lines printed match the JAX package's ``tda lr``, ``tda ssgd``,
 ``tda ma``, ``tda bmuf``, ``tda easgd``, ``tda als``, ``tda serve``,
-``tda pagerank`` and ``tda kmeans``. Runs on ``cuda`` unless ``--device
+``tda pagerank``, ``tda kmeans``, ``tda closure`` and ``tda mc``. Runs on ``cuda`` unless ``--device
 cpu`` is given.
 """
 
@@ -190,7 +192,97 @@ def _parser() -> argparse.ArgumentParser:
     g.add_argument("--max-restarts", type=int, default=0,
                    help="restarts after a failed segment: waits for the "
                         "faults slice (ROADMAP A12); only 0 is accepted")
+
+    t = sub.add_parser("closure", help="transitive closure")
+    _add_mesh_flags(t)
+    t.add_argument("--n-vertices", type=int, default=0,
+                   help="0 = the reference's toy graph; else an "
+                        "Erdős–Rényi graph of average degree 2, or with "
+                        "--sparse a chain forest (an ER closure is an "
+                        "inherently quadratic output)")
+    t.add_argument("--sparse", action="store_true",
+                   help="sort-dedup path-set closure (O(closure) memory)")
+    t.add_argument("--capacity", type=int, default=0,
+                   help="sparse path-buffer capacity; 0 = 8x edges")
+    t.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="segmented checkpoint/resume directory")
+    t.add_argument("--checkpoint-every", type=int, default=8)
+    _add_max_restarts(t)
+
+    m = sub.add_parser("mc", help="Monte-Carlo pi")
+    _add_mesh_flags(m)
+    m.add_argument("--n", type=int, default=400_000)
+    _add_max_restarts(m)
     return p
+
+
+def _add_mesh_flags(p) -> None:
+    """``--n-slices`` and ``--mesh-shape``, as the JAX CLI gives them."""
+    p.add_argument("--n-slices", type=int, default=0,
+                   help="emulated data shards; 0 = 1")
+    p.add_argument("--mesh-shape", type=str, default=None, metavar="DxM",
+                   help="emulated mesh data x model (e.g. 2x2) — replaces "
+                        "--n-slices")
+
+
+def _add_max_restarts(p) -> None:
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help="restarts after a failed segment: waits for the "
+                        "faults slice (ROADMAP A12); only 0 is accepted")
+
+
+def _mesh(args):
+    """The emulated mesh of ``--n-slices`` or ``--mesh-shape`` on
+    ``--device``, with the JAX CLI's refusals and its warning for a
+    model axis the workload does not use."""
+    from tpu_distalg_torch.parallel import get_mesh
+
+    if args.max_restarts != 0:
+        raise SystemExit("--max-restarts waits for the faults slice "
+                         "(ROADMAP A12); only 0 is accepted")
+    data, model = args.n_slices or 1, 1
+    if args.mesh_shape:
+        if args.n_slices > 0:
+            raise SystemExit(
+                "--mesh-shape and --n-slices both set: --mesh-shape "
+                "IS the full (data x model) geometry; drop --n-slices")
+        try:
+            data, model = parse_mesh_shape(args.mesh_shape)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        if model > 1:
+            print(f"[mesh] warning: --mesh-shape {data}x{model} puts "
+                  f"{model}-way model parallelism on a workload whose "
+                  f"rule table has no model-axis placement — those "
+                  f"devices will idle; use --mesh-shape "
+                  f"{data * model}x1 (or --n-slices {data * model}) "
+                  f"for full data parallelism", file=sys.stderr)
+    return get_mesh(data=data, model=model, device=args.device)
+
+
+def _run_closure(args) -> None:
+    """``tda closure``'s graph choice (``tpu_distalg/cli.py:1516-1545``)
+    and its closing line."""
+    from tpu_distalg_torch.models import transitive_closure as m
+    from tpu_distalg_torch.utils import datasets
+
+    mesh = _mesh(args)
+    if args.n_vertices == 0:
+        edges = datasets.toy_graph_edges()
+    elif args.sparse:
+        edges = datasets.chain_forest_edges(args.n_vertices)
+    else:
+        edges = datasets.erdos_renyi_edges(args.n_vertices, 2.0)
+    ckpt = dict(checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every)
+    if args.sparse:
+        res = m.run_sparse(
+            edges, mesh, m.SparseClosureConfig(capacity=args.capacity or None),
+            **ckpt)
+    else:
+        res = m.run(edges, mesh, **ckpt)
+    print(f"The original graph has {res.n_paths} paths "
+          f"({res.n_rounds} rounds)")
 
 
 def _add_optimizer(p, n_iterations: int) -> None:
@@ -457,6 +549,15 @@ def main(argv=None) -> int:
         _run_pagerank(args)
     elif args.cmd == "kmeans":
         _run_kmeans(args)
+    elif args.cmd == "closure":
+        _run_closure(args)
+    elif args.cmd == "mc":
+        from tpu_distalg_torch.models import monte_carlo
+
+        mesh = _mesh(args)
+        pi, _ = monte_carlo.estimate_pi(
+            mesh, monte_carlo.MonteCarloConfig(n=args.n))
+        print(f"Pi is roughly {pi:f}")
     elif args.cmd == "als":
         from tpu_distalg_torch.models import als
 

@@ -24,7 +24,15 @@ a segmented run replays a straight one bit for bit. Samplers:
   * ``fused_train``: ``fused_gather``'s sampling and update, with every
     ``mega_steps`` steps in one launch of kernel B2
     (``fused_train_gathered``); one shard, ``lam = 0``, evaluation at
-    launch boundaries only.
+    launch boundaries only;
+  * ``fixed``: each shard gathers exactly ``round(frac·n_local)`` of its
+    rows a step, the head of a threefry permutation keyed on (step,
+    shard) (:func:`..ops.sampling.fixed_row_ids`), and sums their
+    gradient in plain torch, as the JAX package does (no kernel).
+
+:func:`prepare_fused_synthetic` builds the packed rows of the
+two-class task on the device, chunk by chunk
+(:func:`..utils.datasets.synthetic_two_class_rows`), for the scale path.
 
 With ``feature_sharded`` (the JAX package's tensor-parallel split, on
 a mesh with ``n_model > 1``) the features are split into ``n_model``
@@ -45,10 +53,11 @@ the slices' partial products in model order
     the JAX package's flat (n_model·D,) concatenation of the slices.
 
 Not ported yet, raising NotImplementedError with their ROADMAP item:
-the ``fixed`` and ``virtual`` samplers, ``comm`` other
-than ``dense`` and ``sync`` other than ``bsp`` (A9). The JAX package's
-refusals of ``feature_sharded`` with other samplers, ``use_pallas``,
-a ``comm`` schedule or SSP raise its ValueErrors.
+the ``virtual`` sampler (A10), ``comm`` other than ``dense`` and
+``sync`` other than ``bsp`` (A9). The JAX package's refusals of
+``feature_sharded`` with other samplers, ``use_pallas``, a ``comm``
+schedule or SSP, and of ``fixed`` with a ``comm`` schedule, SSP or
+``use_pallas``, raise its ValueErrors.
 """
 
 from __future__ import annotations
@@ -112,8 +121,6 @@ class TrainResult:
 _SAMPLERS = ("bernoulli", "fixed", "fused", "fused_gather", "fused_train",
              "virtual")
 _NOT_PORTED = {
-    "fixed": "the 'fixed' row-gather sampler is not ported yet "
-             "(ROADMAP A3)",
     "virtual": "sampler='virtual' (rows regenerated on the device) is "
                "not ported yet (ROADMAP A10)",
 }
@@ -154,8 +161,34 @@ def _check_feature_sharded(config: SSGDConfig) -> None:
             f"sampler={config.sampler!r} use_pallas={config.use_pallas}")
 
 
+def _check_fixed(config: SSGDConfig) -> None:
+    """The JAX package's refusals of a ``comm`` schedule and of SSP with
+    ``fixed``, in its words (``ssgd.py:338-346``, ``:357-365``), before
+    anything the port does not cover is refused."""
+    if config.sampler != "fixed":
+        return
+    if config.comm != "dense":
+        raise ValueError(
+            f"comm={config.comm!r} applies to the per-step gradient "
+            f"sync, which sampler={config.sampler!r} does not expose "
+            "('fused_train' fuses whole segments into one launch with "
+            "no per-step collective; 'fixed' is the measured-slower "
+            "legacy gather path) — use 'bernoulli', 'fused' or "
+            "'fused_gather'")
+    if config.sync.split(":")[0] == "ssp":
+        raise ValueError(
+            f"sync={config.sync!r} (stale-synchronous) composes with "
+            f"the 'bernoulli', 'fused' and 'fused_gather' samplers on "
+            f"a pure-dp mesh — got sampler={config.sampler!r} "
+            f"use_pallas={config.use_pallas} "
+            f"feature_sharded={config.feature_sharded}; 'fused_train' "
+            f"(no per-window collective exists inside the megakernel), "
+            f"'fixed' and the tp split stay BSP")
+
+
 def _check_ported(config: SSGDConfig) -> None:
     """Raise NotImplementedError for what this slice does not cover."""
+    _check_fixed(config)
     if config.sampler not in _SAMPLERS:
         raise ValueError(f"unknown sampler {config.sampler!r}")
     if config.sampler in _NOT_PORTED:
@@ -222,10 +255,12 @@ def make_train_fn(mesh: Mesh, config: SSGDConfig, n_padded: int):
             "ssgd_kernels.pack_augmented, or use ssgd.train()")
     _check_feature_sharded(config)
     _check_ported(config)
-    if config.sampler != "bernoulli":
-        raise ValueError(f"unknown sampler {config.sampler!r}")
     if config.feature_sharded:
         return _make_train_fn_tp(mesh, config, n_padded)
+    if config.sampler == "fixed":
+        return _make_train_fn_fixed(mesh, config, n_padded)
+    if config.sampler != "bernoulli":
+        raise ValueError(f"unknown sampler {config.sampler!r}")
     n_shards = mesh.n_data
     n_local = n_padded // n_shards
     key = prng.root_key(config.seed, mesh.device)
@@ -246,6 +281,60 @@ def make_train_fn(mesh: Mesh, config: SSGDConfig, n_padded: int):
             for s in range(n_shards))
 
     return _build_scan(config, sample_and_grad)
+
+
+#: int64 words of one group of ``fixed`` draws (steps × shards × rows):
+#: the steps of a group are drawn in one batched call, and each int64
+#: temporary of the hash then stays near 128 MB
+FIXED_WORDS_PER_GROUP = 1 << 24
+
+
+class _GroupedDraws:
+    """Step i's payload of ``draw(ts[lo:hi])``, the steps drawn a group
+    of ``group`` at a time as the loop reaches them."""
+
+    def __init__(self, draw, ts, group: int):
+        self.draw, self.ts, self.group = draw, ts, group
+        self.lo, self.block = None, None
+
+    def __getitem__(self, i: int):
+        lo = i - i % self.group
+        if lo != self.lo:
+            self.lo, self.block = lo, None   # free the last group first
+            self.block = self.draw(self.ts[lo:lo + self.group])
+        return self.block[i - lo]
+
+
+def _make_train_fn_fixed(mesh: Mesh, config: SSGDConfig, n_padded: int):
+    """``fixed``: each step, shard s gathers the ``b_local =
+    max(1, round(frac·n_local))`` rows of
+    :func:`..ops.sampling.fixed_row_ids` (without replacement; padding
+    rows carry zero validity) and sums their gradient and count in plain
+    torch; the shards are added in shard order (``ssgd.py:1354-1390``).
+    The draws of :data:`FIXED_WORDS_PER_GROUP` words' worth of steps
+    are made in one call, keyed on the absolute steps."""
+    if config.use_pallas:
+        raise ValueError(
+            "use_pallas applies to the 'bernoulli' sampler only; the "
+            "'fixed' sampler's gather path does not use the fused kernel")
+    n_shards = mesh.n_data
+    n_local = n_padded // n_shards
+    b_local = max(1, round(config.mini_batch_fraction * n_local))
+    key = prng.root_key(config.seed, mesh.device)
+    group = max(1, FIXED_WORDS_PER_GROUP // (n_shards * n_local))
+
+    def prep_xs(ts):
+        return _GroupedDraws(lambda t: sampling.fixed_row_ids(
+            key, t, n_shards, n_local, b_local), ts, group)
+
+    def sample_and_grad(X, y, valid, w, idx):
+        per = []
+        for s in range(n_shards):
+            rows = idx[s] + s * n_local
+            per.append(logistic.grad_sum(X[rows], y[rows], w, valid[rows]))
+        return tree_allreduce_sum(per)
+
+    return _build_scan(config, sample_and_grad, prep_xs=prep_xs)
 
 
 def _make_train_fn_tp(mesh: Mesh, config: SSGDConfig, n_padded: int):
@@ -615,6 +704,60 @@ def prepare_fused(X_train, y_train, mesh: Mesh, config: SSGDConfig):
                      device=mesh.device)
     w0[:d_orig] = logistic.init_weights(
         prng.root_key(config.init_seed, mesh.device), d_orig)
+    fn = make_train_fn_fused(mesh, config, meta)
+    return fn, X2, w0, meta
+
+
+def prepare_fused_synthetic(n_rows: int, n_features: int, mesh: Mesh,
+                            config: SSGDConfig, *, data_seed: int = 0,
+                            separation: float = 2.0,
+                            chunk_rows: int = 1 << 20):
+    """:func:`prepare_fused` for the two-class task made ON the device
+    (``ssgd.py:1623-1693``): host memory stays O(1) in ``n_rows``.
+    Rows are padded to a multiple of ``max(block, pack)·n_shards``;
+    each shard's rows are made in chunks of ``chunk_rows``, halved
+    until it divides the shard's rows and the pack, by
+    :func:`..utils.datasets.synthetic_two_class_rows` from their global
+    ids, and written in X's dtype as ``[features | 1 | y | valid |
+    0…]`` (padding rows are made too, with valid 0). Returns ``(fn, X2,
+    w0, meta)`` like :func:`prepare_fused`."""
+    from tpu_distalg_torch.utils import datasets
+
+    n_shards = mesh.n_data
+    pk = config.fused_pack
+    d = n_features + 1  # + the bias column (ssgd.py:83-84)
+    d_t, y_col, v_col = ssgd_kernels.packed_dims(d, pk)
+    block = (config.gather_block_rows
+             if config.sampler in ("fused_gather", "fused_train")
+             else config.fused_block_rows)
+    mult = max(block, pk) * n_shards
+    n_t = n_rows + ((-n_rows) % mult)
+    n_local = n_t // n_shards
+    chunk = min(chunk_rows, n_local)
+    while chunk and (n_local % chunk or chunk % pk):
+        chunk //= 2
+    if chunk == 0:
+        raise ValueError(
+            f"cannot chunk n_local={n_local} rows by pack={pk}")
+    make_rows = datasets.synthetic_two_class_rows(n_features, data_seed,
+                                                  separation)
+    dev = mesh.device
+    X2 = torch.empty((n_t // pk, pk * d_t),
+                     dtype=ssgd_kernels.as_dtype(config.x_dtype), device=dev)
+    rows = X2.view(n_t, d_t)
+    for lo in range(0, n_t, chunk):   # shard s owns rows [s·n_local, …)
+        ids = torch.arange(lo, lo + chunk, dtype=torch.int64, device=dev)
+        X, y = make_rows(ids)
+        out = torch.zeros((chunk, d_t), dtype=torch.float32, device=dev)
+        out[:, :n_features] = X
+        out[:, n_features] = 1.0
+        out[:, y_col] = y
+        out[:, v_col] = (ids < n_rows).to(torch.float32)
+        rows[lo:lo + chunk] = out
+    meta = dict(pack=pk, d_total=d_t, y_col=y_col, v_col=v_col,
+                n_padded=n_t)
+    w0 = torch.zeros((d_t,), dtype=torch.float32, device=dev)
+    w0[:d] = logistic.init_weights(prng.root_key(config.init_seed, dev), d)
     fn = make_train_fn_fused(mesh, config, meta)
     return fn, X2, w0, meta
 

@@ -1,4 +1,5 @@
-"""Host graph prep for PageRank, in numpy.
+"""Host graph prep for PageRank and the closure, in numpy, and the
+dense closure's round.
 
 Port of ``tpu_distalg/ops/graph.py::EdgeList``/``prepare_edges`` and of
 the host helpers it and the sweep prep take from
@@ -10,6 +11,11 @@ built; these are the numpy forms of the same functions, which sort and
 dedupe the same way, so both packages get the same integer arrays. At
 8M edges numpy takes seconds; a binding of the C++ ingest waits for the
 out-of-core slice (ROADMAP A10).
+
+:func:`closure_step` and :func:`path_count` are the port of the JAX
+package's transitive-closure ops (``ops/graph.py:135-150``), which run
+outside any Pallas kernel: a boolean matmul as a float product tested
+``> 0``, and a popcount.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,3 +106,31 @@ def prepare_edges(edges: np.ndarray,
     return EdgeList(src=src.astype(np.int32), dst=dst.astype(np.int32),
                     n_vertices=int(n_vertices),
                     out_degree=out_degree(src, n_vertices))
+
+
+def closure_operand(x: torch.Tensor) -> torch.Tensor:
+    """A 0/1 matrix as the closure product's operand: bfloat16 on the
+    card, float32 on the CPU. The operands are 0 and 1, so every
+    partial sum is a count >= 0; however a sum is rounded (bf16 or
+    float32, whatever the order), a zero count stays 0 and a positive
+    one positive, so the ``> 0`` mask is the same for either type.
+    bf16 runs on the tensor cores; float32 products run at full
+    precision (TF32 off, :func:`..utils.device.resolve_device`)."""
+    return x.to(torch.bfloat16 if x.device.type == "cuda"
+                else torch.float32)
+
+
+def closure_step(paths: torch.Tensor, edges_op: torch.Tensor
+                 ) -> torch.Tensor:
+    """One linear-closure round: new (x, z) ≙ edge (x, y) ∘ path (y, z),
+    then the union — the reference's join with reversed edges, union
+    and distinct (``transitive_closure.py:33-37``) as a boolean matmul
+    and a logical or. ``paths`` is (V, V) bool, ``edges_op`` the edge
+    set as :func:`closure_operand`; the product is tested ``> 0``."""
+    composed = (edges_op @ closure_operand(paths)) > 0
+    return paths | composed
+
+
+def path_count(paths: torch.Tensor) -> torch.Tensor:
+    """``paths.count()`` (``transitive_closure.py:38``), int64."""
+    return paths.sum(dtype=torch.int64)

@@ -146,8 +146,10 @@ def restore(ckpt_dir: str, step: int | None = None) -> tuple[dict, int]:
 
 
 def prune(ckpt_dir: str, keep: int = 3) -> None:
-    """Delete all but the newest ``keep`` checkpoints."""
-    for step in _steps(ckpt_dir, _STEP_RE)[:-keep]:
+    """Delete all but the newest ``keep`` checkpoints; ``keep=0``
+    deletes them all."""
+    steps = _steps(ckpt_dir, _STEP_RE)
+    for step in steps[:-keep] if keep else steps:
         try:
             os.remove(os.path.join(ckpt_dir, f"step_{step}.npz"))
         except FileNotFoundError:

@@ -1,5 +1,6 @@
 """Datasets of the ported slices: the SSGD reference task, synthetic
-classification data, PageRank's graphs, and k-means' points.
+classification data (also made on the device, row by row), the graphs
+of PageRank and the closure, and k-means' points.
 
 Port of the parts of ``tpu_distalg/utils/datasets.py`` that SSGD,
 PageRank and k-means use; the numpy generators draw from the same
@@ -7,6 +8,11 @@ streams, so both packages make the same arrays from a seed.
 :func:`gaussian_mixture_rows` is the exception: it keeps the JAX
 generator's contract (a row's content depends on the seed and the row's
 global id alone) on the port's own threefry counters, not its bits.
+:func:`synthetic_two_class_rows` draws the JAX generator's own bits
+(``jax.random.normal``/``logistic`` under the same keys); its floats
+may sit a few ulp from JAX's (:func:`..utils.prng.normal`).
+:func:`closure_dag_edges` and :func:`closure_host_count` are copies of
+``bench.py``'s closure helpers (``bench.py:1108-1140``).
 The SSGD reference trains
 on breast-cancer with a fixed 70/30 split and a ones column appended
 (the model has D+1 weights). The machine with the
@@ -86,6 +92,76 @@ def erdos_renyi_edges(
     dst = rng.integers(0, n_vertices - 1, size=n_edges, dtype=np.int64)
     dst = np.where(dst >= src, dst + 1, dst)  # avoid self-loops
     return np.stack([src, dst], axis=1)
+
+
+def synthetic_two_class_rows(n_features: int, seed: int = 0,
+                             separation: float = 2.0):
+    """Per-row generator of the two-class task, the device-side sibling
+    of :func:`synthetic_two_class` (``datasets.py:56-86`` of the JAX
+    package). Returns ``make_rows(row_ids) -> (X, y)``: for an int64
+    tensor of global row ids, on the ids' device, the (n, n_features)
+    float32 X and (n,) float32 labels (no bias column). With ``key =
+    root_key(seed)``: ``w_true = normal(fold_in(key, 0), (nf,))``; row
+    i's key ``k = fold_in(fold_in(key, 1), i)``, its X ``normal(k,
+    (nf,))``, its noise ``logistic(fold_in(k, 7), ())``, and ``y =
+    (X·w_true·(separation/√nf) + noise > 0)``. A row depends on the seed
+    and its id alone."""
+    root = prng.root_key(seed)
+    k_w, k_rows = prng.fold_in(root, 0), prng.fold_in(root, 1)
+    scale = np.float32(separation / np.float32(np.sqrt(np.float32(
+        n_features))))
+
+    def make_rows(row_ids: torch.Tensor):
+        dev = row_ids.device
+        w_true = prng.normal(k_w.to(dev), (n_features,))
+        keys = prng.fold_in(k_rows.to(dev), row_ids.to(torch.int64))
+        X = prng.normal(keys, (n_features,))
+        noise = prng.logistic(prng.fold_in(keys, 7), ())
+        logits = (X @ w_true) * torch.tensor(scale, device=dev)
+        return X, (logits + noise > 0).to(torch.float32)
+
+    return make_rows
+
+
+def chain_forest_edges(n_vertices: int, chain_len: int = 8) -> np.ndarray:
+    """Disjoint directed chains — a bounded-closure graph (the closure
+    of an ER graph in the supercritical regime is Θ(V²) pairs; chains
+    give closure = (V/L)·C(L,2), linear in V)."""
+    chain_len = max(2, min(chain_len, n_vertices))
+    if n_vertices < 2:
+        return np.zeros((0, 2), dtype=np.int64)
+    starts = np.arange(0, n_vertices - chain_len + 1, chain_len)
+    src = np.concatenate([s + np.arange(chain_len - 1) for s in starts])
+    return np.stack([src, src + 1], axis=1).astype(np.int64)
+
+
+def closure_dag_edges(V: int, deg: int, seed: int = 0) -> np.ndarray:
+    """The closure bench's forward random DAG (every vertex but the last
+    gets ``deg`` random forward edges), deduplicated."""
+    rng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(V - 1), deg)
+    span = V - 1 - src
+    dst = src + 1 + (rng.random(len(src)) * span).astype(np.int64)
+    return np.unique(np.stack([src, dst], 1), axis=0)
+
+
+def closure_host_count(V: int, edges) -> int:
+    """Exact closure size of a forward DAG by a reverse-topological
+    bitset DP on the host, O(E·V/64) word operations."""
+    adj: list[list[int]] = [[] for _ in range(V)]
+    for s, dd in edges:
+        adj[int(s)].append(int(dd))
+    words = (V + 63) // 64
+    reach = np.zeros((V, words), np.uint64)
+    total = 0
+    for i in range(V - 1, -1, -1):
+        for j in adj[i]:
+            reach[i] |= reach[j]
+            reach[i, j // 64] |= np.uint64(1 << (j % 64))
+        total += int(np.bitwise_count(reach[i]).sum()) \
+            if hasattr(np, "bitwise_count") else sum(
+                bin(int(w)).count("1") for w in reach[i])
+    return total
 
 
 def toy_graph_edges() -> np.ndarray:

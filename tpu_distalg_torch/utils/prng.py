@@ -11,7 +11,16 @@ Port of ``tpu_distalg/utils/prng.py`` and of the parts of
   * :func:`bits` hashes each element's flat index, split into its high
     and low 32-bit words, and returns ``bits1 ^ bits2``;
   * :func:`uniform` puts the top 23 bits of a word into the mantissa of
-    a float in [1, 2) and subtracts 1, as JAX's ``_uniform`` does.
+    a float in [1, 2) and subtracts 1, as JAX's ``_uniform`` does;
+  * :func:`split` is the fold-like split: key i is ``fold_in(key, i)``;
+  * :func:`permutation` is JAX's ``_shuffle``: a few rounds of a stable
+    sort of the values by fresh 32-bit words;
+  * :func:`normal` and :func:`logistic` transform a uniform as
+    ``_normal_real`` (√2·erfinv) and ``_logistic`` (log u − log1p(−u))
+    do. Their float32 functions are not XLA's: :func:`erfinv` is XLA's
+    single-precision polynomial in float32 ops, and the logarithms are
+    torch's, so a value may sit up to a few ulp from JAX's (the tests
+    hold them within 1e-6 absolute and relative).
 
 So the port draws the same minibatches as the JAX package from the
 same seed, and a run of one can be compared with a run of the other
@@ -24,6 +33,7 @@ plain torch ops are its port. Keys are int64 tensors of shape
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -98,6 +108,72 @@ def uniform(k: torch.Tensor, shape, minval: float = 0.0,
     hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
     out = (f - 1.0) * (hi - lo) + lo
     return torch.maximum(lo, out)
+
+
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` under ``jax_threefry_partitionable``: the
+    counters are the pairs ``(0, i)``, so key i is ``fold_in(k, i)``;
+    (..., 2) keys give (..., num, 2)."""
+    idx = torch.arange(int(num), dtype=torch.int64, device=k.device)
+    return fold_in(k.unsqueeze(-2), idx)
+
+
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(k, n)``: JAX's ``_shuffle`` of
+    ``arange(n)`` (int64). Each of ``ceil(3·ln(max(1, n)) / ln(2³²−1))``
+    rounds (float64, as numpy computes it) splits the key, draws a
+    32-bit word per position under the second half and sorts the values
+    by the words, stably (``lax.sort_key_val`` is stable), so equal
+    words keep their order. (..., 2) keys give (..., n)."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK32)))
+    x = torch.arange(n, dtype=torch.int64, device=k.device).expand(
+        *k.shape[:-1], n)
+    for _ in range(rounds):
+        halves = split(k)
+        k, sub = halves[..., 0, :], halves[..., 1, :]
+        order = torch.sort(bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x.contiguous()
+
+
+#: XLA's float32 ErfInv (Giles' single-precision approximation): the
+#: Horner coefficients for w = −log1p(−x²) below 5 and from 5 up
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 erf⁻¹ as XLA computes it (±1 → ±max float), in float32
+    ops on ``x``'s device: within 3 ulp of XLA's on the CPU (a Horner
+    step XLA fuses into an FMA rounds once, here twice)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def normal(k: torch.Tensor, shape) -> torch.Tensor:
+    """float32 standard normals, as ``jax.random.normal``: a uniform on
+    [nextafter(−1, 0), 1) under ``k``, then √2·erfinv."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    sqrt2 = torch.tensor(np.sqrt(2), dtype=torch.float32, device=k.device)
+    return sqrt2 * erfinv(uniform(k, shape, lo, 1.0))
+
+
+def logistic(k: torch.Tensor, shape) -> torch.Tensor:
+    """float32 standard logistic draws, as ``jax.random.logistic``: a
+    uniform u on [tiny, 1), then log(u) − log1p(−u)."""
+    u = uniform(k, shape, float(torch.finfo(torch.float32).tiny), 1.0)
+    return torch.log(u) - torch.log1p(-u)
 
 
 def root_key(seed: int = 42, device: str | torch.device = "cpu"
