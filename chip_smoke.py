@@ -17,6 +17,13 @@ and the script exits non-zero without printing a result:
   5. serve: the trained artifact loaded into the micro-batching server
      and 2048 requests answered through the top-k kernel, each checked
      against the plain version;
+ 5b. sharded ALS: the same fit on an emulated 2×4 data × model mesh (V
+     over the model axis; U·Vᵀ against phase 4's), straight and resumed
+     after its first segment of 2 sweeps (bitwise equal), its artifact
+     served over 4 model slices with the sparse merge (B9 four times a
+     micro-batch) and the dense one (no B9), every reply against the
+     plain version, sparse replies bitwise equal to unsharded ones and
+     phase 5's; a micro-batch's device time and B9 at the slice's shape;
   6. SSGD: logistic regression at bench.py's geometry (1,048,576 rows ×
      125 features + bias, 8192-row blocks, 1500 steps) through
      ``ssgd.prepare_fused``/``make_train_fn``: ``fused_train`` (kernel
@@ -89,16 +96,18 @@ and the script exits non-zero without printing a result:
      made on the card, 500 ``fused_gather`` steps through B1 on an X2
      past 2³¹ elements, held-out accuracy, host RSS, B1 at that shape);
  13. the kernels line (B1's and B2's entries with their launches on the
-     local-update runs, B1's on the scale path), then the last line
+     local-update runs, B1's on the scale path, B9's on the sharded
+     path and at the slice's shape), then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
 and read just after it (the serving path: phase 4's full-width fit and
-phase 5; each SSGD path, each PageRank sweep, each k-means fit, each
-tp mesh, each attention run, each local-update run, and each of phase
-12's paths on its own), so the kernels line shows that each path went
-through its kernel, and that phase 12's kernel-free paths (Monte
-Carlo, the closure, ``fixed``) launched none.
+phase 5; each of phase 5b's served runs; each SSGD path, each PageRank
+sweep, each k-means fit, each tp mesh, each attention run, each
+local-update run, and each of phase 12's paths on its own), so the
+kernels line shows that each path went through its kernel, and that
+the kernel-free paths (phase 5b's dense merge, phase 12's Monte Carlo,
+closure and ``fixed``) launched none.
 """
 
 from __future__ import annotations
@@ -380,9 +389,11 @@ def check_als_small(dev) -> None:
     """Phase 4a: ALS on the card against the port's own CPU run."""
     from tpu_distalg_torch.models import als
 
+    from tpu_distalg_torch.parallel import get_mesh
+
     cfg = als.ALSConfig(m=512, n=2048, k=16, n_iterations=3, seed=SEED)
-    gpu = als.fit(cfg, device=dev).rmse_history.cpu().numpy()
-    cpu = als.fit(cfg, device="cpu").rmse_history.numpy()
+    gpu = als.fit(get_mesh(device=dev), cfg).rmse_history.cpu().numpy()
+    cpu = als.fit(get_mesh(device="cpu"), cfg).rmse_history.numpy()
     if not np.allclose(gpu, cpu, rtol=1e-4, atol=0.0):
         raise AssertionError(f"ALS card {gpu} != CPU {cpu} (rtol 1e-4)")
     print(f"[als] 512x2048 rank 16, lam {cfg.lam}: card {gpu.tolist()} == "
@@ -396,21 +407,14 @@ def run_main_path(dev, workdir: str) -> dict:
 
     from tpu_distalg_torch import serve
     from tpu_distalg_torch.models import als
+    from tpu_distalg_torch.parallel import get_mesh
 
     cfg = als.ALSConfig(lam=0.0, m=USERS, n=ITEMS, k=RANK,
                         n_iterations=SWEEPS, seed=SEED)
-    # bench.py's full-width target (bench.py:2984-2986): exactly rank
-    # 64 with N(0, 0.3²) factors. synthesize_rank_k's U[0,1) factors
-    # share one dominant direction at rank 64, which leaves the first
-    # sweep's float32 factors too ill-conditioned: the rmse then stalls
-    # near 8e-4 of RMS(R) (python -m tpu_distalg_torch.tools.als_precision)
-    rng = np.random.default_rng(SEED)
-    R = (rng.normal(0.0, 0.3, (USERS, RANK)).astype(np.float32)
-         @ rng.normal(0.0, 0.3, (ITEMS, RANK)).astype(np.float32).T)
-    rms_r = float(np.sqrt(np.mean(np.square(R, dtype=np.float64))))
+    R, rms_r = _als_target()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = als.fit(cfg, R, device=dev, checkpoint_dir=workdir)
+    res = als.fit(get_mesh(device=dev), cfg, R, checkpoint_dir=workdir)
     hist = res.rmse_history.cpu().numpy()
     fit_s = time.perf_counter() - t0
     print(f"[als] {USERS}x{ITEMS} rank {RANK}, lam 0.0, {SWEEPS} sweeps: "
@@ -419,21 +423,48 @@ def run_main_path(dev, workdir: str) -> dict:
     if not hist[-1] < 1e-3 * rms_r:
         raise AssertionError(f"final rmse {hist[-1]} not below 1e-3 x "
                              f"RMS(R) = {1e-3 * rms_r}")
-    del R, res
+    del R
 
-    cfg_s = serve.ServeConfig(max_batch=MAX_BATCH, max_delay_ms=2.0,
-                              k_top=K_TOP)
-    server = serve.Server(cfg_s, device=dev)
+    results, info, stats = _serve_closed_loop(
+        get_mesh(device=dev), workdir, "sparse", SERVE_IDS)
+    return {"results": results, "info": info, "stats": stats,
+            "fit_s": fit_s, "U": res.U, "V": res.V}
+
+
+def _als_target():
+    """bench.py's full-width target (bench.py:2984-2986): exactly rank 64
+    with N(0, 0.3²) factors, and its RMS. synthesize_rank_k's U[0,1)
+    factors share one dominant direction at rank 64, which leaves the
+    first sweep's float32 factors too ill-conditioned: the rmse then
+    stalls near 8e-4 of RMS(R) (python -m
+    tpu_distalg_torch.tools.als_precision)."""
+    rng = np.random.default_rng(SEED)
+    R = (rng.normal(0.0, 0.3, (USERS, RANK)).astype(np.float32)
+         @ rng.normal(0.0, 0.3, (ITEMS, RANK)).astype(np.float32).T)
+    return R, float(np.sqrt(np.mean(np.square(R, dtype=np.float64))))
+
+
+#: the serving load: 2048 user ids, the same for every served run
+SERVE_IDS = np.random.default_rng(SEED + 7).integers(0, USERS, size=REQUESTS)
+
+
+def _serve_closed_loop(mesh, workdir: str, merge: str, ids):
+    """The artifact under ``workdir`` served on ``mesh`` with ``merge``:
+    ``ids`` from CONCURRENCY closed-loop clients, micro-batches of
+    MAX_BATCH, a 2 ms deadline. Returns (replies, load info, stats)."""
+    from tpu_distalg_torch import serve
+
+    cfg = serve.ServeConfig(max_batch=MAX_BATCH, max_delay_ms=2.0,
+                            k_top=K_TOP, merge=merge)
+    server = serve.Server(mesh, cfg)
     try:
         server.add_artifact(workdir)
-        rng = np.random.default_rng(SEED + 7)
-        ids = rng.integers(0, USERS, size=REQUESTS)
         results, info = serve.run_closed_loop(
             server, "als", list(ids), concurrency=CONCURRENCY)
         stats = server.emit_counters()
     finally:
         server.close()
-    return {"ids": ids, "results": results, "info": info, "stats": stats}
+    return results, info, stats
 
 
 def check_served(dev, workdir: str, run: dict) -> None:
@@ -449,7 +480,7 @@ def check_served(dev, workdir: str, run: dict) -> None:
         raise AssertionError(f"served {info['ok']}/{REQUESTS}: {info}")
     payload, _ = checkpoint.restore(workdir)
     U, V = (torch.as_tensor(x, device=dev) for x in payload["state"])
-    Q = U[torch.as_tensor(run["ids"], device=dev)].contiguous()
+    Q = U[torch.as_tensor(SERVE_IDS, device=dev)].contiguous()
     rv, ri = topk.matmul_topk_reference(Q, V, 0, V.shape[0], k=K_TOP + 1)
     gv = np.stack([v for v, _ in run["results"]])
     gi = np.stack([i for _, i in run["results"]])
@@ -459,6 +490,218 @@ def check_served(dev, workdir: str, run: dict) -> None:
           f"tie-tolerance rule; {info['qps']!r} req/s (closed loop, "
           f"{CONCURRENCY} workers), p50 {stats['p50_ms']!r} ms, p99 "
           f"{stats['p99_ms']!r} ms, {stats['shed']} shed")
+
+
+#: phase 5b: the emulated mesh of the sharded fit, the model slices
+#: serving splits V over, the resumed run's segment length, and the
+#: batches the serving profile traces
+FIT_MESH, SERVE_SLICES, SEGMENT, PROFILE_CALLS = (2, 4), 4, 2, 100
+
+
+def _check_replies(what: str, dev, U, V, results) -> float:
+    """Every served reply against the plain version on the artifact's
+    factors (tie-tolerance rule, rtol 1e-5); returns the largest score
+    error."""
+    import torch
+
+    from tpu_distalg_torch.ops import topk
+
+    Q = U[torch.as_tensor(SERVE_IDS, device=dev)].contiguous()
+    rv, ri = topk.matmul_topk_reference(Q, V, 0, V.shape[0], k=K_TOP + 1)
+    gv = np.stack([v for v, _ in results])
+    gi = np.stack([i for _, i in results])
+    topk.assert_topk_close(gv, gi, rv, ri, rtol=1e-5)
+    print(f"[sharded] {what}: {len(results)} replies equal to the plain "
+          f"version by the tie-tolerance rule")
+    return float(np.abs(gv - rv[:, :K_TOP].cpu().numpy()).max())
+
+
+def _replies_equal(what: str, got, model) -> None:
+    """``got`` (replies to SERVE_IDS) against ``model``'s own replies to
+    the same ids, batch by batch, bitwise."""
+    want = [r for j in range(0, REQUESTS, MAX_BATCH) for r in
+            model.predict_batch(list(SERVE_IDS[j:j + MAX_BATCH]), MAX_BATCH)]
+    for j, ((gv, gi), (wv, wi)) in enumerate(zip(got, want, strict=True)):
+        if not (np.array_equal(gv, wv) and np.array_equal(gi, wi)):
+            raise AssertionError(f"{what}: reply {j} differs")
+    print(f"[sharded] {what}: {REQUESTS} replies equal bitwise")
+
+
+def _batch_profile(model) -> dict:
+    """One full micro-batch of ``model`` under the profiler: host wall
+    ms a batch, device ms a batch, B9's part of it."""
+    from tpu_distalg_torch.tools.topk_profile import _profile
+
+    ids = list(SERVE_IDS[:MAX_BATCH])
+    wall, act = _profile(lambda: model.predict_batch(ids, MAX_BATCH),
+                         PROFILE_CALLS)
+    dev_ms = sum(t for t, _ in act.values()) / PROFILE_CALLS / 1e3
+    b9_ms = sum(t for name, (t, _) in act.items() if "topk" in name) \
+        / PROFILE_CALLS / 1e3
+    return {"wall_ms": wall, "device_ms": dev_ms, "b9_ms": b9_ms,
+            "merge_share": (dev_ms - b9_ms) / dev_ms,
+            "activities_a_batch": sum(n for _, n in act.values())
+            / PROFILE_CALLS}
+
+
+def _sweep_s(dev, mesh, cfg, R) -> float:
+    """Seconds a sweep of ``als.make_fit_fn`` on ``mesh``, R and the
+    factors already on the card: the best of 3 runs of
+    ``cfg.n_iterations`` sweeps after one warm-up run."""
+    import torch
+
+    from tpu_distalg_torch.models import als
+
+    R_d = torch.as_tensor(R, device=dev)
+    U0 = torch.zeros((R.shape[0], cfg.k), device=dev)
+    V0 = torch.as_tensor(np.random.default_rng(cfg.seed + 1).random(
+        (R.shape[1], cfg.k), dtype=np.float32), device=dev)
+    fn = als.make_fit_fn(mesh, cfg)
+    fn(R_d, U0, V0)
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(R_d, U0, V0)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best / cfg.n_iterations
+
+
+def run_sharded(dev, workdir1: str, main: dict) -> dict:
+    """Phase 5b: ALS on the emulated 2×4 mesh at full width (V over the
+    model axis), straight and resumed after its first segment (bitwise
+    equal), its artifact served over 4 model slices with the sparse and
+    the dense merge (B9 four times a micro-batch on sparse, never on
+    dense), sparse replies bitwise equal to unsharded ones, and the
+    serving profile and B9 at the slice's shape."""
+    import dataclasses
+
+    import torch
+
+    from tpu_distalg_torch import serve
+    from tpu_distalg_torch.models import als
+    from tpu_distalg_torch.ops import topk
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import checkpoint
+
+    R, rms_r = _als_target()
+    mesh = get_mesh(*FIT_MESH, device=dev)
+    cfg = als.ALSConfig(lam=0.0, m=USERS, n=ITEMS, k=RANK,
+                        n_iterations=SWEEPS, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    straight = als.fit(mesh, cfg, R)
+    hist = straight.rmse_history.cpu().numpy()
+    fit_s = time.perf_counter() - t0
+    if not hist[-1] < 1e-3 * rms_r:
+        raise AssertionError(f"2x4 final rmse {hist[-1]} not below 1e-3 x "
+                             f"RMS(R) = {1e-3 * rms_r}")
+    # each fit is within 1e-3·RMS(R) of R (asserted), so the two
+    # reconstructions are within 2e-3·RMS(R) of each other
+    d = (main["U"] @ main["V"].T - straight.U @ straight.V.T).double()
+    recon = float(torch.sqrt(torch.mean(d * d)))
+    del d
+    if not recon < 2e-3 * rms_r:
+        raise AssertionError(f"2x4 U·Vᵀ is {recon} (RMS) from the 1x1 "
+                             f"fit's, not below 2e-3 x RMS(R)")
+    print(f"[sharded] ALS on the emulated {FIT_MESH[0]}x{FIT_MESH[1]} mesh, "
+          f"{USERS}x{ITEMS} rank {RANK}, lam 0.0, {SWEEPS} sweeps: rmse "
+          f"{hist.tolist()}; fit {fit_s!r} s including R to the card "
+          f"({fit_s / SWEEPS!r} s/sweep at most; 1x1 {main['fit_s']!r} s "
+          f"with its artifact save); U·Vᵀ vs the 1x1 fit's: RMS {recon!r} "
+          f"(RMS(R) {rms_r!r})")
+    sweep = {shape: _sweep_s(dev, get_mesh(*shape, device=dev), cfg, R)
+             for shape in ((1, 1), FIT_MESH)}
+    print(f"[sharded] a sweep on the card (make_fit_fn on R already there, "
+          f"best of 3 runs of {SWEEPS}): 1x1 {sweep[(1, 1)]!r} s, "
+          f"{FIT_MESH[0]}x{FIT_MESH[1]} {sweep[FIT_MESH]!r} s")
+    out = {"fit_s": fit_s, "rmse": hist.tolist(), "recon_rms": recon,
+           "sweep_s_1x1": sweep[(1, 1)], "sweep_s": sweep[FIT_MESH]}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as workdir:
+        first = als.fit(mesh, dataclasses.replace(cfg, n_iterations=SEGMENT),
+                        R, checkpoint_dir=workdir, checkpoint_every=SEGMENT)
+        if checkpoint.latest_step(workdir) != SEGMENT:
+            raise AssertionError("the first segment left no checkpoint")
+        seg = als.fit(mesh, cfg, R, checkpoint_dir=workdir,
+                      checkpoint_every=SEGMENT)
+        for name, a, b in (("U", straight.U, seg.U), ("V", straight.V, seg.V),
+                           ("rmse", straight.rmse_history,
+                            seg.rmse_history),
+                           ("first segment's rmse", first.rmse_history,
+                            straight.rmse_history[:SEGMENT])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"segmented 2x4 fit != straight: {name}")
+        print(f"[sharded] segmented fit (segments of {SEGMENT}, stopped "
+              f"after the first and resumed) == straight bitwise: U, V, "
+              f"rmse; artifact at step {checkpoint.latest_step(workdir)}")
+        del R, first, seg
+
+        mesh4 = get_mesh(1, SERVE_SLICES, device=dev)
+        payload, _ = checkpoint.restore(workdir)
+        U, V = (torch.as_tensor(x, device=dev) for x in payload["state"])
+        for merge in ("sparse", "dense"):
+            _reset_launches()
+            results, info, stats = _serve_closed_loop(mesh4, workdir, merge,
+                                                      SERVE_IDS)
+            launches = {k: v for k, v in _launches().items() if v}
+            if info["ok"] != REQUESTS or info["failed"]:
+                raise AssertionError(f"{merge}: served {info['ok']}/"
+                                     f"{REQUESTS}: {info}")
+            want = {"topk": SERVE_SLICES * (stats["batches"] + 1)} \
+                if merge == "sparse" else {}
+            if launches != want:
+                raise AssertionError(
+                    f"{merge} on {SERVE_SLICES} slices launched {launches} "
+                    f"for {stats['batches']} batches and the warm-up, not "
+                    f"{want}")
+            err = _check_replies(f"{merge} on {SERVE_SLICES} slices", dev, U,
+                                 V, results)
+            print(f"[sharded] serve {merge} on {SERVE_SLICES} model slices: "
+                  f"{info['ok']}/{REQUESTS} replies in {stats['batches']} "
+                  f"micro-batches, {info['qps']!r} req/s (closed loop, "
+                  f"{CONCURRENCY} workers), p50 {stats['p50_ms']!r} ms, p99 "
+                  f"{stats['p99_ms']!r} ms, {stats['shed']} shed; launches "
+                  f"{launches}; max |err| vs plain {err!r}")
+            out[merge] = {"qps": info["qps"], "p50_ms": stats["p50_ms"],
+                          "p99_ms": stats["p99_ms"],
+                          "batches": stats["batches"],
+                          "launches": launches.get("topk", 0),
+                          "max_abs_err": err, "results": results}
+        _replies_equal("sparse on 4 slices vs the same artifact unsharded",
+                       out["sparse"]["results"],
+                       serve.load_artifact(workdir, get_mesh(device=dev)))
+        _replies_equal("phase 5's replies vs its artifact on 4 slices "
+                       "(sparse)", main["results"],
+                       serve.load_artifact(workdir1, mesh4))
+        for merge, mesh_p in (("unsharded", get_mesh(device=dev)),
+                              ("sparse", mesh4), ("dense", mesh4)):
+            prof = _batch_profile(serve.load_artifact(
+                workdir, mesh_p, merge="dense" if merge == "dense"
+                else "sparse"))
+            out[merge] = {**out.get(merge, {}), **prof}
+            print(f"[sharded] a micro-batch of {MAX_BATCH}, {merge} on "
+                  f"{mesh_p.n_model} slice(s): host wall "
+                  f"{prof['wall_ms']!r} ms, device {prof['device_ms']!r} ms "
+                  f"in {prof['activities_a_batch']!r} device activities "
+                  f"(CUPTI: kernels and copies), B9 {prof['b9_ms']!r} ms, "
+                  f"the rest (gather, merge, copies) "
+                  f"{prof['merge_share']!r} of the device time")
+        local = V.shape[0] // SERVE_SLICES
+        Q = U[torch.as_tensor(SERVE_IDS[:MAX_BATCH], device=dev)].contiguous()
+        Vl = V[:local]
+        t = _topk_times(topk, Q, Vl, local, K_TOP, 50)
+        bound_ms, bound_by = _topk_bound_ms(MAX_BATCH, local, RANK, K_TOP)
+        print(f"[sharded] B9 at the slice's shape B={MAX_BATCH} N={local} "
+              f"d={RANK} k={K_TOP}: device {t['ms']!r} ms a call (CUPTI), "
+              f"wall {t['wall_ms']!r} ms, {t['launches_per_call']} launch(es) "
+              f"a call; plain {t['plain_ms']!r} ms; torch.matmul+torch.topk "
+              f"device {t['library_ms']!r} ms; bound {bound_ms!r} ms "
+              f"({bound_by})")
+        out["slice"] = {**t, "bound_ms": bound_ms, "bound_by": bound_by}
+    for merge in ("sparse", "dense"):
+        del out[merge]["results"]
+    return out
 
 
 #: SSGD at bench.py's geometry (bench.py:90-102): rows × features (a
@@ -2277,8 +2520,8 @@ def run_kmeans(dev, workdir: str) -> dict:
     res = kmeans.fit(host, mesh, kmeans.KMeansConfig(
         k=KM_K, n_iterations=10, seed=0), checkpoint_dir=workdir,
         checkpoint_every=5)
-    server = serve.Server(serve.ServeConfig(max_batch=MAX_BATCH,
-                                            max_delay_ms=2.0), device=dev)
+    server = serve.Server(mesh, serve.ServeConfig(max_batch=MAX_BATCH,
+                                                  max_delay_ms=2.0))
     try:
         model = server.add_artifact(workdir)
         payloads = list(host[-KM_SERVED:])
@@ -3691,9 +3934,12 @@ def main() -> int:
                 f"{run['stats']['batches']} batches: the main path did "
                 f"not go through the kernel")
         check_served(dev, workdir, run)
-    print(f"[serve] fused_matmul_topk launches on the main path: "
-          f"{launches}")
-    t0 = _phase("als + serve", t0)
+        print(f"[serve] fused_matmul_topk launches on the main path: "
+              f"{launches}")
+        t0 = _phase("als + serve", t0)
+        sharded = run_sharded(dev, workdir, run)
+        del run
+    t0 = _phase("sharded als + serve", t0)
 
     sg = run_ssgd(dev)
     t0 = _phase("ssgd", t0)
@@ -3725,7 +3971,11 @@ def main() -> int:
         "name": "topk.fused_matmul_topk", "route": "cuda",
         "source": "tpu_distalg_torch/csrc/topk.cu",
         "replaces": "tpu_distalg/ops/pallas_topk.py:109",
-        "launches": launches, **rec}]
+        "launches": launches, **rec,
+        "sharded_launches": sharded["sparse"]["launches"],
+        **{f"slice_{k}": sharded["slice"][k]
+           for k in ("ms", "wall_ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by")}}]
     for key, name, line, path in (
             ("B6", "fused_grad_sum", 92, "bernoulli"),
             ("B1", "fused_grad_sum_gathered", 277, "fused_gather"),

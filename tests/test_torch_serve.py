@@ -37,18 +37,26 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 7
 
 
+@pytest.fixture
+def cpu1():
+    """A one-shard mesh on the CPU."""
+    from tpu_distalg_torch.parallel import get_mesh
+
+    return get_mesh(device="cpu")
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     return env
 
 
-def test_jax_trained_factors_served_by_both_packages_agree(mesh1):
+def test_jax_trained_factors_served_by_both_packages_agree(mesh1, cpu1):
     res = jals.fit(mesh1, jals.ALSConfig(m=64, n=200, k=8, n_iterations=3))
     U_np, V_np = np.asarray(res.U), np.asarray(res.V)
     U, V = convert.als_params_from_jax(U_np, V_np, device="cpu")
     assert U.is_contiguous() and V.is_contiguous()
-    mine = serve.als_model(U, V, device="cpu", k_top=K)
+    mine = serve.als_model(U, V, cpu1, k_top=K)
     ref = jserve.als_model(U_np, V_np, mesh1, k_top=K + 1)
     rng = np.random.default_rng(11)
     ids = [np.int32(i) for i in rng.integers(0, 64, size=32)]
@@ -60,12 +68,12 @@ def test_jax_trained_factors_served_by_both_packages_agree(mesh1):
     assert mine.meta["n_items"] == 200 and mine.meta["n_users"] == 64
 
 
-def test_batched_replies_equal_unbatched_bitwise():
+def test_batched_replies_equal_unbatched_bitwise(cpu1):
     rng = np.random.default_rng(2)
     U = rng.normal(size=(32, 16)).astype(np.float32)
     V = rng.normal(size=(200, 16)).astype(np.float32)
     V[180:] = 0.0  # a zero-padded tail is detected and never served
-    model = serve.als_model(U, V, device="cpu", k_top=K)
+    model = serve.als_model(U, V, cpu1, k_top=K)
     assert model.meta["n_items"] == 180
     ids = [np.int64(i) for i in rng.integers(0, 32, size=5)]
     for p, (bv, bi) in zip(ids, model.predict_batch(ids, 8)):
@@ -76,12 +84,12 @@ def test_batched_replies_equal_unbatched_bitwise():
         model.predict_one(np.int64(32), 8)
 
 
-def test_server_closed_loop_over_a_saved_artifact(tmp_path):
+def test_server_closed_loop_over_a_saved_artifact(tmp_path, cpu1):
     d = str(tmp_path / "ck")
-    res = als.fit(als.ALSConfig(m=40, n=150, k=6, n_iterations=2),
-                  device="cpu", checkpoint_dir=d)
-    srv = serve.Server(serve.ServeConfig(max_batch=8, max_delay_ms=2.0,
-                                         k_top=K), device="cpu")
+    res = als.fit(cpu1, als.ALSConfig(m=40, n=150, k=6, n_iterations=2),
+                  checkpoint_dir=d)
+    srv = serve.Server(cpu1, serve.ServeConfig(max_batch=8, max_delay_ms=2.0,
+                                               k_top=K))
     try:
         model = srv.add_artifact(d)
         with pytest.raises(ValueError, match="already served"):
@@ -107,7 +115,7 @@ def test_server_closed_loop_over_a_saved_artifact(tmp_path):
         srv.close()
 
 
-def test_two_models_under_many_clients_lose_no_reply():
+def test_two_models_under_many_clients_lose_no_reply(cpu1):
     """Stress: 32 client threads (more than the cores) against two
     served models at once, with a short switch interval, so every
     shared counter sees interleaved updates; each reply must match its
@@ -116,15 +124,13 @@ def test_two_models_under_many_clients_lose_no_reply():
     factors = {name: (rng.normal(size=(50, 8)).astype(np.float32),
                       rng.normal(size=(90, 8)).astype(np.float32))
                for name in ("a", "b")}
-    srv = serve.Server(serve.ServeConfig(max_batch=4, max_delay_ms=1.0,
-                                         queue_depth=512, k_top=3),
-                       device="cpu")
+    srv = serve.Server(cpu1, serve.ServeConfig(max_batch=4, max_delay_ms=1.0,
+                                               queue_depth=512, k_top=3))
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         for name, (U, V) in factors.items():
-            srv.add_model(serve.als_model(U, V, device="cpu", k_top=3,
-                                          name=name))
+            srv.add_model(serve.als_model(U, V, cpu1, k_top=3, name=name))
         ids = list(rng.integers(0, 50, size=160))
         out = {}
         lock = threading.Lock()
@@ -211,8 +217,8 @@ def test_server_serves_kmeans_and_ssgd_artifacts(tmp_path):
     data = datasets.breast_cancer_split()
     lr = ssgd.train(*data, mesh, ssgd.SSGDConfig(n_iterations=20),
                     checkpoint_dir=lr_dir, checkpoint_every=10)
-    srv = serve.Server(serve.ServeConfig(max_batch=8, max_delay_ms=2.0),
-                       device="cpu")
+    srv = serve.Server(mesh, serve.ServeConfig(max_batch=8,
+                                               max_delay_ms=2.0))
     try:
         m_km = srv.add_artifact(km_dir)
         m_lr = srv.add_artifact(lr_dir)
@@ -238,12 +244,12 @@ def test_server_serves_kmeans_and_ssgd_artifacts(tmp_path):
 
 
 @pytest.mark.parametrize("tag", ["pagerank_standard", "closure"])
-def test_load_artifact_rejects_unported_adapters(tmp_path, tag):
+def test_load_artifact_rejects_unported_adapters(tmp_path, tag, cpu1):
     """Workloads without a serving adapter (the JAX package has none
     for them either) are refused by name."""
     checkpoint.save(str(tmp_path), tag, [np.ones(3, np.float32)], step=1)
     with pytest.raises(ValueError, match="no serving adapter"):
-        serve.load_artifact(str(tmp_path), device="cpu")
+        serve.load_artifact(str(tmp_path), cpu1)
 
 
 def test_lone_request_dispatches_by_deadline():

@@ -192,12 +192,14 @@ def test_kernel_on_two_streams_from_two_threads(cuda_device):
 def test_every_served_batch_fill_within_the_tie_rule(cuda_device):
     """The serving shape (ALS 4096 users × 16384 items, rank 64, k 10,
     micro-batches padded to 32): every fill from 1 to 32."""
+    from tpu_distalg_torch.parallel import get_mesh
     from tpu_distalg_torch.serve import artifacts
 
     rng = np.random.default_rng(12)
     U = rng.normal(size=(4096, 64)).astype(np.float32)
     V = rng.normal(size=(16384, 64)).astype(np.float32)
-    model = artifacts.als_model(U, V, device=cuda_device, k_top=10)
+    model = artifacts.als_model(U, V, get_mesh(device=cuda_device),
+                                k_top=10)
     Ud = torch.as_tensor(U, device=cuda_device)
     Vd = torch.as_tensor(V, device=cuda_device)
     for fill in range(1, 33):

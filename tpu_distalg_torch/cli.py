@@ -13,9 +13,9 @@ Monte-Carlo π, and serving ALS, k-means and LR artifacts.
         --shuffle-seed 0        # features over 4 model slices (B3, B4)
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] als \\
         --m 4096 --n 16384 --k 64 --lam 0.0 --n-iterations 5 \\
-        --checkpoint-dir D                     # prints artifact_path: D
+        [--mesh-shape 2x4] --checkpoint-dir D  # prints artifact_path: D
     python -m tpu_distalg_torch.cli serve --artifact D --max-batch 32 \\
-        --requests 2048 --concurrency 8
+        --requests 2048 --concurrency 8 [--model-slices 4 --comm sparse]
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] pagerank \\
         [--n-vertices 1000000 --mode standard --n-iterations 50]
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] kmeans \\
@@ -110,19 +110,38 @@ def _parser() -> argparse.ArgumentParser:
     o.add_argument("--checkpoint-every", type=int, default=500)
 
     a = sub.add_parser("als", help="ALS matrix factorisation")
+    _add_mesh_flags(a)
     a.add_argument("--m", type=int, default=100)
     a.add_argument("--n", type=int, default=500)
     a.add_argument("--k", type=int, default=10)
     a.add_argument("--lam", type=float, default=0.01)
     a.add_argument("--n-iterations", type=int, default=5)
     a.add_argument("--seed", type=int, default=0)
+    a.add_argument("--data-backend", default="resident",
+                   choices=["resident", "virtual", "streamed"],
+                   help="where R lives: resident = device memory (the one "
+                        "ported backend; streamed and virtual wait for "
+                        "ROADMAP A10)")
     a.add_argument("--checkpoint-dir", default=None,
-                   help="save the trained factors here as an artifact")
+                   help="segmented checkpoint/resume directory; its last "
+                        "checkpoint is the serving artifact")
+    a.add_argument("--checkpoint-every", type=int, default=5)
+    _add_max_restarts(a)
 
     s = sub.add_parser("serve", help="serve ALS, k-means and LR artifacts "
                                      "under load")
     s.add_argument("--artifact", action="append", required=True,
                    help="checkpoint directory (repeatable)")
+    s.add_argument("--n-slices", type=int, default=0,
+                   help="emulated data shards; 0 = 1")
+    s.add_argument("--model-slices", type=int, default=1,
+                   help="emulated model slices: ALS item factors are split "
+                        "over them and each slice's top-k candidates merge "
+                        "by --comm")
+    s.add_argument("--comm", default="sparse", choices=["sparse", "dense"],
+                   help="ALS candidate merge: sparse = each slice's k "
+                        "(value, index) pairs (8k(S-1) B/request), dense = "
+                        "the slices' whole score blocks (the O(N) baseline)")
     s.add_argument("--max-batch", type=int, default=16)
     s.add_argument("--max-delay-ms", type=float, default=5.0)
     s.add_argument("--queue-depth", type=int, default=128)
@@ -250,7 +269,7 @@ def _mesh(args):
             data, model = parse_mesh_shape(args.mesh_shape)
         except ValueError as e:
             raise SystemExit(str(e)) from None
-        if model > 1:
+        if model > 1 and args.cmd != "als":  # ALS splits V over model
             print(f"[mesh] warning: --mesh-shape {data}x{model} puts "
                   f"{model}-way model parallelism on a workload whose "
                   f"rule table has no model-axis placement — those "
@@ -561,10 +580,15 @@ def main(argv=None) -> int:
     elif args.cmd == "als":
         from tpu_distalg_torch.models import als
 
+        if args.data_backend != "resident":
+            raise SystemExit(f"--data-backend {args.data_backend} (R behind "
+                             f"a ShardedDataset) waits for the out-of-core "
+                             f"slice, ROADMAP A10")
+        mesh = _mesh(args)
         cfg = als.ALSConfig(lam=args.lam, m=args.m, n=args.n, k=args.k,
                             n_iterations=args.n_iterations, seed=args.seed)
-        res = als.fit(cfg, device=args.device,
-                      checkpoint_dir=args.checkpoint_dir)
+        res = als.fit(mesh, cfg, checkpoint_dir=args.checkpoint_dir,
+                      checkpoint_every=args.checkpoint_every)
         for t, e in enumerate(res.rmse_history.cpu().numpy()):
             print(f"iterations: {t}, rmse: {float(e):f}")
         if args.checkpoint_dir:
@@ -577,11 +601,15 @@ def main(argv=None) -> int:
         import numpy as np
 
         from tpu_distalg_torch import serve
+        from tpu_distalg_torch.parallel import get_mesh
 
+        mesh = get_mesh(data=args.n_slices or 1, model=args.model_slices,
+                        device=args.device)
         cfg = serve.ServeConfig(
             max_batch=args.max_batch, max_delay_ms=args.max_delay_ms,
-            queue_depth=args.queue_depth, k_top=args.k_top)
-        server = serve.Server(cfg, device=args.device)
+            queue_depth=args.queue_depth, k_top=args.k_top,
+            merge=args.comm)
+        server = serve.Server(mesh, cfg)
         try:
             for path in args.artifact:
                 model = server.add_artifact(path)

@@ -1,29 +1,52 @@
 """ALS matrix factorisation (port of ``tpu_distalg/models/als.py``).
 
-The resident single-device fit: R, U and V live on one device and
-every half-sweep is one batched normal-equation solve against a k×k
-Gram (``ops/linalg.py``). It follows the JAX package step for step:
-the same V0 draw (``default_rng(seed + 1)``; U0 is never read), the
-same sweep order (U-update, V-update, then the RMSE), and the same
-``reg_rows`` quirk (the U-update regularises with ``n``, the V-update
-with ``m``).
+The fit on the emulated data × model mesh, as the JAX package runs it
+under its ``als_train`` rule table (``parallel/partition.py``): R and
+U are split over the data axis by rows, V over the model axis by rows
+(``model_padded_n`` pads n so the split always engages), and every
+half-sweep is a normal-equation solve against one k×k Gram
+(``ops/linalg.py``). The psums the JAX partitioner inserts are sums
+over the emulated shards in shard order (``parallel/collectives.py``):
 
-With ``checkpoint_dir`` the fit saves the artifact ``{"tag": "als",
-"state": [U, V]}`` as ``step_<n_iterations>.npz`` when it ends, which
-``serve/artifacts.load_artifact`` serves. Segmented resume, restarts,
-``fit_streamed`` and ``fit_rowstore`` are not ported yet.
+  * U-update: the Gram VᵀV and each row shard's right-hand side Vᵀ·Rᵀ
+    are sums over the model slices (each slice's rows of V against its
+    columns of R), in model order;
+  * V-update: each model slice solves its own rows; the Gram UᵀU and
+    Uᵀ·R are sums over the data shards, in shard order;
+  * the rmse's squared error is a sum over the (data, model) blocks.
+
+The Gram and its solve run in float64, the products in float32. It
+follows the JAX package step for step: the same V0 draw
+(``default_rng(seed + 1)``, its random rows covering only the true n;
+U0 is zeros and never read), the same sweep order (U-update, V-update,
+then the rmse), the same ``reg_rows`` quirk (the U-update regularises
+with the true ``n``, the V-update with the true ``m``), and the rmse
+over the true m·n.
+
+With ``checkpoint_dir`` the fit runs in segments through
+``utils/checkpoint.run_segmented`` (tag ``"als"``, state ``(U, V)`` at
+their padded shapes), which resumes from the directory and refuses a
+checkpoint past ``n_iterations`` or of another workload or shape; the
+last segment's checkpoint is the serving artifact
+(``serve/artifacts.load_artifact``). Sweeps draw nothing, so a
+segmented run equals a straight one bit for bit. ``fit_streamed`` waits
+for ROADMAP A10 and ``fit_rowstore`` for A12; restarts after a failed
+segment wait for A12.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from tpu_distalg_torch.ops import linalg
-from tpu_distalg_torch.utils import checkpoint
-from tpu_distalg_torch.utils.device import resolve_device
+from tpu_distalg_torch.parallel import collectives, partition
+from tpu_distalg_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from tpu_distalg_torch.parallel.sharding import pad_rows
+from tpu_distalg_torch.utils import checkpoint, metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,36 +78,129 @@ def synthesize_rank_k(config: ALSConfig) -> np.ndarray:
     return U0 @ V0.T
 
 
-def fit(config: ALSConfig = ALSConfig(), R: np.ndarray | None = None, *,
-        device: str | torch.device | None = None,
-        checkpoint_dir: str | None = None) -> ALSResult:
-    """Fit U·Vᵀ ≈ R on ``device`` (``cuda`` unless told otherwise)."""
-    dev = resolve_device(device)
+def model_padded_n(config: ALSConfig, mesh: Mesh) -> int:
+    """Columns of R (rows of V) after padding ``n`` up to a multiple of
+    the model axis, so that V's split always engages. Padded columns are
+    zero, so their V rows solve to exactly zero and touch neither the
+    U-update's Gram nor the rmse."""
+    return -(-config.n // mesh.n_model) * mesh.n_model
+
+
+def make_fit_fn(mesh: Mesh, config: ALSConfig):
+    """``fit(R, U0, V0) -> (U, V, rmse per sweep)`` for
+    ``config.n_iterations`` sweeps on the mesh. R is (rows, cols), its
+    rows a multiple of the data axis; with cols not a multiple of the
+    model axis the split of V disengages, with the JAX package's
+    warning, and V is held whole."""
+    denom = config.m * config.n  # the true element count
+    n_model = mesh.n_model
+    n_pad = model_padded_n(config, mesh)
+
+    def _v_engaged(n_cols: int) -> bool:
+        if n_model <= 1:
+            return False
+        if n_cols % n_model:
+            warnings.warn(
+                f"ALS model axis DISENGAGED: R has {n_cols} columns, "
+                f"not a multiple of the model-axis size {n_model} — V "
+                f"will be replicated. Pad R's columns to {n_pad} "
+                "(als.fit does) to engage the model-parallel sharding.",
+                stacklevel=3)
+            return False
+        return True
+
+    def fit(R, U0, V0):
+        vm = mesh if _v_engaged(R.shape[1]) else dataclasses.replace(
+            mesh, n_model=1)
+        # block (s, m): data shard s's rows of R, model slice m's columns
+        R_b = partition.shards(R, (DATA_AXIS, MODEL_AXIS), vm)
+
+        def slices(V):
+            return partition.shards(V, (MODEL_AXIS, None), vm)[0]
+
+        U, V, errs = U0, V0, []
+        for _ in range(config.n_iterations):
+            # U-update: (VᵀV + λ·n·I) uᵢ = Vᵀ R[i, :], each psum over model
+            V_m = slices(V)
+            L = torch.linalg.cholesky(linalg.regularise(
+                collectives.model_sum(linalg.gram_part(v) for v in V_m),
+                config.lam, config.n))
+            U_s = [linalg.solve_rhs(L, collectives.model_sum(
+                v.T @ r.T for v, r in zip(V_m, row))) for row in R_b]
+            # V-update: (UᵀU + λ·m·I) vⱼ = Uᵀ R[:, j], psums over data
+            (G_u,) = collectives.tree_allreduce_sum(
+                (linalg.gram_part(u),) for u in U_s)
+            L = torch.linalg.cholesky(linalg.regularise(G_u, config.lam,
+                                                        config.m))
+            V = torch.cat([linalg.solve_rhs(L, collectives.model_sum(
+                u.T @ row[m] for u, row in zip(U_s, R_b)))
+                for m in range(vm.n_model)])
+            U = torch.cat(U_s)
+            # padded rows and columns are exactly zero on both sides
+            V_m = slices(V)
+            sq = collectives.model_sum(
+                torch.sum(d * d) for d in (
+                    r - u @ v.T for u, row in zip(U_s, R_b)
+                    for v, r in zip(V_m, row)))
+            errs.append(torch.sqrt(sq / denom))
+        hist = torch.stack(errs) if errs else torch.zeros(
+            0, dtype=torch.float32, device=R.device)
+        return U, V, hist
+
+    return fit
+
+
+def fit(mesh: Mesh, config: ALSConfig = ALSConfig(),
+        R: np.ndarray | None = None, *, checkpoint_dir: str | None = None,
+        checkpoint_every: int = 5) -> ALSResult:
+    """Fit U·Vᵀ ≈ R on the mesh's device (``cuda`` unless the mesh was
+    built on ``cpu``); with ``checkpoint_dir``, in segments of
+    ``checkpoint_every`` sweeps that resume from the directory. The
+    result's U and V are cut back to the true m and n."""
     if R is None:
         R = synthesize_rank_k(config)
     elif R.shape != (config.m, config.n):
+        # a caller's R wins: m and n set the rmse's denominator, the
+        # ridge terms and the cut of U
         config = dataclasses.replace(config, m=R.shape[0], n=R.shape[1])
+    R_padded, _ = pad_rows(np.asarray(R, dtype=np.float32), mesh.n_data)
+    n_pad = model_padded_n(config, mesh)
+    if n_pad != config.n:
+        R_padded = np.pad(R_padded, ((0, 0), (0, n_pad - config.n)))
     rng = np.random.default_rng(config.seed + 1)
-    V0 = rng.random((config.n, config.k), dtype=np.float32)
+    U0 = np.zeros((R_padded.shape[0], config.k), dtype=np.float32)
+    V0 = np.zeros((n_pad, config.k), dtype=np.float32)
+    V0[:config.n] = rng.random((config.n, config.k), dtype=np.float32)
 
-    R_dev = torch.as_tensor(np.asarray(R, np.float32), device=dev)
-    V = torch.as_tensor(V0, device=dev)
-    U = None
-    errs = []
-    for _ in range(config.n_iterations):
-        U = linalg.solve_factor_block(
-            linalg.gram(V, config.lam, config.n), V, R_dev)
-        V = linalg.solve_factor_block(
-            linalg.gram(U, config.lam, config.m), U, R_dev.T)
-        errs.append(linalg.rmse(R_dev, U, V))
-    if U is None:
-        U = torch.zeros((config.m, config.k), dtype=torch.float32,
-                        device=dev)
-    hist = torch.stack(errs) if errs else torch.zeros(0, device=dev)
-    if not bool(torch.isfinite(hist).all()):
-        raise FloatingPointError(f"ALS rmse history not finite: {hist}")
-    if checkpoint_dir is not None:
-        checkpoint.save(checkpoint_dir, "als",
-                        [U.cpu().numpy(), V.cpu().numpy()],
-                        step=config.n_iterations)
-    return ALSResult(U=U, V=V, rmse_history=hist)
+    R_dev = partition.put(R_padded, "R", "als_train", mesh)
+    U_dev = partition.put(U0, "U", "als_train", mesh)
+    V_dev = partition.put(V0, "V0", "als_train", mesh)
+    if checkpoint_dir is None:
+        U, V, errs = make_fit_fn(mesh, config)(R_dev, U_dev, V_dev)
+        metrics.guard_finite(errs, "ALS rmse history")
+        return ALSResult(U=U[:config.m], V=V[:config.n], rmse_history=errs)
+
+    def run_seg(fn, state, t0):
+        del t0  # sweeps draw nothing; the factors are the whole state
+        U, V, errs = fn(R_dev, *state)
+        return (U, V), errs
+
+    (U, V), errs, _ = checkpoint.run_segmented(
+        checkpoint_dir, checkpoint_every, config.n_iterations,
+        make_seg_fn=lambda seg: make_fit_fn(
+            mesh, dataclasses.replace(config, n_iterations=seg)),
+        run_seg=run_seg, state0=(U_dev, V_dev), tag="als")
+    return ALSResult(U=U[:config.m], V=V[:config.n],
+                     rmse_history=torch.as_tensor(errs, device=mesh.device))
+
+
+def fit_streamed(*args, **kwargs):
+    """ALS over R streamed from a sharded dataset: not ported."""
+    raise NotImplementedError("ALS fit_streamed (R behind a ShardedDataset) "
+                              "waits for the out-of-core slice, ROADMAP A10")
+
+
+def fit_rowstore(*args, **kwargs):
+    """ALS over the cluster's row store: not ported."""
+    raise NotImplementedError("ALS fit_rowstore (factors in the cluster's "
+                              "row store) waits for ROADMAP A12")

@@ -29,10 +29,20 @@ def gram(F: torch.Tensor, lam: float, reg_rows: int) -> torch.Tensor:
     ``reg_rows`` keeps the reference's quirk: the diagonal boost scales
     with the row count of the factor matrix, not per-row rating
     counts."""
+    return regularise(gram_part(F), lam, reg_rows)
+
+
+def gram_part(F: torch.Tensor) -> torch.Tensor:
+    """``FᵀF`` in float64: one shard's share of a Gram that is summed
+    over shards."""
     F64 = F.to(torch.float64)
-    k = F.shape[1]
-    return F64.T @ F64 + lam * reg_rows * torch.eye(
-        k, dtype=torch.float64, device=F.device)
+    return F64.T @ F64
+
+
+def regularise(G: torch.Tensor, lam: float, reg_rows: int) -> torch.Tensor:
+    """``G + λ·reg_rows·I``, the ridge term of :func:`gram`."""
+    return G + lam * reg_rows * torch.eye(
+        G.shape[0], dtype=torch.float64, device=G.device)
 
 
 def solve_factor_block(G: torch.Tensor, F: torch.Tensor,
@@ -42,9 +52,15 @@ def solve_factor_block(G: torch.Tensor, F: torch.Tensor,
     sides are a float32 product; the solve runs in float64 and the
     result is ``F``'s dtype."""
     rhs = F.T @ R_block.T                       # (k, rows), float32
-    L = torch.linalg.cholesky(G.to(torch.float64))
+    return solve_rhs(torch.linalg.cholesky(G.to(torch.float64)), rhs)
+
+
+def solve_rhs(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Rows solving ``(L·Lᵀ) · uᵢ = rhs[:, i]``: ``L`` the float64
+    Cholesky factor of a Gram, ``rhs`` (k, rows) → (rows, k) in
+    ``rhs``'s dtype."""
     out = torch.cholesky_solve(rhs.to(torch.float64), L).T
-    return out.to(F.dtype).contiguous()         # (rows, k)
+    return out.to(rhs.dtype).contiguous()
 
 
 def rmse(R: torch.Tensor, U: torch.Tensor, V: torch.Tensor

@@ -64,6 +64,29 @@ def matmul_topk_reference(Q: torch.Tensor, V: torch.Tensor,
     return vals.contiguous(), gidx.to(torch.int32)
 
 
+def merge_topk_pairs(all_vals: torch.Tensor, all_idx: torch.Tensor, *,
+                     k: int):
+    """Merge per-shard top-k candidate pairs into the global top k, on
+    the pairs' device (port of ``pallas_topk.merge_topk_pairs``, plain
+    JAX there, not a Pallas kernel).
+
+    ``all_vals``/``all_idx`` are (S, B, K) shard-major stacks, as
+    ``parallel.comms.ring_allgather`` returns them. The order is value
+    descending with ties toward the lower index, as JAX's two-key sort
+    gives it: here two stable sorts, by index and then by value, since
+    ``torch.topk`` fixes no order among ties on CUDA. Shard windows are
+    disjoint, so no index appears twice; exhausted slots keep -inf and
+    the sentinel index."""
+    S, B, K = all_vals.shape
+    v = all_vals.movedim(0, 1).reshape(B, S * K)
+    i = all_idx.movedim(0, 1).reshape(B, S * K)
+    i, by_idx = torch.sort(i, dim=1, stable=True)
+    v = torch.gather(v, 1, by_idx)
+    v, by_val = torch.sort(v, dim=1, descending=True, stable=True)
+    i = torch.gather(i, 1, by_val)
+    return v[:, :k].contiguous(), i[:, :k].contiguous()
+
+
 def assert_topk_close(got_v, got_i, ref_v, ref_i, *, rtol: float = 1e-5):
     """Hold a top-k result to a reference by the tie-tolerance rule.
 

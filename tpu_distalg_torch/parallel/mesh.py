@@ -23,6 +23,11 @@ import torch
 
 from tpu_distalg_torch.utils.device import resolve_device
 
+#: the axis names the rule tables of ``parallel/partition.py`` use, as
+#: the JAX package's ``parallel/mesh.py`` spells them
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:

@@ -2,15 +2,17 @@
 
 Three adapters. ALS: payload = one user id, reply = ``(scores (k_top,)
 f32, item_ids (k_top,) int32)``; a batch runs ``U[ids]`` on the device,
-then the fused matmul+top-k kernel (``ops/topk.py``) against the whole
-item-factor matrix, then ONE device→host copy. LR: payload = one (d,)
-feature row, reply = P(y=1). K-means: payload = one (dim,) point, reply
-= the nearest centre's index (int32). Every batch is padded to
-``max_batch`` rows, so batched and unbatched requests run the same code
-and a reply does not depend on what else was in its batch.
+then, per slice of the item factors over the mesh's model axis, the
+fused matmul+top-k kernel (``ops/topk.py``), then the slices' candidate
+merge (sparse pairs or dense score blocks), then ONE device→host copy.
+LR: payload = one (d,) feature row, reply = P(y=1). K-means: payload =
+one (dim,) point, reply = the nearest centre's index (int32). Every
+batch is padded to ``max_batch`` rows, so batched and unbatched
+requests run the same code and a reply does not depend on what else
+was in its batch.
 
-Not ported yet: model-axis sharding of V with the sparse candidate
-merge, and the JAX package's corrupt-read re-read fallback.
+Not ported yet: the JAX package's corrupt-read re-read fallback
+(``ckpt:read``), which waits for ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import torch
 
 from tpu_distalg_torch.ops import kmeans as kops
 from tpu_distalg_torch.ops import logistic, topk
+from tpu_distalg_torch.parallel import comms, partition
+from tpu_distalg_torch.parallel.mesh import Mesh
 from tpu_distalg_torch.telemetry import events as tevents
 from tpu_distalg_torch.utils import checkpoint
 from tpu_distalg_torch.utils.device import resolve_device
@@ -136,30 +140,117 @@ def _true_rows(M) -> int:
     return int(torch.max(torch.where(nz, pos, 0))) if M.shape[0] else 0
 
 
-def als_model(U, V, *, device: str | torch.device | None = None,
-              k_top: int = 10, n_items: int | None = None,
-              block_items: int | None = None, name: str = "als",
+def als_model(U, V, mesh: Mesh, *, k_top: int = 10, merge: str = "sparse",
+              use_fused: bool | None = None, block_items: int | None = None,
+              n_items: int | None = None, name: str = "als",
               source: str = "memory") -> ServedModel:
-    """Top-k recommendation from ALS factors ``U`` (users, r) and
-    ``V`` (items, r), numpy arrays or tensors. ``n_items`` overrides
-    the true catalogue size; by default a zero-padded tail of V is
-    detected and masked."""
-    dev = resolve_device(device)
-    U_dev = torch.as_tensor(U, dtype=torch.float32, device=dev).contiguous()
-    V_dev = torch.as_tensor(V, dtype=torch.float32, device=dev).contiguous()
-    if U_dev.dim() != 2 or V_dev.dim() != 2 or \
-            U_dev.shape[1] != V_dev.shape[1]:
-        raise ValueError(f"U {tuple(U_dev.shape)} vs V "
-                         f"{tuple(V_dev.shape)}: factor ranks differ")
-    n_true = int(n_items) if n_items is not None else _true_rows(V_dev)
-    if not 0 < n_true <= V_dev.shape[0]:
+    """Top-k recommendation from ALS factors ``U`` (users, r) and ``V``
+    (items, r), numpy arrays or tensors: payload = one user id, reply =
+    ``(scores (k_top,) f32, item_ids (k_top,) int32)``, value
+    descending, ties toward the lower id.
+
+    V is padded to a multiple of the mesh's model axis and split into
+    its slices; each slice scores its items, and the candidates merge
+    by ``merge``:
+
+      * ``'sparse'``: the top-k kernel (``ops/topk.py``) once per slice
+        with the slice's ``index_offset`` and valid count, then
+        ``comms.ring_allgather`` of the slices' (value, index) pairs
+        (8·k·(S−1) wire bytes a request) and ``topk.merge_topk_pairs``;
+      * ``'dense'``: each slice's whole score block (a matmul, no
+        kernel), gathered (4·n_pad·(S−1)/S bytes a request), then the
+        top k of the gathered rows: the baseline the sparse count is
+        measured against.
+
+    One slice is one kernel call over the whole V. ``use_fused=None``
+    runs the kernel on a CUDA tensor and its plain version on a CPU
+    one; ``use_fused=False`` asks for the library path (a matmul and a
+    sort). ``n_items`` overrides the true catalogue size; by default a
+    zero-padded tail of V is detected and masked."""
+    if merge not in ("sparse", "dense"):
+        raise ValueError(f"merge must be 'sparse' or 'dense', "
+                         f"got {merge!r}")
+    dev = mesh.device
+    # device-resident factors (a training result handed straight to
+    # serving) take the train→serve reshard; host factors (a disk
+    # artifact) are placed in the serving layout
+    dev_in = isinstance(U, torch.Tensor) and isinstance(V, torch.Tensor)
+    if dev_in:
+        U = U.to(torch.float32)
+        V = V.to(torch.float32)
+    else:
+        U = np.asarray(U, np.float32)
+        V = np.asarray(V, np.float32)
+    if U.ndim != 2 or V.ndim != 2 or U.shape[1] != V.shape[1]:
+        raise ValueError(f"U {tuple(U.shape)} vs V {tuple(V.shape)}: "
+                         f"factor ranks differ")
+    n_true = int(n_items) if n_items is not None else _true_rows(V)
+    if not 0 < n_true <= V.shape[0]:
         raise ValueError(
-            f"n_items={n_true} invalid for V with {V_dev.shape[0]} rows")
+            f"n_items={n_true} invalid for V with {V.shape[0]} rows")
     if k_top < 1:
         raise ValueError(f"k_top must be >= 1, got {k_top}")
+    fused = dev.type == "cuda" if use_fused is None else bool(use_fused)
+    n_model = mesh.n_model
+    # every slice holds an equal share; padded rows are zero and masked
+    n_pad = -(-V.shape[0] // n_model) * n_model
+    if n_pad != V.shape[0]:
+        V = (torch.nn.functional.pad(V, (0, 0, 0, n_pad - V.shape[0]))
+             if dev_in else np.pad(V, ((0, n_pad - V.shape[0]), (0, 0))))
+    local_n = n_pad // n_model
+    if dev_in:
+        placed = partition.reshard({"U": U, "V": V}, "als_train",
+                                   "als_serve", mesh)
+    else:
+        placed = partition.place({"U": U, "V": V}, "als_serve", mesh)
+    U_dev = placed["U"].contiguous()
+    V_dev = placed["V"].contiguous()
+    # the slices are views of V, never copies: a slice of a 16-byte
+    # aligned V stays aligned when the rank is a multiple of 4, so it
+    # takes the kernel's vector path as the whole V does
+    V_sl = partition.shards(V_dev, partition.table("als_serve").spec_for(
+        "V", tuple(V_dev.shape)), mesh)[0]
+
+    def score(q, Vl, off, nv):
+        if fused:
+            return topk.fused_matmul_topk(q, Vl, off, nv, k=k_top,
+                                          block_items=block_items)
+        return topk.matmul_topk_reference(q, Vl, off, nv, k=k_top)
+
+    if n_model == 1:
+        def topk_fn(q):
+            return score(q, V_dev, 0, n_true)
+
+        wire_per_req = 0
+    elif merge == "sparse":
+        def topk_fn(q):
+            pairs = []
+            for m, Vl in enumerate(V_sl):
+                off = m * local_n
+                pairs.append(score(q, Vl, off,
+                                   min(max(n_true - off, 0), local_n)))
+            all_v, all_i = comms.ring_allgather(pairs)
+            return topk.merge_topk_pairs(all_v, all_i, k=k_top)
+
+        wire_per_req = 8 * k_top * (n_model - 1)
+    else:
+        pos = torch.arange(n_pad, device=dev)
+
+        def topk_fn(q):
+            blocks = [torch.matmul(q, Vl.T) for Vl in V_sl]
+            full = torch.where(pos[None, :] < n_true, torch.cat(blocks, 1),
+                               float("-inf"))
+            vals, idx = torch.sort(full, dim=1, descending=True,
+                                   stable=True)
+            return (vals[:, :k_top].contiguous(),
+                    idx[:, :k_top].to(torch.int32))
+
+        wire_per_req = 4 * n_pad * (n_model - 1) // n_model
     n_users = int(U_dev.shape[0])
 
     def make_predict(max_batch: int):
+        wire_per_batch = wire_per_req * max_batch
+
         def predict(payloads):
             ids = _stack_pad(payloads, (), np.int64, max_batch,
                              f"als:{name}")
@@ -167,14 +258,15 @@ def als_model(U, V, *, device: str | torch.device | None = None,
                 raise ValueError(f"als:{name}: user id out of range "
                                  f"[0, {n_users})")
             q = U_dev[torch.as_tensor(ids, device=dev)]
-            vals, idx = topk.fused_matmul_topk(
-                q, V_dev, 0, n_true, k=k_top, block_items=block_items)
+            vals, idx = topk_fn(q)
             # one device→host copy per batch: the int32 ids ride
             # bit-cast beside the float32 scores
             host = torch.cat((vals, idx.view(torch.float32)), 1).cpu()
             host = host.numpy()
             v = host[:, :k_top]
             i = np.ascontiguousarray(host[:, k_top:]).view(np.int32)
+            if wire_per_batch:
+                tevents.counter("serve.merge_bytes_wire", wire_per_batch)
             return [(v[r].copy(), i[r].copy())
                     for r in range(len(payloads))]
 
@@ -183,30 +275,35 @@ def als_model(U, V, *, device: str | torch.device | None = None,
     return ServedModel(
         name=name, kind="als", make_predict=make_predict, source=source,
         meta={"n_items": n_true, "n_users": n_users,
-              "rank": int(U_dev.shape[1]), "k_top": k_top,
+              "rank": int(U_dev.shape[1]), "k_top": k_top, "merge": merge,
+              "fused": fused, "n_model": n_model,
+              "merge_wire_bytes_per_request": wire_per_req,
               "device": str(dev)})
 
 
-def load_artifact(path: str, *, device: str | torch.device | None = None,
-                  name: str | None = None, k_top: int = 10,
+def load_artifact(path: str, mesh: Mesh, *, name: str | None = None,
+                  k_top: int = 10, merge: str = "sparse",
+                  use_fused: bool | None = None,
                   block_items: int | None = None) -> ServedModel:
     """Open one of the port's checkpoint directories as a
-    :class:`ServedModel`, dispatching on the checkpoint's tag."""
+    :class:`ServedModel` on the mesh's device, dispatching on the
+    checkpoint's tag; ALS factors are served over the mesh's model
+    axis (:func:`als_model`)."""
     payload, step = checkpoint.restore(path)
     tag = payload["tag"]
     root = tag.split(":", 1)[0]
     tevents.emit("serve_artifact_loaded", path=path, tag=tag, step=step)
     if root in _LR_TAG_ROOTS:
         return lr_model(payload["state"][0], name=name or root,
-                        device=device, source=path)
+                        device=mesh.device, source=path)
     if root.startswith("kmeans"):
         return kmeans_model(payload["state"][0], name=name or "kmeans",
-                            device=device, source=path)
+                            device=mesh.device, source=path)
     if root == "als":
         U, V = payload["state"][:2]
-        return als_model(U, V, device=device, k_top=k_top,
-                         block_items=block_items, name=name or "als",
-                         source=path)
+        return als_model(U, V, mesh, k_top=k_top, merge=merge,
+                         use_fused=use_fused, block_items=block_items,
+                         name=name or "als", source=path)
     raise ValueError(
         f"checkpoint under {path} holds workload {root!r} — no serving "
         f"adapter for it (servable: {', '.join(_LR_TAG_ROOTS)}, kmeans_*, "

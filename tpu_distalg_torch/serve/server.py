@@ -13,12 +13,11 @@ import threading
 import time
 
 import numpy as np
-import torch
 
+from tpu_distalg_torch.parallel.mesh import Mesh
 from tpu_distalg_torch.serve import artifacts as serve_artifacts
 from tpu_distalg_torch.serve.batcher import MicroBatcher, Reply
 from tpu_distalg_torch.telemetry import events as tevents
-from tpu_distalg_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,17 +28,19 @@ class ServeConfig:
     max_delay_ms: float = 5.0    # … or this long after the batch opens
     queue_depth: int = 128       # bounded queue; full = shed
     k_top: int = 10              # ALS: recommendations per request
+    merge: str = "sparse"        # ALS shard merge: sparse pairs | dense
+    use_fused: bool | None = None  # None: the kernel on a CUDA tensor
     block_items: int | None = None  # items per CUDA block (None: auto)
 
 
 class Server:
-    """Serve one or more artifacts behind micro-batchers on ``device``
-    (``cuda`` unless told otherwise)."""
+    """Serve one or more artifacts behind micro-batchers on the mesh's
+    device (``parallel.get_mesh``: ``cuda`` unless told otherwise); ALS
+    item factors are split over the mesh's model axis."""
 
-    def __init__(self, config: ServeConfig = ServeConfig(), *,
-                 device: str | torch.device | None = None):
+    def __init__(self, mesh: Mesh, config: ServeConfig = ServeConfig()):
+        self.mesh = mesh
         self.config = config
-        self.device = resolve_device(device)
         self._models: dict[str, serve_artifacts.ServedModel] = {}
         self._batchers: dict[str, MicroBatcher] = {}
         self._t0 = time.perf_counter()
@@ -75,8 +76,8 @@ class Server:
         serve it."""
         cfg = self.config
         model = serve_artifacts.load_artifact(
-            path, device=self.device, name=name, k_top=cfg.k_top,
-            block_items=cfg.block_items)
+            path, self.mesh, name=name, k_top=cfg.k_top, merge=cfg.merge,
+            use_fused=cfg.use_fused, block_items=cfg.block_items)
         return self.add_model(model, warm=warm)
 
     @staticmethod

@@ -28,6 +28,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tpu_distalg_torch.ops import topk
+from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.serve import artifacts
 from tpu_distalg_torch.utils.device import resolve_device
 
@@ -107,7 +108,7 @@ def main() -> int:
 
     U = rng.normal(size=(4096, 64)).astype(np.float32)
     V = rng.normal(size=(16384, 64)).astype(np.float32)
-    model = artifacts.als_model(U, V, device=dev, k_top=10)
+    model = artifacts.als_model(U, V, get_mesh(device=dev), k_top=10)
     calls = 100
     for fill in (8, 32):
         ids = list(rng.integers(0, 4096, size=fill))
