@@ -58,16 +58,18 @@ def test_linalg_matches_jax():
     R = rng.random((30, 50), dtype=np.float32)
     U = rng.random((30, 8), dtype=np.float32)
     G_j = np.array(jlinalg.gram(F, 0.01, 50))  # writable copy
-    G_p = linalg.gram(torch.as_tensor(F), 0.01, 50).numpy()
+    G_p = linalg.regularise(linalg.gram_part(torch.as_tensor(F)), 0.01,
+                            50).numpy()
     np.testing.assert_allclose(G_p, G_j, rtol=1e-5)
     S_j = np.asarray(jlinalg.solve_factor_block(G_j, F, R))
-    S_p = linalg.solve_factor_block(torch.as_tensor(G_j), torch.as_tensor(F),
-                                    torch.as_tensor(R)).numpy()
+    Ft = torch.as_tensor(F)
+    S_p = linalg.solve_rhs(torch.linalg.cholesky(torch.as_tensor(
+        G_j, dtype=torch.float64)), Ft.T @ torch.as_tensor(R).T).numpy()
     np.testing.assert_allclose(S_p, S_j, rtol=1e-5,
                                atol=1e-5 * np.abs(S_j).max())
     e_j = float(jlinalg.rmse(R, U, F))
-    e_p = float(linalg.rmse(torch.as_tensor(R), torch.as_tensor(U),
-                            torch.as_tensor(F)))
+    e_p = float(torch.sqrt(linalg.sq_err(
+        torch.as_tensor(R), torch.as_tensor(U), Ft) / R.size))
     assert e_p == pytest.approx(e_j, rel=1e-5)
 
 

@@ -10,7 +10,9 @@ partition.py``), as JAX ``tests/test_partition.py:41-266`` holds it:
     the JAX package's, integer for integer, on 1×4, 2×2 and 2×4;
   * the uneven pad-reshard-slice round trip, bitwise;
   * the shard views equal the JAX package's addressable shards;
-  * the ``reshard.*`` counters, read by the JAX package's report.
+  * the ``reshard.*`` counters, read by the JAX package's report;
+  * the hand placement of ``parallel/sharding.py`` equal to the views
+    its table names.
 
 Everything here is exact: the engine moves and pads values, it never
 computes with them.
@@ -28,6 +30,7 @@ from tpu_distalg.parallel import get_mesh as jax_mesh
 from tpu_distalg.parallel import partition as jpt
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.parallel import partition as pt
+from tpu_distalg_torch.parallel import sharding
 from tpu_distalg_torch.telemetry import events
 
 SHAPES = [(1, 4), (2, 2), (2, 4)]
@@ -124,15 +127,42 @@ def test_reshard_equals_host_gather_put_every_registered_pair():
             pt.constrain(dev[name], name, dst, mesh)
 
 
-def test_ensure_passes_through_placed_leaves():
+def test_place_passes_through_placed_leaves():
     mesh = get_mesh(2, 2, device="cpu")
     tree = _pair_tree("als_train")
     placed = pt.place(tree, "als_train", mesh)
-    again = pt.ensure(placed, "als_train", mesh)
+    again = pt.place(placed, "als_train", mesh)
     assert again["U"] is placed["U"] and again["V"] is placed["V"]
-    fresh = pt.ensure(tree, "als_train", mesh)
-    assert fresh["U"].numpy().tobytes() == tree["U"].tobytes()
+    assert placed["U"].numpy().tobytes() == tree["U"].tobytes()
     assert pt.gather(placed)["V"].tobytes() == tree["V"].tobytes()
+
+
+@pytest.mark.parametrize("data,model", [(2, 1), (2, 2), (2, 4)])
+@pytest.mark.parametrize("tbl,leaf,by_model", [
+    ("lr", "X", False), ("ssgd", "X", False), ("local_sgd", "X", False),
+    ("kmeans", "points", False), ("ssgd_tp", "X", True),
+    ("ssgd_feature_sharded", "X", True)])
+def test_hand_placement_matches_its_table(tbl, leaf, by_model, data,
+                                          model):
+    """The trainers that still place by hand (``parallel/sharding.py``)
+    give each shard the block their table names: rows over data by
+    ``parallelize``, and columns over model by ``shard_features``."""
+    mesh = get_mesh(data, model, device="cpu")
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((13, 12)).astype(np.float32)
+    Xs = sharding.parallelize(X, mesh)
+    n_local = Xs.n_padded // data
+    spec = pt.table(tbl).spec_for(leaf, tuple(Xs.data.shape))
+    views = pt.shards(Xs.data, spec, mesh)
+    mviews = pt.shards(Xs.mask, pt.table(tbl).spec_for(
+        "mask", tuple(Xs.mask.shape)), mesh)
+    cols = sharding.shard_features(Xs.data, model) if by_model else None
+    for s in range(data):
+        rows = slice(s * n_local, (s + 1) * n_local)
+        for m in range(model):
+            want = cols[m][rows] if by_model else Xs.data[rows]
+            assert torch.equal(views[s][m], want), (tbl, s, m)
+            assert torch.equal(mviews[s][m], Xs.mask[rows]), (tbl, s, m)
 
 
 def test_put_and_constrain_refuse_an_uneven_layout():

@@ -188,13 +188,16 @@ def test_unknown_merge_and_library_path():
     with pytest.raises(ValueError, match="merge must be 'sparse' or "
                                          "'dense', got 'ring'"):
         serve.als_model(U, V, _mesh(4), merge="ring")
-    lib = serve.als_model(U, V, _mesh(4), k_top=K, use_fused=False)
-    fused = serve.als_model(U, V, _mesh(4), k_top=K, use_fused=True)
-    assert (lib.meta["fused"], fused.meta["fused"]) == (False, True)
-    # use_fused=None on a CPU mesh: the plain version, as JAX off a TPU
-    assert serve.als_model(U, V, _mesh(4)).meta["fused"] is False
+    # the wrapper picks by device: on a CPU mesh, the plain version
+    m = serve.als_model(U, V, _mesh(4), k_top=K)
+    assert m.meta["fused"] is False
     ids = list(range(10))
-    _equal(lib.predict_batch(ids, 16), fused.predict_batch(ids, 16))
+    Ut = torch.as_tensor(U)
+    want_v, want_i = topk.matmul_topk_reference(
+        Ut[ids], torch.as_tensor(V), 0, V.shape[0], k=K)
+    for (v, i), wv, wi in zip(m.predict_batch(ids, 16), want_v.numpy(),
+                              want_i.numpy()):
+        assert np.array_equal(i, wi) and np.array_equal(v, wv)
 
 
 # ------------------------------------------------ against JAX's serving

@@ -139,9 +139,8 @@ def make_fit_fn(mesh: Mesh, config: ALSConfig):
             # padded rows and columns are exactly zero on both sides
             V_m = slices(V)
             sq = collectives.model_sum(
-                torch.sum(d * d) for d in (
-                    r - u @ v.T for u, row in zip(U_s, R_b)
-                    for v, r in zip(V_m, row)))
+                linalg.sq_err(r, u, v) for u, row in zip(U_s, R_b)
+                for v, r in zip(V_m, row))
             errs.append(torch.sqrt(sq / denom))
         hist = torch.stack(errs) if errs else torch.zeros(
             0, dtype=torch.float32, device=R.device)

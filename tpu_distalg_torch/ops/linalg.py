@@ -23,48 +23,35 @@ from __future__ import annotations
 import torch
 
 
-def gram(F: torch.Tensor, lam: float, reg_rows: int) -> torch.Tensor:
-    """``FᵀF + λ·reg_rows·I`` in float64 — the ridge-regularised Gram.
-
-    ``reg_rows`` keeps the reference's quirk: the diagonal boost scales
-    with the row count of the factor matrix, not per-row rating
-    counts."""
-    return regularise(gram_part(F), lam, reg_rows)
-
-
 def gram_part(F: torch.Tensor) -> torch.Tensor:
     """``FᵀF`` in float64: one shard's share of a Gram that is summed
-    over shards."""
+    over shards (the whole Gram on one shard)."""
     F64 = F.to(torch.float64)
     return F64.T @ F64
 
 
 def regularise(G: torch.Tensor, lam: float, reg_rows: int) -> torch.Tensor:
-    """``G + λ·reg_rows·I``, the ridge term of :func:`gram`."""
+    """``G + λ·reg_rows·I``, the ridge-regularised Gram.
+
+    ``reg_rows`` keeps the reference's quirk: the diagonal boost scales
+    with the row count of the factor matrix, not per-row rating
+    counts."""
     return G + lam * reg_rows * torch.eye(
         G.shape[0], dtype=torch.float64, device=G.device)
 
 
-def solve_factor_block(G: torch.Tensor, F: torch.Tensor,
-                       R_block: torch.Tensor) -> torch.Tensor:
-    """Solve ``G · uᵢ = Fᵀ·R_block[i, :]`` for every row i: one Cholesky
-    factor shared by all right-hand sides ``(k, rows)``. The right-hand
-    sides are a float32 product; the solve runs in float64 and the
-    result is ``F``'s dtype."""
-    rhs = F.T @ R_block.T                       # (k, rows), float32
-    return solve_rhs(torch.linalg.cholesky(G.to(torch.float64)), rhs)
-
-
 def solve_rhs(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Rows solving ``(L·Lᵀ) · uᵢ = rhs[:, i]``: ``L`` the float64
-    Cholesky factor of a Gram, ``rhs`` (k, rows) → (rows, k) in
+    Cholesky factor of a Gram, shared by every right-hand side, ``rhs``
+    (k, rows) the float32 product ``Fᵀ·R_blockᵀ`` → (rows, k) in
     ``rhs``'s dtype."""
     out = torch.cholesky_solve(rhs.to(torch.float64), L).T
     return out.to(rhs.dtype).contiguous()
 
 
-def rmse(R: torch.Tensor, U: torch.Tensor, V: torch.Tensor
-         ) -> torch.Tensor:
-    """√(‖R − UVᵀ‖² / (m·n))."""
+def sq_err(R: torch.Tensor, U: torch.Tensor, V: torch.Tensor
+           ) -> torch.Tensor:
+    """‖R − UVᵀ‖²: one block's share of the rmse's sum, which the fit
+    sums over blocks and divides by the true m·n."""
     diff = R - U @ V.T
-    return torch.sqrt(torch.sum(diff * diff) / (R.shape[0] * R.shape[1]))
+    return torch.sum(diff * diff)

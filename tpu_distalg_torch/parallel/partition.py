@@ -26,10 +26,14 @@ ring model, so its integers equal the JAX package's for the same tree,
 tables and mesh shape. On one card ``bytes_wire`` is that model's
 count, not bytes that crossed a link.
 
-Not ported: ``LeafOwnership``, ``RowOwnershipMap`` and ``row_bounds``,
-which serve the row store and the cluster, wait for ROADMAP A12; and
-the SSGD trainers still place their tensors by hand
-(``parallel/sharding.py``), which moves onto the engine with A9.
+Only ALS reads its tables here (``als_train`` in ``models/als.py``,
+``als_serve`` in ``serve/artifacts.py``). The SSGD family, k-means and
+PageRank still place their tensors by hand (``parallel/sharding.py``);
+their tables are kept as data, and ``tests/test_torch_partition.py``
+holds that hand placement to them shard for shard until ROADMAP A9
+moves those trainers onto the engine. Not ported: ``LeafOwnership``,
+``RowOwnershipMap`` and ``row_bounds``, which serve the row store and
+the cluster, wait for ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -289,7 +293,9 @@ def put(x, leaf_name: str, tbl, mesh: Mesh) -> torch.Tensor:
 
 
 def place(tree, tbl, mesh: Mesh):
-    """Place every leaf of ``tree`` per its table rule."""
+    """Place every leaf of ``tree`` per its table rule. Idempotent: a
+    tensor already on the mesh's device passes through untouched;
+    anything else takes one copy to it."""
     t = table(tbl)
 
     def one(name, x):
@@ -317,12 +323,6 @@ def gather(tree):
         lambda _, x: (x.detach().cpu().numpy().copy()
                       if isinstance(x, torch.Tensor) else np.array(x)),
         tree)
-
-
-def ensure(tree, tbl, mesh: Mesh):
-    """Idempotent placement: a tensor already on the mesh's device passes
-    through untouched; anything else takes one copy to it."""
-    return place(tree, tbl, mesh)
 
 
 # ------------------------------------------------------------- reshard

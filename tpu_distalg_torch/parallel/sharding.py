@@ -11,9 +11,11 @@ generator, without a host copy. For the model axis,
 slice count (zero columns are inert: their weights and gradients stay
 0) and :func:`shard_features` splits the columns into that many
 contiguous slices: the placement the JAX rule tables ``ssgd_tp`` and
-``ssgd_feature_sharded`` give X, P(data, model), and w, P(model)
-(``parallel/partition.py``). The rule-table engine itself is not
-ported: one card has no placement to choose.
+``ssgd_feature_sharded`` give X, (data, model), and w, (model,).
+These placements are made by hand; the port's rule tables
+(``parallel/partition.py``) describe the same layouts, and its tests
+hold the two to each other until ROADMAP A9 moves these trainers onto
+the tables.
 """
 
 from __future__ import annotations

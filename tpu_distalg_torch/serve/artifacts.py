@@ -141,9 +141,8 @@ def _true_rows(M) -> int:
 
 
 def als_model(U, V, mesh: Mesh, *, k_top: int = 10, merge: str = "sparse",
-              use_fused: bool | None = None, block_items: int | None = None,
-              n_items: int | None = None, name: str = "als",
-              source: str = "memory") -> ServedModel:
+              block_items: int | None = None, n_items: int | None = None,
+              name: str = "als", source: str = "memory") -> ServedModel:
     """Top-k recommendation from ALS factors ``U`` (users, r) and ``V``
     (items, r), numpy arrays or tensors: payload = one user id, reply =
     ``(scores (k_top,) f32, item_ids (k_top,) int32)``, value
@@ -162,11 +161,11 @@ def als_model(U, V, mesh: Mesh, *, k_top: int = 10, merge: str = "sparse",
         top k of the gathered rows: the baseline the sparse count is
         measured against.
 
-    One slice is one kernel call over the whole V. ``use_fused=None``
-    runs the kernel on a CUDA tensor and its plain version on a CPU
-    one; ``use_fused=False`` asks for the library path (a matmul and a
-    sort). ``n_items`` overrides the true catalogue size; by default a
-    zero-padded tail of V is detected and masked."""
+    One slice is one kernel call over the whole V. The kernel's wrapper
+    picks by device: the kernel on a CUDA tensor, its plain version on
+    a CPU one (``meta['fused']`` says which). ``n_items`` overrides the
+    true catalogue size; by default a zero-padded tail of V is detected
+    and masked."""
     if merge not in ("sparse", "dense"):
         raise ValueError(f"merge must be 'sparse' or 'dense', "
                          f"got {merge!r}")
@@ -190,7 +189,6 @@ def als_model(U, V, mesh: Mesh, *, k_top: int = 10, merge: str = "sparse",
             f"n_items={n_true} invalid for V with {V.shape[0]} rows")
     if k_top < 1:
         raise ValueError(f"k_top must be >= 1, got {k_top}")
-    fused = dev.type == "cuda" if use_fused is None else bool(use_fused)
     n_model = mesh.n_model
     # every slice holds an equal share; padded rows are zero and masked
     n_pad = -(-V.shape[0] // n_model) * n_model
@@ -212,10 +210,8 @@ def als_model(U, V, mesh: Mesh, *, k_top: int = 10, merge: str = "sparse",
         "V", tuple(V_dev.shape)), mesh)[0]
 
     def score(q, Vl, off, nv):
-        if fused:
-            return topk.fused_matmul_topk(q, Vl, off, nv, k=k_top,
-                                          block_items=block_items)
-        return topk.matmul_topk_reference(q, Vl, off, nv, k=k_top)
+        return topk.fused_matmul_topk(q, Vl, off, nv, k=k_top,
+                                      block_items=block_items)
 
     if n_model == 1:
         def topk_fn(q):
@@ -276,14 +272,13 @@ def als_model(U, V, mesh: Mesh, *, k_top: int = 10, merge: str = "sparse",
         name=name, kind="als", make_predict=make_predict, source=source,
         meta={"n_items": n_true, "n_users": n_users,
               "rank": int(U_dev.shape[1]), "k_top": k_top, "merge": merge,
-              "fused": fused, "n_model": n_model,
+              "fused": dev.type == "cuda", "n_model": n_model,
               "merge_wire_bytes_per_request": wire_per_req,
               "device": str(dev)})
 
 
 def load_artifact(path: str, mesh: Mesh, *, name: str | None = None,
                   k_top: int = 10, merge: str = "sparse",
-                  use_fused: bool | None = None,
                   block_items: int | None = None) -> ServedModel:
     """Open one of the port's checkpoint directories as a
     :class:`ServedModel` on the mesh's device, dispatching on the
@@ -302,8 +297,8 @@ def load_artifact(path: str, mesh: Mesh, *, name: str | None = None,
     if root == "als":
         U, V = payload["state"][:2]
         return als_model(U, V, mesh, k_top=k_top, merge=merge,
-                         use_fused=use_fused, block_items=block_items,
-                         name=name or "als", source=path)
+                         block_items=block_items, name=name or "als",
+                         source=path)
     raise ValueError(
         f"checkpoint under {path} holds workload {root!r} — no serving "
         f"adapter for it (servable: {', '.join(_LR_TAG_ROOTS)}, kmeans_*, "

@@ -29,7 +29,6 @@ class ServeConfig:
     queue_depth: int = 128       # bounded queue; full = shed
     k_top: int = 10              # ALS: recommendations per request
     merge: str = "sparse"        # ALS shard merge: sparse pairs | dense
-    use_fused: bool | None = None  # None: the kernel on a CUDA tensor
     block_items: int | None = None  # items per CUDA block (None: auto)
 
 
@@ -77,7 +76,7 @@ class Server:
         cfg = self.config
         model = serve_artifacts.load_artifact(
             path, self.mesh, name=name, k_top=cfg.k_top, merge=cfg.merge,
-            use_fused=cfg.use_fused, block_items=cfg.block_items)
+            block_items=cfg.block_items)
         return self.add_model(model, warm=warm)
 
     @staticmethod

@@ -30,7 +30,8 @@ def _solve_f32(F, R_block):
 
 
 def _solve_port(F, R_block):
-    return linalg.solve_factor_block(linalg.gram(F, 0.0, 0), F, R_block)
+    L = torch.linalg.cholesky(linalg.gram_part(F))
+    return linalg.solve_rhs(L, F.T @ R_block.T)
 
 
 def history(solve, R, V0, sweeps: int) -> list[float]:
@@ -45,7 +46,8 @@ def history(solve, R, V0, sweeps: int) -> list[float]:
         except torch.linalg.LinAlgError:
             out.append(float("nan"))
             break
-        out.append(float(linalg.rmse(R, U, V)) / rms)
+        err = torch.sqrt(linalg.sq_err(R, U, V) / R.numel())
+        out.append(float(err) / rms)
     return out
 
 
