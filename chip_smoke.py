@@ -95,17 +95,35 @@ and the script exits non-zero without printing a result:
      100M-row path as bench.py's ``_bench_ssgd_scale`` runs it (rows
      made on the card, 500 ``fused_gather`` steps through B1 on an X2
      past 2³¹ elements, held-out accuracy, host RSS, B1 at that shape);
- 13. the kernels line (B1's and B2's entries with their launches on the
-     local-update runs, B1's on the scale path, B9's on the sharded
-     path and at the slice's shape), then the last line
+ 13. the sync layer (``parallel/comms.py``, ``ssp.py``, ``membership.py``)
+     on 4 emulated data shards: SSGD ``fused_gather`` (B1) at phase 6's
+     geometry for 1500 steps under dense, bucketed, hier, bf16, int8,
+     int8@seq and topk:0.01 (steps/s, wall and device µs and device ops
+     a step, the sync's own device µs, ring-model wire bytes; B1 = 4 ×
+     1500; every run replayed bitwise, int8@seq = int8, the card's
+     reduce = the CPU port's bitwise, 5 steps against the CPU port);
+     ``fused`` (B5) under int8 and topk; bench.py's comparison task
+     (every schedule, the 3× and 4× wire cuts, the calibrated band);
+     its comm-bound geometry (d 2²⁰); its SSP straggler bench (ssp:8,
+     BSP and SSP arms under the seeded plan) and equal-loss steps;
+     ssp:8 on ``fused_gather`` at full width under the plan (replayed
+     bitwise) and under a leave plan (membership epochs); MA at
+     bench.py's MA geometry on 4 replicas under int8 and topk (B2 = 4 ×
+     300, B1 = 4 × 1500); the reference task under the schedules and
+     MA under ssp:4, held by the tail's best;
+ 14. the kernels line (B1's and B2's entries with their launches on the
+     local-update runs, B1's on the scale path, B1's, B2's and B5's on
+     phase 13's paths, B9's on the sharded path and at the slice's
+     shape), then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
 and read just after it (the serving path: phase 4's full-width fit and
 phase 5; each of phase 5b's served runs; each SSGD path, each PageRank
 sweep, each k-means fit, each tp mesh, each attention run, each
-local-update run, and each of phase 12's paths on its own), so the
-kernels line shows that each path went through its kernel, and that
+local-update run, each of phase 12's paths on its own, and each of
+phase 13's runs), so the kernels line shows that each path went through
+its kernel, and that
 the kernel-free paths (phase 5b's dense merge, phase 12's Monte Carlo,
 closure and ``fixed``) launched none.
 """
@@ -3884,6 +3902,762 @@ def run_rest(dev, sg: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 13
+
+#: the sync layer at bench.py's SSGD geometry on its canonical comm mesh
+#: (bench.py:90-104, COMM_CANONICAL_SHARDS = 4 emulated data shards):
+#: phase 6's packed rows, 3 of 32 blocks a shard a step
+SYNC_SHARDS = 4
+SYNC_SCHEDULES = ("dense", "bucketed", "hier", "bf16", "int8", "int8@seq",
+                  "topk:0.01")
+#: steps a profiled run (device time and ops a step), syncs a timed
+#: reduce, and the steps of the card-against-CPU check
+SYNC_PROFILE_STEPS, SYNC_REDUCE_CALLS, SYNC_CHECK_STEPS = 200, 100, 5
+#: card against the CPU port after SYNC_CHECK_STEPS steps, of the largest
+#: |w|: B1 and its plain version add in other orders (phase 11's
+#: standard); int8 and topk also round or select on those sums, and one
+#: flipped stochastic-rounding code moves an entry by n·scale·η/count
+SYNC_TOL, SYNC_TOL_ROUNDED = 1e-3, 1e-2
+#: bench.py's comparison task (bench.py:425-519): 4096/1024 rows of the
+#: normalised two-class task + bias, 1500 iterations on `bernoulli`; the
+#: band: every schedule's final accuracy within COMPARE_HALF_BAND of
+#: the JAX package's dense 0.765625 (its schedules span 0.764648 to
+#: 0.767578 on the CPU, and the port's equal them, tests/test_torch_comms.py)
+COMPARE_SCHEDULES = ("dense", "bucketed", "bf16", "int8", "topk", "hier")
+COMPARE_ITERS, COMPARE_CENTRE, COMPARE_HALF_BAND = 1500, 0.765625, 0.006
+#: bench.py's comm-bound geometry (bench.py:528-620)
+COMM_D, COMM_ROWS, COMM_STEPS, COMM_REPEATS = 1 << 20, 8, 30, 3
+#: bench.py's SSP straggler bench (bench.py:1226-1380) and a leave plan
+SSP_PLAN = "seed=7;shard:straggle@p0.25=straggle:800"
+SSP_LEAVE_PLAN = SSP_PLAN + ";shard:leave@p0.05=leave:2"
+SSP_S, SSP_STEPS, SSP_REPEATS, SSP_CONV_ITERS, SSP_CONV_BAND = (
+    8, 64, 3, 600, 0.01)
+#: the straggle kernel against its plain version: 4 ulp of a float32
+#: near 4096, a shard's sum (4096 lanes near 1)
+STRAGGLE_TOL = 4 * 4096 * 2.0 ** -23
+#: breast-cancer tails: `fused` at 4 shards over its last 200 steps, MA
+#: at 4 replicas over its last 50 rounds. Card and CPU part within tens
+#: of steps on these unnormalised features, and the tail means swing
+#: with the schedule (0.61 to 0.89 on the CPU port), so the band is held
+#: on each run's best and the means are reported; MA's card is held
+#: against the CPU port after SYNC_CHECK_STEPS rounds, before they part,
+#: and the round where their accuracies part is reported
+SYNC_FUSED_TAIL, SYNC_MA_TAIL = 200, 50
+
+
+def _device_profile(run, steps: int) -> dict:
+    """Device µs and device ops (kernels and copies) a step, by op, over
+    one profiled ``run()`` of ``steps`` steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    us, ops, by = 0.0, 0, {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        us += float(t)
+        ops += int(e.count)
+        by[e.key[:40]] = float(t) / steps
+    top = dict(sorted(by.items(), key=lambda kv: -kv[1])[:5])
+    return {"device_us": us / steps, "device_ops": ops / steps,
+            "top": top}
+
+
+def _timed(run):
+    """Warm ``run()``, then one run on the host's clock with every
+    launch counter set to 0 just before and read just after → (output
+    of the warm run, output of the timed run, seconds, launches)."""
+    import torch
+
+    warm = run()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t1 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    return warm, out, secs, _launches()
+
+
+def _want_launches(what: str, launches: dict, want: dict) -> None:
+    """Raise unless exactly the kernels of ``want`` ran, as often as it
+    says."""
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{what}: launched {got}, want {want}")
+
+
+def _sync_reduce_checks(dev, sync_card, sync_cpu, per, res) -> dict:
+    """One sync of the step's per-shard (Σ grad, count) through the
+    schedule: the card's result against the CPU port's (bitwise), and
+    its device time and ops over SYNC_REDUCE_CALLS calls."""
+    import torch
+
+    out_card = sync_card.reduce(per, res, 3)
+    out_cpu = sync_cpu.reduce([tuple(x.cpu() for x in p) for p in per],
+                              None if res is None else res.cpu(), 3)
+    for got, want in zip(list(out_card[0]) + [out_card[1]],
+                         list(out_cpu[0]) + [out_cpu[1]]):
+        if (got is None) != (want is None) or (
+                got is not None and not torch.equal(got.cpu(), want)):
+            raise AssertionError(
+                f"{sync_card.spec}: the card's reduce differs from the "
+                f"CPU port's")
+    prof = _device_profile(
+        lambda: [sync_card.reduce(per, res, t)
+                 for t in range(SYNC_REDUCE_CALLS)], SYNC_REDUCE_CALLS)
+    return {"sync_device_us": prof["device_us"],
+            "sync_device_ops": prof["device_ops"]}
+
+
+def _sync_ssgd(dev, sg: dict) -> dict:
+    """SSGD `fused_gather` (B1) at full width on 4 emulated shards under
+    every schedule, 1500 steps each; `fused` (B5) under int8 and topk."""
+    import dataclasses
+
+    import torch
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.ops import logistic, ssgd_kernels
+    from tpu_distalg_torch.parallel import comms, get_mesh, partition
+    from tpu_distalg_torch.utils import prng
+
+    X2, meta = sg["X2"], sg["meta"]
+    D, d = meta["d_total"], meta["y_col"]
+    mesh = get_mesh(data=SYNC_SHARDS, device=dev)
+    mesh_cpu = get_mesh(data=SYNC_SHARDS, device="cpu")
+    te = (torch.zeros((1, D), device=dev), torch.zeros((1,), device=dev))
+    w0 = torch.zeros((D,), dtype=torch.float32, device=dev)
+    w0[:d] = logistic.init_weights(prng.root_key(7, dev), d)
+    base = ssgd.SSGDConfig(
+        n_iterations=SSGD_STEPS, eval_test=False, x_dtype="bfloat16",
+        sampler="fused_gather", gather_block_rows=SSGD_GBR, shuffle_seed=0,
+        init_seed=7)
+    n_s = ssgd.fused_gather_geometry(base, meta, SYNC_SHARDS)[1]
+    col_keep = (torch.arange(D, device=dev) < d).to(torch.float32)
+    ids0 = ssgd._block_draws(mesh, base, meta)(
+        torch.zeros((1,), dtype=torch.int64, device=dev))[0]
+    per = [(g * col_keep, c) for g, c in (
+        ssgd_kernels.fused_grad_sum_gathered(
+            X2, w0, ids0[s], pack=meta["pack"], d_total=D,
+            y_col=meta["y_col"], v_col=meta["v_col"],
+            gather_block_rows=SSGD_GBR) for s in range(SYNC_SHARDS))]
+    X2_cpu = X2.cpu()
+    out, finals = {}, {}
+    for sched in SYNC_SCHEDULES:
+        cfg = dataclasses.replace(base, comm=sched)
+        sync = comms.make_sync(sched, mesh, (comms.leaf((D,)),
+                                             comms.leaf(())))
+        sync_cpu = comms.make_sync(sched, mesh_cpu, (comms.leaf((D,)),
+                                                     comms.leaf(())))
+        res0 = (partition.place({"res": sync.init_state()}, "ssgd",
+                                mesh)["res"] if sched != "dense" else None)
+        tail = (res0,) if res0 is not None else ()
+
+        def make(c, m=mesh):
+            return ssgd.make_train_fn_fused(m, c, meta)
+
+        fn = make(cfg)
+        warm, res, secs, launches = _timed(
+            lambda: fn(X2, None, None, *te, w0, *tail))
+        _want_launches(f"fused_gather {sched}", launches,
+                       {"fused_grad_sum_gathered": SYNC_SHARDS * SSGD_STEPS})
+        if not torch.equal(warm[0], res[0]):
+            raise AssertionError(f"fused_gather {sched}: two runs differ")
+        w = res[0]
+        if not bool(torch.isfinite(w).all()):
+            raise AssertionError(f"fused_gather {sched}: non-finite w")
+        finals[sched] = w
+        fn_p = make(dataclasses.replace(cfg, n_iterations=SYNC_PROFILE_STEPS))
+        prof = _device_profile(lambda: fn_p(X2, None, None, *te, w0, *tail),
+                               SYNC_PROFILE_STEPS)
+        res_mid = res[2] if len(res) == 3 else None
+        rec = {"steps_per_s": SSGD_STEPS / secs,
+               "wall_us_per_step": secs * 1e6 / SSGD_STEPS,
+               "device_us_per_step": prof["device_us"],
+               "device_ops_per_step": prof["device_ops"],
+               "device_idle_share": 1.0 - prof["device_us"] * SSGD_STEPS
+               / (secs * 1e6),
+               "bytes_wire_per_sync": sync.stats()["bytes_wire"],
+               "rounds_per_sync": sync.stats()["rounds"],
+               "launches": launches["fused_grad_sum_gathered"],
+               **_sync_reduce_checks(dev, sync, sync_cpu, per,
+                                     res_mid if res_mid is not None
+                                     else res0)}
+        c5 = dataclasses.replace(cfg, n_iterations=SYNC_CHECK_STEPS)
+        w_c = make(c5)(X2, None, None, *te, w0, *tail)[0]
+        w_h = make(c5, mesh_cpu)(
+            X2_cpu, None, None, *(t.cpu() for t in te), w0.cpu(),
+            *(t.cpu() for t in tail))[0]
+        err = float((w_c.cpu() - w_h).abs().max())
+        tol = (SYNC_TOL_ROUNDED if sched.startswith(("int8", "topk"))
+               else SYNC_TOL) * float(w_h.abs().max())
+        if err > tol:
+            raise AssertionError(f"fused_gather {sched}: card vs CPU port "
+                                 f"after {SYNC_CHECK_STEPS} steps: {err}")
+        rec["card_vs_cpu_5_steps"] = err
+        out[sched] = rec
+        print(f"[sync] fused_gather {sched} on {SYNC_SHARDS} shards: "
+              f"{rec['steps_per_s']!r} steps/s, wall "
+              f"{rec['wall_us_per_step']!r} µs/step, device "
+              f"{rec['device_us_per_step']!r} µs/step in "
+              f"{rec['device_ops_per_step']!r} ops (top {prof['top']}), "
+              f"idle {rec['device_idle_share']!r}; the sync alone "
+              f"{rec['sync_device_us']!r} device µs in "
+              f"{rec['sync_device_ops']!r} ops, = CPU port bitwise; "
+              f"{rec['bytes_wire_per_sync']} wire bytes/sync (ring "
+              f"model), {rec['rounds_per_sync']} rounds; B1 "
+              f"{rec['launches']}; card vs CPU after {SYNC_CHECK_STEPS} "
+              f"steps {err!r} (tol {tol!r}); max |w - w_dense| "
+              f"{float((w - finals['dense']).abs().max())!r}")
+    if not torch.equal(finals["int8"], finals["int8@seq"]):
+        raise AssertionError("int8@seq differs from int8")
+    print("[sync] int8@seq = int8 bitwise; every schedule replays bitwise")
+    dense_ops = out["dense"]["device_ops_per_step"]
+    for sched, rec in out.items():
+        rec["ops_added_per_step"] = rec["device_ops_per_step"] - dense_ops
+    print(f"[sync] device ops a step each schedule adds over dense: "
+          f"{ {k: v['ops_added_per_step'] for k, v in out.items()} }")
+
+    fused = {}
+    for sched in ("dense", "int8", "topk:0.01"):
+        cfg = dataclasses.replace(base, sampler="fused", comm=sched,
+                                  fused_block_rows=SSGD_GBR)
+        fn = ssgd.make_train_fn_fused(mesh, cfg, meta)
+        sync = comms.make_sync(sched, mesh, (comms.leaf((D,)),
+                                             comms.leaf(())))
+        tail = ((partition.place({"res": sync.init_state()}, "ssgd",
+                                 mesh)["res"],) if sched != "dense" else ())
+        warm, res, secs, launches = _timed(
+            lambda: fn(X2, None, None, *te, w0, *tail))
+        _want_launches(f"fused {sched}", launches,
+                       {"fused_grad_sum_packed": SYNC_SHARDS * SSGD_STEPS})
+        if not torch.equal(warm[0], res[0]):
+            raise AssertionError(f"fused {sched}: two runs differ")
+        # the card against the CPU port (B5's plain version draws the
+        # same threefry mask), as fused_gather above
+        c5 = dataclasses.replace(cfg, n_iterations=SYNC_CHECK_STEPS)
+        w_c = ssgd.make_train_fn_fused(mesh, c5, meta)(
+            X2, None, None, *te, w0, *tail)[0]
+        w_h = ssgd.make_train_fn_fused(mesh_cpu, c5, meta)(
+            X2_cpu, None, None, *(t.cpu() for t in te), w0.cpu(),
+            *(t.cpu() for t in tail))[0]
+        err = float((w_c.cpu() - w_h).abs().max())
+        tol = (SYNC_TOL_ROUNDED if sched != "dense" else SYNC_TOL) * float(
+            w_h.abs().max())
+        if err > tol:
+            raise AssertionError(f"fused {sched}: card vs CPU port after "
+                                 f"{SYNC_CHECK_STEPS} steps: {err}")
+        fused[sched] = {"steps_per_s": SSGD_STEPS / secs,
+                        "launches": launches["fused_grad_sum_packed"],
+                        "card_vs_cpu_5_steps": err}
+        print(f"[sync] fused (B5) {sched} on {SYNC_SHARDS} shards: "
+              f"{SSGD_STEPS / secs!r} steps/s; B5 "
+              f"{fused[sched]['launches']}; replays bitwise; card vs CPU "
+              f"after {SYNC_CHECK_STEPS} steps {err!r} (tol {tol!r}); max "
+              f"|w - w_dense| "
+              f"{float((res[0] - finals['dense']).abs().max())!r} "
+              f"(fused_gather's dense run)")
+    del X2_cpu
+    return {"fused_gather": out, "fused": fused}
+
+
+def _tail(accs, n: int) -> tuple:
+    a = np.asarray(accs)[-n:]
+    return float(a.max()), float(a.mean())
+
+
+def _sync_breast_cancer(dev) -> dict:
+    """The reference task at 4 shards under the schedules: SSGD `fused`
+    (B5; JAX runs it only on a TPU: the card's run is held by the tail's
+    best, the CPU port's in tests/test_torch_comms_trainers.py) and MA on
+    `fused_train` (B2) and `fused_gather` (B1) at bench.py's settings
+    and MA `ssp:4` on `bernoulli`, on the card and the CPU port."""
+    import dataclasses
+    import warnings
+
+    from tpu_distalg_torch.models import ma, ssgd
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets
+
+    data = datasets.breast_cancer_split()
+    card, cpu = (get_mesh(data=SYNC_SHARDS, device=dev),
+                 get_mesh(data=SYNC_SHARDS, device="cpu"))
+    runs = []
+    for comm in ("dense", "int8", "topk:0.01"):
+        runs.append((f"ssgd fused {comm}", ssgd, ssgd.SSGDConfig(
+            sampler="fused", fused_pack=4, fused_block_rows=64, comm=comm),
+            SYNC_FUSED_TAIL, SSGD_BAND, False))
+    for comm in ("int8", "topk:0.01"):
+        for sampler in ("fused_train", "fused_gather"):
+            runs.append((f"ma {sampler} {comm}", ma, ma.MAConfig(
+                sampler=sampler, gather_block_rows=64, fused_pack=4,
+                shuffle_seed=0, comm=comm), SYNC_MA_TAIL,
+                LOCAL_BANDS["ma"], True))
+    runs.append(("ma bernoulli ssp:4", ma, ma.MAConfig(sync="ssp:4"),
+                 SYNC_MA_TAIL, LOCAL_BANDS["ma"], True))
+    out = {}
+    for label, mod, cfg, n, band, on_cpu in runs:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="fused_gather:")
+            _reset_launches()
+            rc = mod.train(*data, card, cfg)
+            launches = {k: v for k, v in _launches().items() if v}
+            if on_cpu:
+                rh = mod.train(*data, cpu, cfg)
+                c5 = dataclasses.replace(cfg, n_iterations=SYNC_CHECK_STEPS)
+                w_c = mod.train(*data, card, c5).w.cpu()
+                w_h = mod.train(*data, cpu, c5).w
+        cb, cm = _tail(rc.accs.cpu(), n)
+        hb, hm = _tail(rh.accs, n) if on_cpu else (band, None)
+        if not (cb >= band and hb >= band):
+            raise AssertionError(
+                f"{label}: breast cancer tail best card {cb} / CPU {hb} "
+                f"(want >= {band})")
+        out[label] = {"final_acc": rc.final_acc, "tail_best": cb,
+                      "tail_mean": cm, "cpu_tail_mean": hm,
+                      "launches": launches}
+        cpu_part = ""
+        if on_cpu:
+            # held before the trajectories part; the tails are read
+            # after they have (the round they part at is printed)
+            err = float((w_c - w_h).abs().max())
+            tol = (SYNC_TOL_ROUNDED if cfg.comm != "dense"
+                   else SYNC_TOL) * float(w_h.abs().max())
+            if not err <= tol:
+                raise AssertionError(
+                    f"{label}: breast cancer card vs CPU port after "
+                    f"{SYNC_CHECK_STEPS} rounds: {err} (tol {tol})")
+            differ = np.nonzero(np.asarray(rc.accs.cpu())
+                                != np.asarray(rh.accs))[0]
+            part = int(differ[0]) + 1 if differ.size else None
+            out[label].update(card_vs_cpu_5_rounds=err,
+                              accs_part_at_round=part)
+            cpu_part = (f"; CPU final {rh.final_acc!r}, last {n} best "
+                        f"{hb!r}, mean {hm!r}; card vs CPU after "
+                        f"{SYNC_CHECK_STEPS} rounds {err!r} (tol {tol!r}), "
+                        f"accuracies part at round {part}")
+        print(f"[sync] breast cancer, {label} on {SYNC_SHARDS} shards: "
+              f"final acc {rc.final_acc!r}, last {n} best {cb!r}, mean "
+              f"{cm!r} (band >= {band}){cpu_part}; launches {launches}")
+    return out
+
+
+def _sync_compare(dev) -> dict:
+    """bench.py's comparison (run_comm_comparison): every schedule on
+    the converging 4096/1024 task, 1500 `bernoulli` iterations."""
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import datasets
+
+    X, y = datasets.synthetic_two_class(4096 + 1024, 30, seed=0)
+    X = datasets.add_bias_column(X)
+    data = (X[:4096], y[:4096], X[4096:], y[4096:])
+    mesh = get_mesh(data=SYNC_SHARDS, device=dev)
+    out = {}
+    for sched in COMPARE_SCHEDULES:
+        cfg = ssgd.SSGDConfig(n_iterations=COMPARE_ITERS, comm=sched,
+                              eval_every=COMPARE_ITERS // 10)
+        t1 = time.perf_counter()
+        res = ssgd.train(*data, mesh, cfg)
+        acc = res.final_acc
+        secs = time.perf_counter() - t1
+        st = ssgd._comm_sync(mesh, cfg, X.shape[1]).stats()
+        out[sched] = {"bytes_wire_per_sync": st["bytes_wire"],
+                      "bytes_logical_per_sync": st["bytes_logical"],
+                      "rounds_per_sync": st["rounds"], "final_acc": acc,
+                      "seconds": secs}
+    base = out["dense"]
+    for sched, rec in out.items():
+        rec["wire_reduction_vs_dense"] = (base["bytes_wire_per_sync"]
+                                          / rec["bytes_wire_per_sync"])
+        rec["acc_delta_vs_dense"] = rec["final_acc"] - base["final_acc"]
+        if abs(rec["final_acc"] - COMPARE_CENTRE) > COMPARE_HALF_BAND:
+            raise AssertionError(
+                f"comparison {sched}: final acc {rec['final_acc']} outside "
+                f"{COMPARE_CENTRE} ± {COMPARE_HALF_BAND}")
+        print(f"[sync] comparison task, {sched}: "
+              f"{rec['bytes_wire_per_sync']} wire bytes/sync (ring model; "
+              f"{rec['wire_reduction_vs_dense']!r}x less than dense), final "
+              f"acc {rec['final_acc']!r} ({rec['acc_delta_vs_dense']!r} vs "
+              f"dense), {rec['seconds']!r} s for {COMPARE_ITERS} iterations")
+    if out["int8"]["wire_reduction_vs_dense"] < 3 or \
+            out["topk"]["wire_reduction_vs_dense"] < 4:
+        raise AssertionError("int8 must cut bytes_wire >= 3x and topk >= "
+                             "4x against dense (bench.py:445-449)")
+    return out
+
+
+def _best_rate(run, steps: int, repeats: int) -> tuple[float, float]:
+    """Best steps/s over ``repeats`` timed runs (after a warm one) and
+    the spread (worst/best − 1)."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(repeats):
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        rates.append(steps / (time.perf_counter() - t1))
+    return max(rates), max(rates) / min(rates) - 1.0
+
+
+def _sync_comm_bound(dev) -> dict:
+    """bench.py's comm-bound geometry (run_comm_step_speedup): d 2^20,
+    8 rows a shard, every row in the batch, 30 steps, best of 3."""
+    import torch
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import comms, get_mesh, parallelize
+
+    mesh = get_mesh(data=SYNC_SHARDS, device=dev)
+    rows = COMM_ROWS * SYNC_SHARDS
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((rows, COMM_D)).astype(np.float32)
+    y = (X @ rng.standard_normal(COMM_D).astype(np.float32) > 0).astype(
+        np.float32)
+    Xs, ys = parallelize(X, mesh), parallelize(y, mesh)
+    te = (torch.zeros((1, COMM_D), device=dev), torch.zeros((1,), device=dev))
+    w0 = torch.zeros((COMM_D,), device=dev)
+    out = {}
+    for sched in ("dense", "int8", "int8@seq", "topk:0.01"):
+        cfg = ssgd.SSGDConfig(n_iterations=COMM_STEPS, eval_test=False,
+                              comm=sched, mini_batch_fraction=1.0)
+        fn = ssgd.make_train_fn(mesh, cfg, Xs.n_padded, d=COMM_D)
+        tail = () if sched == "dense" else (torch.as_tensor(
+            comms.make_sync(sched, mesh, (comms.leaf((COMM_D,)),
+                                          comms.leaf(()))).init_state(),
+            device=dev),)
+        rate, spread = _best_rate(
+            lambda: fn(Xs.data, ys.data, Xs.mask, *te, w0, *tail),
+            COMM_STEPS, COMM_REPEATS)
+        out[sched] = {"steps_per_s": rate, "spread": spread}
+    for sched in ("int8", "int8@seq", "topk:0.01"):
+        out[sched]["ratio_vs_dense"] = (out[sched]["steps_per_s"]
+                                        / out["dense"]["steps_per_s"])
+    print(f"[sync] comm-bound geometry (d {COMM_D}, {COMM_ROWS} rows a "
+          f"shard, {COMM_STEPS} steps, best of {COMM_REPEATS}): "
+          f"{json.dumps(out)}; wire: emulated on one card (the shards' "
+          f"buffers share its memory: no transfer for a schedule to "
+          f"shrink, so the ratios time the schedules' own work)")
+    return out
+
+
+def _sync_ssp(dev, sg: dict) -> dict:
+    """bench.py's SSP straggler bench (run_ssp_straggler_speedup) on the
+    comparison task, its equal-loss steps, then `ssp:8` on
+    `fused_gather` at full width under the plan (replayed bitwise) and
+    under a leave plan (two or more membership epochs)."""
+    import dataclasses
+
+    import torch
+
+    from tpu_distalg_torch import faults
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.ops import logistic
+    from tpu_distalg_torch.parallel import get_mesh, parallelize, partition
+    from tpu_distalg_torch.parallel import ssp as pssp
+    from tpu_distalg_torch.utils import datasets, prng
+
+    mesh = get_mesh(data=SYNC_SHARDS, device=dev)
+    X, y = datasets.synthetic_two_class(4096 + 1024, 30, seed=0)
+    X = datasets.add_bias_column(X)
+    Xtr, ytr, Xte, yte = X[:4096], y[:4096], X[4096:], y[4096:]
+    d = X.shape[1]
+    Xs, ys = parallelize(Xtr, mesh), parallelize(ytr, mesh)
+    te = (torch.zeros((1, d), device=dev), torch.zeros((1,), device=dev))
+    w0 = torch.zeros((d,), device=dev)
+    plan = faults.FaultPlan.parse(SSP_PLAN)
+    n_win, padded = pssp.window_grid(SSP_STEPS, SSP_S)
+    extra = pssp.compile_straggle_schedule(padded, SYNC_SHARDS, plan=plan)
+    extra[SSP_STEPS:] = 0
+    cfg = ssgd.SSGDConfig(n_iterations=SSP_STEPS, eval_test=False)
+    bsp_fn = ssgd.make_bsp_straggler_fn(mesh, cfg, Xs.n_padded, extra)
+    bsp_rate, bsp_spread = _best_rate(
+        lambda: bsp_fn(Xs.data, ys.data, Xs.mask, *te, w0), SSP_STEPS,
+        SSP_REPEATS)
+    cfg_ssp = dataclasses.replace(cfg, sync=f"ssp:{SSP_S}")
+    ssp_fn = ssgd.make_ssp_train_fn(
+        mesh, cfg_ssp, Xs.n_padded, d, active=(True,) * SYNC_SHARDS,
+        n_win_seg=n_win, total_ticks=SSP_STEPS)
+    st = partition.place(dict(zip(
+        ("w", "clocks", "pend", "basegen", "wl", "accd", "res"),
+        ssgd.ssp_init_state(mesh, cfg_ssp, d, w=w0))), "ssgd", mesh)
+    seg = extra.reshape(n_win, SSP_S, SYNC_SHARDS)
+    ssp_rate, ssp_spread = _best_rate(
+        lambda: ssp_fn(Xs.data, ys.data, Xs.mask, *te, st["w"], st["clocks"],
+                       st["pend"], st["basegen"], st["wl"], st["accd"],
+                       st["res"], seg, 0), SSP_STEPS, SSP_REPEATS)
+    straggle_rec = _check_straggle_kernel(dev, extra)
+    cell_ms = straggle_rec["ms"]
+    speed = {"ssgd_ssp_straggler_speedup": ssp_rate / bsp_rate,
+             "ssp_steps_per_s": ssp_rate, "bsp_steps_per_s": bsp_rate,
+             "ssp_spread": ssp_spread, "bsp_spread": bsp_spread,
+             "straggled_cells": int(np.count_nonzero(extra)),
+             "straggle_cell_device_us": cell_ms * 1e3}
+    print(f"[sync] SSP straggler bench (ssp:{SSP_S}, {SYNC_SHARDS} shards, "
+          f"plan {SSP_PLAN}, {SSP_STEPS} steps, best of {SSP_REPEATS}): "
+          f"{json.dumps(speed)}; on one card the shards run one after "
+          f"another, so both arms pay every delay")
+
+    conv = {}
+    for name, c in (("bsp", ssgd.SSGDConfig(n_iterations=SSP_CONV_ITERS)),
+                    ("ssp", ssgd.SSGDConfig(n_iterations=SSP_CONV_ITERS,
+                                            sync=f"ssp:{SSP_S}"))):
+        conv[name] = np.asarray(ssgd.train(Xtr, ytr, Xte, yte, mesh,
+                                           c).accs.cpu())
+    target = float(conv["bsp"][-1]) - SSP_CONV_BAND
+
+    def first_reach(accs):
+        idx = np.nonzero(accs >= target)[0]
+        return int(idx[0]) + 1 if idx.size else None
+
+    bsp_steps = first_reach(conv["bsp"]) or SSP_CONV_ITERS
+    ssp_steps = first_reach(conv["ssp"])
+    if ssp_steps is None:
+        raise AssertionError(
+            f"ssp never reached the BSP band (target {target}, ssp final "
+            f"{float(conv['ssp'][-1])}) in {SSP_CONV_ITERS} steps")
+    speed["ssgd_ssp_equal_loss_steps"] = ssp_steps / bsp_steps
+    print(f"[sync] SSP equal-loss steps at {SSP_CONV_ITERS} iterations, band "
+          f"{SSP_CONV_BAND}: BSP {bsp_steps}, SSP {ssp_steps} = "
+          f"{ssp_steps / bsp_steps!r}x (target {target!r})")
+
+    X2, meta = sg["X2"], sg["meta"]
+    D, dd = meta["d_total"], meta["y_col"]
+    w0f = torch.zeros((D,), dtype=torch.float32, device=dev)
+    w0f[:dd] = logistic.init_weights(prng.root_key(7, dev), dd)
+    te_f = (torch.zeros((1, D), device=dev), torch.zeros((1,), device=dev))
+    cfg_f = ssgd.SSGDConfig(
+        n_iterations=SSGD_STEPS, eval_test=False, x_dtype="bfloat16",
+        sampler="fused_gather", gather_block_rows=SSGD_GBR, shuffle_seed=0,
+        sync=f"ssp:{SSP_S}")
+    runs = {}
+    for label, spec in (("plan", SSP_PLAN), ("replay", SSP_PLAN),
+                        ("leave", SSP_LEAVE_PLAN)):
+        faults.configure(spec)
+        try:
+            _reset_launches()
+            pssp.straggle_work.launches = 0
+            t1 = time.perf_counter()
+            res, epochs = ssgd.train_prepared_ssp(
+                mesh, cfg_f, (X2, None, None), *te_f, w0f,
+                n_padded=meta["n_padded"], meta=meta)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            launches = {k: v for k, v in _launches().items() if v}
+        finally:
+            faults.configure(False)
+        runs[label] = (res.w, len(epochs), secs, launches,
+                       pssp.straggle_work.launches)
+    ticks = pssp.window_grid(SSGD_STEPS, SSP_S)[1]
+    for label, (w, n_ep, secs, launches, n_straggle) in runs.items():
+        _want_launches(f"ssp fused_gather {label}", launches,
+                       {"fused_grad_sum_gathered": SYNC_SHARDS * ticks})
+        if not bool(torch.isfinite(w).all()):
+            raise AssertionError(f"ssp fused_gather {label}: non-finite w")
+        print(f"[sync] ssp:{SSP_S} fused_gather at full width, {label}: "
+              f"{SSGD_STEPS} ticks in {secs!r} s = {SSGD_STEPS / secs!r} "
+              f"ticks/s; {n_ep} membership epoch(s); launches {launches}, "
+              f"straggle work {n_straggle}")
+    # `fused` (B5) under the plan, once a shard a tick
+    faults.configure(SSP_PLAN)
+    try:
+        _reset_launches()
+        t1 = time.perf_counter()
+        res_f, _ = ssgd.train_prepared_ssp(
+            mesh, dataclasses.replace(cfg_f, sampler="fused",
+                                      fused_block_rows=SSGD_GBR),
+            (X2, None, None), *te_f, w0f, n_padded=meta["n_padded"],
+            meta=meta)
+        torch.cuda.synchronize()
+        secs_f = time.perf_counter() - t1
+        _want_launches("ssp fused", _launches(),
+                       {"fused_grad_sum_packed": SYNC_SHARDS * ticks})
+    finally:
+        faults.configure(False)
+    if not bool(torch.isfinite(res_f.w).all()):
+        raise AssertionError("ssp fused: non-finite w")
+    speed["fused_ssp_ticks_per_s"] = SSGD_STEPS / secs_f
+    speed["fused_ssp_launches"] = SYNC_SHARDS * ticks
+    print(f"[sync] ssp:{SSP_S} fused (B5) at full width under the plan: "
+          f"{SSGD_STEPS / secs_f!r} ticks/s; B5 {SYNC_SHARDS * ticks}")
+    if not torch.equal(runs["plan"][0], runs["replay"][0]):
+        raise AssertionError("ssp fused_gather: the replay differs")
+    if runs["leave"][1] < 2:
+        raise AssertionError("the leave plan gave fewer than 2 epochs")
+    print("[sync] ssp fused_gather: the replay under the plan equals the "
+          "first run bitwise")
+    speed["fused_gather_ssp_ticks_per_s"] = SSGD_STEPS / runs["plan"][2]
+    speed["fused_gather_ssp_launches"] = runs["plan"][3].get(
+        "fused_grad_sum_gathered", 0)
+    speed["leave_epochs"] = runs["leave"][1]
+    speed["straggle_launches"] = runs["plan"][4]
+    speed["straggle_rec"] = straggle_rec
+    return speed
+
+
+def _check_straggle_kernel(dev, extra) -> dict:
+    """The straggle kernel (csrc/ssp.cu) against its plain version on
+    the bench's own cells: one shard at 800 units, the schedule's row
+    with the most shards straggling, and every shard at 800. Each pass
+    adds about 2 ulp of 4096 to a straggling shard's sum, so
+    STRAGGLE_TOL fails a loop short by 3 of its passes, a skipped loop
+    and another shard's units. Times the one-shard cell, as the bench
+    pays it."""
+    import torch
+
+    from tpu_distalg_torch.parallel import ssp as pssp
+
+    busiest = extra[int(np.argmax(np.count_nonzero(extra, axis=1)))]
+    cells = torch.tensor(np.stack([
+        [800] + [0] * (SYNC_SHARDS - 1), busiest,
+        [800] * SYNC_SHARDS]), dtype=torch.int32, device=dev)
+    got = torch.stack([pssp.straggle_work(c) for c in cells])
+    want = torch.stack([pssp.straggle_work_reference(c, 1.0)
+                        for c in cells])
+    err = float((got - want).abs().max())
+    if not err <= STRAGGLE_TOL:
+        raise AssertionError(
+            f"straggle kernel vs its plain version on cells "
+            f"{cells.tolist()}: {err} (tol {STRAGGLE_TOL})")
+    cell = cells[0]
+    units = int(cell.sum())
+    bound, by = _bound_ms(8 * SYNC_SHARDS,
+                          2 * pssp.STRAGGLE_LANES * units)
+    rec = {"max_abs_err": err, "tol": STRAGGLE_TOL,
+           "cells": cells.tolist(),
+           "ms": _time_ms(lambda: pssp.straggle_work(cell), n=50),
+           "plain_ms": _time_ms(
+               lambda: pssp.straggle_work_reference(cell, 1.0), n=3,
+               warm=1),
+           "bound_ms": bound, "bound_by": by, "library_ms": None}
+    print(f"[sync] straggle kernel = its plain version on the bench's "
+          f"cells {cells.tolist()}: max abs err {err!r} (tol "
+          f"{STRAGGLE_TOL}); {units} units: {rec['ms']!r} ms, plain "
+          f"{rec['plain_ms']!r} ms, bound {bound!r} ms ({by})")
+    return rec
+
+
+def _sync_local(dev, sg: dict) -> dict:
+    """MA at bench.py's MA geometry (300 rounds × 5 local steps) on 4
+    emulated replicas, `fused_train` (B2) and `fused_gather` (B1),
+    under int8 and topk."""
+    import dataclasses
+
+    import torch
+
+    from tpu_distalg_torch.models import local_sgd, ma
+    from tpu_distalg_torch.parallel import comms, get_mesh, partition
+
+    X2, meta = sg["X2"], sg["meta"]
+    D, d = meta["d_total"], meta["y_col"]
+    R = SYNC_SHARDS
+    mesh = get_mesh(data=R, device=dev)
+    mesh_cpu = get_mesh(data=R, device="cpu")
+    X2_cpu = X2.cpu()
+    te = (torch.zeros((1, D), device=dev), torch.zeros((1,), device=dev))
+    out = {}
+    for sched in ("int8", "topk:0.01"):
+        for sampler in ("fused_train", "fused_gather"):
+            cfg = dataclasses.replace(
+                ma.MAConfig(), n_iterations=LOCAL_ROUNDS,
+                n_local_iterations=LOCAL_L, eval_test=False, sampler=sampler,
+                x_dtype="bfloat16", fused_pack=16,
+                gather_block_rows=SSGD_GBR, shuffle_seed=0, comm=sched)
+            fn = local_sgd.make_train_fn_fused(mesh, cfg, meta)
+            state = local_sgd.init_state(cfg, d, D, R, dev)
+            res0 = partition.place({"res": comms.make_sync(
+                sched, mesh, (comms.leaf((D,)),)).init_state()},
+                "local_sgd", mesh)["res"]
+            warm, res, secs, launches = _timed(
+                lambda: fn(X2, *te, *state, res0))
+            kernel, count = (
+                ("fused_train_gathered", R * LOCAL_ROUNDS)
+                if sampler == "fused_train"
+                else ("fused_grad_sum_gathered", R * LOCAL_ROUNDS * LOCAL_L))
+            _want_launches(f"ma {sampler} {sched}", launches,
+                           {kernel: count})
+            if not torch.equal(warm[0], res[0]):
+                raise AssertionError(f"ma {sampler} {sched}: runs differ")
+            # the card against the CPU port after SYNC_CHECK_STEPS
+            # rounds: the kernel, then the schedule's combine
+            c5 = dataclasses.replace(cfg, n_iterations=SYNC_CHECK_STEPS)
+            w_c = local_sgd.make_train_fn_fused(mesh, c5, meta)(
+                X2, *te, *state, res0)[0]
+            w_h = local_sgd.make_train_fn_fused(mesh_cpu, c5, meta)(
+                X2_cpu, *(t.cpu() for t in te),
+                *local_sgd.init_state(cfg, d, D, R, "cpu"), res0.cpu())[0]
+            err = float((w_c.cpu() - w_h).abs().max())
+            tol = SYNC_TOL_ROUNDED * float(w_h.abs().max())
+            if not err <= tol:
+                raise AssertionError(
+                    f"ma {sampler} {sched}: card vs CPU port after "
+                    f"{SYNC_CHECK_STEPS} rounds: {err} (tol {tol})")
+            rate = LOCAL_ROUNDS * LOCAL_L / secs
+            out[f"{sampler} {sched}"] = {"local_steps_per_s": rate,
+                                         "launches": launches[kernel],
+                                         "card_vs_cpu_5_rounds": err}
+            print(f"[sync] MA {sampler} {sched}, {R} replicas: "
+                  f"{LOCAL_ROUNDS} rounds x {LOCAL_L} local steps in "
+                  f"{secs!r} s = {rate!r} local steps/s; {kernel} "
+                  f"{launches[kernel]}; replays bitwise; card vs CPU "
+                  f"after {SYNC_CHECK_STEPS} rounds {err!r} (tol {tol!r})")
+    del X2_cpu
+    return out
+
+
+def _sync_launches(sync: dict, key: str) -> dict:
+    """Phase 13's launches of B1, B2 or B5, by path."""
+    if key == "B5":
+        return {**{f"ssgd fused {k}": v["launches"]
+                   for k, v in sync["ssgd"]["fused"].items()},
+                "ssgd fused ssp:8": sync["ssp"]["fused_ssp_launches"],
+                **{f"breast cancer {k}": v["launches"][
+                    "fused_grad_sum_packed"]
+                   for k, v in sync["breast_cancer"].items()
+                   if "fused_grad_sum_packed" in v["launches"]}}
+    kernel = ("fused_grad_sum_gathered" if key == "B1"
+              else "fused_train_gathered")
+    out = {}
+    if key == "B1":
+        out.update({f"ssgd fused_gather {k}": v["launches"]
+                    for k, v in sync["ssgd"]["fused_gather"].items()})
+        out["ssgd fused_gather ssp:8"] = sync["ssp"][
+            "fused_gather_ssp_launches"]
+    out.update({f"ma {k}": v["launches"] for k, v in sync["local"].items()
+                if k.startswith("fused_gather" if key == "B1"
+                                else "fused_train")})
+    out.update({f"breast cancer {k}": v["launches"][kernel]
+                for k, v in sync["breast_cancer"].items()
+                if kernel in v["launches"]})
+    return out
+
+
+def run_sync(dev, sg: dict) -> dict:
+    """Phase 13: the sync layer (``parallel/comms.py``, ``ssp.py``,
+    ``membership.py``) on the SGD family, each path driven with the
+    launch counters set to 0 just before it and read just after."""
+    out = {"ssgd": _sync_ssgd(dev, sg)}
+    out["compare"] = _sync_compare(dev)
+    out["comm_bound"] = _sync_comm_bound(dev)
+    out["ssp"] = _sync_ssp(dev, sg)
+    out["local"] = _sync_local(dev, sg)
+    out["breast_cancer"] = _sync_breast_cancer(dev)
+    print(f"[sync] summary: {json.dumps({k: v for k, v in out.items() if k in ('compare', 'comm_bound', 'ssp')})}")
+    return out
+
+
 def _phase(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[time] {name}: {now - t0!r} s")
@@ -3958,8 +4732,11 @@ def main() -> int:
     t0 = _phase("attention", t0)
 
     local = run_local_sgd(dev, sg)
-    del sg["X2"]
     t0 = _phase("local sgd", t0)
+
+    sync = run_sync(dev, sg)
+    del sg["X2"]
+    t0 = _phase("sync schedules + ssp", t0)
 
     rest = run_rest(dev, sg)
     del sg["X"], sg["y"]
@@ -3992,6 +4769,8 @@ def main() -> int:
                if k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **({"local_sgd_launches": local_launches}
                if local_launches else {}),
+            **({"sync_launches": _sync_launches(sync, key)}
+               if key in ("B1", "B2", "B5") else {}),
             **({"scale_launches": rest["scale"]["launches"],
                 **rest["scale"]["rec"]} if key == "B1" else {})})
     for key, name, line in (("B3", "fused_forward_gathered", 590),
@@ -4028,6 +4807,15 @@ def main() -> int:
             **att["recs"][key],
             "sass": {k: v for k, v in att["sass"].items()
                      if k.startswith(key)}})
+    kernels.append({
+        "name": "ssp.straggle_work", "route": "cuda",
+        "source": "tpu_distalg_torch/csrc/ssp.cu",
+        "replaces": "tpu_distalg/parallel/ssp.py:166",
+        "note": "stands in for a plain-JAX lax.fori_loop, not a Pallas "
+                "kernel; launches are the ssp:8 fused_gather run's under "
+                "the straggle plan",
+        "launches": sync["ssp"]["straggle_launches"],
+        **sync["ssp"]["straggle_rec"]})
     print(f"[time] total: {time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -85,9 +85,14 @@ def test_lr_segmented_equals_straight(data, tmp_path):
     assert checkpoint.latest_step(str(tmp_path)) == 90
 
 
-def test_lr_comm_waits_for_a9(data):
-    with pytest.raises(NotImplementedError, match="A9"):
-        _port(data, 2, lr.LRConfig(n_iterations=3, comm="int8"))
+def test_lr_comm_trains_and_refuses_unknown(data):
+    """LR trains under a schedule, int8 here (held against
+    the JAX package in ``tests/test_torch_comms_trainers.py``), and an
+    unknown schedule raises the JAX package's ValueError."""
+    res = _port(data, 2, lr.LRConfig(n_iterations=3, comm="int8"))
+    assert res.accs.shape == (3,) and bool(np.isfinite(res.w.numpy()).all())
+    with pytest.raises(ValueError, match="unknown comm schedule"):
+        _port(data, 2, lr.LRConfig(n_iterations=3, comm="zstd"))
 
 
 def test_cli_lr_lines(data):

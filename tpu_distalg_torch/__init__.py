@@ -20,5 +20,8 @@ dst-sorted CSR (``ops/graph.py``) with two sweep kernels
 (``ops/pagerank_kernels.py``, ``csrc/pagerank.cu``); k-means
 (``models/kmeans.py``) through torch ops (``ops/kmeans.py``) or the
 one-pass cluster-statistics kernel (``ops/kmeans_kernels.py``,
-``csrc/kmeans.cu``), its artifacts and SSGD's served beside ALS's.
+``csrc/kmeans.cu``), its artifacts and SSGD's served beside ALS's; the
+SGD family's sync schedules and stale-synchronous training
+(``parallel/comms.py``, ``parallel/ssp.py``, ``parallel/membership.py``,
+``faults/registry.py``).
 """

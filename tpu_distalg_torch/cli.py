@@ -22,6 +22,10 @@ Monte-Carlo π, and serving ALS, k-means and LR artifacts.
         [--scale-points 10000000 --dim 16 --k 8 --n-iterations 50]
     python -m tpu_distalg_torch.cli closure [--n-vertices 4096 [--sparse]]
     python -m tpu_distalg_torch.cli mc [--n-slices 4 --n 400000]
+    python -m tpu_distalg_torch.cli ssgd --n-slices 4 --sampler fused_gather \
+        --comm int8 --quiet              # the gradient sync's schedules
+    python -m tpu_distalg_torch.cli ssgd --n-slices 4 --sync ssp:4 \
+        --fault-plan "seed=7;shard:straggle@p0.25=straggle:8"
 
 The lines printed match the JAX package's ``tda lr``, ``tda ssgd``,
 ``tda ma``, ``tda bmuf``, ``tda easgd``, ``tda als``, ``tda serve``,
@@ -71,8 +75,7 @@ def _parser() -> argparse.ArgumentParser:
         o.add_argument("--shuffle-seed", type=int, default=None)
         o.add_argument("--mega-steps", type=int, default=None,
                        help="ssgd only: refused here, as the JAX CLI does")
-        o.add_argument("--sync", default="bsp", metavar="MODE",
-                       help="bsp (ssp waits for ROADMAP A9)")
+        _add_sync(o)
         o.add_argument("--n-local-iterations", type=int,
                        default=1 if name == "easgd" else 5)
         o.add_argument("--resample-per-local-step", action="store_true")
@@ -108,6 +111,9 @@ def _parser() -> argparse.ArgumentParser:
     o.add_argument("--checkpoint-dir", type=str, default=None,
                    help="segmented checkpoint/resume directory")
     o.add_argument("--checkpoint-every", type=int, default=500)
+    _add_comm(o)
+    _add_sync(o)
+    _add_fault_plan(o)
 
     a = sub.add_parser("als", help="ALS matrix factorisation")
     _add_mesh_flags(a)
@@ -127,6 +133,7 @@ def _parser() -> argparse.ArgumentParser:
                         "checkpoint is the serving artifact")
     a.add_argument("--checkpoint-every", type=int, default=5)
     _add_max_restarts(a)
+    _add_fault_plan(a)
 
     s = sub.add_parser("serve", help="serve ALS, k-means and LR artifacts "
                                      "under load")
@@ -179,6 +186,7 @@ def _parser() -> argparse.ArgumentParser:
     c.add_argument("--max-restarts", type=int, default=0,
                    help="restarts after a failed segment: waits for the "
                         "faults slice (ROADMAP A12); only 0 is accepted")
+    _add_fault_plan(c)
 
     g = sub.add_parser("pagerank", help="PageRank power iteration")
     g.add_argument("--n-slices", type=int, default=0,
@@ -211,6 +219,7 @@ def _parser() -> argparse.ArgumentParser:
     g.add_argument("--max-restarts", type=int, default=0,
                    help="restarts after a failed segment: waits for the "
                         "faults slice (ROADMAP A12); only 0 is accepted")
+    _add_fault_plan(g)
 
     t = sub.add_parser("closure", help="transitive closure")
     _add_mesh_flags(t)
@@ -227,11 +236,13 @@ def _parser() -> argparse.ArgumentParser:
                    help="segmented checkpoint/resume directory")
     t.add_argument("--checkpoint-every", type=int, default=8)
     _add_max_restarts(t)
+    _add_fault_plan(t)
 
     m = sub.add_parser("mc", help="Monte-Carlo pi")
     _add_mesh_flags(m)
     m.add_argument("--n", type=int, default=400_000)
     _add_max_restarts(m)
+    _add_fault_plan(m)
     return p
 
 
@@ -242,6 +253,85 @@ def _add_mesh_flags(p) -> None:
     p.add_argument("--mesh-shape", type=str, default=None, metavar="DxM",
                    help="emulated mesh data x model (e.g. 2x2) — replaces "
                         "--n-slices")
+
+
+def _add_comm(p) -> None:
+    """``--comm``, with the JAX CLI's default and help
+    (``tpu_distalg/cli.py:88-105``)."""
+    p.add_argument(
+        "--comm", default="dense", metavar="SCHED",
+        help="cross-shard sync schedule: dense (bitwise the "
+             "classic psum — default), bucketed[:elems] "
+             "(ppermute-chunk ring), hier[:groups] "
+             "(reduce-scatter intra-group / ring across groups / "
+             "all-gather), bf16, int8[:seed[:bucket]] (native "
+             "int8 wire: seeded stochastic rounding, int8 in both "
+             "ring phases), topk[:frac] (sparse allreduce + error "
+             "feedback). bucketed/int8 overlap their bucket "
+             "exchange with compute by default; append @seq for "
+             "the bitwise-identical sequential exchange (a no-op "
+             "for the single-bucket topk/hier). Emits "
+             "comm.bytes_wire/bytes_logical/rounds telemetry "
+             "counters per run")
+
+
+def _add_sync(p) -> None:
+    """``--sync``, with the JAX CLI's default and help
+    (``tpu_distalg/cli.py:106-121``)."""
+    p.add_argument(
+        "--sync", default="bsp", metavar="MODE",
+        help="synchronization discipline: bsp (lock-step, one "
+             "collective per step/round — bitwise the classic "
+             "trainer; default) or ssp[:s[:decay]] (stale-"
+             "synchronous: shards run up to s steps ahead of the "
+             "slowest, the merge runs once per s-tick window with "
+             "staleness-weighted averaging / delayed gradients, "
+             "and a clock vector gates bound violations — a "
+             "straggler no longer serializes every step). Seeded "
+             "shard:straggle / shard:leave --fault-plan rules "
+             "compile into deterministic straggler and elastic-"
+             "membership schedules; the same plan replays bitwise. "
+             "A checkpointed ssp run resumed with a different "
+             "--n-slices renegotiates the ring (membership epoch) "
+             "instead of rejecting")
+
+
+def _add_fault_plan(p) -> None:
+    """``--fault-plan`` (``tpu_distalg/cli.py:179-188``), through
+    :func:`tpu_distalg_torch.faults.configure`."""
+    p.add_argument(
+        "--fault-plan", type=str, default=None, metavar="SPEC",
+        help="deterministic fault-injection plan: inline "
+             "'seed=N;point@hit=kind[:arg];...' or a JSON plan file "
+             "($TDA_FAULT_PLAN is the default). The port injects at "
+             "shard:straggle (kind straggle) and shard:leave (kind "
+             "leave), compiled into the --sync ssp schedules of ssgd, "
+             "ma, bmuf and easgd; the same plan+seed replays bitwise. "
+             "A plan on any other run, or with any other point, is "
+             "refused: those seams wait for ROADMAP A12")
+
+
+def _refuse_unread_plan(args) -> None:
+    """A plan that no seam of this run reads would never fire: only the
+    SSP runs of ssgd and the local-update family compile one."""
+    from tpu_distalg_torch import faults
+    from tpu_distalg_torch.parallel import ssp as pssp
+
+    if not faults.enabled():
+        return
+    try:
+        is_ssp = pssp.SyncSpec.parse(getattr(args, "sync", "bsp")).is_ssp
+    except ValueError:
+        return  # the trainer refuses the spelling in JAX's words
+    if is_ssp and args.cmd in ("ssgd", "ma", "bmuf", "easgd"):
+        return
+    run = f"{args.cmd} --sync {args.sync}" if hasattr(args, "sync") \
+        else args.cmd
+    raise SystemExit(
+        f"--fault-plan: {run} reads no fault plan (the port compiles "
+        f"shard:straggle and shard:leave into the --sync ssp runs of "
+        f"ssgd, ma, bmuf and easgd only); injection at the other seams "
+        f"waits for ROADMAP A12")
 
 
 def _add_max_restarts(p) -> None:
@@ -311,8 +401,7 @@ def _add_optimizer(p, n_iterations: int) -> None:
                    help="emulated data shards (replicas); 0 = 1")
     p.add_argument("--n-iterations", type=int, default=n_iterations)
     p.add_argument("--eta", type=float, default=0.1)
-    p.add_argument("--comm", default="dense", metavar="SCHED",
-                   help="dense (the other schedules wait for ROADMAP A9)")
+    _add_comm(p)
     p.add_argument("--plot", type=str, default=None,
                    help="save an accuracy plot PNG here")
     p.add_argument("--quiet", action="store_true")
@@ -322,6 +411,7 @@ def _add_optimizer(p, n_iterations: int) -> None:
     p.add_argument("--max-restarts", type=int, default=0,
                    help="restarts after a failed segment: waits for the "
                         "faults slice (ROADMAP A12); only 0 is accepted")
+    _add_fault_plan(p)
 
 
 def _report(name: str, res, args, seconds: float) -> None:
@@ -443,7 +533,7 @@ def _run_ssgd(args) -> None:
         reg_type=args.reg_type, sampler=args.sampler,
         x_dtype=args.x_dtype, gather_block_rows=args.gather_block_rows,
         fused_pack=args.fused_pack, shuffle_seed=args.shuffle_seed,
-        feature_sharded=n_model > 1)
+        feature_sharded=n_model > 1, comm=args.comm, sync=args.sync)
     if args.sampler != "fused_train" and args.mega_steps is not None:
         raise SystemExit(f"--mega-steps applies to sampler=fused_train "
                          f"only (got {args.sampler})")
@@ -560,6 +650,14 @@ def _run_pagerank(args) -> None:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if hasattr(args, "fault_plan"):
+        from tpu_distalg_torch import faults
+
+        try:
+            faults.configure(args.fault_plan)
+        except (ValueError, OSError) as e:
+            raise SystemExit(f"--fault-plan: {e}") from None
+        _refuse_unread_plan(args)
     if args.cmd == "ssgd":
         _run_ssgd(args)
     elif args.cmd in ("lr", "ma", "bmuf", "easgd"):

@@ -37,10 +37,15 @@ All replicas share one packed X2; replica s owns the blocks
 global by adding ``s·n_blocks`` (the rows each replica reads are the
 ones the JAX package's ``shard_map`` gives it).
 
-Not ported yet, raising NotImplementedError with their ROADMAP item:
-``comm`` other than ``dense`` and ``sync`` other than ``bsp`` (A9:
-``make_ssp_train_fn``, ``_train_ssp``, ``_comm_sync``, ``_train_comm``).
-The JAX package's own ValueErrors come first.
+With ``comm`` other than ``dense`` the round-end average runs the
+schedule of :mod:`tpu_distalg_torch.parallel.comms` on every sampler
+(``local_sgd.py:111-167``, ``:498-891``; under ``fused_train``: R
+launches of B2, then the schedule's combine); its residual rides the
+carry and the checkpoint. With ``sync='ssp[:s[:decay]]'`` the
+``bernoulli`` sampler runs windows of ``s`` rounds between
+staleness-weighted merges under the seeded straggle and membership
+schedules (:func:`make_ssp_train_fn`, ``:199-497``); the fused samplers
+stay BSP, refused in the JAX package's words.
 """
 
 from __future__ import annotations
@@ -112,21 +117,24 @@ def _check_sync_sampler(config: LocalSGDConfig) -> None:
 
 
 def _check_config(config: LocalSGDConfig) -> None:
-    """The JAX package's ValueErrors first, then NotImplementedError for
-    what this port does not cover yet."""
+    """The JAX package's ValueErrors."""
+    from tpu_distalg_torch.parallel import comms, ssp
+
     _check_sync_sampler(config)
-    if config.sync != "bsp":
-        raise NotImplementedError(
-            f"sync={config.sync!r}: stale-synchronous local rounds are not "
-            f"ported yet (ROADMAP A9); use sync='bsp'")
+    ssp.SyncSpec.parse(config.sync)
+    comms.CommSpec.parse(config.comm)
     if config.sampler not in _SAMPLERS:
         raise ValueError(f"unknown sampler {config.sampler!r}")
-    if config.comm != "dense":
-        raise NotImplementedError(
-            f"comm={config.comm!r}: the round-combine schedules are not "
-            f"ported yet (ROADMAP A9); use comm='dense'")
     if config.global_update not in ("average", "bmuf", "easgd"):
         raise ValueError(config.global_update)
+
+
+def _comm_sync(mesh: Mesh, config: LocalSGDConfig, d: int):
+    """The round combine's CommSync: one (d,) leaf, the replica's model
+    being averaged (``local_sgd.py:158``)."""
+    from tpu_distalg_torch.parallel import comms
+
+    return comms.make_sync(config.comm, mesh, (comms.leaf((d,)),))
 
 
 def _derive_beta(config: LocalSGDConfig, n_replicas: int) -> float:
@@ -153,7 +161,7 @@ def _make_combine(config: LocalSGDConfig, beta: float):
 
 
 def _build_rounds(config: LocalSGDConfig, n_replicas: int, local_models,
-                  prep_xs=None):
+                  prep_xs=None, sync=None):
     """The round loop shared by every sampler: ``local_models(data,
     payload, ws, w)`` → the replicas' models after the round's local
     steps, a list of R (D,) tensors; then their average (added in shard
@@ -161,26 +169,42 @@ def _build_rounds(config: LocalSGDConfig, n_replicas: int, local_models,
     ``prep_xs(ts)`` maps the absolute round ids to the per-round
     payloads, all drawn before the loop; without it the payload is the
     round id. Returns ``train(data, X_test, y_test, w0, ws0, delta0,
-    t0=0)`` → ``(w, ws, delta, accs)``."""
+    t0=0)`` → ``(w, ws, delta, accs)``; with ``sync`` (a CommSync) the
+    average is the schedule's ``reduce_mean`` keyed on the round id, and
+    ``train(data, X_test, y_test, w0, ws0, delta0, res0, t0=0)`` →
+    ``(w, ws, delta, res, accs)``."""
     combine = _make_combine(config, _derive_beta(config, n_replicas))
 
-    def train(data, X_test, y_test, w0, ws0, delta0, t0=0):
+    def rounds(data, X_test, y_test, w0, ws0, delta0, res0, t0=0):
         T = config.n_iterations
         dev = w0.device
         ts = torch.arange(t0, t0 + T, dtype=torch.int64, device=dev)
         payloads = prep_xs(ts) if prep_xs is not None else range(t0, t0 + T)
-        w, ws, delta = w0, ws0, delta0
+        w, ws, delta, res = w0, ws0, delta0, res0
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         accs = []
         for i in range(T):
             per = local_models(data, payloads[i], ws, w)
-            (total,) = tree_allreduce_sum((w_l,) for w_l in per)
+            if sync is None:
+                (total,) = tree_allreduce_sum((w_l,) for w_l in per)
+                w_avg = total / n_replicas
+            else:
+                (w_avg,), res = sync.reduce_mean(
+                    [(w_l,) for w_l in per], res, t0 + i)
             ws = torch.stack(per)
-            w, delta = combine(w, total / n_replicas, delta)
+            w, delta = combine(w, w_avg, delta)
             accs.append(metrics.binary_accuracy(X_test @ w, y_test)
                         if config.eval_test else zero)
         accs = (torch.stack(accs) if accs
                 else torch.zeros((0,), dtype=torch.float32, device=dev))
+        return w, ws, delta, res, accs
+
+    if sync is not None:
+        return rounds
+
+    def train(data, X_test, y_test, w0, ws0, delta0, t0=0):
+        w, ws, delta, _, accs = rounds(data, X_test, y_test, w0, ws0,
+                                       delta0, None, t0)
         return w, ws, delta, accs
 
     return train
@@ -213,12 +237,27 @@ def round_masks(config: LocalSGDConfig, t: int, valid: torch.Tensor
     return mask.expand(L, n)
 
 
-def make_train_fn(mesh: Mesh, config: LocalSGDConfig, n_padded: int):
+def _sync_for(mesh: Mesh, config: LocalSGDConfig, d: int | None):
+    if config.comm == "dense":
+        return None
+    if d is None:
+        raise ValueError(
+            f"comm={config.comm!r} needs the model width: call "
+            "make_train_fn(mesh, config, n_padded, d=D) "
+            "(local_sgd.train does this for you)")
+    return _comm_sync(mesh, config, d)
+
+
+def make_train_fn(mesh: Mesh, config: LocalSGDConfig, n_padded: int, *,
+                  d: int | None = None):
     """The ``bernoulli`` trainer: call as ``fn(X, y, valid, X_test,
     y_test, w0, ws0, delta0, t0=0)`` → ``(w, ws, delta, accs)`` with X,
     y, valid the padded arrays of :func:`parallelize` (replica s holds
-    rows ``[s·n_local, (s+1)·n_local)``)."""
+    rows ``[s·n_local, (s+1)·n_local)``). With ``comm`` other than
+    ``dense`` pass ``d`` and call ``fn(X, y, valid, X_test, y_test, w0,
+    ws0, delta0, res0, t0=0)`` → ``(w, ws, delta, res, accs)``."""
     _check_config(config)
+    sync = _sync_for(mesh, config, d)
     R = mesh.n_data
     n_local = n_padded // R
 
@@ -236,7 +275,15 @@ def make_train_fn(mesh: Mesh, config: LocalSGDConfig, n_padded: int):
             per.append(w_l)
         return per
 
-    rounds = _build_rounds(config, R, local_models)
+    rounds = _build_rounds(config, R, local_models, sync=sync)
+
+    if sync is not None:
+        def train_comm(X, y, valid, X_test, y_test, w0, ws0, delta0, res0,
+                       t0=0):
+            return rounds((X, y, valid), X_test, y_test, w0, ws0, delta0,
+                          res0, t0)
+
+        return train_comm
 
     def train(X, y, valid, X_test, y_test, w0, ws0, delta0, t0=0):
         return rounds((X, y, valid), X_test, y_test, w0, ws0, delta0, t0)
@@ -268,7 +315,9 @@ def make_train_fn_fused(mesh: Mesh, config: LocalSGDConfig, meta: dict):
     replicas and (d_total,) δ; X_test padded to d_total with zero
     columns. Unlike SSGD's one-launch schedule, ``fused_train`` composes
     with R > 1: local steps touch no other replica, and the round-end
-    average is unchanged."""
+    average is unchanged. With ``comm`` other than ``dense``: ``fn(X2,
+    X_test, y_test, w0, ws0, delta0, res0, t0=0)`` → ``(w, ws, delta,
+    res, accs)``."""
     _check_config(config)
     if config.sampler not in ("fused_gather", "fused_train"):
         raise ValueError(f"sampler={config.sampler!r} is not a packed-"
@@ -313,7 +362,8 @@ def make_train_fn_fused(mesh: Mesh, config: LocalSGDConfig, meta: dict):
                 per.append(w_l)
             return per
 
-    return _build_rounds(config, R, local_models, prep_xs)
+    return _build_rounds(config, R, local_models, prep_xs,
+                         sync=_sync_for(mesh, config, d_t))
 
 
 def init_state(config: LocalSGDConfig, d: int, d_total: int,
@@ -363,23 +413,34 @@ def prepare_fused(X_train, y_train, mesh: Mesh, config: LocalSGDConfig):
 
 
 def _segmented(config: LocalSGDConfig, make_fn, data, state0,
-               checkpoint_dir, checkpoint_every):
-    """Run in checkpointed segments; the carry is ``(w, ws, delta)``."""
+               checkpoint_dir, checkpoint_every, *, mesh: Mesh | None = None):
+    """Run in checkpointed segments; the carry is ``(w, ws, delta)``,
+    with a ``comm`` schedule ``(w, ws, delta, residual)`` (the residual
+    placed by the ``local_sgd`` table). Returns ``(w, ws, accs,
+    start)``."""
+    from tpu_distalg_torch.parallel import partition
     from tpu_distalg_torch.utils import checkpoint as ckpt
 
     def run_seg(fn, state, t0):
+        if len(state) == 4:
+            state = (*state[:3], partition.place(
+                {"res": state[3]}, "local_sgd", mesh)["res"])
+            w, ws, delta, res, accs = fn(*data, *state, t0=t0)
+            return (w, ws, delta, res), accs
         w, ws, delta, accs = fn(*data, *state, t0=t0)
         return (w, ws, delta), accs
 
     tag = f"local_sgd:{config.global_update}"
     if config.sampler != "bernoulli":
         tag += f":{config.sampler}"
-    (w, ws, _), accs, _ = ckpt.run_segmented(
+    if config.comm != "dense":
+        tag += f":comm={config.comm}"
+    state, accs, start = ckpt.run_segmented(
         checkpoint_dir, checkpoint_every, config.n_iterations,
         make_seg_fn=lambda seg: make_fn(
             dataclasses.replace(config, n_iterations=seg)),
         run_seg=run_seg, state0=state0, tag=tag)
-    return w, ws, torch.from_numpy(accs)
+    return state[0], state[1], torch.from_numpy(accs), start
 
 
 def train(X_train, y_train, X_test, y_test, mesh: Mesh,
@@ -390,8 +451,18 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
     ``checkpoint_dir``, in segments of ``checkpoint_every`` rounds saved
     after each (the carry: the center, the replicas and BMUF's δ) and
     resumed from the newest, bitwise equal to a straight run. The result
-    holds the original-width (d,) center and (R, d) replicas."""
+    holds the original-width (d,) center and (R, d) replicas. A ``comm``
+    schedule adds the residual to the carry; ``sync='ssp…'`` trains in
+    windows (:func:`_train_ssp`)."""
+    from tpu_distalg_torch.parallel import comms, partition, ssp
+    from tpu_distalg_torch.telemetry import events as tevents
+
+    tevents.mark(f"local_sgd:{config.global_update}", emit_event=False)
     _check_config(config)
+    if ssp.SyncSpec.parse(config.sync).is_ssp:
+        return _train_ssp(X_train, y_train, X_test, y_test, mesh, config,
+                          checkpoint_dir=checkpoint_dir,
+                          checkpoint_every=checkpoint_every)
     d = X_train.shape[1]
     X_te = np.asarray(X_test, np.float32)
     y_te = torch.as_tensor(np.asarray(y_test, np.float32)).to(mesh.device)
@@ -404,7 +475,7 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
                 torch.as_tensor(X_te).to(mesh.device), y_te)
 
         def make_fn(cfg):
-            return make_train_fn(mesh, cfg, Xs.n_padded)
+            return make_train_fn(mesh, cfg, Xs.n_padded, d=d)
     else:
         X2, meta = pack(X_train, y_train, mesh, config)
         state0 = init_state(config, d, meta["d_total"], mesh.n_data,
@@ -414,10 +485,220 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
 
         def make_fn(cfg):
             return make_train_fn_fused(mesh, cfg, meta)
+    sync = None
+    if config.comm != "dense":
+        sync = _comm_sync(mesh, config, state0[0].shape[0])
+        state0 = (*state0, partition.place(
+            {"res": sync.init_state()}, "local_sgd", mesh)["res"])
+    start = 0
     if checkpoint_dir is None:
-        w, ws, _, accs = make_fn(config)(*data, *state0)
+        w, ws, *_, accs = make_fn(config)(*data, *state0)
         metrics.guard_finite((w, ws), "local-SGD models")
     else:
-        w, ws, accs = _segmented(config, make_fn, data, state0,
-                                 checkpoint_dir, checkpoint_every)
+        w, ws, accs, start = _segmented(config, make_fn, data, state0,
+                                        checkpoint_dir, checkpoint_every,
+                                        mesh=mesh)
+    if sync is not None:
+        # only the rounds this process ran (a resume skips the rest)
+        comms.emit_sync_counters(sync, config.n_iterations - start)
     return TrainResult(w=w[:d], ws=ws[:, :d], accs=accs)
+
+
+# -------------------------------------------- stale-synchronous rounds
+
+
+def make_ssp_train_fn(mesh: Mesh, config: LocalSGDConfig, n_padded: int,
+                      d: int, *, active: tuple[bool, ...], n_win_seg: int,
+                      total_rounds: int):
+    """The local-update family's SSP window loop (``local_sgd.py:199``):
+    ``s`` rounds of L local steps between combines. A replica straggled
+    by the schedule skips the round (its interference work runs
+    instead); the window-end merge is a staleness-weighted model average
+    (weight ``decay**windows_stale``) through the sync's schedule,
+    feeding the usual MA/BMUF/EASGD combine. With ``resync``, replicas
+    adopt the center at the window start unless straggled there.
+
+    Call as ``fn(X, y, valid, X_test, y_test, w0, ws0, delta0, clocks0,
+    stale0, res0, extra_seg, win0)`` → ``(w, ws, delta, clocks, stale,
+    res, win_accs, ages_max, ages_mean, gated)``."""
+    from tpu_distalg_torch.parallel import ssp as pssp
+
+    spec = pssp.SyncSpec.parse(config.sync)
+    s = spec.staleness
+    L = config.n_local_iterations
+    R = mesh.n_data
+    dev = mesh.device
+    n_local = n_padded // R
+    sync = _comm_sync(mesh, config, d)
+    combine = _make_combine(config, _derive_beta(config, R))
+    active_np = np.asarray(active, bool)
+    act = torch.as_tensor(active_np, device=dev)
+    big = 1 << 30
+
+    def train(X, y, valid, X_test, y_test, w0, ws0, delta0, clocks0,
+              stale0, res0, extra_seg, win0):
+        extra_seg = np.asarray(extra_seg, np.int32)
+        rounds = win0 * s + np.arange(n_win_seg * s).reshape(n_win_seg, s)
+        roundv = rounds < total_rounds
+        free = roundv[:, :, None] & active_np & (extra_seg == 0)
+        counted = roundv[:, :, None] & active_np
+        adopt = (active_np & (extra_seg[:, 0] == 0) if config.resync
+                 else np.zeros((n_win_seg, R), bool))
+        free_d, counted_d, adopt_d, busy_d, extra_d = (
+            torch.as_tensor(a, device=dev)
+            for a in (free, counted, adopt, extra_seg[:, -1] > 0,
+                      extra_seg))
+        w, ws, delta, clocks, stale, res = (w0, ws0, delta0, clocks0,
+                                            stale0, res0)
+        accs, amax, amean, gated_w = [], [], [], []
+        for i in range(n_win_seg):
+            winid = win0 + i
+            wl = torch.where(adopt_d[i][:, None], w[None, :], ws)
+            max_c = torch.where(act, clocks, -big).max()
+            clocks_adj = torch.where(adopt_d[i], max_c, clocks).to(
+                clocks.dtype)
+            min_known = torch.where(act, clocks_adj, big).min()
+            my_clock = clocks_adj
+            gated_ct = torch.zeros((R,), dtype=torch.int32, device=dev)
+            for r in range(s):
+                if extra_seg[i, r].any():
+                    pssp.entangle(wl, pssp.straggle_work(extra_d[i, r]))
+                gated = (my_clock - min_known) >= s
+                do = free_d[i, r] & ~gated
+                masks = round_masks(config, int(rounds[i, r]), valid)
+                new = []
+                for j in range(R):
+                    rows = slice(j * n_local, (j + 1) * n_local)
+                    w_j = wl[j]
+                    for li in range(L):
+                        g, cnt = logistic.grad_sum(X[rows], y[rows], w_j,
+                                                   masks[li, rows])
+                        w_j = _local_step(config, w_j, w, g, cnt)
+                    new.append(w_j)
+                wl = torch.where(do[:, None], torch.stack(new), wl)
+                my_clock = my_clock + do.to(my_clock.dtype)
+                gated_ct = gated_ct + (counted_d[i, r] & gated).to(
+                    torch.int32)
+            stepped = my_clock > clocks_adj
+            fresh = act & stepped & ~busy_d[i]
+            stale = torch.where(fresh, torch.zeros_like(stale), stale + 1)
+            wts = pssp.staleness_weights(stale, act, act, spec.decay)
+            wsum = wts.sum()
+            contrib = wts[:, None] * wl
+            (summed,), res = sync.reduce([(contrib[j],) for j in range(R)],
+                                         res, winid)
+            w_avg = summed / torch.clamp_min(wsum, 1e-12)
+            ages_obs = torch.where(act, stale, torch.zeros_like(stale))
+            n_act = act.to(torch.float32).sum()
+            amax.append(ages_obs.max().to(torch.float32))
+            amean.append(ages_obs.to(torch.float32).sum()
+                         / torch.clamp_min(n_act, 1.0))
+            gated_w.append(gated_ct.sum())
+            clocks, ws = my_clock, wl
+            w, delta = combine(w, w_avg, delta)
+            accs.append(metrics.binary_accuracy(X_test @ w, y_test)
+                        if config.eval_test else
+                        torch.zeros((), dtype=torch.float32, device=dev))
+
+        def stack(xs, dtype):
+            return (torch.stack(xs) if xs
+                    else torch.zeros((0,), dtype=dtype, device=dev))
+
+        return (w, ws, delta, clocks, stale, res,
+                stack(accs, torch.float32), stack(amax, torch.float32),
+                stack(amean, torch.float32), stack(gated_w, torch.int64))
+
+    return train
+
+
+def _train_ssp(X_train, y_train, X_test, y_test, mesh: Mesh,
+               config: LocalSGDConfig, *, checkpoint_dir: str | None = None,
+               checkpoint_every: int = 100) -> TrainResult:
+    """The SSP driver of the family (``local_sgd.py:356-495``) over the
+    state (w, ws, delta, clocks, stale, residual), elastic through
+    :func:`..parallel.membership.run_elastic`: a resume on another
+    shard count re-derives the replicas from the replicated center."""
+    from tpu_distalg_torch.models.ssgd import window_accs_to_ticks
+    from tpu_distalg_torch.parallel import comms, membership, partition
+    from tpu_distalg_torch.parallel import ssp as pssp
+
+    spec = pssp.SyncSpec.parse(config.sync)
+    s = spec.staleness
+    T = config.n_iterations
+    D = X_train.shape[1]
+    R = mesh.n_data
+    dev = mesh.device
+    Xs = parallelize(X_train, mesh,
+                     dtype=ssgd_kernels.as_dtype(config.x_dtype))
+    ys = parallelize(np.asarray(y_train, np.float32), mesh)
+    X_te = torch.as_tensor(np.asarray(X_test, np.float32)).to(dev)
+    y_te = torch.as_tensor(np.asarray(y_test, np.float32)).to(dev)
+    w0, ws0, delta0 = init_state(config, D, D, R, dev)
+    n_win, padded = pssp.window_grid(T, s)
+    extra = pssp.compile_straggle_schedule(padded, R)
+    extra[T:] = 0  # pad rounds do not exist: no interference, no busy
+    extra = extra.reshape(n_win, s, R)
+    sync = _comm_sync(mesh, config, D)
+
+    def renegotiate(saved_leaves, saved_shards, start_win):
+        del saved_shards, start_win
+        w = np.asarray(saved_leaves[0], np.float32)
+        return (w, np.tile(w, (R, 1)),
+                np.asarray(saved_leaves[2], np.float32),
+                np.asarray(membership.redistribute_clocks(
+                    saved_leaves[3], R), np.int32),
+                np.zeros((R,), np.int32),
+                np.asarray(sync.init_state()))
+
+    def make_seg_fn(active, n_win_seg):
+        return make_ssp_train_fn(mesh, config, Xs.n_padded, D,
+                                 active=active, n_win_seg=n_win_seg,
+                                 total_rounds=T)
+
+    def on_epoch(state, prev, cur):
+        """A rejoining replica is current, not a straggler: its clock
+        froze while it was away, and (EASGD never resyncs) nothing in
+        the window would bump it, so it takes the continuing replicas'
+        top clock here or the gate would serialize the mesh onto it."""
+        w, ws, delta, clocks, stale, res = state
+        clocks = np.array(torch.as_tensor(clocks).cpu(), np.int32)
+        rejoined = [k for k in range(R) if cur.active[k]
+                    and not prev.active[k]]
+        if rejoined:
+            cont = [k for k in range(R) if cur.active[k] and prev.active[k]]
+            top = int(clocks[cont].max()) if cont else int(clocks.max())
+            clocks[rejoined] = top
+        return (w, ws, delta, clocks, stale, res)
+
+    def run_seg(fn, state, win0, n_win_seg, epoch):
+        del epoch
+        st = partition.place(
+            dict(zip(("w", "ws", "delta", "clocks", "stale", "res"), state)),
+            "local_sgd", mesh)
+        out = fn(Xs.data, ys.data, Xs.mask, X_te, y_te, st["w"], st["ws"],
+                 st["delta"], st["clocks"], st["stale"], st["res"],
+                 extra[win0:win0 + n_win_seg], win0)
+        return out[:6], out[6:]
+
+    state0 = (w0, ws0, delta0, np.zeros((R,), np.int32),
+              np.zeros((R,), np.int32), np.asarray(sync.init_state()))
+    state, outs, start, epochs = membership.run_elastic(
+        checkpoint_dir, max(1, checkpoint_every // s), n_win, R,
+        make_seg_fn=make_seg_fn, run_seg=run_seg, state0=state0,
+        renegotiate=renegotiate, on_epoch=on_epoch,
+        tag=(f"local_sgd:{spec.spec()}:{config.global_update}"
+             f":comm={config.comm}"),
+        ticks_per_window=s)
+    w = torch.as_tensor(state[0]).to(dev)
+    ws = torch.as_tensor(state[1]).to(dev)
+    metrics.guard_finite((w, ws), "local-SGD (ssp) models")
+    accs = (window_accs_to_ticks(outs[0], s, T) if outs
+            else np.zeros((T,), np.float32))
+    stats = pssp.observed_staleness(outs[1] if outs else [],
+                                    outs[2] if outs else [])
+    pssp.emit_ssp_counters(
+        spec, stats, straggle_ticks=int(np.count_nonzero(extra)),
+        gated_ticks=int(np.asarray(outs[3]).sum()) if outs else 0,
+        epochs=len(epochs))
+    comms.emit_sync_counters(sync, n_win - start)
+    return TrainResult(w=w, ws=ws, accs=torch.from_numpy(accs))

@@ -75,6 +75,10 @@ _SIGNATURES = {
         "tda_flash_bwd": ([_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _P], _I),
         "tda_error_string": ([_I], ctypes.c_char_p),
     },
+    "ssp": {
+        "tda_straggle": ([_P, _I, _F, _P, _P], _I),
+        "tda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 #: the kernel libraries, built together by chip_smoke.py
 LIBRARIES = tuple(_SIGNATURES)

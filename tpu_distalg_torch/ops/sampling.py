@@ -22,7 +22,20 @@ def bernoulli_mask(key: torch.Tensor, t, n: int, fraction: float,
     comparison is in float32, as JAX compares a float32 array with a
     Python float."""
     u = prng.uniform(prng.step_key(key, t), (n,))
-    frac = torch.tensor(fraction, dtype=torch.float32, device=u.device)
+    return bernoulli_mask_from_uniform(u, fraction_tensor(fraction, u.device),
+                                       valid)
+
+
+def fraction_tensor(fraction: float, device) -> torch.Tensor:
+    """The fraction as the float32 tensor the masks compare with."""
+    return torch.tensor(fraction, dtype=torch.float32, device=device)
+
+
+def bernoulli_mask_from_uniform(u: torch.Tensor, frac: torch.Tensor,
+                                valid: torch.Tensor) -> torch.Tensor:
+    """:func:`bernoulli_mask` from its uniforms ``u`` (drawn ahead, for a
+    group of steps at once) and :func:`fraction_tensor`: ``where(u <
+    frac, 1, 0) · valid``."""
     return torch.where(u < frac, 1.0, 0.0) * valid.to(u.device)
 
 

@@ -1,6 +1,8 @@
 """The emulated data and model axes: mesh, row and feature sharding,
-shard-order sums, and the sequence-parallel rings (ring and Ulysses
-attention)."""
+shard-order sums, the sequence-parallel rings (ring and Ulysses
+attention), and in submodules the rule-table placement
+(``partition``), the sync schedules (``comms``), bounded staleness
+(``ssp``) and elastic membership (``membership``)."""
 
 from tpu_distalg_torch.parallel.collectives import (
     model_sum,

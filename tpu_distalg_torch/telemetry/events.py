@@ -3,7 +3,10 @@
 A minimal copy of the JAX package's ``telemetry/events.py`` with the
 same event schema (``ev``, ``t_wall``, ``t_mono``, ``run``, ``pid``,
 ``host`` plus event fields), so ``tda report`` reads the port's files
-too. Telemetry is on when :func:`configure` is given a directory or
+too, the sync layer's ``comm.*``, ``ssp.*`` and membership counters,
+gauges and events included (``parallel/comms.py``, ``ssp.py``,
+``membership.py``, under the JAX package's names), and :func:`mark`.
+Telemetry is on when :func:`configure` is given a directory or
 ``$TDA_TELEMETRY_DIR`` is set, and every emitting function is a no-op
 otherwise. Counters are kept in memory and flushed as one ``counters``
 event when the sink closes.
@@ -25,6 +28,8 @@ ENV_DIR = "TDA_TELEMETRY_DIR"
 
 _LOCK = threading.Lock()  # guards the _SINK swap only
 _SINK: EventSink | None = None
+#: (monotonic seconds, phase) of the newest :func:`mark`
+_LAST_MARK: tuple[float, str] = (time.monotonic(), "start")
 
 
 class EventSink:
@@ -99,6 +104,18 @@ def emit(ev: str, **fields) -> None:
     sink = _SINK
     if sink is not None:
         sink.write(ev, **fields)
+
+
+def mark(phase: str, emit_event: bool = True) -> None:
+    """Record main-loop progress (the JAX package's ``events.mark``):
+    always the in-memory mark, and a ``mark`` event unless
+    ``emit_event=False``."""
+    global _LAST_MARK
+    _LAST_MARK = (time.monotonic(), str(phase))
+    if emit_event:
+        sink = _SINK
+        if sink is not None:
+            sink.write("mark", phase=phase)
 
 
 def counter(name: str, n: int = 1) -> None:

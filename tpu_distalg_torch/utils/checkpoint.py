@@ -59,10 +59,10 @@ def _fsync_dir(directory: str) -> None:
 
 
 def save(ckpt_dir: str, tag: str, state, step: int, *,
-         accs=None) -> str:
+         accs=None, extra: dict | None = None) -> str:
     """Write ``{"tag": tag, "state": [leaves]}`` (and the accuracy
-    history ``accs`` when given) as ``ckpt_dir/step_<step>.npz``;
-    returns the path."""
+    history ``accs``, and the named arrays of ``extra``, when given) as
+    ``ckpt_dir/step_<step>.npz``; returns the path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     arrays = {"tag": np.asarray(tag)}
     for j, leaf in enumerate(state):
@@ -70,6 +70,10 @@ def save(ckpt_dir: str, tag: str, state, step: int, *,
         arrays[f"state_{j}"] = np.asarray(leaf, order="C")
     if accs is not None:
         arrays["accs"] = np.asarray(accs, order="C")
+    for name, value in (extra or {}).items():
+        if name in arrays or name.startswith("state_"):
+            raise ValueError(f"extra array name {name!r} is taken")
+        arrays[name] = np.asarray(value, order="C")
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     body = buf.getvalue()
@@ -116,8 +120,8 @@ def _body(path: str, raw: bytes) -> bytes:
 
 def restore(ckpt_dir: str, step: int | None = None) -> tuple[dict, int]:
     """Load ``({"tag": str, "state": [np.ndarray, ...]}, step)``, with
-    ``"accs"`` when the file holds one; ``step=None`` loads the newest
-    checkpoint."""
+    ``"accs"`` and every ``extra`` array of :func:`save` when the file
+    holds them; ``step=None`` loads the newest checkpoint."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -137,7 +141,8 @@ def restore(ckpt_dir: str, step: int | None = None) -> tuple[dict, int]:
             tag = str(z["tag"])
             n = sum(1 for name in z.files if name.startswith("state_"))
             state = [z[f"state_{j}"] for j in range(n)]
-            extra = {"accs": z["accs"]} if "accs" in z.files else {}
+            extra = {name: z[name] for name in z.files
+                     if name != "tag" and not name.startswith("state_")}
     except (ValueError, KeyError, OSError, zipfile.BadZipFile) as e:
         raise CorruptCheckpointError(
             path, f"corrupt checkpoint {path} ({type(e).__name__}: {e})"
