@@ -111,21 +111,38 @@ and the script exits non-zero without printing a result:
      bench.py's MA geometry on 4 replicas under int8 and topk (B2 = 4 ×
      300, B1 = 4 × 1500); the reference task under the schedules and
      MA under ssp:4, held by the tail's best;
- 14. the kernels line (B1's and B2's entries with their launches on the
-     local-update runs, B1's on the scale path, B1's, B2's and B5's on
-     phase 13's paths, B9's on the sharded path and at the slice's
-     shape), then the last line
+ 14. the out-of-core data subsystem (``tpu_distalg_torch/data/``) at
+     bench.py's row widths, depths cut (PERF.md §4): streamed SSGD from a
+     2²⁵-row disk cache (125 features + bias, pack 16, bf16, 2048-row
+     blocks) through the pinned prefetch pipeline and B1, at 4 and 64
+     sampled blocks a step (steps/s, H2D bytes, achieved GB/s beside a
+     pinned ``copy_`` of the same size, serial ``stage`` GB/s, host
+     gather GB/s, idle share, held-out accuracy beside the teacher's
+     ceiling; B1 on a staged batch against its plain version), 100
+     streamed steps = resident ``fused_gather`` on the same bytes bit
+     for bit on 1 and 4 shards, segmented = straight; virtual SSGD at
+     10⁹ logical rows (two runs bit for bit, host RSS growth under
+     1 GB); minibatch k-means on a streamed mixture of 2²⁵ points
+     (every true mean recovered, centres bit for bit across streamed,
+     virtual and resident); streamed ALS on a 16384² rank-64 R (one
+     sweep and one rmse pass, U, V and rmse bit for bit across the
+     backends); the caches are made under ``build/`` and deleted;
+ 15. the kernels line (B1's and B2's entries with their launches on the
+     local-update runs, B1's on the scale path and phase 14's streamed
+     runs, B1's, B2's and B5's on phase 13's paths, B9's on the sharded
+     path and at the slice's shape), then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
 and read just after it (the serving path: phase 4's full-width fit and
 phase 5; each of phase 5b's served runs; each SSGD path, each PageRank
 sweep, each k-means fit, each tp mesh, each attention run, each
-local-update run, each of phase 12's paths on its own, and each of
-phase 13's runs), so the kernels line shows that each path went through
-its kernel, and that
-the kernel-free paths (phase 5b's dense merge, phase 12's Monte Carlo,
-closure and ``fixed``) launched none.
+local-update run, each of phase 12's paths on its own, each of phase
+13's runs, and each of phase 14's runs), so the kernels line shows that
+each path went through its kernel, and that the kernel-free paths
+(phase 5b's dense merge, phase 12's Monte Carlo, closure and ``fixed``,
+phase 14's virtual SSGD, minibatch k-means and streamed ALS) launched
+none.
 """
 
 from __future__ import annotations
@@ -4658,6 +4675,465 @@ def run_sync(dev, sg: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 14
+
+#: the out-of-core paths at bench.py's row widths (bench.py:2375-2652),
+#: depths cut for the script's time (PERF.md §4 lists each cut):
+#: streamed SSGD on a 2²⁵-row cache (bench.py: 2²⁷), 125 features +
+#: bias, pack 16, bf16, 2048-row blocks; 4 sampled blocks a step
+#: (bench.py's 2 MB) and 64 (32 MB), STREAM_STEPS steps, best of
+#: STREAM_REPEATS; STREAM_CHECK_STEPS streamed steps against resident
+#: fused_gather, on 1 and STREAM_CHECK_SHARDS shards, and a run
+#: segmented at STREAM_SEGMENT
+STREAM_ROWS, STREAM_FEATURES, STREAM_PACK, STREAM_GBR = 1 << 25, 125, 16, 2048
+STREAM_SAMPLED, STREAM_STEPS, STREAM_REPEATS = (4, 64), 30, 3
+STREAM_CHECK_STEPS, STREAM_CHECK_SHARDS, STREAM_SEGMENT = 100, 4, 50
+#: virtual SSGD at bench.py's geometry (10⁹ logical rows × 30 features,
+#: fraction 0.01, 131,072-row blocks), VIRTUAL_STEPS of its 200 steps,
+#: run twice (bitwise), host peak RSS growth under 1 GB
+VIRTUAL_ROWS, VIRTUAL_FEATURES, VIRTUAL_GBR = 1_000_000_000, 30, 131072
+VIRTUAL_FRACTION, VIRTUAL_STEPS, VIRTUAL_HELDOUT = 0.01, 8, 8192
+#: minibatch k-means on a streamed mixture of 2²⁵ points (bench.py:
+#: 2²⁸), k 8, dim 16, 2048-row blocks, 4 blocks a step, 30 steps; every
+#: true mean some centre's nearest within OOC_KM_RECOVER (bench.py's check)
+OOC_KM_POINTS, OOC_KM_K, OOC_KM_DIM, OOC_KM_BLOCK = 1 << 25, 8, 16, 2048
+OOC_KM_STEPS, OOC_KM_BLOCKS, OOC_KM_RECOVER = 30, 4, 0.5
+#: streamed ALS on a 16384² rank-64 f32 R (bench.py: 65536²), 512-row
+#: blocks, lam 0, one sweep and one rmse pass
+OOC_ALS_M, OOC_ALS_N, OOC_ALS_K, OOC_ALS_BLOCK = 16384, 16384, 64, 512
+
+
+def _rss_now_gb() -> float:
+    """The host's resident set now (VmRSS), GB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1e6
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _rate_gb(nbytes: int, fn, n: int) -> float:
+    """Best GB/s of ``fn()`` moving ``nbytes``, over ``n`` calls."""
+    best = float("inf")
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return nbytes / best / 1e9
+
+
+def _pinned_copy_gb(dev, nbytes: int) -> float:
+    """A pinned host → card ``copy_`` of ``nbytes`` in this run, GB/s."""
+    import torch
+
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+    def once():
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+
+    once()
+    return _rate_gb(nbytes, once, 10)
+
+
+def _stream_b1_record(staged, w, meta) -> dict:
+    """B1 on one staged batch (the streamed step's shape: the identity
+    block index) against its plain version, timed beside the library
+    line and the bound (the batch is warm in L2 after the first call)."""
+    import torch
+
+    from tpu_distalg_torch.ops import ssgd_kernels as tk
+
+    D, yc, vc = meta["d_total"], meta["y_col"], meta["v_col"]
+    X = staged[0]
+    n_s = X.shape[0] * meta["pack"] // STREAM_GBR
+    ids = torch.arange(n_s, dtype=torch.int32, device=X.device)
+    kw = dict(pack=meta["pack"], d_total=D, y_col=yc, v_col=vc,
+              gather_block_rows=STREAM_GBR)
+    g, c = tk.fused_grad_sum_gathered(X, w, ids, **kw)
+    gr, cr = tk.grad_sum_gathered_reference(X, w, ids, **kw)
+    if float(c) != float(cr):
+        raise AssertionError(f"B1 stream shape: count {c} != {cr}")
+    err = _assert_close("B1 stream shape", g[:yc], gr[:yc], "random")
+    x = X.reshape(-1, D)
+    wq = w.to(X.dtype)
+
+    def lib():
+        r = (torch.sigmoid(torch.mv(x, wq).float()) - x[:, yc].float()) \
+            * x[:, vc].float()
+        return torch.mv(x.T, r.to(x.dtype)).float(), x[:, vc].float().sum()
+
+    rows = n_s * STREAM_GBR
+    nbytes = rows * D * X.element_size()
+    bound = _bound_ms(nbytes + 4 * (n_s + D + D + 1), 4 * rows * D)
+    return {"stream_max_abs_err": err,
+            "stream_ms": _time_ms(lambda: tk.fused_grad_sum_gathered(
+                X, w, ids, **kw)),
+            "stream_plain_ms": _time_ms(lambda: tk.grad_sum_gathered_reference(
+                X, w, ids, **kw), 20, 2),
+            "stream_library_ms": _time_ms(lib, 50, 5),
+            "stream_bound_ms": bound[0], "stream_bound_by": bound[1],
+            "stream_bytes_per_call": nbytes}
+
+
+def _stream_ssgd(dev, workdir: str) -> dict:
+    """(a) streamed SSGD from a disk cache through B1, against resident
+    fused_gather on the same bytes."""
+    import dataclasses
+
+    import torch
+
+    from tpu_distalg_torch.data.sharded import _to_device
+    from tpu_distalg_torch.models import ssgd, ssgd_stream
+    from tpu_distalg_torch.ops import logistic
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.tools.profiling import window
+    from tpu_distalg_torch.utils import datasets, metrics, prng
+
+    path = os.path.join(workdir, "stream")
+    rss0 = _peak_rss_gb()
+    t0 = time.perf_counter()
+    X2, meta, (X_te, y_te) = datasets.streamed_packed_cache(
+        path, n_rows=STREAM_ROWS, n_features=STREAM_FEATURES, n_shards=1,
+        pack=STREAM_PACK, gather_block_rows=STREAM_GBR, seed=0)
+    gen_s = time.perf_counter() - t0
+    D, d = meta["d_total"], STREAM_FEATURES + 1
+    n_blocks = STREAM_ROWS // STREAM_GBR
+    cache_bytes = X2.shape[0] * X2.shape[1] * 2
+    print(f"[stream] cache of {STREAM_ROWS} rows x {STREAM_FEATURES} + bias "
+          f"(D {D} bf16, pack {STREAM_PACK}) = {cache_bytes} bytes made in "
+          f"{gen_s!r} s (host peak RSS +{_peak_rss_gb() - rss0!r} GB)")
+    mesh = get_mesh(data=1, device=dev)
+    w0 = torch.zeros((D,), dtype=torch.float32, device=dev)
+    w0[:d] = logistic.init_weights(prng.root_key(7, dev), d)
+    Xt = torch.from_numpy(np.pad(np.asarray(X_te, np.float32),
+                                 ((0, 0), (0, D - d)))).to(dev)
+    yt = torch.from_numpy(np.asarray(y_te, np.float32)).to(dev)
+    t = np.load(path + ".test.npz")
+    teacher = float(np.mean((X_te @ t["w_true"] > 0) == (y_te > 0.5)))
+
+    def cfg(n_s, steps):
+        return ssgd.SSGDConfig(
+            n_iterations=steps, eval_test=False, sampler="fused_gather",
+            x_dtype="bfloat16", mini_batch_fraction=n_s / n_blocks,
+            gather_block_rows=STREAM_GBR, init_seed=7, shuffle_seed=None)
+
+    out = {"generation_s": gen_s, "cache_bytes": cache_bytes,
+           "teacher_ceiling_acc": teacher, "launches": {}}
+    for n_s in STREAM_SAMPLED:
+        tr = ssgd_stream.StreamTrainer(X2, meta, mesh, cfg(n_s, STREAM_STEPS))
+        step_bytes = tr.h2d_bytes_per_step
+        w = tr.run(w0, 0, 3)[0]   # warm: the page cache, the kernel
+        _sync(dev)
+        rates, t_abs = [], 3
+        for _ in range(STREAM_REPEATS):
+            _reset_launches()
+            t1 = time.perf_counter()
+            w = tr.run(w, t_abs, STREAM_STEPS)[0]
+            _sync(dev)
+            rates.append(STREAM_STEPS / (time.perf_counter() - t1))
+            t_abs += STREAM_STEPS
+            _want_launches(f"stream {n_s} blocks", _launches(),
+                           {"fused_grad_sum_gathered": STREAM_STEPS})
+        out["launches"][f"{n_s} blocks, a timed run"] = STREAM_STEPS
+        best = max(rates)
+        t1 = time.perf_counter()
+        ids = tr.block_ids(0, STREAM_STEPS)    # a run's draws, on the card
+        draw_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        for _ in tr.dataset.stream(ids):       # the pipeline, no step
+            pass
+        _sync(dev)
+        stream_only = STREAM_STEPS / (time.perf_counter() - t1)
+        serial = _rate_gb(step_bytes, lambda: (tr.dataset.stage(ids[0]),
+                                               _sync(dev)), 5)
+        host = tr.dataset.host_batch(ids[1])
+        buf = getattr(host, "array", host)     # a pinned buffer on a card
+        gather = _rate_gb(step_bytes, lambda: tr.dataset.gather(
+            ids[1], out=buf), 5)
+        on_card = torch.device(dev).type == "cuda"
+        pinned = _pinned_copy_gb(dev, step_bytes) if on_card else None
+        prof = (window(lambda: tr.run(w0, 3, STREAM_STEPS), STREAM_STEPS)
+                if on_card else {})
+        if on_card and n_s == STREAM_SAMPLED[-1]:
+            out["b1"] = _stream_b1_record(tr.dataset.stage(ids[2]), w0, meta)
+            print(f"[stream] B1 on a staged batch of {n_s} blocks: "
+                  f"{json.dumps(out['b1'])}")
+        achieved = step_bytes * best / 1e9
+        acc = float(metrics.binary_accuracy(Xt @ w, yt))
+        rec = {"h2d_bytes_per_step": step_bytes, "steps_per_s": best,
+               "rates": rates, "achieved_h2d_gb_per_s": achieved,
+               "pinned_copy_gb_per_s": pinned,
+               "serial_stage_gb_per_s": serial,
+               "h2d_overlap_vs_serial": achieved / serial,
+               "host_gather_gb_per_s": gather,
+               "draws_ms_a_run": draw_ms,
+               "pipeline_alone_steps_per_s": stream_only,
+               "heldout_acc": acc, "steps_trained": t_abs,
+               "device_idle_share": prof.get("device_idle_share"),
+               "wall_us_per_step": prof.get("wall_us_per_step"),
+               "device_us_per_step": prof.get("device_us_per_step"),
+               "device_us_per_step_by_op": prof.get(
+                   "device_us_per_step_by_op")}
+        out[f"{n_s}_blocks"] = rec
+        print(f"[stream] {n_s} blocks of {STREAM_GBR} rows a step "
+              f"({step_bytes} bytes H2D): {json.dumps(rec)}; teacher "
+              f"ceiling {teacher!r}")
+
+    # 100 streamed steps = resident fused_gather on the same bytes, on
+    # one shard and on STREAM_CHECK_SHARDS
+    X2_dev = _to_device(X2, torch.bfloat16, dev)
+    for shards in (1, STREAM_CHECK_SHARDS):
+        m = get_mesh(data=shards, device=dev)
+        c = cfg(STREAM_SAMPLED[0] * shards, STREAM_CHECK_STEPS)
+        meta_s = dict(meta)
+        _reset_launches()
+        w_res, _ = ssgd.make_train_fn_fused(m, c, meta_s)(
+            X2_dev, None, None, None, None, w0)
+        _sync(dev)
+        res_launches = _launches()
+        _reset_launches()
+        w_str, _ = ssgd_stream.StreamTrainer(X2, meta_s, m, c).run(
+            w0, 0, STREAM_CHECK_STEPS)
+        _sync(dev)
+        str_launches = _launches()
+        want = {"fused_grad_sum_gathered": STREAM_CHECK_STEPS * shards}
+        _want_launches(f"resident fused_gather on {shards}", res_launches,
+                       want)
+        _want_launches(f"streamed on {shards}", str_launches, want)
+        if not torch.equal(w_res, w_str):
+            raise AssertionError(
+                f"stream: {STREAM_CHECK_STEPS} streamed steps on {shards} "
+                f"shard(s) differ from resident fused_gather (max |diff| "
+                f"{float((w_res - w_str).abs().max())})")
+        out["launches"][f"check {shards} shard(s)"] = str_launches[
+            "fused_grad_sum_gathered"]
+        print(f"[stream] {STREAM_CHECK_STEPS} streamed steps on {shards} "
+              f"shard(s) = resident fused_gather bit for bit; B1 launched "
+              f"{str_launches['fused_grad_sum_gathered']} times on each")
+    del X2_dev
+    # a segmented run (stopped after its first segment, resumed) equals
+    # a straight one
+    c = cfg(STREAM_SAMPLED[0], STREAM_CHECK_STEPS)
+    ck = os.path.join(workdir, "stream_ck")
+    _reset_launches()
+    straight = ssgd_stream.train(X2, meta, mesh, c, X_te, y_te)
+    ssgd_stream.train(X2, meta, mesh, dataclasses.replace(
+        c, n_iterations=STREAM_SEGMENT), X_te, y_te, checkpoint_dir=ck,
+        checkpoint_every=STREAM_SEGMENT)
+    seg = ssgd_stream.train(X2, meta, mesh, c, X_te, y_te, checkpoint_dir=ck,
+                            checkpoint_every=STREAM_SEGMENT)
+    _sync(dev)
+    out["launches"]["straight + segmented"] = _launches()[
+        "fused_grad_sum_gathered"]
+    if not torch.equal(straight.w, seg.w):
+        raise AssertionError("stream: the segmented run differs from the "
+                             "straight one")
+    print(f"[stream] segmented at {STREAM_SEGMENT} (stopped after the first "
+          f"segment, resumed) = straight bit for bit")
+    del X2
+    for suffix in (".bin", ".meta.json", ".test.npz"):
+        os.remove(path + suffix)
+    return out
+
+
+def _virtual_ssgd(dev) -> dict:
+    """(b) virtual SSGD: rows regenerated from their ids every step."""
+    import torch
+
+    from tpu_distalg_torch.models import ssgd, ssgd_virtual
+    from tpu_distalg_torch.ops import logistic
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import metrics, prng
+
+    mesh = get_mesh(data=1, device=dev)
+    data = ssgd_virtual.VirtualData(n_rows=VIRTUAL_ROWS,
+                                    n_features=VIRTUAL_FEATURES, data_seed=0)
+    cfg = ssgd.SSGDConfig(
+        n_iterations=VIRTUAL_STEPS, eval_test=False, sampler="virtual",
+        mini_batch_fraction=VIRTUAL_FRACTION,
+        gather_block_rows=VIRTUAL_GBR, init_seed=7)
+    fn = ssgd_virtual.make_train_fn(mesh, cfg, data)
+    _, n_blocks, n_s = ssgd_virtual._geometry(cfg, data, 1)
+    w0 = logistic.init_weights(prng.root_key(7, dev), data.d)
+    _sync(dev)
+    rss0, now0 = _peak_rss_gb(), _rss_now_gb()
+    ws, secs = [], []
+    for _ in range(2):
+        _reset_launches()
+        t0 = time.perf_counter()
+        w, _ = fn(None, None, None, None, None, w0)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        ws.append(w)
+        _want_launches("virtual", _launches(), {})
+    rss_gb = _peak_rss_gb() - rss0
+    now_gb = _rss_now_gb() - now0
+    if not torch.equal(ws[0], ws[1]):
+        raise AssertionError("virtual: two runs differ")
+    if not (rss_gb < 1.0 and now_gb < 1.0):
+        raise AssertionError(f"virtual: host RSS grew {rss_gb} GB at its "
+                             f"peak, {now_gb} GB now")
+    X_ho, y_ho = ssgd_virtual.heldout_set(data, VIRTUAL_HELDOUT, dev)
+    acc = float(metrics.binary_accuracy(X_ho @ ws[0], y_ho))
+    rows = n_s * VIRTUAL_GBR
+    rec = {"steps_per_s": VIRTUAL_STEPS / min(secs), "seconds": secs,
+           "rows_regenerated_per_step": rows,
+           "rows_regenerated_per_s": rows * VIRTUAL_STEPS / min(secs),
+           "n_blocks": n_blocks, "n_sampled": n_s,
+           "host_peak_rss_growth_gb": rss_gb, "host_rss_growth_gb": now_gb,
+           "heldout_acc": acc}
+    print(f"[virtual] {VIRTUAL_ROWS} logical rows x {VIRTUAL_FEATURES}, "
+          f"{VIRTUAL_STEPS} steps, twice (bit for bit): {json.dumps(rec)}")
+    return rec
+
+
+def _kmeans_streamed(dev, workdir: str) -> dict:
+    """(c) minibatch k-means on a streamed mixture, the same bytes also
+    virtual and resident."""
+    import torch
+
+    from tpu_distalg_torch.data import ShardedDataset, builders
+    from tpu_distalg_torch.models import kmeans
+    from tpu_distalg_torch.parallel import get_mesh
+
+    mesh = get_mesh(data=1, device=dev)
+    path = os.path.join(workdir, "points")
+    t0 = time.perf_counter()
+    ds_s, truth = builders.gaussian_points_dataset(
+        mesh, OOC_KM_POINTS, dim=OOC_KM_DIM, k=OOC_KM_K, seed=0, block_rows=OOC_KM_BLOCK,
+        backend="streamed", path=path)
+    gen_s = time.perf_counter() - t0
+    nbytes = ds_s.n2 * ds_s.pd * ds_s.itemsize
+    dss = {"streamed": ds_s,
+           "virtual": ShardedDataset.from_array(
+               np.array(ds_s.storage), mesh, block_rows=OOC_KM_BLOCK,
+               meta=ds_s.meta),
+           "resident": ShardedDataset.from_array(
+               ds_s.storage, mesh, block_rows=OOC_KM_BLOCK, meta=ds_s.meta,
+               backend="resident")}
+    cfg = kmeans.KMeansConfig(k=OOC_KM_K, seed=0)
+    c0 = kmeans.init_centers_from_dataset(ds_s, OOC_KM_K, cfg.seed)
+    out, centers = {"generation_s": gen_s, "dataset_bytes": nbytes}, {}
+    step_bytes = ds_s.h2d_bytes_per_step(OOC_KM_BLOCKS)
+    for name, ds in dss.items():
+        kmeans.fit_minibatch(ds, cfg, n_steps=3, mini_batch_blocks=OOC_KM_BLOCKS,
+                             centers0=c0)       # warm
+        _sync(dev)
+        _reset_launches()
+        t1 = time.perf_counter()
+        res = kmeans.fit_minibatch(ds, cfg, n_steps=OOC_KM_STEPS,
+                                   mini_batch_blocks=OOC_KM_BLOCKS, centers0=c0)
+        _sync(dev)
+        rate = OOC_KM_STEPS / (time.perf_counter() - t1)
+        _want_launches(f"kmeans {name}", _launches(), {})
+        centers[name] = res.centers
+        out[name] = {"steps_per_s": rate,
+                     "achieved_gb_per_s": step_bytes * rate / 1e9}
+    if not (torch.equal(centers["streamed"], centers["virtual"])
+            and torch.equal(centers["virtual"], centers["resident"])):
+        raise AssertionError("kmeans: centres differ across backends")
+    got = centers["streamed"].cpu().numpy()
+    d2 = np.linalg.norm(got[:, None, :] - truth[None, :, :], axis=-1)
+    worst = float(d2.min(axis=1).max())
+    recovered = (sorted(d2.argmin(axis=1).tolist()) == list(range(OOC_KM_K))
+                 and worst < OOC_KM_RECOVER)
+    if not recovered:
+        raise AssertionError(f"kmeans: centres_recovered false (worst "
+                             f"{worst})")
+    out.update(centers_recovered=recovered, worst=worst,
+               h2d_bytes_per_step=step_bytes)
+    print(f"[kmeans stream] {OOC_KM_POINTS} points x {OOC_KM_DIM} (k {OOC_KM_K}, "
+          f"{nbytes} bytes) made in {gen_s!r} s; {OOC_KM_STEPS} steps of "
+          f"{OOC_KM_BLOCKS} blocks: {json.dumps(out)}; centres bit for bit "
+          f"across streamed, virtual, resident; every true mean recovered")
+    del dss, ds_s
+    for suffix in (".bin", ".meta.json"):
+        os.remove(path + suffix)
+    return out
+
+
+def _als_streamed(dev, workdir: str) -> dict:
+    """(d) streamed ALS: one sweep and one rmse pass, each backend."""
+    import torch
+
+    from tpu_distalg_torch.data import ShardedDataset, builders
+    from tpu_distalg_torch.models import als
+    from tpu_distalg_torch.parallel import get_mesh
+
+    mesh = get_mesh(data=1, device=dev)
+    path = os.path.join(workdir, "als")
+    t0 = time.perf_counter()
+    ds_s, _ = builders.rank_k_rows_dataset(
+        mesh, OOC_ALS_M, OOC_ALS_N, OOC_ALS_K, seed=0, block_rows=OOC_ALS_BLOCK,
+        backend="streamed", path=path)
+    gen_s = time.perf_counter() - t0
+    nbytes = ds_s.n2 * ds_s.pd * ds_s.itemsize
+    dss = {"resident": ShardedDataset.from_array(
+               ds_s.storage, mesh, block_rows=OOC_ALS_BLOCK, meta=ds_s.meta,
+               backend="resident"),
+           "virtual": ShardedDataset.from_array(
+               np.array(ds_s.storage), mesh, block_rows=OOC_ALS_BLOCK,
+               meta=ds_s.meta),
+           "streamed": ds_s}
+    cfg = als.ALSConfig(m=OOC_ALS_M, n=OOC_ALS_N, k=OOC_ALS_K, lam=0.0, n_iterations=1)
+    out, res = {"generation_s": gen_s, "dataset_bytes": nbytes}, {}
+    for name, ds in dss.items():
+        _sync(dev)
+        _reset_launches()
+        t1 = time.perf_counter()
+        res[name] = als.fit_streamed(ds, cfg, rmse_every=0)
+        _sync(dev)
+        dt = time.perf_counter() - t1
+        _want_launches(f"als {name}", _launches(), {})
+        out[name] = {"sweeps_per_s": 1 / dt, "rows_solved_per_s": OOC_ALS_M / dt,
+                     "achieved_gb_per_s": 2 * nbytes / dt / 1e9,
+                     "rmse_after_1_sweep": float(res[name].rmse_history[-1])}
+    for name in ("virtual", "streamed"):
+        for f in ("U", "V", "rmse_history"):
+            if not torch.equal(getattr(res[name], f),
+                               getattr(res["resident"], f)):
+                raise AssertionError(f"als: {name} {f} differs from "
+                                     f"resident")
+    print(f"[als stream] R {OOC_ALS_M} x {OOC_ALS_N} rank {OOC_ALS_K} f32 ({nbytes} "
+          f"bytes) made in {gen_s!r} s; one sweep + one rmse pass, blocks of "
+          f"{OOC_ALS_BLOCK} rows: {json.dumps(out)}; U, V, rmse bit for bit "
+          f"across resident, virtual, streamed")
+    del dss, ds_s
+    for suffix in (".bin", ".meta.json"):
+        os.remove(path + suffix)
+    return out
+
+
+def run_out_of_core(dev) -> dict:
+    """Phase 14: the data subsystem's four consumers, each path driven
+    with the launch counters set to 0 just before it and read just
+    after; the caches live under ``build/`` and are deleted."""
+    import shutil
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase14")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        # virtual first: its host RSS check reads the peak so far
+        out = {"virtual": _virtual_ssgd(dev)}
+        out["stream"] = _stream_ssgd(dev, workdir)
+        out["kmeans"] = _kmeans_streamed(dev, workdir)
+        out["als"] = _als_streamed(dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def _phase(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[time] {name}: {now - t0!r} s")
@@ -4742,6 +5218,9 @@ def main() -> int:
     del sg["X"], sg["y"]
     t0 = _phase("mc + closure + fixed + scale", t0)
 
+    ooc = run_out_of_core(dev)
+    t0 = _phase("out-of-core: streamed + virtual ssgd, kmeans, als", t0)
+
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"
     kernels = [{
@@ -4772,7 +5251,9 @@ def main() -> int:
             **({"sync_launches": _sync_launches(sync, key)}
                if key in ("B1", "B2", "B5") else {}),
             **({"scale_launches": rest["scale"]["launches"],
-                **rest["scale"]["rec"]} if key == "B1" else {})})
+                **rest["scale"]["rec"],
+                "stream_launches": ooc["stream"]["launches"],
+                **ooc["stream"]["b1"]} if key == "B1" else {})})
     for key, name, line in (("B3", "fused_forward_gathered", 590),
                             ("B4", "fused_backward_gathered", 668)):
         main, wide = tp["main"][key], tp["wide"][key]

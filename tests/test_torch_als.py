@@ -294,7 +294,13 @@ def test_refit_into_its_own_directory_resumes(tmp_path, cpu1):
 
 
 def test_unported_backends_name_their_item():
-    with pytest.raises(NotImplementedError, match="A10"):
-        als.fit_streamed()
+    """``fit_rowstore`` still waits for ROADMAP A12; ``fit_streamed``
+    (A10's rows, ``tests/test_torch_data.py``) runs over a dataset."""
+    from tpu_distalg_torch.data import builders
+
+    ds, _ = builders.rank_k_rows_dataset(get_mesh(device="cpu"), 16, 8, 2,
+                                         block_rows=4, backend="virtual")
+    res = als.fit_streamed(ds, als.ALSConfig(k=2, n_iterations=2))
+    assert res.U.shape == (16, 2) and res.rmse_history.shape == (2,)
     with pytest.raises(NotImplementedError, match="A12"):
         als.fit_rowstore()

@@ -300,13 +300,22 @@ def test_fit_scaled_farthest_init_recovers_k8(n_shards, tmp_path):
 
 
 def test_minibatch_entry_points_name_their_roadmap_item():
+    """The minibatch entry points (A10's rows, ported) run over a
+    ShardedDataset: the init, a step, a fit (against the JAX package and
+    across backends in ``tests/test_torch_data.py``)."""
+    from tpu_distalg_torch.data import builders
+
     cfg = kmeans.KMeansConfig(k=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        kmeans.fit_minibatch(None, cfg, n_steps=3)
-    with pytest.raises(NotImplementedError, match="A10"):
-        kmeans.make_minibatch_step_fn(_mesh(), 2, 3)
-    with pytest.raises(NotImplementedError, match="A10"):
-        kmeans.init_centers_from_dataset(None, 2, 0)
+    ds, _ = builders.gaussian_points_dataset(_mesh(), 512, dim=3, k=2,
+                                             block_rows=64, backend="virtual")
+    c0 = kmeans.init_centers_from_dataset(ds, 2, 0)
+    assert c0.shape == (2, 3)
+    step = kmeans.make_minibatch_step_fn(_mesh(), 2, 3)
+    centers, seen = step(ds.stage(np.zeros((1, 2), np.int64)), c0,
+                         torch.zeros(2))
+    assert float(seen.sum()) == 128
+    res = kmeans.fit_minibatch(ds, cfg, n_steps=3, centers0=c0)
+    assert res.centers.shape == (2, 3) and res.n_iterations_run == 3
 
 
 def test_kmeans_params_from_jax(mesh8):
@@ -347,8 +356,13 @@ def test_cli_kmeans_lines(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "iterations run: 4"
     assert checkpoint.latest_step(str(tmp_path)) == 4
-    for args, item in ((("--minibatch-steps", "3"), "A10"),
-                       (("--data-backend", "streamed"), "A10"),
+    out = _cli("--minibatch-steps", "3", "--n-points", "5000",
+               "--block-rows", "256")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == (
+        "minibatch steps run: 3 (backend=resident)")
+    for args, item in ((("--data-backend", "streamed"),
+                        "needs --stream-cache"),
                        (("--max-restarts", "1"), "A12")):
         out = _cli(*args)
         assert out.returncode != 0 and item in out.stderr

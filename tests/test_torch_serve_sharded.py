@@ -361,7 +361,8 @@ def test_cli_refusals_name_their_item():
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     base = [sys.executable, "-m", "tpu_distalg_torch.cli", "--device", "cpu",
             "als", "--n-iterations", "1"]
-    for extra, want in ((["--data-backend", "streamed"], "A10"),
+    for extra, want in ((["--data-backend", "streamed"],
+                         "needs --stream-cache"),
                         (["--max-restarts", "1"], "A12"),
                         (["--mesh-shape", "2x2", "--n-slices", "2"],
                          "--mesh-shape and --n-slices both set")):

@@ -169,16 +169,17 @@ def test_fused_train_validation(data):
 
 @pytest.mark.parametrize("change,item", [
     (dict(comm="bucketed"), None),
-    (dict(sampler="virtual"), "A10"), (dict(comm="int8"), None),
-    (dict(sync="ssp:4"), None)],
+    (dict(sampler="virtual"), "unknown sampler 'virtual'"),
+    (dict(comm="int8"), None), (dict(sync="ssp:4"), None)],
     ids=["bucketed-trains", "virtual-A10", "int8-trains", "ssp-trains"])
 def test_configs_train_or_name_their_item(data, change, item):
-    """``virtual`` still raises naming ROADMAP A10; the schedules and
-    SSP are ported, so those configurations train (against the JAX
-    package in ``tests/test_torch_comms_trainers.py`` and
+    """``virtual`` (A10, ported) trains through ``models/ssgd_virtual``,
+    and ``ssgd.train`` refuses it in the JAX package's words; the
+    schedules and SSP train (against the JAX package in
+    ``tests/test_torch_comms_trainers.py`` and
     ``tests/test_torch_ssp.py``)."""
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=item):
             _port(data, 1, ssgd.SSGDConfig(n_iterations=5, **change))
         return
     res = _port(data, 1, ssgd.SSGDConfig(n_iterations=5, **change))

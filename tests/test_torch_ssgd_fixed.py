@@ -140,10 +140,16 @@ def test_fixed_refusals_in_jax_words(data, jmeshes, change, match):
     assert msgs[0] == msgs[1]
 
 
-def test_virtual_still_names_a10(data):
-    with pytest.raises(NotImplementedError, match="A10"):
+def test_virtual_still_names_a10(data, jmeshes):
+    """The ``virtual`` sampler (A10, now ``models/ssgd_virtual.py``) is
+    refused by ``ssgd.train`` as the JAX package refuses it."""
+    with pytest.raises(ValueError) as got:
         ssgd.train(*data, get_mesh(1, device="cpu"),
                    ssgd.SSGDConfig(n_iterations=5, sampler="virtual"))
+    with pytest.raises(ValueError) as want:
+        jssgd.train(*data, jmeshes[1],
+                    jssgd.SSGDConfig(n_iterations=5, sampler="virtual"))
+    assert str(got.value) == str(want.value)
 
 
 def test_cli_ssgd_fixed_runs_on_the_cpu():

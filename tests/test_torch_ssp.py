@@ -181,7 +181,7 @@ def test_fault_plan_spellings_and_registry_equal_jax(tmp_path):
 @pytest.mark.parametrize("plan", ["seed=1;ckpt:write@1=oserror",
                                   "seed=1;segment:run@*=hang:0.1",
                                   "seed=1;shard:leave@1=leave;"
-                                  "data:gather@p0.2=kill"])
+                                  "backend:init@p0.2=kill"])
 def test_plan_without_a_port_seam_is_refused(plan, monkeypatch):
     """A rule at a point the port has no seam for would never fire:
     configure refuses it, naming ROADMAP A12, from the argument and

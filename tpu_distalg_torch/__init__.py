@@ -23,5 +23,8 @@ one-pass cluster-statistics kernel (``ops/kmeans_kernels.py``,
 ``csrc/kmeans.cu``), its artifacts and SSGD's served beside ALS's; the
 SGD family's sync schedules and stale-synchronous training
 (``parallel/comms.py``, ``parallel/ssp.py``, ``parallel/membership.py``,
-``faults/registry.py``).
+``faults/registry.py``); the out-of-core data subsystem (``data/``:
+packed caches, ``ShardedDataset``'s three backends, the pinned prefetch
+pipeline) with streamed and virtual SSGD (``models/ssgd_stream.py``,
+``models/ssgd_virtual.py``), minibatch k-means and streamed ALS.
 """

@@ -26,6 +26,12 @@ Monte-Carlo π, and serving ALS, k-means and LR artifacts.
         --comm int8 --quiet              # the gradient sync's schedules
     python -m tpu_distalg_torch.cli ssgd --n-slices 4 --sync ssp:4 \
         --fault-plan "seed=7;shard:straggle@p0.25=straggle:8"
+    python -m tpu_distalg_torch.cli ssgd --stream-cache build/s \
+        --stream-rows 4194304 --gather-block-rows 2048  # rows from disk
+    python -m tpu_distalg_torch.cli kmeans --data-backend streamed \
+        --stream-cache build/pts --scale-points 1048576 --k 8
+    python -m tpu_distalg_torch.cli als --data-backend virtual \
+        --m 4096 --n 4096 --k 16 --rmse-every 0
 
 The lines printed match the JAX package's ``tda lr``, ``tda ssgd``,
 ``tda ma``, ``tda bmuf``, ``tda easgd``, ``tda als``, ``tda serve``,
@@ -111,6 +117,18 @@ def _parser() -> argparse.ArgumentParser:
     o.add_argument("--checkpoint-dir", type=str, default=None,
                    help="segmented checkpoint/resume directory")
     o.add_argument("--checkpoint-every", type=int, default=500)
+    o.add_argument("--stream-cache", type=str, default=None,
+                   metavar="PATH",
+                   help="train the streamed path from a disk-backed packed "
+                        "dataset at PATH (created by utils.datasets."
+                        "streamed_packed_cache if missing — see "
+                        "--stream-rows); sampled blocks are gathered on the "
+                        "host and staged per step (models/ssgd_stream.py). "
+                        "Ignores --sampler/--x-dtype/--shuffle-seed (the "
+                        "cache fixes the bf16 dtype and row layout); "
+                        "rejects --mega-steps")
+    o.add_argument("--stream-rows", type=int, default=1 << 22,
+                   help="rows to generate when --stream-cache is new")
     _add_comm(o)
     _add_sync(o)
     _add_fault_plan(o)
@@ -123,11 +141,11 @@ def _parser() -> argparse.ArgumentParser:
     a.add_argument("--lam", type=float, default=0.01)
     a.add_argument("--n-iterations", type=int, default=5)
     a.add_argument("--seed", type=int, default=0)
-    a.add_argument("--data-backend", default="resident",
-                   choices=["resident", "virtual", "streamed"],
-                   help="where R lives: resident = device memory (the one "
-                        "ported backend; streamed and virtual wait for "
-                        "ROADMAP A10)")
+    _add_data_backend(a, block_rows=256)
+    a.add_argument("--rmse-every", type=int, default=1,
+                   help="streamed/virtual backends: stream one extra RMSE "
+                        "evaluation pass every N sweeps (0 = once after "
+                        "the final sweep — each pass re-reads R)")
     a.add_argument("--checkpoint-dir", default=None,
                    help="segmented checkpoint/resume directory; its last "
                         "checkpoint is the serving artifact")
@@ -172,14 +190,14 @@ def _parser() -> argparse.ArgumentParser:
                         "--n-points)")
     c.add_argument("--dim", type=int, default=16,
                    help="point dimension for --scale-points")
-    c.add_argument("--data-backend", default="resident",
-                   choices=["resident", "virtual", "streamed"],
-                   help="where the points live: resident = device memory "
-                        "(the one ported backend; streamed and virtual "
-                        "wait for ROADMAP A10)")
+    _add_data_backend(c, block_rows=2048)
+    c.add_argument("--mini-batch-blocks", type=int, default=4,
+                   help="blocks per shard per minibatch step (minibatch "
+                        "engine)")
     c.add_argument("--minibatch-steps", type=int, default=0,
-                   help="minibatch k-means over a ShardedDataset: waits "
-                        "for ROADMAP A10; only 0 is accepted")
+                   help="run the minibatch engine for N steps over the "
+                        "ShardedDataset (0 = classic full-batch Lloyd when "
+                        "--data-backend resident, 100 otherwise)")
     c.add_argument("--checkpoint-dir", type=str, default=None,
                    help="segmented checkpoint/resume directory")
     c.add_argument("--checkpoint-every", type=int, default=100)
@@ -212,7 +230,7 @@ def _parser() -> argparse.ArgumentParser:
                    choices=["resident", "virtual", "streamed"],
                    help="where the edge set lives: resident = device "
                         "memory (the one ported backend; streamed and "
-                        "virtual wait for ROADMAP A10)")
+                        "virtual wait for the graph half of ROADMAP A10)")
     g.add_argument("--checkpoint-dir", type=str, default=None,
                    help="segmented checkpoint/resume directory")
     g.add_argument("--checkpoint-every", type=int, default=5)
@@ -244,6 +262,37 @@ def _parser() -> argparse.ArgumentParser:
     _add_max_restarts(m)
     _add_fault_plan(m)
     return p
+
+
+def _add_data_backend(p, block_rows: int) -> None:
+    """The data-placement knob (``tpu_distalg_torch/data/``), as the JAX
+    CLI gives it (``tpu_distalg/cli.py:148-166``): a placement, not an
+    algorithm knob — staged batches are bitwise equal across backends."""
+    p.add_argument("--data-backend", default="resident",
+                   choices=["resident", "virtual", "streamed"],
+                   help="where the dataset lives: resident = device "
+                        "memory, virtual = host RAM, streamed = disk "
+                        "packed cache (needs --stream-cache); virtual/"
+                        "streamed stage sampled blocks through the "
+                        "prefetch pipeline (tpu_distalg_torch/data/)")
+    p.add_argument("--stream-cache", type=str, default=None,
+                   metavar="PATH",
+                   help="packed-cache path for --data-backend streamed "
+                        "(created on first use)")
+    p.add_argument("--block-rows", type=int, default=block_rows,
+                   help="rows per gathered block (the out-of-core "
+                        "transfer granularity)")
+
+
+def _uses_data(args) -> bool:
+    """True when the run goes through the data subsystem (the streamed
+    SSGD trainer, minibatch k-means, streamed ALS)."""
+    if args.cmd == "ssgd":
+        return args.stream_cache is not None
+    if args.cmd in ("kmeans", "als"):
+        return (args.data_backend != "resident"
+                or bool(getattr(args, "minibatch_steps", 0)))
+    return False
 
 
 def _add_mesh_flags(p) -> None:
@@ -306,32 +355,49 @@ def _add_fault_plan(p) -> None:
              "($TDA_FAULT_PLAN is the default). The port injects at "
              "shard:straggle (kind straggle) and shard:leave (kind "
              "leave), compiled into the --sync ssp schedules of ssgd, "
-             "ma, bmuf and easgd; the same plan+seed replays bitwise. "
-             "A plan on any other run, or with any other point, is "
-             "refused: those seams wait for ROADMAP A12")
+             "ma, bmuf and easgd, and at data:gather, data:h2d and "
+             "cache:write on the runs through the data subsystem (ssgd "
+             "--stream-cache, kmeans and als off the resident backend); "
+             "the same plan+seed replays bitwise. A rule no seam of the "
+             "run reads, or at any other point, is refused: those seams "
+             "wait for ROADMAP A12")
 
 
 def _refuse_unread_plan(args) -> None:
-    """A plan that no seam of this run reads would never fire: only the
-    SSP runs of ssgd and the local-update family compile one."""
+    """A rule that no seam of this run reads would never fire: the SSP
+    runs of ssgd and the local-update family compile the shard points,
+    the runs through the data subsystem fire the data points."""
     from tpu_distalg_torch import faults
     from tpu_distalg_torch.parallel import ssp as pssp
 
-    if not faults.enabled():
+    reg = faults.active()
+    if reg is None:
         return
     try:
         is_ssp = pssp.SyncSpec.parse(getattr(args, "sync", "bsp")).is_ssp
     except ValueError:
         return  # the trainer refuses the spelling in JAX's words
+    reads = set()
     if is_ssp and args.cmd in ("ssgd", "ma", "bmuf", "easgd"):
+        reads |= {"shard:straggle", "shard:leave"}
+    if _uses_data(args):
+        reads |= {"data:gather", "data:h2d", "cache:write"}
+    unread = sorted({r.point for r in reg.plan.rules} - reads)
+    if not unread:
         return
     run = f"{args.cmd} --sync {args.sync}" if hasattr(args, "sync") \
         else args.cmd
+    if not reads:
+        raise SystemExit(
+            f"--fault-plan: {run} reads no fault plan (the port compiles "
+            f"shard:straggle and shard:leave into the --sync ssp runs of "
+            f"ssgd, ma, bmuf and easgd, and fires data:gather, data:h2d "
+            f"and cache:write on the runs through the data subsystem); "
+            f"injection at the other seams waits for ROADMAP A12")
     raise SystemExit(
-        f"--fault-plan: {run} reads no fault plan (the port compiles "
-        f"shard:straggle and shard:leave into the --sync ssp runs of "
-        f"ssgd, ma, bmuf and easgd only); injection at the other seams "
-        f"waits for ROADMAP A12")
+        f"--fault-plan: {run} reads no rule at {', '.join(unread)} (it "
+        f"reads {', '.join(sorted(reads))}); injection at the other "
+        f"seams waits for ROADMAP A12")
 
 
 def _add_max_restarts(p) -> None:
@@ -503,6 +569,46 @@ def _mega_steps(args, default: int) -> int:
     return mega
 
 
+def _run_ssgd_stream(args, mesh) -> None:
+    """``ssgd --stream-cache``: the streamed trainer over a disk cache
+    of the two-class task (``tpu_distalg/cli.py:1181-1220``)."""
+    import time
+
+    from tpu_distalg_torch.models import ssgd, ssgd_stream
+    from tpu_distalg_torch.utils import datasets
+
+    if args.mega_steps is not None:
+        raise SystemExit(
+            "--mega-steps applies to sampler=fused_train only; "
+            "the streamed path runs one kernel per step")
+    if args.comm != "dense":
+        raise SystemExit(
+            "--comm applies to the in-memory trainers; the "
+            "streamed trainer (--stream-cache) stages blocks "
+            "host->device per step and syncs dense")
+    if args.sync != "bsp":
+        raise SystemExit(
+            "--sync ssp applies to the in-memory trainers; "
+            "the streamed trainer (--stream-cache) runs BSP")
+    X2, meta, (X_te, y_te) = datasets.streamed_packed_cache(
+        args.stream_cache, n_rows=args.stream_rows, n_features=125,
+        n_shards=mesh.n_data, pack=args.fused_pack,
+        gather_block_rows=args.gather_block_rows)
+    cfg = ssgd.SSGDConfig(
+        n_iterations=args.n_iterations, eta=args.eta,
+        mini_batch_fraction=args.mini_batch_fraction, lam=args.lam,
+        reg_type=args.reg_type, fused_pack=args.fused_pack,
+        gather_block_rows=args.gather_block_rows, sampler="fused_gather",
+        shuffle_seed=None, eval_every=max(1, args.n_iterations // 10))
+    t0 = time.perf_counter()
+    res = ssgd_stream.train(X2, meta, mesh, cfg, X_te, y_te,
+                            checkpoint_dir=args.checkpoint_dir,
+                            checkpoint_every=args.checkpoint_every)
+    w = res.w.cpu()   # waits for the card
+    _report("ssgd", dataclasses.replace(res, w=w), args,
+            time.perf_counter() - t0)
+
+
 def _run_ssgd(args) -> None:
     import time
 
@@ -510,7 +616,6 @@ def _run_ssgd(args) -> None:
     from tpu_distalg_torch.parallel import get_mesh
     from tpu_distalg_torch.utils import datasets
 
-    data = datasets.breast_cancer_split()
     n_data, n_model = args.n_slices or 1, 1
     if args.mesh_shape:
         if args.n_slices > 0:
@@ -527,6 +632,9 @@ def _run_ssgd(args) -> None:
             f"which composes with sampler=bernoulli or fused_gather (got "
             f"{args.sampler!r})")
     mesh = get_mesh(data=n_data, model=n_model, device=args.device)
+    if args.stream_cache is not None:
+        return _run_ssgd_stream(args, mesh)
+    data = datasets.breast_cancer_split()
     kw = dict(
         n_iterations=args.n_iterations, eta=args.eta,
         mini_batch_fraction=args.mini_batch_fraction, lam=args.lam,
@@ -559,12 +667,28 @@ def _run_kmeans(args) -> None:
     if args.max_restarts != 0:
         raise SystemExit("--max-restarts waits for the faults slice "
                          "(ROADMAP A12); only 0 is accepted")
-    if args.data_backend != "resident" or args.minibatch_steps:
-        raise SystemExit(
-            "[kmeans] --data-backend other than resident and "
-            "--minibatch-steps run minibatch k-means over a ShardedDataset "
-            "(the data subsystem), which is not ported yet (ROADMAP A10)")
     mesh = get_mesh(data=args.n_slices or None, device=args.device)
+    if _uses_data(args):
+        # the out-of-core engine: the mixture behind a ShardedDataset
+        # (host memory or a disk cache) and minibatch k-means over it
+        from tpu_distalg_torch.data import builders
+
+        if args.checkpoint_dir:
+            raise SystemExit(
+                "--checkpoint-dir is not supported by the minibatch "
+                "engine yet (state is tiny; rerun instead)")
+        _need_stream_cache(args)
+        ds, _ = builders.gaussian_points_dataset(
+            mesh, args.scale_points or args.n_points or (1 << 20),
+            dim=args.dim, k=args.k, seed=0, block_rows=args.block_rows,
+            backend=args.data_backend, path=args.stream_cache)
+        res = m.fit_minibatch(ds, m.KMeansConfig(k=args.k),
+                              n_steps=args.minibatch_steps or 100,
+                              mini_batch_blocks=args.mini_batch_blocks)
+        print(f"Final centers: {res.centers.cpu().tolist()}")
+        print(f"minibatch steps run: {res.n_iterations_run} "
+              f"(backend={args.data_backend})")
+        return
     ckpt = dict(checkpoint_dir=args.checkpoint_dir,
                 checkpoint_every=args.checkpoint_every)
     if args.scale_points:
@@ -583,6 +707,47 @@ def _run_kmeans(args) -> None:
             converge_dist=args.converge_dist), **ckpt)
     print(f"Final centers: {res.centers.cpu().tolist()}")
     print(f"iterations run: {res.n_iterations_run}")
+
+
+def _need_stream_cache(args) -> None:
+    if args.data_backend == "streamed" and not args.stream_cache:
+        raise SystemExit(
+            "--data-backend streamed needs --stream-cache PATH "
+            "(the on-disk packed cache to create or reopen)")
+
+
+def _run_als(args) -> None:
+    """``als``: the mesh fit, or with ``--data-backend`` virtual or
+    streamed the sweep over R streamed from a ShardedDataset
+    (``tpu_distalg/cli.py:1546-1575``)."""
+    from tpu_distalg_torch.models import als
+
+    mesh = _mesh(args)
+    cfg = als.ALSConfig(lam=args.lam, m=args.m, n=args.n, k=args.k,
+                        n_iterations=args.n_iterations, seed=args.seed)
+    if _uses_data(args):
+        from tpu_distalg_torch.data import builders
+
+        if args.checkpoint_dir:
+            raise SystemExit("--checkpoint-dir is not supported by the "
+                             "streamed ALS path yet")
+        _need_stream_cache(args)
+        ds, _ = builders.rank_k_rows_dataset(
+            mesh, args.m, args.n, args.k, seed=cfg.seed,
+            block_rows=args.block_rows, backend=args.data_backend,
+            path=args.stream_cache)
+        res = als.fit_streamed(ds, cfg, rmse_every=args.rmse_every)
+    else:
+        res = als.fit(mesh, cfg, checkpoint_dir=args.checkpoint_dir,
+                      checkpoint_every=args.checkpoint_every)
+    for t, e in enumerate(res.rmse_history.cpu().numpy()):
+        print(f"iterations: {t}, rmse: {float(e):f}")
+    if args.checkpoint_dir:
+        from tpu_distalg_torch.telemetry import events as tevents
+
+        tevents.emit("artifact_path", workload="als",
+                     path=args.checkpoint_dir)
+        print(f"artifact_path: {args.checkpoint_dir}")
 
 
 def _serve_payloads(model, rng, n: int) -> list:
@@ -676,25 +841,7 @@ def main(argv=None) -> int:
             mesh, monte_carlo.MonteCarloConfig(n=args.n))
         print(f"Pi is roughly {pi:f}")
     elif args.cmd == "als":
-        from tpu_distalg_torch.models import als
-
-        if args.data_backend != "resident":
-            raise SystemExit(f"--data-backend {args.data_backend} (R behind "
-                             f"a ShardedDataset) waits for the out-of-core "
-                             f"slice, ROADMAP A10")
-        mesh = _mesh(args)
-        cfg = als.ALSConfig(lam=args.lam, m=args.m, n=args.n, k=args.k,
-                            n_iterations=args.n_iterations, seed=args.seed)
-        res = als.fit(mesh, cfg, checkpoint_dir=args.checkpoint_dir,
-                      checkpoint_every=args.checkpoint_every)
-        for t, e in enumerate(res.rmse_history.cpu().numpy()):
-            print(f"iterations: {t}, rmse: {float(e):f}")
-        if args.checkpoint_dir:
-            from tpu_distalg_torch.telemetry import events as tevents
-
-            tevents.emit("artifact_path", workload="als",
-                         path=args.checkpoint_dir)
-            print(f"artifact_path: {args.checkpoint_dir}")
+        _run_als(args)
     elif args.cmd == "serve":
         import numpy as np
 

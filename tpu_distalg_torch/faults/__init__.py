@@ -1,7 +1,8 @@
 """Seeded fault plans: the part of the JAX package's ``faults/`` that
-compiles a plan into SSP straggle and membership schedules
-(:mod:`registry`). The chaos harness, preemption and the injection
-seams at checkpoint, data and segment boundaries wait for ROADMAP A12."""
+compiles a plan into SSP straggle and membership schedules and fires
+at the data subsystem's seams (:mod:`registry`). The chaos harness,
+preemption and the injection seams at checkpoint and segment
+boundaries wait for ROADMAP A12."""
 
 from tpu_distalg_torch.faults import registry
 from tpu_distalg_torch.faults.registry import (

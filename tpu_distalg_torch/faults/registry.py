@@ -17,10 +17,11 @@ gives the port the straggle schedule and the membership epochs JAX
 gives it (``parallel/ssp.compile_straggle_schedule``,
 ``parallel/membership.compile_epochs``).
 
-The port has seams for those two points only. :func:`configure` refuses
-a plan with a rule at any other point, naming ROADMAP A12 (the chaos
-harness, preemption and the I/O seams): a plan that never fires would
-be a silent lie.
+The port has seams at those two points and at the data subsystem's
+(``data:gather`` and ``data:h2d`` in ``data/sharded.py``, ``cache:write``
+in ``data/cache.py``). :func:`configure` refuses a plan with a rule at
+any other point, naming ROADMAP A12 (the chaos harness, preemption and
+the other I/O seams): a plan that never fires would be a silent lie.
 
 Plan spec (``--fault-plan`` / ``$TDA_FAULT_PLAN``): a JSON file
 (``{"seed": 42, "rules": [{"point": ..., "hit": 2|"*", "prob": 0.1,
@@ -62,8 +63,10 @@ POINTS = (
     "cluster:ps",
 )
 
-#: the points with a seam in the port: the SSP schedule compilers
-PORTED_POINTS = ("shard:straggle", "shard:leave")
+#: the points with a seam in the port: the SSP schedule compilers and
+#: the data subsystem
+PORTED_POINTS = ("shard:straggle", "shard:leave", "data:gather", "data:h2d",
+                 "cache:write")
 
 KINDS = ("oserror", "hang", "corrupt", "kill", "straggle", "leave")
 
@@ -341,7 +344,7 @@ def check_ported(plan: FaultPlan) -> None:
         raise ValueError(
             f"fault plan {plan.spec()!r} has rules at "
             f"{', '.join(other)}: the port injects at "
-            f"{' and '.join(PORTED_POINTS)} only; the other seams wait "
+            f"{', '.join(PORTED_POINTS)} only; the other seams wait "
             f"for ROADMAP A12")
 
 

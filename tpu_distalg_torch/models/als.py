@@ -29,9 +29,10 @@ their padded shapes), which resumes from the directory and refuses a
 checkpoint past ``n_iterations`` or of another workload or shape; the
 last segment's checkpoint is the serving artifact
 (``serve/artifacts.load_artifact``). Sweeps draw nothing, so a
-segmented run equals a straight one bit for bit. ``fit_streamed`` waits
-for ROADMAP A10 and ``fit_rowstore`` for A12; restarts after a failed
-segment wait for A12.
+segmented run equals a straight one bit for bit. :func:`fit_streamed`
+runs the sweep over R streamed from a ``ShardedDataset`` (``data/``);
+``fit_rowstore`` waits for ROADMAP A12, and so do restarts after a
+failed segment.
 """
 
 from __future__ import annotations
@@ -193,10 +194,74 @@ def fit(mesh: Mesh, config: ALSConfig = ALSConfig(),
                      rmse_history=torch.as_tensor(errs, device=mesh.device))
 
 
-def fit_streamed(*args, **kwargs):
-    """ALS over R streamed from a sharded dataset: not ported."""
-    raise NotImplementedError("ALS fit_streamed (R behind a ShardedDataset) "
-                              "waits for the out-of-core slice, ROADMAP A10")
+def fit_streamed(dataset, config: ALSConfig | None = None, *,
+                 rmse_every: int = 1) -> ALSResult:
+    """ALS over a :class:`~tpu_distalg_torch.data.ShardedDataset` of R's
+    rows (``dense_rows_f32``), ``models/als.py:227-360`` of the JAX
+    package: R is never resident. A sweep streams the row blocks once
+    (one block a shard a step, through the prefetch pipeline): each
+    block's U rows solve against the sweep's V (one float64 Cholesky
+    factor of VᵀV + λ·n·I), and the contractions UᵀR (k, n, float32)
+    and UᵀU (k, k, float64) accumulate over blocks, each block's shards
+    added in shard order; V then solves against them (λ·m·I), as the
+    resident sweep does with its n-column contraction spread over
+    blocks. ``rmse_every=r`` streams one more pass for the rmse every
+    r-th sweep (0: once, after the last sweep). The builder's zero
+    padding rows solve to zero U rows and touch nothing; U is cut back
+    to the true m. A run is bitwise equal across backends (the same
+    staged bytes, the same ops)."""
+    import contextlib
+
+    from tpu_distalg_torch.telemetry import events as tevents
+
+    meta, dev = dataset.meta, dataset.device
+    m_true, n = int(meta.get("m", dataset.n2)), dataset.pd
+    if config is None:
+        config = ALSConfig(m=m_true, n=n, k=int(meta.get("k", 10)))
+    if (config.m, config.n) != (m_true, n):
+        config = dataclasses.replace(config, m=m_true, n=n)
+    k, S = config.k, dataset.n_shards
+    rng = np.random.default_rng(config.seed + 1)
+    V = torch.from_numpy(rng.random((n, k), dtype=np.float32)).to(dev)
+    # every pass takes the blocks in order, block b on every shard
+    ids = np.tile(np.arange(dataset.n_blocks, dtype=np.int64)[:, None, None],
+                  (1, S, 1))
+    denom = config.m * config.n
+    errs = []
+    for sweep in range(config.n_iterations):
+        tevents.mark(f"als_stream:sweep@{sweep}", emit_event=False)
+        L = torch.linalg.cholesky(linalg.regularise(
+            linalg.gram_part(V), config.lam, n))
+        C = torch.zeros((k, n), dtype=torch.float32, device=dev)
+        UtU = torch.zeros((k, k), dtype=torch.float64, device=dev)
+        us = []
+        with contextlib.closing(dataset.stream(ids)) as batches:
+            for staged in batches:
+                U_b = [linalg.solve_rhs(L, V.T @ staged[s].T)
+                       for s in range(S)]
+                C_inc, UtU_inc = collectives.tree_allreduce_sum(
+                    (u.T @ staged[s], linalg.gram_part(u))
+                    for s, u in enumerate(U_b))
+                C, UtU = C + C_inc, UtU + UtU_inc
+                us.append(torch.stack(U_b))
+        V = linalg.solve_rhs(torch.linalg.cholesky(linalg.regularise(
+            UtU, config.lam, config.m)), C)
+        if (rmse_every and (sweep + 1) % rmse_every == 0) or (
+                sweep + 1 == config.n_iterations):
+            sq = torch.zeros((), dtype=torch.float32, device=dev)
+            with contextlib.closing(dataset.stream(ids)) as batches:
+                for b, staged in enumerate(batches):
+                    (part,) = collectives.tree_allreduce_sum(
+                        (linalg.sq_err(staged[s], us[b][s], V),)
+                        for s in range(S))
+                    sq = sq + part
+            errs.append(torch.sqrt(sq / denom))
+    U = (torch.stack(us, dim=1).reshape(dataset.n2, k) if us
+         else torch.zeros((dataset.n2, k), dtype=torch.float32, device=dev))
+    hist = torch.stack(errs) if errs else torch.zeros(
+        (0,), dtype=torch.float32, device=dev)
+    metrics.guard_finite(hist, "streamed ALS rmse history")
+    return ALSResult(U=U[:config.m], V=V, rmse_history=hist)
 
 
 def fit_rowstore(*args, **kwargs):

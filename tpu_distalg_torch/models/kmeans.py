@@ -20,10 +20,9 @@ more than ``converge_dist`` in all, which costs one device→host read
 an iteration. With ``checkpoint_dir`` the fit runs in saved segments
 that equal a straight run bit for bit.
 
-Not ported yet, raising NotImplementedError with their ROADMAP item:
-minibatch k-means over a ``ShardedDataset``
-(:func:`make_minibatch_step_fn`, :func:`init_centers_from_dataset`,
-:func:`fit_minibatch`: A10).
+Minibatch k-means (:func:`fit_minibatch`, Sculley's update) runs over a
+``ShardedDataset`` of any backend (``data/``): sampled blocks staged
+through the prefetch pipeline, bitwise equal across backends.
 """
 
 from __future__ import annotations
@@ -342,21 +341,96 @@ def fit(points: np.ndarray, mesh: Mesh,
                         checkpoint_dir, checkpoint_every)
 
 
-_NEEDS_DATASET = ("minibatch k-means runs over a ShardedDataset (the data "
-                  "subsystem), which is not ported yet (ROADMAP A10)")
-
-
 def make_minibatch_step_fn(mesh: Mesh, k: int, dim: int):
-    raise NotImplementedError(_NEEDS_DATASET)
+    """Minibatch k-means' step over one staged batch of a
+    ``ShardedDataset`` in the ``points_valid_f32`` layout
+    (``data/builders.py``), ``models/kmeans.py:338-378`` of the JAX
+    package: per shard, ``assign_clusters`` and the masked
+    ``cluster_stats`` of the staged rows (torch ops, as JAX runs XLA
+    ops there), summed in shard order, then Sculley's (2010) update,
+    each centre moved toward its minibatch mean at rate ``count_c /
+    n_seen_c``. ``step(staged, centers, n_seen) -> (centers, n_seen)``;
+    the arithmetic is the same whichever backend staged the batch, so a
+    run is bitwise equal across backends."""
+    del mesh  # the staged batch carries the shards
+
+    def step(staged, centers, n_seen):
+        per = []
+        for s in range(staged.shape[0]):
+            pts, m = staged[s, :, :dim], staged[s, :, dim]
+            per.append(kops.cluster_stats(
+                pts, m, kops.assign_clusters(pts, centers), k))
+        sums, counts = tree_allreduce_sum(per)
+        n_seen = n_seen + counts
+        eta = torch.where(n_seen > 0, counts / torch.clamp_min(n_seen, 1.0),
+                          0.0)
+        means = sums / torch.clamp_min(counts, 1.0)[:, None]
+        centers = torch.where(counts[:, None] > 0,
+                              centers + eta[:, None] * (means - centers),
+                              centers)
+        return centers, n_seen
+
+    return step
 
 
-def init_centers_from_dataset(dataset, k: int, seed: int):
-    raise NotImplementedError(_NEEDS_DATASET)
+def init_centers_from_dataset(dataset, k: int, seed: int) -> torch.Tensor:
+    """Greedy farthest-point init over the dataset's first block (shard
+    0), on the host: the same for every backend (the staged block is).
+    A random k-sample would merge clusters, which the minibatch update
+    cannot split (``init_centers_farthest``)."""
+    block0 = dataset.stage(np.zeros((dataset.n_shards, 1), np.int64))
+    block0 = block0[0].cpu().numpy()
+    dim = block0.shape[1] - 1
+    pts = block0[block0[:, dim] > 0][:, :dim]
+    if k > pts.shape[0]:
+        raise ValueError(
+            f"cannot sample k={k} centers from a {pts.shape[0]}-row "
+            "first block; raise block_rows")
+    rng = np.random.default_rng(seed)
+    chosen = [int(rng.integers(0, pts.shape[0]))]
+    d = np.linalg.norm(pts - pts[chosen[0]], axis=1)
+    while len(chosen) < k:
+        nxt = int(d.argmax())
+        chosen.append(nxt)
+        d = np.minimum(d, np.linalg.norm(pts - pts[nxt], axis=1))
+    return torch.from_numpy(pts[chosen].astype(np.float32)).to(
+        dataset.device)
 
 
 def fit_minibatch(dataset, config: KMeansConfig, *, n_steps: int,
-                  mini_batch_blocks: int = 4, centers0=None):
-    raise NotImplementedError(_NEEDS_DATASET)
+                  mini_batch_blocks: int = 4,
+                  centers0=None) -> KMeansResult:
+    """Minibatch k-means over a :class:`~tpu_distalg_torch.data.
+    ShardedDataset` in the ``points_valid_f32`` layout: each step draws
+    ``mini_batch_blocks`` blocks a shard with the host block sampler
+    the streamed SSGD trainer uses (keyed on the absolute step), stages
+    them through the prefetch pipeline and folds them into the centres
+    with Sculley's update. Padding rows carry valid 0 and are inert."""
+    import contextlib
+
+    from tpu_distalg_torch.data import make_host_block_sampler
+    from tpu_distalg_torch.utils import metrics
+
+    dim = int(dataset.meta.get("dim", dataset.pd - 1))
+    ns = min(mini_batch_blocks, dataset.n_blocks)
+    ids = make_host_block_sampler(config.seed, dataset.n_shards,
+                                  dataset.n_blocks, ns,
+                                  dataset.device)(np.arange(n_steps))
+    if centers0 is None:
+        centers0 = init_centers_from_dataset(dataset, config.k, config.seed)
+    step = make_minibatch_step_fn(dataset.mesh, config.k, dim)
+    centers = torch.as_tensor(centers0, dtype=torch.float32).to(
+        dataset.device)
+    n_seen = torch.zeros((config.k,), dtype=torch.float32,
+                         device=dataset.device)
+    with contextlib.closing(dataset.stream(ids)) as batches:
+        for staged in batches:
+            centers, n_seen = step(staged, centers, n_seen)
+    metrics.guard_finite(centers, "minibatch k-means centers")
+    return KMeansResult(centers=centers,
+                        assignments=torch.zeros((0,), dtype=torch.int64,
+                                                device=dataset.device),
+                        n_iterations_run=n_steps)
 
 
 def fit_scaled(mesh: Mesh, n_rows: int, make_rows,

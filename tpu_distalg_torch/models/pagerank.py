@@ -26,7 +26,7 @@ Two modes, as in the JAX package:
     is always B7 and ``pallas``/``spmv`` never lack a plan.
 
 Only the resident backend is ported: the streamed and virtual engines
-(``tpu_distalg/graphs/``) wait for ROADMAP A10. The JAX package's
+(``tpu_distalg/graphs/``) wait for the graph half of ROADMAP A10. The JAX package's
 ~12M-vertex VMEM guard is a TPU limit and has no counterpart here.
 """
 
@@ -88,8 +88,9 @@ def choose_data_backend(requested: str) -> str:
     if requested in ("streamed", "virtual"):
         raise NotImplementedError(
             f"--data-backend {requested}: the out-of-core graph engine "
-            f"(tpu_distalg/graphs/) is not ported yet (ROADMAP A10); use "
-            f"--data-backend resident")
+            f"(tpu_distalg/graphs/) is not ported yet (the graph slice, "
+            f"the graph half of ROADMAP A10); use --data-backend "
+            f"resident")
     raise ValueError(f"unknown data backend {requested!r}")
 
 

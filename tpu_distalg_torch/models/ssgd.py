@@ -65,11 +65,15 @@ resumes through :func:`..parallel.membership.run_elastic`. Every
 decision of a window (clocks, gates, deliveries) stays on the device:
 each tick computes every shard's gradient and masks the update.
 
-Not ported yet: the ``virtual`` sampler (NotImplementedError, ROADMAP
-A10). The JAX package's refusals (``feature_sharded`` with other
-samplers, ``use_pallas``, a ``comm`` schedule or SSP; ``fixed`` and
-``fused_train`` with a schedule or SSP; ``use_pallas`` with either)
-raise its ValueErrors.
+The ``virtual`` sampler (rows regenerated a step from their ids) is
+``models/ssgd_virtual.py`` and the streamed trainer (rows staged from
+host memory or disk) ``models/ssgd_stream.py``, as in the JAX package;
+the streamed trainer shares :func:`gathered_per_shard` and
+:func:`_build_scan` with ``fused_gather``. The JAX package's refusals
+(``feature_sharded`` with other samplers, ``use_pallas``, a ``comm``
+schedule or SSP; ``fixed`` and ``fused_train`` with a schedule or SSP;
+``use_pallas`` with either; ``virtual`` in these builders) raise its
+ValueErrors.
 """
 
 from __future__ import annotations
@@ -133,10 +137,6 @@ class TrainResult:
 
 _SAMPLERS = ("bernoulli", "fixed", "fused", "fused_gather", "fused_train",
              "virtual")
-_NOT_PORTED = {
-    "virtual": "sampler='virtual' (rows regenerated on the device) is "
-               "not ported yet (ROADMAP A10)",
-}
 
 
 def _check_feature_sharded(config: SSGDConfig) -> None:
@@ -240,13 +240,12 @@ def _check_sync_sampler(config: SSGDConfig) -> None:
 
 
 def _check_ported(config: SSGDConfig) -> None:
-    """The JAX package's refusals, then NotImplementedError for the
-    ``virtual`` sampler (ROADMAP A10)."""
+    """The JAX package's refusals of a sampler, a schedule or SSP. The
+    ``virtual`` sampler trains through ``models/ssgd_virtual.py``; the
+    builders here refuse it, as the JAX package's do."""
     _check_fixed(config)
     if config.sampler not in _SAMPLERS:
         raise ValueError(f"unknown sampler {config.sampler!r}")
-    if config.sampler in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[config.sampler])
     _check_comm_sampler(config)
     _check_sync_sampler(config)
 
@@ -547,12 +546,10 @@ def make_train_fn_fused(mesh: Mesh, config: SSGDConfig, meta: dict):
         prep_xs = None
     elif config.sampler == "fused_gather":
         prep_xs = _block_draws(mesh, config, meta)
-        kargs = _kernel_args(config, meta)
+        gathered = gathered_per_shard(config, meta, col_keep)
 
         def per_shard(X2, w, ids):
-            return [(g * col_keep, cnt) for g, cnt in (
-                ssgd_kernels.fused_grad_sum_gathered(X2, w, ids[s], **kargs)
-                for s in range(n_shards))]
+            return gathered([X2] * n_shards, w, ids)
     else:
         raise ValueError(f"sampler={config.sampler!r} is not a packed-"
                          f"layout sampler")
@@ -565,6 +562,22 @@ def make_train_fn_fused(mesh: Mesh, config: SSGDConfig, meta: dict):
         return per if sync is not None else tree_allreduce_sum(per)
 
     return _build_scan(config, sample_and_grad, prep_xs=prep_xs, sync=sync)
+
+
+def gathered_per_shard(config: SSGDConfig, meta: dict, col_keep):
+    """``fused_gather``'s gradient, shared with the streamed trainer
+    (``models/ssgd_stream.py``): ``per_shard(X2s, w, ids)`` → each
+    shard's (Σ grad, count) from kernel B1 over the blocks ``ids[s]`` of
+    ``X2s[s]`` (the whole X2 with global ids here, a staged batch with
+    the identity ids there), the y/v/pad columns zeroed."""
+    kargs = _kernel_args(config, meta)
+
+    def per_shard(X2s, w, ids):
+        return [(g * col_keep, cnt) for g, cnt in (
+            ssgd_kernels.fused_grad_sum_gathered(X2s[s], w, ids[s], **kargs)
+            for s in range(len(ids)))]
+
+    return per_shard
 
 
 def _block_draws(mesh: Mesh, config: SSGDConfig, meta: dict):

@@ -4,7 +4,8 @@ of PageRank and the closure, and k-means' points.
 
 Port of the parts of ``tpu_distalg/utils/datasets.py`` that SSGD,
 PageRank and k-means use; the numpy generators draw from the same
-streams, so both packages make the same arrays from a seed.
+streams, so both packages make the same arrays from a seed, and
+:func:`streamed_packed_cache` writes the JAX package's cache bytes.
 :func:`gaussian_mixture_rows` is the exception: it keeps the JAX
 generator's contract (a row's content depends on the seed and the row's
 global id alone) on the port's own threefry counters, not its bits.
@@ -246,3 +247,105 @@ def gaussian_mixture_rows(k: int = 4, dim: int = 2, seed: int = 0,
         return out
 
     return make_rows, true_centers
+
+
+def streamed_packed_cache(path: str, n_rows: int, n_features: int, *,
+                          n_shards: int, pack: int = 16,
+                          gather_block_rows: int = 8192, seed: int = 0,
+                          x_dtype="bfloat16", chunk_rows: int = 1 << 21,
+                          n_test: int = 8192):
+    """Create or reopen the disk-backed packed two-class dataset of the
+    streamed trainer (``models/ssgd_stream``), the JAX package's
+    ``utils/datasets.streamed_packed_cache`` (``:173-312``) byte for
+    byte: ``<path>.bin`` in the ``pack_augmented`` layout,
+    ``<path>.meta.json`` (``data/cache.py``'s header), ``<path>.test.npz``
+    a held-out split from the same teacher (X, y, w_true). Rows are a
+    noisy linear-teacher task: features ±(1 + m/128), m uniform in
+    0..127, made as raw bfloat16 bit patterns in uint16, labels
+    Bernoulli at the teacher's sigmoid. Returns ``(memmap X2 of uint16
+    bfloat16 bits, meta, (X_test, y_test))``; a cache of the same
+    geometry reopens read-only, a legacy flat-geometry one too."""
+    from tpu_distalg_torch.data import cache as dcache
+    from tpu_distalg_torch.ops import ssgd_kernels
+    from tpu_distalg_torch.telemetry import events as tevents
+
+    d = n_features + 1  # + bias, like the resident task
+    d_t, y_col, v_col = ssgd_kernels.packed_dims(d, pack)
+    mult = pack * gather_block_rows * n_shards
+    if n_rows % mult:
+        raise ValueError(
+            f"n_rows={n_rows} must be a multiple of pack×block×shards="
+            f"{mult} (no padding rows in a memmap dataset)")
+    n2 = n_rows // pack
+    pd = pack * d_t
+    geom = dict(n_rows=n_rows, n_features=n_features, pack=pack,
+                d_total=d_t, y_col=y_col, v_col=v_col, seed=seed,
+                x_dtype=str(x_dtype), n_test=n_test)
+    meta = dict(pack=pack, d_total=d_t, y_col=y_col, v_col=v_col,
+                n_padded=n_rows)
+    if ssgd_kernels.as_dtype(x_dtype).itemsize != 2:
+        raise ValueError(
+            f"streamed cache generates bf16 bit-packed rows; "
+            f"x_dtype={x_dtype} is not 2-byte")
+    rng = np.random.default_rng(seed)
+    # the teacher: logit std about 2 on features of variance E[(1+u)²]
+    wf = rng.standard_normal(d - 1).astype(np.float32)
+    var_x = 1.0 + 2 * (63.5 / 128.0) + float(
+        np.mean((np.arange(128) / 128.0) ** 2))
+    wf *= 2.0 / np.sqrt(np.sum(wf ** 2) * var_x)
+    w_true = np.concatenate([wf, [0.0]]).astype(np.float32)
+    exp0 = np.uint16(127 << 7)   # the exponent field of [1, 2)
+    one = np.uint16(0x3F80)      # bfloat16 1.0
+
+    def _values(bits):
+        """The float32 values ±(1 + m/128) of bfloat16 bit patterns:
+        exactly the JAX package's ``(1 + m/128)·(1 − 2·sign)``, made by
+        widening the bits (two passes over the rows instead of six)."""
+        return (bits.astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+    def gen_bits(n, g):
+        """(n, d) bfloat16 bit patterns and labels; column d-1 is the
+        bias, exactly +1.0."""
+        m = g.integers(0, 128, size=(n, d), dtype=np.uint16)
+        sgn = g.integers(0, 2, size=(n, d), dtype=np.uint16)
+        m[:, -1] = 0
+        sgn[:, -1] = 0
+        bits = exp0 | m | (sgn << np.uint16(15))
+        p = 1.0 / (1.0 + np.exp(-(_values(bits[:, :-1]) @ wf)))
+        y = g.random(n, dtype=np.float32) < p
+        return bits, y
+
+    def write_bin(mm):
+        # ``rng`` continues from the teacher's draw, as in the JAX package
+        chunk = chunk_rows - (chunk_rows % pack)
+        out = np.zeros((chunk, d_t), np.uint16)
+        for lo in range(0, n_rows, chunk):
+            tevents.mark(f"streamed_cache:gen@{lo}/{n_rows}",
+                         emit_event=False)
+            n_c = min(chunk, n_rows - lo)
+            bits, yc = gen_bits(n_c, rng)
+            out[:n_c, :d] = bits
+            out[:n_c, y_col] = np.where(yc, one, np.uint16(0))
+            out[:n_c, v_col] = one
+            mm[lo // pack:(lo + n_c) // pack] = out[:n_c].reshape(
+                n_c // pack, pd)
+
+    def write_test(tmp_path):
+        bits_t, y_test = gen_bits(n_test, np.random.default_rng(seed + 1))
+        X_test = _values(bits_t)
+        # a file handle: np.savez on a path would append '.npz'
+        with open(tmp_path, "wb") as f:
+            np.savez(f, X=X_test, y=y_test.astype(np.float32),
+                     w_true=w_true)
+
+    header = dcache.make_header(layout="packed_augmented",
+                                dtype=str(x_dtype), shape=(n2, pd),
+                                geom=geom)
+    X2, _ = dcache.open_or_build(
+        path, header=header, write_bin=write_bin,
+        aux=[("test.npz", write_test)], legacy_geom=geom)
+    if X2 is None:  # a legacy cache (flat geometry meta.json)
+        X2 = np.memmap(dcache.bin_path(path), dtype=np.uint16, mode="r",
+                       shape=(n2, pd))
+    t = np.load(path + ".test.npz")
+    return X2, meta, (t["X"], t["y"])
