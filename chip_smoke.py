@@ -127,10 +127,24 @@ and the script exits non-zero without printing a result:
      virtual and resident); streamed ALS on a 16384² rank-64 R (one
      sweep and one rmse pass, U, V and rmse bit for bit across the
      backends); the caches are made under ``build/`` and deleted;
- 15. the kernels line (B1's and B2's entries with their launches on the
+ 15. the out-of-core graph engine (``tpu_distalg_torch/graphs/``) at
+     bench.py's ``pagerank_100m`` geometry with V cut to 2²⁵ (PERF.md
+     §4): a power-law edge-block cache of 536,687,099 edges made under
+     ``build/`` through the C++ ingest's binding (asserted: no numpy
+     fallback), one warm-up and two timed streamed sweeps (sweeps/s,
+     ns/edge, the combine's wire bytes beside the dense ring's, H2D and
+     host gather GB/s, idle share over 300 staged batches; B7 = staged
+     batches × shards a sweep), B7 on the hub batch against its plain
+     version and a float64 sum, timed beside cuSPARSE and the bound; at
+     V 2²⁰ on 1 and 4 shards streamed = virtual = resident = a replay
+     bit for bit, segmented = straight, the other combine and
+     ``models.pagerank``'s CSR sweep within tolerance; phase 7 also
+     times the resident prep through the binding and its numpy forms;
+ 16. the kernels line (B1's and B2's entries with their launches on the
      local-update runs, B1's on the scale path and phase 14's streamed
-     runs, B1's, B2's and B5's on phase 13's paths, B9's on the sharded
-     path and at the slice's shape), then the last line
+     runs, B1's, B2's and B5's on phase 13's paths, B7's on phase 15's
+     streamed sweeps and a hub batch, B9's on the sharded path and at
+     the slice's shape), then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
@@ -138,8 +152,8 @@ and read just after it (the serving path: phase 4's full-width fit and
 phase 5; each of phase 5b's served runs; each SSGD path, each PageRank
 sweep, each k-means fit, each tp mesh, each attention run, each
 local-update run, each of phase 12's paths on its own, each of phase
-13's runs, and each of phase 14's runs), so the kernels line shows that
-each path went through its kernel, and that the kernel-free paths
+13's runs, each of phase 14's runs and each of phase 15's sweeps), so
+the kernels line shows that each path went through its kernel, and that the kernel-free paths
 (phase 5b's dense merge, phase 12's Monte Carlo, closure and ``fixed``,
 phase 14's virtual SSGD, minibatch k-means and streamed ALS) launched
 none.
@@ -2200,6 +2214,9 @@ def run_pagerank(dev) -> dict:
     geometry. Returns the kernel records and each path's launches."""
     import torch
 
+    import contextlib
+
+    from tpu_distalg_torch import native
     from tpu_distalg_torch.models import pagerank
     from tpu_distalg_torch.ops import graph as gops
     from tpu_distalg_torch.parallel import get_mesh
@@ -2237,12 +2254,26 @@ def run_pagerank(dev) -> dict:
           f"(dedupe, dst sort, CSR upload); Σranks {total!r}; launches "
           f"{launches['auto']}")
 
-    t1 = time.perf_counter()
-    el = gops.prepare_edges(edges, PR_VERTICES)
-    de = pagerank.prepare_device_edges(el, mesh)
-    torch.cuda.synchronize()
-    print(f"[pagerank] prep: {time.perf_counter() - t1!r} s for "
-          f"{el.n_edges} edges, {el.n_vertices} vertices")
+    prep = {}
+    for how in ("numpy forms", "C++ binding"):
+        with (native.numpy_forms() if how == "numpy forms"
+              else contextlib.nullcontext()):
+            t1 = time.perf_counter()
+            el = gops.prepare_edges(edges, PR_VERTICES)
+            de = pagerank.prepare_device_edges(el, mesh)
+            torch.cuda.synchronize()
+            prep[how] = time.perf_counter() - t1
+        if how == "numpy forms":
+            de_np = de
+    if not all(torch.equal(a, b) for s, t in zip(de_np.shards, de.shards)
+               for a, b in zip(s, t)):
+        raise AssertionError("pagerank prep: the binding's CSR differs from "
+                             "the numpy forms'")
+    del de_np
+    print(f"[pagerank] prep: {prep['C++ binding']!r} s for {el.n_edges} "
+          f"edges, {el.n_vertices} vertices through the C++ binding, "
+          f"{prep['numpy forms']!r} s through its numpy forms (the same "
+          f"CSR bit for bit)")
     recs = pagerank_kernel_records(dev, de)
 
     rates = {}
@@ -2306,7 +2337,8 @@ def run_pagerank(dev) -> dict:
         recs[key]["sass"] = {k: v for k, v in sass.items()
                              if k.startswith(key) or (key == "B7"
                                                       and "ceiling" in k)}
-    return {"recs": recs, "launches": launches, "rates": rates}
+    return {"recs": recs, "launches": launches, "rates": rates,
+            "prep_s": prep}
 
 
 #: k-means at bench.py's geometry (bench.py:2310-2314): points, dims,
@@ -5134,6 +5166,300 @@ def run_out_of_core(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 15
+
+#: streamed PageRank at bench.py's geometry (bench.py:2753-2810,
+#: PR100M_* :111-114): α 1.6, average in-degree 16, 65,536-edge blocks,
+#: chunks of 2²⁴ edges, combine auto, one warm-up sweep and GRAPH_SWEEPS
+#: timed ones; V cut from 10⁸ (19.2 GB of edges) to 2²⁵ (PERF.md §4)
+GRAPH_VERTICES, GRAPH_AVG_IN, GRAPH_ALPHA = 1 << 25, 16.0, 1.6
+GRAPH_BLOCK, GRAPH_CHUNK, GRAPH_SWEEPS = 1 << 16, 1 << 24, 2
+#: staged batches in the profiled window of a sweep (its steady state)
+GRAPH_WINDOW_BATCHES = 300
+#: the checks at V 2²⁰ (a deduped power-law edge list, 201 MB of edge
+#: rows) on 1 and GRAPH_CHECK_SHARDS emulated shards, GRAPH_CHECK_ITERS
+#: sweeps, segments of GRAPH_CHECK_SEGMENT; the engine against the
+#: resident CSR path within PR_RTOL / PR_ATOL, sparse against dense
+#: within GRAPH_COMBINE_RTOL (the same sums in another order)
+GRAPH_CHECK_VERTICES, GRAPH_CHECK_SHARDS = 1 << 20, 4
+GRAPH_CHECK_ITERS, GRAPH_CHECK_SEGMENT, GRAPH_COMBINE_RTOL = 4, 2, 1e-5
+#: B7 on a hub batch (n = 196,608 edges into one dst): against a float64
+#: sum of the same products within GRAPH_B7_F64_RTOL (B7 sums in tiles:
+#: 1.8e-8 measured), and against its plain version run on the CPU within
+#: (n − 1)·2⁻²⁴, the bound on a float32 sum of n positive terms in any
+#: order: the plain version's sequential adds (and on the card its
+#: atomics, in no fixed order) lose up to 4.5e-4 of the hub's sum where a
+#: few large ranks come first (PERF.md §6)
+GRAPH_B7_F64_RTOL = 1e-6
+
+
+def _b7_batch_record(dev, staged, ranks) -> dict:
+    """B7 on one staged hub batch (its rows one run into vertex 0, over
+    every tile) against its plain version and a float64 sum, timed
+    beside the plain version, cuSPARSE's CSR product and the bound (each
+    input read once: row_ptr, src, w and y, and x at this batch's
+    distinct sources). ``batch_ms`` is B7 on a plan made beforehand;
+    ``batch_call_ms`` the call as the engine makes it (the plan made in
+    the call), with the plan and the run structure also timed apart."""
+    import warnings
+
+    import torch
+
+    from tpu_distalg_torch.ops import graph as gops
+    from tpu_distalg_torch.ops import pagerank_kernels as pk
+
+    rp, src, w, _ = gops.block_runs(staged, 0, 8)
+    n = src.shape[0]
+    runs = int((rp[1:] > rp[:-1]).sum())
+    got = pk.spmv_table(rp, src, w, ranks)
+    want = pk.spmv_table_reference(rp.cpu(), src.cpu(), w.cpu(),
+                                   ranks.cpu()).to(dev)
+    on_card = pk.spmv_table_reference(rp, src, w, ranks)
+    exact = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+        0, pk._rows(rp), ranks.double()[src.long()] * w.double())
+    torch.cuda.synchronize()
+
+    def rel(y):
+        return float(((y.double() - exact).abs()
+                      / exact.abs().clamp_min(1e-30)).max())
+
+    f64 = {"b7": rel(got), "plain_cpu": rel(want),
+           "plain_card_atomics": rel(on_card)}
+    print(f"[graph] B7 hub batch ({runs} run(s), {n} edges): largest "
+          f"relative error against a float64 sum: {json.dumps(f64)}")
+    if f64["b7"] > GRAPH_B7_F64_RTOL:
+        raise AssertionError(f"B7 hub batch: {f64['b7']!r} from the float64 "
+                             f"sum, want <= {GRAPH_B7_F64_RTOL}")
+    err = _pr_close(f"B7 hub batch ({runs} run(s), {n} edges)", got, want,
+                    (n - 1) * 2.0 ** -24)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*[Ss]parse")
+        A = torch.sparse_csr_tensor(rp, src, w, (n, ranks.shape[0]),
+                                    check_invariants=False)
+    plan = pk.tile_plan(rp, n)
+    distinct = int(torch.unique(src).numel())
+    nbytes = 4 * (n + 1) + 8 * n + 4 * n + 4 * distinct
+    bound = _bound_ms(nbytes, 2 * n)
+    rec = {"batch_max_abs_err": err, "batch_runs": runs,
+           "batch_rel_err_vs_float64": f64,
+           "batch_edges": n,
+           "batch_ms": _time_ms(lambda: pk.spmv_table(rp, src, w, ranks,
+                                                      plan)),
+           "batch_call_ms": _time_ms(lambda: pk.spmv_table(rp, src, w,
+                                                           ranks)),
+           "batch_plain_ms": _time_ms(
+               lambda: pk.spmv_table_reference(rp, src, w, ranks), 20, 2),
+           "batch_library_ms": _time_ms(lambda: A @ ranks, 50, 5),
+           "batch_bound_ms": bound[0], "batch_bound_by": bound[1],
+           "batch_bytes": nbytes,
+           "batch_tile_plan_ms": _time_ms(lambda: pk.tile_plan(rp, n)),
+           "batch_runs_ms": _time_ms(lambda: gops.block_runs(staged, 0, 8))}
+    acc = torch.zeros(9, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        gops.accumulate_block(acc, ranks, staged, 0)
+    torch.cuda.synchronize()
+    rec["batch_accumulate_wall_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+    return rec
+
+
+def _graph_checks(dev, workdir: str) -> dict:
+    """The engine's contracts on the card at V 2²⁰, on 1 and
+    GRAPH_CHECK_SHARDS emulated shards: streamed = virtual = resident
+    bit for bit, a replay bit for bit, segmented = straight, sparse vs
+    dense, and the engine vs the resident CSR path; B7 launches counted
+    on each run."""
+    import torch
+
+    from tpu_distalg_torch import graphs
+    from tpu_distalg_torch.graphs import engine
+    from tpu_distalg_torch.models import pagerank
+    from tpu_distalg_torch.parallel import get_mesh
+
+    # a power-law multigraph's rows, deduped into a plain edge list (the
+    # resident path dedupes what it is given)
+    mm, header = graphs.build_powerlaw_block_cache(
+        os.path.join(workdir, "pl20"), n_vertices=GRAPH_CHECK_VERTICES,
+        n_shards=1, avg_in_degree=GRAPH_AVG_IN, alpha=GRAPH_ALPHA, seed=1,
+        block_edges=GRAPH_BLOCK, chunk_edges=GRAPH_CHUNK)
+    edges = np.asarray(mm[:header["geom"]["n_edges"], :2], np.int64)
+    out = {}
+    for shards in (1, GRAPH_CHECK_SHARDS):
+        path = os.path.join(workdir, f"e20_s{shards}")
+        graphs.build_edge_block_cache(
+            edges, path, n_shards=shards, block_edges=GRAPH_BLOCK,
+            n_vertices=GRAPH_CHECK_VERTICES)
+        mesh = get_mesh(data=shards, device=dev)
+        cfg = graphs.StreamedPageRankConfig(n_iterations=GRAPH_CHECK_ITERS)
+        ranks, launches = {}, {}
+        for backend in ("streamed", "virtual", "resident", "replay"):
+            gd = graphs.open_graph_dataset(
+                path, mesh, backend="streamed" if backend == "replay"
+                else backend)
+            n_batches = len(engine._block_schedule(
+                gd.ds.n_blocks, shards, cfg.batch_blocks))
+            _reset_launches()
+            res = graphs.run_streamed_pagerank(gd, cfg)
+            _sync(dev)
+            launches[backend] = _launches()["spmv_table"]
+            _want_launches(f"graph {backend} on {shards}", _launches(), {
+                "spmv_table": GRAPH_CHECK_ITERS * n_batches * shards})
+            ranks[backend] = res.ranks
+        for backend in ("virtual", "resident", "replay"):
+            if not torch.equal(ranks[backend], ranks["streamed"]):
+                raise AssertionError(
+                    f"graph on {shards} shard(s): {backend} differs from "
+                    f"streamed (max |d| "
+                    f"{float((ranks[backend] - ranks['streamed']).abs().max())})")
+        gd = graphs.open_graph_dataset(path, mesh)
+        ck = os.path.join(workdir, f"ck{shards}")
+        graphs.run_streamed_pagerank(gd, graphs.StreamedPageRankConfig(
+            n_iterations=GRAPH_CHECK_SEGMENT), checkpoint_dir=ck,
+            checkpoint_every=GRAPH_CHECK_SEGMENT)
+        seg = graphs.run_streamed_pagerank(gd, cfg, checkpoint_dir=ck,
+                                           checkpoint_every=GRAPH_CHECK_SEGMENT)
+        if not torch.equal(seg.ranks, ranks["streamed"]):
+            raise AssertionError(f"graph on {shards} shard(s): segmented "
+                                 f"differs from straight")
+        other = {"sparse": "dense", "dense": "sparse"}[
+            engine.resolve_combine("auto", gd.k_sparse, gd.n_vertices,
+                                   shards)]
+        alt = graphs.run_streamed_pagerank(gd, graphs.StreamedPageRankConfig(
+            n_iterations=GRAPH_CHECK_ITERS, combine=other)).ranks
+        d_comb = _pr_close(f"graph {other} vs auto on {shards}", alt,
+                           ranks["streamed"], GRAPH_COMBINE_RTOL)
+        res_ranks = pagerank.run(edges, mesh, pagerank.PageRankConfig(
+            n_iterations=GRAPH_CHECK_ITERS, mode="standard"),
+            GRAPH_CHECK_VERTICES).ranks
+        d_res = _pr_close(f"graph engine vs resident on {shards}",
+                          ranks["streamed"], res_ranks, PR_RTOL)
+        out[f"{shards} shard(s)"] = {
+            "edges": gd.n_edges, "k_sparse": gd.k_sparse,
+            "launches": launches, "max_abs_d_other_combine": d_comb,
+            "max_abs_d_vs_resident_csr": d_res}
+        print(f"[graph] V {GRAPH_CHECK_VERTICES} ({gd.n_edges} deduped "
+              f"edges) on {shards} shard(s): streamed = virtual = resident "
+              f"= replay bit for bit, segmented = straight; {other} combine "
+              f"within rtol {GRAPH_COMBINE_RTOL} (max |d| {d_comb!r}); vs "
+              f"models.pagerank standard within rtol {PR_RTOL}, atol "
+              f"{PR_ATOL} (max |d| {d_res!r}); B7 launches {launches}")
+    return out
+
+
+def run_graph(dev) -> dict:
+    """Phase 15: streamed PageRank at bench.py's geometry (V cut to 2²⁵)
+    through the graph engine and B7 on each staged batch, then the
+    engine's checks at V 2²⁰; the caches live under ``build/`` and are
+    deleted."""
+    import shutil
+
+    import torch
+
+    import dataclasses
+
+    from tpu_distalg_torch import graphs, native
+    from tpu_distalg_torch.graphs import engine
+    from tpu_distalg_torch.parallel import comms, get_mesh
+    from tpu_distalg_torch.tools.profiling import window
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase15")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        native.reset_calls()
+        t0 = time.perf_counter()
+        _, header = graphs.build_powerlaw_block_cache(
+            os.path.join(workdir, "pl25"), n_vertices=GRAPH_VERTICES,
+            n_shards=1, avg_in_degree=GRAPH_AVG_IN, alpha=GRAPH_ALPHA,
+            seed=0, block_edges=GRAPH_BLOCK, chunk_edges=GRAPH_CHUNK)
+        gen_s = time.perf_counter() - t0
+        packs = native.calls["pack_edge_rows"]
+        if not native.available() or packs["numpy"] or not packs["native"]:
+            raise AssertionError(f"graph ingest: the C++ binding did not "
+                                 f"run ({native.load_error()}; {packs})")
+        geom = header["geom"]
+        E = int(geom["n_edges"])
+        edge_bytes = E * 12
+        print(f"[graph] power-law cache V {GRAPH_VERTICES}, {E} edges "
+              f"({edge_bytes} bytes of rows, k {geom['k_sparse']}, window "
+              f"{geom['window']}) made in {gen_s!r} s through the C++ "
+              f"binding ({packs['native']} pack_edge_rows calls native, "
+              f"{packs['numpy']} numpy)")
+        mesh = get_mesh(data=1, device=dev)
+        gd = graphs.open_graph_dataset(os.path.join(workdir, "pl25"), mesh)
+        cfg = graphs.StreamedPageRankConfig(n_iterations=GRAPH_SWEEPS)
+        ids = engine._block_schedule(gd.ds.n_blocks, 1, cfg.batch_blocks)
+        n_batches = len(ids)
+        graphs.run_streamed_pagerank(gd, dataclasses.replace(
+            cfg, n_iterations=1))                       # warm
+        _sync(dev)
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = graphs.run_streamed_pagerank(gd, cfg)
+        total = float(res.ranks.sum())
+        dt = time.perf_counter() - t0
+        launches = _launches()
+        _want_launches("graph streamed sweeps", launches,
+                       {"spmv_table": GRAPH_SWEEPS * n_batches})
+        if not (bool(torch.isfinite(res.ranks).all())
+                and abs(total - 1.0) <= 1e-3):
+            raise AssertionError(f"graph: ranks finite "
+                                 f"{bool(torch.isfinite(res.ranks).all())}, "
+                                 f"sum {total!r}")
+        st = comms.rank_combine_stats(gd.k_sparse, gd.n_vertices, 1)
+        batch_bytes = gd.ds.h2d_bytes_per_step(ids.shape[2])
+        host = gd.ds.host_batch(ids[1])
+        gather = _rate_gb(batch_bytes, lambda: gd.ds.gather(
+            ids[1], out=getattr(host, "array", host)), 5)
+
+        zeros_fn, accum_fn, _, _ = engine.make_sweep_fns(gd, cfg)
+
+        def partial():
+            acc = zeros_fn()
+            for staged in gd.ds.stream(ids[:GRAPH_WINDOW_BATCHES]):
+                acc = accum_fn(acc, staged, res.ranks)
+
+        prof = window(partial, GRAPH_WINDOW_BATCHES)
+        out = {"generation_s": gen_s, "n_edges": E, "edge_bytes": edge_bytes,
+               "k_sparse": gd.k_sparse, "window": gd.window,
+               "staged_batches_per_sweep": n_batches,
+               "batch_bytes": batch_bytes,
+               "sweeps_per_s": GRAPH_SWEEPS / dt,
+               "ns_per_edge": 1e9 * dt / (GRAPH_SWEEPS * E),
+               "h2d_gb_per_s": edge_bytes * GRAPH_SWEEPS / dt / 1e9,
+               "host_gather_gb_per_s": gather,
+               "combine": res.combine,
+               "combine_bytes_wire_per_sweep": res.comm_stats["bytes_wire"],
+               "combine_bytes_dense_ring_per_sweep": st["bytes_dense_ring"],
+               "b7_launches_per_sweep": launches["spmv_table"] / GRAPH_SWEEPS,
+               "launches": launches["spmv_table"], **prof}
+        print(f"[graph] streamed, combine={res.combine}: {GRAPH_SWEEPS} "
+              f"sweeps in {dt!r} s = {out['sweeps_per_s']!r} sweeps/s, "
+              f"{out['ns_per_edge']!r} ns/edge, {out['h2d_gb_per_s']!r} GB/s "
+              f"H2D; {n_batches} staged batches of {batch_bytes} bytes a "
+              f"sweep, B7 launched {launches['spmv_table']} times (batches x "
+              f"shards x sweeps); wire {res.comm_stats['bytes_wire']} B a "
+              f"sweep vs dense ring {st['bytes_dense_ring']} B; host gather "
+              f"{gather!r} GB/s; Σranks {total!r}")
+        print(f"[graph] {GRAPH_WINDOW_BATCHES} staged batches profiled: "
+              f"{json.dumps(prof)}")
+        staged = gd.ds.stage(ids[0])[0]
+        out["b7"] = _b7_batch_record(dev, staged, res.ranks)
+        print(f"[graph] B7 on the first staged batch (the hub): "
+              f"{json.dumps(out['b7'])}")
+        del gd, res, staged
+        out["checks"] = _graph_checks(dev, workdir)
+        if native.calls["pack_edge_rows"]["numpy"] or \
+                native.calls["counting_sort_perm"]["numpy"]:
+            raise AssertionError(f"graph ingest fell back to numpy: "
+                                 f"{native.calls}")
+        out["native_calls"] = {k: dict(v) for k, v in native.calls.items()}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def _phase(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[time] {name}: {now - t0!r} s")
@@ -5221,6 +5547,9 @@ def main() -> int:
     ooc = run_out_of_core(dev)
     t0 = _phase("out-of-core: streamed + virtual ssgd, kmeans, als", t0)
 
+    graph = run_graph(dev)
+    t0 = _phase("graph engine: streamed pagerank", t0)
+
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"
     kernels = [{
@@ -5271,7 +5600,11 @@ def main() -> int:
             "name": f"pagerank_kernels.{name}", "route": "cuda",
             "source": "tpu_distalg_torch/csrc/pagerank.cu",
             "replaces": f"tpu_distalg/ops/pallas_pagerank.py:{line}",
-            "launches": pr["launches"][path][name], **pr["recs"][key]})
+            "launches": pr["launches"][path][name], **pr["recs"][key],
+            **({"streamed_launches": graph["launches"],
+                "streamed_launches_per_sweep":
+                    graph["b7_launches_per_sweep"], **graph["b7"]}
+               if key == "B7" else {})})
     kernels.append({
         "name": "kmeans_kernels.fused_cluster_stats", "route": "cuda",
         "source": "tpu_distalg_torch/csrc/kmeans.cu",

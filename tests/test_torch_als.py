@@ -30,6 +30,9 @@ from tpu_distalg_torch.models import als
 from tpu_distalg_torch.ops import linalg
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import checkpoint, device
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 #: the emulated data × model meshes the fit is held to JAX's on
 MESHES = [(1, 1), (2, 1), (1, 2), (2, 2), (2, 4)]

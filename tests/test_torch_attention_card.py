@@ -28,11 +28,16 @@ must replay bit for bit, and each call counts one launch.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from tpu_distalg_torch.ops import attention_kernels as ak
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 

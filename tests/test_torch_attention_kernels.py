@@ -18,6 +18,8 @@ oracle within 1e-4, as ``tests/test_ring.py`` holds JAX's.
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,9 @@ import torch
 
 from tpu_distalg.ops import pallas_attention as jpa
 from tpu_distalg_torch.ops import attention_kernels as ak
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 TOL_FWD = {"float32": 1e-5, "bfloat16": 2e-3}
 TOL_BWD = {"float32": 1e-5, "bfloat16": 1e-3}

@@ -32,6 +32,9 @@ from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.telemetry import events as tevents
 from tpu_distalg_torch.utils import checkpoint as ckpt
 from tpu_distalg_torch.utils import datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 GRAPHS = {
     "toy": (lambda: datasets.toy_graph_edges(), 8, 9),

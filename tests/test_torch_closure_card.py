@@ -27,6 +27,9 @@ from tpu_distalg_torch.ops import sampling
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.telemetry import events as tevents
 from tpu_distalg_torch.utils import datasets, prng
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 
 @pytest.fixture

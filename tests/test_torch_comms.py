@@ -30,6 +30,9 @@ from tpu_distalg.parallel import data_parallel
 from tpu_distalg.parallel import get_mesh as jget_mesh
 from tpu_distalg_torch.parallel import comms, get_mesh
 from tpu_distalg_torch.telemetry import events
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 SCHEDULES = ("dense", "bucketed", "bucketed:64", "hier", "hier:2", "bf16",
              "int8", "int8:5:300", "int8@seq", "topk", "topk:0.05")

@@ -15,6 +15,8 @@ straggle plan replay.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,9 @@ from tpu_distalg_torch.models import ssgd
 from tpu_distalg_torch.parallel import comms, get_mesh
 from tpu_distalg_torch.parallel import ssp as pssp
 from tpu_distalg_torch.utils import datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 pytestmark = pytest.mark.gpu
 

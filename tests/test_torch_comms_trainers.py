@@ -20,6 +20,7 @@ iterations the port's final accuracies equal JAX's for all six.
 
 from __future__ import annotations
 
+import os
 import dataclasses
 import importlib
 import re
@@ -38,6 +39,9 @@ from tpu_distalg_torch.models import logistic_regression as lr
 from tpu_distalg_torch.models import ssgd
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import checkpoint, datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 FUSED = dict(fused_pack=4, gather_block_rows=32, shuffle_seed=0)
 SCHEDULES = ("int8", "topk:0.05", "bucketed")

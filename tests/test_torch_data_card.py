@@ -13,6 +13,8 @@ the resident rows, so every comparison here is bit for bit.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,9 @@ from tpu_distalg_torch.models import ssgd, ssgd_stream
 from tpu_distalg_torch.ops import ssgd_kernels
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 
 @pytest.fixture

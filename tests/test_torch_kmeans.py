@@ -32,6 +32,9 @@ from tpu_distalg_torch.models import kmeans
 from tpu_distalg_torch.ops import kmeans as kops
 from tpu_distalg_torch.parallel import build_sharded, get_mesh, parallelize
 from tpu_distalg_torch.utils import checkpoint, datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -21,6 +21,8 @@ another order. A fixed input must replay bit for bit.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,9 @@ from tpu_distalg_torch.models import kmeans
 from tpu_distalg_torch.ops import kmeans as kops
 from tpu_distalg_torch.ops import kmeans_kernels as kk
 from tpu_distalg_torch.parallel import get_mesh
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 #: (n, dim, k): every dpad and lane width, the shared-tile plan (k 256 at
 #: dim 2), centres outside shared memory (k 256 at dim 128), n a multiple

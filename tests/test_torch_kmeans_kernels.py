@@ -20,6 +20,8 @@ kernel only where the two assignments agree.
 
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +31,9 @@ from tpu_distalg.ops import kmeans as jkops
 from tpu_distalg.ops import pallas_kmeans as jpk
 from tpu_distalg_torch.ops import kmeans as kops
 from tpu_distalg_torch.ops import kmeans_kernels as kk
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 #: the geometries of tests/test_pallas_kmeans.py
 GEOMETRIES = [(8192, 16, 8), (777, 11, 5), (5000, 2, 2), (3000, 64, 3)]

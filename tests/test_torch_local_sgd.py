@@ -40,6 +40,9 @@ from tpu_distalg.utils import prng as jprng
 from tpu_distalg_torch.models import bmuf, easgd, local_sgd, ma
 from tpu_distalg_torch.parallel import get_mesh, parallelize
 from tpu_distalg_torch.utils import checkpoint, datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FUSED = dict(fused_pack=4, gather_block_rows=32, shuffle_seed=0)

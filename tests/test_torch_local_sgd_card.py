@@ -17,6 +17,7 @@ later steps carry that), and a fixed seed replays bit for bit.
 
 from __future__ import annotations
 
+import os
 import dataclasses
 
 import numpy as np
@@ -27,6 +28,9 @@ from tpu_distalg_torch.models import bmuf, easgd, local_sgd, ma
 from tpu_distalg_torch.ops import ssgd_kernels as tk
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 ROWS, FEATURES, GBR, PACK, ROUNDS = 65536, 30, 1024, 16, 3
 TOL = {"float32": 1e-5, "bfloat16": 1e-3}

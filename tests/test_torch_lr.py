@@ -26,6 +26,9 @@ from tpu_distalg.models import logistic_regression as jlr
 from tpu_distalg_torch.models import logistic_regression as lr
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import checkpoint, datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: steps at the end of the full run over which its accuracy is read

@@ -17,6 +17,8 @@ a few such elements).
 
 from __future__ import annotations
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -31,6 +33,9 @@ from tpu_distalg_torch.models import monte_carlo
 from tpu_distalg_torch.ops import sampling
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import prng
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 ROUNDS_N = [1, 2, 1000, 5000, 1 << 22]   # 0, 1, 2 and 3 shuffle rounds
 

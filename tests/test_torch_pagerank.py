@@ -13,6 +13,8 @@ recorded golden to 1e-5, and the has_rank masks must be equal.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,9 @@ from tpu_distalg_torch import cli, convert
 from tpu_distalg_torch.models import pagerank
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import checkpoint, datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 GOLDEN = [0.38891305880091237, 0.214416470596171, 0.3966704706029163]
 V, E, ITERS = 4096, 65536, 8
@@ -191,10 +196,8 @@ def test_config_checks_and_backends():
             mode="standard", scatter="dense"), 8)
     with pytest.raises(ValueError, match="unknown mode"):
         pagerank.make_run_fn(mesh, pagerank.PageRankConfig(mode="x"), 8)
-    assert pagerank.choose_data_backend("resident") == "resident"
-    for backend in ("streamed", "virtual"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            pagerank.choose_data_backend(backend)
+    for backend in ("resident", "streamed", "virtual"):
+        assert pagerank.choose_data_backend(backend) == backend
     with pytest.raises(ValueError, match="unknown data backend"):
         pagerank.choose_data_backend("tiered")
 
@@ -232,6 +235,7 @@ def test_cli_pagerank_standard_and_refusals(capsys):
     top = np.argsort(-want.ranks.numpy())[:10]
     assert list(ranks) == top.tolist()
     for flag, msg in ((["--max-restarts", "1"], "A12"),
-                      (["--data-backend", "streamed"], "A10")):
+                      (["--data-backend", "streamed", "--mode", "reference"],
+                       "reference-parity mode is resident-only")):
         with pytest.raises(SystemExit, match=msg):
             cli.main(["--device", "cpu", "pagerank", *flag])

@@ -28,6 +28,8 @@ turn on one stream's workspace (tickets that every launch leaves zero).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +39,9 @@ from tpu_distalg_torch.ops import graph as gops
 from tpu_distalg_torch.ops import pagerank_kernels as pk
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 GOLDEN = [0.38891305880091237, 0.214416470596171, 0.3966704706029163]
 

@@ -16,6 +16,8 @@ plain versions must equal the float64 sums bit for bit.
 
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,9 +29,13 @@ from tpu_distalg.models import pagerank as jpagerank
 from tpu_distalg.ops import graph as jgops
 from tpu_distalg.ops import pallas_pagerank as ppr
 from tpu_distalg.utils import datasets as jdatasets
+from tpu_distalg_torch import native as pnative
 from tpu_distalg_torch.ops import graph as gops
 from tpu_distalg_torch.ops import pagerank_kernels as pk
 from tpu_distalg_torch.utils import datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 
 def _random_edges(v, e, seed):
@@ -87,24 +93,28 @@ def test_prepare_edges_rejects_undersized_vertex_count():
 
 
 def test_host_helpers_equal_native(tmp_path):
-    """The numpy helpers give the C++ ingest's integer arrays."""
+    """The port's numpy forms of the host helpers (``native.*_numpy``,
+    which its binding falls back to) give the C++ ingest's integer
+    arrays."""
     edges = _random_edges(300, 5000, 1)
-    for a, b in zip(gops.dedupe_edges_pair(edges),
+    for a, b in zip(pnative.dedupe_edges_pair_numpy(edges),
                     native.dedupe_edges_pair(edges)):
         np.testing.assert_array_equal(a, b)
     src = edges[:, 0]
-    np.testing.assert_array_equal(gops.out_degree(src, 300),
+    np.testing.assert_array_equal(pnative.out_degree_numpy(src, 300),
                                   native.out_degree(src, 300))
-    np.testing.assert_array_equal(gops.counting_sort_perm(edges[:, 1], 300),
-                                  native.counting_sort_perm(edges[:, 1], 300))
+    np.testing.assert_array_equal(
+        pnative.counting_sort_perm_numpy(edges[:, 1], 300),
+        native.counting_sort_perm(edges[:, 1], 300))
     with pytest.raises(ValueError, match="out of range"):
-        gops.counting_sort_perm(np.array([0, 300]), 300)
+        pnative.counting_sort_perm(np.array([0, 300]), 300)
     with pytest.raises(ValueError, match="out of range"):
-        gops.out_degree(np.array([0, 300]), 300)
+        pnative.out_degree(np.array([0, 300]), 300)
     path = tmp_path / "edges.txt"
     path.write_text("# a comment\n0 1\n0 2\n\n1\t2\n2 0  # tail\n")
-    np.testing.assert_array_equal(gops.parse_edges_text(str(path)),
-                                  native.parse_edges_text(str(path), 64))
+    np.testing.assert_array_equal(
+        pnative.parse_edges_text_numpy(str(path), 64),
+        native.parse_edges_text(str(path), 64))
 
 
 def test_inv_out_degree_equals_jax():

@@ -20,6 +20,8 @@ computes with them.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +34,9 @@ from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.parallel import partition as pt
 from tpu_distalg_torch.parallel import sharding
 from tpu_distalg_torch.telemetry import events
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 SHAPES = [(1, 4), (2, 2), (2, 4)]
 

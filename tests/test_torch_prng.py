@@ -13,6 +13,8 @@ and 8 shards.
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,9 @@ from tpu_distalg.ops import sampling as jsampling
 from tpu_distalg.utils import prng as jprng
 from tpu_distalg_torch.ops import logistic, sampling
 from tpu_distalg_torch.utils import prng
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 SEEDS = [0, 1, 7, 42, 2**31 - 1, 123456789]
 SHAPES = [(1,), (7,), (3, 5), (70001,), (2, 40000)]

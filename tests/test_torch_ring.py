@@ -22,6 +22,7 @@ must the zigzag permutations.
 
 from __future__ import annotations
 
+import os
 import functools
 
 import jax
@@ -35,6 +36,9 @@ from tpu_distalg.parallel import data_parallel, parallelize
 from tpu_distalg.parallel import ring as jring
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.parallel import ring
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 OUT_TOL = dict(rtol=2e-4, atol=2e-4)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)

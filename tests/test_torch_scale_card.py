@@ -18,6 +18,8 @@ order), the count exact, and bit for bit on a replay.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,9 @@ from tpu_distalg_torch.ops import sampling
 from tpu_distalg_torch.ops import ssgd_kernels as tk
 from tpu_distalg_torch.parallel import get_mesh, parallelize
 from tpu_distalg_torch.utils import datasets, prng
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 ROW_TOL, UNIFORM_ULPS, MARGIN = 1e-6, 4, 1e-4
 

@@ -32,6 +32,9 @@ from tpu_distalg_torch.serve.batcher import (
     ServeOverloadError,
 )
 from tpu_distalg_torch.utils import checkpoint
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 7

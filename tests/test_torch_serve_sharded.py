@@ -33,6 +33,9 @@ from tpu_distalg_torch import serve
 from tpu_distalg_torch.ops import topk
 from tpu_distalg_torch.parallel import comms, get_mesh
 from tpu_distalg_torch.telemetry import events
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 7

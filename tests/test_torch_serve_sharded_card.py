@@ -19,6 +19,7 @@ skip; ``tests/test_torch_serve_sharded.py`` holds the CPU path.
 
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
@@ -28,6 +29,9 @@ import torch
 from tpu_distalg_torch import serve
 from tpu_distalg_torch.ops import _native, topk
 from tpu_distalg_torch.parallel import get_mesh
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 
 @pytest.fixture

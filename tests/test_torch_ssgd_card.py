@@ -29,11 +29,16 @@ off the gradient row by row.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from tpu_distalg_torch.ops import ssgd_kernels as tk
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 ULP64 = 64 * 2.0**-23
 CASES = ["exact", "integer", "random"]

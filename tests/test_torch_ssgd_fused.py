@@ -30,6 +30,9 @@ from tpu_distalg_torch.models import ssgd
 from tpu_distalg_torch.ops import ssgd_kernels as tk
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import datasets, prng
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAC = 0.1

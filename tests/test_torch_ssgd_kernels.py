@@ -16,6 +16,8 @@ bit (bfloat16 compared as uint16).
 
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +25,9 @@ import torch
 
 from tpu_distalg.ops import pallas_kernels as pk
 from tpu_distalg_torch.ops import ssgd_kernels as tk
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}

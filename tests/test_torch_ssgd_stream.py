@@ -15,6 +15,7 @@ standard, held before the float32 trajectories part).
 
 from __future__ import annotations
 
+import os
 import dataclasses
 
 import numpy as np
@@ -27,6 +28,9 @@ from tpu_distalg_torch import cli
 from tpu_distalg_torch.models import ssgd, ssgd_stream
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 
 @pytest.fixture(scope="module")

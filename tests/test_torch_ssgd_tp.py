@@ -23,6 +23,7 @@ tp-vs-dp bound), and a segmented run equals a straight one bit for bit.
 
 from __future__ import annotations
 
+import os
 import dataclasses
 import warnings
 
@@ -35,6 +36,9 @@ from tpu_distalg_torch import cli
 from tpu_distalg_torch.models import ssgd
 from tpu_distalg_torch.parallel import get_mesh, model_sum, shard_features
 from tpu_distalg_torch.utils import datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 FUSED = dict(sampler="fused_gather", fused_pack=4, gather_block_rows=32,
              shuffle_seed=0)

@@ -19,6 +19,7 @@ an H100: 5e-7). A second launch equals the first bit for bit.
 
 from __future__ import annotations
 
+import os
 import warnings
 
 import numpy as np
@@ -29,6 +30,9 @@ from tpu_distalg_torch.models import ssgd
 from tpu_distalg_torch.ops import ssgd_kernels as tk
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 #: (dtype, rows, features, pack, gather_block_rows, block ids)
 CASES = [("float32", 398, 30, 4, 32, (0, 12, 12, 3)),

@@ -16,6 +16,7 @@ a column). The layout must equal JAX's exactly, through
 
 from __future__ import annotations
 
+import os
 import dataclasses
 
 import jax.numpy as jnp
@@ -31,6 +32,9 @@ from tpu_distalg_torch.models import ssgd
 from tpu_distalg_torch.ops import ssgd_kernels as tk
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}

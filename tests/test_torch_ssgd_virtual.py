@@ -11,6 +11,7 @@ C's SSGD standard). Within the port, runs replay and resume bit for bit.
 
 from __future__ import annotations
 
+import os
 import dataclasses
 
 import numpy as np
@@ -23,6 +24,9 @@ from tpu_distalg_torch.models import ssgd, ssgd_virtual
 from tpu_distalg_torch.ops import logistic
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import datasets, prng
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 
 def _cfg(**kw):

@@ -39,6 +39,9 @@ from tpu_distalg_torch.parallel import get_mesh, membership, parallelize
 from tpu_distalg_torch.parallel import ssp as pssp
 from tpu_distalg_torch.telemetry import events
 from tpu_distalg_torch.utils import datasets
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 STRAGGLE_PLAN = "seed=7;shard:straggle@p0.2=straggle:25"
 FULL_PLAN = STRAGGLE_PLAN + ";shard:leave@p0.05=leave:2"

@@ -14,6 +14,8 @@ neighbours.
 
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,9 @@ import torch
 from test_torch_topk_card import EXACT, PLAN_CASES, exact_case
 from tpu_distalg.ops import pallas_topk as pt
 from tpu_distalg_torch.ops import topk
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 
 def _jax_ref(Q, V, off, nv, k):

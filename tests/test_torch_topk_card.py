@@ -14,6 +14,7 @@ package in ``tests/test_torch_topk.py``.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 
@@ -22,6 +23,9 @@ import pytest
 import torch
 
 from tpu_distalg_torch.ops import topk
+from tpu_distalg_torch.utils.device import share_host_threads
+
+share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
 EXACT = ["crafted_ties", "offset_and_poisoned_tail", "fewer_valid_than_k",
          "odd_geometry", "k128_two_query_tiles", "ties_across_blocks",

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import re
 import sys
 
@@ -225,12 +226,33 @@ def _parser() -> argparse.ArgumentParser:
                         "Erdős–Rényi graph of this many vertices")
     g.add_argument("--edge-file", type=str, default=None,
                    help="load the graph from a '#'-commented whitespace "
-                        "edge-list file (overrides --n-vertices)")
+                        "edge-list file (overrides --n-vertices); parsed "
+                        "by the C++ ingest's binding")
+    g.add_argument("--edge-capacity", type=int, default=1 << 24,
+                   help="max edges the file parser may return")
     g.add_argument("--data-backend", default="resident",
                    choices=["resident", "virtual", "streamed"],
                    help="where the edge set lives: resident = device "
-                        "memory (the one ported backend; streamed and "
-                        "virtual wait for the graph half of ROADMAP A10)")
+                        "memory (the CSR sweeps), streamed = a dst-sorted "
+                        "CSR edge-block disk cache swept out of core "
+                        "(tpu_distalg_torch/graphs/: only O(V) state on "
+                        "the device, each staged batch through kernel "
+                        "B7), virtual = the same engine from host memory")
+    g.add_argument("--stream-cache", type=str, default=None,
+                   metavar="PATH",
+                   help="edge-block cache path for the streamed/virtual "
+                        "engine (default: a geometry-keyed path under "
+                        "$TMPDIR, built on first use)")
+    g.add_argument("--block-edges", type=int, default=1 << 16,
+                   help="edges per streamed block (the out-of-core "
+                        "transfer granularity)")
+    g.add_argument("--combine", default="auto",
+                   choices=["auto", "sparse", "dense"],
+                   help="the engine's cross-shard rank combine: sparse = "
+                        "each shard's distinct-destination (value, index) "
+                        "pairs (comms.sparse_allreduce), dense = O(V) "
+                        "vectors added in shard order; auto picks by "
+                        "wire-byte accounting")
     g.add_argument("--checkpoint-dir", type=str, default=None,
                    help="segmented checkpoint/resume directory")
     g.add_argument("--checkpoint-every", type=int, default=5)
@@ -286,9 +308,11 @@ def _add_data_backend(p, block_rows: int) -> None:
 
 def _uses_data(args) -> bool:
     """True when the run goes through the data subsystem (the streamed
-    SSGD trainer, minibatch k-means, streamed ALS)."""
+    SSGD trainer, minibatch k-means, streamed ALS, the graph engine)."""
     if args.cmd == "ssgd":
         return args.stream_cache is not None
+    if args.cmd == "pagerank":
+        return args.data_backend != "resident"
     if args.cmd in ("kmeans", "als"):
         return (args.data_backend != "resident"
                 or bool(getattr(args, "minibatch_steps", 0)))
@@ -766,6 +790,7 @@ def _run_pagerank(args) -> None:
     import numpy as np
     import torch
 
+    from tpu_distalg_torch import native
     from tpu_distalg_torch.models import pagerank as m
     from tpu_distalg_torch.ops import graph as gops
     from tpu_distalg_torch.parallel import get_mesh
@@ -775,7 +800,7 @@ def _run_pagerank(args) -> None:
         raise SystemExit("--max-restarts waits for the faults slice "
                          "(ROADMAP A12); only 0 is accepted")
     if args.edge_file is not None:
-        edges = gops.parse_edges_text(args.edge_file)
+        edges = native.parse_edges_text(args.edge_file, args.edge_capacity)
     elif args.n_vertices == 0:
         edges = datasets.toy_graph_edges()
     else:
@@ -785,32 +810,84 @@ def _run_pagerank(args) -> None:
     n_v = int(np.asarray(edges).max()) + 1 if len(edges) else 1
     if args.edge_file is None and args.n_vertices:
         n_v = max(n_v, args.n_vertices)
-    try:
-        m.choose_data_backend(args.data_backend)
-    except NotImplementedError as e:
-        raise SystemExit(f"[pagerank] {e}") from None
+    backend = m.choose_data_backend(args.data_backend)
+    if backend != "resident" and args.mode == "reference":
+        raise SystemExit(
+            "[pagerank] the reference-parity mode is resident-only "
+            "(per-vertex receive masks); the streamed engine runs "
+            "mode='standard' — drop --mode reference or use "
+            "--data-backend resident on a smaller graph")
+    mode = args.mode or ("reference" if backend == "resident"
+                         else "standard")
     mesh = get_mesh(data=args.n_slices or None, device=args.device)
-    cfg = m.PageRankConfig(n_iterations=args.n_iterations, q=args.q,
-                           mode=args.mode or "reference",
-                           scatter=args.scatter)
     t0 = time.perf_counter()
-    el = gops.prepare_edges(edges, n_v)
-    de = m.prepare_device_edges(el, mesh)
-    if mesh.device.type == "cuda":
-        torch.cuda.synchronize(mesh.device)
-    t1 = time.perf_counter()
-    print(f"[pagerank] prep: {t1 - t0:.3f}s ({el.n_edges} edges, "
-          f"{el.n_vertices} vertices: dedupe, dst sort, CSR upload)")
-    res = m.run_prepared(de, mesh, cfg, checkpoint_dir=args.checkpoint_dir,
-                         checkpoint_every=args.checkpoint_every)
+    if backend == "resident":
+        cfg = m.PageRankConfig(n_iterations=args.n_iterations, q=args.q,
+                               mode=mode, scatter=args.scatter)
+        el = gops.prepare_edges(edges, n_v)
+        de = m.prepare_device_edges(el, mesh)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        t1 = time.perf_counter()
+        print(f"[pagerank] prep: {t1 - t0:.3f}s ({el.n_edges} edges, "
+              f"{el.n_vertices} vertices: dedupe, dst sort, CSR upload)")
+        res = m.run_prepared(de, mesh, cfg,
+                             checkpoint_dir=args.checkpoint_dir,
+                             checkpoint_every=args.checkpoint_every)
+        mask = res.has_rank.cpu().numpy() > 0
+        tail = ""
+    else:
+        res, tail = _run_pagerank_engine(args, edges, n_v, mesh, backend)
+        t1 = t0
+        mask = np.ones(res.ranks.shape[0], bool)
     ranks = res.ranks.cpu().numpy()
-    mask = res.has_rank.cpu().numpy() > 0
     dt = time.perf_counter() - t1
     for v in np.argsort(-ranks)[:10]:
         if mask[v]:
             print(f"{v} has rank: {ranks[v]}.")
     print(f"[pagerank] {args.n_iterations} iterations in {dt:.3f}s "
-          f"({args.n_iterations / dt:.2f} iter/s)")
+          f"({args.n_iterations / dt:.2f} iter/s){tail}")
+
+
+def _run_pagerank_engine(args, edges, n_v: int, mesh, backend: str):
+    """``--data-backend streamed|virtual``: ingest into an edge-block
+    cache (the default path keyed on V, the shards, the block size and
+    the edges' sha1), then the out-of-core engine. Returns the result
+    and the summary line's wire-byte tail."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+
+    from tpu_distalg_torch import graphs
+
+    # keyed on the edge content too: two graphs of one vertex count must
+    # not meet in one stale cache
+    sha = hashlib.sha1(
+        np.ascontiguousarray(edges, np.int64).tobytes()).hexdigest()
+    path = args.stream_cache or os.path.join(
+        tempfile.gettempdir(),
+        f"tda_graph_cache_v{n_v}_s{mesh.n_data}_b{args.block_edges}"
+        f"_{sha[:12]}")
+    if args.stream_cache is None:
+        print(f"[pagerank] edge-block cache: {path} (set --stream-cache "
+              f"to keep it elsewhere)", file=sys.stderr)
+    graphs.build_edge_block_cache(
+        edges, path, n_shards=mesh.n_data, block_edges=args.block_edges,
+        n_vertices=n_v, source={"kind": "edges", "sha1": sha})
+    gd = graphs.open_graph_dataset(path, mesh, backend=backend)
+    res = graphs.run_streamed_pagerank(
+        gd, graphs.StreamedPageRankConfig(
+            n_iterations=args.n_iterations, q=args.q, combine=args.combine),
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every)
+    st = res.comm_stats
+    wire = (st["bytes_wire"] if res.combine == "sparse"
+            else st["bytes_dense_ring"])
+    tail = (f" [{backend} engine, combine={res.combine}: {wire} B "
+            f"wire/sweep; accounting sparse {st['bytes_wire']} B vs "
+            f"dense-ring {st['bytes_dense_ring']} B]")
+    return res, tail
 
 
 def main(argv=None) -> int:

@@ -25,9 +25,11 @@ Two modes, as in the JAX package:
     path. The CSR plan exists for every graph, so on the card ``auto``
     is always B7 and ``pallas``/``spmv`` never lack a plan.
 
-Only the resident backend is ported: the streamed and virtual engines
-(``tpu_distalg/graphs/``) wait for the graph half of ROADMAP A10. The JAX package's
-~12M-vertex VMEM guard is a TPU limit and has no counterpart here.
+The streamed and virtual backends are the out-of-core engine
+(:mod:`..graphs`: edge-block caches swept a staged batch at a time
+through B7, standard mode); :func:`choose_data_backend` names the one a
+run takes. The JAX package's ~12M-vertex VMEM guard is a TPU limit and
+has no counterpart here, so ``resident`` stays resident at any size.
 """
 
 from __future__ import annotations
@@ -80,17 +82,13 @@ class DeviceEdges:
 
 
 def choose_data_backend(requested: str) -> str:
-    """The ``--data-backend`` knob: ``resident`` is the one ported
-    backend, at any vertex count (the JAX package's VMEM guard has no
-    counterpart: the CSR sweep has no window caps)."""
-    if requested == "resident":
-        return "resident"
-    if requested in ("streamed", "virtual"):
-        raise NotImplementedError(
-            f"--data-backend {requested}: the out-of-core graph engine "
-            f"(tpu_distalg/graphs/) is not ported yet (the graph slice, "
-            f"the graph half of ROADMAP A10); use --data-backend "
-            f"resident")
+    """The ``--data-backend`` knob: ``resident`` (this module's CSR
+    sweep), or ``streamed``/``virtual`` (the out-of-core engine,
+    :mod:`..graphs`). The JAX package's VMEM guard, which turns a large
+    resident request into a streamed one, has no counterpart: the CSR
+    sweep has no window caps, so every request is kept as it is."""
+    if requested in ("resident", "streamed", "virtual"):
+        return requested
     raise ValueError(f"unknown data backend {requested!r}")
 
 

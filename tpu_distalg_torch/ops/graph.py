@@ -1,21 +1,27 @@
-"""Host graph prep for PageRank and the closure, in numpy, and the
-dense closure's round.
+"""Graph ops: the host prep of PageRank and the closure, a streamed edge
+block's rank contributions, and the dense closure's round.
 
-Port of ``tpu_distalg/ops/graph.py::EdgeList``/``prepare_edges`` and of
-the host helpers it and the sweep prep take from
-``tpu_distalg/native/__init__.py`` (``dedupe_edges_pair``,
-``out_degree``, ``counting_sort_perm``, ``parse_edges_text``) and
-``tpu_distalg/graphs/ingest.py::inv_out_degree``. The JAX package runs
-the helpers in C++ (``native/graph_ingest.cpp``) when that library is
-built; these are the numpy forms of the same functions, which sort and
-dedupe the same way, so both packages get the same integer arrays. At
-8M edges numpy takes seconds; a binding of the C++ ingest waits for the
-out-of-core slice (ROADMAP A10).
+Port of ``tpu_distalg/ops/graph.py``:
 
-:func:`closure_step` and :func:`path_count` are the port of the JAX
-package's transitive-closure ops (``ops/graph.py:135-150``), which run
-outside any Pallas kernel: a boolean matmul as a float product tested
-``> 0``, and a popcount.
+  * :class:`EdgeList` and :func:`prepare_edges` (``:22-67``): dedupe and
+    out-degrees through the C++ ingest's binding (:mod:`..native`, with
+    its byte-identical numpy forms where the library cannot load);
+  * :func:`inv_out_degree`: the one definition of PageRank's per-edge
+    weight (JAX keeps it in ``graphs/ingest.py:149``;
+    :mod:`..graphs.ingest` takes it from here);
+  * :func:`decode_edge_rows` and :func:`block_contribs` (``:107-132``):
+    one staged batch of ``csr_edge_blocks_i32`` rows summed into a
+    shard's destination window. JAX gathers ``ranks[src]·w`` and
+    ``segment_sum``\\ s it onto ``dst − lo``. On the card a scatter-add
+    adds with float atomics in no fixed order, so here the batch's runs
+    of equal dst are the rows of a CSR matrix summed by kernel B7
+    (:func:`..ops.pagerank_kernels.spmv_table`), and each run's sum is
+    then added to the window at its dst: JAX's order of adds (a batch's
+    per-dst sum first, then the add to the window), with no host sync
+    and no atomics. B7's tile plan is made per batch, since every
+    staged batch is a new input;
+  * :func:`closure_step` and :func:`path_count` (``:135-150``): a
+    boolean matmul as a float product tested ``> 0``, and a popcount.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from tpu_distalg_torch import native
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,43 +48,6 @@ class EdgeList:
         return len(self.src)
 
 
-def dedupe_edges_pair(edges: np.ndarray):
-    """Sorted, deduplicated (src, dst) int64 columns of an (E, 2) int
-    edge array — ``links.distinct()`` set semantics (reference
-    ``pagerank.py:41``)."""
-    edges = np.ascontiguousarray(edges, dtype=np.int64).reshape(-1, 2)
-    uniq = np.unique(edges, axis=0)
-    return (np.ascontiguousarray(uniq[:, 0]),
-            np.ascontiguousarray(uniq[:, 1]))
-
-
-def out_degree(src: np.ndarray, n_vertices: int) -> np.ndarray:
-    """(n_vertices,) int32 count of each id in ``src``."""
-    src = np.ascontiguousarray(src, dtype=np.int64)
-    if len(src) and (int(src.min()) < 0 or int(src.max()) >= n_vertices):
-        raise ValueError(
-            f"src id out of range for n_vertices={n_vertices}: "
-            f"[{int(src.min())}, {int(src.max())}]")
-    return np.bincount(src, minlength=n_vertices).astype(np.int32)
-
-
-def counting_sort_perm(keys: np.ndarray, key_range: int) -> np.ndarray:
-    """Stable argsort (int64) of integer keys in ``[0, key_range)`` —
-    the host prep behind PageRank's dst-sorted edge layout."""
-    keys = np.ascontiguousarray(keys, dtype=np.int64)
-    if len(keys) and (keys.min() < 0 or keys.max() >= key_range):
-        raise ValueError(
-            f"counting_sort_perm: key out of range [0, {key_range})")
-    return np.argsort(keys, kind="stable")
-
-
-def parse_edges_text(path: str) -> np.ndarray:
-    """Parse a '#'-commented whitespace edge-list file into (E, 2)
-    int64."""
-    return np.loadtxt(path, dtype=np.int64, comments="#",
-                      ndmin=2).reshape(-1, 2)
-
-
 def inv_out_degree(deg: np.ndarray) -> np.ndarray:
     """Per-vertex ``1/out_degree`` (0 for sinks), float32 — the one
     definition of PageRank's per-edge weight ``w_e = inv_deg[src]``."""
@@ -87,11 +58,13 @@ def inv_out_degree(deg: np.ndarray) -> np.ndarray:
 
 def prepare_edges(edges: np.ndarray,
                   n_vertices: int | None = None) -> EdgeList:
-    """Dedupe an (E, 2) edge array and precompute out-degrees.
+    """Dedupe an (E, 2) edge array and precompute out-degrees through
+    :mod:`..native` (``links.distinct()`` + ``groupByKey``,
+    ``pagerank.py:41``).
 
     ``n_vertices=None`` infers max id + 1; a count at or below the
     largest id raises (it would index the degree table out of range)."""
-    src, dst = dedupe_edges_pair(np.asarray(edges))
+    src, dst = native.dedupe_edges_pair(np.asarray(edges))
     max_id = max(int(src.max()) if len(src) else -1,
                  int(dst.max()) if len(dst) else -1)
     if n_vertices is None:
@@ -105,7 +78,63 @@ def prepare_edges(edges: np.ndarray,
         raise ValueError("vertex ids must be non-negative")
     return EdgeList(src=src.astype(np.int32), dst=dst.astype(np.int32),
                     n_vertices=int(n_vertices),
-                    out_degree=out_degree(src, n_vertices))
+                    out_degree=native.out_degree(src, n_vertices))
+
+
+def decode_edge_rows(rows: torch.Tensor):
+    """Split packed ``(E, 3)`` int32 cache rows into contiguous ``src``,
+    ``dst`` (int32) and ``w`` (float32: the bits column viewed as
+    float), the device-side inverse of ``native.pack_edge_rows``."""
+    cols = rows.t().contiguous()
+    return cols[0], cols[1], cols[2].view(torch.float32)
+
+
+def block_runs(rows: torch.Tensor, lo: int, window: int):
+    """The runs of equal dst in one dst-sorted batch of ``n`` packed rows
+    as a CSR matrix of ``n`` rows: ``(row_ptr, src, w, slot)``. Run r
+    (numbered by a ``cumsum`` of the heads ``dst[i] != dst[i−1]``) is
+    row r, its edges ``[row_ptr[r], row_ptr[r+1])``; the rows past the
+    last run are empty at ``n``. ``slot[r]`` is run r's dst − ``lo``, its
+    place in the window, and ``window`` (a trash slot) for an empty row.
+    Fixed sizes, made on the rows' device without a host sync."""
+    src, dst, w = decode_edge_rows(rows)
+    n, dev = src.shape[0], rows.device
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = dst[1:] != dst[:-1]
+    # a head writes its run's entry; every other edge the spare one at n+1
+    at = torch.where(head, torch.cumsum(head, 0) - 1, n + 1)
+    row_ptr = torch.full((n + 2,), n, dtype=torch.int32, device=dev)
+    row_ptr.scatter_(0, at, torch.arange(n, dtype=torch.int32, device=dev))
+    slot = torch.full((n + 2,), window, dtype=torch.int64, device=dev)
+    slot.scatter_(0, at, dst.long() - lo)
+    return row_ptr[:n + 1], src, w, slot[:n]
+
+
+def accumulate_block(acc: torch.Tensor, ranks: torch.Tensor,
+                     rows: torch.Tensor, lo: int) -> None:
+    """Add one batch's rank contributions into a shard's window
+    accumulator ``acc`` (window + 1,) float32, in place: B7 sums each run
+    (``spmv_table``: the kernel on the card, its plain version on the
+    CPU), then each run's sum is added at its slot. The real slots are
+    unique, so the add is a gather, an add and a store (no atomics); the
+    empty rows' zeros land in the trash slot ``acc[window]``."""
+    from tpu_distalg_torch.ops import pagerank_kernels as pk
+
+    row_ptr, src, w, slot = block_runs(rows, lo, acc.shape[0] - 1)
+    y = pk.spmv_table(row_ptr, src, w, ranks)
+    acc.index_put_((slot,), acc.index_select(0, slot) + y)
+
+
+def block_contribs(ranks: torch.Tensor, rows: torch.Tensor, lo: int,
+                   window: int) -> torch.Tensor:
+    """One staged batch's rank contributions in the owning shard's
+    destination window, (window,) float32: ``Σ ranks[src]·w`` over the
+    batch's edges into each dst, at ``dst − lo`` (JAX
+    ``ops/graph.py:119``). Padding rows (zero weight, the last real dst)
+    add zeros."""
+    acc = torch.zeros(window + 1, dtype=torch.float32, device=ranks.device)
+    accumulate_block(acc, ranks, rows, lo)
+    return acc[:window]
 
 
 def closure_operand(x: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_distalg_torch import native
 from tpu_distalg_torch.ops import _native
 from tpu_distalg_torch.ops import graph as gops
 
@@ -77,7 +78,7 @@ def plan_csr(el: gops.EdgeList, n_shards: int = 1) -> CSRPlan:
     if E > MAX_EDGES:
         raise ValueError(f"{E} edges: the kernels take at most "
                          f"{MAX_EDGES} (32-bit edge ids)")
-    order = gops.counting_sort_perm(el.dst, V)
+    order = native.counting_sort_perm(el.dst, V)
     src = el.src[order].astype(np.int32)
     w_e = gops.inv_out_degree(el.out_degree)[src]
     row_ptr = np.zeros(V + 1, np.int64)
