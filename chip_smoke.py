@@ -140,11 +140,25 @@ and the script exits non-zero without printing a result:
      bit for bit, segmented = straight, the other combine and
      ``models.pagerank``'s CSR sweep within tolerance; phase 7 also
      times the resident prep through the binding and its numpy forms;
- 16. the kernels line (B1's and B2's entries with their launches on the
+ 16. the data axis across processes (``torch.distributed``,
+     ``tpu_distalg_torch/tools/multiproc_run.py``): two ranks on the
+     card over gloo (NCCL refuses two ranks on one GPU), each holding
+     one of 2 global data shards, run SSGD ``fused_gather`` (B1) and
+     ``fused`` (B5) at phase 6's geometry for 1500 steps, MA on
+     ``fused_train`` (B2) and ``fused_gather`` (B1) at phase 11's, the tp
+     split on a 2×2 mesh (B3, B4), k-means at 10M × 16, k 8 (B10) and
+     PageRank at 1M × 8M in ``auto`` (B7) and ``pallas`` (B8) for 50
+     iterations; each rank's launches are its shards × the steps; every
+     result equals one process × 2 shards on the card bit for bit, and
+     a world-1 NCCL group's ``fused_gather`` too; steps/s beside the one
+     process's, the collectives' count and bytes, the host copies' share
+     of the wall time and the idle share;
+ 17. the kernels line (B1's and B2's entries with their launches on the
      local-update runs, B1's on the scale path and phase 14's streamed
      runs, B1's, B2's and B5's on phase 13's paths, B7's on phase 15's
      streamed sweeps and a hub batch, B9's on the sharded path and at
-     the slice's shape), then the last line
+     the slice's shape, and each kernel's launches a rank in phase
+     16), then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
@@ -152,7 +166,8 @@ and read just after it (the serving path: phase 4's full-width fit and
 phase 5; each of phase 5b's served runs; each SSGD path, each PageRank
 sweep, each k-means fit, each tp mesh, each attention run, each
 local-update run, each of phase 12's paths on its own, each of phase
-13's runs, each of phase 14's runs and each of phase 15's sweeps), so
+13's runs, each of phase 14's runs, each of phase 15's sweeps and, in
+each of phase 16's processes, each workload), so
 the kernels line shows that each path went through its kernel, and that the kernel-free paths
 (phase 5b's dense merge, phase 12's Monte Carlo, closure and ``fixed``,
 phase 14's virtual SSGD, minibatch k-means and streamed ALS) launched
@@ -5460,6 +5475,155 @@ def run_graph(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 16
+
+#: phase 16's workloads (``tools/multiproc_run.py``) and the kernel each
+#: launches, by B number
+MP_KERNELS = {"ssgd_fused_gather": ("B1",), "ssgd_fused": ("B5",),
+              "ma_fused_train": ("B2",), "ma_fused_gather": ("B1",),
+              "ssgd_tp": ("B3", "B4"), "kmeans_fused": ("B10",),
+              "pagerank_auto": ("B7",), "pagerank_pallas": ("B8",)}
+MP_TIMEOUT_S = 600
+#: phase 16's results a rank holds only its rows of (the replicas'
+#: models, which the ``local_sgd`` table cuts over the data axis)
+MP_ROW_SHARDED = ("ma_fused_train/ws", "ma_fused_gather/ws")
+
+
+def _mp_spawn(out: str, tag: str, args_for: list) -> list:
+    """Start one ``multiproc_run`` process per argument list, all at
+    once; wait for all; raise with their output unless each exits 0."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    procs, logs = [], []
+    for i, extra in enumerate(args_for):
+        log = open(os.path.join(out, f"{tag}{i}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tpu_distalg_torch.tools.multiproc_run",
+             "--out", out, *extra], cwd=repo, env=env, stdout=log,
+            stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=MP_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for p, log in zip(procs, logs):
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+        if p.returncode != 0:
+            raise AssertionError(f"phase 16 {tag} process exited "
+                                 f"{p.returncode}:\n{texts[-1][-4000:]}")
+    return texts
+
+
+def _mp_load(out: str, tag: str) -> tuple:
+    with np.load(os.path.join(out, f"{tag}.npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+    with open(os.path.join(out, f"{tag}.json")) as f:
+        return arrays, json.load(f)
+
+
+def run_multiproc(dev) -> dict:
+    """Phase 16: two gloo ranks on the card, one process alone and a
+    world-1 NCCL group, each its own process; their results compared bit
+    for bit. Returns each kernel's launches a rank and the rates."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()   # the card's memory to the children
+    names = list(MP_KERNELS)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mp-") as out:
+        nccl_out = os.path.join(out, "nccl")
+        os.makedirs(nccl_out)
+        t0 = time.perf_counter()
+        _mp_spawn(out, "rank", [
+            ["--init", f"file://{out}/rendezvous", "--world", "2",
+             "--rank", str(r)] for r in (0, 1)])
+        t_pair = time.perf_counter() - t0
+        _mp_spawn(out, "single", [["--no-profile"]])
+        _mp_spawn(nccl_out, "nccl", [
+            ["--init", f"file://{nccl_out}/rendezvous", "--world", "1",
+             "--rank", "0", "--workloads", "ssgd_fused_gather",
+             "--no-profile"]])
+        single, s_info = _mp_load(out, "single")
+        ranks = [_mp_load(out, f"rank{r}") for r in (0, 1)]
+        nccl, n_info = _mp_load(nccl_out, "rank0")
+    for r, (_, info) in enumerate(ranks):
+        if (info["backend"], info["process_count"], info["local_data"]) != (
+                "gloo", 2, [r]):
+            raise AssertionError(f"rank {r}: {info['backend']} over "
+                                 f"{info['process_count']} processes, shards "
+                                 f"{info['local_data']}")
+    if (n_info["backend"], n_info["process_count"]) != ("nccl", 1):
+        raise AssertionError(f"world-1 group: backend {n_info['backend']}")
+    for key, whole in single.items():
+        for r, (arrays, _) in enumerate(ranks):
+            got = arrays[key]
+            # rank r holds replica r of a row-sharded result
+            want = whole[r:r + 1] if key in MP_ROW_SHARDED else whole
+            if got.shape != want.shape:
+                raise AssertionError(f"phase 16: rank {r}'s {key} is "
+                                     f"{got.shape}, want {want.shape}")
+            if got.tobytes() != want.tobytes():
+                raise AssertionError(
+                    f"phase 16: rank {r}'s {key} differs from one process "
+                    f"× 2 shards (largest difference "
+                    f"{float(np.abs(got - want).max())!r})")
+    for key, got in nccl.items():
+        if got.tobytes() != single[key].tobytes():
+            raise AssertionError(f"phase 16: the NCCL group's {key} differs "
+                                 f"from one process's")
+    print(f"[multiproc] 2 gloo ranks on one card ({t_pair!r} s for the "
+          f"pair, start-up and data included): every result of "
+          f"{len(single)} equals one process × 2 shards bit for bit; a "
+          f"world-1 NCCL group's ssgd_fused_gather too")
+    rates, launches = {}, {}
+    for name in names:
+        st = [info["stats"][name] for _, info in ranks]
+        one = s_info["stats"][name]
+        d = st[0]["dist"]
+        rates[name] = {
+            "steps_per_s_ranks": [x["steps_per_s"] for x in st],
+            "steps_per_s_one_process": one["steps_per_s"],
+            "collectives": d["collectives"], "bytes_sent": d["bytes_sent"],
+            "host_copies": d["host_copies"],
+            "host_copy_share": [x["host_copy_share"] for x in st],
+            "idle_share": [x["idle_share"] for x in st],
+            "setup_seconds": [x["setup_seconds"] for x in st],
+            "window_wall_us_per_step": [x["window_wall_us_per_step"]
+                                        for x in st],
+            "device_us_per_step": [x["device_us_per_step"] for x in st]}
+        launches[name] = st[0]["launches"]
+        print(f"[multiproc] {name}: {rates[name]['steps_per_s_ranks']} "
+              f"steps/s a rank vs {one['steps_per_s']!r} in one process; "
+              f"{d['collectives']} all-gathers, {d['bytes_sent']} B sent a "
+              f"rank, {d['host_copies']} host copies "
+              f"({rates[name]['host_copy_share']} of the wall time); idle "
+              f"share {rates[name]['idle_share']}; launches a rank "
+              f"{launches[name]}; set-up {rates[name]['setup_seconds']} s; "
+              f"profiled window "
+              f"{rates[name]['window_wall_us_per_step']} µs a step wall, "
+              f"{rates[name]['device_us_per_step']} µs device")
+    n1 = n_info["stats"]["ssgd_fused_gather"]
+    print(f"[multiproc] NCCL world 1, ssgd_fused_gather: "
+          f"{n1['steps_per_s']!r} steps/s, {n1['dist']['collectives']} "
+          f"all-gathers, {n1['dist']['host_copies']} host copies")
+    return {"rates": rates, "launches": launches,
+            "nccl_steps_per_s": n1["steps_per_s"]}
+
+
+def _mp_launches(mp: dict, key: str) -> dict:
+    """Phase 16's launches a rank of the kernel ``key``, by workload."""
+    return {name: mp["launches"][name] for name, keys in MP_KERNELS.items()
+            if key in keys}
+
+
 def _phase(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[time] {name}: {now - t0!r} s")
@@ -5550,6 +5714,9 @@ def main() -> int:
     graph = run_graph(dev)
     t0 = _phase("graph engine: streamed pagerank", t0)
 
+    mp = run_multiproc(dev)
+    t0 = _phase("the data axis across processes", t0)
+
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"
     kernels = [{
@@ -5579,6 +5746,8 @@ def main() -> int:
                if local_launches else {}),
             **({"sync_launches": _sync_launches(sync, key)}
                if key in ("B1", "B2", "B5") else {}),
+            **({"process_launches": _mp_launches(mp, key)}
+               if key in ("B1", "B2", "B5") else {}),
             **({"scale_launches": rest["scale"]["launches"],
                 **rest["scale"]["rec"],
                 "stream_launches": ooc["stream"]["launches"],
@@ -5592,6 +5761,7 @@ def main() -> int:
             "launches": tp["main_launches"][name],
             **{k: v for k, v in main.items() if k != "bytes"},
             **({"sass": sg["recs"]["B3_sass"]} if key == "B3" else {}),
+            "process_launches": _mp_launches(mp, key),
             **{f"wide_{k}": v for k, v in wide.items()
                if k in ("ms", "plain_ms", "library_ms", "bound_ms")}})
     for key, name, line, path in (("B7", "spmv_table", 457, "auto"),
@@ -5601,6 +5771,7 @@ def main() -> int:
             "source": "tpu_distalg_torch/csrc/pagerank.cu",
             "replaces": f"tpu_distalg/ops/pallas_pagerank.py:{line}",
             "launches": pr["launches"][path][name], **pr["recs"][key],
+            "process_launches": _mp_launches(mp, key),
             **({"streamed_launches": graph["launches"],
                 "streamed_launches_per_sweep":
                     graph["b7_launches_per_sweep"], **graph["b7"]}
@@ -5610,7 +5781,7 @@ def main() -> int:
         "source": "tpu_distalg_torch/csrc/kmeans.cu",
         "replaces": "tpu_distalg/ops/pallas_kmeans.py:176",
         "launches": km["launches"]["fused"]["fused_cluster_stats"],
-        **km["rec"]})
+        **km["rec"], "process_launches": _mp_launches(mp, "B10")})
     for key, name, line in (("B11", "flash_attention_block", 166),
                             ("B12", "flash_attention_backward_block", 374)):
         kernels.append({

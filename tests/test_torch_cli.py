@@ -27,15 +27,8 @@ MISSING_SUBCOMMANDS = {"chaos", "cluster", "lint", "protocol", "report",
 #: JAX options the port's parser rejects, by subcommand ("" = top
 #: level), and the ROADMAP item each waits for
 MISSING_OPTIONS = {
-    "": {"--emulate": "A12", "--profile": "A12", "--multihost": "A9",
-         "--coordinator-address": "A9", "--num-processes": "A9",
-         "--process-id": "A9"},
-    "lr": {"--mesh-shape": "A9"},
-    "ma": {"--mesh-shape": "A9"},
-    "bmuf": {"--mesh-shape": "A9"},
-    "easgd": {"--mesh-shape": "A9"},
-    "kmeans": {"--mesh-shape": "A9", "--plot": "A12"},
-    "pagerank": {"--mesh-shape": "A9"},
+    "": {"--profile": "A12"},
+    "kmeans": {"--plot": "A12"},
     "ssgd": {"--max-restarts": "A12"},
     "serve": {"--fault-plan": "A12"},
 }

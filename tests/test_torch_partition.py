@@ -11,8 +11,9 @@ partition.py``), as JAX ``tests/test_partition.py:41-266`` holds it:
   * the uneven pad-reshard-slice round trip, bitwise;
   * the shard views equal the JAX package's addressable shards;
   * the ``reshard.*`` counters, read by the JAX package's report;
-  * the hand placement of ``parallel/sharding.py`` equal to the views
-    its table names.
+  * the table placement of ``parallel/sharding.py`` equal to the former
+    hand layout, view for view, and every trainer moved onto the tables
+    equal to itself fed that layout, bit for bit.
 
 Everything here is exact: the engine moves and pads values, it never
 computes with them.
@@ -149,25 +150,204 @@ def test_place_passes_through_placed_leaves():
     ("ssgd_feature_sharded", "X", True)])
 def test_hand_placement_matches_its_table(tbl, leaf, by_model, data,
                                           model):
-    """The trainers that still place by hand (``parallel/sharding.py``)
-    give each shard the block their table names: rows over data by
-    ``parallelize``, and columns over model by ``shard_features``."""
+    """The table placement (``parallel/sharding.py``'s thin callers of
+    the engine) gives each shard the block the former hand placement
+    gave it: rows zero-padded to a multiple of the data shards, shard s
+    the s-th equal slice; under the model axis, contiguous column
+    slices."""
     mesh = get_mesh(data, model, device="cpu")
     rng = np.random.default_rng(3)
     X = rng.standard_normal((13, 12)).astype(np.float32)
-    Xs = sharding.parallelize(X, mesh)
+    Xs = sharding.parallelize(X, mesh, table=tbl, leaf=leaf)
+    n_pad = (-13) % data
+    former = torch.from_numpy(np.pad(X, ((0, n_pad), (0, 0))))
+    former_mask = torch.from_numpy((np.arange(13 + n_pad) < 13).astype(
+        np.float32))
+    assert Xs.n_padded == 13 + n_pad and torch.equal(Xs.data, former)
     n_local = Xs.n_padded // data
     spec = pt.table(tbl).spec_for(leaf, tuple(Xs.data.shape))
     views = pt.shards(Xs.data, spec, mesh)
     mviews = pt.shards(Xs.mask, pt.table(tbl).spec_for(
         "mask", tuple(Xs.mask.shape)), mesh)
     cols = sharding.shard_features(Xs.data, model) if by_model else None
+    d_l = 12 // model
     for s in range(data):
         rows = slice(s * n_local, (s + 1) * n_local)
         for m in range(model):
-            want = cols[m][rows] if by_model else Xs.data[rows]
+            want = former[rows, m * d_l:(m + 1) * d_l] if by_model \
+                else former[rows]
             assert torch.equal(views[s][m], want), (tbl, s, m)
-            assert torch.equal(mviews[s][m], Xs.mask[rows]), (tbl, s, m)
+            if by_model:
+                assert torch.equal(cols[m][rows], want), (tbl, s, m)
+            assert torch.equal(mviews[s][m], former_mask[rows]), (tbl, s, m)
+
+
+def _former_rows(X, n_shards, dtype=torch.float32):
+    """The former hand placement: rows zero-padded to a multiple of the
+    shards, the padded array and its mask on the CPU."""
+    X = np.asarray(X)
+    n_pad = (-X.shape[0]) % n_shards
+    padded = np.pad(X, [(0, n_pad)] + [(0, 0)] * (X.ndim - 1))
+    mask = (np.arange(X.shape[0] + n_pad) < X.shape[0]).astype(np.float32)
+    return (torch.from_numpy(np.ascontiguousarray(padded)).to(dtype),
+            torch.from_numpy(mask))
+
+
+def _former_trainer_run(name, mesh, data):
+    """``name``'s trainer fed the former hand layout → its weights (or
+    centres, or ranks)."""
+    from tpu_distalg_torch.models import (
+        kmeans,
+        local_sgd,
+        logistic_regression,
+        ssgd,
+    )
+    from tpu_distalg_torch.ops import logistic, ssgd_kernels
+    from tpu_distalg_torch.utils import prng
+
+    X, S = data[0], mesh.n_data
+    if name == "kmeans":
+        cfg = kmeans.KMeansConfig(k=3, n_iterations=4)
+        Xt, mask = _former_rows(X, S)
+        return kmeans.make_fit_fn(mesh, cfg)(
+            Xt, mask, kmeans.init_centers(X, 3, cfg.seed))[0]
+    if name == "pagerank":
+        return _former_pagerank(X, mesh)
+    X, y, X_te, y_te = data
+    Xt, mask = _former_rows(X, S)
+    yt, _ = _former_rows(np.asarray(y, np.float32), S)
+    X_te_t = torch.from_numpy(np.asarray(X_te, np.float32))
+    y_te_t = torch.from_numpy(np.asarray(y_te, np.float32))
+    w0 = logistic.init_weights(prng.root_key(7, mesh.device), X.shape[1])
+    if name == "lr":
+        cfg = logistic_regression.LRConfig(n_iterations=20)
+        return logistic_regression.make_train_fn(mesh, cfg)(
+            Xt, yt, mask, X_te_t, y_te_t, w0)[0]
+    if name in ("ssgd_bernoulli", "ssgd_fixed"):
+        cfg = ssgd.SSGDConfig(n_iterations=20, sampler=name[5:])
+        return ssgd.make_train_fn(mesh, cfg, Xt.shape[0])(
+            Xt, yt, mask, X_te_t, y_te_t, w0)[0]
+    if name in ("ssgd_fused_gather", "ssgd_fused"):
+        cfg = ssgd.SSGDConfig(n_iterations=20, sampler=name[5:],
+                              fused_pack=4, gather_block_rows=32,
+                              fused_block_rows=64, shuffle_seed=0)
+        block = 32 if name == "ssgd_fused_gather" else 64
+        X2, meta = ssgd_kernels.pack_augmented(
+            np.asarray(X), np.asarray(y), np.ones(X.shape[0], np.float32),
+            dtype="float32", pack=4, block_rows=block * S, shuffle_seed=0,
+            device="cpu")
+        w = torch.zeros((meta["d_total"],))
+        w[:X.shape[1]] = w0
+        X_te_p = torch.from_numpy(np.pad(
+            np.asarray(X_te, np.float32),
+            ((0, 0), (0, meta["d_total"] - X.shape[1]))))
+        return ssgd.make_train_fn_fused(mesh, cfg, meta)(
+            X2, None, None, X_te_p, y_te_t, w)[0][:X.shape[1]]
+    if name == "ssgd_tp":
+        cfg = ssgd.SSGDConfig(n_iterations=20, feature_sharded=True)
+        M = mesh.n_model
+        Xp = np.pad(np.asarray(X, np.float32),
+                    ((0, 0), (0, (-X.shape[1]) % M)))
+        Xf, mask = _former_rows(Xp, S)
+        Xsl = Xf.reshape(Xf.shape[0], M, -1).transpose(0, 1).contiguous()
+        X_te_p = torch.from_numpy(np.pad(
+            np.asarray(X_te, np.float32), ((0, 0), (0, Xp.shape[1] -
+                                                    X.shape[1]))))
+        w = logistic.init_weights(prng.root_key(7, mesh.device),
+                                  Xp.shape[1])
+        return ssgd.make_train_fn(mesh, cfg, Xf.shape[0])(
+            Xsl, yt, mask, X_te_p, y_te_t, w)[0][:X.shape[1]]
+    assert name == "local_sgd"
+    cfg = local_sgd.LocalSGDConfig(n_iterations=3)
+    st = local_sgd.init_state(cfg, X.shape[1], X.shape[1], S, mesh.device)
+    return local_sgd.make_train_fn(mesh, cfg, Xt.shape[0])(
+        Xt, yt, mask, X_te_t, y_te_t, *st)[0]
+
+
+def _former_pagerank(edges, mesh):
+    """PageRank on the former hand layout: the whole dst-sorted edge
+    list on the device, each shard a view of its slice."""
+    from tpu_distalg_torch.models import pagerank
+    from tpu_distalg_torch.ops import graph as gops
+    from tpu_distalg_torch.ops import pagerank_kernels as pk
+
+    S = mesh.n_data
+    cfg = pagerank.PageRankConfig(n_iterations=5, mode="standard")
+    el = gops.prepare_edges(edges, None)
+    plan = pk.plan_csr(el, S)
+    src, w_e = torch.from_numpy(plan.src), torch.from_numpy(plan.w_e)
+    shards = [(torch.from_numpy(plan.shard_row_ptr(s)), src[lo:hi],
+               w_e[lo:hi]) for s, (lo, hi) in enumerate(plan.bounds)]
+    has_out = (el.out_degree > 0).astype(np.float32)
+    de = pagerank.DeviceEdges(
+        shards=shards, plans=[pk.tile_plan(rp, s_.shape[0])
+                              for rp, s_, _ in shards],
+        has_out=torch.from_numpy(has_out), n_vertices=el.n_vertices,
+        n_edges=el.n_edges, n_ref=float(has_out.sum()))
+    return pagerank.run_prepared(de, mesh, cfg).ranks
+
+
+def _table_trainer_run(name, mesh, data):
+    """``name``'s public entry point, placing by the rule tables."""
+    from tpu_distalg_torch.models import (
+        kmeans,
+        local_sgd,
+        logistic_regression,
+        pagerank,
+        ssgd,
+    )
+
+    X = data[0]
+    if name == "kmeans":
+        return kmeans.fit(X, mesh, kmeans.KMeansConfig(k=3,
+                                                       n_iterations=4)).centers
+    if name == "pagerank":
+        return pagerank.run(X, mesh, pagerank.PageRankConfig(
+            n_iterations=5, mode="standard")).ranks
+    X, y, X_te, y_te = data
+    if name == "lr":
+        return logistic_regression.train(
+            X, y, X_te, y_te, mesh,
+            logistic_regression.LRConfig(n_iterations=20)).w
+    if name.startswith("ssgd"):
+        fields = dict(feature_sharded=True) if name == "ssgd_tp" else dict(
+            sampler=name[5:], fused_pack=4, gather_block_rows=32,
+            fused_block_rows=64, shuffle_seed=0, x_dtype="float32")
+        return ssgd.train(X, y, X_te, y_te, mesh,
+                          ssgd.SSGDConfig(n_iterations=20, **fields)).w
+    return local_sgd.train(X, y, X_te, y_te, mesh,
+                           local_sgd.LocalSGDConfig(n_iterations=3)).w
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("lr", (4, 1)), ("ssgd_bernoulli", (4, 1)), ("ssgd_fixed", (4, 1)),
+    ("ssgd_fused_gather", (4, 1)), ("ssgd_fused", (4, 1)),
+    ("ssgd_tp", (2, 2)), ("local_sgd", (4, 1)), ("kmeans", (3, 1)),
+    ("pagerank", (3, 1))])
+def test_table_placement_trains_as_the_former_hand_layout(name, shape):
+    """Each trainer moved onto the tables, on one process, equals the
+    same trainer fed the former hand layout bit for bit: the move
+    changes where a layout is written down, not what it is. Small
+    shapes: 77 rows of 5 features (odd, so the rows pad), a 60-point
+    mixture, a 40-vertex graph of 200 edges (uneven over 3 shards)."""
+    import warnings
+
+    mesh = get_mesh(*shape, device="cpu")
+    rng = np.random.default_rng(11)
+    if name == "pagerank":
+        data = (rng.integers(0, 40, size=(200, 2)).astype(np.int64),)
+    elif name == "kmeans":
+        data = (rng.standard_normal((61, 3)).astype(np.float32) * 3,)
+    else:
+        X = rng.standard_normal((77, 5)).astype(np.float32)
+        y = (X[:, 0] + 0.3 * rng.standard_normal(77) > 0).astype(np.float32)
+        data = (X, y, X[:20], y[:20])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # coarse-fraction geometry warn
+        got = _table_trainer_run(name, mesh, data)
+        want = _former_trainer_run(name, mesh, data)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.numpy().tobytes() == want.numpy().tobytes()
 
 
 def test_put_and_constrain_refuse_an_uneven_layout():
@@ -327,6 +507,39 @@ def test_shard_views_equal_the_jax_package_shards(data, model):
                     np.asarray(sh.data).tobytes(), (tbl, name, s, m)
                 assert views[s][m].untyped_storage().data_ptr() == \
                     x.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("process_index", [0, 1])
+def test_data_block_and_local_block_are_the_engines_cut(process_index):
+    """Process p of two, holding data shards 2p and 2p+1 of 4 (its mesh
+    made as a rank's, no group is needed): ``local_block`` of a draw
+    over every row keeps the rows ``put`` keeps, ``data_block`` gives a
+    held shard the view ``shards`` gives it, along dim 0 or dim 1 (the
+    block draws' shard axis), and a shard of the other process is
+    refused. Two processes of two shards are the fewest in which a
+    held shard's place differs from its global id."""
+    from tpu_distalg_torch.parallel import DATA_AXIS, Mesh
+
+    mesh = Mesh(n_data=4, device=torch.device("cpu"),
+                process_index=process_index, process_count=2)
+    lo = 2 * process_index
+    u = torch.arange(16, dtype=torch.float32)
+    mine = pt.local_block(u, (DATA_AXIS,), mesh)
+    assert torch.equal(mine, pt.put(u.numpy(), "y", "ssgd", mesh))
+    assert torch.equal(mine, u[4 * lo:4 * lo + 8])
+    views = pt.shards(mine, (DATA_AXIS,), mesh)
+    ids = torch.arange(24).reshape(2, 4, 3)
+    held = pt.local_block(ids, (None, DATA_AXIS), mesh)
+    assert torch.equal(held, ids[:, lo:lo + 2])
+    for s in mesh.local_data:
+        assert pt.held_index(s, mesh) == s - lo
+        got = pt.data_block(mine, s, mesh)
+        assert torch.equal(got, views[s][0])
+        assert got.data_ptr() == views[s][0].data_ptr()
+        assert torch.equal(pt.data_block(held, s, mesh, dim=1),
+                           ids[:, s:s + 1])
+    with pytest.raises(ValueError, match="not held"):
+        pt.held_index(2 - lo, mesh)
 
 
 # ---------------------------------------------------------- counters

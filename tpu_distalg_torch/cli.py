@@ -32,11 +32,19 @@ Monte-Carlo π, and serving ALS, k-means and LR artifacts.
         --stream-cache build/pts --scale-points 1048576 --k 8
     python -m tpu_distalg_torch.cli als --data-backend virtual \
         --m 4096 --n 4096 --k 16 --rmse-every 0
+    python -m tpu_distalg_torch.cli --device cpu --emulate 2 --multihost \
+        --coordinator-address 127.0.0.1:29500 --num-processes 2 \
+        --process-id 0 ssgd --sampler fused_gather  # one such per rank
 
 The lines printed match the JAX package's ``tda lr``, ``tda ssgd``,
 ``tda ma``, ``tda bmuf``, ``tda easgd``, ``tda als``, ``tda serve``,
 ``tda pagerank``, ``tda kmeans``, ``tda closure`` and ``tda mc``. Runs on ``cuda`` unless ``--device
-cpu`` is given.
+cpu`` is given. ``--multihost`` joins a ``torch.distributed`` group
+(:func:`..parallel.mesh.multihost_initialize`) and every process prints
+the same result lines; what is not ported across processes yet
+(``als``, ``closure``, ``serve``, the out-of-core backends, ``--comm``
+schedules, ``--sync ssp`` and checkpoint directories) exits naming
+ROADMAP A9 instead of running on one process.
 """
 
 from __future__ import annotations
@@ -62,6 +70,22 @@ def parse_mesh_shape(text: str) -> tuple[int, int]:
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m tpu_distalg_torch.cli")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--emulate", type=int, default=0, metavar="N",
+                   help="hold N emulated data shards in each process "
+                        "when --n-slices/--mesh-shape do not say (unlike "
+                        "the JAX CLI, keeps --device)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a torch.distributed process group before "
+                        "building the mesh; run the same command in every "
+                        "process")
+    p.add_argument("--coordinator-address", type=str, default=None,
+                   help="host:port of process 0 (with --multihost); omit "
+                        "all three under torchrun, whose environment "
+                        "names the group")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total process count (with --coordinator-address)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (with --coordinator-address)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     lr = sub.add_parser("lr", help="full-batch logistic regression")
@@ -88,12 +112,7 @@ def _parser() -> argparse.ArgumentParser:
         o.add_argument("--resample-per-local-step", action="store_true")
 
     o = sub.add_parser("ssgd", help="synchronous minibatch SGD")
-    o.add_argument("--n-slices", type=int, default=0,
-                   help="emulated data shards; 0 = 1")
-    o.add_argument("--mesh-shape", type=str, default=None, metavar="DxM",
-                   help="emulated mesh data x model (e.g. 2x2); model > 1 "
-                        "splits the features over the model slices "
-                        "(feature_sharded) — replaces --n-slices")
+    _add_mesh_flags(o)
     o.add_argument("--n-iterations", type=int, default=1500)
     o.add_argument("--eta", type=float, default=0.1)
     o.add_argument("--mini-batch-fraction", type=float, default=0.1)
@@ -176,8 +195,7 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--concurrency", type=int, default=4)
 
     c = sub.add_parser("kmeans", help="k-means (Lloyd's algorithm)")
-    c.add_argument("--n-slices", type=int, default=0,
-                   help="emulated data shards; 0 = 1")
+    _add_mesh_flags(c)
     c.add_argument("--k", type=int, default=2)
     c.add_argument("--n-iterations", type=int, default=5)
     c.add_argument("--converge-dist", type=float, default=None)
@@ -208,8 +226,7 @@ def _parser() -> argparse.ArgumentParser:
     _add_fault_plan(c)
 
     g = sub.add_parser("pagerank", help="PageRank power iteration")
-    g.add_argument("--n-slices", type=int, default=0,
-                   help="emulated data shards; 0 = 1")
+    _add_mesh_flags(g)
     g.add_argument("--n-iterations", type=int, default=10)
     g.add_argument("--q", type=float, default=0.15)
     g.add_argument("--mode", default=None,
@@ -319,12 +336,15 @@ def _uses_data(args) -> bool:
     return False
 
 
-def _add_mesh_flags(p) -> None:
-    """``--n-slices`` and ``--mesh-shape``, as the JAX CLI gives them."""
+def _add_mesh_flags(p, what: str = "emulated data shards") -> None:
+    """``--n-slices`` and the one definition of ``--mesh-shape``, as the
+    JAX CLI gives them (``tpu_distalg/cli.py:34-41``)."""
     p.add_argument("--n-slices", type=int, default=0,
-                   help="emulated data shards; 0 = 1")
+                   help=f"{what}; 0 = the emulated count (--emulate) a "
+                        f"process, else 1")
     p.add_argument("--mesh-shape", type=str, default=None, metavar="DxM",
-                   help="emulated mesh data x model (e.g. 2x2) — replaces "
+                   help="mesh data x model (e.g. 2x2); placement falls out "
+                        "of the workload's rule table — replaces "
                         "--n-slices")
 
 
@@ -431,15 +451,16 @@ def _add_max_restarts(p) -> None:
 
 
 def _mesh(args):
-    """The emulated mesh of ``--n-slices`` or ``--mesh-shape`` on
-    ``--device``, with the JAX CLI's refusals and its warning for a
-    model axis the workload does not use."""
+    """The mesh of ``--n-slices`` or ``--mesh-shape`` on ``--device``
+    (``--emulate``'s count a process when neither says), with the JAX
+    CLI's refusals and its warning for a model axis the workload does
+    not use (``tpu_distalg/cli.py:45-77``)."""
     from tpu_distalg_torch.parallel import get_mesh
 
-    if args.max_restarts != 0:
+    if getattr(args, "max_restarts", 0) != 0:
         raise SystemExit("--max-restarts waits for the faults slice "
                          "(ROADMAP A12); only 0 is accepted")
-    data, model = args.n_slices or 1, 1
+    data, model = args.n_slices or None, 1
     if args.mesh_shape:
         if args.n_slices > 0:
             raise SystemExit(
@@ -449,14 +470,18 @@ def _mesh(args):
             data, model = parse_mesh_shape(args.mesh_shape)
         except ValueError as e:
             raise SystemExit(str(e)) from None
-        if model > 1 and args.cmd != "als":  # ALS splits V over model
+        # ssgd engages the tp split, ALS splits V over the model axis
+        if model > 1 and args.cmd not in ("ssgd", "als"):
             print(f"[mesh] warning: --mesh-shape {data}x{model} puts "
                   f"{model}-way model parallelism on a workload whose "
                   f"rule table has no model-axis placement — those "
                   f"devices will idle; use --mesh-shape "
                   f"{data * model}x1 (or --n-slices {data * model}) "
                   f"for full data parallelism", file=sys.stderr)
-    return get_mesh(data=data, model=model, device=args.device)
+    try:
+        return get_mesh(data=data, model=model, device=args.device)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
 
 def _run_closure(args) -> None:
@@ -487,8 +512,7 @@ def _run_closure(args) -> None:
 def _add_optimizer(p, n_iterations: int) -> None:
     """The flags the JAX CLI gives ``lr``, ``ma``, ``bmuf`` and
     ``easgd`` (``tpu_distalg/cli.py:256-288``), defaults included."""
-    p.add_argument("--n-slices", type=int, default=0,
-                   help="emulated data shards (replicas); 0 = 1")
+    _add_mesh_flags(p, "emulated data shards (replicas)")
     p.add_argument("--n-iterations", type=int, default=n_iterations)
     p.add_argument("--eta", type=float, default=0.1)
     _add_comm(p)
@@ -523,19 +547,15 @@ def _run_optimizer(args) -> None:
     import importlib
     import time
 
-    from tpu_distalg_torch.parallel import get_mesh
     from tpu_distalg_torch.utils import datasets
 
-    if args.max_restarts != 0:
-        raise SystemExit("--max-restarts waits for the faults slice "
-                         "(ROADMAP A12); only 0 is accepted")
     if args.cmd != "lr" and args.mega_steps is not None:
         raise SystemExit(
             f"{args.cmd}: --mega-steps applies to ssgd only — "
             "local-update megakernels launch n-local-iterations "
             "steps per round")
     data = datasets.breast_cancer_split()
-    mesh = get_mesh(data=args.n_slices or None, device=args.device)
+    mesh = _mesh(args)
     if args.cmd == "lr":
         from tpu_distalg_torch.models import logistic_regression as m
 
@@ -637,25 +657,15 @@ def _run_ssgd(args) -> None:
     import time
 
     from tpu_distalg_torch.models import ssgd
-    from tpu_distalg_torch.parallel import get_mesh
     from tpu_distalg_torch.utils import datasets
 
-    n_data, n_model = args.n_slices or 1, 1
-    if args.mesh_shape:
-        if args.n_slices > 0:
-            raise SystemExit(
-                "--mesh-shape and --n-slices both set: --mesh-shape "
-                "IS the full (data x model) geometry; drop --n-slices")
-        try:
-            n_data, n_model = parse_mesh_shape(args.mesh_shape)
-        except ValueError as e:
-            raise SystemExit(str(e)) from None
+    mesh = _mesh(args)
+    n_model = mesh.n_model
     if n_model > 1 and args.sampler not in ("bernoulli", "fused_gather"):
         raise SystemExit(
             f"--mesh-shape with model={n_model} shards the feature dim, "
             f"which composes with sampler=bernoulli or fused_gather (got "
             f"{args.sampler!r})")
-    mesh = get_mesh(data=n_data, model=n_model, device=args.device)
     if args.stream_cache is not None:
         return _run_ssgd_stream(args, mesh)
     data = datasets.breast_cancer_split()
@@ -685,13 +695,9 @@ def _run_ssgd(args) -> None:
 
 def _run_kmeans(args) -> None:
     from tpu_distalg_torch.models import kmeans as m
-    from tpu_distalg_torch.parallel import get_mesh
     from tpu_distalg_torch.utils import datasets
 
-    if args.max_restarts != 0:
-        raise SystemExit("--max-restarts waits for the faults slice "
-                         "(ROADMAP A12); only 0 is accepted")
-    mesh = get_mesh(data=args.n_slices or None, device=args.device)
+    mesh = _mesh(args)
     if _uses_data(args):
         # the out-of-core engine: the mixture behind a ShardedDataset
         # (host memory or a disk cache) and minibatch k-means over it
@@ -793,12 +799,8 @@ def _run_pagerank(args) -> None:
     from tpu_distalg_torch import native
     from tpu_distalg_torch.models import pagerank as m
     from tpu_distalg_torch.ops import graph as gops
-    from tpu_distalg_torch.parallel import get_mesh
     from tpu_distalg_torch.utils import datasets
 
-    if args.max_restarts != 0:
-        raise SystemExit("--max-restarts waits for the faults slice "
-                         "(ROADMAP A12); only 0 is accepted")
     if args.edge_file is not None:
         edges = native.parse_edges_text(args.edge_file, args.edge_capacity)
     elif args.n_vertices == 0:
@@ -819,7 +821,7 @@ def _run_pagerank(args) -> None:
             "--data-backend resident on a smaller graph")
     mode = args.mode or ("reference" if backend == "resident"
                          else "standard")
-    mesh = get_mesh(data=args.n_slices or None, device=args.device)
+    mesh = _mesh(args)
     t0 = time.perf_counter()
     if backend == "resident":
         cfg = m.PageRankConfig(n_iterations=args.n_iterations, q=args.q,
@@ -890,16 +892,28 @@ def _run_pagerank_engine(args, edges, n_v: int, mesh, backend: str):
     return res, tail
 
 
-def main(argv=None) -> int:
-    args = _parser().parse_args(argv)
-    if hasattr(args, "fault_plan"):
-        from tpu_distalg_torch import faults
+def _refuse_across_processes(args) -> None:
+    """What is not ported across processes exits naming ROADMAP A9; it
+    is never run on one process instead."""
+    what = None
+    if args.cmd in ("als", "closure", "serve"):
+        what = f"{args.cmd} across processes"
+    elif _uses_data(args):
+        what = ("the out-of-core data backends (--data-backend "
+                "streamed|virtual, --stream-cache, minibatch k-means) "
+                "across processes")
+    elif getattr(args, "comm", "dense") != "dense":
+        what = f"--comm {args.comm} across processes"
+    elif getattr(args, "sync", "bsp") != "bsp":
+        what = f"--sync {args.sync} across processes"
+    elif getattr(args, "checkpoint_dir", None):
+        what = "a checkpoint directory shared by processes"
+    if what is not None:
+        raise SystemExit(f"--multihost: {what} waits for ROADMAP A9 "
+                         f"(it is not run on one process instead)")
 
-        try:
-            faults.configure(args.fault_plan)
-        except (ValueError, OSError) as e:
-            raise SystemExit(f"--fault-plan: {e}") from None
-        _refuse_unread_plan(args)
+
+def _dispatch(args) -> None:
     if args.cmd == "ssgd":
         _run_ssgd(args)
     elif args.cmd in ("lr", "ma", "bmuf", "easgd"):
@@ -920,41 +934,82 @@ def main(argv=None) -> int:
     elif args.cmd == "als":
         _run_als(args)
     elif args.cmd == "serve":
-        import numpy as np
+        _run_serve(args)
 
-        from tpu_distalg_torch import serve
-        from tpu_distalg_torch.parallel import get_mesh
 
-        mesh = get_mesh(data=args.n_slices or 1, model=args.model_slices,
-                        device=args.device)
-        cfg = serve.ServeConfig(
-            max_batch=args.max_batch, max_delay_ms=args.max_delay_ms,
-            queue_depth=args.queue_depth, k_top=args.k_top,
-            merge=args.comm)
-        server = serve.Server(mesh, cfg)
+def main(argv=None) -> int:
+    parser = _parser()
+    args = parser.parse_args(argv)
+    if args.multihost and args.coordinator_address is None and (
+            args.num_processes is not None or args.process_id is not None):
+        parser.error("--num-processes/--process-id require "
+                     "--coordinator-address (omit all three to auto-detect)")
+    if hasattr(args, "fault_plan"):
+        from tpu_distalg_torch import faults
+
         try:
-            for path in args.artifact:
-                model = server.add_artifact(path)
-                print(f"[serve] {model.kind} model {model.name!r} from "
-                      f"{path} (meta: {model.meta})")
-            rng = np.random.default_rng(0)
-            for name, model in server.models.items():
-                payloads = _serve_payloads(model, rng, args.requests)
-                _, info = serve.run_closed_loop(
-                    server, name, payloads,
-                    concurrency=args.concurrency, retries=2)
-                print(f"[serve] {name}: {info['ok']}/{len(payloads)} "
-                      f"replies at {info['qps']:.2f} req/s (closed loop, "
-                      f"{info['concurrency']} workers, "
-                      f"{info['retries']} retries)")
-            s = server.emit_counters()
-            print(f"[serve] total: {s['replies']} replies in "
-                  f"{s['batches']} micro-batch(es), p50 {s['p50_ms']:.3f} "
-                  f"ms / p99 {s['p99_ms']:.3f} ms, {s['shed']} shed, max "
-                  f"queue depth {s['max_queue_depth']}")
-        finally:
-            server.close()
+            faults.configure(args.fault_plan)
+        except (ValueError, OSError) as e:
+            raise SystemExit(f"--fault-plan: {e}") from None
+        _refuse_unread_plan(args)
+    if args.emulate:
+        from tpu_distalg_torch.parallel import emulate_devices
+
+        emulate_devices(args.emulate)
+    if not args.multihost:
+        _dispatch(args)
+        return 0
+    from tpu_distalg_torch.parallel import mesh as pmesh
+
+    _refuse_across_processes(args)
+    pmesh.multihost_initialize(args.coordinator_address,
+                               args.num_processes, args.process_id,
+                               device=args.device)
+    try:
+        _dispatch(args)
+    finally:
+        # a rank that raises leaves the group, so the others' pending
+        # collectives fail instead of waiting out their timeout
+        pmesh.shutdown()
     return 0
+
+
+def _run_serve(args) -> None:
+    """``serve``: load the artifacts and drive each model closed-loop."""
+    import numpy as np
+
+    from tpu_distalg_torch import serve
+    from tpu_distalg_torch.parallel import get_mesh
+
+    mesh = get_mesh(data=args.n_slices or 1, model=args.model_slices,
+                    device=args.device)
+    cfg = serve.ServeConfig(
+        max_batch=args.max_batch, max_delay_ms=args.max_delay_ms,
+        queue_depth=args.queue_depth, k_top=args.k_top,
+        merge=args.comm)
+    server = serve.Server(mesh, cfg)
+    try:
+        for path in args.artifact:
+            model = server.add_artifact(path)
+            print(f"[serve] {model.kind} model {model.name!r} from "
+                  f"{path} (meta: {model.meta})")
+        rng = np.random.default_rng(0)
+        for name, model in server.models.items():
+            payloads = _serve_payloads(model, rng, args.requests)
+            _, info = serve.run_closed_loop(
+                server, name, payloads,
+                concurrency=args.concurrency, retries=2)
+            print(f"[serve] {name}: {info['ok']}/{len(payloads)} "
+                  f"replies at {info['qps']:.2f} req/s (closed loop, "
+                  f"{info['concurrency']} workers, "
+                  f"{info['retries']} retries)")
+        s = server.emit_counters()
+        print(f"[serve] total: {s['replies']} replies in "
+              f"{s['batches']} micro-batch(es), p50 {s['p50_ms']:.3f} "
+              f"ms / p99 {s['p99_ms']:.3f} ms, {s['shed']} shed, max "
+              f"queue depth {s['max_queue_depth']}")
+    finally:
+        server.close()
 
 
 if __name__ == "__main__":

@@ -189,6 +189,7 @@ class ShardedDataset:
     def __init__(self, storage, mesh, *, block_rows: int,
                  meta: dict | None = None, backend: str | None = None,
                  dtype: torch.dtype | None = None):
+        mesh.require_one_process("the out-of-core data backends")
         self.backend = backend or _infer_backend(storage)
         if self.backend not in BACKENDS:
             raise ValueError(

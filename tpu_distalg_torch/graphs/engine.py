@@ -128,6 +128,7 @@ def open_graph_dataset(path: str, mesh, *, backend: str = "streamed",
     ``legacy_geom``: a cache whose meta.json is the bare flat geometry
     (the pre-versioned header) reopens when it matches, its memmap
     rebuilt from the geometry."""
+    mesh.require_one_process("the out-of-core graph engine")
     from tpu_distalg_torch.data.sharded import ShardedDataset
 
     mm, header = dcache.open_cache(path, layout=ingest.LAYOUT,

@@ -93,6 +93,7 @@ def make_fit_fn(mesh: Mesh, config: ALSConfig):
     rows a multiple of the data axis; with cols not a multiple of the
     model axis the split of V disengages, with the JAX package's
     warning, and V is held whole."""
+    mesh.require_one_process("ALS")
     denom = config.m * config.n  # the true element count
     n_model = mesh.n_model
     n_pad = model_padded_n(config, mesh)
@@ -114,7 +115,8 @@ def make_fit_fn(mesh: Mesh, config: ALSConfig):
         vm = mesh if _v_engaged(R.shape[1]) else dataclasses.replace(
             mesh, n_model=1)
         # block (s, m): data shard s's rows of R, model slice m's columns
-        R_b = partition.shards(R, (DATA_AXIS, MODEL_AXIS), vm)
+        R_b = list(partition.shards(R, (DATA_AXIS, MODEL_AXIS),
+                                    vm).values())
 
         def slices(V):
             return partition.shards(V, (MODEL_AXIS, None), vm)[0]

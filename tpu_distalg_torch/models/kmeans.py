@@ -20,6 +20,13 @@ more than ``converge_dist`` in all, which costs one device→host read
 an iteration. With ``checkpoint_dir`` the fit runs in saved segments
 that equal a straight run bit for bit.
 
+Across processes each process assigns and sums its own shards' points
+(:func:`..parallel.spmd.data_parallel`) and the shards' statistics add
+in global shard order, so the centres are equal on every process and
+equal one process's; the assignments stay row-sharded, each process
+holding its own rows and their global range
+(``KMeansResult.assignment_rows``).
+
 Minibatch k-means (:func:`fit_minibatch`, Sculley's update) runs over a
 ``ShardedDataset`` of any backend (``data/``): sampled blocks staged
 through the prefetch pipeline, bitwise equal across backends.
@@ -38,6 +45,8 @@ from tpu_distalg_torch.parallel import (
     Mesh,
     build_sharded,
     parallelize,
+    partition,
+    spmd,
     tree_allreduce_sum,
 )
 
@@ -60,35 +69,46 @@ class KMeansConfig:
 @dataclasses.dataclass
 class KMeansResult:
     centers: torch.Tensor         # (k, dim)
-    assignments: torch.Tensor     # (n_padded,) final cluster per point
+    assignments: torch.Tensor     # final cluster of this process's points
     n_iterations_run: int
+    #: the global (padded, or packed for the fused fit) rows
+    #: ``assignments`` covers; None: all of them, in one process
+    assignment_rows: range | None = None
 
 
-def _shard(x: torch.Tensor, s: int, n_shards: int) -> torch.Tensor:
-    n_local = x.shape[0] // n_shards
-    return x[s * n_local:(s + 1) * n_local]
+def _held_rows(n_held: int, mesh: Mesh) -> range | None:
+    """The global rows of this process's ``n_held`` rows (None with one
+    process, which holds them all)."""
+    if mesh.process_count == 1:
+        return None
+    n = n_held // mesh.n_local
+    return range(mesh.local_data.start * n,
+                 (mesh.local_data.start + mesh.n_local) * n)
 
 
-def _stats(points, mask, centers, n_shards: int):
-    """Global ``(sums, counts)`` and every point's cluster: per shard
-    ``assign_clusters`` + ``cluster_stats``, summed in shard order."""
+def _stats(points, mask, centers, mesh: Mesh):
+    """Global ``(sums, counts)`` and the cluster of each of this
+    process's points: per shard ``assign_clusters`` + ``cluster_stats``,
+    summed in shard order."""
     k = centers.shape[0]
-    per, assigns = [], []
-    for s in range(n_shards):
-        p = _shard(points, s, n_shards)
+
+    def one(s):
+        p = partition.data_block(points, s, mesh)
         assign = kops.assign_clusters(p, centers)
-        per.append(kops.cluster_stats(p, _shard(mask, s, n_shards),
-                                      assign, k))
-        assigns.append(assign)
-    sums, counts = tree_allreduce_sum(per)
-    return sums, counts, (assigns[0] if n_shards == 1
+        return (kops.cluster_stats(p, partition.data_block(mask, s, mesh),
+                                   assign, k), assign)
+
+    outs = spmd.data_parallel(one, mesh)
+    sums, counts = tree_allreduce_sum([st for st, _ in outs], mesh)
+    assigns = [a for _, a in outs]
+    return sums, counts, (assigns[0] if len(assigns) == 1
                           else torch.cat(assigns))
 
 
-def _one_iter(points, mask, n_shards: int):
+def _one_iter(points, mask, mesh: Mesh):
     """One torch-op Lloyd iteration: ``centers -> centers``."""
     def one_iter(centers):
-        sums, counts, _ = _stats(points, mask, centers, n_shards)
+        sums, counts, _ = _stats(points, mask, centers, mesh)
         return kops.update_centers(sums, counts, centers)
 
     return one_iter
@@ -141,15 +161,13 @@ def make_fit_fn(mesh: Mesh, config: KMeansConfig):
     ``(centers, assignments, n_iterations_run)`` with ``points`` and
     ``mask`` the padded arrays of :func:`parallelize` or
     :func:`build_sharded`."""
-    n_shards = mesh.n_data
-
     def fit(points, mask, centers0):
-        centers, n_run = _lloyd_loop(_one_iter(points, mask, n_shards),
+        centers, n_run = _lloyd_loop(_one_iter(points, mask, mesh),
                                      config, torch.as_tensor(centers0).to(
                                          mesh.device))
         # the final assignment under the final centres, as the
         # reference's closing display re-evaluates them
-        _, _, assign = _stats(points, mask, centers, n_shards)
+        _, _, assign = _stats(points, mask, centers, mesh)
         return centers, assign, n_run
 
     return fit
@@ -163,15 +181,16 @@ def pack_device(mesh: Mesh, points, mask, *, dim: int, k: int):
     padding the result is a view of ``points``, not a copy."""
     dpad, pp = kmeans_kernels.packed_geometry(dim, k)
     X2s, m2s = [], []
-    for s in range(mesh.n_data):
-        p, m = _shard(points, s, mesh.n_data), _shard(mask, s, mesh.n_data)
+    for s in mesh.local_data:
+        p = partition.data_block(points, s, mesh)
+        m = partition.data_block(mask, s, mesh)
         pad = (-p.shape[0]) % pp
         if pad or dpad != dim:
             p = torch.nn.functional.pad(p, (0, dpad - dim, 0, pad))
             m = torch.nn.functional.pad(m, (0, pad))
         X2s.append(p.reshape(-1, pp * dpad))
         m2s.append(m.reshape(-1, pp))
-    if mesh.n_data == 1:
+    if len(X2s) == 1:
         return X2s[0], m2s[0]
     return torch.cat(X2s), torch.cat(m2s)
 
@@ -183,16 +202,15 @@ def make_fit_fn_fused(mesh: Mesh, config: KMeansConfig, dim: int):
     float32 sums); the assignments are in PACKED order, each shard's
     padding rows included: select with ``mask2.reshape(-1) > 0`` to get
     the input rows' order back."""
-    n_shards = mesh.n_data
     dpad, _ = kmeans_kernels.packed_geometry(dim, config.k)
 
     def fit(X2, m2, centers0):
         def one_iter(centers):
-            sums, counts = tree_allreduce_sum(
-                kmeans_kernels.fused_cluster_stats(
-                    _shard(X2, s, n_shards), _shard(m2, s, n_shards),
-                    centers, dim=dim, k=config.k)
-                for s in range(n_shards))
+            sums, counts = tree_allreduce_sum(spmd.data_parallel(
+                lambda s: kmeans_kernels.fused_cluster_stats(
+                    partition.data_block(X2, s, mesh),
+                    partition.data_block(m2, s, mesh), centers, dim=dim,
+                    k=config.k), mesh), mesh)
             return kops.update_centers(sums, counts, centers)
 
         centers, n_run = _lloyd_loop(one_iter, config,
@@ -269,10 +287,8 @@ def make_fit_seg_fn(mesh: Mesh, config: KMeansConfig, seg: int):
     """One checkpoint segment: up to ``seg`` Lloyd iterations continuing
     from ``(centers, shift, n_run)``, through the :func:`_seg_loop` the
     straight fit runs."""
-    n_shards = mesh.n_data
-
     def seg_run(points, mask, centers0, shift0, n_run0):
-        return _seg_loop(_one_iter(points, mask, n_shards), config, seg,
+        return _seg_loop(_one_iter(points, mask, mesh), config, seg,
                          centers0, shift0, n_run0)
 
     return seg_run
@@ -314,7 +330,7 @@ def _fit_segmented(data, mask, mesh: Mesh, config: KMeansConfig, centers0,
         tag="kmeans_converge" if converge else "kmeans_fixed",
         stop_when=stop_when)
     centers = state[0]
-    _, _, assign = _stats(data, mask, centers, mesh.n_data)
+    _, _, assign = _stats(data, mask, centers, mesh)
     return KMeansResult(centers=centers, assignments=assign,
                         n_iterations_run=int(state[2]))
 
@@ -328,7 +344,8 @@ def _fit_sharded(ps, mesh: Mesh, config: KMeansConfig, centers0,
     centers, assign, n_run = make_fit_fn(mesh, config)(ps.data, ps.mask,
                                                        centers0)
     return KMeansResult(centers=centers, assignments=assign,
-                        n_iterations_run=n_run)
+                        n_iterations_run=n_run,
+                        assignment_rows=_held_rows(ps.data.shape[0], mesh))
 
 
 def fit(points: np.ndarray, mesh: Mesh,
@@ -336,7 +353,8 @@ def fit(points: np.ndarray, mesh: Mesh,
         checkpoint_dir: str | None = None,
         checkpoint_every: int = 100) -> KMeansResult:
     """End-to-end fit of host points on the mesh's device."""
-    return _fit_sharded(parallelize(points, mesh), mesh, config,
+    return _fit_sharded(parallelize(points, mesh, table="kmeans",
+                                    leaf="points"), mesh, config,
                         init_centers(points, config.k, config.seed),
                         checkpoint_dir, checkpoint_every)
 

@@ -35,7 +35,13 @@ run replays a straight one bit for bit. Samplers:
 All replicas share one packed X2; replica s owns the blocks
 ``[s·n_blocks, (s+1)·n_blocks)`` of it, so its local block ids are made
 global by adding ``s·n_blocks`` (the rows each replica reads are the
-ones the JAX package's ``shard_map`` gives it).
+ones the JAX package's ``shard_map`` gives it). Across processes a
+process holds its replicas' rows and runs their local steps
+(:func:`..parallel.spmd.data_parallel`) and keeps their models, the
+rows of ``ws`` that the ``local_sgd`` table cuts over the data axis;
+the round's average gathers every replica's model
+(:func:`..parallel.collectives.tree_allreduce_sum`) and adds them in
+replica order, so the center is equal on every process.
 
 With ``comm`` other than ``dense`` the round-end average runs the
 schedule of :mod:`tpu_distalg_torch.parallel.comms` on every sampler
@@ -57,7 +63,14 @@ import torch
 
 from tpu_distalg_torch.models.ssgd import fused_gather_geometry
 from tpu_distalg_torch.ops import logistic, sampling, ssgd_kernels
-from tpu_distalg_torch.parallel import Mesh, parallelize, tree_allreduce_sum
+from tpu_distalg_torch.parallel import (
+    DATA_AXIS,
+    Mesh,
+    parallelize,
+    partition,
+    spmd,
+    tree_allreduce_sum,
+)
 from tpu_distalg_torch.utils import metrics, prng
 
 
@@ -94,7 +107,7 @@ class LocalSGDConfig:
 @dataclasses.dataclass
 class TrainResult:
     w: torch.Tensor
-    ws: torch.Tensor   # the replicas' final models (R, D)
+    ws: torch.Tensor   # this process's replicas' final models (R/P, D)
     accs: torch.Tensor
 
     @property
@@ -160,12 +173,14 @@ def _make_combine(config: LocalSGDConfig, beta: float):
     return combine
 
 
-def _build_rounds(config: LocalSGDConfig, n_replicas: int, local_models,
+def _build_rounds(config: LocalSGDConfig, mesh: Mesh, local_models,
                   prep_xs=None, sync=None):
     """The round loop shared by every sampler: ``local_models(data,
-    payload, ws, w)`` → the replicas' models after the round's local
-    steps, a list of R (D,) tensors; then their average (added in shard
-    order, divided by R), the combine and the evaluation.
+    payload, ws, w)`` → this process's replicas' models after the
+    round's local steps, a list of (D,) tensors, which become its rows
+    of ``ws``; then the average of every replica's model (gathered
+    across processes, added in shard order, divided by R), the combine
+    and the evaluation.
     ``prep_xs(ts)`` maps the absolute round ids to the per-round
     payloads, all drawn before the loop; without it the payload is the
     round id. Returns ``train(data, X_test, y_test, w0, ws0, delta0,
@@ -173,6 +188,7 @@ def _build_rounds(config: LocalSGDConfig, n_replicas: int, local_models,
     average is the schedule's ``reduce_mean`` keyed on the round id, and
     ``train(data, X_test, y_test, w0, ws0, delta0, res0, t0=0)`` →
     ``(w, ws, delta, res, accs)``."""
+    n_replicas = mesh.n_data
     combine = _make_combine(config, _derive_beta(config, n_replicas))
 
     def rounds(data, X_test, y_test, w0, ws0, delta0, res0, t0=0):
@@ -186,7 +202,8 @@ def _build_rounds(config: LocalSGDConfig, n_replicas: int, local_models,
         for i in range(T):
             per = local_models(data, payloads[i], ws, w)
             if sync is None:
-                (total,) = tree_allreduce_sum((w_l,) for w_l in per)
+                (total,) = tree_allreduce_sum(((w_l,) for w_l in per),
+                                              mesh)
                 w_avg = total / n_replicas
             else:
                 (w_avg,), res = sync.reduce_mean(
@@ -217,24 +234,26 @@ def _local_step(config: LocalSGDConfig, w_l, w, g, cnt):
     return w_l - config.eta * g_mean - config.elastic_alpha * (w_l - w)
 
 
-def round_masks(config: LocalSGDConfig, t: int, valid: torch.Tensor
-                ) -> torch.Tensor:
+def round_masks(config: LocalSGDConfig, t: int, valid: torch.Tensor,
+                mesh: Mesh | None = None) -> torch.Tensor:
     """The ``bernoulli`` sampler's (L, n) masks of round ``t`` over all
     n rows (``local_sgd.py:546-561``): one threefry draw keyed on ``t``
     that every local step of the round reuses (the reference's
     ``sample(False, frac, 42+t)`` inside its local loop, ``ma.py:98-99``)
     or, with ``resample_per_local_step``, one keyed on ``t·L + l`` for
-    step l."""
-    L, n = config.n_local_iterations, valid.shape[0]
+    step l. With a ``mesh`` that spans processes, ``valid`` holds this
+    process's rows: the draw covers every row and keeps those."""
+    L, n_held = config.n_local_iterations, valid.shape[0]
+    n = n_held if mesh is None else n_held // mesh.n_local * mesh.n_data
     key = prng.root_key(config.seed, valid.device)
     if config.resample_per_local_step:
         return torch.stack([
             sampling.bernoulli_mask(key, t * L + l, n,
-                                    config.mini_batch_fraction, valid)
+                                    config.mini_batch_fraction, valid, mesh)
             for l in range(L)])
     mask = sampling.bernoulli_mask(key, t, n, config.mini_batch_fraction,
-                                   valid)
-    return mask.expand(L, n)
+                                   valid, mesh)
+    return mask.expand(L, n_held)
 
 
 def _sync_for(mesh: Mesh, config: LocalSGDConfig, d: int | None):
@@ -253,29 +272,31 @@ def make_train_fn(mesh: Mesh, config: LocalSGDConfig, n_padded: int, *,
     """The ``bernoulli`` trainer: call as ``fn(X, y, valid, X_test,
     y_test, w0, ws0, delta0, t0=0)`` → ``(w, ws, delta, accs)`` with X,
     y, valid the padded arrays of :func:`parallelize` (replica s holds
-    rows ``[s·n_local, (s+1)·n_local)``). With ``comm`` other than
+    rows ``[s·n_local, (s+1)·n_local)``) and ws0 placed by
+    :func:`placed_state`. With ``comm`` other than
     ``dense`` pass ``d`` and call ``fn(X, y, valid, X_test, y_test, w0,
     ws0, delta0, res0, t0=0)`` → ``(w, ws, delta, res, accs)``."""
     _check_config(config)
     sync = _sync_for(mesh, config, d)
-    R = mesh.n_data
-    n_local = n_padded // R
+    del n_padded   # the rows come from valid, this process's
 
     def local_models(data, t, ws, w):
         X, y, valid = data
-        masks = round_masks(config, t, valid)
-        per = []
-        for s in range(R):
-            rows = slice(s * n_local, (s + 1) * n_local)
-            w_l = w if config.resync else ws[s]
-            for l in range(config.n_local_iterations):
-                g, cnt = logistic.grad_sum(X[rows], y[rows], w_l,
-                                           masks[l, rows])
-                w_l = _local_step(config, w_l, w, g, cnt)
-            per.append(w_l)
-        return per
+        masks = round_masks(config, t, valid, mesh)
 
-    rounds = _build_rounds(config, R, local_models, sync=sync)
+        def one(s):
+            X_s = partition.data_block(X, s, mesh)
+            y_s = partition.data_block(y, s, mesh)
+            m_s = partition.data_block(masks, s, mesh, dim=1)
+            w_l = w if config.resync else ws[partition.held_index(s, mesh)]
+            for l in range(config.n_local_iterations):
+                g, cnt = logistic.grad_sum(X_s, y_s, w_l, m_s[l])
+                w_l = _local_step(config, w_l, w, g, cnt)
+            return w_l
+
+        return spmd.data_parallel(one, mesh)
+
+    rounds = _build_rounds(config, mesh, local_models, sync=sync)
 
     if sync is not None:
         def train_comm(X, y, valid, X_test, y_test, w0, ws0, delta0, res0,
@@ -311,8 +332,9 @@ def block_draws(config: LocalSGDConfig, n_replicas: int, n_blocks: int,
 def make_train_fn_fused(mesh: Mesh, config: LocalSGDConfig, meta: dict):
     """The packed-layout trainers (``fused_gather``, ``fused_train``):
     call as ``fn(X2, X_test, y_test, w0, ws0, delta0, t0=0)`` → ``(w,
-    ws, delta, accs)`` with the augmented (d_total,) center, (R, d_total)
-    replicas and (d_total,) δ; X_test padded to d_total with zero
+    ws, delta, accs)`` with the augmented (d_total,) center, this
+    process's (R/P, d_total) replicas (:func:`placed_state`) and
+    (d_total,) δ; X_test padded to d_total with zero
     columns. Unlike SSGD's one-launch schedule, ``fused_train`` composes
     with R > 1: local steps touch no other replica, and the round-end
     average is unchanged. With ``comm`` other than ``dense``: ``fn(X2,
@@ -330,39 +352,46 @@ def make_train_fn_fused(mesh: Mesh, config: LocalSGDConfig, meta: dict):
     kargs = dict(pack=meta["pack"], d_total=d_t, y_col=meta["y_col"],
                  v_col=meta["v_col"],
                  gather_block_rows=config.gather_block_rows)
-    offsets = (torch.arange(R, dtype=torch.int32, device=mesh.device)
-               * n_blocks)[:, None, None]
+    offsets = (torch.arange(mesh.n_local, dtype=torch.int32,
+                            device=mesh.device) * n_blocks)[:, None, None]
 
     def prep_xs(ts):
-        # (T, R, L, n_s) global ids: replica s's L × n_s ids of a round
-        # are one contiguous (L, n_s) block, as B2 takes them
+        # (T, replicas held, L, n_s) ids into this process's X2: replica
+        # s's L × n_s ids of a round are one contiguous (L, n_s) block,
+        # as B2 takes them; the draws are keyed on the global replica
         ids = block_draws(config, R, n_blocks, n_sampled,
                           ts).transpose(1, 2)
-        return (ids + offsets).contiguous()
+        held = partition.local_block(ids, (None, DATA_AXIS), mesh)
+        return (held + offsets).contiguous()
 
     if config.sampler == "fused_train":
         def local_models(X2, ids, ws, w):
             # each replica's L local steps are one launch of B2: the SGD
             # update and the elastic pull toward the round's center
             # run in the kernel (easgd.py:41-45, ma.py:98-102)
-            return [ssgd_kernels.fused_train_gathered(
-                        X2, w if config.resync else ws[s], ids[s],
-                        eta=config.eta, alpha=config.elastic_alpha,
-                        center=w, **kargs)
-                    for s in range(R)]
+            def one(s):
+                i = partition.held_index(s, mesh)
+                return ssgd_kernels.fused_train_gathered(
+                    X2, w if config.resync else ws[i], ids[i],
+                    eta=config.eta, alpha=config.elastic_alpha, center=w,
+                    **kargs)
+
+            return spmd.data_parallel(one, mesh)
     else:
         def local_models(X2, ids, ws, w):
-            per = []
-            for s in range(R):
-                w_l = w if config.resync else ws[s]
+            def one(s):
+                i = partition.held_index(s, mesh)
+                w_l = w if config.resync else ws[i]
+                ids_s = ids[i]
                 for l in range(config.n_local_iterations):
                     g, cnt = ssgd_kernels.fused_grad_sum_gathered(
-                        X2, w_l, ids[s, l], **kargs)
+                        X2, w_l, ids_s[l], **kargs)
                     w_l = _local_step(config, w_l, w, g * col_keep, cnt)
-                per.append(w_l)
-            return per
+                return w_l
 
-    return _build_rounds(config, R, local_models, prep_xs,
+            return spmd.data_parallel(one, mesh)
+
+    return _build_rounds(config, mesh, local_models, prep_xs,
                          sync=_sync_for(mesh, config, d_t))
 
 
@@ -388,6 +417,14 @@ def init_state(config: LocalSGDConfig, d: int, d_total: int,
     return w0, ws0, delta0
 
 
+def placed_state(state: tuple, mesh: Mesh) -> tuple:
+    """``(w0, ws0, delta0)`` of :func:`init_state` placed by the
+    ``local_sgd`` table: this process's rows of the replicas (all R
+    with one process), the center and δ whole."""
+    w0, ws0, delta0 = state
+    return w0, partition.put(ws0, "ws", "local_sgd", mesh), delta0
+
+
 def pack(X_train, y_train, mesh: Mesh, config: LocalSGDConfig):
     """(X2, meta): (X, y, validity) packed once in the kernels' layout on
     the mesh's device, block rows ``gather_block_rows × R`` so that each
@@ -397,7 +434,7 @@ def pack(X_train, y_train, mesh: Mesh, config: LocalSGDConfig):
         np.asarray(X_train), np.asarray(y_train), np.ones(n, np.float32),
         dtype=config.x_dtype, pack=config.fused_pack,
         block_rows=config.gather_block_rows * mesh.n_data,
-        shuffle_seed=config.shuffle_seed, device=mesh.device)
+        shuffle_seed=config.shuffle_seed, mesh=mesh, table="local_sgd")
 
 
 def prepare_fused(X_train, y_train, mesh: Mesh, config: LocalSGDConfig):
@@ -406,8 +443,9 @@ def prepare_fused(X_train, y_train, mesh: Mesh, config: LocalSGDConfig):
     the trainer. Returns ``(fn, X2, w0, ws0, delta0, meta)``; call as
     ``fn(X2, X_test_padded, y_test, w0, ws0, delta0)``."""
     X2, meta = pack(X_train, y_train, mesh, config)
-    w0, ws0, delta0 = init_state(config, X_train.shape[1], meta["d_total"],
-                                 mesh.n_data, mesh.device)
+    w0, ws0, delta0 = placed_state(init_state(
+        config, X_train.shape[1], meta["d_total"], mesh.n_data, mesh.device),
+        mesh)
     return (make_train_fn_fused(mesh, config, meta), X2, w0, ws0, delta0,
             meta)
 
@@ -418,7 +456,6 @@ def _segmented(config: LocalSGDConfig, make_fn, data, state0,
     with a ``comm`` schedule ``(w, ws, delta, residual)`` (the residual
     placed by the ``local_sgd`` table). Returns ``(w, ws, accs,
     start)``."""
-    from tpu_distalg_torch.parallel import partition
     from tpu_distalg_torch.utils import checkpoint as ckpt
 
     def run_seg(fn, state, t0):
@@ -454,7 +491,7 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
     holds the original-width (d,) center and (R, d) replicas. A ``comm``
     schedule adds the residual to the carry; ``sync='ssp…'`` trains in
     windows (:func:`_train_ssp`)."""
-    from tpu_distalg_torch.parallel import comms, partition, ssp
+    from tpu_distalg_torch.parallel import comms, ssp
     from tpu_distalg_torch.telemetry import events as tevents
 
     tevents.mark(f"local_sgd:{config.global_update}", emit_event=False)
@@ -468,9 +505,12 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
     y_te = torch.as_tensor(np.asarray(y_test, np.float32)).to(mesh.device)
     if config.sampler == "bernoulli":
         Xs = parallelize(X_train, mesh,
-                         dtype=ssgd_kernels.as_dtype(config.x_dtype))
-        ys = parallelize(np.asarray(y_train, np.float32), mesh)
-        state0 = init_state(config, d, d, mesh.n_data, mesh.device)
+                         dtype=ssgd_kernels.as_dtype(config.x_dtype),
+                         table="local_sgd")
+        ys = parallelize(np.asarray(y_train, np.float32), mesh,
+                         table="local_sgd", leaf="y")
+        state0 = placed_state(init_state(config, d, d, mesh.n_data,
+                                         mesh.device), mesh)
         data = (Xs.data, ys.data, Xs.mask,
                 torch.as_tensor(X_te).to(mesh.device), y_te)
 
@@ -478,8 +518,8 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
             return make_train_fn(mesh, cfg, Xs.n_padded, d=d)
     else:
         X2, meta = pack(X_train, y_train, mesh, config)
-        state0 = init_state(config, d, meta["d_total"], mesh.n_data,
-                            mesh.device)
+        state0 = placed_state(init_state(config, d, meta["d_total"],
+                                         mesh.n_data, mesh.device), mesh)
         data = (X2, torch.as_tensor(np.pad(
             X_te, ((0, 0), (0, meta["d_total"] - d)))).to(mesh.device), y_te)
 
@@ -619,9 +659,10 @@ def _train_ssp(X_train, y_train, X_test, y_test, mesh: Mesh,
     :func:`..parallel.membership.run_elastic`: a resume on another
     shard count re-derives the replicas from the replicated center."""
     from tpu_distalg_torch.models.ssgd import window_accs_to_ticks
-    from tpu_distalg_torch.parallel import comms, membership, partition
+    from tpu_distalg_torch.parallel import comms, membership
     from tpu_distalg_torch.parallel import ssp as pssp
 
+    mesh.require_one_process("--sync ssp")
     spec = pssp.SyncSpec.parse(config.sync)
     s = spec.staleness
     T = config.n_iterations

@@ -22,7 +22,13 @@ import numpy as np
 import torch
 
 from tpu_distalg_torch.ops import logistic
-from tpu_distalg_torch.parallel import Mesh, parallelize, tree_allreduce_sum
+from tpu_distalg_torch.parallel import (
+    Mesh,
+    parallelize,
+    partition,
+    spmd,
+    tree_allreduce_sum,
+)
 from tpu_distalg_torch.utils import metrics, prng
 
 
@@ -62,7 +68,13 @@ def make_train_fn(mesh: Mesh, config: LRConfig, *, d: int | None = None):
     (s+1)·n_local)``). With ``comm`` other than ``dense`` pass ``d``
     (the feature width) and call ``fn(X, y, valid, X_test, y_test, w0,
     res0, t0=0)`` → ``(w, accs, res)``."""
-    n_shards = mesh.n_data
+    def partials(X, y, valid, w):
+        # this process's shards' (Σg, count), in global shard order
+        return spmd.data_parallel(lambda s: logistic.grad_sum(
+            partition.data_block(X, s, mesh),
+            partition.data_block(y, s, mesh), w,
+            partition.data_block(valid, s, mesh)), mesh)
+
     if config.comm != "dense":
         if d is None:
             raise ValueError(
@@ -72,15 +84,10 @@ def make_train_fn(mesh: Mesh, config: LRConfig, *, d: int | None = None):
         sync = _comm_sync(mesh, config, d)
 
         def train_comm(X, y, valid, X_test, y_test, w0, res0, t0=0):
-            n_local = X.shape[0] // n_shards
             w, res = w0, res0
             accs = []
             for t in range(t0, t0 + config.n_iterations):
-                (g, _), res = sync.reduce(
-                    [logistic.grad_sum(X[s * n_local:(s + 1) * n_local],
-                                       y[s * n_local:(s + 1) * n_local], w,
-                                       valid[s * n_local:(s + 1) * n_local])
-                     for s in range(n_shards)], res, t)
+                (g, _), res = sync.reduce(partials(X, y, valid, w), res, t)
                 w = w - config.eta * g
                 accs.append(metrics.binary_accuracy(X_test @ w, y_test))
             accs = (torch.stack(accs) if accs else torch.zeros(
@@ -91,15 +98,10 @@ def make_train_fn(mesh: Mesh, config: LRConfig, *, d: int | None = None):
 
     def train(X, y, valid, X_test, y_test, w0, t0=0):
         del t0  # full-batch GD draws nothing; kept for segment symmetry
-        n_local = X.shape[0] // n_shards
         w = w0
         accs = []
         for _ in range(config.n_iterations):
-            g, _ = tree_allreduce_sum(
-                logistic.grad_sum(X[s * n_local:(s + 1) * n_local],
-                                  y[s * n_local:(s + 1) * n_local], w,
-                                  valid[s * n_local:(s + 1) * n_local])
-                for s in range(n_shards))
+            g, _ = tree_allreduce_sum(partials(X, y, valid, w), mesh)
             w = w - config.eta * g  # logistic_regression.py:84, raw sum
             accs.append(metrics.binary_accuracy(X_test @ w, y_test))
         accs = (torch.stack(accs) if accs
@@ -117,8 +119,9 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
     segments of ``checkpoint_every`` steps saved after each (the carry
     is w; with a ``comm`` schedule, w and the residual) and resumed
     from the newest."""
-    Xs = parallelize(X_train, mesh)
-    ys = parallelize(np.asarray(y_train, np.float32), mesh)
+    Xs = parallelize(X_train, mesh, table="lr", leaf="X")
+    ys = parallelize(np.asarray(y_train, np.float32), mesh, table="lr",
+                     leaf="y")
     w0 = logistic.init_weights(prng.root_key(config.init_seed, mesh.device),
                                X_train.shape[1])
     data = (Xs.data, ys.data, Xs.mask,
@@ -150,7 +153,7 @@ def _train_comm(mesh: Mesh, config: LRConfig, data, w0, d: int,
                 checkpoint_dir, checkpoint_every) -> TrainResult:
     """``comm`` schedules (``logistic_regression.py:150-184``): the
     residual is placed by the ``lr`` rule table and carried with w."""
-    from tpu_distalg_torch.parallel import comms, partition
+    from tpu_distalg_torch.parallel import comms
 
     sync = _comm_sync(mesh, config, d)
     res0 = partition.place({"res": sync.init_state()}, "lr", mesh)["res"]

@@ -3,10 +3,13 @@
 Port of ``tpu_distalg/models/pagerank.py``. The edges are deduplicated
 and sorted by dst once on the host (:mod:`..ops.graph`), held on the
 device as CSR rows (:func:`..ops.pagerank_kernels.plan_csr`), and split
-into the emulated data shards' contiguous slices; each shard sweeps its
-slice into a dense (V,) vector and the shards' vectors are added in
-shard order (the JAX package's psum). JAX's ``lax.scan`` over the
-iterations is a Python loop here.
+into the data shards' contiguous slices as the ``pagerank`` rule table
+places ``src`` and ``w_e`` (padded to a multiple of the shards and cut
+evenly; a process of a group holds, plans and stages only its own
+shards); each shard sweeps its slice into a dense (V,) vector and the
+shards' vectors are added in global shard order (the JAX package's
+psum, :mod:`..parallel.collectives`), so the ranks are equal on every
+process. JAX's ``lax.scan`` over the iterations is a Python loop here.
 
 Two modes, as in the JAX package:
   * ``mode='reference'`` reproduces the reference's semantics: n is the
@@ -42,7 +45,7 @@ import torch
 
 from tpu_distalg_torch.ops import graph as gops
 from tpu_distalg_torch.ops import pagerank_kernels as pk
-from tpu_distalg_torch.parallel import Mesh, tree_allreduce_sum
+from tpu_distalg_torch.parallel import Mesh, partition, tree_allreduce_sum
 
 _MODES = ("reference", "standard")
 _SCATTERS = ("auto", "pallas", "xla", "spmv")
@@ -68,10 +71,11 @@ class PageRankResult:
 
 @dataclasses.dataclass
 class DeviceEdges:
-    """The CSR rows of each emulated shard on the mesh's device:
-    ``shards[s] = (row_ptr (V+1,) int32, src int32, w_e float32)`` over
-    shard s's slice of the dst-sorted edges, and ``plans[s]`` the
-    kernels' tile plan of its rows (``pagerank_kernels.tile_plan``)."""
+    """The CSR rows of each data shard this process holds, on the mesh's
+    device: ``shards[i] = (row_ptr (V+1,) int32, src int32, w_e
+    float32)`` over the i-th held shard's slice of the dst-sorted edges,
+    and ``plans[i]`` the kernels' tile plan of its rows
+    (``pagerank_kernels.tile_plan``)."""
 
     shards: list
     plans: list
@@ -93,23 +97,34 @@ def choose_data_backend(requested: str) -> str:
 
 
 def prepare_device_edges(el: gops.EdgeList, mesh: Mesh) -> DeviceEdges:
-    """One-time prep: the dst-sorted CSR plan, each shard's rows and
-    their tile plan for the kernels, and the per-vertex out-link mask, on
-    ``mesh.device`` (int32 and float32, converted once after the range
-    checks)."""
+    """One-time prep: the dst-sorted CSR plan, the rows of each shard
+    this process holds (``src`` and ``w_e`` placed by the ``pagerank``
+    table: padded to a multiple of the shards, this process's block on
+    the device, each shard's slice cut back to its real edges) and their
+    tile plans for the kernels, and the replicated per-vertex out-link
+    mask, on ``mesh.device`` (int32 and float32, converted once after
+    the range checks)."""
     plan = pk.plan_csr(el, mesh.n_data)
     dev = mesh.device
-    src = torch.from_numpy(plan.src).to(dev)
-    w_e = torch.from_numpy(plan.w_e).to(dev)
+    tbl = partition.table("pagerank")
+    held = {}
+    for name, arr in (("src", plan.src), ("w_e", plan.w_e)):
+        spec = tbl.spec_for(name, arr.shape)
+        pad = partition.pad_amounts(arr.shape, spec, mesh)[0]
+        padded = np.pad(arr, (0, pad)) if pad else arr
+        held[name] = partition.shards(
+            partition.put(padded, name, tbl, mesh), spec, mesh)
     shards = []
-    for s, (lo, hi) in enumerate(plan.bounds):
+    for s in mesh.local_data:
+        lo, hi = plan.bounds[s]
         shards.append((torch.from_numpy(plan.shard_row_ptr(s)).to(dev),
-                       src[lo:hi], w_e[lo:hi]))
+                       held["src"][s][0][:hi - lo],
+                       held["w_e"][s][0][:hi - lo]))
     has_out = (el.out_degree > 0).astype(np.float32)
     return DeviceEdges(shards=shards,
                        plans=[pk.tile_plan(rp, src.shape[0])
                               for rp, src, _ in shards],
-                       has_out=torch.from_numpy(has_out).to(dev),
+                       has_out=partition.put(has_out, "has_out", tbl, mesh),
                        n_vertices=el.n_vertices, n_edges=el.n_edges,
                        n_ref=float(has_out.sum()))
 
@@ -160,7 +175,6 @@ def make_run_fn(mesh: Mesh, config: PageRankConfig, n_vertices: int):
     iteration mid-schedule (iterations do not depend on their index, so
     segments of a run equal the straight run bit for bit)."""
     _check_config(config)
-    del mesh
     V = n_vertices
     q = config.q
     n_it = config.n_iterations
@@ -172,10 +186,10 @@ def make_run_fn(mesh: Mesh, config: PageRankConfig, n_vertices: int):
             for _ in range(n_it):
                 x = ranks * has_rank
                 c, received = tree_allreduce_sum(
-                    (pk.spmv_table(rp, src, w, x, plan),
-                     pk.spmv_table(rp, src, one, has_rank, plan))
-                    for (rp, src, w), one, plan in zip(de.shards, ones,
-                                                       de.plans))
+                    ((pk.spmv_table(rp, src, w, x, plan),
+                      pk.spmv_table(rp, src, one, has_rank, plan))
+                     for (rp, src, w), one, plan in zip(de.shards, ones,
+                                                        de.plans)), mesh)
                 has_rank = (received > 0).to(torch.float32)
                 ranks = torch.where(received > 0,
                                     q / de.n_ref + (1 - q) * c, 0.0)  # :57
@@ -189,7 +203,8 @@ def make_run_fn(mesh: Mesh, config: PageRankConfig, n_vertices: int):
         sweep = _sweep(de, config.scatter)
         sink = 1.0 - de.has_out
         for _ in range(n_it):
-            (c,) = tree_allreduce_sum((part,) for part in sweep(ranks))
+            (c,) = tree_allreduce_sum(((part,) for part in sweep(ranks)),
+                                      mesh)
             if config.redistribute_dangling:
                 c = c + torch.sum(ranks * sink) / V
             ranks = q / V + (1 - q) * c

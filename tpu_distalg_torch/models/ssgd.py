@@ -86,11 +86,14 @@ import torch
 
 from tpu_distalg_torch.ops import logistic, sampling, ssgd_kernels
 from tpu_distalg_torch.parallel import (
+    DATA_AXIS,
     Mesh,
     model_sum,
     pad_features,
     parallelize,
+    partition,
     shard_features,
+    spmd,
     tree_allreduce_sum,
 )
 from tpu_distalg_torch.utils import metrics, prng
@@ -352,8 +355,6 @@ def make_train_fn(mesh: Mesh, config: SSGDConfig, n_padded: int, *,
                 "comm != 'dense' composes with the XLA 'bernoulli' path "
                 "or the fused kernels, not use_pallas=True")
         sync = _comm_sync(mesh, config, d)
-    n_shards = mesh.n_data
-    n_local = n_padded // n_shards
     key = prng.root_key(config.seed, mesh.device)
     frac = sampling.fraction_tensor(config.mini_batch_fraction, mesh.device)
 
@@ -365,12 +366,14 @@ def make_train_fn(mesh: Mesh, config: SSGDConfig, n_padded: int, *,
 
     def sample_and_grad(X, y, valid, w, payload):
         _, u = payload
-        mask = sampling.bernoulli_mask_from_uniform(u, frac, valid)
-        per = [local_grad(X[s * n_local:(s + 1) * n_local],
-                          y[s * n_local:(s + 1) * n_local],
-                          mask[s * n_local:(s + 1) * n_local], w)
-               for s in range(n_shards)]
-        return per if sync is not None else tree_allreduce_sum(per)
+        # the uniforms cover every row; this process keeps its own
+        mask = sampling.bernoulli_mask_from_uniform(
+            partition.local_block(u, (DATA_AXIS,), mesh), frac, valid)
+        per = spmd.data_parallel(lambda s: local_grad(
+            partition.data_block(X, s, mesh),
+            partition.data_block(y, s, mesh),
+            partition.data_block(mask, s, mesh), w), mesh)
+        return per if sync is not None else tree_allreduce_sum(per, mesh)
 
     return _build_scan(config, sample_and_grad,
                        prep_xs=_bernoulli_draws(key, n_padded), sync=sync)
@@ -448,11 +451,11 @@ def _make_train_fn_fixed(mesh: Mesh, config: SSGDConfig, n_padded: int):
             key, t, n_shards, n_local, b_local), ts, group)
 
     def sample_and_grad(X, y, valid, w, idx):
-        per = []
-        for s in range(n_shards):
-            rows = idx[s] + s * n_local
-            per.append(logistic.grad_sum(X[rows], y[rows], w, valid[rows]))
-        return tree_allreduce_sum(per)
+        def one(s):
+            rows = idx[s] + partition.held_index(s, mesh) * n_local
+            return logistic.grad_sum(X[rows], y[rows], w, valid[rows])
+
+        return tree_allreduce_sum(spmd.data_parallel(one, mesh), mesh)
 
     return _build_scan(config, sample_and_grad, prep_xs=prep_xs)
 
@@ -462,23 +465,26 @@ def _make_train_fn_tp(mesh: Mesh, config: SSGDConfig, n_padded: int):
     model slices. Per data shard, z = Σ_m X_m·w_m in model order, then
     each slice's gradient X_mᵀ·resid; the shards' gradients and counts
     are added in shard order (``ssgd.py:902-936``)."""
-    n_data, n_model = mesh.n_data, mesh.n_model
-    n_local = n_padded // n_data
+    n_model = mesh.n_model
     key = prng.root_key(config.seed, mesh.device)
 
     def sample_and_grad(X, y, valid, w, t):
         mask = sampling.bernoulli_mask(key, t, n_padded,
-                                       config.mini_batch_fraction, valid)
+                                       config.mini_batch_fraction, valid,
+                                       mesh)
         w_m = w.view(n_model, -1)
-        per = []
-        for s in range(n_data):
-            rows = slice(s * n_local, (s + 1) * n_local)
-            Xs = [X[m, rows].to(torch.promote_types(X.dtype, w.dtype))
+
+        def one(s):
+            Xs = [partition.data_block(X[m], s, mesh).to(
+                      torch.promote_types(X.dtype, w.dtype))
                   for m in range(n_model)]
+            m_s = partition.data_block(mask, s, mesh)
             z = model_sum(Xs[m] @ w_m[m] for m in range(n_model))
-            resid = (torch.sigmoid(z) - y[rows]) * mask[rows]
-            per.append(tuple(x.T @ resid for x in Xs) + (mask[rows].sum(),))
-        *g, cnt = tree_allreduce_sum(per)
+            y_s = partition.data_block(y, s, mesh)
+            resid = (torch.sigmoid(z) - y_s) * m_s
+            return tuple(x.T @ resid for x in Xs) + (m_s.sum(),)
+
+        *g, cnt = tree_allreduce_sum(spmd.data_parallel(one, mesh), mesh)
         return torch.cat(g), cnt
 
     return _build_scan(config, sample_and_grad)
@@ -542,14 +548,15 @@ def make_train_fn_fused(mesh: Mesh, config: SSGDConfig, meta: dict):
     col_keep = (torch.arange(meta["d_total"], device=mesh.device)
                 < meta["y_col"]).to(torch.float32)
     if config.sampler == "fused":
-        per_shard = _fused_per_shard(config, meta, n_shards, col_keep)
+        per_shard = _fused_per_shard(mesh, config, meta, col_keep)
         prep_xs = None
     elif config.sampler == "fused_gather":
         prep_xs = _block_draws(mesh, config, meta)
         gathered = gathered_per_shard(config, meta, col_keep)
 
         def per_shard(X2, w, ids):
-            return gathered([X2] * n_shards, w, ids)
+            # ids: this process's shards' draws, offset into its X2
+            return gathered([X2] * mesh.n_local, w, ids)
     else:
         raise ValueError(f"sampler={config.sampler!r} is not a packed-"
                          f"layout sampler")
@@ -559,7 +566,7 @@ def make_train_fn_fused(mesh: Mesh, config: SSGDConfig, meta: dict):
     def sample_and_grad(X2, y, valid, w, payload):
         del y, valid  # labels and validity ride inside X2
         per = per_shard(X2, w, payload)
-        return per if sync is not None else tree_allreduce_sum(per)
+        return per if sync is not None else tree_allreduce_sum(per, mesh)
 
     return _build_scan(config, sample_and_grad, prep_xs=prep_xs, sync=sync)
 
@@ -582,42 +589,45 @@ def gathered_per_shard(config: SSGDConfig, meta: dict, col_keep):
 
 def _block_draws(mesh: Mesh, config: SSGDConfig, meta: dict):
     """``fused_gather``'s ``prep_xs``: every (step, data shard) block draw
-    in one batched call, keyed on the absolute step, the ids made global
-    (shard s owns blocks ``[s·n_blocks, (s+1)·n_blocks)``) → (T, S, ns)."""
+    in one batched call, keyed on the absolute step and the GLOBAL shard;
+    this process keeps its shards' draws and offsets them into the rows
+    it holds (its i-th shard owns blocks ``[i·n_blocks, (i+1)·n_blocks)``
+    of its X2) → (T, shards held, ns)."""
     n_shards = mesh.n_data
     n_blocks, n_sampled = fused_gather_geometry(config, meta, n_shards)
     key = prng.root_key(config.seed, mesh.device)
-    offsets = (torch.arange(n_shards, dtype=torch.int32, device=mesh.device)
-               * n_blocks)[:, None]
+    offsets = (torch.arange(mesh.n_local, dtype=torch.int32,
+                            device=mesh.device) * n_blocks)[:, None]
 
     def prep_xs(ts):
         ids = sampling.sample_block_ids(prng.fold_in(key, ts), n_shards,
                                         n_blocks, n_sampled)
-        return (ids + offsets).contiguous()
+        held = partition.local_block(ids, (None, DATA_AXIS), mesh)
+        return (held + offsets).contiguous()
 
     return prep_xs
 
 
-def _fused_per_shard(config: SSGDConfig, meta: dict, n_shards: int,
+def _fused_per_shard(mesh: Mesh, config: SSGDConfig, meta: dict,
                      col_keep):
     """``fused``: each shard's rows go whole through kernel B5, keyed on
-    the absolute step plus the seed and on the shard, so a segmented
-    run draws what a straight one draws. ``per_shard(X2, w, t)`` → the
+    the absolute step plus the seed and on the GLOBAL shard, so a
+    segmented run draws what a straight one draws and a process draws
+    what one process would. ``per_shard(X2, w, t)`` → this process's
     shards' (Σ grad, count), the y/v/pad columns zeroed."""
-    n2_local = (meta["n_padded"] // meta["pack"]) // n_shards
     kargs = dict(pack=meta["pack"], d_total=meta["d_total"],
                  y_col=meta["y_col"], v_col=meta["v_col"],
                  fraction=config.mini_batch_fraction,
                  block_rows=config.fused_block_rows)
 
     def per_shard(X2, w, t):
-        per = []
-        for s in range(n_shards):
+        def one(s):
             g, cnt = ssgd_kernels.fused_grad_sum_packed(
-                X2[s * n2_local:(s + 1) * n2_local], w, t + config.seed, s,
+                partition.data_block(X2, s, mesh), w, t + config.seed, s,
                 **kargs)
-            per.append((g * col_keep, cnt))
-        return per
+            return g * col_keep, cnt
+
+        return spmd.data_parallel(one, mesh)
 
     return per_shard
 
@@ -638,7 +648,7 @@ def make_train_fn_fused_tp(mesh: Mesh, config: SSGDConfig, meta: dict):
     ``fused_gather`` draws them, so both read the same blocks; the
     sampled blocks are read twice a step (``ssgd.py:1278-1351``)."""
     _check_ported(config)
-    n_data, n_model = mesh.n_data, meta["n_model"]
+    n_model = meta["n_model"]
     if mesh.n_model != n_model:
         raise ValueError(f"meta packs {n_model} model slices, the mesh has "
                          f"{mesh.n_model}")
@@ -653,19 +663,21 @@ def make_train_fn_fused_tp(mesh: Mesh, config: SSGDConfig, meta: dict):
     def sample_and_grad(X2, y, valid, w, ids):
         del y, valid  # labels and validity ride inside every slice
         w_m = w.view(n_model, d_t)
-        per = []
-        for s in range(n_data):
-            zyv = [ssgd_kernels.fused_forward_gathered(X2[m], w_m[m], ids[s],
+
+        def one(s):
+            ids_s = ids[partition.held_index(s, mesh)]
+            zyv = [ssgd_kernels.fused_forward_gathered(X2[m], w_m[m], ids_s,
                                                        **kargs)
                    for m in range(n_model)]
             z = model_sum(zv[:, :P] for zv in zyv)
             y_s, v_s = zyv[0][:, P:2 * P], zyv[0][:, 2 * P:]
             resid = ((torch.sigmoid(z) - y_s) * v_s).contiguous()
-            per.append(tuple(
-                ssgd_kernels.fused_backward_gathered(X2[m], resid, ids[s],
+            return tuple(
+                ssgd_kernels.fused_backward_gathered(X2[m], resid, ids_s,
                                                      **bargs) * col_keep
-                for m in range(n_model)) + (v_s.sum(dim=1).sum(),))
-        *g, cnt = tree_allreduce_sum(per)
+                for m in range(n_model)) + (v_s.sum(dim=1).sum(),)
+
+        *g, cnt = tree_allreduce_sum(spmd.data_parallel(one, mesh), mesh)
         return torch.cat(g), cnt
 
     return _build_scan(config, sample_and_grad, prep_xs=prep_xs)
@@ -798,13 +810,13 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
     d_orig = X_train.shape[1]
     if config.feature_sharded:
         # zero feature columns are inert: zero gradient, w stays at w0
-        X_train, _ = pad_features(np.asarray(X_train, np.float32),
-                                  mesh.n_model)
-        X_test, _ = pad_features(np.asarray(X_test, np.float32),
-                                 mesh.n_model)
+        X_train, _ = pad_features(np.asarray(X_train, np.float32), mesh)
+        X_test, _ = pad_features(np.asarray(X_test, np.float32), mesh)
+    tbl = "ssgd_feature_sharded" if config.feature_sharded else "ssgd"
     Xs = parallelize(X_train, mesh,
-                     dtype=ssgd_kernels.as_dtype(config.x_dtype))
-    ys = parallelize(np.asarray(y_train, np.float32), mesh)
+                     dtype=ssgd_kernels.as_dtype(config.x_dtype), table=tbl)
+    ys = parallelize(np.asarray(y_train, np.float32), mesh, table=tbl,
+                     leaf="y")
     w0 = logistic.init_weights(prng.root_key(config.init_seed, mesh.device),
                                X_train.shape[1])
     X_te = torch.as_tensor(np.asarray(X_test, np.float32)).to(mesh.device)
@@ -830,7 +842,7 @@ def _train_steps(mesh: Mesh, config: SSGDConfig, d: int, data_args, w0, *,
     also holds the error-feedback residual (zero-width when the
     schedule is stateless, as in JAX), placed by the ``ssgd`` table, so
     a resumed ``topk`` run replays bitwise."""
-    from tpu_distalg_torch.parallel import comms, partition
+    from tpu_distalg_torch.parallel import comms
 
     sync = None if config.comm == "dense" else _comm_sync(mesh, config, d)
 
@@ -882,7 +894,7 @@ def prepare_fused(X_train, y_train, mesh: Mesh, config: SSGDConfig):
         np.asarray(X_train), np.asarray(y_train), np.ones(n, np.float32),
         dtype=config.x_dtype, pack=config.fused_pack,
         block_rows=block * n_shards, shuffle_seed=config.shuffle_seed,
-        device=mesh.device)
+        mesh=mesh, table="ssgd")
     w0 = torch.zeros((meta["d_total"],), dtype=torch.float32,
                      device=mesh.device)
     w0[:d_orig] = logistic.init_weights(
@@ -898,8 +910,8 @@ def prepare_fused_synthetic(n_rows: int, n_features: int, mesh: Mesh,
     """:func:`prepare_fused` for the two-class task made ON the device
     (``ssgd.py:1623-1693``): host memory stays O(1) in ``n_rows``.
     Rows are padded to a multiple of ``max(block, pack)·n_shards``;
-    each shard's rows are made in chunks of ``chunk_rows``, halved
-    until it divides the shard's rows and the pack, by
+    a process makes only its shards' rows, in chunks of ``chunk_rows``,
+    halved until it divides the shard's rows and the pack, by
     :func:`..utils.datasets.synthetic_two_class_rows` from their global
     ids, and written in X's dtype as ``[features | 1 | y | valid |
     0…]`` (padding rows are made too, with valid 0). Returns ``(fn, X2,
@@ -925,10 +937,13 @@ def prepare_fused_synthetic(n_rows: int, n_features: int, mesh: Mesh,
     make_rows = datasets.synthetic_two_class_rows(n_features, data_seed,
                                                   separation)
     dev = mesh.device
-    X2 = torch.empty((n_t // pk, pk * d_t),
+    # this process's shards' rows: shard s owns rows [s·n_local, …)
+    base = mesh.local_data.start * n_local
+    n_held = mesh.n_local * n_local
+    X2 = torch.empty((n_held // pk, pk * d_t),
                      dtype=ssgd_kernels.as_dtype(config.x_dtype), device=dev)
-    rows = X2.view(n_t, d_t)
-    for lo in range(0, n_t, chunk):   # shard s owns rows [s·n_local, …)
+    rows = X2.view(n_held, d_t)
+    for lo in range(base, base + n_held, chunk):
         ids = torch.arange(lo, lo + chunk, dtype=torch.int64, device=dev)
         X, y = make_rows(ids)
         out = torch.zeros((chunk, d_t), dtype=torch.float32, device=dev)
@@ -936,7 +951,7 @@ def prepare_fused_synthetic(n_rows: int, n_features: int, mesh: Mesh,
         out[:, n_features] = 1.0
         out[:, y_col] = y
         out[:, v_col] = (ids < n_rows).to(torch.float32)
-        rows[lo:lo + chunk] = out
+        rows[lo - base:lo - base + chunk] = out
     meta = dict(pack=pk, d_total=d_t, y_col=y_col, v_col=v_col,
                 n_padded=n_t)
     w0 = torch.zeros((d_t,), dtype=torch.float32, device=dev)
@@ -1000,7 +1015,7 @@ def prepare_fused_tp(X_train, y_train, mesh: Mesh, config: SSGDConfig):
     ``n_model``, ``d_local`` and ``d_orig``."""
     n_data, n_model = mesh.n_data, mesh.n_model
     n, d_orig = X_train.shape
-    X_np, d_l = pad_features(np.asarray(X_train, np.float32), n_model)
+    X_np, d_l = pad_features(np.asarray(X_train, np.float32), mesh)
     y_np, valid = np.asarray(y_train), np.ones(n, np.float32)
     X2 = meta = None
     for m in range(n_model):
@@ -1008,7 +1023,8 @@ def prepare_fused_tp(X_train, y_train, mesh: Mesh, config: SSGDConfig):
             X_np[:, m * d_l:(m + 1) * d_l], y_np, valid,
             dtype=config.x_dtype, pack=config.fused_pack,
             block_rows=config.gather_block_rows * n_data,
-            shuffle_seed=config.shuffle_seed, device=mesh.device)
+            shuffle_seed=config.shuffle_seed, mesh=mesh, table="ssgd_tp",
+            model_slice=m)
         if X2 is None:
             X2 = torch.empty((n_model, *X2_m.shape), dtype=X2_m.dtype,
                              device=mesh.device)
@@ -1403,9 +1419,10 @@ def train_prepared_ssp(mesh: Mesh, config: SSGDConfig, data, X_te, y_te,
     another shard count renegotiates). A replay under the same plan is
     bitwise equal. Returns ``(TrainResult, epochs)`` with w in the
     layout of ``w0``."""
-    from tpu_distalg_torch.parallel import comms, membership, partition
+    from tpu_distalg_torch.parallel import comms, membership
     from tpu_distalg_torch.parallel import ssp as pssp
 
+    mesh.require_one_process("--sync ssp")
     spec = pssp.SyncSpec.parse(config.sync)
     s = spec.staleness
     T = config.n_iterations

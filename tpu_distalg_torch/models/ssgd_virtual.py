@@ -95,6 +95,7 @@ def make_train_fn(mesh: Mesh, config: SSGDConfig, data: VirtualData):
     if config.sampler != "virtual":
         raise ValueError(
             f"make_train_fn(virtual) got sampler={config.sampler!r}")
+    mesh.require_one_process("virtual SSGD")
     n_shards = mesh.n_data
     rows_per_shard, n_blocks, n_sampled = _geometry(config, data, n_shards)
     if n_shards * rows_per_shard >= MAX_PADDED_ROWS:

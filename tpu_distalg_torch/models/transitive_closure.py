@@ -104,6 +104,7 @@ def run(edges: np.ndarray, mesh: Mesh,
     """The dense fixpoint: paths start as the edge set; each round
     composes them with the edges and adds the result, until the count
     stops growing or ``max_iterations`` rounds have run."""
+    mesh.require_one_process("the transitive closure")
     el = gops.prepare_edges(edges, n_vertices)
     n_shards = mesh.n_data
     # pad the vertex count so the path matrix's rows split evenly over
@@ -145,6 +146,7 @@ def run_sparse(edges: np.ndarray, mesh: Mesh,
     memory. Like the reference it re-joins the whole path set each
     round. Raises ValueError when a round overflows ``capacity`` or
     ``join_capacity``."""
+    mesh.require_one_process("the transitive closure")
     el = gops.prepare_edges(edges, n_vertices)
     V, E = el.n_vertices, el.n_edges
     C = (config.capacity if config.capacity is not None

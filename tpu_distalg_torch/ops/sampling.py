@@ -16,12 +16,19 @@ from tpu_distalg_torch.utils import prng
 
 
 def bernoulli_mask(key: torch.Tensor, t, n: int, fraction: float,
-                   valid: torch.Tensor) -> torch.Tensor:
+                   valid: torch.Tensor, mesh=None) -> torch.Tensor:
     """0/1 float32 mask of shape (n,): row kept iff u_i < fraction and
     valid. ``u`` is :func:`prng.uniform` under ``fold_in(key, t)``; the
     comparison is in float32, as JAX compares a float32 array with a
-    Python float."""
+    Python float. With a ``mesh`` that spans processes, ``u`` is drawn
+    over all n rows and this process's rows are kept
+    (:func:`..parallel.partition.local_block`): ``valid`` holds only
+    those."""
     u = prng.uniform(prng.step_key(key, t), (n,))
+    if mesh is not None:
+        from tpu_distalg_torch.parallel import DATA_AXIS, partition
+
+        u = partition.local_block(u, (DATA_AXIS,), mesh)
     return bernoulli_mask_from_uniform(u, fraction_tensor(fraction, u.device),
                                        valid)
 

@@ -79,7 +79,8 @@ def packed_dims(d: int, pack: int):
 
 def pack_augmented(X, y, valid, *, dtype=torch.bfloat16, pack: int = 16,
                    block_rows: int = 8192, shuffle_seed: int | None = None,
-                   device: str | torch.device | None = None):
+                   device: str | torch.device | None = None, mesh=None,
+                   table: str = "ssgd", model_slice: int | None = None):
     """Pack (X, y, valid) once, outside the training loop.
 
     Row i of the augmented matrix is ``[X[i] | y[i] | valid[i] | 0…]``;
@@ -89,8 +90,11 @@ def pack_augmented(X, y, valid, *, dtype=torch.bfloat16, pack: int = 16,
     Returns ``(X2, meta)``: X2 of shape (n_padded/pack, pack·d_total) in
     ``dtype`` on ``device`` (rounded to nearest even from float32, as
     JAX casts), meta the dict of pack, d_total, y_col, v_col,
-    n_padded."""
-    dev = resolve_device(device)
+    n_padded. With a ``mesh``, X2 is placed by ``table``'s rule for
+    ``X2`` on the mesh's device (``partition.put``; ``model_slice`` for
+    one model slice of the tp split): a process of a group keeps only
+    its data shards' rows."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     X = np.asarray(X, np.float32)
     if shuffle_seed is not None:
         perm = np.random.default_rng(shuffle_seed).permutation(X.shape[0])
@@ -103,7 +107,13 @@ def pack_augmented(X, y, valid, *, dtype=torch.bfloat16, pack: int = 16,
     out[:n, :d] = X
     out[:n, y_col] = np.asarray(y, np.float32)
     out[:n, v_col] = np.asarray(valid, np.float32)[:n]
-    X2 = torch.from_numpy(out.reshape(n_t // pack, pack * d_t)).to(dev)
+    X2 = out.reshape(n_t // pack, pack * d_t)
+    if mesh is None:
+        X2 = torch.from_numpy(X2).to(dev)
+    else:
+        from tpu_distalg_torch.parallel import partition
+
+        X2 = partition.put(X2, "X2", table, mesh, model_slice=model_slice)
     meta = dict(pack=pack, d_total=d_t, y_col=y_col, v_col=v_col,
                 n_padded=n_t)
     return X2.to(as_dtype(dtype)), meta

@@ -9,7 +9,9 @@ candidate merge and the ring all-gather that serving rides
 Schedules (every one deterministic and bitwise replayable):
 
   ``dense``     each leaf summed over the shards in shard order
-                (:func:`tree_allreduce_sum`), the default;
+                (:func:`tree_allreduce_sum`), the default; across
+                processes one all-gather of every shard's partials,
+                added in global shard order (:mod:`.collectives`);
   ``bucketed``  the flat vector in buckets, each reduced by the ring:
                 n−1 reduce-scatter steps, then an all-gather;
   ``hier``      the ring inside each of g groups, the groups' partial
@@ -38,7 +40,10 @@ the pipeline issue the same ops (:func:`_pipelined_buckets`) and agree
 bitwise by construction.
 
 Compression applies to float leaves with more than one element; scalars
-and integer leaves (counts) always go dense.
+and integer leaves (counts) always go dense. The schedules other than
+``dense`` run in one process; across processes they wait for ROADMAP A9
+(``hier``'s groups would be the processes, as the JAX package infers
+them) and refuse.
 """
 
 from __future__ import annotations
@@ -293,7 +298,10 @@ class CommSync:
                  axis_name: str = DATA_AXIS):
         self.spec = spec
         self.axis_name = axis_name
+        self.mesh = mesh
         self.n_shards = _axis_size(mesh, axis_name)
+        if spec.schedule != "dense" and self.n_shards > 1:
+            mesh.require_one_process(f"the {spec.schedule!r} schedule")
         self.groups = spec.hier_groups or infer_groups(mesh, axis_name)
         if self.spec.schedule == "hier" and self.n_shards % self.groups:
             raise ValueError(
@@ -320,11 +328,15 @@ class CommSync:
         """Allreduce-sum under the schedule → ``(summed, res_new)``, or
         ``(summed, res_new, compute())`` with a ``compute`` thunk."""
         per_shard = [tuple(x) for x in per_shard]
-        if len(per_shard) != self.n_shards:
-            raise ValueError(f"CommSync built for {self.n_shards} shards, "
+        held = self.mesh.n_local if self.axis_name == DATA_AXIS \
+            else self.n_shards
+        if len(per_shard) != held:
+            raise ValueError(f"CommSync built for {held} shards, "
                              f"got {len(per_shard)}")
         if self.spec.schedule == "dense" or self.n_shards == 1:
-            out = tree_allreduce_sum(per_shard)
+            out = tree_allreduce_sum(
+                per_shard, self.mesh if self.axis_name == DATA_AXIS
+                else None)
             if compute is None:
                 return out, res
             return out, res, compute()

@@ -11,29 +11,31 @@ with one entry a dimension: an axis name (``DATA_AXIS``,
 not cut; ``()`` is replicated. Every table of the JAX package is
 registered below, as data.
 
-On one card a placement is two things: the padding a layout needs
+A placement is two things: the padding a layout needs
 (:func:`pad_amounts`) and the rule that cuts a tensor into the views
-each emulated shard holds (:func:`shards`). Nothing moves between
-devices: :func:`place` and :func:`put` bring leaves to the mesh's
-device, :func:`constrain` checks that a layout can be cut, and
-:func:`reshard` applies the pad and slice of the JAX package's
-pad-reshard-slice round trip and emits the ``reshard.*`` counters and
-the ``reshard`` event. Its plan (:func:`reshard_stats`) classifies each
-leaf's change of layout into the collective the JAX package's
-partitioner would run (``noop``, ``slice``, ``all_gather``,
-``all_to_all``, ``gather_slice``) and counts its bytes under the same
-ring model, so its integers equal the JAX package's for the same tree,
-tables and mesh shape. On one card ``bytes_wire`` is that model's
-count, not bytes that crossed a link.
+each shard holds (:func:`shards`). :func:`put` and :func:`place` bring
+a global array to the mesh's device in its table's layout; in a process
+group (``mesh.process_count > 1``) they keep only the block of this
+process's data shards, and :func:`shards` yields only those shards,
+keyed by global id. A process never holds another's rows:
+:func:`gather` brings a row-sharded leaf together only when asked.
+:func:`constrain` checks that a layout can be cut, and :func:`reshard`
+applies the pad and slice of the JAX package's pad-reshard-slice round
+trip and emits the ``reshard.*`` counters and the ``reshard`` event.
+Its plan (:func:`reshard_stats`) classifies each leaf's change of
+layout into the collective the JAX package's partitioner would run
+(``noop``, ``slice``, ``all_gather``, ``all_to_all``, ``gather_slice``)
+and counts its bytes under the same ring model, so its integers equal
+the JAX package's for the same tree, tables and mesh shape. On one card
+``bytes_wire`` is that model's count, not bytes that crossed a link;
+a reshard across processes waits for ROADMAP A9.
 
-Only ALS reads its tables here (``als_train`` in ``models/als.py``,
-``als_serve`` in ``serve/artifacts.py``). The SSGD family, k-means and
-PageRank still place their tensors by hand (``parallel/sharding.py``);
-their tables are kept as data, and ``tests/test_torch_partition.py``
-holds that hand placement to them shard for shard until ROADMAP A9
-moves those trainers onto the engine. Not ported: ``LeafOwnership``,
-``RowOwnershipMap`` and ``row_bounds``, which serve the row store and
-the cluster, wait for ROADMAP A12.
+Every trainer places its tensors through these tables: ALS
+(``als_train``, ``als_serve``), SSGD (``lr``, ``ssgd``, ``ssgd_tp``),
+the local-update family (``local_sgd``), k-means (``kmeans``) and
+PageRank (``pagerank``); ``parallel/sharding.py`` is a thin caller.
+Not ported: ``LeafOwnership``, ``RowOwnershipMap`` and ``row_bounds``,
+which serve the row store and the cluster, wait for ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -205,6 +207,68 @@ def _spec_dim_degrees(spec, mesh: Mesh) -> list[int]:
         for entry in tuple(spec)]
 
 
+def _local_axis_size(mesh: Mesh, axis: str) -> int:
+    return mesh.n_local if axis == DATA_AXIS else _axis_size(mesh, axis)
+
+
+def _local_dim_degrees(spec, mesh: Mesh) -> list[int]:
+    """The blocks this process's part of each dimension holds: the data
+    axis counts only its own shards."""
+    for entry in tuple(spec):
+        axes = () if entry is None else _axes(entry)
+        if DATA_AXIS in axes[1:] and mesh.process_count > 1:
+            raise PartitionRuleError(
+                f"spec {tuple(spec)} cuts a dimension over the data axis "
+                f"inside another: this process's shards would not be "
+                f"contiguous")
+    return [1 if entry is None else int(np.prod(
+        [_local_axis_size(mesh, ax) for ax in _axes(entry)]))
+        for entry in tuple(spec)]
+
+
+def local_block(x, spec, mesh: Mesh, model_slice: int | None = None):
+    """This process's block of a global array under ``spec``: each
+    dimension cut over the data axis narrowed to the process's shards
+    (a view; ``x`` itself with one process). With ``model_slice``, ``x``
+    is already that model slice's block of every dimension the model
+    axis cuts, so only the data axis narrows it. The trainers take their
+    rows of a draw made over every row (a mask's uniforms, the block
+    draws) through it."""
+    if mesh.process_count == 1:
+        return x
+    _local_dim_degrees(spec, mesh)   # refuses a non-contiguous layout
+    lo = mesh.local_data.start
+    for i, entry in enumerate(tuple(spec)):
+        axes = () if entry is None else _axes(entry)
+        if not axes or axes[0] != DATA_AXIS:
+            continue
+        inner = 1 if model_slice is not None else int(np.prod(
+            [_axis_size(mesh, a) for a in axes[1:]]))
+        n = x.shape[i] // (mesh.n_data * inner)
+        a, b = lo * inner * n, (lo + mesh.n_local) * inner * n
+        x = x[(slice(None),) * i + (slice(a, b),)]
+    return x
+
+
+def held_index(s: int, mesh: Mesh) -> int:
+    """Global data shard ``s``'s position among this process's shards
+    (``s`` itself with one process)."""
+    i = s - mesh.local_data.start
+    if not 0 <= i < mesh.n_local:
+        raise ValueError(f"data shard {s} is not held by process "
+                         f"{mesh.process_index} ({mesh.local_data})")
+    return i
+
+
+def data_block(x, s: int, mesh: Mesh, dim: int = 0):
+    """Global data shard ``s``'s view of this process's tensor ``x``
+    whose dimension ``dim`` is cut over the data axis alone: the view
+    :func:`shards` gives shard ``s`` under such a spec, without making
+    the others' (the trainers call it a shard a step)."""
+    n = x.shape[dim] // mesh.n_local
+    return x.narrow(dim, held_index(s, mesh) * n, n)
+
+
 def pad_amounts(shape, spec, mesh: Mesh) -> tuple[int, ...]:
     """Tail padding of each dimension that makes ``shape`` divisible by
     the spec's shard counts: all zeros when the layout is even."""
@@ -235,16 +299,18 @@ def _canonical_spec(spec, mesh: Mesh) -> tuple:
     return tuple(out)
 
 
-def shards(x, spec, mesh: Mesh) -> list[list]:
-    """The views of ``x`` each emulated shard holds under ``spec``:
-    ``out[s][m]`` is shard (data ``s``, model ``m``)'s. A dimension cut
-    over one axis takes that axis's coordinate; over a tuple of axes,
-    their coordinates row-major, as the JAX package's shard index. The
-    views share ``x``'s storage; a dimension the spec's shard count
-    does not divide raises (pad it first: :func:`pad_amounts`)."""
+def shards(x, spec, mesh: Mesh) -> dict[int, list]:
+    """The views of this process's tensor ``x`` that each of its shards
+    holds under ``spec``: ``out[s][m]`` is shard (data ``s``, model
+    ``m``)'s, for the global data shards ``s`` of ``mesh.local_data``
+    (every shard with one process). A dimension cut over one axis takes
+    that axis's coordinate; over a tuple of axes, their coordinates
+    row-major, as the JAX package's shard index. The views share ``x``'s
+    storage; a dimension the spec's shard count does not divide raises
+    (pad it first: :func:`pad_amounts`)."""
     shape = _shape(x)
     spec = tuple(spec)
-    degs = _spec_dim_degrees(spec, mesh)
+    degs = _local_dim_degrees(spec, mesh)
     for i, (dim, deg) in enumerate(zip(shape, degs)):
         if dim % deg:
             raise PartitionRuleError(
@@ -260,18 +326,19 @@ def shards(x, spec, mesh: Mesh) -> list[list]:
                 continue
             j = 0
             for ax in _axes(entry):
-                j = j * _axis_size(mesh, ax) + coords[ax]
+                j = j * _local_axis_size(mesh, ax) + coords[ax]
             n = shape[i] // degs[i]
             idx.append(slice(j * n, (j + 1) * n))
         return x[tuple(idx)]
 
-    out = []
-    for s in range(mesh.n_data):
+    out = {}
+    for s in mesh.local_data:
         row = []
         for m in range(mesh.n_model):
-            coords[DATA_AXIS], coords[MODEL_AXIS] = s, m
+            coords[DATA_AXIS] = held_index(s, mesh)
+            coords[MODEL_AXIS] = m
             row.append(view())
-        out.append(row)
+        out[s] = row
     return out
 
 
@@ -286,43 +353,77 @@ def _to_device(x, mesh: Mesh) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=mesh.device)
 
 
-def put(x, leaf_name: str, tbl, mesh: Mesh) -> torch.Tensor:
-    """Place one array per its table rule: on the mesh's device, in a
-    layout its shards can cut."""
-    return constrain(_to_device(x, mesh), leaf_name, tbl, mesh)
+def _as_array(x):
+    return x if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def put(x, leaf_name: str, tbl, mesh: Mesh, *,
+        model_slice: int | None = None) -> torch.Tensor:
+    """Place one global array per its table rule: this process's block
+    of it (the whole array with one process) on the mesh's device, in a
+    layout its shards can cut. With ``model_slice``, ``x`` is that model
+    slice's block of every dimension the rule cuts over the model axis,
+    and only its data rows are cut."""
+    x = _as_array(x)
+    spec = table(tbl).spec_for(leaf_name, _shape(x))
+    if model_slice is None:
+        constrain(x, leaf_name, tbl, mesh, local=False)
+    x = local_block(x, spec, mesh, model_slice)
+    return _to_device(x, mesh)
 
 
 def place(tree, tbl, mesh: Mesh):
     """Place every leaf of ``tree`` per its table rule. Idempotent: a
-    tensor already on the mesh's device passes through untouched;
-    anything else takes one copy to it."""
+    tensor already on the mesh's device is taken as placed and passes
+    through untouched; anything else is a global array, of which this
+    process's block takes one copy to the device."""
     t = table(tbl)
 
     def one(name, x):
-        x = _to_device(x, mesh)
-        t.spec_for(name, _shape(x))
-        return x
+        if isinstance(x, torch.Tensor) and x.device == mesh.device:
+            t.spec_for(name, _shape(x))
+            return x
+        x = _as_array(x)
+        return _to_device(local_block(x, t.spec_for(name, _shape(x)),
+                                       mesh), mesh)
 
     return _tree_map_named(one, tree)
 
 
-def constrain(x, leaf_name: str, tbl, mesh: Mesh):
+def constrain(x, leaf_name: str, tbl, mesh: Mesh, *, local: bool = True):
     """The table's layout for one tensor: raises unless the rule names
-    the leaf and its shards cut ``x`` evenly; returns ``x``."""
+    the leaf and its shards cut ``x`` evenly; returns ``x``. ``x`` is
+    this process's block (``local``) or the global array."""
     spec = table(tbl).spec_for(leaf_name, _shape(x))
-    if any(pad_amounts(_shape(x), spec, mesh)):
+    degs = (_local_dim_degrees(spec, mesh) if local
+            else _spec_dim_degrees(spec, mesh))
+    if any(dim % deg for dim, deg in zip(_shape(x), degs)):
         raise PartitionRuleError(
             f"leaf {leaf_name!r} of shape {_shape(x)} does not split "
             f"evenly under {spec} on a {mesh.n_data}x{mesh.n_model} mesh")
     return x
 
 
-def gather(tree):
-    """Host copies (numpy) of every leaf."""
-    return _tree_map_named(
-        lambda _, x: (x.detach().cpu().numpy().copy()
-                      if isinstance(x, torch.Tensor) else np.array(x)),
-        tree)
+def gather(tree, tbl=None, mesh: Mesh | None = None):
+    """Host copies (numpy) of every leaf. With a table and a mesh that
+    spans processes, a leaf the table cuts over the data axis (on its
+    first dimension) is first brought together from every process's
+    rows; nothing crosses otherwise."""
+    from tpu_distalg_torch.parallel.collectives import allgather_rows
+
+    t = None if tbl is None else table(tbl)
+
+    def one(name, x):
+        if not isinstance(x, torch.Tensor):
+            return np.array(x)
+        if t is not None and mesh is not None and mesh.process_count > 1:
+            spec = t.spec_for(name, _shape(x))
+            if spec and spec[0] is not None and \
+                    _axes(spec[0])[0] == DATA_AXIS:
+                x = allgather_rows(x.contiguous(), mesh)
+        return x.detach().cpu().numpy().copy()
+
+    return _tree_map_named(one, tree)
 
 
 # ------------------------------------------------------------- reshard
@@ -430,6 +531,7 @@ def reshard(tree, src_tbl, dst_tbl, mesh: Mesh, *, emit: bool = True,
     not divide it, as the JAX package's pad-reshard-slice program does.
     Emits the ``reshard.*`` counters and the ``reshard`` event unless
     ``emit`` is False."""
+    mesh.require_one_process("reshard")
     st = reshard_stats(tree, src_tbl, dst_tbl, mesh, true_shapes=true_shapes)
     out = _tree_map_named(
         lambda name, x: _relayout(_to_device(x, mesh), st["leaves"][name]),
@@ -444,6 +546,7 @@ def host_gather_reshard(tree, dst_tbl, mesh: Mesh,
     """The baseline :func:`reshard` stands for: every leaf to the host,
     sliced and padded there, then placed in the destination layout. Its
     output equals :func:`reshard`'s bitwise."""
+    mesh.require_one_process("host_gather_reshard")
     dst_t = table(dst_tbl)
 
     def one(name, x):

@@ -40,6 +40,7 @@ DATA_AXIS = "data"
 
 
 def _n_shards(mesh, *tensors) -> int:
+    mesh.require_one_process("the sequence-parallel rings")
     n = int(mesh.n_data)
     for t in tensors:
         if t.device.type != mesh.device.type:

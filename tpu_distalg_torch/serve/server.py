@@ -38,6 +38,7 @@ class Server:
     item factors are split over the mesh's model axis."""
 
     def __init__(self, mesh: Mesh, config: ServeConfig = ServeConfig()):
+        mesh.require_one_process("serving")
         self.mesh = mesh
         self.config = config
         self._models: dict[str, serve_artifacts.ServedModel] = {}

@@ -181,12 +181,18 @@ def run_segmented(checkpoint_dir: str, checkpoint_every: int,
     workload (k-means in converge mode) stops once it holds instead of
     running segments that change nothing. Returns ``(state, accs,
     start_step)``.
-    (Corrupt-file quarantine and preemption wait for the faults slice.)
+    (Corrupt-file quarantine and preemption wait for the faults slice;
+    a directory shared by the processes of a group, for ROADMAP A9.)
     """
     import torch
 
+    from tpu_distalg_torch.parallel import mesh as pmesh
     from tpu_distalg_torch.utils import metrics
 
+    if pmesh.process_count() > 1:
+        raise NotImplementedError(
+            "checkpointing across processes waits for ROADMAP A9; run "
+            "without a checkpoint directory")
     if checkpoint_every < 1:
         raise ValueError(
             f"checkpoint_every must be >= 1, got {checkpoint_every}")
