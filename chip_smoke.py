@@ -152,7 +152,18 @@ and the script exits non-zero without printing a result:
      result equals one process × 2 shards on the card bit for bit, and
      a world-1 NCCL group's ``fused_gather`` too; steps/s beside the one
      process's, the collectives' count and bytes, the host copies' share
-     of the wall time and the idle share;
+     of the wall time and the idle share. Then the sync layer across the
+     pair at phase 13's geometry (4 global shards, 2 a rank):
+     ``fused_gather`` (B1) under each of phase 13's schedules for 200
+     steps, each rank's bytes equal to the schedule's closed form
+     (``comms.process_bytes``) and below ``dense``'s, MA ``fused_train``
+     (B2) under int8 and topk for 40 rounds, ``fused_gather`` under
+     ``ssp:8`` with the straggle plan and the leave plan for 200 ticks,
+     bench.py's SSP straggler bench (its BSP arm and ``ssp:8``; the
+     speedup a rank beside one process's), and a topk run checkpointed
+     by the pair at step 100 and resumed by one process to 200; each
+     equal to one process × 4 shards bit for bit (the resumed run to
+     the straight one), and a world-1 NCCL group's ``hier`` too;
  17. the kernels line (B1's and B2's entries with their launches on the
      local-update runs, B1's on the scale path and phase 14's streamed
      runs, B1's, B2's and B5's on phase 13's paths, B7's on phase 15's
@@ -5482,11 +5493,21 @@ def run_graph(dev) -> dict:
 MP_KERNELS = {"ssgd_fused_gather": ("B1",), "ssgd_fused": ("B5",),
               "ma_fused_train": ("B2",), "ma_fused_gather": ("B1",),
               "ssgd_tp": ("B3", "B4"), "kmeans_fused": ("B10",),
-              "pagerank_auto": ("B7",), "pagerank_pallas": ("B8",)}
+              "pagerank_auto": ("B7",), "pagerank_pallas": ("B8",),
+              **{f"sync_{c}": ("B1",) for c in (
+                  "dense", "bucketed", "hier", "bf16", "int8", "int8_seq",
+                  "topk", "ssp_straggle", "ssp_leave")},
+              "sync_ma_int8": ("B2",), "sync_ma_topk": ("B2",),
+              # bench.py's straggler bench on `bernoulli`: no kernel
+              "sync_bsp_straggler": (), "sync_ssp_straggler": ()}
 MP_TIMEOUT_S = 600
 #: phase 16's results a rank holds only its rows of (the replicas'
 #: models, which the ``local_sgd`` table cuts over the data axis)
-MP_ROW_SHARDED = ("ma_fused_train/ws", "ma_fused_gather/ws")
+MP_ROW_SHARDED = ("ma_fused_train/ws", "ma_fused_gather/ws",
+                  "sync_ma_int8/ws", "sync_ma_topk/ws")
+#: the one process's results of the checkpoint split across a restart
+#: that the ranks do not make (they write the first half)
+MP_ONE_PROCESS_ONLY = ("sync_ckpt/w_resumed", "sync_ckpt/w")
 
 
 def _mp_spawn(out: str, tag: str, args_for: list) -> list:
@@ -5549,7 +5570,7 @@ def run_multiproc(dev) -> dict:
         _mp_spawn(out, "single", [["--no-profile"]])
         _mp_spawn(nccl_out, "nccl", [
             ["--init", f"file://{nccl_out}/rendezvous", "--world", "1",
-             "--rank", "0", "--workloads", "ssgd_fused_gather",
+             "--rank", "0", "--workloads", "ssgd_fused_gather,sync_hier",
              "--no-profile"]])
         single, s_info = _mp_load(out, "single")
         ranks = [_mp_load(out, f"rank{r}") for r in (0, 1)]
@@ -5563,10 +5584,14 @@ def run_multiproc(dev) -> dict:
     if (n_info["backend"], n_info["process_count"]) != ("nccl", 1):
         raise AssertionError(f"world-1 group: backend {n_info['backend']}")
     for key, whole in single.items():
+        if key in MP_ONE_PROCESS_ONLY:
+            continue
         for r, (arrays, _) in enumerate(ranks):
             got = arrays[key]
-            # rank r holds replica r of a row-sharded result
-            want = whole[r:r + 1] if key in MP_ROW_SHARDED else whole
+            # rank r holds its replicas of a row-sharded result
+            n = whole.shape[0] // 2
+            want = whole[r * n:(r + 1) * n] if key in MP_ROW_SHARDED \
+                else whole
             if got.shape != want.shape:
                 raise AssertionError(f"phase 16: rank {r}'s {key} is "
                                      f"{got.shape}, want {want.shape}")
@@ -5579,10 +5604,18 @@ def run_multiproc(dev) -> dict:
         if got.tobytes() != single[key].tobytes():
             raise AssertionError(f"phase 16: the NCCL group's {key} differs "
                                  f"from one process's")
+    if single["sync_ckpt/w_resumed"].tobytes() != \
+            single["sync_ckpt/w"].tobytes():
+        raise AssertionError("phase 16: the run the pair checkpointed and "
+                             "one process resumed differs from the "
+                             "straight run")
     print(f"[multiproc] 2 gloo ranks on one card ({t_pair!r} s for the "
           f"pair, start-up and data included): every result of "
-          f"{len(single)} equals one process × 2 shards bit for bit; a "
-          f"world-1 NCCL group's ssgd_fused_gather too")
+          f"{len(single) - len(MP_ONE_PROCESS_ONLY)} equals one process "
+          f"× 2 shards (the sync_* runs × 4) bit for bit; a run the pair "
+          f"checkpointed at step {_mp_half()} and one process resumed "
+          f"equals the straight run; a world-1 NCCL group's "
+          f"ssgd_fused_gather and sync_hier too")
     rates, launches = {}, {}
     for name in names:
         st = [info["stats"][name] for _, info in ranks]
@@ -5599,10 +5632,19 @@ def run_multiproc(dev) -> dict:
             "window_wall_us_per_step": [x["window_wall_us_per_step"]
                                         for x in st],
             "device_us_per_step": [x["device_us_per_step"] for x in st]}
+        if "bytes_closed_form" in st[0]:
+            rates[name].update(
+                bytes_sent_ranks=[x["dist"]["bytes_sent"] for x in st],
+                bytes_closed_form=[x["bytes_closed_form"] for x in st],
+                bytes_dense=[x["bytes_dense"] for x in st])
+            print(f"[multiproc] {name}: bytes sent a rank "
+                  f"{rates[name]['bytes_sent_ranks']} = the closed form "
+                  f"{rates[name]['bytes_closed_form']}, dense's all-gather "
+                  f"{rates[name]['bytes_dense']}")
         launches[name] = st[0]["launches"]
         print(f"[multiproc] {name}: {rates[name]['steps_per_s_ranks']} "
               f"steps/s a rank vs {one['steps_per_s']!r} in one process; "
-              f"{d['collectives']} all-gathers, {d['bytes_sent']} B sent a "
+              f"{d['collectives']} collectives, {d['bytes_sent']} B sent a "
               f"rank, {d['host_copies']} host copies "
               f"({rates[name]['host_copy_share']} of the wall time); idle "
               f"share {rates[name]['idle_share']}; launches a rank "
@@ -5614,8 +5656,35 @@ def run_multiproc(dev) -> dict:
     print(f"[multiproc] NCCL world 1, ssgd_fused_gather: "
           f"{n1['steps_per_s']!r} steps/s, {n1['dist']['collectives']} "
           f"all-gathers, {n1['dist']['host_copies']} host copies")
+    sp = {"ranks": [st["sync_ssp_straggler"]["steps_per_s"]
+                    / st["sync_bsp_straggler"]["steps_per_s"]
+                    for st in (info["stats"] for _, info in ranks)],
+          "one_process": s_info["stats"]["sync_ssp_straggler"][
+              "steps_per_s"] / s_info["stats"]["sync_bsp_straggler"][
+              "steps_per_s"]}
+    print(f"[multiproc] SSP straggler speedup (ssp:8 over BSP, bench.py's "
+          f"plan): {sp['ranks']} a rank of two, {sp['one_process']!r} in "
+          f"one process × 4 shards")
+    h1 = n_info["stats"]["sync_hier"]
+    print(f"[multiproc] NCCL world 1, sync_hier (4 shards in the "
+          f"process): {h1['steps_per_s']!r} steps/s against "
+          f"{s_info['stats']['sync_hier']['steps_per_s']!r} with no "
+          f"group, {h1['dist']['collectives']} collectives")
+    ck = [info["stats"]["sync_ckpt"] for _, info in ranks]
+    print(f"[multiproc] sync_ckpt: the pair's first half in "
+          f"{[x['seconds'] for x in ck]} s a rank, "
+          f"{[x['dist']['bytes_sent'] for x in ck]} B sent a rank (the "
+          f"syncs and the checkpoint's gathers); one process's resume, "
+          f"straight run and half in "
+          f"{s_info['stats']['sync_ckpt']['seconds']!r} s")
     return {"rates": rates, "launches": launches,
-            "nccl_steps_per_s": n1["steps_per_s"]}
+            "nccl_steps_per_s": n1["steps_per_s"], "ssp_speedup": sp}
+
+
+def _mp_half() -> int:
+    from tpu_distalg_torch.tools import multiproc_run
+
+    return multiproc_run.SYNC_CKPT_STEPS // 2
 
 
 def _mp_launches(mp: dict, key: str) -> dict:

@@ -41,10 +41,10 @@ The lines printed match the JAX package's ``tda lr``, ``tda ssgd``,
 ``tda pagerank``, ``tda kmeans``, ``tda closure`` and ``tda mc``. Runs on ``cuda`` unless ``--device
 cpu`` is given. ``--multihost`` joins a ``torch.distributed`` group
 (:func:`..parallel.mesh.multihost_initialize`) and every process prints
-the same result lines; what is not ported across processes yet
-(``als``, ``closure``, ``serve``, the out-of-core backends, ``--comm``
-schedules, ``--sync ssp`` and checkpoint directories) exits naming
-ROADMAP A9 instead of running on one process.
+the same result lines, ``--comm`` schedules, ``--sync ssp`` and a
+``--checkpoint-dir`` the processes share included; what is not ported
+across processes yet (``als``, ``closure``, ``serve``, the out-of-core
+backends) exits naming ROADMAP A9 instead of running on one process.
 """
 
 from __future__ import annotations
@@ -902,12 +902,6 @@ def _refuse_across_processes(args) -> None:
         what = ("the out-of-core data backends (--data-backend "
                 "streamed|virtual, --stream-cache, minibatch k-means) "
                 "across processes")
-    elif getattr(args, "comm", "dense") != "dense":
-        what = f"--comm {args.comm} across processes"
-    elif getattr(args, "sync", "bsp") != "bsp":
-        what = f"--sync {args.sync} across processes"
-    elif getattr(args, "checkpoint_dir", None):
-        what = "a checkpoint directory shared by processes"
     if what is not None:
         raise SystemExit(f"--multihost: {what} waits for ROADMAP A9 "
                          f"(it is not run on one process instead)")

@@ -328,7 +328,7 @@ def _fit_segmented(data, mask, mesh: Mesh, config: KMeansConfig, centers0,
         # fixed mode's shift = 0 would read as "converged" to a
         # converge-mode resume: the tag keeps the modes apart
         tag="kmeans_converge" if converge else "kmeans_fixed",
-        stop_when=stop_when)
+        stop_when=stop_when, mesh=mesh)
     centers = state[0]
     _, _, assign = _stats(data, mask, centers, mesh)
     return KMeansResult(centers=centers, assignments=assign,

@@ -476,7 +476,8 @@ def _segmented(config: LocalSGDConfig, make_fn, data, state0,
         checkpoint_dir, checkpoint_every, config.n_iterations,
         make_seg_fn=lambda seg: make_fn(
             dataclasses.replace(config, n_iterations=seg)),
-        run_seg=run_seg, state0=state0, tag=tag)
+        run_seg=run_seg, state0=state0, tag=tag, mesh=mesh,
+        sharded=(False, True, False, True))
     return state[0], state[1], torch.from_numpy(accs), start
 
 
@@ -560,13 +561,17 @@ def make_ssp_train_fn(mesh: Mesh, config: LocalSGDConfig, n_padded: int,
 
     Call as ``fn(X, y, valid, X_test, y_test, w0, ws0, delta0, clocks0,
     stale0, res0, extra_seg, win0)`` → ``(w, ws, delta, clocks, stale,
-    res, win_accs, ages_max, ages_mean, gated)``."""
+    res, win_accs, ages_max, ages_mean, gated)``. Across processes the
+    clocks, staleness and weights are whole (R,) vectors every process
+    computes alike; ``ws`` and the residual are this process's rows, and
+    it runs its own replicas' rounds and straggle work only."""
     from tpu_distalg_torch.parallel import ssp as pssp
 
     spec = pssp.SyncSpec.parse(config.sync)
     s = spec.staleness
     L = config.n_local_iterations
     R = mesh.n_data
+    mine = slice(mesh.local_data.start, mesh.local_data.stop)
     dev = mesh.device
     n_local = n_padded // R
     sync = _comm_sync(mesh, config, d)
@@ -593,7 +598,7 @@ def make_ssp_train_fn(mesh: Mesh, config: LocalSGDConfig, n_padded: int,
         accs, amax, amean, gated_w = [], [], [], []
         for i in range(n_win_seg):
             winid = win0 + i
-            wl = torch.where(adopt_d[i][:, None], w[None, :], ws)
+            wl = torch.where(adopt_d[i][mine, None], w[None, :], ws)
             max_c = torch.where(act, clocks, -big).max()
             clocks_adj = torch.where(adopt_d[i], max_c, clocks).to(
                 clocks.dtype)
@@ -601,13 +606,14 @@ def make_ssp_train_fn(mesh: Mesh, config: LocalSGDConfig, n_padded: int,
             my_clock = clocks_adj
             gated_ct = torch.zeros((R,), dtype=torch.int32, device=dev)
             for r in range(s):
-                if extra_seg[i, r].any():
-                    pssp.entangle(wl, pssp.straggle_work(extra_d[i, r]))
+                if extra_seg[i, r, mine].any():
+                    pssp.entangle(wl, pssp.straggle_work(
+                        extra_d[i, r, mine]))
                 gated = (my_clock - min_known) >= s
                 do = free_d[i, r] & ~gated
-                masks = round_masks(config, int(rounds[i, r]), valid)
+                masks = round_masks(config, int(rounds[i, r]), valid, mesh)
                 new = []
-                for j in range(R):
+                for j in range(wl.shape[0]):
                     rows = slice(j * n_local, (j + 1) * n_local)
                     w_j = wl[j]
                     for li in range(L):
@@ -615,7 +621,7 @@ def make_ssp_train_fn(mesh: Mesh, config: LocalSGDConfig, n_padded: int,
                                                    masks[li, rows])
                         w_j = _local_step(config, w_j, w, g, cnt)
                     new.append(w_j)
-                wl = torch.where(do[:, None], torch.stack(new), wl)
+                wl = torch.where(do[mine, None], torch.stack(new), wl)
                 my_clock = my_clock + do.to(my_clock.dtype)
                 gated_ct = gated_ct + (counted_d[i, r] & gated).to(
                     torch.int32)
@@ -624,9 +630,9 @@ def make_ssp_train_fn(mesh: Mesh, config: LocalSGDConfig, n_padded: int,
             stale = torch.where(fresh, torch.zeros_like(stale), stale + 1)
             wts = pssp.staleness_weights(stale, act, act, spec.decay)
             wsum = wts.sum()
-            contrib = wts[:, None] * wl
-            (summed,), res = sync.reduce([(contrib[j],) for j in range(R)],
-                                         res, winid)
+            contrib = wts[mine, None] * wl
+            (summed,), res = sync.reduce(
+                [(contrib[j],) for j in range(contrib.shape[0])], res, winid)
             w_avg = summed / torch.clamp_min(wsum, 1e-12)
             ages_obs = torch.where(act, stale, torch.zeros_like(stale))
             n_act = act.to(torch.float32).sum()
@@ -662,7 +668,6 @@ def _train_ssp(X_train, y_train, X_test, y_test, mesh: Mesh,
     from tpu_distalg_torch.parallel import comms, membership
     from tpu_distalg_torch.parallel import ssp as pssp
 
-    mesh.require_one_process("--sync ssp")
     spec = pssp.SyncSpec.parse(config.sync)
     s = spec.staleness
     T = config.n_iterations
@@ -721,7 +726,8 @@ def _train_ssp(X_train, y_train, X_test, y_test, mesh: Mesh,
                  extra[win0:win0 + n_win_seg], win0)
         return out[:6], out[6:]
 
-    state0 = (w0, ws0, delta0, np.zeros((R,), np.int32),
+    # whole host arrays, which run_seg places (this process's replicas)
+    state0 = (w0, ws0.cpu().numpy(), delta0, np.zeros((R,), np.int32),
               np.zeros((R,), np.int32), np.asarray(sync.init_state()))
     state, outs, start, epochs = membership.run_elastic(
         checkpoint_dir, max(1, checkpoint_every // s), n_win, R,
@@ -729,7 +735,9 @@ def _train_ssp(X_train, y_train, X_test, y_test, mesh: Mesh,
         renegotiate=renegotiate, on_epoch=on_epoch,
         tag=(f"local_sgd:{spec.spec()}:{config.global_update}"
              f":comm={config.comm}"),
-        ticks_per_window=s)
+        ticks_per_window=s, mesh=mesh,
+        # the replicas and the residual are this process's rows
+        sharded=(False, True, False, False, False, True))
     w = torch.as_tensor(state[0]).to(dev)
     ws = torch.as_tensor(state[1]).to(dev)
     metrics.guard_finite((w, ws), "local-SGD (ssp) models")

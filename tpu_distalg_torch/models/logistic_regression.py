@@ -145,7 +145,7 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
         checkpoint_dir, checkpoint_every, config.n_iterations,
         make_seg_fn=lambda seg: make_train_fn(
             mesh, dataclasses.replace(config, n_iterations=seg)),
-        run_seg=run_seg, state0=(w0,), tag="lr")
+        run_seg=run_seg, state0=(w0,), tag="lr", mesh=mesh)
     return TrainResult(w=w, accs=torch.from_numpy(accs))
 
 
@@ -175,7 +175,8 @@ def _train_comm(mesh: Mesh, config: LRConfig, data, w0, d: int,
         checkpoint_dir, checkpoint_every, config.n_iterations,
         make_seg_fn=lambda seg: make_train_fn(
             mesh, dataclasses.replace(config, n_iterations=seg), d=d),
-        run_seg=run_seg, state0=(w0, res0), tag=f"lr:comm={config.comm}")
+        run_seg=run_seg, state0=(w0, res0), tag=f"lr:comm={config.comm}",
+        mesh=mesh, sharded=(False, True))
     # only the syncs this process ran (a resume skips the rest)
     comms.emit_sync_counters(sync, config.n_iterations - start)
     return TrainResult(w=w, accs=torch.from_numpy(accs))

@@ -282,5 +282,5 @@ def _run_segmented(de: DeviceEdges, mesh: Mesh, config: PageRankConfig,
 
     (ranks, has_rank), _, _ = ckpt.run_segmented(
         checkpoint_dir, checkpoint_every, config.n_iterations, make_seg_fn,
-        run_seg, state0, tag=f"pagerank_{config.mode}")
+        run_seg, state0, tag=f"pagerank_{config.mode}", mesh=mesh)
     return PageRankResult(ranks=ranks, has_rank=has_rank)

@@ -871,7 +871,8 @@ def _train_steps(mesh: Mesh, config: SSGDConfig, d: int, data_args, w0, *,
             state0=(w0, torch.zeros((), dtype=torch.float32,
                                     device=mesh.device), *res0),
             tag=f"ssgd:{config.sampler}" + (
-                "" if sync is None else f":comm={config.comm}"))
+                "" if sync is None else f":comm={config.comm}"),
+            mesh=mesh, sharded=(False, False, True))
         accs = torch.from_numpy(accs)
     if sync is not None:
         # only the syncs this process ran (a resume skips the rest)
@@ -1000,6 +1001,22 @@ def _train_fused(X_train, y_train, X_test, y_test, mesh: Mesh,
         crop=d_orig, what="SSGD (fused) weights", fn=fn)
 
 
+def train_prepared(mesh: Mesh, config: SSGDConfig, X2, w0, meta: dict,
+                   X_te, y_te, *, checkpoint_dir: str | None = None,
+                   checkpoint_every: int = 500) -> TrainResult:
+    """The packed samplers on :func:`prepare_fused`'s (or
+    :func:`prepare_fused_synthetic`'s) X2 and w0 → a :class:`TrainResult`
+    with w in the augmented layout; with ``checkpoint_dir``, in segments
+    that resume bitwise, across processes too (the residual of a
+    ``comm`` schedule gathered into the file)."""
+    return _train_steps(
+        mesh, config, meta["d_total"], (X2, None, None, X_te, y_te), w0,
+        make_fn=lambda seg: make_train_fn_fused(
+            mesh, dataclasses.replace(config, n_iterations=seg), meta),
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        crop=meta["d_total"], what="SSGD (fused) weights")
+
+
 def prepare_fused_tp(X_train, y_train, mesh: Mesh, config: SSGDConfig):
     """The dp×tp set-up of ``fused_gather`` (``ssgd.py:1210-1258``): the
     features, padded with zero columns to a multiple of ``mesh.n_model``,
@@ -1089,7 +1106,7 @@ def train_prepared_tp(mesh: Mesh, config: SSGDConfig, X2, w0, meta: dict,
         run_seg=_acc_carrying_run_seg(X2, None, None, X_te, y_te),
         state0=(w0, torch.zeros((), dtype=torch.float32,
                                 device=mesh.device)),
-        tag=f"ssgd:{config.sampler}:tp")
+        tag=f"ssgd:{config.sampler}:tp", mesh=mesh)
     return w, torch.from_numpy(accs)
 
 
@@ -1113,23 +1130,30 @@ def _ssp_tick_grads(mesh: Mesh, config: SSGDConfig, n_padded: int,
                     meta: dict | None):
     """The per-tick payloads and gradients of the SSP window
     (``ssgd.py:419-484``): ``payloads(ts)`` draws the ticks ``ts`` of a
-    segment at once, ``grads(X, y, wl, payload_t)`` gives every shard's
-    (Σ grad, count) at its own local model → ((S, D), (S,)). Draws are
-    made a window at a time (``ts`` the window's ticks)."""
+    segment at once, ``grads(X, y, wl, payload_t)`` gives the (Σ grad,
+    count) of every shard this process holds at its own local model →
+    ((L, D), (L,)). Draws are made a window at a time (``ts`` the
+    window's ticks), over every shard, and this process keeps its
+    own."""
     S = mesh.n_data
+    L, lo = mesh.n_local, mesh.local_data.start
     key = prng.root_key(config.seed, mesh.device)
     if meta is None:
         n_local = n_padded // S
+        frac = sampling.fraction_tensor(config.mini_batch_fraction,
+                                        mesh.device)
 
         def payloads(ts, valid):
-            return sampling.bernoulli_mask(key, ts, n_padded,
-                                           config.mini_batch_fraction, valid)
+            u = prng.uniform(prng.step_key(key, ts), (n_padded,))
+            return sampling.bernoulli_mask_from_uniform(
+                partition.local_block(u, (None, DATA_AXIS), mesh), frac,
+                valid)
 
         def grads(X, y, wl, mask):
             per = [logistic.grad_sum(X[s * n_local:(s + 1) * n_local],
                                      y[s * n_local:(s + 1) * n_local], wl[s],
                                      mask[s * n_local:(s + 1) * n_local])
-                   for s in range(S)]
+                   for s in range(L)]
             return (torch.stack([g for g, _ in per]),
                     torch.stack([c for _, c in per]))
 
@@ -1147,7 +1171,7 @@ def _ssp_tick_grads(mesh: Mesh, config: SSGDConfig, n_padded: int,
         def grads(X2, y, wl, ids):
             per = [ssgd_kernels.fused_grad_sum_gathered(X2, wl[s], ids[s],
                                                         **kargs)
-                   for s in range(S)]
+                   for s in range(L)]
             return (torch.stack([g for g, _ in per]) * col_keep,
                     torch.stack([c for _, c in per]))
 
@@ -1164,9 +1188,9 @@ def _ssp_tick_grads(mesh: Mesh, config: SSGDConfig, n_padded: int,
 
     def grads(X2, y, wl, t):
         per = [ssgd_kernels.fused_grad_sum_packed(
-                   X2[s * n2_local:(s + 1) * n2_local], wl[s],
-                   t + config.seed, s, **kargs)
-               for s in range(S)]
+                   X2[j * n2_local:(j + 1) * n2_local], wl[j],
+                   t + config.seed, lo + j, **kargs)
+               for j in range(L)]
         return (torch.stack([g for g, _ in per]) * col_keep,
                 torch.stack([c for _, c in per]))
 
@@ -1195,12 +1219,20 @@ def make_ssp_train_fn(mesh: Mesh, config: SSGDConfig, n_padded: int, d: int,
     tick's gradient runs kernel B1 (``fused_gather``) or B5 (``fused``)
     once a shard. The host reads nothing back inside the loop: the
     schedule's masks and the straggle launches come from host data, the
-    clocks and gates stay on the device."""
+    clocks and gates stay on the device.
+
+    Across processes the clocks, pending flags, base generations, gates
+    and merge weights are whole (S,) vectors that every process computes
+    alike (they follow from the host schedule alone, as the rule tables
+    replicate them); the local models, the accumulated deltas and the
+    residual are this process's rows, and a process runs its own
+    shards' ticks and straggle work only."""
     from tpu_distalg_torch.parallel import ssp as pssp
 
     spec = pssp.SyncSpec.parse(config.sync)
     s = spec.staleness
     S = mesh.n_data
+    mine = slice(mesh.local_data.start, mesh.local_data.stop)
     dev = mesh.device
     sync = _ssp_comm_sync(mesh, config, d)
     payloads, grads = _ssp_tick_grads(mesh, config, n_padded, meta)
@@ -1232,16 +1264,17 @@ def make_ssp_train_fn(mesh: Mesh, config: SSGDConfig, n_padded: int, d: int,
             max_c = torch.where(act, clocks, -big).max()
             clocks_adj = torch.where(adopt, max_c, clocks).to(clocks.dtype)
             min_known = torch.where(act, clocks_adj, big).min()
-            fresh = (act & ~pend)[:, None]
+            fresh = (act & ~pend)[mine, None]
             wl = torch.where(fresh, w[None, :], wl)
             accd = torch.where(fresh, torch.zeros_like(accd), accd)
             my_clock = clocks_adj
             gated_ct = torch.zeros((S,), dtype=torch.int32, device=dev)
             pay = payloads(ticks_d[i], valid)
             for k in range(s):
-                if extra_seg[i, k].any():
+                if extra_seg[i, k, mine].any():
                     # the straggler's work: its value never enters the state
-                    pssp.entangle(wl, pssp.straggle_work(extra_d[i, k]))
+                    pssp.entangle(wl, pssp.straggle_work(
+                        extra_d[i, k, mine]))
                 gated = (my_clock - min_known) >= s
                 do = free_d[i, k] & ~gated
                 g, cnt = grads(X, y, wl, pay[k])
@@ -1249,7 +1282,7 @@ def make_ssp_train_fn(mesh: Mesh, config: SSGDConfig, n_padded: int, d: int,
                                             config.elastic_alpha)
                 upd = config.eta * (g / torch.clamp_min(cnt, 1.0)[:, None]
                                     + config.lam * reg)
-                dof = do.to(torch.float32)[:, None]
+                dof = do[mine].to(torch.float32)[:, None]
                 wl = wl - dof * upd
                 accd = accd - dof * upd
                 my_clock = my_clock + do.to(my_clock.dtype)
@@ -1262,9 +1295,9 @@ def make_ssp_train_fn(mesh: Mesh, config: SSGDConfig, n_padded: int, d: int,
             ages = torch.clamp_min(winid - basegen, 0)
             wts = pssp.staleness_weights(ages, act, deliver, spec.decay)
             wsum = wts.sum()
-            contrib = wts[:, None] * accd
+            contrib = wts[mine, None] * accd
             (summed,), res_new = sync.reduce(
-                [(contrib[j],) for j in range(S)], res, winid)
+                [(contrib[j],) for j in range(contrib.shape[0])], res, winid)
             # a merge nobody delivered to changes nothing, the residual
             # a stateful schedule flushed into it included
             delivered_any = wsum > 0
@@ -1281,7 +1314,7 @@ def make_ssp_train_fn(mesh: Mesh, config: SSGDConfig, n_padded: int, d: int,
                          / torch.clamp_min(n_del, 1.0))
             gated_w.append(gated_ct.sum())
             pend = pend2 & ~deliver
-            accd = torch.where(deliver[:, None], torch.zeros_like(accd),
+            accd = torch.where(deliver[mine, None], torch.zeros_like(accd),
                                accd)
             clocks = clocks_new
             accs.append(metrics.binary_accuracy(X_test @ w, y_test)
@@ -1327,27 +1360,29 @@ def make_bsp_straggler_fn(mesh: Mesh, config: SSGDConfig, n_padded: int,
     work (``extra`` (n_ticks, S), from
     :func:`..parallel.ssp.compile_straggle_schedule`) run before the
     step's sum, so the step waits for it. Returns ``fn(X, y, valid,
-    X_test, y_test, w0)`` → ``(w, accs)``."""
+    X_test, y_test, w0)`` → ``(w, accs)``. Across processes a process
+    runs its own shards' straggle work and gradients."""
     from tpu_distalg_torch.parallel import ssp as pssp
 
-    extra = np.asarray(extra, np.int32)
+    mine = slice(mesh.local_data.start, mesh.local_data.stop)
+    extra = np.asarray(extra, np.int32)[:, mine]
     extra_d = torch.as_tensor(extra, device=mesh.device)
-    S = mesh.n_data
-    n_local = n_padded // S
+    n_local = n_padded // mesh.n_data
     key = prng.root_key(config.seed, mesh.device)
     frac = sampling.fraction_tensor(config.mini_batch_fraction, mesh.device)
 
     def sample_and_grad(X, y, valid, w, payload):
         t, u = payload
-        mask = sampling.bernoulli_mask_from_uniform(u, frac, valid)
+        mask = sampling.bernoulli_mask_from_uniform(
+            partition.local_block(u, (DATA_AXIS,), mesh), frac, valid)
         dummy = (pssp.straggle_work(extra_d[t]) if extra[t].any()
                  else None)
         per = [(pssp.entangle(g, dummy), cnt) for g, cnt in (
             logistic.grad_sum(X[s * n_local:(s + 1) * n_local],
                               y[s * n_local:(s + 1) * n_local], w,
                               mask[s * n_local:(s + 1) * n_local])
-            for s in range(S))]
-        return tree_allreduce_sum(per)
+            for s in range(mesh.n_local))]
+        return tree_allreduce_sum(per, mesh)
 
     return _build_scan(config, sample_and_grad,
                        prep_xs=_bernoulli_draws(key, n_padded))
@@ -1422,7 +1457,6 @@ def train_prepared_ssp(mesh: Mesh, config: SSGDConfig, data, X_te, y_te,
     from tpu_distalg_torch.parallel import comms, membership
     from tpu_distalg_torch.parallel import ssp as pssp
 
-    mesh.require_one_process("--sync ssp")
     spec = pssp.SyncSpec.parse(config.sync)
     s = spec.staleness
     T = config.n_iterations
@@ -1466,7 +1500,9 @@ def train_prepared_ssp(mesh: Mesh, config: SSGDConfig, data, X_te, y_te,
         checkpoint_dir, max(1, checkpoint_every // s), n_win, S,
         make_seg_fn=make_seg_fn, run_seg=run_seg,
         state0=fresh_state(w0, np.zeros(S, np.int32), 0),
-        renegotiate=renegotiate, tag=tag, ticks_per_window=s)
+        renegotiate=renegotiate, tag=tag, ticks_per_window=s, mesh=mesh,
+        # wl, accd and the residual are this process's rows
+        sharded=(False,) * 4 + (True,) * 3)
     w = torch.as_tensor(state[0]).to(mesh.device)
     metrics.guard_finite(w, "SSGD (ssp) weights")
     accs = (window_accs_to_ticks(outs[0], s, T) if outs

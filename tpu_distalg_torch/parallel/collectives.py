@@ -22,10 +22,22 @@ counted, not through gloo's partial CUDA support; under ``nccl`` the
 buffer stays on the card. :data:`COUNTERS` holds the collectives, the
 bytes this process sent (``(P−1)·B`` for a buffer of B bytes) and the
 host copies with their seconds.
+
+The compressed schedules of :mod:`.comms` move less than the partials:
+they run on :func:`permute`, one hop of a permutation of the global
+shards (the JAX package's ``ppermute``), on :func:`ring_gather`
+(``n−1`` hops of the ring s → s+1 mod n) and on :func:`all_to_all`. In
+a hop, a buffer whose source and destination shard share a process
+stays on the device; the buffers one process sends another travel as
+one point-to-point message (``isend``/``irecv``, all posted before any
+is waited on, each wait bounded by ``mesh.DEFAULT_TIMEOUT_S``). So on
+the ring only the hop from a process's last shard to the next process's
+first shard crosses. Every message is counted in :data:`COUNTERS`.
 """
 
 from __future__ import annotations
 
+import datetime
 import time
 
 import torch
@@ -33,10 +45,6 @@ import torch
 #: this process's collectives since :func:`reset_counters`
 COUNTERS = {"collectives": 0, "bytes_sent": 0, "host_copies": 0,
             "host_copy_seconds": 0.0}
-
-#: bytes each leaf is padded to in the flat buffer, so every leaf's
-#: view of the gathered bytes is aligned for its dtype
-_ALIGN = 16
 
 
 def reset_counters() -> None:
@@ -82,27 +90,13 @@ def gather_shards(per_shard, mesh=None) -> list[tuple]:
     if len(per) != mesh.n_local:
         raise ValueError(f"this process holds {mesh.n_local} shards, got "
                          f"{len(per)} partials")
-    parts, layout = [], []
-    for leaves in per:
-        for x in leaves:
-            b = _bytes(x)
-            pad = (-b.numel()) % _ALIGN
-            parts.append(b)
-            if pad:
-                parts.append(b.new_zeros(pad))
-            layout.append((tuple(x.shape), x.dtype, b.numel(),
-                           b.numel() + pad))
-    bufs = _exchange(torch.cat(parts), mesh.process_count)
+    buf, layout = _pack([x for leaves in per for x in leaves])
     n_leaves = len(per[0])
     out = []
-    for buf in bufs:
-        off, leaves = 0, []
-        for shape, dtype, nb, stride in layout:
-            leaves.append(buf[off:off + nb].view(dtype).reshape(shape))
-            off += stride
-            if len(leaves) == n_leaves:
-                out.append(tuple(leaves))
-                leaves = []
+    for b in _exchange(buf, mesh.process_count):
+        flat = _unpack(b, layout)
+        out += [tuple(flat[i:i + n_leaves])
+                for i in range(0, len(flat), n_leaves)]
     return out
 
 
@@ -131,6 +125,9 @@ def allgather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     process group)."""
     if not mesh.distributed:
         return x
+    if x.numel() == 0:
+        return x.new_empty((x.shape[0] * mesh.process_count,)
+                           + tuple(x.shape[1:]))
     bufs = _exchange(_bytes(x), mesh.process_count)
     return torch.cat([b.view(x.dtype).reshape(x.shape) for b in bufs])
 
@@ -140,3 +137,220 @@ def model_sum(per_slice):
     model order 0, 1, …"""
     (total,) = tree_allreduce_sum((t,) for t in per_slice)
     return total
+
+
+# --------------------------------------------- point-to-point hops
+
+
+def _pack(leaves) -> tuple[torch.Tensor, list]:
+    """``leaves`` as one flat uint8 buffer, each leaf after the first
+    starting at a multiple of the widest leaf's item size (so its view
+    of the bytes is aligned), and the layout to cut it back
+    (:func:`packed_nbytes` counts its bytes)."""
+    align = max(x.element_size() for x in leaves)
+    parts, layout = [], []
+    for i, x in enumerate(leaves):
+        b = _bytes(x)
+        parts.append(b)
+        pad = (-b.numel()) % align if i + 1 < len(leaves) else 0
+        if pad:
+            parts.append(b.new_zeros(pad))
+        layout.append((tuple(x.shape), x.dtype, b.numel(), b.numel() + pad))
+    return (parts[0] if len(parts) == 1 else torch.cat(parts)), layout
+
+
+def packed_nbytes(leaves) -> int:
+    """The bytes :func:`_pack` makes of leaves of (bytes, item size)."""
+    align = max(isz for _, isz in leaves)
+    return sum(nb + ((-nb) % align if i + 1 < len(leaves) else 0)
+               for i, (nb, _) in enumerate(leaves))
+
+
+def _unpack(buf: torch.Tensor, layout: list) -> list[torch.Tensor]:
+    out, off = [], 0
+    for shape, dtype, nb, stride in layout:
+        out.append(buf[off:off + nb].view(dtype).reshape(shape))
+        off += stride
+    return out
+
+
+def _send_recv(sends: dict, recvs: dict, device) -> dict:
+    """Point-to-point: ``sends[q]`` a flat uint8 buffer for process q,
+    ``recvs[q]`` the bytes expected from process q → ``{q: uint8
+    buffer on device}``. Every send and receive is posted before any is
+    waited on, so no order of the processes deadlocks; each wait fails
+    after ``mesh.DEFAULT_TIMEOUT_S``. Under gloo a card's buffers go
+    through counted host copies; under NCCL they stay on the card."""
+    import torch.distributed as dist
+
+    from tpu_distalg_torch.parallel.mesh import DEFAULT_TIMEOUT_S
+
+    if not sends and not recvs:
+        return {}
+    staged = device.type != "cpu" and dist.get_backend() != "nccl"
+    where = torch.device("cpu") if staged else device
+    COUNTERS["collectives"] += 1
+    works, keep = [], []
+    for q in sorted(sends):
+        buf = sends[q]
+        if staged:
+            t0 = time.perf_counter()
+            buf = buf.cpu()
+            COUNTERS["host_copy_seconds"] += time.perf_counter() - t0
+            COUNTERS["host_copies"] += 1
+        COUNTERS["bytes_sent"] += buf.numel()
+        keep.append(buf)
+        works.append(dist.isend(buf, q))
+    got = {}
+    for q in sorted(recvs):
+        got[q] = torch.empty((recvs[q],), dtype=torch.uint8, device=where)
+        works.append(dist.irecv(got[q], q))
+    wait = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+    for w in works:
+        w.wait(wait)
+    del keep
+    if staged:
+        for q in got:
+            t0 = time.perf_counter()
+            got[q] = got[q].to(device)
+            COUNTERS["host_copy_seconds"] += time.perf_counter() - t0
+            COUNTERS["host_copies"] += 1
+    return got
+
+
+#: the routing of a permutation by (n_data, process layout, perm,
+#: device), its row indices on the device
+_PLANS: dict = {}
+
+
+def _plan(mesh, perm: tuple, dev) -> tuple:
+    """``(local_src, local_dst, sends, recvs)`` of one hop: the local
+    rows that stay in this process and where they land, the rows sent
+    to each other process (ascending source shard) and the rows each
+    other process's message fills (the same order), as index tensors on
+    ``dev`` (``local_src`` None when no row stays)."""
+    key = (mesh.n_data, mesh.process_count, mesh.process_index, perm,
+           str(dev))
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    n, L, base = mesh.n_data, mesh.n_local, mesh.local_data.start
+    if sorted(perm) != list(range(n)):
+        raise ValueError(f"not a permutation of {n} shards: {perm}")
+    me = mesh.process_index
+    local_src, local_dst, sends, recvs = [], [], {}, {}
+    for s, d in enumerate(perm):
+        src_here, dst_here = s // L == me, d // L == me
+        if src_here and dst_here:
+            local_src.append(s - base)
+            local_dst.append(d - base)
+        elif src_here:
+            sends.setdefault(d // L, []).append(s - base)
+        elif dst_here:
+            recvs.setdefault(s // L, []).append(d - base)
+
+    def idx(rows):
+        return torch.as_tensor(rows, dtype=torch.int64, device=dev)
+
+    plan = _PLANS[key] = (
+        idx(local_src) if local_src else None, idx(local_dst),
+        {q: idx(r) for q, r in sends.items()},
+        {q: idx(r) for q, r in recvs.items()})
+    return plan
+
+
+def permute(bufs, mesh, perm) -> tuple:
+    """One hop: ``bufs`` a tuple of (L, …) stacks, row i global shard
+    ``local_data[i]``'s buffer; global shard s's buffers go to shard
+    ``perm[s]`` → the tuple of stacks each shard of this process
+    received. Across processes the rows one process sends another
+    travel as one message (:func:`_send_recv`); the rest is a copy on
+    the device."""
+    bufs = tuple(bufs)
+    perm = tuple(int(d) for d in perm)
+    if not mesh.distributed:
+        inv = [0] * len(perm)
+        for s, d in enumerate(perm):
+            inv[d] = s
+        idx = torch.as_tensor(inv, device=bufs[0].device)
+        return tuple(b.index_select(0, idx) for b in bufs)
+    dev = bufs[0].device
+    local_src, local_dst, sends, recvs = _plan(mesh, perm, dev)
+    out = [torch.empty_like(b) for b in bufs]
+    if local_src is not None:
+        for o, b in zip(out, bufs):
+            o.index_copy_(0, local_dst, b.index_select(0, local_src))
+    packed, layouts = {}, {}
+    for q, rows in sends.items():
+        packed[q], _ = _pack([b.index_select(0, rows) for b in bufs])
+    for q, rows in recvs.items():
+        _, layouts[q] = _pack([b[:rows.numel()] for b in bufs])
+    got = _send_recv(packed, {q: sum(s for *_, s in lay)
+                              for q, lay in layouts.items()}, dev)
+    for q, rows in recvs.items():
+        for o, x in zip(out, _unpack(got[q], layouts[q])):
+            o.index_copy_(0, rows, x)
+    return tuple(out)
+
+
+def ring_perm(n: int) -> tuple:
+    """The ring s → (s + 1) mod n."""
+    return tuple((s + 1) % n for s in range(n))
+
+
+def shard_ids(mesh, device) -> torch.Tensor:
+    """This process's global data shard ids (every shard without a
+    process group), as a tensor."""
+    ids = mesh.local_data if mesh.distributed else range(mesh.n_data)
+    return torch.as_tensor(list(ids), dtype=torch.int64, device=device)
+
+
+def ring_gather(bufs, mesh) -> tuple:
+    """The JAX package's origin-placed ring all-gather
+    (``comms.py:239-290``) across processes: ``bufs`` a tuple of (L, …)
+    stacks of this process's shards → the tuple of (n, …) stacks, row j
+    global shard j's buffer, equal on every shard. ``n−1`` hops of the
+    ring; each hop sends one buffer over each process boundary."""
+    bufs = tuple(bufs)
+    n = mesh.n_data
+    ids = shard_ids(mesh, bufs[0].device)
+    outs = [b.new_zeros((n,) + tuple(b.shape[1:])) for b in bufs]
+    for o, b in zip(outs, bufs):
+        o[ids] = b
+    cur = bufs
+    for s in range(n - 1):
+        cur = permute(cur, mesh, ring_perm(n))
+        src = (ids - s - 1) % n
+        for o, c in zip(outs, cur):
+            o[src] = c
+    return tuple(outs)
+
+
+def all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` (L, n, …): row i's piece j goes from this process's shard
+    ``local_data[i]`` to global shard j → (n, L, …): piece [j, i] came
+    from global shard j to local shard i. Across processes each pair of
+    processes trades one message of L·L pieces."""
+    if not mesh.distributed:
+        return x
+    n, L = mesh.n_data, x.shape[0]
+    base, P, me = mesh.local_data.start, mesh.process_count, \
+        mesh.process_index
+    out = x.new_empty((n, L) + tuple(x.shape[2:]))
+    out[base:base + L] = x[:, base:base + L]
+    sends = {q: _bytes(x[:, q * L:(q + 1) * L])
+             for q in range(P) if q != me}
+    got = _send_recv(sends, {q: sends[q].numel() for q in sends}, x.device)
+    for q, buf in got.items():
+        out[q * L:(q + 1) * L] = buf.view(x.dtype).reshape(
+            (L, L) + tuple(x.shape[2:]))
+    return out
+
+
+def allreduce_max(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The elementwise max of ``x`` over the processes (``lax.pmax``):
+    one small all-gather; the max is exact in any order."""
+    if not mesh.distributed:
+        return x
+    return allgather_rows(x.reshape(1, -1).contiguous(), mesh).amax(
+        dim=0).reshape(x.shape)

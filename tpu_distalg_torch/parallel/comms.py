@@ -25,25 +25,42 @@ Schedules (every one deterministic and bitwise replayable):
                 combined by :func:`sparse_allreduce`; the rest carried
                 as the error-feedback residual.
 
-A shard's buffers are rows of a shard-major stack on one device, as in
-:func:`ring_allgather`. A collective is the same arithmetic in the same
-order over that stack: the ring's block b, for one, is reduced as
-x₍b₊ₙ₋₁₎ + (… + (x₍b₊₁₎ + x_b)), the order in which it travels round
-the JAX package's ring, and each ring step is one op over the whole
-stack. Nothing crosses a link on one card: ``bytes_wire`` in
-:meth:`CommSync.stats` is the ring model's count of what each shard
-would send (``2·B·(n−1)/n`` for an all-reduce of B bytes at the wire
-precision), not bytes that moved. The JAX package's double-buffered
-bucket pipeline overlaps a bucket's exchange with the previous bucket's
-unpacking; on one stream there is nothing to overlap, so ``@seq`` and
-the pipeline issue the same ops (:func:`_pipelined_buckets`) and agree
-bitwise by construction.
+In one process a shard's buffers are rows of a shard-major stack on one
+device, as in :func:`ring_allgather`. A collective is the same
+arithmetic in the same order over that stack: the ring's block b, for
+one, is reduced as x₍b₊ₙ₋₁₎ + (… + (x₍b₊₁₎ + x_b)), the order in which it
+travels round the JAX package's ring, and each ring step is one op over
+the whole stack. The JAX package's double-buffered bucket pipeline
+overlaps a bucket's exchange with the previous bucket's unpacking; on
+one stream there is nothing to overlap, so ``@seq`` and the pipeline
+issue the same ops (:func:`_pipelined_buckets`) and agree bitwise by
+construction.
+
+Across processes (a mesh whose group has P > 1 processes) each process
+holds its L of the n = P·L shards, and the schedules run step by step as the JAX
+package's do, on the hops of :mod:`.collectives`: the ring's
+reduce-scatter and all-gather (:func:`_ring_allreduce_across`),
+``hier``'s rings inside and across the groups
+(:func:`_hier_allreduce_across`), int8's ``all_to_all`` and ring
+gather, and the origin-placed ring gather of topk's pairs. A hop
+between two shards of one process stays on the device, so only what
+crosses a process boundary is sent. Every add keeps the order of the
+one-process code, so P processes × L shards equal one process × P·L
+bit for bit. ``bf16`` gathers every shard's bf16 values (half of
+``dense``'s bytes) and adds them in shard order, as XLA's bf16 psum
+does. No schedule sends every shard's float32 partials.
+
+Two byte counts are kept apart. ``bytes_wire`` in :meth:`CommSync.stats`
+is the JAX package's closed form (``comms.py:792-850``), the ring
+model's count of what each shard sends (``2·B·(n−1)/n`` for an
+all-reduce of B bytes at the wire precision), so the telemetry equals
+JAX's. :meth:`CommSync.bytes_process` is the port's own closed form of
+what this process sends a sync (:func:`process_bytes`), which
+``collectives.COUNTERS["bytes_sent"]`` counts as it is sent: nothing in
+one process.
 
 Compression applies to float leaves with more than one element; scalars
-and integer leaves (counts) always go dense. The schedules other than
-``dense`` run in one process; across processes they wait for ROADMAP A9
-(``hier``'s groups would be the processes, as the JAX package infers
-them) and refuse.
+and integer leaves (counts) always go dense.
 """
 
 from __future__ import annotations
@@ -54,6 +71,7 @@ import math
 import numpy as np
 import torch
 
+from tpu_distalg_torch.parallel import collectives
 from tpu_distalg_torch.parallel.collectives import tree_allreduce_sum
 from tpu_distalg_torch.parallel.mesh import DATA_AXIS
 from tpu_distalg_torch.utils import prng
@@ -142,10 +160,16 @@ def _axis_size(mesh, axis_name: str) -> int:
 
 
 def infer_groups(mesh, axis_name: str = DATA_AXIS) -> int:
-    """Groups for ``hier``. The emulated mesh has no slices or host
-    processes to read (JAX ``comms.py:218``), so the JAX package's flat
-    rule applies: 2 when the axis is even and larger than 2, else 1."""
+    """Groups for ``hier`` off the process layout (JAX ``comms.py:218``):
+    the data axis's processes when there are more than one and fewer
+    than its shards and they divide it (the mesh has no slices to
+    read); else the JAX package's flat rule, 2 when the axis is even
+    and larger than 2, else 1."""
     n = _axis_size(mesh, axis_name)
+    g = int(getattr(mesh, "process_count", 1)) if axis_name == DATA_AXIS \
+        else 1
+    if 1 < g < n and n % g == 0:
+        return g
     return 2 if n % 2 == 0 and n > 2 else 1
 
 
@@ -205,6 +229,75 @@ def _ring_allreduce(v: torch.Tensor) -> torch.Tensor:
         return v[0]
     blocks = v.unflatten(-1, (n, -1)).movedim(-2, 1)   # (n, n_b, …, chunk)
     return _ring_fold(blocks).movedim(0, -2).flatten(-2)
+
+
+def _ring_allreduce_across(v: torch.Tensor, mesh) -> torch.Tensor:
+    """JAX ``comms.py:293`` across processes, step by step: ``v`` (L, …,
+    n·chunk), row i this process's shard ``local_data[i]`` → the (…,
+    n·chunk) all-reduce every shard holds. Reduce-scatter: at step s
+    shard i sends its partial of block (i − s) mod n to shard i + 1,
+    which adds it to its own block; then the all-gather rotates the
+    finished blocks. Block b is added in :func:`_ring_fold`'s order."""
+    n = mesh.n_data
+    ids = collectives.shard_ids(mesh, v.device)
+    ar = torch.arange(v.shape[0], device=v.device)
+    perm = collectives.ring_perm(n)
+    blocks = v.unflatten(-1, (n, -1)).movedim(-2, 1).clone()
+    for s in range(n - 1):
+        (buf,) = collectives.permute((blocks[ar, (ids - s) % n],), mesh,
+                                     perm)
+        recv = (ids - s - 1) % n
+        blocks[ar, recv] = blocks[ar, recv] + buf
+    own_id = (ids + 1) % n
+    buf = blocks[ar, own_id]
+    out = blocks.new_zeros(blocks.shape[1:])
+    out[own_id] = buf
+    for s in range(n - 1):
+        (buf,) = collectives.permute((buf,), mesh, perm)
+        out[(ids - s) % n] = buf
+    return out.movedim(0, -2).flatten(-2)
+
+
+def _hier_allreduce_across(v: torch.Tensor, g: int, mesh) -> torch.Tensor:
+    """JAX ``comms.py:344`` across processes: ``v`` (L, …, m·chunk) over
+    g groups of m = n/g shards. The ring inside each group, the owned
+    chunks gathered round the ring of the groups and added in group
+    order from zero (an add-and-forward ring would add in each group's
+    own order and part the replicas at g ≥ 3), then the gather inside
+    the groups. With the groups the processes, only the owned chunks
+    cross."""
+    n = mesh.n_data
+    m = n // g
+    if m == 1 or g == 1:
+        return _ring_allreduce_across(v, mesh)
+    ids = collectives.shard_ids(mesh, v.device)
+    grp, loc = ids // m, ids % m
+    ar = torch.arange(v.shape[0], device=v.device)
+    perm_in = tuple(G * m + (L + 1) % m for G in range(g) for L in range(m))
+    perm_x = tuple(((G + 1) % g) * m + L for G in range(g) for L in range(m))
+    blocks = v.unflatten(-1, (m, -1)).movedim(-2, 1).clone()
+    for s in range(m - 1):
+        (buf,) = collectives.permute((blocks[ar, (loc - s) % m],), mesh,
+                                     perm_in)
+        recv = (loc - s - 1) % m
+        blocks[ar, recv] = blocks[ar, recv] + buf
+    own_id = (loc + 1) % m
+    buf = blocks[ar, own_id]
+    all_c = buf.new_zeros((buf.shape[0], g) + tuple(buf.shape[1:]))
+    all_c[ar, grp] = buf
+    for s in range(g - 1):
+        (buf,) = collectives.permute((buf,), mesh, perm_x)
+        all_c[ar, (grp - s - 1) % g] = buf
+    own = torch.zeros_like(buf)
+    for j in range(g):
+        own = own + all_c[:, j]
+    out = blocks.new_zeros(blocks.shape)
+    out[ar, own_id] = own
+    buf = own
+    for s in range(m - 1):
+        (buf,) = collectives.permute((buf,), mesh, perm_in)
+        out[ar, (loc - s) % m] = buf
+    return out[0].movedim(0, -2).flatten(-2)
 
 
 def _hier_allreduce(v: torch.Tensor, g: int) -> torch.Tensor:
@@ -288,11 +381,12 @@ class CommSync:
     round with every shard's leaves.
 
     ``reduce(per_shard, res, t)`` → ``(summed, res_new)``: ``per_shard``
-    one tuple of leaves per shard, ``summed`` the one tuple every shard
-    holds after the sync, ``res`` the (n_shards, ef_elems) float32
-    error-feedback residual (``None`` or zero-width for stateless
-    schedules). ``t`` is the absolute sync id, folded into the int8
-    rounding keys so a resumed run replays the same noise."""
+    one tuple of leaves per shard this process holds, ``summed`` the one
+    tuple every shard holds after the sync, ``res`` this process's rows
+    of the (n_shards, ef_elems) float32 error-feedback residual
+    (``None`` or zero-width for stateless schedules). ``t`` is the
+    absolute sync id, folded into the int8 rounding keys so a resumed
+    run replays the same noise."""
 
     def __init__(self, spec: CommSpec, mesh, example, *,
                  axis_name: str = DATA_AXIS):
@@ -300,8 +394,9 @@ class CommSync:
         self.axis_name = axis_name
         self.mesh = mesh
         self.n_shards = _axis_size(mesh, axis_name)
-        if spec.schedule != "dense" and self.n_shards > 1:
-            mesh.require_one_process(f"the {spec.schedule!r} schedule")
+        # across processes the schedules run step by step on the hops
+        self._across = bool(axis_name == DATA_AXIS and mesh.distributed
+                            and mesh.process_count > 1)
         self.groups = spec.hier_groups or infer_groups(mesh, axis_name)
         if self.spec.schedule == "hier" and self.n_shards % self.groups:
             raise ValueError(
@@ -311,6 +406,7 @@ class CommSync:
         self._noise = None          # int8's draws for a group of syncs
         self._eligible_mask = [_eligible(x) for x in leaves]
         self._sizes = [int(np.prod(tuple(x.shape))) for x in leaves]
+        self._itemsize = [x.element_size() for x in leaves]
         self.ef_elems = sum(
             s for s, e in zip(self._sizes, self._eligible_mask) if e)
 
@@ -371,7 +467,8 @@ class CommSync:
         comp_out, res_new, aux = self._run_schedule(comp, res, t, compute)
         dense = [i for i, e in enumerate(self._eligible_mask) if not e]
         dense_out = dict(zip(dense, tree_allreduce_sum(
-            tuple(leaves[i] for i in dense) for leaves in per_shard))
+            (tuple(leaves[i] for i in dense) for leaves in per_shard),
+            self.mesh if self.axis_name == DATA_AXIS else None))
             if dense else ())
         it = iter(comp_out)
         out = tuple(next(it) if e else dense_out[i]
@@ -396,12 +493,15 @@ class CommSync:
             # bf16 on the wire; XLA adds the bf16 values in float32 in
             # shard order and rounds the sum to bf16 once
             aux = compute() if compute is not None else None
+            wire = [tuple(x.to(torch.bfloat16) for x in leaves)
+                    for leaves in comp]
+            if self._across:
+                wire = collectives.gather_shards(wire, self.mesh)
             out = []
             for i, dt in enumerate(dtypes):
-                acc = comp[0][i].to(torch.bfloat16).to(torch.float32)
-                for leaves in comp[1:]:
-                    acc = acc + leaves[i].to(torch.bfloat16).to(
-                        torch.float32)
+                acc = wire[0][i].to(torch.float32)
+                for leaves in wire[1:]:
+                    acc = acc + leaves[i].to(torch.float32)
                 out.append(acc.to(torch.bfloat16).to(dt))
             return out, res, aux
 
@@ -419,7 +519,15 @@ class CommSync:
             idx = order[:, :k]
             vals = torch.gather(flat, 1, idx)
             aux = compute() if compute is not None else None
-            out = sparse_allreduce(vals, idx, flat.shape[1], unique=True)
+            if self._across:
+                # the pairs round the ring, as JAX's int32 indices
+                all_v, all_i = collectives.ring_gather(
+                    (vals, idx.to(torch.int32)), self.mesh)
+                out = sparse_allreduce(all_v, all_i, flat.shape[1],
+                                       unique=True)
+            else:
+                out = sparse_allreduce(vals, idx, flat.shape[1],
+                                       unique=True)
             contrib = torch.zeros_like(flat).scatter_(1, idx, vals)
             return unflatten(out), flat - contrib, aux
 
@@ -437,11 +545,15 @@ class CommSync:
                 max(1, e) / (n_buckets * n_blocks))
             pad = n_buckets * bucket - e
             buckets = torch.nn.functional.pad(flat, (0, pad)).view(
-                n, n_buckets, bucket)
+                flat.shape[0], n_buckets, bucket)
             if sched == "int8":
                 exchange, finish = self._int8_bucket_ring(bucket, t, dev)
             else:
                 def exchange(b):
+                    if self._across:
+                        return (_ring_allreduce_across(b, self.mesh)
+                                if sched == "bucketed"
+                                else _hier_allreduce_across(b, g, self.mesh))
                     return (_ring_allreduce(b) if sched == "bucketed"
                             else _hier_allreduce(b, g))
 
@@ -462,7 +574,9 @@ class CommSync:
         depend only on its key and counter, so the syncs of a group are
         drawn at once (a few hundred torch ops a group, not a sync) and
         equal one-at-a-time draws bitwise. The first sync draws only its
-        own; later ones a group at a time."""
+        own; later ones a group at a time. Across processes only this
+        process's shards' draws are made (shard j's and chunk j's, j
+        global)."""
         n = self.n_shards
         chunk = bucket // n
         words = 2 * n * nb * bucket
@@ -475,7 +589,8 @@ class CommSync:
             ts = torch.arange(t, t + group, dtype=torch.int64, device=dev)
             keys = prng.fold_in(
                 prng.fold_in(prng.key(self.spec.seed, dev), ts)[:, None, :],
-                torch.arange(n, device=dev))                 # (G, S, 2)
+                collectives.shard_ids(self.mesh, dev)
+                if self._across else torch.arange(n, device=dev))
             two_i = 2 * torch.arange(nb, device=dev)
             u = prng.uniform(prng.fold_in(keys[:, :, None, :], two_i),
                              (bucket,))                  # (G, S, NB, bucket)
@@ -495,22 +610,36 @@ class CommSync:
         again with ``fold_in(key_c, 2i + 1)`` (:meth:`_int8_noise`).
         ``finish``: the int8 codes times n·scale. XLA writes both
         divisions by a constant (by 127, by n) as products with the
-        float32 reciprocal; so does the port, on the CPU and the card."""
+        float32 reciprocal; so does the port, on the CPU and the card.
+        Across processes the scale's max is one small all-gather, the
+        chunks cross in one ``all_to_all`` (int8) and the requantised
+        chunks round the ring (int8)."""
         n = self.n_shards
         chunk = bucket // n
+        mesh = self.mesh
 
         def exchange(b):
-            nb = b.shape[1]
+            held, nb = b.shape[0], b.shape[1]
             u, u2 = self._int8_noise(int(t), nb, bucket, dev)
-            scale = torch.clamp_min(
-                b.abs().amax(dim=(0, 2)) * (1.0 / 127.0),
-                1e-30)                                           # (NB,)
+            top = b.abs().amax(dim=(0, 2))
+            if self._across:
+                top = collectives.allreduce_max(top, mesh)
+            scale = torch.clamp_min(top * (1.0 / 127.0), 1e-30)  # (NB,)
             q = torch.clamp(torch.floor(b / scale[None, :, None] + u),
                             -127, 127).to(torch.int8)
-            s_int = q.view(n, nb, n, chunk).to(torch.int32).sum(dim=0)
+            q = q.view(held, nb, n, chunk)
+            if self._across:
+                # (L, n, NB, chunk) → (n sources, L owners, NB, chunk)
+                got = collectives.all_to_all(q.movedim(2, 1), mesh)
+                s_int = got.to(torch.int32).sum(dim=0).movedim(0, 1)
+            else:
+                s_int = q.to(torch.int32).sum(dim=0)
             q2 = torch.clamp(
                 torch.floor(s_int.to(torch.float32) * (1.0 / n) + u2),
                 -127, 127).to(torch.int8)
+            if self._across:
+                (q2,) = collectives.ring_gather((q2.movedim(1, 0),), mesh)
+                q2 = q2.movedim(0, 1)                     # (NB, n, chunk)
             return q2, scale
 
         def finish(carry):
@@ -524,7 +653,8 @@ class CommSync:
     def stats(self) -> dict:
         """Per-sync byte accounting (:func:`schedule_stats`): the ring
         model's per-shard wire bytes at the schedule's precision, the
-        float32 logical payload and the collective rounds."""
+        float32 logical payload and the collective rounds, as the JAX
+        package counts them."""
         dense_elems = sum(
             s for s, e in zip(self._sizes, self._eligible_mask) if not e)
         return schedule_stats(
@@ -532,6 +662,100 @@ class CommSync:
             compressible_elems=self.ef_elems, dense_elems=dense_elems,
             bucket_elems=self.spec.bucket_elems,
             topk_fraction=self.spec.topk_fraction, groups=self.groups)
+
+    def bytes_process(self) -> int:
+        """The bytes this process sends a sync (:func:`process_bytes`; 0
+        in one process), which ``collectives.COUNTERS["bytes_sent"]``
+        counts."""
+        procs = self.mesh.process_count if self._across else 1
+        return process_bytes(
+            self.spec.schedule, processes=procs,
+            n_shards=self.n_shards, leaves=[
+                (sz, 4 if e else self._itemsize[i], e)
+                for i, (sz, e) in enumerate(zip(self._sizes,
+                                                self._eligible_mask))],
+            bucket_elems=self.spec.bucket_elems,
+            topk_fraction=self.spec.topk_fraction, groups=self.groups,
+            process_index=self.mesh.process_index if self._across else 0)
+
+
+def _crossing(perm, n: int, P: int, p: int) -> int:
+    """Shards of process ``p`` whose destination under ``perm`` is in
+    another process."""
+    L = n // P
+    return sum(1 for s in range(p * L, (p + 1) * L) if perm[s] // L != p)
+
+
+def process_bytes(schedule: str, *, processes: int, n_shards: int,
+                  leaves, bucket_elems: int = 1 << 16,
+                  topk_fraction: float = 0.01, groups: int = 1,
+                  process_index: int = 0) -> int:
+    """The bytes one process sends a sync, in the port's own closed form
+    over (P processes, L = n/P shards each, the leaves, the bucket, k).
+    ``leaves``: (elements, item size, compressible) per leaf; the
+    compressible ones are e float32 elements in all, padded as the
+    schedule pads them (E below). Each term is what
+    ``collectives.COUNTERS["bytes_sent"]`` counts:
+
+      * ``dense``: the all-gather of every shard's partials, (P−1) times
+        the L shards' leaves packed (``collectives.packed_nbytes``: each
+        leaf but the last padded to the widest item size);
+      * ``bucketed``: one chunk of every bucket a ring step over each
+        process boundary, 2(n−1)·4E/n (NB buckets of n chunks);
+      * ``hier``: the rings inside (m−1 steps each way) and across (g−1
+        steps) the g groups of m shards, 4E/m a step for each shard
+        of process ``process_index`` whose hop leaves it; with the
+        groups the processes only the owned chunks cross, (P−1)·4E;
+      * ``bf16``: the all-gather of the bf16 values, packed likewise;
+      * ``int8``: the scales' max (4·NB·(P−1)), the all_to_all of int8
+        chunks (L·(n−L)·E/n) and their ring gather ((n−1)·E/n);
+      * ``topk``: k (float32, int32) pairs round the ring, 8k(n−1);
+
+    plus, for a schedule other than ``dense``, the dense leaves'
+    all-gather, packed likewise. At P = 2, L = 2 that orders hier (4E)
+    < bucketed (6E) < dense (8E)."""
+    P, n = int(processes), int(n_shards)
+    if P <= 1 or n <= 1:
+        return 0
+    L = n // P
+    leaves = [(int(sz), int(isz), bool(c)) for sz, isz, c in leaves]
+
+    def gather(items) -> int:
+        return (P - 1) * collectives.packed_nbytes(
+            [(sz * isz, isz) for sz, isz in items] * L) if items else 0
+
+    if schedule == "dense":
+        return gather([(sz, isz) for sz, isz, _ in leaves])
+    dense = gather([(sz, isz) for sz, isz, c in leaves if not c])
+    comp = [sz for sz, _, c in leaves if c]
+    e = sum(comp)
+    if not comp:
+        return dense
+    if schedule == "bf16":
+        return dense + gather([(sz, 2) for sz in comp])
+    if schedule == "topk":
+        k = max(1, int(round(topk_fraction * max(1, e))))
+        return dense + 8 * k * (n - 1)
+    if schedule in ("bucketed", "int8"):
+        nb = max(1, math.ceil(e / bucket_elems))
+        chunk = math.ceil(max(1, e) / (nb * n))    # a bucket's n chunks
+        if schedule == "bucketed":
+            return dense + 2 * (n - 1) * nb * chunk * 4
+        return dense + (4 * nb * (P - 1) + L * (n - L) * nb * chunk
+                        + (n - 1) * nb * chunk)
+    if schedule == "hier":
+        g = max(1, groups)
+        m = max(1, n // g)
+        if m == 1 or g == 1:
+            chunk = math.ceil(max(1, e) / n)
+            return dense + 2 * (n - 1) * chunk * 4
+        chunk = math.ceil(max(1, e) / m)
+        perm_in = [G * m + (x + 1) % m for G in range(g) for x in range(m)]
+        perm_x = [((G + 1) % g) * m + x for G in range(g) for x in range(m)]
+        p = int(process_index)
+        c_in, c_x = _crossing(perm_in, n, P, p), _crossing(perm_x, n, P, p)
+        return dense + 4 * chunk * (2 * (m - 1) * c_in + (g - 1) * c_x)
+    raise AssertionError(schedule)
 
 
 def schedule_stats(schedule: str, *, n_shards: int,
@@ -591,6 +815,7 @@ def emit_sync_counters(sync: CommSync, n_syncs: int) -> dict:
 
     st = sync.stats()
     tevents.counter("comm.bytes_wire", st["bytes_wire"] * n_syncs)
+    tevents.counter("comm.bytes_process", sync.bytes_process() * n_syncs)
     tevents.counter("comm.bytes_logical", st["bytes_logical"] * n_syncs)
     tevents.counter("comm.rounds", st["rounds"] * n_syncs)
     tevents.counter("comm.syncs", n_syncs)

@@ -17,6 +17,12 @@ Two mechanisms, both deterministic:
     shard count that wrote it; the trainer re-derives per-shard state
     from the replicated center and :func:`redistribute_clocks`.
 
+In a ``torch.distributed`` group every process compiles the same epochs
+from the seeded plan, and the checkpoints go to the directory the group
+shares (:func:`..utils.checkpoint.save_shared`: the row-sharded leaves
+gathered, process 0 the one writer), so the shard count that wrote a
+checkpoint is the global one, whatever the processes.
+
 The JAX package's preemption exit (rc 75 at a window boundary after the
 save) and its ``segment:run`` injection seam wait for ROADMAP A12.
 """
@@ -130,7 +136,8 @@ def _host(x) -> np.ndarray:
 def run_elastic(checkpoint_dir: str | None, checkpoint_every: int,
                 n_windows: int, n_shards: int, *, make_seg_fn, run_seg,
                 state0, renegotiate=None, on_epoch=None, tag: str = "",
-                ticks_per_window: int = 1, keep: int = 3, logger=None):
+                ticks_per_window: int = 1, keep: int = 3, logger=None,
+                mesh=None, sharded=()):
     """The elastic windowed training loop (JAX ``membership.py:149``).
 
     Each segment runs with one active set and one function
@@ -144,6 +151,10 @@ def run_elastic(checkpoint_dir: str | None, checkpoint_every: int,
     kept); a resume on another shard count calls
     ``renegotiate(saved_leaves, saved_shards, start_window)``, and one
     under another tag (another bound, or a BSP checkpoint) raises.
+    ``state0`` and a restored state are whole host arrays, which
+    ``run_seg`` places; across processes (``mesh``) the leaves marked in
+    ``sharded`` are this process's rows after a segment and are
+    gathered into the shared directory's file.
 
     Returns ``(state, outs_concat, start_window, epochs)``."""
     from tpu_distalg_torch.telemetry import events as tevents
@@ -160,6 +171,8 @@ def run_elastic(checkpoint_dir: str | None, checkpoint_every: int,
     outs_parts: list[tuple[np.ndarray, ...]] = []
 
     restored = None
+    if checkpoint_dir:
+        ckpt.check_shared(checkpoint_dir, None, mesh)
     if checkpoint_dir and ckpt.latest_step(checkpoint_dir) is not None:
         restored = ckpt.restore(checkpoint_dir)
     if restored is not None:
@@ -242,11 +255,11 @@ def run_elastic(checkpoint_dir: str | None, checkpoint_every: int,
         win = seg_end
         if checkpoint_dir:
             streams = _cat_streams(outs_parts)
-            ckpt.save(checkpoint_dir, tag, [_host(x) for x in state], win,
-                      extra={"shards": np.int64(n_shards),
-                             **{f"outs_{i}": s
-                                for i, s in enumerate(streams)}})
-            ckpt.prune(checkpoint_dir, keep=keep)
+            ckpt.save_shared(
+                checkpoint_dir, tag, state, win, mesh=mesh, sharded=sharded,
+                keep=keep, extra={"shards": np.int64(n_shards),
+                                  **{f"outs_{i}": s
+                                     for i, s in enumerate(streams)}})
             tevents.emit("checkpoint_saved",
                          step=win * ticks_per_window, tag=tag)
             tevents.counter("checkpoints_saved")

@@ -42,6 +42,34 @@ rates are printed.
   * ``pagerank_auto`` / ``pagerank_pallas``: 1,000,000 vertices,
     Erdős–Rényi of average degree 8, 50 standard-mode iterations
     through B7 / B8.
+
+The sync layer's workloads (``sync_*``) run at chip_smoke phase 13's
+geometry instead: the same packed rows on bench.py's canonical comm
+mesh, 4 global data shards (2 a rank in a pair), 3 of 32 blocks a shard
+a step:
+
+  * ``sync_<schedule>``: ``fused_gather`` under each of
+    :data:`SYNC_SCHEDULES`, :data:`SYNC_STEPS` steps; in a group the run
+    raises unless the bytes this process sent equal the steps times the
+    schedule's closed form (``comms.process_bytes``), beside which the
+    record keeps ``dense``'s;
+  * ``sync_ma_int8`` / ``sync_ma_topk``: MA ``fused_train`` (B2) under
+    int8 and topk, :data:`SYNC_MA_ROUNDS` rounds;
+  * ``sync_ssp_straggle`` / ``sync_ssp_leave``: ``fused_gather`` under
+    ``ssp:8`` with the straggle plan and the leave plan,
+    :data:`SYNC_SSP_TICKS` ticks;
+  * ``sync_bsp_straggler`` / ``sync_ssp_straggler``: bench.py's SSP
+    straggler bench (chip_smoke phase 13's: 4096 rows × 31 of the
+    normalised two-class task on ``bernoulli``, the straggle plan,
+    :data:`SSP_BENCH_STEPS` steps, run :data:`SSP_BENCH_REPEATS` times
+    a call), its BSP arm (every step waits for its straggle work and
+    the psum) and ``ssp:8`` (one merge a window): the speedup is the
+    second's rate over the first's;
+  * ``sync_ckpt``: a checkpointed ``fused_gather`` run under topk split
+    across a restart: a group trains the first half into ``OUT/ckpt``;
+    one process (run after it) resumes that directory to the end and
+    also trains the whole run straight (``w_resumed``, ``w``) and the
+    first half (``w_half``, which the group returns too).
 """
 
 from __future__ import annotations
@@ -68,9 +96,23 @@ PROFILE_STEPS, PROFILE_ROUNDS = 100, 20
 #: host-bound rates of one process spread by up to 2× between
 #: processes, so a few pairs say nothing
 TREE_ROUNDS = 10
+#: the sync layer's geometry (chip_smoke.py phase 13): bench.py's
+#: canonical comm mesh, the schedules, the plans of its SSP runs
+SYNC_SHARDS = 4
+SYNC_SCHEDULES = ("dense", "bucketed", "hier", "bf16", "int8", "int8@seq",
+                  "topk:0.01")
+SYNC_STEPS, SYNC_MA_ROUNDS, SYNC_SSP_TICKS, SYNC_CKPT_STEPS = 200, 40, 200, 200
+SYNC_PROFILE_STEPS, SYNC_PROFILE_ROUNDS, SYNC_SSP_S = 50, 10, 8
+SSP_PLAN = "seed=7;shard:straggle@p0.25=straggle:800"
+SSP_LEAVE_PLAN = SSP_PLAN + ";shard:leave@p0.05=leave:2"
+SSP_BENCH_STEPS, SSP_BENCH_REPEATS = 64, 3
+SYNC_WORKLOADS = tuple(
+    "sync_" + c.split(":")[0].replace("@", "_") for c in SYNC_SCHEDULES) + (
+    "sync_ma_int8", "sync_ma_topk", "sync_ssp_straggle", "sync_ssp_leave",
+    "sync_bsp_straggler", "sync_ssp_straggler", "sync_ckpt")
 WORKLOADS = ("ssgd_fused_gather", "ssgd_fused", "ma_fused_train",
              "ma_fused_gather", "ssgd_tp", "kmeans_fused", "pagerank_auto",
-             "pagerank_pallas")
+             "pagerank_pallas") + SYNC_WORKLOADS
 
 
 def _kernels():
@@ -149,14 +191,15 @@ def _rows(mesh, cache: dict):
     the packing is the same): ``(X2, w0, meta)``."""
     from tpu_distalg_torch.models import ssgd
 
-    if "rows" not in cache:
+    key = ("rows", mesh.n_data)
+    if key not in cache:
         cfg = ssgd.SSGDConfig(sampler="fused_gather", x_dtype="bfloat16",
                               gather_block_rows=SSGD_GBR, shuffle_seed=0,
                               init_seed=7)
         _, X2, w0, meta = ssgd.prepare_fused_synthetic(
             SSGD_ROWS, SSGD_FEATURES, mesh, cfg)
-        cache["rows"] = (X2, w0, meta)
-    return cache["rows"]
+        cache[key] = (X2, w0, meta)
+    return cache[key]
 
 
 def _ssgd(mesh, held: int, sampler: str, cache: dict):
@@ -266,6 +309,192 @@ def _pagerank(mesh, held: int, scatter: str, cache: dict):
             PR_ITERS, {key: held * PR_ITERS}, None)
 
 
+def _sync_schedule(name: str) -> str:
+    return next(c for c in SYNC_SCHEDULES
+                if "sync_" + c.split(":")[0].replace("@", "_") == name)
+
+
+def _sync_cfg(**kw):
+    from tpu_distalg_torch.models import ssgd
+
+    return ssgd.SSGDConfig(
+        eval_test=False, x_dtype="bfloat16", sampler="fused_gather",
+        gather_block_rows=SSGD_GBR, shuffle_seed=0, init_seed=7, **kw)
+
+
+def _te(mesh, d: int) -> tuple:
+    return (torch.zeros((1, d), device=mesh.device),
+            torch.zeros((1,), device=mesh.device))
+
+
+def _sync_bytes(mesh, comm: str, d: int, syncs: int) -> tuple[int, int]:
+    """The closed forms of the bytes this process sends over ``syncs``
+    syncs of SSGD's (Σ grad, count) pair: the schedule's, and
+    ``dense``'s all-gather of partials."""
+    from tpu_distalg_torch.parallel import comms
+
+    leaves = (comms.leaf((d,)), comms.leaf(()))
+    return tuple(syncs * comms.make_sync(c, mesh, leaves).bytes_process()
+                 for c in (comm, "dense"))
+
+
+def _sync_ssgd(mesh, held: int, comm: str, cache: dict):
+    """``fused_gather`` under ``comm`` at phase 13's geometry."""
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import comms, partition
+
+    X2, w0, meta = _rows(mesh, cache)
+    d = meta["d_total"]
+    cfg = _sync_cfg(n_iterations=SYNC_STEPS, comm=comm)
+    fn = ssgd.make_train_fn_fused(mesh, cfg, meta)
+    short = ssgd.make_train_fn_fused(
+        mesh, dataclasses.replace(cfg, n_iterations=SYNC_PROFILE_STEPS),
+        meta)
+    res = ()
+    if comm != "dense":
+        sync = comms.make_sync(comm, mesh, (comms.leaf((d,)),
+                                            comms.leaf(())))
+        res = (partition.place({"res": sync.init_state()}, "ssgd",
+                               mesh)["res"],)
+    te = _te(mesh, d)
+    return (lambda: {"w": fn(X2, None, None, *te, w0, *res)[0]}, SYNC_STEPS,
+            {"fused_grad_sum_gathered": held * SYNC_STEPS},
+            (lambda: short(X2, None, None, *te, w0, *res),
+             SYNC_PROFILE_STEPS))
+
+
+def _sync_ma(mesh, held: int, comm: str, cache: dict):
+    """MA ``fused_train`` (B2) under ``comm``."""
+    from tpu_distalg_torch.models import local_sgd
+    from tpu_distalg_torch.parallel import comms, partition
+
+    X2, _, meta = _rows(mesh, cache)
+    d = meta["d_total"]
+    cfg = local_sgd.LocalSGDConfig(
+        n_iterations=SYNC_MA_ROUNDS, n_local_iterations=MA_L,
+        eval_test=False, sampler="fused_train", x_dtype="bfloat16",
+        gather_block_rows=SSGD_GBR, shuffle_seed=0, comm=comm)
+    fn = local_sgd.make_train_fn_fused(mesh, cfg, meta)
+    short = local_sgd.make_train_fn_fused(
+        mesh, dataclasses.replace(cfg, n_iterations=SYNC_PROFILE_ROUNDS),
+        meta)
+    st = local_sgd.placed_state(local_sgd.init_state(
+        cfg, SSGD_FEATURES + 1, d, mesh.n_data, mesh.device), mesh)
+    sync = comms.make_sync(comm, mesh, (comms.leaf((d,)),))
+    res = partition.place({"res": sync.init_state()}, "local_sgd",
+                          mesh)["res"]
+    te = _te(mesh, d)
+
+    def run():
+        w, ws, *_ = fn(X2, *te, *st, res)
+        return {"w": w, "ws": ws}
+
+    return (run, SYNC_MA_ROUNDS,
+            {"fused_train_gathered": held * SYNC_MA_ROUNDS},
+            (lambda: short(X2, *te, *st, res), SYNC_PROFILE_ROUNDS))
+
+
+def _sync_ssp(mesh, held: int, plan: str, cache: dict):
+    """``fused_gather`` under ``ssp:8`` and a fault plan (configured
+    for each call, so every call replays it)."""
+    from tpu_distalg_torch import faults
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import ssp as pssp
+
+    X2, w0, meta = _rows(mesh, cache)
+    te = _te(mesh, meta["d_total"])
+
+    def call(ticks):
+        faults.configure(plan)
+        try:
+            res, _ = ssgd.train_prepared_ssp(
+                mesh, _sync_cfg(n_iterations=ticks,
+                                sync=f"ssp:{SYNC_SSP_S}"),
+                (X2, None, None), *te, w0, n_padded=meta["n_padded"],
+                meta=meta)
+        finally:
+            faults.configure(False)
+        return {"w": res.w}
+
+    ticks = pssp.window_grid(SYNC_SSP_TICKS, SYNC_SSP_S)[1]
+    return (lambda: call(SYNC_SSP_TICKS), SYNC_SSP_TICKS,
+            {"fused_grad_sum_gathered": held * ticks},
+            (lambda: call(SYNC_PROFILE_STEPS), SYNC_PROFILE_STEPS))
+
+
+def _ssp_bench(mesh, ssp: bool):
+    """bench.py's straggler bench, its BSP arm or ``ssp:8``, repeated
+    :data:`SSP_BENCH_REPEATS` times a call."""
+    from tpu_distalg_torch import faults
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import parallelize, partition
+    from tpu_distalg_torch.parallel import ssp as pssp
+    from tpu_distalg_torch.utils import datasets
+
+    X, y = datasets.synthetic_two_class(4096 + 1024, 30, seed=0)
+    X = datasets.add_bias_column(X)
+    d = X.shape[1]
+    Xs, ys = parallelize(X[:4096], mesh), parallelize(y[:4096], mesh)
+    te = _te(mesh, d)
+    w0 = torch.zeros((d,), device=mesh.device)
+    n_win, padded = pssp.window_grid(SSP_BENCH_STEPS, SYNC_SSP_S)
+    extra = pssp.compile_straggle_schedule(
+        padded, mesh.n_data, plan=faults.FaultPlan.parse(SSP_PLAN))
+    extra[SSP_BENCH_STEPS:] = 0
+    cfg = ssgd.SSGDConfig(n_iterations=SSP_BENCH_STEPS, eval_test=False)
+    if not ssp:
+        fn = ssgd.make_bsp_straggler_fn(mesh, cfg, Xs.n_padded, extra)
+
+        def once():
+            return fn(Xs.data, ys.data, Xs.mask, *te, w0)[0]
+    else:
+        cfg = dataclasses.replace(cfg, sync=f"ssp:{SYNC_SSP_S}")
+        fn = ssgd.make_ssp_train_fn(
+            mesh, cfg, Xs.n_padded, d, active=(True,) * mesh.n_data,
+            n_win_seg=n_win, total_ticks=SSP_BENCH_STEPS)
+        st = partition.place(dict(zip(
+            ("w", "clocks", "pend", "basegen", "wl", "accd", "res"),
+            ssgd.ssp_init_state(mesh, cfg, d, w=w0))), "ssgd", mesh)
+        seg = extra.reshape(n_win, SYNC_SSP_S, mesh.n_data)
+
+        def once():
+            return fn(Xs.data, ys.data, Xs.mask, *te, st["w"], st["clocks"],
+                      st["pend"], st["basegen"], st["wl"], st["accd"],
+                      st["res"], seg, 0)[0]
+
+    def run():
+        for _ in range(SSP_BENCH_REPEATS):
+            w = once()
+        return {"w": w}
+
+    return (run, SSP_BENCH_STEPS * SSP_BENCH_REPEATS, {},
+            (once, SSP_BENCH_STEPS))
+
+
+def _sync_ckpt(mesh, group: bool, out_dir: str, cache: dict) -> dict:
+    """``sync_ckpt``: a group trains the first half into ``out_dir/ckpt``
+    (process 0 writes); one process resumes it to the end and trains the
+    whole and the half straight. Untimed: each call changes the
+    directory."""
+    from tpu_distalg_torch.models import ssgd
+
+    X2, w0, meta = _rows(mesh, cache)
+    te = _te(mesh, meta["d_total"])
+    half, d = SYNC_CKPT_STEPS // 2, os.path.join(out_dir, "ckpt")
+
+    def train(n, ckpt=None):
+        return ssgd.train_prepared(
+            mesh, _sync_cfg(n_iterations=n, comm="topk:0.01"), X2, w0, meta,
+            *te, checkpoint_dir=ckpt, checkpoint_every=half).w
+
+    if group:
+        return {"w_half": train(half, d)}
+    if not os.path.isdir(d):
+        raise AssertionError(f"sync_ckpt: no group wrote {d}")
+    return {"w_resumed": train(SYNC_CKPT_STEPS, d),
+            "w": train(SYNC_CKPT_STEPS), "w_half": train(half)}
+
+
 def run(out_dir: str, workloads, *, init: str | None = None,
         world: int = 0, rank: int = 0, profiled: bool = True,
         runs: int = 1) -> dict:
@@ -289,14 +518,44 @@ def run(out_dir: str, workloads, *, init: str | None = None,
         mesh = get_mesh(N_DATA, device="cuda")
         mesh22 = (get_mesh(N_DATA, 2, device="cuda")
                   if "ssgd_tp" in workloads else None)
+        mesh4 = get_mesh(SYNC_SHARDS, device="cuda")
         held = mesh.n_local if group else mesh.n_data
+        held4 = mesh4.n_local if group else mesh4.n_data
         if group:
             info.update(process_count=mesh.process_count,
                         local_data=list(mesh.local_data))
         arrays, stats, cache = {}, {}, {}
         for name in workloads:
             t0 = time.perf_counter()
-            if name.startswith("ssgd_fused"):
+            if name == "sync_ckpt":
+                _barrier(group)
+                from tpu_distalg_torch.parallel import collectives
+
+                collectives.reset_counters()
+                out = _sync_ckpt(mesh4, group, out_dir, cache)
+                torch.cuda.synchronize(mesh4.device)
+                stats[name] = {"seconds": time.perf_counter() - t0,
+                               **({"dist": dict(collectives.COUNTERS)}
+                                  if group else {})}
+                for k, v in out.items():
+                    arrays[f"{name}/{k}"] = v.detach().cpu().numpy()
+                continue
+            expect = None
+            if name.startswith("sync_ma_"):
+                built = _sync_ma(mesh4, held4, {"sync_ma_int8": "int8"}.get(
+                    name, "topk:0.01"), cache)
+            elif name.endswith("_straggler"):
+                built = _ssp_bench(mesh4, name == "sync_ssp_straggler")
+            elif name.startswith("sync_ssp_"):
+                built = _sync_ssp(mesh4, held4, SSP_PLAN if name.endswith(
+                    "straggle") else SSP_LEAVE_PLAN, cache)
+            elif name in SYNC_WORKLOADS:
+                comm = _sync_schedule(name)
+                built = _sync_ssgd(mesh4, held4, comm, cache)
+                if group:
+                    expect = _sync_bytes(mesh4, comm, _rows(mesh4, cache)[2][
+                        "d_total"], SYNC_STEPS)
+            elif name.startswith("ssgd_fused"):
                 built = _ssgd(mesh, held, name[len("ssgd_"):], cache)
             elif name.startswith("ma_"):
                 built = _ma(mesh, held, name[len("ma_"):], cache, group)
@@ -311,6 +570,14 @@ def run(out_dir: str, workloads, *, init: str | None = None,
             try:
                 out, st = _measure(mesh.device, built, group, profiled,
                                    runs)
+                if expect is not None:
+                    closed, dense = expect
+                    sent = st["dist"]["bytes_sent"]
+                    if sent != closed:
+                        raise AssertionError(
+                            f"sent {sent} B, the closed form says "
+                            f"{closed} B")
+                    st.update(bytes_closed_form=closed, bytes_dense=dense)
             except AssertionError as e:
                 raise AssertionError(f"{name}: {e}") from None
             stats[name] = dict(st, setup_seconds=setup)

@@ -12,6 +12,17 @@ missing or wrong footer raises :class:`CorruptCheckpointError`.
 :func:`run_segmented` trains in checkpointed segments that resume bit
 for bit (SSGD), keeping the newest three files.
 
+Across processes the directory is shared by the group, and
+:func:`save_shared` keeps one writer: the leaves a process holds only
+its rows of are gathered from every process (``allgather_rows``),
+process 0 alone writes and prunes, and then every process checks that
+it sees process 0's newest step (:func:`check_shared`); a directory
+that is not shared raises on every process, naming it. On resume every
+process reads the file and keeps its own rows (:func:`local_rows`).
+The file holds what one process × P·L shards writes, so a run written
+by P processes resumes in one, and the other way round, bit for bit.
+(The JAX package writes from every host instead.)
+
 The JAX package writes ``step_<N>.msgpack`` (flax serialisation),
 which the port does not read: :func:`restore` raises a message naming
 that format. The two packages exchange factors through numpy instead
@@ -161,9 +172,93 @@ def prune(ckpt_dir: str, keep: int = 3) -> None:
             pass
 
 
+def _group(mesh) -> bool:
+    return (mesh is not None and getattr(mesh, "distributed", False)
+            and mesh.process_count > 1)
+
+
+def _allgather_ints(values, mesh) -> list[list[int]]:
+    """Every process's ``values`` (a few ints), in process order: one
+    small all-gather, which also lines the processes up."""
+    import torch
+
+    from tpu_distalg_torch.parallel.collectives import allgather_rows
+
+    t = torch.as_tensor([list(values)], dtype=torch.int64,
+                        device=mesh.device)
+    return allgather_rows(t, mesh).cpu().tolist()
+
+
+def _is_sharded(sharded, i: int) -> bool:
+    return i < len(sharded) and bool(sharded[i])
+
+
+def gather_state(state, mesh=None, sharded=()) -> list[np.ndarray]:
+    """Host copies of the state leaves; across processes a leaf marked in
+    ``sharded`` (this process's rows of a leaf cut over the data axis)
+    is first brought together from every process, in process order."""
+    import torch
+
+    from tpu_distalg_torch.parallel.collectives import allgather_rows
+
+    out = []
+    for i, x in enumerate(state):
+        t = torch.as_tensor(x)
+        if _group(mesh) and _is_sharded(sharded, i):
+            t = allgather_rows(t.to(mesh.device).contiguous(), mesh)
+        out.append(np.asarray(t.detach().cpu().numpy()))
+    return out
+
+
+def local_rows(x: np.ndarray, mesh=None) -> np.ndarray:
+    """This process's rows of a leaf the data axis cuts (all of them in
+    one process)."""
+    if not _group(mesh):
+        return x
+    from tpu_distalg_torch.parallel import DATA_AXIS, partition
+
+    return partition.local_block(x, (DATA_AXIS,), mesh)
+
+
+def check_shared(ckpt_dir: str, step, mesh=None) -> None:
+    """Across processes: raise on every process unless each sees the
+    same newest step in ``ckpt_dir`` (``step``, process 0's, when
+    given)."""
+    if not _group(mesh):
+        return
+    seen = latest_step(ckpt_dir)
+    got = [v[0] for v in _allgather_ints([-1 if seen is None else seen],
+                                         mesh)]
+    want = got[0] if step is None else int(step)
+    if any(v != want for v in got):
+        shown = ", ".join(f"process {p}: "
+                          + ("none" if v < 0 else f"step {v}")
+                          for p, v in enumerate(got))
+        raise ValueError(
+            f"checkpoint directory {ckpt_dir} is not shared by the "
+            f"{mesh.process_count} processes of the group (newest step "
+            f"{shown}); give every process one directory they all see")
+
+
+def save_shared(ckpt_dir: str, tag: str, state, step: int, *, mesh=None,
+                sharded=(), accs=None, extra: dict | None = None,
+                keep: int = 3) -> None:
+    """:func:`save` and :func:`prune` for a process group: the sharded
+    leaves gathered, process 0 the one writer, then every process
+    checks that it sees the step (:func:`check_shared`). In one process,
+    save and prune."""
+    leaves = gather_state(state, mesh, sharded)
+    if not _group(mesh) or mesh.process_index == 0:
+        save(ckpt_dir, tag, leaves, step, accs=accs, extra=extra)
+        prune(ckpt_dir, keep=keep)
+    if _group(mesh):
+        _allgather_ints([0], mesh)      # process 0 has written
+        check_shared(ckpt_dir, step, mesh)
+
+
 def run_segmented(checkpoint_dir: str, checkpoint_every: int,
                   n_iterations: int, make_seg_fn, run_seg, state0, *,
-                  tag: str = "", stop_when=None):
+                  tag: str = "", stop_when=None, mesh=None, sharded=()):
     """Segmented, resumable training: the port of the JAX package's
     ``checkpoint.run_segmented``.
 
@@ -181,27 +276,38 @@ def run_segmented(checkpoint_dir: str, checkpoint_every: int,
     workload (k-means in converge mode) stops once it holds instead of
     running segments that change nothing. Returns ``(state, accs,
     start_step)``.
-    (Corrupt-file quarantine and preemption wait for the faults slice;
-    a directory shared by the processes of a group, for ROADMAP A9.)
+
+    Across processes (``mesh`` spanning a process group) the directory
+    is shared: ``sharded[i]`` marks a leaf of which a process holds its
+    rows, gathered into the file (:func:`save_shared`) and cut back on
+    resume, so the file equals one process's. A process that sees
+    another newest step than the others raises on every process.
+    (Corrupt-file quarantine and preemption wait for the faults slice.)
     """
     import torch
 
     from tpu_distalg_torch.parallel import mesh as pmesh
     from tpu_distalg_torch.utils import metrics
 
-    if pmesh.process_count() > 1:
+    if mesh is None and pmesh.process_count() > 1:
         raise NotImplementedError(
-            "checkpointing across processes waits for ROADMAP A9; run "
-            "without a checkpoint directory")
+            f"checkpointing {tag or 'this workload'} across processes "
+            f"waits for ROADMAP A9; run without a checkpoint directory")
     if checkpoint_every < 1:
         raise ValueError(
             f"checkpoint_every must be >= 1, got {checkpoint_every}")
     state = tuple(state0)
     devices = [torch.as_tensor(x).device for x in state]
-    want = [(tuple(np.asarray(torch.as_tensor(x).cpu()).shape),
-             str(np.asarray(torch.as_tensor(x).cpu()).dtype))
-            for x in state]
+    rows = mesh.process_count if _group(mesh) else 1
+    want = []
+    for i, x in enumerate(state):
+        a = np.asarray(torch.as_tensor(x).cpu())
+        shape = tuple(a.shape)
+        if _is_sharded(sharded, i):
+            shape = (shape[0] * rows,) + shape[1:]
+        want.append((shape, str(a.dtype)))
     start, accs_parts = 0, []
+    check_shared(checkpoint_dir, None, mesh)
     if latest_step(checkpoint_dir) is not None:
         payload, start = restore(checkpoint_dir)
         if start > n_iterations:
@@ -215,8 +321,9 @@ def run_segmented(checkpoint_dir: str, checkpoint_every: int,
                 f"checkpoint in {checkpoint_dir} is incompatible: it holds "
                 f"workload {payload['tag']!r} with state {sig}, but this "
                 f"run is {tag!r} with state {want}; use a fresh directory")
-        state = tuple(torch.from_numpy(np.array(v)).to(dev)
-                      for v, dev in zip(payload["state"], devices))
+        state = tuple(torch.from_numpy(np.array(
+            local_rows(v, mesh) if _is_sharded(sharded, i) else v)).to(dev)
+            for i, (v, dev) in enumerate(zip(payload["state"], devices)))
         accs_parts = [np.asarray(payload["accs"])]
     seg_fns = {}
     t = start
@@ -232,10 +339,8 @@ def run_segmented(checkpoint_dir: str, checkpoint_every: int,
                              f"training state after step {t + seg}")
         t += seg
         accs_parts.append(np.asarray(torch.as_tensor(accs).cpu()))
-        save(checkpoint_dir, tag, [torch.as_tensor(x).cpu().numpy()
-                                   for x in state], t,
-             accs=np.concatenate(accs_parts))
-        prune(checkpoint_dir)
+        save_shared(checkpoint_dir, tag, state, t, mesh=mesh,
+                    sharded=sharded, accs=np.concatenate(accs_parts))
     accs = (np.concatenate(accs_parts) if accs_parts
             else np.zeros((0,), np.float32))
     return state, accs, start
