@@ -97,10 +97,10 @@ and the script exits non-zero without printing a result:
      past 2³¹ elements, held-out accuracy, host RSS, B1 at that shape);
  13. the sync layer (``parallel/comms.py``, ``ssp.py``, ``membership.py``)
      on 4 emulated data shards: SSGD ``fused_gather`` (B1) at phase 6's
-     geometry for 1500 steps under dense, bucketed, hier, bf16, int8,
-     int8@seq and topk:0.01 (steps/s, wall and device µs and device ops
-     a step, the sync's own device µs, ring-model wire bytes; B1 = 4 ×
-     1500; every run replayed bitwise, int8@seq = int8, the card's
+     geometry for 500 steps (depth cut: PERF.md §4) under dense,
+     bucketed, hier, bf16, int8, int8@seq and topk:0.01 (steps/s, wall
+     and device µs and device ops a step, the sync's own device µs,
+     ring-model wire bytes; B1 = 4 × 500; every run replayed bitwise, int8@seq = int8, the card's
      reduce = the CPU port's bitwise, 5 steps against the CPU port);
      ``fused`` (B5) under int8 and topk; bench.py's comparison task
      (every schedule, the 3× and 4× wire cuts, the calibrated band);
@@ -113,7 +113,7 @@ and the script exits non-zero without printing a result:
      MA under ssp:4, held by the tail's best;
  14. the out-of-core data subsystem (``tpu_distalg_torch/data/``) at
      bench.py's row widths, depths cut (PERF.md §4): streamed SSGD from a
-     2²⁵-row disk cache (125 features + bias, pack 16, bf16, 2048-row
+     2²⁴-row disk cache (125 features + bias, pack 16, bf16, 2048-row
      blocks) through the pinned prefetch pipeline and B1, at 4 and 64
      sampled blocks a step (steps/s, H2D bytes, achieved GB/s beside a
      pinned ``copy_`` of the same size, serial ``stage`` GB/s, host
@@ -122,14 +122,16 @@ and the script exits non-zero without printing a result:
      streamed steps = resident ``fused_gather`` on the same bytes bit
      for bit on 1 and 4 shards, segmented = straight; virtual SSGD at
      10⁹ logical rows (two runs bit for bit, host RSS growth under
-     1 GB); minibatch k-means on a streamed mixture of 2²⁵ points
+     1 GB); minibatch k-means on a streamed mixture of 2²⁴ points
      (every true mean recovered, centres bit for bit across streamed,
      virtual and resident); streamed ALS on a 16384² rank-64 R (one
      sweep and one rmse pass, U, V and rmse bit for bit across the
-     backends); the caches are made under ``build/`` and deleted;
+     backends); the caches are made under ``build/``; phase 16 runs
+     next and reads the streamed SSGD and k-means ones, then they are
+     deleted;
  15. the out-of-core graph engine (``tpu_distalg_torch/graphs/``) at
-     bench.py's ``pagerank_100m`` geometry with V cut to 2²⁵ (PERF.md
-     §4): a power-law edge-block cache of 536,687,099 edges made under
+     bench.py's ``pagerank_100m`` geometry with V cut to 2²³ (PERF.md
+     §4), run after phase 16: a power-law edge-block cache made under
      ``build/`` through the C++ ingest's binding (asserted: no numpy
      fallback), one warm-up and two timed streamed sweeps (sweeps/s,
      ns/edge, the combine's wire bytes beside the dense ring's, H2D and
@@ -144,26 +146,41 @@ and the script exits non-zero without printing a result:
      ``tpu_distalg_torch/tools/multiproc_run.py``): two ranks on the
      card over gloo (NCCL refuses two ranks on one GPU), each holding
      one of 2 global data shards, run SSGD ``fused_gather`` (B1) and
-     ``fused`` (B5) at phase 6's geometry for 1500 steps, MA on
-     ``fused_train`` (B2) and ``fused_gather`` (B1) at phase 11's, the tp
-     split on a 2×2 mesh (B3, B4), k-means at 10M × 16, k 8 (B10) and
-     PageRank at 1M × 8M in ``auto`` (B7) and ``pallas`` (B8) for 50
-     iterations; each rank's launches are its shards × the steps; every
+     ``fused`` (B5) at phase 6's geometry for 500 steps, MA on
+     ``fused_train`` (B2) and ``fused_gather`` (B1) at phase 11's for 100
+     rounds, the tp split on a 2×2 mesh (B3, B4), k-means at 10M × 16,
+     k 8 (B10) and PageRank at 1M × 8M in ``auto`` (B7) and ``pallas``
+     (B8) for 20 iterations (depths cut: PERF.md §4); each rank's launches are its shards × the steps; every
      result equals one process × 2 shards on the card bit for bit, and
      a world-1 NCCL group's ``fused_gather`` too; steps/s beside the one
      process's, the collectives' count and bytes, the host copies' share
      of the wall time and the idle share. Then the sync layer across the
      pair at phase 13's geometry (4 global shards, 2 a rank):
-     ``fused_gather`` (B1) under each of phase 13's schedules for 200
+     ``fused_gather`` (B1) under each of phase 13's schedules for 100
      steps, each rank's bytes equal to the schedule's closed form
      (``comms.process_bytes``) and below ``dense``'s, MA ``fused_train``
-     (B2) under int8 and topk for 40 rounds, ``fused_gather`` under
-     ``ssp:8`` with the straggle plan and the leave plan for 200 ticks,
+     (B2) under int8 and topk for 20 rounds, ``fused_gather`` under
+     ``ssp:8`` with the straggle plan and the leave plan for 104 ticks,
      bench.py's SSP straggler bench (its BSP arm and ``ssp:8``; the
      speedup a rank beside one process's), and a topk run checkpointed
-     by the pair at step 100 and resumed by one process to 200; each
+     by the pair at step 50 and resumed by one process to 100; each
      equal to one process × 4 shards bit for bit (the resumed run to
-     the straight one), and a world-1 NCCL group's ``hier`` too;
+     the straight one), and a world-1 NCCL group's ``hier`` too. Then
+     the workloads that cross processes last (``multiproc_run``'s
+     ``A9_WORKLOADS``, depth cut, PERF.md §4), on the pair, one process
+     and the world-1 NCCL group, every result bitwise: ALS 4096 × 16384
+     rank 64 on a 2×2 mesh for 3 sweeps (a checkpoint resumed = the
+     straight fit), its serving over 2048 requests at max-batch 32,
+     sparse from the training result through the reshard seam (B9 a
+     model slice a batch) and dense from the artifact, process 0
+     leading and process 1 following; the closure of bench.py's DAG at
+     V 6800 (10,316,480 paths, asserted) dense and ``run_sparse_auto``;
+     streamed SSGD (B1) and minibatch k-means for 30 steps on phase
+     14's caches; streamed PageRank (B7) for 5 sweeps on a 2-shard
+     power-law cache at V 2²¹; ring attention at 32k × 8 heads × d 128
+     bf16, causal, contiguous and zigzag, and Ulysses, forward and the
+     gradients (B11, B12); each rank launches B1, B7, B9, B11 and B12
+     (asserted);
  17. the kernels line (B1's and B2's entries with their launches on the
      local-update runs, B1's on the scale path and phase 14's streamed
      runs, B1's, B2's and B5's on phase 13's paths, B7's on phase 15's
@@ -190,6 +207,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3985,8 +4003,10 @@ def run_rest(dev, sg: dict) -> dict:
 SYNC_SHARDS = 4
 SYNC_SCHEDULES = ("dense", "bucketed", "hier", "bf16", "int8", "int8@seq",
                   "topk:0.01")
-#: steps a profiled run (device time and ops a step), syncs a timed
-#: reduce, and the steps of the card-against-CPU check
+#: steps a schedule's timed run (bench.py: 1500; cut for the script's
+#: time, PERF.md §4), steps a profiled run (device time and ops a step),
+#: syncs a timed reduce, and the steps of the card-against-CPU check
+SYNC_STEPS = 500
 SYNC_PROFILE_STEPS, SYNC_REDUCE_CALLS, SYNC_CHECK_STEPS = 200, 100, 5
 #: card against the CPU port after SYNC_CHECK_STEPS steps, of the largest
 #: |w|: B1 and its plain version add in other orders (phase 11's
@@ -4095,7 +4115,8 @@ def _sync_reduce_checks(dev, sync_card, sync_cpu, per, res) -> dict:
 
 def _sync_ssgd(dev, sg: dict) -> dict:
     """SSGD `fused_gather` (B1) at full width on 4 emulated shards under
-    every schedule, 1500 steps each; `fused` (B5) under int8 and topk."""
+    every schedule, SYNC_STEPS steps each; `fused` (B5) under int8 and
+    topk."""
     import dataclasses
 
     import torch
@@ -4113,7 +4134,7 @@ def _sync_ssgd(dev, sg: dict) -> dict:
     w0 = torch.zeros((D,), dtype=torch.float32, device=dev)
     w0[:d] = logistic.init_weights(prng.root_key(7, dev), d)
     base = ssgd.SSGDConfig(
-        n_iterations=SSGD_STEPS, eval_test=False, x_dtype="bfloat16",
+        n_iterations=SYNC_STEPS, eval_test=False, x_dtype="bfloat16",
         sampler="fused_gather", gather_block_rows=SSGD_GBR, shuffle_seed=0,
         init_seed=7)
     n_s = ssgd.fused_gather_geometry(base, meta, SYNC_SHARDS)[1]
@@ -4144,7 +4165,7 @@ def _sync_ssgd(dev, sg: dict) -> dict:
         warm, res, secs, launches = _timed(
             lambda: fn(X2, None, None, *te, w0, *tail))
         _want_launches(f"fused_gather {sched}", launches,
-                       {"fused_grad_sum_gathered": SYNC_SHARDS * SSGD_STEPS})
+                       {"fused_grad_sum_gathered": SYNC_SHARDS * SYNC_STEPS})
         if not torch.equal(warm[0], res[0]):
             raise AssertionError(f"fused_gather {sched}: two runs differ")
         w = res[0]
@@ -4155,11 +4176,11 @@ def _sync_ssgd(dev, sg: dict) -> dict:
         prof = _device_profile(lambda: fn_p(X2, None, None, *te, w0, *tail),
                                SYNC_PROFILE_STEPS)
         res_mid = res[2] if len(res) == 3 else None
-        rec = {"steps_per_s": SSGD_STEPS / secs,
-               "wall_us_per_step": secs * 1e6 / SSGD_STEPS,
+        rec = {"steps_per_s": SYNC_STEPS / secs,
+               "wall_us_per_step": secs * 1e6 / SYNC_STEPS,
                "device_us_per_step": prof["device_us"],
                "device_ops_per_step": prof["device_ops"],
-               "device_idle_share": 1.0 - prof["device_us"] * SSGD_STEPS
+               "device_idle_share": 1.0 - prof["device_us"] * SYNC_STEPS
                / (secs * 1e6),
                "bytes_wire_per_sync": sync.stats()["bytes_wire"],
                "rounds_per_sync": sync.stats()["rounds"],
@@ -4214,7 +4235,7 @@ def _sync_ssgd(dev, sg: dict) -> dict:
         warm, res, secs, launches = _timed(
             lambda: fn(X2, None, None, *te, w0, *tail))
         _want_launches(f"fused {sched}", launches,
-                       {"fused_grad_sum_packed": SYNC_SHARDS * SSGD_STEPS})
+                       {"fused_grad_sum_packed": SYNC_SHARDS * SYNC_STEPS})
         if not torch.equal(warm[0], res[0]):
             raise AssertionError(f"fused {sched}: two runs differ")
         # the card against the CPU port (B5's plain version draws the
@@ -4231,11 +4252,11 @@ def _sync_ssgd(dev, sg: dict) -> dict:
         if err > tol:
             raise AssertionError(f"fused {sched}: card vs CPU port after "
                                  f"{SYNC_CHECK_STEPS} steps: {err}")
-        fused[sched] = {"steps_per_s": SSGD_STEPS / secs,
+        fused[sched] = {"steps_per_s": SYNC_STEPS / secs,
                         "launches": launches["fused_grad_sum_packed"],
                         "card_vs_cpu_5_steps": err}
         print(f"[sync] fused (B5) {sched} on {SYNC_SHARDS} shards: "
-              f"{SSGD_STEPS / secs!r} steps/s; B5 "
+              f"{SYNC_STEPS / secs!r} steps/s; B5 "
               f"{fused[sched]['launches']}; replays bitwise; card vs CPU "
               f"after {SYNC_CHECK_STEPS} steps {err!r} (tol {tol!r}); max "
               f"|w - w_dense| "
@@ -4723,12 +4744,15 @@ def run_sync(dev, sg: dict) -> dict:
     """Phase 13: the sync layer (``parallel/comms.py``, ``ssp.py``,
     ``membership.py``) on the SGD family, each path driven with the
     launch counters set to 0 just before it and read just after."""
-    out = {"ssgd": _sync_ssgd(dev, sg)}
-    out["compare"] = _sync_compare(dev)
-    out["comm_bound"] = _sync_comm_bound(dev)
-    out["ssp"] = _sync_ssp(dev, sg)
-    out["local"] = _sync_local(dev, sg)
-    out["breast_cancer"] = _sync_breast_cancer(dev)
+    out, t0 = {}, time.perf_counter()
+    for key, part in (("ssgd", lambda: _sync_ssgd(dev, sg)),
+                      ("compare", lambda: _sync_compare(dev)),
+                      ("comm_bound", lambda: _sync_comm_bound(dev)),
+                      ("ssp", lambda: _sync_ssp(dev, sg)),
+                      ("local", lambda: _sync_local(dev, sg)),
+                      ("breast_cancer", lambda: _sync_breast_cancer(dev))):
+        out[key] = part()
+        t0 = _phase(f"sync: {key}", t0)
     print(f"[sync] summary: {json.dumps({k: v for k, v in out.items() if k in ('compare', 'comm_bound', 'ssp')})}")
     return out
 
@@ -4737,13 +4761,13 @@ def run_sync(dev, sg: dict) -> dict:
 
 #: the out-of-core paths at bench.py's row widths (bench.py:2375-2652),
 #: depths cut for the script's time (PERF.md §4 lists each cut):
-#: streamed SSGD on a 2²⁵-row cache (bench.py: 2²⁷), 125 features +
+#: streamed SSGD on a 2²⁴-row cache (bench.py: 2²⁷), 125 features +
 #: bias, pack 16, bf16, 2048-row blocks; 4 sampled blocks a step
 #: (bench.py's 2 MB) and 64 (32 MB), STREAM_STEPS steps, best of
 #: STREAM_REPEATS; STREAM_CHECK_STEPS streamed steps against resident
 #: fused_gather, on 1 and STREAM_CHECK_SHARDS shards, and a run
 #: segmented at STREAM_SEGMENT
-STREAM_ROWS, STREAM_FEATURES, STREAM_PACK, STREAM_GBR = 1 << 25, 125, 16, 2048
+STREAM_ROWS, STREAM_FEATURES, STREAM_PACK, STREAM_GBR = 1 << 24, 125, 16, 2048
 STREAM_SAMPLED, STREAM_STEPS, STREAM_REPEATS = (4, 64), 30, 3
 STREAM_CHECK_STEPS, STREAM_CHECK_SHARDS, STREAM_SEGMENT = 100, 4, 50
 #: virtual SSGD at bench.py's geometry (10⁹ logical rows × 30 features,
@@ -4751,10 +4775,10 @@ STREAM_CHECK_STEPS, STREAM_CHECK_SHARDS, STREAM_SEGMENT = 100, 4, 50
 #: run twice (bitwise), host peak RSS growth under 1 GB
 VIRTUAL_ROWS, VIRTUAL_FEATURES, VIRTUAL_GBR = 1_000_000_000, 30, 131072
 VIRTUAL_FRACTION, VIRTUAL_STEPS, VIRTUAL_HELDOUT = 0.01, 8, 8192
-#: minibatch k-means on a streamed mixture of 2²⁵ points (bench.py:
+#: minibatch k-means on a streamed mixture of 2²⁴ points (bench.py:
 #: 2²⁸), k 8, dim 16, 2048-row blocks, 4 blocks a step, 30 steps; every
 #: true mean some centre's nearest within OOC_KM_RECOVER (bench.py's check)
-OOC_KM_POINTS, OOC_KM_K, OOC_KM_DIM, OOC_KM_BLOCK = 1 << 25, 8, 16, 2048
+OOC_KM_POINTS, OOC_KM_K, OOC_KM_DIM, OOC_KM_BLOCK = 1 << 24, 8, 16, 2048
 OOC_KM_STEPS, OOC_KM_BLOCKS, OOC_KM_RECOVER = 30, 4, 0.5
 #: streamed ALS on a 16384² rank-64 f32 R (bench.py: 65536²), 512-row
 #: blocks, lam 0, one sweep and one rmse pass
@@ -4997,9 +5021,7 @@ def _stream_ssgd(dev, workdir: str) -> dict:
                              "straight one")
     print(f"[stream] segmented at {STREAM_SEGMENT} (stopped after the first "
           f"segment, resumed) = straight bit for bit")
-    del X2
-    for suffix in (".bin", ".meta.json", ".test.npz"):
-        os.remove(path + suffix)
+    del X2     # the cache stays for phase 16
     return out
 
 
@@ -5113,9 +5135,7 @@ def _kmeans_streamed(dev, workdir: str) -> dict:
           f"{nbytes} bytes) made in {gen_s!r} s; {OOC_KM_STEPS} steps of "
           f"{OOC_KM_BLOCKS} blocks: {json.dumps(out)}; centres bit for bit "
           f"across streamed, virtual, resident; every true mean recovered")
-    del dss, ds_s
-    for suffix in (".bin", ".meta.json"):
-        os.remove(path + suffix)
+    del dss, ds_s     # the cache stays for phase 16
     return out
 
 
@@ -5171,24 +5191,22 @@ def _als_streamed(dev, workdir: str) -> dict:
     return out
 
 
-def run_out_of_core(dev) -> dict:
+#: phase 14's caches, under the checkout's ``build/``; phase 16 reads
+#: the streamed SSGD and k-means ones, then the directory is deleted
+OOC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "phase14")
+
+
+def run_out_of_core(dev, workdir: str) -> dict:
     """Phase 14: the data subsystem's four consumers, each path driven
     with the launch counters set to 0 just before it and read just
-    after; the caches live under ``build/`` and are deleted."""
-    import shutil
-
-    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "phase14")
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
-    try:
-        # virtual first: its host RSS check reads the peak so far
-        out = {"virtual": _virtual_ssgd(dev)}
-        out["stream"] = _stream_ssgd(dev, workdir)
-        out["kmeans"] = _kmeans_streamed(dev, workdir)
-        out["als"] = _als_streamed(dev, workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    after; the streamed SSGD (``stream``) and k-means (``points``)
+    caches stay in ``workdir`` for phase 16, the ALS cache is deleted."""
+    # virtual first: its host RSS check reads the peak so far
+    out = {"virtual": _virtual_ssgd(dev)}
+    out["stream"] = _stream_ssgd(dev, workdir)
+    out["kmeans"] = _kmeans_streamed(dev, workdir)
+    out["als"] = _als_streamed(dev, workdir)
     return out
 
 
@@ -5197,8 +5215,9 @@ def run_out_of_core(dev) -> dict:
 #: streamed PageRank at bench.py's geometry (bench.py:2753-2810,
 #: PR100M_* :111-114): α 1.6, average in-degree 16, 65,536-edge blocks,
 #: chunks of 2²⁴ edges, combine auto, one warm-up sweep and GRAPH_SWEEPS
-#: timed ones; V cut from 10⁸ (19.2 GB of edges) to 2²⁵ (PERF.md §4)
-GRAPH_VERTICES, GRAPH_AVG_IN, GRAPH_ALPHA = 1 << 25, 16.0, 1.6
+#: timed ones; V cut from 10⁸ (19.2 GB of edges) to 2²³ to fit the
+#: script's time (PERF.md §4)
+GRAPH_VERTICES, GRAPH_AVG_IN, GRAPH_ALPHA = 1 << 23, 16.0, 1.6
 GRAPH_BLOCK, GRAPH_CHUNK, GRAPH_SWEEPS = 1 << 16, 1 << 24, 2
 #: staged batches in the profiled window of a sweep (its steady state)
 GRAPH_WINDOW_BATCHES = 300
@@ -5373,7 +5392,7 @@ def _graph_checks(dev, workdir: str) -> dict:
 
 
 def run_graph(dev) -> dict:
-    """Phase 15: streamed PageRank at bench.py's geometry (V cut to 2²⁵)
+    """Phase 15: streamed PageRank at bench.py's geometry (V cut to 2²³)
     through the graph engine and B7 on each staged batch, then the
     engine's checks at V 2²⁰; the caches live under ``build/`` and are
     deleted."""
@@ -5396,7 +5415,7 @@ def run_graph(dev) -> dict:
         native.reset_calls()
         t0 = time.perf_counter()
         _, header = graphs.build_powerlaw_block_cache(
-            os.path.join(workdir, "pl25"), n_vertices=GRAPH_VERTICES,
+            os.path.join(workdir, "pl"), n_vertices=GRAPH_VERTICES,
             n_shards=1, avg_in_degree=GRAPH_AVG_IN, alpha=GRAPH_ALPHA,
             seed=0, block_edges=GRAPH_BLOCK, chunk_edges=GRAPH_CHUNK)
         gen_s = time.perf_counter() - t0
@@ -5413,7 +5432,7 @@ def run_graph(dev) -> dict:
               f"binding ({packs['native']} pack_edge_rows calls native, "
               f"{packs['numpy']} numpy)")
         mesh = get_mesh(data=1, device=dev)
-        gd = graphs.open_graph_dataset(os.path.join(workdir, "pl25"), mesh)
+        gd = graphs.open_graph_dataset(os.path.join(workdir, "pl"), mesh)
         cfg = graphs.StreamedPageRankConfig(n_iterations=GRAPH_SWEEPS)
         ids = engine._block_schedule(gd.ds.n_blocks, 1, cfg.batch_blocks)
         n_batches = len(ids)
@@ -5500,11 +5519,32 @@ MP_KERNELS = {"ssgd_fused_gather": ("B1",), "ssgd_fused": ("B5",),
               "sync_ma_int8": ("B2",), "sync_ma_topk": ("B2",),
               # bench.py's straggler bench on `bernoulli`: no kernel
               "sync_bsp_straggler": (), "sync_ssp_straggler": ()}
+#: the workloads that crossed processes last and their kernels;
+#: ``serve_dense`` merges with a matmul (no B9), minibatch k-means and
+#: ALS and the closure run torch ops
+MP_A9_KERNELS = {"als": (), "serve_sparse": ("B9",), "serve_dense": (),
+                 "closure_dense": (), "closure_sparse": (),
+                 "stream_ssgd": ("B1",), "stream_kmeans": (),
+                 "stream_pagerank": ("B7",),
+                 "ring_contiguous": ("B11", "B12"),
+                 "ring_zigzag": ("B11", "B12"), "ulysses": ("B11", "B12")}
+#: the closure of bench.py's DAG at V 6800 (the host DP's count,
+#: ``utils/datasets.closure_host_count``)
+MP_CLOSURE_PATHS = 10_316_480
 MP_TIMEOUT_S = 600
 #: phase 16's results a rank holds only its rows of (the replicas'
 #: models, which the ``local_sgd`` table cuts over the data axis)
 MP_ROW_SHARDED = ("ma_fused_train/ws", "ma_fused_gather/ws",
-                  "sync_ma_int8/ws", "sync_ma_topk/ws")
+                  "sync_ma_int8/ws", "sync_ma_topk/ws", "als/U",
+                  "als_ckpt/U", "closure_dense/rows") + tuple(
+    f"{w}/{k}_sha" for w in ("ring_contiguous", "ring_zigzag", "ulysses")
+    for k in ("out", "dq", "dk", "dv"))
+#: results that depend on the timing of a run (the batches a closed loop
+#: made), kept but not compared
+MP_UNCOMPARED = ("serve_sparse/batches", "serve_dense/batches")
+#: results a rank holds an uneven part of: the sparse closure's pairs, a
+#: process's slots of the buffer; the ranks' parts in order are the whole
+MP_UNEVEN_ROWS = ("closure_sparse/rows",)
 #: the one process's results of the checkpoint split across a restart
 #: that the ranks do not make (they write the first half)
 MP_ONE_PROCESS_ONLY = ("sync_ckpt/w_resumed", "sync_ckpt/w")
@@ -5550,28 +5590,35 @@ def _mp_load(out: str, tag: str) -> tuple:
         return arrays, json.load(f)
 
 
-def run_multiproc(dev) -> dict:
+def run_multiproc(dev, ooc_dir: str) -> dict:
     """Phase 16: two gloo ranks on the card, one process alone and a
     world-1 NCCL group, each its own process; their results compared bit
-    for bit. Returns each kernel's launches a rank and the rates."""
+    for bit. ``ooc_dir`` holds phase 14's caches. Returns each kernel's
+    launches a rank and the rates."""
     import torch
+
+    from tpu_distalg_torch.tools import multiproc_run
 
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()   # the card's memory to the children
     names = list(MP_KERNELS)
+    a9 = [w for w in multiproc_run.A9_WORKLOADS if w != "als_ckpt"]
     with tempfile.TemporaryDirectory(prefix="chip-smoke-mp-") as out:
         nccl_out = os.path.join(out, "nccl")
         os.makedirs(nccl_out)
+        common = ["--ooc-dir", ooc_dir, "--cache-dir", out]
+        everything = ["--workloads", ",".join(multiproc_run.WORKLOADS)]
         t0 = time.perf_counter()
         _mp_spawn(out, "rank", [
             ["--init", f"file://{out}/rendezvous", "--world", "2",
-             "--rank", str(r)] for r in (0, 1)])
+             "--rank", str(r), *everything, *common] for r in (0, 1)])
         t_pair = time.perf_counter() - t0
-        _mp_spawn(out, "single", [["--no-profile"]])
+        _mp_spawn(out, "single", [["--no-profile", *everything, *common]])
         _mp_spawn(nccl_out, "nccl", [
             ["--init", f"file://{nccl_out}/rendezvous", "--world", "1",
-             "--rank", "0", "--workloads", "ssgd_fused_gather,sync_hier",
-             "--no-profile"]])
+             "--rank", "0", "--workloads", ",".join(
+                 ["ssgd_fused_gather", "sync_hier",
+                  *multiproc_run.A9_WORKLOADS]), "--no-profile", *common]])
         single, s_info = _mp_load(out, "single")
         ranks = [_mp_load(out, f"rank{r}") for r in (0, 1)]
         nccl, n_info = _mp_load(nccl_out, "rank0")
@@ -5584,14 +5631,22 @@ def run_multiproc(dev) -> dict:
     if (n_info["backend"], n_info["process_count"]) != ("nccl", 1):
         raise AssertionError(f"world-1 group: backend {n_info['backend']}")
     for key, whole in single.items():
-        if key in MP_ONE_PROCESS_ONLY:
+        if key in MP_ONE_PROCESS_ONLY or key in MP_UNCOMPARED:
             continue
         for r, (arrays, _) in enumerate(ranks):
             got = arrays[key]
-            # rank r holds its replicas of a row-sharded result
-            n = whole.shape[0] // 2
-            want = whole[r * n:(r + 1) * n] if key in MP_ROW_SHARDED \
-                else whole
+            want = whole
+            if key in MP_UNEVEN_ROWS:
+                lo = sum(len(a[key]) for a, _ in ranks[:r])
+                want = whole[lo:lo + len(got)]
+                if r == 1 and lo + len(got) != len(whole):
+                    raise AssertionError(f"phase 16: the ranks hold "
+                                         f"{lo + len(got)} of {key}'s "
+                                         f"{len(whole)} rows")
+            elif key in MP_ROW_SHARDED:
+                # rank r holds its rows of a row-sharded result
+                n = whole.shape[0] // 2
+                want = whole[r * n:(r + 1) * n]
             if got.shape != want.shape:
                 raise AssertionError(f"phase 16: rank {r}'s {key} is "
                                      f"{got.shape}, want {want.shape}")
@@ -5601,6 +5656,8 @@ def run_multiproc(dev) -> dict:
                     f"× 2 shards (largest difference "
                     f"{float(np.abs(got - want).max())!r})")
     for key, got in nccl.items():
+        if key in MP_UNCOMPARED:
+            continue
         if got.tobytes() != single[key].tobytes():
             raise AssertionError(f"phase 16: the NCCL group's {key} differs "
                                  f"from one process's")
@@ -5609,13 +5666,24 @@ def run_multiproc(dev) -> dict:
         raise AssertionError("phase 16: the run the pair checkpointed and "
                              "one process resumed differs from the "
                              "straight run")
+    for f in ("U", "V"):
+        if single[f"als_ckpt/{f}"].tobytes() != single[f"als/{f}"].tobytes():
+            raise AssertionError(f"phase 16: ALS resumed from its "
+                                 f"checkpoint differs from the straight "
+                                 f"fit ({f})")
+    for name in ("closure_dense", "closure_sparse"):
+        if int(single[f"{name}/n"]) != MP_CLOSURE_PATHS:
+            raise AssertionError(f"phase 16: {name} closed to "
+                                 f"{int(single[f'{name}/n'])} paths, not "
+                                 f"{MP_CLOSURE_PATHS}")
     print(f"[multiproc] 2 gloo ranks on one card ({t_pair!r} s for the "
           f"pair, start-up and data included): every result of "
-          f"{len(single) - len(MP_ONE_PROCESS_ONLY)} equals one process "
-          f"× 2 shards (the sync_* runs × 4) bit for bit; a run the pair "
-          f"checkpointed at step {_mp_half()} and one process resumed "
-          f"equals the straight run; a world-1 NCCL group's "
-          f"ssgd_fused_gather and sync_hier too")
+          f"{len(single) - len(MP_ONE_PROCESS_ONLY) - len(MP_UNCOMPARED)} "
+          f"equals one process × 2 shards (the sync_* runs × 4) bit for "
+          f"bit; a run the pair checkpointed at step {_mp_half()} and one "
+          f"process resumed equals the straight run, ALS resumed from "
+          f"its checkpoint the straight fit; a world-1 NCCL group's "
+          f"ssgd_fused_gather, sync_hier and {', '.join(a9)} too")
     rates, launches = {}, {}
     for name in names:
         st = [info["stats"][name] for _, info in ranks]
@@ -5652,6 +5720,47 @@ def run_multiproc(dev) -> dict:
               f"profiled window "
               f"{rates[name]['window_wall_us_per_step']} µs a step wall, "
               f"{rates[name]['device_us_per_step']} µs device")
+    for name in a9:
+        st = [info["stats"][name] for _, info in ranks]
+        one = s_info["stats"][name]
+        d = [x["dist"] for x in st]
+        rates[name] = {
+            "steps": one["steps"],
+            "steps_per_s_ranks": [x["steps_per_s"] for x in st],
+            "steps_per_s_one_process": one["steps_per_s"],
+            "steps_per_s_nccl": n_info["stats"][name]["steps_per_s"],
+            "seconds_ranks": [x["seconds"] for x in st],
+            "seconds_one_process": one["seconds"],
+            "collectives": [x["collectives"] for x in d],
+            "bytes_sent": [x["bytes_sent"] for x in d],
+            "host_copies": [x["host_copies"] for x in d],
+            "host_copy_share": [x["host_copy_share"] for x in st],
+            "setup_seconds": [x["setup_seconds"] for x in st]}
+        launches[name] = [x["launches"] for x in st]
+        print(f"[multiproc] {name}: {rates[name]['seconds_ranks']} s a "
+              f"rank ({rates[name]['steps_per_s_ranks']} steps/s, "
+              f"{one['steps']} steps) vs {one['seconds']!r} s in one "
+              f"process, {rates[name]['steps_per_s_nccl']!r} steps/s in "
+              f"the NCCL group; {rates[name]['collectives']} collectives, "
+              f"{rates[name]['bytes_sent']} B sent, "
+              f"{rates[name]['host_copies']} host copies "
+              f"({rates[name]['host_copy_share']} of the wall time) a "
+              f"rank; launches a rank {launches[name]}; set-up "
+              f"{rates[name]['setup_seconds']} s")
+    for key, wrapper in (("B1", "fused_grad_sum_gathered"),
+                         ("B7", "spmv_table"), ("B9", "fused_matmul_topk"),
+                         ("B11", "flash_attention_block"),
+                         ("B12", "flash_attention_backward_block")):
+        for r in (0, 1):
+            n = sum(launches[w][r].get(wrapper, 0)
+                    for w, keys in MP_A9_KERNELS.items() if key in keys)
+            if n < 1:
+                raise AssertionError(f"phase 16: rank {r} launched {key} "
+                                     f"no time on the workloads that "
+                                     f"cross processes now")
+    for name in ("closure_dense", "closure_sparse"):
+        print(f"[multiproc] {name}: {int(single[f'{name}/n'])} paths in "
+              f"{int(single[f'{name}/rounds'])} rounds on every arm")
     n1 = n_info["stats"]["ssgd_fused_gather"]
     print(f"[multiproc] NCCL world 1, ssgd_fused_gather: "
           f"{n1['steps_per_s']!r} steps/s, {n1['dist']['collectives']} "
@@ -5688,8 +5797,10 @@ def _mp_half() -> int:
 
 
 def _mp_launches(mp: dict, key: str) -> dict:
-    """Phase 16's launches a rank of the kernel ``key``, by workload."""
-    return {name: mp["launches"][name] for name, keys in MP_KERNELS.items()
+    """Phase 16's launches a rank of the kernel ``key``, by workload
+    (each rank's, for the workloads that crossed last)."""
+    return {name: mp["launches"][name]
+            for name, keys in {**MP_KERNELS, **MP_A9_KERNELS}.items()
             if key in keys}
 
 
@@ -5777,14 +5888,20 @@ def main() -> int:
     del sg["X"], sg["y"]
     t0 = _phase("mc + closure + fixed + scale", t0)
 
-    ooc = run_out_of_core(dev)
-    t0 = _phase("out-of-core: streamed + virtual ssgd, kmeans, als", t0)
+    shutil.rmtree(OOC_DIR, ignore_errors=True)
+    os.makedirs(OOC_DIR)
+    try:
+        ooc = run_out_of_core(dev, OOC_DIR)
+        t0 = _phase("out-of-core: streamed + virtual ssgd, kmeans, als", t0)
+        # phase 16 before phase 15: it reads phase 14's caches, and the
+        # disk then never holds them beside phase 15's graph cache
+        mp = run_multiproc(dev, OOC_DIR)
+        t0 = _phase("the data axis across processes", t0)
+    finally:
+        shutil.rmtree(OOC_DIR, ignore_errors=True)
 
     graph = run_graph(dev)
     t0 = _phase("graph engine: streamed pagerank", t0)
-
-    mp = run_multiproc(dev)
-    t0 = _phase("the data axis across processes", t0)
 
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"
@@ -5794,6 +5911,7 @@ def main() -> int:
         "replaces": "tpu_distalg/ops/pallas_topk.py:109",
         "launches": launches, **rec,
         "sharded_launches": sharded["sparse"]["launches"],
+        "process_launches": _mp_launches(mp, "B9"),
         **{f"slice_{k}": sharded["slice"][k]
            for k in ("ms", "wall_ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by")}}]
@@ -5858,7 +5976,7 @@ def main() -> int:
             "source": "tpu_distalg_torch/csrc/attention.cu",
             "replaces": f"tpu_distalg/ops/pallas_attention.py:{line}",
             "launches": att["launches"]["32k 4-shard ring"][key],
-            **att["recs"][key],
+            **att["recs"][key], "process_launches": _mp_launches(mp, key),
             "sass": {k: v for k, v in att["sass"].items()
                      if k.startswith(key)}})
     kernels.append({

@@ -42,9 +42,11 @@ The lines printed match the JAX package's ``tda lr``, ``tda ssgd``,
 cpu`` is given. ``--multihost`` joins a ``torch.distributed`` group
 (:func:`..parallel.mesh.multihost_initialize`) and every process prints
 the same result lines, ``--comm`` schedules, ``--sync ssp`` and a
-``--checkpoint-dir`` the processes share included; what is not ported
-across processes yet (``als``, ``closure``, ``serve``, the out-of-core
-backends) exits naming ROADMAP A9 instead of running on one process.
+``--checkpoint-dir`` the processes share included. ``als``, ``closure``
+and the out-of-core backends run there too (a disk cache is built by
+process 0 first and then opened by the others); ``serve`` runs with
+process 0 as the leader, which drives the load and prints the serving
+lines, and every other process following its batches.
 """
 
 from __future__ import annotations
@@ -619,6 +621,7 @@ def _run_ssgd_stream(args, mesh) -> None:
     import time
 
     from tpu_distalg_torch.models import ssgd, ssgd_stream
+    from tpu_distalg_torch.parallel.collectives import rank0_first
     from tpu_distalg_torch.utils import datasets
 
     if args.mega_steps is not None:
@@ -634,10 +637,11 @@ def _run_ssgd_stream(args, mesh) -> None:
         raise SystemExit(
             "--sync ssp applies to the in-memory trainers; "
             "the streamed trainer (--stream-cache) runs BSP")
-    X2, meta, (X_te, y_te) = datasets.streamed_packed_cache(
-        args.stream_cache, n_rows=args.stream_rows, n_features=125,
-        n_shards=mesh.n_data, pack=args.fused_pack,
-        gather_block_rows=args.gather_block_rows)
+    X2, meta, (X_te, y_te) = rank0_first(
+        mesh, lambda: datasets.streamed_packed_cache(
+            args.stream_cache, n_rows=args.stream_rows, n_features=125,
+            n_shards=mesh.n_data, pack=args.fused_pack,
+            gather_block_rows=args.gather_block_rows))
     cfg = ssgd.SSGDConfig(
         n_iterations=args.n_iterations, eta=args.eta,
         mini_batch_fraction=args.mini_batch_fraction, lam=args.lam,
@@ -695,6 +699,7 @@ def _run_ssgd(args) -> None:
 
 def _run_kmeans(args) -> None:
     from tpu_distalg_torch.models import kmeans as m
+    from tpu_distalg_torch.parallel.collectives import rank0_first
     from tpu_distalg_torch.utils import datasets
 
     mesh = _mesh(args)
@@ -708,10 +713,10 @@ def _run_kmeans(args) -> None:
                 "--checkpoint-dir is not supported by the minibatch "
                 "engine yet (state is tiny; rerun instead)")
         _need_stream_cache(args)
-        ds, _ = builders.gaussian_points_dataset(
+        ds, _ = rank0_first(mesh, lambda: builders.gaussian_points_dataset(
             mesh, args.scale_points or args.n_points or (1 << 20),
             dim=args.dim, k=args.k, seed=0, block_rows=args.block_rows,
-            backend=args.data_backend, path=args.stream_cache)
+            backend=args.data_backend, path=args.stream_cache))
         res = m.fit_minibatch(ds, m.KMeansConfig(k=args.k),
                               n_steps=args.minibatch_steps or 100,
                               mini_batch_blocks=args.mini_batch_blocks)
@@ -751,6 +756,7 @@ def _run_als(args) -> None:
     streamed the sweep over R streamed from a ShardedDataset
     (``tpu_distalg/cli.py:1546-1575``)."""
     from tpu_distalg_torch.models import als
+    from tpu_distalg_torch.parallel.collectives import rank0_first
 
     mesh = _mesh(args)
     cfg = als.ALSConfig(lam=args.lam, m=args.m, n=args.n, k=args.k,
@@ -762,10 +768,10 @@ def _run_als(args) -> None:
             raise SystemExit("--checkpoint-dir is not supported by the "
                              "streamed ALS path yet")
         _need_stream_cache(args)
-        ds, _ = builders.rank_k_rows_dataset(
+        ds, _ = rank0_first(mesh, lambda: builders.rank_k_rows_dataset(
             mesh, args.m, args.n, args.k, seed=cfg.seed,
             block_rows=args.block_rows, backend=args.data_backend,
-            path=args.stream_cache)
+            path=args.stream_cache))
         res = als.fit_streamed(ds, cfg, rmse_every=args.rmse_every)
     else:
         res = als.fit(mesh, cfg, checkpoint_dir=args.checkpoint_dir,
@@ -862,6 +868,7 @@ def _run_pagerank_engine(args, edges, n_v: int, mesh, backend: str):
     import numpy as np
 
     from tpu_distalg_torch import graphs
+    from tpu_distalg_torch.parallel.collectives import rank0_first
 
     # keyed on the edge content too: two graphs of one vertex count must
     # not meet in one stale cache
@@ -874,9 +881,9 @@ def _run_pagerank_engine(args, edges, n_v: int, mesh, backend: str):
     if args.stream_cache is None:
         print(f"[pagerank] edge-block cache: {path} (set --stream-cache "
               f"to keep it elsewhere)", file=sys.stderr)
-    graphs.build_edge_block_cache(
+    rank0_first(mesh, lambda: graphs.build_edge_block_cache(
         edges, path, n_shards=mesh.n_data, block_edges=args.block_edges,
-        n_vertices=n_v, source={"kind": "edges", "sha1": sha})
+        n_vertices=n_v, source={"kind": "edges", "sha1": sha}))
     gd = graphs.open_graph_dataset(path, mesh, backend=backend)
     res = graphs.run_streamed_pagerank(
         gd, graphs.StreamedPageRankConfig(
@@ -890,21 +897,6 @@ def _run_pagerank_engine(args, edges, n_v: int, mesh, backend: str):
             f"wire/sweep; accounting sparse {st['bytes_wire']} B vs "
             f"dense-ring {st['bytes_dense_ring']} B]")
     return res, tail
-
-
-def _refuse_across_processes(args) -> None:
-    """What is not ported across processes exits naming ROADMAP A9; it
-    is never run on one process instead."""
-    what = None
-    if args.cmd in ("als", "closure", "serve"):
-        what = f"{args.cmd} across processes"
-    elif _uses_data(args):
-        what = ("the out-of-core data backends (--data-backend "
-                "streamed|virtual, --stream-cache, minibatch k-means) "
-                "across processes")
-    if what is not None:
-        raise SystemExit(f"--multihost: {what} waits for ROADMAP A9 "
-                         f"(it is not run on one process instead)")
 
 
 def _dispatch(args) -> None:
@@ -955,7 +947,6 @@ def main(argv=None) -> int:
         return 0
     from tpu_distalg_torch.parallel import mesh as pmesh
 
-    _refuse_across_processes(args)
     pmesh.multihost_initialize(args.coordinator_address,
                                args.num_processes, args.process_id,
                                device=args.device)
@@ -969,14 +960,16 @@ def main(argv=None) -> int:
 
 
 def _run_serve(args) -> None:
-    """``serve``: load the artifacts and drive each model closed-loop."""
-    import numpy as np
-
+    """``serve``: load the artifacts and drive each model closed-loop
+    (the leader; a follower runs the batches the leader sends)."""
     from tpu_distalg_torch import serve
     from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.parallel.mesh import process_count
 
-    mesh = get_mesh(data=args.n_slices or 1, model=args.model_slices,
-                    device=args.device)
+    # one data shard a process at least: the queries are replicated
+    # over the data axis, the item factors split over the model axis
+    mesh = get_mesh(data=args.n_slices or process_count(),
+                    model=args.model_slices, device=args.device)
     cfg = serve.ServeConfig(
         max_batch=args.max_batch, max_delay_ms=args.max_delay_ms,
         queue_depth=args.queue_depth, k_top=args.k_top,
@@ -987,23 +980,43 @@ def _run_serve(args) -> None:
             model = server.add_artifact(path)
             print(f"[serve] {model.kind} model {model.name!r} from "
                   f"{path} (meta: {model.meta})")
-        rng = np.random.default_rng(0)
-        for name, model in server.models.items():
-            payloads = _serve_payloads(model, rng, args.requests)
-            _, info = serve.run_closed_loop(
-                server, name, payloads,
-                concurrency=args.concurrency, retries=2)
-            print(f"[serve] {name}: {info['ok']}/{len(payloads)} "
-                  f"replies at {info['qps']:.2f} req/s (closed loop, "
-                  f"{info['concurrency']} workers, "
-                  f"{info['retries']} retries)")
-        s = server.emit_counters()
-        print(f"[serve] total: {s['replies']} replies in "
-              f"{s['batches']} micro-batch(es), p50 {s['p50_ms']:.3f} "
-              f"ms / p99 {s['p99_ms']:.3f} ms, {s['shed']} shed, max "
-              f"queue depth {s['max_queue_depth']}")
-    finally:
-        server.close()
+        if not server.leader:
+            n = server.follow()
+            print(f"[serve] follower {mesh.process_index}: ran {n} "
+                  f"batch(es) the leader sent")
+            return
+        _drive_serve(server, args)
+    except BaseException:
+        server.close(abort=True)
+        raise
+    server.close()
+
+
+def _drive_serve(server, args) -> None:
+    """The leader's closed-loop load over every served model, and the
+    serving lines."""
+    import numpy as np
+
+    from tpu_distalg_torch import serve
+
+    rng = np.random.default_rng(0)
+    for name, model in server.models.items():
+        payloads = _serve_payloads(model, rng, args.requests)
+        _, info = serve.run_closed_loop(
+            server, name, payloads,
+            concurrency=args.concurrency, retries=2)
+        print(f"[serve] {name}: {info['ok']}/{len(payloads)} "
+              f"replies at {info['qps']:.2f} req/s (closed loop, "
+              f"{info['concurrency']} workers, "
+              f"{info['retries']} retries)")
+    s = server.emit_counters()
+    print(f"[serve] total: {s['replies']} replies in "
+          f"{s['batches']} micro-batch(es), p50 {s['p50_ms']:.3f} "
+          f"ms / p99 {s['p99_ms']:.3f} ms, {s['shed']} shed, max "
+          f"queue depth {s['max_queue_depth']}")
+    if server.broken is not None:
+        raise SystemExit(f"[serve] the serving group was lost: "
+                         f"{server.broken}")
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ place the same bytes:
   ``streamed``   a disk ``np.memmap`` (a packed cache, ``cache.py``),
                  the OS page cache its only memory.
 
-:meth:`ShardedDataset.stage` gives the same ``(n_shards,
+:meth:`ShardedDataset.stage` gives the same ``(shards held,
 n_sampled·block_rows, row_width)`` tensor from every backend, bit for
 bit, so a step over staged batches trains the same whatever holds the
 bytes. :meth:`ShardedDataset.stream` runs the prefetch pipeline
@@ -43,6 +43,15 @@ runs.
 dtypes: numpy has no bfloat16 on the card's machine, so bfloat16 rows
 are held as their ``np.uint16`` bits; a uint16 storage means bfloat16
 rows unless ``dtype`` says otherwise.
+
+Across processes (a mesh whose data axis spans ``torch.distributed``
+processes) every process opens the same host storage (the same cache,
+the same array) and stages only the blocks of its own shards
+(``mesh.local_data``): block ids are drawn for every shard, and
+:meth:`ShardedDataset.stage` cuts them to the process's own, so a
+staged batch is ``(n_held, n_sampled·block_rows, row_width)``. Each
+process runs its own prefetch pipeline (pinned buffers, side stream).
+A resident placement holds the process's own rows only.
 
 Telemetry: each gather is a ``data:gather`` span, each H2D a
 ``data:h2d`` span (with their fault seams), and the ``data.*``
@@ -184,18 +193,21 @@ class ShardedDataset:
     ``block_rows`` is the gather granularity in storage rows (packed
     rows for a packed layout: ``gather_block_rows // pack``); ``meta``
     carries the layout's geometry for consumers; ``dtype`` is the torch
-    dtype of the rows (default: the storage's, uint16 as bfloat16)."""
+    dtype of the rows (default: the storage's, uint16 as bfloat16).
+    Across processes host storage is the whole matrix and resident
+    storage this process's rows of it (:meth:`from_array` cuts them)."""
 
     def __init__(self, storage, mesh, *, block_rows: int,
                  meta: dict | None = None, backend: str | None = None,
                  dtype: torch.dtype | None = None):
-        mesh.require_one_process("the out-of-core data backends")
         self.backend = backend or _infer_backend(storage)
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"unknown data backend {self.backend!r}; choose from "
                 f"{BACKENDS}")
         n2, pd = storage.shape
+        if self.backend == "resident":
+            n2 *= mesh.process_count
         n_shards = mesh.n_data
         if n2 % n_shards:
             raise ValueError(
@@ -216,7 +228,7 @@ class ShardedDataset:
                                  f"the mesh on {mesh.device}")
             self.dtype = storage.dtype
             self.itemsize = storage.element_size()
-            self._blocks = storage.reshape(n2 // block_rows,
+            self._blocks = storage.reshape(storage.shape[0] // block_rows,
                                            block_rows * pd)
         else:
             if not isinstance(storage, np.ndarray):
@@ -227,7 +239,7 @@ class ShardedDataset:
                                  "of a block are gathered as one run)")
             self.dtype = _row_dtype(storage.dtype, dtype)
             self.itemsize = int(storage.dtype.itemsize)
-            self._blocks = storage.reshape(n2 // block_rows,
+            self._blocks = storage.reshape(storage.shape[0] // block_rows,
                                            block_rows * pd)
         self.storage = storage
         self.mesh = mesh
@@ -239,6 +251,15 @@ class ShardedDataset:
         self.pd = int(pd)
         self.n2_local = int(n2_local)
         self.n_blocks = int(n2_local // block_rows)
+        #: the global shards this process stages, and their count
+        self.held = mesh.local_data
+        self.n_held = len(self.held)
+        # each held shard's first block in ``_blocks`` (resident storage
+        # holds only this process's shards)
+        first = (range(self.n_held) if self.backend == "resident"
+                 else self.held)
+        self._block_base = np.asarray(first, np.int64)[:, None] * \
+            self.n_blocks
         self._ring = (_PinnedRing(self.device)
                       if self.backend != "resident"
                       and self.device.type == "cuda" else None)
@@ -258,8 +279,10 @@ class ShardedDataset:
             array = host_bits(array)
         array = np.asarray(array)
         if backend == "resident":
-            dev = _to_device(array, _row_dtype(array.dtype, dtype),
-                             mesh.device)
+            rows = array.shape[0] // mesh.process_count
+            lo = mesh.process_index * rows
+            dev = _to_device(array[lo:lo + rows],
+                             _row_dtype(array.dtype, dtype), mesh.device)
             return cls(dev, mesh, block_rows=block_rows, meta=meta,
                        backend="resident")
         if backend == "streamed":
@@ -295,25 +318,26 @@ class ShardedDataset:
         its take is a copy within the device's memory)."""
         if self.backend == "resident":
             return 0
-        return int(self.n_shards * n_sampled * self.block_rows
+        return int(self.n_held * n_sampled * self.block_rows
                    * self.pd * self.itemsize)
 
     def _block_ids(self, ids_step) -> np.ndarray:
-        """``(n_shards, n_sampled)`` local block ids → the flat global
-        block ids, shard by shard (shard s owns blocks
-        ``[s·n_blocks, (s+1)·n_blocks)``)."""
+        """``(n_shards, n_sampled)`` local block ids of every shard →
+        the flat block ids of this process's shards in the storage,
+        shard by shard (shard s owns blocks ``[s·n_blocks,
+        (s+1)·n_blocks)``)."""
         ids = np.asarray(ids_step, dtype=np.int64)
         if ids.ndim != 2 or ids.shape[0] != self.n_shards:
             raise ValueError(f"block ids {ids.shape} are not "
                              f"({self.n_shards}, n_sampled)")
         if ids.size and (ids.min() < 0 or ids.max() >= self.n_blocks):
             raise ValueError(f"block ids outside [0, {self.n_blocks})")
-        offsets = np.arange(self.n_shards, dtype=np.int64)[:, None]
-        return (ids + offsets * self.n_blocks).reshape(-1)
+        mine = ids[self.held.start:self.held.stop]
+        return (mine + self._block_base).reshape(-1)
 
     def gather(self, ids_step, out: np.ndarray | None = None) -> np.ndarray:
         """The host side of staging one step: the sampled blocks of the
-        host (or memmap) matrix, ``(n_shards, n_sampled·block_rows,
+        host (or memmap) matrix, ``(n_held, n_sampled·block_rows,
         pd)`` in the storage's numpy dtype, into ``out`` when given.
         Runs on the prefetch thread without holding the interpreter
         lock (``np.take`` of whole blocks)."""
@@ -327,7 +351,7 @@ class ShardedDataset:
             gids = self._block_ids(ids_step)
             if out is None:
                 out = np.take(self._blocks, gids, axis=0).reshape(
-                    self.n_shards, -1, self.pd)
+                    self.n_held, -1, self.pd)
             else:
                 # ids are checked above; mode='clip' skips numpy's
                 # buffered copy for out=
@@ -344,7 +368,7 @@ class ShardedDataset:
             return self.gather(ids_step)
         n_s = np.shape(ids_step)[1]
         slot = self._ring.acquire(
-            (self.n_shards, n_s * self.block_rows, self.pd),
+            (self.n_held, n_s * self.block_rows, self.pd),
             self.storage.dtype, self.dtype)
         self.gather(ids_step, out=slot.array)
         return slot
@@ -388,7 +412,7 @@ class ShardedDataset:
         if self.backend == "resident":
             gids = torch.from_numpy(self._block_ids(ids_step)).to(self.device)
             return self._blocks.index_select(0, gids).view(
-                self.n_shards, -1, self.pd)
+                self.n_held, -1, self.pd)
         return self.put(self.host_batch(ids_step))
 
     def stream(self, ids):

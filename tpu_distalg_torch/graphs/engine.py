@@ -32,10 +32,17 @@ add has no atomics), and a run segmented through
 ``utils/checkpoint.run_segmented`` (tag ``pagerank_streamed``) equals
 the straight run bit for bit.
 
+Across processes the cache's shard count is the mesh's global data
+axis; each process streams its own shards' windows (the dataset stages
+only them) and the combine crosses: the sparse one trades every held
+shard's pairs (``collectives.gather_shards``), the dense one is the psum
+of the placed windows, and both add in origin (global shard) order, so
+P processes × L shards equal one process × P·L bit for bit.
+
 Not ported: the JAX package's CPU-mesh rendezvous guard (``serialize``,
 which blocks after every batch on a CPU mesh so that its collectives do
-not starve): the port's shards are emulated on one device and run no
-collective, so there is nothing to guard.
+not starve): the port's collectives are point-to-point or all-gathers
+that each process waits on, so there is nothing to guard.
 """
 
 from __future__ import annotations
@@ -128,7 +135,6 @@ def open_graph_dataset(path: str, mesh, *, backend: str = "streamed",
     ``legacy_geom``: a cache whose meta.json is the bare flat geometry
     (the pre-versioned header) reopens when it matches, its memmap
     rebuilt from the geometry."""
-    mesh.require_one_process("the out-of-core graph engine")
     from tpu_distalg_torch.data.sharded import ShardedDataset
 
     mm, header = dcache.open_cache(path, layout=ingest.LAYOUT,
@@ -205,39 +211,49 @@ def make_sweep_fns(gd: GraphDataset, config: StreamedPageRankConfig):
     Every backend, iteration and segment runs these and nothing else."""
     from tpu_distalg_torch.ops import graph as gops
     from tpu_distalg_torch.parallel import comms, tree_allreduce_sum
+    from tpu_distalg_torch.parallel.collectives import gather_shards
 
     V, W, S = gd.n_vertices, gd.window, gd.n_shards
+    mesh, held = gd.ds.mesh, gd.ds.held
     dev = gd.has_out.device
     combine = resolve_combine(config.combine, gd.k_sparse, V, S)
     q = config.q
 
     def zeros_fn():
-        return torch.zeros((S, W + 1), dtype=torch.float32, device=dev)
+        return torch.zeros((len(held), W + 1), dtype=torch.float32,
+                           device=dev)
 
     def accum_fn(acc, staged, ranks):
-        for s in range(S):
-            gops.accumulate_block(acc[s], ranks, staged[s], gd.lo[s])
+        for i, s in enumerate(held):
+            gops.accumulate_block(acc[i], ranks, staged[i], gd.lo[s])
         return acc
 
     if combine == "sparse":
         # padding pairs (dmask 0) carry value 0; they go to a trash
         # index V, so each shard's real indices are unique
         lo = torch.tensor(gd.lo, dtype=torch.int64, device=dev)[:, None]
-        idx = torch.where(gd.dmask > 0, gd.didx + lo, V)
+        idx = torch.where(gd.dmask > 0, gd.didx + lo, V)[
+            held.start:held.stop]
+        didx = gd.didx[held.start:held.stop]
+        dmask = gd.dmask[held.start:held.stop]
 
         def combined(acc):
-            vals = torch.gather(acc, 1, gd.didx) * gd.dmask
-            return comms.sparse_allreduce(vals, idx, V + 1,
-                                          unique=True)[:V]
+            vals = torch.gather(acc, 1, didx) * dmask
+            pairs = gather_shards(zip(vals, idx), mesh)
+            return comms.sparse_allreduce(
+                torch.stack([v for v, _ in pairs]),
+                torch.stack([i for _, i in pairs]), V + 1,
+                unique=True)[:V]
     else:
         def combined(acc):
-            def placed(s):
+            def placed(i, s):
                 dense = torch.zeros(V, dtype=torch.float32, device=dev)
                 n = min(W, V - gd.lo[s])
-                dense[gd.lo[s]:gd.lo[s] + n] = acc[s, :n]
+                dense[gd.lo[s]:gd.lo[s] + n] = acc[i, :n]
                 return (dense,)
 
-            (c,) = tree_allreduce_sum(placed(s) for s in range(S))
+            (c,) = tree_allreduce_sum(
+                (placed(i, s) for i, s in enumerate(held)), mesh)
             return c
 
     sink = 1.0 - gd.has_out
@@ -298,7 +314,8 @@ def run_streamed_pagerank(gd: GraphDataset,
 
         (ranks,), _, _ = ckpt.run_segmented(
             checkpoint_dir, checkpoint_every, config.n_iterations,
-            lambda seg: seg, run_seg, (ranks0,), tag="pagerank_streamed")
+            lambda seg: seg, run_seg, (ranks0,), tag="pagerank_streamed",
+            mesh=gd.ds.mesh)
     st = comms.emit_rank_combine_counters(
         gd.k_sparse, V, S, n_syncs=executed["n"], combine=combine)
     return StreamedPageRankResult(

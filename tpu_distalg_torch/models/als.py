@@ -23,6 +23,14 @@ then the rmse), the same ``reg_rows`` quirk (the U-update regularises
 with the true ``n``, the V-update with the true ``m``), and the rmse
 over the true m·n.
 
+Across processes (a mesh whose data axis spans ``torch.distributed``
+processes) a process holds its data shards' rows of R and U and every
+model slice of V; the V-update's Gram and right-hand sides and the
+rmse are psums over every data shard in global shard order
+(``collectives.tree_allreduce_sum``, ``gather_shards``), so P processes
+equal one process bit for bit, and the result's U is this process's
+rows below the true m (:func:`own_rows`).
+
 With ``checkpoint_dir`` the fit runs in segments through
 ``utils/checkpoint.run_segmented`` (tag ``"als"``, state ``(U, V)`` at
 their padded shapes), which resumes from the directory and refuses a
@@ -92,8 +100,8 @@ def make_fit_fn(mesh: Mesh, config: ALSConfig):
     ``config.n_iterations`` sweeps on the mesh. R is (rows, cols), its
     rows a multiple of the data axis; with cols not a multiple of the
     model axis the split of V disengages, with the JAX package's
-    warning, and V is held whole."""
-    mesh.require_one_process("ALS")
+    warning, and V is held whole. Across processes R and U are this
+    process's rows; V and the rmse are the same on every process."""
     denom = config.m * config.n  # the true element count
     n_model = mesh.n_model
     n_pad = model_padded_n(config, mesh)
@@ -115,11 +123,13 @@ def make_fit_fn(mesh: Mesh, config: ALSConfig):
         vm = mesh if _v_engaged(R.shape[1]) else dataclasses.replace(
             mesh, n_model=1)
         # block (s, m): data shard s's rows of R, model slice m's columns
+        # (this process's data shards)
         R_b = list(partition.shards(R, (DATA_AXIS, MODEL_AXIS),
                                     vm).values())
 
         def slices(V):
-            return partition.shards(V, (MODEL_AXIS, None), vm)[0]
+            return partition.shards(V, (MODEL_AXIS, None), vm)[
+                mesh.local_data.start]
 
         U, V, errs = U0, V0, []
         for _ in range(config.n_iterations):
@@ -130,20 +140,22 @@ def make_fit_fn(mesh: Mesh, config: ALSConfig):
                 config.lam, config.n))
             U_s = [linalg.solve_rhs(L, collectives.model_sum(
                 v.T @ r.T for v, r in zip(V_m, row))) for row in R_b]
-            # V-update: (UᵀU + λ·m·I) vⱼ = Uᵀ R[:, j], psums over data
-            (G_u,) = collectives.tree_allreduce_sum(
-                (linalg.gram_part(u),) for u in U_s)
+            # V-update: (UᵀU + λ·m·I) vⱼ = Uᵀ R[:, j]: the Gram and each
+            # slice's right-hand side, one psum over the data shards
+            G_u, *rhs = collectives.tree_allreduce_sum(
+                ((linalg.gram_part(u),) + tuple(u.T @ r for r in row)
+                 for u, row in zip(U_s, R_b)), mesh)
             L = torch.linalg.cholesky(linalg.regularise(G_u, config.lam,
                                                         config.m))
-            V = torch.cat([linalg.solve_rhs(L, collectives.model_sum(
-                u.T @ row[m] for u, row in zip(U_s, R_b)))
-                for m in range(vm.n_model)])
+            V = torch.cat([linalg.solve_rhs(L, b) for b in rhs])
             U = torch.cat(U_s)
-            # padded rows and columns are exactly zero on both sides
+            # padded rows and columns are exactly zero on both sides;
+            # the (data, model) blocks add in global shard order
             V_m = slices(V)
-            sq = collectives.model_sum(
-                linalg.sq_err(r, u, v) for u, row in zip(U_s, R_b)
-                for v, r in zip(V_m, row))
+            blocks = collectives.gather_shards(
+                (tuple(linalg.sq_err(r, u, v) for v, r in zip(V_m, row))
+                 for u, row in zip(U_s, R_b)), mesh)
+            sq = collectives.model_sum(x for per in blocks for x in per)
             errs.append(torch.sqrt(sq / denom))
         hist = torch.stack(errs) if errs else torch.zeros(
             0, dtype=torch.float32, device=R.device)
@@ -180,7 +192,8 @@ def fit(mesh: Mesh, config: ALSConfig = ALSConfig(),
     if checkpoint_dir is None:
         U, V, errs = make_fit_fn(mesh, config)(R_dev, U_dev, V_dev)
         metrics.guard_finite(errs, "ALS rmse history")
-        return ALSResult(U=U[:config.m], V=V[:config.n], rmse_history=errs)
+        return ALSResult(U=own_rows(U, config.m, mesh), V=V[:config.n],
+                         rmse_history=errs)
 
     def run_seg(fn, state, t0):
         del t0  # sweeps draw nothing; the factors are the whole state
@@ -191,9 +204,19 @@ def fit(mesh: Mesh, config: ALSConfig = ALSConfig(),
         checkpoint_dir, checkpoint_every, config.n_iterations,
         make_seg_fn=lambda seg: make_fit_fn(
             mesh, dataclasses.replace(config, n_iterations=seg)),
-        run_seg=run_seg, state0=(U_dev, V_dev), tag="als")
-    return ALSResult(U=U[:config.m], V=V[:config.n],
+        run_seg=run_seg, state0=(U_dev, V_dev), tag="als", mesh=mesh,
+        sharded=(True, False))
+    return ALSResult(U=own_rows(U, config.m, mesh), V=V[:config.n],
                      rmse_history=torch.as_tensor(errs, device=mesh.device))
+
+
+def own_rows(U: torch.Tensor, m: int, mesh: Mesh) -> torch.Tensor:
+    """This process's block of a row-padded matrix cut to the true ``m``
+    rows: ``U[:m]`` in one process; across processes the block's rows
+    below global row ``m`` (the last processes may keep fewer, or
+    none)."""
+    lo = mesh.process_index * U.shape[0] if mesh.process_count > 1 else 0
+    return U[:max(0, min(U.shape[0], m - lo))]
 
 
 def fit_streamed(dataset, config: ALSConfig | None = None, *,
@@ -207,7 +230,9 @@ def fit_streamed(dataset, config: ALSConfig | None = None, *,
     and UᵀU (k, k, float64) accumulate over blocks, each block's shards
     added in shard order; V then solves against them (λ·m·I), as the
     resident sweep does with its n-column contraction spread over
-    blocks. ``rmse_every=r`` streams one more pass for the rmse every
+    blocks. Across processes each process streams its own shards' blocks
+    and holds their U rows; the contractions and the rmse are psums in
+    global shard order. ``rmse_every=r`` streams one more pass for the rmse every
     r-th sweep (0: once, after the last sweep). The builder's zero
     padding rows solve to zero U rows and touch nothing; U is cut back
     to the true m. A run is bitwise equal across backends (the same
@@ -223,6 +248,7 @@ def fit_streamed(dataset, config: ALSConfig | None = None, *,
     if (config.m, config.n) != (m_true, n):
         config = dataclasses.replace(config, m=m_true, n=n)
     k, S = config.k, dataset.n_shards
+    mesh, held = dataset.mesh, dataset.n_held
     rng = np.random.default_rng(config.seed + 1)
     V = torch.from_numpy(rng.random((n, k), dtype=np.float32)).to(dev)
     # every pass takes the blocks in order, block b on every shard
@@ -240,10 +266,10 @@ def fit_streamed(dataset, config: ALSConfig | None = None, *,
         with contextlib.closing(dataset.stream(ids)) as batches:
             for staged in batches:
                 U_b = [linalg.solve_rhs(L, V.T @ staged[s].T)
-                       for s in range(S)]
+                       for s in range(held)]
                 C_inc, UtU_inc = collectives.tree_allreduce_sum(
-                    (u.T @ staged[s], linalg.gram_part(u))
-                    for s, u in enumerate(U_b))
+                    ((u.T @ staged[s], linalg.gram_part(u))
+                     for s, u in enumerate(U_b)), mesh)
                 C, UtU = C + C_inc, UtU + UtU_inc
                 us.append(torch.stack(U_b))
         V = linalg.solve_rhs(torch.linalg.cholesky(linalg.regularise(
@@ -254,16 +280,17 @@ def fit_streamed(dataset, config: ALSConfig | None = None, *,
             with contextlib.closing(dataset.stream(ids)) as batches:
                 for b, staged in enumerate(batches):
                     (part,) = collectives.tree_allreduce_sum(
-                        (linalg.sq_err(staged[s], us[b][s], V),)
-                        for s in range(S))
+                        ((linalg.sq_err(staged[s], us[b][s], V),)
+                         for s in range(held)), mesh)
                     sq = sq + part
             errs.append(torch.sqrt(sq / denom))
-    U = (torch.stack(us, dim=1).reshape(dataset.n2, k) if us
-         else torch.zeros((dataset.n2, k), dtype=torch.float32, device=dev))
+    rows = dataset.n2_local * held
+    U = (torch.stack(us, dim=1).reshape(rows, k) if us
+         else torch.zeros((rows, k), dtype=torch.float32, device=dev))
     hist = torch.stack(errs) if errs else torch.zeros(
         (0,), dtype=torch.float32, device=dev)
     metrics.guard_finite(hist, "streamed ALS rmse history")
-    return ALSResult(U=U[:config.m], V=V, rmse_history=hist)
+    return ALSResult(U=own_rows(U, config.m, mesh), V=V, rmse_history=hist)
 
 
 def fit_rowstore(*args, **kwargs):

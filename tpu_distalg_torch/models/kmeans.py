@@ -369,16 +369,16 @@ def make_minibatch_step_fn(mesh: Mesh, k: int, dim: int):
     each centre moved toward its minibatch mean at rate ``count_c /
     n_seen_c``. ``step(staged, centers, n_seen) -> (centers, n_seen)``;
     the arithmetic is the same whichever backend staged the batch, so a
-    run is bitwise equal across backends."""
-    del mesh  # the staged batch carries the shards
-
+    run is bitwise equal across backends. Across processes the staged
+    batch holds this process's shards, and the stats add over every
+    shard in global order."""
     def step(staged, centers, n_seen):
         per = []
         for s in range(staged.shape[0]):
             pts, m = staged[s, :, :dim], staged[s, :, dim]
             per.append(kops.cluster_stats(
                 pts, m, kops.assign_clusters(pts, centers), k))
-        sums, counts = tree_allreduce_sum(per)
+        sums, counts = tree_allreduce_sum(per, mesh)
         n_seen = n_seen + counts
         eta = torch.where(n_seen > 0, counts / torch.clamp_min(n_seen, 1.0),
                           0.0)
@@ -395,8 +395,12 @@ def init_centers_from_dataset(dataset, k: int, seed: int) -> torch.Tensor:
     """Greedy farthest-point init over the dataset's first block (shard
     0), on the host: the same for every backend (the staged block is).
     A random k-sample would merge clusters, which the minibatch update
-    cannot split (``init_centers_farthest``)."""
+    cannot split (``init_centers_farthest``). Across processes process
+    0's first shard is shard 0, and its block crosses to the others."""
+    from tpu_distalg_torch.parallel.collectives import allgather_rows
+
     block0 = dataset.stage(np.zeros((dataset.n_shards, 1), np.int64))
+    block0 = allgather_rows(block0[:1].contiguous(), dataset.mesh)
     block0 = block0[0].cpu().numpy()
     dim = block0.shape[1] - 1
     pts = block0[block0[:, dim] > 0][:, :dim]

@@ -20,6 +20,11 @@ CPU and on the card.
 
 Checkpoint/resume: sampling is keyed on absolute steps, so a segmented
 run (``run_segmented``, tag ``ssgd_stream``) equals a straight one.
+
+Across processes every process opens the same host matrix, draws the
+blocks of every shard and stages its own shards' (``ShardedDataset``);
+the (Σ grad, count) psum adds every shard's partials in global shard
+order, so P processes × L shards equal one process × P·L bit for bit.
 """
 
 from __future__ import annotations
@@ -71,16 +76,16 @@ def host_block_ids(config: SSGDConfig, n_shards: int, n_blocks: int,
 def _stream_grads(mesh: Mesh, config: SSGDConfig, meta: dict,
                   n_sampled: int):
     """``grads(staged, w)`` → the global (Σ grad, count) of one staged
-    batch (S, n_sampled·bp, pack·d_total): B1 on each shard's rows with
-    the identity block index, summed in shard order."""
+    batch (shards held, n_sampled·bp, pack·d_total): B1 on each shard's
+    rows with the identity block index, summed in global shard order."""
     col_keep = (torch.arange(meta["d_total"], device=mesh.device)
                 < meta["y_col"]).to(torch.float32)
     per_shard = ssgd.gathered_per_shard(config, meta, col_keep)
     ident = torch.arange(n_sampled, dtype=torch.int32,
-                         device=mesh.device).expand(mesh.n_data, n_sampled)
+                         device=mesh.device).expand(mesh.n_local, n_sampled)
 
     def grads(staged, w):
-        return tree_allreduce_sum(per_shard(staged, w, ident))
+        return tree_allreduce_sum(per_shard(staged, w, ident), mesh)
 
     return grads
 
@@ -223,5 +228,5 @@ def train(X2_host, meta: dict, mesh: Mesh, config: SSGDConfig,
         run_seg=run_seg,
         state0=(w0, torch.zeros((), dtype=torch.float32,
                                 device=mesh.device)),
-        tag="ssgd_stream")
+        tag="ssgd_stream", mesh=mesh)
     return TrainResult(w=w[:d], accs=torch.from_numpy(accs))

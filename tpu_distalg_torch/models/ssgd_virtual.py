@@ -13,6 +13,11 @@ Pallas kernel here, so torch ops are its port), and the update
 transforms instead of a read: compute-bound where ``fused_gather`` is
 bound by bytes, but unbounded in ``n_rows``.
 
+Across processes every process draws the blocks of every shard and
+regenerates its own shards' rows (``mesh.local_data``); the gradient
+psum adds every shard's partials in global shard order, so P processes
+× L shards equal one process × P·L bit for bit.
+
 Row ids keep the JAX package's int32 range: it refuses a grid of
 padded rows at or past 2³¹ − 1 − 2²⁰, and draws the held-out rows at
 ids ``2³¹ − 1 − n_test`` up, although torch could count past them.
@@ -95,7 +100,6 @@ def make_train_fn(mesh: Mesh, config: SSGDConfig, data: VirtualData):
     if config.sampler != "virtual":
         raise ValueError(
             f"make_train_fn(virtual) got sampler={config.sampler!r}")
-    mesh.require_one_process("virtual SSGD")
     n_shards = mesh.n_data
     rows_per_shard, n_blocks, n_sampled = _geometry(config, data, n_shards)
     if n_shards * rows_per_shard >= MAX_PADDED_ROWS:
@@ -117,13 +121,13 @@ def make_train_fn(mesh: Mesh, config: SSGDConfig, data: VirtualData):
     def sample_and_grad(X, y, valid, w, idx):
         del X, y, valid  # nothing resident
         per = []
-        for s in range(n_shards):
+        for s in mesh.local_data:
             ids = (s * rows_per_shard + idx[s].to(torch.int64)[:, None] * br
                    + offsets[None, :]).reshape(-1)
             Xb, yb = rows(ids)
             mask = (ids < data.n_rows).to(torch.float32)
             per.append(logistic.grad_sum(Xb, yb, w, mask))
-        return tree_allreduce_sum(per)
+        return tree_allreduce_sum(per, mesh)
 
     return _build_scan(config, sample_and_grad, prep_xs=prep_xs)
 

@@ -21,7 +21,8 @@ Port of ``tpu_distalg/ops/graph.py``:
     and no atomics. B7's tile plan is made per batch, since every
     staged batch is a new input;
   * :func:`closure_step` and :func:`path_count` (``:135-150``): a
-    boolean matmul as a float product tested ``> 0``, and a popcount.
+    boolean matmul as a float product tested ``> 0`` (path ∘ edge on a
+    process's rows, where JAX composes edge ∘ path), and a popcount.
 """
 
 from __future__ import annotations
@@ -151,12 +152,17 @@ def closure_operand(x: torch.Tensor) -> torch.Tensor:
 
 def closure_step(paths: torch.Tensor, edges_op: torch.Tensor
                  ) -> torch.Tensor:
-    """One linear-closure round: new (x, z) ≙ edge (x, y) ∘ path (y, z),
-    then the union — the reference's join with reversed edges, union
-    and distinct (``transitive_closure.py:33-37``) as a boolean matmul
-    and a logical or. ``paths`` is (V, V) bool, ``edges_op`` the edge
-    set as :func:`closure_operand`; the product is tested ``> 0``."""
-    composed = (edges_op @ closure_operand(paths)) > 0
+    """One linear-closure round on rows of the path matrix: new (x, z) ≙
+    path (x, y) ∘ edge (y, z), then the union — the reference's join,
+    union and distinct (``transitive_closure.py:33-37``) as a boolean
+    matmul and a logical or. ``paths`` is any set of rows of the (V, V)
+    bool matrix, ``edges_op`` the whole edge set as
+    :func:`closure_operand`; the product is tested ``> 0``. Row x needs
+    only row x of ``paths``, so the dense closure splits its rows over
+    processes. The JAX package composes edge ∘ path instead; both give
+    the paths of length at most one more, so every round's set is the
+    same."""
+    composed = (closure_operand(paths) @ edges_op) > 0
     return paths | composed
 
 

@@ -119,17 +119,73 @@ def tree_allreduce_sum(per_shard, mesh=None):
     return tuple(acc)
 
 
-def allgather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+def row_counts(n: int, mesh) -> list[int]:
+    """Every process's count ``n`` (of rows, of pairs), in process
+    order: one small all-gather (``[n]`` without a process group)."""
+    if not mesh.distributed:
+        return [int(n)]
+    t = torch.tensor([int(n)], dtype=torch.int64, device=mesh.device)
+    return [int(b.view(torch.int64)[0])
+            for b in _exchange(_bytes(t), mesh.process_count)]
+
+
+def rank0_first(mesh, build):
+    """``build()`` in process 0 first, then in the others, which find
+    what it made (a disk cache every process opens is written once, not
+    raced); ``build()`` alone without a process group."""
+    first = mesh.process_count == 1 or mesh.process_index == 0
+    if not first:
+        row_counts(0, mesh)            # process 0 has built
+    out = build()
+    if first and mesh.process_count > 1:
+        row_counts(0, mesh)
+    return out
+
+
+def allgather_rows(x: torch.Tensor, mesh, *, uneven: bool = False
+                   ) -> torch.Tensor:
     """A row-sharded tensor brought together: every process's rows
     along dim 0, in process order (this process's own rows without a
-    process group)."""
+    process group). ``uneven``: the processes may hold different row
+    counts, traded first (:func:`row_counts`); each block is padded to
+    the largest for the gather and cut back after."""
     if not mesh.distributed:
         return x
-    if x.numel() == 0:
-        return x.new_empty((x.shape[0] * mesh.process_count,)
-                           + tuple(x.shape[1:]))
+    counts = (row_counts(x.shape[0], mesh) if uneven
+              else [x.shape[0]] * mesh.process_count)
+    rows = max(counts)
+    if rows == 0 or 0 in tuple(x.shape[1:]):
+        return x.new_empty((sum(counts),) + tuple(x.shape[1:]))
+    if x.shape[0] < rows:
+        x = torch.cat([x, x.new_zeros((rows - x.shape[0],)
+                                      + tuple(x.shape[1:]))])
+    shape = (rows,) + tuple(x.shape[1:])
     bufs = _exchange(_bytes(x), mesh.process_count)
-    return torch.cat([b.view(x.dtype).reshape(x.shape) for b in bufs])
+    return torch.cat([b.view(x.dtype).reshape(shape)[:c]
+                      for b, c in zip(bufs, counts)])
+
+
+def broadcast_bytes(buf: torch.Tensor | None, nbytes: int, mesh,
+                    src: int = 0) -> torch.Tensor:
+    """Process ``src``'s flat uint8 ``buf`` of ``nbytes`` bytes on every
+    process (``buf`` is ignored elsewhere; the same ``nbytes`` is given
+    everywhere). Host buffers go over gloo as they are; under NCCL
+    they cross on the card. Counted in :data:`COUNTERS`: the source
+    sends ``(P−1)·nbytes``."""
+    import torch.distributed as dist
+
+    if not mesh.distributed or mesh.process_count == 1:
+        return buf
+    on_card = dist.get_backend() == "nccl"
+    where = mesh.device if on_card else torch.device("cpu")
+    if mesh.process_index == src:
+        t = buf.to(where).contiguous()
+        COUNTERS["bytes_sent"] += t.numel() * (mesh.process_count - 1)
+    else:
+        t = torch.empty((nbytes,), dtype=torch.uint8, device=where)
+    COUNTERS["collectives"] += 1
+    dist.broadcast(t, src)
+    return t.cpu() if on_card else t
 
 
 def model_sum(per_slice):
@@ -174,7 +230,7 @@ def _unpack(buf: torch.Tensor, layout: list) -> list[torch.Tensor]:
     return out
 
 
-def _send_recv(sends: dict, recvs: dict, device) -> dict:
+def send_recv(sends: dict, recvs: dict, device) -> dict:
     """Point-to-point: ``sends[q]`` a flat uint8 buffer for process q,
     ``recvs[q]`` the bytes expected from process q → ``{q: uint8
     buffer on device}``. Every send and receive is posted before any is
@@ -264,7 +320,7 @@ def permute(bufs, mesh, perm) -> tuple:
     ``local_data[i]``'s buffer; global shard s's buffers go to shard
     ``perm[s]`` → the tuple of stacks each shard of this process
     received. Across processes the rows one process sends another
-    travel as one message (:func:`_send_recv`); the rest is a copy on
+    travel as one message (:func:`send_recv`); the rest is a copy on
     the device."""
     bufs = tuple(bufs)
     perm = tuple(int(d) for d in perm)
@@ -285,7 +341,7 @@ def permute(bufs, mesh, perm) -> tuple:
         packed[q], _ = _pack([b.index_select(0, rows) for b in bufs])
     for q, rows in recvs.items():
         _, layouts[q] = _pack([b[:rows.numel()] for b in bufs])
-    got = _send_recv(packed, {q: sum(s for *_, s in lay)
+    got = send_recv(packed, {q: sum(s for *_, s in lay)
                               for q, lay in layouts.items()}, dev)
     for q, rows in recvs.items():
         for o, x in zip(out, _unpack(got[q], layouts[q])):
@@ -340,7 +396,7 @@ def all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
     out[base:base + L] = x[:, base:base + L]
     sends = {q: _bytes(x[:, q * L:(q + 1) * L])
              for q in range(P) if q != me}
-    got = _send_recv(sends, {q: sends[q].numel() for q in sends}, x.device)
+    got = send_recv(sends, {q: sends[q].numel() for q in sends}, x.device)
     for q, buf in got.items():
         out[q * L:(q + 1) * L] = buf.view(x.dtype).reshape(
             (L, L) + tuple(x.shape[2:]))

@@ -74,14 +74,6 @@ class Mesh:
         lo = self.process_index * self.n_local
         return range(lo, lo + self.n_local)
 
-    def require_one_process(self, what: str) -> None:
-        """Refuse ``what`` on a mesh that spans processes: it waits for
-        ROADMAP A9 and is never run on one process instead."""
-        if self.process_count > 1:
-            raise NotImplementedError(
-                f"{what} across {self.process_count} processes waits for "
-                f"ROADMAP A9; run it in one process")
-
 
 def emulate_devices(n: int) -> None:
     """Hold ``n`` emulated data shards in each process when a mesh is

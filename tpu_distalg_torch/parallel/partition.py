@@ -27,8 +27,13 @@ layout into the collective the JAX package's partitioner would run
 (``noop``, ``slice``, ``all_gather``, ``all_to_all``, ``gather_slice``)
 and counts its bytes under the same ring model, so its integers equal
 the JAX package's for the same tree, tables and mesh shape. On one card
-``bytes_wire`` is that model's count, not bytes that crossed a link;
-a reshard across processes waits for ROADMAP A9.
+``bytes_wire`` is that model's count, not bytes that crossed a link.
+Across processes a leaf the source cuts over the data axis and the
+destination replicates (or re-pads on that axis) is brought together
+with ``collectives.allgather_rows``; a leaf that stays cut the same way
+keeps this process's rows; a replicated leaf the destination cuts keeps
+this process's block. The plan's integers stay the ones of the global
+tree, and ``reshard.bytes_sent`` counts what this process really sent.
 
 Every trainer places its tensors through these tables: ALS
 (``als_train``, ``als_serve``), SSGD (``lr``, ``ssgd``, ``ssgd_tp``),
@@ -420,7 +425,7 @@ def gather(tree, tbl=None, mesh: Mesh | None = None):
             spec = t.spec_for(name, _shape(x))
             if spec and spec[0] is not None and \
                     _axes(spec[0])[0] == DATA_AXIS:
-                x = allgather_rows(x.contiguous(), mesh)
+                x = allgather_rows(x.contiguous(), mesh, uneven=True)
         return x.detach().cpu().numpy().copy()
 
     return _tree_map_named(one, tree)
@@ -523,30 +528,115 @@ def _relayout(x: torch.Tensor, plan: dict) -> torch.Tensor:
     return x
 
 
+def _data_cut(spec) -> bool:
+    """Whether ``spec`` cuts the first dimension over the data axis."""
+    spec = tuple(spec)
+    return bool(spec) and spec[0] is not None and \
+        _axes(spec[0])[0] == DATA_AXIS
+
+
+class _Global:
+    """A leaf's global shape and dtype, for the plan of a tree whose
+    data-cut leaves this process holds only its rows of."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = tuple(shape), dtype
+
+
+def _global_tree(tree, src_t: RuleTable, mesh: Mesh):
+    """``tree`` with each data-cut leaf's rows summed over the processes
+    (one small all-gather for them all; the processes may hold different
+    counts, as a result cut to its true rows does)."""
+    from tpu_distalg_torch.parallel.collectives import allgather_rows
+
+    leaves = named_leaves(tree)
+    cut = [name for name, x in leaves
+           if _data_cut(src_t.spec_for(name, _shape(x)))]
+    rows = torch.as_tensor([[_shape(x)[0] for name, x in leaves
+                             if name in cut]], dtype=torch.int64,
+                           device=mesh.device)
+    total = dict(zip(cut, (allgather_rows(rows, mesh).sum(0).tolist()
+                           if cut else [])))
+
+    def one(name, x):
+        shape = _shape(x)
+        if name in total:
+            shape = (int(total[name]),) + shape[1:]
+        return _Global(shape, _dtype(x))
+
+    return _tree_map_named(one, tree)
+
+
+def _reshard_leaf(x: torch.Tensor, shape: tuple, src_spec, dst_spec,
+                  plan: dict, mesh: Mesh) -> torch.Tensor:
+    """One leaf across processes: ``x`` this process's part under
+    ``src_spec`` of the global array of ``shape`` → its part under
+    ``dst_spec`` (see the module docstring)."""
+    from tpu_distalg_torch.parallel.collectives import allgather_rows
+
+    src_cut, dst_cut = _data_cut(src_spec), _data_cut(dst_spec)
+    rows_kept = (plan.get("pad", (0,))[0] == 0
+                 and plan.get("true_shape", shape)[0] == shape[0]
+                 and x.shape[0] * mesh.process_count == shape[0])
+    if src_cut and dst_cut and rows_kept:
+        # stays cut the same way: this process's rows, the other
+        # dimensions re-laid out
+        local = {k: (x.shape[0],) + tuple(v[1:]) if k == "true_shape"
+                 else (0,) + tuple(v[1:]) if k == "pad" else v
+                 for k, v in plan.items()}
+        return _relayout(x, local)
+    if src_cut:
+        x = allgather_rows(x.contiguous(), mesh, uneven=True)
+    x = _relayout(x, plan)
+    return local_block(x, dst_spec, mesh) if dst_cut else x
+
+
 def reshard(tree, src_tbl, dst_tbl, mesh: Mesh, *, emit: bool = True,
             true_shapes: dict | None = None):
     """Re-lay ``tree`` out from ``src_tbl``'s placement to ``dst_tbl``'s
     on the mesh's device: each leaf sliced back to its true shape (for
     names in ``true_shapes``) and zero-padded where the destination does
     not divide it, as the JAX package's pad-reshard-slice program does.
-    Emits the ``reshard.*`` counters and the ``reshard`` event unless
-    ``emit`` is False."""
-    mesh.require_one_process("reshard")
-    st = reshard_stats(tree, src_tbl, dst_tbl, mesh, true_shapes=true_shapes)
-    out = _tree_map_named(
-        lambda name, x: _relayout(_to_device(x, mesh), st["leaves"][name]),
-        tree)
+    Across processes each leaf is this process's part of the global
+    array, in and out (the module docstring says which crosses). Emits
+    the ``reshard.*`` counters and the ``reshard`` event unless ``emit``
+    is False."""
+    from tpu_distalg_torch.parallel import collectives
+
+    src_t, dst_t = table(src_tbl), table(dst_tbl)
+    across = mesh.process_count > 1
+    sent0 = collectives.COUNTERS["bytes_sent"]
+    shapes = _global_tree(tree, src_t, mesh) if across else tree
+    st = reshard_stats(shapes, src_t, dst_t, mesh, true_shapes=true_shapes)
+    gshape = dict(named_leaves(shapes))
+
+    def one(name, x):
+        x, plan = _to_device(x, mesh), st["leaves"][name]
+        if not across:
+            return _relayout(x, plan)
+        shape = gshape[name].shape
+        return _reshard_leaf(x, shape, src_t.spec_for(name, shape),
+                             dst_t.spec_for(name, shape), plan, mesh)
+
+    out = _tree_map_named(one, tree)
+    st["bytes_sent"] = collectives.COUNTERS["bytes_sent"] - sent0
     if emit:
         emit_reshard_counters(st)
     return out
 
 
 def host_gather_reshard(tree, dst_tbl, mesh: Mesh,
-                        true_shapes: dict | None = None):
+                        true_shapes: dict | None = None, *,
+                        src_tbl=None):
     """The baseline :func:`reshard` stands for: every leaf to the host,
     sliced and padded there, then placed in the destination layout. Its
-    output equals :func:`reshard`'s bitwise."""
-    mesh.require_one_process("host_gather_reshard")
+    output equals :func:`reshard`'s bitwise. Across processes the
+    leaves ``src_tbl`` cuts over the data axis are first brought
+    together from every process, so it needs the source table there."""
+    if mesh.process_count > 1 and src_tbl is None:
+        raise ValueError("host_gather_reshard across processes needs "
+                         "src_tbl: the leaves it cuts over the data "
+                         "axis are gathered from every process")
     dst_t = table(dst_tbl)
 
     def one(name, x):
@@ -558,7 +648,8 @@ def host_gather_reshard(tree, dst_tbl, mesh: Mesh,
             x = np.pad(x, [(0, int(p)) for p in pads])
         return x
 
-    return place(_tree_map_named(one, gather(tree)), dst_tbl, mesh)
+    return place(_tree_map_named(one, gather(tree, src_tbl, mesh)),
+                 dst_tbl, mesh)
 
 
 def emit_reshard_counters(st: dict) -> dict:
@@ -570,6 +661,7 @@ def emit_reshard_counters(st: dict) -> dict:
                     st["bytes_host_roundtrip"])
     tevents.counter("reshard.leaves", st["n_moved"])
     tevents.counter("reshard.syncs", 1)
+    tevents.counter("reshard.bytes_sent", st.get("bytes_sent", 0))
     tevents.emit("reshard", src=st["src"], dst=st["dst"],
                  n_leaves=st["n_leaves"], n_moved=st["n_moved"],
                  bytes_wire=st["bytes_wire"])

@@ -1,14 +1,21 @@
 """Ring pipelines over the emulated data axis — sequence parallelism.
 
-Port of ``tpu_distalg/parallel/ring.py`` for one card. The JAX functions
-are ``shard_map`` bodies over the ``data`` axis; each function here
-takes and returns the GLOBAL arrays that JAX's
+Port of ``tpu_distalg/parallel/ring.py``. The JAX functions are
+``shard_map`` bodies over the ``data`` axis; each function here takes
+and returns this process's rows of the arrays that JAX's
 ``data_parallel(f, mesh, in_specs=P("data", …), out_specs=P("data", …))``
-takes and returns: shard i is rows [i·S_local, (i+1)·S_local) of the
-sequence axis (the first), for ``mesh.n_data`` shards. A ring hop is a
-change of the K/V shard index, not a copy; the loops visit shards and
-steps in JAX's order, so every online-softmax update and every gradient
-accumulator adds in JAX's order.
+takes and returns (the GLOBAL arrays in one process): shard i is rows
+[i·S_local, (i+1)·S_local) of the sequence axis (the first), for
+``mesh.n_data`` shards, and a process holds the rows of its shards
+``mesh.local_data``. The ring runs hop by hop: each step the K/V blocks
+move one shard on (s → s+1, :func:`..collectives.permute`, a copy on
+the device between shards of one process, a message only for the hop
+that leaves a process), and every shard folds the block it holds, in
+JAX's order, so every online-softmax update and every gradient
+accumulator adds in JAX's order and P processes equal one process bit
+for bit. A hop is differentiable (:class:`_Hop`: its backward is the
+inverse hop); the flash rings' backward carries the dK/dV accumulators
+with their blocks and brings them home with one last hop.
 
   * :func:`ring_allgather_matmul` — A·Bᵀ with both operands row-sharded;
   * :func:`ring_attention` — exact blockwise attention with the
@@ -34,14 +41,16 @@ import numpy as np
 import torch
 
 from tpu_distalg_torch.ops import attention_kernels as ak
+from tpu_distalg_torch.parallel import collectives
 
 #: the mesh axis the JAX package shards sequences over (error messages)
 DATA_AXIS = "data"
 
 
 def _n_shards(mesh, *tensors) -> int:
-    mesh.require_one_process("the sequence-parallel rings")
-    n = int(mesh.n_data)
+    """The shards this process holds, after checking that each operand
+    (this process's rows) splits into them."""
+    n = int(mesh.n_local)
     for t in tensors:
         if t.device.type != mesh.device.type:
             raise ValueError(f"operand on {t.device}, mesh on {mesh.device}")
@@ -50,6 +59,65 @@ def _n_shards(mesh, *tensors) -> int:
                 f"sequence length {t.shape[0]} not divisible by the "
                 f"'{DATA_AXIS}' axis size {n}")
     return n
+
+
+def _inverse(perm: tuple) -> tuple:
+    inv = [0] * len(perm)
+    for s, d in enumerate(perm):
+        inv[d] = s
+    return tuple(inv)
+
+
+class _Hop(torch.autograd.Function):
+    """One ring hop of stacks of this process's shards' blocks (each
+    (L, …), row i shard ``local_data[i]``'s): shard s's blocks go to
+    shard s+1 mod n. Its backward sends the gradients the other way."""
+
+    @staticmethod
+    def forward(ctx, mesh, *stacks):
+        ctx.mesh = mesh
+        return collectives.permute(stacks, mesh,
+                                   collectives.ring_perm(mesh.n_data))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = tuple(g.contiguous() for g in grads)
+        back = collectives.permute(
+            grads, ctx.mesh,
+            _inverse(collectives.ring_perm(ctx.mesh.n_data)))
+        return (None,) + tuple(back)
+
+
+def _hop(mesh, *stacks) -> tuple:
+    out = _Hop.apply(mesh, *stacks)
+    return out if isinstance(out, tuple) else (out,)
+
+
+class _Tie(torch.autograd.Function):
+    """``x`` itself, with the ring's last stacks as inputs whose gradient
+    is zero. A causal ring leaves some hops' blocks unread by one
+    process's shards; tied to the output, every hop of the chain is on
+    the path to the loss on every process, so every process runs every
+    hop's backward and the processes' messages pair up."""
+
+    @staticmethod
+    def forward(ctx, x, *stacks):
+        ctx.like = [(t.shape, t.dtype) for t in stacks]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + tuple(torch.zeros(shape, dtype=dtype, device=g.device)
+                            for shape, dtype in ctx.like)
+
+
+def _ring_steps(mesh):
+    """``(i, [(j, my, src), …])`` for each ring step i: local shard j is
+    global shard ``my`` and holds block ``src = (my − i) mod n``."""
+    n, base = mesh.n_data, mesh.local_data.start
+    for i in range(n):
+        yield i, [(j, base + j, (base + j - i) % n)
+                  for j in range(mesh.n_local)]
 
 
 def _shards(x, n: int):
@@ -89,17 +157,22 @@ def _f32(x):
 def ring_allgather_matmul(a, b, mesh):
     """A·Bᵀ with A (Sa, d) and B (Sb, d) row-sharded: each shard's rows
     of the (Sa, Sb) float32 product, assembled block by block as the B
-    blocks pass around the ring (``torch.matmul`` per block)."""
-    n = _n_shards(mesh, a, b)
-    sa, sb = a.shape[0] // n, b.shape[0] // n
-    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32,
+    blocks pass around the ring (``torch.matmul`` per block). Across
+    processes ``a`` and ``b`` are this process's rows, and so is the
+    result's (every column)."""
+    L = _n_shards(mesh, a, b)
+    n = mesh.n_data
+    sa, sb = a.shape[0] // L, b.shape[0] // L
+    out = torch.empty((a.shape[0], sb * n), dtype=torch.float32,
                       device=a.device)
-    af, bf = _f32(a), _f32(b)
-    for my in range(n):
-        for i in range(n):
-            src = (my - i) % n       # the block resident at step i
-            out[my * sa:(my + 1) * sa, src * sb:(src + 1) * sb] = (
-                af[my * sa:(my + 1) * sa] @ bf[src * sb:(src + 1) * sb].T)
+    af = _f32(a)
+    (bz,) = (_f32(b).reshape(L, sb, b.shape[1]),)
+    for i, steps in _ring_steps(mesh):
+        if i:
+            (bz,) = _hop(mesh, bz)
+        for j, _, src in steps:
+            out[j * sa:(j + 1) * sa, src * sb:(src + 1) * sb] = (
+                af[j * sa:(j + 1) * sa] @ bz[j].T)
     return out
 
 
@@ -177,20 +250,22 @@ def _heads(q, k, what="ring_attention"):
             f"{k.shape[1]} KV heads")
 
 
-def _ring_impl(q, k, v, n, *, scale, kv_chunk, causal, use_flash, bq, bkv,
-               return_stats=False):
-    """The contiguous ring, forward. Returns (S, H, d) float32, and with
-    ``return_stats`` the per-shard logsumexp (n, H, S_local, 1)."""
+def _ring_impl(q, k, v, mesh, *, scale, kv_chunk, causal, use_flash, bq,
+               bkv, return_stats=False):
+    """The contiguous ring, forward. Returns this process's (S, H, d)
+    float32 rows, and with ``return_stats`` the per-shard logsumexp
+    (L, H, S_local, 1) of its L shards."""
     _heads(q, k)
-    s_glob, h, d = q.shape
-    s_q, s_local = s_glob // n, k.shape[0] // n
+    L = _n_shards(mesh, q, k, v)
+    _, h, d = q.shape
+    s_q, s_local = q.shape[0] // L, k.shape[0] // L
     s = _scale(scale, d)
     if not use_flash and kv_chunk is not None and (
             kv_chunk < 1 or (kv_chunk < s_local and s_local % kv_chunk)):
         raise ValueError(
             f"kv_chunk={kv_chunk} must be >= 1 and divide the local "
             f"K/V length {s_local}")
-    qz, kz, vz = _shards(q, n), _shards(k, n), _shards(v, n)
+    qz, kz, vz = _shards(q, L), _shards(k, L), _shards(v, L)
 
     def process_block(qh, kh, vh, st, my, src):
         if use_flash:
@@ -208,75 +283,78 @@ def _ring_impl(q, k, v, n, *, scale, kv_chunk, causal, use_flash, bq, bkv,
                                 vh[:, c0:c0 + chunk], s, mask)
         return st
 
-    outs, lses = [], []
-    for my in range(n):
-        st = _state0(h, s_q, d, q.device)
-        for i in range(n):
-            src = (my - i) % n       # the block resident at step i
+    states = [_state0(h, s_q, d, q.device) for _ in range(L)]
+    for i, steps in _ring_steps(mesh):
+        if i:
+            kz, vz = _hop(mesh, kz, vz)
+        for j, my, src in steps:
             if causal and src > my:
                 continue             # a later shard's block: all masked
-            st = process_block(qz[my], kz[src], vz[src], st, my, src)
-        o, m, l = st
-        outs.append(o / l[..., None])
-        lses.append((m + torch.log(l))[..., None])
-    out = _unshard(torch.stack(outs))
+            states[j] = process_block(qz[j], kz[j], vz[j], states[j], my,
+                                      src)
+    outs = [o / l[..., None] for o, _, l in states]
+    out = _Tie.apply(_unshard(torch.stack(outs)), kz, vz)
     if return_stats:
-        return out, torch.stack(lses)
+        return out, torch.stack([(m + torch.log(l))[..., None]
+                                 for _, m, l in states])
     return out
 
 
-def _ring_flash_backward(q, k, v, out, lse, g, n, *, scale, causal, bq,
+def _ring_flash_backward(q, k, v, out, lse, g, mesh, *, scale, causal, bq,
                          bkv):
     """The second ring: B12 on every live (shard, block) pair. dQ
     accumulates on its shard; block b's dK/dV accumulator travels with
     the block, collecting shard b's contribution first, then b+1's, in
-    JAX's ring order."""
-    s_glob, h, d = q.shape
-    s_q, s_local = s_glob // n, k.shape[0] // n
+    JAX's ring order, and one last hop brings it home."""
+    L = mesh.n_local
+    _, h, d = q.shape
+    s_q, s_local = q.shape[0] // L, k.shape[0] // L
     s = _scale(scale, d)
-    qz, kz, vz = _shards(q, n), _shards(k, n), _shards(v, n)
-    doz, oz = _shards(_f32(g), n), _shards(_f32(out), n)
-    delta = (doz * oz).sum(dim=-1, keepdim=True)   # (n, H, S_q, 1)
+    qz, kz, vz = _shards(q, L), _shards(k, L), _shards(v, L)
+    doz, oz = _shards(_f32(g), L), _shards(_f32(out), L)
+    delta = (doz * oz).sum(dim=-1, keepdim=True)   # (L, H, S_q, 1)
     dq = [torch.zeros((h, s_q, d), dtype=torch.float32, device=q.device)
-          for _ in range(n)]
-    dk = [torch.zeros(kz.shape[1:], dtype=torch.float32, device=q.device)
-          for _ in range(n)]
-    dv = [torch.zeros_like(x) for x in dk]
-    for i in range(n):
-        for my in range(n):
-            src = (my - i) % n
+          for _ in range(L)]
+    dk = torch.zeros(kz.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for i, steps in _ring_steps(mesh):
+        if i:
+            kz, vz, dk, dv = _hop(mesh, kz, vz, dk, dv)
+        dk, dv = list(dk), list(dv)
+        for j, my, src in steps:
             if causal and src > my:
                 continue
             dq_c, dk_c, dv_c = ak.flash_attention_backward_block(
-                qz[my], kz[src], vz[src], doz[my], lse[my], delta[my],
+                qz[j], kz[j], vz[j], doz[j], lse[j], delta[j],
                 my * s_q, src * s_local, scale=s, causal=causal, bq=bq,
                 bkv=bkv)
-            dq[my] = dq[my] + dq_c
-            dk[src] = dk[src] + dk_c
-            dv[src] = dv[src] + dv_c
+            dq[j] = dq[j] + dq_c
+            dk[j] = dk[j] + dk_c
+            dv[j] = dv[j] + dv_c
+        dk, dv = torch.stack(dk), torch.stack(dv)
+    dk, dv = _hop(mesh, dk, dv)     # each accumulator back to its block
     return (_unshard(torch.stack(dq)).to(q.dtype),
-            _unshard(torch.stack(dk)).to(k.dtype),
-            _unshard(torch.stack(dv)).to(v.dtype))
+            _unshard(dk).to(k.dtype), _unshard(dv).to(v.dtype))
 
 
 class _RingFlash(torch.autograd.Function):
     """The contiguous flash ring: forward B11, backward the B12 ring."""
 
     @staticmethod
-    def forward(ctx, q, k, v, n, scale, causal, bq, bkv):
-        out, lse = _ring_impl(q, k, v, n, scale=scale, kv_chunk=None,
+    def forward(ctx, q, k, v, mesh, scale, causal, bq, bkv):
+        out, lse = _ring_impl(q, k, v, mesh, scale=scale, kv_chunk=None,
                               causal=causal, use_flash=True, bq=bq, bkv=bkv,
                               return_stats=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = (n, scale, causal, min(bq, ak.BWD_BLOCK_MAX),
+        ctx.cfg = (mesh, scale, causal, min(bq, ak.BWD_BLOCK_MAX),
                    min(bkv, ak.BWD_BLOCK_MAX))
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        n, scale, causal, bq, bkv = ctx.cfg
-        dq, dk, dv = _ring_flash_backward(q, k, v, out, lse, g, n,
+        mesh, scale, causal, bq, bkv = ctx.cfg
+        dq, dk, dv = _ring_flash_backward(q, k, v, out, lse, g, mesh,
                                           scale=scale, causal=causal,
                                           bq=bq, bkv=bkv)
         return dq, dk, dv, None, None, None, None, None
@@ -290,21 +368,23 @@ def _zigzag_pairs(my, src, n, c):
     return (my * c, (2 * n - 1 - my) * c, src * c, (2 * n - 1 - src) * c)
 
 
-def _zigzag_impl(q, k, v, n, *, scale, use_flash, bq, bkv,
+def _zigzag_impl(q, k, v, mesh, *, scale, use_flash, bq, bkv,
                  return_stats=False):
-    """The zigzag ring, forward (JAX's ``_zigzag_impl``). Returns the
-    (S, H, d) float32 output in the zigzag layout, and with
-    ``return_stats`` the logsumexp (n, 2, H, c, 1)."""
-    s_glob, h, d = q.shape
-    s_q = s_glob // n
-    if s_q % 2 or k.shape[0] // n != s_q:
+    """The zigzag ring, forward (JAX's ``_zigzag_impl``). Returns this
+    process's (S, H, d) float32 rows in the zigzag layout, and with
+    ``return_stats`` the logsumexp (L, 2, H, c, 1)."""
+    L = _n_shards(mesh, q, k, v)
+    n = mesh.n_data
+    _, h, d = q.shape
+    s_q = q.shape[0] // L
+    if s_q % 2 or k.shape[0] // L != s_q:
         raise ValueError(
             f"zigzag ring: local length {s_q} must be even (two "
-            f"chunks) and q/k lengths equal (got k {k.shape[0] // n})")
+            f"chunks) and q/k lengths equal (got k {k.shape[0] // L})")
     _heads(q, k)
     c = s_q // 2
     s = _scale(scale, d)
-    qz, kz, vz = _chunks(q, n), _chunks(k, n), _chunks(v, n)
+    qz, kz, vz = _chunks(q, L), _chunks(k, L), _chunks(v, L)
 
     def upd(qc, kc, vc, st, q0, k0, causal_pair):
         if use_flash:
@@ -316,92 +396,93 @@ def _zigzag_impl(q, k, v, n, *, scale, use_flash, bq, bkv,
             mask = (q0 + ar)[:, None] >= (k0 + ar)[None, :]
         return _online_update(qc, *st, kc, vc, s, mask)
 
-    outs, lses = [], []
-    for my in range(n):
-        st_c = _state0(h, c, d, q.device)
-        st_d = _state0(h, c, d, q.device)
-        for i in range(n):
-            src = (my - i) % n
+    st_c = [_state0(h, c, d, q.device) for _ in range(L)]
+    st_d = [_state0(h, c, d, q.device) for _ in range(L)]
+    for i, steps in _ring_steps(mesh):
+        if i:
+            kz, vz = _hop(mesh, kz, vz)
+        for j, my, src in steps:
             qc0, qd0, ka0, kb0 = _zigzag_pairs(my, src, n, c)
             if src <= my:
-                st_c = upd(qz[my, 0], kz[src, 0], vz[src, 0], st_c, qc0,
-                           ka0, True)
-            st_d = upd(qz[my, 1], kz[src, 0], vz[src, 0], st_d, qd0, ka0,
-                       False)
+                st_c[j] = upd(qz[j, 0], kz[j, 0], vz[j, 0], st_c[j], qc0,
+                              ka0, True)
+            st_d[j] = upd(qz[j, 1], kz[j, 0], vz[j, 0], st_d[j], qd0, ka0,
+                          False)
             if src >= my:
-                st_d = upd(qz[my, 1], kz[src, 1], vz[src, 1], st_d, qd0,
-                           kb0, True)
-        outs.append(torch.stack([st[0] / st[2][..., None]
-                                 for st in (st_c, st_d)]))
-        lses.append(torch.stack([(st[1] + torch.log(st[2]))[..., None]
-                                 for st in (st_c, st_d)]))
-    out = _unchunk(torch.stack(outs))
+                st_d[j] = upd(qz[j, 1], kz[j, 1], vz[j, 1], st_d[j], qd0,
+                              kb0, True)
+    outs = [torch.stack([st[0] / st[2][..., None] for st in pair])
+            for pair in zip(st_c, st_d)]
+    out = _Tie.apply(_unchunk(torch.stack(outs)), kz, vz)
     if return_stats:
-        return out, torch.stack(lses)
+        return out, torch.stack([
+            torch.stack([(st[1] + torch.log(st[2]))[..., None]
+                         for st in pair]) for pair in zip(st_c, st_d)])
     return out
 
 
-def _zigzag_flash_backward(q, k, v, out, lse, g, n, *, scale, bq, bkv):
+def _zigzag_flash_backward(q, k, v, out, lse, g, mesh, *, scale, bq, bkv):
     """Zigzag mirror of :func:`_ring_flash_backward`: the same three live
     chunk-pairs per step, dK/dV accumulators travelling with their
     blocks, dQ accumulating per local chunk."""
-    s_glob, h, d = q.shape
-    c = s_glob // n // 2
+    L, n = mesh.n_local, mesh.n_data
+    _, h, d = q.shape
+    c = q.shape[0] // L // 2
     s = _scale(scale, d)
-    qz, kz, vz = _chunks(q, n), _chunks(k, n), _chunks(v, n)
-    doz, oz = _chunks(_f32(g), n), _chunks(_f32(out), n)
-    delta = (doz * oz).sum(dim=-1, keepdim=True)   # (n, 2, H, c, 1)
+    qz, kz, vz = _chunks(q, L), _chunks(k, L), _chunks(v, L)
+    doz, oz = _chunks(_f32(g), L), _chunks(_f32(out), L)
+    delta = (doz * oz).sum(dim=-1, keepdim=True)   # (L, 2, H, c, 1)
+    dq = [[torch.zeros(qz.shape[2:], dtype=torch.float32, device=q.device)
+           for _ in range(2)] for _ in range(L)]
+    dk = torch.zeros(kz.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for i, steps in _ring_steps(mesh):
+        if i:
+            kz, vz, dk, dv = _hop(mesh, kz, vz, dk, dv)
+        dk = [list(x) for x in dk]
+        dv = [list(x) for x in dv]
 
-    def acc(like):             # [shard][chunk] float32 accumulators
-        return [[torch.zeros(like.shape[2:], dtype=torch.float32,
-                             device=q.device) for _ in range(2)]
-                for _ in range(n)]
+        def pair(j, my, src, qi, ki, q0, k0, causal_pair):
+            dq_c, dk_c, dv_c = ak.flash_attention_backward_block(
+                qz[j, qi], kz[j, ki], vz[j, ki], doz[j, qi],
+                lse[j, qi], delta[j, qi], q0, k0, scale=s,
+                causal=causal_pair, bq=bq, bkv=bkv)
+            dq[j][qi] = dq[j][qi] + dq_c
+            dk[j][ki] = dk[j][ki] + dk_c
+            dv[j][ki] = dv[j][ki] + dv_c
 
-    dq, dk, dv = acc(qz), acc(kz), acc(kz)
-
-    def pair(my, src, qi, ki, q0, k0, causal_pair):
-        dq_c, dk_c, dv_c = ak.flash_attention_backward_block(
-            qz[my, qi], kz[src, ki], vz[src, ki], doz[my, qi],
-            lse[my, qi], delta[my, qi], q0, k0, scale=s,
-            causal=causal_pair, bq=bq, bkv=bkv)
-        dq[my][qi] = dq[my][qi] + dq_c
-        dk[src][ki] = dk[src][ki] + dk_c
-        dv[src][ki] = dv[src][ki] + dv_c
-
-    for i in range(n):
-        for my in range(n):
-            src = (my - i) % n
+        for j, my, src in steps:
             qc0, qd0, ka0, kb0 = _zigzag_pairs(my, src, n, c)
             if src <= my:
-                pair(my, src, 0, 0, qc0, ka0, True)
-            pair(my, src, 1, 0, qd0, ka0, False)
+                pair(j, my, src, 0, 0, qc0, ka0, True)
+            pair(j, my, src, 1, 0, qd0, ka0, False)
             if src >= my:
-                pair(my, src, 1, 1, qd0, kb0, True)
-
-    def glob(parts, dtype):
-        return _unchunk(torch.stack([torch.stack(p) for p in parts])
-                        ).to(dtype)
-
-    return glob(dq, q.dtype), glob(dk, k.dtype), glob(dv, v.dtype)
+                pair(j, my, src, 1, 1, qd0, kb0, True)
+        dk = torch.stack([torch.stack(x) for x in dk])
+        dv = torch.stack([torch.stack(x) for x in dv])
+    dk, dv = _hop(mesh, dk, dv)     # each accumulator back to its block
+    dq = torch.stack([torch.stack(x) for x in dq])
+    return (_unchunk(dq).to(q.dtype), _unchunk(dk).to(k.dtype),
+            _unchunk(dv).to(v.dtype))
 
 
 class _ZigzagFlash(torch.autograd.Function):
     """The zigzag flash ring: forward B11, backward the B12 ring."""
 
     @staticmethod
-    def forward(ctx, q, k, v, n, scale, bq, bkv):
-        out, lse = _zigzag_impl(q, k, v, n, scale=scale, use_flash=True,
+    def forward(ctx, q, k, v, mesh, scale, bq, bkv):
+        out, lse = _zigzag_impl(q, k, v, mesh, scale=scale, use_flash=True,
                                 bq=bq, bkv=bkv, return_stats=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = (n, scale, min(bq, ak.BWD_BLOCK_MAX),
+        ctx.cfg = (mesh, scale, min(bq, ak.BWD_BLOCK_MAX),
                    min(bkv, ak.BWD_BLOCK_MAX))
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        n, scale, bq, bkv = ctx.cfg
-        dq, dk, dv = _zigzag_flash_backward(q, k, v, out, lse, g, n,
+        mesh, scale, bq, bkv = ctx.cfg
+        dq, dk, dv = _zigzag_flash_backward(q, k, v, out, lse, g, mesh,
                                             scale=scale, bq=bq, bkv=bkv)
         return dq, dk, dv, None, None, None, None
 
@@ -443,18 +524,18 @@ def ring_attention(q, k, v, mesh, *, scale: float | None = None,
             raise ValueError(
                 "layout='zigzag' does not compose with kv_chunk; use "
                 "use_flash=True (tiled in VMEM) to bound memory")
-    n = _n_shards(mesh, q, k, v)
+    _n_shards(mesh, q, k, v)
     if layout == "zigzag":
         if use_flash:
-            return _single_head(_ZigzagFlash.apply, q, k, v, n, scale,
+            return _single_head(_ZigzagFlash.apply, q, k, v, mesh, scale,
                                 flash_block_q, flash_block_kv)
-        return _single_head(_zigzag_impl, q, k, v, n, scale=scale,
+        return _single_head(_zigzag_impl, q, k, v, mesh, scale=scale,
                             use_flash=False, bq=flash_block_q,
                             bkv=flash_block_kv)
     if use_flash:
-        return _single_head(_RingFlash.apply, q, k, v, n, scale, causal,
+        return _single_head(_RingFlash.apply, q, k, v, mesh, scale, causal,
                             flash_block_q, flash_block_kv)
-    return _single_head(_ring_impl, q, k, v, n, scale=scale,
+    return _single_head(_ring_impl, q, k, v, mesh, scale=scale,
                         kv_chunk=kv_chunk, causal=causal, use_flash=False,
                         bq=flash_block_q, bkv=flash_block_kv)
 
@@ -471,7 +552,10 @@ def softmax_attention(q, k, v, *, scale: float | None = None,
     _heads(q, k, "softmax_attention")
     s = _scale(scale, d)
     if use_flash:
-        return _RingFlash.apply(q, k, v, 1, s, causal, 2048, 2048)
+        from tpu_distalg_torch.parallel.mesh import Mesh
+
+        return _RingFlash.apply(q, k, v, Mesh(n_data=1, device=q.device),
+                                s, causal, 2048, 2048)
     s_q, h, _ = q.shape
     t, h_kv = k.shape[0], k.shape[1]
     g = h // h_kv
@@ -488,54 +572,74 @@ def softmax_attention(q, k, v, *, scale: float | None = None,
         _f32(v)).reshape(s_q, h, d)
 
 
+class _AllToAll(torch.autograd.Function):
+    """:func:`..collectives.all_to_all` of (L, n, …) pieces; its
+    backward is the exchange back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return collectives.all_to_all(x.contiguous(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = collectives.all_to_all(g.transpose(0, 1).contiguous(),
+                                      ctx.mesh)
+        return back.transpose(0, 1), None
+
+
 def alltoall_seq_to_head(x, mesh):
     """(S, H, d) sequence-sharded → (n·S, H/n, d) head-sharded: shard j
     holds the full sequence of head group j (JAX's ``all_to_all`` over
-    the data axis, as global arrays). Autograd gives the inverse
-    exchange."""
-    n = int(mesh.n_data)
-    s, h, d = x.shape
+    the data axis, as global arrays in one process; across processes
+    this process's rows in, its head groups' full sequences out).
+    Differentiable: the backward is the inverse exchange."""
+    n, L = int(mesh.n_data), int(mesh.n_local)
+    rows, h, d = x.shape
     if h % n:
         raise ValueError(
             f"alltoall_seq_to_head: head count {h} must be divisible by "
             f"the '{DATA_AXIS}' axis size {n}")
-    if s % n:
+    if rows % L:
         raise ValueError(
-            f"sequence length {s} not divisible by the '{DATA_AXIS}' axis "
-            f"size {n}")
-    return x.reshape(s, n, h // n, d).permute(1, 0, 2, 3).reshape(
-        n * s, h // n, d)
+            f"sequence length {rows} not divisible by the '{DATA_AXIS}' "
+            f"axis size {L}")
+    s = rows // L
+    # [i, j]: held shard i's rows of head group j, bound for shard j
+    pieces = x.reshape(L, s, n, h // n, d).permute(0, 2, 1, 3, 4)
+    got = _AllToAll.apply(pieces, mesh)   # [j, i]: shard j's rows
+    return got.permute(1, 0, 2, 3, 4).reshape(L * n * s, h // n, d)
 
 
 def alltoall_head_to_seq(x, mesh):
     """Inverse of :func:`alltoall_seq_to_head`: (n·S, H/n, d)
     head-sharded → (S, H, d) sequence-sharded."""
-    n = int(mesh.n_data)
+    n, L = int(mesh.n_data), int(mesh.n_local)
     rows, h_l, d = x.shape
-    s = rows // n
-    if rows % n or s % n:
+    s = rows // L // n if rows % (L * n) == 0 else 0
+    if s == 0:
         raise ValueError(
-            f"alltoall_head_to_seq: sequence length {s} must be "
+            f"alltoall_head_to_seq: sequence length {rows // L} must be "
             f"divisible by the '{DATA_AXIS}' axis size {n}")
-    # [device i, sequence chunk j, r] → shard j's rows r of head group i
-    return x.reshape(n, n, s // n, h_l, d).permute(1, 2, 0, 3, 4).reshape(
-        s, n * h_l, d)
+    # [i, j]: held head group i's rows of sequence shard j
+    pieces = x.reshape(L, n, s, h_l, d)
+    got = _AllToAll.apply(pieces, mesh)   # [j, i]: head group j's rows
+    return got.permute(1, 2, 0, 3, 4).reshape(L * s, n * h_l, d)
 
 
 def ulysses_attention(q, k, v, mesh, *, scale: float | None = None,
                       causal: bool = False, use_flash: bool = False):
-    """DeepSpeed-Ulysses sequence-parallel attention on global (S, H, d)
-    operands: the exchange to head shards, :func:`softmax_attention` on
-    each shard's full sequence for its head group (``use_flash``: B11,
-    differentiable through B12), and the inverse exchange. Needs H and
-    H_kv divisible by ``mesh.n_data``."""
-    n = _n_shards(mesh, q, k, v)
-    s = q.shape[0]
+    """DeepSpeed-Ulysses sequence-parallel attention on (S, H, d)
+    operands (this process's rows): the exchange to head shards,
+    :func:`softmax_attention` on each held shard's full sequence for its
+    head group (``use_flash``: B11, differentiable through B12), and the
+    inverse exchange. Needs H and H_kv divisible by ``mesh.n_data``."""
+    L = _n_shards(mesh, q, k, v)
+    s = q.shape[0] // L * mesh.n_data          # the full sequence
     qh, kh, vh = (alltoall_seq_to_head(x, mesh) for x in (q, k, v))
     o = torch.cat([
         softmax_attention(qh[j * s:(j + 1) * s], kh[j * s:(j + 1) * s],
                           vh[j * s:(j + 1) * s], scale=scale, causal=causal,
                           use_flash=use_flash)
-        for j in range(n)])
+        for j in range(L)])
     return alltoall_head_to_seq(o, mesh)
-

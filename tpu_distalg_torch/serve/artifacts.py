@@ -9,7 +9,14 @@ LR: payload = one (d,) feature row, reply = P(y=1). K-means: payload =
 one (dim,) point, reply = the nearest centre's index (int32). Every
 batch is padded to ``max_batch`` rows, so batched and unbatched
 requests run the same code and a reply does not depend on what else
-was in its batch.
+was in its batch. A predictor packs the padded host batch first and
+computes from it second (:class:`Predictor`), so a server across
+processes can hand every process the same packed batch.
+
+Across processes the factors are placed by the ``als_serve`` table: U
+replicated (a training result's rows cross through
+``partition.reshard``), V split over the model axis inside each
+process, so every process computes every reply of a batch alike.
 
 Not ported yet: the JAX package's corrupt-read re-read fallback
 (``ckpt:read``), which waits for ROADMAP A12.
@@ -31,10 +38,26 @@ from tpu_distalg_torch.utils import checkpoint
 from tpu_distalg_torch.utils.device import resolve_device
 
 
+@dataclasses.dataclass(frozen=True)
+class Predictor:
+    """One batch size's predictor in two halves: ``pack(payloads)``
+    checks the payloads and stacks them into the padded host batch (a
+    numpy array; it raises on a bad payload), and ``run(packed, n)``
+    computes the first ``n`` replies of a packed batch. A server across
+    processes sends the packed batch between the two."""
+
+    pack: object
+    run: object
+
+    def __call__(self, payloads):
+        return self.run(self.pack(payloads), len(payloads))
+
+
 @dataclasses.dataclass
 class ServedModel:
     """One servable model: ``make_predict(max_batch)`` builds (once per
-    batch size) the predictor ``predict(payloads) -> [reply, ...]``."""
+    batch size) the :class:`Predictor`, ``predict(payloads) -> [reply,
+    ...]``."""
 
     name: str
     kind: str
@@ -87,13 +110,15 @@ def _row_model(kind: str, name: str, source: str, dev, shape: tuple,
     reply is ``score(X)[r]``, X the padded (max_batch, *shape) batch on
     the device; one device→host copy per batch."""
     def make_predict(max_batch: int):
-        def predict(payloads):
-            X = _stack_pad(payloads, shape, np.float32, max_batch,
-                           f"{kind}:{name}")
-            out = score(torch.as_tensor(X, device=dev)).cpu().numpy()
-            return [out[r] for r in range(len(payloads))]
+        def pack(payloads):
+            return _stack_pad(payloads, shape, np.float32, max_batch,
+                              f"{kind}:{name}")
 
-        return predict
+        def run(X, n):
+            out = score(torch.as_tensor(X, device=dev)).cpu().numpy()
+            return [out[r] for r in range(n)]
+
+        return Predictor(pack, run)
 
     return ServedModel(name=name, kind=kind, make_predict=make_predict,
                        source=source, meta={**meta, "device": str(dev)})
@@ -207,7 +232,7 @@ def als_model(U, V, mesh: Mesh, *, k_top: int = 10, merge: str = "sparse",
     # aligned V stays aligned when the rank is a multiple of 4, so it
     # takes the kernel's vector path as the whole V does
     V_sl = partition.shards(V_dev, partition.table("als_serve").spec_for(
-        "V", tuple(V_dev.shape)), mesh)[0]
+        "V", tuple(V_dev.shape)), mesh)[mesh.local_data.start]
 
     def score(q, Vl, off, nv):
         return topk.fused_matmul_topk(q, Vl, off, nv, k=k_top,
@@ -247,12 +272,15 @@ def als_model(U, V, mesh: Mesh, *, k_top: int = 10, merge: str = "sparse",
     def make_predict(max_batch: int):
         wire_per_batch = wire_per_req * max_batch
 
-        def predict(payloads):
+        def pack(payloads):
             ids = _stack_pad(payloads, (), np.int64, max_batch,
                              f"als:{name}")
             if ids.min() < 0 or ids.max() >= n_users:
                 raise ValueError(f"als:{name}: user id out of range "
                                  f"[0, {n_users})")
+            return ids
+
+        def run(ids, n):
             q = U_dev[torch.as_tensor(ids, device=dev)]
             vals, idx = topk_fn(q)
             # one device→host copy per batch: the int32 ids ride
@@ -263,10 +291,9 @@ def als_model(U, V, mesh: Mesh, *, k_top: int = 10, merge: str = "sparse",
             i = np.ascontiguousarray(host[:, k_top:]).view(np.int32)
             if wire_per_batch:
                 tevents.counter("serve.merge_bytes_wire", wire_per_batch)
-            return [(v[r].copy(), i[r].copy())
-                    for r in range(len(payloads))]
+            return [(v[r].copy(), i[r].copy()) for r in range(n)]
 
-        return predict
+        return Predictor(pack, run)
 
     return ServedModel(
         name=name, kind="als", make_predict=make_predict, source=source,

@@ -4,6 +4,24 @@ throughput stats, and the closed-loop load generator.
 
 The request surface is in-process, ``submit(model, payload) -> Reply``;
 any RPC layer composes on top of it.
+
+Across processes (a mesh whose data axis spans ``torch.distributed``
+processes) every process loads the same models in the same order, and
+every process must run each batch on the same payloads: the JAX
+package's retrieval replicates the queries over the data axis, but
+nothing there makes the hosts' batches agree. Here process 0 leads: it
+alone owns the micro-batchers, the load and the stats, and it
+broadcasts each dispatched batch (a header, then the packed payload
+bytes) before running it. Every other process runs :meth:`Server.follow`:
+it receives each batch, runs the same predictor on the same packed
+bytes (so its replies equal the leader's bit for bit) and returns when
+the leader's :meth:`Server.close` sends the stop. A request that is
+shed, or whose payload the leader's packing refuses, is never sent. A
+leader idle for :data:`HEARTBEAT_S` sends a no-op, so that a follower's
+wait never reaches the group's timeout. A failed broadcast marks the
+server broken (:attr:`Server.broken`); a leader that closes with
+``abort=True`` sends no stop, and the followers fail when it leaves the
+group.
 """
 
 from __future__ import annotations
@@ -13,11 +31,18 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from tpu_distalg_torch.parallel.mesh import Mesh
 from tpu_distalg_torch.serve import artifacts as serve_artifacts
 from tpu_distalg_torch.serve.batcher import MicroBatcher, Reply
 from tpu_distalg_torch.telemetry import events as tevents
+
+#: seconds an idle leader waits before it sends followers a no-op
+HEARTBEAT_S = 20.0
+
+#: the kinds of a leader's message header ``[kind, model, n, nbytes]``
+_STOP, _BATCH, _NOOP = 0, 1, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,16 +60,29 @@ class ServeConfig:
 class Server:
     """Serve one or more artifacts behind micro-batchers on the mesh's
     device (``parallel.get_mesh``: ``cuda`` unless told otherwise); ALS
-    item factors are split over the mesh's model axis."""
+    item factors are split over the mesh's model axis. Across processes
+    process 0 leads and the others follow (the module docstring)."""
 
     def __init__(self, mesh: Mesh, config: ServeConfig = ServeConfig()):
-        mesh.require_one_process("serving")
         self.mesh = mesh
         self.config = config
         self._models: dict[str, serve_artifacts.ServedModel] = {}
         self._batchers: dict[str, MicroBatcher] = {}
         self._t0 = time.perf_counter()
         self._closed = False
+        self._group = mesh.process_count > 1
+        self.leader = mesh.process_index == 0
+        self._order: list[str] = []      # a message's model index
+        self._send_lock = threading.Lock()
+        self._last_send = time.monotonic()
+        #: the error of a failed broadcast (the group is lost)
+        self.broken: BaseException | None = None
+        self._beat_stop = threading.Event()
+        self._beat = None
+        if self._group and self.leader:
+            self._beat = threading.Thread(target=self._heartbeat,
+                                          daemon=True, name="serve-beat")
+            self._beat.start()
 
     def add_model(self, model: serve_artifacts.ServedModel,
                   *, warm: bool = True) -> serve_artifacts.ServedModel:
@@ -58,12 +96,13 @@ class Server:
             model.predict_batch([self._dummy_payload(model)],
                                 cfg.max_batch)
         self._models[model.name] = model
-        self._batchers[model.name] = MicroBatcher(
-            model.name,
-            lambda payloads, m=model: m.predict_batch(
-                payloads, cfg.max_batch),
-            max_batch=cfg.max_batch, max_delay_ms=cfg.max_delay_ms,
-            queue_depth=cfg.queue_depth)
+        self._order.append(model.name)
+        if self.leader:
+            self._batchers[model.name] = MicroBatcher(
+                model.name,
+                lambda payloads, m=model: self.dispatch(m.name, payloads),
+                max_batch=cfg.max_batch, max_delay_ms=cfg.max_delay_ms,
+                queue_depth=cfg.queue_depth)
         tevents.emit("serve_model_added", model=model.name,
                      kind=model.kind, source=model.source,
                      **{k: v for k, v in model.meta.items()
@@ -91,6 +130,75 @@ class Server:
     @property
     def models(self):
         return dict(self._models)
+
+    def dispatch(self, name: str, payloads) -> list:
+        """One batch of model ``name`` (what its batcher runs): packed
+        here, sent to the followers across processes, then run. A
+        payload the packing refuses raises before anything is sent."""
+        model = self._models[name]
+        pred = model.predictor(self.config.max_batch)
+        packed = pred.pack(payloads)
+        if self._group:
+            raw = torch.from_numpy(np.ascontiguousarray(packed).reshape(
+                -1).view(np.uint8))
+            self._send(_BATCH, self._order.index(name), len(payloads), raw)
+        return pred.run(packed, len(payloads))
+
+    def _send(self, kind: int, model: int = 0, n: int = 0, raw=None):
+        """The leader's message: the header, then ``raw``'s bytes."""
+        from tpu_distalg_torch.parallel.collectives import broadcast_bytes
+
+        nbytes = 0 if raw is None else int(raw.numel())
+        head = torch.tensor([kind, model, n, nbytes], dtype=torch.int64)
+        with self._send_lock:
+            if self.broken is not None:
+                raise RuntimeError("the serving group is lost") from \
+                    self.broken
+            try:
+                broadcast_bytes(head.view(torch.uint8), head.numel() * 8,
+                                self.mesh)
+                if nbytes:
+                    broadcast_bytes(raw, nbytes, self.mesh)
+            except BaseException as e:
+                self.broken = e
+                raise
+            self._last_send = time.monotonic()
+
+    def _heartbeat(self):
+        while not self._beat_stop.wait(HEARTBEAT_S / 4):
+            if time.monotonic() - self._last_send >= HEARTBEAT_S:
+                try:
+                    self._send(_NOOP)
+                except BaseException:  # noqa: BLE001 — recorded in
+                    return             # self.broken; the load sees it
+
+    def follow(self, on_batch=None) -> int:
+        """A follower's loop: receive each batch the leader sends, run
+        the same predictor on the same packed bytes, until the leader
+        closes. ``on_batch(name, packed, replies)`` sees every batch.
+        Returns the batches run."""
+        from tpu_distalg_torch.parallel.collectives import broadcast_bytes
+
+        if not self._group or self.leader:
+            raise RuntimeError("follow() runs on a follower: a process "
+                               "other than 0 of a process group")
+        n_run = 0
+        while True:
+            head = broadcast_bytes(None, 32, self.mesh).view(torch.int64)
+            kind, model, n, nbytes = (int(v) for v in head)
+            if kind == _STOP:
+                return n_run
+            if kind == _NOOP:
+                continue
+            name = self._order[model]
+            pred = self._models[name].predictor(self.config.max_batch)
+            like = pred.pack([])
+            raw = broadcast_bytes(None, nbytes, self.mesh)
+            packed = raw.numpy().view(like.dtype).reshape(like.shape)
+            replies = pred.run(packed, n)
+            if on_batch is not None:
+                on_batch(name, packed, replies)
+            n_run += 1
 
     def submit(self, name: str, payload) -> Reply:
         batcher = self._batchers.get(name)
@@ -146,12 +254,22 @@ class Server:
         tevents.gauge("serve.queue_depth", s["max_queue_depth"])
         return s
 
-    def close(self):
+    def close(self, *, abort: bool = False):
+        """Stop serving. A leader across processes drains its batchers
+        and then sends the followers the stop, unless ``abort`` (or a
+        lost group): then the followers fail when it leaves the
+        group."""
         if self._closed:
             return
         self._closed = True
         for b in self._batchers.values():
             b.close()
+        self._beat_stop.set()
+        if self._beat is not None:
+            self._beat.join()
+        if self._group and self.leader and not abort and \
+                self.broken is None:
+            self._send(_STOP)
 
 
 def run_closed_loop(server: Server, name: str, payloads, *,

@@ -290,9 +290,10 @@ def run_segmented(checkpoint_dir: str, checkpoint_every: int,
     from tpu_distalg_torch.utils import metrics
 
     if mesh is None and pmesh.process_count() > 1:
-        raise NotImplementedError(
-            f"checkpointing {tag or 'this workload'} across processes "
-            f"waits for ROADMAP A9; run without a checkpoint directory")
+        raise ValueError(
+            f"checkpointing {tag or 'this workload'} in a process group "
+            f"needs its mesh (run_segmented(mesh=...)): the directory is "
+            f"shared, and process 0 its one writer")
     if checkpoint_every < 1:
         raise ValueError(
             f"checkpoint_every must be >= 1, got {checkpoint_every}")
