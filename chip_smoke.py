@@ -181,7 +181,26 @@ and the script exits non-zero without printing a result:
      bf16, causal, contiguous and zigzag, and Ulysses, forward and the
      gradients (B11, B12); each rank launches B1, B7, B9, B11 and B12
      (asserted);
- 17. the kernels line (B1's and B2's entries with their launches on the
+ 17. recovery on the card (``run_recovery``): (a) ``fused_gather`` (B1)
+     at phase 6's geometry, 1500 steps in segments of 250, straight, in
+     undisturbed segments and under a plan that corrupts a save, kills a
+     segment and fails a write, with ``run_with_restarts``: w and the
+     accuracies bitwise equal, B1's launches the undisturbed run's plus
+     the replayed segment's, the recovery's seconds; (b) at the same
+     geometry, a SIGTERM to this process after the first checkpoint
+     stops the run at a boundary (``Preempted``, rc 75), and the resumed
+     run's final checkpoint equals (a)'s undisturbed segmented run's bit
+     for bit, B1 launched 1500 times over the two; a command-line
+     ``ssgd --checkpoint-dir`` child on the reference task sent SIGTERM
+     after its first checkpoint exits 75, and its re-run's final
+     checkpoint equals an undisturbed run's bit for bit; (c) phase 4's artifact served
+     through B9 under a torn first read and a 10% batch loss, the
+     replies bitwise an undisturbed server's, failed batches and one
+     re-read counted, p99 beside the undisturbed one; (d) the chaos
+     harness's eight workloads on the card, each equal and firing what
+     the CPU fires (B7 launched by ``pagerank_stream``); (e)
+     ``init_backend`` under a hang past its deadline returns the card;
+ 18. the kernels line (B1's and B2's entries with their launches on the
      local-update runs, B1's on the scale path and phase 14's streamed
      runs, B1's, B2's and B5's on phase 13's paths, B7's on phase 15's
      streamed sweeps and a hub batch, B9's on the sharded path and at
@@ -5790,6 +5809,444 @@ def run_multiproc(dev, ooc_dir: str) -> dict:
             "nccl_steps_per_s": n1["steps_per_s"], "ssp_speedup": sp}
 
 
+# ------------------------------------------------------------ phase 17
+
+#: (a): phase 6's fused_gather geometry, checkpointed in segments, under
+#: a plan that corrupts one save, kills one segment and fails one write
+REC_STEPS, REC_EVERY, REC_RESTARTS = 1500, 250, 3
+REC_PLAN = "seed=5;ckpt:write@1=corrupt;segment:run@2=kill;ckpt:write@3=oserror"
+#: (b), the command line's part: fused_gather on the reference task
+#: (breast cancer, 569 rows), slowed at each segment so a SIGTERM lands
+#: inside the run; (b)'s full-width part runs in _rec_restarts
+PREEMPT_ARGS = ["ssgd", "--sampler", "fused_gather", "--fused-pack", "4",
+                "--gather-block-rows", "32", "--shuffle-seed", "0",
+                "--n-iterations", "1500", "--checkpoint-every", "250",
+                "--quiet"]
+PREEMPT_PLAN = "seed=1;segment:run@*=hang:0.4"
+#: (c): phase 4's artifact under a torn first read and a 10% batch loss
+SERVE_PLAN = "seed=3;ckpt:read@0=corrupt;data:gather@p0.1=oserror"
+SERVE_RETRIES = 8
+#: (d): one plan each, as tests/test_torch_chaos.py holds them against
+#: the JAX package: (workload, shards, plan, iterations, segment)
+CHAOS_CASES = (
+    ("lr", 8, "seed=5;ckpt:write@1=corrupt;segment:run@2=kill", None, None),
+    ("ssgd", 8, "seed=13;ckpt:write@1=oserror;segment:run@2=kill", None,
+     None),
+    ("kmeans", 8, "seed=5;ckpt:write@1=corrupt;segment:run@2=kill", None,
+     None),
+    ("als", 8, "seed=5;ckpt:write@1=kill;ckpt:read@0=oserror", None, None),
+    ("kmeans_stream", 4, "seed=8;data:gather@1=kill", None, None),
+    ("pagerank_stream", 4, "seed=8;data:gather@3=oserror;segment:run@1=kill",
+     None, None),
+    ("ssp", 4, "seed=9;shard:straggle@p0.2=straggle:25", 64, 16),
+    ("serve", 8, "seed=3;ckpt:read@0=corrupt;data:gather@2=oserror", None,
+     None))
+#: (e): a hang past the supervisor's deadline at the first init attempt
+INIT_PLAN, INIT_TIMEOUT, INIT_RETRIES = "seed=4;backend:init@0=hang:0.3", \
+    0.05, 20
+
+
+def _same(what: str, got, want) -> None:
+    import torch
+
+    g = got.cpu() if isinstance(got, torch.Tensor) else torch.as_tensor(got)
+    w = want.cpu() if isinstance(want, torch.Tensor) else torch.as_tensor(want)
+    if not torch.equal(g, w):
+        raise AssertionError(f"{what}: not bitwise equal")
+
+
+def _sigterm_after_first_checkpoint(run, d: str):
+    """Run ``run()`` with the preemption handlers installed while a
+    thread sends this process SIGTERM once the first checkpoint is in
+    ``d``; return the ``Preempted`` it raised. The handlers before it
+    are put back."""
+    import signal
+    import threading
+
+    from tpu_distalg_torch.faults import preempt
+    from tpu_distalg_torch.utils import checkpoint
+
+    before = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    done = threading.Event()
+
+    def watch():
+        while not done.is_set():
+            if checkpoint.latest_step(d) is not None:
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+            time.sleep(0.001)
+
+    preempt.reset()
+    if not preempt.install():
+        raise AssertionError("(b) the preemption handlers did not install")
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    try:
+        run()
+    except preempt.Preempted as e:
+        return e
+    finally:
+        done.set()
+        watcher.join()
+        for sig, handler in before.items():
+            signal.signal(sig, handler)
+        seen = preempt.signals_seen()
+        preempt.reset()
+    raise AssertionError(f"(b) the run ended without stopping at a "
+                         f"boundary (signals seen {seen})")
+
+
+def _rec_restarts(dev, smi: str) -> dict:
+    """(a): B1 at phase 6's geometry, straight, in undisturbed segments
+    and under REC_PLAN with run_with_restarts; then (b) at the same
+    geometry: SIGTERM after the first checkpoint stops the run at a
+    boundary with rc 75, and the resumed run's final checkpoint equals
+    the undisturbed segmented run's bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from tpu_distalg_torch import faults
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import checkpoint, datasets
+
+    mesh = get_mesh(data=1, device=dev)
+    X, y = datasets.synthetic_two_class(SSGD_ROWS, SSGD_FEATURES, seed=0)
+    X = datasets.add_bias_column(X)
+    cfg = ssgd.SSGDConfig(
+        n_iterations=REC_STEPS, eval_test=False, x_dtype="bfloat16",
+        sampler="fused_gather", gather_block_rows=SSGD_GBR, shuffle_seed=0,
+        init_seed=7)
+    _, X2, w0, meta = ssgd.prepare_fused(X, y, mesh, cfg)
+    del X, y
+    te = (torch.zeros((1, meta["d_total"]), device=dev),
+          torch.zeros((1,), device=dev))
+    cfg = dataclasses.replace(cfg, sampler="fused_gather")
+
+    def train(d=None):
+        return ssgd.train_prepared(mesh, cfg, X2, w0, meta, *te,
+                                   checkpoint_dir=d,
+                                   checkpoint_every=REC_EVERY)
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-rec-") as work:
+        train()                                  # warm
+        torch.cuda.synchronize()
+        for name, run in (
+                ("straight", lambda: train()),
+                ("segmented", lambda: train(os.path.join(work, "seg"))),
+                ("chaos", lambda: checkpoint.run_with_restarts(
+                    lambda: train(os.path.join(work, "chaos")),
+                    max_restarts=REC_RESTARTS, logger=lambda m: None))):
+            if name == "chaos":
+                reg = faults.configure(REC_PLAN)
+            _reset_launches()
+            t1 = time.perf_counter()
+            try:
+                res = run()
+                torch.cuda.synchronize()
+            finally:
+                if name == "chaos":
+                    fired = list(reg.fired)
+                    faults.configure(False)
+            out[name] = {"s": time.perf_counter() - t1, "w": res.w,
+                         "accs": res.accs,
+                         "b1": _launches()["fused_grad_sum_gathered"]}
+        pre = os.path.join(work, "pre")
+        _reset_launches()
+        t1 = time.perf_counter()
+        stop = _sigterm_after_first_checkpoint(lambda: train(pre), pre)
+        torch.cuda.synchronize()
+        pre_s, pre_b1 = (time.perf_counter() - t1,
+                         _launches()["fused_grad_sum_gathered"])
+        _reset_launches()
+        t1 = time.perf_counter()
+        res = train(pre)
+        torch.cuda.synchronize()
+        out["resumed"] = {"s": time.perf_counter() - t1, "w": res.w,
+                          "accs": res.accs,
+                          "b1": _launches()["fused_grad_sum_gathered"]}
+        (got, s1), (want, s2) = (checkpoint.restore(pre),
+                                 checkpoint.restore(os.path.join(work,
+                                                                 "seg")))
+        if s1 != s2 or len(got["state"]) != len(want["state"]):
+            raise AssertionError(f"(b) final steps {s1} vs {s2}")
+        for i, (g, w) in enumerate(zip(got["state"], want["state"])):
+            _same(f"(b) final checkpoint leaf {i} vs the segmented run's",
+                  g, w)
+        _same("(b) final checkpoint accs vs the segmented run's",
+              got["accs"], want["accs"])
+    if stop.code != faults.PREEMPTED_RC or stop.step is None or \
+            stop.step % REC_EVERY or not 0 < stop.step < REC_STEPS:
+        raise AssertionError(f"(b) stopped with code {stop.code} at step "
+                             f"{stop.step}: want {faults.PREEMPTED_RC} at "
+                             f"a boundary inside the run")
+    if pre_b1 != stop.step or out["resumed"]["b1"] != REC_STEPS - stop.step:
+        raise AssertionError(
+            f"(b) B1 launches {pre_b1} to the stop at {stop.step} and "
+            f"{out['resumed']['b1']} on the resume: want {REC_STEPS} in all")
+    for name in ("segmented", "chaos", "resumed"):
+        _same(f"(a) {name} w vs straight", out[name]["w"],
+              out["straight"]["w"])
+        _same(f"(a) {name} accs vs straight", out[name]["accs"],
+              out["straight"]["accs"])
+    want_fired = [("ckpt:write", 1, "corrupt"), ("segment:run", 2, "kill"),
+                  ("ckpt:write", 3, "oserror")]
+    if fired != want_fired:
+        raise AssertionError(f"(a) fired {fired}, want {want_fired}")
+    # the kill lands before the third segment runs, and the resume comes
+    # back from step 250 (step 500's file is the corrupt one): one segment
+    # of REC_EVERY steps runs twice
+    want_b1 = out["segmented"]["b1"] + REC_EVERY
+    if out["segmented"]["b1"] != REC_STEPS or out["chaos"]["b1"] != want_b1:
+        raise AssertionError(
+            f"(a) B1 launches: segmented {out['segmented']['b1']}, chaos "
+            f"{out['chaos']['b1']}, want {REC_STEPS} and {want_b1}")
+    cost = out["chaos"]["s"] - out["segmented"]["s"]
+    print(f"[recovery] (a) fused_gather (B1) {SSGD_ROWS} rows, {REC_STEPS} "
+          f"steps in segments of {REC_EVERY} under {REC_PLAN!r}, "
+          f"max_restarts {REC_RESTARTS}: w and accs bitwise equal to the "
+          f"undisturbed segmented run and to the straight one; fired "
+          f"{fired}; B1 launches {out['chaos']['b1']} = {REC_STEPS} + the "
+          f"replayed segment's {REC_EVERY}; straight "
+          f"{out['straight']['s']!r} s, segmented {out['segmented']['s']!r}"
+          f" s, under faults {out['chaos']['s']!r} s: recovery cost "
+          f"{cost!r} s [{smi}]")
+    print(f"[recovery] (b) fused_gather (B1) {SSGD_ROWS} rows, {REC_STEPS} "
+          f"steps in segments of {REC_EVERY}, SIGTERM to this process "
+          f"after the first checkpoint: Preempted (rc {stop.code}) at step "
+          f"{stop.step} after {pre_s!r} s and {pre_b1} B1 launches; the "
+          f"resume ran {out['resumed']['b1']} B1 launches in "
+          f"{out['resumed']['s']!r} s, its final checkpoint bitwise equal "
+          f"to the undisturbed segmented run's and w and accs to the "
+          f"straight run's [{smi}]")
+    return {"straight_s": out["straight"]["s"],
+            "segmented_s": out["segmented"]["s"],
+            "chaos_s": out["chaos"]["s"], "recovery_s": cost,
+            "b1_launches": out["chaos"]["b1"], "fired": fired,
+            "preempted_at": stop.step, "preempted_s": pre_s,
+            "resumed_s": out["resumed"]["s"],
+            "preempt_b1_launches": pre_b1 + out["resumed"]["b1"]}
+
+
+def _rec_preempt(dev, smi: str) -> dict:
+    """(b), the command line's part: a ``ssgd --checkpoint-dir`` child on
+    the card (the reference task), SIGTERM after its first checkpoint:
+    rc 75 and the ``[preempted]`` line; the re-run ends bitwise equal to
+    an undisturbed run of the same configuration in this process."""
+    import signal
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.utils import checkpoint, datasets
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-pre-") as work:
+        d, ref = os.path.join(work, "ck"), os.path.join(work, "ref")
+        cmd = [sys.executable, "-m", "tpu_distalg_torch.cli", *PREEMPT_ARGS,
+               "--checkpoint-dir", d, "--fault-plan", PREEMPT_PLAN]
+        t1 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+        try:
+            while checkpoint.latest_step(d) is None:
+                if proc.poll() is not None:
+                    raise AssertionError(
+                        f"(b) the child ended first: rc {proc.returncode}"
+                        f"\n{proc.communicate()[1][-3000:]}")
+                if time.perf_counter() - t1 > 300:
+                    raise AssertionError("(b) no checkpoint in 300 s")
+                time.sleep(0.01)
+            proc.send_signal(signal.SIGTERM)
+            _, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if proc.returncode != 75 or "[preempted]" not in err:
+            raise AssertionError(f"(b) rc {proc.returncode}, want 75\n"
+                                 f"{err[-3000:]}")
+        stopped = checkpoint.latest_step(d)
+        again = subprocess.run(cmd, cwd=root, env=env, text=True,
+                               capture_output=True, timeout=300)
+        if again.returncode != 0:
+            raise AssertionError(f"(b) re-run rc {again.returncode}\n"
+                                 f"{again.stderr[-3000:]}")
+        secs = time.perf_counter() - t1
+        _reset_launches()
+        ssgd.train(*datasets.breast_cancer_split(), get_mesh(device=dev),
+                   ssgd.SSGDConfig(n_iterations=1500, sampler="fused_gather",
+                                   fused_pack=4, gather_block_rows=32,
+                                   shuffle_seed=0),
+                   checkpoint_dir=ref, checkpoint_every=250)
+        b1 = _launches()["fused_grad_sum_gathered"]
+        (got, s1), (want, s2) = checkpoint.restore(d), checkpoint.restore(ref)
+        if s1 != s2 or len(got["state"]) != len(want["state"]):
+            raise AssertionError(f"(b) final steps {s1} vs {s2}")
+        for i, (a, b) in enumerate(zip(got["state"], want["state"])):
+            _same(f"(b) state leaf {i}", a, b)
+        _same("(b) accs", got["accs"], want["accs"])
+    if b1 != 1500:
+        raise AssertionError(f"(b) the reference launched B1 {b1} times")
+    print(f"[recovery] (b) CLI child ssgd fused_gather (B1) on the card "
+          f"on the reference task (breast cancer, 569 rows), SIGTERM after "
+          f"the first checkpoint: rc 75 at step {stopped}; the re-run ends "
+          f"at step {s1}, its checkpoint bitwise equal to an undisturbed "
+          f"run's in this process (B1 launches {b1}); both children "
+          f"{secs!r} s, start-up and {PREEMPT_PLAN!r}'s sleep before each "
+          f"segment included [{smi}]")
+    return {"stopped_at": stopped, "children_s": secs}
+
+
+def _rec_serve(dev, artifact: str, smi: str) -> dict:
+    """(c): phase 4's artifact served through B9 undisturbed and under
+    SERVE_PLAN; replies bitwise equal, batches failed, one re-read."""
+    from tpu_distalg_torch import faults, serve
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.telemetry import events as tevents
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tel-") as tel:
+        for name in ("undisturbed", "faulted"):
+            sink = tevents.configure(os.path.join(tel, name))
+            if name == "faulted":
+                reg = faults.configure(SERVE_PLAN)
+            _reset_launches()
+            server = serve.Server(get_mesh(device=dev), serve.ServeConfig(
+                max_batch=MAX_BATCH, max_delay_ms=2.0, k_top=K_TOP))
+            try:
+                server.add_artifact(artifact)
+                results, info = serve.run_closed_loop(
+                    server, "als", list(SERVE_IDS), concurrency=CONCURRENCY,
+                    retries=SERVE_RETRIES)
+                stats = server.emit_counters()
+            finally:
+                server.close()
+                if name == "faulted":
+                    fired = list(reg.fired)
+                    faults.configure(False)
+            runs[name] = {"results": results, "info": info, "stats": stats,
+                          "b9": _launches()["topk"],
+                          "counters": sink.counters()}
+            tevents.configure(False)
+    ok, bad = runs["undisturbed"], runs["faulted"]
+    for r in (ok, bad):
+        if r["info"]["failed"] or any(x is None for x in r["results"]):
+            raise AssertionError(f"(c) unanswered requests: {r['info']}")
+    for j, ((va, ia), (vb, ib)) in enumerate(zip(ok["results"],
+                                                bad["results"])):
+        _same(f"(c) reply {j} scores", vb, va)
+        _same(f"(c) reply {j} ids", ib, ia)
+    failed = bad["stats"]["failed_batches"]
+    rereads = bad["counters"].get("serve.artifact_reread", 0)
+    if failed < 1 or rereads != 1:
+        raise AssertionError(f"(c) failed batches {failed}, re-reads "
+                             f"{rereads}: the plan did not act")
+    ok_batches = bad["stats"]["batches"] - failed
+    if bad["b9"] < ok_batches or ok["b9"] < ok["stats"]["batches"]:
+        raise AssertionError(f"(c) B9 launched {bad['b9']} / {ok['b9']} "
+                             f"times for {ok_batches} / "
+                             f"{ok['stats']['batches']} batches")
+    print(f"[recovery] (c) ALS {USERS}x{ITEMS} rank {RANK} served through "
+          f"B9, {REQUESTS} requests, retries {SERVE_RETRIES}, under "
+          f"{SERVE_PLAN!r}: replies bitwise equal to the undisturbed "
+          f"server's; {failed} failed batch(es), "
+          f"{bad['info']['retries']} client retries, {rereads} artifact "
+          f"re-read, {len(fired)} fault(s) fired; B9 launches "
+          f"{bad['b9']} (undisturbed {ok['b9']}); p50/p99 "
+          f"{bad['stats']['p50_ms']!r}/{bad['stats']['p99_ms']!r} ms "
+          f"under faults vs {ok['stats']['p50_ms']!r}/"
+          f"{ok['stats']['p99_ms']!r} ms undisturbed; {bad['info']['qps']!r}"
+          f" vs {ok['info']['qps']!r} req/s [{smi}]")
+    return {"failed_batches": failed, "rereads": rereads,
+            "b9_launches": bad["b9"], "p99_ms": bad["stats"]["p99_ms"],
+            "p99_ms_undisturbed": ok["stats"]["p99_ms"],
+            "qps": bad["info"]["qps"], "qps_undisturbed": ok["info"]["qps"]}
+
+
+def _rec_chaos(dev, smi: str) -> dict:
+    """(d): run_chaos on the card for the eight workloads, each equal and
+    firing what the port fires on the CPU."""
+    from tpu_distalg_torch.faults import chaos
+    from tpu_distalg_torch.parallel import get_mesh
+
+    out = {}
+    for workload, n, plan, iters, every in CHAOS_CASES:
+        fired = {}
+        for where in ("cpu", dev):
+            with tempfile.TemporaryDirectory(prefix="chip-smoke-cs-") as w:
+                _reset_launches()
+                t1 = time.perf_counter()
+                res = chaos.run_chaos(
+                    workload, get_mesh(data=n, device=where), plan=plan,
+                    workdir=w, n_iterations=iters, checkpoint_every=every)
+                secs = time.perf_counter() - t1
+            if not res.equal:
+                raise AssertionError(f"(d) {workload} on {where}: "
+                                     f"{res.verdict()}")
+            fired[str(where)] = res.fired
+        if fired["cpu"] != fired[str(dev)]:
+            raise AssertionError(f"(d) {workload}: fired {fired[str(dev)]} "
+                                 f"on the card, {fired['cpu']} on the CPU")
+        launches = {k: v for k, v in _launches().items() if v}
+        if workload == "pagerank_stream" and \
+                not launches.get("spmv_table"):
+            raise AssertionError("(d) pagerank_stream launched no B7")
+        out[workload] = {"s": secs, "fired": len(res.fired),
+                         "restarts": res.restarts_logged,
+                         "launches": launches}
+        print(f"[recovery] (d) chaos {workload} on {n} shard(s) under "
+              f"{plan!r}: equal, {len(res.fired)} fault(s) fired as on the "
+              f"CPU, {res.restarts_logged} restart(s), {secs!r} s; "
+              f"launches {launches} [{smi}]")
+    return out
+
+
+def _rec_init(dev, smi: str) -> dict:
+    """(e): init_backend under a hang past its deadline returns the card."""
+    from tpu_distalg_torch import faults
+    from tpu_distalg_torch.telemetry import supervisor
+    from tpu_distalg_torch.utils.device import resolve_device
+
+    reg = faults.configure(INIT_PLAN)
+    t1 = time.perf_counter()
+    try:
+        got = supervisor.init_backend(timeout=INIT_TIMEOUT,
+                                      retries=INIT_RETRIES, backoff=0.0,
+                                      log=lambda m: None)
+    finally:
+        fired = list(reg.fired)
+        faults.configure(False)
+    secs = time.perf_counter() - t1
+    if got != resolve_device("cuda") or got.type != "cuda" or \
+            fired != [("backend:init", 0, "hang")]:
+        raise AssertionError(f"(e) init_backend gave {got}, fired {fired}")
+    print(f"[recovery] (e) init_backend under {INIT_PLAN!r}, deadline "
+          f"{INIT_TIMEOUT} s: {got} after {secs!r} s [{smi}]")
+    return {"s": secs}
+
+
+def run_recovery(dev, artifact: str) -> dict:
+    """Phase 17: recovery on the card, (a)-(e)."""
+    smi = _nvidia_smi()
+    t0 = time.perf_counter()
+    out = {"restarts": _rec_restarts(dev, smi)}
+    t0 = _phase("recovery (a) restarts, (b) preemption at full width", t0)
+    out["preempt"] = _rec_preempt(dev, smi)
+    t0 = _phase("recovery (b) preemption of a command-line child", t0)
+    out["serve"] = _rec_serve(dev, artifact, smi)
+    t0 = _phase("recovery (c) serving", t0)
+    out["chaos"] = _rec_chaos(dev, smi)
+    t0 = _phase("recovery (d) chaos", t0)
+    out["init"] = _rec_init(dev, smi)
+    _phase("recovery (e) init", t0)
+    return out
+
+
 def _mp_half() -> int:
     from tpu_distalg_torch.tools import multiproc_run
 
@@ -5844,6 +6301,10 @@ def main() -> int:
     t0 = _phase("kernels", t0)
     check_als_small(dev)
 
+    # removed by run_recovery's caller, or at exit if a phase before it
+    # fails
+    rec_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-artifact-")
+    rec_dir = rec_tmp.name
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as workdir:
         _reset_launches()
         run = run_main_path(dev, workdir)
@@ -5856,6 +6317,12 @@ def main() -> int:
         check_served(dev, workdir, run)
         print(f"[serve] fused_matmul_topk launches on the main path: "
               f"{launches}")
+        # phase 17 serves this artifact again, under faults
+        from tpu_distalg_torch.utils import checkpoint
+
+        newest = f"step_{checkpoint.latest_step(workdir)}.npz"
+        shutil.copy(os.path.join(workdir, newest),
+                    os.path.join(rec_dir, newest))
         t0 = _phase("als + serve", t0)
         sharded = run_sharded(dev, workdir, run)
         del run
@@ -5902,6 +6369,12 @@ def main() -> int:
 
     graph = run_graph(dev)
     t0 = _phase("graph engine: streamed pagerank", t0)
+
+    try:
+        run_recovery(dev, rec_dir)
+    finally:
+        rec_tmp.cleanup()
+    t0 = _phase("recovery on the card", t0)
 
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"

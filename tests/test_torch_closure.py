@@ -26,7 +26,7 @@ import bench
 from tpu_distalg.models import transitive_closure as jtc
 from tpu_distalg.telemetry import events as jevents
 from tpu_distalg.utils import datasets as jdatasets
-from tpu_distalg_torch import cli
+from tpu_distalg_torch import cli, faults
 from tpu_distalg_torch.models import transitive_closure as tc
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.telemetry import events as tevents
@@ -264,9 +264,19 @@ def test_closure_cli_prints_the_jax_line(argv, capsys, tmp_path):
     assert got == want and got.startswith("The original graph has")
 
 
-def test_closure_cli_refuses_restarts_and_two_geometries():
-    with pytest.raises(SystemExit, match="A12"):
-        cli.main(["--device", "cpu", "closure", "--max-restarts", "2"])
+def test_closure_cli_refuses_restarts_and_two_geometries(capsys, tmp_path):
+    """``--max-restarts`` is accepted: a checkpointed run killed at its
+    second segment restarts and prints the toy graph's 9 paths; two
+    geometries are still refused."""
+    assert cli.main(["--device", "cpu", "closure", "--max-restarts", "2",
+                     "--checkpoint-dir", str(tmp_path / "ck"),
+                     "--checkpoint-every", "1", "--fault-plan",
+                     "seed=1;segment:run@1=kill"]) == 0
+    faults.configure(False)
+    out = capsys.readouterr().out
+    assert "[restart 1/2] InjectedKill" in out
+    assert out.strip().splitlines()[-1].startswith(
+        "The original graph has 9 paths")
     with pytest.raises(SystemExit, match="--mesh-shape and --n-slices"):
         cli.main(["--device", "cpu", "closure", "--n-slices", "2",
                   "--mesh-shape", "2x1"])

@@ -303,12 +303,20 @@ def test_cli_prints_the_jax_summary_lines(capsys, argv):
         assert re.match(pat, line), line
 
 
-def test_cli_fault_plan_refuses_a_point_without_seam(capsys):
-    with pytest.raises(SystemExit, match="ROADMAP A12"):
+def test_cli_fault_plan_refuses_a_point_without_seam(capsys, tmp_path):
+    """A ``ckpt:write`` rule on a run with no ``--checkpoint-dir`` has no
+    seam to fire at and is refused; with a directory it fires, and
+    ``--max-restarts`` recovers the killed write."""
+    with pytest.raises(SystemExit, match="reads no fault plan"):
         cli.main(["--device", "cpu", "ssgd", "--n-iterations", "2",
                   "--fault-plan", "seed=1;ckpt:write@1=oserror"])
-    with pytest.raises(SystemExit, match="ROADMAP A12"):
-        cli.main(["--device", "cpu", "lr", "--max-restarts", "1"])
+    assert cli.main(["--device", "cpu", "lr", "--max-restarts", "1",
+                     "--n-iterations", "40", "--checkpoint-dir",
+                     str(tmp_path), "--checkpoint-every", "10", "--quiet",
+                     "--fault-plan", "seed=1;ckpt:write@1=kill"]) == 0
+    assert faults.active().fired == [("ckpt:write", 1, "kill")]
+    faults.configure(False)
+    assert "[restart 1/1] InjectedKill" in capsys.readouterr().out
 
 
 PLAN = "seed=7;shard:straggle@p0.25=straggle:8"
@@ -324,9 +332,10 @@ PLAN = "seed=7;shard:straggle@p0.25=straggle:8"
     ids=["ssgd-bsp", "ma-bsp", "lr", "mc-env", "kmeans-env"])
 def test_cli_refuses_a_plan_the_run_never_reads(argv, env, monkeypatch):
     """Only the SSP runs of SSGD and the local-update family compile a
-    plan: elsewhere a plan, from --fault-plan or $TDA_FAULT_PLAN, exits
-    before training, naming ROADMAP A12."""
+    shard plan, and these runs read no other seam (no checkpoint
+    directory, no data subsystem): a plan, from --fault-plan or
+    $TDA_FAULT_PLAN, exits before training."""
     if env:
         monkeypatch.setenv(faults.ENV_PLAN, PLAN)
-    with pytest.raises(SystemExit, match="reads no fault plan.*ROADMAP A12"):
+    with pytest.raises(SystemExit, match="reads no fault plan"):
         cli.main(["--device", "cpu", *argv])

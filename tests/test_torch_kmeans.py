@@ -347,7 +347,8 @@ def _cli(*args):
 
 def test_cli_kmeans_lines(tmp_path):
     """The JAX CLI's output lines on the toy matrix and on the scale
-    path; the knobs that wait for other slices exit naming them."""
+    path; a cluster plan exits naming its item, and ``--max-restarts``
+    recovers a killed checkpoint write to the same lines."""
     out = _cli()
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
@@ -366,6 +367,14 @@ def test_cli_kmeans_lines(tmp_path):
         "minibatch steps run: 3 (backend=resident)")
     for args, item in ((("--data-backend", "streamed"),
                         "needs --stream-cache"),
-                       (("--max-restarts", "1"), "A12")):
+                       (("--max-restarts", "1", "--fault-plan",
+                         "seed=1;cluster:ps@0=kill"), "cluster runtime")):
         out = _cli(*args)
         assert out.returncode != 0 and item in out.stderr
+    out = _cli("--max-restarts", "1", "--checkpoint-dir",
+               str(tmp_path / "r"), "--checkpoint-every", "2",
+               "--fault-plan", "seed=1;ckpt:write@1=kill")
+    assert out.returncode == 0, out.stderr
+    assert "[restart 1/1] InjectedKill" in out.stdout
+    assert out.stdout.strip().splitlines()[-2:] == [
+        "Final centers: [[1.0, 2.0], [10.0, 2.0]]", "iterations run: 5"]

@@ -384,11 +384,39 @@ def test_cli_lines(data, tmp_path, name, mod, cls, sampler, fkw):
     assert checkpoint.latest_step(str(tmp_path)) == 40
 
 
+@pytest.mark.parametrize("name,mod,cls,sampler,fkw", [
+    ("ma", ma, "MAConfig", "bernoulli", {}),
+    ("bmuf", bmuf, "BMUFConfig", "fused_train", FUSED),
+    ("easgd", easgd, "EASGDConfig", "fused_gather", FUSED)],
+    ids=["ma", "bmuf", "easgd"])
+def test_cli_max_restarts_recovers_a_killed_write(data, tmp_path, name, mod,
+                                                  cls, sampler, fkw):
+    """``--max-restarts 1`` wraps the run in ``run_with_restarts``: a
+    killed checkpoint write restarts once from the step before, and the
+    weights equal the library's undisturbed run bit for bit."""
+    flags = [f"--{k.replace('_', '-')}={v}" for k, v in fkw.items()]
+    out = _cli(name, "--n-slices", "4", "--n-iterations", "40",
+               "--sampler", sampler, *flags, "--checkpoint-dir",
+               str(tmp_path), "--checkpoint-every", "16",
+               "--max-restarts", "1", "--fault-plan",
+               "seed=1;ckpt:write@1=kill")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("[restart 1/1] InjectedKill")
+    w = np.asarray(eval(lines[1][len("Final w: "):]), np.float32)
+    want = _port(data, 4, mod, _cfg(mod, cls, n_iterations=40,
+                                    sampler=sampler, **fkw))
+    np.testing.assert_array_equal(w, want.w.numpy())
+    assert lines[2] == f"Final acc: {want.final_acc:.6f}"
+    assert checkpoint.latest_step(str(tmp_path)) == 40
+
+
 @pytest.mark.parametrize("args,match", [
     (("ma", "--mega-steps", "5"), "--mega-steps applies to ssgd only"),
     (("bmuf", "--comm", "zstd"), "unknown comm schedule"),
     (("easgd", "--sync", "bsp:2"), "only 'ssp' takes arguments"),
-    (("ma", "--max-restarts", "1"), "ROADMAP A12")],
+    (("ma", "--max-restarts", "1", "--fault-plan",
+      "seed=1;cluster:worker@0=kill"), "cluster runtime")],
     ids=["mega-steps", "comm", "sync", "max-restarts"])
 def test_cli_refusals(args, match):
     out = _cli(*args, "--quiet")

@@ -164,6 +164,12 @@ def test_mc_cli_prints_the_jax_line(argv, capsys):
     assert got == want and got.startswith("Pi is roughly 3.1")
 
 
-def test_mc_cli_refuses_restarts():
-    with pytest.raises(SystemExit, match="A12"):
-        cli.main(["--device", "cpu", "mc", "--max-restarts", "1"])
+def test_mc_cli_refuses_restarts(capsys):
+    """``--max-restarts`` is accepted (the estimate is stateless); a plan
+    is refused, as ``mc`` has no seam that reads one."""
+    assert cli.main(["--device", "cpu", "mc", "--n", "20000",
+                     "--max-restarts", "1"]) == 0
+    assert capsys.readouterr().out.startswith("Pi is roughly 3.")
+    with pytest.raises(SystemExit, match="reads no fault plan"):
+        cli.main(["--device", "cpu", "mc", "--max-restarts", "1",
+                  "--fault-plan", "seed=1;segment:run@0=kill"])

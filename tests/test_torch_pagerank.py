@@ -21,7 +21,7 @@ import torch
 
 from tpu_distalg.models import pagerank as jpagerank
 from tpu_distalg.ops import graph as jgops
-from tpu_distalg_torch import cli, convert
+from tpu_distalg_torch import cli, convert, faults
 from tpu_distalg_torch.models import pagerank
 from tpu_distalg_torch.parallel import get_mesh
 from tpu_distalg_torch.utils import checkpoint, datasets
@@ -234,8 +234,26 @@ def test_cli_pagerank_standard_and_refusals(capsys):
     want = _port(datasets.erdos_renyi_edges(4096), 2, 4096, mode="standard")
     top = np.argsort(-want.ranks.numpy())[:10]
     assert list(ranks) == top.tolist()
-    for flag, msg in ((["--max-restarts", "1"], "A12"),
+    for flag, msg in ((["--max-restarts", "1", "--fault-plan",
+                        "seed=1;cluster:wal@0=oserror"], "cluster runtime"),
                       (["--data-backend", "streamed", "--mode", "reference"],
                        "reference-parity mode is resident-only")):
         with pytest.raises(SystemExit, match=msg):
             cli.main(["--device", "cpu", "pagerank", *flag])
+
+
+def test_cli_pagerank_max_restarts_recovers_a_killed_write(capsys, tmp_path):
+    """``--max-restarts 1`` wraps the run in ``run_with_restarts``: a
+    killed checkpoint write restarts once from the step before and
+    prints the undisturbed run's ranks."""
+    _, want = _cli_ranks(capsys)
+    try:
+        lines, ranks = _cli_ranks(
+            capsys, "--checkpoint-dir", str(tmp_path), "--checkpoint-every",
+            "4", "--max-restarts", "1", "--fault-plan",
+            "seed=1;ckpt:write@1=kill")
+    finally:
+        faults.configure(False)
+    assert any(ln.startswith("[restart 1/1] InjectedKill") for ln in lines)
+    assert ranks == want
+    assert checkpoint.latest_step(str(tmp_path)) == 10

@@ -359,6 +359,21 @@ def test_cli_mesh_fit_then_sharded_serving(tmp_path):
         assert "[serve] als: 64/64 replies at " in out
 
 
+def test_cli_als_max_restarts_recovers_a_killed_write(tmp_path):
+    """``als --max-restarts 1`` wraps the fit in ``run_with_restarts``: a
+    killed checkpoint write restarts once from the step before, and the
+    rmse lines equal an undisturbed checkpointed fit's."""
+    fit = ["als", "--m", "64", "--n", "198", "--k", "8", "--n-iterations",
+           "3", "--checkpoint-every", "1"]
+    want = _run(fit + ["--checkpoint-dir", str(tmp_path / "ref")])
+    got = _run(fit + ["--checkpoint-dir", str(tmp_path / "ck"),
+                      "--max-restarts", "1", "--fault-plan",
+                      "seed=1;ckpt:write@1=kill"])
+    assert got[0].startswith("[restart 1/1] InjectedKill")
+    assert got[1:4] == want[:3]
+    assert got[-1] == f"artifact_path: {tmp_path / 'ck'}"
+
+
 def test_cli_refusals_name_their_item():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -366,7 +381,8 @@ def test_cli_refusals_name_their_item():
             "als", "--n-iterations", "1"]
     for extra, want in ((["--data-backend", "streamed"],
                          "needs --stream-cache"),
-                        (["--max-restarts", "1"], "A12"),
+                        (["--max-restarts", "1", "--fault-plan",
+                          "seed=1;cluster:rpc@0=oserror"], "cluster runtime"),
                         (["--mesh-shape", "2x2", "--n-slices", "2"],
                          "--mesh-shape and --n-slices both set")):
         out = subprocess.run(base + extra, capture_output=True, text=True,

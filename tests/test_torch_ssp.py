@@ -181,18 +181,18 @@ def test_fault_plan_spellings_and_registry_equal_jax(tmp_path):
         assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("plan", ["seed=1;ckpt:write@1=oserror",
-                                  "seed=1;segment:run@*=hang:0.1",
+@pytest.mark.parametrize("plan", ["seed=1;cluster:rpc@1=oserror",
+                                  "seed=1;cluster:ps@*=hang:0.1",
                                   "seed=1;shard:leave@1=leave;"
-                                  "backend:init@p0.2=kill"])
+                                  "cluster:replica@p0.2=kill"])
 def test_plan_without_a_port_seam_is_refused(plan, monkeypatch):
-    """A rule at a point the port has no seam for would never fire:
-    configure refuses it, naming ROADMAP A12, from the argument and
-    from ``$TDA_FAULT_PLAN``."""
-    with pytest.raises(ValueError, match="ROADMAP A12"):
+    """A rule at a point the port has no seam for (the cluster
+    runtime's) would never fire: configure refuses it, naming ROADMAP
+    A12, from the argument and from ``$TDA_FAULT_PLAN``."""
+    with pytest.raises(ValueError, match="cluster runtime.*ROADMAP A12"):
         faults.configure(plan)
     monkeypatch.setenv(faults.ENV_PLAN, plan)
-    with pytest.raises(ValueError, match="ROADMAP A12"):
+    with pytest.raises(ValueError, match="cluster runtime.*ROADMAP A12"):
         faults.configure()
     assert faults.active() is None
 

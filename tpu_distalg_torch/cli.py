@@ -1,6 +1,7 @@
 """Command line of the port: full-batch LR, SSGD, the local-update family
 (MA, BMUF, EASGD), ALS, k-means, PageRank, the transitive closure,
-Monte-Carlo π, and serving ALS, k-means and LR artifacts.
+Monte-Carlo π, serving ALS, k-means and LR artifacts, the chaos harness
+and telemetry reports.
 
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] lr
     python -m tpu_distalg_torch.cli ma --n-slices 4 --sampler fused_train \\
@@ -35,11 +36,21 @@ Monte-Carlo π, and serving ALS, k-means and LR artifacts.
     python -m tpu_distalg_torch.cli --device cpu --emulate 2 --multihost \
         --coordinator-address 127.0.0.1:29500 --num-processes 2 \
         --process-id 0 ssgd --sampler fused_gather  # one such per rank
+    python -m tpu_distalg_torch.cli ssgd --checkpoint-dir D --max-restarts 2 \
+        --telemetry-dir T --fault-plan "seed=1;segment:run@1=kill"
+    python -m tpu_distalg_torch.cli chaos --workload lr \
+        --fault-plan "seed=5;ckpt:write@1=corrupt;segment:run@2=kill"
+    python -m tpu_distalg_torch.cli report T
 
 The lines printed match the JAX package's ``tda lr``, ``tda ssgd``,
 ``tda ma``, ``tda bmuf``, ``tda easgd``, ``tda als``, ``tda serve``,
-``tda pagerank``, ``tda kmeans``, ``tda closure`` and ``tda mc``. Runs on ``cuda`` unless ``--device
-cpu`` is given. ``--multihost`` joins a ``torch.distributed`` group
+``tda pagerank``, ``tda kmeans``, ``tda closure``, ``tda mc``, ``tda
+chaos`` and ``tda report``. Runs on ``cuda`` unless ``--device cpu`` is
+given. Every run takes ``--telemetry-dir`` and ``--fault-plan``, and is
+wrapped in ``checkpoint.run_with_restarts`` (``--max-restarts``) where
+the JAX CLI wraps it; with ``--checkpoint-dir`` a SIGTERM stops the run
+at the next checkpointed boundary with rc 75, and the same command
+resumes it. ``--multihost`` joins a ``torch.distributed`` group
 (:func:`..parallel.mesh.multihost_initialize`) and every process prints
 the same result lines, ``--comm`` schedules, ``--sync ssp`` and a
 ``--checkpoint-dir`` the processes share included. ``als``, ``closure``
@@ -153,7 +164,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="rows to generate when --stream-cache is new")
     _add_comm(o)
     _add_sync(o)
-    _add_fault_plan(o)
+    _add_max_restarts(o)
+    _add_telemetry(o)
 
     a = sub.add_parser("als", help="ALS matrix factorisation")
     _add_mesh_flags(a)
@@ -173,7 +185,7 @@ def _parser() -> argparse.ArgumentParser:
                         "checkpoint is the serving artifact")
     a.add_argument("--checkpoint-every", type=int, default=5)
     _add_max_restarts(a)
-    _add_fault_plan(a)
+    _add_telemetry(a)
 
     s = sub.add_parser("serve", help="serve ALS, k-means and LR artifacts "
                                      "under load")
@@ -195,6 +207,7 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--k-top", type=int, default=10)
     s.add_argument("--requests", type=int, default=256)
     s.add_argument("--concurrency", type=int, default=4)
+    _add_telemetry(s)
 
     c = sub.add_parser("kmeans", help="k-means (Lloyd's algorithm)")
     _add_mesh_flags(c)
@@ -222,10 +235,8 @@ def _parser() -> argparse.ArgumentParser:
     c.add_argument("--checkpoint-dir", type=str, default=None,
                    help="segmented checkpoint/resume directory")
     c.add_argument("--checkpoint-every", type=int, default=100)
-    c.add_argument("--max-restarts", type=int, default=0,
-                   help="restarts after a failed segment: waits for the "
-                        "faults slice (ROADMAP A12); only 0 is accepted")
-    _add_fault_plan(c)
+    _add_max_restarts(c)
+    _add_telemetry(c)
 
     g = sub.add_parser("pagerank", help="PageRank power iteration")
     _add_mesh_flags(g)
@@ -275,10 +286,8 @@ def _parser() -> argparse.ArgumentParser:
     g.add_argument("--checkpoint-dir", type=str, default=None,
                    help="segmented checkpoint/resume directory")
     g.add_argument("--checkpoint-every", type=int, default=5)
-    g.add_argument("--max-restarts", type=int, default=0,
-                   help="restarts after a failed segment: waits for the "
-                        "faults slice (ROADMAP A12); only 0 is accepted")
-    _add_fault_plan(g)
+    _add_max_restarts(g)
+    _add_telemetry(g)
 
     t = sub.add_parser("closure", help="transitive closure")
     _add_mesh_flags(t)
@@ -295,13 +304,54 @@ def _parser() -> argparse.ArgumentParser:
                    help="segmented checkpoint/resume directory")
     t.add_argument("--checkpoint-every", type=int, default=8)
     _add_max_restarts(t)
-    _add_fault_plan(t)
+    _add_telemetry(t)
 
     m = sub.add_parser("mc", help="Monte-Carlo pi")
     _add_mesh_flags(m)
     m.add_argument("--n", type=int, default=400_000)
     _add_max_restarts(m)
-    _add_fault_plan(m)
+    _add_telemetry(m)
+
+    from tpu_distalg_torch.faults import chaos
+
+    h = sub.add_parser(
+        "chaos",
+        help="run a small workload twice — undisturbed, then under an "
+             "injected fault schedule with the full recovery stack "
+             "armed — and verify the recovered final state is bitwise-"
+             "equal (rc 1 on mismatch)")
+    h.add_argument("--workload", default="lr", choices=list(chaos.WORKLOADS))
+    _add_mesh_flags(h)
+    h.add_argument("--n-iterations", type=int, default=None,
+                   help="override the workload's small default")
+    h.add_argument("--checkpoint-every", type=int, default=None)
+    h.add_argument("--max-restarts", type=int,
+                   default=chaos.DEFAULT_MAX_RESTARTS,
+                   help="restart budget for the chaos run")
+    h.add_argument("--spawn", default="thread",
+                   choices=["thread", "process"],
+                   help="cluster workloads only (not ported: ROADMAP A12); "
+                        "'process' is refused")
+    h.add_argument("--comm", default="dense", metavar="SCHED",
+                   help="cluster workloads only (not ported: ROADMAP A12); "
+                        "a schedule other than 'dense' is refused")
+    h.add_argument("--workdir", type=str, default=None,
+                   help="checkpoint scratch directory (default: a fresh "
+                        "temp dir, removed on success)")
+    _add_telemetry(h)
+
+    r = sub.add_parser("report",
+                       help="summarize a telemetry event log: phase "
+                            "durations, stalls, backend-init attempts, "
+                            "restarts, preemptions, injected faults, last "
+                            "heartbeat, metrics; several dirs (or a parent "
+                            "of per-process dirs) render one merged report")
+    r.add_argument("dir", nargs="+",
+                   help="telemetry directory (of events-*.jsonl), one "
+                        "event file, a parent directory of per-process "
+                        "telemetry dirs, or several of these")
+    r.add_argument("--json", action="store_true",
+                   help="print the full summary as JSON (for CI)")
     return p
 
 
@@ -391,43 +441,67 @@ def _add_sync(p) -> None:
              "instead of rejecting")
 
 
-def _add_fault_plan(p) -> None:
-    """``--fault-plan`` (``tpu_distalg/cli.py:179-188``), through
-    :func:`tpu_distalg_torch.faults.configure`."""
+def _add_telemetry(p) -> None:
+    """``--telemetry-dir`` and ``--fault-plan`` (the JAX CLI's
+    ``_add_telemetry``, ``tpu_distalg/cli.py:169-188``, less its
+    ``--tune``)."""
+    p.add_argument("--telemetry-dir", type=str, default=None,
+                   metavar="DIR",
+                   help="write structured JSONL runtime events here "
+                        "($TDA_TELEMETRY_DIR is the default when "
+                        "unset); summarize with 'tda report DIR'")
     p.add_argument(
         "--fault-plan", type=str, default=None, metavar="SPEC",
         help="deterministic fault-injection plan: inline "
              "'seed=N;point@hit=kind[:arg];...' or a JSON plan file "
-             "($TDA_FAULT_PLAN is the default). The port injects at "
-             "shard:straggle (kind straggle) and shard:leave (kind "
-             "leave), compiled into the --sync ssp schedules of ssgd, "
-             "ma, bmuf and easgd, and at data:gather, data:h2d and "
-             "cache:write on the runs through the data subsystem (ssgd "
-             "--stream-cache, kmeans and als off the resident backend); "
-             "the same plan+seed replays bitwise. A rule no seam of the "
-             "run reads, or at any other point, is refused: those seams "
-             "wait for ROADMAP A12")
+             "($TDA_FAULT_PLAN is the default; points: ckpt:write, "
+             "ckpt:read, cache:write, data:gather, data:h2d, "
+             "backend:init, segment:run, shard:straggle, shard:leave; "
+             "kinds: oserror, hang, corrupt, kill, straggle, leave). The "
+             "same plan+seed replays the same failure sequence bitwise "
+             "— see 'tda chaos'. A rule no seam of the run reads is "
+             "refused, and so is any cluster:* rule (ROADMAP A12)")
+
+
+#: the seams a run reads, by what the run does
+_CKPT_POINTS = ("ckpt:write", "ckpt:read", "segment:run")
+_DATA_POINTS = ("data:gather", "data:h2d", "cache:write")
+_SSP_POINTS = ("shard:straggle", "shard:leave")
+
+
+def _plan_reads(args) -> set:
+    """The fault points some seam of this run reads."""
+    from tpu_distalg_torch.parallel import ssp as pssp
+
+    if args.cmd == "serve":
+        return {"ckpt:read", "data:gather"}
+    reads = set()
+    try:
+        is_ssp = pssp.SyncSpec.parse(getattr(args, "sync", "bsp")).is_ssp
+    except ValueError:
+        is_ssp = False  # the trainer refuses the spelling in JAX's words
+    if is_ssp and args.cmd in ("ssgd", "ma", "bmuf", "easgd"):
+        reads |= set(_SSP_POINTS)
+    if _uses_data(args):
+        reads |= set(_DATA_POINTS)
+    if getattr(args, "checkpoint_dir", None):
+        reads |= set(_CKPT_POINTS)
+    return reads
 
 
 def _refuse_unread_plan(args) -> None:
-    """A rule that no seam of this run reads would never fire: the SSP
-    runs of ssgd and the local-update family compile the shard points,
-    the runs through the data subsystem fire the data points."""
+    """A rule that no seam of this run reads would never fire: refuse
+    it. A run with ``--checkpoint-dir`` reads the checkpoint and segment
+    points, ``serve`` the artifact read and the batch dispatch, the runs
+    through the data subsystem the data points and the SSP runs the
+    shard points; ``backend:init`` is read by
+    ``telemetry.supervisor.init_backend`` only."""
     from tpu_distalg_torch import faults
-    from tpu_distalg_torch.parallel import ssp as pssp
 
     reg = faults.active()
     if reg is None:
         return
-    try:
-        is_ssp = pssp.SyncSpec.parse(getattr(args, "sync", "bsp")).is_ssp
-    except ValueError:
-        return  # the trainer refuses the spelling in JAX's words
-    reads = set()
-    if is_ssp and args.cmd in ("ssgd", "ma", "bmuf", "easgd"):
-        reads |= {"shard:straggle", "shard:leave"}
-    if _uses_data(args):
-        reads |= {"data:gather", "data:h2d", "cache:write"}
+    reads = _plan_reads(args)
     unread = sorted({r.point for r in reg.plan.rules} - reads)
     if not unread:
         return
@@ -435,21 +509,26 @@ def _refuse_unread_plan(args) -> None:
         else args.cmd
     if not reads:
         raise SystemExit(
-            f"--fault-plan: {run} reads no fault plan (the port compiles "
-            f"shard:straggle and shard:leave into the --sync ssp runs of "
-            f"ssgd, ma, bmuf and easgd, and fires data:gather, data:h2d "
-            f"and cache:write on the runs through the data subsystem); "
-            f"injection at the other seams waits for ROADMAP A12")
+            f"--fault-plan: {run} reads no fault plan (the port fires "
+            f"{', '.join(_CKPT_POINTS)} on a run with --checkpoint-dir, "
+            f"ckpt:read and data:gather in serve, "
+            f"{', '.join(_DATA_POINTS)} on the runs through the data "
+            f"subsystem, and compiles {' and '.join(_SSP_POINTS)} into the "
+            f"--sync ssp runs of ssgd, ma, bmuf and easgd; backend:init "
+            f"fires in telemetry.supervisor.init_backend only)")
     raise SystemExit(
         f"--fault-plan: {run} reads no rule at {', '.join(unread)} (it "
-        f"reads {', '.join(sorted(reads))}); injection at the other "
-        f"seams waits for ROADMAP A12")
+        f"reads {', '.join(sorted(reads))})")
 
 
 def _add_max_restarts(p) -> None:
+    """``--max-restarts`` (``tpu_distalg/cli.py:202-215``): the run is
+    wrapped in ``checkpoint.run_with_restarts``."""
     p.add_argument("--max-restarts", type=int, default=0,
-                   help="restarts after a failed segment: waits for the "
-                        "faults slice (ROADMAP A12); only 0 is accepted")
+                   help="auto-restart the run up to N times on crash or "
+                        "NaN-guard trip; with --checkpoint-dir each "
+                        "restart resumes from the latest checkpoint "
+                        "(bitwise-identical to an uninterrupted run)")
 
 
 def _mesh(args):
@@ -459,9 +538,6 @@ def _mesh(args):
     not use (``tpu_distalg/cli.py:45-77``)."""
     from tpu_distalg_torch.parallel import get_mesh
 
-    if getattr(args, "max_restarts", 0) != 0:
-        raise SystemExit("--max-restarts waits for the faults slice "
-                         "(ROADMAP A12); only 0 is accepted")
     data, model = args.n_slices or None, 1
     if args.mesh_shape:
         if args.n_slices > 0:
@@ -502,11 +578,11 @@ def _run_closure(args) -> None:
     ckpt = dict(checkpoint_dir=args.checkpoint_dir,
                 checkpoint_every=args.checkpoint_every)
     if args.sparse:
-        res = m.run_sparse(
+        res = _with_restarts(args, lambda: m.run_sparse(
             edges, mesh, m.SparseClosureConfig(capacity=args.capacity or None),
-            **ckpt)
+            **ckpt))
     else:
-        res = m.run(edges, mesh, **ckpt)
+        res = _with_restarts(args, lambda: m.run(edges, mesh, **ckpt))
     print(f"The original graph has {res.n_paths} paths "
           f"({res.n_rounds} rounds)")
 
@@ -524,10 +600,8 @@ def _add_optimizer(p, n_iterations: int) -> None:
     p.add_argument("--checkpoint-dir", type=str, default=None,
                    help="segmented checkpoint/resume directory")
     p.add_argument("--checkpoint-every", type=int, default=500)
-    p.add_argument("--max-restarts", type=int, default=0,
-                   help="restarts after a failed segment: waits for the "
-                        "faults slice (ROADMAP A12); only 0 is accepted")
-    _add_fault_plan(p)
+    _add_max_restarts(p)
+    _add_telemetry(p)
 
 
 def _report(name: str, res, args, seconds: float) -> None:
@@ -577,8 +651,9 @@ def _run_optimizer(args) -> None:
             comm=args.comm, sync=args.sync)
     t0 = time.perf_counter()
     try:
-        res = m.train(*data, mesh, cfg, checkpoint_dir=args.checkpoint_dir,
-                      checkpoint_every=args.checkpoint_every)
+        res = _with_restarts(args, lambda: m.train(
+            *data, mesh, cfg, checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every))
     except NotImplementedError as e:
         raise SystemExit(f"[{args.cmd}] {e}") from None
     w = res.w.cpu()   # waits for the card
@@ -649,9 +724,10 @@ def _run_ssgd_stream(args, mesh) -> None:
         gather_block_rows=args.gather_block_rows, sampler="fused_gather",
         shuffle_seed=None, eval_every=max(1, args.n_iterations // 10))
     t0 = time.perf_counter()
-    res = ssgd_stream.train(X2, meta, mesh, cfg, X_te, y_te,
-                            checkpoint_dir=args.checkpoint_dir,
-                            checkpoint_every=args.checkpoint_every)
+    res = _with_restarts(args, lambda: ssgd_stream.train(
+        X2, meta, mesh, cfg, X_te, y_te,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every))
     w = res.w.cpu()   # waits for the card
     _report("ssgd", dataclasses.replace(res, w=w), args,
             time.perf_counter() - t0)
@@ -689,9 +765,10 @@ def _run_ssgd(args) -> None:
         # the kernel evaluates at launch boundaries only
         kw["eval_every"] = max(1, min(mega, args.n_iterations))
     t0 = time.perf_counter()
-    res = ssgd.train(*data, mesh, ssgd.SSGDConfig(**kw),
-                     checkpoint_dir=args.checkpoint_dir,
-                     checkpoint_every=args.checkpoint_every)
+    res = _with_restarts(args, lambda: ssgd.train(
+        *data, mesh, ssgd.SSGDConfig(**kw),
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every))
     w = res.w.cpu()   # waits for the card
     _report("ssgd", dataclasses.replace(res, w=w), args,
             time.perf_counter() - t0)
@@ -717,9 +794,10 @@ def _run_kmeans(args) -> None:
             mesh, args.scale_points or args.n_points or (1 << 20),
             dim=args.dim, k=args.k, seed=0, block_rows=args.block_rows,
             backend=args.data_backend, path=args.stream_cache))
-        res = m.fit_minibatch(ds, m.KMeansConfig(k=args.k),
-                              n_steps=args.minibatch_steps or 100,
-                              mini_batch_blocks=args.mini_batch_blocks)
+        res = _with_restarts(args, lambda: m.fit_minibatch(
+            ds, m.KMeansConfig(k=args.k),
+            n_steps=args.minibatch_steps or 100,
+            mini_batch_blocks=args.mini_batch_blocks))
         print(f"Final centers: {res.centers.cpu().tolist()}")
         print(f"minibatch steps run: {res.n_iterations_run} "
               f"(backend={args.data_backend})")
@@ -729,17 +807,17 @@ def _run_kmeans(args) -> None:
     if args.scale_points:
         make_rows, _ = datasets.gaussian_mixture_rows(k=args.k, dim=args.dim,
                                                       seed=0)
-        res = m.fit_scaled(
+        res = _with_restarts(args, lambda: m.fit_scaled(
             mesh, args.scale_points, make_rows,
             m.KMeansConfig(k=args.k, n_iterations=args.n_iterations,
                            converge_dist=args.converge_dist,
-                           init="farthest"), **ckpt)
+                           init="farthest"), **ckpt))
     else:
         pts = (datasets.toy_kmeans_matrix() if args.n_points == 0
                else datasets.gaussian_mixture(args.n_points, k=args.k))
-        res = m.fit(pts, mesh, m.KMeansConfig(
+        res = _with_restarts(args, lambda: m.fit(pts, mesh, m.KMeansConfig(
             k=args.k, n_iterations=args.n_iterations,
-            converge_dist=args.converge_dist), **ckpt)
+            converge_dist=args.converge_dist), **ckpt))
     print(f"Final centers: {res.centers.cpu().tolist()}")
     print(f"iterations run: {res.n_iterations_run}")
 
@@ -772,10 +850,12 @@ def _run_als(args) -> None:
             mesh, args.m, args.n, args.k, seed=cfg.seed,
             block_rows=args.block_rows, backend=args.data_backend,
             path=args.stream_cache))
-        res = als.fit_streamed(ds, cfg, rmse_every=args.rmse_every)
+        res = _with_restarts(args, lambda: als.fit_streamed(
+            ds, cfg, rmse_every=args.rmse_every))
     else:
-        res = als.fit(mesh, cfg, checkpoint_dir=args.checkpoint_dir,
-                      checkpoint_every=args.checkpoint_every)
+        res = _with_restarts(args, lambda: als.fit(
+            mesh, cfg, checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every))
     for t, e in enumerate(res.rmse_history.cpu().numpy()):
         print(f"iterations: {t}, rmse: {float(e):f}")
     if args.checkpoint_dir:
@@ -839,9 +919,9 @@ def _run_pagerank(args) -> None:
         t1 = time.perf_counter()
         print(f"[pagerank] prep: {t1 - t0:.3f}s ({el.n_edges} edges, "
               f"{el.n_vertices} vertices: dedupe, dst sort, CSR upload)")
-        res = m.run_prepared(de, mesh, cfg,
-                             checkpoint_dir=args.checkpoint_dir,
-                             checkpoint_every=args.checkpoint_every)
+        res = _with_restarts(args, lambda: m.run_prepared(
+            de, mesh, cfg, checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every))
         mask = res.has_rank.cpu().numpy() > 0
         tail = ""
     else:
@@ -885,11 +965,11 @@ def _run_pagerank_engine(args, edges, n_v: int, mesh, backend: str):
         edges, path, n_shards=mesh.n_data, block_edges=args.block_edges,
         n_vertices=n_v, source={"kind": "edges", "sha1": sha}))
     gd = graphs.open_graph_dataset(path, mesh, backend=backend)
-    res = graphs.run_streamed_pagerank(
+    res = _with_restarts(args, lambda: graphs.run_streamed_pagerank(
         gd, graphs.StreamedPageRankConfig(
             n_iterations=args.n_iterations, q=args.q, combine=args.combine),
         checkpoint_dir=args.checkpoint_dir,
-        checkpoint_every=args.checkpoint_every)
+        checkpoint_every=args.checkpoint_every))
     st = res.comm_stats
     wire = (st["bytes_wire"] if res.combine == "sparse"
             else st["bytes_dense_ring"])
@@ -899,7 +979,7 @@ def _run_pagerank_engine(args, edges, n_v: int, mesh, backend: str):
     return res, tail
 
 
-def _dispatch(args) -> None:
+def _dispatch(args) -> int:
     if args.cmd == "ssgd":
         _run_ssgd(args)
     elif args.cmd in ("lr", "ma", "bmuf", "easgd"):
@@ -914,49 +994,148 @@ def _dispatch(args) -> None:
         from tpu_distalg_torch.models import monte_carlo
 
         mesh = _mesh(args)
-        pi, _ = monte_carlo.estimate_pi(
-            mesh, monte_carlo.MonteCarloConfig(n=args.n))
+        pi, _ = _with_restarts(args, lambda: monte_carlo.estimate_pi(
+            mesh, monte_carlo.MonteCarloConfig(n=args.n)))
         print(f"Pi is roughly {pi:f}")
     elif args.cmd == "als":
         _run_als(args)
     elif args.cmd == "serve":
         _run_serve(args)
+    elif args.cmd == "chaos":
+        return _run_chaos(args)
+    return 0
+
+
+def _with_restarts(args, run_once):
+    """``run_once()`` under ``checkpoint.run_with_restarts`` with the
+    run's ``--max-restarts``, where the JAX CLI wraps it."""
+    from tpu_distalg_torch.utils import checkpoint
+
+    return checkpoint.run_with_restarts(
+        run_once, max_restarts=args.max_restarts)
+
+
+def _run_chaos(args) -> int:
+    """``chaos`` (``tpu_distalg/cli.py:1600-1640``): rc 1 on a mismatch;
+    a temporary ``--workdir`` is removed on success and kept on
+    failure."""
+    import shutil
+    import tempfile
+
+    from tpu_distalg_torch import faults
+    from tpu_distalg_torch.faults import chaos
+
+    spec = args.fault_plan or os.environ.get(faults.ENV_PLAN)
+    if not spec:
+        raise SystemExit(
+            "tda chaos needs a fault schedule: pass --fault-plan "
+            "'seed=N;point@hit=kind[:arg];...' (or a JSON plan file, or "
+            "export $TDA_FAULT_PLAN)")
+    if args.workload in chaos.CLUSTER_WORKLOADS:
+        raise SystemExit(f"[chaos] {args.workload}: the cluster runtime "
+                         f"is not ported; it waits for ROADMAP A12")
+    if args.spawn != "thread" or args.comm != "dense":
+        raise SystemExit("[chaos] --spawn and --comm set the cluster "
+                         "workloads' workers and wire, and the cluster "
+                         "runtime is not ported; it waits for ROADMAP A12")
+    try:
+        plan = faults.FaultPlan.parse(spec)
+        faults.registry.check_ported(plan)
+    except (ValueError, OSError) as e:
+        raise SystemExit(f"--fault-plan: {e}") from None
+    mesh = _mesh(args)
+    workdir = args.workdir
+    made_tmp = workdir is None
+    if made_tmp:
+        workdir = tempfile.mkdtemp(prefix="tda-chaos-")
+    res = None
+    try:
+        res = chaos.run_chaos(
+            args.workload, mesh, plan=plan, workdir=workdir,
+            n_iterations=args.n_iterations,
+            checkpoint_every=args.checkpoint_every,
+            max_restarts=args.max_restarts,
+            logger=lambda m: print(f"[chaos] {m}"))
+    finally:
+        if made_tmp:
+            if res is not None and res.equal:
+                shutil.rmtree(workdir, ignore_errors=True)
+            else:
+                print(f"[chaos] scratch kept for debugging: {workdir}",
+                      file=sys.stderr)
+    print(res.verdict())
+    return 0 if res.equal else 1
 
 
 def main(argv=None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
+    if args.cmd == "report":
+        from tpu_distalg_torch.telemetry import report
+
+        try:
+            return report.report_main(args.dir, as_json=args.json)
+        except FileNotFoundError as e:
+            print(f"tda report: {e}", file=sys.stderr)
+            return 2
     if args.multihost and args.coordinator_address is None and (
             args.num_processes is not None or args.process_id is not None):
         parser.error("--num-processes/--process-id require "
                      "--coordinator-address (omit all three to auto-detect)")
-    if hasattr(args, "fault_plan"):
-        from tpu_distalg_torch import faults
+    from tpu_distalg_torch import faults, telemetry
 
+    telemetry.configure(args.telemetry_dir)
+    if args.cmd != "chaos":
+        # the chaos harness owns the registry (it runs an undisturbed
+        # reference first); elsewhere the plan is live for the run
         try:
             faults.configure(args.fault_plan)
         except (ValueError, OSError) as e:
             raise SystemExit(f"--fault-plan: {e}") from None
-        _refuse_unread_plan(args)
+        try:
+            _refuse_unread_plan(args)
+        except SystemExit:
+            faults.configure(False)
+            raise
+    if getattr(args, "checkpoint_dir", None):
+        # SIGTERM/SIGINT: checkpoint at the next boundary, exit rc 75
+        faults.preempt.install()
     if args.emulate:
         from tpu_distalg_torch.parallel import emulate_devices
 
         emulate_devices(args.emulate)
+    # well above the silent phases of a healthy run (first builds of
+    # the kernels, the host sorts of a large graph)
+    hb = telemetry.start_heartbeat(stall_after=600.0)
+    try:
+        with telemetry.span(f"cli:{args.cmd}"):
+            return _run(args)
+    except faults.Preempted as e:
+        # the boundary checkpoint is on disk: the same command resumes
+        print(f"[preempted] checkpoint saved at step {e.step}; re-run the "
+              f"same command to resume (rc={faults.PREEMPTED_RC})",
+              file=sys.stderr)
+        return faults.PREEMPTED_RC
+    finally:
+        if hb is not None:
+            hb.stop()
+
+
+def _run(args) -> int:
+    """The run, in a process group under ``--multihost``."""
     if not args.multihost:
-        _dispatch(args)
-        return 0
+        return _dispatch(args)
     from tpu_distalg_torch.parallel import mesh as pmesh
 
     pmesh.multihost_initialize(args.coordinator_address,
                                args.num_processes, args.process_id,
                                device=args.device)
     try:
-        _dispatch(args)
+        return _dispatch(args)
     finally:
         # a rank that raises leaves the group, so the others' pending
         # collectives fail instead of waiting out their timeout
         pmesh.shutdown()
-    return 0
 
 
 def _run_serve(args) -> None:

@@ -206,7 +206,8 @@ def build_cache(path: str, *, header: dict, write_bin, aux=()):
     must be deterministic in the header. The build runs in a
     ``data:cache_build`` span; each attempt passes the ``cache:write``
     fault seam, and a transient ``OSError`` retries the whole attempt
-    (``cache.write_failures`` counts the failed ones)."""
+    under ``telemetry.supervisor.supervised`` (``cache.write_failures``
+    counts the failed ones)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     sweep_stale_tmp(path)
     dtype = storage_dtype(header["dtype"])
@@ -231,19 +232,19 @@ def build_cache(path: str, *, header: dict, write_bin, aux=()):
             json.dump(header, f)
         os.replace(meta_tmp, meta_path(path))
 
+    from tpu_distalg_torch.telemetry.supervisor import supervised
+
     try:
         with tevents.span("data:cache_build", path=path,
                           layout=header.get("layout"),
                           bytes=int(np.prod(shape)) * dtype.itemsize):
-            for attempt in range(BUILD_RETRIES + 1):
-                try:
-                    build_once()
-                    break
-                except OSError:
-                    tevents.counter("cache.write_failures")
-                    if attempt == BUILD_RETRIES:
-                        raise
-                    time.sleep(BUILD_BACKOFF_SECONDS)
+            supervised(build_once, phase="cache:write",
+                       retries=BUILD_RETRIES,
+                       backoff=BUILD_BACKOFF_SECONDS,
+                       backoff_cap=BUILD_BACKOFF_SECONDS, jitter=0.0,
+                       retry_on=(OSError,),
+                       failure_counter="cache.write_failures",
+                       log=lambda m: None)
     finally:
         # a failed build must not orphan its tmp bytes
         for leftover in tmps:

@@ -12,23 +12,34 @@ A plan compiles to the same firings as in the JAX package: the same
 per-point seeds (``(seed << 20) ^ crc32(point)``), the same
 ``random.Random`` draws in the same order, one draw per invocation of a
 point for each probability rule whether or not it fires, and the first
-matching rule wins. So a ``shard:straggle`` or ``shard:leave`` plan
-gives the port the straggle schedule and the membership epochs JAX
-gives it (``parallel/ssp.compile_straggle_schedule``,
-``parallel/membership.compile_epochs``).
+matching rule wins. Every seam fires on the invocation JAX's fires on,
+so one plan fires the same faults in both packages:
 
-The port has seams at those two points and at the data subsystem's
-(``data:gather`` and ``data:h2d`` in ``data/sharded.py``, ``cache:write``
-in ``data/cache.py``). :func:`configure` refuses a plan with a rule at
-any other point, naming ROADMAP A12 (the chaos harness, preemption and
-the other I/O seams): a plan that never fires would be a silent lie.
+  ``ckpt:write``      ``utils/checkpoint.save``: the npz body about to
+                      reach the disk, in each supervised attempt (across
+                      processes only process 0, the one writer, writes);
+  ``ckpt:read``       ``utils/checkpoint.restore``: the bytes just read,
+                      before the CRC check;
+  ``cache:write``     ``data/cache.build_cache``, each attempt;
+  ``data:gather``     ``data/sharded.py`` (a staged batch) and
+                      ``serve/batcher.py`` (a micro-batch, on the leader);
+  ``data:h2d``        ``data/sharded.py``, a batch's copy to the card;
+  ``backend:init``    ``telemetry/supervisor.init_backend``, each attempt;
+  ``segment:run``     before each segment of ``run_segmented`` and each
+                      window segment of ``membership.run_elastic``;
+  ``shard:straggle``, ``shard:leave``  probed by the SSP schedule
+                      compilers (``parallel/ssp.py``, ``membership.py``).
+
+:func:`configure` refuses a plan with a rule at a ``cluster:*`` point,
+naming ROADMAP A12: the cluster runtime is not ported, and a plan that
+never fires would be a silent lie.
 
 Plan spec (``--fault-plan`` / ``$TDA_FAULT_PLAN``): a JSON file
 (``{"seed": 42, "rules": [{"point": ..., "hit": 2|"*", "prob": 0.1,
 "kind": ..., "arg": ...}]}``) or an inline string
-``seed=7;shard:straggle@p0.25=straggle:800``. ``point@N=kind`` fires
-on the N-th invocation (0-based), ``@*`` on every one, ``@pP`` with
-probability P from the point's seeded generator.
+``seed=7;ckpt:write@1=corrupt;segment:run@2=kill``. ``point@N=kind``
+fires on the N-th invocation (0-based), ``@*`` on every one, ``@pP``
+with probability P from the point's seeded generator.
 """
 
 from __future__ import annotations
@@ -63,10 +74,8 @@ POINTS = (
     "cluster:ps",
 )
 
-#: the points with a seam in the port: the SSP schedule compilers and
-#: the data subsystem
-PORTED_POINTS = ("shard:straggle", "shard:leave", "data:gather", "data:h2d",
-                 "cache:write")
+#: the points with a seam in the port: every point but the cluster's
+PORTED_POINTS = tuple(p for p in POINTS if not p.startswith("cluster:"))
 
 KINDS = ("oserror", "hang", "corrupt", "kill", "straggle", "leave")
 
@@ -338,14 +347,14 @@ class FaultRegistry:
 
 
 def check_ported(plan: FaultPlan) -> None:
-    """Refuse a plan with a rule at a point the port has no seam for."""
+    """Refuse a plan with a rule at a point the port has no seam for
+    (the ``cluster:*`` points)."""
     other = sorted({r.point for r in plan.rules} - set(PORTED_POINTS))
     if other:
         raise ValueError(
             f"fault plan {plan.spec()!r} has rules at "
-            f"{', '.join(other)}: the port injects at "
-            f"{', '.join(PORTED_POINTS)} only; the other seams wait "
-            f"for ROADMAP A12")
+            f"{', '.join(other)}: the cluster runtime (cluster/) is not "
+            f"ported, so nothing fires there; it waits for ROADMAP A12")
 
 
 _LOCK = threading.Lock()
@@ -357,8 +366,8 @@ def configure(spec: str | FaultPlan | None | bool = None,
     """Select the process-global registry. ``spec=None`` falls back to
     ``$TDA_FAULT_PLAN``; unset or empty disables injection (the
     default); ``spec=False`` disables whatever the variable says. Each
-    call starts a fresh registry. A rule at a point the port has no
-    seam for raises ValueError (ROADMAP A12)."""
+    call starts a fresh registry. A rule at a ``cluster:*`` point
+    raises ValueError (ROADMAP A12)."""
     global _REGISTRY
     if spec is False:
         plan = None

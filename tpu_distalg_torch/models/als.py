@@ -39,8 +39,9 @@ last segment's checkpoint is the serving artifact
 (``serve/artifacts.load_artifact``). Sweeps draw nothing, so a
 segmented run equals a straight one bit for bit. :func:`fit_streamed`
 runs the sweep over R streamed from a ``ShardedDataset`` (``data/``);
-``fit_rowstore`` waits for ROADMAP A12, and so do restarts after a
-failed segment.
+``fit_rowstore`` waits for ROADMAP A12. A failed segment is restarted
+by ``utils/checkpoint.run_with_restarts`` (``als --max-restarts``),
+resuming from the newest checkpoint.
 """
 
 from __future__ import annotations

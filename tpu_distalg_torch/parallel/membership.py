@@ -23,8 +23,11 @@ shares (:func:`..utils.checkpoint.save_shared`: the row-sharded leaves
 gathered, process 0 the one writer), so the shard count that wrote a
 checkpoint is the global one, whatever the processes.
 
-The JAX package's preemption exit (rc 75 at a window boundary after the
-save) and its ``segment:run`` injection seam wait for ROADMAP A12.
+As in the JAX package, the ``segment:run`` fault seam fires before each
+window segment, a resume reads through the quarantine fallback
+(``checkpoint.restore_newest_with_fallback``), and a pending preemption
+exits with rc 75 at the next window boundary after its save (across
+processes any process's request, agreed in the save's all-gather).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import sys
 import numpy as np
 import torch
 
+from tpu_distalg_torch import faults
 from tpu_distalg_torch.faults import registry as fregistry
 
 
@@ -154,7 +158,9 @@ def run_elastic(checkpoint_dir: str | None, checkpoint_every: int,
     ``state0`` and a restored state are whole host arrays, which
     ``run_seg`` places; across processes (``mesh``) the leaves marked in
     ``sharded`` are this process's rows after a segment and are
-    gathered into the shared directory's file.
+    gathered into the shared directory's file. A corrupt newest file
+    is quarantined and the window before it resumed; a pending
+    preemption stops the loop at the next boundary after its save.
 
     Returns ``(state, outs_concat, start_window, epochs)``."""
     from tpu_distalg_torch.telemetry import events as tevents
@@ -173,8 +179,9 @@ def run_elastic(checkpoint_dir: str | None, checkpoint_every: int,
     restored = None
     if checkpoint_dir:
         ckpt.check_shared(checkpoint_dir, None, mesh)
-    if checkpoint_dir and ckpt.latest_step(checkpoint_dir) is not None:
-        restored = ckpt.restore(checkpoint_dir)
+    if checkpoint_dir:
+        restored = ckpt.restore_newest_with_fallback(checkpoint_dir,
+                                                     logger=log)
     if restored is not None:
         payload, start = restored
         saved_tag = payload["tag"]
@@ -242,6 +249,7 @@ def run_elastic(checkpoint_dir: str | None, checkpoint_every: int,
                       n_windows)
         n_win = seg_end - win
         tevents.mark(f"ssp:{tag or 'train'}@w{win}", emit_event=False)
+        faults.inject("segment:run")
         key = (epoch.active, n_win)
         if key not in seg_fns:
             seg_fns[key] = make_seg_fn(epoch.active, n_win)
@@ -255,7 +263,7 @@ def run_elastic(checkpoint_dir: str | None, checkpoint_every: int,
         win = seg_end
         if checkpoint_dir:
             streams = _cat_streams(outs_parts)
-            ckpt.save_shared(
+            stop = ckpt.save_shared(
                 checkpoint_dir, tag, state, win, mesh=mesh, sharded=sharded,
                 keep=keep, extra={"shards": np.int64(n_shards),
                                   **{f"outs_{i}": s
@@ -263,6 +271,9 @@ def run_elastic(checkpoint_dir: str | None, checkpoint_every: int,
             tevents.emit("checkpoint_saved",
                          step=win * ticks_per_window, tag=tag)
             tevents.counter("checkpoints_saved")
+            if win < n_windows:
+                ckpt.preempt_boundary_exit(win * ticks_per_window, tag,
+                                           requested=stop)
     return state, _cat_streams(outs_parts), start, epochs
 
 

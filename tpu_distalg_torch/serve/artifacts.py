@@ -18,8 +18,11 @@ replicated (a training result's rows cross through
 ``partition.reshard``), V split over the model axis inside each
 process, so every process computes every reply of a batch alike.
 
-Not ported yet: the JAX package's corrupt-read re-read fallback
-(``ckpt:read``), which waits for ROADMAP A12.
+An artifact loads through :func:`_restore_with_reread` (JAX
+``serve/artifacts.py:334-353``): a corrupt read (the ``ckpt:read``
+seam flips bytes in flight) is read once more, since the file on disk is
+usually intact, and only a second corrupt read falls back through the
+quarantine path to an older step.
 """
 
 from __future__ import annotations
@@ -304,14 +307,34 @@ def als_model(U, V, mesh: Mesh, *, k_top: int = 10, merge: str = "sparse",
               "device": str(dev)})
 
 
+def _restore_with_reread(path: str):
+    """The newest checkpoint under ``path``: a corrupt read is read once
+    more (``serve.artifact_reread``), and a second corrupt read falls
+    back through ``checkpoint.restore_newest_with_fallback``."""
+    try:
+        return checkpoint.restore(path)
+    except checkpoint.CorruptCheckpointError:
+        tevents.counter("serve.artifact_reread")
+        tevents.emit("serve_artifact_reread", path=path)
+        try:
+            return checkpoint.restore(path)
+        except checkpoint.CorruptCheckpointError:
+            out = checkpoint.restore_newest_with_fallback(path)
+            if out is None:
+                raise FileNotFoundError(
+                    f"no restorable checkpoint under {path}") from None
+            return out
+
+
 def load_artifact(path: str, mesh: Mesh, *, name: str | None = None,
                   k_top: int = 10, merge: str = "sparse",
                   block_items: int | None = None) -> ServedModel:
     """Open one of the port's checkpoint directories as a
     :class:`ServedModel` on the mesh's device, dispatching on the
     checkpoint's tag; ALS factors are served over the mesh's model
-    axis (:func:`als_model`)."""
-    payload, step = checkpoint.restore(path)
+    axis (:func:`als_model`). The read degrades as
+    :func:`_restore_with_reread` says."""
+    payload, step = _restore_with_reread(path)
     tag = payload["tag"]
     root = tag.split(":", 1)[0]
     tevents.emit("serve_artifact_loaded", path=path, tag=tag, step=step)

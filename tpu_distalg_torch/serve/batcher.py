@@ -15,8 +15,10 @@ Port of ``tpu_distalg/serve/batcher.py`` with the same semantics:
     one per request.
 
 A failed batch fails that batch's replies and the loop keeps serving.
-The JAX package's ``data:gather`` fault-injection seam is not ported
-yet.
+Each dispatch passes the ``data:gather`` fault seam inside its
+``serve:batch`` span (JAX ``serve/batcher.py:237-239``); across
+processes only the leader dispatches, so the seam fires there and a
+failed batch is never sent to the followers.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import queue
 import threading
 import time
 
+from tpu_distalg_torch import faults
 from tpu_distalg_torch.telemetry import events as tevents
 
 #: idle poll interval of the dispatch loop's first-request wait
@@ -195,6 +198,9 @@ class MicroBatcher:
         try:
             with tevents.span("serve:batch", model=self.name,
                               n=len(batch)):
+                # staging the micro-batch: the data:gather seam, before
+                # anything of the batch is sent to another process
+                faults.inject("data:gather")
                 out = self._predict(payloads)
         except Exception as e:  # noqa: BLE001 — a failed batch fails
             #                     its replies, never the dispatch loop

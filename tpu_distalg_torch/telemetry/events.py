@@ -5,8 +5,11 @@ same event schema (``ev``, ``t_wall``, ``t_mono``, ``run``, ``pid``,
 ``host`` plus event fields), so ``tda report`` reads the port's files
 too, the sync layer's ``comm.*``, ``ssp.*`` and membership counters,
 gauges and events included (``parallel/comms.py``, ``ssp.py``,
-``membership.py``, under the JAX package's names), and :func:`mark`.
-Telemetry is on when :func:`configure` is given a directory or
+``membership.py``, under the JAX package's names), the recovery
+shell's (``restart``, ``quarantine``, ``preempted``, ``heartbeat``,
+``stall``, ``backend_init``, ``fault_injected``, ``chaos_verdict``)
+and :func:`mark`, whose newest value the heartbeat reads
+(:func:`last_mark`). Telemetry is on when :func:`configure` is given a directory or
 ``$TDA_TELEMETRY_DIR`` is set, and every emitting function is a no-op
 otherwise. Counters are kept in memory and flushed as one ``counters``
 event when the sink closes.
@@ -39,6 +42,7 @@ class EventSink:
     def __init__(self, directory: str, run_id: str | None = None):
         os.makedirs(directory, exist_ok=True)
         self.run_id = run_id or uuid.uuid4().hex[:12]
+        self.directory = directory
         self.path = os.path.join(directory, f"events-{self.run_id}.jsonl")
         self._f = open(self.path, "a", buffering=1)
         self._lock = threading.Lock()
@@ -79,7 +83,8 @@ class EventSink:
             self._f.close()
 
 
-def configure(directory: str | None | bool = None) -> EventSink | None:
+def configure(directory: str | None | bool = None, *,
+              run_id: str | None = None) -> EventSink | None:
     """Select the process-global sink. ``None`` falls back to
     ``$TDA_TELEMETRY_DIR``; ``False`` disables even when the variable
     is set. Replacing an active sink closes it."""
@@ -93,9 +98,17 @@ def configure(directory: str | None | bool = None) -> EventSink | None:
     if old is not None:
         old.close()
     if directory:
-        sink = EventSink(directory)
+        sink = EventSink(directory, run_id=run_id)
         with _LOCK:
             _SINK = sink
+    return _SINK
+
+
+def enabled() -> bool:
+    return _SINK is not None
+
+
+def get_sink() -> EventSink | None:
     return _SINK
 
 
@@ -118,6 +131,11 @@ def mark(phase: str, emit_event: bool = True) -> None:
             sink.write("mark", phase=phase)
 
 
+def last_mark() -> tuple[float, str]:
+    """(monotonic seconds, phase) of the newest mark."""
+    return _LAST_MARK
+
+
 def counter(name: str, n: int = 1) -> None:
     sink = _SINK
     if sink is not None:
@@ -131,7 +149,8 @@ def gauge(name: str, value, **fields) -> None:
 @contextlib.contextmanager
 def span(name: str, **fields):
     """``span_start``/``span_end`` (with ``seconds``, ``ok`` and, on
-    failure, ``error``) around the body."""
+    failure, ``error``) around the body, and a mark at both edges."""
+    mark(name, emit_event=False)
     sink = _SINK
     if sink is None:
         yield
@@ -151,6 +170,7 @@ def span(name: str, **fields):
         if err is not None:
             end["error"] = err
         sink.write("span_end", name=name, **end)
+        mark(name, emit_event=False)
 
 
 @atexit.register

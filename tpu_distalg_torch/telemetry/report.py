@@ -1,0 +1,592 @@
+"""Event-log summaries: ``tda report <dir>`` (port of
+``tpu_distalg/telemetry/report.py``).
+
+Turns a telemetry JSONL log into phase durations (from spans), stall,
+retry, restart and preemption counts, the backend-init attempts and
+their resolution, the injected faults, the last heartbeat and every
+recorded metric and gauge, for people (:func:`render`) and for CI
+(``--json``). The event schema is the JAX package's, so a directory
+written by either package reads the same. Torn tail lines (a killed
+process loses at most the line it was writing) are skipped and counted,
+and several runs' files in one directory are read oldest first.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+
+
+def load_events(path: str) -> list[dict]:
+    """All events under ``path`` (a directory of ``events-*.jsonl`` or
+    one file), in file order; undecodable lines are skipped (the torn
+    tail of a killed run), counted in a synthetic leading
+    ``{"ev": "_torn_lines"}`` record when any were dropped."""
+    if os.path.isfile(path):
+        paths = [path]
+    else:
+        # oldest first BY MTIME (run ids are random hex, so a name sort
+        # is arbitrary): "last wins" fields — last_heartbeat, resolution,
+        # metrics — must come from the NEWEST run in a reused directory
+        paths = sorted(glob.glob(os.path.join(path, "events-*.jsonl")),
+                       key=lambda p: (os.path.getmtime(p), p))
+        if not paths:
+            raise FileNotFoundError(
+                f"no events-*.jsonl under {path!r} (and it is not a "
+                f"file) — was the run started with --telemetry-dir?")
+    out: list[dict] = []
+    torn = 0
+    for p in paths:
+        with open(p) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except json.JSONDecodeError:
+                    torn += 1
+                    continue
+                if isinstance(rec, dict):
+                    out.append(rec)
+    if torn:
+        out.insert(0, {"ev": "_torn_lines", "count": torn})
+    return out
+
+
+def summarize(evts: list[dict]) -> dict:
+    """Aggregate an event list into one report dict (see keys below)."""
+    phases: dict[str, dict] = {}
+    open_spans: dict[str, int] = {}
+    stalls: list[dict] = []
+    init_attempts: list[dict] = []
+    metrics: dict[str, dict] = {}
+    gauges: dict[str, object] = {}
+    counters: dict[str, int] = {}
+    faults_injected: list[dict] = []
+    preemptions: list[dict] = []
+    restarts = quarantines = checkpoints = marks = heartbeats = 0
+    last_heartbeat = None
+    resolution = None
+    runs: list[str] = []
+    t_wall = [e["t_wall"] for e in evts if "t_wall" in e]
+    for e in evts:
+        ev = e.get("ev")
+        run = e.get("run")
+        if run and run not in runs:
+            runs.append(run)
+        if ev == "span_start":
+            open_spans[e.get("name", "?")] = \
+                open_spans.get(e.get("name", "?"), 0) + 1
+        elif ev == "span_end":
+            name = e.get("name", "?")
+            open_spans[name] = open_spans.get(name, 1) - 1
+            p = phases.setdefault(
+                name, {"count": 0, "total_seconds": 0.0,
+                       "max_seconds": 0.0, "errors": 0})
+            s = float(e.get("seconds", 0.0))
+            p["count"] += 1
+            p["total_seconds"] = round(p["total_seconds"] + s, 6)
+            p["max_seconds"] = round(max(p["max_seconds"], s), 6)
+            if not e.get("ok", True):
+                p["errors"] += 1
+        elif ev == "mark":
+            marks += 1
+        elif ev == "heartbeat":
+            heartbeats += 1
+            last_heartbeat = {
+                "phase": e.get("phase"),
+                "seconds_since_mark": e.get("seconds_since_mark"),
+                "t_wall": e.get("t_wall"),
+            }
+        elif ev == "stall":
+            stalls.append({"phase": e.get("phase"),
+                           "seconds_since_mark":
+                               e.get("seconds_since_mark")})
+        elif ev == "backend_init":
+            init_attempts.append({"attempt": e.get("attempt"),
+                                  "outcome": e.get("outcome"),
+                                  "seconds": e.get("seconds")})
+            if e.get("outcome") == "ok":
+                resolution = "ok"
+        elif ev == "degraded":
+            resolution = "degraded"
+        elif ev == "backend_unavailable":
+            resolution = "backend_unavailable"
+        elif ev == "restart":
+            restarts += 1
+        elif ev == "fault_injected":
+            # chaos bookkeeping: a run under an injected fault plan
+            # records every fire, so the report separates INJECTED
+            # failures from organic ones (the restart/stall/quarantine
+            # lines below count both)
+            faults_injected.append({"point": e.get("point"),
+                                    "hit": e.get("hit"),
+                                    "kind": e.get("kind")})
+        elif ev == "preempted":
+            preemptions.append({"step": e.get("step"),
+                                "tag": e.get("tag")})
+        elif ev == "quarantine":
+            quarantines += 1
+        elif ev == "checkpoint_saved":
+            checkpoints += 1
+        elif ev == "metric" and "metric" in e:
+            metrics[e["metric"]] = {
+                "value": e.get("value"), "unit": e.get("unit"),
+                "vs_baseline": e.get("vs_baseline")}
+        elif ev == "gauge" and "name" in e:
+            gauges[e["name"]] = e.get("value")
+        elif ev == "counters":
+            for k, v in (e.get("counters") or {}).items():
+                counters[k] = counters.get(k, 0) + int(v)
+    return {
+        "runs": runs,
+        "n_events": len(evts),
+        "wall_seconds": (round(max(t_wall) - min(t_wall), 3)
+                         if t_wall else 0.0),
+        "phases": phases,
+        "unfinished_phases": sorted(
+            k for k, v in open_spans.items() if v > 0),
+        "marks": marks,
+        "heartbeats": heartbeats,
+        "last_heartbeat": last_heartbeat,
+        "stalls": stalls,
+        "backend_init": {"attempts": init_attempts,
+                         "resolution": resolution},
+        "restarts": restarts,
+        "quarantines": quarantines,
+        "checkpoints_saved": checkpoints,
+        "faults_injected": faults_injected,
+        "preemptions": preemptions,
+        "counters": counters,
+        "gauges": gauges,
+        "metrics": metrics,
+        "torn_lines": next((e["count"] for e in evts
+                            if e.get("ev") == "_torn_lines"), 0),
+    }
+
+
+def render(s: dict) -> str:
+    """Human rendering of :func:`summarize`'s dict."""
+    lines = [
+        f"runs: {len(s['runs'])} ({', '.join(s['runs']) or '-'})",
+        f"events: {s['n_events']}  wall: {s['wall_seconds']}s  "
+        f"marks: {s['marks']}  heartbeats: {s['heartbeats']}",
+    ]
+    if s["phases"]:
+        lines.append("phase durations:")
+        for name, p in sorted(s["phases"].items(),
+                              key=lambda kv: -kv[1]["total_seconds"]):
+            err = f"  errors: {p['errors']}" if p["errors"] else ""
+            lines.append(
+                f"  {name}: {p['total_seconds']}s total over "
+                f"{p['count']} span(s), max {p['max_seconds']}s{err}")
+    for name in s["unfinished_phases"]:
+        lines.append(f"  {name}: UNFINISHED (no span_end recorded)")
+    hb = s["last_heartbeat"]
+    lines.append(
+        "last heartbeat: "
+        + (f"phase={hb['phase']} seconds_since_mark="
+           f"{hb['seconds_since_mark']}" if hb else "none recorded"))
+    lines.append(
+        f"stalls: {len(s['stalls'])}"
+        + ("".join(f"\n  stalled in {st['phase']} "
+                   f"({st['seconds_since_mark']}s since last mark)"
+                   for st in s["stalls"]) if s["stalls"] else ""))
+    bi = s["backend_init"]
+    if bi["attempts"] or bi["resolution"]:
+        outcomes = ", ".join(
+            f"#{a['attempt']} {a['outcome']} ({a['seconds']}s)"
+            for a in bi["attempts"])
+        lines.append(f"backend init: {outcomes or '-'} -> "
+                     f"{bi['resolution'] or 'unresolved'}")
+    lines.append(f"restarts: {s['restarts']}  "
+                 f"quarantines: {s['quarantines']}  "
+                 f"checkpoints saved: {s['checkpoints_saved']}")
+    if s.get("faults_injected"):
+        fired = ", ".join(f"{f['point']}#{f['hit']}={f['kind']}"
+                          for f in s["faults_injected"])
+        lines.append(
+            f"injected faults: {len(s['faults_injected'])} ({fired}) — "
+            f"failures above include these ON-PURPOSE ones")
+    if s.get("preemptions"):
+        steps = ", ".join(str(p["step"]) for p in s["preemptions"])
+        lines.append(
+            f"preemptions: {len(s['preemptions'])} (graceful boundary "
+            f"exit at step {steps}; resume is bitwise)")
+    if s["counters"]:
+        lines.append("counters: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(s["counters"].items())))
+        bw = s["counters"].get("comm.bytes_wire")
+        bl = s["counters"].get("comm.bytes_logical")
+        if bw and bl:
+            # the comms layer's achieved ratio (parallel/comms.py):
+            # logical f32 payload vs bytes actually put on the wire by
+            # the selected --comm schedule. Uncompressed f32 schedules
+            # legitimately put MORE on the wire than the payload (a
+            # ring allreduce moves 2(n-1)/n of it) — say so instead of
+            # printing a "0.7x compression" that reads as a bug.
+            if bl >= bw:
+                desc = f"({bl / bw:.1f}x compression)"
+            else:
+                desc = (f"({bw / bl:.1f}x wire/logical — "
+                        f"uncompressed ring allreduce moves "
+                        f"2(n-1)/n of the payload)")
+            lines.append(
+                f"comm: {bw} bytes wire / {bl} logical {desc} over "
+                f"{s['counters'].get('comm.syncs', 0)} sync(s), "
+                f"{s['counters'].get('comm.rounds', 0)} collective "
+                f"round(s)")
+        gw = s["counters"].get("graph.combine_bytes_wire")
+        gdr = s["counters"].get("graph.combine_bytes_dense_ring")
+        if gw and gdr:
+            # the graph engine's sparse rank combine (graphs/engine.py
+            # via comms.emit_rank_combine_counters): pair-exchange
+            # bytes actually accounted vs what a dense O(V) ring psum
+            # of the rank vector would have moved — <1x means the
+            # graph was dense enough that combine='dense' was (or
+            # should have been) selected
+            lines.append(
+                f"graph rank combine: {gw} bytes wire vs {gdr} "
+                f"dense-ring equivalent ({gdr / gw:.1f}x sparser) over "
+                f"{s['counters'].get('graph.combine_syncs', 0)} "
+                f"sweep(s)")
+        sreq = s["counters"].get("serve.requests")
+        if sreq:
+            # the serving layer's latency line (serve/server.py
+            # emit_counters): request/batch/shed counters + the
+            # qps/p50/p99/queue-depth gauges of the newest run
+            g = s["gauges"]
+            shed = s["counters"].get("serve.shed", 0)
+            lines.append(
+                f"serve: {sreq} request(s) in "
+                f"{s['counters'].get('serve.batches', 0)} "
+                f"micro-batch(es), {g.get('serve.qps', '?')} req/s, "
+                f"p50 {g.get('serve.p50_ms', '?')} ms / "
+                f"p99 {g.get('serve.p99_ms', '?')} ms, {shed} shed, "
+                f"max queue depth {g.get('serve.queue_depth', '?')}")
+        creq = s["counters"].get("serve.cluster_requests")
+        if creq:
+            # the distributed serving plane (cluster/router.py
+            # emit_gauges + counters): router-side client latency,
+            # degradation evidence (sheds / re-routes), hot-swaps
+            g = s["gauges"]
+            lines.append(
+                f"cluster serve: {creq} request(s), "
+                f"{s['counters'].get('serve.cluster_replies', 0)} "
+                f"replied, {g.get('serve.cluster_qps', '?')} req/s, "
+                f"p50 {g.get('serve.cluster_p50_ms', '?')} ms / "
+                f"p99 {g.get('serve.cluster_p99_ms', '?')} ms, "
+                f"{s['counters'].get('serve.cluster_sheds', 0)} "
+                f"shed, "
+                f"{s['counters'].get('serve.cluster_reroutes', 0)} "
+                f"re-route(s), "
+                f"{s['counters'].get('serve.cluster_swaps', 0)} "
+                f"hot-swap(s)")
+            cmb = s["counters"].get("serve.cluster_merge_bytes_wire")
+            if cmb:
+                lines.append(
+                    f"cluster serve merge: {cmb} candidate bytes "
+                    f"over the wire (sharded top-k)")
+        merges = s["counters"].get("ssp.merges")
+        if merges:
+            # the stale-synchronous layer (parallel/ssp.py): observed
+            # contribution staleness (mean/max ages at the merges),
+            # ticks the seeded straggle schedule claimed, ticks the
+            # clock-vector gate held back, membership epochs
+            # (parallel/membership.py ring renegotiations), and — when
+            # the bench's BSP A/B ran — the measured stall time the
+            # window structure avoided
+            g = s["gauges"]
+            c = s["counters"]
+            line = (f"ssp: {merges} merge(s) at bound "
+                    f"{g.get('ssp.bound', '?')}, staleness mean "
+                    f"{g.get('ssp.mean_staleness', '?')} / max "
+                    f"{g.get('ssp.max_staleness', 0)}, "
+                    f"{c.get('ssp.straggle_ticks', 0)} straggled / "
+                    f"{c.get('ssp.gated_ticks', 0)} gated tick(s), "
+                    f"{c.get('ssp.membership_epochs', 0)} membership "
+                    f"epoch(s)")
+            stall = c.get("ssp.stall_ms_avoided")
+            if stall is not None:
+                line += (f", {stall} ms stall avoided vs BSP "
+                         f"(measured A/B)")
+            lines.append(line)
+        hid = s["counters"].get("comm.overlap_hidden_ms")
+        exposed = s["counters"].get("comm.sync_ms")
+        if hid is not None or exposed is not None:
+            # overlap efficiency (parallel/comms.py bucket pipeline):
+            # hidden = comm time the double-buffered schedule removed
+            # vs its sequential A/B (measured host-side), exposed =
+            # comm time still visible over the dense-compute baseline;
+            # the fraction is how much of the schedule's comm the
+            # pipeline hid behind compute
+            hid = hid or 0
+            total = hid + (exposed or 0)
+            frac = (hid / total) if total else 0.0
+            lines.append(
+                f"comm overlap: {hid} ms hidden behind compute "
+                f"({frac:.0%} of {total} ms comm time)")
+        recov = s["counters"].get("cluster.recoveries")
+        if recov:
+            # coordinator crash tolerance (cluster/wal.py +
+            # coordinator recovery): how many times the control plane
+            # died and came back, the median detect->recover->first-
+            # recommitted-window latency (launcher-measured gauge),
+            # and how many durable ledger records the recoveries
+            # replayed; reconnect/retry behavior shows per-worker in
+            # the cluster.* column table
+            g = s["gauges"]
+            c = s["counters"]
+            lines.append(
+                f"coordinator: {recov} recover(ies), median "
+                f"{g.get('cluster.recovery_ms_p50', '?')} ms, "
+                f"{c.get('cluster.wal_records_replayed', 0)} WAL "
+                f"record(s) replayed "
+                f"({c.get('cluster.wal_quarantines', 0)} torn-tail "
+                f"quarantine(s), {c.get('cluster.reconnects', 0)} "
+                f"worker reconnect(s), "
+                f"{c.get('cluster.heartbeat_retries', 0)} heartbeat "
+                f"retr(ies), {c.get('cluster.dedup_pushes', 0)} "
+                f"deduped re-push(es))")
+        wire_tx = (s["counters"].get("cluster.wire_push_bytes", 0)
+                   + s["counters"].get("cluster.wire_center_bytes", 0))
+        if wire_tx:
+            # compressed cluster wire (cluster/ + the comms host
+            # codecs): measured frame bytes by direction, how many
+            # pulls rode version deltas vs fell back to dense
+            # snapshots (resume/rejoin), and how many pushes
+            # overlapped the next window's compute
+            c = s["counters"]
+
+            def _mb(n):
+                return (f"{n / 1e6:.2f} MB" if n >= 10_000
+                        else f"{n / 1e3:.1f} KB")
+
+            lines.append(
+                f"cluster wire: "
+                f"{_mb(c.get('cluster.wire_push_bytes', 0))} pushed "
+                f"/ {_mb(c.get('cluster.wire_center_bytes', 0))} "
+                f"pulled "
+                f"({c.get('cluster.delta_pulls', 0)} delta pull(s), "
+                f"{c.get('cluster.pull_dense_fallbacks', 0)} dense "
+                f"fallback(s), {c.get('cluster.async_pushes', 0)} "
+                f"overlapped push(es))")
+        rs_pulled = s["counters"].get("rowstore.rows_pulled")
+        rs_pushed = s["counters"].get("rowstore.rows_pushed")
+        if rs_pulled or rs_pushed:
+            # sharded row store (cluster/rowstore.py): how sparse the
+            # row traffic actually was — rows pulled vs the dense
+            # row-pull baseline (every leaf whole, every pull), sparse
+            # wire bytes vs what dense snapshots would have shipped,
+            # the rpc retries the framed row wire absorbed, and the
+            # worst per-row staleness any merge gated on
+            c = s["counters"]
+            g = s["gauges"]
+            dense_rows = c.get("rowstore.pull_rows_dense", 0)
+            frac = ((rs_pulled or 0) / dense_rows) if dense_rows \
+                else 0.0
+            wire = (c.get("rowstore.wire_push_bytes", 0)
+                    + c.get("rowstore.wire_pull_bytes", 0))
+            lines.append(
+                f"rowstore: {rs_pulled or 0} row(s) pulled of "
+                f"{dense_rows} dense ({frac:.0%} sparse-pull "
+                f"fraction), {rs_pushed or 0} row(s) pushed, "
+                f"{wire / 1e6:.2f} MB sparse wire vs "
+                f"{c.get('rowstore.wire_dense_bytes', 0) / 1e6:.2f}"
+                f" MB dense, "
+                f"{c.get('rowstore.rpc_retries', 0)} rpc retr(ies), "
+                f"max row staleness "
+                f"{g.get('rowstore.max_row_staleness', 0)}")
+        resh = s["counters"].get("reshard.syncs")
+        if resh:
+            # device-side resharding (parallel/partition.py): layout
+            # changes lowered to on-device collective programs; the
+            # avoided figure is what the old host gather+re-put would
+            # have moved over PCIe for the same transitions
+            c = s["counters"]
+            lines.append(
+                f"reshard: {resh} layout change(s), "
+                f"{c.get('reshard.leaves', 0)} leaf move(s), "
+                f"{c.get('reshard.bytes_wire', 0) / 1e6:.1f} MB wire "
+                f"(host round-trip avoided: "
+                f"{c.get('reshard.bytes_host_avoided', 0) / 1e6:.1f}"
+                f" MB)")
+        n_res = s["counters"].get("tune.knobs_resolved", 0)
+        n_exp = s["counters"].get("tune.knobs_explicit", 0)
+        n_def = s["counters"].get("tune.knobs_defaulted", 0)
+        if n_res or n_exp or n_def:
+            # platform-aware autotuner (the JAX package's tune/): which rig
+            # profile shaped this run's geometry, how many knobs came
+            # from the cost model vs explicit flags vs the default
+            # tables, and — when the run measured itself — the
+            # predicted-vs-measured step delta (the cost model's
+            # honesty check; per-knob WHYs live in the tune_knob
+            # events)
+            g = s["gauges"]
+            line = (f"tune: profile {g.get('tune.profile', '?')}, "
+                    f"{n_res} knob(s) resolved / {n_exp} explicit / "
+                    f"{n_def} defaulted")
+            pred = g.get("tune.predicted_step_ms")
+            meas = g.get("tune.measured_step_ms")
+            if pred is not None:
+                line += f", predicted sync {pred:.3f} ms"
+            if meas is not None:
+                line += f", measured step {meas:.3f} ms"
+            if pred is not None and meas is not None and meas:
+                line += f" ({pred / meas:.2f}x predicted/measured)"
+            lines.append(line)
+    if s["gauges"]:
+        lines.append("gauges: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(s["gauges"].items())))
+    if s["metrics"]:
+        lines.append("metrics:")
+        for name, m in s["metrics"].items():
+            vs = (f"  ({m['vs_baseline']}x baseline)"
+                  if m.get("vs_baseline") is not None else "")
+            lines.append(f"  {name}: {m['value']} {m['unit']}{vs}")
+    if s["torn_lines"]:
+        lines.append(f"torn lines skipped: {s['torn_lines']}")
+    return "\n".join(lines)
+
+
+# counters the merged multi-directory rendering breaks out into
+# per-worker columns (the cluster runtime's per-process telemetry
+# dirs: DIR/coordinator + DIR/worker-N)
+PER_WORKER_PREFIXES = ("ssp.", "cluster.")
+
+# The TDA102 waiver table: every counter/gauge emitted anywhere in the
+# library must either appear in a renderer above, match a per-worker
+# family, or be listed HERE — an explicit statement that the generic
+# "counters:"/"gauges:" lines are its whole story (no derived summary
+# line owed). A `family.*` entry waives a prefix, including f-string
+# names like the per-code `lint.TDAxxx` counters. Adding a counter
+# without deciding its rendering is exactly the drift TDA102 exists
+# to stop — extend a renderer or extend this table, on purpose.
+SUMMARY_ONLY_COUNTERS = (
+    "checkpoints_saved",        # rendered via the checkpoint_saved
+    #                             event count, not the counter
+    "restarts",                 # ditto: the restart event line
+    "quarantines",
+    "preemptions",
+    "closure.capacity_regrows",
+    "data.*",                   # gather/h2d byte+batch bookkeeping
+    "faults.*",                 # the fault table reads the events
+    "graph.ingest_edges",
+    "graph.edges_streamed",
+    "lint.*",                   # per-code counts + files/cached/
+    #                             graph_seconds; the span carries time
+    "protocol.frame_kinds",     # contract size; the span carries time
+    "serve.artifact_reread",
+    "serve.failed_batches",
+    "serve.merge_bytes_wire",
+    "spmv_plan_rejections",
+    "reshard.bytes_logical",    # the reshard line renders wire/host;
+    #                             logical is accounting input only
+)
+
+
+def _natural_key(path: str):
+    """Numeric-aware sort key: ``worker-10`` sorts after ``worker-9``,
+    not between ``worker-1`` and ``worker-2``."""
+    import re
+
+    return [int(p) if p.isdigit() else p
+            for p in re.split(r"(\d+)", os.path.basename(
+                os.path.normpath(path)))]
+
+
+def expand_dirs(paths: list[str]) -> list[str]:
+    """Resolve the report inputs: each path is an event file, an event
+    directory, or a PARENT of per-worker event directories (the
+    ``tda cluster --telemetry-dir`` layout) — parents expand to their
+    event-bearing children, sorted by name so worker columns render in
+    slot order."""
+    out: list[str] = []
+    for path in paths:
+        if os.path.isfile(path):
+            out.append(path)
+            continue
+        has_own = bool(glob.glob(os.path.join(path,
+                                              "events-*.jsonl")))
+        children = sorted(
+            (d for d in glob.glob(os.path.join(path, "*"))
+             if os.path.isdir(d)
+             and glob.glob(os.path.join(d, "events-*.jsonl"))),
+            key=_natural_key)
+        if children:
+            # a parent of per-worker dirs; its own stray events (if
+            # any) still count as one more column
+            out.extend(([path] if has_own else []) + children)
+            continue
+        # no event-bearing children: the dir itself (load_events
+        # raises its remedy-carrying FileNotFoundError when it holds
+        # nothing either)
+        out.append(path)
+    return out
+
+
+def summarize_multi(paths: list[str]) -> dict:
+    """Per-directory summaries + one MERGED view: counters summed,
+    events/metrics/faults pooled — ``{"merged": ..., "workers":
+    {label: summary}}`` where labels are the directory basenames."""
+    workers: dict[str, dict] = {}
+    all_events: list[dict] = []
+    for p in paths:
+        evts = load_events(p)
+        label = os.path.basename(os.path.normpath(p)) or p
+        base, n = label, 2
+        while label in workers:
+            label = f"{base}#{n}"
+            n += 1
+        workers[label] = summarize(evts)
+        all_events.extend(evts)
+    return {"merged": summarize(all_events), "workers": workers}
+
+
+def render_multi(multi: dict) -> str:
+    """The merged rendering: the usual report over the pooled events,
+    then a per-worker column table for the ``ssp.*`` / ``cluster.*``
+    counters — how a cluster run's straggle/gate/push behavior reads
+    side by side across processes."""
+    lines = [f"merged over {len(multi['workers'])} telemetry dir(s): "
+             + ", ".join(multi["workers"]),
+             render(multi["merged"])]
+    names = sorted({
+        name
+        for s in multi["workers"].values()
+        for name in s["counters"]
+        if name.startswith(PER_WORKER_PREFIXES)})
+    if names:
+        labels = list(multi["workers"])
+        widths = [max(len(lb), 8) for lb in labels]
+        name_w = max(len(n) for n in names)
+        header = " ".join([" " * name_w] + [
+            lb.rjust(w) for lb, w in zip(labels, widths)])
+        lines.append("per-worker counters (ssp.*/cluster.*):")
+        lines.append("  " + header)
+        for name in names:
+            row = [name.ljust(name_w)]
+            for lb, w in zip(labels, widths):
+                v = multi["workers"][lb]["counters"].get(name, "-")
+                row.append(str(v).rjust(w))
+            lines.append("  " + " ".join(row))
+    return "\n".join(lines)
+
+
+def report_main(path, as_json: bool = False, out=print) -> int:
+    """The ``tda report <dir>...`` entry point: one directory renders
+    the classic single-run report; several (or a parent of per-worker
+    dirs) render the merged report with per-worker counter columns."""
+    paths = expand_dirs([path] if isinstance(path, str) else
+                        list(path))
+    if len(paths) == 1:
+        summary = summarize(load_events(paths[0]))
+        out(json.dumps(summary, indent=2) if as_json
+            else render(summary))
+        return 0
+    multi = summarize_multi(paths)
+    out(json.dumps(multi, indent=2) if as_json
+        else render_multi(multi))
+    return 0

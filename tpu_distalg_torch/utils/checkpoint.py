@@ -12,13 +12,38 @@ missing or wrong footer raises :class:`CorruptCheckpointError`.
 :func:`run_segmented` trains in checkpointed segments that resume bit
 for bit (SSGD), keeping the newest three files.
 
+Recovery (port of the JAX package's, ``tpu_distalg/utils/checkpoint.py``):
+
+  * :func:`save` runs its write under ``telemetry.supervisor.supervised``,
+    so a transient ``OSError`` is retried in place (:data:`SAVE_RETRIES`
+    times); the ``ckpt:write`` fault seam fires inside each attempt on
+    the npz body, after the footer's CRC was taken of the true body, so
+    an injected corruption lands on disk and is caught when read back;
+  * :func:`restore` passes the bytes it read through the ``ckpt:read``
+    seam before the CRC check;
+  * a resume quarantines a corrupt newest file (``*.corrupt``) and
+    falls back to the next-older step in the same process
+    (:func:`restore_newest_with_fallback`);
+  * the ``segment:run`` seam fires before each segment, and a pending
+    preemption (``faults.preempt``) stops the loop at the next boundary
+    after that boundary's save (:func:`preempt_boundary_exit`, rc 75);
+  * :func:`run_with_restarts` re-runs a failed job, which resumes from
+    the newest checkpoint, with the JAX package's policy.
+
 Across processes the directory is shared by the group, and
 :func:`save_shared` keeps one writer: the leaves a process holds only
 its rows of are gathered from every process (``allgather_rows``),
 process 0 alone writes and prunes, and then every process checks that
 it sees process 0's newest step (:func:`check_shared`); a directory
-that is not shared raises on every process, naming it. On resume every
-process reads the file and keeps its own rows (:func:`local_rows`).
+that is not shared raises on every process, naming it. The same
+all-gather carries each process's outcome (written, failed with a
+restartable error, failed for good) and whether it has a preemption
+request: a write that fails on process 0 raises on every process at
+once instead of leaving the others to wait out the group's timeout, and
+one signalled process stops the whole group at the same boundary. On
+resume every process reads the file and keeps its own rows
+(:func:`local_rows`), and the processes check that they resumed at one
+step.
 The file holds what one process × P·L shards writes, so a run written
 by P processes resumes in one, and the other way round, bit for bit.
 (The JAX package writes from every host instead.)
@@ -40,10 +65,20 @@ import zlib
 
 import numpy as np
 
+from tpu_distalg_torch import faults
+from tpu_distalg_torch.faults import preempt
+from tpu_distalg_torch.telemetry import events as tevents
+
 _STEP_RE = re.compile(r"^step_(\d+)\.npz$")
 _MSGPACK_RE = re.compile(r"^step_(\d+)\.msgpack$")
 _CRC_MAGIC = b"\x00TDACRC1"
 _CRC_FOOTER_LEN = len(_CRC_MAGIC) + 4
+
+#: in-place retries of a checkpoint write after a transient OSError,
+#: and the fixed pause between them (a longer outage is
+#: run_with_restarts' to handle)
+SAVE_RETRIES = 2
+SAVE_BACKOFF_SECONDS = 0.05
 
 
 class CorruptCheckpointError(ValueError):
@@ -73,7 +108,10 @@ def save(ckpt_dir: str, tag: str, state, step: int, *,
          accs=None, extra: dict | None = None) -> str:
     """Write ``{"tag": tag, "state": [leaves]}`` (and the accuracy
     history ``accs``, and the named arrays of ``extra``, when given) as
-    ``ckpt_dir/step_<step>.npz``; returns the path."""
+    ``ckpt_dir/step_<step>.npz``; returns the path. A transient
+    ``OSError`` is retried :data:`SAVE_RETRIES` times."""
+    from tpu_distalg_torch.telemetry.supervisor import supervised
+
     os.makedirs(ckpt_dir, exist_ok=True)
     arrays = {"tag": np.asarray(tag)}
     for j, leaf in enumerate(state):
@@ -91,13 +129,22 @@ def save(ckpt_dir: str, tag: str, state, step: int, *,
     footer = _CRC_MAGIC + struct.pack("<I", zlib.crc32(body) & 0xFFFFFFFF)
     path = os.path.join(ckpt_dir, f"step_{step}.npz")
     tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(body)
-        f.write(footer)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-    _fsync_dir(ckpt_dir)
+
+    def write_once():
+        data = faults.inject("ckpt:write", payload=body)
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.write(footer)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        _fsync_dir(ckpt_dir)
+
+    supervised(write_once, phase="ckpt:write", retries=SAVE_RETRIES,
+               backoff=SAVE_BACKOFF_SECONDS,
+               backoff_cap=SAVE_BACKOFF_SECONDS, jitter=0.0,
+               retry_on=(OSError,), failure_counter="ckpt.write_failures",
+               log=lambda m: None)
     return path
 
 
@@ -108,8 +155,13 @@ def _steps(ckpt_dir: str, pattern: re.Pattern) -> list[int]:
                   if (m := pattern.match(name)))
 
 
+def list_steps(ckpt_dir: str) -> list[int]:
+    """Every checkpoint step on disk, ascending."""
+    return _steps(ckpt_dir, _STEP_RE)
+
+
 def latest_step(ckpt_dir: str) -> int | None:
-    steps = _steps(ckpt_dir, _STEP_RE)
+    steps = list_steps(ckpt_dir)
     return steps[-1] if steps else None
 
 
@@ -132,7 +184,8 @@ def _body(path: str, raw: bytes) -> bytes:
 def restore(ckpt_dir: str, step: int | None = None) -> tuple[dict, int]:
     """Load ``({"tag": str, "state": [np.ndarray, ...]}, step)``, with
     ``"accs"`` and every ``extra`` array of :func:`save` when the file
-    holds them; ``step=None`` loads the newest checkpoint."""
+    holds them; ``step=None`` loads the newest checkpoint. The bytes
+    read pass the ``ckpt:read`` fault seam, then the CRC check."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -146,6 +199,7 @@ def restore(ckpt_dir: str, step: int | None = None) -> tuple[dict, int]:
     path = os.path.join(ckpt_dir, f"step_{step}.npz")
     with open(path, "rb") as f:
         raw = f.read()
+    raw = faults.inject("ckpt:read", payload=raw)
     body = _body(path, raw)
     try:
         with np.load(io.BytesIO(body), allow_pickle=False) as z:
@@ -164,12 +218,74 @@ def restore(ckpt_dir: str, step: int | None = None) -> tuple[dict, int]:
 def prune(ckpt_dir: str, keep: int = 3) -> None:
     """Delete all but the newest ``keep`` checkpoints; ``keep=0``
     deletes them all."""
-    steps = _steps(ckpt_dir, _STEP_RE)
+    steps = list_steps(ckpt_dir)
     for step in steps[:-keep] if keep else steps:
         try:
             os.remove(os.path.join(ckpt_dir, f"step_{step}.npz"))
         except FileNotFoundError:
             pass
+
+
+def quarantine(path: str, *, logger=None) -> bool:
+    """Rename a corrupt checkpoint to ``<path>.corrupt`` so the next
+    resume sees the step before it. Another process having renamed it
+    first counts as done; returns False only when the rename fails for
+    another reason."""
+    try:
+        os.replace(path, path + ".corrupt")
+    except FileNotFoundError:
+        return True
+    except OSError as os_err:
+        (logger or print)(
+            f"could not quarantine corrupt checkpoint {path} "
+            f"({os_err}); manual cleanup required")
+        return False
+    tevents.emit("quarantine", path=path)
+    tevents.counter("quarantines")
+    return True
+
+
+def restore_newest_with_fallback(ckpt_dir: str, *, logger=None):
+    """The resume read: the newest checkpoint, or, when it is corrupt,
+    that file quarantined and the next-older step tried, in the same
+    process. Returns ``(payload, step)``, or ``None`` when no
+    restorable checkpoint remains."""
+    while True:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            return None
+        try:
+            return restore(ckpt_dir, step)
+        except CorruptCheckpointError as e:
+            if not quarantine(e.path, logger=logger):
+                raise
+            (logger or print)(
+                f"[quarantine] corrupt checkpoint {e.path} -> .corrupt; "
+                f"falling back to the previous step in-process")
+        except FileNotFoundError:
+            continue  # renamed or pruned by another process: list again
+
+
+def preempt_boundary_exit(step: int, tag: str,
+                          requested: bool | None = None) -> None:
+    """Raise :class:`~tpu_distalg_torch.faults.Preempted` (rc 75) after
+    a ``preempted`` event when a preemption is pending (``requested``:
+    the process group's agreed answer from :func:`save_shared`; by
+    default this process's own flag). A no-op otherwise."""
+    if requested is None:
+        requested = preempt.requested()
+    if not requested:
+        return
+    tevents.emit("preempted", step=step, tag=tag,
+                 signals=list(preempt.signals_seen()))
+    tevents.counter("preemptions")
+    raise preempt.Preempted(step=step)
+
+
+class CheckpointPeerError(RuntimeError):
+    """Another process of the group failed to write the shared
+    checkpoint with a restartable error: every process raises at the
+    same boundary, so they restart together."""
 
 
 def _group(mesh) -> bool:
@@ -240,20 +356,49 @@ def check_shared(ckpt_dir: str, step, mesh=None) -> None:
             f"{shown}); give every process one directory they all see")
 
 
+#: a process's outcome of a shared write, in the boundary all-gather
+_WROTE, _FAILED, _FAILED_FOR_GOOD = 0, 1, 2
+
+
 def save_shared(ckpt_dir: str, tag: str, state, step: int, *, mesh=None,
                 sharded=(), accs=None, extra: dict | None = None,
-                keep: int = 3) -> None:
+                keep: int = 3) -> bool:
     """:func:`save` and :func:`prune` for a process group: the sharded
-    leaves gathered, process 0 the one writer, then every process
-    checks that it sees the step (:func:`check_shared`). In one process,
-    save and prune."""
+    leaves gathered, process 0 the one writer, then one all-gather of
+    every process's outcome and preemption flag, and every process
+    checks that it sees the step (:func:`check_shared`). A write that
+    failed on process 0 raises there and, on every other process, a
+    :class:`CheckpointPeerError` (``ValueError`` when it is a
+    configuration error), at the same boundary. Returns whether any
+    process has a preemption pending (in one process, this one's)."""
     leaves = gather_state(state, mesh, sharded)
-    if not _group(mesh) or mesh.process_index == 0:
+    if not _group(mesh):
         save(ckpt_dir, tag, leaves, step, accs=accs, extra=extra)
         prune(ckpt_dir, keep=keep)
-    if _group(mesh):
-        _allgather_ints([0], mesh)      # process 0 has written
-        check_shared(ckpt_dir, step, mesh)
+        return preempt.requested()
+    err = None
+    if mesh.process_index == 0:
+        try:
+            save(ckpt_dir, tag, leaves, step, accs=accs, extra=extra)
+            prune(ckpt_dir, keep=keep)
+        except Exception as e:  # noqa: BLE001 — told to the group first
+            err = e
+    outcome = (_WROTE if err is None else
+               _FAILED_FOR_GOOD if isinstance(
+                   err, (ValueError, TypeError, FileNotFoundError))
+               else _FAILED)
+    got = _allgather_ints([outcome, int(preempt.requested())], mesh)
+    if err is not None:
+        raise err
+    bad = [(p, o) for p, (o, _) in enumerate(got) if o != _WROTE]
+    if bad:
+        p, o = bad[0]
+        msg = (f"process {p} failed to write step {step} of the shared "
+               f"checkpoint directory {ckpt_dir}")
+        raise (ValueError if o == _FAILED_FOR_GOOD
+               else CheckpointPeerError)(msg)
+    check_shared(ckpt_dir, step, mesh)
+    return any(flag for _, flag in got)
 
 
 def run_segmented(checkpoint_dir: str, checkpoint_every: int,
@@ -282,7 +427,14 @@ def run_segmented(checkpoint_dir: str, checkpoint_every: int,
     rows, gathered into the file (:func:`save_shared`) and cut back on
     resume, so the file equals one process's. A process that sees
     another newest step than the others raises on every process.
-    (Corrupt-file quarantine and preemption wait for the faults slice.)
+
+    Recovery: the resume reads through :func:`restore_newest_with_fallback`
+    (a corrupt newest file is quarantined and the step before it used),
+    the ``segment:run`` fault seam fires before each segment, and once a
+    preemption is pending (SIGTERM, ``faults.preempt``; across
+    processes any process's) the loop raises
+    :class:`~tpu_distalg_torch.faults.Preempted` at the next boundary
+    after its checkpoint is saved. The newest three files are kept.
     """
     import torch
 
@@ -309,8 +461,16 @@ def run_segmented(checkpoint_dir: str, checkpoint_every: int,
         want.append((shape, str(a.dtype)))
     start, accs_parts = 0, []
     check_shared(checkpoint_dir, None, mesh)
-    if latest_step(checkpoint_dir) is not None:
-        payload, start = restore(checkpoint_dir)
+    restored = restore_newest_with_fallback(checkpoint_dir)
+    if _group(mesh):
+        got = [v[0] for v in _allgather_ints(
+            [-1 if restored is None else restored[1]], mesh)]
+        if any(v != got[0] for v in got):
+            raise RuntimeError(
+                f"the processes resumed {checkpoint_dir} at different "
+                f"steps ({got}): a file changed under them")
+    if restored is not None:
+        payload, start = restored
         if start > n_iterations:
             raise ValueError(
                 f"checkpoint in {checkpoint_dir} is at step {start}, past "
@@ -332,6 +492,9 @@ def run_segmented(checkpoint_dir: str, checkpoint_every: int,
         if stop_when is not None and stop_when(state):
             break
         seg = min(checkpoint_every, n_iterations - t)
+        # a segment that wedges leaves this mark for the heartbeat
+        tevents.mark(f"segment:{tag or 'train'}@{t}", emit_event=False)
+        faults.inject("segment:run")
         if seg not in seg_fns:
             seg_fns[seg] = make_seg_fn(seg)
         state, accs = run_seg(seg_fns[seg], state, t)
@@ -340,8 +503,62 @@ def run_segmented(checkpoint_dir: str, checkpoint_every: int,
                              f"training state after step {t + seg}")
         t += seg
         accs_parts.append(np.asarray(torch.as_tensor(accs).cpu()))
-        save_shared(checkpoint_dir, tag, state, t, mesh=mesh,
-                    sharded=sharded, accs=np.concatenate(accs_parts))
+        stop = save_shared(checkpoint_dir, tag, state, t, mesh=mesh,
+                           sharded=sharded, accs=np.concatenate(accs_parts))
+        tevents.emit("checkpoint_saved", step=t, tag=tag)
+        tevents.counter("checkpoints_saved")
+        if t < n_iterations:
+            preempt_boundary_exit(t, tag, requested=stop)
     accs = (np.concatenate(accs_parts) if accs_parts
             else np.zeros((0,), np.float32))
     return state, accs, start
+
+
+def run_with_restarts(run_once, max_restarts: int = 0, *, logger=None):
+    """Run ``run_once()`` up to ``1 + max_restarts`` times: the job-level
+    restart of the JAX package's ``checkpoint.run_with_restarts``.
+
+    Any ``Exception`` (a device fault, the non-finite guard of
+    :func:`run_segmented`, an injected fault) re-runs the job, which
+    resumes from the newest checkpoint when it has a directory, so a
+    recovered run equals an undisturbed one bit for bit. The last error
+    is raised once the budget is spent (``restart_budget_exhausted``).
+    ``ValueError``, ``TypeError`` and ``FileNotFoundError`` are
+    configuration errors and are never retried; ``SystemExit`` (a
+    :class:`~tpu_distalg_torch.faults.Preempted` boundary exit
+    included) and ``KeyboardInterrupt`` are never caught. The one
+    retried ``ValueError`` is :class:`CorruptCheckpointError`: its file
+    is quarantined and the job re-run without spending the budget (each
+    pass renames one file, so this ends), except at ``max_restarts=0``,
+    which means no recovery at all."""
+    if max_restarts < 0:
+        raise ValueError(f"max_restarts must be >= 0, got {max_restarts}")
+    attempt = 0
+    while True:
+        try:
+            return run_once()
+        except CorruptCheckpointError as e:
+            if max_restarts == 0:
+                raise
+            if not quarantine(e.path, logger=logger):
+                raise
+            (logger or print)(
+                f"[quarantine] corrupt checkpoint {e.path} -> .corrupt; "
+                f"resuming from the previous step (restart budget "
+                f"untouched: {attempt}/{max_restarts} used)")
+        except (ValueError, TypeError, FileNotFoundError):
+            raise
+        except Exception as e:  # noqa: BLE001 — anything restartable
+            attempt += 1
+            if attempt > max_restarts:
+                tevents.emit("restart_budget_exhausted",
+                             attempts=attempt - 1, of=max_restarts,
+                             error=f"{type(e).__name__}: {e}")
+                raise
+            tevents.emit("restart", attempt=attempt, of=max_restarts,
+                         error=f"{type(e).__name__}: {e}")
+            tevents.counter("restarts")
+            (logger or print)(
+                f"[restart {attempt}/{max_restarts}] "
+                f"{type(e).__name__}: {e} — re-running (resumes from "
+                f"the latest checkpoint if one exists)")
