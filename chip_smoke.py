@@ -200,12 +200,30 @@ and the script exits non-zero without printing a result:
      harness's eight workloads on the card, each equal and firing what
      the CPU fires (B7 launched by ``pagerank_stream``); (e)
      ``init_backend`` under a hang past its deadline returns the card;
- 18. the kernels line (B1's and B2's entries with their launches on the
-     local-update runs, B1's on the scale path and phase 14's streamed
-     runs, B1's, B2's and B5's on phase 13's paths, B7's on phase 15's
-     streamed sweeps and a hub batch, B9's on the sharded path and at
-     the slice's shape, and each kernel's launches a rank in phase
-     16), then the last line
+ 18. the profiler entry point and the cluster runtime
+     (``run_cluster``): (a) a command-line child ``ssgd --sampler
+     fused_gather --profile DIR`` on breast cancer (300 steps): its
+     Chrome trace holds B1's kernel exactly as often as the same command
+     launches B1 in this process, and B1's device µs a step; (b)
+     bench.py's elastic-against-restart pair (3 thread workers on the
+     card, 24 windows × s 4, 4096 + 1024 rows × 30 + bias, int8:5, a
+     checkpoint every 8, ``seed=7;cluster:worker@37=kill``): walls,
+     ratio, accuracies, respawns and restarts, each arm's event digest
+     equal to the CPU port's; (c) the median push → commit → pull on a
+     one-worker cluster; (d) ``tda cluster --role local --spawn process
+     --coordinator-spawn process`` with process workers on the card
+     under ``seed=11;cluster:coordinator@12=kill``: the final center
+     bitwise the undisturbed run's, recovery ms and WAL records
+     replayed; (e) bench.py's wire bench (d 8192, dense against int8:5):
+     frame bytes and their ratio, both accuracies in the chaos band;
+     (f) the chaos workload ``cluster`` equal, firing what the CPU
+     fires;
+ 19. the kernels line (B1's and B2's entries with their launches on the
+     local-update runs, B1's on the scale path, phase 14's streamed
+     runs and phase 18's profiled command line, B1's, B2's and B5's on
+     phase 13's paths, B7's on phase 15's streamed sweeps and a hub
+     batch, B9's on the sharded path and at the slice's shape, and each
+     kernel's launches a rank in phase 16), then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
@@ -213,8 +231,9 @@ and read just after it (the serving path: phase 4's full-width fit and
 phase 5; each of phase 5b's served runs; each SSGD path, each PageRank
 sweep, each k-means fit, each tp mesh, each attention run, each
 local-update run, each of phase 12's paths on its own, each of phase
-13's runs, each of phase 14's runs, each of phase 15's sweeps and, in
-each of phase 16's processes, each workload), so
+13's runs, each of phase 14's runs, each of phase 15's sweeps, in
+each of phase 16's processes, each workload, and phase 18's profiled
+command line), so
 the kernels line shows that each path went through its kernel, and that the kernel-free paths
 (phase 5b's dense merge, phase 12's Monte Carlo, closure and ``fixed``,
 phase 14's virtual SSGD, minibatch k-means and streamed ALS) launched
@@ -6247,6 +6266,310 @@ def run_recovery(dev, artifact: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 18
+
+#: (a): the reference task through the command line's --profile, B1 a
+#: step (breast cancer; 300 steps, cut from 1500 to keep the trace small)
+PROFILE_ARGS = ["ssgd", "--sampler", "fused_gather", "--fused-pack", "4",
+                "--gather-block-rows", "32", "--shuffle-seed", "0",
+                "--n-iterations", "300", "--quiet"]
+PROFILE_STEPS = 300
+#: kernel names of B1 in a trace (the ring and the wide-row forms)
+B1_KERNEL_RE = re.compile(r"grad_(ring|wide)_kernel")
+#: (b)-(d): bench.py's cluster geometry (bench.py:1400-1460, :1553)
+CL_SLOTS, CL_WINDOWS, CL_S, CL_EVERY, CL_ROWS = 3, 24, 4, 8, 4096
+CL_COMM = "int8:5"
+CL_KILL_PLAN = "seed=7;cluster:worker@37=kill"     # (window 12, slot 1)
+CL_COORD_PLAN = "seed=11;cluster:coordinator@12=kill"
+#: (e): run_cluster_wire_bench's geometry (bench.py:1626-1700)
+WIRE_D, WIRE_ROWS, WIRE_TEST, WIRE_WINDOWS = 8192, 1024, 512, 8
+#: (f): the chaos workload under tests/test_torch_chaos.py's plan
+CL_CHAOS_PLAN = "seed=7;cluster:coordinator@4=kill"
+
+
+def _child_env() -> tuple[str, dict]:
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TDA_TELEMETRY_DIR="", TDA_FAULT_PLAN="")
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return root, env
+
+
+def _cl_profile(dev, sg: dict, smi: str) -> dict:
+    """(a): ``--profile DIR`` on a command-line child: its trace holds
+    B1's kernel exactly as often as the same command launches B1 (run
+    once in this process to count), and B1's device µs a step."""
+    import contextlib
+    import glob
+    import io
+
+    from tpu_distalg_torch import cli
+    from tpu_distalg_torch.utils import profiling
+
+    _reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(["--device", dev.type, *PROFILE_ARGS]) != 0:
+            raise AssertionError("(a) cli ssgd failed in this process")
+    launches = _launches()["fused_grad_sum_gathered"]
+    if launches != PROFILE_STEPS:
+        raise AssertionError(f"(a) B1 launched {launches} times for "
+                             f"{PROFILE_STEPS} steps")
+    root, env = _child_env()
+    for attempt in range(3):   # a CUPTI trace has once held no kernels
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-prof-") as d:
+            t1 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "tpu_distalg_torch.cli", "--device",
+                 dev.type, "--profile", d, *PROFILE_ARGS], cwd=root, env=env,
+                capture_output=True, text=True, timeout=300)
+            secs = time.perf_counter() - t1
+            if r.returncode:
+                raise AssertionError(f"(a) child rc {r.returncode}\n"
+                                     f"{r.stderr[-3000:]}")
+            files = glob.glob(os.path.join(d, "*" + profiling.TRACE_SUFFIX))
+            if len(files) != 1:
+                raise AssertionError(f"(a) traces written: {files}")
+            size = os.path.getsize(files[0])
+            with open(files[0]) as f:
+                doc = json.load(f)
+        kernels = [e for e in doc["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        if kernels:
+            break
+    b1 = [e for e in kernels if B1_KERNEL_RE.search(e.get("name", ""))]
+    labelled = any(e.get("name") == "cli:ssgd" for e in doc["traceEvents"])
+    if len(b1) != launches or not labelled:
+        raise AssertionError(f"(a) the trace holds {len(b1)} B1 kernel "
+                             f"events for {launches} launches (cli:ssgd "
+                             f"labelled: {labelled}; {len(kernels)} kernel "
+                             f"events in all)")
+    us = sum(float(e["dur"]) for e in b1) / len(b1)
+    main_us = sg["recs"]["B1"]["ms"] * 1e3
+    print(f"[cluster] (a) --profile on a CLI child (ssgd fused_gather, "
+          f"breast cancer, {PROFILE_STEPS} steps): one trace of {size} "
+          f"bytes, {len(b1)} B1 kernel events = {launches} launches "
+          f"({B1_KERNEL_RE.pattern}: {b1[0]['name']!r}); B1 {us!r} µs a "
+          f"step from the trace at 32-row blocks of 569 rows, beside "
+          f"phase 6's {main_us!r} µs at 1,048,576 rows; child {secs!r} s, "
+          f"attempt {attempt + 1} [{smi}]")
+    return {"launches": launches, "trace_events": len(b1), "b1_us": us,
+            "trace_bytes": size, "child_s": secs}
+
+
+def _cl_config(**over):
+    from tpu_distalg_torch import cluster as clus
+
+    return clus.ClusterConfig(**{
+        "n_slots": CL_SLOTS, "n_windows": CL_WINDOWS, "staleness": CL_S,
+        "heartbeat_timeout": 3.0, "comm": CL_COMM,
+        "checkpoint_every": CL_EVERY,
+        "train": clus.TrainTask(n_rows=CL_ROWS), **over})
+
+
+def _cl_run(cfg, where, what: str) -> dict:
+    from tpu_distalg_torch import cluster as clus
+
+    res = clus.run_local_cluster(cfg, spawn="thread", timeout=300.0,
+                                 device=where)
+    if res["version"] != cfg.n_windows:
+        raise AssertionError(f"{what} on {where} stopped at window "
+                             f"{res['version']}/{cfg.n_windows}")
+    res["digest"] = clus.event_digest(res)
+    return res
+
+
+def _cl_elastic(dev, smi: str) -> dict:
+    """(b): bench.py's elastic-against-restart pair, workers on the card;
+    each arm's digest equals the same run's on the CPU port."""
+    out = {}
+    for where in (dev, "cpu"):
+        for policy in ("elastic", "restart"):
+            with tempfile.TemporaryDirectory(prefix="chip-smoke-cl-") as d:
+                out[str(where), policy] = _cl_run(_cl_config(
+                    plan_spec=CL_KILL_PLAN, policy=policy,
+                    checkpoint_dir=d), where, f"(b) {policy}")
+    e, r = out[str(dev), "elastic"], out[str(dev), "restart"]
+    if e["respawns"] < 1 or r["restarts"] < 1:
+        raise AssertionError(f"(b) the kill never fired (respawns "
+                             f"{e['respawns']}, restarts {r['restarts']})")
+    for policy in ("elastic", "restart"):
+        a, b = out[str(dev), policy], out["cpu", policy]
+        if a["digest"] != b["digest"]:
+            raise AssertionError(f"(b) {policy}: digest {a['digest']} on "
+                                 f"the card, {b['digest']} on the CPU")
+    ratio = r["wall_seconds"] / e["wall_seconds"]
+    print(f"[cluster] (b) {CL_SLOTS} thread workers on the card, "
+          f"{CL_WINDOWS} windows × s {CL_S}, {CL_ROWS} + 1024 rows × 30 + "
+          f"bias, {CL_COMM}, a checkpoint every {CL_EVERY}, "
+          f"{CL_KILL_PLAN!r}: elastic {e['wall_seconds']!r} s (acc "
+          f"{e['accuracy']!r}, {e['respawns']} respawn), restart "
+          f"{r['wall_seconds']!r} s (acc {r['accuracy']!r}, "
+          f"{r['restarts']} restart): restart / elastic = {ratio!r}; "
+          f"digests {e['digest']} and {r['digest']} equal the CPU port's; "
+          f"the CPU port's walls {out['cpu', 'elastic']['wall_seconds']!r} "
+          f"and {out['cpu', 'restart']['wall_seconds']!r} s [{smi}]")
+    return {"elastic_s": e["wall_seconds"], "restart_s": r["wall_seconds"],
+            "ratio": ratio, "acc_elastic": e["accuracy"],
+            "acc_restart": r["accuracy"], "digest": e["digest"]}
+
+
+def _cl_push_pull(dev, smi: str) -> dict:
+    """(c): bench.py's ``cluster_push_pull_ms``: one worker on the card,
+    16 windows at s 2 under int8:5; the median push → commit → pull."""
+    res = _cl_run(_cl_config(n_slots=1, n_windows=16, staleness=2,
+                             checkpoint_every=8), dev, "(c)")
+    st = res["worker_stats"][0]
+    if not st.get("pushes") or not st.get("push_pull_ms_p50"):
+        raise AssertionError(f"(c) no push timings: {st}")
+    mean = st["push_pull_ms_total"] / st["pushes"]
+    print(f"[cluster] (c) push -> commit -> pull on a one-worker cluster "
+          f"(card, {CL_COMM}, 16 windows × s 2): median "
+          f"{st['push_pull_ms_p50']!r} ms, mean {mean!r} ms over "
+          f"{st['pushes']} pushes [{smi}]")
+    return {"p50_ms": st["push_pull_ms_p50"], "mean_ms": mean}
+
+
+def _cl_cli(dev, tag: str, work: str, plan: str | None
+            ) -> tuple[dict, object]:
+    from tpu_distalg_torch.utils import checkpoint
+
+    root, env = _child_env()
+    d = os.path.join(work, tag)
+    cmd = [sys.executable, "-m", "tpu_distalg_torch.cli", "--device",
+           dev.type, "cluster", "--role", "local", "--spawn", "process",
+           "--coordinator-spawn", "process", "--workers", str(CL_SLOTS),
+           "--n-windows", str(CL_WINDOWS), "--sync", f"ssp:{CL_S}",
+           "--comm", CL_COMM, "--n-rows", str(CL_ROWS),
+           "--heartbeat-timeout", "15", "--checkpoint-every", str(CL_EVERY),
+           "--checkpoint-dir", d, "--deadline", "300"]
+    if plan:
+        cmd += ["--fault-plan", plan]
+    t1 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                       text=True, timeout=420)
+    secs = time.perf_counter() - t1
+    if r.returncode:
+        raise AssertionError(f"(d) {tag}: rc {r.returncode}\n"
+                             f"{r.stderr[-3000:]}")
+    line = [x for x in r.stdout.splitlines()
+            if x.startswith("cluster_result: ")][-1]
+    res = json.loads(line[len("cluster_result: "):])
+    res["s"] = secs
+    payload, step = checkpoint.restore(d)
+    if step != CL_WINDOWS:
+        raise AssertionError(f"(d) {tag}: newest checkpoint at {step}")
+    return res, payload["center.w"]
+
+
+def _cl_coordinator_kill(dev, smi: str) -> dict:
+    """(d): ``tda cluster --role local --spawn process --coordinator-spawn
+    process`` with process workers on the card, undisturbed and under a
+    coordinator kill: the recovered final center (the last checkpoint)
+    equals the undisturbed one bit for bit."""
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cd-") as work:
+        und, w_und = _cl_cli(dev, "undisturbed", work, None)
+        got, w_got = _cl_cli(dev, "kill", work, CL_COORD_PLAN)
+    if got["recoveries"] != 1 or not got["recovery_ms"]:
+        raise AssertionError(f"(d) the kill never fired or was never "
+                             f"measured: {got}")
+    if w_got.tobytes() != w_und.tobytes() or \
+            got["event_digest"] != und["event_digest"]:
+        raise AssertionError(f"(d) recovered center or digest differs: "
+                             f"{got['event_digest']} vs "
+                             f"{und['event_digest']}")
+    print(f"[cluster] (d) CLI, process coordinator and 3 process workers "
+          f"on the card at (b)'s geometry under {CL_COORD_PLAN!r}: "
+          f"recovered in {got['recovery_ms']} ms, "
+          f"{got['wal_records_replayed']} WAL record(s) replayed; final "
+          f"center bitwise the undisturbed run's (digest "
+          f"{und['event_digest']}, acc {got['accuracy']!r}); runs "
+          f"{und['s']!r} s and {got['s']!r} s, process start-up included "
+          f"[{smi}]")
+    return {"recovery_ms": got["recovery_ms"],
+            "wal_records_replayed": got["wal_records_replayed"],
+            "undisturbed_s": und["s"], "kill_s": got["s"]}
+
+
+def _cl_wire(dev, smi: str) -> dict:
+    """(e): bench.py's wire bench, dense against int8:5, thread workers
+    on the card: frame bytes from ``transport.wire_stats``."""
+    from tpu_distalg_torch import cluster as clus
+    from tpu_distalg_torch.cluster import transport
+    from tpu_distalg_torch.faults.chaos import SSP_CHAOS_ACC_BAND
+
+    base = dict(n_windows=WIRE_WINDOWS, staleness=2, heartbeat_timeout=10.0,
+                train=clus.TrainTask(n_rows=WIRE_ROWS, test_rows=WIRE_TEST,
+                                     n_features=WIRE_D))
+    arms = {}
+    for comm in ("dense", CL_COMM):
+        transport.wire_stats_reset()
+        res = _cl_run(_cl_config(comm=comm, **base), dev, f"(e) {comm}")
+        st = transport.wire_stats()
+        push, pull = st.get("push", {}), st.get("center", {})
+        if not push.get("bytes") or not pull.get("bytes"):
+            raise AssertionError(f"(e) {comm}: no frames counted: {st}")
+        arms[comm] = (res, push, pull)
+    (rd, pd, qd), (rc, pc, qc) = arms["dense"], arms[CL_COMM]
+    band = abs(rc["accuracy"] - rd["accuracy"])
+    if band > SSP_CHAOS_ACC_BAND:
+        raise AssertionError(f"(e) {CL_COMM} ended {band} from dense's "
+                             f"accuracy (band {SSP_CHAOS_ACC_BAND})")
+    total_d, total_c = pd["bytes"] + qd["bytes"], pc["bytes"] + qc["bytes"]
+    print(f"[cluster] (e) the wire, d {WIRE_D}, {WIRE_ROWS} + {WIRE_TEST} "
+          f"rows, {WIRE_WINDOWS} windows, 3 workers on the card: dense "
+          f"{pd['bytes']} push + {qd['bytes']} pull bytes, {CL_COMM} "
+          f"{pc['bytes']} + {qc['bytes']}: {total_d / total_c!r}x (push "
+          f"{pd['bytes'] / pc['bytes']!r}x, pull {qd['bytes'] / qc['bytes']!r}"
+          f"x); accuracies {rd['accuracy']!r} and {rc['accuracy']!r} "
+          f"(within {SSP_CHAOS_ACC_BAND}) [{smi}]")
+    return {"dense_bytes": total_d, "compressed_bytes": total_c,
+            "ratio": total_d / total_c, "acc_dense": rd["accuracy"],
+            "acc_compressed": rc["accuracy"]}
+
+
+def _cl_chaos(dev, smi: str) -> dict:
+    """(f): ``run_chaos("cluster")`` with workers on the card: equal,
+    firing what the CPU fires."""
+    from tpu_distalg_torch.faults import chaos
+    from tpu_distalg_torch.parallel import get_mesh
+
+    fired = {}
+    for where in ("cpu", dev):
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-cc-") as w:
+            t1 = time.perf_counter()
+            res = chaos.run_chaos("cluster", get_mesh(data=1, device=where),
+                                  plan=CL_CHAOS_PLAN, workdir=w)
+            secs = time.perf_counter() - t1
+        if not res.equal:
+            raise AssertionError(f"(f) on {where}: {res.verdict()}")
+        fired[str(where)] = res.fired
+    if fired["cpu"] != fired[str(dev)] or not fired["cpu"]:
+        raise AssertionError(f"(f) fired {fired}")
+    print(f"[cluster] (f) chaos cluster under {CL_CHAOS_PLAN!r} on the "
+          f"card: equal, fired {fired[str(dev)]} as on the CPU, {secs!r} s "
+          f"[{smi}]")
+    return {"s": secs}
+
+
+def run_cluster(dev, sg: dict) -> dict:
+    """Phase 18: the profiler entry point and the cluster runtime on the
+    card, (a)-(f)."""
+    smi = _nvidia_smi()
+    t0 = time.perf_counter()
+    out = {"profile": _cl_profile(dev, sg, smi)}
+    t0 = _phase("cluster (a) --profile", t0)
+    out["elastic"] = _cl_elastic(dev, smi)
+    t0 = _phase("cluster (b) elastic against restart", t0)
+    out["push_pull"] = _cl_push_pull(dev, smi)
+    t0 = _phase("cluster (c) push -> commit -> pull", t0)
+    out["coordinator_kill"] = _cl_coordinator_kill(dev, smi)
+    t0 = _phase("cluster (d) coordinator kill", t0)
+    out["wire"] = _cl_wire(dev, smi)
+    t0 = _phase("cluster (e) wire", t0)
+    out["chaos"] = _cl_chaos(dev, smi)
+    _phase("cluster (f) chaos", t0)
+    return out
+
+
 def _mp_half() -> int:
     from tpu_distalg_torch.tools import multiproc_run
 
@@ -6376,6 +6699,9 @@ def main() -> int:
         rec_tmp.cleanup()
     t0 = _phase("recovery on the card", t0)
 
+    cl = run_cluster(dev, sg)
+    t0 = _phase("profiler + cluster runtime", t0)
+
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"
     kernels = [{
@@ -6411,7 +6737,10 @@ def main() -> int:
             **({"scale_launches": rest["scale"]["launches"],
                 **rest["scale"]["rec"],
                 "stream_launches": ooc["stream"]["launches"],
-                **ooc["stream"]["b1"]} if key == "B1" else {})})
+                **ooc["stream"]["b1"],
+                "profiled_cli_launches": cl["profile"]["launches"],
+                "profiled_cli_trace_us": cl["profile"]["b1_us"]}
+               if key == "B1" else {})})
     for key, name, line in (("B3", "fused_forward_gathered", 590),
                             ("B4", "fused_backward_gathered", 668)):
         main, wide = tp["main"][key], tp["wide"][key]

@@ -297,7 +297,7 @@ def test_refit_into_its_own_directory_resumes(tmp_path, cpu1):
 
 
 def test_unported_backends_name_their_item():
-    """``fit_rowstore`` still waits for ROADMAP A12; ``fit_streamed``
+    """``fit_rowstore`` still waits for ROADMAP A12.5; ``fit_streamed``
     (A10's rows, ``tests/test_torch_data.py``) runs over a dataset."""
     from tpu_distalg_torch.data import builders
 

@@ -298,13 +298,32 @@ def test_cli_chaos_requires_a_plan(monkeypatch):
         cli.main(["--device", "cpu", "chaos", "--workload", "lr"])
 
 
-@pytest.mark.parametrize("workload", chaos.CLUSTER_WORKLOADS)
+#: the cluster runtime's chaos plan (JAX ``tests/test_cluster.py:889``)
+CLUSTER_PLAN = "seed=7;cluster:coordinator@4=kill"
+
+
+@pytest.mark.parametrize("workload", ("cluster", "cluster_serve",
+                                      "rowstore"))
 def test_cluster_workloads_refuse_naming_a12(workload, tmp_path):
+    """``cluster`` runs (a coordinator kill, recovered from the WAL):
+    equal in both packages, with JAX's fired ledger. ``cluster_serve``
+    and ``rowstore`` still refuse, naming ROADMAP A12.6 and A12.5, from
+    the harness and from the command line."""
     assert workload in chaos.WORKLOADS
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    if workload == "cluster":
+        got = chaos.run_chaos(workload, _pmesh(1), plan=CLUSTER_PLAN,
+                              workdir=str(tmp_path / "port"))
+        want = jchaos.run_chaos(workload, None, plan=CLUSTER_PLAN,
+                                workdir=str(tmp_path / "jax"))
+        assert got.equal and want.equal, (got.verdict(), want.verdict())
+        assert got.fired == want.fired == [("cluster:coordinator", 4,
+                                            "kill")]
+        return
+    item = {"cluster_serve": "ROADMAP A12.6", "rowstore": "ROADMAP A12.5"}
+    with pytest.raises(NotImplementedError, match=item[workload]):
         chaos.run_chaos(workload, _pmesh(1), plan="seed=1",
                         workdir=str(tmp_path))
-    with pytest.raises(SystemExit, match="ROADMAP A12"):
+    with pytest.raises(SystemExit, match=item[workload]):
         cli.main(["--device", "cpu", "chaos", "--workload", workload,
                   "--fault-plan", "seed=1;segment:run@0=kill"])
 
@@ -312,9 +331,22 @@ def test_cluster_workloads_refuse_naming_a12(workload, tmp_path):
 @pytest.mark.parametrize("flag", [["--spawn", "process"],
                                   ["--comm", "int8"]])
 def test_cli_chaos_refuses_the_cluster_options(flag):
-    """``--spawn`` and ``--comm`` set the cluster workloads' workers and
-    wire; with no cluster runtime a non-default value is refused, not
+    """``--spawn`` and ``--comm`` set the cluster workload's workers and
+    wire; on any other workload a non-default value is refused, not
     ignored."""
-    with pytest.raises(SystemExit, match="--spawn and --comm.*ROADMAP A12"):
+    with pytest.raises(SystemExit, match="--spawn and --comm"):
         cli.main(["--device", "cpu", "chaos", "--workload", "lr", *flag,
                   "--fault-plan", "seed=1;segment:run@0=kill"])
+
+
+@pytest.mark.parametrize("flag", [["--comm", "int8:5"],
+                                  ["--spawn", "process"]])
+def test_cli_chaos_cluster_spawn_and_comm(flag, capsys):
+    """``tda chaos --workload cluster`` under a coordinator kill
+    recovers bitwise with the compressed wire (JAX
+    ``tests/test_cluster.py:1088``) and with worker processes."""
+    rc = cli.main(["--device", "cpu", "chaos", "--workload", "cluster",
+                   *flag, "--fault-plan", CLUSTER_PLAN])
+    assert rc == 0
+    assert "[chaos] OK: cluster recovered bitwise-equal under 1 injected " \
+        "fault(s) (cluster:coordinator#4=kill" in capsys.readouterr().out

@@ -21,15 +21,13 @@ from tpu_distalg_torch.utils.device import share_host_threads
 
 share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
-#: JAX subcommands the port has no counterpart of yet (ROADMAP A12)
-MISSING_SUBCOMMANDS = {"cluster", "lint", "protocol", "tune"}
+#: JAX subcommands the port has no counterpart of yet: ``tune`` (ROADMAP
+#: A12.4), ``lint`` and ``protocol`` (A12.7)
+MISSING_SUBCOMMANDS = {"lint", "protocol", "tune"}
 #: JAX options the port's parser rejects, by subcommand ("" = top
 #: level), and the ROADMAP item each waits for
-MISSING_OPTIONS = {
-    "": {"--profile": "A12"},
-    "kmeans": {"--plot": "A12"},
-}
-#: on every subcommand that has it in the JAX package, waiting for A12
+MISSING_OPTIONS: dict = {}
+#: on every subcommand that has it in the JAX package, waiting for A12.4
 MISSING_EVERYWHERE = {"--tune"}
 #: options the port has and the JAX package does not
 PORT_ONLY = {"": {"--device"}, "als": {"--seed"}}
@@ -96,3 +94,68 @@ def test_pagerank_engine_flags_take_jax_defaults():
     assert (args.data_backend, args.stream_cache, args.block_edges,
             args.combine, args.edge_capacity) == ("virtual", "p", 64,
                                                   "sparse", 9)
+
+
+@pytest.mark.parametrize("args,item", [
+    (["--role", "replica"], "ROADMAP A12.6"),
+    (["--role", "router"], "ROADMAP A12.6"),
+    (["--ps-mode", "rowstore"], "ROADMAP A12.5"),
+    (["--fault-plan", "seed=1;cluster:replica@0=kill"], "ROADMAP A12.6"),
+    (["--sync", "bsp"], "stale-synchronous"),
+    (["--max-restarts", "1"], "launcher"),
+    (["--role", "worker"], "--connect"),
+    (["--fault-plan", "seed=1;segment:run@0=kill"], "reads no rule"),
+])
+def test_cluster_refusals(args, item):
+    """Cluster serving and the row store name their items; a BSP
+    cluster, a restart budget, a worker with no address and a plan no
+    seam of the cluster reads are refused."""
+    with pytest.raises(SystemExit, match=item):
+        cli.main(["--device", "cpu", "cluster", *args])
+
+
+def test_cluster_coordinator_and_worker_roles(tmp_path):
+    """``--role coordinator`` prints its address, a ``--role worker``
+    process joins it on the CPU, and each prints its JAX-CLI line; the
+    digest is the thread-mode launcher's."""
+    import json
+    import subprocess
+    import sys
+
+    from tpu_distalg_torch import cluster as clus
+
+    env = dict(os.environ, TDA_TELEMETRY_DIR="", TDA_FAULT_PLAN="")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = [sys.executable, "-m", "tpu_distalg_torch.cli", "--device", "cpu",
+            "cluster"]
+    coord = subprocess.Popen(
+        base + ["--role", "coordinator", "--workers", "1", "--n-windows",
+                "3", "--sync", "ssp:2", "--n-rows", "256", "--deadline",
+                "120"], env=env, cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        first = coord.stdout.readline().strip()
+        prefix = "cluster_coordinator: listening on "
+        assert first.startswith(prefix), (first, coord.stderr.read())
+        addr = first[len(prefix):]
+        wk = subprocess.run(base + ["--role", "worker", "--connect", addr],
+                            env=env, cwd=repo, capture_output=True,
+                            text=True, timeout=120)
+        assert wk.returncode == 0, wk.stderr
+        stats = json.loads(wk.stdout.strip().splitlines()[-1][
+            len("cluster_worker: "):])
+        assert stats["pushes"] == 3 and stats["windows"] == 3
+        out, err = coord.communicate(timeout=120)
+    finally:
+        if coord.poll() is None:
+            coord.kill()
+            coord.wait()
+    assert coord.returncode == 0, err
+    line = out.strip().splitlines()[-1]
+    res = json.loads(line[len("cluster_result: "):])
+    want = clus.run_local_cluster(
+        clus.ClusterConfig(n_slots=1, n_windows=3, staleness=2,
+                           train=clus.TrainTask(n_rows=256)),
+        spawn="thread", device="cpu")
+    assert (res["version"], res["merges"]) == (3, 3)
+    assert res["event_digest"] == clus.event_digest(want)

@@ -155,8 +155,35 @@ def test_capacity_and_missing_file(path, tmp_path, request):
         native.parse_edges_text(str(tmp_path / "absent.txt"), 40)
     if path == "native":
         # the JAX package's native path agrees (its fallback would not)
+        _jax_native_loaded()
         with pytest.raises(ValueError, match="exceeds capacity 39"):
             jnative.parse_edges_text(f, 39)
+
+
+def _jax_native_loaded() -> None:
+    """Make sure this process holds the JAX package's library. Several
+    test processes that load it first at the same moment each run its
+    build (``native/Makefile``, one shared temporary name), and a
+    process that loses that race keeps the numpy forms for its life
+    (``tpu_distalg/native/__init__.py:load``): by the time it gets here
+    another process's library is in place, so under a lock on
+    ``build/`` the loser forgets its failed attempt and loads that
+    library."""
+    import fcntl
+
+    lock_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "build")
+    os.makedirs(lock_dir, exist_ok=True)
+    with open(os.path.join(lock_dir, "jax_native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not jnative.available():
+                jnative._load_attempted = False
+                jnative.load()
+            assert jnative.available(), \
+                "the JAX package's native library did not load"
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 def test_library_is_built_beside_the_package():

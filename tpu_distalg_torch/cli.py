@@ -1,7 +1,7 @@
 """Command line of the port: full-batch LR, SSGD, the local-update family
 (MA, BMUF, EASGD), ALS, k-means, PageRank, the transitive closure,
-Monte-Carlo π, serving ALS, k-means and LR artifacts, the chaos harness
-and telemetry reports.
+Monte-Carlo π, serving ALS, k-means and LR artifacts, the chaos harness,
+telemetry reports and the cluster runtime.
 
     python -m tpu_distalg_torch.cli [--device {cuda,cpu}] lr
     python -m tpu_distalg_torch.cli ma --n-slices 4 --sampler fused_train \\
@@ -41,12 +41,20 @@ and telemetry reports.
     python -m tpu_distalg_torch.cli chaos --workload lr \
         --fault-plan "seed=5;ckpt:write@1=corrupt;segment:run@2=kill"
     python -m tpu_distalg_torch.cli report T
+    python -m tpu_distalg_torch.cli cluster --role local --spawn process \
+        --workers 3 --n-windows 24 --fault-plan "seed=7;cluster:worker@37=kill"
+    python -m tpu_distalg_torch.cli cluster --role coordinator --port 29600
+    python -m tpu_distalg_torch.cli cluster --role worker \
+        --connect 127.0.0.1:29600                 # a worker on the card
+    python -m tpu_distalg_torch.cli --profile P ssgd  # a Chrome trace in P
 
 The lines printed match the JAX package's ``tda lr``, ``tda ssgd``,
 ``tda ma``, ``tda bmuf``, ``tda easgd``, ``tda als``, ``tda serve``,
 ``tda pagerank``, ``tda kmeans``, ``tda closure``, ``tda mc``, ``tda
-chaos`` and ``tda report``. Runs on ``cuda`` unless ``--device cpu`` is
-given. Every run takes ``--telemetry-dir`` and ``--fault-plan``, and is
+chaos``, ``tda report`` and ``tda cluster``. Runs on ``cuda`` unless
+``--device cpu`` is given (a cluster's workers run there; its
+coordinator holds the center on the host). ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the whole run. Every run takes ``--telemetry-dir`` and ``--fault-plan``, and is
 wrapped in ``checkpoint.run_with_restarts`` (``--max-restarts``) where
 the JAX CLI wraps it; with ``--checkpoint-dir`` a SIGTERM stops the run
 at the next checkpointed boundary with rc 75, and the same command
@@ -83,6 +91,11 @@ def parse_mesh_shape(text: str) -> tuple[int, int]:
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m tpu_distalg_torch.cli")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="trace the run with torch.profiler (CPU, and the "
+                        "card's kernels with --device cuda) and write a "
+                        "Chrome trace (*.pt.trace.json, for Perfetto) "
+                        "into DIR")
     p.add_argument("--emulate", type=int, default=0, metavar="N",
                    help="hold N emulated data shards in each process "
                         "when --n-slices/--mesh-shape do not say (unlike "
@@ -224,6 +237,9 @@ def _parser() -> argparse.ArgumentParser:
                         "--n-points)")
     c.add_argument("--dim", type=int, default=16,
                    help="point dimension for --scale-points")
+    c.add_argument("--plot", type=str, default=None,
+                   help="save a cluster scatter PNG (2-D data; needs "
+                        "matplotlib)")
     _add_data_backend(c, block_rows=2048)
     c.add_argument("--mini-batch-blocks", type=int, default=4,
                    help="blocks per shard per minibatch step (minibatch "
@@ -312,6 +328,8 @@ def _parser() -> argparse.ArgumentParser:
     _add_max_restarts(m)
     _add_telemetry(m)
 
+    _add_cluster(sub)
+
     from tpu_distalg_torch.faults import chaos
 
     h = sub.add_parser(
@@ -330,11 +348,11 @@ def _parser() -> argparse.ArgumentParser:
                    help="restart budget for the chaos run")
     h.add_argument("--spawn", default="thread",
                    choices=["thread", "process"],
-                   help="cluster workloads only (not ported: ROADMAP A12); "
-                        "'process' is refused")
+                   help="cluster workload only: thread workers (fast) or "
+                        "real worker processes (a genuine kill -9)")
     h.add_argument("--comm", default="dense", metavar="SCHED",
-                   help="cluster workloads only (not ported: ROADMAP A12); "
-                        "a schedule other than 'dense' is refused")
+                   help="cluster workload only: the wire schedule both "
+                        "runs use (dense, int8[:seed], topk[:frac])")
     h.add_argument("--workdir", type=str, default=None,
                    help="checkpoint scratch directory (default: a fresh "
                         "temp dir, removed on success)")
@@ -353,6 +371,140 @@ def _parser() -> argparse.ArgumentParser:
     r.add_argument("--json", action="store_true",
                    help="print the full summary as JSON (for CI)")
     return p
+
+
+def _add_cluster(sub) -> None:
+    """``cluster``, with the JAX CLI's options, defaults and choices
+    (``tpu_distalg/cli.py:449-620``). ``--role replica|router`` and the
+    serving plane's options parse and are refused (ROADMAP A12.6), and
+    so is ``--ps-mode rowstore`` (A12.5)."""
+    p = sub.add_parser(
+        "cluster",
+        help="multi-process elastic runtime (tpu_distalg_torch/cluster/): "
+             "a coordinator plus N workers exchanging staleness-weighted "
+             "deltas with a parameter-server tier over a framed TCP "
+             "transport — kill -9 a worker mid-window and training "
+             "continues at reduced quorum; a fresh worker rejoins by "
+             "pulling the center")
+    p.add_argument("--role", default="local",
+                   choices=["coordinator", "worker", "local", "replica",
+                            "router"],
+                   help="coordinator = serve rendezvous/clock/PS on "
+                        "--host:--port; worker = join a coordinator at "
+                        "--connect and train on --device; local = a "
+                        "coordinator plus --workers N workers on this "
+                        "machine; replica and router (cluster serving) "
+                        "wait for ROADMAP A12.6")
+    p.add_argument("--workers", type=int, default=3,
+                   help="worker slot count (coordinator/local roles)")
+    p.add_argument("--spawn", default="process",
+                   choices=["process", "thread"],
+                   help="local role: real worker processes (kill -9 is the "
+                        "genuine article) or threads (same protocol and "
+                        "sockets, fast for tests)")
+    p.add_argument("--coordinator-spawn", default="inproc",
+                   choices=["inproc", "process"],
+                   help="local role: the coordinator in this process (a "
+                        "cluster:coordinator kill cell slams its sockets) "
+                        "or a real subprocess (a genuine kill -9; the "
+                        "launcher respawns it on the same port and it "
+                        "recovers from the WAL — needs --checkpoint-dir)")
+    p.add_argument("--connect", type=str, default=None, metavar="HOST:PORT",
+                   help="worker role: the coordinator's address")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0,
+                   help="coordinator bind port (0 = ephemeral, printed at "
+                        "start)")
+    p.add_argument("--slot", type=int, default=None,
+                   help="worker role: requested slot (default: any free)")
+    p.add_argument("--rejoin", action="store_true",
+                   help="worker role: a replacement for a departed slot")
+    p.add_argument("--admit-at", type=int, default=None,
+                   help="worker role: pin admission to this window (the "
+                        "launcher's replay-determinism hook)")
+    p.add_argument("--n-windows", type=int, default=24,
+                   help="merge windows to train (each = s local ticks per "
+                        "worker)")
+    p.add_argument("--sync", default="ssp:4", metavar="MODE",
+                   help="ssp[:s[:decay]]: s = ticks per window and the "
+                        "clock gate's bound, decay = the merge weight "
+                        "decay^age")
+    p.add_argument("--algo", default="ssgd", choices=["ssgd", "local_sgd"],
+                   help="the trainer each worker wraps between push/pull "
+                        "seams")
+    p.add_argument("--ps-shards", type=int, default=2,
+                   help="parameter-server tier width (the center split by "
+                        "the model's partition rule table)")
+    p.add_argument("--comm", default="dense", metavar="SCHED",
+                   help="wire schedule: dense (f32 snapshots), int8[:seed] "
+                        "(seeded stochastic rounding both ways) or "
+                        "topk[:frac] (pairs with worker-side error "
+                        "feedback; pulls ride int8); compressed pushes "
+                        "overlap the next window unless @seq")
+    p.add_argument("--ps-mode", default="replicated",
+                   choices=["replicated", "rowstore"],
+                   help="PS state layout: replicated; rowstore (the "
+                        "sharded row store) waits for ROADMAP A12.5")
+    p.add_argument("--pull-refresh-windows", type=int, default=None,
+                   metavar="N",
+                   help="compressed pulls: every Nth commit ships a dense "
+                        "version-pinned pull (default: tune/defaults.py)")
+    p.add_argument("--policy", default="elastic",
+                   choices=["elastic", "restart"],
+                   help="elastic = continue at reduced quorum and rejoin; "
+                        "restart = abort and respawn everything from the "
+                        "checkpoint (the BSP-restart baseline)")
+    p.add_argument("--rejoin-after", type=int, default=3,
+                   help="local elastic role: windows a killed slot stays "
+                        "away before its replacement is admitted")
+    p.add_argument("--heartbeat-timeout", type=float, default=5.0,
+                   help="seconds of worker silence before the coordinator "
+                        "declares it dead")
+    p.add_argument("--heartbeat-interval", type=float, default=0.5,
+                   help="seconds between worker liveness beats")
+    p.add_argument("--rpc-deadline", type=float, default=30.0,
+                   help="bound on any single blocking round trip")
+    p.add_argument("--reconnect-grace", type=float, default=1.0,
+                   help="seconds a connection's EOF leaves its slot "
+                        "suspect before the death fires")
+    p.add_argument("--n-rows", type=int, default=4096,
+                   help="training rows of the shared synthetic task")
+    p.add_argument("--train-json", type=str, default=None, metavar="JSON",
+                   help="coordinator role: the exact TrainTask as JSON "
+                        "(the launcher's subprocess handoff; overrides "
+                        "--algo and --n-rows)")
+    p.add_argument("--artifact", type=str, default=None, metavar="CKPT_DIR",
+                   help="replica role (ROADMAP A12.6)")
+    p.add_argument("--replica-shards", type=int, default=1,
+                   help="replica role (ROADMAP A12.6)")
+    p.add_argument("--shard", type=int, default=0,
+                   help="replica role (ROADMAP A12.6)")
+    p.add_argument("--k-top", type=int, default=10,
+                   help="serving plane (ROADMAP A12.6)")
+    p.add_argument("--merge", default="sparse", choices=["sparse", "dense"],
+                   help="serving plane (ROADMAP A12.6)")
+    p.add_argument("--replicas", type=str, default=None,
+                   metavar="HOST:PORT[,HOST:PORT...]",
+                   help="router role (ROADMAP A12.6)")
+    p.add_argument("--dispatch", default="least_loaded",
+                   choices=["least_loaded", "consistent_hash"],
+                   help="router role (ROADMAP A12.6)")
+    p.add_argument("--serve-mode", default="routed",
+                   choices=["routed", "sharded"],
+                   help="router role (ROADMAP A12.6)")
+    p.add_argument("--wal-dir", type=str, default=None, metavar="DIR",
+                   help="router role (ROADMAP A12.6)")
+    p.add_argument("--deadline", type=float, default=600.0,
+                   help="local/coordinator roles: give up if the run is "
+                        "still incomplete after this many seconds")
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="the coordinator's center checkpoints and WAL")
+    p.add_argument("--checkpoint-every", type=int, default=8)
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help="refused above 0: the cluster recovers through "
+                        "its launcher (respawns, the WAL), not by "
+                        "re-running the command")
+    _add_telemetry(p)
 
 
 def _add_data_backend(p, block_rows: int) -> None:
@@ -456,17 +608,21 @@ def _add_telemetry(p) -> None:
              "'seed=N;point@hit=kind[:arg];...' or a JSON plan file "
              "($TDA_FAULT_PLAN is the default; points: ckpt:write, "
              "ckpt:read, cache:write, data:gather, data:h2d, "
-             "backend:init, segment:run, shard:straggle, shard:leave; "
-             "kinds: oserror, hang, corrupt, kill, straggle, leave). The "
-             "same plan+seed replays the same failure sequence bitwise "
-             "— see 'tda chaos'. A rule no seam of the run reads is "
-             "refused, and so is any cluster:* rule (ROADMAP A12)")
+             "backend:init, segment:run, shard:straggle, shard:leave, "
+             "cluster:worker, cluster:rpc, cluster:coordinator, "
+             "cluster:wal, cluster:ps; kinds: oserror, hang, corrupt, "
+             "kill, straggle, leave). The same plan+seed replays the same "
+             "failure sequence bitwise — see 'tda chaos'. A rule no seam "
+             "of the run reads is refused, and so is any cluster:replica "
+             "rule (ROADMAP A12.6)")
 
 
 #: the seams a run reads, by what the run does
 _CKPT_POINTS = ("ckpt:write", "ckpt:read", "segment:run")
 _DATA_POINTS = ("data:gather", "data:h2d", "cache:write")
 _SSP_POINTS = ("shard:straggle", "shard:leave")
+_CLUSTER_POINTS = ("cluster:worker", "cluster:rpc", "cluster:coordinator",
+                   "cluster:wal", "cluster:ps")
 
 
 def _plan_reads(args) -> set:
@@ -475,6 +631,11 @@ def _plan_reads(args) -> set:
 
     if args.cmd == "serve":
         return {"ckpt:read", "data:gather"}
+    if args.cmd == "cluster":
+        # the coordinator's center checkpoints write and read; it runs
+        # no segments
+        return set(_CLUSTER_POINTS) | (
+            {"ckpt:write", "ckpt:read"} if args.checkpoint_dir else set())
     reads = set()
     try:
         is_ssp = pssp.SyncSpec.parse(getattr(args, "sync", "bsp")).is_ssp
@@ -515,7 +676,8 @@ def _refuse_unread_plan(args) -> None:
             f"{', '.join(_DATA_POINTS)} on the runs through the data "
             f"subsystem, and compiles {' and '.join(_SSP_POINTS)} into the "
             f"--sync ssp runs of ssgd, ma, bmuf and easgd; backend:init "
-            f"fires in telemetry.supervisor.init_backend only)")
+            f"fires in telemetry.supervisor.init_backend only, and the "
+            f"cluster:* points in the cluster runtime, tda cluster)")
     raise SystemExit(
         f"--fault-plan: {run} reads no rule at {', '.join(unread)} (it "
         f"reads {', '.join(sorted(reads))})")
@@ -801,6 +963,9 @@ def _run_kmeans(args) -> None:
         print(f"Final centers: {res.centers.cpu().tolist()}")
         print(f"minibatch steps run: {res.n_iterations_run} "
               f"(backend={args.data_backend})")
+        if args.plot:
+            print("--plot ignored with the minibatch engine (points stay "
+                  "in the dataset)")
         return
     ckpt = dict(checkpoint_dir=args.checkpoint_dir,
                 checkpoint_every=args.checkpoint_every)
@@ -820,6 +985,24 @@ def _run_kmeans(args) -> None:
             converge_dist=args.converge_dist), **ckpt))
     print(f"Final centers: {res.centers.cpu().tolist()}")
     print(f"iterations run: {res.n_iterations_run}")
+    if args.plot:
+        _plot_clusters(args, res, None if args.scale_points else pts, mesh)
+
+
+def _plot_clusters(args, res, pts, mesh) -> None:
+    """``kmeans --plot`` (``tpu_distalg/cli.py:1400-1411``)."""
+    if pts is None:
+        print("--plot ignored with --scale-points (points stay on device)")
+    elif mesh.process_count > 1:
+        print("--plot ignored across processes (each holds only its "
+              "points' assignments)")
+    else:
+        from tpu_distalg_torch.utils import metrics
+
+        metrics.display_clusters(
+            pts, res.assignments.cpu().numpy()[: len(pts)], args.plot,
+            k=args.k)
+        print(f"saved plot: {args.plot}")
 
 
 def _need_stream_cache(args) -> None:
@@ -1003,6 +1186,8 @@ def _dispatch(args) -> int:
         _run_serve(args)
     elif args.cmd == "chaos":
         return _run_chaos(args)
+    elif args.cmd == "cluster":
+        return _run_cluster(args)
     return 0
 
 
@@ -1031,13 +1216,14 @@ def _run_chaos(args) -> int:
             "tda chaos needs a fault schedule: pass --fault-plan "
             "'seed=N;point@hit=kind[:arg];...' (or a JSON plan file, or "
             "export $TDA_FAULT_PLAN)")
-    if args.workload in chaos.CLUSTER_WORKLOADS:
-        raise SystemExit(f"[chaos] {args.workload}: the cluster runtime "
-                         f"is not ported; it waits for ROADMAP A12")
-    if args.spawn != "thread" or args.comm != "dense":
+    if args.workload in chaos.UNPORTED_WORKLOADS:
+        raise SystemExit(f"[chaos] {args.workload}: "
+                         f"{chaos.UNPORTED_WORKLOADS[args.workload]}")
+    if (args.spawn != "thread" or args.comm != "dense") and \
+            args.workload != "cluster":
         raise SystemExit("[chaos] --spawn and --comm set the cluster "
-                         "workloads' workers and wire, and the cluster "
-                         "runtime is not ported; it waits for ROADMAP A12")
+                         "workload's workers and wire; the "
+                         f"{args.workload} workload has neither")
     try:
         plan = faults.FaultPlan.parse(spec)
         faults.registry.check_ported(plan)
@@ -1054,8 +1240,8 @@ def _run_chaos(args) -> int:
             args.workload, mesh, plan=plan, workdir=workdir,
             n_iterations=args.n_iterations,
             checkpoint_every=args.checkpoint_every,
-            max_restarts=args.max_restarts,
-            logger=lambda m: print(f"[chaos] {m}"))
+            max_restarts=args.max_restarts, spawn=args.spawn,
+            comm=args.comm, logger=lambda m: print(f"[chaos] {m}"))
     finally:
         if made_tmp:
             if res is not None and res.equal:
@@ -1065,6 +1251,108 @@ def _run_chaos(args) -> int:
                       file=sys.stderr)
     print(res.verdict())
     return 0 if res.equal else 1
+
+
+def _run_cluster(args) -> int:
+    """``cluster`` (``tpu_distalg/cli.py:1008-1106``): the multi-process
+    elastic runtime, printing the JAX CLI's ``cluster_worker:``,
+    ``cluster_coordinator:`` and ``cluster_result:`` lines. Workers run
+    on ``--device``; the coordinator holds the center on the host."""
+    import json
+    import time
+
+    from tpu_distalg_torch import cluster as clus
+    from tpu_distalg_torch.parallel import ssp as pssp
+
+    if args.role in ("replica", "router"):
+        raise SystemExit(
+            f"--role {args.role}: cluster serving (the JAX package's "
+            f"cluster/serve.py and router.py) is not ported; it waits for "
+            f"ROADMAP A12.6")
+    if args.max_restarts:
+        raise SystemExit(
+            "--max-restarts: the cluster recovers through its launcher "
+            "(respawns, the coordinator's WAL), not by re-running the "
+            "command")
+    spec = pssp.SyncSpec.parse(args.sync)
+    if not spec.is_ssp:
+        raise SystemExit(
+            "the cluster runtime is stale-synchronous by construction "
+            "— --sync ssp[:s[:decay]] (a BSP cluster is the restart-"
+            "policy baseline the bench measures, not a mode)")
+    err = lambda m: print(m, file=sys.stderr)  # noqa: E731
+    if args.role == "worker":
+        if not args.connect:
+            raise SystemExit("--role worker needs --connect HOST:PORT")
+        host, _, port = args.connect.rpartition(":")
+        stats = clus.run_worker(
+            host or "127.0.0.1", int(port), slot=args.slot,
+            rejoin=args.rejoin, admit_at=args.admit_at, logger=err,
+            device=args.device)
+        print("cluster_worker: " + json.dumps(
+            {k: v for k, v in stats.items() if not isinstance(v, list)}))
+        return 0
+    plan = args.fault_plan or os.environ.get("TDA_FAULT_PLAN") or None
+    train = (clus.TrainTask(**json.loads(args.train_json))
+             if args.train_json
+             else clus.TrainTask(algo=args.algo, n_rows=args.n_rows))
+    extra = {}
+    if args.pull_refresh_windows is not None:
+        extra["pull_refresh_windows"] = args.pull_refresh_windows
+    try:
+        cfg = clus.ClusterConfig(
+            n_slots=args.workers, n_windows=args.n_windows,
+            staleness=spec.staleness, decay=spec.decay,
+            ps_shards=args.ps_shards, host=args.host, port=args.port,
+            heartbeat_timeout=args.heartbeat_timeout,
+            heartbeat_interval=args.heartbeat_interval,
+            rpc_deadline=args.rpc_deadline,
+            reconnect_grace=args.reconnect_grace,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            policy=args.policy, plan_spec=plan, comm=args.comm,
+            ps_mode=args.ps_mode, train=train, **extra)
+    except NotImplementedError as e:
+        raise SystemExit(f"--ps-mode {args.ps_mode}: {e}") from None
+    if args.role == "coordinator":
+        coord = clus.Coordinator(cfg).start()
+        print(f"cluster_coordinator: listening on {cfg.host}:{coord.port}",
+              flush=True)
+        coord.wait(timeout=args.deadline)
+        # linger briefly for the workers' byes (their stats ride them):
+        # done fires at the final commit, a breath before the last
+        # deferred acks and byes drain; the result snapshots after
+        coord_deadline = time.monotonic() + 10.0
+        while time.monotonic() < coord_deadline and any(
+                st.status == "active" for st in coord.slots.values()):
+            time.sleep(0.05)
+        res = coord.result()
+        coord.stop()
+    else:
+        # (main() pointed this process's telemetry at DIR/coordinator;
+        # spawned workers get DIR/worker-N)
+        res = clus.run_local_cluster(
+            cfg, spawn=args.spawn,
+            coordinator_spawn=args.coordinator_spawn,
+            rejoin_after=args.rejoin_after,
+            telemetry_dir=args.telemetry_dir, timeout=args.deadline,
+            logger=err, device=args.device)
+    # the replay acceptance compares the event digests of two runs; a
+    # subprocess coordinator's result line already carries its own
+    print("cluster_result: " + json.dumps({
+        "accuracy": round(res["accuracy"], 6),
+        "version": res["version"],
+        "gen": res["gen"],
+        "merges": res.get("merges", len(res.get("merge_sequence", ()))),
+        "respawns": res.get("respawns", 0),
+        "restarts": res.get("restarts", 0),
+        "recoveries": res.get("coordinator_recoveries",
+                              1 if res.get("recovered") else 0),
+        "recovery_ms": res.get("recovery_ms", []),
+        "wal_records_replayed": res.get("wal_records_replayed", 0),
+        "event_digest": res.get("event_digest") or clus.event_digest(res),
+    }, default=float))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -1084,7 +1372,13 @@ def main(argv=None) -> int:
                      "--coordinator-address (omit all three to auto-detect)")
     from tpu_distalg_torch import faults, telemetry
 
-    telemetry.configure(args.telemetry_dir)
+    tdir = args.telemetry_dir
+    if args.cmd == "cluster" and args.role == "local" and tdir:
+        # one directory a process: the coordinator's events under
+        # DIR/coordinator, each spawned worker's under DIR/worker-N, so
+        # 'tda report DIR' merges them with per-worker columns
+        tdir = os.path.join(tdir, "coordinator")
+    telemetry.configure(tdir)
     if args.cmd != "chaos":
         # the chaos harness owns the registry (it runs an undisturbed
         # reference first); elsewhere the plan is live for the run
@@ -1107,9 +1401,13 @@ def main(argv=None) -> int:
     # well above the silent phases of a healthy run (first builds of
     # the kernels, the host sorts of a large graph)
     hb = telemetry.start_heartbeat(stall_after=600.0)
+    from tpu_distalg_torch.utils import profiling
+
     try:
-        with telemetry.span(f"cli:{args.cmd}"):
-            return _run(args)
+        with profiling.maybe_trace(args.profile, cuda=args.device == "cuda",
+                                   name=f"cli:{args.cmd}"):
+            with telemetry.span(f"cli:{args.cmd}"):
+                return _run(args)
     except faults.Preempted as e:
         # the boundary checkpoint is on disk: the same command resumes
         print(f"[preempted] checkpoint saved at step {e.step}; re-run the "

@@ -6,7 +6,7 @@ stops at the next checkpointed boundary with rc 75 (:mod:`preempt`),
 and the chaos harness that runs small workloads under a plan and holds
 the recovered result bit for bit against an undisturbed run
 (:mod:`chaos`, ``tda chaos``; imported on use, as it pulls in the
-models). Only the ``cluster:*`` points are refused (ROADMAP A12)."""
+models). Only ``cluster:replica`` is refused (ROADMAP A12.6)."""
 
 from tpu_distalg_torch.faults import preempt, registry
 from tpu_distalg_torch.faults.preempt import PREEMPTED_RC, Preempted

@@ -32,10 +32,19 @@ schedule, not the work):
                        passes ``ckpt:read`` (a corrupt read is re-read)
                        and each batch ``data:gather`` (a failed batch
                        fails its replies; the client retries)
+  ``cluster``          the multi-process elastic runtime
+                       (``tpu_distalg_torch/cluster/``) with its workers
+                       on the mesh's device, under ``cluster:*`` rules
+                       (a coordinator kill: respawned on the same port,
+                       recovered from the WAL, the workers resumed): the
+                       final center and the merge/membership event
+                       digest bitwise the undisturbed run's; ``spawn``
+                       (thread or process workers) and ``comm`` (the
+                       wire schedule of both runs) apply here only
 
-``cluster``, ``cluster_serve`` and ``rowstore`` are named, so the
-command line's choices equal the JAX package's, and raise
-``NotImplementedError``: the cluster runtime waits for ROADMAP A12.
+``cluster_serve`` and ``rowstore`` are named, so the command line's
+choices equal the JAX package's, and raise ``NotImplementedError``:
+they wait for ROADMAP A12.6 and A12.5.
 """
 
 from __future__ import annotations
@@ -51,8 +60,15 @@ WORKLOADS = ("lr", "ssgd", "kmeans", "als", "kmeans_stream",
              "pagerank_stream", "serve", "ssp", "cluster",
              "cluster_serve", "rowstore")
 
-#: the workloads of the cluster runtime, not ported (ROADMAP A12)
-CLUSTER_WORKLOADS = ("cluster", "cluster_serve", "rowstore")
+#: the workloads not ported yet, and why
+UNPORTED_WORKLOADS = {
+    "cluster_serve": "cluster serving (the JAX package's cluster/serve.py "
+                     "and router.py) is not ported; it waits for ROADMAP "
+                     "A12.6",
+    "rowstore": "the sharded row store (the JAX package's "
+                "cluster/rowstore.py) is not ported; it waits for ROADMAP "
+                "A12.5",
+}
 
 #: the ssp workload's band: |tail accuracy under chaos − undisturbed|
 SSP_CHAOS_ACC_BAND = 0.12
@@ -72,6 +88,19 @@ class ServeChaosResult:
     shed: int
     failed_batches: int
     client_retries: int
+
+
+@dataclasses.dataclass
+class ClusterChaosResult:
+    """The cluster workload's result: the final center and the event
+    digest (as bytes, so it rides the bitwise compare). The recovery
+    evidence shows the kill fired; it is not compared (wall clock
+    differs between runs)."""
+
+    center_w: np.ndarray
+    event_digest: np.ndarray
+    recoveries: int
+    recovery_ms: list
 
 
 @dataclasses.dataclass
@@ -107,6 +136,8 @@ def _leaves(workload: str, res) -> dict[str, np.ndarray]:
     could read from it, on the host."""
     if workload in ("lr", "ssgd", "ssp"):
         return {"w": _host(res.w), "accs": _host(res.accs)}
+    if workload == "cluster":
+        return {"center_w": res.center_w, "event_digest": res.event_digest}
     if workload in ("kmeans", "kmeans_stream"):
         return {"centers": _host(res.centers)}
     if workload == "als":
@@ -120,20 +151,53 @@ def _leaves(workload: str, res) -> dict[str, np.ndarray]:
                      f"{WORKLOADS}")
 
 
-def _refuse_cluster(workload: str):
-    raise NotImplementedError(
-        f"chaos workload {workload!r} runs the cluster runtime (the JAX "
-        f"package's cluster/), which the port has not yet: it waits for "
-        f"ROADMAP A12")
+def _cluster_runner(mesh, windows: int, every: int, spawn: str,
+                    comm: str):
+    """The cluster workload (JAX ``faults/chaos.py:242-275``): 3 slots,
+    ``windows`` windows at s 3, workers on the mesh's device."""
+    from tpu_distalg_torch import cluster as clus
+
+    device = mesh.device if mesh is not None else None
+
+    def run(ckpt_dir):
+        # the plan drives the cluster config (its schedules compile
+        # from it): the undisturbed reference runs with no plan
+        reg = faults.active()
+        plan_spec = reg.plan.spec() if reg is not None else None
+        cfg = clus.ClusterConfig(
+            n_slots=3, n_windows=windows, staleness=3,
+            # generous: a slow reconnect on a loaded host must not turn
+            # into a readmission and fail the verdict for that reason
+            heartbeat_timeout=15.0, checkpoint_every=every,
+            checkpoint_dir=ckpt_dir, plan_spec=plan_spec, comm=comm,
+            train=clus.TrainTask(n_rows=1024, test_rows=512))
+        res = clus.run_local_cluster(cfg, spawn=spawn, timeout=280.0,
+                                     device=device)
+        if res["version"] != windows:
+            raise RuntimeError(f"cluster chaos run stopped at window "
+                               f"{res['version']}/{windows}")
+        return ClusterChaosResult(
+            center_w=np.asarray(res["center"]["w"]),
+            event_digest=np.frombuffer(
+                bytes.fromhex(clus.event_digest(res)), np.uint8),
+            recoveries=int(res.get("coordinator_recoveries", 0)),
+            recovery_ms=list(res.get("recovery_ms", [])))
+    return run
 
 
 def _make_runner(workload: str, mesh, n_iterations: int | None,
-                 checkpoint_every: int | None, workdir: str):
+                 checkpoint_every: int | None, workdir: str,
+                 spawn: str = "thread", comm: str = "dense"):
     """``run(checkpoint_dir) -> result`` for one workload at its small
     default size. ``workdir`` holds what a workload needs besides its
-    checkpoints (the graph cache, the served artifact)."""
-    if workload in CLUSTER_WORKLOADS:
-        _refuse_cluster(workload)
+    checkpoints (the graph cache, the served artifact); ``spawn`` and
+    ``comm`` apply to the cluster workload only."""
+    if workload in UNPORTED_WORKLOADS:
+        raise NotImplementedError(
+            f"chaos workload {workload!r}: {UNPORTED_WORKLOADS[workload]}")
+    if workload == "cluster":
+        return _cluster_runner(mesh, n_iterations or 8,
+                               checkpoint_every or 3, spawn, comm)
     if workload == "lr":
         from tpu_distalg_torch.models import logistic_regression as m
         from tpu_distalg_torch.utils import datasets
@@ -265,13 +329,15 @@ def run_chaos(workload: str, mesh, *, plan, workdir: str,
               n_iterations: int | None = None,
               checkpoint_every: int | None = None,
               max_restarts: int = DEFAULT_MAX_RESTARTS,
+              spawn: str = "thread", comm: str = "dense",
               logger=None) -> ChaosResult:
     """Undisturbed run, chaos run, bitwise compare.
 
     ``plan`` is a :class:`~tpu_distalg_torch.faults.FaultPlan` or its
     spelling. Both runs get fresh checkpoint directories under
     ``workdir``; the chaos run runs under ``run_with_restarts``. The
-    process-global fault registry is left off on return."""
+    process-global fault registry is left off on return. ``spawn`` and
+    ``comm`` set the cluster workload's workers and wire."""
     import os
 
     from tpu_distalg_torch.utils import checkpoint as ckpt
@@ -284,7 +350,7 @@ def run_chaos(workload: str, mesh, *, plan, workdir: str,
     # its artifact in _make_runner
     faults.configure(False)
     runner = _make_runner(workload, mesh, n_iterations, checkpoint_every,
-                          workdir)
+                          workdir, spawn=spawn, comm=comm)
     uses_ckpt = workload not in ("kmeans_stream", "serve")
 
     def dirpath(name):

@@ -28,10 +28,23 @@ so one plan fires the same faults in both packages:
   ``segment:run``     before each segment of ``run_segmented`` and each
                       window segment of ``membership.run_elastic``;
   ``shard:straggle``, ``shard:leave``  probed by the SSP schedule
-                      compilers (``parallel/ssp.py``, ``membership.py``).
+                      compilers (``parallel/ssp.py``, ``membership.py``);
+  ``cluster:worker``  probed once per (window, slot) by
+                      ``cluster/worker.compile_worker_schedule``
+                      (``kill``, ``straggle``);
+  ``cluster:rpc``     ``cluster/transport.py``'s framed send and receive
+                      (``oserror``, ``hang``);
+  ``cluster:coordinator``  probed once per window by
+                      ``cluster/coordinator.compile_coordinator_schedule``
+                      (``kill``, ``hang`` at the window's commit point);
+  ``cluster:wal``     ``cluster/wal.py``'s append, on the encoded record
+                      (``corrupt``, ``oserror``, ``hang``);
+  ``cluster:ps``      probed once per window by
+                      ``cluster/rowstore.compile_point_schedule`` (the
+                      merge seam, after the commit record is durable).
 
-:func:`configure` refuses a plan with a rule at a ``cluster:*`` point,
-naming ROADMAP A12: the cluster runtime is not ported, and a plan that
+:func:`configure` refuses a plan with a rule at ``cluster:replica``,
+naming ROADMAP A12.6: cluster serving is not ported, and a plan that
 never fires would be a silent lie.
 
 Plan spec (``--fault-plan`` / ``$TDA_FAULT_PLAN``): a JSON file
@@ -74,8 +87,8 @@ POINTS = (
     "cluster:ps",
 )
 
-#: the points with a seam in the port: every point but the cluster's
-PORTED_POINTS = tuple(p for p in POINTS if not p.startswith("cluster:"))
+#: the points with a seam in the port: every point but cluster serving's
+PORTED_POINTS = tuple(p for p in POINTS if p != "cluster:replica")
 
 KINDS = ("oserror", "hang", "corrupt", "kill", "straggle", "leave")
 
@@ -348,13 +361,14 @@ class FaultRegistry:
 
 def check_ported(plan: FaultPlan) -> None:
     """Refuse a plan with a rule at a point the port has no seam for
-    (the ``cluster:*`` points)."""
+    (``cluster:replica``, cluster serving's)."""
     other = sorted({r.point for r in plan.rules} - set(PORTED_POINTS))
     if other:
         raise ValueError(
             f"fault plan {plan.spec()!r} has rules at "
-            f"{', '.join(other)}: the cluster runtime (cluster/) is not "
-            f"ported, so nothing fires there; it waits for ROADMAP A12")
+            f"{', '.join(other)}: cluster serving (the JAX package's "
+            f"cluster/serve.py and router.py) is not ported, so nothing "
+            f"fires there; it waits for ROADMAP A12.6")
 
 
 _LOCK = threading.Lock()
@@ -366,8 +380,8 @@ def configure(spec: str | FaultPlan | None | bool = None,
     """Select the process-global registry. ``spec=None`` falls back to
     ``$TDA_FAULT_PLAN``; unset or empty disables injection (the
     default); ``spec=False`` disables whatever the variable says. Each
-    call starts a fresh registry. A rule at a ``cluster:*`` point
-    raises ValueError (ROADMAP A12)."""
+    call starts a fresh registry. A rule at ``cluster:replica`` raises
+    ValueError (ROADMAP A12.6)."""
     global _REGISTRY
     if spec is False:
         plan = None

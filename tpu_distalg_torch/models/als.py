@@ -39,7 +39,7 @@ last segment's checkpoint is the serving artifact
 (``serve/artifacts.load_artifact``). Sweeps draw nothing, so a
 segmented run equals a straight one bit for bit. :func:`fit_streamed`
 runs the sweep over R streamed from a ``ShardedDataset`` (``data/``);
-``fit_rowstore`` waits for ROADMAP A12. A failed segment is restarted
+``fit_rowstore`` waits for ROADMAP A12.5. A failed segment is restarted
 by ``utils/checkpoint.run_with_restarts`` (``als --max-restarts``),
 resuming from the newest checkpoint.
 """
@@ -297,4 +297,4 @@ def fit_streamed(dataset, config: ALSConfig | None = None, *,
 def fit_rowstore(*args, **kwargs):
     """ALS over the cluster's row store: not ported."""
     raise NotImplementedError("ALS fit_rowstore (factors in the cluster's "
-                              "row store) waits for ROADMAP A12")
+                              "row store) waits for ROADMAP A12.5")

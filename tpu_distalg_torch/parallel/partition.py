@@ -39,8 +39,12 @@ Every trainer places its tensors through these tables: ALS
 (``als_train``, ``als_serve``), SSGD (``lr``, ``ssgd``, ``ssgd_tp``),
 the local-update family (``local_sgd``), k-means (``kmeans``) and
 PageRank (``pagerank``); ``parallel/sharding.py`` is a thin caller.
-Not ported: ``LeafOwnership``, ``RowOwnershipMap`` and ``row_bounds``,
-which serve the row store and the cluster, wait for ROADMAP A12.
+
+Row ownership (:func:`row_bounds`, :class:`LeafOwnership`,
+:class:`RowOwnershipMap`) is host arithmetic in numpy, as in the JAX
+package: the cluster's parameter server splits its center with it
+(``cluster/ps.py``), and :func:`row_block_stats` counts out-of-core
+row blocks. Their results equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -122,6 +126,128 @@ def table(name: str | RuleTable) -> RuleTable:
 
 def registered() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
+
+
+# ----------------------------------------------------- row ownership
+
+
+def row_bounds(n_rows: int, n_shards: int) -> np.ndarray:
+    """The ``(n_shards + 1,)`` int64 cut points of ``np.array_split``'s
+    contract over ``n_rows`` leading-dim rows: the first ``n_rows %
+    n_shards`` shards own ``n_rows // n_shards + 1`` rows, the rest
+    ``n_rows // n_shards`` — uneven splits are first-class (a shard
+    count that does not divide the model axis is the NORMAL case).
+    Shard ``i`` owns ``[bounds[i], bounds[i + 1])``."""
+    if n_shards < 1:
+        raise PartitionRuleError(
+            f"n_shards must be >= 1, got {n_shards}")
+    base, extra = divmod(int(n_rows), int(n_shards))
+    sizes = np.full((int(n_shards),), base, np.int64)
+    sizes[:extra] += 1
+    return np.concatenate(
+        [np.zeros((1,), np.int64), np.cumsum(sizes, dtype=np.int64)])
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafOwnership:
+    """One leaf's placement across row shards: either row-partitioned
+    (``bounds`` holds the cut points) or whole on shard ``owner``."""
+
+    name: str
+    shape: tuple
+    sharded: bool
+    bounds: np.ndarray | None = None
+    owner: int = 0
+
+    def range_of(self, shard: int) -> tuple[int, int]:
+        """The ``[lo, hi)`` leading-dim row range ``shard`` owns (an
+        empty range for a non-owner of a whole leaf)."""
+        if self.sharded:
+            return int(self.bounds[shard]), int(self.bounds[shard + 1])
+        n = int(self.shape[0]) if len(self.shape) else 1
+        return (0, n) if shard == self.owner else (0, 0)
+
+    def owner_of(self, rows: np.ndarray) -> np.ndarray:
+        """Per-row owning shard ids (int64), vectorized."""
+        rows = np.asarray(rows, np.int64)
+        if not self.sharded:
+            return np.full(rows.shape, self.owner, np.int64)
+        return np.searchsorted(self.bounds, rows, side="right") - 1
+
+
+class RowOwnershipMap:
+    """The partition-table-driven row-ownership map — ONE derivation of
+    "which shard owns which leading-dim rows of which leaf", used by
+    the PS tier's center sharding (``cluster/ps.split_center``). A leaf whose spec in
+    the model's rule table shards ANY dim row-splits on axis 0 with
+    ``np.array_split`` arithmetic (:func:`row_bounds` — the historical
+    ``ps.split_center`` slicing, now first-class); a replicated-spec or
+    scalar leaf lives whole on shard 0. Derived from the SAME
+    :class:`RuleTable` that drives the device-side ``shardings()`` —
+    one table per model names both placements."""
+
+    def __init__(self, shapes: dict, table_name, n_shards: int):
+        if n_shards < 1:
+            raise PartitionRuleError(
+                f"n_shards must be >= 1, got {n_shards}")
+        tbl = table(table_name)
+        self.table_name = tbl.name
+        self.n_shards = int(n_shards)
+        self.leaves: dict[str, LeafOwnership] = {}
+        for name, shape in shapes.items():
+            shape = tuple(int(d) for d in shape)
+            spec = tbl.spec_for(name, shape)
+            sharded = any(e is not None for e in tuple(spec))
+            if sharded and len(shape) >= 1 and shape[0] >= 1:
+                self.leaves[name] = LeafOwnership(
+                    name, shape, True,
+                    bounds=row_bounds(shape[0], self.n_shards))
+            else:
+                self.leaves[name] = LeafOwnership(
+                    name, shape, False, owner=0)
+
+    @classmethod
+    def for_center(cls, center: dict, table_name,
+                   n_shards: int) -> "RowOwnershipMap":
+        return cls({k: np.asarray(v).shape for k, v in center.items()},
+                   table_name, n_shards)
+
+    def __getitem__(self, name: str) -> LeafOwnership:
+        try:
+            return self.leaves[name]
+        except KeyError:
+            raise PartitionRuleError(
+                f"leaf {name!r} is not in the {self.table_name!r} "
+                f"ownership map (known: {sorted(self.leaves)})"
+            ) from None
+
+    def split(self, center: dict) -> list[dict]:
+        """Per-shard sub-dicts of ``center`` (row slices copied) — the
+        exact byte-level output of the historical
+        ``ps.split_center``."""
+        shards: list[dict] = [{} for _ in range(self.n_shards)]
+        for name, leaf in center.items():
+            leaf = np.asarray(leaf)
+            own = self[name]
+            if own.sharded:
+                for i in range(self.n_shards):
+                    lo, hi = own.range_of(i)
+                    shards[i][name] = leaf[lo:hi].copy()
+            else:
+                shards[own.owner][name] = leaf.copy()
+        return shards
+
+    def join(self, shards: list[dict]) -> dict:
+        """Inverse of :meth:`split` — concatenate row slices in shard
+        order, pass whole leaves through."""
+        out: dict = {}
+        for name, own in self.leaves.items():
+            pieces = [sh[name] for sh in shards if name in sh]
+            if not pieces:
+                continue
+            out[name] = (pieces[0].copy() if len(pieces) == 1
+                         else np.concatenate(pieces, axis=0))
+        return out
 
 
 # ---------------------------------------------------------- leaf naming
@@ -666,6 +792,30 @@ def emit_reshard_counters(st: dict) -> dict:
                  n_leaves=st["n_leaves"], n_moved=st["n_moved"],
                  bytes_wire=st["bytes_wire"])
     return st
+
+
+def row_block_stats(n_rows: int, block_rows: int, *,
+                    n_shards: int = 1, row_bytes: int = 4) -> dict:
+    """Out-of-core row-block accounting (pure arithmetic, no mesh):
+    how many gathered blocks a ``block_rows`` granularity yields per
+    shard, the pad rows divisibility costs, and the per-block wire
+    bytes. The autotuner's block-rows chooser joins this against the
+    measured copy bandwidth; it is the block-granularity sibling of
+    :func:`reshard_stats`'s ``bytes_padding`` accounting."""
+    n_rows = max(1, int(n_rows))
+    block_rows = max(1, int(block_rows))
+    n_shards = max(1, int(n_shards))
+    per_shard = -(-n_rows // n_shards)             # ceil
+    n_blocks = -(-per_shard // block_rows)
+    padded = n_blocks * block_rows * n_shards
+    pad_rows = padded - n_rows
+    return {"n_blocks": int(n_blocks),
+            "rows_per_shard": int(per_shard),
+            "padded_rows": int(padded),
+            "pad_rows": int(pad_rows),
+            "waste_fraction": float(pad_rows) / float(padded),
+            "block_bytes": int(block_rows) * int(row_bytes)}
+
 
 
 # ------------------------------------------------- registered tables
