@@ -97,10 +97,10 @@ and the script exits non-zero without printing a result:
      past 2³¹ elements, held-out accuracy, host RSS, B1 at that shape);
  13. the sync layer (``parallel/comms.py``, ``ssp.py``, ``membership.py``)
      on 4 emulated data shards: SSGD ``fused_gather`` (B1) at phase 6's
-     geometry for 500 steps (depth cut: PERF.md §4) under dense,
+     geometry for 250 steps (depth cut: PERF.md §4) under dense,
      bucketed, hier, bf16, int8, int8@seq and topk:0.01 (steps/s, wall
      and device µs and device ops a step, the sync's own device µs,
-     ring-model wire bytes; B1 = 4 × 500; every run replayed bitwise, int8@seq = int8, the card's
+     ring-model wire bytes; B1 = 4 × 250; every run replayed bitwise, int8@seq = int8, the card's
      reduce = the CPU port's bitwise, 5 steps against the CPU port);
      ``fused`` (B5) under int8 and topk; bench.py's comparison task
      (every schedule, the 3× and 4× wire cuts, the calibrated band);
@@ -218,12 +218,36 @@ and the script exits non-zero without printing a result:
      frame bytes and their ratio, both accuracies in the chaos band;
      (f) the chaos workload ``cluster`` equal, firing what the CPU
      fires;
- 19. the kernels line (B1's and B2's entries with their launches on the
+ 19. the autotuner, the sharded row store and cluster serving
+     (``run_tune_rowstore_serving``): (a) ``tda tune`` on the card, then
+     ``--collective`` over 4 emulated data shards (both profiles load,
+     ``backend: cuda``, the backend init measured); (b) (a)'s profile
+     resolved for bench.py's run_tuned_step_speedup geometry (ratio 1.0
+     with ``identical_geometry`` where it keeps dense, a failure where a
+     resolved schedule runs slower), the collective profile's
+     resolution timed as a finding, and ``ssgd --tune`` (fused_gather,
+     breast cancer, 300 steps) bitwise the run with its knobs spelled
+     out, B1 = 300 × 4; (c) ``--ps-mode rowstore`` with 3 thread workers
+     on the card at phase 18's geometry, dense and int8:5, the center
+     bitwise the replicated one; ``run_cluster_pagerank`` at bench.py's
+     rowstore geometry (V 8192, 4 shards, in-degree 8, 512-edge blocks)
+     and at V 2²⁰ (in-degree 16, 65,536-edge blocks), 8 iterations: B7 =
+     iterations × blocks, the ranks within 1e-6 of the engine at one
+     block a step, Σ within 1e-4 of 1, a ``cluster:ps`` kill replayed
+     from the WAL bitwise; ``fit_rowstore`` at JAX's test geometry and
+     at 4096 × 16384 rank 64 (2 sweeps) under a row budget; (d)
+     bench.py's cluster serve bench (3 k-means replicas on the card, 384
+     requests, a seeded replica kill: replies bitwise), phase 4's
+     artifact over 1 and 4 shard replicas, sparse and dense (merged =
+     one replica bitwise; B9 = micro-batches + a warm-up a replica on
+     sparse, none on dense), and two process replicas with a kill;
+ 20. the kernels line (B1's and B2's entries with their launches on the
      local-update runs, B1's on the scale path, phase 14's streamed
      runs and phase 18's profiled command line, B1's, B2's and B5's on
      phase 13's paths, B7's on phase 15's streamed sweeps and a hub
-     batch, B9's on the sharded path and at the slice's shape, and each
-     kernel's launches a rank in phase 16), then the last line
+     batch, B9's on the sharded path and at the slice's shape, each
+     kernel's launches a rank in phase 16, and phase 19's of B1, B7 and
+     B9), then the last line
      ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every path is driven with all launch counters set to 0 just before it
@@ -232,8 +256,8 @@ phase 5; each of phase 5b's served runs; each SSGD path, each PageRank
 sweep, each k-means fit, each tp mesh, each attention run, each
 local-update run, each of phase 12's paths on its own, each of phase
 13's runs, each of phase 14's runs, each of phase 15's sweeps, in
-each of phase 16's processes, each workload, and phase 18's profiled
-command line), so
+each of phase 16's processes, each workload, phase 18's profiled
+command line, and each of phase 19's tuned runs, fleets and sweeps), so
 the kernels line shows that each path went through its kernel, and that the kernel-free paths
 (phase 5b's dense merge, phase 12's Monte Carlo, closure and ``fixed``,
 phase 14's virtual SSGD, minibatch k-means and streamed ALS) launched
@@ -4042,9 +4066,10 @@ SYNC_SHARDS = 4
 SYNC_SCHEDULES = ("dense", "bucketed", "hier", "bf16", "int8", "int8@seq",
                   "topk:0.01")
 #: steps a schedule's timed run (bench.py: 1500; cut for the script's
-#: time, PERF.md §4), steps a profiled run (device time and ops a step),
-#: syncs a timed reduce, and the steps of the card-against-CPU check
-SYNC_STEPS = 500
+#: time, PERF.md §4: 500 in PRs 19–21, 250 since PR 22), steps a profiled
+#: run (device time and ops a step), syncs a timed reduce, and the steps
+#: of the card-against-CPU check
+SYNC_STEPS = 250
 SYNC_PROFILE_STEPS, SYNC_REDUCE_CALLS, SYNC_CHECK_STEPS = 200, 100, 5
 #: card against the CPU port after SYNC_CHECK_STEPS steps, of the largest
 #: |w|: B1 and its plain version add in other orders (phase 11's
@@ -4446,9 +4471,10 @@ def _best_rate(run, steps: int, repeats: int) -> tuple[float, float]:
     return max(rates), max(rates) / min(rates) - 1.0
 
 
-def _sync_comm_bound(dev) -> dict:
-    """bench.py's comm-bound geometry (run_comm_step_speedup): d 2^20,
-    8 rows a shard, every row in the batch, 30 steps, best of 3."""
+def _comm_bound_rates(dev, scheds) -> dict:
+    """bench.py's comm-bound geometry (run_comm_step_speedup, and
+    run_tuned_step_speedup's): d 2^20, 8 rows a shard, every row in the
+    batch, 30 steps, best of 3; ``{sched: {steps_per_s, spread}}``."""
     import torch
 
     from tpu_distalg_torch.models import ssgd
@@ -4464,7 +4490,7 @@ def _sync_comm_bound(dev) -> dict:
     te = (torch.zeros((1, COMM_D), device=dev), torch.zeros((1,), device=dev))
     w0 = torch.zeros((COMM_D,), device=dev)
     out = {}
-    for sched in ("dense", "int8", "int8@seq", "topk:0.01"):
+    for sched in scheds:
         cfg = ssgd.SSGDConfig(n_iterations=COMM_STEPS, eval_test=False,
                               comm=sched, mini_batch_fraction=1.0)
         fn = ssgd.make_train_fn(mesh, cfg, Xs.n_padded, d=COMM_D)
@@ -4476,6 +4502,13 @@ def _sync_comm_bound(dev) -> dict:
             lambda: fn(Xs.data, ys.data, Xs.mask, *te, w0, *tail),
             COMM_STEPS, COMM_REPEATS)
         out[sched] = {"steps_per_s": rate, "spread": spread}
+    return out
+
+
+def _sync_comm_bound(dev) -> dict:
+    """bench.py's comm-bound geometry (run_comm_step_speedup): each
+    schedule's rate and its ratio to dense."""
+    out = _comm_bound_rates(dev, ("dense", "int8", "int8@seq", "topk:0.01"))
     for sched in ("int8", "int8@seq", "topk:0.01"):
         out[sched]["ratio_vs_dense"] = (out[sched]["steps_per_s"]
                                         / out["dense"]["steps_per_s"])
@@ -6570,6 +6603,490 @@ def run_cluster(dev, sg: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 19
+
+#: (b): ``ssgd --tune PROFILE`` through the command line on phase 6's
+#: sampler (breast cancer, the command line's task), against the same
+#: command with the resolved knobs spelled out
+TUNE_CLI_ARGS = ["ssgd", "--sampler", "fused_gather", "--fused-pack", "4",
+                 "--gather-block-rows", "32", "--shuffle-seed", "0",
+                 "--n-iterations", "300"]
+TUNE_CLI_STEPS = 300
+#: (c): run_rowstore_bench's geometry (bench.py:1719-1760) and phase 15's
+#: V 2^20 check geometry on 4 shards (the power-law multigraph, not
+#: deduped): (label, V, in-degree, seed, edges a block), 8 iterations
+RS_CACHES = (("bench", 8192, 8.0, 3, 512),
+             ("v2^20", 1 << 20, 16.0, 1, 1 << 16))
+RS_SHARDS, RS_ALPHA, RS_ITERS = 4, 1.6, 8
+RS_KILL = "cluster:ps@3=kill"
+#: (c): fit_rowstore at the JAX package's test geometry and at the
+#: serving geometry (2 sweeps, a row budget under n)
+ALS_RS = (("test", dict(m=48, n=320, k=5, n_iterations=6, lam=0.01, seed=2),
+           dict(density=0.03, ps_shards=3, user_block=8,
+                model_budget_rows=200)),
+          ("serving", dict(m=USERS, n=ITEMS, k=RANK, n_iterations=2,
+                           lam=0.01, seed=0),
+           dict(density=0.08, ps_shards=2, user_block=32,
+                model_budget_rows=16000)))
+#: (d): run_cluster_serve_bench's geometry (bench.py:1809-1900)
+CS_DIM, CS_K, CS_REQ, CS_CONC, CS_HIT = 16, 8, 384, 8, 13
+#: (d): phase 4's artifact served over 1 and 4 shard replicas
+CS_ALS_REQ, CS_ALS_SHARDS = 512, 4
+
+
+def _tn_cli(dev, args: list) -> str:
+    root, env = _child_env()
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_distalg_torch.cli", "--device",
+         dev.type, *args], cwd=root, env=env, capture_output=True,
+        text=True, timeout=300)
+    if r.returncode:
+        raise AssertionError(f"(a) {' '.join(args)}: rc {r.returncode}\n"
+                             f"{r.stderr[-3000:]}")
+    return r.stdout
+
+
+def _tn_tune(dev, work: str, smi: str) -> dict:
+    """(a): ``tda tune`` on the card, then with ``--collective`` over 4
+    emulated data shards; both profiles load and say ``cuda``."""
+    import socket
+
+    from tpu_distalg_torch import tune as ttune
+
+    out = {}
+    for tag, extra in (("rig", []),
+                       ("collective", ["--collective", "--n-slices",
+                                       str(SYNC_SHARDS),
+                                       "--no-backend-init"])):
+        d = os.path.join(work, tag)
+        t1 = time.perf_counter()
+        text = _tn_cli(dev, ["tune", "--out-dir", d, *extra])
+        secs = time.perf_counter() - t1
+        prof, path = ttune.newest_profile(d, rig=socket.gethostname())
+        if prof is None or prof["backend"] != "cuda":
+            raise AssertionError(f"(a) {tag}: profile {path} backend "
+                                 f"{prof and prof['backend']}")
+        m = prof["measurements"]
+        if tag == "rig" and m["backend_init_s"] is None:
+            raise AssertionError("(a) backend_init_s was not measured")
+        if tag == "collective" and (m["collective"] or {}).get(
+                "n_shards") != SYNC_SHARDS:
+            raise AssertionError(f"(a) collective: {m['collective']}")
+        for line in text.splitlines():
+            print(f"[tune] (a) {line} [{smi}]")
+        print(f"[tune] (a) {tag} profile {prof['profile_id']} (rig "
+              f"{prof['rig']!r}, backend cuda, {secs!r} s with start-up): "
+              f"{json.dumps(m)} [{smi}]")
+        out[tag] = {"path": path, "profile": prof, "s": secs}
+    return out
+
+
+def _tn_step(dev, prof: dict) -> dict:
+    """``prof`` resolved for bench.py's run_tuned_step_speedup geometry
+    and, where the resolved schedule is not the default, both arms timed
+    (default, tuned, tuned, default: the best of each)."""
+    from tpu_distalg_torch import tune as ttune
+
+    res = ttune.resolve(prof, ttune.Workload(
+        d=COMM_D, n_workers=SYNC_SHARDS, transport="device",
+        n_shards=SYNC_SHARDS))
+    default = str(ttune.defaults.DEFAULT_GEOMETRY["comm"])
+    tuned = res.comm_string()
+    line = {"comm_default": default, "comm_tuned": tuned,
+            "predicted_sync_ms": res.predicted_sync_ms(),
+            "why": res.choices["comm"].why}
+    if tuned == default:
+        rates = _comm_bound_rates(dev, (default,))
+        return {**line, "value": 1.0, "identical_geometry": True,
+                "default_steps_per_s": rates[default]["steps_per_s"]}
+    rates = {}
+    for sched in (default, tuned, tuned, default):
+        got = _comm_bound_rates(dev, (sched,))[sched]
+        if got["steps_per_s"] > rates.get(sched, {}).get("steps_per_s", 0):
+            rates[sched] = got
+    return {**line, "identical_geometry": False, "rates": rates,
+            "value": rates[tuned]["steps_per_s"]
+            / rates[default]["steps_per_s"]}
+
+
+def _tn_tuned_ssgd(dev, tn: dict, smi: str) -> dict:
+    """(b): (a)'s profile resolved for bench.py's run_tuned_step_speedup
+    geometry — ratio 1.0 with ``identical_geometry`` where it keeps the
+    default, a failure where a different schedule runs slower — and the
+    collective profile likewise, as a finding (its psum over emulated
+    shards is priced as a wire, which one card does not have); then
+    ``ssgd --tune PROFILE`` (the collective one) through the command
+    line in this process against its resolved knobs spelled out: the
+    weights bitwise, B1's launches the steps × shards."""
+    import contextlib
+    import io
+
+    from tpu_distalg_torch import cli
+
+    line = _tn_step(dev, tn["rig"]["profile"])
+    if not line["identical_geometry"] and line["value"] < 1.0:
+        raise AssertionError(f"(b) the resolved {line['comm_tuned']} ran "
+                             f"slower than {line['comm_default']}: {line}")
+    print(f"[tune] (b) tuned_step_speedup on (a)'s profile at d {COMM_D}, "
+          f"{COMM_ROWS} rows a shard, {SYNC_SHARDS} shards, {COMM_STEPS} "
+          f"steps, best of {COMM_REPEATS}: {json.dumps(line)} [{smi}]")
+    coll = _tn_step(dev, tn["collective"]["profile"])
+    print(f"[tune] (b) finding: the same geometry on the collective "
+          f"profile ({SYNC_SHARDS} emulated shards on one card): "
+          f"{json.dumps(coll)} [{smi}]")
+    path = tn["collective"]["path"]
+
+    def run(args):
+        buf, err = io.StringIO(), io.StringIO()
+        _reset_launches()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            if cli.main(["--device", dev.type, *args]) != 0:
+                raise AssertionError(f"(b) cli {args} failed")
+        _sync(dev)
+        ws = [x for x in buf.getvalue().splitlines()
+              if x.startswith("Final w: ")]
+        return ws[-1], _launches()["fused_grad_sum_gathered"], err.getvalue()
+
+    w_tuned, b1, err = run(TUNE_CLI_ARGS + ["--tune", path])
+    knobs = dict((x.split(": ", 1)[0][5:-1], x.split(": ", 1)[1])
+                 for x in err.splitlines() if x.startswith("tune["))
+    spelled = TUNE_CLI_ARGS + ["--comm", "dense", "--mesh-shape",
+                               f"{SYNC_SHARDS}x1"]
+    if not (knobs.get("mesh_shape", "").startswith(f"{SYNC_SHARDS}x1 ")
+            and knobs.get("comm", "").startswith("dense ")):
+        raise AssertionError(f"(b) resolved {knobs}")
+    w_spelled, b1_spelled, _ = run(spelled)
+    if w_tuned != w_spelled:
+        raise AssertionError("(b) --tune's weights differ from the run "
+                             "with its knobs spelled out")
+    want = TUNE_CLI_STEPS * SYNC_SHARDS
+    if b1 != want or b1_spelled != want:
+        raise AssertionError(f"(b) B1 launched {b1} / {b1_spelled} times, "
+                             f"want {want}")
+    print(f"[tune] (b) ssgd --tune {os.path.basename(path)} "
+          f"(fused_gather, breast cancer, {TUNE_CLI_STEPS} steps) resolved "
+          f"{json.dumps(knobs)}; weights bitwise the run with --comm dense "
+          f"--mesh-shape {SYNC_SHARDS}x1 spelled out; B1 {b1} launches "
+          f"(steps × shards) [{smi}]")
+    return {"tuned_step": line, "collective_step": coll,
+            "cli_launches": b1}
+
+
+def _rs_cluster(dev, smi: str) -> dict:
+    """(c): ``--ps-mode rowstore`` with 3 thread workers on the card at
+    phase 18's geometry: the center bitwise the replicated mode's, dense
+    and int8:5."""
+    out = {}
+    for comm in ("dense", CL_COMM):
+        rep = _cl_run(_cl_config(comm=comm), dev, f"(c) {comm} replicated")
+        row = _cl_run(_cl_config(comm=comm, ps_mode="rowstore"), dev,
+                      f"(c) {comm} rowstore")
+        if np.asarray(rep["center"]["w"]).tobytes() != \
+                np.asarray(row["center"]["w"]).tobytes() or \
+                rep["digest"] != row["digest"]:
+            raise AssertionError(f"(c) {comm}: rowstore's center or digest "
+                                 f"differs from replicated's")
+        out[comm] = {"replicated_s": rep["wall_seconds"],
+                     "rowstore_s": row["wall_seconds"],
+                     "accuracy": row["accuracy"], "digest": row["digest"]}
+    print(f"[rowstore] (c) --ps-mode rowstore, {CL_SLOTS} thread workers "
+          f"on the card, {CL_WINDOWS} windows × s {CL_S}, {CL_ROWS} rows: "
+          f"centers bitwise the replicated runs' under dense and {CL_COMM}: "
+          f"{json.dumps(out)} [{smi}]")
+    return out
+
+
+def _rs_blocks(path: str) -> int:
+    """The edge blocks the fleet's workers hold (a block with a nonzero
+    weight), so B7's launches an iteration."""
+    from tpu_distalg_torch.data import cache as dcache
+    from tpu_distalg_torch.graphs import ingest
+
+    mm, header = dcache.open_cache(path, layout=ingest.LAYOUT)
+    geom = header["geom"]
+    S, be = int(geom["n_shards"]), int(geom["block_edges"])
+    n = 0
+    for s in range(S):
+        w = np.ascontiguousarray(
+            dcache.shard_view(mm, S, s)[:, 2]).view(np.float32)
+        n += np.unique(np.flatnonzero(w != 0.0) // be).size
+    return n
+
+
+def _rs_pagerank(dev, work: str, smi: str) -> dict:
+    """(c): run_cluster_pagerank on the card at bench.py's rowstore
+    geometry and at V 2^20: iterations/s, the sparse pull fraction, B7's
+    launches; the ranks within 1e-6 of the engine on the card, Σ within
+    1e-4 of 1, and a PS kill replayed from the WAL bitwise."""
+    from tpu_distalg_torch import graphs
+    from tpu_distalg_torch.cluster import rowstore
+    from tpu_distalg_torch.parallel import get_mesh
+
+    out = {}
+    for label, V, deg, seed, block in RS_CACHES:
+        path = os.path.join(work, f"pl_{label}")
+        t1 = time.perf_counter()
+        graphs.build_powerlaw_block_cache(
+            path, n_vertices=V, n_shards=RS_SHARDS, avg_in_degree=deg,
+            alpha=RS_ALPHA, seed=seed, block_edges=block,
+            chunk_edges=GRAPH_CHUNK)
+        gen_s = time.perf_counter() - t1
+        blocks = _rs_blocks(path)
+        _reset_launches()
+        res = rowstore.run_cluster_pagerank(
+            path, rowstore.ClusterPageRankConfig(n_iterations=RS_ITERS),
+            device=dev)
+        launches = _launches()
+        _want_launches(f"(c) cluster pagerank {label}", launches,
+                       {"spmv_table": RS_ITERS * blocks})
+        gd = graphs.open_graph_dataset(
+            path, get_mesh(data=RS_SHARDS, device=dev))
+        # one block a staged step: the fleet's association (a worker
+        # adds its window's block sums one edge block at a time); at the
+        # engine's default 4 the sums group otherwise, and the gap grows
+        # with the block (6.7e-5 at V 2^14, 4096-edge blocks, in the JAX
+        # package as in the port)
+        want = graphs.run_streamed_pagerank(gd, graphs.StreamedPageRankConfig(
+            n_iterations=RS_ITERS, batch_blocks=1)).ranks.cpu().numpy()
+        err = float(np.max(np.abs(res["ranks"] - want)))
+        total = float(np.sum(res["ranks"], dtype=np.float64))
+        if err > 1e-6 or abs(total - 1.0) > 1e-4:
+            raise AssertionError(f"(c) {label}: ranks {err!r} from the "
+                                 f"engine, Σ {total!r}")
+        killed = rowstore.run_cluster_pagerank(
+            path, rowstore.ClusterPageRankConfig(
+                n_iterations=RS_ITERS, plan_spec=RS_KILL,
+                wal_dir=os.path.join(work, f"wal_{label}")), device=dev)
+        if killed["recoveries"] < 1 or \
+                killed["ranks"].tobytes() != res["ranks"].tobytes() or \
+                killed["event_digest"] != res["event_digest"]:
+            raise AssertionError(f"(c) {label}: the {RS_KILL} run did not "
+                                 f"replay bitwise")
+        out[label] = {
+            "n_vertices": V, "iters_per_s": res["iters_per_sec"],
+            "sparse_pull_fraction": res["sparse_pull_fraction"],
+            "peak_pull_rows": res["peak_pull_rows"],
+            "b7_launches": launches["spmv_table"], "blocks": blocks,
+            "max_abs_err_vs_engine": err, "rank_sum": total,
+            "killed_iters_per_s": killed["iters_per_sec"],
+            "generation_s": gen_s}
+        print(f"[rowstore] (c) cluster PageRank, {label} (V {V}, "
+              f"{RS_SHARDS} shards, in-degree {deg}, α {RS_ALPHA}, {block}-"
+              f"edge blocks, {RS_ITERS} iterations) on the card: "
+              f"{json.dumps(out[label])}; {RS_KILL!r} replayed bitwise "
+              f"[{smi}]")
+    return out
+
+
+def _rs_als(dev, smi: str) -> dict:
+    """(c): fit_rowstore on the card under a row budget below n."""
+    from tpu_distalg_torch.models import als
+
+    out = {}
+    for label, cfg, kw in ALS_RS:
+        _reset_launches()
+        t1 = time.perf_counter()
+        res = als.fit_rowstore(als.ALSConfig(**cfg), device=dev, **kw)
+        secs = time.perf_counter() - t1
+        hist = [float(x) for x in res["rmse_history"]]
+        if not (np.isfinite(hist).all() and hist[-1] < hist[0]
+                and res["peak_pull_rows"] <= kw["model_budget_rows"]
+                < cfg["n"]):
+            raise AssertionError(f"(c) fit_rowstore {label}: {hist}, peak "
+                                 f"{res['peak_pull_rows']}")
+        out[label] = {"peak_pull_rows": res["peak_pull_rows"],
+                      "sparse_pull_fraction": res["sparse_pull_fraction"],
+                      "rmse_history": hist,
+                      "s_per_sweep": secs / cfg["n_iterations"],
+                      "rows_pulled": res["rows_pulled"],
+                      "rows_pushed": res["rows_pushed"]}
+        print(f"[rowstore] (c) fit_rowstore {label} ({cfg['m']} × "
+              f"{cfg['n']}, rank {cfg['k']}, density {kw['density']}, "
+              f"budget {kw['model_budget_rows']} rows, {cfg['n_iterations']}"
+              f" sweeps, float64 batched solves on the card): "
+              f"{json.dumps(out[label])} [{smi}]")
+    return out
+
+
+def _cs_bench(dev, smi: str) -> dict:
+    """(d): run_cluster_serve_bench on the card: req/s, the client p99
+    under a seeded replica kill, availability; the disturbed replies
+    bitwise the undisturbed ones."""
+    from tpu_distalg_torch import faults
+    from tpu_distalg_torch.cluster import serve
+
+    rng = np.random.default_rng(13)
+    center = {"centers": rng.standard_normal((CS_K, CS_DIM)).astype(
+        np.float32)}
+    payloads = list(rng.standard_normal((CS_REQ, CS_DIM)).astype(np.float32))
+    cfg = serve.FleetConfig(kind="kmeans", n_replicas=3, version=1,
+                            max_delay_ms=1.0)
+    arms = []
+    for plan in (None, f"seed=13;cluster:replica@{CS_HIT}=kill"):
+        faults.configure(plan or False)
+        try:
+            fleet = serve.ServeFleet(cfg, center, device=dev).start()
+            try:
+                res, info = serve.run_fleet_closed_loop(
+                    fleet, payloads, concurrency=CS_CONC,
+                    retries=10 if plan else 0, retry_backoff_s=0.05)
+                st = fleet.stats()
+                killed = [r.slot for r in fleet.replicas if r.killed]
+            finally:
+                fleet.stop()
+        finally:
+            faults.configure(False)
+        if info["failed"] or info["ok"] != CS_REQ:
+            raise AssertionError(f"(d) burst incomplete: {info}")
+        arms.append((np.stack([v for v, _, _ in res]), info, st, killed))
+    (ya, ia, _sa, ka), (yb, ib, sb, kb) = arms
+    if ka or not kb or ya.tobytes() != yb.tobytes():
+        raise AssertionError(f"(d) kill fired {kb} (undisturbed {ka}); "
+                             f"replies equal {ya.tobytes() == yb.tobytes()}")
+    out = {"qps": ia["qps"], "p50_ms": ia["p50_ms"], "p99_ms": ia["p99_ms"],
+           "p99_under_kill_ms": ib["p99_ms"],
+           "availability": ib["availability"], "reroutes": sb["reroutes"],
+           "client_retries": ib["retries"], "killed": kb}
+    print(f"[serve] (d) cluster_serve bench, 3 k-means replicas on the card "
+          f"(dim {CS_DIM}, k {CS_K}), {CS_REQ} requests, concurrency "
+          f"{CS_CONC}: {json.dumps(out)}; disturbed replies bitwise the "
+          f"undisturbed [{smi}]")
+    return out
+
+
+def _cs_als(dev, artifact: str, smi: str) -> dict:
+    """(d): phase 4's ALS artifact over 1 replica and over 4 shard
+    replicas on the card, sparse and dense merge: merged replies bitwise
+    the one replica's; B9 = shards × (micro-batches + warm-ups) on sparse,
+    none on dense; the replies against the plain version by the tie
+    rule."""
+    import torch
+
+    from tpu_distalg_torch.cluster import serve
+    from tpu_distalg_torch.ops import topk
+    from tpu_distalg_torch.serve import artifacts
+
+    root, state, _ = artifacts.load_artifact_state(artifact)
+    kind, center = serve.center_of_state(root, state)
+    ids = [np.int32(i) for i in
+           np.random.default_rng(3).integers(0, USERS, size=CS_ALS_REQ)]
+    out, replies = {}, {}
+    for merge in ("sparse", "dense"):
+        for n in (1, CS_ALS_SHARDS):
+            _reset_launches()
+            fleet = serve.ServeFleet(serve.FleetConfig(
+                kind=kind, n_replicas=n, sharded=True, merge=merge,
+                k_top=K_TOP, max_batch=MAX_BATCH, max_delay_ms=2.0,
+                version=1), center, device=dev).start()
+            try:
+                res, info = serve.run_fleet_closed_loop(
+                    fleet, ids, concurrency=CONCURRENCY)
+                batches = sum(link.batcher.snapshot().batches
+                              for link in fleet.router._links.values())
+            finally:
+                fleet.stop()
+            launches = _launches()["topk"]
+            want = batches + n if merge == "sparse" else 0
+            if info["failed"] or launches != want:
+                raise AssertionError(f"(d) {merge} × {n}: {info['failed']} "
+                                     f"failed, B9 {launches} launches, "
+                                     f"want {want}")
+            replies[merge, n] = res
+            out[f"{merge}_{n}"] = {
+                "qps": info["qps"], "p50_ms": info["p50_ms"],
+                "p99_ms": info["p99_ms"], "micro_batches": batches,
+                "b9_launches": launches}
+        for (a, _va, _), (b, _vb, _) in zip(replies[merge, 1],
+                                            replies[merge, CS_ALS_SHARDS]):
+            if a[0].tobytes() != b[0].tobytes() or \
+                    a[1].tobytes() != b[1].tobytes():
+                raise AssertionError(f"(d) {merge}: {CS_ALS_SHARDS} shards' "
+                                     f"replies differ from one replica's")
+    got = replies["sparse", CS_ALS_SHARDS][:256]
+    q = torch.as_tensor(center["U"][np.asarray(ids[:256])])
+    ref_v, ref_i = topk.matmul_topk_reference(
+        q, torch.as_tensor(center["V"]), 0, center["V"].shape[0],
+        k=K_TOP + 1)
+    topk.assert_topk_close(np.stack([v[0] for v, _, _ in got]),
+                           np.stack([v[1] for v, _, _ in got]), ref_v, ref_i)
+    print(f"[serve] (d) phase 4's artifact ({USERS} × {ITEMS}, rank {RANK}, "
+          f"k {K_TOP}) over 1 and {CS_ALS_SHARDS} shard replicas on the "
+          f"card, {CS_ALS_REQ} requests, max batch {MAX_BATCH}: "
+          f"{json.dumps(out)}; merged replies bitwise one replica's, sparse "
+          f"and dense; B9 = micro-batches + a warm-up a replica [{smi}]")
+    return out
+
+
+def _cs_process(dev, work: str, smi: str) -> dict:
+    """(d): two process replicas on the card (``python -m
+    tpu_distalg_torch.cli --device cuda cluster --role replica``), the
+    first killed after 3 batches: every reply the in-process replica
+    model's bits."""
+    from tpu_distalg_torch.cluster import serve
+    from tpu_distalg_torch.utils import checkpoint
+
+    rng = np.random.default_rng(13)
+    centers = rng.standard_normal((CS_K, CS_DIM)).astype(np.float32)
+    ckpt = os.path.join(work, "km")
+    checkpoint.save(ckpt, "kmeans_lloyd", [centers], 1)
+    X = rng.standard_normal((128, CS_DIM)).astype(np.float32)
+    t1 = time.perf_counter()
+    fleet = serve.ServeFleet(
+        serve.FleetConfig(kind="kmeans", n_replicas=2, artifact=ckpt,
+                          fault_slot=0, max_delay_ms=1.0),
+        spawn="process", plan_spec="seed=1;cluster:replica@3=kill",
+        device=dev).start()
+    up = time.perf_counter() - t1
+    try:
+        res, info = serve.run_fleet_closed_loop(
+            fleet, list(X), concurrency=4, retries=5, retry_backoff_s=0.05)
+        st = fleet.stats()
+    finally:
+        fleet.stop()
+    want = serve.ReplicaModel("kmeans", {"centers": centers},
+                              device=dev).score_frame({"x": X})["y"]
+    got = np.asarray([v for v, _, _ in res])
+    if info["failed"] or st["dead"] != [0] or not np.array_equal(got, want):
+        raise AssertionError(f"(d) process replicas: {info}, dead "
+                             f"{st['dead']}, replies equal "
+                             f"{np.array_equal(got, want)}")
+    out = {"start_s": up, "qps": info["qps"], "p99_ms": info["p99_ms"],
+           "reroutes": st["reroutes"], "dead": st["dead"]}
+    print(f"[serve] (d) 2 process replicas on the card, replica 0 killed "
+          f"by seed=1;cluster:replica@3=kill: {json.dumps(out)}; replies "
+          f"bitwise [{smi}]")
+    return out
+
+
+def run_tune_rowstore_serving(dev, artifact: str) -> dict:
+    """Phase 19: the autotuner, the sharded row store and cluster serving
+    on the card, (a)-(d)."""
+    import shutil
+
+    smi = _nvidia_smi()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "phase19")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    try:
+        tn = _tn_tune(dev, work, smi)
+        t0 = _phase("tune (a) tda tune", t0)
+        out = {"tune": tn, **_tn_tuned_ssgd(dev, tn, smi)}
+        t0 = _phase("tune (b) tuned ssgd", t0)
+        out["rowstore_cluster"] = _rs_cluster(dev, smi)
+        out["rowstore_pagerank"] = _rs_pagerank(dev, work, smi)
+        out["rowstore_als"] = _rs_als(dev, smi)
+        t0 = _phase("rowstore (c)", t0)
+        out["serve_bench"] = _cs_bench(dev, smi)
+        out["serve_als"] = _cs_als(dev, artifact, smi)
+        out["serve_process"] = _cs_process(dev, work, smi)
+        _phase("cluster serving (d)", t0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def _mp_half() -> int:
     from tpu_distalg_torch.tools import multiproc_run
 
@@ -6695,12 +7212,16 @@ def main() -> int:
 
     try:
         run_recovery(dev, rec_dir)
+        t0 = _phase("recovery on the card", t0)
+
+        cl = run_cluster(dev, sg)
+        t0 = _phase("profiler + cluster runtime", t0)
+
+        # phase 4's artifact is served again in (d)
+        p19 = run_tune_rowstore_serving(dev, rec_dir)
+        t0 = _phase("tune + rowstore + cluster serving", t0)
     finally:
         rec_tmp.cleanup()
-    t0 = _phase("recovery on the card", t0)
-
-    cl = run_cluster(dev, sg)
-    t0 = _phase("profiler + cluster runtime", t0)
 
     ssgd_src = "tpu_distalg_torch/csrc/ssgd.cu"
     pallas = "tpu_distalg/ops/pallas_kernels.py"
@@ -6710,6 +7231,8 @@ def main() -> int:
         "replaces": "tpu_distalg/ops/pallas_topk.py:109",
         "launches": launches, **rec,
         "sharded_launches": sharded["sparse"]["launches"],
+        "cluster_serve_launches": {
+            k: v["b9_launches"] for k, v in p19["serve_als"].items()},
         "process_launches": _mp_launches(mp, "B9"),
         **{f"slice_{k}": sharded["slice"][k]
            for k in ("ms", "wall_ms", "plain_ms", "library_ms", "bound_ms",
@@ -6739,7 +7262,8 @@ def main() -> int:
                 "stream_launches": ooc["stream"]["launches"],
                 **ooc["stream"]["b1"],
                 "profiled_cli_launches": cl["profile"]["launches"],
-                "profiled_cli_trace_us": cl["profile"]["b1_us"]}
+                "profiled_cli_trace_us": cl["profile"]["b1_us"],
+                "tuned_cli_launches": p19["cli_launches"]}
                if key == "B1" else {})})
     for key, name, line in (("B3", "fused_forward_gathered", 590),
                             ("B4", "fused_backward_gathered", 668)):
@@ -6763,7 +7287,10 @@ def main() -> int:
             "process_launches": _mp_launches(mp, key),
             **({"streamed_launches": graph["launches"],
                 "streamed_launches_per_sweep":
-                    graph["b7_launches_per_sweep"], **graph["b7"]}
+                    graph["b7_launches_per_sweep"], **graph["b7"],
+                "rowstore_launches": {
+                    k: v["b7_launches"]
+                    for k, v in p19["rowstore_pagerank"].items()}}
                if key == "B7" else {})})
     kernels.append({
         "name": "kmeans_kernels.fused_cluster_stats", "route": "cuda",

@@ -297,13 +297,17 @@ def test_refit_into_its_own_directory_resumes(tmp_path, cpu1):
 
 
 def test_unported_backends_name_their_item():
-    """``fit_rowstore`` still waits for ROADMAP A12.5; ``fit_streamed``
-    (A10's rows, ``tests/test_torch_data.py``) runs over a dataset."""
+    """``fit_rowstore`` (V in the cluster's row store; held to JAX's in
+    ``tests/test_torch_rowstore.py``) and ``fit_streamed`` (A10's rows,
+    ``tests/test_torch_data.py``) run: the smallest fit of each."""
     from tpu_distalg_torch.data import builders
 
     ds, _ = builders.rank_k_rows_dataset(get_mesh(device="cpu"), 16, 8, 2,
                                          block_rows=4, backend="virtual")
     res = als.fit_streamed(ds, als.ALSConfig(k=2, n_iterations=2))
     assert res.U.shape == (16, 2) and res.rmse_history.shape == (2,)
-    with pytest.raises(NotImplementedError, match="A12"):
-        als.fit_rowstore()
+    got = als.fit_rowstore(als.ALSConfig(m=16, n=40, k=2, n_iterations=2),
+                           density=0.2, user_block=4, device="cpu")
+    assert got["U"].shape == (16, 2) and got["V"].shape == (40, 2)
+    assert got["rmse_history"].shape == (2,)
+    assert np.isfinite(got["rmse_history"]).all()

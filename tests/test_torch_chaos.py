@@ -302,30 +302,39 @@ def test_cli_chaos_requires_a_plan(monkeypatch):
 CLUSTER_PLAN = "seed=7;cluster:coordinator@4=kill"
 
 
+#: the cluster_serve and rowstore workloads' plans (JAX
+#: ``tests/test_cluster_serve.py:315``, ``tests/test_rowstore.py:318``)
+#: at one fault each, so what fires is fixed by the plan alone
+SERVE_PLAN = "seed=3;cluster:replica@7=kill"
+ROWSTORE_PLAN = "cluster:ps@2=kill"
+
+
 @pytest.mark.parametrize("workload", ("cluster", "cluster_serve",
                                       "rowstore"))
-def test_cluster_workloads_refuse_naming_a12(workload, tmp_path):
-    """``cluster`` runs (a coordinator kill, recovered from the WAL):
-    equal in both packages, with JAX's fired ledger. ``cluster_serve``
-    and ``rowstore`` still refuse, naming ROADMAP A12.6 and A12.5, from
-    the harness and from the command line."""
+def test_cluster_workloads_refuse_naming_a12(workload, tmp_path, capsys):
+    """The three cluster workloads run: ``cluster`` under a coordinator
+    kill (recovered from the WAL), ``cluster_serve`` under a replica
+    kill (re-routed), ``rowstore`` under a PS kill at the merge seam
+    (the WAL's redo): each equal, in both packages, firing what JAX
+    fires; ``cluster_serve`` and ``rowstore`` also from the command
+    line."""
     assert workload in chaos.WORKLOADS
+    plan = {"cluster": CLUSTER_PLAN, "cluster_serve": SERVE_PLAN,
+            "rowstore": ROWSTORE_PLAN}[workload]
+    got = chaos.run_chaos(workload, _pmesh(1), plan=plan,
+                          workdir=str(tmp_path / "port"))
+    want = jchaos.run_chaos(workload, None, plan=plan,
+                            workdir=str(tmp_path / "jax"))
+    assert got.equal and want.equal, (got.verdict(), want.verdict())
+    assert got.fired == want.fired and len(got.fired) == 1
     if workload == "cluster":
-        got = chaos.run_chaos(workload, _pmesh(1), plan=CLUSTER_PLAN,
-                              workdir=str(tmp_path / "port"))
-        want = jchaos.run_chaos(workload, None, plan=CLUSTER_PLAN,
-                                workdir=str(tmp_path / "jax"))
-        assert got.equal and want.equal, (got.verdict(), want.verdict())
-        assert got.fired == want.fired == [("cluster:coordinator", 4,
-                                            "kill")]
+        assert got.fired == [("cluster:coordinator", 4, "kill")]
         return
-    item = {"cluster_serve": "ROADMAP A12.6", "rowstore": "ROADMAP A12.5"}
-    with pytest.raises(NotImplementedError, match=item[workload]):
-        chaos.run_chaos(workload, _pmesh(1), plan="seed=1",
-                        workdir=str(tmp_path))
-    with pytest.raises(SystemExit, match=item[workload]):
-        cli.main(["--device", "cpu", "chaos", "--workload", workload,
-                  "--fault-plan", "seed=1;segment:run@0=kill"])
+    rc = cli.main(["--device", "cpu", "chaos", "--workload", workload,
+                   "--fault-plan", plan])
+    assert rc == 0
+    assert f"[chaos] OK: {workload} recovered bitwise-equal under 1 " \
+        f"injected fault(s)" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flag", [["--spawn", "process"],

@@ -21,14 +21,14 @@ from tpu_distalg_torch.utils.device import share_host_threads
 
 share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
-#: JAX subcommands the port has no counterpart of yet: ``tune`` (ROADMAP
-#: A12.4), ``lint`` and ``protocol`` (A12.7)
-MISSING_SUBCOMMANDS = {"lint", "protocol", "tune"}
+#: JAX subcommands the port has no counterpart of yet: ``lint`` and
+#: ``protocol`` (ROADMAP A12.7)
+MISSING_SUBCOMMANDS = {"lint", "protocol"}
 #: JAX options the port's parser rejects, by subcommand ("" = top
 #: level), and the ROADMAP item each waits for
 MISSING_OPTIONS: dict = {}
-#: on every subcommand that has it in the JAX package, waiting for A12.4
-MISSING_EVERYWHERE = {"--tune"}
+#: options missing on every subcommand that has them in the JAX package
+MISSING_EVERYWHERE: set = set()
 #: options the port has and the JAX package does not
 PORT_ONLY = {"": {"--device"}, "als": {"--seed"}}
 
@@ -97,19 +97,22 @@ def test_pagerank_engine_flags_take_jax_defaults():
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--role", "replica"], "ROADMAP A12.6"),
-    (["--role", "router"], "ROADMAP A12.6"),
-    (["--ps-mode", "rowstore"], "ROADMAP A12.5"),
-    (["--fault-plan", "seed=1;cluster:replica@0=kill"], "ROADMAP A12.6"),
+    (["--role", "replica"], "needs --artifact"),
+    (["--role", "router"], "needs --replicas"),
+    (["--ps-mode", "rowstore", "--sync", "bsp"], "stale-synchronous"),
+    (["--fault-plan", "seed=1;cluster:replica@0=kill", "--sync", "bsp"],
+     "stale-synchronous"),
     (["--sync", "bsp"], "stale-synchronous"),
     (["--max-restarts", "1"], "launcher"),
     (["--role", "worker"], "--connect"),
     (["--fault-plan", "seed=1;segment:run@0=kill"], "reads no rule"),
 ])
 def test_cluster_refusals(args, item):
-    """Cluster serving and the row store name their items; a BSP
-    cluster, a restart budget, a worker with no address and a plan no
-    seam of the cluster reads are refused."""
+    """A replica with no artifact, a router with no replicas, a BSP
+    cluster (with the row store and with a ``cluster:replica`` rule,
+    both of which pass the parser and the plan check), a restart
+    budget, a worker with no address and a plan no seam of the cluster
+    reads are refused."""
     with pytest.raises(SystemExit, match=item):
         cli.main(["--device", "cpu", "cluster", *args])
 

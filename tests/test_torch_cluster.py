@@ -356,10 +356,11 @@ def test_config_refusals_equal_jax(over):
 
 
 def test_unported_modes_and_devices_refuse(monkeypatch):
-    """``rowstore`` names ROADMAP A12.5; a worker or launcher asked for a
-    card that is not there raises instead of running on the CPU."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A12.5"):
-        _config(clus, ps_mode="rowstore")
+    """``rowstore`` configures as in the JAX package (the welcome carries
+    it to the workers); a worker or launcher asked for a card that is
+    not there raises instead of running on the CPU."""
+    assert _config(clus, ps_mode="rowstore").ps_mode == \
+        _config(jclus, ps_mode="rowstore").ps_mode == "rowstore"
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         clus.run_local_cluster(_config(clus), spawn="thread")

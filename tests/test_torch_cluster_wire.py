@@ -525,10 +525,20 @@ def test_ps_merge_history_and_delta_since_bitwise(n_shards):
 
 
 def test_ps_rowstore_mode_refuses_naming_a12_5():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12.5"):
-        ps.ParameterServer({"w": np.zeros(3, np.float32)}, mode="rowstore")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12.5"):
-        coordinator.ClusterConfig(ps_mode="rowstore")
+    """The rowstore mode runs: a push carrying ``w.rows`` moves only
+    those rows, merged as the JAX package's rowstore PS merges them;
+    an unknown mode is refused."""
+    center = {"w": np.arange(6, dtype=np.float32)}
+    mine = ps.ParameterServer(center, mode="rowstore")
+    theirs = jps.ParameterServer(center, mode="rowstore")
+    push = [(0, 0, {"w": np.ones(2, np.float32),
+                    "w.rows": np.array([1, 4], np.int64)})]
+    assert mine.merge(0, push) == theirs.merge(0, push)
+    got = mine.snapshot()["w"]
+    assert got.tobytes() == theirs.snapshot()["w"].tobytes()
+    assert np.array_equal(got, [0, 2, 2, 3, 5, 5])
+    assert coordinator.ClusterConfig(ps_mode="rowstore").ps_mode == \
+        "rowstore"
     with pytest.raises(ValueError, match="unknown ps mode"):
         ps.ParameterServer({"w": np.zeros(3, np.float32)}, mode="x")
 

@@ -2,8 +2,8 @@
 ``utils/checkpoint.py``) on the CPU, against the JAX package's where a
 comparison means something.
 
-  * the registry reads every point but cluster serving's, and refuses a
-    ``cluster:replica`` rule naming ROADMAP A12.6;
+  * the registry reads every point of the JAX package, cluster
+    serving's ``cluster:replica`` included;
   * ``supervised``: retries only what ``retry_on`` names, re-raises the
     last real error, a deadline becomes ``TimeoutError``, and its events
     are JAX's (JAX ``tests/test_faults.py:172-210``);
@@ -83,13 +83,14 @@ def _read_events(directory):
 # ------------------------------------------------------------ registry
 
 def test_points_are_jax_less_the_cluster():
-    """Every point of the JAX package is ported but cluster serving's
-    (``cluster:replica``, ROADMAP A12.6)."""
+    """Every point of the JAX package has a seam in the port, cluster
+    serving's ``cluster:replica`` (``cluster/serve.py``) included: the
+    point set is JAX's and every point's plan configures."""
     assert faults.POINTS == jfaults.POINTS
-    assert set(faults.PORTED_POINTS) == (
-        set(POINT_KINDS) | set(CLUSTER_KINDS)) - {"cluster:replica"}
-    assert set(faults.POINTS) - set(faults.PORTED_POINTS) == {
-        "cluster:replica"}
+    assert set(faults.POINTS) == set(POINT_KINDS) | set(CLUSTER_KINDS)
+    for point, kind in {**POINT_KINDS, **CLUSTER_KINDS}.items():
+        assert faults.configure(f"seed=1;{point}@0={kind}") is not None
+    faults.configure(False)
 
 
 @pytest.mark.parametrize("point", sorted(POINT_KINDS))
@@ -100,22 +101,17 @@ def test_every_non_cluster_point_is_accepted(point):
 
 @pytest.mark.parametrize("point", sorted(CLUSTER_KINDS))
 def test_cluster_points_are_refused_naming_a12(point, monkeypatch):
-    """The cluster runtime's points are read (``tpu_distalg_torch/
-    cluster/``); ``cluster:replica`` alone is refused, naming ROADMAP
-    A12.6, from the argument and from the environment."""
+    """The cluster's points are read (``tpu_distalg_torch/cluster/``,
+    ``cluster:replica`` by a serving replica's score seam): a plan with
+    one configures from the argument and from the environment, and fires
+    on JAX's hit."""
     plan = f"seed=1;ckpt:write@0=oserror;{point}@0={CLUSTER_KINDS[point]}"
-    if point != "cluster:replica":
-        assert faults.configure(plan) is not None and faults.enabled()
-        faults.configure(False)
-        monkeypatch.setenv(faults.ENV_PLAN, plan)
-        assert faults.configure() is not None
-        return
-    with pytest.raises(ValueError, match="ROADMAP A12.6"):
-        faults.configure(plan)
-    assert faults.active() is None
+    assert faults.configure(plan) is not None and faults.enabled()
+    assert faults.active().plan.spec() == \
+        jfaults.FaultPlan.parse(plan).spec()
+    faults.configure(False)
     monkeypatch.setenv(faults.ENV_PLAN, plan)
-    with pytest.raises(ValueError, match="ROADMAP A12.6"):
-        faults.configure()
+    assert faults.configure() is not None
 
 
 # ---------------------------------------------------------- supervised

@@ -186,20 +186,14 @@ def test_fault_plan_spellings_and_registry_equal_jax(tmp_path):
                                   "seed=1;shard:leave@1=leave;"
                                   "cluster:replica@p0.2=kill"])
 def test_plan_without_a_port_seam_is_refused(plan, monkeypatch):
-    """A rule at a point the port has no seam for (cluster serving's
-    ``cluster:replica``) would never fire: configure refuses it, naming
-    ROADMAP A12.6, from the argument and from ``$TDA_FAULT_PLAN``. The
-    cluster runtime's points have their seams (``tpu_distalg_torch/
-    cluster/``): configure takes them, and a run that reads none of them
-    (here ``ssgd``) refuses them, naming the cluster runtime."""
-    if "cluster:replica" in plan:
-        with pytest.raises(ValueError, match="ROADMAP A12.6"):
-            faults.configure(plan)
-        monkeypatch.setenv(faults.ENV_PLAN, plan)
-        with pytest.raises(ValueError, match="ROADMAP A12.6"):
-            faults.configure()
-        assert faults.active() is None
-        return
+    """The cluster's points have their seams (``tpu_distalg_torch/
+    cluster/``; ``cluster:replica`` a serving replica's): configure takes
+    them, from the argument and from ``$TDA_FAULT_PLAN``, and a run that
+    reads none of them (here ``ssgd``) refuses them, naming the cluster
+    runtime."""
+    monkeypatch.setenv(faults.ENV_PLAN, plan)
+    assert faults.configure() is not None
+    faults.configure(False)
     assert faults.configure(plan) is not None
     faults.configure(False)
     from tpu_distalg_torch import cli

@@ -47,11 +47,20 @@ telemetry reports and the cluster runtime.
     python -m tpu_distalg_torch.cli cluster --role worker \
         --connect 127.0.0.1:29600                 # a worker on the card
     python -m tpu_distalg_torch.cli --profile P ssgd  # a Chrome trace in P
+    python -m tpu_distalg_torch.cli tune --out-dir D [--collective \
+        --n-slices 4]                     # a RigProfile of this rig
+    python -m tpu_distalg_torch.cli ssgd --tune auto  # or --tune PROFILE
+    python -m tpu_distalg_torch.cli cluster --role local --spawn thread \
+        --ps-mode rowstore                # the center in the row store
+    python -m tpu_distalg_torch.cli cluster --role replica --artifact D \
+        --replica-shards 2 --shard 0      # prints its port; scores on card
+    python -m tpu_distalg_torch.cli cluster --role router \
+        --replicas 127.0.0.1:P0,127.0.0.1:P1 --serve-mode sharded
 
 The lines printed match the JAX package's ``tda lr``, ``tda ssgd``,
 ``tda ma``, ``tda bmuf``, ``tda easgd``, ``tda als``, ``tda serve``,
 ``tda pagerank``, ``tda kmeans``, ``tda closure``, ``tda mc``, ``tda
-chaos``, ``tda report`` and ``tda cluster``. Runs on ``cuda`` unless
+chaos``, ``tda report``, ``tda cluster`` and ``tda tune``. Runs on ``cuda`` unless
 ``--device cpu`` is given (a cluster's workers run there; its
 coordinator holds the center on the host). ``--profile DIR`` writes a
 ``torch.profiler`` Chrome trace of the whole run. Every run takes ``--telemetry-dir`` and ``--fault-plan``, and is
@@ -358,6 +367,41 @@ def _parser() -> argparse.ArgumentParser:
                         "temp dir, removed on success)")
     _add_telemetry(h)
 
+    u = sub.add_parser(
+        "tune",
+        help="measure this rig — framed-TCP loopback bandwidth/RTT, host "
+             "memcpy, the host's numpy matmul FLOP/s, host RAM, each "
+             "--comm codec's throughput, the init time of --device in a "
+             "cold child, optionally the psum over emulated data shards — "
+             "and write a versioned rig-tagged RigProfile JSON; every "
+             "subcommand's '--tune auto' then resolves its geometry from "
+             "the newest profile (tune/resolve.py)")
+    u.add_argument("--out-dir", type=str, default=None, metavar="DIR",
+                   help="profile directory (default $TDA_PROFILE_DIR or "
+                        "./.tda_profiles)")
+    u.add_argument("--seed", type=int, default=0,
+                   help="measurement seed (profiles are seeded and "
+                        "deterministic but for the measured timings)")
+    u.add_argument("--quick", action="store_true",
+                   help="smaller working sets (the artifact records "
+                        "quick=true)")
+    u.add_argument("--no-backend-init", action="store_true",
+                   help="skip the subprocess-timed backend init "
+                        "measurement (the slowest pass)")
+    u.add_argument("--collective", action="store_true",
+                   help="also measure the psum of the port's collectives "
+                        "over the mesh's data shards on --device")
+    u.add_argument("--n-slices", type=int, default=0,
+                   help="with --collective: data shards; 0 = the emulated "
+                        "count (--emulate) a process, else 1")
+    u.add_argument("--mesh-shape", type=str, default=None, metavar="DxM",
+                   help="with --collective: mesh data x model (replaces "
+                        "--n-slices)")
+    u.add_argument("--telemetry-dir", type=str, default=None,
+                   metavar="DIR",
+                   help="record the profiling pass as telemetry events (a "
+                        "'tune' span)")
+
     r = sub.add_parser("report",
                        help="summarize a telemetry event log: phase "
                             "durations, stalls, backend-init attempts, "
@@ -375,9 +419,7 @@ def _parser() -> argparse.ArgumentParser:
 
 def _add_cluster(sub) -> None:
     """``cluster``, with the JAX CLI's options, defaults and choices
-    (``tpu_distalg/cli.py:449-620``). ``--role replica|router`` and the
-    serving plane's options parse and are refused (ROADMAP A12.6), and
-    so is ``--ps-mode rowstore`` (A12.5)."""
+    (``tpu_distalg/cli.py:449-620``)."""
     p = sub.add_parser(
         "cluster",
         help="multi-process elastic runtime (tpu_distalg_torch/cluster/): "
@@ -393,8 +435,10 @@ def _add_cluster(sub) -> None:
                         "--host:--port; worker = join a coordinator at "
                         "--connect and train on --device; local = a "
                         "coordinator plus --workers N workers on this "
-                        "machine; replica and router (cluster serving) "
-                        "wait for ROADMAP A12.6")
+                        "machine; replica = one serving replica (loads "
+                        "--artifact, scores on --device over the framed "
+                        "transport, hot-swappable); router = the serving "
+                        "front end dispatching at --replicas")
     p.add_argument("--workers", type=int, default=3,
                    help="worker slot count (coordinator/local roles)")
     p.add_argument("--spawn", default="process",
@@ -443,8 +487,12 @@ def _add_cluster(sub) -> None:
                         "overlap the next window unless @seq")
     p.add_argument("--ps-mode", default="replicated",
                    choices=["replicated", "rowstore"],
-                   help="PS state layout: replicated; rowstore (the "
-                        "sharded row store) waits for ROADMAP A12.5")
+                   help="PS state layout: replicated = each shard holds "
+                        "dense slices and merges whole deltas; rowstore = "
+                        "shards own disjoint leading-dim row ranges "
+                        "(partition rule table), pushes carry {leaf}.rows "
+                        "index arrays and merge row-wise with per-row "
+                        "versions (cluster/rowstore.py)")
     p.add_argument("--pull-refresh-windows", type=int, default=None,
                    metavar="N",
                    help="compressed pulls: every Nth commit ships a dense "
@@ -474,26 +522,34 @@ def _add_cluster(sub) -> None:
                         "(the launcher's subprocess handoff; overrides "
                         "--algo and --n-rows)")
     p.add_argument("--artifact", type=str, default=None, metavar="CKPT_DIR",
-                   help="replica role (ROADMAP A12.6)")
+                   help="replica role: checkpoint directory to serve (the "
+                        "artifact_path: line a training command prints)")
     p.add_argument("--replica-shards", type=int, default=1,
-                   help="replica role (ROADMAP A12.6)")
+                   help="replica role: the model-axis shard count of the "
+                        "fleet this replica belongs to")
     p.add_argument("--shard", type=int, default=0,
-                   help="replica role (ROADMAP A12.6)")
+                   help="replica role: this replica's model-axis shard")
     p.add_argument("--k-top", type=int, default=10,
-                   help="serving plane (ROADMAP A12.6)")
+                   help="serving plane: top-k candidates of an ALS request")
     p.add_argument("--merge", default="sparse", choices=["sparse", "dense"],
-                   help="serving plane (ROADMAP A12.6)")
+                   help="serving plane: the ALS candidate merge across "
+                        "replicas — sparse (value, index) pairs (B9 on "
+                        "each shard) or the dense score blocks")
     p.add_argument("--replicas", type=str, default=None,
                    metavar="HOST:PORT[,HOST:PORT...]",
-                   help="router role (ROADMAP A12.6)")
+                   help="router role: the replica fleet's addresses")
     p.add_argument("--dispatch", default="least_loaded",
                    choices=["least_loaded", "consistent_hash"],
-                   help="router role (ROADMAP A12.6)")
+                   help="router role: dispatch policy")
     p.add_argument("--serve-mode", default="routed",
                    choices=["routed", "sharded"],
-                   help="router role (ROADMAP A12.6)")
+                   help="router role: routed = each request to one "
+                        "replica (re-routed on a death); sharded = to "
+                        "every model-axis shard, candidates merged")
     p.add_argument("--wal-dir", type=str, default=None, metavar="DIR",
-                   help="router role (ROADMAP A12.6)")
+                   help="router role: the durable routing state (a "
+                        "restarted router replays it and rebinds the same "
+                        "port)")
     p.add_argument("--deadline", type=float, default=600.0,
                    help="local/coordinator roles: give up if the run is "
                         "still incomplete after this many seconds")
@@ -594,9 +650,8 @@ def _add_sync(p) -> None:
 
 
 def _add_telemetry(p) -> None:
-    """``--telemetry-dir`` and ``--fault-plan`` (the JAX CLI's
-    ``_add_telemetry``, ``tpu_distalg/cli.py:169-188``, less its
-    ``--tune``)."""
+    """``--telemetry-dir``, ``--fault-plan`` and ``--tune`` (the JAX CLI's
+    ``_add_telemetry``, ``tpu_distalg/cli.py:169-199``)."""
     p.add_argument("--telemetry-dir", type=str, default=None,
                    metavar="DIR",
                    help="write structured JSONL runtime events here "
@@ -610,11 +665,21 @@ def _add_telemetry(p) -> None:
              "ckpt:read, cache:write, data:gather, data:h2d, "
              "backend:init, segment:run, shard:straggle, shard:leave, "
              "cluster:worker, cluster:rpc, cluster:coordinator, "
-             "cluster:wal, cluster:ps; kinds: oserror, hang, corrupt, "
+             "cluster:wal, cluster:ps, cluster:replica; kinds: oserror, "
+             "hang, corrupt, "
              "kill, straggle, leave). The same plan+seed replays the same "
              "failure sequence bitwise — see 'tda chaos'. A rule no seam "
-             "of the run reads is refused, and so is any cluster:replica "
-             "rule (ROADMAP A12.6)")
+             "of the run reads is refused")
+    p.add_argument("--tune", type=str, default="off", metavar="MODE",
+                   help="geometry from a measured rig profile "
+                        "(tpu_distalg_torch/tune/): 'off' = the default "
+                        "tables, 'auto' = resolve comm schedule, bucket "
+                        "elems, mesh shape, ps-shards/mode, block sizes and "
+                        "pull-refresh cadence from this rig's newest "
+                        "profile (run 'tda tune' once), or a "
+                        "RIGPROFILE_*.json path. Explicit flags always win; "
+                        "each knob logs a tune_knob event with its WHY. "
+                        "Tuning changes geometry, never determinism")
 
 
 #: the seams a run reads, by what the run does
@@ -622,7 +687,7 @@ _CKPT_POINTS = ("ckpt:write", "ckpt:read", "segment:run")
 _DATA_POINTS = ("data:gather", "data:h2d", "cache:write")
 _SSP_POINTS = ("shard:straggle", "shard:leave")
 _CLUSTER_POINTS = ("cluster:worker", "cluster:rpc", "cluster:coordinator",
-                   "cluster:wal", "cluster:ps")
+                   "cluster:wal", "cluster:ps", "cluster:replica")
 
 
 def _plan_reads(args) -> set:
@@ -1216,17 +1281,15 @@ def _run_chaos(args) -> int:
             "tda chaos needs a fault schedule: pass --fault-plan "
             "'seed=N;point@hit=kind[:arg];...' (or a JSON plan file, or "
             "export $TDA_FAULT_PLAN)")
-    if args.workload in chaos.UNPORTED_WORKLOADS:
-        raise SystemExit(f"[chaos] {args.workload}: "
-                         f"{chaos.UNPORTED_WORKLOADS[args.workload]}")
-    if (args.spawn != "thread" or args.comm != "dense") and \
-            args.workload != "cluster":
+    if (args.spawn != "thread" and args.workload != "cluster") or (
+            args.comm != "dense"
+            and args.workload not in ("cluster", "rowstore")):
         raise SystemExit("[chaos] --spawn and --comm set the cluster "
-                         "workload's workers and wire; the "
+                         "workload's workers and wire (--comm also the "
+                         "rowstore workload's); the "
                          f"{args.workload} workload has neither")
     try:
         plan = faults.FaultPlan.parse(spec)
-        faults.registry.check_ported(plan)
     except (ValueError, OSError) as e:
         raise SystemExit(f"--fault-plan: {e}") from None
     mesh = _mesh(args)
@@ -1253,6 +1316,197 @@ def _run_chaos(args) -> int:
     return 0 if res.equal else 1
 
 
+#: --tune knob -> (argparse dest, the option strings that mark it spelled
+#: out). A knob is applied only where the subcommand has the flag;
+#: explicit flags always win (``tpu_distalg/cli.py:867-879``)
+_TUNE_FLAG_KNOBS = (
+    ("comm", "comm", ("--comm",)),
+    ("mesh_shape", "mesh_shape", ("--mesh-shape",)),
+    ("ps_shards", "ps_shards", ("--ps-shards",)),
+    ("ps_mode", "ps_mode", ("--ps-mode",)),
+    ("block_rows", "block_rows", ("--block-rows",)),
+    ("block_edges", "block_edges", ("--block-edges",)),
+    ("pull_refresh_windows", "pull_refresh_windows",
+     ("--pull-refresh-windows",)),
+)
+
+
+def _spelled_options(argv) -> set:
+    """The long options the user typed (``--opt`` and ``--opt=value``
+    both count)."""
+    return {a.split("=", 1)[0] for a in argv if a.startswith("--")}
+
+
+def _tune_workload(args, ttune):
+    """The workload the resolver prices this subcommand against."""
+    if args.cmd == "cluster":
+        # the coordinator's TrainTask: breast-cancer-shaped synthetic
+        # two-class rows (30 features + bias) over the host TCP wire
+        return ttune.Workload(
+            d=31, n_rows=getattr(args, "n_rows", 0) or 0,
+            n_workers=getattr(args, "workers", None)
+            or ttune.defaults.CLUSTER_SLOTS,
+            family="data", transport="host")
+    family = {"kmeans": "kmeans", "als": "als", "pagerank": "graph",
+              "closure": "graph"}.get(args.cmd, "data")
+    return ttune.Workload(
+        d=31, n_rows=getattr(args, "n_rows", 0) or 0,
+        family=family, transport="device",
+        n_shards=getattr(args, "n_slices", 0) or None)
+
+
+def _apply_tune(args, argv) -> None:
+    """Resolve ``--tune`` into ``args`` (``tpu_distalg/cli.py:909-956``):
+    load the profile, price the workload, and set every resolved knob
+    the subcommand has, but for knobs spelled out on the command line.
+    Each knob prints ``tune[knob]: ...`` and emits a ``tune_knob``
+    event; ``--tune auto`` with no profile of this rig keeps the table
+    defaults."""
+    mode = getattr(args, "tune", "off") or "off"
+    if mode == "off":
+        return
+    import socket
+
+    from tpu_distalg_torch import tune as ttune
+
+    if mode == "auto":
+        profile, _ = ttune.newest_profile(rig=socket.gethostname())
+        if profile is None:
+            print("tda --tune auto: no profile for this rig (run "
+                  "'tda tune' once); table defaults stand",
+                  file=sys.stderr)
+            return
+    else:
+        try:
+            profile = ttune.load_profile(mode)
+        except ttune.ProfileError as e:
+            raise SystemExit(f"--tune: {e}") from None
+    spelled = _spelled_options(argv)
+    explicit = {
+        knob: getattr(args, dest)
+        for knob, dest, opts in _TUNE_FLAG_KNOBS
+        if hasattr(args, dest) and any(o in spelled for o in opts)}
+    res = ttune.resolve(profile, _tune_workload(args, ttune),
+                        explicit=explicit)
+    for knob, dest, _opts in _TUNE_FLAG_KNOBS:
+        if not hasattr(args, dest):
+            continue
+        c = res.choices[knob]
+        if c.source != "resolved" or c.value is None:
+            continue
+        setattr(args, dest,
+                res.comm_string() if knob == "comm" else c.value)
+    args._tune_profile_id = res.profile_id
+    ttune.emit_resolution(res)
+    if not getattr(args, "quiet", False):
+        for knob in ttune.KNOBS:
+            c = res.choices[knob]
+            print(f"tune[{knob}]: {c.value} ({c.source}) {c.why}",
+                  file=sys.stderr)
+
+
+def _run_tune(args) -> int:
+    """``tune`` (``tpu_distalg/cli.py:958-1005``): measure the rig on
+    ``--device`` and write the RigProfile artifact."""
+    import time
+
+    from tpu_distalg_torch import telemetry
+    from tpu_distalg_torch import tune as ttune
+    from tpu_distalg_torch.utils.device import resolve_device
+
+    backend = resolve_device(args.device).type   # no card: raises
+    collective = None
+    with telemetry.span("cli:tune"):
+        if args.collective:
+            collective = ttune.measure_collective(_mesh(args))
+        m = ttune.measure_rig(
+            seed=args.seed, quick=args.quick,
+            include_backend_init=not args.no_backend_init,
+            collective=collective, device=backend)
+        # the one wall-clock read: it orders profiles on disk and tags
+        # when the rig was measured, and never steers a run
+        created = time.time()
+        profile = ttune.build_profile(
+            m, created_unix=created, seed=args.seed, backend=backend)
+        path = ttune.save_profile(profile, args.out_dir)
+    lb = m["loopback"]
+    print(f"tune: rig={profile['rig']} backend={backend} "
+          f"id={profile['profile_id']}")
+    print(f"tune: loopback {lb['bandwidth_bytes_s'] / 1e6:.0f} MB/s "
+          f"rtt {lb['rtt_s'] * 1e6:.0f}us | memcpy "
+          f"{m['memcpy_bytes_s'] / 1e9:.1f} GB/s | matmul "
+          f"{m['matmul_flops_s'] / 1e9:.1f} GFLOP/s")
+    for name, rates in sorted(m["codecs"].items()):
+        print(f"tune: codec {name}: encode "
+              f"{rates['encode_elems_s'] / 1e6:.1f} Melem/s, decode "
+              f"{rates['decode_elems_s'] / 1e6:.1f} Melem/s")
+    if collective:
+        print(f"tune: collective "
+              f"{collective['bandwidth_bytes_s'] / 1e6:.0f} MB/s "
+              f"rtt {collective['rtt_s'] * 1e6:.0f}us over "
+              f"{collective['n_shards']} shards")
+    if m.get("backend_init_s") is not None:
+        print(f"tune: backend init {m['backend_init_s']:.1f}s")
+    print(f"tune: wrote {path}")
+    return 0
+
+
+def _run_serving_plane(args) -> int:
+    """``cluster --role replica|router`` (``tpu_distalg/cli.py:1107-
+    1153``): both park until ``--deadline`` (or a kill); the ``listening
+    on`` line is the launcher's handshake. A replica scores on
+    ``--device``; the router is host code."""
+    import time
+
+    err = lambda m: print(m, file=sys.stderr)  # noqa: E731
+    if args.role == "replica":
+        from tpu_distalg_torch.cluster import serve as cserve
+
+        if not args.artifact:
+            raise SystemExit("--role replica needs --artifact CKPT_DIR")
+        rep = cserve.run_replica(
+            args.slot or 0, args.artifact, shard=args.shard,
+            n_shards=args.replica_shards, k_top=args.k_top,
+            merge=args.merge, comm=args.comm, host=args.host,
+            port=args.port, logger=err, device=args.device)
+        print(f"cluster_replica: listening on {args.host}:{rep.port}",
+              flush=True)
+        deadline = time.monotonic() + args.deadline
+        try:
+            while (time.monotonic() < deadline
+                   and not rep._stop.is_set()):
+                time.sleep(0.2)
+        finally:
+            rep.stop()
+        return 0
+    from tpu_distalg_torch.cluster.router import Router, RouterConfig
+
+    if not args.replicas:
+        raise SystemExit("--role router needs --replicas "
+                         "HOST:PORT[,HOST:PORT...]")
+    addrs = []
+    for tok in args.replicas.split(","):
+        host, _, port = tok.strip().rpartition(":")
+        addrs.append((host or "127.0.0.1", int(port)))
+    router = Router(RouterConfig(
+        replicas=tuple(addrs), mode=args.serve_mode,
+        policy=args.dispatch, comm=args.comm, port=args.port,
+        wal_dir=args.wal_dir, k_top=args.k_top, merge=args.merge,
+        hb_interval=args.heartbeat_interval,
+        hb_timeout=args.heartbeat_timeout,
+        rpc_deadline=args.rpc_deadline), logger=err).start()
+    print(f"cluster_router: listening on {args.host}:{router.port}",
+          flush=True)
+    deadline = time.monotonic() + args.deadline
+    try:
+        while time.monotonic() < deadline and not router._stop.is_set():
+            time.sleep(0.2)
+        router.emit_gauges()
+    finally:
+        router.stop()
+    return 0
+
+
 def _run_cluster(args) -> int:
     """``cluster`` (``tpu_distalg/cli.py:1008-1106``): the multi-process
     elastic runtime, printing the JAX CLI's ``cluster_worker:``,
@@ -1265,10 +1519,7 @@ def _run_cluster(args) -> int:
     from tpu_distalg_torch.parallel import ssp as pssp
 
     if args.role in ("replica", "router"):
-        raise SystemExit(
-            f"--role {args.role}: cluster serving (the JAX package's "
-            f"cluster/serve.py and router.py) is not ported; it waits for "
-            f"ROADMAP A12.6")
+        return _run_serving_plane(args)
     if args.max_restarts:
         raise SystemExit(
             "--max-restarts: the cluster recovers through its launcher "
@@ -1299,21 +1550,20 @@ def _run_cluster(args) -> int:
     extra = {}
     if args.pull_refresh_windows is not None:
         extra["pull_refresh_windows"] = args.pull_refresh_windows
-    try:
-        cfg = clus.ClusterConfig(
-            n_slots=args.workers, n_windows=args.n_windows,
-            staleness=spec.staleness, decay=spec.decay,
-            ps_shards=args.ps_shards, host=args.host, port=args.port,
-            heartbeat_timeout=args.heartbeat_timeout,
-            heartbeat_interval=args.heartbeat_interval,
-            rpc_deadline=args.rpc_deadline,
-            reconnect_grace=args.reconnect_grace,
-            checkpoint_dir=args.checkpoint_dir,
-            checkpoint_every=args.checkpoint_every,
-            policy=args.policy, plan_spec=plan, comm=args.comm,
-            ps_mode=args.ps_mode, train=train, **extra)
-    except NotImplementedError as e:
-        raise SystemExit(f"--ps-mode {args.ps_mode}: {e}") from None
+    cfg = clus.ClusterConfig(
+        n_slots=args.workers, n_windows=args.n_windows,
+        staleness=spec.staleness, decay=spec.decay,
+        ps_shards=args.ps_shards, host=args.host, port=args.port,
+        heartbeat_timeout=args.heartbeat_timeout,
+        heartbeat_interval=args.heartbeat_interval,
+        rpc_deadline=args.rpc_deadline,
+        reconnect_grace=args.reconnect_grace,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        policy=args.policy, plan_spec=plan, comm=args.comm,
+        ps_mode=args.ps_mode,
+        tune_profile=getattr(args, "_tune_profile_id", None),
+        train=train, **extra)
     if args.role == "coordinator":
         coord = clus.Coordinator(cfg).start()
         print(f"cluster_coordinator: listening on {cfg.host}:{coord.port}",
@@ -1366,6 +1616,17 @@ def main(argv=None) -> int:
         except FileNotFoundError as e:
             print(f"tda report: {e}", file=sys.stderr)
             return 2
+    if args.cmd == "tune":
+        # host measurements (and, with --collective, the mesh's psum):
+        # no fault plan, no heartbeat
+        from tpu_distalg_torch import telemetry
+
+        telemetry.configure(args.telemetry_dir)
+        if args.emulate:
+            from tpu_distalg_torch.parallel import emulate_devices
+
+            emulate_devices(args.emulate)
+        return _run_tune(args)
     if args.multihost and args.coordinator_address is None and (
             args.num_processes is not None or args.process_id is not None):
         parser.error("--num-processes/--process-id require "
@@ -1394,6 +1655,9 @@ def main(argv=None) -> int:
     if getattr(args, "checkpoint_dir", None):
         # SIGTERM/SIGINT: checkpoint at the next boundary, exit rc 75
         faults.preempt.install()
+    # before the mesh is built (the resolver may set --mesh-shape), with
+    # the raw argv so that spelled-out flags win over resolved values
+    _apply_tune(args, argv if argv is not None else sys.argv[1:])
     if args.emulate:
         from tpu_distalg_torch.parallel import emulate_devices
 

@@ -15,12 +15,20 @@ membership sequences (:func:`local.event_digest`). ``--comm
 {dense,int8[:seed],topk[:frac]}`` selects the wire schedule (the host
 codecs of ``parallel/comms.py``).
 
-Not ported: the sharded row store (``--ps-mode rowstore``,
-``run_cluster_pagerank``; ROADMAP A12.5) and cluster serving
-(``--role replica|router``; ROADMAP A12.6).
+The sharded row store (:mod:`rowstore`: ``--ps-mode rowstore``, per-row
+versions, :func:`rowstore.run_cluster_pagerank` with its workers on the
+device) keeps state row-partitioned. Cluster serving (:mod:`serve`,
+:mod:`router`: ``--role replica|router``) puts replicas that score on
+their device behind a micro-batching router with re-route, hot swap and
+WAL recovery.
 """
 
 from tpu_distalg_torch.cluster import ps, rowstore, transport, wal
+from tpu_distalg_torch.cluster.rowstore import (
+    ClusterPageRankConfig,
+    RowStore,
+    run_cluster_pagerank,
+)
 from tpu_distalg_torch.cluster.coordinator import (
     ClusterAborted,
     ClusterConfig,
@@ -39,7 +47,9 @@ from tpu_distalg_torch.cluster.worker import (
 __all__ = [
     "ClusterAborted",
     "ClusterConfig",
+    "ClusterPageRankConfig",
     "Coordinator",
+    "RowStore",
     "TrainTask",
     "center_accuracy",
     "compile_coordinator_schedule",
@@ -47,6 +57,7 @@ __all__ = [
     "event_digest",
     "ps",
     "rowstore",
+    "run_cluster_pagerank",
     "run_local_cluster",
     "run_worker",
     "strip_kills",

@@ -5,8 +5,9 @@ control plane: it holds the center on the host in numpy, as the JAX
 package's does, so its merges, WAL records and event sequences are the
 JAX package's under the same plan. Its durable center checkpoints are
 the port's ``step_<N>.npz`` (``utils/checkpoint.py``, the leaves as
-``center.<name>`` arrays), not the JAX package's msgpack. The row store
-(``ps_mode="rowstore"``) waits for ROADMAP A12.5.
+``center.<name>`` arrays), not the JAX package's msgpack. With
+``ps_mode="rowstore"`` the center lives in the sharded row store
+(``cluster/rowstore.py``) and pushes merge row-wise.
 
 The multi-process replacement for PySpark's driver↔executor process
 model: one coordinator owns generation-numbered MEMBERSHIP
@@ -221,8 +222,10 @@ class ClusterConfig:
     #: ``worker.py``). ``@seq`` disables the async push overlap.
     comm: str = "dense"
     #: PS state layout — ``replicated`` (every shard a row slice of a
-    #: center that must fit one host); ``rowstore`` (the sharded row
-    #: store) raises NotImplementedError, naming ROADMAP A12.5
+    #: center that must fit one host; the verbatim pre-rowstore path,
+    #: pinned bitwise) or ``rowstore`` (disjoint row ownership with
+    #: per-row versions: pushes carry ``{leaf}.rows`` index arrays and
+    #: merge row-wise — see ``cluster/rowstore.py``)
     ps_mode: str = "replicated"
     #: compressed-pull refresh cadence — every Nth commit ships a
     #: dense version-pinned pull (see :data:`PULL_REFRESH_WINDOWS`).
@@ -237,7 +240,10 @@ class ClusterConfig:
     train: TrainTask = dataclasses.field(default_factory=TrainTask)
 
     def __post_init__(self):
-        psmod.refuse_rowstore(self.ps_mode)
+        if self.ps_mode not in psmod.PS_MODES:
+            raise ValueError(
+                f"unknown ps_mode {self.ps_mode!r}; choose from "
+                f"{psmod.PS_MODES}")
         if self.n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {self.n_slots}")
         if self.staleness < 1:
@@ -1091,11 +1097,22 @@ class Coordinator:
         int32 widening before the one scale multiply, topk scatter-
         add) against the model's known center layout. The WAL and the
         idempotence digests see the COMPRESSED bytes — this decode is
-        a pure function of them, so replay stays bitwise."""
+        a pure function of them, so replay stays bitwise. A rowstore-
+        mode push's ``{leaf}.rows`` index arrays ride AROUND the codec
+        (they are exact int64 structure, not compressible values, and
+        their ``{leaf}.``-prefixed names would otherwise be mistaken
+        for codec parts) and re-attach to the decoded delta for the
+        PS's row-wise merge."""
         if self._codec is None:
             return arrays
-        return pcomms.decode_tree(self._codec, arrays,
-                                  self._center_template)
+        rows = {k: v for k, v in arrays.items()
+                if k.endswith(psmod.ROWS_SUFFIX)}
+        vals = {k: v for k, v in arrays.items()
+                if not k.endswith(psmod.ROWS_SUFFIX)}
+        out = pcomms.decode_tree(self._codec, vals,
+                                 self._center_template)
+        out.update(rows)
+        return out
 
     def _pull_reply(self, slot: int, window: int, have) -> tuple:
         """Lock held. The deferred push-ack's pull payload for a push

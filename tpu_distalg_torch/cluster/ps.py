@@ -2,7 +2,8 @@
 
 Port of ``tpu_distalg/cluster/ps.py``: the same numpy arithmetic in the
 same order, so splits, joins and merges are bitwise the JAX package's.
-``mode="rowstore"`` (the sharded row store) waits for ROADMAP A12.5.
+``mode="rowstore"`` keeps the center in the sharded row store
+(:mod:`.rowstore`) and merges row-wise.
 
 The coordinator process holds the replicated-center state the SGD
 family trains (``w`` for the LR/SSGD vocabulary) split across
@@ -43,19 +44,10 @@ from tpu_distalg_torch.tune import defaults as tune_defaults
 
 PS_MODES = ("replicated", "rowstore")
 
-
-
-def refuse_rowstore(mode: str) -> None:
-    """The row store is not ported: ``rowstore`` raises, naming its
-    item; any other unknown mode is a ValueError."""
-    if mode == "rowstore":
-        raise NotImplementedError(
-            "ps mode 'rowstore' (the sharded row store, the JAX "
-            "package's cluster/rowstore.py) is not ported; it waits for "
-            "ROADMAP A12.5")
-    if mode not in PS_MODES:
-        raise ValueError(
-            f"unknown ps mode {mode!r}; choose from {PS_MODES}")
+#: suffix of a delta's per-leaf row-index array (rowstore mode): a push
+#: carrying ``{name}.rows`` moves ONLY those leading-dim rows of leaf
+#: ``name``; without it the delta is whole-leaf (rows 0..n)
+ROWS_SUFFIX = ".rows"
 
 
 def split_center(center: dict, table_name: str,
@@ -135,13 +127,26 @@ class ParameterServer:
     def __init__(self, center: dict, *, table: str = "lr",
                  n_shards: int = tune_defaults.PS_SHARDS,
                  decay: float = DEFAULT_DECAY,
-                 history_depth: int = 0, mode: str = "replicated"):
-        refuse_rowstore(mode)
+                 history_depth: int = 0, mode: str = "replicated",
+                 row_staleness: int | None = None):
+        if mode not in PS_MODES:
+            raise ValueError(
+                f"unknown ps mode {mode!r}; choose from {PS_MODES}")
         self.table = table
         self.decay = float(decay)
         self.n_shards = int(n_shards)
-        self.shards = [PsShard(s) for s in
-                       split_center(center, table, self.n_shards)]
+        self.mode = mode
+        if mode == "rowstore":
+            from tpu_distalg_torch.cluster import rowstore as _rowstore
+
+            self.store = _rowstore.RowStore(
+                center, table=table, n_shards=self.n_shards,
+                decay=self.decay, staleness=row_staleness)
+            self.shards = []
+        else:
+            self.store = None
+            self.shards = [PsShard(s) for s in
+                           split_center(center, table, self.n_shards)]
         self._version_lock = threading.Lock()
         self.version = 0  # windows merged into the center
         self.history_depth = int(history_depth)
@@ -159,6 +164,8 @@ class ParameterServer:
         owns the ordering, which is what makes the merge sequence a
         pure function of the plan). Returns the per-contribution
         records ``[{slot, base, age, weight}]``; bumps ``version``."""
+        if self.mode == "rowstore":
+            return self._merge_rows(commit_window, contribs)
         records = []
         weighted: list[tuple[float, list[dict]]] = []
         for slot, base, delta in contribs:
@@ -177,6 +184,44 @@ class ParameterServer:
         for i, shard in enumerate(self.shards):
             shard.apply_weighted(
                 [(w, pieces[i]) for w, pieces in weighted])
+        with self._version_lock:
+            self.version = max(self.version, commit_window + 1)
+        self.record_history(commit_window + 1)
+        return records
+
+    def _merge_rows(self, commit_window: int,
+                    contribs: list[tuple[int, int, dict]]) -> list[dict]:
+        """Rowstore-mode commit: each delta's ``{name}.rows`` array
+        selects the leading-dim rows it moves (absent: the whole leaf),
+        the contribution's scalar ``base`` becomes every row's base
+        version, and the weighted mean applies ROW-WISE in the
+        :class:`~tpu_distalg_torch.cluster.rowstore.RowStore` — a
+        whole-leaf push at a uniform base merges bit-identically to the
+        replicated path."""
+        records = []
+        row_contribs = []
+        for slot, base, delta in contribs:
+            age = max(0, commit_window - int(base))
+            records.append({"slot": int(slot), "base": int(base),
+                            "age": int(age),
+                            "weight": round(
+                                self.weight(self.decay, age), 6)})
+            leaf_deltas = {}
+            for name, vals in delta.items():
+                if name.endswith(ROWS_SUFFIX):
+                    continue
+                vals = np.asarray(vals, np.float32)
+                rows = delta.get(f"{name}{ROWS_SUFFIX}")
+                if rows is None:
+                    rows = np.arange(
+                        vals.shape[0] if vals.ndim else 1,
+                        dtype=np.int64)
+                    vals = vals.reshape((rows.shape[0],)
+                                        + vals.shape[1:])
+                leaf_deltas[name] = (np.asarray(rows, np.int64),
+                                     vals, int(base))
+            row_contribs.append((int(slot), leaf_deltas))
+        self.store.merge_rows(commit_window, row_contribs)
         with self._version_lock:
             self.version = max(self.version, commit_window + 1)
         self.record_history(commit_window + 1)
@@ -208,6 +253,8 @@ class ParameterServer:
 
     def snapshot(self) -> dict:
         """The assembled center (copies, consistent per shard)."""
+        if self.mode == "rowstore":
+            return self.store.snapshot()
         parts = []
         for shard in self.shards:
             with shard.lock:

@@ -80,9 +80,12 @@ Record kinds (meta ``k``, one frame each):
                  int64 row-index array (the per-ROW redo record: the
                  replayed merge re-applies exactly those rows, and
                  the digest covers the index bytes too)
-  ``rowcommit``  one row-store fleet commit (the JAX package's
-                 cluster PageRank / ALS engines; the port's row store
-                 waits for ROADMAP A12.5)
+  ``rowcommit``  one row-store fleet commit (``rowstore.
+                 run_cluster_pagerank``): every contribution's pushed
+                 sparse row arrays keyed ``{slot}/{leaf}.rows`` +
+                 ``{slot}/<codec parts>``, plus the combine's scalar
+                 meta (the dangling-mass sum) — replay re-runs the
+                 identical decode and row apply, bitwise
   ``leave``      membership epoch transition (a declared death)
   ``hold``       admission hold      ``bye``  worker departure
   ``done``       run completion

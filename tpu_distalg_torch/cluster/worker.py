@@ -633,12 +633,6 @@ def run_worker(host: str, port: int, *, slot: int | None = None,
     schedule = compile_worker_schedule(
         n_windows, n_slots,
         plan=fregistry.FaultPlan.parse(plan) if plan else None)
-    if (meta.get("ps_mode") or "replicated") != "replicated":
-        sock.close()
-        raise NotImplementedError(
-            f"the coordinator runs ps mode {meta['ps_mode']!r}: the "
-            f"sharded row store is not ported; it waits for ROADMAP "
-            f"A12.5")
     trainer = LocalTrainer(task, slot, n_slots, s, device=device)
     tevents.emit("cluster_worker_start", slot=slot,
                  admit=meta["admit"], gen=meta["gen"])
@@ -663,6 +657,14 @@ def run_worker(host: str, port: int, *, slot: int | None = None,
     comm_spec = pcomms.CommSpec.parse(meta.get("comm") or "dense")
     codec = pcomms.make_host_codec(comm_spec)
     pull_codec = pcomms.make_host_pull_codec(comm_spec)
+    # rowstore PS mode (the welcome carries it, like the comm spec):
+    # every push names the rows it moves via a ``w.rows`` index array
+    # so the PS merges row-wise. The SGD window touches every row of the
+    # dense LR weight vector, so the index is the full range, which is
+    # what pins rowstore-mode SSP bitwise to the replicated path; the
+    # sparse workloads of the row store are
+    # ``rowstore.run_cluster_pagerank`` and ``models/als.fit_rowstore``
+    ps_mode = meta.get("ps_mode") or "replicated"
     # the welcome also names the tuned geometry this run was resolved
     # under — the pull-refresh cadence (the coordinator enforces it;
     # recorded here so worker stats say what wire they measured) and
@@ -766,6 +768,11 @@ def run_worker(host: str, port: int, *, slot: int | None = None,
             w_base = np.asarray(arrays["w"], np.float32)
             have = int(m.get("version", have))
         base = have
+        if ps_mode == "rowstore":
+            # every row of the LR vector rides each pull
+            tevents.counter("rowstore.rows_pulled", int(w_base.shape[0]))
+            tevents.counter("rowstore.pull_rows_dense",
+                            int(w_base.shape[0]))
 
     def harvest(p: _PendingPush, transplant):
         """Fold an in-flight push's deferred ack into the loop state:
@@ -916,6 +923,15 @@ def run_worker(host: str, port: int, *, slot: int | None = None,
                     pcomms.PUSH_SEED_TAG, slot, window)
                 push_meta = dict(ident, window=window,
                                  base=push_base, have=have)
+            if ps_mode == "rowstore":
+                # the row index rides OUTSIDE the codec (exact int64
+                # structure; the coordinator detaches it before the
+                # value decode) and INSIDE the push digest, so replay
+                # and re-push dedup cover it like any other byte
+                arrays_out["w.rows"] = np.arange(
+                    progress.shape[0], dtype=np.int64)
+                tevents.counter("rowstore.rows_pushed",
+                                int(progress.shape[0]))
             # the ack is DEFERRED until this window commits — which
             # can legitimately wait out an admission hold (a respawned
             # PROCESS worker pays spawn + torch import + device init),

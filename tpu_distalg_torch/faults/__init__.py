@@ -6,7 +6,7 @@ stops at the next checkpointed boundary with rc 75 (:mod:`preempt`),
 and the chaos harness that runs small workloads under a plan and holds
 the recovered result bit for bit against an undisturbed run
 (:mod:`chaos`, ``tda chaos``; imported on use, as it pulls in the
-models). Only ``cluster:replica`` is refused (ROADMAP A12.6)."""
+models)."""
 
 from tpu_distalg_torch.faults import preempt, registry
 from tpu_distalg_torch.faults.preempt import PREEMPTED_RC, Preempted
@@ -14,7 +14,6 @@ from tpu_distalg_torch.faults.registry import (
     ENV_PLAN,
     KINDS,
     POINTS,
-    PORTED_POINTS,
     FaultPlan,
     FaultRegistry,
     FaultRule,
@@ -29,7 +28,7 @@ from tpu_distalg_torch.faults.registry import (
 )
 
 __all__ = [
-    "ENV_PLAN", "KINDS", "POINTS", "PORTED_POINTS", "PREEMPTED_RC",
+    "ENV_PLAN", "KINDS", "POINTS", "PREEMPTED_RC",
     "Preempted", "FaultPlan",
     "FaultRegistry", "FaultRule", "InjectedCorruptionError", "InjectedKill",
     "InjectedOSError", "active", "configure", "enabled", "inject", "preempt",

@@ -42,9 +42,18 @@ schedule, not the work):
                        (thread or process workers) and ``comm`` (the
                        wire schedule of both runs) apply here only
 
-``cluster_serve`` and ``rowstore`` are named, so the command line's
-choices equal the JAX package's, and raise ``NotImplementedError``:
-they wait for ROADMAP A12.6 and A12.5.
+  ``rowstore``         PageRank over the sharded row store's fleet
+                       (``cluster/rowstore.run_cluster_pagerank``, its
+                       workers' windows through B7 on the mesh's device)
+                       under worker, coordinator, PS and rpc faults: the
+                       final ranks and the commit-event digest bitwise
+                       the undisturbed run's
+  ``cluster_serve``    three k-means replicas scoring on the mesh's
+                       device behind the router under ``cluster:replica``
+                       kills and ``cluster:rpc`` faults: the replies
+                       bitwise the undisturbed run's, and the share
+                       answered at the first try at least
+                       :data:`CLUSTER_SERVE_AVAILABILITY_BAND`
 """
 
 from __future__ import annotations
@@ -60,18 +69,11 @@ WORKLOADS = ("lr", "ssgd", "kmeans", "als", "kmeans_stream",
              "pagerank_stream", "serve", "ssp", "cluster",
              "cluster_serve", "rowstore")
 
-#: the workloads not ported yet, and why
-UNPORTED_WORKLOADS = {
-    "cluster_serve": "cluster serving (the JAX package's cluster/serve.py "
-                     "and router.py) is not ported; it waits for ROADMAP "
-                     "A12.6",
-    "rowstore": "the sharded row store (the JAX package's "
-                "cluster/rowstore.py) is not ported; it waits for ROADMAP "
-                "A12.5",
-}
-
 #: the ssp workload's band: |tail accuracy under chaos − undisturbed|
 SSP_CHAOS_ACC_BAND = 0.12
+
+#: the cluster_serve verdict's floor on first-try availability
+CLUSTER_SERVE_AVAILABILITY_BAND = 0.85
 
 #: enough restarts for a multi-fault schedule, few enough that a fault
 #: that keeps firing still fails
@@ -101,6 +103,35 @@ class ClusterChaosResult:
     event_digest: np.ndarray
     recoveries: int
     recovery_ms: list
+
+
+@dataclasses.dataclass
+class RowstoreChaosResult:
+    """The rowstore workload's result: the final rank vector and the
+    commit-event digest (as bytes, so it rides the bitwise compare). The
+    recovery count and the pull sparsity show that the kill fired and
+    the pulls were sparse; they are not compared."""
+
+    ranks: np.ndarray
+    event_digest: np.ndarray
+    recoveries: int
+    sparse_pull_fraction: float
+
+
+@dataclasses.dataclass
+class ClusterServeChaosResult:
+    """The cluster_serve workload's result: the stacked router replies
+    for the fixed request sequence (compared bitwise: a reply's bits
+    depend only on its payload and the model, so a re-routed request's
+    reply is the undisturbed one). Availability and the degradation
+    counts are the band verdict's and the tests' evidence, not
+    compared."""
+
+    replies: np.ndarray
+    availability: float
+    sheds: int
+    reroutes: int
+    client_retries: int
 
 
 @dataclasses.dataclass
@@ -145,7 +176,9 @@ def _leaves(workload: str, res) -> dict[str, np.ndarray]:
                 "rmse_history": _host(res.rmse_history)}
     if workload == "pagerank_stream":
         return {"ranks": _host(res.ranks)}
-    if workload == "serve":
+    if workload == "rowstore":
+        return {"ranks": res.ranks, "event_digest": res.event_digest}
+    if workload in ("serve", "cluster_serve"):
         return {"replies": _host(res.replies)}
     raise ValueError(f"unknown chaos workload {workload!r}; choose from "
                      f"{WORKLOADS}")
@@ -185,6 +218,81 @@ def _cluster_runner(mesh, windows: int, every: int, spawn: str,
     return run
 
 
+def _rowstore_runner(mesh, iters: int, workdir: str, comm: str):
+    """The rowstore workload (JAX ``faults/chaos.py:277-315``): the
+    512-vertex power-law cache of 4 shards, made once outside both runs,
+    its fleet's windows on the mesh's device."""
+    import os
+
+    from tpu_distalg_torch import graphs
+    from tpu_distalg_torch.cluster import rowstore
+
+    device = mesh.device if mesh is not None else None
+    path = os.path.join(workdir, "graph", "rowstore")
+    graphs.build_powerlaw_block_cache(
+        path, n_vertices=512, n_shards=4, avg_in_degree=8.0,
+        alpha=1.6, seed=3, block_edges=64)
+
+    def run(ckpt_dir):
+        # the plan drives the fleet config (its point schedules compile
+        # from it): the undisturbed reference runs with no plan
+        reg = faults.active()
+        plan_spec = reg.plan.spec() if reg is not None else None
+        res = rowstore.run_cluster_pagerank(
+            path, rowstore.ClusterPageRankConfig(
+                n_iterations=iters, comm=comm, plan_spec=plan_spec,
+                wal_dir=os.path.join(ckpt_dir, "wal")), device=device)
+        if res["version"] != iters:
+            raise RuntimeError(f"rowstore chaos run stopped at iteration "
+                               f"{res['version']}/{iters}")
+        return RowstoreChaosResult(
+            ranks=np.asarray(res["ranks"]),
+            event_digest=np.frombuffer(
+                bytes.fromhex(res["event_digest"]), np.uint8),
+            recoveries=int(res["recoveries"]),
+            sparse_pull_fraction=float(res["sparse_pull_fraction"]))
+    return run
+
+
+def _cluster_serve_runner(mesh, n_requests: int):
+    """The cluster_serve workload (JAX ``faults/chaos.py:415-455``): a
+    fixed synthetic k-means center and request sequence, 3 replicas on
+    the mesh's device; recovery is re-route and client retry."""
+    from tpu_distalg_torch.cluster import serve as cserve
+
+    device = mesh.device if mesh is not None else None
+    rng = np.random.default_rng(7)
+    center = {"centers": rng.normal(size=(8, 16)).astype(np.float32)}
+    X_req = rng.normal(size=(n_requests, 16)).astype(np.float32)
+
+    def run(ckpt_dir):
+        del ckpt_dir  # recovery = re-route + client retry
+        fleet = cserve.ServeFleet(cserve.FleetConfig(
+            kind="kmeans", n_replicas=3, version=1, max_delay_ms=1.0),
+            center, device=device).start()
+        try:
+            # backoff × retries spans the router's revival sweep: an
+            # oserror storm can condemn the whole fleet for one beat
+            results, info = cserve.run_fleet_closed_loop(
+                fleet, list(X_req), concurrency=4, retries=10,
+                retry_backoff_s=0.05)
+            if info["failed"]:
+                # out of retry budget: restartable, not a verdict
+                raise RuntimeError(
+                    f"cluster_serve chaos: {info['failed']} request(s) "
+                    f"still failed after retries")
+            st = fleet.stats()
+            return ClusterServeChaosResult(
+                replies=np.stack([np.asarray(v)
+                                  for v, _ver, _rid in results]),
+                availability=float(info["availability"]),
+                sheds=int(st["sheds"]), reroutes=int(st["reroutes"]),
+                client_retries=int(info["retries"]))
+        finally:
+            fleet.stop()
+    return run
+
+
 def _make_runner(workload: str, mesh, n_iterations: int | None,
                  checkpoint_every: int | None, workdir: str,
                  spawn: str = "thread", comm: str = "dense"):
@@ -192,9 +300,10 @@ def _make_runner(workload: str, mesh, n_iterations: int | None,
     default size. ``workdir`` holds what a workload needs besides its
     checkpoints (the graph cache, the served artifact); ``spawn`` and
     ``comm`` apply to the cluster workload only."""
-    if workload in UNPORTED_WORKLOADS:
-        raise NotImplementedError(
-            f"chaos workload {workload!r}: {UNPORTED_WORKLOADS[workload]}")
+    if workload == "rowstore":
+        return _rowstore_runner(mesh, n_iterations or 6, workdir, comm)
+    if workload == "cluster_serve":
+        return _cluster_serve_runner(mesh, n_iterations or 96)
     if workload == "cluster":
         return _cluster_runner(mesh, n_iterations or 8,
                                checkpoint_every or 3, spawn, comm)
@@ -344,14 +453,15 @@ def run_chaos(workload: str, mesh, *, plan, workdir: str,
 
     if isinstance(plan, str):
         plan = faults.FaultPlan.parse(plan)
-    faults.registry.check_ported(plan)
     log = logger or (lambda m: None)
     # off before any of the experiment's I/O: the serve runner trains
     # its artifact in _make_runner
     faults.configure(False)
     runner = _make_runner(workload, mesh, n_iterations, checkpoint_every,
                           workdir, spawn=spawn, comm=comm)
-    uses_ckpt = workload not in ("kmeans_stream", "serve")
+    # kmeans_stream recovers by a re-run, serve by shed and client
+    # retry, cluster_serve by re-route and retry: no checkpoint dir
+    uses_ckpt = workload not in ("kmeans_stream", "serve", "cluster_serve")
 
     def dirpath(name):
         return os.path.join(workdir, name) if uses_ckpt else None
@@ -402,6 +512,14 @@ def run_chaos(workload: str, mesh, *, plan, workdir: str,
     else:
         mismatched = [name for name, a in ref_leaves.items()
                       if not np.array_equal(a, got_leaves[name])]
+        if workload == "cluster_serve":
+            # bitwise replies alone would pass a fleet that answered
+            # every request on its fifth retry
+            avail = float(got.availability)
+            if avail < CLUSTER_SERVE_AVAILABILITY_BAND:
+                mismatched.append(
+                    f"band:availability ({avail:.4f} < "
+                    f"{CLUSTER_SERVE_AVAILABILITY_BAND})")
     result = ChaosResult(
         workload=workload, plan_spec=plan.spec(), equal=not mismatched,
         mismatched=mismatched, fired=fired,

@@ -39,13 +39,11 @@ so one plan fires the same faults in both packages:
                       (``kill``, ``hang`` at the window's commit point);
   ``cluster:wal``     ``cluster/wal.py``'s append, on the encoded record
                       (``corrupt``, ``oserror``, ``hang``);
+  ``cluster:replica``  ``cluster/serve.py``, a replica's score seam,
+                      each scored frame (``kill``, ``hang``);
   ``cluster:ps``      probed once per window by
                       ``cluster/rowstore.compile_point_schedule`` (the
                       merge seam, after the commit record is durable).
-
-:func:`configure` refuses a plan with a rule at ``cluster:replica``,
-naming ROADMAP A12.6: cluster serving is not ported, and a plan that
-never fires would be a silent lie.
 
 Plan spec (``--fault-plan`` / ``$TDA_FAULT_PLAN``): a JSON file
 (``{"seed": 42, "rules": [{"point": ..., "hit": 2|"*", "prob": 0.1,
@@ -86,9 +84,6 @@ POINTS = (
     "cluster:replica",
     "cluster:ps",
 )
-
-#: the points with a seam in the port: every point but cluster serving's
-PORTED_POINTS = tuple(p for p in POINTS if p != "cluster:replica")
 
 KINDS = ("oserror", "hang", "corrupt", "kill", "straggle", "leave")
 
@@ -359,18 +354,6 @@ class FaultRegistry:
                               for p, h, k in self.fired]}
 
 
-def check_ported(plan: FaultPlan) -> None:
-    """Refuse a plan with a rule at a point the port has no seam for
-    (``cluster:replica``, cluster serving's)."""
-    other = sorted({r.point for r in plan.rules} - set(PORTED_POINTS))
-    if other:
-        raise ValueError(
-            f"fault plan {plan.spec()!r} has rules at "
-            f"{', '.join(other)}: cluster serving (the JAX package's "
-            f"cluster/serve.py and router.py) is not ported, so nothing "
-            f"fires there; it waits for ROADMAP A12.6")
-
-
 _LOCK = threading.Lock()
 _REGISTRY: FaultRegistry | None = None
 
@@ -380,8 +363,7 @@ def configure(spec: str | FaultPlan | None | bool = None,
     """Select the process-global registry. ``spec=None`` falls back to
     ``$TDA_FAULT_PLAN``; unset or empty disables injection (the
     default); ``spec=False`` disables whatever the variable says. Each
-    call starts a fresh registry. A rule at ``cluster:replica`` raises
-    ValueError (ROADMAP A12.6)."""
+    call starts a fresh registry."""
     global _REGISTRY
     if spec is False:
         plan = None
@@ -390,8 +372,6 @@ def configure(spec: str | FaultPlan | None | bool = None,
     else:
         raw = spec or os.environ.get(ENV_PLAN) or None
         plan = FaultPlan.parse(raw) if raw else None
-    if plan is not None:
-        check_ported(plan)
     with _LOCK:
         _REGISTRY = FaultRegistry(plan, sleep=sleep) if plan else None
         return _REGISTRY

@@ -39,7 +39,8 @@ last segment's checkpoint is the serving artifact
 (``serve/artifacts.load_artifact``). Sweeps draw nothing, so a
 segmented run equals a straight one bit for bit. :func:`fit_streamed`
 runs the sweep over R streamed from a ``ShardedDataset`` (``data/``);
-``fit_rowstore`` waits for ROADMAP A12.5. A failed segment is restarted
+:func:`fit_rowstore` fits the observed entries with V in the cluster's
+row store (``cluster/rowstore.py``). A failed segment is restarted
 by ``utils/checkpoint.run_with_restarts`` (``als --max-restarts``),
 resuming from the newest checkpoint.
 """
@@ -294,7 +295,164 @@ def fit_streamed(dataset, config: ALSConfig | None = None, *,
     return ALSResult(U=own_rows(U, config.m, mesh), V=V, rmse_history=hist)
 
 
-def fit_rowstore(*args, **kwargs):
-    """ALS over the cluster's row store: not ported."""
-    raise NotImplementedError("ALS fit_rowstore (factors in the cluster's "
-                              "row store) waits for ROADMAP A12.5")
+def _padded(groups: list, values) -> tuple:
+    """Rows of ragged index arrays ``groups`` as ``(idx (B, L) int64,
+    mask (B, L) float64, vals (B, L) float64)`` zero-padded to the
+    longest; ``values(i, g)`` gives row i's values at its indices."""
+    L = max(int(g.shape[0]) for g in groups)
+    idx = np.zeros((len(groups), L), np.int64)
+    mask = np.zeros((len(groups), L), np.float64)
+    vals = np.zeros((len(groups), L), np.float64)
+    for i, g in enumerate(groups):
+        idx[i, :g.shape[0]] = g
+        mask[i, :g.shape[0]] = 1.0
+        vals[i, :g.shape[0]] = values(i, g)
+    return idx, mask, vals
+
+
+def _solve_rows(F_all: torch.Tensor, idx, mask, r, lam: float
+                ) -> torch.Tensor:
+    """The per-row normal equations of one block, batched in float64:
+    row b solves ``(FᵀF + λ·|obs_b|·I) x = Fᵀ r`` with ``F = F_all[idx[b]]``
+    restricted to its observed entries (``mask``); padding rows of F are
+    zero and add nothing."""
+    k = F_all.shape[1]
+    F = F_all[idx] * mask[..., None]
+    Ft = F.transpose(1, 2)
+    G = Ft @ F + (lam * mask.sum(1))[:, None, None] * torch.eye(
+        k, dtype=torch.float64, device=F.device)
+    return torch.linalg.solve(G, Ft @ (r * mask)[..., None])[..., 0]
+
+
+def fit_rowstore(config: ALSConfig = ALSConfig(), *,
+                 density: float = 0.08, ps_shards: int = 2,
+                 user_block: int = 32,
+                 model_budget_rows: int | None = None,
+                 device=None) -> dict:
+    """Observed-entry ALS with the item factor V living in the cluster's
+    sharded row store (``cluster/rowstore.py``, table ``als_train``),
+    port of ``tpu_distalg/models/als.py:363``. The worker holds U and
+    the ratings and never materialises V whole: each user block's
+    U-solves pull only the V rows that block's observed items reference,
+    each item block's V-update pushes per-row deltas (one contribution
+    at the store's own version: age 0, weight 1), and items nobody rated
+    are never pulled, pushed or versioned.
+
+    The host draws what the JAX package draws (the same R, observation
+    mask, V0 and U0); the Grams and solves run on ``device`` (``cuda``
+    unless told ``cpu``) in float64, a block's rows in one batched
+    solve, and only the row store's pulls and pushes cross the host.
+    ``model_budget_rows`` bounds the V rows any one pull materialises;
+    a pull past it raises.
+
+    Returns ``{U, V, rmse_history, peak_pull_rows, sparse_pull_fraction,
+    rows_pulled, rows_pushed, row_versions}`` as numpy arrays and ints,
+    the fraction being the rows pulled over the pull-everything
+    baseline, V a final snapshot."""
+    from tpu_distalg_torch.cluster import rowstore as _rowstore
+    from tpu_distalg_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(config.seed)
+    m, n, k, lam = config.m, config.n, config.k, config.lam
+    R = synthesize_rank_k(config)
+    observed = rng.random((m, n)) < density
+    user_cols = [np.flatnonzero(observed[i]) for i in range(m)]
+    item_users = [np.flatnonzero(observed[:, j]) for j in range(n)]
+    touched_items = np.flatnonzero(observed.any(axis=0))
+    n_obs = int(observed.sum())
+    if not n_obs:
+        raise ValueError("no observed entries at this density/seed")
+
+    store = _rowstore.RowStore(
+        {"V": rng.random((n, k), dtype=np.float32)},
+        table="als_train", n_shards=ps_shards)
+    U = rng.random((m, k), dtype=np.float32)
+
+    def on_dev(*arrays):
+        return tuple(torch.as_tensor(a, device=dev) for a in arrays)
+
+    # each block's gather indices, masks and ratings, made once: the
+    # observation pattern does not change between sweeps
+    user_blocks = []
+    for b0 in range(0, m, user_block):
+        users = [i for i in range(b0, min(b0 + user_block, m))
+                 if user_cols[i].size]
+        if not users:
+            continue
+        need = np.unique(np.concatenate([user_cols[i] for i in users]))
+        idx, mask, r = _padded(
+            [np.searchsorted(need, user_cols[i]) for i in users],
+            lambda t, _g, users=users: R[users[t], user_cols[users[t]]])
+        user_blocks.append((np.asarray(users, np.int64), need,
+                            *on_dev(idx, mask, r)))
+    item_blk = (min(user_block * 4, model_budget_rows)
+                if model_budget_rows else user_block * 4)
+    item_blocks = []
+    for t0 in range(0, touched_items.shape[0], item_blk):
+        items = touched_items[t0:t0 + item_blk]
+        idx, mask, r = _padded(
+            [item_users[j] for j in items],
+            lambda t, g, items=items: R[g, items[t]])
+        item_blocks.append((items, *on_dev(idx, mask, r)))
+    R_dev, obs_dev = on_dev(R, observed)
+
+    peak_pull = 0
+    rows_pulled = 0
+    rows_pushed = 0
+    n_pulls = 0
+
+    def pull(rows: np.ndarray) -> np.ndarray:
+        nonlocal peak_pull, rows_pulled, n_pulls
+        if model_budget_rows is not None \
+                and rows.shape[0] > model_budget_rows:
+            raise RuntimeError(
+                f"a pull needs {rows.shape[0]} V rows at once but the "
+                f"model budget is {model_budget_rows} — shrink the "
+                f"user blocks, not the honesty of the claim")
+        peak_pull = max(peak_pull, int(rows.shape[0]))
+        rows_pulled += int(rows.shape[0])
+        n_pulls += 1
+        vals, _vers = store.pull_rows("V", rows)
+        return vals
+
+    errs = []
+    U_dev = torch.as_tensor(U, device=dev)
+    for _sweep in range(config.n_iterations):
+        # U half-sweep: per user block, one pull of the union of its
+        # observed item rows and one batched solve
+        for users, need, idx, mask, r in user_blocks:
+            V_blk = torch.as_tensor(pull(need), device=dev).double()
+            U_dev[torch.as_tensor(users, device=dev)] = _solve_rows(
+                V_blk, idx, mask, r, lam).float()
+        # V half-sweep: per item block, solve the touched rows from the
+        # local U and push the per-row deltas (the old values pulled
+        # first: the delta is the wire object), blocked like the pulls
+        U64 = U_dev.double()
+        sq_err = 0.0
+        for items, idx, mask, r in item_blocks:
+            old = pull(items)
+            new_dev = _solve_rows(U64, idx, mask, r, lam).float()
+            new = new_dev.cpu().numpy()
+            store.merge_rows(store.version, [
+                (0, {"V": (items, new - old, store.version)})])
+            rows_pushed += int(items.shape[0])
+            # observed-entry RMSE from the rows already in hand
+            cols = torch.as_tensor(items, device=dev)
+            pred = U_dev @ new_dev.T
+            err = (pred - R_dev[:, cols]).double()[obs_dev[:, cols]]
+            sq_err += float(torch.sum(err * err))
+        errs.append(np.sqrt(sq_err / n_obs))
+
+    dense_rows = n_pulls * n
+    return {
+        "U": U_dev.cpu().numpy(),
+        "V": store.snapshot()["V"],
+        "rmse_history": np.asarray(errs, np.float32),
+        "peak_pull_rows": peak_pull,
+        "sparse_pull_fraction": (rows_pulled / dense_rows
+                                 if dense_rows else 0.0),
+        "rows_pulled": rows_pulled,
+        "rows_pushed": rows_pushed,
+        "row_versions": store.row_versions("V"),
+    }

@@ -326,6 +326,24 @@ def _restore_with_reread(path: str):
             return out
 
 
+def load_artifact_state(path: str) -> tuple:
+    """The checkpoint half of :func:`load_artifact` (JAX
+    ``serve/artifacts.py:356``): restore the newest checkpoint under
+    ``path`` with the re-read degradation and return ``(tag root, state
+    leaves as numpy, step)`` — what a cluster serving replica
+    (``cluster/serve.py``) builds its model from."""
+    payload, step = _restore_with_reread(path)
+    if "tag" not in payload or "state" not in payload:
+        raise ValueError(
+            f"checkpoint under {path} predates the tagged format — "
+            f"re-train with a current build to serve it")
+    tag = str(payload["tag"])
+    state = [np.asarray(x) for x in payload["state"]]
+    root = tag.split(":", 1)[0]
+    tevents.emit("serve_artifact_loaded", path=path, tag=tag, step=step)
+    return root, state, step
+
+
 def load_artifact(path: str, mesh: Mesh, *, name: str | None = None,
                   k_top: int = 10, merge: str = "sparse",
                   block_items: int | None = None) -> ServedModel:

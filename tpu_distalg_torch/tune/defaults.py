@@ -1,11 +1,10 @@
 """The one table of hand-pinned geometry (port of
 ``tpu_distalg/tune/defaults.py``, value for value).
 
-``models/`` and ``cluster/`` take their geometry defaults from here. The
-JAX package's resolver (``tune/resolve.py``) overrides them per rig from
-a measured profile; the port's resolver and ``--tune`` wait for ROADMAP
-A12.4, so the port runs these defaults, which is what the JAX package's
-``--tune off`` runs.
+``models/`` and ``cluster/`` take their geometry defaults from here; this
+table is what ``--tune off`` runs. The resolver (``tune/resolve.py``)
+overrides them per rig from a measured profile under ``--tune auto`` or
+``--tune PROFILE``.
 
 stdlib only: the cluster's coordinator and transport import it before
 any device work.
