@@ -241,7 +241,16 @@ and the script exits non-zero without printing a result:
      artifact over 1 and 4 shard replicas, sparse and dense (merged =
      one replica bitwise; B9 = micro-batches + a warm-up a replica on
      sparse, none on dense), and two process replicas with a kill;
- 20. the kernels line (B1's and B2's entries with their launches on the
+ 20. static analysis (``run_static_analysis``): ``python -m
+     tpu_distalg_torch.cli lint --no-ruff`` over the port's default
+     surface (the package, ``tests/``, this script; a cold project
+     graph) and ``protocol --check`` against the committed
+     ``tpu_distalg_torch/PROTOCOL.md``, as children from the repo root:
+     both exit 0; the files linted, the graph seconds and the frame
+     kinds are printed. Host-only, it runs in a thread beside phases 2
+     and 3 (started after phase 1, its lines printed after phase 3's,
+     joined before phase 4's latencies);
+ 21. the kernels line (B1's and B2's entries with their launches on the
      local-update runs, B1's on the scale path, phase 14's streamed
      runs and phase 18's profiled command line, B1's, B2's and B5's on
      phase 13's paths, B7's on phase 15's streamed sweeps and a hub
@@ -266,6 +275,7 @@ none.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import re
@@ -7087,6 +7097,52 @@ def run_tune_rowstore_serving(dev, artifact: str) -> dict:
     return out
 
 
+def run_static_analysis() -> list[str]:
+    """Phase 20: the port's ``lint`` and ``protocol --check`` as children
+    from the repo root, as a user runs them; returns the phase's lines and
+    raises on a failure. Host-only source analysis: neither reads
+    ``--device`` or touches the card, so ``main`` runs it in a thread
+    beside the build and the kernel checks (phases 2-3)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tel = os.path.join(root, "build", "phase20")
+    shutil.rmtree(tel, ignore_errors=True)
+    env = dict(os.environ, TDA_TELEMETRY_DIR="", TDA_FAULT_PLAN="")
+    base = [sys.executable, "-m", "tpu_distalg_torch.cli"]
+
+    def child(*args) -> tuple[subprocess.CompletedProcess, float]:
+        t0 = time.perf_counter()
+        out = subprocess.run(base + list(args), cwd=root, env=env,
+                             capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(
+                f"{' '.join(args)} exited {out.returncode}:\n"
+                f"{out.stdout[-4000:]}\n{out.stderr[-2000:]}")
+        return out, time.perf_counter() - t0
+
+    try:
+        lint, lint_s = child("lint", "--no-ruff", "--format", "json")
+        doc = json.loads(lint.stdout)
+        if doc["violations"] or doc["baselined"] or doc["stale_baseline"]:
+            raise AssertionError(f"lint is not clean: {doc}")
+        lines = [f"[lint] {doc['files']} file(s) linted, 0 violations, 0 "
+                 f"baselined; graph {doc['graph_seconds']!r} s "
+                 f"({doc['cached']} summaries from the cache), {lint_s!r} "
+                 f"s in all"]
+        proto, proto_s = child("protocol", "--check", "--telemetry-dir", tel)
+        kinds = []
+        for name in sorted(os.listdir(tel)):
+            with open(os.path.join(tel, name)) as f:
+                kinds += [json.loads(line)["value"] for line in f
+                          if '"protocol.frame_kinds"' in line]
+        if len(kinds) != 1 or kinds[0] < 1:
+            raise AssertionError(f"protocol.frame_kinds gauges: {kinds}")
+        lines.append(f"[protocol] {proto.stdout.strip()}; {kinds[0]} frame "
+                     f"kinds; {proto_s!r} s")
+    finally:
+        shutil.rmtree(tel, ignore_errors=True)
+    return lines
+
+
 def _mp_half() -> int:
     from tpu_distalg_torch.tools import multiproc_run
 
@@ -7125,6 +7181,11 @@ def main() -> int:
     print(_nvidia_smi())
     t0 = _phase("device", t0)
 
+    # phase 20 takes one host core beside nvcc's six and the kernel
+    # checks, and is joined before phase 4 times the serving latencies
+    analysis = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    static = analysis.submit(run_static_analysis)
+
     builds = [_native.build(name) for name in _native.LIBRARIES]  # at once
     for b in builds:
         _native.finish(b)
@@ -7139,6 +7200,10 @@ def main() -> int:
     check_ssgd_kernels_small(dev)
     check_tp_kernels_small(dev)
     t0 = _phase("kernels", t0)
+    for line in static.result():
+        print(line)
+    analysis.shutdown()
+    t0 = _phase("static analysis (the wait after phase 3)", t0)
     check_als_small(dev)
 
     # removed by run_recovery's caller, or at exit if a phase before it

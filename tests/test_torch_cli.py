@@ -21,9 +21,9 @@ from tpu_distalg_torch.utils.device import share_host_threads
 
 share_host_threads(os.environ.get("PYTEST_XDIST_WORKER_COUNT"))
 
-#: JAX subcommands the port has no counterpart of yet: ``lint`` and
-#: ``protocol`` (ROADMAP A12.7)
-MISSING_SUBCOMMANDS = {"lint", "protocol"}
+#: JAX subcommands the port has no counterpart of yet (none since
+#: ``lint`` and ``protocol``)
+MISSING_SUBCOMMANDS: set = set()
 #: JAX options the port's parser rejects, by subcommand ("" = top
 #: level), and the ROADMAP item each waits for
 MISSING_OPTIONS: dict = {}

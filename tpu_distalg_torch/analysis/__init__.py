@@ -1,0 +1,184 @@
+"""``lint`` and ``protocol`` — static analysis for the framework's own
+invariants (port of ``tpu_distalg/analysis/``, rule for rule).
+
+Every rule keeps the JAX package's code, invariant and message, with
+the package read as ``tpu_distalg_torch``: its path scopes derive from
+:data:`engine.PKG`, so the rules police the port's tree, and on any
+source they find what the JAX package's analyzer finds there. The rules
+that match JAX spellings (``jit``, ``shard_map``, ``pallas_call``,
+``BlockSpec``, ``lax.psum``, ``NamedSharding``: TDA010, TDA040, TDA041,
+TDA050, TDA051, TDA080) find nothing in the port's torch code. The
+port's own defaults: the surface ``tpu_distalg_torch``, ``tests`` and
+``chip_smoke.py``; the baseline ``tpu_distalg_torch/lint_baseline.json``;
+the graph cache ``.bench_cache/lint_graph_torch.json``; the contract
+``tpu_distalg_torch/PROTOCOL.md``.
+
+AST-based rules (``TDA0xx`` codes), each policing a guarantee another
+subsystem makes:
+
+==========  =========================================================
+TDA001      no wall clock / unseeded RNG in library code (bitwise
+            replay, PR 3)
+TDA002      no unordered (set/listdir/glob) iteration feeding
+            downstream order (collective + serialization order)
+TDA010      no Python side effects inside jit/shard_map/pallas_call
+            bodies (trace purity)
+TDA011      no host syncs inside step loops (``# tda: hot-loop`` or
+            step-named ``range`` loops)
+TDA020      thread-target writes to shared state hold a lock
+            (telemetry/prefetch thread conventions, PR 1)
+TDA021      every ``threading.Thread`` states ``daemon=`` explicitly
+TDA030      durable writes in ``tpu_distalg_torch/`` route through a
+            ``faults.inject`` seam (chaos coverage, PR 3)
+TDA040      Pallas ``BlockSpec`` shapes tile in (8, 128) for f32
+TDA041      statically-sized resident blocks fit the VMEM budget
+TDA050      no raw ``lax.psum``-family collectives in
+            ``tpu_distalg_torch/models/`` — gradient traffic stays behind
+            the instrumented comms layer (``parallel/comms.py``, PR 5)
+TDA051      no dtype-widening cast on a quantized buffer as it enters
+            a collective in ``tpu_distalg_torch/parallel/`` — compressed
+            payloads ride the wire natively (the int32-psum wire
+            PR 5 documented and round 11 removed stays removed)
+TDA060      no unbounded ``queue.Queue()`` and no blocking ``get()``
+            without a timeout in ``tpu_distalg_torch/serve/`` — the serving
+            layer sheds under overload and always observes its stop
+            flag (liveness discipline, the Prefetcher guard's shape)
+TDA070      SSP discipline in ``tpu_distalg_torch/parallel/``: no unseeded
+            RNG feeding a staleness/straggle/membership/epoch
+            schedule (the bitwise-replay contract of the
+            stale-synchronous layer), and no unbounded host-side wait
+            on the clock vector (a departed shard's frozen clock must
+            time out, not wedge)
+TDA080      no raw ``NamedSharding``/placement-spec construction or
+            ``device_put`` with a hand-built layout in
+            ``tpu_distalg_torch/models/`` / ``tpu_distalg_torch/serve/`` — every
+            placement routes through the partition-rule engine
+            (``parallel/partition.py`` rule tables, PR 11)
+TDA090      cluster transport discipline in ``tpu_distalg_torch/cluster/``:
+            no blocking socket receive/accept without a deadline
+            armed in scope (a partition must surface as
+            ``TransportTimeout``, never a wedged thread) and no
+            ``sendall`` of a payload the frame encoder did not build
+            (an unframed write desynchronizes the length-prefixed
+            stream)
+==========  =========================================================
+
+The ``TDA1xx`` family runs over the PROJECT GRAPH
+(:mod:`tpu_distalg_torch.analysis.project` — one parse of the whole lint
+surface into cross-module symbol/flow summaries) instead of one file
+at a time; each rule pins a bug class review caught across PR 9–13:
+
+==========  =========================================================
+TDA100      checkpoint-carry completeness: a state-container field
+            mutated across steps must reach its checkpoint/snapshot
+            payload builder (the topk EF-residual class)
+TDA101      subprocess config handoff: every config field the CLI
+            feeds from a flag is forwarded by the argv builder that
+            re-spawns the role (the ``--train-json`` class)
+TDA102      telemetry contract: every emitted counter/gauge is
+            rendered or waived in ``telemetry/report.py``, and bench
+            metric lines stay bijective with ``ALL_METRIC_NAMES``
+            (the test-only AST tripwire, promoted into the engine)
+TDA103      cross-module lock discipline: an attribute written from
+            thread entries in different modules needs ONE common
+            lock, not one lock per module (the gap TDA020's
+            single-file view cannot see)
+TDA110      wire-contract bijectivity: every frame kind some peer
+            sends has a dispatch branch somewhere, and every dispatch
+            branch matches a kind something sends (dead kinds rot
+            into silent drops)
+TDA111      payload-key contract: a meta key any decoder of kind K
+            reads without a default is written by EVERY resolvable
+            encoder of K (the cross-process latent-KeyError class)
+TDA112      request/reply pairing: a round trip's accepted reply
+            kinds are kinds some handler of K actually sends, and an
+            ``error``-kind reply is explicitly handled (the PR 13
+            "dying coordinator answers" class)
+TDA113      incarnation-fencing completeness: every resolvable
+            encoder of a fenced frame kind populates the ``inc``
+            token (the PR 13 round-2 zombie class)
+TDA114      WAL-before-ack at protocol scope: in any handler that
+            both appends a record and sends a frame, the append
+            dominates the send on every branch path (TDA091
+            generalized beyond fsync syntax)
+TDA120      geometry-literal discipline (per-file, against the tuner
+            tables): a geometry knob (bucket elems, shard counts,
+            block sizes, pull-refresh cadence) pinned to an int
+            literal in ``tpu_distalg_torch/models/`` or
+            ``tpu_distalg_torch/cluster/`` must carry a value
+            ``tune/defaults.py`` spells, or a reasoned rig-pin — the
+            autotuner's resolver owns everything else
+==========  =========================================================
+
+The TDA11x rows run over the protocol graph — the wire-contract slice
+of the same project graph; ``tda protocol`` renders that contract as
+a table and ``--check`` pins it against ``tpu_distalg_torch/PROTOCOL.md``.
+
+Suppress a finding with ``# tda: ignore[TDA0xx] -- reason`` (the reason
+is mandatory); grandfather existing debt with the baseline file.
+A reasoned suppression that suppresses NOTHING is itself reported
+(like a stale baseline entry) and ``--fix`` removes it. Run via
+``python -m tpu_distalg_torch.cli lint [paths] [--format json]
+[--baseline FILE] [--select/--ignore CODES] [--changed] [--fix]``.
+Stdlib, the port's telemetry and its ``tune/defaults`` table (TDA120)
+only — no jax, and no device.
+"""
+
+from tpu_distalg_torch.analysis import baseline
+from tpu_distalg_torch.analysis.carry import RULES as _CARRY
+from tpu_distalg_torch.analysis.cluster import RULES as _CLUSTER
+from tpu_distalg_torch.analysis.comms import RULES as _COMMS
+from tpu_distalg_torch.analysis.concurrency import RULES as _CONCURRENCY
+from tpu_distalg_torch.analysis.crosslock import RULES as _CROSSLOCK
+from tpu_distalg_torch.analysis.determinism import RULES as _DETERMINISM
+from tpu_distalg_torch.analysis.engine import (
+    Rule,
+    Violation,
+    iter_python_files,
+    lint_file,
+    lint_source,
+)
+from tpu_distalg_torch.analysis.handoff import RULES as _HANDOFF
+from tpu_distalg_torch.analysis.pallas import RULES as _PALLAS
+from tpu_distalg_torch.analysis.partition import RULES as _PARTITION
+from tpu_distalg_torch.analysis.project import (
+    ProjectContext,
+    ProjectRule,
+    build_project,
+    lint_tree,
+)
+from tpu_distalg_torch.analysis.protocol import RULES as _PROTOCOL
+from tpu_distalg_torch.analysis.seams import RULES as _SEAMS
+from tpu_distalg_torch.analysis.serve import RULES as _SERVE
+from tpu_distalg_torch.analysis.ssp import RULES as _SSP
+from tpu_distalg_torch.analysis.telemetry_contract import (
+    RULES as _TELEMETRY_CONTRACT,
+)
+from tpu_distalg_torch.analysis.tracing import RULES as _TRACING
+from tpu_distalg_torch.analysis.tune import RULES as _TUNE
+
+#: every shipped per-file rule, in code order
+RULES = tuple(sorted(
+    _DETERMINISM + _TRACING + _CONCURRENCY + _SEAMS + _PALLAS + _COMMS
+    + _SERVE + _SSP + _PARTITION + _CLUSTER + _TUNE,
+    key=lambda r: r.code))
+
+#: the interprocedural family — runs once over the project graph
+PROJECT_RULES = tuple(sorted(
+    _CARRY + _HANDOFF + _TELEMETRY_CONTRACT + _CROSSLOCK + _PROTOCOL,
+    key=lambda r: r.code))
+
+__all__ = [
+    "PROJECT_RULES",
+    "ProjectContext",
+    "ProjectRule",
+    "RULES",
+    "Rule",
+    "Violation",
+    "baseline",
+    "build_project",
+    "iter_python_files",
+    "lint_file",
+    "lint_source",
+    "lint_tree",
+]

@@ -1,0 +1,331 @@
+"""The ``tda lint`` front-end — arguments, output, ruff chaining.
+
+Exit codes: 0 clean (baselined findings included), 1 un-baselined
+violations or stale baseline entries (or a ruff failure when chained),
+2 usage errors. The whole run executes inside a telemetry ``lint`` span
+with per-code counters, so a CI run under ``--telemetry-dir`` leaves
+the same structured record every other subsystem does.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+from tpu_distalg_torch.analysis import baseline as blmod
+from tpu_distalg_torch.analysis import engine, fixes
+from tpu_distalg_torch.analysis import project as projmod
+from tpu_distalg_torch.telemetry import events as tevents
+
+#: the port's default lint surface (existing entries only, so the
+#: command works from any subdirectory too): its package, the tests and
+#: ``chip_smoke.py``, the script that runs it on the card
+DEFAULT_PATHS = (engine.PKG, "tests", "chip_smoke.py")
+
+#: the committed wire contract ``protocol --check`` compares against
+PROTOCOL_DOC = f"{engine.PKG}/PROTOCOL.md"
+
+#: the project-graph summary cache home (shared with bench's caches);
+#: silently skipped when unwritable
+CACHE_DIR = ".bench_cache"
+
+
+def add_parser_args(p):
+    p.add_argument("paths", nargs="*", metavar="PATH",
+                   help="files/directories to lint (default: "
+                        f"{engine.PKG}/ tests/ chip_smoke.py, those "
+                        "that exist)")
+    p.add_argument("--format", default="text",
+                   choices=["text", "json"],
+                   help="text (one finding per line) or json (for CI)")
+    p.add_argument("--baseline", type=str, default=None,
+                   metavar="FILE",
+                   help="suppress findings recorded in FILE "
+                        f"(default: ./{blmod.DEFAULT_PATH} when "
+                        "present); "
+                        "stale entries are an error")
+    p.add_argument("--update-baseline", action="store_true",
+                   help="rewrite the baseline file from the current "
+                        "findings and exit 0")
+    p.add_argument("--select", type=str, default=None, metavar="CODES",
+                   help="comma-separated TDA codes to run (default "
+                        "all)")
+    p.add_argument("--ignore", type=str, default=None, metavar="CODES",
+                   help="comma-separated TDA codes to skip")
+    p.add_argument("--fix", action="store_true",
+                   help="apply the mechanically-safe fixes (TDA021 "
+                        "daemon=False; scaffold reasonless "
+                        "suppressions; remove unused ones) and "
+                        "re-lint")
+    p.add_argument("--changed", action="store_true",
+                   help="incremental mode: run the per-file TDA0xx "
+                        "rules only over git-modified files, while "
+                        "the TDA1xx project graph still covers the "
+                        "whole surface (summaries content-hash-"
+                        "cached under .bench_cache/); stale-baseline "
+                        "errors are skipped (partial view)")
+    p.add_argument("--no-ruff", action="store_true",
+                   help="skip the chained ruff run even when ruff is "
+                        "installed")
+
+
+def add_protocol_args(p):
+    p.add_argument("paths", nargs="*", metavar="PATH",
+                   help="files/directories to extract the wire "
+                        "contract from (default: the lint surface)")
+    p.add_argument("--format", default="text",
+                   choices=["text", "json", "md"],
+                   help="text (aligned table), json (for CI), or md "
+                        f"(the {PROTOCOL_DOC} spelling)")
+    p.add_argument("--check", nargs="?", const=PROTOCOL_DOC,
+                   default=None, metavar="FILE",
+                   help="diff the extracted contract against the "
+                        f"committed markdown (default {PROTOCOL_DOC}); "
+                        "exit 1 on drift")
+
+
+def run_protocol(args) -> int:
+    """``tda protocol`` — render the extracted wire contract, or
+    ``--check`` it against the committed :data:`PROTOCOL_DOC` (same
+    docs-can-never-drift shape as ``check_readme_claims.py``)."""
+    from tpu_distalg_torch.analysis import protocol as protomod
+
+    paths = list(args.paths) or [p for p in DEFAULT_PATHS
+                                 if os.path.exists(p)]
+    if not paths:
+        print("tda protocol: no paths given and none of "
+              f"{'/'.join(DEFAULT_PATHS)} exist here", file=sys.stderr)
+        return 2
+    try:
+        files = engine.iter_python_files(paths)
+        with tevents.span("protocol", files=len(files)):
+            proj, _ = projmod.build_project(files,
+                                            cache_dir=CACHE_DIR)
+            contract = protomod.build_contract(proj)
+            tevents.gauge("protocol.frame_kinds",
+                          len(contract["frames"]))
+            if args.check is not None:
+                return _check_protocol_doc(args.check, contract)
+            if args.format == "json":
+                print(json.dumps(protomod.render_json(contract),
+                                 indent=1))
+            elif args.format == "md":
+                print(protomod.render_md(contract))
+            else:
+                print(protomod.render_text(contract))
+        return 0
+    except (FileNotFoundError, ValueError) as e:
+        print(f"tda protocol: {e}", file=sys.stderr)
+        return 2
+
+
+def _check_protocol_doc(doc_path: str, contract) -> int:
+    from tpu_distalg_torch.analysis import protocol as protomod
+
+    want = protomod.render_md(contract)
+    try:
+        with open(doc_path, encoding="utf-8") as f:
+            have = f.read()
+    except OSError as e:
+        print(f"FAIL {doc_path}: unreadable ({e}); regenerate with "
+              f"`python -m {engine.PKG}.cli protocol --format md > "
+              f"{doc_path}`")
+        return 1
+    if have.strip() == want.strip():
+        print(f"ok: {doc_path} matches the extracted wire contract")
+        return 0
+    want_l, have_l = want.strip().splitlines(), have.strip().splitlines()
+    n_shown = 0
+    for i in range(max(len(want_l), len(have_l))):
+        w = want_l[i] if i < len(want_l) else "<missing>"
+        h = have_l[i] if i < len(have_l) else "<missing>"
+        if w != h:
+            print(f"FAIL {doc_path}:{i + 1}:")
+            print(f"  committed: {h}")
+            print(f"  extracted: {w}")
+            n_shown += 1
+            if n_shown >= 10:
+                print("  ... (further drift elided)")
+                break
+    print(f"FAIL {doc_path} drifted from the code; regenerate with "
+          f"`python -m {engine.PKG}.cli protocol --format md > "
+          f"{doc_path}`")
+    return 1
+
+
+def _codes(arg: str | None):
+    if arg is None:
+        return None
+    return tuple(c.strip().upper() for c in arg.split(",")
+                 if c.strip())
+
+
+def run_lint(args) -> int:
+    from tpu_distalg_torch.analysis import PROJECT_RULES, RULES
+
+    paths = list(args.paths) or [p for p in DEFAULT_PATHS
+                                 if os.path.exists(p)]
+    if not paths:
+        print("tda lint: no paths given and none of "
+              f"{'/'.join(DEFAULT_PATHS)} exist here", file=sys.stderr)
+        return 2
+    try:
+        files = engine.iter_python_files(paths)
+        select, ignore = _codes(args.select), _codes(args.ignore)
+        with tevents.span("lint", files=len(files)):
+            rc = _run(args, files, RULES, PROJECT_RULES, select,
+                      ignore)
+        return rc
+    except (FileNotFoundError, ValueError) as e:
+        print(f"tda lint: {e}", file=sys.stderr)
+        return 2
+
+
+def _git_changed() -> set | None:
+    """Worktree-modified .py paths (staged + unstaged + untracked),
+    norm_path-spelled RELATIVE TO THE CWD (git reports repo-root-
+    relative paths; a subdirectory run must still intersect with the
+    cwd-relative lint file list); None (= lint everything) when git is
+    absent or this is not a work tree."""
+    try:
+        proc = subprocess.run(
+            ["git", "status", "--porcelain", "-uall"],
+            capture_output=True, text=True, timeout=30)
+        top = subprocess.run(
+            ["git", "rev-parse", "--show-toplevel"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if proc.returncode or top.returncode:
+        return None
+    root = top.stdout.strip()
+    out: set = set()
+    for line in proc.stdout.splitlines():
+        rest = line[3:]
+        if " -> " in rest:                    # rename: new side counts
+            rest = rest.split(" -> ", 1)[1]
+        rest = rest.strip().strip('"')
+        if rest.endswith(".py"):
+            # absolute, then norm_path re-relativizes against the cwd
+            out.add(engine.norm_path(os.path.join(root, rest)))
+    return out
+
+
+def _run(args, files, rules, project_rules, select, ignore) -> int:
+    changed = None
+    if args.changed:
+        changed = _git_changed()
+        if changed is None:
+            print("tda lint: --changed needs a git work tree; "
+                  "linting everything", file=sys.stderr)
+
+    def lint_once():
+        return projmod.lint_tree(
+            files, rules, project_rules, select=select,
+            ignore=ignore, changed_only=changed,
+            cache_dir=CACHE_DIR)
+
+    result = lint_once()
+    violations = result.violations
+
+    if args.fix and violations:
+        by_file = collections.defaultdict(list)
+        for v in violations:
+            by_file[v.path].append(v)
+        n_fixed = sum(fixes.fix_file(p, vs)
+                      for p, vs in by_file.items())
+        if n_fixed:
+            print(f"tda lint: applied {n_fixed} fix(es); re-linting")
+            result = lint_once()
+            violations = result.violations
+
+    tevents.counter("lint.files", result.n_linted)
+    tevents.counter("lint.cached", result.n_cached)
+    tevents.gauge("lint.graph_seconds", result.graph_seconds)
+    tevents.counter("lint.violations", len(violations))
+    for code, n in collections.Counter(
+            v.code for v in violations).items():
+        tevents.counter(f"lint.{code}", n)
+
+    bl_path = blmod.resolve(args.baseline)
+    if args.update_baseline:
+        target = args.baseline or blmod.DEFAULT_PATH
+        blmod.save(target, violations)
+        print(f"tda lint: baseline written: {target} "
+              f"({len(violations)} finding(s))")
+        return 0
+
+    baselined, stale = [], []
+    if bl_path is not None:
+        doc = blmod.load(bl_path)
+        violations, baselined, stale = blmod.apply(doc, violations)
+        if changed is not None:
+            # a --changed run sees a PARTIAL violation set: entries
+            # for un-linted files would all read as stale
+            stale = []
+
+    ruff_files = files if changed is None else \
+        [f for f in files if engine.norm_path(f) in changed]
+    ruff_rc, ruff_out = (0, "") if args.no_ruff or not ruff_files \
+        else _chain_ruff(ruff_files)
+
+    if args.format == "json":
+        print(json.dumps({
+            "files": len(files),
+            "linted": result.n_linted,
+            "cached": result.n_cached,
+            "graph_seconds": result.graph_seconds,
+            "violations": [v.as_dict() for v in violations],
+            "baselined": len(baselined),
+            "stale_baseline": stale,
+            "ruff_rc": ruff_rc,
+            "ruff_output": ruff_out,
+        }, indent=1))
+    else:
+        for v in violations:
+            print(v.text())
+        if ruff_out:
+            print(ruff_out, end="")
+        for e in stale:
+            print(f"{e['path']}: stale baseline entry {e['code']} "
+                  f"({e['snippet']!r}) — the violation is gone; "
+                  f"regenerate with --update-baseline")
+        summary = (f"tda lint: {len(files)} file(s)"
+                   + (f" ({result.n_linted} linted, graph over all)"
+                      if changed is not None else "")
+                   + f", {len(violations)} violation(s)")
+        if result.n_cached:
+            summary += f", {result.n_cached} graph summar(ies) cached"
+        if baselined:
+            summary += f", {len(baselined)} baselined"
+        if stale:
+            summary += f", {len(stale)} stale baseline entr(ies)"
+        print(summary)
+
+    tevents.emit("lint_summary", files=len(files),
+                 linted=result.n_linted, cached=result.n_cached,
+                 violations=len(violations), baselined=len(baselined),
+                 stale=len(stale), ruff_rc=ruff_rc)
+    return 1 if (violations or stale or ruff_rc) else 0
+
+
+def _chain_ruff(files) -> tuple[int, str]:
+    """One lint entrypoint: when ruff is installed, run the pyproject-
+    configured pycodestyle/pyflakes/isort subset over the same files
+    and fold its exit code into ours. Output is CAPTURED (not
+    inherited) so ``--format json`` stays parseable JSON. Silently
+    skipped when absent — the container has no network and must not
+    fail on a missing luxury."""
+    ruff = shutil.which("ruff")
+    if ruff is None:
+        return 0, ""
+    proc = subprocess.run([ruff, "check", *files],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        print("tda lint: ruff reported findings (chained run)",
+              file=sys.stderr)
+    return (1 if proc.returncode else 0), proc.stdout

@@ -1,0 +1,189 @@
+"""Pallas hygiene rules — tiling and VMEM budget (TDA040, TDA041).
+
+The repo's kernels carry these constraints as hand-written guards and
+hard-won docstrings (``ops/pallas_kmeans.py`` rejects over-budget shift
+tables at plan time; ``pallas_pagerank`` documents its ~11M-vertex VMEM
+ceiling). These rules move the statically-decidable half of that to
+lint time: f32 blocks tile in (8, 128) — a lane dimension that is not a
+multiple of 128 pads silently (wasted VMEM + MXU occupancy) or fails in
+Mosaic — and the resident block set of one ``pallas_call`` must fit the
+VMEM budget. Only LITERALLY-computable shapes are judged (module-level
+int constants fold; anything parameterized is skipped), so a flag here
+is a certainty, not a guess.
+"""
+
+from __future__ import annotations
+
+import ast
+
+from tpu_distalg_torch.analysis.engine import (Rule, call_name,
+                                         const_int, dotted_name)
+
+#: f32 minimum tile (sublane, lane); bf16 doubles the sublane to 16 —
+#: this rule checks the f32 floor, the common denominator the repo's
+#: kernels are written against
+SUBLANE, LANE = 8, 128
+
+#: the repo's per-kernel resident-block budget (the spmv plan guard and
+#: every pallas_call's vmem_limit_bytes are set against ~100-128 MB)
+VMEM_BUDGET_BYTES = 128 * 1024 * 1024
+
+_DTYPE_BYTES = {
+    "float32": 4, "f32": 4, "int32": 4, "uint32": 4,
+    "bfloat16": 2, "float16": 2, "int16": 2, "uint16": 2,
+    "int8": 1, "uint8": 1, "bool_": 1,
+    "float64": 8, "int64": 8, "uint64": 8,
+}
+
+_NON_VMEM_SPACES = {"SMEM", "ANY", "HBM", "SEMAPHORE"}
+
+
+def _block_shape(call: ast.Call):
+    """The shape tuple node of a BlockSpec(...) call, or None."""
+    shape = call.args[0] if call.args else None
+    for kw in call.keywords:
+        if kw.arg == "block_shape":
+            shape = kw.value
+    return shape if isinstance(shape, ast.Tuple) else None
+
+
+def _memory_space_tail(call: ast.Call) -> str | None:
+    for kw in call.keywords:
+        if kw.arg == "memory_space":
+            name = None
+            v = kw.value
+            if isinstance(v, (ast.Name, ast.Attribute)):
+                name = dotted_name(v)
+            return name.rsplit(".", 1)[-1] if name else "?"
+    return None
+
+
+def _iter_blockspecs(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            name = call_name(node)
+            if name is not None \
+                    and name.rsplit(".", 1)[-1] == "BlockSpec":
+                yield node
+
+
+class BlockShapeTiling(Rule):
+    code = "TDA040"
+    name = "BlockSpec shape off the (8, 128) f32 tile"
+    invariant = ("VMEM blocks tile in (sublane=8, lane=128) for f32 — "
+                 "off-tile shapes pad silently or fail in Mosaic")
+
+    def check(self, ctx):
+        for spec in _iter_blockspecs(ctx.tree):
+            space = _memory_space_tail(spec)
+            if space in _NON_VMEM_SPACES:
+                continue  # SMEM scalars etc. tile differently
+            shape = _block_shape(spec)
+            if shape is None or len(shape.elts) < 2:
+                continue
+            dims = [const_int(e, ctx.consts) for e in shape.elts]
+            lane, sub = dims[-1], dims[-2]
+            # lane/sublane 1 are the degenerate broadcast/column
+            # shapes Mosaic handles natively (this repo's (1, L)
+            # constant rows and (b, 1) per-row scalar columns) — only
+            # real off-tile sizes are flagged
+            if lane is not None and lane != 1 and lane % LANE != 0:
+                yield self.violation(
+                    ctx, spec,
+                    f"BlockSpec lane (last) dimension {lane} is not a "
+                    f"multiple of {LANE} — the block pads to the next "
+                    f"{LANE}-lane tile (wasted VMEM/MXU) or fails to "
+                    f"lower; pad the array and mask instead")
+            # sublane 1 is the broadcast-row shape Mosaic handles
+            # natively (the repo's (1, L) constant blocks) — only
+            # flag real off-tile sublane counts
+            if sub is not None and sub != 1 and sub % SUBLANE != 0:
+                yield self.violation(
+                    ctx, spec,
+                    f"BlockSpec sublane dimension {sub} is not a "
+                    f"multiple of {SUBLANE} (f32 tile floor; bf16 "
+                    f"needs 16) — round the block up and mask the "
+                    f"tail")
+
+
+def _dtype_bytes(node) -> int:
+    name = None
+    if isinstance(node, (ast.Name, ast.Attribute)):
+        d = dotted_name(node)
+        name = d.rsplit(".", 1)[-1] if d else None
+    elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+        name = node.value
+    return _DTYPE_BYTES.get(name or "", 4)
+
+
+class VmemFootprint(Rule):
+    code = "TDA041"
+    name = "resident VMEM footprint over budget"
+    invariant = (f"the blocks one pallas_call holds resident must fit "
+                 f"the {VMEM_BUDGET_BYTES >> 20} MB VMEM budget — "
+                 f"checked at lint time for statically-sized kernels")
+
+    def check(self, ctx):
+        for node in ast.walk(ctx.tree):
+            if not isinstance(node, ast.Call):
+                continue
+            name = call_name(node)
+            if name is None \
+                    or name.rsplit(".", 1)[-1] != "pallas_call":
+                continue
+            total = 0
+            for kw in node.keywords:
+                if kw.arg in ("in_specs", "out_specs"):
+                    for spec in ast.walk(kw.value):
+                        if isinstance(spec, ast.Call) and (
+                                call_name(spec) or ""
+                        ).rsplit(".", 1)[-1] == "BlockSpec":
+                            total += self._spec_bytes(spec, ctx)
+                elif kw.arg == "scratch_shapes":
+                    for scr in ast.walk(kw.value):
+                        if isinstance(scr, ast.Call) and (
+                                call_name(scr) or ""
+                        ).rsplit(".", 1)[-1] == "VMEM":
+                            total += self._scratch_bytes(scr, ctx)
+            if total > VMEM_BUDGET_BYTES:
+                yield self.violation(
+                    ctx, node,
+                    f"statically-computable resident blocks total "
+                    f"{total / (1 << 20):.0f} MB — over the "
+                    f"{VMEM_BUDGET_BYTES >> 20} MB VMEM budget; "
+                    f"shrink the block shapes or stream through a "
+                    f"grid axis (this sum counts only "
+                    f"literal-shaped specs, so it is a LOWER bound)")
+
+    @staticmethod
+    def _spec_bytes(spec: ast.Call, ctx) -> int:
+        if _memory_space_tail(spec) in _NON_VMEM_SPACES:
+            return 0
+        shape = _block_shape(spec)
+        if shape is None:
+            return 0
+        dims = [const_int(e, ctx.consts) for e in shape.elts]
+        if any(d is None for d in dims):
+            return 0  # parameterized — not statically computable
+        n = 1
+        for d in dims:
+            n *= d
+        return n * 4  # BlockSpec carries no dtype; assume f32
+
+    @staticmethod
+    def _scratch_bytes(scr: ast.Call, ctx) -> int:
+        if not scr.args or not isinstance(scr.args[0], ast.Tuple):
+            return 0
+        dims = [const_int(e, ctx.consts)
+                for e in scr.args[0].elts]
+        if any(d is None for d in dims):
+            return 0
+        n = 1
+        for d in dims:
+            n *= d
+        itemsize = (_dtype_bytes(scr.args[1])
+                    if len(scr.args) > 1 else 4)
+        return n * itemsize
+
+
+RULES = (BlockShapeTiling(), VmemFootprint())

@@ -56,11 +56,14 @@ telemetry reports and the cluster runtime.
         --replica-shards 2 --shard 0      # prints its port; scores on card
     python -m tpu_distalg_torch.cli cluster --role router \
         --replicas 127.0.0.1:P0,127.0.0.1:P1 --serve-mode sharded
+    python -m tpu_distalg_torch.cli lint --no-ruff  # the port's own tree
+    python -m tpu_distalg_torch.cli protocol --check  # the wire contract
 
 The lines printed match the JAX package's ``tda lr``, ``tda ssgd``,
 ``tda ma``, ``tda bmuf``, ``tda easgd``, ``tda als``, ``tda serve``,
 ``tda pagerank``, ``tda kmeans``, ``tda closure``, ``tda mc``, ``tda
-chaos``, ``tda report``, ``tda cluster`` and ``tda tune``. Runs on ``cuda`` unless
+chaos``, ``tda report``, ``tda cluster``, ``tda tune``, ``tda lint`` and
+``tda protocol``. Runs on ``cuda`` unless
 ``--device cpu`` is given (a cluster's workers run there; its
 coordinator holds the center on the host). ``--profile DIR`` writes a
 ``torch.profiler`` Chrome trace of the whole run. Every run takes ``--telemetry-dir`` and ``--fault-plan``, and is
@@ -401,6 +404,32 @@ def _parser() -> argparse.ArgumentParser:
                    metavar="DIR",
                    help="record the profiling pass as telemetry events (a "
                         "'tune' span)")
+
+    from tpu_distalg_torch.analysis import cli as lint_cli
+
+    li = sub.add_parser(
+        "lint",
+        help="static analysis for the framework's own invariants "
+             "(TDA0xx rules: determinism, trace purity, concurrency, "
+             "fault-seam coverage, Pallas hygiene; TDA1xx over the "
+             "project graph); exits 1 on un-baselined violations; "
+             "chain-runs ruff when installed")
+    lint_cli.add_parser_args(li)
+    li.add_argument("--telemetry-dir", type=str, default=None,
+                    metavar="DIR",
+                    help="record the lint run as telemetry events (a "
+                         "'lint' span + per-rule counters)")
+    pr = sub.add_parser(
+        "protocol",
+        help="extract the cluster wire contract from source (frame "
+             "kinds, payload keys, reply pairings, fencing, WAL "
+             "records) as a deterministic table; --check pins "
+             f"{lint_cli.PROTOCOL_DOC} against it")
+    lint_cli.add_protocol_args(pr)
+    pr.add_argument("--telemetry-dir", type=str, default=None,
+                    metavar="DIR",
+                    help="record the extraction as telemetry events (a "
+                         "'protocol' span)")
 
     r = sub.add_parser("report",
                        help="summarize a telemetry event log: phase "
@@ -1425,7 +1454,7 @@ def _run_tune(args) -> int:
             collective=collective, device=backend)
         # the one wall-clock read: it orders profiles on disk and tags
         # when the rig was measured, and never steers a run
-        created = time.time()
+        created = time.time()  # tda: ignore[TDA001] -- artifact timestamp, not run state
         profile = ttune.build_profile(
             m, created_unix=created, seed=args.seed, backend=backend)
         path = ttune.save_profile(profile, args.out_dir)
@@ -1616,6 +1645,15 @@ def main(argv=None) -> int:
         except FileNotFoundError as e:
             print(f"tda report: {e}", file=sys.stderr)
             return 2
+    if args.cmd in ("lint", "protocol"):
+        # pure source analysis on the host: no device (--device is not
+        # read), no fault plan, no heartbeat
+        from tpu_distalg_torch import telemetry
+        from tpu_distalg_torch.analysis import cli as lint_cli
+
+        telemetry.configure(args.telemetry_dir)
+        return (lint_cli.run_lint(args) if args.cmd == "lint"
+                else lint_cli.run_protocol(args))
     if args.cmd == "tune":
         # host measurements (and, with --collective, the mesh's psum):
         # no fault plan, no heartbeat

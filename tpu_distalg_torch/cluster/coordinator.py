@@ -484,8 +484,8 @@ class Coordinator:
             "commit_digests": [[w, s, d] for (w, s), d
                                in self.commit_digests.items()],
             "slots": {
-                # last_beat, suspect_at, conn_serial and stats are
-                # PER-INCARNATION state and must
+                # tda: ignore[TDA100] -- last_beat/suspect_at/
+                # conn_serial/stats are PER-INCARNATION state and must
                 # NOT be resurrected: a recovered slot gets a FRESH
                 # liveness clock (see _apply_wal_records), connection
                 # ownership dies with the old process's sockets, and

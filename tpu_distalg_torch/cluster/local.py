@@ -572,7 +572,7 @@ def _tcp_status(host, port, *, deadline: float = 2.0):
     except transport.TransportError:
         return None
     try:
-        # launcher-side liveness probe: a dead
+        # tda: ignore[TDA112] -- launcher-side liveness probe: a dead
         # coordinator surfaces as TransportError from request itself,
         # and the caller treats any reply shape as "alive" (the meta
         # fields all default); there is no fencing to misread here
@@ -594,7 +594,7 @@ def _tcp_hold(host, port, window, n_active, *,
     spelling of ``Coordinator.hold_admission``)."""
     sock = transport.connect(host, port, deadline=deadline)
     try:
-        # best-effort admission hint: the
+        # tda: ignore[TDA112] -- best-effort admission hint: the
         # launcher proceeds identically whether the hold lands or
         # errors (the rejoiner's admit_at pins the schedule either
         # way), so the reply is deliberately unexamined

@@ -369,10 +369,18 @@ class Router:
         self._bind(retry=self.recovered)
         if self.cfg.wal_dir:
             self._wal = cluster_wal.WriteAheadLog(self.cfg.wal_dir)
-            # only what a recovering router cannot re-derive (the bound
-            # port and the roster) plus mode, policy and seed for the
-            # record; the rest is the fresh RouterConfig's
             snapshot = {
+                # tda: ignore[TDA100] -- the base snapshot is NOT a
+                # full-config checkpoint: it persists only what a
+                # recovering router cannot re-derive — the bound port
+                # (same-port rebind contract) and the replica roster —
+                # plus mode/policy/seed so operators can audit what
+                # the dead process was running.  Batching knobs,
+                # comms codec, k_top/merge and deadlines are process
+                # CONFIG, re-supplied by the fresh RouterConfig at
+                # recovery (see _recover: it reads only port/replicas
+                # from base); carrying them would let a stale segment
+                # silently override the operator's restart flags.
                 "port": self.port, "mode": self.cfg.mode,
                 "policy": self.cfg.policy,
                 "seed": self.cfg.seed,
@@ -783,6 +791,10 @@ class Router:
                     self._pull_codec, delta, None,
                     pcomms.PULL_SEED_TAG, link.rid, int(have),
                     version)
+                # tda: ignore[TDA112] -- the delta swap is
+                # opportunistic: ANY non-swap_ok reply (swap_stale,
+                # error) falls through to the dense swap below, which
+                # checks its reply strictly
                 kind, meta, _ = transport.request(
                     link._ctrl_sock, "swap",
                     {"mode": "delta", "cv": version,
@@ -793,6 +805,10 @@ class Router:
                     return "delta"
                 # swap_stale: replica's base moved under us — fall
                 # through to the dense snapshot
+            # tda: ignore[TDA111] -- 'base' is read only on the DELTA
+            # branch of the swap handler; the dense spelling ships
+            # the full center and the handler never touches
+            # meta["base"] for mode=dense
             kind, meta, _ = transport.request(
                 link._ctrl_sock, "swap",
                 {"mode": "dense", "cv": version}, center,
@@ -946,6 +962,9 @@ class RouterClient:
     def close(self) -> None:
         try:
             with self._lock:
+                # tda: ignore[TDA112] -- best-effort farewell on
+                # close: the client is gone either way; an error
+                # reply must not turn close() into a raise
                 transport.request(self._sock, "stop",
                                   deadline=self._deadline)
         except (transport.TransportError, OSError):

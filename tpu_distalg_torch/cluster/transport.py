@@ -219,8 +219,9 @@ def _send_parts(sock: socket.socket, parts: list,
     wire by construction (the parts ARE the frame)."""
     if not hasattr(sock, "sendmsg"):
         sock.settimeout(deadline)
-        # the parts ARE encode_frame_parts output: their join is
-        # byte-identical to encode_frame
+        # tda: ignore[TDA090] -- the parts ARE encode_frame_parts
+        # output (send_frame built them two lines up): their join is
+        # byte-identical to encode_frame, not an ad-hoc payload
         sock.sendall(b"".join(parts))
         return
     deadline_at = None if deadline is None \

@@ -289,7 +289,7 @@ class _HbLink:
                         self.sock = self.connect(
                             self.host, self.port, attempts=2,
                             retry_sleep=0.05)
-                    # the beat is a pure
+                    # tda: ignore[TDA112] -- the beat is a pure
                     # liveness signal on its own link; the reply is
                     # drained only to keep the socket frame-aligned,
                     # and a stale-slot error must not kill the beat
@@ -354,7 +354,7 @@ class _PendingPush:
         def _send():
             t0 = time.monotonic()
             try:
-                # the async push's reply is
+                # tda: ignore[TDA112] -- the async push's reply is
                 # consumed by harvest(), which raises on an error
                 # reply; this sender closure only parks it
                 reply = link.request("push", meta, arrays,
@@ -580,7 +580,7 @@ def run_worker(host: str, port: int, *, slot: int | None = None,
         try:
             if sock is None:
                 sock = connect(host, port)
-            # the join loop breaks only on
+            # tda: ignore[TDA112] -- the join loop breaks only on
             # welcome; every non-welcome fall-through below retries
             # or raises "join rejected" with the error payload — the
             # error reply IS the handled rejection path
@@ -990,7 +990,7 @@ def run_worker(host: str, port: int, *, slot: int | None = None,
                 round(float(np.percentile(rtts, 50)), 3)
                 if rtts else 0.0)
             try:
-                # fire-and-forget farewell:
+                # tda: ignore[TDA112] -- fire-and-forget farewell:
                 # an error from a dying coordinator changes nothing
                 # about a worker that is already leaving
                 link.request("bye", dict(ident, stats=stats),

@@ -184,7 +184,9 @@ def sweep_stale_tmp(path: str) -> None:
     """Remove tmp orphans of crashed builds of THIS cache (globs anchored
     to its exact artifact names, so a sibling cache sharing the prefix
     is never touched), older than :data:`STALE_TMP_SECONDS`."""
-    now = time.time()  # compared with file mtimes, wall-clock by nature
+    # tda: ignore[TDA001] -- compared against file MTIMES (wall-clock
+    # domain by definition); never feeds a replayed value
+    now = time.time()
     for pat in (bin_path(path) + ".tmp.*", meta_path(path) + ".tmp.*",
                 path + ".*.tmp.*"):
         for stale in sorted(glob.glob(pat)):

@@ -416,7 +416,7 @@ def fit_rowstore(config: ALSConfig = ALSConfig(), *,
         vals, _vers = store.pull_rows("V", rows)
         return vals
 
-    errs = []
+    sq_errs = []
     U_dev = torch.as_tensor(U, device=dev)
     for _sweep in range(config.n_iterations):
         # U half-sweep: per user block, one pull of the union of its
@@ -429,7 +429,7 @@ def fit_rowstore(config: ALSConfig = ALSConfig(), *,
         # local U and push the per-row deltas (the old values pulled
         # first: the delta is the wire object), blocked like the pulls
         U64 = U_dev.double()
-        sq_err = 0.0
+        sq_err = torch.zeros((), dtype=torch.float64, device=dev)
         for items, idx, mask, r in item_blocks:
             old = pull(items)
             new_dev = _solve_rows(U64, idx, mask, r, lam).float()
@@ -441,8 +441,12 @@ def fit_rowstore(config: ALSConfig = ALSConfig(), *,
             cols = torch.as_tensor(items, device=dev)
             pred = U_dev @ new_dev.T
             err = (pred - R_dev[:, cols]).double()[obs_dev[:, cols]]
-            sq_err += float(torch.sum(err * err))
-        errs.append(np.sqrt(sq_err / n_obs))
+            sq_err += torch.sum(err * err)
+        sq_errs.append(sq_err)
+    # one transfer after the sweeps (float64 sums, as the JAX
+    # package's numpy loop adds them)
+    errs = (np.sqrt(torch.stack(sq_errs).cpu().numpy() / n_obs)
+            if sq_errs else [])
 
     dense_rows = n_pulls * n
     return {

@@ -481,7 +481,10 @@ SUMMARY_ONLY_COUNTERS = (
     "serve.artifact_reread",
     "serve.failed_batches",
     "serve.merge_bytes_wire",
-    "spmv_plan_rejections",
+    "comm.bytes_process",       # the port's per-process wire bytes;
+    #                             the comm line renders wire/logical
+    "reshard.bytes_sent",       # bytes this process really sent; the
+    #                             reshard line renders the closed form
     "reshard.bytes_logical",    # the reshard line renders wire/host;
     #                             logical is accounting input only
 )

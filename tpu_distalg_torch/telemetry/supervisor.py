@@ -56,8 +56,12 @@ def _call_with_deadline(fn: Callable, timeout: float | None,
 
         def work():
             try:
+                # tda: ignore[TDA020] -- single-writer box: the reader
+                # only looks after done.wait(), and done.set() in the
+                # finally below is the release that orders this write
                 box["value"] = fn()
             except BaseException as e:  # noqa: BLE001 — re-raised below
+                # tda: ignore[TDA020] -- same Event-ordered handoff
                 box["error"] = e
             finally:
                 done.set()

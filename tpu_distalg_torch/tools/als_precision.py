@@ -47,6 +47,8 @@ def history(solve, R, V0, sweeps: int) -> list[float]:
             out.append(float("nan"))
             break
         err = torch.sqrt(linalg.sq_err(R, U, V) / R.numel())
+        # tda: ignore[TDA011] -- a precision probe run by hand: each
+        # sweep's error is its output, and it times nothing
         out.append(float(err) / rms)
     return out
 

@@ -158,6 +158,8 @@ def run(label: str, graph: str) -> None:
     torch.cuda.synchronize()
     head = {"tree": label, "card": card(), "torch": torch.__version__,
             "package": os.path.dirname(pk.__file__)}
+    # tda: ignore[TDA100] -- not a checkpoint payload: one line of the
+    # profile's output, from which nothing resumes
     print(json.dumps({**head, "n_vertices": el.n_vertices,
                       "n_edges": el.n_edges,
                       "device_prep_s": time.perf_counter() - t0}),

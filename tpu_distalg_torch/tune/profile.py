@@ -137,6 +137,8 @@ def _measure_loopback(clock, *, elems: int, frames: int, pings: int):
         payload = np.zeros((elems,), np.float32)
         payload_bytes = payload.nbytes
         # warm the path (connection + first-frame allocations)
+        # tda: ignore[TDA110] -- loopback micro-benchmark frames to a
+        # private echo thread, never on the cluster protocol wire
         transport.send_frame(sock, "blk", meta={"n": 0},
                              arrays={"x": payload}, deadline=deadline)
         transport.recv_frame(sock, deadline=deadline)

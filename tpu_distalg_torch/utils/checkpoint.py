@@ -232,6 +232,10 @@ def quarantine(path: str, *, logger=None) -> bool:
     first counts as done; returns False only when the rename fails for
     another reason."""
     try:
+        # tda: ignore[TDA030] -- recovery rename of an ALREADY-corrupt
+        # file, not a durable publish: a failure here is caught below
+        # and reported, and injecting at it would shift the ckpt:write
+        # hit counts every recorded chaos plan replays against
         os.replace(path, path + ".corrupt")
     except FileNotFoundError:
         return True

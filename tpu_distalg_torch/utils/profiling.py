@@ -59,6 +59,8 @@ def trace(logdir: str, *, cuda: bool | None = None,
                 yield prof
         finally:
             wait_for_device()
+    # tda: ignore[TDA001] -- names the trace file (as torch.profiler's
+    # tensorboard_trace_handler does); never feeds a computed value
     name = f"{socket.gethostname()}_{os.getpid()}.{int(time.time() * 1e3)}"
     prof.export_chrome_trace(os.path.join(logdir, name + TRACE_SUFFIX))
 
