@@ -23,7 +23,6 @@ import pytest
 import torch
 
 from tpu_distalg.utils import metrics as jmetrics
-from tpu_distalg.utils import profiling as jprofiling
 from tpu_distalg_torch import cli
 from tpu_distalg_torch.utils import metrics, profiling
 from tpu_distalg_torch.utils.device import share_host_threads
@@ -62,34 +61,6 @@ def test_maybe_trace_without_a_directory_is_a_no_op(tmp_path):
                                name="block") as prof:
         torch.ones(3).sum()
     assert prof is not None and "block" in _trace_names(tmp_path / "t")
-
-
-def test_steps_per_sec_stats_keys_equal_jax():
-    """The same arguments and the same stats dict; the port waits for
-    the card (a synchronize) where JAX fetches a leaf."""
-    import jax.numpy as jnp
-
-    calls = []
-
-    def fn(x):
-        calls.append(1)
-        return x * 2
-
-    rate, stats, out = profiling.steps_per_sec(
-        fn, torch.ones(4), steps=10, repeats=4, chain=2, with_stats=True,
-        with_output=True)
-    jrate, jstats, jout = jprofiling.steps_per_sec(
-        lambda x: x * 2, jnp.ones(4), steps=10, repeats=4, chain=2,
-        with_stats=True, with_output=True)
-    assert sorted(stats) == sorted(jstats)
-    assert (stats["repeats"], stats["chain"]) == (jstats["repeats"],
-                                                  jstats["chain"]) == (4, 2)
-    assert stats["min"] <= stats["median"] <= stats["best"] == round(rate, 2)
-    assert len(calls) == 1 + 4 * 2          # one warm call, then chains
-    assert torch.equal(out, torch.full((4,), 2.0))
-    assert isinstance(profiling.steps_per_sec(fn, torch.ones(1), steps=1,
-                                              repeats=1, warmup=False),
-                      float)
 
 
 def test_step_timer_waits_and_times():

@@ -371,3 +371,62 @@ def test_b1_ticket_resets_and_two_streams_on_card(cuda_device):
     torch.cuda.synchronize()
     for k, (g, c) in enumerate(got):
         assert torch.equal(g, want[k % 2][0]) and torch.equal(c, want[k % 2][1])
+
+
+@pytest.mark.gpu
+def test_program_spans_agree_with_the_trace_on_card(cuda_device, tmp_path):
+    """Three ``fused_train`` calls at a HIGGS-like shape (8M rows of 28
+    features + bias, bf16, 1024-row blocks, 1500 steps in 12 launches)
+    under the profiler: one ``ssgd.launch`` span per B2 kernel in the
+    trace, and each call's ``ssgd.draws`` device seconds (CUDA events
+    at its edges) within 10% of the trace's own reading, from the first
+    device operation the span launched to the start of the call's first
+    B2 kernel."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import get_mesh
+    from tpu_distalg_torch.telemetry import events
+
+    mesh = get_mesh(data=1, device=cuda_device)
+    cfg = ssgd.SSGDConfig(sampler="fused_train", x_dtype="bfloat16",
+                          fused_pack=16, gather_block_rows=1024,
+                          n_iterations=1500, mega_steps=125, eval_every=125)
+    _, X2, w, meta = ssgd.prepare_fused_synthetic(8 << 20, 28, mesh, cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    X_te = torch.randn((4096, meta["d_total"]), generator=gen,
+                       device=cuda_device)
+    y_te = (torch.rand(4096, generator=gen, device=cuda_device)
+            < 0.5).float()
+    ssgd.train_prepared(mesh, cfg, X2, w, meta, X_te, y_te)   # warm
+    torch.cuda.synchronize()
+    with events.recording(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            w = ssgd.train_prepared(mesh, cfg, X2, w, meta, X_te, y_te).w
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        evs = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in evs
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    b2 = sorted(e["ts"] for e in device if "train_ring_kernel" in e["name"])
+    assert len(events.recorded("ssgd.launch")) == len(b2) == 36
+    runtime = [e for e in evs if e.get("cat") in ("cuda_runtime",
+                                                   "cuda_driver")]
+    draws = sorted((e["ts"], e["ts"] + e["dur"]) for e in evs
+                   if e.get("cat") == "user_annotation"
+                   and e["name"] == "ssgd.draws")
+    spans = events.recorded("ssgd.draws")
+    assert len(draws) == len(spans) == 3
+    for (a, b), s in zip(draws, spans):
+        launched = {e["args"].get("correlation") for e in runtime
+                    if a <= e["ts"] <= b}
+        first = min(e["ts"] for e in device
+                    if e["args"].get("correlation") in launched)
+        trace_s = (min(t for t in b2 if t >= first) - first) * 1e-6
+        assert abs(s.device_s - trace_s) <= 0.1 * trace_s, (s.device_s,
+                                                             trace_s)

@@ -151,3 +151,254 @@ def test_start_heartbeat_only_when_it_would_do_anything(tmp_path):
         assert hb is not None and hb.n_beats == 1
     finally:
         hb.stop()
+
+
+# ------------------------------------------------------------ program spans
+
+SSGD_FINE = {"ssgd.build": 1, "ssgd.draws": 1, "ssgd.launch": 2,
+             "ssgd.eval": 2, "ssgd.guard": 1}
+
+
+def _fused_train_call():
+    """One CPU ``train_prepared`` call of ``fused_train``: 250 steps, two
+    launches of 125 (B2's plain version), each evaluated; the rows
+    packed outside the call."""
+    import numpy as np
+    import torch
+
+    from tpu_distalg_torch.models import ssgd
+    from tpu_distalg_torch.parallel import get_mesh
+
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(2048, 7)).astype(np.float32)
+    y = (rng.random(2048) < 0.5).astype(np.float32)
+    mesh = get_mesh(data=1, device="cpu")
+    cfg = ssgd.SSGDConfig(sampler="fused_train", n_iterations=250,
+                          mega_steps=125, eval_every=125,
+                          gather_block_rows=64)
+    _, X2, w0, meta = ssgd.prepare_fused(X, y, mesh, cfg)
+    X_te = torch.zeros((128, meta["d_total"]))
+    X_te[:, :7] = torch.from_numpy(X[:128])
+    X_te[:, 7] = 1.0
+    return ssgd.train_prepared(mesh, cfg, X2, w0, meta, X_te,
+                               torch.from_numpy(y[:128]))
+
+
+def _counts(spans) -> dict:
+    out: dict = {}
+    for s in spans:
+        out[s.name] = out.get(s.name, 0) + 1
+    return out
+
+
+def test_span_off_writes_records_and_calls_nothing(monkeypatch):
+    import tracemalloc
+
+    import torch
+
+    with events.recording():
+        pass                        # empties the buffer
+
+    def no_torch(*a, **k):
+        raise AssertionError("an idle span called torch")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        no_torch)
+    monkeypatch.setattr(torch.cuda, "is_initialized", no_torch)
+    idle = events.span("ssgd.call")
+    assert events.span("ssgd.launch", fine=True, x=1) is idle
+    with idle:
+        with events.span("ssgd.eval", fine=True):
+            pass
+    assert events.last_mark()[1] == "ssgd.eval"
+    assert events.recorded() == [] and events.get_sink() is None
+
+    def loop(n):
+        for _ in range(n):
+            with events.span("ssgd.launch", fine=True):
+                pass
+
+    loop(100)
+    tracemalloc.start()
+    try:
+        before = tracemalloc.take_snapshot()
+        loop(5000)
+        after = tracemalloc.take_snapshot()
+    finally:
+        tracemalloc.stop()
+    only = [tracemalloc.Filter(True, events.__file__)]
+    grown = [d for d in after.filter_traces(only).compare_to(
+        before.filter_traces(only), "lineno") if d.count_diff > 0]
+    assert grown == []
+
+
+def test_recording_counts_and_nests_a_fused_train_call():
+    plain = _fused_train_call()
+    with events.recording():
+        res = _fused_train_call()
+    spans = events.recorded()
+    assert _counts(spans) == dict(SSGD_FINE, **{
+        "ssgd.call": 1, "ssgd.prepare": 1, "pack.host": 1, "pack.h2d": 1})
+    (call,) = events.recorded("ssgd.call")
+    assert call.parent is None and call.fields["steps"] == 250
+    for s in spans:
+        assert s.ok and s.t0 <= s.t1 and s.device_s is None   # no card
+        if s.name in SSGD_FINE:
+            assert s.parent is call
+            assert call.t0 <= s.t0 and s.t1 <= call.t1
+        elif s.name.startswith("pack."):
+            assert s.parent.name == "ssgd.prepare"
+    launches = events.recorded("ssgd.launch")
+    evals = events.recorded("ssgd.eval")
+    assert launches[0].t1 <= evals[0].t0 <= launches[1].t0
+    assert res.w.equal(plain.w) and res.accs.equal(plain.accs)
+
+
+def test_profiler_trace_holds_the_spans(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    with events.recording():
+        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _fused_train_call()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    got = {n: names.count(n) for n in set(names)}
+    assert got == dict(SSGD_FINE, **{
+        "ssgd.call": 1, "ssgd.prepare": 1, "pack.host": 1, "pack.h2d": 1})
+    assert _counts(events.recorded()) == got   # recorded under the profiler
+
+
+def test_profile_flag_trace_holds_the_spans(tmp_path):
+    """``--profile DIR`` on the CLI: the trace carries the call's spans
+    (``bernoulli``: a draw and a launch a step)."""
+    assert cli.main(["--device", "cpu", "--profile", str(tmp_path),
+                     "ssgd", "--n-iterations", "5", "--quiet"]) == 0
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    assert names.count("ssgd.call") == 1
+    assert names.count("ssgd.launch") == 5
+    assert names.count("ssgd.draws") == 6
+    assert names.count("ssgd.guard") == 1
+
+
+def test_sink_writes_the_call_with_its_children(tmp_path, capsys):
+    events.configure(str(tmp_path))
+    _fused_train_call()
+    events.configure(False)
+    lines = [e for e in _lines(tmp_path) if e["ev"].startswith("span_")]
+    assert [(e["ev"], e["name"]) for e in lines] == [
+        ("span_start", "ssgd.prepare"), ("span_end", "ssgd.prepare"),
+        ("span_start", "ssgd.call"), ("span_end", "ssgd.call")]
+    assert set(lines[1]["children"]) == {"pack.host", "pack.h2d"}
+    end = lines[3]
+    assert end["ok"] and end["sampler"] == "fused_train"
+    assert {k: n for k, (n, _) in end["children"].items()} == SSGD_FINE
+    assert sum(s for _, s in end["children"].values()) <= end["seconds"]
+    capsys.readouterr()
+    assert cli.main(["report", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "  ssgd.call: " in out and "over 1 span(s)" in out
+    assert "    ssgd.launch: " in out and "over 2 span(s)" in out
+
+
+def test_failing_call_span_writes_and_records_the_error(tmp_path):
+    events.configure(str(tmp_path))
+    with pytest.raises(ValueError), events.recording():
+        with events.span("ssgd.call"):
+            with events.span("ssgd.launch", fine=True):
+                raise ValueError("boom")
+    events.configure(False)
+    (end,) = [e for e in _lines(tmp_path) if e["ev"] == "span_end"]
+    assert end["ok"] is False and end["error"] == "ValueError: boom"
+    assert end["children"]["ssgd.launch"][0] == 1
+    assert [s.ok for s in events.recorded()] == [False, False]
+
+
+def test_recording_counts_a_local_sgd_round_loop():
+    import numpy as np
+    import torch
+
+    from tpu_distalg_torch.models import local_sgd
+    from tpu_distalg_torch.parallel import get_mesh
+
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(2048, 7)).astype(np.float32)
+    y = (rng.random(2048) < 0.5).astype(np.float32)
+    mesh = get_mesh(data=2, device="cpu")
+    cfg = local_sgd.LocalSGDConfig(n_iterations=3, n_local_iterations=2,
+                                   sampler="fused_train",
+                                   gather_block_rows=64)
+    fn, X2, w0, ws0, delta0, meta = local_sgd.prepare_fused(X, y, mesh, cfg)
+    X_te = torch.zeros((128, meta["d_total"]))
+    X_te[:, :7] = torch.from_numpy(X[:128])
+    with events.recording():
+        fn(X2, X_te, torch.from_numpy(y[:128]), w0, ws0, delta0)
+    spans = events.recorded()
+    assert _counts(spans) == {
+        "local_sgd.call": 1, "local_sgd.draws": 1,
+        "local_sgd.local_steps": 3, "local_sgd.average": 3,
+        "local_sgd.combine": 3, "local_sgd.eval": 3}
+    (call,) = events.recorded("local_sgd.call")
+    assert all(s.parent is call for s in spans if s is not call)
+
+
+def test_importing_telemetry_imports_no_torch():
+    """Importing the package, and an idle span, load no torch: a span
+    finds torch in ``sys.modules`` once a trainer has loaded it."""
+    import subprocess
+    import sys
+
+    code = ("import sys, tpu_distalg_torch.telemetry as t; "
+            "t.span('x').__enter__(); print('torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=os.path.dirname(
+                             os.path.dirname(os.path.abspath(__file__))))
+    assert out.stdout.strip() == "False"
+
+
+def test_recorded_buffer_keeps_the_newest(monkeypatch):
+    monkeypatch.setattr(events, "MAX_RECORDED", 3)
+    with events.recording():
+        for i in range(5):
+            with events.span(f"s{i}"):
+                pass
+    assert [s.name for s in events.recorded()] == ["s2", "s3", "s4"]
+
+
+def test_recording_from_many_threads_keeps_every_span():
+    """More threads than cores open spans at once under a short switch
+    interval: none is lost, and each nests under its own thread's."""
+    import sys
+    import threading
+
+    n_threads, per = 4 * (os.cpu_count() or 1), 50
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(k):
+            with events.span(f"outer{k}"):
+                for _ in range(per):
+                    with events.span("inner", fine=True):
+                        pass
+
+        with events.recording():
+            threads = [threading.Thread(target=work, args=(k,), daemon=True)
+                       for k in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    inner = events.recorded("inner")
+    assert len(inner) == n_threads * per
+    assert all(s.parent.name.startswith("outer") for s in inner)
+    by_outer = _counts(s.parent for s in inner)
+    assert set(by_outer.values()) == {per}

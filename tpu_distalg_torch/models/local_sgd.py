@@ -71,6 +71,7 @@ from tpu_distalg_torch.parallel import (
     spmd,
     tree_allreduce_sum,
 )
+from tpu_distalg_torch.telemetry import events as tevents
 from tpu_distalg_torch.utils import metrics, prng
 
 
@@ -187,34 +188,47 @@ def _build_rounds(config: LocalSGDConfig, mesh: Mesh, local_models,
     t0=0)`` → ``(w, ws, delta, accs)``; with ``sync`` (a CommSync) the
     average is the schedule's ``reduce_mean`` keyed on the round id, and
     ``train(data, X_test, y_test, w0, ws0, delta0, res0, t0=0)`` →
-    ``(w, ws, delta, res, accs)``."""
+    ``(w, ws, delta, res, accs)``. A call is the ``local_sgd.call``
+    span; the draws and, each round, the local steps, the average, the
+    combine and the evaluation are its fine spans ``local_sgd.draws``,
+    ``.local_steps``, ``.average``, ``.combine`` and ``.eval``."""
     n_replicas = mesh.n_data
     combine = _make_combine(config, _derive_beta(config, n_replicas))
 
     def rounds(data, X_test, y_test, w0, ws0, delta0, res0, t0=0):
-        T = config.n_iterations
-        dev = w0.device
-        ts = torch.arange(t0, t0 + T, dtype=torch.int64, device=dev)
-        payloads = prep_xs(ts) if prep_xs is not None else range(t0, t0 + T)
-        w, ws, delta, res = w0, ws0, delta0, res0
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        accs = []
-        for i in range(T):
-            per = local_models(data, payloads[i], ws, w)
-            if sync is None:
-                (total,) = tree_allreduce_sum(((w_l,) for w_l in per),
-                                              mesh)
-                w_avg = total / n_replicas
-            else:
-                (w_avg,), res = sync.reduce_mean(
-                    [(w_l,) for w_l in per], res, t0 + i)
-            ws = torch.stack(per)
-            w, delta = combine(w, w_avg, delta)
-            accs.append(metrics.binary_accuracy(X_test @ w, y_test)
-                        if config.eval_test else zero)
-        accs = (torch.stack(accs) if accs
-                else torch.zeros((0,), dtype=torch.float32, device=dev))
-        return w, ws, delta, res, accs
+        with tevents.span("local_sgd.call", update=config.global_update,
+                          rounds=config.n_iterations):
+            T = config.n_iterations
+            dev = w0.device
+            with tevents.span("local_sgd.draws", fine=True):
+                ts = torch.arange(t0, t0 + T, dtype=torch.int64, device=dev)
+                payloads = (prep_xs(ts) if prep_xs is not None
+                            else range(t0, t0 + T))
+            w, ws, delta, res = w0, ws0, delta0, res0
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            accs = []
+            for i in range(T):
+                with tevents.span("local_sgd.local_steps", fine=True):
+                    per = local_models(data, payloads[i], ws, w)
+                with tevents.span("local_sgd.average", fine=True):
+                    if sync is None:
+                        (total,) = tree_allreduce_sum(
+                            ((w_l,) for w_l in per), mesh)
+                        w_avg = total / n_replicas
+                    else:
+                        (w_avg,), res = sync.reduce_mean(
+                            [(w_l,) for w_l in per], res, t0 + i)
+                with tevents.span("local_sgd.combine", fine=True):
+                    ws = torch.stack(per)
+                    w, delta = combine(w, w_avg, delta)
+                if config.eval_test:
+                    with tevents.span("local_sgd.eval", fine=True):
+                        accs.append(metrics.binary_accuracy(X_test @ w, y_test))
+                else:
+                    accs.append(zero)
+            accs = (torch.stack(accs) if accs
+                    else torch.zeros((0,), dtype=torch.float32, device=dev))
+            return w, ws, delta, res, accs
 
     if sync is not None:
         return rounds
@@ -493,7 +507,6 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
     schedule adds the residual to the carry; ``sync='ssp…'`` trains in
     windows (:func:`_train_ssp`)."""
     from tpu_distalg_torch.parallel import comms, ssp
-    from tpu_distalg_torch.telemetry import events as tevents
 
     tevents.mark(f"local_sgd:{config.global_update}", emit_event=False)
     _check_config(config)

@@ -96,6 +96,7 @@ from tpu_distalg_torch.parallel import (
     spmd,
     tree_allreduce_sum,
 )
+from tpu_distalg_torch.telemetry import events as tevents
 from tpu_distalg_torch.utils import metrics, prng
 
 
@@ -283,34 +284,45 @@ def _build_scan(config: SSGDConfig, sample_and_grad, prep_xs=None,
     instead; they go through ``sync.reduce`` with the regularization
     gradient as its ``compute`` thunk, and the error-feedback residual
     rides the loop: call ``train(..., w0, res0, t0=0, acc0=0.0)`` →
-    ``(w, accs, res)``."""
+    ``(w, accs, res)``. Fine spans: ``ssgd.draws`` (the payloads, and
+    a step's fetch of its own, where a group is drawn), ``ssgd.launch``
+    (a step's gradient and update) and ``ssgd.eval``."""
     if config.eval_every < 1:
         raise ValueError(
             f"eval_every must be >= 1, got {config.eval_every}")
 
     def train(X, y, valid, X_test, y_test, w0, res0=None, t0=0, acc0=0.0):
         T = config.n_iterations
-        ts = torch.arange(t0, t0 + T, dtype=torch.int64, device=w0.device)
-        payloads = prep_xs(ts) if prep_xs is not None else range(t0, t0 + T)
+        with tevents.span("ssgd.draws", fine=True):
+            ts = torch.arange(t0, t0 + T, dtype=torch.int64,
+                              device=w0.device)
+            payloads = (prep_xs(ts) if prep_xs is not None
+                        else range(t0, t0 + T))
         w, res = w0, res0
         last = torch.as_tensor(acc0, dtype=torch.float32).to(w0.device)
         zero = torch.zeros((), dtype=torch.float32, device=w0.device)
         accs = []
         for i in range(T):
             t = t0 + i
-            out = sample_and_grad(X, y, valid, w, payloads[i])
-            reg = functools.partial(logistic.reg_gradient, w,
-                                    config.reg_type, config.elastic_alpha)
-            if sync is None:
-                (g, cnt), reg = out, reg()
-            else:
-                (g, cnt), res, reg = sync.reduce(out, res, t, compute=reg)
-            n_batch = torch.clamp_min(cnt, 1.0)
-            w = w - config.eta * (g / n_batch + config.lam * reg)
+            with tevents.span("ssgd.draws", fine=True):
+                payload = payloads[i]   # a grouped draw is made here
+            with tevents.span("ssgd.launch", fine=True):
+                out = sample_and_grad(X, y, valid, w, payload)
+                reg = functools.partial(logistic.reg_gradient, w,
+                                        config.reg_type,
+                                        config.elastic_alpha)
+                if sync is None:
+                    (g, cnt), reg = out, reg()
+                else:
+                    (g, cnt), res, reg = sync.reduce(out, res, t,
+                                                     compute=reg)
+                n_batch = torch.clamp_min(cnt, 1.0)
+                w = w - config.eta * (g / n_batch + config.lam * reg)
             if not config.eval_test:
                 last = zero
             elif config.eval_every == 1 or t % config.eval_every == 0:
-                last = metrics.binary_accuracy(X_test @ w, y_test)
+                with tevents.span("ssgd.eval", fine=True):
+                    last = metrics.binary_accuracy(X_test @ w, y_test)
             accs.append(last)
         accs = (torch.stack(accs) if accs
                 else torch.zeros((0,), dtype=torch.float32,
@@ -687,7 +699,9 @@ def _make_train_fn_mega(mesh: Mesh, config: SSGDConfig, meta: dict,
                         n_shards: int):
     """``fused_train``: ``fused_gather``'s draws and update, with every
     ``mega_steps`` steps in one launch of kernel B2; accuracy at launch
-    boundaries, carried between them as in the JAX package."""
+    boundaries, carried between them as in the JAX package. Fine spans:
+    ``ssgd.draws`` (every step's block ids, before the first launch),
+    ``ssgd.launch`` (a B2 launch) and ``ssgd.eval``."""
     n_blocks, n_sampled = fused_gather_geometry(config, meta, n_shards)
     if n_shards != 1:
         raise ValueError(
@@ -719,19 +733,25 @@ def _make_train_fn_mega(mesh: Mesh, config: SSGDConfig, meta: dict,
 
     def train(X2, y, valid, X_test, y_test, w0, t0=0, acc0=0.0):
         del y, valid
-        ts = torch.arange(t0, t0 + T, dtype=torch.int64, device=w0.device)
-        idx = sampling.sample_block_ids(
-            prng.fold_in(key, ts), 1, n_blocks, n_sampled,
-        ).reshape(T // mega, mega, n_sampled).contiguous()
+        with tevents.span("ssgd.draws", fine=True):
+            ts = torch.arange(t0, t0 + T, dtype=torch.int64,
+                              device=w0.device)
+            idx = sampling.sample_block_ids(
+                prng.fold_in(key, ts), 1, n_blocks, n_sampled,
+            ).reshape(T // mega, mega, n_sampled).contiguous()
         w = w0
         seg_accs = []
         for seg in range(T // mega):
-            w = ssgd_kernels.fused_train_gathered(X2, w, idx[seg],
-                                                  eta=config.eta, **kargs)
-            seg_accs.append(
-                metrics.binary_accuracy(X_test @ w, y_test)
-                if config.eval_test else
-                torch.zeros((), dtype=torch.float32, device=w0.device))
+            with tevents.span("ssgd.launch", fine=True):
+                w = ssgd_kernels.fused_train_gathered(
+                    X2, w, idx[seg], eta=config.eta, **kargs)
+            if config.eval_test:
+                with tevents.span("ssgd.eval", fine=True):
+                    seg_accs.append(
+                        metrics.binary_accuracy(X_test @ w, y_test))
+            else:
+                seg_accs.append(torch.zeros((), dtype=torch.float32,
+                                            device=w0.device))
         seg_accs = torch.stack(seg_accs)
         if config.eval_test:
             # position t carries the last accuracy computed at or
@@ -793,7 +813,6 @@ def train(X_train, y_train, X_test, y_test, mesh: Mesh,
     carry adds the error-feedback residual; with ``sync='ssp…'`` training
     runs in windows (:func:`_train_ssp`)."""
     from tpu_distalg_torch.parallel import ssp as pssp
-    from tpu_distalg_torch.telemetry import events as tevents
 
     tevents.mark(f"ssgd:{config.sampler}", emit_event=False)
     _check_feature_sharded(config)
@@ -841,67 +860,78 @@ def _train_steps(mesh: Mesh, config: SSGDConfig, d: int, data_args, w0, *,
     carry is (w, last accuracy); with ``comm`` other than ``dense`` it
     also holds the error-feedback residual (zero-width when the
     schedule is stateless, as in JAX), placed by the ``ssgd`` table, so
-    a resumed ``topk`` run replays bitwise."""
+    a resumed ``topk`` run replays bitwise. The call is the
+    ``ssgd.call`` span; the trainer's build, ``ssgd.build``, and the
+    guard, ``ssgd.guard``, are fine spans in it."""
     from tpu_distalg_torch.parallel import comms
 
-    sync = None if config.comm == "dense" else _comm_sync(mesh, config, d)
+    def build(seg):
+        with tevents.span("ssgd.build", fine=True):
+            return make_fn(seg)
 
-    def place(res):
-        return [partition.place({"res": r}, "ssgd", mesh)["res"]
-                for r in res]
+    with tevents.span("ssgd.call", sampler=config.sampler,
+                      steps=config.n_iterations):
+        sync = None if config.comm == "dense" else _comm_sync(mesh, config, d)
 
-    res0 = () if sync is None else tuple(place([sync.init_state()]))
-    if checkpoint_dir is None:
-        fn = fn if fn is not None else make_fn(config.n_iterations)
-        w, accs, *_ = fn(*data_args, w0, *res0)
-        start = 0
-        metrics.guard_finite(w, what)
-    else:
-        from tpu_distalg_torch.utils import checkpoint as ckpt
+        def place(res):
+            return [partition.place({"res": r}, "ssgd", mesh)["res"]
+                    for r in res]
 
-        def run_seg(seg_fn, state, t0):
-            w, acc0, *res = state
-            w, accs, *res = seg_fn(*data_args, w, *place(res), t0=t0,
-                                   acc0=acc0)
-            return (w, accs[-1], *res), accs
+        res0 = () if sync is None else tuple(place([sync.init_state()]))
+        if checkpoint_dir is None:
+            fn = fn if fn is not None else build(config.n_iterations)
+            w, accs, *_ = fn(*data_args, w0, *res0)
+            start = 0
+            with tevents.span("ssgd.guard", fine=True):
+                metrics.guard_finite(w, what)
+        else:
+            from tpu_distalg_torch.utils import checkpoint as ckpt
 
-        (w, *_), accs, start = ckpt.run_segmented(
-            checkpoint_dir, checkpoint_every, config.n_iterations,
-            make_seg_fn=make_fn, run_seg=run_seg,
-            state0=(w0, torch.zeros((), dtype=torch.float32,
-                                    device=mesh.device), *res0),
-            tag=f"ssgd:{config.sampler}" + (
-                "" if sync is None else f":comm={config.comm}"),
-            mesh=mesh, sharded=(False, False, True))
-        accs = torch.from_numpy(accs)
-    if sync is not None:
-        # only the syncs this process ran (a resume skips the rest)
-        comms.emit_sync_counters(sync, config.n_iterations - start)
-    return TrainResult(w=w[:crop], accs=accs)
+            def run_seg(seg_fn, state, t0):
+                w, acc0, *res = state
+                w, accs, *res = seg_fn(*data_args, w, *place(res), t0=t0,
+                                       acc0=acc0)
+                return (w, accs[-1], *res), accs
+
+            (w, *_), accs, start = ckpt.run_segmented(
+                checkpoint_dir, checkpoint_every, config.n_iterations,
+                make_seg_fn=build, run_seg=run_seg,
+                state0=(w0, torch.zeros((), dtype=torch.float32,
+                                        device=mesh.device), *res0),
+                tag=f"ssgd:{config.sampler}" + (
+                    "" if sync is None else f":comm={config.comm}"),
+                mesh=mesh, sharded=(False, False, True))
+            accs = torch.from_numpy(accs)
+        if sync is not None:
+            # only the syncs this process ran (a resume skips the rest)
+            comms.emit_sync_counters(sync, config.n_iterations - start)
+        return TrainResult(w=w[:crop], accs=accs)
 
 
 def prepare_fused(X_train, y_train, mesh: Mesh, config: SSGDConfig):
     """Pack (X, y, validity) once into the kernels' layout on the mesh's
     device, build the augmented initial weights and the trainer.
     Returns ``(fn, X2, w0, meta)``; call as ``fn(X2, None, None,
-    X_test_padded, y_test, w0)``."""
-    n_shards = mesh.n_data
-    d_orig = X_train.shape[1]
-    n = X_train.shape[0]
-    block = (config.gather_block_rows
-             if config.sampler in ("fused_gather", "fused_train")
-             else config.fused_block_rows)
-    X2, meta = ssgd_kernels.pack_augmented(
-        np.asarray(X_train), np.asarray(y_train), np.ones(n, np.float32),
-        dtype=config.x_dtype, pack=config.fused_pack,
-        block_rows=block * n_shards, shuffle_seed=config.shuffle_seed,
-        mesh=mesh, table="ssgd")
-    w0 = torch.zeros((meta["d_total"],), dtype=torch.float32,
-                     device=mesh.device)
-    w0[:d_orig] = logistic.init_weights(
-        prng.root_key(config.init_seed, mesh.device), d_orig)
-    fn = make_train_fn_fused(mesh, config, meta)
-    return fn, X2, w0, meta
+    X_test_padded, y_test, w0)``. The ``ssgd.prepare`` span; the packing
+    is its fine spans ``pack.host`` and ``pack.h2d``."""
+    with tevents.span("ssgd.prepare", sampler=config.sampler):
+        n_shards = mesh.n_data
+        d_orig = X_train.shape[1]
+        n = X_train.shape[0]
+        block = (config.gather_block_rows
+                 if config.sampler in ("fused_gather", "fused_train")
+                 else config.fused_block_rows)
+        X2, meta = ssgd_kernels.pack_augmented(
+            np.asarray(X_train), np.asarray(y_train),
+            np.ones(n, np.float32), dtype=config.x_dtype,
+            pack=config.fused_pack, block_rows=block * n_shards,
+            shuffle_seed=config.shuffle_seed, mesh=mesh, table="ssgd")
+        w0 = torch.zeros((meta["d_total"],), dtype=torch.float32,
+                         device=mesh.device)
+        w0[:d_orig] = logistic.init_weights(
+            prng.root_key(config.init_seed, mesh.device), d_orig)
+        fn = make_train_fn_fused(mesh, config, meta)
+        return fn, X2, w0, meta
 
 
 def prepare_fused_synthetic(n_rows: int, n_features: int, mesh: Mesh,

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from tpu_distalg_torch.ops import _native
+from tpu_distalg_torch.telemetry import events as tevents
 from tpu_distalg_torch.utils import prng
 from tpu_distalg_torch.utils.device import resolve_device
 
@@ -95,28 +96,33 @@ def pack_augmented(X, y, valid, *, dtype=torch.bfloat16, pack: int = 16,
     one model slice of the tp split): a process of a group keeps only
     its data shards' rows."""
     dev = resolve_device(device) if mesh is None else mesh.device
-    X = np.asarray(X, np.float32)
-    if shuffle_seed is not None:
-        perm = np.random.default_rng(shuffle_seed).permutation(X.shape[0])
-        X, y = X[perm], np.asarray(y)[perm]
-        valid = np.asarray(valid)[perm]
-    n, d = X.shape
-    d_t, y_col, v_col = packed_dims(d, pack)
-    n_t = n + ((-n) % max(block_rows, pack))
-    out = np.zeros((n_t, d_t), np.float32)
-    out[:n, :d] = X
-    out[:n, y_col] = np.asarray(y, np.float32)
-    out[:n, v_col] = np.asarray(valid, np.float32)[:n]
-    X2 = out.reshape(n_t // pack, pack * d_t)
-    if mesh is None:
-        X2 = torch.from_numpy(X2).to(dev)
-    else:
-        from tpu_distalg_torch.parallel import partition
+    with tevents.span("pack.host", fine=True):
+        X = np.asarray(X, np.float32)
+        if shuffle_seed is not None:
+            perm = np.random.default_rng(shuffle_seed).permutation(
+                X.shape[0])
+            X, y = X[perm], np.asarray(y)[perm]
+            valid = np.asarray(valid)[perm]
+        n, d = X.shape
+        d_t, y_col, v_col = packed_dims(d, pack)
+        n_t = n + ((-n) % max(block_rows, pack))
+        out = np.zeros((n_t, d_t), np.float32)
+        out[:n, :d] = X
+        out[:n, y_col] = np.asarray(y, np.float32)
+        out[:n, v_col] = np.asarray(valid, np.float32)[:n]
+        X2 = out.reshape(n_t // pack, pack * d_t)
+    with tevents.span("pack.h2d", fine=True):
+        if mesh is None:
+            X2 = torch.from_numpy(X2).to(dev)
+        else:
+            from tpu_distalg_torch.parallel import partition
 
-        X2 = partition.put(X2, "X2", table, mesh, model_slice=model_slice)
+            X2 = partition.put(X2, "X2", table, mesh,
+                               model_slice=model_slice)
+        X2 = X2.to(as_dtype(dtype))
     meta = dict(pack=pack, d_total=d_t, y_col=y_col, v_col=v_col,
                 n_padded=n_t)
-    return X2.to(as_dtype(dtype)), meta
+    return X2, meta
 
 
 # ---------------------------------------------------------------- plain

@@ -16,6 +16,8 @@ from tpu_distalg_torch.telemetry.events import (
     get_sink,
     last_mark,
     mark,
+    recorded,
+    recording,
     span,
 )
 from tpu_distalg_torch.telemetry.heartbeat import Heartbeat, start_heartbeat
@@ -28,6 +30,6 @@ from tpu_distalg_torch.telemetry.supervisor import (
 __all__ = [
     "BackendUnavailableError", "Heartbeat", "configure", "counter", "emit",
     "enabled", "events", "gauge", "get_sink", "heartbeat", "init_backend",
-    "last_mark", "mark", "report", "span", "start_heartbeat", "supervised",
-    "supervisor",
+    "last_mark", "mark", "recorded", "recording", "report", "span",
+    "start_heartbeat", "supervised", "supervisor",
 ]

@@ -1,7 +1,8 @@
 """Event-log summaries: ``tda report <dir>`` (port of
 ``tpu_distalg/telemetry/report.py``).
 
-Turns a telemetry JSONL log into phase durations (from spans), stall,
+Turns a telemetry JSONL log into phase durations (from spans, with the
+fine spans a call-level span counted as its ``children``), stall,
 retry, restart and preemption counts, the backend-init attempts and
 their resolution, the injected faults, the last heartbeat and every
 recorded metric and gauge, for people (:func:`render`) and for CI
@@ -91,6 +92,11 @@ def summarize(evts: list[dict]) -> dict:
             p["max_seconds"] = round(max(p["max_seconds"], s), 6)
             if not e.get("ok", True):
                 p["errors"] += 1
+            for child, (n, secs) in (e.get("children") or {}).items():
+                c = p.setdefault("children", {}).setdefault(
+                    child, {"count": 0, "total_seconds": 0.0})
+                c["count"] += int(n)
+                c["total_seconds"] = round(c["total_seconds"] + secs, 6)
         elif ev == "mark":
             marks += 1
         elif ev == "heartbeat":
@@ -182,6 +188,10 @@ def render(s: dict) -> str:
             lines.append(
                 f"  {name}: {p['total_seconds']}s total over "
                 f"{p['count']} span(s), max {p['max_seconds']}s{err}")
+            for child, c in sorted(p.get("children", {}).items(),
+                                   key=lambda kv: -kv[1]["total_seconds"]):
+                lines.append(f"    {child}: {c['total_seconds']}s over "
+                             f"{c['count']} span(s)")
     for name in s["unfinished_phases"]:
         lines.append(f"  {name}: UNFINISHED (no span_end recorded)")
     hb = s["last_heartbeat"]
