@@ -1525,6 +1525,10 @@ def run_ssgd(dev) -> dict:
 #: bench.py's run_mesh2d_bench times them
 TP_WIDE_ROWS, TP_WIDE_D, TP_WIDE_GBR, TP_WIDE_STEPS, TP_WIDE_REPEATS = (
     65536, 8192, 1024, 30, 3)
+#: blocks of TP_WIDE_GBR rows of B1's and B2's case past the wide ring,
+#: rows of 2·TP_WIDE_D columns (32,784 bytes in bf16), which the wide
+#: body takes
+TP_FALLBACK_BLOCKS = 8
 #: the 2×4 breast-cancer run's accuracy is read over its last steps, as
 #: phase 6 reads `fused`'s (see _check_tp_cli)
 TP_TAIL, TP_TAIL_MEANS = 200, 0.03
@@ -1884,8 +1888,10 @@ def _wide_pure_dp(dev, Xw, yw, cfg_w) -> dict:
     """bench.py's pure-dp arm of ``ssgd_2d_mesh_step_speedup``
     (bench.py:1051-1062) at the wide geometry: the same rows on a 4x1
     mesh through the one-pass fused_gather trainer (B1 on 16 KB rows),
-    its steps/s; then B1, B2 and B6 on these wide rows against their
-    plain versions, timed beside them, a library call and the bound."""
+    its steps/s; then B1 and B2 on these wide rows (the wide ring) and on
+    rows past the wide ring (the wide body), and B6 on these rows, against
+    their plain versions, timed beside them, a library call and the
+    bound."""
     import dataclasses
 
     import torch
@@ -1926,70 +1932,16 @@ def _wide_pure_dp(dev, Xw, yw, cfg_w) -> dict:
           f"({[TP_WIDE_STEPS / x for x in secs]!r}); B1 "
           f"{launches['fused_grad_sum_gathered']} launches a run")
 
-    recs = {}
-    kw = dict(pack=meta["pack"], d_total=D, y_col=yc, v_col=vc,
-              gather_block_rows=TP_WIDE_GBR)
-    n_all = X2.shape[0] * meta["pack"] // TP_WIDE_GBR
-    ids = torch.arange(n_all, dtype=torch.int32, device=dev)
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    w = torch.randn((D,), generator=g, device=dev) * 0.01
-    w[yc:] = 0
-    blocks = X2.reshape(-1, TP_WIDE_GBR, D)
-    wq = w.to(X2.dtype)
-
-    def lib1(ids_l, w16):
-        x = torch.index_select(blocks, 0, ids_l).reshape(-1, D)
-        r = (torch.sigmoid(torch.mv(x, w16).float()) - x[:, yc].float()) \
-            * x[:, vc].float()
-        return torch.mv(x.T, r.to(x.dtype)).float(), x[:, vc].float().sum()
-
-    rows = n_all * TP_WIDE_GBR
-    x_bytes = rows * D * X2.element_size()
-    g1, c1 = tk.fused_grad_sum_gathered(X2, w, ids, **kw)
-    r1, rc1 = tk.grad_sum_gathered_reference(X2, w, ids, **kw)
-    if float(c1) != float(rc1):
-        raise AssertionError(f"B1 wide: count {c1} != {rc1}")
-    b = _bound_ms(x_bytes + 4 * (n_all + 2 * D + 1), 4 * rows * D)
-    recs["B1"] = dict(
-        max_abs_err=_assert_close("B1 wide", g1[:yc], r1[:yc], "random"),
-        ms=_time_ms(lambda: tk.fused_grad_sum_gathered(X2, w, ids, **kw), 10,
-                    warm=2),
-        plain_ms=_time_ms(lambda: tk.grad_sum_gathered_reference(
-            X2, w, ids, **kw), 3, warm=1),
-        library_ms=_time_ms(lambda: lib1(ids.long(), wq), 3, warm=1),
-        bound_ms=b[0], bound_by=b[1])
-    T = 3
-    ids_seg = ids[None].repeat(T, 1).contiguous()
-    wk = tk.fused_train_gathered(X2, w, ids_seg, eta=0.1, **kw)
-    wr = tk.train_gathered_reference(X2, w, ids_seg, eta=0.1, **kw)
-    b = _bound_ms(T * x_bytes + 4 * (T * n_all + 3 * D),
-                  T * (4 * rows * D + 3 * D))
-    keep = torch.arange(D, device=dev) < yc
-    ids_long = ids.long()
-
-    def lib2():  # T steps of B1's library line and the update, as phase 6
-        wt = w
-        for _ in range(T):
-            gt, ct = lib1(ids_long, torch.where(keep, wt, 0.0).to(X2.dtype))
-            wt = wt - (0.1 / torch.clamp_min(ct, 1.0)) * torch.where(
-                keep, gt, 0.0)
-        return wt
-
-    recs["B2"] = dict(
-        max_abs_err=_assert_close(f"B2 wide ({T} steps)", wk, wr,
-                                  _steps_kind(X2)),
-        ms=_time_ms(lambda: tk.fused_train_gathered(X2, w, ids_seg, eta=0.1,
-                                                    **kw), 5, warm=1),
-        plain_ms=_time_ms(lambda: tk.train_gathered_reference(
-            X2, w, ids_seg, eta=0.1, **kw), 2, warm=1),
-        library_ms=_time_ms(lib2, 2, warm=1), bound_ms=b[0], bound_by=b[1])
-    del fn, X2, w0, blocks
+    X2_blocks = X2.shape[0] * meta["pack"] // TP_WIDE_GBR
+    recs = _wide_b1_b2(dev, X2, meta, TP_WIDE_GBR, "wide_ring", "wide")
+    del fn, X2, w0
     torch.cuda.empty_cache()
+    recs.update({f"{k}_fallback": v for k, v in _wide_fallback(dev).items()})
     Xf = torch.as_tensor(Xw, device=dev)
     n, d = Xf.shape
     yf = torch.as_tensor(yw, device=dev)
     mask = (torch.arange(n, device=dev) % 3 != 0).float()
-    wf = w[:d].contiguous()
+    wf = _wide_weights(dev, D, yc)[:d].contiguous()
     g6, c6 = tk.fused_grad_sum(Xf, yf, mask, wf)
     r6, rc6 = tk.grad_sum_reference(Xf, yf, mask, wf)
     if float(c6) != float(rc6):
@@ -2008,9 +1960,16 @@ def _wide_pure_dp(dev, Xw, yw, cfg_w) -> dict:
         library_ms=_time_ms(lib6, 3, warm=1), bound_ms=b[0], bound_by=b[1])
     del Xf
     torch.cuda.empty_cache()
+    n_all, D_fb = X2_blocks, tk.packed_dims(2 * TP_WIDE_D, 16)[0]
     for name, shape in (("B1", f"{n_all} blocks of {TP_WIDE_GBR} rows, "
-                               f"D={D} bf16"),
-                        ("B2", f"{T} steps × {n_all} blocks, D={D} bf16"),
+                               f"D={D} bf16, wide ring"),
+                        ("B2", f"3 steps × {n_all} blocks, D={D} bf16, wide "
+                               f"ring"),
+                        ("B1_fallback", f"{TP_FALLBACK_BLOCKS} blocks of "
+                                        f"{TP_WIDE_GBR} rows, D={D_fb} bf16, "
+                                        f"wide body"),
+                        ("B2_fallback", f"3 steps × {TP_FALLBACK_BLOCKS} "
+                                        f"blocks, D={D_fb} bf16, wide body"),
                         ("B6", f"X ({n}, {d}) float32")):
         r = recs[name]
         print(f"[kernels] ssgd {name} wide shape ({shape}): max |err| "
@@ -2018,6 +1977,108 @@ def _wide_pure_dp(dev, Xw, yw, cfg_w) -> dict:
               f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
               f"{r['bound_ms']!r} ms ({r['bound_by']})")
     return {"wide_dp_rate": rate, "wide_dp": recs}
+
+
+def _wide_b1_b2(dev, X2, meta, gbr, body, what) -> dict:
+    """B1 and B2 over every block of X2 (rows of ``gbr``) against their
+    plain versions, timed beside them, a library line and the bound;
+    each launch checked to take ``body``, which the row's width picks."""
+    import torch
+
+    from tpu_distalg_torch.ops import ssgd_kernels as tk
+
+    wrappers = {"B1": tk.fused_grad_sum_gathered,
+                "B2": tk.fused_train_gathered}
+    D, yc, vc = meta["d_total"], meta["y_col"], meta["v_col"]
+    recs = {}
+    kw = dict(pack=meta["pack"], d_total=D, y_col=yc, v_col=vc,
+              gather_block_rows=gbr)
+    n_all = X2.shape[0] * meta["pack"] // gbr
+    ids = torch.arange(n_all, dtype=torch.int32, device=dev)
+    w = _wide_weights(dev, D, yc)
+    blocks = X2.reshape(-1, gbr, D)
+    wq = w.to(X2.dtype)
+
+    def lib1(ids_l, w16):
+        x = torch.index_select(blocks, 0, ids_l).reshape(-1, D)
+        r = (torch.sigmoid(torch.mv(x, w16).float()) - x[:, yc].float()) \
+            * x[:, vc].float()
+        return torch.mv(x.T, r.to(x.dtype)).float(), x[:, vc].float().sum()
+
+    rows = n_all * gbr
+    x_bytes = rows * D * X2.element_size()
+    before = {k: dict(f.launches_by_body) for k, f in wrappers.items()}
+    g1, c1 = tk.fused_grad_sum_gathered(X2, w, ids, **kw)
+    r1, rc1 = tk.grad_sum_gathered_reference(X2, w, ids, **kw)
+    if float(c1) != float(rc1):
+        raise AssertionError(f"B1 {what}: count {c1} != {rc1}")
+    b = _bound_ms(x_bytes + 4 * (n_all + 2 * D + 1), 4 * rows * D)
+    recs["B1"] = dict(
+        max_abs_err=_assert_close(f"B1 {what}", g1[:yc], r1[:yc], "random"),
+        ms=_time_ms(lambda: tk.fused_grad_sum_gathered(X2, w, ids, **kw), 10,
+                    warm=2),
+        plain_ms=_time_ms(lambda: tk.grad_sum_gathered_reference(
+            X2, w, ids, **kw), 3, warm=1),
+        library_ms=_time_ms(lambda: lib1(ids.long(), wq), 3, warm=1),
+        bound_ms=b[0], bound_by=b[1])
+    T = 3
+    ids_seg = ids[None].repeat(T, 1).contiguous()
+    wk = tk.fused_train_gathered(X2, w, ids_seg, eta=0.1, **kw)
+    for key, f in wrappers.items():
+        moved = {k: v - before[key][k]
+                 for k, v in f.launches_by_body.items() if v != before[key][k]}
+        if list(moved) != [body]:
+            raise AssertionError(f"{key} {what}: launches by body {moved}, "
+                                 f"not on the {body} body")
+    wr = tk.train_gathered_reference(X2, w, ids_seg, eta=0.1, **kw)
+    b = _bound_ms(T * x_bytes + 4 * (T * n_all + 3 * D),
+                  T * (4 * rows * D + 3 * D))
+    keep = torch.arange(D, device=dev) < yc
+    ids_long = ids.long()
+
+    def lib2():  # T steps of B1's library line and the update, as phase 6
+        wt = w
+        for _ in range(T):
+            gt, ct = lib1(ids_long, torch.where(keep, wt, 0.0).to(X2.dtype))
+            wt = wt - (0.1 / torch.clamp_min(ct, 1.0)) * torch.where(
+                keep, gt, 0.0)
+        return wt
+
+    recs["B2"] = dict(
+        max_abs_err=_assert_close(f"B2 {what} ({T} steps)", wk, wr,
+                                  _steps_kind(X2)),
+        ms=_time_ms(lambda: tk.fused_train_gathered(X2, w, ids_seg, eta=0.1,
+                                                    **kw), 5, warm=1),
+        plain_ms=_time_ms(lambda: tk.train_gathered_reference(
+            X2, w, ids_seg, eta=0.1, **kw), 2, warm=1),
+        library_ms=_time_ms(lib2, 2, warm=1), bound_ms=b[0], bound_by=b[1])
+    return recs
+
+
+def _wide_fallback(dev) -> dict:
+    """B1 and B2 on rows past the wide ring's WIDE_MAX_VECTORS vectors,
+    which the wide body takes: TP_FALLBACK_BLOCKS blocks of TP_WIDE_GBR
+    N(0, 1) rows of 2·TP_WIDE_D columns in bf16."""
+    from tpu_distalg_torch.ops import ssgd_kernels as tk
+
+    rows, d = TP_FALLBACK_BLOCKS * TP_WIDE_GBR, 2 * TP_WIDE_D
+    rng = np.random.default_rng(SEED + 6)
+    X = rng.standard_normal((rows, d)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    X2, meta = tk.pack_augmented(X, y, np.ones(rows, np.float32), pack=16,
+                                 block_rows=TP_WIDE_GBR, device=dev)
+    del X
+    return _wide_b1_b2(dev, X2, meta, TP_WIDE_GBR, "wide", "wide fallback")
+
+
+def _wide_weights(dev, D, yc):
+    """The wide records' (D,) float32 w: N(0, 0.01²), zero from y_col."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    w = torch.randn((D,), generator=g, device=dev) * 0.01
+    w[yc:] = 0
+    return w
 
 
 def _first_step_ids(cfg, meta, n_data, dev):
@@ -7315,6 +7376,9 @@ def main() -> int:
             "source": ssgd_src, "replaces": f"{pallas}:{line}",
             "launches": sg["launches"][path][name], **sg["recs"][key],
             **{f"wide_{k}": v for k, v in wide.items()
+               if k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            **{f"fallback_{k}": v
+               for k, v in tp["wide_dp"].get(f"{key}_fallback", {}).items()
                if k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **({"local_sgd_launches": local_launches}
                if local_launches else {}),

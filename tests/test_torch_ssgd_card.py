@@ -342,6 +342,94 @@ def test_b2_equals_t_calls_of_b1_on_card(n, d, pack, gbr, n_s, T, dtype,
     assert torch.equal(wk, wt)
 
 
+#: B1/B2 on rows over 2048 bytes (n, d, pack, gbr, n_s, T, dtype):
+#: epsilon's width (d_total 2008 bf16); the first width past the ring's
+#: 2048 bytes (d_total 1152 bf16); a float32 row of 2432 bytes; D 8200
+#: bf16, chip_smoke.py's wide geometry; then D 16400 bf16, past the wide
+#: ring's 2048 vectors, which the wide body takes. Each block of the wide
+#: ring takes several rounds of stages a step, the last stage short.
+WIDE_EDGES = [(12000, 2000, 16, 512, 12, 4, torch.bfloat16),
+              (3000, 1150, 16, 256, 9, 3, torch.bfloat16),
+              (4000, 600, 16, 128, 20, 3, torch.float32),
+              (2000, 8198, 16, 128, 12, 3, torch.bfloat16),
+              (600, 16398, 16, 64, 3, 2, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,pack,gbr,n_s,T,dtype", WIDE_EDGES)
+def test_b1_b2_wide_rows_on_card(n, d, pack, gbr, n_s, T, dtype,
+                                 cuda_device):
+    """B1 and B2 on wide rows against their plain versions, as the cases
+    above hold them: B1 also with block ids outside [0, n_blocks), which
+    count nothing; a replay equal bit for bit; each launch counted under
+    the body that the row's width picks."""
+    rng, X2, meta, w, kw = _packed(cuda_device, n, d, dtype, pack, gbr,
+                                   "random", seed=n_s)
+    n_blocks, D, yc = meta["n_padded"] // gbr, meta["d_total"], meta["y_col"]
+    body = "wide" if D * X2.element_size() // 16 > tk.WIDE_MAX_VECTORS \
+        else "wide_ring"
+    ids = torch.as_tensor(_ring_ids(rng, n_blocks, n_s, T),
+                          device=cuda_device)
+    b1 = dict(tk.fused_grad_sum_gathered.launches_by_body)
+    g, c = tk.fused_grad_sum_gathered(X2, w, ids[0], **kw)
+    gr, cr = tk.grad_sum_gathered_reference(X2, w, ids[0], **kw)
+    assert float(c) == float(cr)
+    _close(g[:yc], gr[:yc], 1e-5)
+    bad = torch.cat([ids[0], torch.tensor([-1, n_blocks, 2**30],
+                                          dtype=torch.int32,
+                                          device=cuda_device)])
+    gb, cb = tk.fused_grad_sum_gathered(X2, w, bad, **kw)
+    assert float(cb) == float(cr)
+    _close(gb[:yc], gr[:yc], 1e-5)
+    g2, c2 = tk.fused_grad_sum_gathered(X2, w, ids[0], **kw)
+    assert torch.equal(g, g2) and torch.equal(c, c2)
+    b2 = dict(tk.fused_train_gathered.launches_by_body)
+    wk = tk.fused_train_gathered(X2, w, ids, eta=0.1, **kw)
+    wr = tk.train_gathered_reference(X2, w, ids, eta=0.1, **kw)
+    _close(wk, wr, 1e-5 if dtype == torch.float32 else 1e-3)
+    assert torch.equal(wk, tk.fused_train_gathered(X2, w, ids, eta=0.1, **kw))
+    ws = tk.fused_train_gathered(X2, w, ids, eta=0.1, skip_update=True, **kw)
+    assert torch.equal(ws, w)
+    torch.cuda.synchronize()
+    for wrapper, before, count in ((tk.fused_grad_sum_gathered, b1, 3),
+                                   (tk.fused_train_gathered, b2, 3)):
+        got = {k: v - before[k] for k, v in wrapper.launches_by_body.items()}
+        assert got == {"ring": 0, "wide_ring": 0, "wide": 0, body: count}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha", [0.0, 0.3])
+@pytest.mark.parametrize("n,d,pack,gbr,n_s,T,dtype", WIDE_EDGES[:4])
+def test_b2_equals_t_calls_of_b1_wide_ring_on_card(n, d, pack, gbr, n_s, T,
+                                                   dtype, alpha,
+                                                   cuda_device):
+    """On the wide ring too, B2's weights after T steps equal, bit for
+    bit, T calls of B1 at the same w followed by B2's update: the two
+    kernels share the plan, the consumer body and the fold's order."""
+    rng, X2, meta, w, kw = _packed(cuda_device, n, d, dtype, pack, gbr,
+                                   "random", seed=T)
+    n_blocks, D, yc = meta["n_padded"] // gbr, meta["d_total"], meta["y_col"]
+    ids = torch.as_tensor(_ring_ids(rng, n_blocks, n_s, T),
+                          device=cuda_device)
+    ctr = torch.zeros_like(w)
+    ctr[:d] = torch.as_tensor(_weights(rng, d, "random"), device=cuda_device)
+    wk = tk.fused_train_gathered(X2, w, ids, eta=0.1, alpha=alpha,
+                                 center=ctr, **kw)
+    keep = torch.arange(D, device=cuda_device) < yc
+    eta_t = torch.tensor(0.1, dtype=torch.float32, device=cuda_device)
+    alpha_t = torch.tensor(alpha, dtype=torch.float32, device=cuda_device)
+    wt = w.clone()
+    for t in range(T):
+        g, c = tk.fused_grad_sum_gathered(X2, torch.where(keep, wt, 0.0),
+                                          ids[t], **kw)
+        w_new = wt - (eta_t / torch.clamp_min(c, 1.0)) * torch.where(
+            keep, g, 0.0)
+        if alpha:
+            w_new = w_new - alpha_t * (wt - ctr)
+        wt = w_new
+    assert torch.equal(wk, wt)
+
+
 @pytest.mark.gpu
 def test_b1_ticket_resets_and_two_streams_on_card(cuda_device):
     """B1 folds in the launch's last block and resets its ticket: back

@@ -275,12 +275,15 @@ def test_b1_b2_ring_edges_match_jax(n, d, pack, gbr, n_s, T, dtype):
 @pytest.mark.parametrize("n_rows,d_total,n_sm", [
     (106496, 128, 132), (106496, 128, 114), (672, 32, 132), (800, 64, 132),
     (31, 8, 132), (5000, 1024, 132), (8192 * 64, 408, 132), (20000, 24, 7),
-    (65536, 8200, 132)])
+    (65536, 8200, 132), (39936, 2008, 132), (1024, 16400, 132)])
 def test_gathered_plan_covers_every_row_once(n_rows, d_total, dtype, n_sm):
-    """B1/B2's plan: every sampled row falls in exactly one (block,
-    stage); stages are whole 16-byte vectors and the ring fits the 227
-    KB of shared memory; at most one block per SM; the same shapes and
-    SM count give the same plan (nothing else enters it)."""
+    """B1/B2's plan: the row's width alone picks the body (the ring up
+    to 2048 bytes, the wide ring up to 2048 vectors, then the wide
+    body); on either ring every sampled row falls in exactly one (block,
+    stage), stages are whole rows of whole 16-byte vectors, at least two
+    slots and the ring fit the 227 KB of shared memory, and there is at
+    most one block per SM; the same shapes and SM count give the same
+    plan (nothing else enters it)."""
     size = tk.as_dtype(dtype).itemsize
     if (d_total * size) % 16:
         with pytest.raises(ValueError, match="16-byte"):
@@ -289,16 +292,36 @@ def test_gathered_plan_covers_every_row_once(n_rows, d_total, dtype, n_sm):
     plan = tk.gathered_plan(n_rows, d_total, dtype, n_sm)
     assert plan == tk.gathered_plan.__wrapped__(n_rows, d_total,
                                                 tk.as_dtype(dtype), n_sm)
-    if d_total * size > tk.MAX_RING_ROW_BYTES:
-        assert plan["wide"] and plan["blocks"] == 4 * n_sm
+    row_bytes = d_total * size
+    wp = (d_total + 4) // 4 * 4
+    if row_bytes // 16 > tk.WIDE_MAX_VECTORS:
+        assert plan["body"] == "wide" and plan["blocks"] == 4 * n_sm
         return
-    assert not plan["wide"] and 1 <= plan["blocks"] <= n_sm
-    sr, row_bytes = plan["stage_rows"], d_total * size
+    assert 1 <= plan["blocks"] <= n_sm
+    sr = plan["stage_rows"]
     assert plan["stage_bytes"] == sr * row_bytes and plan["stage_bytes"] % 16 == 0
-    assert sr % plan["pass_rows"] == 0 and sr <= tk.RING_MAX_STAGE_ROWS
+    assert 1 <= sr <= tk.RING_MAX_STAGE_ROWS
     assert 2 <= plan["stages"] <= tk.RING_MAX_STAGES
     assert plan["smem"] <= tk.SMEM_MAX
-    assert plan["lanes"] * plan["vpl"] >= plan["vectors"]
+    if row_bytes > tk.MAX_RING_ROW_BYTES:
+        assert plan["body"] == "wide_ring"
+        # whole rows of about 16 KB a stage (one row past 16 KB), at most
+        # one a consumer warp; the partial's vectors in registers
+        assert sr == max(1, tk.RING_STAGE_BYTES // row_bytes)
+        assert sr <= tk.RING_WARPS
+        assert 1 <= plan["owned"] <= tk.WIDE_MAX_KV
+        assert plan["owned"] * tk.RING_WARPS * 32 >= plan["vectors"]
+        assert plan["smem"] == tk._wide_smem(
+            d_total, row_bytes, plan["stage_bytes"], plan["stages"])
+        assert (plan["stages"] == tk.RING_MAX_STAGES
+                or tk._wide_smem(d_total, row_bytes, plan["stage_bytes"],
+                                 plan["stages"] + 1) > tk.SMEM_MAX)
+        floats = tk.WORK_COUNTERS + (2 * plan["blocks"] + 1) * wp
+    else:
+        assert plan["body"] == "ring"
+        assert sr % plan["pass_rows"] == 0
+        assert plan["lanes"] * plan["vpl"] >= plan["vectors"]
+        floats = tk.WORK_COUNTERS + 2 * plan["blocks"] * wp
     seen = np.zeros(n_rows, np.int64)
     for b in range(plan["blocks"]):
         r0 = b * plan["chunk"]
@@ -307,5 +330,4 @@ def test_gathered_plan_covers_every_row_once(n_rows, d_total, dtype, n_sm):
         for i0 in range(r0, r1, sr):
             seen[i0:min(i0 + sr, r1)] += 1
     assert (seen == 1).all()
-    floats = tk.WORK_COUNTERS + 2 * plan["blocks"] * ((d_total + 4) // 4 * 4)
     assert plan["workspace"] == floats

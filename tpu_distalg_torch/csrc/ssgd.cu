@@ -90,14 +90,44 @@
 //   * B5 keeps the row body with rows read from device memory (U rows a
 //     lane group in flight), block partials and reduce_partials.
 //   * Rows of more than 128 vectors (2048 bytes) do not fit a lane group's
-//     registers. There B1, B5 and B2 take a wide body (wide_rows): a pass
-//     gives each warp one row, which it reads in turns of 32 vectors
-//     against w to find the residual; then every thread adds the pass's
-//     rows, in row order, to the columns it owns of the block's partial,
-//     summed in place in device memory (L2). B1 and B5 add the partials
-//     with reduce_partials; B2 keeps one cooperative launch and two grid
-//     syncs a step, each block's float32 master in device memory beside
-//     the partials. Any width is taken.
+//     registers. B1 and B2 take them, up to kWideMaxVectors vectors (32
+//     KB; 16,384 bf16 columns), on the same ring with a wide consumer
+//     body (wide_ring_body): the producer, slots, masks and barriers are
+//     the narrow ring's, so each sampled row is read from device memory
+//     once, by a bulk copy, and the next step's rows load while a step's
+//     fold and update run. Stages are whole rows, about 16 KB (4 rows at
+//     epsilon's 4,016 bytes). The consumers take a round of consecutive
+//     stages (at most one row a warp, at most half the slots): each warp
+//     sums its row's z from the slot against w cast to X's type, which
+//     sits in shared memory as a row of X's type beside the float32
+//     master; then each thread adds the round's rows, in row order, into
+//     the 16-byte column vectors it owns of the block's partial (k,
+//     k + 512, …), which stay in its registers for the whole step. (Owned
+//     columns summing z as well, reduced across the block, ran twice as
+//     slow at epsilon's 251 vectors a row on an H100: half the threads
+//     own none.) So a row crosses shared memory twice and device memory
+//     once, and the partial reaches device memory once a step (D + 1
+//     floats a block, double-buffered by step parity). The fold
+//     (wide_fold) sums the blocks' partials over S = min(16, blocks)
+//     slices in an order fixed by the block count: B2 spreads it over the
+//     blocks (block k folds its share of the columns, about 1 MB read a
+//     step card-wide) between two of the ring's arrival-counter barriers,
+//     then every block updates its float32 master in shared memory from
+//     the step's sum and recasts w; B1 folds in the last block to
+//     take its ticket, the ring serving as scratch. B1 and B2 share the
+//     plan, the body and the fold, so B2's step t equals B1 at B2's w_t
+//     bit for bit here too. Measured on an H100 at epsilon's shape, the
+//     consumers bound it, as they bound the narrow ring: with the copies
+//     taken out, 125 steps without the update take 7.42 ms against 7.60.
+//   * Rows wider than the wide ring takes keep the wide body (wide_rows),
+//     as B5 does at every width over 2048 bytes: a pass gives each warp
+//     one row, which it reads in turns of 32 vectors against w to find
+//     the residual; then every thread adds the pass's rows, in row order,
+//     to the columns it owns of the block's partial, summed in place in
+//     device memory (L2). B1 and B5 add the partials with
+//     reduce_partials; B2 keeps one cooperative launch and two grid syncs
+//     a step, each block's float32 master in device memory beside the
+//     partials. Any width is taken.
 //   * B6 up to d = 4096: one warp per row with scalar loads, each
 //     lane owning the columns j ≡ lane (mod 32) of its warp's accumulator
 //     in shared memory; the row is read twice, the second time from L1.
@@ -169,6 +199,7 @@ struct Vec<float> {
   __device__ static float scalar(const float* p) { return __ldg(p); }
   __device__ static float value(float x) { return x; }
   __device__ static float quant(float x) { return x; }
+  __device__ static float cast(float x) { return x; }
 };
 
 template <>
@@ -192,6 +223,9 @@ struct Vec<__nv_bfloat16> {
   }
   __device__ static float quant(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  __device__ static __nv_bfloat16 cast(float x) {
+    return __float2bfloat16_rn(x);
   }
 };
 
@@ -824,6 +858,361 @@ __global__ void __launch_bounds__(kRingThreads, 1)
                           counters, partial, w_out);
 }
 
+// ----------------------------------------- B1 and B2 on wide rows: the ring
+
+// 16-byte vectors of a row a consumer thread owns of the block's partial,
+// held in registers: rows of up to kWideMaxVectors vectors (32 KB) take
+// the wide ring
+constexpr int kWideMaxKV = 4;
+constexpr int kWideMaxVectors = kRingConsumers * kWideMaxKV;
+// the fold's slices of blocks (S = min(kWideFoldSlices, blocks)), and the
+// float4s of B2's fold scratch
+constexpr int kWideFoldSlices = 16;
+constexpr int kWideFoldQuads = 256;
+
+// Byte offsets in the wide ring's dynamic shared memory: the ring, the
+// slots' full and empty barriers and row masks (as ring_layout), then w
+// cast to X's type (D elements of X's type, a row's layout), the float32
+// master (D floats), the fold's scratch, a round's rows (two buffers of
+// r, v, present and the row's byte offset, kRingWarps each) and a flag.
+// ops/ssgd_kernels.py::_wide_smem computes the same total.
+struct WideLayout {
+  int full, empty, mask, wq, w, scratch, rows, flag, bytes;
+};
+
+__host__ __device__ inline WideLayout wide_layout(int D, int row_bytes,
+                                                  int stage_bytes,
+                                                  int stages) {
+  WideLayout l;
+  int o = stages * stage_bytes;
+  l.full = o;
+  o += 8 * stages;
+  l.empty = o;
+  o += 8 * stages;
+  l.mask = o;
+  o += 4 * kMaskWords * stages;
+  l.wq = round16(o);
+  l.w = l.wq + row_bytes;  // a whole number of 16-byte vectors
+  l.scratch = l.w + 4 * D;  // D is a multiple of 4
+  l.rows = l.scratch + 16 * kWideFoldQuads;
+  l.flag = l.rows + 4 * 4 * 2 * kRingWarps;
+  l.bytes = l.flag + 16;
+  return l;
+}
+
+// z of a row of L vectors in shared memory against w cast to X's type
+// (wq, laid out as a row), read by one warp in turns of 32 vectors; every
+// lane ends with the same bits.
+template <typename T>
+__device__ __forceinline__ float wide_ring_z(const uint4* row,
+                                             const uint4* wq, int L) {
+  constexpr int N = Vec<T>::N;
+  float z = 0.0f;
+#pragma unroll 4
+  for (int vi = threadIdx.x & 31; vi < L; vi += 32) {
+    float x[N], w[N];
+    Vec<T>::unpack(row[vi], x);
+    Vec<T>::unpack(wq[vi], w);
+#pragma unroll
+    for (int e = 0; e < N; ++e) z = fmaf(x[e], w[e], z);
+  }
+  for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
+  return z;
+}
+
+__device__ __forceinline__ void add4(float4& s, const float4& v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+// The fold of the nb partials part[b·Wp + j] over the column float4s
+// [q0, q1), in an order fixed by nb alone: slice h of S = min(
+// kWideFoldSlices, nb) sums blocks h, h + S, h + 2S, … in order, and the
+// S slice sums add in slice order, into dst (columns >= W not written).
+// A pass takes C = cap / S float4s: consumer thread `it` sums one slice
+// of one float4 into scratch (cap float4s), then each float4 adds its
+// slices. So the sum of a column does not depend on which block folds
+// it, nor on cap. Every consumer thread of the block calls it.
+__device__ void wide_fold(const float* part, int nb, int Wp, int q0, int q1,
+                          float4* scratch, int cap, int W, float* dst) {
+  const int Q = Wp / 4;
+  const int S = min(kWideFoldSlices, nb);
+  const int C = cap / S;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4* p = reinterpret_cast<const float4*>(part);
+  for (int qc = q0; qc < q1; qc += C) {
+    const int nq = min(C, q1 - qc);
+    for (int it = threadIdx.x; it < nq * S; it += kRingConsumers) {
+      const int q = qc + it % nq;
+      const int h = it / nq;
+      float4 s = zero;
+      for (int b0 = h; b0 < nb; b0 += kFoldBatch * S) {
+        float4 v[kFoldBatch];
+#pragma unroll
+        for (int u = 0; u < kFoldBatch; ++u) {
+          const int b = b0 + u * S;
+          v[u] = b < nb ? __ldcg(p + static_cast<size_t>(b) * Q + q) : zero;
+        }
+#pragma unroll
+        for (int u = 0; u < kFoldBatch; ++u) add4(s, v[u]);
+      }
+      scratch[it] = s;
+    }
+    consumer_sync<kRingConsumers>();
+    for (int it = threadIdx.x; it < nq; it += kRingConsumers) {
+      float4 s = scratch[it];
+      for (int h = 1; h < S; ++h) add4(s, scratch[h * nq + it]);
+      const int j = 4 * (qc + it);
+      if (j + 4 <= W) {
+        reinterpret_cast<float4*>(dst)[qc + it] = s;
+      } else {
+        const float v[4] = {s.x, s.y, s.z, s.w};
+        for (int e = 0; j + e < W; ++e) dst[j + e] = v[e];
+      }
+    }
+    consumer_sync<kRingConsumers>();
+  }
+}
+
+// The ring's grid-wide barrier: the block's arrival (ordered after its
+// consumers' writes by the caller's consumer_sync) and the wait until
+// `want` arrivals in all; only the consumer warps take part.
+__device__ __forceinline__ void ring_barrier(unsigned* arrivals,
+                                             unsigned want) {
+  if (threadIdx.x == 0) {
+    arrive_release(arrivals);
+    while (ld_relaxed(arrivals) < want) {
+    }
+    __threadfence();
+  }
+  consumer_sync<kRingConsumers>();
+}
+
+// B1 (TRAIN false) and B2 (TRAIN) on rows of 129 to kWideMaxVectors
+// vectors, on the narrow ring's producer, slots and barriers. Consumers
+// take a round of spr consecutive stages of a step (at most kRingWarps
+// rows): warp w finds row w's residual from the slot against w cast to
+// X's type in shared memory; then thread k adds the round's rows, in row
+// order, into its KV vectors k, k + 512, … of the block's partial, in
+// registers, and the warps release the round's slots. At a step's end
+// the block writes its partial (D + 1 floats, double-buffered by step
+// parity). B1: the last block to take a ticket folds (wide_fold, the
+// ring as scratch) into out = (g, count). B2: a barrier; block k folds
+// its share of the columns into the step's sum (after the partials:
+// W floats); a barrier; every block applies the update to its float32
+// master in shared memory and recasts w. counters as ring_body's.
+template <typename T, int KV, bool TRAIN>
+__device__ __forceinline__ void wide_ring_body(
+    const RingArgs& a, int T_steps, const float* w0, const float* center,
+    float eta, float alpha, int skip_update, unsigned* counters,
+    float* partial, float* out) {
+  constexpr int N = Vec<T>::N;
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  const int D = a.D;
+  const int L = a.L;
+  const int Wp = partial_width(D);
+  const int stage_bytes = a.stage_rows * a.row_bytes;
+  const WideLayout lay = wide_layout(D, a.row_bytes, stage_bytes, a.stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_smem + lay.full);
+  uint64_t* empty = reinterpret_cast<uint64_t*>(ring_smem + lay.empty);
+  uint32_t* mask = reinterpret_cast<uint32_t*>(ring_smem + lay.mask);
+  T* wq = reinterpret_cast<T*>(ring_smem + lay.wq);
+  float* w_s = reinterpret_cast<float*>(ring_smem + lay.w);
+  float4* scratch = reinterpret_cast<float4*>(ring_smem + lay.scratch);
+  float* r_s = reinterpret_cast<float*>(ring_smem + lay.rows);
+  float* v_s = r_s + 2 * kRingWarps;
+  int* ok_s = reinterpret_cast<int*>(v_s + 2 * kRingWarps);
+  int* off_s = ok_s + 2 * kRingWarps;
+  int* flag = reinterpret_cast<int*>(ring_smem + lay.flag);
+  const int nb = gridDim.x;
+  const int r0 = blockIdx.x * a.chunk;
+  const int r1 = min(r0 + a.chunk, a.rows_total);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kRingWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kRingConsumers) {
+    if (threadIdx.x == kRingConsumers)
+      ring_produce(a, T_steps, r0, r1, ring_smem, full, empty, mask);
+    return;
+  }
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int limit = TRAIN ? a.y_col : D;
+  for (int j = tid; j < D; j += kRingConsumers) {
+    const float v = w0[j];
+    w_s[j] = v;
+    wq[j] = Vec<T>::cast(j < limit ? v : 0.0f);
+  }
+  consumer_sync<kRingConsumers>();
+  // a round: spr whole stages, one row a warp, half the slots at most so
+  // that the producer keeps the other half in flight
+  const int spr = min(kRingWarps / a.stage_rows, a.stages / 2);
+  const int round_rows = spr * a.stage_rows;
+  int slot = 0, phase = 0, rb = 0;
+  for (int t = 0; t < T_steps; ++t) {
+    float acc[KV][N] = {};
+    float cnt = 0.0f;
+    for (int i0 = r0; i0 < r1; i0 += round_rows) {
+      const int n = min(round_rows, r1 - i0);
+      const int ns = (n + a.stage_rows - 1) / a.stage_rows;
+      for (int s = 0, sl = slot, ph = phase; s < ns; ++s) {
+        mbar_wait(full + sl, ph);
+        if (++sl == a.stages) {
+          sl = 0;
+          ph ^= 1;
+        }
+      }
+      const int base = rb * kRingWarps;
+      if (warp < n) {
+        const int s = warp / a.stage_rows;
+        const int k = warp - s * a.stage_rows;
+        const int sl = slot + s < a.stages ? slot + s : slot + s - a.stages;
+        const bool ok = (mask[sl * kMaskWords] >> k) & 1u;  // k < 32
+        const int off = sl * stage_bytes + k * a.row_bytes;
+        float r = 0.0f, v = 0.0f;
+        if (ok) {
+          const float z = wide_ring_z<T>(
+              reinterpret_cast<const uint4*>(ring_smem + off),
+              reinterpret_cast<const uint4*>(wq), L);
+          const T* x = reinterpret_cast<const T*>(ring_smem + off);
+          v = Vec<T>::value(x[a.v_col]);
+          r = Vec<T>::quant((sigmoid(z) - Vec<T>::value(x[a.y_col])) * v);
+        }
+        if (lane == 0) {
+          r_s[base + warp] = r;
+          v_s[base + warp] = v;
+          ok_s[base + warp] = ok;
+          off_s[base + warp] = off;
+        }
+      }
+      // the round's r, v, present and offsets are written; a round's
+      // buffer is written again two rounds later, after the next sync
+      consumer_sync<kRingConsumers>();
+      if (tid < L) {
+#pragma unroll
+        for (int u = 0; u < kRingWarps; ++u) {
+          if (u < n && ok_s[base + u]) {
+            const float r = r_s[base + u];
+            const uint4* row =
+                reinterpret_cast<const uint4*>(ring_smem + off_s[base + u]);
+#pragma unroll
+            for (int q = 0; q < KV; ++q) {
+              const int vi = tid + q * kRingConsumers;
+              if (vi < L) {
+                float x[N];
+                Vec<T>::unpack(row[vi], x);
+#pragma unroll
+                for (int e = 0; e < N; ++e)
+                  acc[q][e] = fmaf(r, x[e], acc[q][e]);
+              }
+            }
+          }
+        }
+      }
+      if (tid == 0)
+        for (int u = 0; u < n; ++u) cnt += v_s[base + u];
+      __syncwarp();
+      for (int s = 0; s < ns; ++s) {
+        if (lane == 0) mbar_arrive(empty + slot);
+        if (++slot == a.stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      rb ^= 1;
+    }
+    // the step's partial, double-buffered by step parity as ring_body's
+    float* buf = partial + static_cast<size_t>(t & 1) * nb * Wp;
+    float4* mine = reinterpret_cast<float4*>(
+        buf + static_cast<size_t>(blockIdx.x) * Wp);
+#pragma unroll
+    for (int q = 0; q < KV; ++q) {
+      const int vi = tid + q * kRingConsumers;
+      if (vi < L)
+#pragma unroll
+        for (int h = 0; h < N / 4; ++h)
+          mine[vi * (N / 4) + h] =
+              make_float4(acc[q][4 * h], acc[q][4 * h + 1], acc[q][4 * h + 2],
+                          acc[q][4 * h + 3]);
+    }
+    if (tid == 0) buf[static_cast<size_t>(blockIdx.x) * Wp + D] = cnt;
+    consumer_sync<kRingConsumers>();
+    if (!TRAIN) {
+      if (tid == 0) {
+        __threadfence();
+        *flag = atomicAdd(counters, 1u) == static_cast<unsigned>(nb - 1);
+      }
+      consumer_sync<kRingConsumers>();
+      if (!*flag) return;
+      __threadfence();
+      // every slot has been consumed: the ring is free for the fold
+      wide_fold(partial, nb, Wp, 0, Wp / 4,
+                reinterpret_cast<float4*>(ring_smem),
+                a.stages * stage_bytes / 16, D + 1, out);
+      if (tid == 0) counters[0] = 0u;
+      return;
+    }
+    if (skip_update) continue;
+    float* gsum = partial + 2 * static_cast<size_t>(nb) * Wp;
+    ring_barrier(counters + 1, static_cast<unsigned>(2 * t + 1) * nb);
+    const int Q = Wp / 4;
+    const int share = (Q + nb - 1) / nb;
+    const int q0 = min(static_cast<int>(blockIdx.x) * share, Q);
+    wide_fold(buf, nb, Wp, q0, min(q0 + share, Q), scratch, kWideFoldQuads,
+              Wp, gsum);
+    ring_barrier(counters + 1, static_cast<unsigned>(2 * t + 2) * nb);
+    const float coef = __fdiv_rn(eta, fmaxf(__ldcg(gsum + D), 1.0f));
+    for (int j = tid; j < D; j += kRingConsumers) {
+      const float w_old = w_s[j];
+      const float g = j < a.y_col ? __ldcg(gsum + j) : 0.0f;
+      float w_new = __fsub_rn(w_old, __fmul_rn(coef, g));
+      if (alpha != 0.0f)
+        w_new = __fsub_rn(w_new, __fmul_rn(alpha, __fsub_rn(w_old, center[j])));
+      w_s[j] = w_new;
+      wq[j] = Vec<T>::cast(j < a.y_col ? w_new : 0.0f);
+    }
+    consumer_sync<kRingConsumers>();
+  }
+  if (!TRAIN) return;
+  if (!skip_update && tid == 0 &&
+      atomicAdd(counters + 2, 1u) == static_cast<unsigned>(nb - 1)) {
+    // every block has passed its last barrier: none reads the arrivals
+    counters[1] = 0u;
+    counters[2] = 0u;
+  }
+  if (blockIdx.x == 0)
+    for (int j = tid; j < D; j += kRingConsumers) out[j] = w_s[j];
+}
+
+template <typename T, int KV>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    wide_grad_ring_kernel(RingArgs a, const float* __restrict__ w,
+                          unsigned* counters, float* partial, float* out) {
+  wide_ring_body<T, KV, false>(a, 1, w, nullptr, 0.0f, 0.0f, 0, counters,
+                               partial, out);
+}
+
+// B2's wide ring: the name holds "train_ring_kernel", as B2's kernels'
+// names do (the benchmark finds B2 by them)
+template <typename T, int KV>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    wide_train_ring_kernel(RingArgs a, int T_steps,
+                           const float* __restrict__ w0,
+                           const float* __restrict__ center, float eta,
+                           float alpha, int skip_update, unsigned* counters,
+                           float* partial, float* w_out) {
+  wide_ring_body<T, KV, true>(a, T_steps, w0, center, eta, alpha, skip_update,
+                              counters, partial, w_out);
+}
+
 // ---------------------------------------------- B1, B5, B2 on wide rows
 
 // z of the row at `row` (L vectors), read by one warp in turns of 32
@@ -915,7 +1304,8 @@ __device__ void wide_rows(const T* __restrict__ X, const int* __restrict__ ids,
   if (threadIdx.x == 0) part[D] = cnt;
 }
 
-// B1 and, with SAMPLED, B5 on wide rows, stage 1.
+// B1 on rows wider than the wide ring takes and, with SAMPLED, B5 on
+// rows over 2048 bytes, stage 1.
 template <typename T, bool SAMPLED>
 __global__ void __launch_bounds__(kThreads)
     grad_wide_kernel(const T* __restrict__ X, const int* __restrict__ ids,
@@ -929,11 +1319,11 @@ __global__ void __launch_bounds__(kThreads)
                         rs);
 }
 
-// B2 on wide rows: T steps in one cooperative launch, two grid syncs a
-// step (every block writes its partial; one warp per column sums the
-// partials in block order into the step's sum; every block applies the
-// update to its own float32 master in device memory, wcopy, D floats a
-// block), its partial summed in place (wide_rows).
+// B2 on rows wider than the wide ring takes: T steps in one cooperative
+// launch, two grid syncs a step (every block writes its partial; one warp
+// per column sums the partials in block order into the step's sum; every
+// block applies the update to its own float32 master in device memory,
+// wcopy, D floats a block), its partial summed in place (wide_rows).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     train_wide_kernel(const T* __restrict__ X, const int* __restrict__ idx,
@@ -1024,9 +1414,10 @@ int chunk_rows(int rows_total, int max_blocks, int pass) {
   return (chunk + pass - 1) / pass * pass;
 }
 
-// B1 (ids of n_s blocks of gbr rows) or, with SAMPLED, B5 (ids unused,
-// one "block" of all gbr = n rows, sampled by rs) on rows over 2048
-// bytes: wide_rows' partials, then reduce_partials.
+// B1 (ids of n_s blocks of gbr rows) on rows wider than the wide ring
+// takes or, with SAMPLED, B5 (ids unused, one "block" of all gbr = n
+// rows, sampled by rs) on rows over 2048 bytes: wide_rows' partials,
+// then reduce_partials.
 template <typename T, bool SAMPLED>
 cudaError_t launch_grad_wide_rows(const void* X, const int* ids, int n_s,
                                   int n_blocks, int gbr, int D, int y_col,
@@ -1131,6 +1522,32 @@ cudaError_t ring_v(bool train, RingArgs a, int blocks, size_t smem,
 // stages, which must cover the rows_total sampled rows and fit the
 // shared memory. `work` holds 32 floats (the counters), then the
 // partials: 2 · blocks · partial_width(D) floats.
+// B1's and B2's ring arguments from the plan; false if the plan's blocks,
+// chunk, stage_rows and stages do not cover the rows_total sampled rows.
+template <typename T>
+bool ring_args(const void* X, const int* idx, int n_s, int n_blocks, int gbr,
+               int D, int y_col, int v_col, int blocks, int chunk,
+               int stage_rows, int stages, RingArgs* a) {
+  *a = RingArgs{static_cast<const unsigned char*>(X),
+                idx,
+                n_s,
+                n_blocks,
+                gbr,
+                D,
+                D / Vec<T>::N,
+                y_col,
+                v_col,
+                n_s * gbr,
+                chunk,
+                stage_rows,
+                stages,
+                D * static_cast<int>(sizeof(T))};
+  return blocks >= 1 && chunk >= 1 && stage_rows >= 1 &&
+         stage_rows <= kMaxStageRows && stages >= 2 && stages <= kMaxStages &&
+         static_cast<long long>(blocks) * chunk >= a->rows_total &&
+         static_cast<long long>(blocks - 1) * chunk < a->rows_total;
+}
+
 template <typename T>
 cudaError_t launch_ring(bool train, const void* X, const int* idx,
                         int T_steps, int n_s, int n_blocks, int gbr, int D,
@@ -1149,24 +1566,9 @@ cudaError_t launch_ring(bool train, const void* X, const int* idx,
   const int vpl = L <= kRingVPL2Vectors ? 2 : 4;
   int G = 1;
   while (G * vpl < L) G <<= 1;
-  RingArgs a{static_cast<const unsigned char*>(X),
-             idx,
-             n_s,
-             n_blocks,
-             gbr,
-             D,
-             L,
-             y_col,
-             v_col,
-             n_s * gbr,
-             chunk,
-             stage_rows,
-             stages,
-             D * static_cast<int>(sizeof(T))};
-  if (blocks < 1 || chunk < 1 || stage_rows < 1 ||
-      stage_rows > kMaxStageRows || stages < 2 || stages > kMaxStages ||
-      static_cast<long long>(blocks) * chunk < a.rows_total ||
-      static_cast<long long>(blocks - 1) * chunk >= a.rows_total)
+  RingArgs a;
+  if (!ring_args<T>(X, idx, n_s, n_blocks, gbr, D, y_col, v_col, blocks,
+                    chunk, stage_rows, stages, &a))
     return cudaErrorInvalidValue;
   const size_t smem = ring_layout(D, stage_rows * a.row_bytes, stages).bytes;
   if (smem > static_cast<size_t>(kSmemMax)) return cudaErrorInvalidValue;
@@ -1182,6 +1584,82 @@ cudaError_t launch_ring(bool train, const void* X, const int* idx,
       case 16: launch = ring_v<T, 2, 16>; break;
       default: launch = ring_v<T, 2, 32>; break;
     }
+  return launch(train, a, blocks, smem, T_steps, w0, center, eta, alpha,
+                skip_update, device, counters, partial, out, s);
+}
+
+// Rows over 2048 bytes that the wide ring takes: at most kWideMaxVectors
+// vectors (then w, the master and two stages of one row fit the shared
+// memory, whatever the element type); wider rows take the wide body.
+template <typename T>
+bool wide_ring_row(int D) {
+  return wide_row<T>(D) && D / Vec<T>::N <= kWideMaxVectors;
+}
+
+template <typename T, int KV>
+cudaError_t wide_ring_v(bool train, RingArgs a, int blocks, size_t smem,
+                        int T_steps, const float* w0, const float* center,
+                        float eta, float alpha, int skip_update, int device,
+                        unsigned* counters, float* partial, float* out,
+                        cudaStream_t s) {
+  static bool done[2][64] = {};
+  const bool known = device >= 0 && device < 64;
+  if (!(known && done[train][device])) {
+    const cudaError_t err =
+        train ? cudaFuncSetAttribute(wide_train_ring_kernel<T, KV>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     kSmemMax)
+              : cudaFuncSetAttribute(wide_grad_ring_kernel<T, KV>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     kSmemMax);
+    if (err != cudaSuccess) return err;
+    if (known) done[train][device] = true;
+  }
+  if (!train) {
+    wide_grad_ring_kernel<T, KV><<<blocks, kRingThreads, smem, s>>>(
+        a, w0, counters, partial, out);
+    return cudaGetLastError();
+  }
+  void* args[] = {&a,     &T_steps,     &w0,       &center,  &eta,
+                  &alpha, &skip_update, &counters, &partial, &out};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(wide_train_ring_kernel<T, KV>), dim3(blocks),
+      dim3(kRingThreads), args, smem, s);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// B1 (train false: out = (g, count)) or B2 (train: T steps, out = w) on
+// rows that wide_ring_row takes, on the plan as launch_ring's. `work`
+// holds 32 floats (the counters), the partials (2 · blocks ·
+// partial_width(D) floats), then the step's sum (partial_width(D)).
+template <typename T>
+cudaError_t launch_wide_ring(bool train, const void* X, const int* idx,
+                             int T_steps, int n_s, int n_blocks, int gbr,
+                             int D, int y_col, int v_col, const float* w0,
+                             const float* center, float eta, float alpha,
+                             int skip_update, int blocks, int chunk,
+                             int stage_rows, int stages, int device,
+                             float* work, float* out, cudaStream_t s) {
+  RingArgs a;
+  if (!wide_ring_row<T>(D) ||
+      !ring_args<T>(X, idx, n_s, n_blocks, gbr, D, y_col, v_col, blocks,
+                    chunk, stage_rows, stages, &a) ||
+      stage_rows > kRingWarps ||
+      2LL * T_steps * blocks >= (1LL << 32))  // B2's arrivals, two a step
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      wide_layout(D, a.row_bytes, stage_rows * a.row_bytes, stages).bytes;
+  if (smem > static_cast<size_t>(kSmemMax)) return cudaErrorInvalidValue;
+  unsigned* counters = reinterpret_cast<unsigned*>(work);
+  float* partial = work + 32;
+  auto launch = wide_ring_v<T, 4>;
+  switch ((a.L + kRingConsumers - 1) / kRingConsumers) {
+    case 1: launch = wide_ring_v<T, 1>; break;
+    case 2: launch = wide_ring_v<T, 2>; break;
+    case 3: launch = wide_ring_v<T, 3>; break;
+    default: break;
+  }
   return launch(train, a, blocks, smem, T_steps, w0, center, eta, alpha,
                 skip_update, device, counters, partial, out, s);
 }
@@ -1216,8 +1694,9 @@ cudaError_t train_wide(const void* X, const int* idx, int T_steps, int n_s,
   return cudaGetLastError();
 }
 
-// B1: the ring in one launch, or wide rows' two launches (at most
-// `blocks` blocks; `work` + 32 holds their partials).
+// B1: the ring or the wide ring in one launch, or, on rows too wide for
+// the wide ring, the wide body's two launches (at most `blocks` blocks;
+// `work` + 32 holds their partials).
 template <typename T>
 cudaError_t launch_grad_gathered(const void* X, const int* ids, int n_s,
                                  int n_blocks, int gbr, int D, int y_col,
@@ -1225,6 +1704,10 @@ cudaError_t launch_grad_gathered(const void* X, const int* ids, int n_s,
                                  int chunk, int stage_rows, int stages,
                                  int device, float* work, float* out,
                                  cudaStream_t s) {
+  if (wide_ring_row<T>(D))
+    return launch_wide_ring<T>(false, X, ids, 1, n_s, n_blocks, gbr, D, y_col,
+                               v_col, w, nullptr, 0.0f, 0.0f, 0, blocks, chunk,
+                               stage_rows, stages, device, work, out, s);
   if (wide_row<T>(D))
     return launch_grad_wide_rows<T, false>(X, ids, n_s, n_blocks, gbr, D,
                                            y_col, v_col, w, RowSampler{},
@@ -1234,9 +1717,10 @@ cudaError_t launch_grad_gathered(const void* X, const int* ids, int n_s,
                         stages, device, work, out, s);
 }
 
-// B2: the ring in one cooperative launch, or wide rows' cooperative
-// launch (at most `blocks` blocks; `work` + 32 holds their partials, the
-// step's sum and their masters).
+// B2: the ring or the wide ring in one cooperative launch, or, on rows
+// too wide for the wide ring, the wide body's cooperative launch (at most
+// `blocks` blocks; `work` + 32 holds their partials, the step's sum and
+// their masters).
 template <typename T>
 cudaError_t launch_train(const void* X, const int* idx, int T_steps, int n_s,
                          int n_blocks, int gbr, int D, int y_col, int v_col,
@@ -1244,6 +1728,11 @@ cudaError_t launch_train(const void* X, const int* idx, int T_steps, int n_s,
                          float alpha, int skip_update, int blocks, int chunk,
                          int stage_rows, int stages, int device, float* work,
                          float* w_out, cudaStream_t s) {
+  if (wide_ring_row<T>(D))
+    return launch_wide_ring<T>(true, X, idx, T_steps, n_s, n_blocks, gbr, D,
+                               y_col, v_col, w0, center, eta, alpha,
+                               skip_update, blocks, chunk, stage_rows, stages,
+                               device, work, w_out, s);
   if (wide_row<T>(D)) {
     float* partial = work + 32;
     return train_wide<T>(X, idx, T_steps, n_s, n_blocks, gbr, D, y_col, v_col,

@@ -267,8 +267,13 @@ def train_gathered_reference(X2, w0, block_idx, *, pack: int, d_total: int,
 #: the dynamic shared memory a block may use on an H100
 RING_WARPS, RING_U, RING_VPL2_VECTORS, RING_STAGE_BYTES = 16, 1, 64, 16384
 RING_MAX_STAGES, RING_MAX_STAGE_ROWS, SMEM_MAX = 12, 1024, 232448
-#: rows of more than this many bytes take B1/B2's wide body
+#: rows of more than this many bytes take B1/B2's wide ring
 MAX_RING_ROW_BYTES = 2048
+#: the wide ring (``csrc/ssgd.cu``): 16-byte vectors a consumer thread owns
+#: of a row (rows of up to RING_WARPS·32·WIDE_MAX_KV vectors, 32 KB; wider
+#: rows take the wide body), the float4s of B2's fold scratch
+WIDE_MAX_KV, WIDE_FOLD_QUADS = 4, 256
+WIDE_MAX_VECTORS = RING_WARPS * 32 * WIDE_MAX_KV
 #: floats at the head of a B1/B2 workspace: the launch counters
 WORK_COUNTERS = 32
 
@@ -289,34 +294,66 @@ def _ring_smem(d_total: int, stage_bytes: int, stages: int,
     return o + 4 * max(4 * 32 * RING_WARPS, wp) + 16 + 4 * out_floats
 
 
+def _wide_smem(d_total: int, row_bytes: int, stage_bytes: int,
+               stages: int) -> int:
+    """Bytes of a wide-ring block's dynamic shared memory, as
+    ``csrc/ssgd.cu::wide_layout`` lays it out."""
+    o = stages * (stage_bytes + 16 + 4 * RING_MAX_STAGE_ROWS // 32)
+    o = (o + 15) & ~15
+    return (o + row_bytes + 4 * d_total + 16 * WIDE_FOLD_QUADS
+            + 4 * 4 * 2 * RING_WARPS + 16)
+
+
 @functools.cache
 def gathered_plan(n_rows: int, d_total: int, dtype, n_sm: int) -> dict:
     """B1/B2's launch plan for ``n_rows`` sampled rows of ``d_total``
     columns, from the shapes and the SM count alone (so B1 and B2 add
-    in the same order, and a run replays bit for bit).
+    in the same order, and a run replays bit for bit). ``body`` names
+    the kernels' body, which the row's width alone decides.
 
-    A row is L = d_total·size/16 vectors of 16 bytes; a lane holds
-    ``vpl`` of them (2, or 4 past 64) and G = the least power of two
-    with G·vpl >= L lanes own a row. Block k of
+    A row is L = d_total·size/16 vectors of 16 bytes. Block k of
     ``blocks`` (at most one per SM) takes the sampled rows [k·chunk,
     (k+1)·chunk); its producer copies them in stages of ``stage_rows``
-    rows (a multiple of a consumer pass, about 16 KB) into ``stages``
-    ring slots, as many as the shared memory holds, at most 12.
-    ``workspace`` is the floats the launch needs beside its output: the
-    counters, then the partials of two steps. Rows over 2048 bytes take
-    the wide body (``wide``): at most ``blocks`` = 4 per SM, and room
-    for their partials, the step's sum and the blocks' masters."""
+    whole rows (about 16 KB) into ``stages`` ring slots, as many as the
+    shared memory holds, at most 12. Rows of at most 2048 bytes take
+    the ring (``ring``): a lane holds ``vpl`` of a row's vectors (2, or
+    4 past 64) and G = the least power of two with G·vpl >= L lanes own
+    a row; a stage is a multiple of a consumer pass. Rows of up to
+    WIDE_MAX_VECTORS vectors take the wide ring (``wide_ring``): a
+    consumer warp a row for its residual, a consumer thread ``owned``
+    (at most 4) vectors of the partial, in its registers, the rest of
+    the shared memory holding w cast to X's type and the float32
+    master. ``workspace`` is the floats the launch needs beside its
+    output: the counters, then the partials of two steps (and, on the
+    wide ring, the step's sum). Wider rows take the wide body
+    (``wide``): at most ``blocks`` = 4 per SM, and room for their
+    partials, the step's sum and the blocks' masters."""
     size = as_dtype(dtype).itemsize
     row_bytes = d_total * size
     if row_bytes % 16:
         raise ValueError(f"a row of {d_total} × {size} bytes is not a whole "
                          f"number of 16-byte vectors")
-    if row_bytes > MAX_RING_ROW_BYTES:
+    L = row_bytes // 16
+    wp = (d_total + 4) // 4 * 4
+    if L > WIDE_MAX_VECTORS:
         blocks = 4 * n_sm
-        return dict(wide=True, blocks=blocks, chunk=0, stage_rows=0,
+        return dict(body="wide", blocks=blocks, chunk=0, stage_rows=0,
                     stages=0, workspace=WORK_COUNTERS + (blocks + 1)
                     * (d_total + 1) + blocks * d_total)
-    L = row_bytes // 16
+    if row_bytes > MAX_RING_ROW_BYTES:
+        stage_rows = max(1, RING_STAGE_BYTES // row_bytes)
+        stage_bytes = stage_rows * row_bytes
+        fixed = _wide_smem(d_total, row_bytes, 0, 0)
+        stages = min(RING_MAX_STAGES, (SMEM_MAX - fixed) // (
+            _wide_smem(d_total, row_bytes, stage_bytes, 1) - fixed))
+        chunk = -(-max(n_rows, 1) // n_sm)
+        blocks = -(-max(n_rows, 1) // chunk)
+        return dict(body="wide_ring", vectors=L,
+                    owned=-(-L // (RING_WARPS * 32)), stage_rows=stage_rows,
+                    stage_bytes=stage_bytes, stages=stages, chunk=chunk,
+                    blocks=blocks,
+                    smem=_wide_smem(d_total, row_bytes, stage_bytes, stages),
+                    workspace=WORK_COUNTERS + (2 * blocks + 1) * wp)
     vpl = 2 if L <= RING_VPL2_VECTORS else 4
     G = 1
     while G * vpl < L:
@@ -330,12 +367,11 @@ def gathered_plan(n_rows: int, d_total: int, dtype, n_sm: int) -> dict:
         _ring_smem(d_total, stage_bytes, 1) - fixed))
     chunk = max(-(-max(n_rows, 1) // n_sm), RING_WARPS * (32 // G))
     blocks = -(-max(n_rows, 1) // chunk)
-    return dict(wide=False, vectors=L, lanes=G, vpl=vpl, pass_rows=pass_rows,
-                stage_rows=stage_rows, stage_bytes=stage_bytes,
-                stages=stages, chunk=chunk, blocks=blocks,
-                smem=_ring_smem(d_total, stage_bytes, stages),
-                workspace=WORK_COUNTERS + 2 * blocks * ((d_total + 4)
-                                                       // 4 * 4))
+    return dict(body="ring", vectors=L, lanes=G, vpl=vpl,
+                pass_rows=pass_rows, stage_rows=stage_rows,
+                stage_bytes=stage_bytes, stages=stages, chunk=chunk,
+                blocks=blocks, smem=_ring_smem(d_total, stage_bytes, stages),
+                workspace=WORK_COUNTERS + 2 * blocks * wp)
 
 
 def _workspace(dev, stream: int, floats: int) -> torch.Tensor:
@@ -465,10 +501,13 @@ def fused_grad_sum_gathered(X2, w_aug, block_idx, *, pack: int,
     if rc:
         _native.check(_native.load("ssgd"), rc, "fused_grad_sum_gathered")
     fused_grad_sum_gathered.launches += 1
+    fused_grad_sum_gathered.launches_by_body[plan["body"]] += 1
     return out[:d_total], out[d_total]
 
 
 fused_grad_sum_gathered.launches = 0
+#: B1's and B2's launches by the body that took them (gathered_plan's body)
+fused_grad_sum_gathered.launches_by_body = dict(ring=0, wide_ring=0, wide=0)
 
 
 def fused_grad_sum_packed(X2, w_aug, t: int, shard: int, *, pack: int,
@@ -589,10 +628,12 @@ def fused_train_gathered(X2, w0, block_idx, *, pack: int, d_total: int,
     if rc:
         _native.check(_native.load("ssgd"), rc, "fused_train_gathered")
     fused_train_gathered.launches += 1
+    fused_train_gathered.launches_by_body[plan["body"]] += 1
     return w_out
 
 
 fused_train_gathered.launches = 0
+fused_train_gathered.launches_by_body = dict(ring=0, wide_ring=0, wide=0)
 
 #: B4's launch geometry: 8 warps a block, 4 rows in flight a lane group,
 #: and row chunks sized for about 528 blocks (4 per SM of an H100 SXM, a

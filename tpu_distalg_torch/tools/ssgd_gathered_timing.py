@@ -1,9 +1,12 @@
 """B1 and B2 on the card at bench.py's geometry (1,048,576 rows × 125
 features + bias, bf16 packed X, 8192-row blocks, 13 of 128 sampled a
 step), on the draws the trainer makes, so the rows are cold as a
-training step finds them (27.3 MB a step against a 50 MB L2).
+training step finds them (27.3 MB a step against a 50 MB L2); or, with
+``--geometry epsilon``, at epsilon's (400,000 rows × 2,000 features +
+bias, 4,016-byte rows, 1024-row blocks, 39 of 391 sampled, 160 MB a
+step: the wide ring).
 
-    python -m tpu_distalg_torch.tools.ssgd_gathered_timing
+    python -m tpu_distalg_torch.tools.ssgd_gathered_timing [--geometry epsilon]
 
 Prints one JSON line: the card's name and power limit, then per call
 of B1 (``fused_grad_sum_gathered``) over the first ``B1_DRAWS`` steps'
@@ -27,6 +30,8 @@ import time
 import torch
 
 ROWS, FEATURES, GBR, STEPS, MEGA = 1 << 20, 125, 8192, 1500, 125
+#: (rows, features, block rows) by ``--geometry``
+GEOMETRIES = {"bench": (ROWS, FEATURES, GBR), "epsilon": (400_000, 2000, 1024)}
 #: B1's draws a timing (each call a new draw of 13 blocks); the library
 #: line runs about ten torch ops a call, so it takes fewer to keep its
 #: launches queued behind the sleep
@@ -97,7 +102,8 @@ def trainer_draws(cfg, meta, dev):
         n_s).reshape(STEPS, n_s).contiguous()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import dataclasses
 
     from tpu_distalg_torch.models import ssgd
@@ -105,13 +111,16 @@ def main() -> int:
     from tpu_distalg_torch.parallel import get_mesh
     from tpu_distalg_torch.utils import datasets
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--geometry", choices=sorted(GEOMETRIES), default="bench")
+    rows, features, gbr = GEOMETRIES[ap.parse_args(argv).geometry]
     dev = torch.device("cuda")
     mesh = get_mesh(data=1, device=dev)
-    X, y = datasets.synthetic_two_class(ROWS, FEATURES, seed=0)
+    X, y = datasets.synthetic_two_class(rows, features, seed=0)
     X = datasets.add_bias_column(X)
     cfg = ssgd.SSGDConfig(
         n_iterations=STEPS, eval_test=False, x_dtype="bfloat16",
-        sampler="fused_train", gather_block_rows=GBR, shuffle_seed=0,
+        sampler="fused_train", gather_block_rows=gbr, shuffle_seed=0,
         init_seed=7, mega_steps=MEGA)
     fn_train, X2, w0, meta = ssgd.prepare_fused(X, y, mesh, cfg)
     fn_gather = ssgd.make_train_fn_fused(
@@ -119,8 +128,8 @@ def main() -> int:
     ids = trainer_draws(cfg, meta, dev)
     D, yc, vc = meta["d_total"], meta["y_col"], meta["v_col"]
     kw = dict(pack=meta["pack"], d_total=D, y_col=yc, v_col=vc,
-              gather_block_rows=GBR)
-    blocks = X2.reshape(-1, GBR, D)
+              gather_block_rows=gbr)
+    blocks = X2.reshape(-1, gbr, D)
     wq = w0.to(X2.dtype)
 
     def lib1(ids_l):

@@ -1,7 +1,9 @@
 """Where B1's and B2's time goes on the card: diagnostic builds of
-``csrc/ssgd.cu`` at bench.py's geometry, on the trainer's draws.
+``csrc/ssgd.cu`` at bench.py's geometry, on the trainer's draws; with
+``--geometry epsilon`` at epsilon's 4 KB rows, on the wide ring (base
+and no_copy only: the trace's stamps are in the narrow body).
 
-    python -m tpu_distalg_torch.tools.ssgd_ring_probe
+    python -m tpu_distalg_torch.tools.ssgd_ring_probe [--geometry epsilon] [variant ...]
 
 Each variant is a copy of the package under ``build/ssgd_probe/<name>/``
 whose ``csrc/ssgd.cu`` is edited (the checkout's source is never
@@ -122,7 +124,7 @@ def make_variant(name: str) -> str:
     return root
 
 
-def _setup():
+def _setup(geometry: str):
     import torch
 
     from tpu_distalg_torch.models import ssgd
@@ -130,18 +132,19 @@ def _setup():
     from tpu_distalg_torch.tools import ssgd_gathered_timing as tm
     from tpu_distalg_torch.utils import datasets
 
+    rows, features, gbr = tm.GEOMETRIES[geometry]
     dev = torch.device("cuda", 0)
-    X, y = datasets.synthetic_two_class(tm.ROWS, tm.FEATURES, seed=0)
+    X, y = datasets.synthetic_two_class(rows, features, seed=0)
     X = datasets.add_bias_column(X)
     cfg = ssgd.SSGDConfig(
         n_iterations=tm.STEPS, eval_test=False, x_dtype="bfloat16",
-        sampler="fused_train", gather_block_rows=tm.GBR, shuffle_seed=0,
+        sampler="fused_train", gather_block_rows=gbr, shuffle_seed=0,
         init_seed=7, mega_steps=tm.MEGA)
     _, X2, w0, meta = ssgd.prepare_fused(X, y, get_mesh(data=1, device=dev),
                                          cfg)
     kw = dict(pack=meta["pack"], d_total=meta["d_total"],
               y_col=meta["y_col"], v_col=meta["v_col"],
-              gather_block_rows=tm.GBR)
+              gather_block_rows=gbr)
     return dev, X2, w0, tm.trainer_draws(cfg, meta, dev), kw
 
 
@@ -180,8 +183,8 @@ def _trace(dev, X2, w0, ids, kw) -> dict:
     from tpu_distalg_torch.tools import ssgd_gathered_timing as tm
 
     T, n_s = tm.MEGA, ids.shape[1]
-    plan = tk.gathered_plan(n_s * tm.GBR, kw["d_total"], X2.dtype,
-                            _native.sm_count(dev.index))
+    plan = tk.gathered_plan(n_s * kw["gather_block_rows"], kw["d_total"],
+                            X2.dtype, _native.sm_count(dev.index))
     nb, wp = plan["blocks"], (kw["d_total"] + 4) // 4 * 4
     off = tk.WORK_COUNTERS + 2 * nb * wp
     work = torch.zeros(off + 2 * 8 * nb * T, device=dev)
@@ -218,27 +221,43 @@ def _trace(dev, X2, w0, ids, kw) -> dict:
     return out
 
 
-def run(name: str) -> dict:
+def run(name: str, geometry: str) -> dict:
     """Measure the variant whose package is on sys.path."""
     from tpu_distalg_torch.tools.ssgd_gathered_timing import card
 
-    args = _setup()
-    out = {"variant": name, "card": card()}
+    args = _setup(geometry)
+    out = {"variant": name, "geometry": geometry, "card": card()}
     out.update(_trace(*args) if name == "trace" else _times(*args))
     return out
 
 
 def main(argv=None) -> int:
+    import argparse
+
+    from tpu_distalg_torch.tools import ssgd_gathered_timing as tm
+
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--run"]:
-        print(json.dumps(run(argv[1])))
+        print(json.dumps(run(argv[1], argv[2])))
         return 0
-    for name in argv or list(VARIANTS):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--geometry", choices=sorted(tm.GEOMETRIES),
+                    default="bench")
+    ap.add_argument("variants", nargs="*", help=f"of {list(VARIANTS)}")
+    args = ap.parse_args(argv)
+    names = args.variants or list(VARIANTS)
+    if set(names) - set(VARIANTS):
+        ap.error(f"unknown variants {sorted(set(names) - set(VARIANTS))}")
+    if args.geometry != "bench":
+        if "trace" in args.variants:
+            ap.error("the trace variant stamps the narrow body only")
+        names = [n for n in names if n != "trace"]
+    for name in names:
         root = make_variant(name)
         env = dict(os.environ, PYTHONPATH=root)
         subprocess.run([sys.executable, "-m",
                         "tpu_distalg_torch.tools.ssgd_ring_probe", "--run",
-                        name], cwd=root, env=env, check=True)
+                        name, args.geometry], cwd=root, env=env, check=True)
     return 0
 
 
